@@ -1,0 +1,510 @@
+"""Database session: the front door from an FRA query to a compiled
+gradient step, on one device.
+
+``Database`` (re-exported as ``repro_torch.Database``) owns the **catalog**
+a relational system keeps — named relations with schemas (key attribute
+names) and tracked key-domain statistics (``planner.RelationStats``,
+refreshed on ``db.put``) — plus the session's device and kernel dispatch
+table, and one query path::
+
+    db = repro_torch.Database()                   # device "cuda"
+    db.put("Rx", X, keys=("row", "col"))
+    db.put("Ry", y, keys=("row",))
+    db.put("theta", theta, keys=("col",))
+    handle = db.query(logreg_query)               # an fra.Query
+    loss = handle.forward()
+    grads = handle.grad()                         # RA-autodiff, compiled
+    loss, grads = handle.step()                   # the training hot path
+
+``forward`` / ``grad`` / ``step`` lower → compile through the staged engine
+(core/engine.py) and source everything from the catalog: relation
+environments by name, the statistics snapshot the rewrite stage prices
+with, and the dispatch table.
+
+A session runs on ``device="cuda"`` unless the caller asks for another
+device; it raises where there is no GPU rather than run on the CPU unasked.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+from collections import OrderedDict
+from dataclasses import dataclass
+from typing import Dict, Iterator, Optional, Sequence, Tuple, Union
+
+import torch
+
+from . import engine as _engine
+from . import fra, kernels, planner
+from . import rewrite as _rewrite
+from .autodiff import GradientProgram, ra_autodiff
+from .relation import CooRelation, DenseRelation, measure_stats, to_device
+
+AnyRel = Union[DenseRelation, CooRelation]
+
+
+class CatalogError(KeyError):
+    """A query referenced a relation the session's catalog does not hold
+    (or holds in an unusable state, e.g. donated to a compiled step)."""
+
+    def __str__(self) -> str:  # KeyError repr()s its args; keep prose
+        return self.args[0] if self.args else ""
+
+
+@dataclass
+class TableEntry:
+    """One catalog row: a named relation plus what the optimizer knows
+    about it."""
+
+    name: str
+    relation: AnyRel
+    #: key attribute names (the schema; positional order = key dims).
+    key_attrs: Tuple[str, ...]
+    #: tracked key-domain statistics (refreshed on ``Database.put``).
+    stats: planner.RelationStats
+    #: True once the relation was handed to a step as donated — the entry
+    #: must be re-``put`` before it can be read again.
+    donated: bool = False
+
+
+class Catalog:
+    """Named relations + schemas + statistics."""
+
+    def __init__(self) -> None:
+        self._tables: "OrderedDict[str, TableEntry]" = OrderedDict()
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._tables
+
+    def __iter__(self) -> Iterator[str]:
+        return iter(self._tables)
+
+    def __len__(self) -> int:
+        return len(self._tables)
+
+    def entry(self, name: str) -> TableEntry:
+        try:
+            return self._tables[name]
+        except KeyError:
+            raise CatalogError(
+                f"relation {name!r} is not in the catalog "
+                f"(tables: {sorted(self._tables)}); db.put(...) it first"
+            ) from None
+
+    def items(self):
+        return self._tables.items()
+
+    def put(
+        self,
+        name: str,
+        relation: AnyRel,
+        key_attrs: Optional[Sequence[str]] = None,
+    ) -> TableEntry:
+        prev = self._tables.get(name)
+        if key_attrs is None:
+            if prev is not None and len(prev.key_attrs) == relation.key_arity:
+                key_attrs = prev.key_attrs  # keep the declared schema
+            else:
+                key_attrs = tuple(f"k{i}" for i in range(relation.key_arity))
+        key_attrs = tuple(key_attrs)
+        if len(key_attrs) != relation.key_arity:
+            raise ValueError(
+                f"relation {name!r}: {len(key_attrs)} key attribute name(s) "
+                f"{key_attrs} for key arity {relation.key_arity}"
+            )
+        entry = TableEntry(name, relation, key_attrs, measure_stats(relation))
+        self._tables[name] = entry
+        return entry
+
+    def drop(self, name: str) -> None:
+        self._tables.pop(name, None)
+
+    def schema(self) -> Dict[str, Tuple[str, ...]]:
+        """{relation: key attribute names}."""
+        return {n: e.key_attrs for n, e in self._tables.items()}
+
+    def snapshot(
+        self, names: Optional[Sequence[str]] = None
+    ) -> Dict[str, planner.RelationStats]:
+        """Cheap, hashable statistics snapshot (the ``stats=`` argument of
+        ``RAEngine.lower``). ``names`` restricts the snapshot to the given
+        relations, so that the snapshot (a cache key component) is
+        insensitive to updates of unrelated catalog tables."""
+        if names is None:
+            return {n: e.stats for n, e in self._tables.items()}
+        return {
+            n: self._tables[n].stats for n in names if n in self._tables
+        }
+
+
+# ---------------------------------------------------------------------------
+# The session
+# ---------------------------------------------------------------------------
+
+#: ambient session stack (ContextVar: concurrent threads/tasks see only
+#: their own ``Database.activate`` nesting).
+_SESSION_STACK: "contextvars.ContextVar[Tuple[Database, ...]]" = (
+    contextvars.ContextVar("repro_torch_session_stack", default=())
+)
+_PROCESS_DEFAULT: Optional["Database"] = None
+
+
+def current() -> "Database":
+    """The ambient session: the innermost ``Database.activate`` block's
+    session, else a process-wide default ``Database()`` (device "cuda").
+    The relational operator layer (``rel_matmul``, ``gcn_conv``) steps
+    through this, so activating a session picks the device and dispatch
+    table of those ops without new arguments crossing the
+    ``torch.autograd.Function`` boundary."""
+    stack = _SESSION_STACK.get()
+    if stack:
+        return stack[-1]
+    global _PROCESS_DEFAULT
+    if _PROCESS_DEFAULT is None:
+        _PROCESS_DEFAULT = Database()
+    return _PROCESS_DEFAULT
+
+
+def _resolve_device(device) -> torch.device:
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch.Database runs on a CUDA device and none is available; "
+            "pass device='cpu' to run on the CPU"
+        )
+    return dev
+
+
+class Database:
+    """A session: catalog + statistics + device + dispatch table, and the
+    one query path from an FRA query to a compiled gradient step.
+
+    ``device`` is where the session's relations live and its steps run
+    (default ``"cuda"``; raises if no GPU is present — pass
+    ``device="cpu"`` for the CPU). ``dispatch`` takes anything
+    ``kernels.make_table`` accepts and pins the kernel tier for every
+    query compiled in this session. ``rewrite`` configures the cost-gated
+    rewrite stage (True — the default — enables the full rule set, False
+    disables it, a ``rewrite.RuleSet`` or an iterable of rule names
+    selects rules).
+    """
+
+    def __init__(
+        self,
+        device=None,
+        *,
+        dispatch=None,
+        rewrite=True,
+        fuse_join_agg: bool = True,
+    ) -> None:
+        self.device = _resolve_device(device)
+        self.catalog = Catalog()
+        #: the session's enabled rewrite rules (None = stage off).
+        self.rewrite_rules = _rewrite.make_rules(rewrite)
+        self.dispatch = kernels.make_table(dispatch, backend=self.device.type)
+        self.fuse_join_agg = fuse_join_agg
+
+    # -- catalog front door ------------------------------------------------
+
+    def put(
+        self,
+        name: str,
+        value,
+        *,
+        keys: Optional[Sequence[str]] = None,
+    ) -> "Database":
+        """Register (or update) a named relation on the session's device
+        and refresh its tracked statistics. ``value`` is a relation, or an
+        array (tensor or numpy) made into a ``DenseRelation`` whose key
+        arity is ``len(keys)`` (every dim when ``keys`` is None) — the
+        leading dims are the key grid, the rest the tuple chunk. Returns
+        the session for chaining."""
+        if not isinstance(value, (DenseRelation, CooRelation)):
+            arr = torch.as_tensor(value, device=self.device)
+            arity = arr.dim() if keys is None else len(tuple(keys))
+            value = DenseRelation(arr, arity)
+        self.catalog.put(name, to_device(value, self.device), keys)
+        return self
+
+    def get(self, name: str) -> AnyRel:
+        """The named relation (raises ``CatalogError`` when absent or
+        when it was donated to a compiled step)."""
+        e = self.catalog.entry(name)
+        if e.donated:
+            raise CatalogError(
+                f"relation {name!r} was donated to a compiled step; "
+                f"db.put(...) its updated value before reading it again"
+            )
+        return e.relation
+
+    def __contains__(self, name: str) -> bool:
+        return name in self.catalog
+
+    def drop(self, name: str) -> None:
+        self.catalog.drop(name)
+
+    def stats(self, name: str) -> planner.RelationStats:
+        """The tracked key-domain statistics of one relation."""
+        return self.catalog.entry(name).stats
+
+    def schema(self, name: str) -> Tuple[str, ...]:
+        """The key attribute names of one relation."""
+        return self.catalog.entry(name).key_attrs
+
+    @contextlib.contextmanager
+    def activate(self):
+        """Make this the ambient session of the block: the relational
+        operator layer (and any code calling ``session.current()``) runs
+        through it."""
+        token = _SESSION_STACK.set(_SESSION_STACK.get() + (self,))
+        try:
+            yield self
+        finally:
+            _SESSION_STACK.reset(token)
+
+    # -- query front door --------------------------------------------------
+
+    def query(
+        self, q: Union[fra.Query, fra.Node], *, wrt: Optional[Sequence[str]] = None
+    ) -> "QueryHandle":
+        """Wrap an FRA query (or bare graph root) built in code. ``wrt``
+        defaults to the query's declared inputs (for a bare node: its
+        table scans)."""
+        if isinstance(q, fra.Node):
+            inputs = tuple(sorted({s.name for s in q.table_scans()}))
+            q = fra.Query(q, inputs)
+        if wrt is not None:
+            missing = set(wrt) - set(q.inputs)
+            if missing:
+                raise ValueError(
+                    f"wrt relations {sorted(missing)} are not inputs of the "
+                    f"query (inputs: {q.inputs})"
+                )
+        return QueryHandle(self, q, default_wrt=None if wrt is None else tuple(wrt))
+
+    # -- staged execution (the engine underneath) --------------------------
+
+    def _compiled_for(
+        self,
+        program,
+        env: Dict[str, AnyRel],
+        seed: Optional[AnyRel] = None,
+        *,
+        stats: Optional[Dict[str, planner.RelationStats]] = None,
+    ) -> _engine.Compiled:
+        eng = _engine.engine_for(program, fuse_join_agg=self.fuse_join_agg)
+        low = eng.lower(
+            env,
+            seed,
+            dispatch=self.dispatch,
+            stats=stats,
+            rewrite=self.rewrite_rules,
+        )
+        return low.compile()
+
+    def _catalog_stats_for(
+        self, env: Dict[str, AnyRel]
+    ) -> Optional[Dict[str, planner.RelationStats]]:
+        """Tracked statistics for the env relations that match a catalog
+        table of the same name, layout class and key-domain extents — the
+        guard that lets anonymous wrapper environments (whose names are
+        program-local, e.g. the GCN's ``Edge``/``Node``) pick up catalog
+        statistics without a same-named but unrelated table leaking in."""
+        out: Dict[str, planner.RelationStats] = {}
+        for name, rel in env.items():
+            if name not in self.catalog:
+                continue
+            e = self.catalog.entry(name)
+            if (
+                type(rel) is type(e.relation)
+                and rel.key_arity == len(e.stats.distinct)
+                and tuple(int(x) for x in rel.extents) == e.stats.extents
+            ):
+                out[name] = e.stats
+        return out or None
+
+    def execute(
+        self,
+        program,
+        env: Dict[str, AnyRel],
+        seed: Optional[AnyRel] = None,
+        *,
+        stats: Optional[Dict[str, planner.RelationStats]] = None,
+    ):
+        """Staged execution of a program over an *anonymous* environment
+        (relations passed directly rather than named in the catalog) — the
+        path the relational operator layer steps through. The environment
+        must lie on the session's device; when an env relation matches a
+        registered catalog table by name, layout class and extents, that
+        relation's tracked statistics feed the rewrite gate."""
+        if stats is None:
+            stats = self._catalog_stats_for(env)
+        compiled = self._compiled_for(program, env, seed, stats=stats)
+        return compiled(env, seed)
+
+
+# ---------------------------------------------------------------------------
+# QueryHandle: a differentiable, compiled query over the catalog
+# ---------------------------------------------------------------------------
+
+
+def _base_names(roots) -> Tuple[str, ...]:
+    """Base-relation names a set of graph roots read from the catalog:
+    TableScan names plus Const refs, excluding the engine-internal
+    ``__seed`` / ``__fwd_*`` references."""
+    names = set()
+    for root in roots:
+        for node in root.topo():
+            if isinstance(node, fra.TableScan):
+                names.add(node.name)
+            elif isinstance(node, fra.Const) and not node.ref.startswith("__"):
+                names.add(node.ref)
+    return tuple(sorted(names))
+
+
+class QueryHandle:
+    """A differentiable query bound to a session's catalog.
+
+    ``forward()`` runs the query; ``grad(wrt=...)`` runs the
+    RA-autodiff-generated gradient queries; ``step(donate=...)`` is the
+    training hot path — forward + all gradients in one compiled
+    executable. All three source relations, statistics and the dispatch
+    table from the catalog, and reuse their lowering across calls (one
+    lowering per environment signature)."""
+
+    def __init__(
+        self,
+        db: Database,
+        query: fra.Query,
+        *,
+        default_wrt: Optional[Tuple[str, ...]] = None,
+    ):
+        self.db = db
+        self.query = query
+        #: default gradient targets when grad/step get no ``wrt``.
+        self.default_wrt = default_wrt
+        self._grad_progs: Dict[Tuple[str, ...], GradientProgram] = {}
+        self._full_prog: Optional[GradientProgram] = None
+        #: the most recently used Compiled (resolutions, dispatch).
+        self.last: Optional[_engine.Compiled] = None
+
+    def _env(self, names: Sequence[str]) -> Dict[str, AnyRel]:
+        return {n: self.db.get(n) for n in names}
+
+    # -- the three entry points --------------------------------------------
+
+    def forward(self):
+        """Execute the (forward) query; returns its output relation."""
+        names = _base_names([self.query.root])
+        env = self._env(names)
+        compiled = self.db._compiled_for(
+            self.query, env, stats=self.db.catalog.snapshot(names)
+        )
+        self.last = compiled
+        return compiled(env)
+
+    def _program(self, wrt: Optional[Sequence[str]]) -> GradientProgram:
+        if wrt is None:
+            wrt = self.default_wrt
+        if self._full_prog is None:
+            if not self.query.inputs:
+                raise ValueError(
+                    "query has no differentiable inputs; declare inputs on "
+                    "the fra.Query"
+                )
+            self._full_prog = ra_autodiff(self.query)
+        if wrt is None:
+            return self._full_prog
+        wrt = tuple(wrt)
+        missing = set(wrt) - set(self._full_prog.grads)
+        if missing:
+            raise ValueError(
+                f"no gradient for {sorted(missing)}; differentiable inputs "
+                f"are {sorted(self._full_prog.grads)}"
+            )
+        prog = self._grad_progs.get(wrt)
+        if prog is None:
+            prog = GradientProgram(
+                self._full_prog.forward,
+                {n: self._full_prog.grads[n] for n in wrt},
+                wrt,
+            )
+            self._grad_progs[wrt] = prog
+        return prog
+
+    def _seed_rel(self, seed) -> Optional[AnyRel]:
+        if seed is None or isinstance(seed, (DenseRelation, CooRelation)):
+            return seed
+        return DenseRelation(
+            torch.as_tensor(seed, device=self.db.device), self.query.root.key_arity
+        )
+
+    def _run_grad(
+        self,
+        wrt: Optional[Sequence[str]],
+        seed,
+        donate: Tuple[str, ...],
+    ):
+        prog = self._program(wrt)
+        names = _base_names(
+            [prog.forward.root, *prog.grads.values()]
+        )
+        env = self._env(names)
+        bad = set(donate) - set(env)
+        if bad:
+            raise ValueError(
+                f"cannot donate {sorted(bad)}: not relations of this query "
+                f"(env: {sorted(env)})"
+            )
+        seed_rel = self._seed_rel(seed)
+        compiled = self.db._compiled_for(
+            prog, env, seed_rel, stats=self.db.catalog.snapshot(names)
+        )
+        self.last = compiled
+        out, grads = compiled(env, seed_rel)
+        for n in donate:
+            self.db.catalog.entry(n).donated = True
+        return out, grads
+
+    def grad(self, *, wrt: Optional[Sequence[str]] = None, seed=None):
+        """Gradients of the query output w.r.t. the (``wrt``-selected)
+        differentiable inputs: ``{name: relation}``. ``seed`` is the
+        output cotangent (default: ones — requires a scalar-loss
+        output); arrays are wrapped at the output's key arity."""
+        _, grads = self._run_grad(wrt, seed, ())
+        return grads
+
+    def step(
+        self,
+        *,
+        wrt: Optional[Sequence[str]] = None,
+        seed=None,
+        donate: Tuple[str, ...] = (),
+    ):
+        """One compiled training step: ``(output, gradients)``. ``donate``
+        names catalog relations the caller hands over to the step (the
+        parameters it is about to replace) — a donated relation must be
+        re-``put`` before its next read, and the catalog enforces that."""
+        return self._run_grad(wrt, seed, tuple(donate))
+
+    # -- introspection -----------------------------------------------------
+
+    @property
+    def lower_count(self) -> int:
+        """Lowerings made for this handle's query and gradient programs —
+        one per environment signature however many steps ran."""
+        progs = [self.query, *self._grad_progs.values()]
+        if self._full_prog is not None:
+            progs.append(self._full_prog)
+        return sum(
+            _engine.engine_for(p, fuse_join_agg=self.db.fuse_join_agg).lower_count
+            for p in progs
+        )
+
+    @property
+    def resolutions(self) -> Dict[str, str]:
+        """Kernel-dispatch decisions of the most recent executable."""
+        if self.last is None:
+            raise ValueError("no compiled step yet: call forward/grad/step")
+        return self.last.resolutions
