@@ -7,7 +7,8 @@ Phases, in order; any failure stops the run with a non-zero exit:
 
 1. build the CUDA kernels from ``src/repro_torch/kernels/csrc``;
 2. hold each kernel against its plain PyTorch version on the card, at the
-   GCN slice's shapes and at edge cases, within a stated tolerance;
+   shapes of both main paths and at edge cases, within a stated tolerance,
+   with planted faults that the tolerance must catch;
 3. train the two-layer GCN of examples/gcn_train.py full-graph at
    ogbn-arxiv size (169,343 nodes, 1,166,243 edges + self loops, 128
    features, 40 classes, hidden 256) for 5 Adam steps through
@@ -16,8 +17,18 @@ Phases, in order; any failure stops the run with a non-zero exit:
    ``torch`` tier;
 4. step the FRA logistic regression (paper §2.3, 1,048,576 × 64) through
    ``Database.query(...).step()``;
-5. time each kernel at the shapes of one GCN step beside its plain
-   version, one PyTorch library call and the card's bound.
+5. serve falcon-mamba-7b at its published widths and depth (d_model 4096,
+   64 Mamba-1 layers, state 16, vocab 65,024; f32 instead of the published
+   bf16, random weights from a seed): prefill a batch of 2 prompts of 1,024
+   tokens, then 8 greedy decode steps, through ``build_model``,
+   ``make_prefill_step`` and ``make_decode_step``; check that every
+   projection and the embedding ran on the cuda tier, that ``ssm_scan``
+   launched once per layer in the prefill and never in decode, and that the
+   logits agree with the plain tier and with a prefill over the prompt plus
+   the first decoded token;
+6. time each kernel at the shapes of both main paths beside its plain
+   version, one PyTorch library call (where there is one) and the card's
+   bound.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is one JSON object with a record per kernel, and the line
@@ -62,6 +73,40 @@ RJP_SHAPES = (
 #: plain version, and a weight gradient of the cuda tier against the torch
 #: tier's
 MATMUL_LIMIT, GRAD_LIMIT = 8, 2
+#: the GCN path's kernels (ssm_scan is the LM path's)
+GCN_KERNELS = ("segment_sum", "gather_join", "blocked_matmul")
+
+# falcon-mamba-7b serving (src/repro_torch/configs/falcon_mamba_7b.py at its
+# published widths and depth, f32): a batch of 2 prompts of 1,024 tokens,
+# then 8 greedy decode steps
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_DECODE = "falcon-mamba-7b", 2, 1024, 8
+LM_PARAMS = 7_272_665_088
+#: (C, N) of the prefill's scan: d_inner = 2·4096 channels, state 16
+LM_SCAN = (8192, 16)
+#: the prefill logits of the cuda tier against the torch tier, as a share
+#: of the largest logit. Each of the 321 products of a forward differs
+#: between the tiers by about √K·u of its size (K ≤ 8,192: 5.4e-6) and the
+#: scans by a few roundings; as a random walk over the products that is
+#: ≈ 1e-4 of the logits' scale. The limit allows 10 times that for the
+#: growth of an error through 64 layers of random weights.
+LM_PREFILL_LIMIT = 1e-3
+#: decode step 1 against a prefill over the prompt plus its token, as a
+#: share of the largest logit. Both run the same kernels on the same
+#: weights, and a row of a product sums its K terms in the same order at
+#: m = 2 and m = 2,050; only a few sums per layer (the recurrence step, the
+#: readout einsum) round in another order. So the gap lies well below the
+#: tier check's ≈ 1e-4, which the limit takes. Phase 5 plants a lost conv
+#: window and a lost SSM state in one layer and shows both exceed it.
+LM_DECODE_LIMIT = 1e-4
+
+
+def lm_weights(cfg):
+    """{(k, n): sites per forward} of falcon-mamba's products: in_proj,
+    x_proj, dt_proj and out_proj once per layer, the head once."""
+    d, c, r = cfg.d_model, cfg.ssm_expand * cfg.d_model, cfg.d_model // 16
+    layers = cfg.n_layers
+    return {(d, 2 * c): layers, (c, r + 2 * cfg.ssm_state): layers, (r, c): layers,
+            (c, d): layers, (d, cfg.vocab): 1}
 
 
 def log(*parts) -> None:
@@ -97,7 +142,7 @@ def excess(err, limit) -> float:
 # ---------------------------------------------------------------------------
 
 
-def check_kernels(torch, kern, graph, dev):
+def check_kernels(torch, kern, graph, lm_cfg, dev):
     from repro_torch.kernels.gather.ref import gather_rows_ref
     from repro_torch.kernels.matmul.ref import matmul_ref
     from repro_torch.kernels.segsum.ref import segment_sum_ref
@@ -156,7 +201,7 @@ def check_kernels(torch, kern, graph, dev):
             raise AssertionError(f"blocked_matmul outside its tolerance ({what})")
         if err.numel():
             errs["blocked_matmul"] = max(errs["blocked_matmul"], float(err.max()))
-        if k >= 1 << 16:
+        if k >= 4096:
             # the limit must fail a wrong product at this K: plant two faults
             tile = slice(k // 2, k // 2 + 16)  # one of the kernel's K-tiles
             for fault, bad in (("zeros", torch.zeros_like(got)),
@@ -190,7 +235,114 @@ def check_kernels(torch, kern, graph, dev):
         (1, LOGREG_ROWS, LOGREG_COLS, "logreg dθ"),
     ):
         matmul_case(m, k, n, what)
+
+    # falcon-mamba serving: each projection at m = B·S (prefill) and m = B
+    # (decode), the head at m = B only (prefill keeps the last position);
+    # the embedding's join by token id and its Σ by position
+    for (k, n), sites in lm_weights(lm_cfg).items():
+        for m in ((LM_BATCH,) if sites == 1 else (LM_BATCH * LM_PROMPT, LM_BATCH)):
+            matmul_case(m, k, n, "falcon-mamba " + ("head" if sites == 1 else "projection"))
+    for e in (LM_BATCH * LM_PROMPT, LM_BATCH):
+        tokens = torch.randint(0, lm_cfg.vocab, (e,), generator=gen, device=dev, dtype=torch.int32)
+        gather_case(lm_cfg.vocab, tokens, lm_cfg.d_model, "falcon-mamba embedding (rows = tokens)")
+        positions = torch.arange(e, device=dev, dtype=torch.int32)
+        segsum_case(e, positions, lm_cfg.d_model, "falcon-mamba embedding (seg = positions)")
     return errs
+
+
+def scan_limit(torch, a, b, reverse=False):
+    """Per entry of the scan of (a, b), 2·(t+1)·u times the scan of (|a|,
+    |b|) at step t (t counted along the walk): the size of the f32 rounding
+    error of a recurrence of t+1 steps, each rounding once in the multiply
+    and once in the add, with |a| ≤ 1 so no earlier error grows."""
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+
+    steps = torch.arange(1, a.shape[1] + 1, device=a.device, dtype=torch.float64)
+    if reverse:
+        steps = steps.flip(0)
+    mag = ssm_scan_ref(a.abs().float(), b.abs().float(), reverse).double()
+    return 2 * steps[None, :, None, None] * U32 * mag
+
+
+def check_ssm_scan(torch, dev):
+    """The scan kernel against its plain version (the time loop, which does
+    the kernel's arithmetic in the kernel's order) and its autograd backward
+    against the plain version's autograd. Returns the largest |kernel −
+    plain| over the cases."""
+    from repro_torch.kernels import ssm_scan
+    from repro_torch.kernels.ssm_scan.ops import ssm_scan_forward
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    lm = (LM_BATCH, LM_PROMPT) + LM_SCAN
+    worst_err = 0.0
+
+    def inputs(shape, dtype):
+        # decays of the LM's range: exp(−dt·A) with dt ∈ (0, 1), A ∈ [1, 16]
+        dt = torch.rand(shape, generator=gen, device=dev)
+        a_rate = torch.randint(1, 17, shape, generator=gen, device=dev).float()
+        a = torch.exp(-dt * a_rate).to(dtype)
+        b = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        return a, b
+
+    for shape, dtype, reverse, what in (
+        (lm, torch.float32, False, "slice prefill shape"),
+        (lm, torch.float32, True, "slice prefill shape, reverse (the VJP's walk)"),
+        ((LM_BATCH, 1) + LM_SCAN, torch.float32, False, "S=1"),
+        ((3, 37, 5, 3), torch.float32, False, "C·N=15 lanes, not a multiple of the block"),
+        ((1, 777) + LM_SCAN, torch.float32, False, "B=1, odd S"),
+        ((4, 256, 2048, 16), torch.bfloat16, False, "bf16 in and out, B=4"),
+        ((2, 300, 999, 16), torch.bfloat16, True, "bf16, reverse, ragged lanes"),
+    ):
+        a, b = inputs(shape, dtype)
+        got = ssm_scan_forward(a, b, reverse=reverse)
+        want = ssm_scan_ref(a, b, reverse=reverse)
+        torch.cuda.synchronize()
+        limit = scan_limit(torch, a, b, reverse)
+        if dtype == torch.bfloat16:
+            # the f32 states agree within the limit; each is then rounded
+            # once to bf16 (2⁻⁸ of its size)
+            limit = limit + 2.0 ** -8 * want.double().abs()
+        err = (got.double() - want.double()).abs()
+        ratio = excess(err, limit)
+        exact = torch.equal(got, want)
+        log(f"  ssm_scan {what}: {tuple(shape)} {str(dtype).split('.')[1]} "
+            f"max_abs_err={float(err.max()):.3e} bit-exact={exact} err/limit={ratio:.3e} "
+            f"(limit 2·(t+1)·u·scan(|a|,|b|) per entry{' + one bf16 rounding' if dtype == torch.bfloat16 else ''})")
+        if ratio > 1.0:
+            raise AssertionError(f"ssm_scan outside its tolerance ({what})")
+        worst_err = max(worst_err, float(err.max()))
+        if shape == lm and not reverse:
+            # the limit must fail a wrong scan: plant two faults at t0
+            t0 = LM_PROMPT // 2
+            reset, skip_a, skip_b = a.clone(), a.clone(), b.clone()
+            reset[:, t0] = 0                       # the state reset at t0
+            skip_a[:, t0], skip_b[:, t0] = 1, 0    # step t0 skipped
+            for fault, (fa, fb) in ((f"state reset at t={t0}", (reset, b)),
+                                    (f"step t={t0} skipped", (skip_a, skip_b))):
+                bad = ssm_scan_ref(fa, fb)
+                seen = excess((bad.double() - want.double()).abs(), limit)
+                log(f"    planted fault ({fault}): err/limit={seen:.3e}, must exceed 1")
+                if seen <= 1.0:
+                    raise AssertionError(f"the ssm_scan limit passes a wrong scan ({fault})")
+            del reset, skip_a, skip_b, bad
+        del a, b, got, want, limit, err
+
+    # the backward: a reverse scan on the kernel against autograd through
+    # the plain time loop. Values of order 1 and 40 steps each rounding
+    # twice: both lie within 80·u ≈ 5e-6 of the exact gradient, relative.
+    shape = (2, 40, 6, 4)
+    a, b = inputs(shape, torch.float32)
+    grads = []
+    for fn in (ssm_scan, ssm_scan_ref):
+        ta, tb = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
+        torch.tanh(fn(ta, tb)).sum().backward()
+        grads.append((ta.grad, tb.grad))
+    for name, got, want in zip(("∂a", "∂b"), *grads):
+        err = float((got - want).abs().max())
+        log(f"  ssm_scan backward {name} {shape}: max_abs_err={err:.3e} (tol 1e-5 abs + 1e-5 rel)")
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    return worst_err
 
 
 # ---------------------------------------------------------------------------
@@ -309,7 +461,7 @@ def gcn_phase(torch, repro_torch, kern, data, params0):
         raise AssertionError(f"dispatch sites not on the cuda tier: {bad or 'none recorded'}")
     for op, n in launches.items():
         log(f"  launches of {op}: {n} in {GCN_STEPS} steps ({n / GCN_STEPS:g} per step)")
-        if n <= 0:
+        if op in GCN_KERNELS and n <= 0:
             raise AssertionError(f"{op}: its CUDA kernel never launched on the main path")
     log(f"  cuda tier losses: {losses}")
     if not all(math.isfinite(v) for v in losses):
@@ -428,7 +580,198 @@ def logreg_phase(torch, repro_torch, kern, dev):
 
 
 # ---------------------------------------------------------------------------
-# Phase 5: timings at the shapes of one GCN step
+# Phase 5: falcon-mamba-7b serving at full width
+# ---------------------------------------------------------------------------
+
+
+def new_sites(engines, seen, table):
+    """(program, key, op, tier, info) of every dispatch site lowered under
+    ``table`` by the engines since ``seen`` (their lowerings' ids) was
+    taken — each site is one signature, run once per call of its program."""
+    out = []
+    for label, eng in engines.items():
+        for low in eng.lowerings:
+            if id(low) not in seen[label] and low.dispatch == table:
+                for s in low.resolutions.sites:
+                    out.append((label, s.key, s.op, s.tier, s.info_dict()))
+    return out
+
+
+def logit_gap(got, want) -> float:
+    """max |got − want| as a share of max |want|."""
+    return float((got.double() - want.double()).abs().max() / want.double().abs().max())
+
+
+def lm_phase(torch, repro_torch, kern, cfg, dev):
+    import dataclasses
+
+    from repro_torch.core.engine import engine_for
+    from repro_torch.models import build_model
+    from repro_torch.relational.embedding import _embed_prog
+    from repro_torch.relational.linear import _linear_prog
+    from repro_torch.serving import make_decode_step, make_prefill_step
+
+    layers, d, r = cfg.n_layers, cfg.d_model, cfg.d_model // 16
+    log(f"  {cfg.name}: d_model {d}, {layers} mamba1 layers, state {cfg.ssm_state}, "
+        f"expand {cfg.ssm_expand}, conv {cfg.conv_width}, dt_rank {r}, vocab {cfg.vocab}; "
+        f"dtype float32 (the published config is bfloat16: the port's cuda tier admits f32 "
+        f"only); ssm_pallas=True (the CUDA scan kernel); random weights from seed 0")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  model built on {model.device} in {time.perf_counter() - t0:.1f} s: "
+        f"{n_params:,} parameters, {n_params * 4:,} bytes")
+    if n_params != LM_PARAMS:
+        raise AssertionError(f"{n_params} parameters, want {LM_PARAMS}")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), generator=gen,
+                           device=dev, dtype=torch.int32)
+    prefill = make_prefill_step(model, LM_PROMPT + LM_DECODE)
+    decode = make_decode_step(model)
+    db = repro_torch.Database()
+    engines = {"rel_linear": engine_for(_linear_prog()[0].forward),
+               "rel_embed": engine_for(_embed_prog()[0].forward)}
+    seen = {k: {id(low) for low in e.lowerings} for k, e in engines.items()}
+    lowered0 = {k: e.lower_count for k, e in engines.items()}
+
+    # the main path: one request of 2 prompts, prefill then greedy decode
+    torch.cuda.reset_peak_memory_stats()
+    kern.reset_launch_counts()
+    with db.activate():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = prefill({"tokens": tokens})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        per_prefill = kern.launch_counts()
+        prefill_logits, prefill_caches = logits, caches
+        out = [logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)]
+        step_s, per_step, steps_logits = [], [], [logits]
+        for step in range(LM_DECODE):
+            c0 = kern.launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches = decode(out[-1], caches, LM_PROMPT + step)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            per_step.append({op: n - c0[op] for op, n in kern.launch_counts().items()})
+            steps_logits.append(logits)
+            out.append(logits[:, -1].argmax(-1, keepdim=True).to(torch.int32))
+    launches = kern.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    first_decode_logits = steps_logits[1]
+
+    log(f"  prefill (B={LM_BATCH}, S={LM_PROMPT}, first request, lowering included): "
+        f"{prefill_s * 1e3:.1f} ms")
+    log(f"  decode steps: {[t * 1e3 for t in step_s]} ms; per token: median of steps "
+        f"2-{LM_DECODE} {statistics.median(step_s[1:]) * 1e3:.2f} ms, mean of steps 2-{LM_DECODE} "
+        f"{statistics.mean(step_s[1:]) * 1e3:.2f} ms, mean of all {LM_DECODE} (step 1 lowers "
+        f"the decode signatures) {statistics.mean(step_s) * 1e3:.2f} ms")
+    log(f"  peak device memory over the request: {peak} bytes ({peak / 2**30:.2f} GiB)")
+    log(f"  greedy tokens: {torch.cat(out, 1).tolist()}")
+    log(f"  launches per prefill: {per_prefill}; per decode step: {per_step[0]}")
+    for i, lg in enumerate(steps_logits):
+        if tuple(lg.shape) != (LM_BATCH, 1, cfg.vocab) or not bool(torch.isfinite(lg).all()):
+            raise AssertionError(f"logits of call {i}: shape {tuple(lg.shape)}, or not finite")
+    toks = torch.cat(out, 1)
+    if int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab:
+        raise AssertionError("a token outside the vocabulary")
+    if per_prefill["ssm_scan"] != layers or any(s["ssm_scan"] for s in per_step):
+        raise AssertionError(f"ssm_scan launches: {per_prefill['ssm_scan']} per prefill (want "
+                             f"{layers}), {[s['ssm_scan'] for s in per_step]} per decode step (want 0)")
+    for op in GCN_KERNELS:
+        if per_prefill[op] <= 0 or any(s[op] <= 0 for s in per_step):
+            raise AssertionError(f"{op}: its CUDA kernel did not launch in every call")
+    sites = new_sites(engines, seen, db.dispatch)
+    for prog, key, op, tier, _ in sites:
+        log(f"    {prog}: {key} -> {tier}")
+    bad = [(p, k, t) for p, k, _, t, _ in sites if t != "cuda"]
+    if {op for _, _, op, _, _ in sites} != set(GCN_KERNELS) or bad:
+        raise AssertionError(f"LM dispatch sites not all on the cuda tier: {bad or sites}")
+    # one lowering per signature: the four projections at m = B·S and at
+    # m = B, the head at m = B (prefill keeps the last position only); the
+    # embedding at B·S and at B ids
+    lowered = {k: e.lower_count - lowered0[k] for k, e in engines.items()}
+    log(f"  lowerings in the request: {lowered} (want rel_linear 9, rel_embed 2)")
+    if lowered != {"rel_linear": 9, "rel_embed": 2}:
+        raise AssertionError(f"lowerings per signature: {lowered}")
+
+    # a second request of the same shapes: warm timing, and the same logits
+    kern.reset_launch_counts()
+    with db.activate():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again, _ = prefill({"tokens": tokens})
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+    log(f"  prefill, second request (warm): {warm_s * 1e3:.1f} ms; ssm_scan launches "
+        f"{kern.launch_counts()['ssm_scan']}; logits equal to the first request's: "
+        f"{torch.equal(again, prefill_logits)}")
+    del again, caches
+
+    # the same params on the plain tier: torch.matmul, index_select,
+    # index_add_ and the parallel-prefix scan in plain PyTorch
+    kern.reset_launch_counts()
+    model.cfg = dataclasses.replace(cfg, ssm_pallas=False)
+    try:
+        with repro_torch.Database(dispatch="torch").activate():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t_logits, _ = prefill({"tokens": tokens})
+            torch.cuda.synchronize()
+            t_prefill_s = time.perf_counter() - t0
+    finally:
+        model.cfg = cfg
+    if sum(kern.launch_counts().values()):
+        raise AssertionError("the torch tier launched a CUDA kernel")
+    gap = logit_gap(prefill_logits, t_logits)
+    log(f"  prefill on the torch tier with the plain scan: {t_prefill_s * 1e3:.1f} ms; "
+        f"last-position logits: max|cuda - torch| / max|logit| = {gap:.3e} "
+        f"(limit {LM_PREFILL_LIMIT:g}); argmax equal: "
+        f"{torch.equal(t_logits[:, -1].argmax(-1), prefill_logits[:, -1].argmax(-1))}")
+    if not gap <= LM_PREFILL_LIMIT:
+        raise AssertionError("the prefill logits of the cuda and torch tiers differ")
+
+    # the carried (conv, ssm) state: decode step 1 against a prefill over
+    # the prompt plus the token it was fed
+    with db.activate():
+        p_logits, _ = prefill({"tokens": torch.cat([tokens, out[0]], 1)})
+    gap = logit_gap(first_decode_logits, p_logits)
+    log(f"  decode step 1 against a prefill over {LM_PROMPT + 1} tokens: max|Δ| / max|logit| = "
+        f"{gap:.3e} (limit {LM_DECODE_LIMIT:g})")
+    if not gap <= LM_DECODE_LIMIT:
+        raise AssertionError("decode from the carried state differs from a prefill")
+    # the limit must fail a lost state: decode step 1 again from the
+    # prefill's caches with one layer's conv window, or its SSM state, zeroed
+    mid = layers // 2
+    for part in ("conv", "ssm"):
+        bad = [{"scan": list(st["scan"]), "tail": st["tail"]} for st in prefill_caches]
+        state = bad[0]["scan"][mid]["0:mamba1"]["ssm1"]
+        bad[0]["scan"][mid] = {"0:mamba1": {"ssm1": {**state, part: torch.zeros_like(state[part])}}}
+        with db.activate():
+            f_logits, _ = decode(out[0], bad, LM_PROMPT)
+        seen = logit_gap(f_logits, p_logits)
+        log(f"    planted fault (layer {mid}'s {part} state lost): max|Δ| / max|logit| = {seen:.3e}, "
+            f"must exceed the decode limit {LM_DECODE_LIMIT:g} (the prefill limit is "
+            f"{LM_PREFILL_LIMIT:g})")
+        if seen <= LM_DECODE_LIMIT:
+            raise AssertionError(f"the decode limit passes a lost {part} state")
+        del bad, f_logits
+    del model, t_logits, p_logits, prefill_logits, prefill_caches, steps_logits, first_decode_logits
+    torch.cuda.empty_cache()
+    return {
+        "launches": launches, "sites": sites, "weight_sites": lm_weights(cfg),
+        "per_prefill": per_prefill, "per_step": per_step[0], "layers": layers,
+        "prefill_ms": prefill_s * 1e3, "warm_prefill_ms": warm_s * 1e3,
+        "decode_ms": statistics.median(step_s[1:]) * 1e3,
+        "decode_mean_ms": statistics.mean(step_s) * 1e3, "peak": peak,
+    }
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: timings at the shapes of both main paths
 # ---------------------------------------------------------------------------
 
 
@@ -455,7 +798,10 @@ def bound(nbytes: float, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def timing_phase(torch, kern, graph, sites, launches, errs, dev):
+def time_site(torch, op, info, rows_for, seg_for, gen, dev):
+    """(kernel ms, plain ms, library ms or None, bytes, FLOPs) of one
+    dispatch site at its shapes; ``rows_for(e, n)`` and ``seg_for(e, s)``
+    give the path's own gather ids and segment ids."""
     from repro_torch.kernels.gather.ops import gather_rows_forward
     from repro_torch.kernels.gather.ref import gather_rows_ref
     from repro_torch.kernels.matmul.ops import blocked_matmul_forward
@@ -463,49 +809,101 @@ def timing_phase(torch, kern, graph, sites, launches, errs, dev):
     from repro_torch.kernels.segsum.ops import segment_sum_forward
     from repro_torch.kernels.segsum.ref import segment_sum_ref
 
+    if op == "gather_join":
+        e, n, d = info["rows"], info["num_rows"], info["dim"]
+        table = torch.randn(n, d, device=dev, generator=gen)
+        rows = rows_for(e, n)
+        k_ms = time_ms(torch, lambda: gather_rows_forward(table, rows))
+        p_ms = time_ms(torch, lambda: gather_rows_ref(table, rows))
+        l_ms = time_ms(torch, lambda: torch.index_select(table, 0, rows))
+        # the table rows these ids touch, read once; ids; the output
+        seen = int(torch.unique(rows).numel())
+        return k_ms, p_ms, l_ms, seen * d * 4 + e * 4 + e * d * 4, 0
+    if op == "segment_sum":
+        e, d, s = info["nnz"], info["dim"], info["num_segments"]
+        msg = torch.randn(e, d, device=dev, generator=gen)
+        seg = seg_for(e, s)
+        out = torch.zeros(s, d, device=dev)
+        k_ms = time_ms(torch, lambda: segment_sum_forward(msg, seg, s))
+        p_ms = time_ms(torch, lambda: segment_sum_ref(msg, seg, s))
+        l_ms = time_ms(torch, lambda: out.zero_().index_add_(0, seg, msg))
+        return k_ms, p_ms, l_ms, e * d * 4 + e * 4 + s * d * 4, e * d
+    m, k, n = info["m"], info["k"], info["n"]
+    x = torch.randn(m, k, device=dev, generator=gen)
+    y = torch.randn(k, n, device=dev, generator=gen)
+    k_ms = time_ms(torch, lambda: blocked_matmul_forward(x, y))
+    p_ms = time_ms(torch, lambda: matmul_ref(x, y))
+    l_ms = time_ms(torch, lambda: torch.matmul(x, y))
+    return k_ms, p_ms, l_ms, (m * k + k * n + m * n) * 4, 2 * m * n * k
+
+
+def timing_phase(torch, graph, gcn, lm, errs, dev):
+    """Per kernel and per main path: each site timed alone at its shapes,
+    times the launches of that site in one pass of the path (one GCN step;
+    one prefill; one decode step), summed."""
+    from repro_torch.kernels.matmul.ops import blocked_matmul_forward
+    from repro_torch.kernels.ssm_scan.ops import ssm_scan_forward
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+
     gen = torch.Generator(device=dev).manual_seed(3)
     src, dst = graph["src"], graph["dst"]
-    rows_seen = int(torch.unique(src).numel())
-    per_op = {op: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-                   "bytes_ms": 0.0, "ops_ms": 0.0, "shapes": []}
-              for op in ("segment_sum", "gather_join", "blocked_matmul")}
-    for prog, key, op, _, info in sites:
-        if op == "gather_join":
-            e, n, d = info["rows"], info["num_rows"], info["dim"]
-            table = torch.randn(n, d, device=dev, generator=gen)
-            rows = src[:e]
-            k_ms = time_ms(torch, lambda: gather_rows_forward(table, rows))
-            p_ms = time_ms(torch, lambda: gather_rows_ref(table, rows))
-            l_ms = time_ms(torch, lambda: torch.index_select(table, 0, rows))
-            # the table rows these ids touch, read once; ids; the output
-            nbytes, flops = rows_seen * d * 4 + e * 4 + e * d * 4, 0
-        elif op == "segment_sum":
-            e, d, s = info["nnz"], info["dim"], info["num_segments"]
-            msg = torch.randn(e, d, device=dev, generator=gen)
-            seg = dst[:e]
-            out = torch.zeros(s, d, device=dev)
-            k_ms = time_ms(torch, lambda: segment_sum_forward(msg, seg, s))
-            p_ms = time_ms(torch, lambda: segment_sum_ref(msg, seg, s))
-            l_ms = time_ms(torch, lambda: out.zero_().index_add_(0, seg, msg))
-            nbytes, flops = e * d * 4 + e * 4 + s * d * 4, e * d
-        else:
-            m, k, n = info["m"], info["k"], info["n"]
-            x = torch.randn(m, k, device=dev, generator=gen)
-            y = torch.randn(k, n, device=dev, generator=gen)
-            k_ms = time_ms(torch, lambda: blocked_matmul_forward(x, y))
-            p_ms = time_ms(torch, lambda: matmul_ref(x, y))
-            l_ms = time_ms(torch, lambda: torch.matmul(x, y))
-            nbytes, flops = (m * k + k * n + m * n) * 4, 2 * m * n * k
+    paths = {}
+
+    def add(path, op, key, mult, k_ms, p_ms, l_ms, nbytes, flops):
         b_ms, by = bound(nbytes, flops)
-        log(f"  {prog} {key}: kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  "
-            f"library {l_ms:.4f} ms  bound {b_ms:.4f} ms ({by}: {nbytes} B, {flops} FLOP)")
-        acc = per_op[op]
-        acc["ms"] += k_ms
-        acc["plain_ms"] += p_ms
-        acc["library_ms"] += l_ms
-        acc["bound_ms"] += b_ms
-        acc["bytes_ms" if by == "bytes" else "ops_ms"] += b_ms
-        acc["shapes"].append(key)
+        log(f"  {path} {key} x{mult}: kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  library "
+            f"{'none' if l_ms is None else f'{l_ms:.4f} ms'}  bound {b_ms:.4f} ms "
+            f"({by}: {nbytes} B, {flops} FLOP)")
+        acc = paths.setdefault(op, {}).setdefault(path, {
+            "ms": 0.0, "plain_ms": 0.0, "library_ms": None if l_ms is None else 0.0,
+            "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0, "launches_per_pass": 0, "sites": []})
+        acc["ms"] += mult * k_ms
+        acc["plain_ms"] += mult * p_ms
+        if l_ms is not None:
+            acc["library_ms"] += mult * l_ms
+        acc["bound_ms"] += mult * b_ms
+        acc["bytes_ms" if by == "bytes" else "ops_ms"] += mult * b_ms
+        acc["launches_per_pass"] += mult
+        acc["sites"].append(f"{key} x{mult}")
+
+    # the GCN step: every site runs once per step
+    for prog, key, op, _, info in gcn["sites"]:
+        add("gcn_step", op, f"{prog} {key}", 1,
+            *time_site(torch, op, info, lambda e, n: src[:e], lambda e, s: dst[:e], gen, dev))
+
+    # falcon-mamba: a projection's site runs once per layer, the head's and
+    # the embedding's once per call; gather ids are tokens, segments are
+    # positions (one row each)
+    def tokens_for(e, n):
+        return torch.randint(0, n, (e,), generator=gen, device=dev, dtype=torch.int32)
+
+    def positions_for(e, s):
+        return torch.arange(e, device=dev, dtype=torch.int32)
+
+    for prog, key, op, _, info in lm["sites"]:
+        timed = time_site(torch, op, info, tokens_for, positions_for, gen, dev)
+        if op == "blocked_matmul":
+            mult = lm["weight_sites"][(info["k"], info["n"])]
+            if mult == 1:  # the head: at m = B in the prefill (last position) and in decode
+                where = ("lm_prefill", "lm_decode_step")
+            else:
+                where = ("lm_prefill",) if info["m"] > LM_BATCH else ("lm_decode_step",)
+        else:
+            mult = 1
+            big = info.get("rows", info.get("nnz")) > LM_BATCH
+            where = ("lm_prefill",) if big else ("lm_decode_step",)
+        for path in where:
+            add(path, op, f"{prog} {key}", mult, *timed)
+
+    # the selective scan at the prefill's shape, once per layer
+    shape = (LM_BATCH, LM_PROMPT) + LM_SCAN
+    a = torch.rand(shape, generator=gen, device=dev)
+    b = torch.randn(shape, generator=gen, device=dev)
+    k_ms = time_ms(torch, lambda: ssm_scan_forward(a, b))
+    p_ms = time_ms(torch, lambda: ssm_scan_ref(a, b), iters=3, warmup=1)
+    add("lm_prefill", "ssm_scan", f"ssm_scan {shape}", lm["layers"], k_ms, p_ms, None,
+        3 * a.numel() * 4, 2 * a.numel())
+    del a, b
 
     meta = {
         "segment_sum": ("cuda", "src/repro_torch/kernels/csrc/segsum.cu",
@@ -514,26 +912,36 @@ def timing_phase(torch, kern, graph, sites, launches, errs, dev):
                         "src/repro/kernels/gather/gather.py:25"),
         "blocked_matmul": ("cuda", "src/repro_torch/kernels/csrc/matmul.cu",
                            "src/repro/kernels/matmul/matmul.py:21"),
+        "ssm_scan": ("cuda", "src/repro_torch/kernels/csrc/ssm_scan.cu",
+                     "src/repro/kernels/ssm_scan/ssm_scan.py:28"),
     }
     records = []
-    for op, acc in per_op.items():
-        route, source, replaces = meta[op]
+    for op, (route, source, replaces) in meta.items():
+        per_path = paths[op]
+        tot = {f: sum(v[f] for v in per_path.values())
+               for f in ("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms")}
+        lib = [v["library_ms"] for v in per_path.values()]
+        by_path = {"gcn": gcn["launches"][op], "falcon_mamba": lm["launches"][op]}
         records.append({
             "name": op,
             "route": route,
             "source": source,
             "replaces": replaces,
-            "launches": launches[op],
-            "launches_per_step": launches[op] / GCN_STEPS,
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": errs[op],
-            "ms": acc["ms"],
-            "plain_ms": acc["plain_ms"],
-            "bound_ms": acc["bound_ms"],
-            "bound_by": "bytes" if acc["bytes_ms"] >= acc["ops_ms"] else "operations",
-            "library_ms": acc["library_ms"],
-            "per": (f"launches: over the {GCN_STEPS} GCN steps of phase 3; ms, plain_ms, "
-                    "bound_ms, library_ms: summed over the sites of one GCN step"),
-            "sites": acc["shapes"],
+            "ms": tot["ms"],
+            "plain_ms": tot["plain_ms"],
+            "bound_ms": tot["bound_ms"],
+            "bound_by": "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations",
+            "library_ms": None if None in lib else sum(lib),
+            "per": (f"launches: the main paths' runs, {GCN_STEPS} GCN steps (phase 3) and one "
+                    f"falcon-mamba request of a prefill and {LM_DECODE} decode steps (phase 5); "
+                    "ms, plain_ms, bound_ms, library_ms: each site timed alone, times its "
+                    "launches in one pass, summed over one GCN step, one prefill and one "
+                    "decode step; 'paths' splits them"),
+            "paths": {path: {k: v for k, v in acc.items() if k not in ("bytes_ms", "ops_ms")}
+                      for path, acc in per_path.items()},
         })
 
     # the RJP products the compiler leaves to torch.einsum: the kernel's
@@ -558,10 +966,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
         return 1
+    import dataclasses
+
     import numpy as np
 
     import repro_torch
     from repro_torch import kernels as kern
+    from repro_torch.configs import get_config
     from repro_torch.kernels import build
 
     # a reference states its precision: f32 products in full f32, never TF32
@@ -580,23 +991,38 @@ def main() -> int:
             log("  " + line.strip())
 
     data, params0, graph = gcn_data(torch, np, repro_torch, dev)
+    lm_cfg = dataclasses.replace(get_config(LM_ARCH), ssm_pallas=True, dtype="float32")
 
     log("phase 2: each kernel against its plain version on the card")
-    errs = check_kernels(torch, kern, graph, dev)
+    t0 = time.perf_counter()
+    errs = check_kernels(torch, kern, graph, lm_cfg, dev)
+    errs["ssm_scan"] = check_ssm_scan(torch, dev)
+    log(f"  phase 2: {time.perf_counter() - t0:.1f} s")
 
     log("phase 3: GCN training at ogbn-arxiv size")
+    t0 = time.perf_counter()
     launches, sites = gcn_phase(torch, repro_torch, kern, data, params0)
+    log(f"  phase 3: {time.perf_counter() - t0:.1f} s")
 
     log("phase 4: FRA logistic regression through Database.query(...).step()")
+    t0 = time.perf_counter()
     logreg_phase(torch, repro_torch, kern, dev)
+    log(f"  phase 4: {time.perf_counter() - t0:.1f} s")
 
-    log("phase 5: timings at the shapes of one GCN step")
+    log(f"phase 5: {LM_ARCH} serving at full width")
+    t0 = time.perf_counter()
+    lm = lm_phase(torch, repro_torch, kern, lm_cfg, dev)
+    log(f"  phase 5: {time.perf_counter() - t0:.1f} s")
+
+    log("phase 6: timings at the shapes of both main paths")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     log(smi)
-    records = timing_phase(torch, kern, graph, sites, launches, errs, dev)
+    t0 = time.perf_counter()
+    records = timing_phase(torch, graph, {"sites": sites, "launches": launches}, lm, errs, dev)
+    log(f"  phase 6: {time.perf_counter() - t0:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": records}))

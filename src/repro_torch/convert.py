@@ -5,11 +5,17 @@ The reference package's parameters and relations cross as numpy arrays
 or a relation's ``data`` / ``keys`` / ``values`` / ``extents``. These
 functions turn them into this package's tensors and relations on a given
 device, so both packages can be fed the same state. Keys stay int32.
+
+For the language models, ``lm_params`` loads the reference's parameter
+pytree into a ``models.Model`` and ``lm_caches`` turns its prefill/decode
+caches into the port's layout: the reference stacks each stage's repeated
+superblocks on a leading axis (for ``jax.lax.scan``), the port keeps one
+module, and one cache entry, per repeat.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Sequence
+from typing import Any, Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -48,3 +54,80 @@ def relation(rel, device):
     if hasattr(rel, "data"):
         return dense_relation(rel.data, rel.key_arity, device)
     return coo_relation(rel.keys, rel.values, rel.extents, device)
+
+
+# ---------------------------------------------------------------------------
+# Language models
+# ---------------------------------------------------------------------------
+
+
+def _unstack(tree, r: int):
+    """Entry ``r`` of every leaf's leading axis."""
+    if isinstance(tree, Mapping):
+        return {k: _unstack(v, r) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_unstack(v, r) for v in tree]
+    return np.asarray(tree)[r]
+
+
+def _assign(target, tree, path: str) -> None:
+    """Copy the arrays of ``tree`` into the parameters of ``target`` (a
+    module addressed by key or index, or a parameter), checking shapes."""
+    if isinstance(tree, Mapping):
+        for k, v in tree.items():
+            child = target[k] if hasattr(target, "__getitem__") else getattr(target, k)
+            _assign(child, v, f"{path}.{k}")
+    elif isinstance(tree, (list, tuple)):
+        if len(tree) != len(target):
+            raise ValueError(f"{path}: {len(tree)} entries for {len(target)}")
+        for i, v in enumerate(tree):
+            _assign(target[i], v, f"{path}[{i}]")
+    else:
+        arr = np.asarray(tree)
+        if tuple(arr.shape) != tuple(target.shape):
+            raise ValueError(f"{path}: shape {arr.shape} for a parameter of {tuple(target.shape)}")
+        target.copy_(torch.as_tensor(np.array(arr)))
+
+
+def lm_params(model, jax_params: Mapping[str, Any]):
+    """Load the reference's LM parameter pytree (numpy arrays, or anything
+    ``np.asarray`` accepts) into ``model`` in place; returns the model.
+    ``params["stages"][si]["scan"]``'s leading repeat axis is unstacked into
+    ``model.stages[si]["scan"][r]``."""
+    with torch.no_grad():
+        for name, value in jax_params.items():
+            if name != "stages":
+                _assign(getattr(model, name), value, name)
+        for si, stage in enumerate(jax_params["stages"]):
+            for r, sblock in enumerate(model.stages[si]["scan"]):
+                _assign(sblock, _unstack(stage["scan"], r), f"stages[{si}].scan[{r}]")
+            _assign(model.stages[si]["tail"], stage["tail"], f"stages[{si}].tail")
+    return model
+
+
+def _tensors(tree, device):
+    if isinstance(tree, Mapping):
+        return {k: _tensors(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tensors(v, device) for v in tree]
+    return tensor(tree, device)
+
+
+def _repeats(tree) -> int:
+    while isinstance(tree, (Mapping, list, tuple)):
+        tree = next(iter(tree.values())) if isinstance(tree, Mapping) else tree[0]
+    return int(np.asarray(tree).shape[0])
+
+
+def lm_caches(jax_caches: Sequence[Mapping[str, Any]], device) -> List[Dict[str, Any]]:
+    """The reference's LM caches (a list per stage of ``{"scan": stacked
+    entries, "tail": [entries]}``, numpy arrays) in ``models.Model``'s
+    layout on ``device``: one entry per repeat."""
+    out = []
+    for stage in jax_caches:
+        scan = stage["scan"]
+        out.append({
+            "scan": [_tensors(_unstack(scan, r), device) for r in range(_repeats(scan))],
+            "tail": _tensors(stage["tail"], device),
+        })
+    return out

@@ -166,11 +166,14 @@ def current() -> "Database":
     return _PROCESS_DEFAULT
 
 
-def _resolve_device(device) -> torch.device:
+def resolve_device(device, owner: str = "repro_torch.Database") -> torch.device:
+    """``device`` as a torch.device, "cuda" when it is None; raises when it
+    names a CUDA device and there is none, rather than run on the CPU
+    unasked. ``owner`` names the caller in the error."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "repro_torch.Database runs on a CUDA device and none is available; "
+            f"{owner} runs on a CUDA device and none is available; "
             "pass device='cpu' to run on the CPU"
         )
     return dev
@@ -198,7 +201,7 @@ class Database:
         rewrite=True,
         fuse_join_agg: bool = True,
     ) -> None:
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         self.catalog = Catalog()
         #: the session's enabled rewrite rules (None = stage off).
         self.rewrite_rules = _rewrite.make_rules(rewrite)

@@ -4,7 +4,10 @@ built for Hopper (``sm_90a``) at first use by ``build.py``:
   segsum/   segment sum by f32 atomics — the Σ over a COO edge relation;
   gather/   row gather with in-kernel masking — the edge ⋈ node join and
             the restricted-join gradient gathers;
-  matmul/   tiled f32 product on the CUDA cores — the matmul-shaped Σ∘⋈.
+  matmul/   tiled f32 product on the CUDA cores — the matmul-shaped Σ∘⋈;
+  ssm_scan/ the selective scan h_t = a_t ⊙ h_{t-1} + b_t, one thread per
+            lane — the Mamba blocks' recurrence (called by models/ssm.py,
+            not a dispatch op of the compiler).
 
 Each package has ``ops.py`` (the wrapper: checks, launch on the current
 stream, a launch count, a ``torch.autograd.Function`` whose backward stays
@@ -17,17 +20,20 @@ from typing import Dict
 from .gather.ops import gather_rows
 from .matmul.ops import blocked_matmul
 from .segsum.ops import segment_sum
+from .ssm_scan.ops import ssm_scan
 
-#: dispatch op name → the wrapper that counts that op's kernel launches.
+#: kernel name (the dispatch op's, where it is one) → the wrapper that
+#: counts that kernel's launches.
 WRAPPERS = {
     "segment_sum": segment_sum,
     "gather_join": gather_rows,
     "blocked_matmul": blocked_matmul,
+    "ssm_scan": ssm_scan,
 }
 
 
 def launch_counts() -> Dict[str, int]:
-    """Kernel launches per dispatch op since the counts were last reset."""
+    """Kernel launches per kernel since the counts were last reset."""
     return {op: fn.launches for op, fn in WRAPPERS.items()}
 
 

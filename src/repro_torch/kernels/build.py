@@ -23,7 +23,7 @@ from pathlib import Path
 from typing import Dict, List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("segsum.cu", "gather.cu", "matmul.cu")
+SOURCES = ("segsum.cu", "gather.cu", "matmul.cu", "ssm_scan.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = ("-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v") + ARCH_FLAGS
 LIB_NAME = "librepro_torch_kernels.so"
@@ -114,7 +114,9 @@ def library() -> ctypes.CDLL:
             lib.repro_segsum_f32.argtypes = [vp, vp, vp, ll, i32, i32, vp]
             lib.repro_gather_f32.argtypes = [vp, vp, vp, ll, i32, i32, vp]
             lib.repro_matmul_f32.argtypes = [vp, vp, vp, i32, i32, i32, vp]
-            for fn in (lib.repro_segsum_f32, lib.repro_gather_f32, lib.repro_matmul_f32):
+            lib.repro_ssm_scan.argtypes = [vp, vp, vp, ll, ll, ll, i32, i32, vp]
+            for fn in (lib.repro_segsum_f32, lib.repro_gather_f32, lib.repro_matmul_f32,
+                       lib.repro_ssm_scan):
                 fn.restype = i32
             lib.repro_error_string.argtypes = [i32]
             lib.repro_error_string.restype = ctypes.c_char_p

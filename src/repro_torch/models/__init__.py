@@ -1,0 +1,7 @@
+"""Model zoo: the language models this slice of the port builds
+(``configs.ARCH_IDS``), from blocks written in plain PyTorch.
+Parameter-bearing contractions route through the relational engine
+(``repro_torch.relational``): ``rel_linear`` for every projection and
+``rel_embed`` for the token embedding."""
+
+from .model import Model, build_model  # noqa: F401

@@ -9,3 +9,4 @@ instead of PyTorch's own autograd through the engine.
 
 from .linear import rel_linear, rel_matmul  # noqa: F401
 from .gcn import gcn_conv  # noqa: F401
+from .embedding import rel_embed  # noqa: F401

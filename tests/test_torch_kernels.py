@@ -46,7 +46,7 @@ def _zero_counts():
     kernels.reset_launch_counts()
     yield
     assert kernels.launch_counts() == {
-        "segment_sum": 0, "gather_join": 0, "blocked_matmul": 0,
+        "segment_sum": 0, "gather_join": 0, "blocked_matmul": 0, "ssm_scan": 0,
     }, "no CUDA kernel may launch for CPU tensors"
 
 
