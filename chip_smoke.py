@@ -8,7 +8,9 @@ Phases, in order; any failure stops the run with a non-zero exit:
 1. build the CUDA kernels from ``src/repro_torch/kernels/csrc``;
 2. hold each kernel against its plain PyTorch version on the card, at the
    shapes of both main paths and at edge cases, within a stated tolerance,
-   with planted faults that the tolerance must catch;
+   with planted faults that the tolerance must catch; and hold
+   ``blocked_matmul`` to its own contract: a row's bits do not depend on
+   how many rows the product has, and a call repeats its bits;
 3. train the two-layer GCN of examples/gcn_train.py full-graph at
    ogbn-arxiv size (169,343 nodes, 1,166,243 edges + self loops, 128
    features, 40 classes, hidden 256) for 5 Adam steps through
@@ -25,8 +27,9 @@ Phases, in order; any failure stops the run with a non-zero exit:
    projection and the embedding ran on the cuda tier, that ``ssm_scan``
    launched once per layer in the prefill and never in decode, and that the
    logits agree with the plain tier and with a prefill over the prompt plus
-   the first decoded token;
-6. time each kernel at the shapes of both main paths beside its plain
+   the first decoded token, and how much of a decode step the card is busy;
+6. time each kernel at the shapes of the main paths (the GCN step, the
+   logistic regression's step, prefill and decode) beside its plain
    version, one PyTorch library call (where there is one) and the card's
    bound.
 
@@ -49,9 +52,14 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 #: H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit):
-#: device-memory rate and f32 rate on the CUDA cores (no tensor cores).
+#: device-memory rate, f32 rate on the CUDA cores, and the rate of 3xTF32
+#: (three TF32 tensor-core passes at 495 TFLOP/s), the card's fastest route
+#: to products of about f32 accuracy: blocked_matmul's bound. Its kernel
+#: runs on the CUDA cores (3xTF32 missed the limit at K = 1), so the bound
+#: at the CUDA-core rate is printed beside it
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+MATMUL_FLOPS_PER_S = 495e12 / 3
 U32 = 2.0 ** -24  # unit roundoff of f32
 
 # ogbn-arxiv at its published size (benchmarks/gcn.py "arxiv-mini"); the
@@ -93,11 +101,15 @@ LM_PREFILL_LIMIT = 1e-3
 #: decode step 1 against a prefill over the prompt plus its token, as a
 #: share of the largest logit. Both run the same kernels on the same
 #: weights, and a row of a product sums its K terms in the same order at
-#: m = 2 and m = 2,050; only a few sums per layer (the recurrence step, the
+#: m = 2 and m = 2,050 (blocked_matmul's one summation order, which phase 2
+#: checks bit for bit); only a few sums per layer (the recurrence step, the
 #: readout einsum) round in another order. So the gap lies well below the
 #: tier check's ≈ 1e-4, which the limit takes. Phase 5 plants a lost conv
 #: window and a lost SSM state in one layer and shows both exceed it.
 LM_DECODE_LIMIT = 1e-4
+#: the shapes of blocked_matmul's path-crossover cases: the skinny path
+#: takes m ≤ 16
+CROSSOVER_M, CROSSOVER_K, CROSSOVER_N = (1, 2, 15, 16, 17, 33), (1, 3, 511, 512, 513, 8192), (1, 40, 288)
 
 
 def lm_weights(cfg):
@@ -107,6 +119,27 @@ def lm_weights(cfg):
     layers = cfg.n_layers
     return {(d, 2 * c): layers, (c, r + 2 * cfg.ssm_state): layers, (r, c): layers,
             (c, d): layers, (d, cfg.vocab): 1}
+
+
+def matmul_cases(cfg):
+    """(m, k, n, what) of every blocked_matmul product phase 2 checks: the
+    GCN forwards, the RJP shapes, the logistic regression's two products,
+    falcon-mamba's projections at m = B·S and m = B and its head at m = B,
+    ragged edges, and the crossover between the skinny and the tiled path."""
+    cases = [
+        (NODES, FEAT, HIDDEN, "layer-1 forward"),
+        (NODES, HIDDEN, CLASSES, "layer-2 forward"),
+        *RJP_SHAPES,  # off the main path; long K, ragged K
+        (67, 33, 65, "ragged"), (5, 3, 1, "ragged"), (1, 1, 1, "ragged"),
+        (3, 0, 4, "K=0"), (40, 0, 9, "K=0"),
+        (LOGREG_ROWS, LOGREG_COLS, 1, "logreg forward"),
+        (1, LOGREG_ROWS, LOGREG_COLS, "logreg dθ"),
+    ]
+    for (k, n), sites in lm_weights(cfg).items():
+        for m in ((LM_BATCH,) if sites == 1 else (LM_BATCH * LM_PROMPT, LM_BATCH)):
+            cases.append((m, k, n, "falcon-mamba " + ("head" if sites == 1 else "projection")))
+    cases += [(m, k, n, "crossover") for m in CROSSOVER_M for k in CROSSOVER_K for n in CROSSOVER_N]
+    return cases
 
 
 def log(*parts) -> None:
@@ -144,6 +177,7 @@ def excess(err, limit) -> float:
 
 def check_kernels(torch, kern, graph, lm_cfg, dev):
     from repro_torch.kernels.gather.ref import gather_rows_ref
+    from repro_torch.kernels.matmul.ops import SEG_LEN
     from repro_torch.kernels.matmul.ref import matmul_ref
     from repro_torch.kernels.segsum.ref import segment_sum_ref
 
@@ -182,7 +216,7 @@ def check_kernels(torch, kern, graph, lm_cfg, dev):
 
     def matmul_case(m, k, n, what):
         # f32 dot products of length k in two orders (the kernel's
-        # sequential fmaf, cuBLAS's blocking): each differs from the exact
+        # segments of fmaf, cuBLAS's blocking): each differs from the exact
         # product by a few rounding walks, so they differ from each other
         # by at most MATMUL_LIMIT of them
         x = torch.randn(m, k, device=dev, generator=gen)
@@ -202,14 +236,44 @@ def check_kernels(torch, kern, graph, lm_cfg, dev):
         if err.numel():
             errs["blocked_matmul"] = max(errs["blocked_matmul"], float(err.max()))
         if k >= 4096:
-            # the limit must fail a wrong product at this K: plant two faults
-            tile = slice(k // 2, k // 2 + 16)  # one of the kernel's K-tiles
+            # the limit must fail a wrong product at this K: plant three
+            # faults. 16 terms dropped (a K-tile of the earlier kernel, half
+            # a pipeline stage of this one); one K-segment's partial dropped
+            tile = slice(k // 2, k // 2 + 16)
+            s0 = (k // 2) // SEG_LEN * SEG_LEN
+            seg = slice(s0, min(s0 + SEG_LEN, k))
             for fault, bad in (("zeros", torch.zeros_like(got)),
-                               ("one K-tile dropped", got - x[:, tile] @ y[tile, :])):
+                               ("one K-tile dropped", got - x[:, tile] @ y[tile, :]),
+                               (f"K-segment [{seg.start}, {seg.stop}) dropped",
+                                got - x[:, seg] @ y[seg, :])):
                 seen = excess((bad.double() - want.double()).abs(), limit)
                 log(f"    planted fault ({fault}): err/limit={seen:.3e}, must exceed 1")
                 if seen <= 1.0:
                     raise AssertionError(f"the blocked_matmul limit passes a wrong product ({what})")
+
+    def batch_invariance_case(m, k, n, what):
+        # rows 0-1 of the m-row product (tiled path) against the product of
+        # those two rows alone (skinny path): the same bits
+        x = torch.randn(m, k, device=dev, generator=gen)
+        y = torch.randn(k, n, device=dev, generator=gen)
+        big = kern.blocked_matmul(x, y)[:2]
+        small = kern.blocked_matmul(x[:2].contiguous(), y)
+        same = torch.equal(big, small)
+        log(f"  blocked_matmul batch invariance, {what}: rows 0-1 of ({m}x{k})@({k}x{n}) "
+            f"equal the (2x{k}) product bit for bit: {same} "
+            f"(max |Δ| {float((big - small).abs().max()):.3e})")
+        if not same:
+            raise AssertionError(f"blocked_matmul rows depend on the batch ({what})")
+
+    def determinism_case(m, k, n, what):
+        x = torch.randn(m, k, device=dev, generator=gen)
+        y = torch.randn(k, n, device=dev, generator=gen)
+        first, second = kern.blocked_matmul(x, y), kern.blocked_matmul(x, y)
+        same = torch.equal(first, second)
+        log(f"  blocked_matmul determinism, {what}: two calls of ({m}x{k})@({k}x{n}) "
+            f"bit-equal: {same}")
+        if not same:
+            raise AssertionError(f"blocked_matmul is not deterministic ({what})")
 
     src, dst = graph["src"], graph["dst"]
     for d in (FEAT, HIDDEN):
@@ -225,23 +289,23 @@ def check_kernels(torch, kern, graph, lm_cfg, dev):
         segsum_case(7, odd, d, "edge ids -1/>=S")
         gather_case(5, empty, d, "E=0")
         segsum_case(5, empty, d, "E=0")
-    for m, k, n, what in (
-        (NODES, FEAT, HIDDEN, "layer-1 forward"),
-        (NODES, HIDDEN, CLASSES, "layer-2 forward"),
-        *RJP_SHAPES,  # off the main path; long K, ragged K
-        (67, 33, 65, "ragged"), (5, 3, 1, "ragged"), (1, 1, 1, "ragged"),
-        (3, 0, 4, "K=0"),
-        (LOGREG_ROWS, LOGREG_COLS, 1, "logreg forward"),
-        (1, LOGREG_ROWS, LOGREG_COLS, "logreg dθ"),
-    ):
+    # blocked_matmul within its limit at every case of matmul_cases: the
+    # main paths' shapes (falcon-mamba's projections at m = B·S and m = B,
+    # its head at m = B: the prefill keeps the last position), edges, and
+    # the crossover between the skinny and the tiled path
+    for m, k, n, what in matmul_cases(lm_cfg):
         matmul_case(m, k, n, what)
-
-    # falcon-mamba serving: each projection at m = B·S (prefill) and m = B
-    # (decode), the head at m = B only (prefill keeps the last position);
-    # the embedding's join by token id and its Σ by position
+    # its contract: the bits of a row do not depend on the batch (the
+    # premise of LM_DECODE_LIMIT), and a call repeats its bits
     for (k, n), sites in lm_weights(lm_cfg).items():
-        for m in ((LM_BATCH,) if sites == 1 else (LM_BATCH * LM_PROMPT, LM_BATCH)):
-            matmul_case(m, k, n, "falcon-mamba " + ("head" if sites == 1 else "projection"))
+        batch_invariance_case(LM_BATCH * LM_PROMPT, k, n,
+                              "falcon-mamba " + ("head" if sites == 1 else "projection"))
+    batch_invariance_case(NODES, FEAT, HIDDEN, "GCN layer-1 forward")
+    d, c = lm_cfg.d_model, lm_cfg.ssm_expand * lm_cfg.d_model
+    determinism_case(LM_BATCH, d, 2 * c, "falcon-mamba decode in_proj")
+    determinism_case(1, LOGREG_ROWS, LOGREG_COLS, "logreg dθ")
+
+    # the embedding's join by token id and its Σ by position
     for e in (LM_BATCH * LM_PROMPT, LM_BATCH):
         tokens = torch.randint(0, lm_cfg.vocab, (e,), generator=gen, device=dev, dtype=torch.int32)
         gather_case(lm_cfg.vocab, tokens, lm_cfg.d_model, "falcon-mamba embedding (rows = tokens)")
@@ -577,6 +641,8 @@ def logreg_phase(torch, repro_torch, kern, dev):
     mm_tiers = [t for k, t in handle.resolutions.items() if k.startswith("blocked_matmul")]
     if not mm_tiers or set(mm_tiers) != {"cuda"} or launches["blocked_matmul"] <= 0:
         raise AssertionError(f"blocked_matmul did not run on the cuda tier: {handle.resolutions}")
+    sites = [(s.key, s.op, s.tier, s.info_dict()) for s in handle.last.lowered.resolutions.sites]
+    return {"launches": launches, "sites": sites}
 
 
 # ---------------------------------------------------------------------------
@@ -595,6 +661,29 @@ def new_sites(engines, seen, table):
                 for s in low.resolutions.sites:
                     out.append((label, s.key, s.op, s.tier, s.info_dict()))
     return out
+
+
+def device_busy(torch, fn):
+    """Run ``fn()`` once under torch.profiler: (wall ms with the profiler
+    on, device-busy ms = the sum of the device kernels' own times, the five
+    host operations with the most own time as (name, ms, calls)). The
+    profiler's own cost lengthens the wall, so the idle share it gives is an
+    upper bound. None where the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    dev_us = sum(getattr(e, "self_device_time_total", 0) for e in events
+                 if str(getattr(e, "device_type", "")).endswith("CUDA"))
+    if not dev_us:
+        return None
+    host = sorted(events, key=lambda e: getattr(e, "self_cpu_time_total", 0), reverse=True)[:5]
+    return wall, dev_us / 1e3, [(e.key, e.self_cpu_time_total / 1e3, e.count) for e in host]
 
 
 def logit_gap(got, want) -> float:
@@ -662,6 +751,17 @@ def lm_phase(torch, repro_torch, kern, cfg, dev):
     launches = kern.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     first_decode_logits = steps_logits[1]
+    # one more decode step under the profiler: how much of a step the card
+    # is busy (the launch counts above are the main path's; this step is not)
+    with db.activate():
+        busy = device_busy(torch, lambda: decode(out[-1], caches, LM_PROMPT + LM_DECODE))
+    if busy is None:
+        log("  decode step under torch.profiler: no device time recorded; idle share not measured")
+    else:
+        wall, dev_ms, host = busy
+        log(f"  decode step under torch.profiler: wall {wall:.2f} ms, device busy {dev_ms:.2f} ms "
+            f"(idle share at most {1 - dev_ms / wall:.3f}); most host time: "
+            + "; ".join(f"{k} {ms:.2f} ms x{n}" for k, ms, n in host))
 
     log(f"  prefill (B={LM_BATCH}, S={LM_PROMPT}, first request, lowering included): "
         f"{prefill_s * 1e3:.1f} ms")
@@ -706,9 +806,11 @@ def lm_phase(torch, repro_torch, kern, cfg, dev):
         again, _ = prefill({"tokens": tokens})
         torch.cuda.synchronize()
         warm_s = time.perf_counter() - t0
+    same = torch.equal(again, prefill_logits)
     log(f"  prefill, second request (warm): {warm_s * 1e3:.1f} ms; ssm_scan launches "
-        f"{kern.launch_counts()['ssm_scan']}; logits equal to the first request's: "
-        f"{torch.equal(again, prefill_logits)}")
+        f"{kern.launch_counts()['ssm_scan']}; logits equal to the first request's: {same}")
+    if not same:
+        raise AssertionError("the second request's logits differ from the first's")
     del again, caches
 
     # the same params on the plain tier: torch.matmul, index_select,
@@ -790,11 +892,11 @@ def time_ms(torch, fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, rate: float = F32_FLOPS_PER_S):
     """(least ms, what bounds it): the larger of bytes over the memory rate
-    and operations over the f32 rate."""
+    and operations over ``rate`` (FLOP/s)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    t_ops = flops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -837,10 +939,10 @@ def time_site(torch, op, info, rows_for, seg_for, gen, dev):
     return k_ms, p_ms, l_ms, (m * k + k * n + m * n) * 4, 2 * m * n * k
 
 
-def timing_phase(torch, graph, gcn, lm, errs, dev):
+def timing_phase(torch, graph, gcn, logreg, lm, errs, dev):
     """Per kernel and per main path: each site timed alone at its shapes,
     times the launches of that site in one pass of the path (one GCN step;
-    one prefill; one decode step), summed."""
+    one logistic-regression step; one prefill; one decode step), summed."""
     from repro_torch.kernels.matmul.ops import blocked_matmul_forward
     from repro_torch.kernels.ssm_scan.ops import ssm_scan_forward
     from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
@@ -850,10 +952,14 @@ def timing_phase(torch, graph, gcn, lm, errs, dev):
     paths = {}
 
     def add(path, op, key, mult, k_ms, p_ms, l_ms, nbytes, flops):
-        b_ms, by = bound(nbytes, flops)
+        if op == "blocked_matmul":
+            b_ms, by = bound(nbytes, flops, MATMUL_FLOPS_PER_S)
+            old = f"; at the f32 CUDA-core rate {bound(nbytes, flops)[0]:.4f} ms"
+        else:
+            (b_ms, by), old = bound(nbytes, flops), ""
         log(f"  {path} {key} x{mult}: kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  library "
             f"{'none' if l_ms is None else f'{l_ms:.4f} ms'}  bound {b_ms:.4f} ms "
-            f"({by}: {nbytes} B, {flops} FLOP)")
+            f"({by}: {nbytes} B, {flops} FLOP{old})")
         acc = paths.setdefault(op, {}).setdefault(path, {
             "ms": 0.0, "plain_ms": 0.0, "library_ms": None if l_ms is None else 0.0,
             "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0, "launches_per_pass": 0, "sites": []})
@@ -870,6 +976,10 @@ def timing_phase(torch, graph, gcn, lm, errs, dev):
     for prog, key, op, _, info in gcn["sites"]:
         add("gcn_step", op, f"{prog} {key}", 1,
             *time_site(torch, op, info, lambda e, n: src[:e], lambda e, s: dst[:e], gen, dev))
+
+    # the logistic regression's step: its two products, once per step
+    for key, op, _, info in logreg["sites"]:
+        add("logreg_step", op, key, 1, *time_site(torch, op, info, None, None, gen, dev))
 
     # falcon-mamba: a projection's site runs once per layer, the head's and
     # the embedding's once per call; gather ids are tokens, segments are
@@ -921,7 +1031,8 @@ def timing_phase(torch, graph, gcn, lm, errs, dev):
         tot = {f: sum(v[f] for v in per_path.values())
                for f in ("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms")}
         lib = [v["library_ms"] for v in per_path.values()]
-        by_path = {"gcn": gcn["launches"][op], "falcon_mamba": lm["launches"][op]}
+        by_path = {"gcn": gcn["launches"][op], "logreg": logreg["launches"][op],
+                   "falcon_mamba": lm["launches"][op]}
         records.append({
             "name": op,
             "route": route,
@@ -935,11 +1046,12 @@ def timing_phase(torch, graph, gcn, lm, errs, dev):
             "bound_ms": tot["bound_ms"],
             "bound_by": "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations",
             "library_ms": None if None in lib else sum(lib),
-            "per": (f"launches: the main paths' runs, {GCN_STEPS} GCN steps (phase 3) and one "
-                    f"falcon-mamba request of a prefill and {LM_DECODE} decode steps (phase 5); "
+            "per": (f"launches: the main paths' runs, {GCN_STEPS} GCN steps (phase 3), "
+                    f"{LOGREG_STEPS} logistic-regression steps (phase 4) and one falcon-mamba "
+                    f"request of a prefill and {LM_DECODE} decode steps (phase 5); "
                     "ms, plain_ms, bound_ms, library_ms: each site timed alone, times its "
-                    "launches in one pass, summed over one GCN step, one prefill and one "
-                    "decode step; 'paths' splits them"),
+                    "launches in one pass, summed over one GCN step, one logistic-regression "
+                    "step, one prefill and one decode step; 'paths' splits them"),
             "paths": {path: {k: v for k, v in acc.items() if k not in ("bytes_ms", "ops_ms")}
                       for path, acc in per_path.items()},
         })
@@ -951,7 +1063,7 @@ def timing_phase(torch, graph, gcn, lm, errs, dev):
         y = torch.randn(k, n, device=dev, generator=gen)
         k_ms = time_ms(torch, lambda: blocked_matmul_forward(x, y))
         l_ms = time_ms(torch, lambda: torch.matmul(x, y))
-        b_ms, by = bound((m * k + k * n + m * n) * 4, 2 * m * n * k)
+        b_ms, by = bound((m * k + k * n + m * n) * 4, 2 * m * n * k, MATMUL_FLOPS_PER_S)
         log(f"  off the main path, {what} ({m}x{k})@({k}x{n}): kernel {k_ms:.4f} ms  "
             f"library {l_ms:.4f} ms  bound {b_ms:.4f} ms ({by})")
     return records
@@ -987,7 +1099,7 @@ def main() -> int:
     build.library()
     log(f"  built {build.last_build['path']} in {build.last_build['seconds']:.2f} s")
     for line in str(build.last_build["log"]).splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if "registers" in line or "Compiling entry" in line or "spill" in line:
             log("  " + line.strip())
 
     data, params0, graph = gcn_data(torch, np, repro_torch, dev)
@@ -1006,7 +1118,7 @@ def main() -> int:
 
     log("phase 4: FRA logistic regression through Database.query(...).step()")
     t0 = time.perf_counter()
-    logreg_phase(torch, repro_torch, kern, dev)
+    logreg = logreg_phase(torch, repro_torch, kern, dev)
     log(f"  phase 4: {time.perf_counter() - t0:.1f} s")
 
     log(f"phase 5: {LM_ARCH} serving at full width")
@@ -1021,7 +1133,8 @@ def main() -> int:
     ).stdout.strip()
     log(smi)
     t0 = time.perf_counter()
-    records = timing_phase(torch, graph, {"sites": sites, "launches": launches}, lm, errs, dev)
+    records = timing_phase(torch, graph, {"sites": sites, "launches": launches}, logreg, lm,
+                           errs, dev)
     log(f"  phase 6: {time.perf_counter() - t0:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)

@@ -4,7 +4,8 @@ built for Hopper (``sm_90a``) at first use by ``build.py``:
   segsum/   segment sum by f32 atomics — the Σ over a COO edge relation;
   gather/   row gather with in-kernel masking — the edge ⋈ node join and
             the restricted-join gradient gathers;
-  matmul/   tiled f32 product on the CUDA cores — the matmul-shaped Σ∘⋈;
+  matmul/   f32 product on the CUDA cores (128-row tiles, split-K for
+            m ≤ 16, one summation order) — the matmul-shaped Σ∘⋈;
   ssm_scan/ the selective scan h_t = a_t ⊙ h_{t-1} + b_t, one thread per
             lane — the Mamba blocks' recurrence (called by models/ssm.py,
             not a dispatch op of the compiler).

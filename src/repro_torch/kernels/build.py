@@ -113,7 +113,7 @@ def library() -> ctypes.CDLL:
             vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
             lib.repro_segsum_f32.argtypes = [vp, vp, vp, ll, i32, i32, vp]
             lib.repro_gather_f32.argtypes = [vp, vp, vp, ll, i32, i32, vp]
-            lib.repro_matmul_f32.argtypes = [vp, vp, vp, i32, i32, i32, vp]
+            lib.repro_matmul_f32.argtypes = [vp, vp, vp, vp, ll, i32, i32, i32, vp]
             lib.repro_ssm_scan.argtypes = [vp, vp, vp, ll, ll, ll, i32, i32, vp]
             for fn in (lib.repro_segsum_f32, lib.repro_gather_f32, lib.repro_matmul_f32,
                        lib.repro_ssm_scan):

@@ -79,6 +79,81 @@ def test_cuda_kernels_match_plain_versions(cuda_device, e, n, d):
     kernels.reset_launch_counts()
 
 
+def _rounding_walk(x, y):
+    """Per entry of x @ y, √K·u·sqrt(Σ x²y²): the size of the rounding walk
+    of an f32 sum of its K products (u = 2⁻²⁴)."""
+    return x.shape[1] ** 0.5 * 2.0 ** -24 * ((x.double() ** 2) @ (y.double() ** 2)).sqrt()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 40, 288])
+@pytest.mark.parametrize("k", [1, 3, 511, 512, 513, 8192])
+@pytest.mark.parametrize("m", [1, 2, 15, 16, 17, 33])
+def test_cuda_matmul_across_the_path_crossover(cuda_device, m, k, n):
+    """Both paths (split-K at m ≤ 16, tiles above) and both copy widths
+    (16-byte when K or N is a multiple of 4, 4-byte otherwise) stay within
+    8 rounding walks of cuBLAS's f32 product."""
+    from repro_torch.kernels.matmul.ops import blocked_matmul_forward
+
+    rng = np.random.default_rng(m * 100_003 + k * 7 + n)
+    x = torch.tensor(_f32(rng, m, k), device=cuda_device)
+    y = torch.tensor(_f32(rng, k, n), device=cuda_device)
+    kernels.reset_launch_counts()
+    got = blocked_matmul_forward(x, y)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["blocked_matmul"] == 1
+    err = (got.double() - matmul_ref(x, y).double()).abs()
+    assert bool((err <= 8 * _rounding_walk(x, y)).all()), float(err.max())
+    kernels.reset_launch_counts()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(300, 4096, 700), (2048, 8192, 288), (170, 128, 256),
+                                   (40, 1000, 130), (129, 513, 3)])
+def test_cuda_matmul_rows_do_not_depend_on_the_batch(cuda_device, m, k, n):
+    """Rows of the tiled product equal, bit for bit, the split-K product of
+    those rows alone: one summation order per entry, whatever m is."""
+    from repro_torch.kernels.matmul.ops import blocked_matmul_forward
+
+    rng = np.random.default_rng(m + k + n)
+    x = torch.tensor(_f32(rng, m, k), device=cuda_device)
+    y = torch.tensor(_f32(rng, k, n), device=cuda_device)
+    big = blocked_matmul_forward(x, y)
+    for rows in (slice(0, 2), slice(0, 16), slice(m - 3, m), slice(m // 2, m // 2 + 1)):
+        small = blocked_matmul_forward(x[rows].contiguous(), y)
+        assert torch.equal(big[rows], small), rows
+    kernels.reset_launch_counts()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(2, 1100, 37), (40, 1100, 37), (3, 1, 5), (130, 96, 129)])
+def test_cuda_matmul_sums_in_its_stated_order(cuda_device, m, k, n):
+    """Both paths give the bits of ref.matmul_in_kernel_order: fused
+    multiply-adds in ascending K within segments of 512, the segment sums
+    added in order."""
+    from repro_torch.kernels.matmul.ops import blocked_matmul_forward
+    from repro_torch.kernels.matmul.ref import matmul_in_kernel_order
+
+    rng = np.random.default_rng(m + k)
+    x, y = _f32(rng, m, k), _f32(rng, k, n)
+    got = blocked_matmul_forward(torch.tensor(x, device=cuda_device),
+                                 torch.tensor(y, device=cuda_device))
+    assert torch.equal(got.cpu(), matmul_in_kernel_order(torch.tensor(x), torch.tensor(y)))
+    kernels.reset_launch_counts()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(2, 4096, 16384), (1, 1 << 20, 64), (300, 4096, 700)])
+def test_cuda_matmul_repeats_its_bits(cuda_device, m, k, n):
+    from repro_torch.kernels.matmul.ops import blocked_matmul_forward
+
+    rng = np.random.default_rng(k)
+    x = torch.tensor(_f32(rng, m, k), device=cuda_device)
+    y = torch.tensor(_f32(rng, k, n), device=cuda_device)
+    assert torch.equal(blocked_matmul_forward(x, y), blocked_matmul_forward(x, y))
+    kernels.reset_launch_counts()
+
+
 @pytest.mark.cuda
 def test_cuda_wrappers_refuse_what_the_kernel_does_not_take(cuda_device):
     x = torch.zeros(4, 4, dtype=torch.float64, device=cuda_device)
