@@ -9,14 +9,18 @@ Phases, in order; any failure stops the run with a non-zero exit:
 2. hold each kernel against its plain PyTorch version on the card, at the
    shapes of both main paths and at edge cases, within a stated tolerance,
    with planted faults that the tolerance must catch; and hold
-   ``blocked_matmul`` to its own contract: a row's bits do not depend on
-   how many rows the product has, and a call repeats its bits;
+   ``blocked_matmul`` and ``segment_sum`` to their own contracts: each sums
+   in one stated order (a row's bits do not depend on how many rows the
+   product has; a segment's equal ``segment_sum_in_kernel_order``'s), and
+   a call repeats its bits; f32, and bf16 and f16 for the gather and the
+   segment sum;
 3. train the two-layer GCN of examples/gcn_train.py full-graph at
    ogbn-arxiv size (169,343 nodes, 1,166,243 edges + self loops, 128
    features, 40 classes, hidden 256) for 5 Adam steps through
    ``repro_torch.Database()``, check that every dispatch site ran the CUDA
-   kernels, that the loss falls, and that step 1 agrees with the plain
-   ``torch`` tier;
+   kernels, that the loss falls, that step 1 agrees with the plain
+   ``torch`` tier, and that a second run of the 5 steps ends with the same
+   parameters bit for bit (else it names the first value that differs);
 4. step the FRA logistic regression (paper §2.3, 1,048,576 × 64) through
    ``Database.query(...).step()``;
 5. serve falcon-mamba-7b at its published widths and depth (d_model 4096,
@@ -30,8 +34,10 @@ Phases, in order; any failure stops the run with a non-zero exit:
    the first decoded token, and how much of a decode step the card is busy;
 6. time each kernel at the shapes of the main paths (the GCN step, the
    logistic regression's step, prefill and decode) beside its plain
-   version, one PyTorch library call (where there is one) and the card's
-   bound.
+   version, one PyTorch library call (where there is one), the card's
+   bound and, for the small calls, the host's time per call; and time
+   ``segment_sum``'s index (sort and starts) and its two paths across
+   their crossover.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is one JSON object with a record per kernel, and the line
@@ -40,6 +46,7 @@ before that the card's name and power limit as nvidia-smi gives them.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import statistics
@@ -110,6 +117,45 @@ LM_DECODE_LIMIT = 1e-4
 #: the shapes of blocked_matmul's path-crossover cases: the skinny path
 #: takes m ≤ 16
 CROSSOVER_M, CROSSOVER_K, CROSSOVER_N = (1, 2, 15, 16, 17, 33), (1, 3, 511, 512, 513, 8192), (1, 40, 288)
+#: segment_sum's planted long segments, past the kernel's chunk of 256
+#: terms, among random ids (with -1 and ≥ S): (E, S, D, edges into the hot
+#: segment) on the sorted path and on the scan path
+HOT_SORTED, HOT_SCAN = (20_000, 1_000, 256, 5_000), (3_000, 50, 128, 1_000)
+#: E of the measurement that places segment_sum's path crossover (phase 6):
+#: S = E, at the embedding's D and the GCN's
+SEGSUM_CROSSOVER_E = (512, 1024, 2048, 4096, 8192, 16384)
+#: calls over which phase 6 takes the host's time per call
+HOST_CALLS = 1000
+#: odd ids (padding -1, ids ≥ S) of the edge cases, over S = N = 7
+ODD_IDS = (3, -1, 0, 7, 9, 2, -5, 4, 4)
+#: unit roundoff of bf16 and f16
+UNIT_ROUNDOFF = {"bfloat16": 2.0 ** -8, "float16": 2.0 ** -11}
+
+
+def segsum_shapes(cfg):
+    """(E, D, S, what) of every segment_sum call phase 2 checks and phase 6
+    times: the GCN's three sites, the embedding's Σ by position in prefill
+    and decode, the edge cases, the planted long segments and the
+    crossover measurement."""
+    gcn_e = EDGES + NODES
+    cases = [(gcn_e, d, NODES, f"GCN D={d}") for d in (FEAT, HIDDEN)]
+    cases += [(e, cfg.d_model, e, "embedding") for e in (LM_BATCH * LM_PROMPT, LM_BATCH)]
+    for d in (1, 3, 4, 130):
+        cases += [(len(ODD_IDS), d, 7, "edge ids -1/>=S"), (0, d, 5, "E=0")]
+    cases += [(e, d, s, "planted long segment") for e, s, d, _ in (HOT_SORTED, HOT_SCAN)]
+    cases += [(e, d, e, "crossover") for e in SEGSUM_CROSSOVER_E for d in (cfg.d_model, FEAT)]
+    return cases
+
+
+def gather_shapes(cfg):
+    """(E, N, D, what) of every gather_rows call phase 2 checks and phase 6
+    times."""
+    gcn_e = EDGES + NODES
+    cases = [(gcn_e, NODES, d, f"GCN D={d}") for d in (FEAT, HIDDEN)]
+    cases += [(e, cfg.vocab, cfg.d_model, "embedding") for e in (LM_BATCH * LM_PROMPT, LM_BATCH)]
+    for d in (1, 3, 4, 130):
+        cases += [(len(ODD_IDS), 7, d, "edge ids -1/>=N"), (0, 5, d, "E=0")]
+    return cases
 
 
 def lm_weights(cfg):
@@ -170,6 +216,12 @@ def excess(err, limit) -> float:
     return float((err / limit.clamp_min(1e-300)).max())
 
 
+def fmt_ms(ms: float) -> str:
+    """A time in ms, or in µs below 10 µs (so that a small bound does not
+    print as 0.0000 ms)."""
+    return f"{ms * 1e3:.3f} µs" if ms < 0.01 else f"{ms:.4f} ms"
+
+
 # ---------------------------------------------------------------------------
 # Phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -179,40 +231,85 @@ def check_kernels(torch, kern, graph, lm_cfg, dev):
     from repro_torch.kernels.gather.ref import gather_rows_ref
     from repro_torch.kernels.matmul.ops import SEG_LEN
     from repro_torch.kernels.matmul.ref import matmul_ref
-    from repro_torch.kernels.segsum.ref import segment_sum_ref
+    from repro_torch.kernels.segsum.ref import CHUNK, segment_sum_in_kernel_order, segment_sum_ref
 
     gen = torch.Generator(device=dev).manual_seed(1)
     errs = {"segment_sum": 0.0, "gather_join": 0.0, "blocked_matmul": 0.0}
 
-    def gather_case(n, rows, d, what):
-        table = torch.randn(n, d, device=dev, generator=gen)
+    def gather_case(n, rows, d, what, dtype=torch.float32):
+        table = torch.randn(n, d, device=dev, generator=gen).to(dtype)
         got, want = kern.gather_rows(table, rows), gather_rows_ref(table, rows)
         torch.cuda.synchronize()
         ok = torch.equal(got, want)
-        err = float((got - want).abs().max()) if got.numel() else 0.0
-        log(f"  gather_rows {what}: E={rows.numel()} N={n} D={d} exact={ok} max_abs_err={err:.3e}")
+        err = float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
+        log(f"  gather_rows {what}: E={rows.numel()} N={n} D={d} {str(dtype)[6:]} "
+            f"exact={ok} max_abs_err={err:.3e}")
         if not ok:
             raise AssertionError(f"gather_rows differs from its plain version ({what})")
         errs["gather_join"] = max(errs["gather_join"], err)
 
-    def segsum_case(s, seg, d, what):
-        # both results are f32 sums of the same terms in different orders
-        # (the kernel's atomics, index_add_'s): each lies within
-        # γ_{n_s}·Σ|msg| of the exact sum of segment s, n_s its term count
-        msg = torch.randn(seg.numel(), d, device=dev, generator=gen)
-        got, want = kern.segment_sum(msg, seg, s), segment_sum_ref(msg, seg, s)
+    def segsum_case(s, seg, d, what, dtype=torch.float32, fault=None):
+        # the kernel against index_add_ (f32 sums of the same terms in
+        # another order: each lies within γ_{n_s}·Σ|msg| of the exact sum
+        # of segment s, n_s its term count; in bf16 or f16 each is then
+        # rounded once, by at most u_t of its size), and bit for bit
+        # against its own order written out in PyTorch, call after call
+        msg = torch.randn(seg.numel(), d, device=dev, generator=gen).to(dtype)
+        got, again = kern.segment_sum(msg, seg, s), kern.segment_sum(msg, seg, s)
+        want = segment_sum_ref(msg, seg, s)
+        order = segment_sum_in_kernel_order(msg, seg, s)
         valid = seg[(seg >= 0) & (seg < s)].long()
         terms = torch.bincount(valid, minlength=s).double()[:, None]
         bound = 2 * gamma(terms) * segment_sum_ref(msg.abs().double(), seg, s) + 1e-30
+        u_t = UNIT_ROUNDOFF.get(str(dtype)[6:], 0.0)
+        bound = bound + 2 * u_t * (1 + u_t) * want.double().abs()
         err = (got.double() - want.double()).abs()
-        worst = float((err / bound).max()) if err.numel() else 0.0
-        log(f"  segment_sum {what}: E={seg.numel()} S={s} D={d} "
+        worst = excess(err, bound)
+        same, repeat = torch.equal(got, order), torch.equal(got, again)
+        log(f"  segment_sum {what}: E={seg.numel()} S={s} D={d} {str(dtype)[6:]} "
             f"max_abs_err={float(err.max()) if err.numel() else 0.0:.3e} "
-            f"err/bound={worst:.3e} (bound 2·γ_n·Σ|msg| per segment)")
+            f"err/bound={worst:.3e} (bound 2·γ_n·Σ|msg| per segment"
+            f"{' + 2·u_t·|sum|' if u_t else ''}); bit-equal to segment_sum_in_kernel_order: "
+            f"{same}; two calls bit-equal: {repeat}")
         if worst > 1.0:
             raise AssertionError(f"segment_sum outside its tolerance ({what})")
+        if not same:
+            diff = (got.double() - order.double()).abs()
+            raise AssertionError(f"segment_sum differs from its stated order ({what}): "
+                                 f"{int((diff > 0).sum())} entries, max |Δ| {float(diff.max()):.3e}")
+        if not repeat:
+            raise AssertionError(f"segment_sum does not repeat its bits ({what})")
         if err.numel():
             errs["segment_sum"] = max(errs["segment_sum"], float(err.max()))
+        if fault is not None:
+            # the limit must fail a wrong sum
+            name, drop_seg, drop_edges = fault(seg, terms)
+            bad = got.double().clone()
+            bad[drop_seg] -= msg[drop_edges].double().sum(0)
+            seen = excess((bad - want.double()).abs(), bound)
+            log(f"    planted fault ({name}): err/bound={seen:.3e}, must exceed 1")
+            if seen <= 1.0:
+                raise AssertionError(f"the segment_sum limit passes a wrong sum ({name})")
+
+    def hottest_edge_dropped(seg, terms):
+        hot = int(terms[:, 0].argmax())
+        edge = int(torch.nonzero(seg == hot)[0, 0])
+        return f"edge {edge} of the hottest segment {hot} ({int(terms[hot, 0])} terms) dropped", hot, [edge]
+
+    def chunk_dropped(seg, terms):
+        hot = int(terms[:, 0].argmax())
+        edges = torch.nonzero(seg == hot)[:, 0][CHUNK:2 * CHUNK]
+        return (f"chunk 1 ({edges.numel()} terms) of segment {hot} ({int(terms[hot, 0])} terms) "
+                "dropped", hot, edges)
+
+    def planted(e, s, hot_edges):
+        # random ids with one hot segment of hot_edges edges at random
+        # places, and the padding id -1 and ids ≥ S mixed in
+        seg = torch.randint(0, s, (e,), generator=gen, device=dev, dtype=torch.int32)
+        place = torch.randperm(e, generator=gen, device=dev)
+        seg[place[:hot_edges]] = s // 3
+        seg[place[hot_edges:hot_edges + 3]] = torch.tensor([-1, s, s + 9], dtype=torch.int32, device=dev)
+        return seg
 
     def matmul_case(m, k, n, what):
         # f32 dot products of length k in two orders (the kernel's
@@ -279,16 +376,31 @@ def check_kernels(torch, kern, graph, lm_cfg, dev):
     for d in (FEAT, HIDDEN):
         gather_case(NODES, src, d, "slice (rows = edge src)")
         gather_case(NODES, dst, d, "slice (rows = edge dst)")
-        segsum_case(NODES, dst, d, "slice (seg = edge dst)")
+        segsum_case(NODES, dst, d, "slice (seg = edge dst)",
+                    fault=hottest_edge_dropped if d == FEAT else None)
         segsum_case(NODES, src, d, "slice (seg = edge src)")
+    # the two paths past one chunk: a segment of 5,000 edges (sorted path)
+    # and of 1,000 (scan path)
+    for e, s, d, hot in (HOT_SORTED, HOT_SCAN):
+        segsum_case(s, planted(e, s, hot), d, f"a planted segment of {hot} edges", fault=chunk_dropped)
+    # bf16 and f16: the sum in f32, rounded once; the gather moves bits
+    for dtype in (torch.bfloat16, torch.float16):
+        segsum_case(NODES, dst, FEAT, "slice (seg = edge dst)", dtype)
+        segsum_case(LM_BATCH * LM_PROMPT, torch.arange(LM_BATCH * LM_PROMPT, device=dev, dtype=torch.int32),
+                    lm_cfg.d_model, "embedding shape (seg = positions)", dtype)
+        segsum_case(HOT_SCAN[1], planted(*HOT_SCAN[:2], HOT_SCAN[3]), HOT_SCAN[2],
+                    f"a planted segment of {HOT_SCAN[3]} edges", dtype)
+        gather_case(NODES, src, HIDDEN, "slice (rows = edge src)", dtype)
     # edge cases: empty, padding and out-of-range ids, narrow rows
     empty = torch.zeros(0, dtype=torch.int32, device=dev)
-    odd = torch.tensor([3, -1, 0, 7, 9, 2, -5, 4, 4], dtype=torch.int32, device=dev)
+    odd = torch.tensor(ODD_IDS, dtype=torch.int32, device=dev)
     for d in (1, 3, 4, 130):
         gather_case(7, odd, d, "edge ids -1/>=N")
         segsum_case(7, odd, d, "edge ids -1/>=S")
         gather_case(5, empty, d, "E=0")
         segsum_case(5, empty, d, "E=0")
+        gather_case(7, odd, d, "edge ids -1/>=N", torch.bfloat16)
+        segsum_case(7, odd, d, "edge ids -1/>=S", torch.float16)
     # blocked_matmul within its limit at every case of matmul_cases: the
     # main paths' shapes (falcon-mamba's projections at m = B·S and m = B,
     # its head at m = B: the prefill keeps the last position), edges, and
@@ -309,6 +421,9 @@ def check_kernels(torch, kern, graph, lm_cfg, dev):
     for e in (LM_BATCH * LM_PROMPT, LM_BATCH):
         tokens = torch.randint(0, lm_cfg.vocab, (e,), generator=gen, device=dev, dtype=torch.int32)
         gather_case(lm_cfg.vocab, tokens, lm_cfg.d_model, "falcon-mamba embedding (rows = tokens)")
+        if e == LM_BATCH:
+            gather_case(lm_cfg.vocab, tokens, lm_cfg.d_model, "falcon-mamba embedding (rows = tokens)",
+                        torch.float16)
         positions = torch.arange(e, device=dev, dtype=torch.int32)
         segsum_case(e, positions, lm_cfg.d_model, "falcon-mamba embedding (seg = positions)")
     return errs
@@ -449,12 +564,16 @@ def run_gcn(torch, repro_torch, data, params0, dispatch):
     db = repro_torch.Database(dispatch=dispatch)
     params = dict(params0)
     opt = adam_init(params)
-    losses, secs, first = [], [], None
+    losses, secs, first, base = [], [], None, 0
+    # what earlier phases and runs left for Python's cycle collector to free
+    # would count in the peak, at whatever moment the collector runs
+    gc.collect()
     with db.activate():
         for step in range(GCN_STEPS):
             torch.cuda.synchronize()
             if step == 1:  # steady state: lowering and step-1 checks behind
                 torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
             t0 = time.perf_counter()
             p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
             loss, layers = loss_fn(p)
@@ -477,7 +596,31 @@ def run_gcn(torch, repro_torch, data, params0, dispatch):
                     "layers": {k: (a.detach().cpu(), z.detach().cpu(), z.grad.cpu())
                                for k, (a, z) in layers.items()},
                 }
-    return db, losses, secs, first, torch.cuda.max_memory_allocated()
+    return db, losses, secs, first, (torch.cuda.max_memory_allocated(), base), params
+
+
+def first_difference(first, again, losses, again_losses) -> str:
+    """The first value of two runs' step 1, in the order the step computes
+    them, that differs between the runs, with the ops that computed it."""
+    (h0, z1, dz1), (h1, z2, dz2) = first["layers"]["w1"], first["layers"]["w2"]
+    (a_h0, a_z1, a_dz1), (a_h1, a_z2, a_dz2) = again["layers"]["w1"], again["layers"]["w2"]
+    for what, x, y in (
+        ("layer-1 gcn_conv forward (gather_join, segment_sum by dst)", h0, a_h0),
+        ("layer-1 rel_linear (blocked_matmul)", z1, a_z1),
+        ("layer-2 gcn_conv forward (gather_join, segment_sum by dst)", h1, a_h1),
+        ("layer-2 rel_linear (blocked_matmul)", z2, a_z2),
+        ("the loss (log_softmax, gather, mean)", first["loss"], again["loss"]),
+        ("∂loss/∂z2 (the loss's backward)", dz2, a_dz2),
+        ("∂loss/∂z1 (layer-2 gcn_conv backward: gather_join, segment_sum by src; relu)", dz1, a_dz1),
+        ("the weight gradients (torch.einsum)", first["grads"]["w1"], again["grads"]["w1"]),
+        ("the weight gradients (torch.einsum)", first["grads"]["w2"], again["grads"]["w2"]),
+    ):
+        if not (x == y if isinstance(x, float) else x.equal(y)):
+            return f"step 1 differs first at {what}"
+    for i, (a, b) in enumerate(zip(losses, again_losses)):
+        if a != b:
+            return f"step 1 agrees; the loss of step {i + 1} differs ({a!r} against {b!r})"
+    return "every step's loss agrees; the Adam update (steps 1-5) differs"
 
 
 def gcn_data(torch, np, repro_torch, dev):
@@ -514,7 +657,7 @@ def gcn_data(torch, np, repro_torch, dev):
 def gcn_phase(torch, repro_torch, kern, data, params0):
     # the main path: default dispatch on the card (cuda tier, torch fallback)
     kern.reset_launch_counts()
-    db, losses, secs, first, peak = run_gcn(torch, repro_torch, data, params0, None)
+    db, losses, secs, first, peak, params = run_gcn(torch, repro_torch, data, params0, None)
     launches = kern.launch_counts()
     sites = op_sites(db.dispatch)
     log(f"  dispatch table: {db.dispatch.describe()}")
@@ -535,12 +678,12 @@ def gcn_phase(torch, repro_torch, kern, data, params0):
 
     # the same step on the plain torch tier, on the card
     kern.reset_launch_counts()
-    _, t_losses, t_secs, t_first, t_peak = run_gcn(torch, repro_torch, data, params0, "torch")
+    _, t_losses, t_secs, t_first, t_peak, _ = run_gcn(torch, repro_torch, data, params0, "torch")
     if sum(kern.launch_counts().values()):
         raise AssertionError("the torch tier launched a CUDA kernel")
     log(f"  torch tier losses: {t_losses}")
-    # step 1: same arithmetic, f32 sums in other orders (atomics vs
-    # index_add_, CUDA-core tiles vs cuBLAS). The loss: within 1e-5
+    # step 1: same arithmetic, f32 sums in other orders (the kernel's
+    # chunks vs index_add_'s atomics, CUDA-core tiles vs cuBLAS). The loss: within 1e-5
     # relative. Each weight gradient Xᵀ·G sums K = |V| terms, and both
     # tiers take that product with torch.einsum; X and G differ between
     # the tiers by a few roundings per entry, which moves the sum by far
@@ -578,12 +721,25 @@ def gcn_phase(torch, repro_torch, kern, data, params0):
         log(f"    planted fault (node {i}'s term dropped): err/limit={seen:.3e}, must exceed 1")
         if seen <= 1.0:
             raise AssertionError(f"the step-1 gradient limit passes a wrong gradient ({k})")
+    # the cuda tier repeats its bits: a second run of the steps from the
+    # same parameters ends with the same parameters, or the first value of
+    # the step that differs is named
+    _, r_losses, r_secs, r_first, r_peak, r_params = run_gcn(torch, repro_torch, data, params0, None)
+    same = all(torch.equal(params[k], r_params[k]) for k in params)
+    log(f"  two {GCN_STEPS}-step runs on the cuda tier from the same parameters end with "
+        f"bit-equal parameters: {same}")
+    if not same:
+        raise AssertionError(f"the GCN step does not repeat its bits: {first_difference(first, r_first, losses, r_losses)}")
     ms = statistics.median(secs[1:]) * 1e3
     t_ms = statistics.median(t_secs[1:]) * 1e3
-    log(f"  GCN step (median of steps 2-{GCN_STEPS}): cuda tier {ms:.2f} ms, torch tier {t_ms:.2f} ms")
+    r_ms = statistics.median(r_secs[1:]) * 1e3
+    log(f"  GCN step (median of steps 2-{GCN_STEPS}): cuda tier {ms:.2f} ms (its second run "
+        f"{r_ms:.2f} ms), torch tier {t_ms:.2f} ms")
     log(f"  GCN step 1 (lowering included): cuda tier {secs[0] * 1e3:.1f} ms, torch tier {t_secs[0] * 1e3:.1f} ms")
-    log(f"  peak device memory over steps 2-{GCN_STEPS}: cuda tier {peak} bytes "
-        f"({peak / 2**30:.2f} GiB), torch tier {t_peak} bytes ({t_peak / 2**30:.2f} GiB)")
+    for tier, (top, base) in (("cuda tier", peak), ("torch tier", t_peak), ("cuda tier, second run", r_peak)):
+        log(f"  peak device memory over steps 2-{GCN_STEPS}, {tier}: {top} bytes ({top / 2**30:.2f} GiB), "
+            f"of which {base} bytes allocated when step 2 began (the inputs, the weights, step 1's "
+            f"retained layer outputs)")
     return launches, sites
 
 
@@ -865,7 +1021,7 @@ def lm_phase(torch, repro_torch, kern, cfg, dev):
     torch.cuda.empty_cache()
     return {
         "launches": launches, "sites": sites, "weight_sites": lm_weights(cfg),
-        "per_prefill": per_prefill, "per_step": per_step[0], "layers": layers,
+        "per_prefill": per_prefill, "per_step": per_step[0], "layers": layers, "d_model": d,
         "prefill_ms": prefill_s * 1e3, "warm_prefill_ms": warm_s * 1e3,
         "decode_ms": statistics.median(step_s[1:]) * 1e3,
         "decode_mean_ms": statistics.mean(step_s) * 1e3, "peak": peak,
@@ -900,15 +1056,33 @@ def bound(nbytes: float, flops: float, rate: float = F32_FLOPS_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def host_ms(torch, fn, calls=HOST_CALLS) -> float:
+    """The host's time per call: ``time.perf_counter`` over ``calls``
+    calls with no synchronise between them (where the device takes longer
+    than the host, the launch queue fills and this reads the device's
+    pace instead)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = (time.perf_counter() - t0) / calls * 1e3
+    torch.cuda.synchronize()
+    return host
+
+
 def time_site(torch, op, info, rows_for, seg_for, gen, dev):
-    """(kernel ms, plain ms, library ms or None, bytes, FLOPs) of one
-    dispatch site at its shapes; ``rows_for(e, n)`` and ``seg_for(e, s)``
-    give the path's own gather ids and segment ids."""
+    """(kernel ms, plain ms, library ms or None, bytes, FLOPs, extra) of
+    one dispatch site at its shapes; ``rows_for(e, n)`` and ``seg_for(e,
+    s)`` give the path's own gather ids and segment ids. ``extra`` holds
+    the host's time per call (segment_sum, gather_join and blocked_matmul
+    at m ≤ 16) and, on segment_sum's sorted path, the time of its index
+    (torch.sort and the starts kernel) and of the sort alone."""
     from repro_torch.kernels.gather.ops import gather_rows_forward
     from repro_torch.kernels.gather.ref import gather_rows_ref
-    from repro_torch.kernels.matmul.ops import blocked_matmul_forward
+    from repro_torch.kernels.matmul.ops import SKINNY_ROWS, blocked_matmul_forward
     from repro_torch.kernels.matmul.ref import matmul_ref
-    from repro_torch.kernels.segsum.ops import segment_sum_forward
+    from repro_torch.kernels.segsum.ops import SCAN_MAX_EDGES, csr, segment_sum_forward
     from repro_torch.kernels.segsum.ref import segment_sum_ref
 
     if op == "gather_join":
@@ -918,9 +1092,10 @@ def time_site(torch, op, info, rows_for, seg_for, gen, dev):
         k_ms = time_ms(torch, lambda: gather_rows_forward(table, rows))
         p_ms = time_ms(torch, lambda: gather_rows_ref(table, rows))
         l_ms = time_ms(torch, lambda: torch.index_select(table, 0, rows))
+        extra = {"host_ms": host_ms(torch, lambda: gather_rows_forward(table, rows))}
         # the table rows these ids touch, read once; ids; the output
         seen = int(torch.unique(rows).numel())
-        return k_ms, p_ms, l_ms, seen * d * 4 + e * 4 + e * d * 4, 0
+        return k_ms, p_ms, l_ms, seen * d * 4 + e * 4 + e * d * 4, 0, extra
     if op == "segment_sum":
         e, d, s = info["nnz"], info["dim"], info["num_segments"]
         msg = torch.randn(e, d, device=dev, generator=gen)
@@ -929,14 +1104,19 @@ def time_site(torch, op, info, rows_for, seg_for, gen, dev):
         k_ms = time_ms(torch, lambda: segment_sum_forward(msg, seg, s))
         p_ms = time_ms(torch, lambda: segment_sum_ref(msg, seg, s))
         l_ms = time_ms(torch, lambda: out.zero_().index_add_(0, seg, msg))
-        return k_ms, p_ms, l_ms, e * d * 4 + e * 4 + s * d * 4, e * d
+        extra = {"host_ms": host_ms(torch, lambda: segment_sum_forward(msg, seg, s))}
+        if e > SCAN_MAX_EDGES:
+            extra["csr_ms"] = time_ms(torch, lambda: csr(seg, s))
+            extra["sort_ms"] = time_ms(torch, lambda: torch.sort(seg, stable=True))
+        return k_ms, p_ms, l_ms, e * d * 4 + e * 4 + s * d * 4, e * d, extra
     m, k, n = info["m"], info["k"], info["n"]
     x = torch.randn(m, k, device=dev, generator=gen)
     y = torch.randn(k, n, device=dev, generator=gen)
     k_ms = time_ms(torch, lambda: blocked_matmul_forward(x, y))
     p_ms = time_ms(torch, lambda: matmul_ref(x, y))
     l_ms = time_ms(torch, lambda: torch.matmul(x, y))
-    return k_ms, p_ms, l_ms, (m * k + k * n + m * n) * 4, 2 * m * n * k
+    extra = {"host_ms": host_ms(torch, lambda: blocked_matmul_forward(x, y))} if m <= SKINNY_ROWS else {}
+    return k_ms, p_ms, l_ms, (m * k + k * n + m * n) * 4, 2 * m * n * k, extra
 
 
 def timing_phase(torch, graph, gcn, logreg, lm, errs, dev):
@@ -951,18 +1131,24 @@ def timing_phase(torch, graph, gcn, logreg, lm, errs, dev):
     src, dst = graph["src"], graph["dst"]
     paths = {}
 
-    def add(path, op, key, mult, k_ms, p_ms, l_ms, nbytes, flops):
+    def add(path, op, key, mult, k_ms, p_ms, l_ms, nbytes, flops, extra=None):
+        extra = extra or {}
         if op == "blocked_matmul":
             b_ms, by = bound(nbytes, flops, MATMUL_FLOPS_PER_S)
-            old = f"; at the f32 CUDA-core rate {bound(nbytes, flops)[0]:.4f} ms"
+            old = f"; at the f32 CUDA-core rate {fmt_ms(bound(nbytes, flops)[0])}"
         else:
             (b_ms, by), old = bound(nbytes, flops), ""
-        log(f"  {path} {key} x{mult}: kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  library "
-            f"{'none' if l_ms is None else f'{l_ms:.4f} ms'}  bound {b_ms:.4f} ms "
-            f"({by}: {nbytes} B, {flops} FLOP{old})")
+        more = "".join(f"  {name} {fmt_ms(v)}" for name, v in (
+            ("host per call", extra.get("host_ms")), ("index (sort + starts)", extra.get("csr_ms")),
+            ("of it torch.sort", extra.get("sort_ms"))) if v is not None)
+        log(f"  {path} {key} x{mult}: kernel {fmt_ms(k_ms)}  plain {fmt_ms(p_ms)}  library "
+            f"{'none' if l_ms is None else fmt_ms(l_ms)}  bound {fmt_ms(b_ms)} "
+            f"({by}: {nbytes} B, {flops} FLOP{old}){more}")
         acc = paths.setdefault(op, {}).setdefault(path, {
             "ms": 0.0, "plain_ms": 0.0, "library_ms": None if l_ms is None else 0.0,
             "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0, "launches_per_pass": 0, "sites": []})
+        for name, v in extra.items():
+            acc[name] = acc.get(name, 0.0) + mult * v
         acc["ms"] += mult * k_ms
         acc["plain_ms"] += mult * p_ms
         if l_ms is not None:
@@ -1005,6 +1191,40 @@ def timing_phase(torch, graph, gcn, logreg, lm, errs, dev):
         for path in where:
             add(path, op, f"{prog} {key}", mult, *timed)
 
+    # the card's rate for the gather's own access pattern: E rows of the
+    # GCN's width copied once each, in a random order and in order (no row
+    # is read twice, so L2 gives no reuse): what the gather reaches at the
+    # GCN sites, where each table row is read about once per edge
+    from repro_torch.kernels.gather.ops import gather_rows_forward
+
+    e = EDGES + NODES
+    for d in (FEAT, HIDDEN):
+        rows = torch.randn(e, d, device=dev, generator=gen)
+        for order, ids in (("a random order", torch.randperm(e, generator=gen, device=dev).int()),
+                           ("edge order", torch.arange(e, device=dev, dtype=torch.int32))):
+            ms = time_ms(torch, lambda: gather_rows_forward(rows, ids))
+            log(f"  gather_rows probe, {e} rows of D={d} each copied once, in {order}: "
+                f"{fmt_ms(ms)} ({2 * e * d * 4 / ms / 1e9:.3f} TB/s of rows read and written)")
+    del rows, ids
+
+    # where segment_sum's scan path stops paying: both paths at S = E, ids
+    # the embedding's positions at its D, and random ids at the GCN's D
+    from repro_torch.kernels.segsum.ops import SCAN_MAX_EDGES, run
+
+    log(f"  segment_sum path crossover (device ms per call; host ms per call over {HOST_CALLS} "
+        f"calls), scan path at E <= {SCAN_MAX_EDGES}:")
+    for d, kind in ((lm["d_model"], "positions"), (FEAT, "random ids")):
+        for e in SEGSUM_CROSSOVER_E:
+            msg = torch.randn(e, d, device=dev, generator=gen)
+            seg = (torch.arange(e, device=dev, dtype=torch.int32) if kind == "positions" else
+                   torch.randint(0, e, (e,), generator=gen, device=dev, dtype=torch.int32))
+            out = torch.empty(e, d, device=dev)
+            got = {p: (time_ms(torch, lambda: run(msg, seg, out, p)),
+                       host_ms(torch, lambda: run(msg, seg, out, p), 200)) for p in ("scan", "sorted")}
+            log(f"    E=S={e} D={d} {kind}: scan {fmt_ms(got['scan'][0])} (host {fmt_ms(got['scan'][1])}), "
+                f"sorted {fmt_ms(got['sorted'][0])} (host {fmt_ms(got['sorted'][1])})")
+    del msg, seg, out
+
     # the selective scan at the prefill's shape, once per layer
     shape = (LM_BATCH, LM_PROMPT) + LM_SCAN
     a = torch.rand(shape, generator=gen, device=dev)
@@ -1031,6 +1251,7 @@ def timing_phase(torch, graph, gcn, logreg, lm, errs, dev):
         tot = {f: sum(v[f] for v in per_path.values())
                for f in ("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms")}
         lib = [v["library_ms"] for v in per_path.values()]
+        host = [v["host_ms"] for v in per_path.values() if "host_ms" in v]
         by_path = {"gcn": gcn["launches"][op], "logreg": logreg["launches"][op],
                    "falcon_mamba": lm["launches"][op]}
         records.append({
@@ -1046,12 +1267,15 @@ def timing_phase(torch, graph, gcn, logreg, lm, errs, dev):
             "bound_ms": tot["bound_ms"],
             "bound_by": "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations",
             "library_ms": None if None in lib else sum(lib),
+            "host_ms": sum(host) if host else None,
             "per": (f"launches: the main paths' runs, {GCN_STEPS} GCN steps (phase 3), "
                     f"{LOGREG_STEPS} logistic-regression steps (phase 4) and one falcon-mamba "
                     f"request of a prefill and {LM_DECODE} decode steps (phase 5); "
                     "ms, plain_ms, bound_ms, library_ms: each site timed alone, times its "
                     "launches in one pass, summed over one GCN step, one logistic-regression "
-                    "step, one prefill and one decode step; 'paths' splits them"),
+                    "step, one prefill and one decode step; 'paths' splits them; host_ms: "
+                    f"the host's time per call over {HOST_CALLS} calls without a synchronise, "
+                    "summed the same way over the sites where it was taken (null: not taken)"),
             "paths": {path: {k: v for k, v in acc.items() if k not in ("bytes_ms", "ops_ms")}
                       for path, acc in per_path.items()},
         })

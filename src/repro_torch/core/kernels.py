@@ -500,9 +500,15 @@ class ResolutionLog(Dict[str, str]):
 
 
 def _is_f32(info: Dict) -> bool:
-    # the CUDA kernels read and write f32 and sum in f32; any other dtype
+    # blocked_matmul reads and writes f32 and sums in f32; any other dtype
     # (f64, bf16, ...) falls through to the next tier and is recorded so
     return info["dtype"] == torch.float32
+
+
+def _is_f32_bf16_f16(info: Dict) -> bool:
+    # the segment-sum and gather kernels take f32, bf16 and f16 (the sum in
+    # f32, rounded once); f64 falls through to the next tier
+    return info["dtype"] in (torch.float32, torch.bfloat16, torch.float16)
 
 
 def _segsum_ref(msg: torch.Tensor, seg: torch.Tensor, num_segments: int) -> torch.Tensor:
@@ -548,7 +554,7 @@ def _gather_cuda(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
 
 
 register_impl(
-    "segment_sum", "cuda", _segsum_cuda, backends=("cuda",), predicate=_is_f32
+    "segment_sum", "cuda", _segsum_cuda, backends=("cuda",), predicate=_is_f32_bf16_f16
 )
 register_impl("segment_sum", "ref", _segsum_ref)
 register_impl("segment_sum", "torch", _segsum_ref)
@@ -560,7 +566,7 @@ register_impl("blocked_matmul", "ref", _matmul_ref)
 register_impl("blocked_matmul", "torch", _matmul_torch)
 
 register_impl(
-    "gather_join", "cuda", _gather_cuda, backends=("cuda",), predicate=_is_f32
+    "gather_join", "cuda", _gather_cuda, backends=("cuda",), predicate=_is_f32_bf16_f16
 )
 register_impl("gather_join", "ref", _gather_ref)
 register_impl("gather_join", "torch", _gather_ref)

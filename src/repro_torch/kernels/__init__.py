@@ -1,9 +1,12 @@
 """Hand-written CUDA kernels for the engine's hot spots (``csrc/*.cu``),
 built for Hopper (``sm_90a``) at first use by ``build.py``:
 
-  segsum/   segment sum by f32 atomics — the Σ over a COO edge relation;
-  gather/   row gather with in-kernel masking — the edge ⋈ node join and
-            the restricted-join gradient gathers;
+  segsum/   segment sum in one summation order, no atomics (a scan of the
+            ids for few edges, a sorted CSR pass for many) — the Σ over a
+            COO edge relation;
+  gather/   row gather with in-kernel masking, many loads in flight and
+            streaming stores — the edge ⋈ node join and the
+            restricted-join gradient gathers;
   matmul/   f32 product on the CUDA cores (128-row tiles, split-K for
             m ≤ 16, one summation order) — the matmul-shaped Σ∘⋈;
   ssm_scan/ the selective scan h_t = a_t ⊙ h_{t-1} + b_t, one thread per

@@ -111,12 +111,13 @@ def library() -> ctypes.CDLL:
         if _LIB is None:
             lib = ctypes.CDLL(str(build()))
             vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-            lib.repro_segsum_f32.argtypes = [vp, vp, vp, ll, i32, i32, vp]
-            lib.repro_gather_f32.argtypes = [vp, vp, vp, ll, i32, i32, vp]
+            lib.repro_segsum_starts.argtypes = [vp, ll, i32, vp, vp]
+            lib.repro_segsum.argtypes = [vp, vp, vp, vp, vp, vp, ll, i32, i32, i32, vp]
+            lib.repro_gather.argtypes = [vp, vp, vp, ll, i32, i32, i32, vp]
             lib.repro_matmul_f32.argtypes = [vp, vp, vp, vp, ll, i32, i32, i32, vp]
             lib.repro_ssm_scan.argtypes = [vp, vp, vp, ll, ll, ll, i32, i32, vp]
-            for fn in (lib.repro_segsum_f32, lib.repro_gather_f32, lib.repro_matmul_f32,
-                       lib.repro_ssm_scan):
+            for fn in (lib.repro_segsum_starts, lib.repro_segsum, lib.repro_gather,
+                       lib.repro_matmul_f32, lib.repro_ssm_scan):
                 fn.restype = i32
             lib.repro_error_string.argtypes = [i32]
             lib.repro_error_string.restype = ctypes.c_char_p

@@ -1,44 +1,65 @@
 """What every kernel wrapper shares: where a tensor sends a call, the checks
-before a launch, and the launch itself on PyTorch's current stream."""
+before a launch, and the launch itself on PyTorch's current stream.
+
+A small call's cost is the host's, so the launch path holds only what a
+launch needs: each C entry point is bound once and kept here (no lock per
+call), a tensor's checks are one test on the way through, the stream is
+PyTorch's raw handle (no ``torch.cuda.Stream`` object per call), and the
+device is switched only when the tensor's is not the current one.
+"""
 
 from __future__ import annotations
+
+from typing import Dict
 
 import torch
 
 from . import build
 
+#: the kernel library's C entry points, bound at first use
+_ENTRIES: Dict[str, object] = {}
 
-def on_cpu(*tensors: torch.Tensor) -> bool:
-    """True when the call takes the plain version: every tensor lies on the
-    CPU. A CUDA tensor launches the kernel; any other device raises."""
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
-        return True
-    if kinds == {"cuda"}:
+
+def on_cpu(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """True when the call takes the plain version: both tensors lie on the
+    CPU. CUDA tensors launch the kernel; any other device raises."""
+    if a.is_cuda and b.is_cuda:
         return False
+    if a.device.type == "cpu" and b.device.type == "cpu":
+        return True
     raise ValueError(
-        f"kernel inputs must all lie on the CPU or all on one CUDA device; got {sorted(kinds)}"
+        "kernel inputs must all lie on the CPU or all on one CUDA device; got "
+        f"{sorted({a.device.type, b.device.type})}"
     )
 
 
-def require(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int, what: str) -> None:
-    """Raise unless ``t`` is what the kernel takes: ``dtype``, ``ndim`` dims,
-    contiguous, on a CUDA device."""
-    if t.device.type != "cuda":
-        raise ValueError(f"{name}: {what} must lie on a CUDA device, got {t.device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: {what} must be {dtype}, got {t.dtype}")
+def require(name: str, t: torch.Tensor, dtypes, ndim: int, what: str) -> None:
+    """Raise unless ``t`` is what the kernel takes: a dtype in ``dtypes``
+    (one dtype or a collection), ``ndim`` dims, contiguous. The caller has
+    placed it on a CUDA device (``on_cpu`` is false)."""
+    allowed = (dtypes,) if isinstance(dtypes, torch.dtype) else dtypes
+    if t.dtype in allowed and t.dim() == ndim and t.is_contiguous():
+        return
+    if t.dtype not in allowed:
+        names = [str(d).replace("torch.", "") for d in allowed]
+        names = ", ".join(names[:-1]) + " or " + names[-1] if len(names) > 1 else names[0]
+        raise TypeError(f"{name}: {what} must be {names}, got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name}: {what} must have {ndim} dims, got shape {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: {what} must be contiguous")
+    raise ValueError(f"{name}: {what} must be contiguous")
 
 
-def launch(name: str, fn_name: str, device: torch.device, *args) -> None:
-    """Call one C entry point of the kernel library on ``device``'s current
-    stream and raise if it reports a CUDA error."""
-    lib = build.library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        code = getattr(lib, fn_name)(*args, stream)
-    build.check(code, name)
+def launch(name: str, fn_name: str, on: torch.Tensor, *args) -> None:
+    """Call one C entry point of the kernel library on the current stream of
+    the device that ``on`` lies on, and raise if it reports a CUDA error."""
+    fn = _ENTRIES.get(fn_name)
+    if fn is None:
+        fn = _ENTRIES[fn_name] = getattr(build.library(), fn_name)
+    index, current = on.get_device(), torch._C._cuda_getDevice()
+    if index == current:
+        code = fn(*args, torch._C._cuda_getCurrentRawStream(current))
+    else:
+        with torch.cuda.device(index):
+            code = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    if code:
+        build.check(code, name)

@@ -96,7 +96,7 @@ def _launch(x: torch.Tensor, y: torch.Tensor, out: torch.Tensor, p: Plan) -> Non
     n = y.shape[1]
     ws = torch.empty(p.workspace, dtype=torch.float32, device=x.device) if p.workspace else None
     launch(
-        "blocked_matmul", "repro_matmul_f32", x.device,
+        "blocked_matmul", "repro_matmul_f32", x,
         x.data_ptr(), y.data_ptr(), out.data_ptr(), None if ws is None else ws.data_ptr(),
         p.workspace * 4, m, n, k,
     )

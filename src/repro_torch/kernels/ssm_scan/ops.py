@@ -51,7 +51,7 @@ def ssm_scan_forward(a: torch.Tensor, b: torch.Tensor, reverse: bool = False) ->
     bsz, s, c, n = a.shape
     if h.numel():
         launch(
-            "ssm_scan", "repro_ssm_scan", a.device,
+            "ssm_scan", "repro_ssm_scan", a,
             a.data_ptr(), b.data_ptr(), h.data_ptr(), bsz, s, c * n,
             DTYPE_CODES[a.dtype], int(reverse),
         )

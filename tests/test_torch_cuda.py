@@ -75,7 +75,10 @@ def test_cuda_kernels_match_plain_versions(cuda_device, e, n, d):
     _assert_within_sum_bound(blocked_matmul(x, y), matmul_ref(x, y), d, x.abs() @ y.abs())
     launched = kernels.launch_counts()
     assert launched["blocked_matmul"] == 1
-    assert launched["gather_join"] == launched["segment_sum"] == (1 if e else 0)
+    assert launched["gather_join"] == (1 if e else 0)
+    # the segment sum writes every output row itself, zeros too: it
+    # launches whenever the output is not empty
+    assert launched["segment_sum"] == 1
     kernels.reset_launch_counts()
 
 
@@ -165,6 +168,78 @@ def test_cuda_wrappers_refuse_what_the_kernel_does_not_take(cuda_device):
     rows = torch.zeros(3, dtype=torch.int64, device=cuda_device)
     with pytest.raises(TypeError, match="int32"):
         gather_rows(torch.zeros(4, 4, device=cuda_device), rows)
+
+
+def _planted_ids(rng, e, s, hot):
+    """Random ids over S with ``hot`` of them in segment S // 3 (past the
+    kernel's chunk of 256 terms when hot > 256), only even ids elsewhere
+    (half the segments empty), and padding ids mixed in."""
+    seg = 2 * rng.integers(0, max(s // 2, 1), size=e)
+    seg[rng.permutation(e)[:hot]] = s // 3
+    if e >= 3:
+        seg[rng.permutation(e)[:3]] = [-1, s, s + 5]
+    return torch.tensor(seg, dtype=torch.int32)
+
+
+SEGSUM_CASES = [
+    # (E, S, D): the scan path (E <= 4,096), then the sorted path
+    (9, 7, 3, 0), (2, 2, 4096, 0), (2048, 2048, 4096, 0), (3000, 50, 128, 1000),
+    (4096, 300, 130, 0), (4097, 300, 256, 0), (20_000, 1000, 256, 5000),
+    (60_000, 7000, 128, 300), (30_000, 40, 8, 12_000), (5000, 1, 1, 5000),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("e,s,d,hot", SEGSUM_CASES, ids=str)
+def test_cuda_segment_sum_sums_in_its_stated_order(cuda_device, e, s, d, hot, dtype):
+    """Both paths give the bits of ref.segment_sum_in_kernel_order (chunks
+    of 256 terms in ascending edge order, chunk sums added in order), call
+    after call, and each path gives the other's bits."""
+    from repro_torch.kernels.segsum.ops import run, segment_sum_forward
+    from repro_torch.kernels.segsum.ref import segment_sum_in_kernel_order
+
+    rng = np.random.default_rng(e + s + d)
+    seg = _planted_ids(rng, e, s, hot).to(cuda_device)
+    msg = torch.tensor(_f32(rng, e, d), device=cuda_device).to(dtype)
+    kernels.reset_launch_counts()
+    got = segment_sum_forward(msg, seg, s)
+    assert kernels.launch_counts()["segment_sum"] == 1
+    want = segment_sum_in_kernel_order(msg, seg, s)
+    assert got.dtype == dtype and torch.equal(got, want)
+    assert torch.equal(segment_sum_forward(msg, seg, s), got)
+    for path in ("scan", "sorted"):
+        out = torch.empty_like(got)
+        run(msg, seg, out, path)
+        assert torch.equal(out, got), path
+    kernels.reset_launch_counts()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("e,n,d", [(2, 65_024, 4096), (2048, 65_024, 4096), (50_000, 3000, 128),
+                                   (20_000, 3000, 256), (9, 7, 3), (9, 7, 130), (3, 5, 1)])
+def test_cuda_gather_is_exact_in_every_working_type(cuda_device, e, n, d, dtype):
+    rng = np.random.default_rng(e + d)
+    table = torch.tensor(_f32(rng, n, d), device=cuda_device).to(dtype)
+    rows = torch.tensor(_ids(rng, e, n), device=cuda_device)
+    assert torch.equal(gather_rows(table, rows), gather_rows_ref(table, rows))
+    # a table that is not 16-byte aligned takes the element-wise copy
+    shifted = table.reshape(-1)[1:1 + (n - 1) * d].reshape(n - 1, d) if d % 8 == 0 else table
+    assert torch.equal(gather_rows(shifted, rows), gather_rows_ref(shifted, rows))
+    kernels.reset_launch_counts()
+
+
+@pytest.mark.cuda
+def test_cuda_segment_sum_refuses_what_the_kernel_does_not_take(cuda_device):
+    msg = torch.zeros(4, 3, dtype=torch.float64, device=cuda_device)
+    seg = torch.zeros(4, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        segment_sum(msg, seg, 2)
+    with pytest.raises(TypeError, match="int32"):
+        segment_sum(msg.float(), seg.long(), 2)
+    with pytest.raises(ValueError, match="does not match"):
+        segment_sum(msg.float(), seg[:3], 2)
 
 
 @pytest.mark.cuda
