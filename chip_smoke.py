@@ -7,7 +7,7 @@ Phases, in order; any failure stops the run with a non-zero exit:
 
 1. build the CUDA kernels from ``src/repro_torch/kernels/csrc``;
 2. hold each kernel against its plain PyTorch version on the card, at the
-   shapes of both main paths and at edge cases, within a stated tolerance,
+   shapes of every main path and at edge cases, within a stated tolerance,
    with planted faults that the tolerance must catch; and hold
    ``blocked_matmul`` and ``segment_sum`` to their own contracts: each sums
    in one stated order (a row's bits do not depend on how many rows the
@@ -21,9 +21,21 @@ Phases, in order; any failure stops the run with a non-zero exit:
    kernels, that the loss falls, that step 1 agrees with the plain
    ``torch`` tier, and that a second run of the 5 steps ends with the same
    parameters bit for bit (else it names the first value that differs);
-4. step the FRA logistic regression (paper §2.3, 1,048,576 × 64) through
-   ``Database.query(...).step()``;
-5. serve falcon-mamba-7b at its published widths and depth (d_model 4096,
+4. step the logistic regression (paper §2.3, 1,048,576 × 64) built in FRA
+   through ``Database.query(...).step()``, then the quickstart's SQL through
+   ``Database.sql``: the same tree, ``db.check`` clean, ``db.explain``
+   printed, and every step's loss and gradient equal to the FRA query's bit
+   for bit;
+5. NNMF (paper Fig. 2) at n = d = 32,768 through ``rel_matmul_blocked``, 5
+   SGD steps: the product on the CUDA kernel, the loss against the torch
+   tier, the gradients against the plain ``relu(W) @ relu(H)`` path with a
+   planted fault, the loss's fall (in f64), and the paper's §1 matmul SQL
+   equal to ``rel_matmul_blocked`` bit for bit;
+6. KGE (paper Fig. 3), TransE-L2 and TransR at d = 50 and 100, 20,000
+   entities, batch 1,024 with 200 negatives, 5 SGD steps through
+   ``rel_embed``: every site on the CUDA kernels, the loss and the entity
+   gradient against the plain ``table[ids]`` path, with a planted fault;
+7. serve falcon-mamba-7b at its published widths and depth (d_model 4096,
    64 Mamba-1 layers, state 16, vocab 65,024; f32 instead of the published
    bf16, random weights from a seed): prefill a batch of 2 prompts of 1,024
    tokens, then 8 greedy decode steps, through ``build_model``,
@@ -32,16 +44,18 @@ Phases, in order; any failure stops the run with a non-zero exit:
    launched once per layer in the prefill and never in decode, and that the
    logits agree with the plain tier and with a prefill over the prompt plus
    the first decoded token, and how much of a decode step the card is busy;
-6. time each kernel at the shapes of the main paths (the GCN step, the
-   logistic regression's step, prefill and decode) beside its plain
-   version, one PyTorch library call (where there is one), the card's
-   bound and, for the small calls, the host's time per call; and time
-   ``segment_sum``'s index (sort and starts) and its two paths across
+8. time each kernel at the shapes of the main paths (the GCN step, the
+   logistic regression's step, the NNMF and KGE steps, prefill and decode)
+   beside its plain version, one PyTorch library call (where there is one),
+   the card's bound and, for the small calls, the host's time per call; and
+   time ``segment_sum``'s index (sort and starts) and its two paths across
    their crossover.
 
-The last line of standard output is ``{"ok": true, "device": {...}}``; the
-line before it is one JSON object with a record per kernel, and the line
-before that the card's name and power limit as nvidia-smi gives them.
+Device memory is freed between phases, so the NNMF step's peak and the
+language model's 29 GB of weights never meet. The last line of standard
+output is ``{"ok": true, "device": {...}}``; the line before it is one JSON
+object with a record per kernel, and the line before that the card's name
+and power limit as nvidia-smi gives them.
 """
 
 from __future__ import annotations
@@ -88,8 +102,31 @@ RJP_SHAPES = (
 #: plain version, and a weight gradient of the cuda tier against the torch
 #: tier's
 MATMUL_LIMIT, GRAD_LIMIT = 8, 2
+#: phase 2 compares a product with f64 over row chunks of at most this many
+#: entries (a chunk's f64 temporaries take 0.5 GiB each)
+CHECK_ENTRIES = 2 ** 26
 #: the GCN path's kernels (ssm_scan is the LM path's)
 GCN_KERNELS = ("segment_sum", "gather_join", "blocked_matmul")
+
+# NNMF (paper Fig. 2, benchmarks/nnmf.py) at n = d = 32,768: A takes 4.29 GB
+# of f32; rank 32 padded to one 256-block; SGD at η = 0.1/(n·d)
+NNMF_N, NNMF_STEPS = 32_768, 5
+#: NNMF's step-1 gradients of the cuda tier against the plain path, in
+#: multiples of √K·u·Σ|terms| per entry (phase 5 says why)
+NNMF_GRAD_LIMIT = 4
+#: the paper's §1 blocked matrix multiply in SQL (tests/test_sql.py)
+MATMUL_SQL = """
+SELECT A.row, B.col, SUM(matrix_multiply(A.mat, B.mat))
+FROM A, B WHERE A.col = B.row
+GROUP BY A.row, B.col
+"""
+# KGE (paper Fig. 3, benchmarks/kge.py): TransE-L2 and TransR, 20,000
+# entities, 200 relations, batch 1,024 with the paper's 200 negatives per
+# positive, SGD at η = 0.5 (src/repro_torch/examples/kge.py), at each width
+KGE_DIMS, KGE_STEPS = (50, 100), 5
+#: the KGE step's loss on the cuda tier against the plain table[ids] path,
+#: relative (benchmarks/kge.py's bound between its two paths)
+KGE_LOSS_LIMIT = 1e-4
 
 # falcon-mamba-7b serving (src/repro_torch/configs/falcon_mamba_7b.py at its
 # published widths and depth, f32): a batch of 2 prompts of 1,024 tokens,
@@ -111,7 +148,7 @@ LM_PREFILL_LIMIT = 1e-3
 #: m = 2 and m = 2,050 (blocked_matmul's one summation order, which phase 2
 #: checks bit for bit); only a few sums per layer (the recurrence step, the
 #: readout einsum) round in another order. So the gap lies well below the
-#: tier check's ≈ 1e-4, which the limit takes. Phase 5 plants a lost conv
+#: tier check's ≈ 1e-4, which the limit takes. Phase 7 plants a lost conv
 #: window and a lost SSM state in one layer and shows both exceed it.
 LM_DECODE_LIMIT = 1e-4
 #: the shapes of blocked_matmul's path-crossover cases: the skinny path
@@ -121,10 +158,10 @@ CROSSOVER_M, CROSSOVER_K, CROSSOVER_N = (1, 2, 15, 16, 17, 33), (1, 3, 511, 512,
 #: terms, among random ids (with -1 and ≥ S): (E, S, D, edges into the hot
 #: segment) on the sorted path and on the scan path
 HOT_SORTED, HOT_SCAN = (20_000, 1_000, 256, 5_000), (3_000, 50, 128, 1_000)
-#: E of the measurement that places segment_sum's path crossover (phase 6):
+#: E of the measurement that places segment_sum's path crossover (phase 8):
 #: S = E, at the embedding's D and the GCN's
 SEGSUM_CROSSOVER_E = (512, 1024, 2048, 4096, 8192, 16384)
-#: calls over which phase 6 takes the host's time per call
+#: calls over which phase 8 takes the host's time per call
 HOST_CALLS = 1000
 #: odd ids (padding -1, ids ≥ S) of the edge cases, over S = N = 7
 ODD_IDS = (3, -1, 0, 7, 9, 2, -5, 4, 4)
@@ -133,7 +170,7 @@ UNIT_ROUNDOFF = {"bfloat16": 2.0 ** -8, "float16": 2.0 ** -11}
 
 
 def segsum_shapes(cfg):
-    """(E, D, S, what) of every segment_sum call phase 2 checks and phase 6
+    """(E, D, S, what) of every segment_sum call phase 2 checks and phase 8
     times: the GCN's three sites, the embedding's Σ by position in prefill
     and decode, the edge cases, the planted long segments and the
     crossover measurement."""
@@ -144,18 +181,32 @@ def segsum_shapes(cfg):
         cases += [(len(ODD_IDS), d, 7, "edge ids -1/>=S"), (0, d, 5, "E=0")]
     cases += [(e, d, s, "planted long segment") for e, s, d, _ in (HOT_SORTED, HOT_SCAN)]
     cases += [(e, d, e, "crossover") for e in SEGSUM_CROSSOVER_E for d in (cfg.d_model, FEAT)]
+    for e, n in kge_lookups():
+        for d in KGE_DIMS:
+            cases += [(e, d, e, "KGE Σ by position"), (e, d, n, "KGE table gradient")]
     return cases
 
 
 def gather_shapes(cfg):
-    """(E, N, D, what) of every gather_rows call phase 2 checks and phase 6
+    """(E, N, D, what) of every gather_rows call phase 2 checks and phase 8
     times."""
     gcn_e = EDGES + NODES
     cases = [(gcn_e, NODES, d, f"GCN D={d}") for d in (FEAT, HIDDEN)]
     cases += [(e, cfg.vocab, cfg.d_model, "embedding") for e in (LM_BATCH * LM_PROMPT, LM_BATCH)]
+    for e, n in kge_lookups():
+        for d in KGE_DIMS:
+            cases += [(e, n, d, "KGE lookup"), (e, e, d, "KGE cotangent rows by position")]
     for d in (1, 3, 4, 130):
         cases += [(len(ODD_IDS), 7, d, "edge ids -1/>=N"), (0, 5, d, "E=0")]
     return cases
+
+
+def kge_lookups():
+    """(ids, table rows) of the KGE step's lookups: the head and tail
+    entities, the relations, the negative tails."""
+    from repro_torch.examples.kge import BATCH, N_ENT, N_REL, NEG
+
+    return ((BATCH, N_ENT), (BATCH, N_REL), (BATCH * NEG, N_ENT))
 
 
 def lm_weights(cfg):
@@ -170,8 +221,11 @@ def lm_weights(cfg):
 def matmul_cases(cfg):
     """(m, k, n, what) of every blocked_matmul product phase 2 checks: the
     GCN forwards, the RJP shapes, the logistic regression's two products,
-    falcon-mamba's projections at m = B·S and m = B and its head at m = B,
-    ragged edges, and the crossover between the skinny and the tiled path."""
+    the NNMF product, falcon-mamba's projections at m = B·S and m = B and
+    its head at m = B, ragged edges, and the crossover between the skinny
+    and the tiled path."""
+    from repro_torch.examples.nnmf import BLOCK
+
     cases = [
         (NODES, FEAT, HIDDEN, "layer-1 forward"),
         (NODES, HIDDEN, CLASSES, "layer-2 forward"),
@@ -180,6 +234,7 @@ def matmul_cases(cfg):
         (3, 0, 4, "K=0"), (40, 0, 9, "K=0"),
         (LOGREG_ROWS, LOGREG_COLS, 1, "logreg forward"),
         (1, LOGREG_ROWS, LOGREG_COLS, "logreg dθ"),
+        (NNMF_N, BLOCK, NNMF_N, "NNMF forward"),
     ]
     for (k, n), sites in lm_weights(cfg).items():
         for m in ((LM_BATCH,) if sites == 1 else (LM_BATCH * LM_PROMPT, LM_BATCH)):
@@ -315,38 +370,50 @@ def check_kernels(torch, kern, graph, lm_cfg, dev):
         # f32 dot products of length k in two orders (the kernel's
         # segments of fmaf, cuBLAS's blocking): each differs from the exact
         # product by a few rounding walks, so they differ from each other
-        # by at most MATMUL_LIMIT of them
+        # by at most MATMUL_LIMIT of them. The f64 comparison runs over
+        # row chunks of at most CHECK_ENTRIES entries
         x = torch.randn(m, k, device=dev, generator=gen)
         y = torch.randn(k, n, device=dev, generator=gen)
         got, want = kern.blocked_matmul(x, y), matmul_ref(x, y)
-        limit = MATMUL_LIMIT * rounding_walk(x, y)
-        exact = x.double() @ y.double()
-        err = (got.double() - want.double()).abs()
-        worst = excess(err, limit)
+        # the limit must fail a wrong product: plant three faults. 16 terms
+        # dropped (a K-tile of the earlier kernel, half a pipeline stage of
+        # this one); one K-segment's partial dropped
+        tile = slice(k // 2, k // 2 + 16)
+        s0 = (k // 2) // SEG_LEN * SEG_LEN
+        seg = slice(s0, min(s0 + SEG_LEN, k))
+        planted = {"zeros": lambda r: got[r],
+                   "one K-tile dropped": lambda r: x[r, tile] @ y[tile, :],
+                   f"K-segment [{seg.start}, {seg.stop}) dropped": lambda r: x[r, seg] @ y[seg, :]}
+        if k < 4096 and what != "NNMF forward":
+            planted = {}
+        worst = vs_kernel = vs_plain = max_err = 0.0
+        seen = dict.fromkeys(planted, 0.0)
+        step = max(1, CHECK_ENTRIES // max(n, 1))
+        for r0 in range(0, m, step):
+            r = slice(r0, min(m, r0 + step))
+            limit = MATMUL_LIMIT * rounding_walk(x[r], y)
+            exact = x[r].double() @ y.double()
+            g, w = got[r].double(), want[r].double()
+            err = (g - w).abs()
+            worst = max(worst, excess(err, limit))
+            vs_kernel = max(vs_kernel, excess((g - exact).abs(), limit))
+            vs_plain = max(vs_plain, excess((w - exact).abs(), limit))
+            if err.numel():
+                max_err = max(max_err, float(err.max()))
+            for fault, term in planted.items():
+                seen[fault] = max(seen[fault], excess((g - term(r).double() - w).abs(), limit))
+            del limit, exact, g, w, err
         log(f"  blocked_matmul {what}: ({m}x{k})@({k}x{n}) "
-            f"max_abs_err={float(err.max()) if err.numel() else 0.0:.3e} "
+            f"max_abs_err={max_err:.3e} "
             f"err/limit={worst:.3e} (limit {MATMUL_LIMIT}·√K·u·sqrt(x²@y²) per entry); "
-            f"vs f64, err/limit: kernel {excess((got.double() - exact).abs(), limit):.3e} "
-            f"plain {excess((want.double() - exact).abs(), limit):.3e}")
+            f"vs f64, err/limit: kernel {vs_kernel:.3e} plain {vs_plain:.3e}")
         if worst > 1.0:
             raise AssertionError(f"blocked_matmul outside its tolerance ({what})")
-        if err.numel():
-            errs["blocked_matmul"] = max(errs["blocked_matmul"], float(err.max()))
-        if k >= 4096:
-            # the limit must fail a wrong product at this K: plant three
-            # faults. 16 terms dropped (a K-tile of the earlier kernel, half
-            # a pipeline stage of this one); one K-segment's partial dropped
-            tile = slice(k // 2, k // 2 + 16)
-            s0 = (k // 2) // SEG_LEN * SEG_LEN
-            seg = slice(s0, min(s0 + SEG_LEN, k))
-            for fault, bad in (("zeros", torch.zeros_like(got)),
-                               ("one K-tile dropped", got - x[:, tile] @ y[tile, :]),
-                               (f"K-segment [{seg.start}, {seg.stop}) dropped",
-                                got - x[:, seg] @ y[seg, :])):
-                seen = excess((bad.double() - want.double()).abs(), limit)
-                log(f"    planted fault ({fault}): err/limit={seen:.3e}, must exceed 1")
-                if seen <= 1.0:
-                    raise AssertionError(f"the blocked_matmul limit passes a wrong product ({what})")
+        errs["blocked_matmul"] = max(errs["blocked_matmul"], max_err)
+        for fault, v in seen.items():
+            log(f"    planted fault ({fault}): err/limit={v:.3e}, must exceed 1")
+            if v <= 1.0:
+                raise AssertionError(f"the blocked_matmul limit passes a wrong product ({what})")
 
     def batch_invariance_case(m, k, n, what):
         # rows 0-1 of the m-row product (tiled path) against the product of
@@ -403,8 +470,9 @@ def check_kernels(torch, kern, graph, lm_cfg, dev):
         segsum_case(7, odd, d, "edge ids -1/>=S", torch.float16)
     # blocked_matmul within its limit at every case of matmul_cases: the
     # main paths' shapes (falcon-mamba's projections at m = B·S and m = B,
-    # its head at m = B: the prefill keeps the last position), edges, and
-    # the crossover between the skinny and the tiled path
+    # its head at m = B: the prefill keeps the last position; the NNMF
+    # product over its blocks), edges, and the crossover between the
+    # skinny and the tiled path
     for m, k, n, what in matmul_cases(lm_cfg):
         matmul_case(m, k, n, what)
     # its contract: the bits of a row do not depend on the batch (the
@@ -416,6 +484,22 @@ def check_kernels(torch, kern, graph, lm_cfg, dev):
     d, c = lm_cfg.d_model, lm_cfg.ssm_expand * lm_cfg.d_model
     determinism_case(LM_BATCH, d, 2 * c, "falcon-mamba decode in_proj")
     determinism_case(1, LOGREG_ROWS, LOGREG_COLS, "logreg dθ")
+
+    # the KGE step's calls at its widths (a D = 50 row is 200 bytes, not a
+    # multiple of 16: the narrow units): forward, the gather of each id
+    # list and its Σ by position; backward, the gather of the cotangent
+    # rows by position and their Σ by id into the table (1,024 ids into
+    # 20,000 entities and into 200 relations: the scan path; the 204,800
+    # negatives into 20,000 entities: the sorted path, with skewed ids)
+    for d in KGE_DIMS:
+        for e, n in kge_lookups():
+            ids = torch.randint(0, n, (e,), generator=gen, device=dev, dtype=torch.int32)
+            pos = torch.arange(e, device=dev, dtype=torch.int32)
+            gather_case(n, ids, d, f"KGE lookup of {e} ids")
+            segsum_case(e, pos, d, "KGE Σ by position")
+            gather_case(e, pos, d, "KGE cotangent rows by position")
+            segsum_case(n, ids, d, f"KGE table gradient, {e} ids into {n} rows",
+                        fault=hottest_edge_dropped)
 
     # the embedding's join by token id and its Σ by position
     for e in (LM_BATCH * LM_PROMPT, LM_BATCH):
@@ -744,7 +828,7 @@ def gcn_phase(torch, repro_torch, kern, data, params0):
 
 
 # ---------------------------------------------------------------------------
-# Phase 4: the front door — FRA logreg through Database.query(...).step()
+# Phase 4: the front door — logreg through Database.query and Database.sql
 # ---------------------------------------------------------------------------
 
 
@@ -752,6 +836,7 @@ def logreg_phase(torch, repro_torch, kern, dev):
     from repro_torch.core import fra
     from repro_torch.core.kernels import ADD, LOGISTIC, MUL, XENT
     from repro_torch.core.keys import EMPTY_KEY, TRUE, L, eq_pred, identity_key, jproj, project_key
+    from repro_torch.examples.quickstart import LOGREG_SQL
 
     mm = fra.Agg(
         project_key(0), ADD,
@@ -769,40 +854,357 @@ def logreg_phase(torch, repro_torch, kern, dev):
     db = repro_torch.Database()
     db.put("Rx", X, keys=("row", "col"))
     db.put("Ry", y, keys=("row",))
-    db.put("theta", torch.zeros(LOGREG_COLS, device=dev), keys=("col",))
-    handle = db.query(query)
     lr = 1.0 / LOGREG_ROWS  # the loss is a sum over rows
-    theta = torch.zeros(LOGREG_COLS, device=dev)
-    kern.reset_launch_counts()
-    losses, secs = [], []
-    for _ in range(LOGREG_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out, grads = handle.step()
-        theta = theta - lr * grads["theta"].data
+
+    def run(handle):
+        """LOGREG_STEPS steps from theta = 0: (losses, θ gradients, step
+        seconds, launches)."""
+        theta = torch.zeros(LOGREG_COLS, device=dev)
         db.put("theta", theta, keys=("col",))
-        torch.cuda.synchronize()
-        secs.append(time.perf_counter() - t0)
-        losses.append(float(out.data))
-    launches = kern.launch_counts()
+        kern.reset_launch_counts()
+        losses, grads, secs = [], [], []
+        for _ in range(LOGREG_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, g = handle.step()
+            theta = theta - lr * g["theta"].data
+            db.put("theta", theta, keys=("col",))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            losses.append(float(out.data))
+            grads.append(g["theta"].data.clone())
+        return losses, grads, secs, kern.launch_counts()
+
+    def check_handle(handle, launches, what):
+        log(f"  {what}: resolutions {handle.resolutions}")
+        log(f"  {what}: lowerings {handle.lower_count}; blocked_matmul launches "
+            f"{launches['blocked_matmul']}")
+        if handle.lower_count != 1:
+            raise AssertionError(f"{what}: {handle.lower_count} lowerings for one signature")
+        mm_tiers = [t for k, t in handle.resolutions.items() if k.startswith("blocked_matmul")]
+        if not mm_tiers or set(mm_tiers) != {"cuda"} or launches["blocked_matmul"] <= 0:
+            raise AssertionError(f"{what}: blocked_matmul did not run on the cuda tier: "
+                                 f"{handle.resolutions}")
+
+    # the query built in FRA, through Database.query(...).step()
+    handle = db.query(query)
+    losses, grads, secs, launches = run(handle)
     log(f"  losses: {losses}")
-    log(f"  resolutions: {handle.resolutions}")
-    log(f"  lowerings: {handle.lower_count}; blocked_matmul launches: {launches['blocked_matmul']}")
     log(f"  step (median of steps 2-{LOGREG_STEPS}): {statistics.median(secs[1:]) * 1e3:.2f} ms; "
         f"step 1: {secs[0] * 1e3:.1f} ms")
     if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"logreg loss did not fall: {losses}")
-    if handle.lower_count != 1:
-        raise AssertionError(f"{handle.lower_count} lowerings for one signature")
-    mm_tiers = [t for k, t in handle.resolutions.items() if k.startswith("blocked_matmul")]
-    if not mm_tiers or set(mm_tiers) != {"cuda"} or launches["blocked_matmul"] <= 0:
-        raise AssertionError(f"blocked_matmul did not run on the cuda tier: {handle.resolutions}")
+    check_handle(handle, launches, "Database.query")
+
+    # the quickstart's SQL on the same data, through Database.sql: the same
+    # tree, so the same kernels on the same inputs, and the same bits
+    sql = db.sql(LOGREG_SQL, wrt=("theta",))
+    same_tree = sql.query.pretty() == handle.query.pretty()
+    report = sql.check()
+    log(f"  Database.sql tree equal to the FRA query's: {same_tree}; db.check: "
+        f"{len(report.errors)} error(s), codes {report.codes()}")
+    log("  db.explain:")
+    for line in db.explain(sql.query).splitlines():
+        log("    " + line)
+    if not same_tree or report.errors:
+        raise AssertionError("the SQL query differs from the FRA query, or db.check found an error")
+    s_losses, s_grads, s_secs, s_launches = run(sql)
+    same = s_losses == losses and all(torch.equal(a, b) for a, b in zip(s_grads, grads))
+    log(f"  Database.sql: losses {s_losses}; all {LOGREG_STEPS} losses and θ gradients "
+        f"bit-equal to the FRA query's: {same}; step (median of steps 2-{LOGREG_STEPS}) "
+        f"{statistics.median(s_secs[1:]) * 1e3:.2f} ms")
+    if not same:
+        raise AssertionError("the SQL query's steps differ from the FRA query's")
+    check_handle(sql, s_launches, "Database.sql")
     sites = [(s.key, s.op, s.tier, s.info_dict()) for s in handle.last.lowered.resolutions.sites]
-    return {"launches": launches, "sites": sites}
+    return {"launches": launches, "sql_launches": s_launches, "sites": sites}
 
 
 # ---------------------------------------------------------------------------
-# Phase 5: falcon-mamba-7b serving at full width
+# Phase 5: NNMF at n = d = 32,768 through rel_matmul_blocked
+# ---------------------------------------------------------------------------
+
+
+def row_chunks(n, rows=2048):
+    return [slice(r, min(n, r + rows)) for r in range(0, n, rows)]
+
+
+def nnmf_loss64(torch, params, a) -> float:
+    """0.5·Σ(relu(W) @ relu(H) − A)² in f64, over row chunks: the loss
+    without the f32 rounding of a sum of n² terms, which is larger than
+    one step's fall at η = 0.1/n²."""
+    w, h = torch.relu(params["w"]).double(), torch.relu(params["h"]).double()
+    return sum(0.5 * float(((w[r] @ h - a[r].double()) ** 2).sum()) for r in row_chunks(a.shape[0]))
+
+
+def nnmf_phase(torch, repro_torch, kern, dev):
+    from repro_torch.core.engine import engine_for
+    from repro_torch.examples import nnmf
+    from repro_torch.relational import rel_matmul_blocked
+    from repro_torch.relational.linear import _blocked_prog
+
+    n, rank = NNMF_N, nnmf.RANK
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    a, params0 = nnmf.make_problem(n, n, device=dev)
+    lr = nnmf.learning_rate(n, n)
+    log(f"  A: {n} x {n} f32 ({a.numel() * 4:,} bytes), rank {rank} padded to {nnmf.BLOCK}, "
+        f"SGD at η = 0.1/n² = {lr:.3e}; U[0, 1) A and U[0, 0.1) factors from seed 0")
+    db = repro_torch.Database()
+    engines = {"rel_matmul_blocked": engine_for(_blocked_prog()[0].forward)}
+    seen = {k: {id(low) for low in e.lowerings} for k, e in engines.items()}
+
+    # the main path: the relational loss on the cuda tier, NNMF_STEPS steps
+    step = nnmf.make_step(nnmf.ra_loss, a, lr)
+    kern.reset_launch_counts()
+    params, losses, secs = params0, [], []
+    with db.activate():
+        for i in range(NNMF_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, loss, grads = step(params)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+            if i == 0:
+                first = {k: g.clone() for k, g in grads.items()}
+            del grads, loss
+    launches = kern.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    sites = new_sites(engines, seen, db.dispatch)
+    for prog, key, op, tier, _ in sites:
+        log(f"    {prog}: {key} -> {tier}")
+    log(f"  cuda tier step losses (f32): {losses}; launches {launches}")
+    if not sites or any(t != "cuda" or op != "blocked_matmul" for _, _, op, t, _ in sites):
+        raise AssertionError(f"the NNMF product did not resolve to the cuda tier: {sites}")
+    if launches["blocked_matmul"] != NNMF_STEPS:
+        raise AssertionError(f"blocked_matmul launched {launches['blocked_matmul']} times in "
+                             f"{NNMF_STEPS} steps (one per step)")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError("non-finite NNMF loss")
+    # the fall: the loss at the first and the last parameters, in f64
+    l0, l5 = nnmf_loss64(torch, params0, a), nnmf_loss64(torch, params, a)
+    log(f"  loss in f64 before step 1 {l0!r}, after step {NNMF_STEPS} {l5!r}: fell by {l0 - l5:.6e}")
+    if not l5 < l0:
+        raise AssertionError("the NNMF loss did not fall")
+    del params
+
+    # step 1 on the torch tier: the loss within 1e-5 relative
+    with repro_torch.Database(dispatch="torch").activate():
+        kern.reset_launch_counts()
+        _, t_loss, t_grads = step(params0)
+        if sum(kern.launch_counts().values()):
+            raise AssertionError("the torch tier launched a CUDA kernel")
+    dloss = abs(losses[0] - float(t_loss)) / abs(float(t_loss))
+    log(f"  step 1 loss: cuda {losses[0]!r} torch tier {float(t_loss)!r} rel diff {dloss:.3e} (tol 1e-5)")
+    if dloss > 1e-5:
+        raise AssertionError("step-1 NNMF loss differs between the cuda and torch tiers")
+    del t_grads
+
+    # the gradients against the plain relu(W) @ relu(H) path. Both tiers
+    # take the residual R = P − A from an f32 product of 32 nonzero terms
+    # (P's entries differ by a few roundings, far below R's own rounding),
+    # and dW = (R @ relu(H)ᵀ)⊙[W>0], dH = (relu(W)ᵀ @ R)⊙[H>0] sum K = n
+    # terms each in other orders. Here the terms of an entry share a sign
+    # (relu(W), relu(H) ≥ 0, and R < 0 almost everywhere: A ~ U[0, 1) while
+    # P ≈ 0.08), so partial sums do not cancel: each rounding is at most
+    # u·Σ|terms|, and K of them of random sign have a standard deviation of
+    # at most √(K/3)·u·Σ|terms| per sum. NNMF_GRAD_LIMIT·√K·u·Σ|terms| per
+    # entry is about 5 of them for the difference of two sums. (The
+    # rounding walk √K·u·sqrt(Σ terms²) of phases 2 and 3 describes terms
+    # of random sign; it is √K times smaller here.)
+    _, p_loss, p_grads = nnmf.make_step(nnmf.plain_loss, a, lr)(params0)
+    w, h = torch.relu(params0["w"]), torch.relu(params0["h"])
+    abs_w = torch.zeros_like(w)
+    abs_h = torch.zeros_like(h)
+    drop = slice(n // 2, n // 2 + nnmf.BLOCK)   # the block of H's columns the fault loses
+    fault_w = torch.zeros_like(w)
+    for r in row_chunks(n):
+        res = w[r] @ h - a[r]
+        abs_w[r] = res.abs() @ h.t()
+        abs_h += w[r].t() @ res.abs()
+        fault_w[r] = res[:, drop] @ h[:, drop].t()
+        del res
+    limits = {"w": NNMF_GRAD_LIMIT * math.sqrt(n) * U32 * abs_w.double(),
+              "h": NNMF_GRAD_LIMIT * math.sqrt(n) * U32 * abs_h.double()}
+    faults = {"w": (fault_w * (params0["w"] > 0)).double(),   # the block's terms dropped from dW
+              "h": torch.zeros_like(h).double()}
+    faults["h"][:, drop] = p_grads["h"][:, drop].double()      # the block of dH lost
+    for k in ("w", "h"):
+        diff = first[k].double() - p_grads[k].double()
+        worst = excess(diff.abs(), limits[k])
+        seen_fault = excess((diff - faults[k]).abs(), limits[k])
+        log(f"  step 1 grad d{k.upper()}: max|cuda - plain| = {float(diff.abs().max()):.3e}, "
+            f"max|g| = {float(p_grads[k].abs().max()):.3e}, err/limit = {worst:.3e} (limit "
+            f"{NNMF_GRAD_LIMIT}·√K·u·Σ|terms| per entry, K = {n})")
+        fault = (f"the terms of H's columns [{drop.start}, {drop.stop}) dropped from dW" if k == "w"
+                 else f"dH's columns [{drop.start}, {drop.stop}) lost")
+        log(f"    planted fault ({fault}): err/limit={seen_fault:.3e}, must exceed 1")
+        if worst > 1.0:
+            raise AssertionError(f"step-1 NNMF gradient d{k.upper()} differs from the plain path")
+        if seen_fault <= 1.0:
+            raise AssertionError(f"the NNMF gradient limit passes a wrong gradient (d{k.upper()})")
+    dplain = abs(losses[0] - float(p_loss)) / abs(float(p_loss))
+    log(f"  step 1 loss against the plain path: rel diff {dplain:.3e}")
+    del p_grads, abs_w, abs_h, fault_w, limits, faults, first
+
+    # the paper's §1 matmul SQL over the same blocks: Database.sql's
+    # forward is rel_matmul_blocked's, bit for bit
+    wb, hb = nnmf.to_blocks(w), nnmf.to_blocks(h)
+    sdb = repro_torch.Database()
+    sdb.put("A", wb, keys=("row", "col"))
+    sdb.put("B", hb, keys=("row", "col"))
+    kern.reset_launch_counts()
+    out_sql = sdb.sql(MATMUL_SQL, wrt=("A", "B")).forward().data
+    with db.activate():
+        out_op = rel_matmul_blocked(wb, hb)
+    same = torch.equal(out_sql, out_op)
+    log(f"  MATMUL_SQL through Database.sql(...).forward() equals rel_matmul_blocked bit for bit: "
+        f"{same} (blocked_matmul launches {kern.launch_counts()['blocked_matmul']})")
+    if not same:
+        raise AssertionError("the SQL blocked matmul differs from rel_matmul_blocked")
+    del out_sql, out_op, a, params0, w, h, wb, hb
+    ms = statistics.median(secs[1:]) * 1e3
+    log(f"  NNMF step (median of steps 2-{NNMF_STEPS}): {ms:.2f} ms; step 1 (lowering included) "
+        f"{secs[0] * 1e3:.1f} ms")
+    log(f"  peak device memory over the cuda tier's steps: {peak} bytes ({peak / 2**30:.2f} GiB), "
+        f"of which {base} bytes allocated before the phase")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "sites": sites, "ms": ms, "peak": peak}
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: KGE, TransE-L2 and TransR, through rel_embed
+# ---------------------------------------------------------------------------
+
+
+def kge_phase(torch, np, repro_torch, kern, dev):
+    from repro_torch.core.engine import engine_for
+    from repro_torch.examples import kge
+    from repro_torch.kernels.segsum.ref import segment_sum_ref
+    from repro_torch.relational.embedding import _embed_prog
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    batch = kge.make_batch(np.random.default_rng(0), device=dev)
+    tneg = batch[3].reshape(-1)
+    hot = torch.bincount(tneg.long(), minlength=kge.N_ENT)
+    log(f"  {kge.N_ENT} entities, {kge.N_REL} relations, batch {kge.BATCH}, {kge.NEG} negatives "
+        f"({tneg.numel()} ids; up to {int(hot.max())} of one entity, {int((hot == 0).sum())} "
+        f"entities without one), SGD at η = {kge.LR}")
+    prog = _embed_prog()[0]
+    engines = {"rel_embed.forward": engine_for(prog.forward), "rel_embed.Table": engine_for(prog.grads["Table"])}
+    db = repro_torch.Database()
+    launches = dict.fromkeys(kern.launch_counts(), 0)
+    runs, sites_by_dim = {}, {}
+    for dim in KGE_DIMS:
+        seen = {k: {id(low) for low in e.lowerings} for k, e in engines.items()}
+        for algo in kge.LOSSES:
+            params0 = kge.make_params(algo, dim, device=dev)
+            what = f"{algo} d={dim}"
+            # the main path: KGE_STEPS SGD steps through rel_embed on the cuda tier
+            step = kge.make_step(algo, kge.rel_embed)
+            kern.reset_launch_counts()
+            params, losses, secs = params0, [], []
+            with db.activate():
+                for i in range(KGE_STEPS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    params, loss, grads = step(params, *batch)
+                    torch.cuda.synchronize()
+                    secs.append(time.perf_counter() - t0)
+                    losses.append(float(loss))
+                    if i == 0:
+                        first = grads["ent"].clone()
+            run_launches = kern.launch_counts()
+            for op, v in run_launches.items():
+                launches[op] += v
+            # the plain path's step 1, with the cotangent of every entity
+            # lookup kept: the gradient's terms
+            taken = []
+
+            def recording(table, ids):
+                out = table[ids]
+                if table.shape[0] == kge.N_ENT:
+                    out.retain_grad()
+                    taken.append((ids, out))
+                return out
+
+            _, p_loss, p_grads = kge.make_step(algo, recording)(params0, *batch)
+            ids = torch.cat([i.reshape(-1) for i, _ in taken])
+            terms = torch.cat([o.grad.reshape(-1, dim) for _, o in taken])
+            dloss = abs(losses[0] - float(p_loss)) / abs(float(p_loss))
+            # both paths sum the same cotangent rows into each entity's
+            # gradient row (the lookups copy rows bit for bit), in other
+            # orders: within segment_sum's limit 2·γ_n·Σ|terms| per row
+            n_terms = torch.bincount(ids.long(), minlength=kge.N_ENT).double()[:, None]
+            limit = 2 * gamma(n_terms) * segment_sum_ref(terms.abs().double(), ids, kge.N_ENT) + 1e-30
+            diff = first.double() - p_grads["ent"].double()
+            worst = excess(diff.abs(), limit)
+            top = int(n_terms[:, 0].argmax())
+            edge = int(torch.nonzero(ids == top)[0, 0])
+            bad = diff.clone()
+            bad[top] -= terms[edge].double()
+            seen_fault = excess(bad.abs(), limit)
+            log(f"  {what}: losses {losses}; step (median of steps 2-{KGE_STEPS}) "
+                f"{statistics.median(secs[1:]) * 1e3:.3f} ms, step 1 {secs[0] * 1e3:.1f} ms; launches "
+                f"{run_launches}")
+            log(f"  {what}: step 1 loss against table[ids]: {losses[0]!r} / {float(p_loss)!r}, rel diff "
+                f"{dloss:.3e} (limit {KGE_LOSS_LIMIT:g}); entity gradient max|Δ| "
+                f"{float(diff.abs().max()):.3e}, err/limit {worst:.3e} (limit 2·γ_n·Σ|terms| per row)")
+            log(f"    planted fault (one term of entity {top}, {int(n_terms[top, 0])} terms, dropped): "
+                f"err/limit={seen_fault:.3e}, must exceed 1")
+            if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+                raise AssertionError(f"{what}: the loss did not fall or is not finite: {losses}")
+            if dloss > KGE_LOSS_LIMIT:
+                raise AssertionError(f"{what}: step-1 loss differs from the plain path")
+            if worst > 1.0:
+                raise AssertionError(f"{what}: the entity gradient differs from the plain path")
+            if seen_fault <= 1.0:
+                raise AssertionError(f"{what}: the gradient limit passes a wrong gradient")
+            for op in ("gather_join", "segment_sum"):
+                if run_launches[op] <= 0:
+                    raise AssertionError(f"{what}: {op} never launched")
+            runs[what] = {"ms": statistics.median(secs[1:]) * 1e3, "launches": run_launches}
+            del params, grads, first, p_grads, taken, terms, diff, bad, limit
+        # the sites the width's lowerings resolved, each with its calls per
+        # step: one lowering per (ids, table) signature, and the head and
+        # tail lookups share one
+        sites = []
+        for label, eng in engines.items():
+            for low in eng.lowerings:
+                if id(low) in seen[label] or low.dispatch != db.dispatch:
+                    continue
+                info = {r.op: r.info_dict() for r in low.resolutions.sites}
+                e = info["segment_sum"]["nnz"]
+                v = (info["gather_join"]["num_rows"] if label.endswith("forward")
+                     else info["segment_sum"]["num_segments"])
+                mult = 2 if (e, v) == (kge.BATCH, kge.N_ENT) else 1
+                sites += [(label, r.key, r.op, r.tier, r.info_dict(), mult) for r in low.resolutions.sites]
+        for prog_name, key, op, tier, _, mult in sites:
+            log(f"    d={dim} {prog_name}: {key} -> {tier}, {mult} per step")
+        bad_sites = [(p, k, t) for p, k, _, t, _, _ in sites if t != "cuda"]
+        if {op for _, _, op, _, _, _ in sites} != {"gather_join", "segment_sum"} or bad_sites:
+            raise AssertionError(f"KGE dispatch sites not all on the cuda tier: {bad_sites or sites}")
+        for op in ("gather_join", "segment_sum"):
+            per_step = sum(m for _, _, o, _, _, m in sites if o == op)
+            for algo in kge.LOSSES:
+                got = runs[f"{algo} d={dim}"]["launches"][op]
+                if got != KGE_STEPS * per_step:
+                    raise AssertionError(f"{algo} d={dim}: {op} launched {got} times, want "
+                                         f"{per_step} per step (one per site call)")
+        sites_by_dim[dim] = sites
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "sites": sites_by_dim, "runs": runs, "batch": kge.BATCH,
+            "n_ent": kge.N_ENT}
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: falcon-mamba-7b serving at full width
 # ---------------------------------------------------------------------------
 
 
@@ -1029,7 +1431,7 @@ def lm_phase(torch, repro_torch, kern, cfg, dev):
 
 
 # ---------------------------------------------------------------------------
-# Phase 6: timings at the shapes of both main paths
+# Phase 8: timings at the shapes of the main paths
 # ---------------------------------------------------------------------------
 
 
@@ -1119,10 +1521,11 @@ def time_site(torch, op, info, rows_for, seg_for, gen, dev):
     return k_ms, p_ms, l_ms, (m * k + k * n + m * n) * 4, 2 * m * n * k, extra
 
 
-def timing_phase(torch, graph, gcn, logreg, lm, errs, dev):
+def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, errs, dev):
     """Per kernel and per main path: each site timed alone at its shapes,
     times the launches of that site in one pass of the path (one GCN step;
-    one logistic-regression step; one prefill; one decode step), summed."""
+    one logistic-regression step; one NNMF step; one KGE step at each
+    width; one prefill; one decode step), summed."""
     from repro_torch.kernels.matmul.ops import blocked_matmul_forward
     from repro_torch.kernels.ssm_scan.ops import ssm_scan_forward
     from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
@@ -1166,6 +1569,23 @@ def timing_phase(torch, graph, gcn, logreg, lm, errs, dev):
     # the logistic regression's step: its two products, once per step
     for key, op, _, info in logreg["sites"]:
         add("logreg_step", op, key, 1, *time_site(torch, op, info, None, None, gen, dev))
+
+    # the NNMF step: its one product site
+    for prog, key, op, _, info in nnmf["sites"]:
+        add("nnmf_step", op, f"{prog} {key}", 1, *time_site(torch, op, info, None, None, gen, dev))
+
+    # a KGE step at each width (TransE and TransR share the sites): ids are
+    # uniform over the table, as the batch's are, or the positions where
+    # the call is by position (the forward's Σ, the backward's gather)
+    def uniform_or_positions(e, n):
+        if n == e:
+            return torch.arange(e, device=dev, dtype=torch.int32)
+        return torch.randint(0, n, (e,), generator=gen, device=dev, dtype=torch.int32)
+
+    for dim, sites in kge["sites"].items():
+        for prog, key, op, _, info, mult in sites:
+            add(f"kge_step_d{dim}", op, f"{prog} {key}", mult,
+                *time_site(torch, op, info, uniform_or_positions, uniform_or_positions, gen, dev))
 
     # falcon-mamba: a projection's site runs once per layer, the head's and
     # the embedding's once per call; gather ids are tokens, segments are
@@ -1253,7 +1673,8 @@ def timing_phase(torch, graph, gcn, logreg, lm, errs, dev):
         lib = [v["library_ms"] for v in per_path.values()]
         host = [v["host_ms"] for v in per_path.values() if "host_ms" in v]
         by_path = {"gcn": gcn["launches"][op], "logreg": logreg["launches"][op],
-                   "falcon_mamba": lm["launches"][op]}
+                   "sql_logreg": logreg["sql_launches"][op], "nnmf": nnmf["launches"][op],
+                   "kge": kge["launches"][op], "falcon_mamba": lm["launches"][op]}
         records.append({
             "name": op,
             "route": route,
@@ -1269,11 +1690,15 @@ def timing_phase(torch, graph, gcn, logreg, lm, errs, dev):
             "library_ms": None if None in lib else sum(lib),
             "host_ms": sum(host) if host else None,
             "per": (f"launches: the main paths' runs, {GCN_STEPS} GCN steps (phase 3), "
-                    f"{LOGREG_STEPS} logistic-regression steps (phase 4) and one falcon-mamba "
-                    f"request of a prefill and {LM_DECODE} decode steps (phase 5); "
+                    f"{LOGREG_STEPS} logistic-regression steps through Database.query and "
+                    f"{LOGREG_STEPS} through Database.sql (phase 4), {NNMF_STEPS} NNMF steps "
+                    f"(phase 5), {KGE_STEPS} TransE and {KGE_STEPS} TransR steps at each of "
+                    f"d = {KGE_DIMS} (phase 6) and one falcon-mamba request of a prefill and "
+                    f"{LM_DECODE} decode steps (phase 7); "
                     "ms, plain_ms, bound_ms, library_ms: each site timed alone, times its "
                     "launches in one pass, summed over one GCN step, one logistic-regression "
-                    "step, one prefill and one decode step; 'paths' splits them; host_ms: "
+                    "step, one NNMF step, one KGE step at each width, one prefill and one "
+                    "decode step; 'paths' splits them; host_ms: "
                     f"the host's time per call over {HOST_CALLS} calls without a synchronise, "
                     "summed the same way over the sites where it was taken (null: not taken)"),
             "paths": {path: {k: v for k, v in acc.items() if k not in ("bytes_ms", "ops_ms")}
@@ -1340,26 +1765,36 @@ def main() -> int:
     launches, sites = gcn_phase(torch, repro_torch, kern, data, params0)
     log(f"  phase 3: {time.perf_counter() - t0:.1f} s")
 
-    log("phase 4: FRA logistic regression through Database.query(...).step()")
+    log("phase 4: logistic regression through Database.query(...).step() and Database.sql")
     t0 = time.perf_counter()
     logreg = logreg_phase(torch, repro_torch, kern, dev)
     log(f"  phase 4: {time.perf_counter() - t0:.1f} s")
 
-    log(f"phase 5: {LM_ARCH} serving at full width")
+    log(f"phase 5: NNMF at n = d = {NNMF_N} through rel_matmul_blocked")
     t0 = time.perf_counter()
-    lm = lm_phase(torch, repro_torch, kern, lm_cfg, dev)
+    nnmf = nnmf_phase(torch, repro_torch, kern, dev)
     log(f"  phase 5: {time.perf_counter() - t0:.1f} s")
 
-    log("phase 6: timings at the shapes of both main paths")
+    log("phase 6: KGE (TransE-L2, TransR) through rel_embed")
+    t0 = time.perf_counter()
+    kge = kge_phase(torch, np, repro_torch, kern, dev)
+    log(f"  phase 6: {time.perf_counter() - t0:.1f} s")
+
+    log(f"phase 7: {LM_ARCH} serving at full width")
+    t0 = time.perf_counter()
+    lm = lm_phase(torch, repro_torch, kern, lm_cfg, dev)
+    log(f"  phase 7: {time.perf_counter() - t0:.1f} s")
+
+    log("phase 8: timings at the shapes of the main paths")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     log(smi)
     t0 = time.perf_counter()
-    records = timing_phase(torch, graph, {"sites": sites, "launches": launches}, logreg, lm,
-                           errs, dev)
-    log(f"  phase 6: {time.perf_counter() - t0:.1f} s")
+    records = timing_phase(torch, graph, {"sites": sites, "launches": launches}, logreg, nnmf, kge,
+                           lm, errs, dev)
+    log(f"  phase 8: {time.perf_counter() - t0:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": records}))

@@ -10,7 +10,7 @@ module for module and imports nothing of it. The front door is the
     db = repro_torch.Database()              # runs on "cuda"
     db.put("Rx", X, keys=("row", "col"))
     db.put("theta", theta, keys=("col",))
-    loss, grads = db.query(logreg_query).step()
+    loss, grads = db.sql(LOGREG_SQL, wrt=("theta",)).step()
 
 The hot operators run on hand-written CUDA kernels (``repro_torch.kernels``),
 built from source at first use. Exports resolve lazily, so importing the
@@ -25,6 +25,7 @@ _LAZY = {
     "DenseRelation": ("repro_torch.core.relation", "DenseRelation"),
     "CooRelation": ("repro_torch.core.relation", "CooRelation"),
     "RelationStats": ("repro_torch.core.planner", "RelationStats"),
+    "SQLError": ("repro_torch.core.sql", "SQLError"),
     "Diagnostic": ("repro_torch.analysis.diagnostics", "Diagnostic"),
     "CheckReport": ("repro_torch.analysis.diagnostics", "CheckReport"),
 }

@@ -862,4 +862,11 @@ def _execute_graph(
             raise LoweringError("COO + COO add not supported")
         raise TypeError(f"unknown node {n}")
 
-    return ex(root)
+    try:
+        return ex(root)
+    finally:
+        # ex and _ex call each other through their closure cells: a
+        # reference cycle that holds env, memo and every intermediate
+        # (full-size tensors on the card) until Python's cycle collector
+        # runs. Unbinding ex breaks it, so they are freed when the walk ends
+        ex = None  # noqa: F841

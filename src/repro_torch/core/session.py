@@ -11,7 +11,7 @@ table, and one query path::
     db.put("Rx", X, keys=("row", "col"))
     db.put("Ry", y, keys=("row",))
     db.put("theta", theta, keys=("col",))
-    handle = db.query(logreg_query)               # an fra.Query
+    handle = db.sql(LOGREG_SQL, wrt=("theta",))   # or db.query(fra.Query)
     loss = handle.forward()
     grads = handle.grad()                         # RA-autodiff, compiled
     loss, grads = handle.step()                   # the training hot path
@@ -38,6 +38,7 @@ import torch
 from . import engine as _engine
 from . import fra, kernels, planner
 from . import rewrite as _rewrite
+from . import sql as _sql
 from .autodiff import GradientProgram, ra_autodiff
 from .relation import CooRelation, DenseRelation, measure_stats, to_device
 
@@ -268,15 +269,24 @@ class Database:
 
     # -- query front door --------------------------------------------------
 
+    def sql(self, script: str, *, wrt: Sequence[str] = ()) -> "QueryHandle":
+        """Compile a SQL script against the catalog's schemas and return
+        a differentiable ``QueryHandle``. ``wrt`` names the relations to
+        treat as differentiable inputs (everything else is constant
+        data); table and column references resolve against the key
+        attribute names declared via ``db.put(..., keys=...)``."""
+        query = _sql.compile_sql(
+            script, schema=self.catalog.schema(), inputs=tuple(wrt)
+        )
+        return QueryHandle(self, query)
+
     def query(
         self, q: Union[fra.Query, fra.Node], *, wrt: Optional[Sequence[str]] = None
     ) -> "QueryHandle":
         """Wrap an FRA query (or bare graph root) built in code. ``wrt``
         defaults to the query's declared inputs (for a bare node: its
         table scans)."""
-        if isinstance(q, fra.Node):
-            inputs = tuple(sorted({s.name for s in q.table_scans()}))
-            q = fra.Query(q, inputs)
+        q = _as_query(q)
         if wrt is not None:
             missing = set(wrt) - set(q.inputs)
             if missing:
@@ -285,6 +295,86 @@ class Database:
                     f"query (inputs: {q.inputs})"
                 )
         return QueryHandle(self, q, default_wrt=None if wrt is None else tuple(wrt))
+
+    def check(self, q: Union[fra.Query, fra.Node], *, wrt: Sequence[str] = ()):
+        """Statically check an FRA query (or bare graph root) against the
+        catalog: the typed checker (``repro_torch.analysis.typecheck``)
+        infers schemas/shapes/dtypes bottom-up and returns a
+        ``CheckReport`` of node-path diagnostics — compiler-guaranteed
+        failures as errors (bad join keys, non-permutation σ, non-additive
+        Σ, COO ⋈ COO...), hazards as warnings (f32→f64 promotion,
+        statically empty selections, stale statistics, partial-RJP
+        gradients for ``wrt`` inputs). Relations, statistics and
+        key-attribute names are sourced from the catalog exactly as a
+        compiled step would source them. There is no mesh on one device,
+        so the reference's sharded-extent warnings do not arise. Purely
+        observational — nothing is lowered or cached; the same checker
+        runs as the engine's mandatory validate stage, which *raises* on
+        the error-severity findings reported here."""
+        from repro_torch.analysis.typecheck import check_query
+
+        q = _as_query(q)
+        names = _base_names([q.root])
+        env = {
+            n: self.catalog.entry(n).relation
+            for n in names
+            if n in self.catalog
+        }
+        return check_query(
+            q,
+            env,
+            stats=self.catalog.snapshot(names),
+            schema=self.catalog.schema(),
+            wrt=tuple(wrt),
+            fuse_join_agg=self.fuse_join_agg,
+        )
+
+    def explain(self, q: Union[fra.Query, fra.Node]) -> str:
+        """What the rewrite stage would do to ``q`` against the current
+        catalog: the query tree before, every cost-gate verdict (with the
+        byte estimates the gate compared), the tree after, and the typed
+        check's diagnostics. Relations and their tracked statistics are
+        sourced from the catalog exactly as ``forward``/``grad``/``step``
+        would source them, so the verdicts shown are the ones a compiled
+        step takes. Purely observational. The reference's last section,
+        the kernel certifier's proof of the resolved dispatch sites, has
+        no counterpart in the port yet: its header is printed with a line
+        that says so."""
+        q = _as_query(q)
+        names = _base_names([q.root])
+        env = {n: self.get(n) for n in names}
+        stats = self.catalog.snapshot(names)
+        rules = (
+            self.rewrite_rules
+            if self.rewrite_rules is not None
+            else _rewrite.DEFAULT_RULES
+        )
+        rewritten, report = _rewrite.rewrite_query(
+            q, env, stats=stats, rules=rules
+        )
+        lines = ["before:"]
+        lines += ["  " + ln for ln in q.root.pretty().splitlines()]
+        lines.append("rewrite decisions:")
+        lines += ["  " + ln for ln in report.render().splitlines()]
+        if self.rewrite_rules is None:
+            lines.append("  (session rewrite stage is OFF: plan unchanged)")
+            lines.append("after: (unchanged)")
+        elif not report.changed:
+            lines.append("after: (unchanged)")
+        else:
+            lines.append("after:")
+            lines += [
+                "  " + ln for ln in rewritten.root.pretty().splitlines()
+            ]
+        lines.append("diagnostics:")
+        report = self.check(q)
+        if report.diagnostics:
+            lines += ["  " + ln for ln in report.render().splitlines()]
+        else:
+            lines.append("  (none)")
+        lines.append("kernel certification:")
+        lines.append("  (not ported yet: the port has no kernel certifier)")
+        return "\n".join(lines)
 
     # -- staged execution (the engine underneath) --------------------------
 
@@ -352,6 +442,13 @@ class Database:
 # ---------------------------------------------------------------------------
 
 
+def _as_query(q: Union[fra.Query, fra.Node]) -> fra.Query:
+    """A bare graph root as a query whose inputs are its table scans."""
+    if isinstance(q, fra.Node):
+        return fra.Query(q, tuple(sorted({s.name for s in q.table_scans()})))
+    return q
+
+
 def _base_names(roots) -> Tuple[str, ...]:
     """Base-relation names a set of graph roots read from the catalog:
     TableScan names plus Const refs, excluding the engine-internal
@@ -391,6 +488,15 @@ class QueryHandle:
         self._full_prog: Optional[GradientProgram] = None
         #: the most recently used Compiled (resolutions, dispatch).
         self.last: Optional[_engine.Compiled] = None
+
+    def check(self, *, wrt: Optional[Sequence[str]] = None):
+        """``db.check`` on this handle's query (see ``Database.check``);
+        ``wrt`` defaults to the handle's gradient targets, so partial-RJP
+        warnings cover exactly the inputs ``grad``/``step`` would
+        differentiate."""
+        if wrt is None:
+            wrt = self.default_wrt or self.query.inputs
+        return self.db.check(self.query, wrt=tuple(wrt))
 
     def _env(self, names: Sequence[str]) -> Dict[str, AnyRel]:
         return {n: self.db.get(n) for n in names}

@@ -7,6 +7,6 @@ code trained with ``torch.autograd`` runs the paper's RJP-generated plans
 instead of PyTorch's own autograd through the engine.
 """
 
-from .linear import rel_linear, rel_matmul  # noqa: F401
+from .linear import rel_linear, rel_matmul, rel_matmul_blocked  # noqa: F401
 from .gcn import gcn_conv  # noqa: F401
 from .embedding import rel_embed  # noqa: F401

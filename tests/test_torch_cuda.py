@@ -369,3 +369,121 @@ def test_reduced_falcon_mamba_serves_through_the_kernels(cuda_device):
         logits, _ = make_prefill_step(model, 16)({"tokens": tokens})
     torch.testing.assert_close(logits, t_logits, atol=1e-4, rtol=1e-4)
     kernels.reset_launch_counts()
+
+
+# ---------------------------------------------------------------------------
+# The SQL front door, NNMF and KGE on the card
+# ---------------------------------------------------------------------------
+
+# (E, S): the KGE step's segment sums — forward by position (E = S), the
+# table gradient of h/t ids (1,024 into 20,000 and into 200 relations,
+# scan path) and of the negatives (204,800 into 20,000, sorted path)
+KGE_SEGSUM = [(1024, 1024), (1024, 200), (1024, 20_000), (204_800, 20_000), (204_800, 204_800)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [50, 100])
+@pytest.mark.parametrize("e,s", KGE_SEGSUM, ids=str)
+def test_cuda_kge_widths_sum_in_the_stated_order_and_gather_exactly(cuda_device, e, s, d):
+    """At the KGE widths (a D = 50 row is 200 bytes, not a multiple of 16,
+    and takes the narrow units) the segment sum gives the bits of its
+    stated order within 2·γ_n·Σ|msg| of index_add_, and the gather copies
+    rows exactly."""
+    from repro_torch.kernels.segsum.ref import segment_sum_in_kernel_order
+
+    rng = np.random.default_rng(e + s + d)
+    ids = np.arange(e) if e == s else rng.integers(0, s, size=e)
+    seg = torch.tensor(ids, dtype=torch.int32, device=cuda_device)
+    msg = torch.tensor(_f32(rng, e, d), device=cuda_device)
+    kernels.reset_launch_counts()
+    got = segment_sum(msg, seg, s)
+    assert torch.equal(got, segment_sum_in_kernel_order(msg, seg, s))
+    terms = torch.bincount(seg.long(), minlength=s).double()[:, None]
+    u = 2.0 ** -24
+    bound = 2 * terms * u / (1 - terms * u) * segment_sum_ref(msg.abs().double(), seg, s)
+    assert bool(((got.double() - segment_sum_ref(msg, seg, s).double()).abs() <= bound).all())
+    table = torch.tensor(_f32(rng, s, d), device=cuda_device)
+    assert torch.equal(gather_rows(table, seg), gather_rows_ref(table, seg))
+    launched = kernels.launch_counts()
+    assert launched["segment_sum"] == 1 and launched["gather_join"] == 1
+    kernels.reset_launch_counts()
+
+
+@pytest.mark.cuda
+def test_cuda_rel_matmul_blocked_matches_the_torch_tier(cuda_device):
+    from repro_torch.relational import rel_matmul_blocked
+
+    rng = np.random.default_rng(0)
+    x = torch.tensor(_f32(rng, 3, 2, 64, 256), device=cuda_device)
+    w = torch.tensor(_f32(rng, 2, 4, 256, 32), device=cuda_device)
+    g = torch.tensor(_f32(rng, 3, 4, 64, 32), device=cuda_device)
+    out = {}
+    for dispatch in (None, "torch"):
+        kernels.reset_launch_counts()
+        tx, tw = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        with repro_torch.Database(dispatch=dispatch).activate():
+            y = rel_matmul_blocked(tx, tw)
+            (y * g).sum().backward()
+        out[dispatch] = (y.detach(), tx.grad, tw.grad, kernels.launch_counts()["blocked_matmul"])
+    y, gx, gw, launched = out[None]
+    assert launched == 1 and out["torch"][3] == 0
+    fx = x.permute(0, 2, 1, 3).reshape(192, 512)
+    fw = w.permute(0, 2, 1, 3).reshape(512, 128)
+    err = (y.permute(0, 2, 1, 3).reshape(192, 128).double() - (fx @ fw).double()).abs()
+    assert bool((err <= 8 * _rounding_walk(fx, fw)).all())
+    torch.testing.assert_close(gx, out["torch"][1], atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(gw, out["torch"][2], atol=1e-4, rtol=1e-5)
+    kernels.reset_launch_counts()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["transe", "transr"])
+def test_cuda_kge_step_matches_the_plain_path(cuda_device, algo):
+    """One TransE/TransR step at a small size: the relational path on the
+    kernels against table[ids], within 1e-5 (loss) and 1e-6 (gradients of
+    rows summed from a few terms of order 0.05)."""
+    from repro_torch.examples import kge
+
+    batch = kge.make_batch(np.random.default_rng(0), n_ent=2000, n_rel=20, batch=128, neg=16,
+                           device=cuda_device)
+    params = kge.make_params(algo, 50, n_ent=2000, n_rel=20, device=cuda_device)
+    kernels.reset_launch_counts()
+    with repro_torch.Database().activate():
+        _, loss, grads = kge.make_step(algo, kge.rel_embed)(params, *batch)
+    launched = kernels.launch_counts()
+    assert launched["gather_join"] > 0 and launched["segment_sum"] > 0
+    _, p_loss, p_grads = kge.make_step(algo, kge.plain_embed)(params, *batch)
+    torch.testing.assert_close(loss, p_loss, atol=0, rtol=1e-5)
+    for k in params:
+        torch.testing.assert_close(grads[k], p_grads[k], atol=1e-6, rtol=1e-5)
+    kernels.reset_launch_counts()
+
+
+@pytest.mark.cuda
+def test_cuda_sql_logreg_equals_the_fra_query_bit_for_bit(cuda_device):
+    """The quickstart's SQL and the same query built in FRA run the same
+    kernels on the same data: equal losses and gradients, bit for bit."""
+    from repro_torch.core import fra
+    from repro_torch.core.kernels import ADD, LOGISTIC, MUL, XENT
+    from repro_torch.core.keys import EMPTY_KEY, TRUE, L, eq_pred, identity_key, jproj, project_key
+    from repro_torch.examples import quickstart
+
+    mm = fra.Agg(project_key(0), ADD, fra.Join(eq_pred((1, 0)), jproj(L(0), L(1)), MUL,
+                                               fra.const("Rx", 2), fra.scan("theta", 1)))
+    pred = fra.Select(TRUE, identity_key(1), LOGISTIC, mm)
+    loss = fra.Agg(EMPTY_KEY, ADD, fra.Join(eq_pred((0, 0)), jproj(L(0)), XENT, pred, fra.const("Ry", 1)))
+    X, y = quickstart.make_data(4096, 64, device=cuda_device)
+    runs = []
+    for make in (lambda db: db.query(fra.Query(loss, inputs=("theta",))),
+                 lambda db: db.sql(quickstart.LOGREG_SQL, wrt=("theta",))):
+        db = repro_torch.Database()
+        quickstart.load(db, X, y)
+        handle = make(db)
+        kernels.reset_launch_counts()
+        losses, theta = quickstart.train(db, handle, 5)
+        assert kernels.launch_counts()["blocked_matmul"] == 10
+        assert handle.lower_count == 1 and not handle.check().errors
+        runs.append((handle.query.pretty(), losses, theta))
+    assert runs[0][0] == runs[1][0] and runs[0][1] == runs[1][1]
+    assert torch.equal(runs[0][2], runs[1][2])
+    kernels.reset_launch_counts()
