@@ -45,11 +45,24 @@ Phases, in order; any failure stops the run with a non-zero exit:
    logits agree with the plain tier and with a prefill over the prompt plus
    the first decoded token, and how much of a decode step the card is busy;
 8. time each kernel at the shapes of the main paths (the GCN step, the
-   logistic regression's step, the NNMF and KGE steps, prefill and decode)
+   logistic regression's step, the NNMF and KGE steps, prefill and decode,
+   and a wave of each of phase 9's streamed steps, on the wave's own ids)
    beside its plain version, one PyTorch library call (where there is one),
    the card's bound and, for the small calls, the host's time per call; and
    time ``segment_sum``'s index (sort and starts) and its two paths across
-   their crossover.
+   their crossover;
+9. (run before phase 8, which times its sites too) out-of-core chunk waves
+   through ``Database(memory_budget=...)``: the GCN query of
+   tests/test_oocore.py at ogbn-arxiv size in 4 owner-aligned edge waves
+   against the in-core step; the quickstart's logistic regression in 8
+   waves (Rx on the host, Ry co-streamed) against the in-core handle, then
+   after a re-``put`` of Rx; and the GCN query at ogbn-products size
+   (2,449,029 nodes, 64,308,169 edges with self loops) at D = 256, whose
+   65.9 GB message tensors no card holds in core, in 8 waves against an
+   f64 computation on the card; every wave on the cuda tier, each with its
+   planted faults (a merge that drops the last wave; a cut moved into an
+   owner run; a row dropped at a cut of the logistic regression's waves),
+   and the products step's time, traffic and peak memory.
 
 Device memory is freed between phases, so the NNMF step's peak and the
 language model's 29 GB of weights never meet. The last line of standard
@@ -163,6 +176,28 @@ HOT_SORTED, HOT_SCAN = (20_000, 1_000, 256, 5_000), (3_000, 50, 128, 1_000)
 SEGSUM_CROSSOVER_E = (512, 1024, 2048, 4096, 8192, 16384)
 #: calls over which phase 8 takes the host's time per call
 HOST_CALLS = 1000
+# phase 9, out of core: the GCN query of tests/test_oocore.py (conv → square
+# → sum → mean, wrt Edge and Node) at ogbn-arxiv size in 4 waves and at
+# ogbn-products size (2,449,029 nodes, 61,859,140 edges; the generator adds
+# one self loop per node) at the paper's hidden width D = 256 (Tables 2-3)
+# in 8: one (E, D) f32 message tensor is 65.9 GB there; the logistic
+# regression of phase 4 through the quickstart's SQL in 8
+PRODUCTS_NODES, PRODUCTS_EDGES, PRODUCTS_D, PRODUCTS_CLASSES = 2_449_029, 61_859_140, 256, 47
+OOC_WAVES, OOC_ARXIV_WAVES, OOC_ARXIV_STEPS, OOC_PRODUCTS_STEPS = 8, 4, 2, 3
+OOC_WRT = ("Edge", "Node")
+#: rows of one arxiv and one products wave (the even cut of 1,335,586 rows
+#: in 4 and of 64,308,169 in 8; owner snapping moves a cut by a few hundred
+#: rows at most) and of one logistic-regression wave: phase 2's shapes
+ARXIV_WAVE_E = -(-(EDGES + NODES) // OOC_ARXIV_WAVES)
+PRODUCTS_WAVE_E = -(-(PRODUCTS_EDGES + PRODUCTS_NODES) // OOC_WAVES)
+LOGREG_WAVE_ROWS = LOGREG_ROWS // OOC_WAVES
+#: a streamed loss against the in-core one or f64, relative; a products
+#: gradient against f64, relative in the 2-norm (each entry is an f32 sum
+#: of a few hundred terms, ≈ √K·u ≈ 1e-6 relative, which the limit allows
+#: 10 times)
+OOC_LOSS_LIMIT = OOC_NORM_LIMIT = 1e-5
+#: edges per chunk of phase 9's f64 computations (4.3 GB temporaries at D = 256)
+OOC_CHUNK = 1 << 21
 #: odd ids (padding -1, ids ≥ S) of the edge cases, over S = N = 7
 ODD_IDS = (3, -1, 0, 7, 9, 2, -5, 4, 4)
 #: unit roundoff of bf16 and f16
@@ -184,6 +219,8 @@ def segsum_shapes(cfg):
     for e, n in kge_lookups():
         for d in KGE_DIMS:
             cases += [(e, d, e, "KGE Σ by position"), (e, d, n, "KGE table gradient")]
+    cases += [(ARXIV_WAVE_E, FEAT, NODES, "arxiv wave"),
+              (PRODUCTS_WAVE_E, PRODUCTS_D, PRODUCTS_NODES, "products wave")]
     return cases
 
 
@@ -198,6 +235,8 @@ def gather_shapes(cfg):
             cases += [(e, n, d, "KGE lookup"), (e, e, d, "KGE cotangent rows by position")]
     for d in (1, 3, 4, 130):
         cases += [(len(ODD_IDS), 7, d, "edge ids -1/>=N"), (0, 5, d, "E=0")]
+    cases += [(ARXIV_WAVE_E, NODES, FEAT, "arxiv wave"),
+              (PRODUCTS_WAVE_E, PRODUCTS_NODES, PRODUCTS_D, "products wave")]
     return cases
 
 
@@ -220,8 +259,8 @@ def lm_weights(cfg):
 
 def matmul_cases(cfg):
     """(m, k, n, what) of every blocked_matmul product phase 2 checks: the
-    GCN forwards, the RJP shapes, the logistic regression's two products,
-    the NNMF product, falcon-mamba's projections at m = B·S and m = B and
+    GCN forwards, the RJP shapes, the logistic regression's two products
+    in core and in one wave of phase 9, the NNMF product, falcon-mamba's projections at m = B·S and m = B and
     its head at m = B, ragged edges, and the crossover between the skinny
     and the tiled path."""
     from repro_torch.examples.nnmf import BLOCK
@@ -234,6 +273,8 @@ def matmul_cases(cfg):
         (3, 0, 4, "K=0"), (40, 0, 9, "K=0"),
         (LOGREG_ROWS, LOGREG_COLS, 1, "logreg forward"),
         (1, LOGREG_ROWS, LOGREG_COLS, "logreg dθ"),
+        (LOGREG_WAVE_ROWS, LOGREG_COLS, 1, "logreg wave forward"),
+        (1, LOGREG_WAVE_ROWS, LOGREG_COLS, "logreg wave dθ"),
         (NNMF_N, BLOCK, NNMF_N, "NNMF forward"),
     ]
     for (k, n), sites in lm_weights(cfg).items():
@@ -296,7 +337,7 @@ def check_kernels(torch, kern, graph, lm_cfg, dev):
         got, want = kern.gather_rows(table, rows), gather_rows_ref(table, rows)
         torch.cuda.synchronize()
         ok = torch.equal(got, want)
-        err = float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
+        err = float((got.double() - want.double()).abs().max()) if got.numel() and not ok else 0.0
         log(f"  gather_rows {what}: E={rows.numel()} N={n} D={d} {str(dtype)[6:]} "
             f"exact={ok} max_abs_err={err:.3e}")
         if not ok:
@@ -500,6 +541,24 @@ def check_kernels(torch, kern, graph, lm_cfg, dev):
             gather_case(e, pos, d, "KGE cotangent rows by position")
             segsum_case(n, ids, d, f"KGE table gradient, {e} ids into {n} rows",
                         fault=hottest_edge_dropped)
+
+    # one wave of each of phase 9's edge relations (arxiv at D = 128,
+    # products at D = 256), by both of its id columns: the edges' sources
+    # (random) and destinations (sorted, as an owner-sorted wave's are).
+    # The step gathers by both (Node[src] forward; the cotangent by dst
+    # backward) and sums by both (by dst forward; dNode by src); the last
+    # rows are padding (-1), as in a wave padded to the largest one's rows
+    pad = 1000
+    for e, n, d, what in ((ARXIV_WAVE_E, NODES, FEAT, "arxiv wave"),
+                          (PRODUCTS_WAVE_E, PRODUCTS_NODES, PRODUCTS_D, "products wave")):
+        src = torch.randint(0, n, (e,), generator=gen, device=dev, dtype=torch.int32)
+        dst = torch.sort(torch.randint(0, n, (e,), generator=gen, device=dev, dtype=torch.int32)).values
+        src[-pad:], dst[-pad:] = -1, -1
+        for col, ids in (("src", src), ("dst", dst)):
+            gather_case(n, ids, d, f"{what} (rows = edge {col}, padded)")
+            segsum_case(n, ids, d, f"{what} (seg = edge {col}, padded)", fault=hottest_edge_dropped)
+        del src, dst, ids
+        torch.cuda.empty_cache()
 
     # the embedding's join by token id and its Σ by position
     for e in (LM_BATCH * LM_PROMPT, LM_BATCH):
@@ -1223,10 +1282,11 @@ def new_sites(engines, seen, table):
 
 def device_busy(torch, fn):
     """Run ``fn()`` once under torch.profiler: (wall ms with the profiler
-    on, device-busy ms = the sum of the device kernels' own times, the five
-    host operations with the most own time as (name, ms, calls)). The
-    profiler's own cost lengthens the wall, so the idle share it gives is an
-    upper bound. None where the profiler records no device time."""
+    on, device-busy ms = the sum of the device kernels' and copies' own
+    times, the five host operations with the most own time as (name, ms,
+    calls), the eight device operations with the most). The profiler's
+    own cost lengthens the wall, so the idle share it gives is an upper
+    bound. None where the profiler records no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1241,7 +1301,9 @@ def device_busy(torch, fn):
     if not dev_us:
         return None
     host = sorted(events, key=lambda e: getattr(e, "self_cpu_time_total", 0), reverse=True)[:5]
-    return wall, dev_us / 1e3, [(e.key, e.self_cpu_time_total / 1e3, e.count) for e in host]
+    dev = sorted(events, key=lambda e: getattr(e, "self_device_time_total", 0), reverse=True)[:8]
+    return (wall, dev_us / 1e3, [(e.key, e.self_cpu_time_total / 1e3, e.count) for e in host],
+            [(e.key, e.self_device_time_total / 1e3, e.count) for e in dev])
 
 
 def logit_gap(got, want) -> float:
@@ -1316,7 +1378,7 @@ def lm_phase(torch, repro_torch, kern, cfg, dev):
     if busy is None:
         log("  decode step under torch.profiler: no device time recorded; idle share not measured")
     else:
-        wall, dev_ms, host = busy
+        wall, dev_ms, host, _ = busy
         log(f"  decode step under torch.profiler: wall {wall:.2f} ms, device busy {dev_ms:.2f} ms "
             f"(idle share at most {1 - dev_ms / wall:.3f}); most host time: "
             + "; ".join(f"{k} {ms:.2f} ms x{n}" for k, ms, n in host))
@@ -1521,11 +1583,12 @@ def time_site(torch, op, info, rows_for, seg_for, gen, dev):
     return k_ms, p_ms, l_ms, (m * k + k * n + m * n) * 4, 2 * m * n * k, extra
 
 
-def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, errs, dev):
+def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, errs, dev):
     """Per kernel and per main path: each site timed alone at its shapes,
     times the launches of that site in one pass of the path (one GCN step;
     one logistic-regression step; one NNMF step; one KGE step at each
-    width; one prefill; one decode step), summed."""
+    width; one prefill; one decode step; one streamed step of each of
+    phase 9's runs, each site once per wave), summed."""
     from repro_torch.kernels.matmul.ops import blocked_matmul_forward
     from repro_torch.kernels.ssm_scan.ops import ssm_scan_forward
     from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
@@ -1611,6 +1674,15 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, errs, dev):
         for path in where:
             add(path, op, f"{prog} {key}", mult, *timed)
 
+    # phase 9's streamed steps: every site of a wave's lowering once per
+    # wave, each on the ids it took in the largest wave (a product takes
+    # none)
+    for path, run in oocore["paths"].items():
+        for (key, op, _, info), ids in zip(run["sites"], run["ids"]):
+            add(path, op, key, run["waves"],
+                *time_site(torch, op, info, lambda e, n: ids[:e], lambda e, s: ids[:e], gen, dev))
+    del ids
+
     # the card's rate for the gather's own access pattern: E rows of the
     # GCN's width copied once each, in a random order and in order (no row
     # is read twice, so L2 gives no reuse): what the gather reaches at the
@@ -1674,7 +1746,8 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, errs, dev):
         host = [v["host_ms"] for v in per_path.values() if "host_ms" in v]
         by_path = {"gcn": gcn["launches"][op], "logreg": logreg["launches"][op],
                    "sql_logreg": logreg["sql_launches"][op], "nnmf": nnmf["launches"][op],
-                   "kge": kge["launches"][op], "falcon_mamba": lm["launches"][op]}
+                   "kge": kge["launches"][op], "falcon_mamba": lm["launches"][op],
+                   "oocore": oocore["launches"].get(op, 0)}
         records.append({
             "name": op,
             "route": route,
@@ -1693,12 +1766,15 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, errs, dev):
                     f"{LOGREG_STEPS} logistic-regression steps through Database.query and "
                     f"{LOGREG_STEPS} through Database.sql (phase 4), {NNMF_STEPS} NNMF steps "
                     f"(phase 5), {KGE_STEPS} TransE and {KGE_STEPS} TransR steps at each of "
-                    f"d = {KGE_DIMS} (phase 6) and one falcon-mamba request of a prefill and "
-                    f"{LM_DECODE} decode steps (phase 7); "
+                    f"d = {KGE_DIMS} (phase 6), one falcon-mamba request of a prefill and "
+                    f"{LM_DECODE} decode steps (phase 7) and phase 9's streamed runs ({OOC_ARXIV_STEPS} "
+                    f"arxiv GCN steps, {LOGREG_STEPS + 1} logistic-regression steps, "
+                    f"{OOC_PRODUCTS_STEPS} products GCN steps); "
                     "ms, plain_ms, bound_ms, library_ms: each site timed alone, times its "
                     "launches in one pass, summed over one GCN step, one logistic-regression "
-                    "step, one NNMF step, one KGE step at each width, one prefill and one "
-                    "decode step; 'paths' splits them; host_ms: "
+                    "step, one NNMF step, one KGE step at each width, one prefill, one "
+                    "decode step and one streamed step of each of phase 9's runs (arxiv GCN, "
+                    "logistic regression, products GCN); 'paths' splits them; host_ms: "
                     f"the host's time per call over {HOST_CALLS} calls without a synchronise, "
                     "summed the same way over the sites where it was taken (null: not taken)"),
             "paths": {path: {k: v for k, v in acc.items() if k not in ("bytes_ms", "ops_ms")}
@@ -1716,6 +1792,565 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, errs, dev):
         log(f"  off the main path, {what} ({m}x{k})@({k}x{n}): kernel {k_ms:.4f} ms  "
             f"library {l_ms:.4f} ms  bound {b_ms:.4f} ms ({by})")
     return records
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: out-of-core chunk waves through Database(memory_budget=...)
+# ---------------------------------------------------------------------------
+
+
+def gcn_loss_query(n):
+    """mean over nodes of Σ_d conv², conv = Σ_dst w · Node[src]: the GCN
+    query of tests/test_oocore.py, stepped with wrt = (Edge, Node)."""
+    from repro_torch.core import fra
+    from repro_torch.core.kernels import ADD, MUL, SQUARE, SUM_CHUNK, scale_kernel
+    from repro_torch.core.keys import EMPTY_KEY, TRUE, L, eq_pred, identity_key, jproj
+
+    conv = fra.Agg(identity_key(1), ADD, fra.Join(eq_pred((0, 0)), jproj(L(1)), MUL,
+                                                  fra.scan("Edge", 2), fra.scan("Node", 1)))
+    sq = fra.Select(TRUE, identity_key(1), SQUARE, conv)
+    loss = fra.Agg(EMPTY_KEY, ADD, fra.Select(TRUE, identity_key(1), SUM_CHUNK, sq))
+    return fra.Query(fra.Select(TRUE, identity_key(0), scale_kernel(1.0 / n), loss),
+                     inputs=("Edge", "Node"))
+
+
+def edge_chunks(edge, rows=OOC_CHUNK):
+    """(slice, src, dst, w) over an edge relation's live rows, on its
+    device, ``rows`` at a time (src/dst as int64)."""
+    for r0 in range(0, edge.nnz, rows):
+        k = edge.keys[r0:r0 + rows].long()
+        live = k[:, 0] >= 0
+        yield slice(r0, r0 + k.shape[0]), live, k[:, 0], k[:, 1], edge.values[r0:r0 + rows].double()
+
+
+def gcn_exact(torch, edge, x, n, waves):
+    """The GCN query's loss, dNode and dEdge in f64 on the card, and
+    dNode's limit against the in-core step: conv = Σ_dst w·x[src], loss =
+    Σ conv²/n, dconv = 2·conv/n, dNode = Σ_src w·dconv[dst], dEdge_e =
+    ⟨x[src_e], dconv[dst_e]⟩. Chunked over the edges, so no (E, D)
+    temporary exceeds OOC_CHUNK rows.
+
+    dNode's limit: owner-aligned waves give the streamed and the in-core
+    step the same conv bits (a segment's terms, in the same order), so
+    their dNode entries are two f32 sums of the same K terms; the streamed
+    one adds the waves' partials, some of them 0, so each is a sum of at
+    most K + waves terms and lies within γ_{K+waves}·Σ|terms| of the
+    exact sum. Entries have a few terms each, where the rounding walk of
+    phase 3's weight gradients is no bound."""
+    dev, d = x.device, x.shape[1]
+    dconv = torch.zeros(n, d, dtype=torch.float64, device=dev)
+    for _, live, src, dst, w in edge_chunks(edge):
+        dconv.index_add_(0, dst[live], w[live, None] * x[src[live]].double())
+    loss = float((dconv * dconv).sum()) / n
+    dconv.mul_(2.0 / n)
+    dnode = torch.zeros_like(dconv)
+    bound = torch.zeros_like(dconv)  # Σ|terms| per entry
+    k = torch.zeros(n, dtype=torch.float64, device=dev)  # terms per entry
+    for _, live, src, dst, w in edge_chunks(edge):
+        terms = w[live, None] * dconv[dst[live]]
+        dnode.index_add_(0, src[live], terms)
+        bound.index_add_(0, src[live], terms.abs_())
+        k += torch.bincount(src[live], minlength=n)
+        del terms
+    bound.mul_(2 * gamma(k + waves)[:, None])
+    return {"dconv": dconv, "loss": loss, "dnode": dnode, "dnode_bound": bound}
+
+
+def dedge_exact(x, dconv, live, src, dst):
+    """dEdge in f64 over one chunk of edges, and per edge the limit
+    2·γ_D·Σ_d|terms| between two f32 sums of its D terms."""
+    terms = x[src[live]].double() * dconv[dst[live]]
+    exact = terms.new_zeros(live.shape[0])
+    bound = exact.new_zeros(exact.shape)
+    exact[live] = terms.sum(1)
+    bound[live] = 2 * gamma(x.shape[1]) * terms.abs().sum(1)
+    return exact, bound
+
+
+def gcn_against(torch, out, grads, ref, edge, x, exact):
+    """err/limit of a streamed GCN step's loss, dNode and dEdge against
+    ``ref``, the in-core step's (loss within OOC_LOSS_LIMIT relative; dNode
+    within 2·γ_(K+waves)·Σ|terms| and dEdge within 2·γ_D·Σ|terms| per
+    entry, from ``exact``), or with ``ref`` None against the f64 values of
+    ``exact`` (gradients within OOC_NORM_LIMIT relative in the 2-norm). A
+    gradient of the wrong shape reads inf. With ``ref``, also whether
+    dEdge equals its dEdge bit for bit."""
+    loss = float(out.data)
+    want = exact["loss"] if ref is None else float(ref[0].data)
+    res = {"loss": abs(loss - want) / abs(want) / OOC_LOSS_LIMIT if math.isfinite(loss) else math.inf}
+    dnode = grads["Node"].data.double()
+    if dnode.shape != exact["dnode"].shape:
+        res["dNode"] = math.inf
+    elif ref is None:
+        res["dNode"] = float((dnode - exact["dnode"]).norm() / exact["dnode"].norm()) / OOC_NORM_LIMIT
+    else:
+        res["dNode"] = excess((dnode - ref[1]["Node"].data.double()).abs(), exact["dnode_bound"])
+    dedge = grads["Edge"].values
+    if dedge.shape[0] != edge.nnz:
+        res["dEdge"] = math.inf
+        return res
+    worst, num, den, same = 0.0, 0.0, 0.0, True
+    for sl, live, src, dst, _ in edge_chunks(edge):
+        got = dedge[sl].to(x.device)
+        ex, bound = dedge_exact(x, exact["dconv"], live, src, dst)
+        if ref is None:
+            num += float(((got.double() - ex) ** 2).sum())
+            den += float((ex * ex).sum())
+        else:
+            other = ref[1]["Edge"].values[sl].to(x.device)
+            same = same and torch.equal(got, other)
+            worst = max(worst, excess((got.double() - other.double()).abs(), bound))
+    if ref is None:
+        res["dEdge"] = math.sqrt(num / den) / OOC_NORM_LIMIT
+    else:
+        res["dEdge"], res["dEdge bit-equal"] = worst, same
+    return res
+
+
+def worst_of(res) -> float:
+    """The largest err/limit of ``gcn_against``'s reading."""
+    return max(v for k, v in res.items() if k != "dEdge bit-equal")
+
+
+def report(what, res):
+    parts = ", ".join(f"{k} {v:.3e}" if isinstance(v, float) else f"{k} {v}" for k, v in res.items())
+    log(f"  {what}: err/limit: {parts}")
+
+
+def plant_dropped_wave(engine, itertools):
+    """A planted fault: StreamedCompiled's merge drops the last wave.
+    Returns the function that takes it out again."""
+    merge = engine.StreamedCompiled._merge
+
+    def drop_last(self, outs, want):
+        return merge(self, itertools.islice(outs, self.num_waves - 1), want)
+
+    engine.StreamedCompiled._merge = drop_last
+    return lambda: setattr(engine.StreamedCompiled, "_merge", merge)
+
+
+def plant_moved_cut(planner, dataclasses):
+    """A planted fault: the first cut that starts an owner run of two rows
+    or more moves one row into that run, so one Σ segment straddles two
+    waves. Returns the function that takes it out again."""
+    plan_waves = planner.plan_waves
+
+    def moved(query, env, budget, **kw):
+        p = plan_waves(query, env, budget, **kw)
+        owners = env["Edge"].keys[:, 1]
+        for w in range(1, p.num_waves):
+            c = p.boundaries[w]
+            if int(owners[c]) == int(owners[c + 1]) and p.boundaries[w + 1] > c + 1:
+                return dataclasses.replace(p, boundaries=p.boundaries[:w] + (c + 1,) + p.boundaries[w + 1:])
+        raise AssertionError("no cut starts an owner run of two rows")
+
+    planner.plan_waves = moved
+    return lambda: setattr(planner, "plan_waves", plan_waves)
+
+
+def wave_ids(h, step, wave):
+    """Phase 8's record of a streamed step: per dispatch site of the wave
+    lowering, in site order, the ids it was called with in wave ``wave``
+    (a gather's rows, a segment sum's segment ids; None for a product),
+    from one more ``step()`` (after the launches were read)."""
+    from repro_torch.core import compiler
+
+    n_sites, waves = len(h.last.lowered.resolutions.sites), h.last.num_waves
+    call, calls = compiler._call, []
+
+    def recording(impl, op, *args):
+        if not args[0].is_meta:
+            keep = op in ("gather_join", "segment_sum") and len(calls) // n_sites == wave
+            calls.append(args[1] if keep else None)
+        return call(impl, op, *args)
+
+    compiler._call = recording
+    try:
+        step()
+    finally:
+        compiler._call = call
+    if len(calls) != n_sites * waves:
+        raise AssertionError(f"{len(calls)} dispatch calls in a step of {waves} waves of {n_sites} sites")
+    return calls[wave * n_sites:(wave + 1) * n_sites]
+
+
+def streamed_sites(h, ids, waves):
+    """A streamed step's wave sites, each with its ids, for phase 8."""
+    sites = [(r.key, r.op, r.tier, r.info_dict()) for r in h.last.lowered.resolutions.sites]
+    return {"sites": sites, "ids": ids or [None] * len(sites), "waves": waves}
+
+
+def largest_wave(plan) -> int:
+    """The wave with the most rows (a COO wave of fewer rows is padded to
+    it with pad ids, which the library calls of phase 8 refuse)."""
+    rows = [plan.boundaries[w + 1] - plan.boundaries[w] for w in range(plan.num_waves)]
+    return rows.index(max(rows))
+
+
+def check_streamed(h, stream, waves, what):
+    """The step streamed ``stream`` owner-aligned (for a COO stream) in at
+    least ``waves`` waves, with every dispatch site on the cuda tier."""
+    from repro_torch.core.engine import StreamedCompiled
+
+    plan = h.last.plan if isinstance(h.last, StreamedCompiled) else None
+    log(f"  {what}: {plan}")
+    if plan is None or plan.stream != stream or plan.num_waves < waves:
+        raise AssertionError(f"{what}: not streamed as planned: {plan}")
+    tiers = set(h.resolutions.values())
+    log(f"  {what}: resolutions {h.resolutions}")
+    if tiers != {"cuda"}:
+        raise AssertionError(f"{what}: a wave ran off the cuda tier: {h.resolutions}")
+    return plan
+
+
+def ooc_arxiv(torch, repro_torch, kern, data, dev):
+    """9.1: the GCN query at ogbn-arxiv size, Node + Edge/4 budget,
+    against the in-core step; planted faults (a) and (b)."""
+    import dataclasses
+    import itertools
+
+    from repro_torch.core import engine, planner
+    from repro_torch.core.planner import _rel_bytes
+    from repro_torch.relational import partitioned_edges
+
+    edge = partitioned_edges(data["keys"], data["w"], NODES, 1)
+    x = data["x"]
+    budget = _rel_bytes(repro_torch.DenseRelation(x, 1)) + _rel_bytes(edge) / OOC_ARXIV_WAVES
+    log(f"  graph: |V|={NODES} |E|={edge.nnz} D={FEAT}; Edge {int(_rel_bytes(edge))} B, Node "
+        f"{x.numel() * 4} B; budget {budget:.0f} B (Node + Edge/{OOC_ARXIV_WAVES})")
+
+    def handle(**kw):
+        db = repro_torch.Database(**kw)
+        db.put("Edge", edge)
+        db.put("Node", x, keys=("node",))
+        return db, db.query(gcn_loss_query(NODES))
+
+    _, h0 = handle()
+    ref = h0.step(wrt=OOC_WRT)
+    db, h = handle(memory_budget=budget)
+    kern.reset_launch_counts()
+    for _ in range(OOC_ARXIV_STEPS):
+        out, grads = h.step(wrt=OOC_WRT)
+    torch.cuda.synchronize()
+    launches = kern.launch_counts()
+    plan = check_streamed(h, "Edge", OOC_ARXIV_WAVES, "arxiv")
+    spill = db.counters()["spill"]
+    log(f"  arxiv: {OOC_ARXIV_STEPS} steps; spill {spill}; launches {launches}")
+    if not plan.owner_aligned or spill["fetched_chunks"] != plan.num_waves * OOC_ARXIV_STEPS:
+        raise AssertionError("arxiv: not owner-aligned, or fetched chunks != waves × steps")
+    if launches["segment_sum"] <= 0 or launches["gather_join"] <= 0:
+        raise AssertionError("arxiv: the waves did not launch the CUDA kernels")
+    exact = gcn_exact(torch, edge, x, NODES, plan.num_waves)
+    res = gcn_against(torch, out, grads, ref, edge, x, exact)
+    log(f"  arxiv loss: streamed {float(out.data)!r} in-core {float(ref[0].data)!r}")
+    report("arxiv against the in-core step (loss 1e-5 relative; dNode 2·γ_(K+waves)·Σ|terms|, "
+           "dEdge 2·γ_D·Σ|terms| per entry)", res)
+    if worst_of(res) > 1.0:
+        raise AssertionError("arxiv: the streamed step differs from the in-core step")
+    for name, plant in (("(a) the merge drops the last wave", lambda: plant_dropped_wave(engine, itertools)),
+                        ("(b) a cut moved one row into an owner run",
+                         lambda: plant_moved_cut(planner, dataclasses))):
+        undo = plant()
+        try:
+            bad = gcn_against(torch, *h.step(wrt=OOC_WRT), ref, edge, x, exact)
+        finally:
+            undo()
+        report(f"planted fault {name}", bad)
+        if worst_of(bad) <= 1.0:
+            raise AssertionError(f"arxiv: the limits pass a wrong step ({name})")
+    ids = wave_ids(h, lambda: h.step(wrt=OOC_WRT), largest_wave(plan))
+    return launches, streamed_sites(h, ids, plan.num_waves)
+
+
+def dtheta_limit(X, gap):
+    """Per entry, the limit of the logreg θ gradient streamed against in
+    core: 4·u·sqrt(ΣP² + ΣQ² + ΣR²) over the partial totals below.
+
+    dθ = Xᵀ·gap sums K = rows terms in blocked_matmul's stated order:
+    segments of SEG_LEN terms from 0, the segment sums added in order into
+    one total. Every wave starts at a multiple of SEG_LEN and a row's
+    forward bits do not depend on the batch, so both handles form the same
+    segment sums s_j; they add them in other orders. In core, into one
+    running total P_i = s_1 + … + s_i; streamed, each wave's into its own
+    running total Q, and the waves' totals into R, in wave order. Each
+    addition rounds once, by at most u·|its result|; taken as independent
+    and uniform, the two results differ with a standard deviation of at
+    most u/√3·sqrt(ΣP² + ΣQ² + ΣR²) (f64 sums over the partial totals),
+    and the limit is 4√3 ≈ 6.9 of them. It follows the partial totals'
+    own growth: terms of one sign make them grow in proportion to i, which
+    a rounding walk over the terms, √K·u·sqrt(Σt²), does not allow for."""
+    from repro_torch.kernels.matmul.ops import SEG_LEN
+
+    s = (X.double() * gap[:, None]).reshape(-1, SEG_LEN, X.shape[1]).sum(1)
+    p = s.cumsum(0)
+    q = s.reshape(OOC_WAVES, -1, X.shape[1]).cumsum(1)
+    r = q[:, -1].cumsum(0)
+    return 4 * U32 * ((p * p).sum(0) + (q * q).sum((0, 1)) + (r * r).sum(0)).sqrt()
+
+
+def plant_dropped_row(chunkstore, relation, wave):
+    """A planted fault: every streamed dense relation loses the first row
+    of wave ``wave`` (the row at its cut) when the wave is fetched.
+    Returns the function that takes it out again."""
+    fetch = chunkstore.ChunkStore.fetch
+
+    def dropping(self, name, w):
+        f = fetch(self, name, w)
+        if w != wave:
+            return f
+        rel = f.relation
+        return chunkstore.Fetched(relation.DenseRelation(rel.data[1:], rel.key_arity), f.event)
+
+    chunkstore.ChunkStore.fetch = dropping
+    return lambda: setattr(chunkstore.ChunkStore, "fetch", fetch)
+
+
+def ooc_logreg(torch, repro_torch, kern, dev):
+    """9.2: the quickstart's SQL at phase 4's size, θ + (Rx + Ry)/8 budget,
+    10 steps against the in-core handle, then a re-put of Rx; planted
+    fault: a row dropped at a cut."""
+    from repro_torch.core import chunkstore, relation
+    from repro_torch.core.planner import _rel_bytes
+    from repro_torch.examples.quickstart import LOGREG_SQL
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    X = torch.randn(LOGREG_ROWS, LOGREG_COLS, device=dev, generator=gen)
+    truth = torch.randn(LOGREG_COLS, device=dev, generator=gen)
+    y = ((X @ truth + 0.5 * torch.randn(LOGREG_ROWS, device=dev, generator=gen)) > 0).float()
+    theta = torch.zeros(LOGREG_COLS, device=dev)
+    moving = _rel_bytes(repro_torch.DenseRelation(X, 2)) + _rel_bytes(repro_torch.DenseRelation(y, 1))
+    budget = theta.numel() * 4 + moving / OOC_WAVES
+    db0, db = repro_torch.Database(), repro_torch.Database(memory_budget=budget)
+    for d in (db0, db):
+        d.put("Rx", X, keys=("row", "col"))
+        d.put("Ry", y, keys=("row",))
+        d.put("theta", theta, keys=("col",))
+    h0, h = db0.sql(LOGREG_SQL, wrt=("theta",)), db.sql(LOGREG_SQL, wrt=("theta",))
+    log(f"  budget {budget:.0f} B; Rx on the {db.get('Rx').data.device.type} tier "
+        f"(larger than the budget), Ry on {db.get('Ry').data.device.type}")
+    if db.get("Rx").data.device.type != "cpu":
+        raise AssertionError("logreg: Rx is larger than the budget and not on the host")
+    launches = dict.fromkeys(kern.launch_counts(), 0)
+    lr = 1.0 / LOGREG_ROWS
+    worst = {"loss": 0.0, "dθ": 0.0}
+
+    def step(X, counted=True):
+        """One step of both handles at the same θ: (err/limit of the
+        streamed loss, 1e-5 relative, and θ gradient, ``dtheta_limit``,
+        against the in-core ones; the streamed loss; the in-core loss and
+        θ gradient)."""
+        for d in (db0, db):
+            d.put("theta", theta, keys=("col",))
+        out0, g0 = h0.step()
+        kern.reset_launch_counts()
+        out, g = h.step()
+        torch.cuda.synchronize()
+        if counted:
+            for op, k in kern.launch_counts().items():
+                launches[op] += k
+        loss, loss0 = float(out.data), float(out0.data)
+        if not (math.isfinite(loss) and math.isfinite(loss0)):
+            raise AssertionError(f"logreg: a loss is not finite (streamed {loss}, in-core {loss0})")
+        gap = torch.sigmoid(X.double() @ theta.double()) - y.double()
+        res = {"loss": abs(loss - loss0) / abs(loss0) / OOC_LOSS_LIMIT,
+               "dθ": excess((g["theta"].data.double() - g0["theta"].data.double()).abs(),
+                            dtheta_limit(X, gap))}
+        return res, loss, loss0, g0["theta"].data
+
+    def note(res):
+        for k in worst:
+            worst[k] = max(worst[k], res[k])
+
+    losses, thetas = [], []
+    for _ in range(LOGREG_STEPS):
+        thetas.append(theta)
+        res, loss, _, g0 = step(X)
+        note(res)
+        losses.append(loss)
+        theta = theta - lr * g0
+    plan = check_streamed(h, "Rx", OOC_WAVES, "logreg")
+    if plan.boundaries != tuple(range(0, LOGREG_ROWS + 1, LOGREG_WAVE_ROWS)):
+        raise AssertionError(f"logreg: waves not the even cut dtheta_limit assumes: {plan.boundaries}")
+    log(f"  logreg: streamed losses {losses}")
+    report(f"logreg, worst of {LOGREG_STEPS} steps against the in-core handle (loss 1e-5 relative, "
+           "dθ 4·u·sqrt(ΣP² + ΣQ² + ΣR²) over the sums' partial totals)", worst)
+    if plan.co_streams != ("Ry",) or max(worst.values()) > 1.0:
+        raise AssertionError("logreg: the streamed steps differ from the in-core steps")
+    # a re-put of Rx streams the new data (the reference streams its old
+    # chunks again): the next loss equals the in-core handle's after the
+    # same put. It steps from step 2's θ, whose loss on the old data is
+    # known: at the 10th step's θ, 2·Rx drives the logistic to 1.0 in f32
+    # on some rows, and xent of a probability of 1 is NaN in both handles
+    for d in (db0, db):
+        d.put("Rx", 2 * X, keys=("row", "col"))
+    theta = thetas[1]
+    res, loss, loss0, _ = step(2 * X)
+    note(res)
+    log(f"  after db.put('Rx', 2·Rx), at step 2's θ: streamed loss {loss!r}, in-core {loss0!r}, "
+        f"on the old Rx {losses[1]!r}; worst err/limit {worst}")
+    if max(worst.values()) > 1.0 or abs(loss - losses[1]) <= OOC_LOSS_LIMIT * abs(loss0):
+        raise AssertionError("logreg: the step after a re-put did not stream the new data")
+    spill = db.counters()["spill"]
+    log(f"  logreg: spill {spill}; launches {launches}")
+    if spill["fetched_chunks"] != 2 * plan.num_waves * (LOGREG_STEPS + 1):
+        raise AssertionError("logreg: fetched chunks != 2 × waves × steps")
+    if launches["blocked_matmul"] <= 0:
+        raise AssertionError("logreg: the waves did not launch blocked_matmul")
+    sites = streamed_sites(h, None, plan.num_waves)
+    # planted fault: Rx and Ry lose the row at the cut that starts wave
+    # OOC_WAVES/2, at θ = 0 (every row's gap is ±0.5)
+    theta = torch.zeros(LOGREG_COLS, device=dev)
+    undo = plant_dropped_row(chunkstore, relation, OOC_WAVES // 2)
+    try:
+        bad = step(2 * X, counted=False)[0]
+    finally:
+        undo()
+    report(f"planted fault: the first row of wave {OOC_WAVES // 2} (row {plan.boundaries[OOC_WAVES // 2]}) "
+           "dropped from Rx and Ry", bad)
+    if max(bad.values()) <= 1.0:
+        raise AssertionError("logreg: the limits pass a step that lost a row")
+    return launches, sites
+
+
+def ooc_products(torch, repro_torch, kern, dev):
+    """9.3: the GCN query at ogbn-products size and D = 256, which no card
+    holds in core: Node + Edge/8 budget, against an f64 computation on the
+    card; planted fault (a)."""
+    import itertools
+
+    from repro_torch.core import engine
+    from repro_torch.core.planner import _rel_bytes
+    from repro_torch.data import synthetic_graph
+    from repro_torch.relational import partitioned_edges
+
+    t0 = time.perf_counter()
+    g = synthetic_graph(PRODUCTS_NODES, PRODUCTS_EDGES, PRODUCTS_D, PRODUCTS_CLASSES, seed=0)
+    x = torch.as_tensor(g["x"]).to(dev)
+    edge = partitioned_edges(torch.as_tensor(g["edge_keys"]).to(dev), torch.as_tensor(g["edge_w"]).to(dev),
+                             PRODUCTS_NODES, 1)
+    del g
+    n = PRODUCTS_NODES
+    node_bytes, edge_bytes = x.numel() * 4, int(_rel_bytes(edge))
+    budget = node_bytes + edge_bytes / OOC_WAVES
+    log(f"  graph: |V|={n} |E|={edge.nnz} D={PRODUCTS_D} (made and owner-sorted in "
+        f"{time.perf_counter() - t0:.1f} s); Edge {edge_bytes} B, Node {node_bytes} B; one (E, D) f32 "
+        f"message tensor {edge.nnz * PRODUCTS_D * 4} B; budget {budget:.0f} B (Node + Edge/{OOC_WAVES})")
+    db = repro_torch.Database(memory_budget=budget)
+    db.put("Edge", edge)
+    db.put("Node", x, keys=("node",))
+    h = db.query(gcn_loss_query(n))
+    kern.reset_launch_counts()
+    secs, base = [], 0
+    gc.collect()
+    for step in range(OOC_PRODUCTS_STEPS):
+        torch.cuda.synchronize()
+        if step == 1:
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            fetched0 = db.counters()["spill"]["fetched_bytes"]
+        t0 = time.perf_counter()
+        out = grads = None
+        out, grads = h.step(wrt=OOC_WRT)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    launches = kern.launch_counts()
+    plan = check_streamed(h, "Edge", OOC_WAVES, "products")
+    spill = db.counters()["spill"]
+    per_step = (spill["fetched_bytes"] - fetched0) // (OOC_PRODUCTS_STEPS - 1)
+    if not plan.owner_aligned or spill["fetched_chunks"] != plan.num_waves * OOC_PRODUCTS_STEPS:
+        raise AssertionError("products: not owner-aligned, or fetched chunks != waves × steps")
+    if launches["segment_sum"] <= 0 or launches["gather_join"] <= 0:
+        raise AssertionError("products: the waves did not launch the CUDA kernels")
+    ms = statistics.median(secs[1:]) * 1e3
+    rows = [plan.boundaries[w + 1] - plan.boundaries[w] for w in range(plan.num_waves)]
+    # one more step under the profiler (not counted above): where the time
+    # of a step goes
+    busy = device_busy(torch, lambda: h.step(wrt=OOC_WRT))
+    if busy is None:
+        log("  products step under torch.profiler: no device time recorded; idle share not measured")
+    else:
+        wall, dev_ms, host, top = busy
+        log(f"  products step under torch.profiler: wall {wall:.1f} ms, device busy {dev_ms:.1f} ms "
+            f"(idle share at most {1 - dev_ms / wall:.3f}); most device time: "
+            + "; ".join(f"{k} {t:.1f} ms x{n}" for k, t, n in top)
+            + "; most host time: " + "; ".join(f"{k} {t:.1f} ms x{n}" for k, t, n in host))
+    log(f"  products: {plan.num_waves} waves of {min(rows)}-{max(rows)} edges; step 1 (lowering "
+        f"included) {secs[0] * 1e3:.1f} ms, steps 2-{OOC_PRODUCTS_STEPS} {[round(s * 1e3, 1) for s in secs[1:]]} "
+        f"ms, median {ms:.1f} ms; launches {launches}")
+    log(f"  products: fetched {per_step} B host→device per step; spill {spill}")
+    log(f"  products: peak device memory over steps 2-{OOC_PRODUCTS_STEPS} {peak} B ({peak / 2**30:.2f} GiB), "
+        f"of which {base} B allocated when step 2 began (Edge and Node on the card, step 1's result)")
+    if peak >= 80e9:
+        raise AssertionError("products: the streamed step does not fit one 80 GB card")
+
+    # the same bytes copied alone from the store's pinned chunks, and the
+    # merged dEdge's size copied back as the merge copies it (pageable)
+    store = db._chunkstore
+    side = torch.cuda.Stream()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    with torch.cuda.stream(side):
+        start.record()
+        moved = [t.to(dev, non_blocking=True) for w in range(plan.num_waves)
+                 for t in (store.host_chunk("Edge", w).keys, store.host_chunk("Edge", w).values)]
+        end.record()
+    torch.cuda.synchronize()
+    h2d_ms = start.elapsed_time(end)
+    del moved
+    dedge_dev = torch.empty(edge.nnz, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dedge_dev.cpu()
+    d2h_ms = (time.perf_counter() - t0) * 1e3
+    del dedge_dev
+    log(f"  products: {per_step} B host→device alone from pinned memory {h2d_ms:.2f} ms "
+        f"({per_step / h2d_ms / 1e6:.2f} GB/s); dEdge ({edge.nnz * 4} B) device→host {d2h_ms:.2f} ms")
+
+    t0 = time.perf_counter()
+    exact = gcn_exact(torch, edge, x, n, plan.num_waves)
+    res = gcn_against(torch, out, grads, None, edge, x, exact)
+    log(f"  products loss: streamed {float(out.data)!r}, f64 {exact['loss']!r} (oracle "
+        f"{time.perf_counter() - t0:.1f} s)")
+    report("products against f64 on the card (loss 1e-5 relative; dNode, dEdge 1e-5 relative "
+           "in the 2-norm)", res)
+    if worst_of(res) > 1.0:
+        raise AssertionError("products: the streamed step differs from the f64 computation")
+    del out, grads
+    undo = plant_dropped_wave(engine, itertools)
+    try:
+        bad = gcn_against(torch, *h.step(wrt=OOC_WRT), None, edge, x, exact)
+    finally:
+        undo()
+    report("planted fault (a) the merge drops the last wave", bad)
+    if worst_of(bad) <= 1.0:
+        raise AssertionError("products: the limits pass a wrong step")
+    del bad
+    ids = wave_ids(h, lambda: h.step(wrt=OOC_WRT), largest_wave(plan))
+    return launches, streamed_sites(h, ids, plan.num_waves)
+
+
+def oocore_phase(torch, repro_torch, kern, data, dev):
+    """Phase 9: the launches of the three streamed runs (the in-core
+    comparisons, the planted faults and phase 8's records not counted),
+    and per run its wave sites with their ids (``streamed_sites``)."""
+    launches, paths = {}, {}
+    for what, path, run in (
+            ("9.1 GCN at ogbn-arxiv size, 4 waves", "oocore_arxiv_step",
+             lambda: ooc_arxiv(torch, repro_torch, kern, data, dev)),
+            ("9.2 logistic regression through Database.sql, 8 waves", "oocore_logreg_step",
+             lambda: ooc_logreg(torch, repro_torch, kern, dev)),
+            (f"9.3 GCN at ogbn-products size, D = {PRODUCTS_D}, {OOC_WAVES} waves", "oocore_products_step",
+             lambda: ooc_products(torch, repro_torch, kern, dev))):
+        log(f"  {what}")
+        t0 = time.perf_counter()
+        run_launches, paths[path] = run()
+        for op, k in run_launches.items():
+            launches[op] = launches.get(op, 0) + k
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"  {what.split()[0]}: {time.perf_counter() - t0:.1f} s")
+    return {"launches": launches, "paths": paths}
 
 
 # ---------------------------------------------------------------------------
@@ -1785,6 +2420,12 @@ def main() -> int:
     lm = lm_phase(torch, repro_torch, kern, lm_cfg, dev)
     log(f"  phase 7: {time.perf_counter() - t0:.1f} s")
 
+    # phase 9 runs before phase 8, which times its sites too
+    log("phase 9: out-of-core chunk waves through Database(memory_budget=...)")
+    t0 = time.perf_counter()
+    oocore = oocore_phase(torch, repro_torch, kern, data, dev)
+    log(f"  phase 9: {time.perf_counter() - t0:.1f} s")
+
     log("phase 8: timings at the shapes of the main paths")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1793,7 +2434,7 @@ def main() -> int:
     log(smi)
     t0 = time.perf_counter()
     records = timing_phase(torch, graph, {"sites": sites, "launches": launches}, logreg, nnmf, kge,
-                           lm, errs, dev)
+                           lm, oocore, errs, dev)
     log(f"  phase 8: {time.perf_counter() - t0:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)

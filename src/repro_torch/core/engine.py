@@ -212,6 +212,214 @@ class Lowered:
 
 
 # ---------------------------------------------------------------------------
+# StreamedCompiled: out-of-core chunk-wave execution
+# ---------------------------------------------------------------------------
+
+
+def _flatten(tree) -> Tuple[list, object]:
+    """(tensor leaves, structure) of an engine output: relations (their
+    tensors), tuples and dicts (in sorted key order) — the structures
+    ``_execute`` returns."""
+    if isinstance(tree, DenseRelation):
+        return [tree.data], ("dense", tree.key_arity)
+    if isinstance(tree, CooRelation):
+        return [tree.keys, tree.values], (
+            "coo", tree.extents, tree.owner_dim, tree.shard_offsets,
+        )
+    if isinstance(tree, tuple):
+        parts = [_flatten(t) for t in tree]
+        return [x for leaves, _ in parts for x in leaves], (
+            "tuple", tuple(d for _, d in parts),
+        )
+    if isinstance(tree, dict):
+        names = sorted(tree)
+        parts = [_flatten(tree[n]) for n in names]
+        return [x for leaves, _ in parts for x in leaves], (
+            "dict", tuple(names), tuple(d for _, d in parts),
+        )
+    raise TypeError(f"cannot flatten an engine output of type {type(tree)}")
+
+
+def _unflatten(struct, leaves: list):
+    """Inverse of ``_flatten``: consumes ``leaves`` from the front."""
+    kind = struct[0]
+    if kind == "dense":
+        return DenseRelation(leaves.pop(0), struct[1])
+    if kind == "coo":
+        keys, values = leaves.pop(0), leaves.pop(0)
+        return CooRelation(keys, values, *struct[1:])
+    if kind == "tuple":
+        return tuple(_unflatten(d, leaves) for d in struct[1])
+    return {n: _unflatten(d, leaves) for n, d in zip(struct[1], struct[2])}
+
+
+class StreamedCompiled:
+    """Chunk-wave executor for a ``planner.WavePlan``: the session's
+    memory budget did not fit the environment, so the streamed relation
+    (and its co-streams) live host-side in the ``ChunkStore`` and each
+    call runs the normally-compiled step once per wave over ``resident +
+    one chunk``. The host→device copy of wave ``w+1`` is issued on the
+    store's copy stream before wave ``w``'s compute, and wave ``w+1``'s
+    compute waits for it on its own stream (``chunkstore.Fetched.wait``).
+
+    Wave results merge by the plan's soundness analysis
+    (``planner._stream_states``): an output leaf whose shape equals the
+    full in-core lowering's expectation is an additive partial (Σ across
+    waves, in wave order, on the device — the loss, gradients of resident
+    relations); a leaf whose shape differs along exactly one axis is
+    wave-local rows of the streamed axis (gradients of the streamed
+    relation itself) and is sliced to the wave's live rows — dropping the
+    COO pad rows of ``pad_coo_nnz`` — copied to the host and concatenated
+    there in row order as CPU tensors: the full-size streamed-axis result
+    is host-tier data by definition (it did not fit the device budget).
+    Each wave is folded in as it ends, so no two waves' partials are held
+    at once. Either way the merged result equals the in-core step's.
+
+    The full environment is lowered once on ``meta`` tensors, for its
+    output shapes only (never executed): its streamed relations lie on the
+    host beside the device-resident ones. Every wave's environment lies
+    wholly on the session's device; COO waves are padded to the largest
+    chunk, so they share one signature and one lowering.
+
+    Exposes what the session reads off a ``Compiled`` (``resolutions``,
+    ``lowered``) by delegating to the per-wave inner
+    ``Compiled`` (identical across waves of equal signature)."""
+
+    def __init__(self, plan, store, compile_wave, lower_full):
+        self.plan = plan
+        self.store = store
+        #: wave env → Compiled (the session's normal staged path; the
+        #: engine's lowering cache makes waves 2..n cache hits).
+        self._compile_wave = compile_wave
+        #: full env → Lowered (shapes only — never executed): its
+        #: out_shape is the merge oracle for ADD-vs-CONCAT leaves.
+        self._lower_full = lower_full
+        self._inner: Optional[Compiled] = None
+
+    # -- Compiled surface ---------------------------------------------------
+
+    @property
+    def num_waves(self) -> int:
+        return self.plan.num_waves
+
+    @property
+    def resolutions(self) -> Dict[str, str]:
+        return self._inner.resolutions if self._inner is not None else {}
+
+    @property
+    def lowered(self) -> Optional[Lowered]:
+        """The per-wave lowering (None before the first call)."""
+        return self._inner.lowered if self._inner is not None else None
+
+    # -- execution ----------------------------------------------------------
+
+    def _fetch_wave(self, w: int):
+        """Wave ``w``'s chunks, their copies issued (in flight on CUDA)."""
+        return {name: self.store.fetch(name, w) for name in self.plan.streamed_names}
+
+    def _waves(self, resident: Env, seed: Optional[AnyRel]):
+        """Run the step once per wave, yielding each wave's output."""
+        from .relation import pad_coo_nnz
+
+        bnd = self.plan.boundaries
+        max_rows = max(bnd[w + 1] - bnd[w] for w in range(self.plan.num_waves))
+        fetched = self._fetch_wave(0)
+        for w in range(self.plan.num_waves):
+            wave = dict(resident)
+            for name, f in fetched.items():
+                rel = f.wait()
+                if isinstance(rel, CooRelation):
+                    # pad every COO wave to the largest chunk so all waves
+                    # share one env signature (one lowering); pad rows
+                    # carry COO_PAD_KEY and are sliced off on merge
+                    rel = pad_coo_nnz(rel, max_rows)
+                wave[name] = rel
+            # the next wave's copy runs while this wave computes
+            fetched = self._fetch_wave(w + 1) if w + 1 < self.plan.num_waves else {}
+            compiled = self._compile_wave(wave, seed)
+            self._inner = compiled
+            yield compiled(wave, seed)
+
+    def _merge(self, wave_outs, want_shape):
+        """Fold the waves' outputs (an iterable, consumed in wave order)
+        into the in-core result whose shapes ``want_shape`` gives."""
+        from .chunkstore import OutOfCoreError
+
+        want_leaves, want_def = _flatten(want_shape)
+        bnd = self.plan.boundaries
+        sums: list = [None] * len(want_leaves)
+        rows: list = [None] * len(want_leaves)  # (axis, host parts, shapes)
+        for w, out in enumerate(wave_outs):
+            leaves, _ = _flatten(out)
+            if len(leaves) != len(want_leaves):
+                raise OutOfCoreError(
+                    "wave output structure does not match the in-core lowering"
+                )
+            for i, (want, g) in enumerate(zip(want_leaves, leaves)):
+                wshape = tuple(want.shape)
+                if tuple(g.shape) == wshape and rows[i] is None:
+                    sums[i] = g if sums[i] is None else sums[i] + g
+                    continue
+                seen = {tuple(g.shape)} | (set(rows[i][2]) if rows[i] else set())
+                if sums[i] is not None:
+                    seen.add(wshape)
+                diff_axes = {
+                    ax
+                    for s in seen
+                    if len(s) == len(wshape)
+                    for ax in range(len(s))
+                    if s[ax] != wshape[ax]
+                }
+                if (
+                    sums[i] is not None
+                    or len(diff_axes) != 1
+                    or any(len(s) != len(wshape) for s in seen)
+                ):
+                    raise OutOfCoreError(
+                        f"cannot merge wave output leaf of shapes {seen} "
+                        f"into expected {wshape}: not an additive partial and "
+                        "not single-axis wave rows"
+                    )
+                ax = diff_axes.pop()
+                if rows[i] is None:
+                    rows[i] = (ax, [], [])
+                # drop the wave's COO pad rows; host-side assembly
+                live = g.narrow(ax, 0, bnd[w + 1] - bnd[w])
+                rows[i][1].append(live.cpu())
+                rows[i][2].append(tuple(g.shape))
+            del out, leaves
+        merged = [
+            sums[i] if rows[i] is None else torch.cat(rows[i][1], dim=rows[i][0])
+            for i in range(len(want_leaves))
+        ]
+        return _unflatten(want_def, merged)
+
+    def __call__(self, env: Env, seed: Optional[AnyRel] = None):
+        from .relation import ChunkManifest
+
+        plan = self.plan
+        streamed = set(plan.streamed_names)
+        axis_of = dict(plan.axis_of)
+        smani = ChunkManifest(
+            axis=0,
+            boundaries=plan.boundaries,
+            owner_aligned=plan.owner_aligned,
+        )
+        self.store.spill(plan.stream, env[plan.stream], smani)
+        for name in plan.co_streams:
+            # co-streams share the stream's cut vector on their own axis:
+            # wave w of the stream joins wave w of every co-stream
+            self.store.spill(
+                name,
+                env[name],
+                ChunkManifest(axis=axis_of[name], boundaries=plan.boundaries),
+            )
+        resident = {k: v for k, v in env.items() if k not in streamed}
+        want_shape = self._lower_full(env, seed).out_shape
+        return self._merge(self._waves(resident, seed), want_shape)
+
+
+# ---------------------------------------------------------------------------
 # RAEngine: the wrapped program
 # ---------------------------------------------------------------------------
 
@@ -338,8 +546,14 @@ class RAEngine:
         for the default rule set, a ``RuleSet``, an iterable of rule names;
         None/False skips the stage. ``stats`` is the catalog statistics
         snapshot the cost gate prices pushdowns with; its quantized form
-        joins the enabled RuleSet in the cache key."""
-        table = kernels.make_table(dispatch, backend=env_device(env, seed).type)
+        joins the enabled RuleSet in the cache key. An environment of
+        ``meta`` tensors needs ``dispatch`` to be a DispatchTable: it names
+        the device type the lowering resolves kernels for."""
+        backend = env_device(env, seed).type
+        # an environment of meta tensors (shapes only, as the streamed
+        # executor's full-size lowering passes) lowers for the device type
+        # of the DispatchTable it comes with
+        table = kernels.make_table(dispatch, backend=None if backend == "meta" else backend)
         rules = _rewrite.make_rules(rewrite)
         rw_key = None if rules is None else (rules, _stats_key(stats))
         sig = env_signature(env, seed)

@@ -23,6 +23,14 @@ with, and the dispatch table.
 
 A session runs on ``device="cuda"`` unless the caller asks for another
 device; it raises where there is no GPU rather than run on the CPU unasked.
+
+``Database(memory_budget=...)`` bounds the bytes of relations a step may
+hold on the device: a step whose environment exceeds it streams its largest
+streamable base relation through the device in chunk waves (``planner.plan_waves``,
+``engine.StreamedCompiled``), from the session's host-resident
+``ChunkStore``. A relation larger than the budget is kept on the host by
+``put``, and one that a step streams moves there (``Database._place``).
+``db.counters()["spill"]`` reads the store's counters.
 """
 
 from __future__ import annotations
@@ -35,12 +43,19 @@ from typing import Dict, Iterator, Optional, Sequence, Tuple, Union
 
 import torch
 
+from . import chunkstore as _chunkstore
 from . import engine as _engine
 from . import fra, kernels, planner
 from . import rewrite as _rewrite
 from . import sql as _sql
 from .autodiff import GradientProgram, ra_autodiff
-from .relation import CooRelation, DenseRelation, measure_stats, to_device
+from .relation import (
+    CooRelation,
+    DenseRelation,
+    measure_stats,
+    relation_device,
+    to_device,
+)
 
 AnyRel = Union[DenseRelation, CooRelation]
 
@@ -191,7 +206,10 @@ class Database:
     query compiled in this session. ``rewrite`` configures the cost-gated
     rewrite stage (True — the default — enables the full rule set, False
     disables it, a ``rewrite.RuleSet`` or an iterable of rule names
-    selects rules).
+    selects rules). ``memory_budget`` is the out-of-core device-memory
+    budget in bytes (module docstring); None — the default — disables
+    spilling: plans and results are bit-identical to an unbudgeted
+    session.
     """
 
     def __init__(
@@ -199,6 +217,7 @@ class Database:
         device=None,
         *,
         dispatch=None,
+        memory_budget: Optional[float] = None,
         rewrite=True,
         fuse_join_agg: bool = True,
     ) -> None:
@@ -207,6 +226,12 @@ class Database:
         #: the session's enabled rewrite rules (None = stage off).
         self.rewrite_rules = _rewrite.make_rules(rewrite)
         self.dispatch = kernels.make_table(dispatch, backend=self.device.type)
+        #: out-of-core device-memory budget in bytes: when a step's
+        #: environment exceeds it, the largest streamable base relation is
+        #: spilled to the host-resident ChunkStore and streamed through the
+        #: step in chunk waves. None disables spilling entirely.
+        self.memory_budget = memory_budget
+        self._chunkstore = _chunkstore.ChunkStore(self.device)
         self.fuse_join_agg = fuse_join_agg
 
     # -- catalog front door ------------------------------------------------
@@ -223,12 +248,25 @@ class Database:
         array (tensor or numpy) made into a ``DenseRelation`` whose key
         arity is ``len(keys)`` (every dim when ``keys`` is None) — the
         leading dims are the key grid, the rest the tuple chunk. Returns
-        the session for chaining."""
+        the session for chaining.
+
+        Under a ``memory_budget``, a relation larger than the budget is
+        kept on the host (the host tier: a step streams it in waves, and
+        nothing forces it onto the device). Putting a name drops its
+        chunks from the session's ChunkStore, so a later streamed step
+        spills the new data."""
         if not isinstance(value, (DenseRelation, CooRelation)):
-            arr = torch.as_tensor(value, device=self.device)
+            arr = torch.as_tensor(value)
             arity = arr.dim() if keys is None else len(tuple(keys))
             value = DenseRelation(arr, arity)
-        self.catalog.put(name, to_device(value, self.device), keys)
+        device = self.device
+        if (
+            self.memory_budget is not None
+            and planner._rel_bytes(value) > self.memory_budget
+        ):
+            device = torch.device("cpu")
+        self._chunkstore.drop(name)
+        self.catalog.put(name, to_device(value, device), keys)
         return self
 
     def get(self, name: str) -> AnyRel:
@@ -246,7 +284,19 @@ class Database:
         return name in self.catalog
 
     def drop(self, name: str) -> None:
+        self._chunkstore.drop(name)
         self.catalog.drop(name)
+
+    def counters(self) -> Dict[str, Dict[str, int]]:
+        """The session's telemetry tree, snapshotted (mutating the returned
+        dict never touches live state)::
+
+            {"spill": {spilled_relations, spilled_bytes,
+                       fetched_chunks, fetched_bytes}}   # out-of-core
+
+        The reference's ``cache``, ``reshard`` and ``serve`` subtrees come
+        with the modules that keep them (serving, multi-device planning)."""
+        return {"spill": dict(self._chunkstore.stats)}
 
     def stats(self, name: str) -> planner.RelationStats:
         """The tracked key-domain statistics of one relation."""
@@ -384,9 +434,44 @@ class Database:
         env: Dict[str, AnyRel],
         seed: Optional[AnyRel] = None,
         *,
+        donate: Tuple[str, ...] = (),
         stats: Optional[Dict[str, planner.RelationStats]] = None,
-    ) -> _engine.Compiled:
+    ):
         eng = _engine.engine_for(program, fuse_join_agg=self.fuse_join_agg)
+        if self.memory_budget is not None:
+            wave_plan = planner.plan_waves(eng.forward_query, env, self.memory_budget)
+            self._place(env, () if wave_plan is None else wave_plan.streamed_names)
+            if wave_plan is not None:
+                if donate:
+                    raise _chunkstore.OutOfCoreError(
+                        f"cannot donate {sorted(donate)} while streaming "
+                        "chunk waves: the buffers are reused across waves"
+                    )
+
+                def compile_wave(wave_env, wave_seed):
+                    return eng.lower(
+                        wave_env,
+                        wave_seed,
+                        dispatch=self.dispatch,
+                        stats=self._catalog_stats_for(wave_env),
+                        rewrite=self.rewrite_rules,
+                    ).compile()
+
+                def lower_full(full_env, full_seed):
+                    # the streamed relations lie on the host beside the
+                    # device-resident ones: lower on meta tensors, for the
+                    # output shapes only
+                    return eng.lower(
+                        {k: _engine._meta(v) for k, v in full_env.items()},
+                        None if full_seed is None else _engine._meta(full_seed),
+                        dispatch=self.dispatch,
+                        stats=stats,
+                        rewrite=self.rewrite_rules,
+                    )
+
+                return _engine.StreamedCompiled(
+                    wave_plan, self._chunkstore, compile_wave, lower_full
+                )
         low = eng.lower(
             env,
             seed,
@@ -395,6 +480,25 @@ class Database:
             rewrite=self.rewrite_rules,
         )
         return low.compile()
+
+    def _place(self, env: Dict[str, AnyRel], streamed: Tuple[str, ...]) -> None:
+        """Moves the catalog relations of a budgeted CUDA session's step
+        to their tier, in the catalog and in ``env``: a streamed relation
+        to the host, so that the device holds the resident relations and
+        one wave, as the budget says (each wave is fetched from the
+        store's host chunks whether or not a device copy exists); any
+        other to the device (a relation that an earlier step streamed and
+        this one holds in core). Relations ``env`` does not share with
+        the catalog stay where the caller put them."""
+        if self.device.type == "cpu":
+            return
+        for name, rel in list(env.items()):
+            if name not in self.catalog or self.catalog.entry(name).relation is not rel:
+                continue
+            want = "cpu" if name in streamed else self.device.type
+            if relation_device(rel).type != want:
+                moved = to_device(rel, self.device if want != "cpu" else torch.device("cpu"))
+                self.catalog.entry(name).relation = env[name] = moved
 
     def _catalog_stats_for(
         self, env: Dict[str, AnyRel]
@@ -486,8 +590,9 @@ class QueryHandle:
         self.default_wrt = default_wrt
         self._grad_progs: Dict[Tuple[str, ...], GradientProgram] = {}
         self._full_prog: Optional[GradientProgram] = None
-        #: the most recently used Compiled (resolutions, dispatch).
-        self.last: Optional[_engine.Compiled] = None
+        #: the most recently used Compiled or StreamedCompiled
+        #: (resolutions, dispatch; the wave plan of a streamed step).
+        self.last = None
 
     def check(self, *, wrt: Optional[Sequence[str]] = None):
         """``db.check`` on this handle's query (see ``Database.check``);
@@ -568,7 +673,9 @@ class QueryHandle:
             )
         seed_rel = self._seed_rel(seed)
         compiled = self.db._compiled_for(
-            prog, env, seed_rel, stats=self.db.catalog.snapshot(names)
+            prog, env, seed_rel,
+            donate=tuple(sorted(donate)),
+            stats=self.db.catalog.snapshot(names),
         )
         self.last = compiled
         out, grads = compiled(env, seed_rel)

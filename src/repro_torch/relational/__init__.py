@@ -8,5 +8,5 @@ instead of PyTorch's own autograd through the engine.
 """
 
 from .linear import rel_linear, rel_matmul, rel_matmul_blocked  # noqa: F401
-from .gcn import gcn_conv  # noqa: F401
+from .gcn import gcn_conv, partitioned_edges  # noqa: F401
 from .embedding import rel_embed  # noqa: F401

@@ -14,6 +14,11 @@ runs in the session that ran the forward, kept on ``ctx``: autograd runs
 the backward of CUDA tensors on a thread of its own, which does not see the
 caller's ``Database.activate``. Gradients that autograd does not ask for
 (e.g. of fixed edge weights) are skipped.
+
+``partitioned_edges`` pre-sorts edges by dst (the owner partition): a
+budgeted session (``Database(memory_budget=...)``) then cuts an edge
+relation into waves at owner-run starts, so no Σ-by-dst segment straddles
+two waves.
 """
 
 from __future__ import annotations
@@ -26,7 +31,24 @@ from repro_torch.core import fra, session
 from repro_torch.core.autodiff import ra_autodiff
 from repro_torch.core.kernels import ADD, MUL
 from repro_torch.core.keys import L, eq_pred, identity_key, jproj
-from repro_torch.core.relation import CooRelation, DenseRelation
+from repro_torch.core.relation import CooRelation, DenseRelation, owner_partition
+
+
+def partitioned_edges(
+    edge_keys, edge_w, n_nodes: int, num_shards: int
+) -> CooRelation:
+    """Edge relation in the owner-partitioned nnz layout: rows sorted by
+    dst (key column 1 — the Σ-by-dst segment key) and padded to a
+    ``num_shards`` multiple (``num_shards=1`` pads nothing and needs no
+    mesh). Returns the CooRelation to train with — its row order is the
+    order edge-weight gradients come back in. Tensors stay on the device
+    of ``edge_keys`` (numpy arrays become CPU tensors)."""
+    rel = CooRelation(
+        torch.as_tensor(edge_keys).to(torch.int32),
+        torch.as_tensor(edge_w),
+        (n_nodes, n_nodes),
+    )
+    return owner_partition(rel, num_shards, dim=1)
 
 
 @functools.cache

@@ -487,3 +487,166 @@ def test_cuda_sql_logreg_equals_the_fra_query_bit_for_bit(cuda_device):
     assert runs[0][0] == runs[1][0] and runs[0][1] == runs[1][1]
     assert torch.equal(runs[0][2], runs[1][2])
     kernels.reset_launch_counts()
+
+
+# ---------------------------------------------------------------------------
+# out-of-core chunk waves: the store's copy stream and a streamed GCN step
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_chunkstore_fetch_on_the_copy_stream_returns_the_host_bits(cuda_device):
+    from repro_torch.core.chunkstore import ChunkStore
+    from repro_torch.core.relation import CooRelation, DenseRelation
+
+    rng = np.random.default_rng(11)
+    dense = DenseRelation(torch.tensor(_f32(rng, 300, 7, 5)), 2)
+    coo = CooRelation(torch.tensor(_ids(rng, 1000, 50).reshape(500, 2)),
+                      torch.tensor(_f32(rng, 500, 3)), (50, 50))
+    store = ChunkStore(cuda_device)
+    for name, rel, axis in (("D", dense, 1), ("C", coo, 0)):
+        mani = store.spill(name, rel, 3, axis=axis)
+        for w in range(mani.num_chunks):
+            host = store.host_chunk(name, w)
+            host_t = [host.data] if name == "D" else [host.keys, host.values]
+            assert all(t.is_pinned() for t in host_t)
+            f = store.fetch(name, w)
+            assert f.event is not None and store._copy_stream != torch.cuda.current_stream()
+            got = f.wait()
+            got_t = [got.data] if name == "D" else [got.keys, got.values]
+            assert all(g.device.type == "cuda" for g in got_t)
+            assert all(torch.equal(g.cpu(), h) for g, h in zip(got_t, host_t))
+    assert store.stats["fetched_chunks"] == 6
+    assert store.stats["fetched_bytes"] == store.stats["spilled_bytes"]
+
+
+@pytest.mark.cuda
+def test_a_fetched_tensor_is_not_reused_while_a_wave_reads_it(cuda_device):
+    """The wave's stream is held up (``torch.cuda._sleep``) before it reads
+    a fetched chunk; the Python reference is dropped and the next chunk is
+    fetched at once. Its copy must not land in the first chunk's memory
+    while the wave still has to read it."""
+    from repro_torch.core.chunkstore import ChunkStore
+    from repro_torch.core.relation import DenseRelation
+
+    rows = 1 << 22  # 16 MiB chunks
+    data = torch.arange(2 * rows, dtype=torch.float32).reshape(2 * rows, 1)
+    store = ChunkStore(cuda_device)
+    store.spill("A", DenseRelation(data, 1), 2)
+    f = store.fetch("A", 0)
+    first = f.wait()
+    torch.cuda._sleep(200_000_000)  # ≈ 0.1 s of the current stream
+    read = first.data * 1.0          # the wave's read, queued behind the sleep
+    del f, first
+    second = store.fetch("A", 1).wait()
+    torch.cuda.synchronize()
+    assert torch.equal(read.cpu(), data[:rows])
+    assert torch.equal(second.data.cpu(), data[rows:])
+
+
+def _gcn_loss_query(n):
+    """mean over nodes of Σ_d conv², conv = Σ_dst w · Node[src] (the
+    query of tests/test_oocore.py)."""
+    from repro_torch.core import fra
+    from repro_torch.core.kernels import ADD, MUL, SQUARE, SUM_CHUNK, scale_kernel
+    from repro_torch.core.keys import EMPTY_KEY, TRUE, L, eq_pred, identity_key, jproj
+
+    conv = fra.Agg(identity_key(1), ADD, fra.Join(eq_pred((0, 0)), jproj(L(1)), MUL,
+                                                  fra.scan("Edge", 2), fra.scan("Node", 1)))
+    sq = fra.Select(TRUE, identity_key(1), SQUARE, conv)
+    loss = fra.Agg(EMPTY_KEY, ADD, fra.Select(TRUE, identity_key(1), SUM_CHUNK, sq))
+    return fra.Query(fra.Select(TRUE, identity_key(0), scale_kernel(1.0 / n), loss),
+                     inputs=("Edge", "Node"))
+
+
+@pytest.mark.cuda
+def test_streamed_gcn_step_on_the_card_equals_the_incore_step(cuda_device):
+    """Node features outweigh the edges, so the port streams Edge in
+    owner-aligned waves, on the cuda tier. The loss agrees within 1e-5
+    relative; dNode adds the waves' partials, so each entry is an f32 sum
+    of its K terms and at most ``waves`` zeros in another order than the
+    in-core sum: they agree within 2·γ_{K+waves}·Σ|terms|; dEdge is
+    computed row by row."""
+    from repro_torch.core.engine import StreamedCompiled
+    from repro_torch.core.planner import _rel_bytes
+    from repro_torch.relational.gcn import partitioned_edges
+
+    g = synthetic_graph(3000, 24_000, 16, 4, seed=0)
+    n = 3000
+    edge = partitioned_edges(g["edge_keys"], g["edge_w"], n, 1)
+    budget = _rel_bytes(edge) / 4 + 3000 * 16 * 4
+    results = {}
+    for label, kw in (("incore", {}), ("streamed", {"memory_budget": budget})):
+        db = repro_torch.Database(**kw)
+        db.put("Edge", edge)
+        db.put("Node", torch.tensor(g["x"]), keys=("node",))
+        h = db.query(_gcn_loss_query(n))
+        kernels.reset_launch_counts()
+        out, grads = h.step(wrt=("Edge", "Node"))
+        torch.cuda.synchronize()
+        launched = kernels.launch_counts()
+        assert launched["segment_sum"] > 0 and launched["gather_join"] > 0, launched
+        assert set(h.resolutions.values()) == {"cuda"}, h.resolutions
+        results[label] = (h, out, grads)
+    h, out, grads = results["streamed"]
+    _, out0, grads0 = results["incore"]
+    assert isinstance(h.last, StreamedCompiled) and h.last.plan.stream == "Edge"
+    assert h.last.plan.owner_aligned and h.last.num_waves >= 4
+    loss, loss0 = float(out.data), float(out0.data)
+    assert abs(loss - loss0) <= 1e-5 * abs(loss0)
+    assert grads["Edge"].values.device.type == "cpu"  # wave rows merge on the host
+    assert torch.equal(grads["Edge"].keys, edge.keys)
+    torch.testing.assert_close(grads["Edge"].values, grads0["Edge"].values.cpu(), atol=ATOL, rtol=RTOL)
+    # dNode: terms w_e · dconv[dst_e] summed by src, dconv = (2/n)·conv
+    keys, w, x = edge.keys.long().to(cuda_device), edge.values.double().to(cuda_device), \
+        torch.tensor(g["x"], device=cuda_device).double()
+    live = keys[:, 0] >= 0
+    src, dst, w = keys[live, 0], keys[live, 1], w[live]
+    conv = torch.zeros(n, 16, dtype=torch.float64, device=cuda_device).index_add_(0, dst, w[:, None] * x[src])
+    terms = w[:, None] * (2.0 / n) * conv[dst]
+    k = torch.bincount(src, minlength=n).double()[:, None] + h.last.num_waves
+    gamma = k * 2.0 ** -24 / (1 - k * 2.0 ** -24)
+    limit = 2 * gamma * torch.zeros_like(conv).index_add_(0, src, terms.abs())
+    err = (grads["Node"].data.double() - grads0["Node"].data.double()).abs()
+    assert bool((err <= limit).all()), float((err / limit.clamp_min(1e-300)).max())
+
+
+@pytest.mark.cuda
+def test_a_streamed_relation_moves_to_the_host_and_back_for_an_incore_step(cuda_device):
+    """Edge fits the budget on its own, so ``put`` keeps it on the card; a
+    step that streams it moves the catalog's copy to the host (the device
+    then holds Node and one wave), and a later step of a query that holds
+    Edge in core moves it back, with the in-core session's result."""
+    from repro_torch.core import fra
+    from repro_torch.core.engine import StreamedCompiled
+    from repro_torch.core.kernels import ADD, SUM_CHUNK
+    from repro_torch.core.keys import EMPTY_KEY, TRUE, identity_key
+    from repro_torch.core.planner import _rel_bytes
+    from repro_torch.relational.gcn import partitioned_edges
+
+    g = synthetic_graph(3000, 24_000, 16, 4, seed=1)
+    edge = partitioned_edges(g["edge_keys"], g["edge_w"], 3000, 1)
+    node_bytes = 3000 * 16 * 4
+    budget = _rel_bytes(edge) + node_bytes / 2  # Edge fits, Edge + Node does not
+    # Σ of the edge weights: Edge alone, under the budget, in core
+    total = fra.Query(fra.Agg(EMPTY_KEY, ADD, fra.Select(TRUE, identity_key(2), SUM_CHUNK,
+                                                         fra.scan("Edge", 2))), inputs=("Edge",))
+    dbs = {}
+    for label, kw in (("incore", {}), ("budget", {"memory_budget": budget})):
+        db = dbs[label] = repro_torch.Database(**kw)
+        db.put("Edge", edge)
+        db.put("Node", torch.tensor(g["x"]), keys=("node",))
+    db = dbs["budget"]
+    assert db.get("Edge").keys.device.type == "cuda"
+    h = db.query(_gcn_loss_query(3000))
+    out, _ = h.step(wrt=("Edge", "Node"))
+    assert isinstance(h.last, StreamedCompiled) and h.last.plan.stream == "Edge"
+    assert db.get("Edge").keys.device.type == "cpu" and db.get("Node").data.device.type == "cuda"
+    again, _ = h.step(wrt=("Edge", "Node"))
+    assert torch.equal(out.data, again.data)
+    q = db.query(total)
+    got = q.forward()
+    want = dbs["incore"].query(total).forward()
+    assert not isinstance(q.last, StreamedCompiled)
+    assert db.get("Edge").keys.device.type == "cuda" and got.data.device.type == "cuda"
+    assert torch.equal(got.data, want.data)
