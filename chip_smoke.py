@@ -46,7 +46,8 @@ Phases, in order; any failure stops the run with a non-zero exit:
    the first decoded token, and how much of a decode step the card is busy;
 8. time each kernel at the shapes of the main paths (the GCN step, the
    logistic regression's step, the NNMF and KGE steps, prefill and decode,
-   and a wave of each of phase 9's streamed steps, on the wave's own ids)
+   a wave of each of phase 9's streamed steps, on the wave's own ids, and
+   olmoe's prefill, decode step and train step, on their calls' own ids)
    beside its plain version, one PyTorch library call (where there is one),
    the card's bound and, for the small calls, the host's time per call; and
    time ``segment_sum``'s index (sort and starts) and its two paths across
@@ -62,10 +63,27 @@ Phases, in order; any failure stops the run with a non-zero exit:
    f64 computation on the card; every wave on the cuda tier, each with its
    planted faults (a merge that drops the last wave; a cut moved into an
    owner run; a row dropped at a cut of the logistic regression's waves),
-   and the products step's time, traffic and peak memory.
+   and the products step's time, traffic and peak memory;
+10. (run before phase 8) serve olmoe-1b-7b at its published widths and
+   depth (16 layers of GQA attention with RoPE and QK-norm and a 64-expert
+   top-8 MoE, d_model 2,048, vocab 50,304; f32 instead of bf16, random
+   weights from a seed): a request of 2 prompts of 2,560 tokens (the
+   chunked attention path, past attn_chunk = 2,048) and 8 greedy decode
+   steps through the KV cache; every site on the cuda tier, the logits
+   against the torch tier (on the cuda tier's routing where a near tie
+   routed a token otherwise), decode against a full forward over the
+   prompt and the fed tokens (at a capacity factor that drops nothing),
+   with a lost K cache planted; the drops beyond capacity, the times, the
+   peak memory and how much of a decode step the card is busy;
+11. (run before phase 8) train olmoe-1b-7b at its published widths and 4
+   layers, 5 Adam steps of ``make_train_step(donate=True)`` on one batch of
+   4 × 1,024 tokens with remat: step 1's loss and the gradients of wq, an
+   expert wo and the embedding against the torch tier (a lost token
+   planted), remat against no remat bit for bit, the loss's fall, the step
+   time, tokens/s, the peak memory and the launches, backward included.
 
 Device memory is freed between phases, so the NNMF step's peak and the
-language model's 29 GB of weights never meet. The last line of standard
+language models' 29 and 27.7 GB of weights never meet. The last line of standard
 output is ``{"ok": true, "device": {...}}``; the line before it is one JSON
 object with a record per kernel, and the line before that the card's name
 and power limit as nvidia-smi gives them.
@@ -164,6 +182,49 @@ LM_PREFILL_LIMIT = 1e-3
 #: tier check's ≈ 1e-4, which the limit takes. Phase 7 plants a lost conv
 #: window and a lost SSM state in one layer and shows both exceed it.
 LM_DECODE_LIMIT = 1e-4
+# olmoe-1b-7b (src/repro_torch/configs/olmoe_1b_7b.py at its published
+# widths, f32 instead of bf16): phase 10 serves all 16 layers, one request
+# of 2 prompts of 2,560 tokens (past attn_chunk = 2,048: the chunked
+# online-softmax path, its last KV block padded) and 8 greedy decode steps;
+# phase 11 trains 4 of the 16 layers (the weights, gradients and two Adam
+# moments of all 16 take 110.7 GB; of 4, 30.15 GB) on one batch of 4 x 1,024
+# tokens for 5 steps
+OLMOE_ARCH, OLMOE_ARCH_LAYERS = "olmoe-1b-7b", 16
+OLMOE_BATCH, OLMOE_PROMPT, OLMOE_DECODE = 2, 2560, 8
+OLMOE_PARAMS = 6_919_100_416
+OLMOE_TRAIN_LAYERS, OLMOE_TRAIN_BATCH, OLMOE_TRAIN_SEQ, OLMOE_TRAIN_STEPS = 4, 4, 1024, 5
+OLMOE_TRAIN_PARAMS = 1_884_310_528
+#: logits of the cuda tier against the torch tier (the prefill's last
+#: position and each decode step), as a share of the largest logit, where
+#: both tiers route alike (phase 10 replays the cuda tier's routing in the
+#: torch tier where a near tie routed a token otherwise). Each product of a
+#: layer (q/k/v/o, the router, the three expert products; K ≤ 2,048)
+#: differs between the tiers by about √K·u ≈ 2.7e-6 of its size, and the
+#: 16 layers' ≈ 110 products add as a random walk to ≈ 3e-5, which is the
+#: limit: an upper estimate, as most products' errors are far below √K·u.
+#: A product that falls back to one TF32 pass errs by ≈ 5e-4 of its size;
+#: phase 10 plants that (the torch tier in TF32) and shows it exceeds this
+OLMOE_TIER_LIMIT = 3e-5
+#: decode through the KV cache against a full forward over the prompt and
+#: the fed tokens, as a share of the largest logit, at positions the two
+#: runs route and keep alike. Both run the cuda tier on the same weights,
+#: and blocked_matmul's rows do not depend on m; what rounds otherwise is
+#: the attention (one softmax over the cache against the chunked online
+#: softmax) and cuBLAS's expert products at C = 8 slots against C = 401,
+#: a few roundings of f32 sums each, ≈ 1e-5 of the logits at most
+OLMOE_DECODE_LIMIT = 1e-4
+#: step 1's loss, cuda tier against torch tier, relative: a mean over 4,096
+#: tokens of log-sum-exps of logits that agree to ≈ 1e-5 (4 layers)
+OLMOE_LOSS_LIMIT = 1e-5
+#: step 1's gradients of wq, the expert wo and the embedding table, cuda
+#: tier against torch tier, relative in the 2-norm. Both backwards run the
+#: same ops (the products are the gradient queries' einsum in both tiers;
+#: the embedding's and the MoE's transposes the kernels or index_add_) on
+#: inputs that differ as the forward's do: ≈ 100 f32 sums of K ≤ 4,096 terms
+#: in a chain, each ≈ √K·u ≈ 3.8e-6 relative, as a random walk ≈ 4e-5; the
+#: limit allows 5 times that. A step that loses one of its 4,096 tokens
+#: (planted) moves every gradient by more than 1/4,096 = 2.4e-4
+OLMOE_GRAD_LIMIT = 2e-4
 #: the shapes of blocked_matmul's path-crossover cases: the skinny path
 #: takes m ≤ 16
 CROSSOVER_M, CROSSOVER_K, CROSSOVER_N = (1, 2, 15, 16, 17, 33), (1, 3, 511, 512, 513, 8192), (1, 40, 288)
@@ -221,6 +282,8 @@ def segsum_shapes(cfg):
             cases += [(e, d, e, "KGE Σ by position"), (e, d, n, "KGE table gradient")]
     cases += [(ARXIV_WAVE_E, FEAT, NODES, "arxiv wave"),
               (PRODUCTS_WAVE_E, PRODUCTS_D, PRODUCTS_NODES, "products wave")]
+    cases += [(e, d, s, "olmoe") for op, e, d, s in olmoe_checked_shapes(olmoe_config())
+              if op == "segment_sum"]
     return cases
 
 
@@ -237,6 +300,8 @@ def gather_shapes(cfg):
         cases += [(len(ODD_IDS), 7, d, "edge ids -1/>=N"), (0, 5, d, "E=0")]
     cases += [(ARXIV_WAVE_E, NODES, FEAT, "arxiv wave"),
               (PRODUCTS_WAVE_E, PRODUCTS_NODES, PRODUCTS_D, "products wave")]
+    cases += [(e, n, d, "olmoe") for op, e, n, d in olmoe_checked_shapes(olmoe_config())
+              if op == "gather_join"]
     return cases
 
 
@@ -281,7 +346,18 @@ def matmul_cases(cfg):
         for m in ((LM_BATCH,) if sites == 1 else (LM_BATCH * LM_PROMPT, LM_BATCH)):
             cases.append((m, k, n, "falcon-mamba " + ("head" if sites == 1 else "projection")))
     cases += [(m, k, n, "crossover") for m in CROSSOVER_M for k in CROSSOVER_K for n in CROSSOVER_N]
+    cases += [(m, k, n, "olmoe") for op, m, k, n in sorted(olmoe_checked_shapes(olmoe_config()))
+              if op == "blocked_matmul"]
     return cases
+
+
+def olmoe_config():
+    """olmoe-1b-7b at its published widths and depth, in f32."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(OLMOE_ARCH), dtype="float32")
 
 
 def log(*parts) -> None:
@@ -323,7 +399,14 @@ def fmt_ms(ms: float) -> str:
 # ---------------------------------------------------------------------------
 
 
-def check_kernels(torch, kern, graph, lm_cfg, dev):
+def olmoe_checked_shapes(cfg):
+    """The kernel calls of phases 10 and 11 (``olmoe_shapes``): a prefill
+    and a decode step of phase 10's request, a train step of phase 11."""
+    return (olmoe_shapes(cfg, OLMOE_BATCH, OLMOE_PROMPT, False) | olmoe_shapes(cfg, OLMOE_BATCH, 1, False)
+            | olmoe_shapes(cfg, OLMOE_TRAIN_BATCH, OLMOE_TRAIN_SEQ, True))
+
+
+def check_kernels(torch, kern, graph, lm_cfg, olmoe_cfg, dev):
     from repro_torch.kernels.gather.ref import gather_rows_ref
     from repro_torch.kernels.matmul.ops import SEG_LEN
     from repro_torch.kernels.matmul.ref import matmul_ref
@@ -569,6 +652,27 @@ def check_kernels(torch, kern, graph, lm_cfg, dev):
                         torch.float16)
         positions = torch.arange(e, device=dev, dtype=torch.int32)
         segsum_case(e, positions, lm_cfg.d_model, "falcon-mamba embedding (seg = positions)")
+
+    # olmoe-1b-7b's gathers and segment sums in phases 10 and 11 (its
+    # products are among matmul_cases), each shape of
+    # olmoe_checked_shapes (which those phases hold their calls to): ids
+    # into the vocabulary are tokens, ids with E = N (S) positions, the
+    # MoE's slot and assignment ids random with an eighth of them -1 (the
+    # empty slots, the dropped assignments)
+    def olmoe_ids(e, n):
+        if n == e:
+            return torch.arange(e, device=dev, dtype=torch.int32)
+        ids = torch.randint(0, n, (e,), generator=gen, device=dev, dtype=torch.int32)
+        if n != olmoe_cfg.vocab:
+            ids[torch.randperm(e, generator=gen, device=dev)[:e // 8]] = -1
+        return ids
+
+    for op, a, b, c in sorted(olmoe_checked_shapes(olmoe_cfg)):
+        if op == "gather_join":
+            gather_case(b, olmoe_ids(a, b), c, "olmoe")
+        elif op == "segment_sum":
+            segsum_case(c, olmoe_ids(a, c), b, "olmoe")
+        torch.cuda.empty_cache()
     return errs
 
 
@@ -1493,6 +1597,621 @@ def lm_phase(torch, repro_torch, kern, cfg, dev):
 
 
 # ---------------------------------------------------------------------------
+# Phases 10 and 11: olmoe-1b-7b serving and training
+# ---------------------------------------------------------------------------
+
+
+def olmoe_sizes(cfg, b, s):
+    """(C, the MoE's per-row capacity; B·E·C expert slots; B·S·k
+    assignments) of a call over B rows of S tokens."""
+    cap = max(int(cfg.capacity_factor * s * cfg.top_k / cfg.n_experts), cfg.top_k)
+    return cap, b * cfg.n_experts * cap, b * s * cfg.top_k
+
+
+def olmoe_shapes(cfg, b, s, train):
+    """Every kernel call (op, shape) of a forward over B rows of S tokens
+    (a prefill, a decode step at S = 1, a train step's forward), and with
+    ``train`` of its backward: what phase 2 checks and phases 10-11 must
+    launch at no other shape. blocked_matmul (m, k, n): q/k/v/o (n_heads
+    and n_kv_heads of 128 are 2,048 wide) and the head (all positions in
+    training, the last one in serving). gather_join (E, N, D) and
+    segment_sum (E, D, S): the embedding's join by token and Σ by position;
+    the MoE's dispatch (token rows into B·E·C slots), combine (slot rows
+    into B·S·k assignments) and Σ by token. The backward of each is the
+    other kernel: the embedding's table gradient (a Σ into the vocabulary's
+    rows) and the Σ's and gathers' transposes. rel_linear's backward
+    products are the gradient queries' einsum, no kernel site."""
+    d, bs = cfg.d_model, b * s
+    cap, slots, assigned = olmoe_sizes(cfg, b, s)
+    hd = cfg.hd()
+    widths = {cfg.n_heads * hd, cfg.n_kv_heads * hd}
+    mm = {("blocked_matmul", bs, d, n) for n in widths} | {("blocked_matmul", bs, cfg.n_heads * hd, d)}
+    mm.add(("blocked_matmul", bs if train else b, d, cfg.vocab))
+    out = mm | {("gather_join", bs, cfg.vocab, d), ("segment_sum", bs, d, bs),
+                ("gather_join", slots, bs, d), ("gather_join", assigned, slots, d),
+                ("segment_sum", assigned, d, bs)}
+    if train:
+        out |= {("gather_join", bs, bs, d), ("segment_sum", bs, d, cfg.vocab),
+                ("gather_join", assigned, bs, d), ("segment_sum", assigned, d, slots),
+                ("segment_sum", slots, d, bs)}
+    return out
+
+
+class LaunchLog:
+    """While active, every call of the three kernels' wrappers by its
+    signature (op, shape), with the ids of the first call of each, and
+    the tier each MoE site (``models.ffn._site``) resolved to. On the card
+    each call with a non-empty output is one launch."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.counts, self.ids, self.moe_tiers = {}, {}, set()
+
+    def __enter__(self):
+        from repro_torch.kernels.gather import ops as gather_ops
+        from repro_torch.kernels.matmul import ops as matmul_ops
+        from repro_torch.kernels.segsum import ops as segsum_ops
+        from repro_torch.models import ffn
+
+        def logged(real, sig, ids):
+            def call(*args):
+                key = sig(*args)
+                self.counts[key] = self.counts.get(key, 0) + 1
+                if ids is not None and key not in self.ids:
+                    self.ids[key] = ids(*args).clone()
+                return real(*args)
+            return call
+
+        def site(real):
+            def call(op, info):
+                impl = real(op, info)
+                self.moe_tiers.add((op, impl.tier))
+                return impl
+            return call
+
+        self.saved = [(gather_ops, "gather_rows_forward"), (segsum_ops, "segment_sum_forward"),
+                      (matmul_ops, "blocked_matmul_forward"), (ffn, "_site")]
+        self.saved = [(mod, name, getattr(mod, name)) for mod, name in self.saved]
+        gather_ops.gather_rows_forward = logged(
+            gather_ops.gather_rows_forward,
+            lambda t, r: ("gather_join", r.shape[0], t.shape[0], t.shape[1]), lambda t, r: r)
+        segsum_ops.segment_sum_forward = logged(
+            segsum_ops.segment_sum_forward,
+            lambda m, g, s: ("segment_sum", m.shape[0], m.shape[1], int(s)), lambda m, g, s: g)
+        matmul_ops.blocked_matmul_forward = logged(
+            matmul_ops.blocked_matmul_forward,
+            lambda x, y: ("blocked_matmul", x.shape[0], x.shape[1], y.shape[1]), None)
+        ffn._site = site(ffn._site)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, real in self.saved:
+            setattr(mod, name, real)
+
+    def info(self, key):
+        """The site-info dict of ``time_site`` for a signature."""
+        op, a, b, c = key
+        if op == "gather_join":
+            return {"rows": a, "num_rows": b, "dim": c}
+        if op == "segment_sum":
+            return {"nnz": a, "dim": b, "num_segments": c}
+        return {"m": a, "k": b, "n": c}
+
+
+class Routing:
+    """A wrapper around ``repro_torch.models.ffn._dispatch_group``: per
+    call, the experts each token chose (``_top_k``'s (B, T, k) result) and
+    which tokens' assignments were kept, by expert ((B, T, E) bool). With
+    ``replay`` (the calls of another run) it hands each call that run's
+    choice instead, so that a tier runs another tier's routing; ``own``
+    keeps, per call, the choice the router made itself."""
+
+    def __init__(self, torch, ffn):
+        self.torch, self.ffn = torch, ffn
+        self.real, self.real_top_k = ffn._dispatch_group, ffn._top_k
+        self.calls, self.own, self.replay = [], [], None
+
+    def __enter__(self):
+        self.ffn._dispatch_group = self
+        return self
+
+    def __exit__(self, *exc):
+        self.ffn._dispatch_group = self.real
+
+    def run(self, replay=None):
+        """Start a run: forget the calls, replay ``replay``'s choices."""
+        self.calls, self.own, self.replay = [], [], replay
+        return self
+
+    def __call__(self, x, router, *, top_k, capacity, e):
+        torch, got = self.torch, []
+        replay = None if self.replay is None else self.replay[len(self.calls)][0]
+
+        def top_k_fn(probs, k):
+            got.append(self.real_top_k(probs, k))
+            return got[-1] if replay is None else replay
+
+        self.ffn._top_k = top_k_fn
+        try:
+            xe, meta, aux = self.real(x, router, top_k=top_k, capacity=capacity, e=e)
+        finally:
+            self.ffn._top_k = self.real_top_k
+        dest, st, _, keep = meta
+        b, t = x.shape[:2]
+        kept = torch.zeros((b, t, e), dtype=torch.bool, device=x.device)
+        rows = torch.arange(b, device=x.device)[:, None].expand_as(st)
+        kept[rows, st, dest // capacity] = keep
+        chosen = got[0].detach() if replay is None else replay
+        self.calls.append((chosen, kept))
+        self.own.append((got[0].detach(), None))
+        return xe, meta, aux
+
+
+def routing_differences(torch, first, second):
+    """Per call, the (row, token)s whose expert sets differ between two
+    runs' calls (as (B, T) bool)."""
+    return [(torch.sort(a, -1).values != torch.sort(b, -1).values).any(-1)
+            for (a, _), (b, _) in zip(first, second)]
+
+
+def olmoe_check_sites(torch, engines, seen, db, log_):
+    """Every rel_linear/rel_embed site the engines lowered under ``db``
+    since ``seen``, and every MoE site of ``log_``, on the cuda tier."""
+    sites = new_sites(engines, seen, db.dispatch)
+    for prog, key, op, tier, _ in sites:
+        log(f"    {prog}: {key} -> {tier}")
+    log(f"    MoE sites (models/ffn.py): {sorted(log_.moe_tiers)}")
+    bad = [(p, k, t) for p, k, _, t, _ in sites if t != "cuda"]
+    bad += [(op, t) for op, t in log_.moe_tiers if t != "cuda"]
+    if not sites or not log_.moe_tiers or bad:
+        raise AssertionError(f"olmoe sites not all on the cuda tier: {bad or 'none recorded'}")
+    return sites
+
+
+def olmoe_serve_phase(torch, repro_torch, kern, cfg, dev, checked):
+    """Phase 10: one request of OLMOE_BATCH prompts of OLMOE_PROMPT tokens,
+    prefill then OLMOE_DECODE greedy steps, at the published widths and
+    depth; checked against the torch tier and a full forward."""
+    import dataclasses
+
+    from repro_torch.core.engine import engine_for
+    from repro_torch.models import build_model, ffn
+    from repro_torch.relational.embedding import _embed_prog
+    from repro_torch.relational.linear import _linear_prog
+    from repro_torch.serving import make_decode_step, make_prefill_step
+
+    b, s, steps, layers = OLMOE_BATCH, OLMOE_PROMPT, OLMOE_DECODE, cfg.n_layers
+    cap, slots, _ = olmoe_sizes(cfg, b, s)
+    log(f"  {cfg.name}: {layers} moe layers, d_model {cfg.d_model}, {cfg.n_heads} heads of "
+        f"{cfg.hd()} over {cfg.n_kv_heads} KV heads, QK-norm, {cfg.n_experts} experts top-{cfg.top_k} "
+        f"of d_ff {cfg.d_ff}, vocab {cfg.vocab}, attn_chunk {cfg.attn_chunk}; dtype float32 (the "
+        f"published config is bfloat16: the cuda tier's blocked_matmul admits f32 only); random "
+        f"weights from seed 0; prefill capacity {cap} slots per expert and row ({slots} in all)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  model built on {model.device} in {time.perf_counter() - t0:.1f} s: "
+        f"{n_params:,} parameters, {n_params * 4:,} bytes")
+    if n_params != OLMOE_PARAMS:
+        raise AssertionError(f"{n_params} parameters, want {OLMOE_PARAMS}")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev, dtype=torch.int32)
+    prefill = make_prefill_step(model, s + steps)
+    decode = make_decode_step(model)
+    db = repro_torch.Database()
+    engines = {"rel_linear": engine_for(_linear_prog()[0].forward),
+               "rel_embed": engine_for(_embed_prog()[0].forward)}
+    seen = {k: {id(low) for low in e.lowerings} for k, e in engines.items()}
+    lowered0 = {k: e.lower_count for k, e in engines.items()}
+
+    # the main path: one request, prefill then greedy decode
+    torch.cuda.reset_peak_memory_stats()
+    kern.reset_launch_counts()
+    with db.activate():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = prefill({"tokens": tokens})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        per_prefill = kern.launch_counts()
+        prefill_logits, prefill_caches = logits, caches
+        out = [logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)]
+        step_s, per_step, steps_logits = [], [], []
+        for step in range(steps):
+            c0 = kern.launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches = decode(out[-1], caches, s + step)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            per_step.append({op: n - c0[op] for op, n in kern.launch_counts().items()})
+            steps_logits.append(logits)
+            out.append(logits[:, -1].argmax(-1, keepdim=True).to(torch.int32))
+    launches = kern.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    del caches
+    # one more decode step under the profiler: how much of a step the card
+    # is busy (not counted in the launches above)
+    with db.activate():
+        busy = device_busy(torch, lambda: decode(out[0], prefill_caches, s))
+    del prefill_caches
+    if busy is None:
+        idle = None
+        log("  decode step under torch.profiler: no device time recorded; idle share not measured")
+    else:
+        wall, dev_ms, host, devops = busy
+        idle = 1 - dev_ms / wall
+        log(f"  decode step under torch.profiler: wall {wall:.2f} ms, device busy {dev_ms:.2f} ms "
+            f"(idle share at most {idle:.3f}); most host time: "
+            + "; ".join(f"{k} {ms:.2f} ms x{n}" for k, ms, n in host)
+            + "; most device time: " + "; ".join(f"{k[:60]} {ms:.2f} ms x{n}" for k, ms, n in devops))
+
+    log(f"  prefill (B={b}, S={s}, first request, lowering included): {prefill_s * 1e3:.1f} ms")
+    log(f"  decode steps: {[t * 1e3 for t in step_s]} ms; per token: median of steps 2-{steps} "
+        f"{statistics.median(step_s[1:]) * 1e3:.2f} ms, mean of all {steps} "
+        f"{statistics.mean(step_s) * 1e3:.2f} ms")
+    log(f"  peak device memory over the request: {peak} bytes ({peak / 2**30:.2f} GiB; weights "
+        f"{n_params * 4} bytes)")
+    toks = torch.cat(out, 1)
+    log(f"  greedy tokens: {toks.tolist()}")
+    log(f"  launches over the request: {launches}; per prefill: {per_prefill}; per decode step: "
+        f"{per_step[0]}")
+    for i, lg in enumerate([prefill_logits] + steps_logits):
+        if tuple(lg.shape) != (b, 1, cfg.vocab) or not bool(torch.isfinite(lg).all()):
+            raise AssertionError(f"logits of call {i}: shape {tuple(lg.shape)}, or not finite")
+    if int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab:
+        raise AssertionError("a token outside the vocabulary")
+    for op in GCN_KERNELS:
+        if per_prefill[op] <= 0 or any(st[op] <= 0 for st in per_step):
+            raise AssertionError(f"{op}: its CUDA kernel did not launch in every call")
+    if launches["ssm_scan"]:
+        raise AssertionError("ssm_scan launched in an attention model")
+
+    # a second request of the same shapes: the warm prefill
+    with db.activate():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again, _ = prefill({"tokens": tokens})
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+    log(f"  prefill, second request (warm): {warm_s * 1e3:.1f} ms")
+    del again
+    # one more prefill under the profiler: where its time goes
+    with db.activate():
+        busy = device_busy(torch, lambda: prefill({"tokens": tokens}))
+    if busy is not None:
+        wall, dev_ms, host, devops = busy
+        log(f"  prefill under torch.profiler: wall {wall:.1f} ms, device busy {dev_ms:.1f} ms; most "
+            "device time: " + "; ".join(f"{k[:60]} {ms:.2f} ms x{n}" for k, ms, n in devops))
+
+    with Routing(torch, ffn) as routing:
+        # a third request with the kernel calls logged by signature (one
+        # prefill and one decode step are the pass phase 8 times), the MoE
+        # sites' tiers and each layer's routing: the same bits as the first
+        kern.reset_launch_counts()
+        routing.run()
+        with LaunchLog(torch) as serve_log, db.activate():
+            again, cc = prefill({"tokens": tokens})
+            logged = [again]
+            for step in range(steps):
+                lg, cc = decode(out[step], cc, s + step)
+                logged.append(lg)
+                if step == 0:
+                    pass_counts = dict(serve_log.counts)
+        cuda_calls = routing.calls
+        same = all(torch.equal(x, y) for x, y in zip(logged, [prefill_logits] + steps_logits))
+        log(f"  a third request, its kernel calls and routing logged: logits equal to the first "
+            f"request's: {same}")
+        if not same:
+            raise AssertionError("the third request's logits differ from the first's")
+        del again, cc, logged, lg
+        sites = olmoe_check_sites(torch, engines, seen, db, serve_log)
+        # one lowering per signature: q/k/v/o's (k, n) pairs (one at the
+        # published widths) at m = B·S and at m = B, the head at m = B; the
+        # embedding at B·S and at B ids
+        pairs = {(cfg.d_model, cfg.n_heads * cfg.hd()), (cfg.d_model, cfg.n_kv_heads * cfg.hd()),
+                 (cfg.n_heads * cfg.hd(), cfg.d_model)}
+        want = {"rel_linear": 2 * len(pairs) + 1, "rel_embed": 2}
+        lowered = {k: e.lower_count - lowered0[k] for k, e in engines.items()}
+        log(f"  lowerings over the requests: {lowered} (want {want})")
+        if lowered != want:
+            raise AssertionError(f"lowerings per signature: {lowered}")
+        unchecked = set(serve_log.counts) - checked
+        if unchecked:
+            raise AssertionError(f"kernel calls at shapes phase 2 did not check: {sorted(unchecked)}")
+
+        # the prefill's drops: assignments beyond an expert's capacity
+        kept_prefill = [kept for _, kept in cuda_calls[:layers]]
+        chosen = [int(kept.shape[0] * kept.shape[1] * cfg.top_k) for kept in kept_prefill]
+        dropped = [c - int(kept.sum()) for c, kept in zip(chosen, kept_prefill)]
+        log(f"  prefill assignments dropped beyond capacity, per layer: {dropped} of {chosen[0]} each")
+
+        # the torch tier (torch.matmul, index_select, index_add_) on the
+        # same weights, fed the cuda run's tokens; where a token's expert
+        # set differs between the tiers, the torch tier is run again on
+        # the cuda run's routing (the routing wrapper replays it)
+        def torch_tier(replay):
+            routing.run(replay)
+            with repro_torch.Database(dispatch="torch").activate():
+                lg, cc = prefill({"tokens": tokens})
+                got = [lg]
+                for step in range(steps):
+                    lg, cc = decode(out[step], cc, s + step)
+                    got.append(lg)
+            return got, routing.calls
+
+        kern.reset_launch_counts()
+        t0 = time.perf_counter()
+        t_logits, t_calls = torch_tier(None)
+        torch.cuda.synchronize()
+        t_s = time.perf_counter() - t0
+        if sum(kern.launch_counts().values()):
+            raise AssertionError("the torch tier launched a CUDA kernel")
+        diffs = routing_differences(torch, cuda_calls, t_calls)
+        n_diff = [int(d.sum()) for d in diffs]
+        log(f"  torch tier, the prefill and {steps} decode steps: {t_s * 1e3:.1f} ms; (layer, token) "
+            f"routings that differ from the cuda tier's: {sum(n_diff[:layers])} of {layers * b * s} in "
+            f"the prefill, {sum(n_diff[layers:])} of {layers * b * steps} in decode")
+        if sum(n_diff):
+            t_logits, _ = torch_tier(cuda_calls)
+            log("  the torch tier again on the cuda tier's routing (replayed): its logits compared below")
+        gaps = [logit_gap(c, t) for c, t in zip([prefill_logits] + steps_logits, t_logits)]
+        log(f"  max|cuda - torch| / max|logit|: prefill {gaps[0]:.3e}, decode steps "
+            f"{[f'{g:.3e}' for g in gaps[1:]]} (limit {OLMOE_TIER_LIMIT:g})")
+        if not max(gaps) <= OLMOE_TIER_LIMIT:
+            raise AssertionError("the logits of the cuda and torch tiers differ")
+        del t_logits
+        # the limit must fail products in one TF32 pass: the torch tier
+        # again, on the cuda tier's routing, with TF32 matmuls allowed
+        precision = torch.get_float32_matmul_precision()
+        torch.set_float32_matmul_precision("high")
+        try:
+            tf32_logits, _ = torch_tier(cuda_calls)
+        finally:
+            torch.set_float32_matmul_precision(precision)
+        seen_gap = max(logit_gap(c, t) for c, t in zip([prefill_logits] + steps_logits, tf32_logits))
+        log(f"    planted fault (the torch tier's products in TF32): max|Δ| / max|logit| = "
+            f"{seen_gap:.3e}, must exceed {OLMOE_TIER_LIMIT:g}")
+        if seen_gap <= OLMOE_TIER_LIMIT:
+            raise AssertionError("the tier limit passes TF32 products")
+        del tf32_logits
+
+        # the cache: decode against a full forward over the prompt and the
+        # fed tokens (positions s..s+7 are decode steps 1-8). Both run at
+        # capacity factor E/k, where an expert's capacity is the row's
+        # length and no assignment is dropped: at the served factor the
+        # full forward over S + 8 tokens has another capacity than the
+        # prefill (401 slots, not 400), drops other prompt assignments, and
+        # drops the fed tokens' assignments that decode (8 slots for one
+        # token's 8) never drops; that is the reference's semantics, and
+        # comparing there would test the capacity rule, not the cache.
+        # The full forward runs on the prefill's and decode's routing (the
+        # routing wrapper replays it), so that a near tie that its router
+        # breaks otherwise moves no position out of the comparison
+        full_tokens = torch.cat([tokens] + out[:steps], 1)
+        model.cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+        try:
+            routing.run()
+            with db.activate():
+                _, nd_prefill = prefill({"tokens": tokens})
+                decoded, cc = [], nd_prefill
+                for step in range(steps):
+                    lg, cc = decode(out[step], cc, s + step)
+                    decoded.append(lg)
+            dec_calls = routing.calls
+            # per layer, the experts that the prefill and the decode steps
+            # chose for the S + steps positions: a full forward's calls
+            dec_routing = [(torch.cat([dec_calls[layer][0]] + [dec_calls[layers * (1 + step) + layer][0]
+                                                               for step in range(steps)], 1), None)
+                           for layer in range(layers)]
+            routing.run(dec_routing)
+            with db.activate(), torch.inference_mode():
+                full, _ = model.train_logits({"tokens": full_tokens})
+            full_calls = routing.calls
+            n_route_diff = sum(int(d.sum()) for d in routing_differences(torch, dec_routing, routing.own))
+        finally:
+            model.cfg = cfg
+        del cc, dec_routing
+        lost = sum(int(kept.numel() // cfg.n_experts * cfg.top_k - kept.sum()) for _, kept in dec_calls + full_calls)
+        if lost:
+            raise AssertionError(f"{lost} assignments dropped at capacity factor E/k")
+        decoded = torch.cat(decoded, 1)                                         # (B, steps, V)
+        want = full[:, s:s + steps]
+        gap = logit_gap(decoded, want)
+        log(f"  decode at capacity factor {cfg.n_experts / cfg.top_k:g} (nothing dropped) against a full "
+            f"forward over {s + steps} tokens on their routing (replayed; its own router chose otherwise "
+            f"in {n_route_diff} of {layers * b * (s + steps)} (layer, token)s): compared positions "
+            f"{b * steps} of {b * steps}; max|decode - full| / max|logit| = {gap:.3e} "
+            f"(limit {OLMOE_DECODE_LIMIT:g})")
+        if not gap <= OLMOE_DECODE_LIMIT:
+            raise AssertionError("decode through the cache differs from the full forward")
+        # the limit must fail a lost cache: decode step 1 again with one
+        # layer's K cache zeroed
+        mid = layers // 2
+        bad_caches = [{"scan": list(st["scan"]), "tail": st["tail"]} for st in nd_prefill]
+        kv = bad_caches[0]["scan"][mid]["0:moe"]["kv"]
+        bad_caches[0]["scan"][mid] = {"0:moe": {"kv": {**kv, "k": torch.zeros_like(kv["k"])}}}
+        model.cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+        try:
+            routing.run()
+            with db.activate():
+                f_logits, _ = decode(out[0], bad_caches, s)
+        finally:
+            model.cfg = cfg
+        seen_gap = logit_gap(f_logits[:, 0], want[:, 0])
+        log(f"    planted fault (layer {mid}'s K cache lost): max|Δ| / max|logit| = {seen_gap:.3e}, "
+            f"must exceed {OLMOE_DECODE_LIMIT:g}")
+        if seen_gap <= OLMOE_DECODE_LIMIT:
+            raise AssertionError("the decode limit passes a lost K cache")
+    del model, full, nd_prefill, bad_caches, steps_logits, prefill_logits, decoded, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {
+        "launches": launches, "sites": sites, "log": serve_log, "pass": pass_counts,
+        "per_prefill": per_prefill,
+        "per_step": per_step[0], "prefill_ms": prefill_s * 1e3, "warm_prefill_ms": warm_s * 1e3,
+        "decode_ms": statistics.median(step_s[1:]) * 1e3, "peak": peak, "idle": idle,
+    }
+
+
+def olmoe_grads(torch, repro_torch, model, batch, names, dispatch, routing, replay=None):
+    """(loss, {name: gradient}, routing calls) of the model's train loss
+    (lm_loss + 0.01·aux, the trainer's) at its weights, on a tier."""
+    from repro_torch.train import lm_loss
+
+    params = dict(model.named_parameters())
+    routing.run(replay)
+    with repro_torch.Database(dispatch=dispatch).activate():
+        logits, aux = model.train_logits(batch)
+        loss = lm_loss(logits, batch["labels"])
+        grads = torch.autograd.grad(loss + 0.01 * aux, [params[n] for n in names])
+    return float(loss.detach()), dict(zip(names, grads)), routing.calls
+
+
+def olmoe_train_phase(torch, repro_torch, kern, cfg, dev, checked):
+    """Phase 11: OLMOE_TRAIN_STEPS Adam steps of olmoe-1b-7b at its
+    published widths and OLMOE_TRAIN_LAYERS layers through
+    ``make_train_step(donate=True)`` on one fixed batch."""
+    import dataclasses
+
+    from repro_torch.core.engine import engine_for
+    from repro_torch.data import synthetic_lm_batches
+    from repro_torch.models import build_model, ffn
+    from repro_torch.relational.embedding import _embed_prog
+    from repro_torch.relational.linear import _linear_prog
+    from repro_torch.train import init_train_state, make_train_step
+
+    b, s, n = OLMOE_TRAIN_BATCH, OLMOE_TRAIN_SEQ, OLMOE_TRAIN_STEPS
+    cfg = dataclasses.replace(cfg, n_layers=OLMOE_TRAIN_LAYERS)
+    cap, slots, _ = olmoe_sizes(cfg, b, s)
+    log(f"  {cfg.name} at its published widths, {cfg.n_layers} of {OLMOE_ARCH_LAYERS} layers, "
+        f"float32, remat={cfg.remat} ({cfg.remat_policy}); batch {b} x {s} tokens "
+        f"(synthetic_lm_batches, seed 0), capacity {cap} per expert and row; Adam lr 3e-4, "
+        f"grad_clip 1.0, aux weight 0.01, donated (in place)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = build_model(cfg, seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  model: {n_params:,} parameters ({n_params * 4:,} bytes; with gradients and two "
+        f"moments {n_params * 16:,})")
+    if n_params != OLMOE_TRAIN_PARAMS:
+        raise AssertionError(f"{n_params} parameters, want {OLMOE_TRAIN_PARAMS}")
+    batch = next(synthetic_lm_batches(cfg, b, s, seed=0))
+    names = ("stages.0.scan.0.0:moe.attn.wq", "stages.0.scan.0.0:moe.moe.wo", "embed")
+    engines = {"rel_linear": engine_for(_linear_prog()[0].forward),
+               "rel_embed": engine_for(_embed_prog()[0].forward)}
+    seen = {k: {id(low) for low in e.lowerings} for k, e in engines.items()}
+    db = repro_torch.Database()
+
+    with Routing(torch, ffn) as routing:
+        # step 1's loss and gradients at the initial weights: the cuda
+        # tier, the cuda tier without remat, the torch tier (on the cuda
+        # tier's routing where they differ), and the torch tier with one
+        # token's label ignored (the planted fault)
+        c_loss, c_grads, c_calls = olmoe_grads(torch, repro_torch, model, batch, names, db.dispatch, routing)
+        model.cfg = dataclasses.replace(cfg, remat=False)
+        try:
+            p_loss, p_grads, _ = olmoe_grads(torch, repro_torch, model, batch, names, db.dispatch, routing)
+        finally:
+            model.cfg = cfg
+        same = p_loss == c_loss and all(torch.equal(p_grads[k], c_grads[k]) for k in names)
+        log(f"  step-1 gradients with remat and without (cuda tier): bit-equal {same} "
+            f"({', '.join(names)}; loss {c_loss!r} and {p_loss!r})")
+        if not same:
+            raise AssertionError("gradients with remat differ from those without")
+        del p_grads
+        kern.reset_launch_counts()
+        t_loss, t_grads, t_calls = olmoe_grads(torch, repro_torch, model, batch, names, "torch", routing)
+        if sum(kern.launch_counts().values()):
+            raise AssertionError("the torch tier launched a CUDA kernel")
+        n_diff = sum(int(d.sum()) for d in routing_differences(torch, c_calls[:cfg.n_layers],
+                                                               t_calls[:cfg.n_layers]))
+        log(f"  torch tier: (layer, token) routings that differ from the cuda tier's: {n_diff} of "
+            f"{cfg.n_layers * b * s}")
+        if n_diff:
+            t_loss, t_grads, _ = olmoe_grads(torch, repro_torch, model, batch, names, "torch", routing,
+                                             replay=c_calls)
+            log("  the torch tier again on the cuda tier's routing (replayed): compared below")
+        loss_gap = abs(c_loss - t_loss) / abs(t_loss)
+        log(f"  step-1 loss: cuda {c_loss!r}, torch {t_loss!r}, relative gap {loss_gap:.3e} "
+            f"(limit {OLMOE_LOSS_LIMIT:g})")
+        if not loss_gap <= OLMOE_LOSS_LIMIT:
+            raise AssertionError("the step-1 loss of the cuda and torch tiers differ")
+        faulty = dict(batch, labels=batch["labels"].clone())
+        faulty["labels"][-1, -1] = -100
+        _, f_grads, _ = olmoe_grads(torch, repro_torch, model, faulty, names, "torch", routing,
+                                    replay=c_calls if n_diff else None)
+        for k in names:
+            gap = float((c_grads[k] - t_grads[k]).norm() / t_grads[k].norm())
+            seen_gap = float((c_grads[k] - f_grads[k]).norm() / f_grads[k].norm())
+            log(f"  step-1 gradient of {k}: ‖cuda - torch‖/‖torch‖ = {gap:.3e} (limit "
+                f"{OLMOE_GRAD_LIMIT:g}); planted fault (one of {b * s} tokens ignored): {seen_gap:.3e}, "
+                "must exceed the limit")
+            if not gap <= OLMOE_GRAD_LIMIT:
+                raise AssertionError(f"the step-1 gradient of {k} differs between the tiers")
+            if seen_gap <= OLMOE_GRAD_LIMIT:
+                raise AssertionError(f"the gradient limit passes a lost token ({k})")
+        del c_grads, t_grads, f_grads, c_calls, t_calls
+
+    # the main path: OLMOE_TRAIN_STEPS donated steps on the batch
+    state = init_train_state(model)
+    step = make_train_step(model, grad_clip=1.0, donate=True, database=db)
+    params, opt = state.params, state.opt_state
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    kern.reset_launch_counts()
+    losses, secs = [], []
+    for i in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, metrics = step(params, opt, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+    launches = kern.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    # one more step with the kernel calls logged by signature (phase 8's
+    # sites) and the MoE sites' tiers, and one under the profiler, not
+    # counted above
+    with LaunchLog(torch) as train_log:
+        params, opt, _ = step(params, opt, batch)
+    torch.cuda.synchronize()
+    busy = device_busy(torch, lambda: step(params, opt, batch))
+    if busy is not None:
+        wall, dev_ms, host, devops = busy
+        log(f"  a train step under torch.profiler: wall {wall:.1f} ms, device busy {dev_ms:.1f} ms "
+            f"(idle share at most {1 - dev_ms / wall:.3f}); most device time: "
+            + "; ".join(f"{k[:60]} {ms:.2f} ms x{n}" for k, ms, n in devops))
+    sites = olmoe_check_sites(torch, engines, seen, db, train_log)
+    unchecked = set(train_log.counts) - checked
+    if unchecked:
+        raise AssertionError(f"kernel calls at shapes phase 2 did not check: {sorted(unchecked)}")
+    med = statistics.median(secs[1:])
+    log(f"  step times: {[t * 1e3 for t in secs]} ms; median of steps 2-{n} {med * 1e3:.1f} ms, "
+        f"{b * s / med:.1f} tokens/s")
+    log(f"  losses: {losses}")
+    log(f"  peak device memory over the {n} steps: {peak} bytes ({peak / 2**30:.2f} GiB; "
+        f"parameters, gradients and two moments take {n_params * 16} bytes)")
+    log(f"  launches over the {n} steps: {launches} (per step {({k: v / n for k, v in launches.items()})})")
+    if losses[0] != c_loss:
+        raise AssertionError(f"the train step's step-1 loss {losses[0]!r} is not the checked one {c_loss!r}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError("the loss did not fall over the steps on one batch")
+    for op in GCN_KERNELS:
+        if launches[op] <= 0:
+            raise AssertionError(f"{op}: its CUDA kernel did not launch in training")
+    del model, params, opt, state, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "sites": sites, "log": train_log, "pass": dict(train_log.counts),
+            "step_ms": med * 1e3,
+            "tokens_per_s": b * s / med, "peak": peak, "losses": losses}
+
+
+# ---------------------------------------------------------------------------
 # Phase 8: timings at the shapes of the main paths
 # ---------------------------------------------------------------------------
 
@@ -1541,7 +2260,10 @@ def time_site(torch, op, info, rows_for, seg_for, gen, dev):
     s)`` give the path's own gather ids and segment ids. ``extra`` holds
     the host's time per call (segment_sum, gather_join and blocked_matmul
     at m ≤ 16) and, on segment_sum's sorted path, the time of its index
-    (torch.sort and the starts kernel) and of the sort alone."""
+    (torch.sort and the starts kernel) and of the sort alone. Where the
+    ids hold padding (-1: the MoE's empty slots and dropped assignments),
+    the library call (which refuses it) takes the valid ids alone, and the
+    bound counts the valid rows' reads."""
     from repro_torch.kernels.gather.ops import gather_rows_forward
     from repro_torch.kernels.gather.ref import gather_rows_ref
     from repro_torch.kernels.matmul.ops import SKINNY_ROWS, blocked_matmul_forward
@@ -1553,26 +2275,31 @@ def time_site(torch, op, info, rows_for, seg_for, gen, dev):
         e, n, d = info["rows"], info["num_rows"], info["dim"]
         table = torch.randn(n, d, device=dev, generator=gen)
         rows = rows_for(e, n)
+        valid = rows[(rows >= 0) & (rows < n)]
         k_ms = time_ms(torch, lambda: gather_rows_forward(table, rows))
         p_ms = time_ms(torch, lambda: gather_rows_ref(table, rows))
-        l_ms = time_ms(torch, lambda: torch.index_select(table, 0, rows))
+        l_ms = time_ms(torch, lambda: torch.index_select(table, 0, valid))
         extra = {"host_ms": host_ms(torch, lambda: gather_rows_forward(table, rows))}
         # the table rows these ids touch, read once; ids; the output
-        seen = int(torch.unique(rows).numel())
+        seen = int(torch.unique(valid).numel())
         return k_ms, p_ms, l_ms, seen * d * 4 + e * 4 + e * d * 4, 0, extra
     if op == "segment_sum":
         e, d, s = info["nnz"], info["dim"], info["num_segments"]
         msg = torch.randn(e, d, device=dev, generator=gen)
         seg = seg_for(e, s)
+        ok = (seg >= 0) & (seg < s)
+        lib_seg, lib_msg = seg[ok], msg[ok]
         out = torch.zeros(s, d, device=dev)
         k_ms = time_ms(torch, lambda: segment_sum_forward(msg, seg, s))
         p_ms = time_ms(torch, lambda: segment_sum_ref(msg, seg, s))
-        l_ms = time_ms(torch, lambda: out.zero_().index_add_(0, seg, msg))
+        l_ms = time_ms(torch, lambda: out.zero_().index_add_(0, lib_seg, lib_msg))
         extra = {"host_ms": host_ms(torch, lambda: segment_sum_forward(msg, seg, s))}
         if e > SCAN_MAX_EDGES:
             extra["csr_ms"] = time_ms(torch, lambda: csr(seg, s))
             extra["sort_ms"] = time_ms(torch, lambda: torch.sort(seg, stable=True))
-        return k_ms, p_ms, l_ms, e * d * 4 + e * 4 + s * d * 4, e * d, extra
+        # the valid rows, read once; ids; the output
+        v = int(ok.sum())
+        return k_ms, p_ms, l_ms, v * d * 4 + e * 4 + s * d * 4, v * d, extra
     m, k, n = info["m"], info["k"], info["n"]
     x = torch.randn(m, k, device=dev, generator=gen)
     y = torch.randn(k, n, device=dev, generator=gen)
@@ -1583,12 +2310,13 @@ def time_site(torch, op, info, rows_for, seg_for, gen, dev):
     return k_ms, p_ms, l_ms, (m * k + k * n + m * n) * 4, 2 * m * n * k, extra
 
 
-def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, errs, dev):
+def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, errs, dev):
     """Per kernel and per main path: each site timed alone at its shapes,
     times the launches of that site in one pass of the path (one GCN step;
     one logistic-regression step; one NNMF step; one KGE step at each
     width; one prefill; one decode step; one streamed step of each of
-    phase 9's runs, each site once per wave), summed."""
+    phase 9's runs, each site once per wave; olmoe's prefill and one decode
+    step, and one olmoe train step), summed."""
     from repro_torch.kernels.matmul.ops import blocked_matmul_forward
     from repro_torch.kernels.ssm_scan.ops import ssm_scan_forward
     from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
@@ -1674,6 +2402,17 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, errs, dev):
         for path in where:
             add(path, op, f"{prog} {key}", mult, *timed)
 
+    # olmoe-1b-7b: every kernel signature of a pass (phase 10: the prefill
+    # and one decode step; phase 11: one train step, its recomputed
+    # forwards and backward included) on the ids its first call took, times
+    # its calls in the pass
+    for path, run in (("olmoe_serve", olmoe["serve"]), ("olmoe_train", olmoe["train"])):
+        for key, mult in sorted(run["pass"].items()):
+            ids = run["log"].ids.get(key)
+            add(path, key[0], f"{key[0]}{key[1:]}", mult,
+                *time_site(torch, key[0], run["log"].info(key), lambda e, n: ids, lambda e, s: ids, gen, dev))
+        del ids
+
     # phase 9's streamed steps: every site of a wave's lowering once per
     # wave, each on the ids it took in the largest wave (a product takes
     # none)
@@ -1747,6 +2486,8 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, errs, dev):
         by_path = {"gcn": gcn["launches"][op], "logreg": logreg["launches"][op],
                    "sql_logreg": logreg["sql_launches"][op], "nnmf": nnmf["launches"][op],
                    "kge": kge["launches"][op], "falcon_mamba": lm["launches"][op],
+                   "olmoe_serve": olmoe["serve"]["launches"][op],
+                   "olmoe_train": olmoe["train"]["launches"][op],
                    "oocore": oocore["launches"].get(op, 0)}
         records.append({
             "name": op,
@@ -1767,23 +2508,32 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, errs, dev):
                     f"{LOGREG_STEPS} through Database.sql (phase 4), {NNMF_STEPS} NNMF steps "
                     f"(phase 5), {KGE_STEPS} TransE and {KGE_STEPS} TransR steps at each of "
                     f"d = {KGE_DIMS} (phase 6), one falcon-mamba request of a prefill and "
-                    f"{LM_DECODE} decode steps (phase 7) and phase 9's streamed runs ({OOC_ARXIV_STEPS} "
+                    f"{LM_DECODE} decode steps (phase 7), phase 9's streamed runs ({OOC_ARXIV_STEPS} "
                     f"arxiv GCN steps, {LOGREG_STEPS + 1} logistic-regression steps, "
-                    f"{OOC_PRODUCTS_STEPS} products GCN steps); "
+                    f"{OOC_PRODUCTS_STEPS} products GCN steps), one olmoe-1b-7b request of a prefill "
+                    f"and {OLMOE_DECODE} decode steps (phase 10) and {OLMOE_TRAIN_STEPS} olmoe train "
+                    "steps (phase 11); "
                     "ms, plain_ms, bound_ms, library_ms: each site timed alone, times its "
                     "launches in one pass, summed over one GCN step, one logistic-regression "
                     "step, one NNMF step, one KGE step at each width, one prefill, one "
                     "decode step and one streamed step of each of phase 9's runs (arxiv GCN, "
-                    "logistic regression, products GCN); 'paths' splits them; host_ms: "
+                    "logistic regression, products GCN), olmoe's prefill and one decode step "
+                    "(olmoe_serve) and one olmoe train step (olmoe_train); 'paths' splits them; host_ms: "
                     f"the host's time per call over {HOST_CALLS} calls without a synchronise, "
                     "summed the same way over the sites where it was taken (null: not taken)"),
             "paths": {path: {k: v for k, v in acc.items() if k not in ("bytes_ms", "ops_ms")}
                       for path, acc in per_path.items()},
         })
 
-    # the RJP products the compiler leaves to torch.einsum: the kernel's
-    # time at their shapes beside torch.matmul's, printed only
-    for m, k, n, what in RJP_SHAPES:
+    # the RJP products the compiler leaves to torch.einsum (the GCN's, and
+    # olmoe's training backward: dX = g·Wᵀ and dW = Xᵀ·g of q/k/v/o and of
+    # the head): the kernel's time at their shapes beside torch.matmul's,
+    # printed only
+    bs, d, v = OLMOE_TRAIN_BATCH * OLMOE_TRAIN_SEQ, olmoe["d_model"], olmoe["vocab"]
+    for m, k, n, what in RJP_SHAPES + ((bs, d, d, "olmoe q/k/v/o dX = g·Wᵀ"),
+                                       (d, bs, d, "olmoe q/k/v/o dW = Xᵀ·g"),
+                                       (bs, v, d, "olmoe head dX = g·Wᵀ"),
+                                       (d, bs, v, "olmoe head dW = Xᵀ·g")):
         x = torch.randn(m, k, device=dev, generator=gen)
         y = torch.randn(k, n, device=dev, generator=gen)
         k_ms = time_ms(torch, lambda: blocked_matmul_forward(x, y))
@@ -2374,6 +3124,7 @@ def main() -> int:
     # a reference states its precision: f32 products in full f32, never TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
     dev = torch.device(DEVICE)
     t_start = time.perf_counter()
     log(f"device: {torch.cuda.get_device_name(0)} (count {torch.cuda.device_count()}); "
@@ -2388,10 +3139,12 @@ def main() -> int:
 
     data, params0, graph = gcn_data(torch, np, repro_torch, dev)
     lm_cfg = dataclasses.replace(get_config(LM_ARCH), ssm_pallas=True, dtype="float32")
+    olmoe_cfg = olmoe_config()
+    checked = olmoe_checked_shapes(olmoe_cfg)
 
     log("phase 2: each kernel against its plain version on the card")
     t0 = time.perf_counter()
-    errs = check_kernels(torch, kern, graph, lm_cfg, dev)
+    errs = check_kernels(torch, kern, graph, lm_cfg, olmoe_cfg, dev)
     errs["ssm_scan"] = check_ssm_scan(torch, dev)
     log(f"  phase 2: {time.perf_counter() - t0:.1f} s")
 
@@ -2426,6 +3179,18 @@ def main() -> int:
     oocore = oocore_phase(torch, repro_torch, kern, data, dev)
     log(f"  phase 9: {time.perf_counter() - t0:.1f} s")
 
+    # phases 10 and 11 run before phase 8, which times their sites too
+    log(f"phase 10: {OLMOE_ARCH} serving at full width")
+    t0 = time.perf_counter()
+    olmoe = {"serve": olmoe_serve_phase(torch, repro_torch, kern, olmoe_cfg, dev, checked),
+             "d_model": olmoe_cfg.d_model, "vocab": olmoe_cfg.vocab}
+    log(f"  phase 10: {time.perf_counter() - t0:.1f} s")
+
+    log(f"phase 11: {OLMOE_ARCH} training at its published widths, {OLMOE_TRAIN_LAYERS} layers")
+    t0 = time.perf_counter()
+    olmoe["train"] = olmoe_train_phase(torch, repro_torch, kern, olmoe_cfg, dev, checked)
+    log(f"  phase 11: {time.perf_counter() - t0:.1f} s")
+
     log("phase 8: timings at the shapes of the main paths")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2434,7 +3199,7 @@ def main() -> int:
     log(smi)
     t0 = time.perf_counter()
     records = timing_phase(torch, graph, {"sites": sites, "launches": launches}, logreg, nnmf, kge,
-                           lm, oocore, errs, dev)
+                           lm, oocore, olmoe, errs, dev)
     log(f"  phase 8: {time.perf_counter() - t0:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)

@@ -1,9 +1,10 @@
-"""Shared model primitives: norms, activations, init.
+"""Shared model primitives: norms, activations, RoPE, init, and the
+module that holds a layer's parameters.
 
-The rope helpers of the reference's ``models/common.py`` wait for the
-attention slice. Initializers draw from an explicit ``torch.Generator`` on
-the target device, so a full-width model is made on the card and never on
-the host first; the draws differ from ``jax.random``'s, so tests carry the
+The reference's M-RoPE (``apply_mrope``) waits for qwen2-vl (ROADMAP.md).
+Initializers draw from an explicit ``torch.Generator`` on the target
+device, so a full-width model is made on the card and never on the host
+first; the draws differ from ``jax.random``'s, so tests carry the
 reference's weights across (``convert.lm_params``).
 """
 
@@ -12,6 +13,27 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import torch
+from torch import nn
+
+
+class ParamTree(nn.Module):
+    """Parameters addressed like the reference's pytree: ``p["ln1"]`` is a
+    parameter, ``p["attn"]["wq"]`` one of a sublayer's, ``"shared" in p``
+    asks for a part. A tensor part becomes a parameter; a module part (a
+    ``ParamTree``, an ``nn.ParameterDict``) a submodule."""
+
+    def __init__(self, **parts):
+        super().__init__()
+        for name, part in parts.items():
+            if isinstance(part, torch.Tensor):
+                part = nn.Parameter(part)
+            setattr(self, name, part)
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters or name in self._modules
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -35,6 +57,31 @@ def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
     if cap is None:
         return x
     return cap * torch.tanh(x / cap)
+
+
+# ---------------------------------------------------------------------------
+# Rotary embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float = 10000.0, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(
+    x: torch.Tensor,                # (B, S, H, hd)
+    positions: torch.Tensor,        # (B, S) integer
+    theta: float = 10000.0,
+) -> torch.Tensor:
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, device=x.device)                 # (hd/2,)
+    ang = positions[..., None].to(torch.float32) * freqs          # (B,S,hd/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -17,12 +17,15 @@ falcon-mamba-7b) is never built on the host first. ``build_model`` runs on
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core import session
 from repro_torch.core.session import resolve_device
 from repro_torch.relational import rel_embed, rel_linear
 
@@ -32,7 +35,8 @@ from .common import dense_init, embed_init, rms_norm, softcap
 
 #: config fields of the reference's other families; a config that sets one
 #: needs a module this slice does not port
-_UNPORTED = ("encoder_layers", "vis_seq", "first_k_dense", "mla", "tie_embeddings", "embed_scale")
+_UNPORTED = ("encoder_layers", "vis_seq", "mrope_sections", "first_k_dense", "mla",
+             "tie_embeddings", "embed_scale")
 
 
 @dataclass(frozen=True)
@@ -45,11 +49,34 @@ class Stage:
 def stages_of(cfg) -> List[Stage]:
     """One stage: ``cfg.pattern`` repeated, then the remainder layers. The
     reference's leading dense stage (``first_k_dense``, deepseek-v3) waits
-    for the MoE slice."""
+    for that model's slice."""
     pat = cfg.pattern
     reps = cfg.n_layers // len(pat)
     tail = pat[: cfg.n_layers % len(pat)]
     return [Stage(pat, reps, tail)]
+
+
+def param_tree(flat: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """A name → tensor dict (``Model.named_parameters()``'s names) as the
+    nested tree the model walks: dicts, with lists where every key is an
+    index (``stages``, ``scan``, ``tail``)."""
+    root: Dict[str, Any] = {}
+    for name, t in flat.items():
+        node = root
+        *path, leaf = name.split(".")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = t
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        out = {k: lists(v) for k, v in node.items()}
+        if out and all(k.isdigit() for k in out):
+            return [out[str(i)] for i in range(len(out))]
+        return out
+
+    return lists(root)
 
 
 class Model(nn.Module):
@@ -60,7 +87,11 @@ class Model(nn.Module):
     of stage ``si`` (the reference's ``params["stages"][si]["scan"]`` with
     its leading repeat axis unstacked); ``stages[si]["tail"][i]`` a
     remainder layer. Caches have the same layout: a list per stage of
-    ``{"scan": [entry per repeat], "tail": [entry per layer]}``."""
+    ``{"scan": [entry per repeat], "tail": [entry per layer]}``.
+
+    ``train_logits`` runs on the module's own parameters, or on ``params``:
+    a name → tensor dict with ``named_parameters()``'s names (the trainer's
+    functional form, the reference's ``(params, batch)``)."""
 
     def __init__(self, cfg, device=None, seed: int = 0):
         super().__init__()
@@ -68,7 +99,7 @@ class Model(nn.Module):
         if unported:
             raise NotImplementedError(
                 f"{cfg.name}: {', '.join(unported)} not ported yet "
-                "(ROADMAP.md, queue 1, item 8: the LM zoo)"
+                "(ROADMAP.md, queue 1, item 6.4: the LM zoo)"
             )
         dev = resolve_device(device, owner="repro_torch.models.Model")
         gen = torch.Generator(device=dev).manual_seed(seed)
@@ -96,72 +127,137 @@ class Model(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
+    def _tree(self, params):
+        """What the entry points walk: the module itself, or ``params``
+        as a tree (``param_tree``)."""
+        return self if params is None else param_tree(params)
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
     # -- embedding / head ---------------------------------------------------
 
-    def _embed(self, tokens):
-        return rel_embed(self.embed, tokens.reshape(-1)).reshape(*tokens.shape, self.cfg.d_model)
+    def _embed(self, p, tokens):
+        return rel_embed(p["embed"], tokens.reshape(-1)).reshape(*tokens.shape, self.cfg.d_model)
 
-    def _head(self, x):
-        h = rms_norm(x, self.ln_f, self.cfg.norm_eps)
-        return softcap(rel_linear(h, self.out_embed).float(), self.cfg.final_softcap)
+    def _head(self, p, x):
+        h = rms_norm(x, p["ln_f"], self.cfg.norm_eps)
+        return softcap(rel_linear(h, p["out_embed"]).float(), self.cfg.final_softcap)
 
     # -- backbone -----------------------------------------------------------
 
-    def _run_stages(self, x, ctx, caches):
+    def _run_stages(self, p, x, ctx, caches):
         """caches: None (train, prefill) or the list of stage caches.
-        Returns (x, new_caches)."""
+        Returns (x, new_caches, aux): aux the blocks' auxiliary losses,
+        summed.
+
+        With ``cfg.remat`` in train mode, when autograd records, each
+        superblock runs under ``torch.utils.checkpoint`` (the reference's
+        ``jax.checkpoint`` with the "nothing" policy): only its input is
+        kept, and the backward runs its forward again, in the session that
+        ran it the first time (autograd may run the backward on a thread of
+        its own, which does not see the caller's ``Database.activate``)."""
+        cfg = self.cfg
+        remat = cfg.remat and ctx["mode"] == "train" and torch.is_grad_enabled()
+        if remat and cfg.remat_policy != "nothing":
+            raise NotImplementedError(
+                f"remat_policy={cfg.remat_policy!r}: the port rematerializes with the "
+                "'nothing' policy only; a policy that saves the products' outputs "
+                "waits (ROADMAP.md, queue 1, item 6.3)"
+            )
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         new_caches = []
 
-        def run(block, kind, x, cache):
-            return block_apply(block, kind, x, dict(ctx, cache=cache))
+        def superblock(pattern, sblock, x, entry):
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            new_entry = {}
+            for i, kind in enumerate(pattern):
+                key = f"{i}:{kind}"
+                x, new_entry[key], a = block_apply(
+                    sblock[key], kind, x,
+                    dict(ctx, cache=entry[key] if entry is not None else None),
+                )
+                aux = aux + a
+            return x, new_entry, aux
 
-        for si, (st, stage) in enumerate(zip(self.stage_specs, self.stages)):
+        def rematted(pattern, sblock, x):
+            db = session.current()
+
+            def run(x):
+                x, _, aux = superblock(pattern, sblock, x, None)
+                return x, aux
+
+            return checkpoint(
+                run, x, use_reentrant=False,
+                context_fn=lambda: (contextlib.nullcontext(), db.activate()),
+            )
+
+        for si, st in enumerate(self.stage_specs):
+            stage = p["stages"][si]
             scan_cache = []
             for r, sblock in enumerate(stage["scan"]):
-                entry = caches[si]["scan"][r] if caches is not None else None
-                new_entry = {}
-                for i, kind in enumerate(st.pattern):
-                    key = f"{i}:{kind}"
-                    x, new_entry[key] = run(
-                        sblock[key], kind, x, entry[key] if entry is not None else None
-                    )
+                if remat:
+                    x, a = rematted(st.pattern, sblock, x)
+                    new_entry = {f"{i}:{kind}": {} for i, kind in enumerate(st.pattern)}
+                else:
+                    entry = caches[si]["scan"][r] if caches is not None else None
+                    x, new_entry, a = superblock(st.pattern, sblock, x, entry)
+                aux_total = aux_total + a
                 scan_cache.append(new_entry)
             tail_cache = []
             for i, kind in enumerate(st.tail):
-                x, c = run(
+                x, c, a = block_apply(
                     stage["tail"][i], kind, x,
-                    caches[si]["tail"][i] if caches is not None else None,
+                    dict(ctx, cache=caches[si]["tail"][i] if caches is not None else None),
                 )
+                aux_total = aux_total + a
                 tail_cache.append(c)
             new_caches.append({"scan": scan_cache, "tail": tail_cache})
-        return x, new_caches
+        return x, new_caches, aux_total
+
+    def _positions(self, b: int, s: int, length=None):
+        """(B, S) positions 0..S-1, or (B, 1) at ``length`` in decode (the
+        reference's M-RoPE branch waits for qwen2-vl)."""
+        if length is not None:
+            return torch.full((b, 1), int(length), dtype=torch.int32, device=self.device)
+        return torch.arange(s, dtype=torch.int32, device=self.device)[None].expand(b, s)
 
     # -- entry points --------------------------------------------------------
 
-    def train_logits(self, batch: Dict[str, Any]):
-        """batch: tokens (B,S). Returns (logits (B,S,V), aux), aux the
-        reference's auxiliary loss, 0 for every ported block kind. Runs
-        without rematerialization: LM training waits for a later slice."""
-        x = self._embed(batch["tokens"])
-        ctx = {"cfg": self.cfg, "mode": "train", "cache": None}
-        x, _ = self._run_stages(x, ctx, None)
-        return self._head(x), torch.zeros((), dtype=torch.float32, device=x.device)
+    def train_logits(self, batch: Dict[str, Any], params: Optional[Mapping[str, torch.Tensor]] = None):
+        """batch: tokens (B,S). Returns (logits (B,S,V) f32, aux), aux the
+        blocks' auxiliary losses summed (the MoE's load-balance loss; 0
+        for the other kinds)."""
+        p = self._tree(params)
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        x = self._embed(p, tokens)
+        ctx = {"cfg": self.cfg, "mode": "train", "positions": self._positions(b, s), "cache": None}
+        x, _, aux = self._run_stages(p, x, ctx, None)
+        return self._head(p, x), aux
 
     def prefill(self, batch: Dict[str, Any], cache_len: int):
         """Logits of the last position (B,1,V) and the caches after the
-        prompt. ``cache_len`` sizes attention caches; the SSM state is O(1)."""
-        x = self._embed(batch["tokens"])
-        ctx = {"cfg": self.cfg, "mode": "prefill", "cache": None, "cache_len": cache_len}
-        x, caches = self._run_stages(x, ctx, None)
-        return self._head(x[:, -1:]), caches
+        prompt. ``cache_len`` sizes attention caches (the prompt's K/V
+        padded to it); the SSM state is O(1)."""
+        p = self
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        x = self._embed(p, tokens)
+        ctx = {"cfg": self.cfg, "mode": "prefill", "positions": self._positions(b, s),
+               "cache": None, "cache_len": cache_len}
+        x, caches, _ = self._run_stages(p, x, ctx, None)
+        return self._head(p, x[:, -1:]), caches
 
     def decode_step(self, token, caches, length):
         """token: (B, 1) integer; caches from prefill (or the previous
-        step); length: count of valid cache entries."""
-        x = self._embed(token)
-        ctx = {"cfg": self.cfg, "mode": "decode", "length": length}
-        x, caches = self._run_stages(x, ctx, caches)
-        return self._head(x), caches
+        step); length: count of valid cache entries (an int)."""
+        p = self
+        x = self._embed(p, token)
+        ctx = {"cfg": self.cfg, "mode": "decode",
+               "positions": self._positions(token.shape[0], 1, length=length), "length": length}
+        x, caches, _ = self._run_stages(p, x, ctx, caches)
+        return self._head(p, x), caches
 
 
 def build_model(cfg, device=None, seed: int = 0) -> Model:

@@ -30,27 +30,46 @@ def adam_update(
     eps: float = 1e-8,
     weight_decay: float = 0.0,
     grad_clip: float = 0.0,
+    donate: bool = False,
 ) -> Tuple[Params, Dict[str, object]]:
-    """One Adam step; returns new parameters and state (nothing is updated
-    in place)."""
-    step = state["step"] + 1
+    """One Adam step; returns the new parameters and state.
 
+    ``donate=False`` updates nothing in place. ``donate=True`` writes the
+    new parameters and moments into the tensors of ``params`` and
+    ``state`` (the reference's donated buffers) and returns those dicts:
+    each parameter's new values are computed as without donation, then
+    copied in, so the two give the same bits, and the peak holds one
+    parameter's temporaries rather than a second copy of the whole
+    state."""
+    step = state["step"] + 1
+    # the bias corrections in f32, as the reference computes them from its
+    # int32 step counter (in f64, 1 - 0.999 differs from f32's by 1.3e-5)
+    one = torch.ones((), dtype=torch.float32)
+    bc1, bc2 = float(one - (one * b1) ** step), float(one - (one * b2) ** step)
+
+    scale = None
     if grad_clip:
         gnorm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads.values()))
         scale = torch.clamp(grad_clip / (gnorm + 1e-9), max=1.0)
-        grads = {k: g * scale.to(g.dtype) for k, g in grads.items()}
 
     new_p, new_m, new_v = {}, {}, {}
     for k, p in params.items():
-        gf = grads[k].float()
+        g = grads[k]
+        if scale is not None:
+            g = g * scale.to(g.dtype)
+        gf = g.float()
         m1 = b1 * state["mu"][k].float() + (1 - b1) * gf
         v1 = b2 * state["nu"][k].float() + (1 - b2) * gf * gf
-        mh = m1 / (1 - b1 ** step)
-        vh = v1 / (1 - b2 ** step)
+        mh = m1 / bc1
+        vh = v1 / bc2
         delta = mh / (torch.sqrt(vh) + eps)
         if weight_decay:
             delta = delta + weight_decay * p.float()
-        new_p[k] = (p.float() - lr * delta).to(p.dtype)
-        new_m[k] = m1.to(state["mu"][k].dtype)
-        new_v[k] = v1.to(state["nu"][k].dtype)
+        for out, old, new in ((new_p, p, p.float() - lr * delta),
+                              (new_m, state["mu"][k], m1), (new_v, state["nu"][k], v1)):
+            out[k] = old.copy_(new) if donate else new.to(old.dtype)
+        del g, gf, m1, v1, mh, vh, delta
+    if donate:
+        state["step"] = step
+        return params, state
     return new_p, {"mu": new_m, "nu": new_v, "step": step}

@@ -7,10 +7,13 @@
 full-width prefill would hold each layer's (B,S,C,N) f32 tensors — 1 GiB
 each at B·S = 2048 — for all 64 layers at once.
 
-SSM layers carry (conv window, state): O(1) per step. The reference's
+Attention layers carry a K/V cache of ``cache_len`` positions, written at
+``length`` by each decode step, which then advances ``length`` by one as
+the reference's caller does; SSM layers carry (conv window, state): O(1)
+per step. The reference's
 ``BucketedPrefill`` and the async ``Endpoint`` need the session's
 executable cache and model registry, and its mesh placement has no meaning
-on one device; they wait for ROADMAP.md queue 1, item 9.
+on one device; they wait for ROADMAP.md queue 1, item 7.
 """
 
 from __future__ import annotations
@@ -21,35 +24,40 @@ from repro_torch.core.session import resolve_device
 from repro_torch.models.model import Model, stages_of
 
 
-def _cache_entry(cfg, kind: str, batch: int, device: torch.device):
+def _attn_cache_entry(cfg, kind: str, batch: int, cache_len: int, device: torch.device):
+    dt = getattr(torch, cfg.dtype)
+    if kind in ("attn", "moe"):
+        shape = (batch, cache_len, cfg.n_kv_heads, cfg.hd())
+        return {"kv": {"k": torch.zeros(shape, dtype=dt, device=device),
+                       "v": torch.zeros(shape, dtype=dt, device=device)}}
     if kind == "mamba1":
         c = cfg.ssm_expand * cfg.d_model
         return {
             "ssm1": {
                 "conv": torch.zeros(
-                    (batch, cfg.conv_width - 1, c), dtype=getattr(torch, cfg.dtype), device=device
+                    (batch, cfg.conv_width - 1, c), dtype=dt, device=device
                 ),
                 "ssm": torch.zeros((batch, c, cfg.ssm_state), dtype=torch.float32, device=device),
             }
         }
     raise NotImplementedError(
         f"the cache of block kind {kind!r} is not ported yet: the port builds "
-        "'mamba1' only (ROADMAP.md, queue 1, item 8: the LM zoo)"
+        "attn, moe and mamba1 (ROADMAP.md, queue 1, item 6.4: local/global, mla, "
+        "mamba2, enc/dec)"
     )
 
 
 def init_cache(cfg, batch: int, cache_len: int, device=None):
     """Zero-initialized caches in ``Model``'s layout, on ``device`` ("cuda"
-    unless the caller passes another). ``cache_len`` sizes attention caches,
-    which this slice does not build."""
+    unless the caller passes another). ``cache_len`` sizes attention caches."""
     dev = resolve_device(device, owner="repro_torch.serving.init_cache")
     caches = []
     for st in stages_of(cfg):
         scan = [
-            {f"{i}:{kind}": _cache_entry(cfg, kind, batch, dev) for i, kind in enumerate(st.pattern)}
+            {f"{i}:{kind}": _attn_cache_entry(cfg, kind, batch, cache_len, dev) for i, kind in enumerate(st.pattern)}
             for _ in range(st.repeats)
         ]
-        tail = [_cache_entry(cfg, kind, batch, dev) for kind in st.tail]
+        tail = [_attn_cache_entry(cfg, kind, batch, cache_len, dev) for kind in st.tail]
         caches.append({"scan": scan, "tail": tail})
     return caches
 

@@ -1,0 +1,20 @@
+"""Losses. Cross entropy computed in f32 with label masking (-100)."""
+
+from __future__ import annotations
+
+import torch
+
+
+def lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """logits (B,S,V) f32; labels (B,S) integer, -100 = ignore.
+
+    The gold logit is read with a ``gather``, where the reference takes a
+    masked reduction over V (which keeps vocab-parallel logits sharded on
+    a mesh); a sum of one logit and zeros is that logit, so the two are
+    equal."""
+    valid = labels >= 0
+    safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    nll = (logz - gold) * valid
+    return nll.sum() / torch.clamp(valid.sum(), min=1)

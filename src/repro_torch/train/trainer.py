@@ -1,0 +1,103 @@
+"""Training step factory.
+
+``make_train_step(model)`` returns a (params, opt_state, batch) →
+(params, opt_state, metrics) function, ``params`` a name → tensor dict
+with the model's ``named_parameters()`` names, applied to the model as its
+weights (``Model.train_logits(batch, params)``). Gradients flow through
+the relational ``autograd.Function``s, i.e. the backward pass executes the
+RA-autodiff-generated queries, which step through the staged engine
+(core/engine.py): the FRA graphs are lowered once per signature and reused
+across steps.
+
+PyTorch runs eagerly, so the reference's ``jit`` has no analogue (it is
+accepted and ignored), and its donation is an in-place update: with
+``donate=True`` the step writes the new parameters and Adam moments into
+the tensors it was given. Mesh placement waits for multi-GPU planning
+(ROADMAP.md, queue 1, item 4).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Dict
+
+import torch
+
+from repro_torch.optim import adam_init, adam_update
+
+from .losses import lm_loss
+
+
+@dataclass
+class TrainState:
+    params: Any
+    opt_state: Any
+    step: int = 0
+
+
+def make_train_step(
+    model,
+    *,
+    lr: float = 3e-4,
+    aux_weight: float = 0.01,
+    grad_clip: float = 1.0,
+    jit: bool = True,
+    donate: bool = False,
+    mesh=None,
+    database=None,
+) -> Callable:
+    """Build the train step once; the returned callable is reused every
+    iteration.
+
+    The loss is ``lm_loss + aux_weight·aux`` (aux the MoE's load-balance
+    loss), the update Adam with the gradients clipped to global 2-norm
+    ``grad_clip``. ``jit`` is accepted for the reference's signature and
+    ignored: there is nothing to compile. ``donate=True`` updates the
+    parameters and the moments in place (the caller rebinds both from the
+    step's outputs, which are the same tensors); the step's results are
+    bit-equal to ``donate=False``'s. ``database`` runs every step inside
+    ``database.activate()``, so the relational ops in the model dispatch
+    through that session. ``mesh`` raises: multi-GPU placement is not
+    ported (ROADMAP.md, queue 1, item 4)."""
+    del jit
+    if mesh is not None:
+        raise NotImplementedError(
+            "make_train_step(mesh=...): placement on a mesh waits for multi-GPU "
+            "planning (ROADMAP.md, queue 1, item 4)"
+        )
+
+    def loss_fn(params, batch):
+        logits, aux = model.train_logits(batch, params)
+        loss = lm_loss(logits, batch["labels"])
+        total = loss + aux_weight * aux
+        return total, {"loss": loss, "aux": aux}
+
+    def train_step(params: Dict[str, torch.Tensor], opt_state, batch):
+        leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        total, metrics = loss_fn(leaves, batch)
+        grads = dict(zip(leaves, torch.autograd.grad(total, list(leaves.values()))))
+        del leaves
+        params, opt_state = adam_update(
+            params, grads, opt_state, lr=lr, grad_clip=grad_clip, donate=donate,
+        )
+        metrics = {k: v.detach() for k, v in dict(metrics, total=total).items()}
+        return params, opt_state, metrics
+
+    if database is None:
+        return train_step
+
+    def sessioned_step(params, opt_state, batch):
+        with database.activate():
+            return train_step(params, opt_state, batch)
+
+    return sessioned_step
+
+
+def init_train_state(model, dtype=None) -> TrainState:
+    """The model's parameters as a name → tensor dict (the module's own
+    tensors: a donated step updates the model) and zero Adam moments in
+    ``dtype`` (default ``cfg.opt_state_dtype``). The reference's ``key``
+    draws the weights; here ``build_model``'s seed has drawn them."""
+    params = {k: p.detach() for k, p in model.named_parameters()}
+    opt_dtype = getattr(torch, dtype or model.cfg.opt_state_dtype)
+    return TrainState(params, adam_init(params, dtype=opt_dtype))

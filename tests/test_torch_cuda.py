@@ -650,3 +650,111 @@ def test_a_streamed_relation_moves_to_the_host_and_back_for_an_incore_step(cuda_
     assert not isinstance(q.last, StreamedCompiled)
     assert db.get("Edge").keys.device.type == "cuda" and got.data.device.type == "cuda"
     assert torch.equal(got.data, want.data)
+
+
+# ---------------------------------------------------------------------------
+# The OLMoE family on the card
+# ---------------------------------------------------------------------------
+
+
+def _lm_sites(db):
+    """(program, key, tier) of every dispatch site that rel_linear's and
+    rel_embed's programs lowered under ``db``'s table."""
+    from repro_torch.core.engine import engine_for
+    from repro_torch.relational.embedding import _embed_prog
+    from repro_torch.relational.linear import _linear_prog
+
+    out = []
+    for label, (prog, *_) in (("rel_linear", _linear_prog()), ("rel_embed", _embed_prog())):
+        for part, program in (("forward", prog.forward), *prog.grads.items()):
+            for low in engine_for(program).lowerings:
+                if low.dispatch == db.dispatch:
+                    out += [(f"{label}.{part}", s.key, s.tier) for s in low.resolutions.sites]
+    return out
+
+
+@pytest.mark.cuda
+def test_olmoe_serving_and_training_resolve_every_site_to_cuda(cuda_device):
+    """A prefill, a decode step and a train step of the reduced olmoe on the
+    card: every rel_linear/rel_embed site resolves to the cuda tier, and
+    the three kernels launch in each (the MoE's dispatch and combine run
+    gather_join and segment_sum)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_lm_batches
+    from repro_torch.models import build_model
+    from repro_torch.serving import make_decode_step, make_prefill_step
+    from repro_torch.train import init_train_state, make_train_step
+
+    cfg = get_config("olmoe-1b-7b").reduced()
+    model = build_model(cfg, seed=0)
+    db = repro_torch.Database(dispatch={"segment_sum": "cuda", "gather_join": "cuda",
+                                        "blocked_matmul": "cuda"})
+    batch = next(synthetic_lm_batches(cfg, 2, 40, seed=0))
+    for run in ("prefill", "decode", "train"):
+        kernels.reset_launch_counts()
+        with db.activate():
+            if run == "prefill":
+                logits, caches = make_prefill_step(model, 41)({"tokens": batch["tokens"]})
+            elif run == "decode":
+                token = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+                make_decode_step(model)(token, caches, 40)
+            else:
+                state = init_train_state(model)
+                make_train_step(model, donate=True)(state.params, state.opt_state, batch)
+        launched = kernels.launch_counts()
+        assert all(launched[op] > 0 for op in ("blocked_matmul", "gather_join", "segment_sum")), (run, launched)
+    sites = _lm_sites(db)
+    assert sites and all(tier == "cuda" for _, _, tier in sites), sites
+    kernels.reset_launch_counts()
+
+
+@pytest.mark.cuda
+def test_reduced_olmoe_prefill_on_the_card_matches_the_cpu_run(cuda_device):
+    """The same weights prefilled on the card (the CUDA kernels) and on the
+    CPU (their plain versions): logits within 1e-5 (products over K ≤ 512
+    in other f32 orders, through two layers; the same experts chosen)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import make_prefill_step
+
+    cfg = get_config("olmoe-1b-7b").reduced()
+    cpu = build_model(cfg, device="cpu", seed=0)
+    card = build_model(cfg, seed=1)
+    card.load_state_dict(cpu.state_dict())
+    tokens = torch.tensor(np.random.default_rng(0).integers(0, cfg.vocab, size=(2, 40)), dtype=torch.int32)
+    with repro_torch.Database(device="cpu").activate():
+        want, want_caches = make_prefill_step(cpu, 48)({"tokens": tokens})
+    with repro_torch.Database().activate():
+        got, caches = make_prefill_step(card, 48)({"tokens": tokens.to(cuda_device)})
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)
+    kv, want_kv = caches[0]["scan"][1]["0:moe"]["kv"], want_caches[0]["scan"][1]["0:moe"]["kv"]
+    torch.testing.assert_close(kv["k"].cpu(), want_kv["k"], atol=1e-5, rtol=1e-5)
+    kernels.reset_launch_counts()
+
+
+@pytest.mark.cuda
+def test_olmoe_gradients_with_remat_equal_those_without_on_the_card(cuda_device):
+    """The cuda tier sums in fixed orders (blocked_matmul, segment_sum,
+    gather_rows, the MoE's routing on the last two), so a rematerialized
+    backward gives the plain backward's gradients bit for bit."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_lm_batches
+    from repro_torch.models import build_model
+    from repro_torch.train.losses import lm_loss
+
+    cfg = get_config("olmoe-1b-7b").reduced()
+    batch = next(synthetic_lm_batches(cfg, 2, 40, seed=3))
+    base = build_model(cfg, seed=0)
+    grads = {}
+    for remat in (False, True):
+        model = build_model(dataclasses.replace(cfg, remat=remat), seed=1)
+        model.load_state_dict(base.state_dict())
+        with repro_torch.Database().activate():
+            logits, aux = model.train_logits(batch)
+            total = lm_loss(logits, batch["labels"]) + 0.01 * aux
+        names, params = zip(*model.named_parameters())
+        grads[remat] = dict(zip(names, torch.autograd.grad(total, params)))
+    assert all(torch.equal(grads[False][k], grads[True][k]) for k in grads[False])
+    kernels.reset_launch_counts()

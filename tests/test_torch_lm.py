@@ -288,12 +288,14 @@ def test_entry_points_run_on_cuda_unless_asked(monkeypatch):
 
 
 def test_unported_block_kinds_raise():
-    cfg = get_config("falcon-mamba-7b").reduced()
+    cfg = get_config("olmoe-1b-7b").reduced()
     gen = torch.Generator().manual_seed(0)
+    for kind in ("mla", "local"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            block_init(gen, kind, cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        block_init(gen, "attn", cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(dataclasses.replace(cfg, pattern=("mamba2",)), device="cpu")
+        build_model(dataclasses.replace(get_config("falcon-mamba-7b").reduced(), pattern=("mamba2",)),
+                    device="cpu")
 
 
 @pytest.mark.parametrize("field, value", [
