@@ -47,7 +47,8 @@ Phases, in order; any failure stops the run with a non-zero exit:
 8. time each kernel at the shapes of the main paths (the GCN step, the
    logistic regression's step, the NNMF and KGE steps, prefill and decode,
    a wave of each of phase 9's streamed steps, on the wave's own ids, and
-   olmoe's prefill, decode step and train step, on their calls' own ids)
+   olmoe's prefill, decode step and train step, and phase 12's burst, on
+   their calls' own ids)
    beside its plain version, one PyTorch library call (where there is one),
    the card's bound and, for the small calls, the host's time per call; and
    time ``segment_sum``'s index (sort and starts) and its two paths across
@@ -80,7 +81,21 @@ Phases, in order; any failure stops the run with a non-zero exit:
    4 × 1,024 tokens with remat: step 1's loss and the gradients of wq, an
    expert wo and the embedding against the torch tier (a lost token
    planted), remat against no remat bit for bit, the loss's fall, the step
-   time, tokens/s, the peak memory and the launches, backward included.
+   time, tokens/s, the peak memory and the launches, backward included;
+12. (run after phase 10, on its model, before phase 11) serve olmoe-1b-7b
+   through the serving front door: ``db.register_model``, ``db.endpoint``
+   with (batch, seq) buckets of 1, 2, 4 and 8 prompts of 512 tokens and
+   decode buckets 1, 2, 4, 8, ``warmup`` (4 prefill and 4 decode steps
+   built); a burst of 8 concurrent requests (one batch, no step built
+   under traffic, rebuckets, slot releases, the session cache's counters),
+   each completion held to the request served alone through
+   ``make_prefill_step``/``make_decode_step`` (equal, or first different
+   at a near tie of the solo run's logits), with a compaction that swaps
+   two slots' cache rows planted; a second version (``out_embed``
+   perturbed) behind a tenant map, each tenant held to its own version;
+   an EOS stop; time to first token, tokens/s, the decode step at each
+   bucket, peak memory and how much of a bucket-8 decode step the card is
+   busy.
 
 Device memory is freed between phases, so the NNMF step's peak and the
 language models' 29 and 27.7 GB of weights never meet. The last line of standard
@@ -225,6 +240,21 @@ OLMOE_LOSS_LIMIT = 1e-5
 #: limit allows 5 times that. A step that loses one of its 4,096 tokens
 #: (planted) moves every gradient by more than 1/4,096 = 2.4e-4
 OLMOE_GRAD_LIMIT = 2e-4
+# phase 12, the serving front door on phase 10's model: db.endpoint with
+# (batch, seq) prefill buckets of 1, 2, 4 and 8 prompts of 512 tokens, the
+# default decode buckets (1, 2, 4, 8) and room for 16 new tokens; a burst of
+# 8 concurrent requests of max_new_tokens 16 - (i % 4), then two tenants on
+# two versions, 4 requests of 8 tokens each
+ENDPOINT_PROMPT, ENDPOINT_BUCKETS, ENDPOINT_NEW = 512, (1, 2, 4, 8), 16
+ENDPOINT_REQUESTS, ENDPOINT_SWAP_NEW = 8, 8
+#: where a request served in a batch and the same request served alone
+#: first differ, the solo run's top-2 logit gap there as a share of its
+#: largest logit must be below this: a near tie. Both runs are the cuda
+#: tier on the same weights; blocked_matmul's rows do not depend on the
+#: batch, but cuBLAS's expert products and the attention's einsums may
+#: round otherwise at another batch, by at most about OLMOE_TIER_LIMIT of
+#: the logits each, so a flip needs a gap below twice it
+ENDPOINT_TIE_LIMIT = 2 * OLMOE_TIER_LIMIT
 #: the shapes of blocked_matmul's path-crossover cases: the skinny path
 #: takes m ≤ 16
 CROSSOVER_M, CROSSOVER_K, CROSSOVER_N = (1, 2, 15, 16, 17, 33), (1, 3, 511, 512, 513, 8192), (1, 40, 288)
@@ -400,10 +430,14 @@ def fmt_ms(ms: float) -> str:
 
 
 def olmoe_checked_shapes(cfg):
-    """The kernel calls of phases 10 and 11 (``olmoe_shapes``): a prefill
-    and a decode step of phase 10's request, a train step of phase 11."""
-    return (olmoe_shapes(cfg, OLMOE_BATCH, OLMOE_PROMPT, False) | olmoe_shapes(cfg, OLMOE_BATCH, 1, False)
-            | olmoe_shapes(cfg, OLMOE_TRAIN_BATCH, OLMOE_TRAIN_SEQ, True))
+    """The kernel calls of phases 10, 11 and 12 (``olmoe_shapes``): a
+    prefill and a decode step of phase 10's request, a train step of phase
+    11, and phase 12's prefill and decode at each bucket."""
+    out = (olmoe_shapes(cfg, OLMOE_BATCH, OLMOE_PROMPT, False) | olmoe_shapes(cfg, OLMOE_BATCH, 1, False)
+           | olmoe_shapes(cfg, OLMOE_TRAIN_BATCH, OLMOE_TRAIN_SEQ, True))
+    for b in ENDPOINT_BUCKETS:
+        out |= olmoe_shapes(cfg, b, ENDPOINT_PROMPT, False) | olmoe_shapes(cfg, b, 1, False)
+    return out
 
 
 def check_kernels(torch, kern, graph, lm_cfg, olmoe_cfg, dev):
@@ -2046,15 +2080,300 @@ def olmoe_serve_phase(torch, repro_torch, kern, cfg, dev, checked):
             f"must exceed {OLMOE_DECODE_LIMIT:g}")
         if seen_gap <= OLMOE_DECODE_LIMIT:
             raise AssertionError("the decode limit passes a lost K cache")
-    del model, full, nd_prefill, bad_caches, steps_logits, prefill_logits, decoded, want
+    # the model stays for phase 12, which serves it through db.endpoint
+    del full, nd_prefill, bad_caches, steps_logits, prefill_logits, decoded, want
     gc.collect()
     torch.cuda.empty_cache()
     return {
+        "model": model,
         "launches": launches, "sites": sites, "log": serve_log, "pass": pass_counts,
         "per_prefill": per_prefill,
         "per_step": per_step[0], "prefill_ms": prefill_s * 1e3, "warm_prefill_ms": warm_s * 1e3,
         "decode_ms": statistics.median(step_s[1:]) * 1e3, "peak": peak, "idle": idle,
     }
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the serving front door (db.endpoint) on phase 10's model
+# ---------------------------------------------------------------------------
+
+
+def first_mismatch(got, want):
+    """The first position where two token lists differ (None if neither
+    differs within the shorter)."""
+    return next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
+
+
+def hold_to_oracle(outs, oracles, limit):
+    """Each completion against its request's solo run (tokens, top-2 gaps):
+    equal, or first different where the solo run's top-2 gap is a near tie
+    (at most ``limit`` of its largest logit). Returns (the near ties as
+    (request, position, gap), the failures likewise)."""
+    ties, bad = [], []
+    for i, (out, (want, gaps)) in enumerate(zip(outs, oracles)):
+        got = out.token_ids.tolist()
+        at = first_mismatch(got, want)
+        if at is None and len(got) <= len(want):
+            continue
+        if at is None:
+            bad.append((i, len(want), None))
+        elif gaps[at] <= limit:
+            ties.append((i, at, gaps[at]))
+        else:
+            bad.append((i, at, gaps[at]))
+    return ties, bad
+
+
+def olmoe_endpoint_phase(torch, repro_torch, kern, cfg, dev, model, checked):
+    """Phase 12: phase 10's model registered in a session's model registry
+    and served through ``db.endpoint``: warmup, a burst of concurrent
+    requests held to each request served alone, a planted compaction fault,
+    a hot-swapped second version behind a tenant map, an EOS stop, and the
+    front door's times."""
+    import asyncio
+
+    import numpy as np
+
+    from repro_torch.core.engine import engine_for
+    from repro_torch.relational.embedding import _embed_prog
+    from repro_torch.relational.linear import _linear_prog
+    from repro_torch.models.model import param_tree
+    from repro_torch.serving import make_decode_step, make_prefill_step, service
+
+    s, n = ENDPOINT_PROMPT, ENDPOINT_REQUESTS
+    cache_len = s + ENDPOINT_NEW
+    buckets = [(b, s) for b in ENDPOINT_BUCKETS]
+    db = repro_torch.Database(max_cache_entries=16)
+    params = dict(model.named_parameters())
+    v1 = db.register_model("olmoe", model, params)
+    ep = db.endpoint("olmoe", cache_len=cache_len, buckets=buckets)
+    engines = {"rel_linear": engine_for(_linear_prog()[0].forward),
+               "rel_embed": engine_for(_embed_prog()[0].forward)}
+    seen = {k: {id(low) for low in e.lowerings} for k, e in engines.items()}
+
+    counters = db.counters
+
+    def delta(after, before):
+        if isinstance(after, dict):
+            return {k: delta(v, before[k]) for k, v in after.items()}
+        return after - before
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ep.warmup()
+    warm_s = time.perf_counter() - t0
+    warm = counters()
+    log(f"  {v1}: {sum(p.numel() for p in params.values()):,} parameters registered; endpoint "
+        f"cache_len {cache_len}, prefill buckets {buckets}, decode buckets {ep.decode_buckets}; "
+        f"warmup {warm_s:.2f} s: {warm['serve']['prefill']['compiles']} prefill and "
+        f"{warm['serve']['decode']['compiles']} decode steps built, session cache {warm['cache']}")
+    if (warm["serve"]["prefill"]["compiles"], warm["serve"]["decode"]["compiles"]) != (4, 4):
+        raise AssertionError(f"warmup built {warm['serve']}")
+
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(0, cfg.vocab, size=s) for _ in range(n)]
+    budgets = [ENDPOINT_NEW - (i % 4) for i in range(n)]
+
+    def burst(endpoint, reqs):
+        async def go():
+            return await asyncio.gather(*[endpoint.submit(p, **kw) for p, kw in reqs])
+        return asyncio.run(go())
+
+    # burst 1, the main path: 8 concurrent requests
+    reqs = [(p, {"max_new_tokens": m}) for p, m in zip(prompts, budgets)]
+    before = counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with LaunchLog(torch) as burst_log:
+        kern.reset_launch_counts()
+        t0 = time.perf_counter()
+        outs = burst(ep, reqs)
+        torch.cuda.synchronize()
+        burst_s = time.perf_counter() - t0
+        launches = kern.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    got = delta(counters(), before)
+    n_tok = sum(len(o.token_ids) for o in outs)
+    log(f"  burst 1: {n} concurrent requests of {s} tokens, max_new_tokens {budgets}: "
+        f"{burst_s * 1e3:.1f} ms, {n_tok} tokens, {n_tok / burst_s:.1f} tokens/s; latencies "
+        f"{[round(o.latency * 1e3, 1) for o in outs]} ms; peak device memory {peak} bytes "
+        f"({peak / 2**30:.2f} GiB)")
+    log(f"  burst 1 counters (change): {json.dumps(got)}")
+    log(f"  launches over burst 1: {launches}")
+    sg = got["serve"]
+    want_steps = max(budgets) - 1
+    checks = {
+        "one batch of 8": sg["batches"] == 1 and sg["batched_requests"] == n,
+        "no compile or trace under traffic": (sg["prefill"]["compiles"], sg["decode"]["compiles"],
+                                              sg["decode"]["traces"]) == (0, 0, 0),
+        "a rebucket": sg["decode"]["rebuckets"] >= 1,
+        "8 slot releases, 8 completed, none failed": (sg["decode"]["slot_releases"], sg["completed"],
+                                                       sg["failed"]) == (n, n, 0),
+        f"{want_steps} decode steps": sg["decode"]["steps"] == want_steps,
+        # one cache lookup per prefill and per decode step, each a hit
+        "cache: a hit per step, no miss or eviction": got["cache"] == {
+            "hits": sg["prefill"]["steps"] + sg["decode"]["steps"], "misses": 0, "evictions": 0},
+        "the budgets served": [len(o.token_ids) for o in outs] == budgets,
+        "tokens in the vocabulary": all(0 <= t < cfg.vocab for o in outs for t in o.token_ids.tolist()),
+    }
+    log(f"  burst 1 checks: {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"burst 1: {[k for k, v in checks.items() if not v]}")
+    for op in GCN_KERNELS:
+        if launches[op] <= 0:
+            raise AssertionError(f"{op}: its CUDA kernel did not launch in burst 1")
+    if launches["ssm_scan"]:
+        raise AssertionError("ssm_scan launched in an attention model")
+    sites = olmoe_check_sites(torch, engines, seen, db, burst_log)
+    unchecked = set(burst_log.counts) - checked
+    if unchecked:
+        raise AssertionError(f"kernel calls at shapes phase 2 did not check: {sorted(unchecked)}")
+
+    # the oracle: each request served alone at batch 1 through the steps
+    prefill = make_prefill_step(model, cache_len, db=db)
+    decode = make_decode_step(model, db=db)
+
+    def solo(prompt, new, version_params=None):
+        """(tokens, the top-2 gap of each step's logits as a share of the
+        largest) of one request served alone; one read back at the end."""
+        logits, caches = prefill({"tokens": torch.as_tensor(prompt[None], device=dev).int()}, version_params)
+        toks, gaps = [], []
+        for i in range(new):
+            lg = logits[0, -1]
+            top = lg.topk(2).values
+            gaps.append((top[0] - top[1]) / lg.abs().max())
+            toks.append(lg.argmax().reshape(1, 1).to(torch.int32))
+            if i + 1 < new:
+                logits, caches = decode(toks[-1], caches, s + i, version_params)
+        return torch.cat(toks).flatten().tolist(), torch.stack(gaps).tolist()
+
+    t0 = time.perf_counter()
+    oracles = [solo(p, m) for p, m in zip(prompts, budgets)]
+    oracle_s = time.perf_counter() - t0
+    ties, bad = hold_to_oracle(outs, oracles, ENDPOINT_TIE_LIMIT)
+    log(f"  burst 1 against each request served alone ({oracle_s:.1f} s): {n - len(ties) - len(bad)} of "
+        f"{n} equal token for token; near ties (request, position, top-2 gap / max|logit|) {ties}; "
+        f"failures {bad} (tie limit {ENDPOINT_TIE_LIMIT:g})")
+    if bad:
+        raise AssertionError(f"burst 1 differs from the solo runs: {bad}")
+
+    # planted fault: a compaction that swaps two slots' cache rows
+    real_take = service._take_cache_batch
+
+    def swapped(caches, idx, bucket_b):
+        idx = list(idx)
+        idx[0], idx[1] = idx[1], idx[0]
+        return real_take(caches, idx, bucket_b)
+
+    service._take_cache_batch = swapped
+    try:
+        faulty = burst(ep, reqs)
+    finally:
+        service._take_cache_batch = real_take
+    _, fault_bad = hold_to_oracle(faulty, oracles, ENDPOINT_TIE_LIMIT)
+    log(f"    planted fault (a compaction that swaps two slots' cache rows): failures {fault_bad}, "
+        "must be some")
+    if not fault_bad:
+        raise AssertionError("the oracle check passes a compaction that swaps cache rows")
+
+    # EOS: a token of a burst-1 completion that equals its solo run
+    r = next((i for i, o in enumerate(outs) if o.token_ids.tolist() == oracles[i][0]), None)
+    if r is None:
+        raise AssertionError("no burst-1 completion equals its solo run")
+    eos = int(outs[r].token_ids[2])
+    k = outs[r].token_ids.tolist().index(eos)
+    eos_ep = db.endpoint("olmoe", cache_len=cache_len, buckets=buckets, eos_token=eos)
+    before = counters()
+    (eos_out,) = burst(eos_ep, [(prompts[r], {"max_new_tokens": budgets[r]})])
+    eos_got = delta(counters(), before)
+    log(f"  EOS {eos} (request {r}'s token 2): served {eos_out.token_ids.tolist()}, its burst-1 "
+        f"completion's first {k + 1} tokens {outs[r].token_ids[:k + 1].tolist()}; eos_stops "
+        f"{eos_got['serve']['decode']['eos_stops']}")
+    if (eos_out.token_ids.tolist() != outs[r].token_ids[:k + 1].tolist()
+            or eos_got["serve"]["decode"]["eos_stops"] < 1 or len(eos_out.token_ids) >= budgets[r]):
+        raise AssertionError("the EOS request did not stop early with the same prefix")
+
+    # time to first token: a lone 1-token request, and 8 concurrent ones
+    (lone,) = burst(ep, [(prompts[0], {"max_new_tokens": 1})])
+    firsts = burst(ep, [(p, {"max_new_tokens": 1}) for p in prompts])
+    ttft = {"lone": lone.latency * 1e3, "burst_of_8": [o.latency * 1e3 for o in firsts]}
+    log(f"  time to first token (Completion.latency of 1-token requests): alone {ttft['lone']:.1f} ms; "
+        f"8 concurrent {[round(t, 1) for t in ttft['burst_of_8']]} ms")
+
+    # the decode step at each bucket: the endpoint's own cached step, on
+    # the caches of one prefill at bucket 8 (rows taken to the bucket)
+    pre = ep._prefill_for(v1)
+    tokens = torch.as_tensor(np.stack(prompts), device=dev).int()
+    _, caches = pre.prefill(v1.params, {"tokens": tokens})
+    step_ms = {}
+    for b in ep.decode_buckets:
+        cb = caches if b == n else service._take_cache_batch(caches, list(range(b)), n)
+        step, tok, times = ep._decode_exec(v1, b), torch.zeros((b, 1), dtype=torch.int32, device=dev), []
+        for i in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cb = step(tok, cb, s + i, v1.params)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            tok = logits.argmax(-1).to(torch.int32)
+        step_ms[b] = statistics.median(times[1:])
+    log(f"  decode step at each bucket, median of steps 2-6: "
+        + ", ".join(f"{b}: {ms:.2f} ms" for b, ms in step_ms.items()))
+    # each prefill and decode step builds the registered version's parameter
+    # tree from its flat dict (Model.param_tree); its host time, a share
+    # of the step's
+    tree_ms = []
+    for _ in range(21):
+        t0 = time.perf_counter()
+        param_tree(v1.params)
+        tree_ms.append((time.perf_counter() - t0) * 1e3)
+    tree_ms = statistics.median(tree_ms)
+    log(f"  param_tree of {len(v1.params)} named tensors (host, median of 21): {tree_ms:.4f} ms, "
+        f"{tree_ms / step_ms[n]:.2e} of the bucket-{n} decode step")
+    busy = device_busy(torch, lambda: ep._decode_exec(v1, n)(
+        torch.zeros((n, 1), dtype=torch.int32, device=dev), caches, s, v1.params))
+    if busy is None:
+        idle = None
+        log(f"  bucket-{n} decode step under torch.profiler: no device time recorded; not measured")
+    else:
+        wall, dev_ms, host, devops = busy
+        idle = 1 - dev_ms / wall
+        log(f"  bucket-{n} decode step under torch.profiler: wall {wall:.2f} ms, device busy "
+            f"{dev_ms:.2f} ms (idle share at most {idle:.3f}); most host time: "
+            + "; ".join(f"{k} {ms:.2f} ms x{c}" for k, ms, c in host))
+    # hot swap, last (a bare "olmoe" then follows v2): olmoe@v2 is the same tensors with out_embed perturbed; two
+    # tenants pinned to the two versions
+    gen = torch.Generator(device=dev).manual_seed(13)
+    emb = params["out_embed"].detach()
+    v2 = db.register_model("olmoe", model, dict(
+        params, out_embed=emb + torch.randn(emb.shape, generator=gen, device=dev) * emb.std()))
+    tenant_ep = db.endpoint(cache_len=cache_len, buckets=buckets,
+                            tenants={"a": "olmoe@v1", "b": "olmoe@v2"})
+    swap_prompts = prompts[:4]
+    before = counters()
+    swap_outs = burst(tenant_ep, [(p, {"tenant": t, "max_new_tokens": ENDPOINT_SWAP_NEW})
+                                  for t in ("a", "b") for p in swap_prompts])
+    swap_got = delta(counters(), before)
+    v1_oracles = [(toks[:ENDPOINT_SWAP_NEW], gaps[:ENDPOINT_SWAP_NEW]) for toks, gaps in oracles[:4]]
+    v2_oracles = [solo(p, ENDPOINT_SWAP_NEW, v2.params) for p in swap_prompts]
+    ties_a, bad_a = hold_to_oracle(swap_outs[:4], v1_oracles, ENDPOINT_TIE_LIMIT)
+    ties_b, bad_b = hold_to_oracle(swap_outs[4:], v2_oracles, ENDPOINT_TIE_LIMIT)
+    differ = sum(a.token_ids.tolist() != b.token_ids.tolist() for a, b in zip(swap_outs[:4], swap_outs[4:]))
+    log(f"  tenants a -> {v1}, b -> {v2} ({ENDPOINT_SWAP_NEW} tokens each): served by "
+        f"{sorted({o.model for o in swap_outs})}; against their own version's solo runs: near ties "
+        f"{ties_a + ties_b}, failures {bad_a + bad_b}; {differ} of 4 prompts served otherwise by v2; "
+        f"counters (change): batches {swap_got['serve']['batches']}, prefill compiles "
+        f"{swap_got['serve']['prefill']['compiles']}, decode compiles {swap_got['serve']['decode']['compiles']}")
+    if [o.model for o in swap_outs] != ["olmoe@v1"] * 4 + ["olmoe@v2"] * 4:
+        raise AssertionError(f"tenants served by {[o.model for o in swap_outs]}")
+    if bad_a or bad_b or not differ or swap_got["serve"]["batches"] != 2:
+        raise AssertionError("the tenants' versions were not served as registered")
+
+    log(f"  serve counters at the end: {json.dumps(counters()['serve'])}; cache {counters()['cache']}")
+    del caches, cb, logits, pre, v2, tenant_ep, eos_ep, emb
+    return {"launches": launches, "sites": sites, "log": burst_log, "pass": dict(burst_log.counts),
+            "burst_ms": burst_s * 1e3, "tokens_per_s": n_tok / burst_s, "ttft_ms": ttft,
+            "step_ms": step_ms, "param_tree_ms": tree_ms, "warmup_s": warm_s, "peak": peak, "idle": idle, "near_ties": len(ties)}
 
 
 def olmoe_grads(torch, repro_torch, model, batch, names, dispatch, routing, replay=None):
@@ -2406,7 +2725,8 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, errs, 
     # and one decode step; phase 11: one train step, its recomputed
     # forwards and backward included) on the ids its first call took, times
     # its calls in the pass
-    for path, run in (("olmoe_serve", olmoe["serve"]), ("olmoe_train", olmoe["train"])):
+    for path, run in (("olmoe_serve", olmoe["serve"]), ("olmoe_train", olmoe["train"]),
+                      ("olmoe_endpoint", olmoe["endpoint"])):
         for key, mult in sorted(run["pass"].items()):
             ids = run["log"].ids.get(key)
             add(path, key[0], f"{key[0]}{key[1:]}", mult,
@@ -2488,6 +2808,7 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, errs, 
                    "kge": kge["launches"][op], "falcon_mamba": lm["launches"][op],
                    "olmoe_serve": olmoe["serve"]["launches"][op],
                    "olmoe_train": olmoe["train"]["launches"][op],
+                   "olmoe_endpoint": olmoe["endpoint"]["launches"][op],
                    "oocore": oocore["launches"].get(op, 0)}
         records.append({
             "name": op,
@@ -2511,14 +2832,16 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, errs, 
                     f"{LM_DECODE} decode steps (phase 7), phase 9's streamed runs ({OOC_ARXIV_STEPS} "
                     f"arxiv GCN steps, {LOGREG_STEPS + 1} logistic-regression steps, "
                     f"{OOC_PRODUCTS_STEPS} products GCN steps), one olmoe-1b-7b request of a prefill "
-                    f"and {OLMOE_DECODE} decode steps (phase 10) and {OLMOE_TRAIN_STEPS} olmoe train "
-                    "steps (phase 11); "
+                    f"and {OLMOE_DECODE} decode steps (phase 10), {OLMOE_TRAIN_STEPS} olmoe train "
+                    f"steps (phase 11) and burst 1 of phase 12 ({ENDPOINT_REQUESTS} concurrent "
+                    "requests through db.endpoint: one bucketed prefill and its decode steps); "
                     "ms, plain_ms, bound_ms, library_ms: each site timed alone, times its "
                     "launches in one pass, summed over one GCN step, one logistic-regression "
                     "step, one NNMF step, one KGE step at each width, one prefill, one "
                     "decode step and one streamed step of each of phase 9's runs (arxiv GCN, "
                     "logistic regression, products GCN), olmoe's prefill and one decode step "
-                    "(olmoe_serve) and one olmoe train step (olmoe_train); 'paths' splits them; host_ms: "
+                    "(olmoe_serve), one olmoe train step (olmoe_train) and phase 12's burst 1 "
+                    "(olmoe_endpoint); 'paths' splits them; host_ms: "
                     f"the host's time per call over {HOST_CALLS} calls without a synchronise, "
                     "summed the same way over the sites where it was taken (null: not taken)"),
             "paths": {path: {k: v for k, v in acc.items() if k not in ("bytes_ms", "ops_ms")}
@@ -3185,6 +3508,16 @@ def main() -> int:
     olmoe = {"serve": olmoe_serve_phase(torch, repro_torch, kern, olmoe_cfg, dev, checked),
              "d_model": olmoe_cfg.d_model, "vocab": olmoe_cfg.vocab}
     log(f"  phase 10: {time.perf_counter() - t0:.1f} s")
+
+    # phase 12 serves phase 10's model, so its weights are built once
+    log(f"phase 12: {OLMOE_ARCH} through the serving front door (db.endpoint)")
+    t0 = time.perf_counter()
+    model = olmoe["serve"].pop("model")
+    olmoe["endpoint"] = olmoe_endpoint_phase(torch, repro_torch, kern, olmoe_cfg, dev, model, checked)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  phase 12: {time.perf_counter() - t0:.1f} s")
 
     log(f"phase 11: {OLMOE_ARCH} training at its published widths, {OLMOE_TRAIN_LAYERS} layers")
     t0 = time.perf_counter()

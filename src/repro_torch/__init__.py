@@ -28,6 +28,8 @@ _LAZY = {
     "SQLError": ("repro_torch.core.sql", "SQLError"),
     "Diagnostic": ("repro_torch.analysis.diagnostics", "Diagnostic"),
     "CheckReport": ("repro_torch.analysis.diagnostics", "CheckReport"),
+    "Endpoint": ("repro_torch.serving.service", "Endpoint"),
+    "serve": ("repro_torch.serving.service", "serve"),
 }
 
 __all__ = sorted(_LAZY)

@@ -31,15 +31,23 @@ streamable base relation through the device in chunk waves (``planner.plan_waves
 ``ChunkStore``. A relation larger than the budget is kept on the host by
 ``put``, and one that a step streams moves there (``Database._place``).
 ``db.counters()["spill"]`` reads the store's counters.
+
+The catalog also holds the **model registry** the serving front door
+resolves requests through (``db.register_model``, ``db.model``,
+``db.endpoint``: serving/service.py), and the session keeps an LRU
+**executable cache** (``cached_executable``, bounded by
+``max_cache_entries``) that holds the serving steps, one per bucket;
+``db.counters()["cache"]`` and ``["serve"]`` count both.
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import copy
 from collections import OrderedDict
 from dataclasses import dataclass
-from typing import Dict, Iterator, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, Iterator, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -84,11 +92,37 @@ class TableEntry:
     donated: bool = False
 
 
+@dataclass
+class ModelEntry:
+    """One row of the catalog's model registry: a served model under a
+    ``name@version`` coordinate. The serving front door
+    (``Database.endpoint``) resolves every request — including per-tenant
+    aliases — through these entries, so re-registering a version swaps
+    the served parameters without touching the endpoint."""
+
+    name: str
+    version: str
+    model: Any
+    params: Any
+
+    @property
+    def key(self) -> Tuple[str, str]:
+        return (self.name, self.version)
+
+    def __str__(self) -> str:
+        return f"{self.name}@{self.version}"
+
+
 class Catalog:
-    """Named relations + schemas + statistics."""
+    """Named relations + schemas + statistics, plus the model registry
+    the serving front door resolves requests through."""
 
     def __init__(self) -> None:
         self._tables: "OrderedDict[str, TableEntry]" = OrderedDict()
+        #: name → version → ModelEntry (insertion order; last = latest).
+        self._models: "OrderedDict[str, OrderedDict[str, ModelEntry]]" = (
+            OrderedDict()
+        )
 
     def __contains__(self, name: str) -> bool:
         return name in self._tables
@@ -153,6 +187,49 @@ class Catalog:
             n: self._tables[n].stats for n in names if n in self._tables
         }
 
+    # -- model registry (the serving front door resolves through this) -----
+
+    def put_model(
+        self, name: str, model, params, version: Optional[str] = None
+    ) -> ModelEntry:
+        """Register (or update) a served model version. ``version``
+        defaults to ``v<n+1>``; re-registering an existing version swaps
+        its model/params in place (live endpoints pick the new parameters
+        up on the next batch they form)."""
+        versions = self._models.setdefault(name, OrderedDict())
+        if version is None:
+            version = f"v{len(versions) + 1}"
+        entry = ModelEntry(name, str(version), model, params)
+        versions[entry.version] = entry
+        versions.move_to_end(entry.version)
+        return entry
+
+    def model(self, name: str, version: Optional[str] = None) -> ModelEntry:
+        """Resolve ``name[@version]`` to a registered ModelEntry (latest
+        registered version when ``version`` is None)."""
+        if version is None and "@" in name:
+            name, _, version = name.partition("@")
+        try:
+            versions = self._models[name]
+        except KeyError:
+            raise CatalogError(
+                f"model {name!r} is not registered (models: "
+                f"{sorted(self._models)}); db.register_model(...) it first"
+            ) from None
+        if version is None:
+            return next(reversed(versions.values()))
+        try:
+            return versions[str(version)]
+        except KeyError:
+            raise CatalogError(
+                f"model {name!r} has no version {version!r} "
+                f"(versions: {list(versions)})"
+            ) from None
+
+    def models(self) -> Dict[str, Tuple[str, ...]]:
+        """{model name: registered versions, oldest→latest}."""
+        return {n: tuple(v) for n, v in self._models.items()}
+
 
 # ---------------------------------------------------------------------------
 # The session
@@ -195,6 +272,31 @@ def resolve_device(device, owner: str = "repro_torch.Database") -> torch.device:
     return dev
 
 
+def _serve_counters() -> Dict[str, Any]:
+    """Zeroed ``serve/`` subtree of the unified counter tree — the async
+    serving front door (serving/service.py) increments these."""
+    return {
+        "requests": 0,        # submitted to an endpoint on this session
+        "admitted": 0,        # passed the bounded admission queue
+        "completed": 0,       # futures resolved with a Completion
+        "failed": 0,          # futures resolved with an error
+        "shed_queue_full": 0,  # rejected: admission queue at max_queue
+        "shed_deadline": 0,    # rejected: deadline passed before service
+        "batches": 0,          # coalesced prefill batches executed
+        "batched_requests": 0,  # requests that shared a batch (size > 1)
+        "queue_peak": 0,       # high-water admission queue depth
+        "prefill": {"compiles": 0, "steps": 0},
+        "decode": {
+            "compiles": 0,      # decode executables built (per bucket)
+            "traces": 0,        # first calls of those (one per bucket)
+            "steps": 0,         # decode steps executed
+            "rebuckets": 0,     # mid-decode compactions to a smaller bucket
+            "slot_releases": 0,  # slots freed by finished requests
+            "eos_stops": 0,      # slots released early on an EOS token
+        },
+    }
+
+
 class Database:
     """A session: catalog + statistics + device + dispatch table, and the
     one query path from an FRA query to a compiled gradient step.
@@ -209,7 +311,8 @@ class Database:
     selects rules). ``memory_budget`` is the out-of-core device-memory
     budget in bytes (module docstring); None — the default — disables
     spilling: plans and results are bit-identical to an unbudgeted
-    session.
+    session. ``max_cache_entries`` bounds the session's executable cache
+    (LRU) — the serving bucket steps ride on it; None = unbounded.
     """
 
     def __init__(
@@ -220,6 +323,7 @@ class Database:
         memory_budget: Optional[float] = None,
         rewrite=True,
         fuse_join_agg: bool = True,
+        max_cache_entries: Optional[int] = None,
     ) -> None:
         self.device = resolve_device(device)
         self.catalog = Catalog()
@@ -233,6 +337,15 @@ class Database:
         self.memory_budget = memory_budget
         self._chunkstore = _chunkstore.ChunkStore(self.device)
         self.fuse_join_agg = fuse_join_agg
+        self.max_cache_entries = max_cache_entries
+        self._exec_cache: "OrderedDict[Any, Any]" = OrderedDict()
+        #: the session's telemetry tree (``db.counters()``): the ``cache``
+        #: and ``serve`` subtrees live here, ``spill`` is read off the
+        #: ChunkStore at snapshot time.
+        self._counters: Dict[str, Any] = {
+            "cache": {"hits": 0, "misses": 0, "evictions": 0},
+            "serve": _serve_counters(),
+        }
 
     # -- catalog front door ------------------------------------------------
 
@@ -287,16 +400,89 @@ class Database:
         self._chunkstore.drop(name)
         self.catalog.drop(name)
 
-    def counters(self) -> Dict[str, Dict[str, int]]:
+    # -- model registry + the serving front door ---------------------------
+
+    def register_model(
+        self, name: str, model, params, *, version: Optional[str] = None
+    ) -> ModelEntry:
+        """Register a model version in the catalog's model registry —
+        what the serving front door (``db.endpoint``) resolves request
+        model/tenant coordinates through. ``version`` defaults to
+        ``v<n+1>``; re-registering a version hot-swaps its parameters
+        (live endpoints serve the new ones from the next batch on). A port
+        ``Model`` takes ``params`` as a name → tensor dict with
+        ``named_parameters()``'s names, on the session's device."""
+        return self.catalog.put_model(name, model, params, version)
+
+    def model(self, name: str, version: Optional[str] = None) -> ModelEntry:
+        """Resolve ``name`` (or ``"name@version"``) from the model
+        registry — latest registered version when unversioned."""
+        return self.catalog.model(name, version)
+
+    def endpoint(self, model=None, **kwargs) -> Any:
+        """The serving front door: an async ``Endpoint`` over this
+        session — continuous batching of concurrent requests into the
+        session's (batch, seq) bucketed steps, decode-step bucketing,
+        per-tenant model versions resolved through the catalog's model
+        registry, and bounded-queue/deadline load shedding counted under
+        ``db.counters()["serve"]``. It runs on the session's device.
+
+        ``model`` is a registered model name (``"lm"`` / ``"lm@v2"``) or
+        a Model instance (auto-registered; pass ``params=``). See
+        ``repro_torch.serving.service.Endpoint`` for the keyword surface
+        (``cache_len``, ``buckets``, ``decode_buckets``, ``tenants``,
+        ``max_queue``, ``max_new_tokens``, ``eos_token``)."""
+        from repro_torch.serving.service import Endpoint
+
+        return Endpoint(self, model, **kwargs)
+
+    # -- unified telemetry -------------------------------------------------
+
+    def counters(self) -> Dict[str, Any]:
         """The session's telemetry tree, snapshotted (mutating the returned
         dict never touches live state)::
 
-            {"spill": {spilled_relations, spilled_bytes,
-                       fetched_chunks, fetched_bytes}}   # out-of-core
+            {"cache":   {hits, misses, evictions},          # exec cache
+             "spill":   {spilled_relations, spilled_bytes,
+                         fetched_chunks, fetched_bytes},    # out-of-core
+             "serve":   {requests, admitted, completed, failed,
+                         shed_queue_full, shed_deadline, batches,
+                         batched_requests, queue_peak,
+                         prefill: {compiles, steps},
+                         decode:  {compiles, traces, steps, rebuckets,
+                                   slot_releases, eos_stops}}}
 
-        The reference's ``cache``, ``reshard`` and ``serve`` subtrees come
-        with the modules that keep them (serving, multi-device planning)."""
-        return {"spill": dict(self._chunkstore.stats)}
+        The reference's ``reshard`` subtree counts the bytes a mesh-compiled
+        step moves between layouts; it comes with multi-device planning
+        (ROADMAP.md, queue 1, item 4)."""
+        return {
+            "cache": dict(self._counters["cache"]),
+            "spill": dict(self._chunkstore.stats),
+            "serve": copy.deepcopy(self._counters["serve"]),
+        }
+
+    # -- session executable cache (the serving bucket steps) ---------------
+
+    def cached_executable(self, key, build: Callable[[], Any]):
+        """One executable per ``key`` in the session's LRU cache: returns
+        the cached value (a hit), or ``build()``'s result after inserting
+        it (a miss), evicting least-recently-used entries beyond
+        ``max_cache_entries``. ``db.counters()["cache"]`` counts hits,
+        misses and evictions — the serving front door asserts on them."""
+        cache = self._counters["cache"]
+        hit = self._exec_cache.get(key)
+        if hit is not None:
+            self._exec_cache.move_to_end(key)
+            cache["hits"] += 1
+            return hit
+        cache["misses"] += 1
+        val = build()
+        self._exec_cache[key] = val
+        if self.max_cache_entries is not None:
+            while len(self._exec_cache) > self.max_cache_entries:
+                self._exec_cache.popitem(last=False)
+                cache["evictions"] += 1
+        return val
 
     def stats(self, name: str) -> planner.RelationStats:
         """The tracked key-domain statistics of one relation."""

@@ -10,7 +10,9 @@ repro_torch.examples.<name> [--device cpu]``:
 - ``gcn_train``: the two-layer GCN of the paper's §6 with Adam, full-graph
   or mini-batch;
 - ``lm_train``: an OLMoE-family language model trained on the synthetic
-  pipeline through ``train.make_train_step``, with checkpoints.
+  pipeline through ``train.make_train_step``, with checkpoints;
+- ``serve_batched``: concurrent requests to olmoe-1b-7b or falcon-mamba-7b
+  through the async serving front door (``db.endpoint``).
 
 Each runs on the CUDA device unless ``--device`` names another.
 """

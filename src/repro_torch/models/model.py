@@ -89,9 +89,12 @@ class Model(nn.Module):
     remainder layer. Caches have the same layout: a list per stage of
     ``{"scan": [entry per repeat], "tail": [entry per layer]}``.
 
-    ``train_logits`` runs on the module's own parameters, or on ``params``:
-    a name → tensor dict with ``named_parameters()``'s names (the trainer's
-    functional form, the reference's ``(params, batch)``)."""
+    ``train_logits``, ``prefill`` and ``decode_step`` run on the module's
+    own parameters, or on ``params``: a name → tensor dict with
+    ``named_parameters()``'s names (the trainer's functional form, the
+    reference's ``(params, batch)``; the serving front door passes a
+    registered version's, so that one module serves versions with
+    parameters of their own)."""
 
     def __init__(self, cfg, device=None, seed: int = 0):
         super().__init__()
@@ -236,11 +239,12 @@ class Model(nn.Module):
         x, _, aux = self._run_stages(p, x, ctx, None)
         return self._head(p, x), aux
 
-    def prefill(self, batch: Dict[str, Any], cache_len: int):
+    def prefill(self, batch: Dict[str, Any], cache_len: int,
+                params: Optional[Mapping[str, torch.Tensor]] = None):
         """Logits of the last position (B,1,V) and the caches after the
         prompt. ``cache_len`` sizes attention caches (the prompt's K/V
         padded to it); the SSM state is O(1)."""
-        p = self
+        p = self._tree(params)
         tokens = batch["tokens"]
         b, s = tokens.shape
         x = self._embed(p, tokens)
@@ -249,10 +253,10 @@ class Model(nn.Module):
         x, caches, _ = self._run_stages(p, x, ctx, None)
         return self._head(p, x[:, -1:]), caches
 
-    def decode_step(self, token, caches, length):
+    def decode_step(self, token, caches, length, params: Optional[Mapping[str, torch.Tensor]] = None):
         """token: (B, 1) integer; caches from prefill (or the previous
         step); length: count of valid cache entries (an int)."""
-        p = self
+        p = self._tree(params)
         x = self._embed(p, token)
         ctx = {"cfg": self.cfg, "mode": "decode",
                "positions": self._positions(token.shape[0], 1, length=length), "length": length}

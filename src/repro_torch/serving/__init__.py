@@ -1,3 +1,13 @@
-"""Serving steps: batched prefill and single-token decode (serve.py)."""
+"""Serving: batched prefill and single-token decode steps (serve.py), the
+bucketed prefill engine, and the async serving front door (service.py)."""
 
-from .serve import init_cache, make_decode_step, make_prefill_step  # noqa: F401
+from .serve import BucketedPrefill, init_cache, make_decode_step, make_prefill_step  # noqa: F401
+from .service import (  # noqa: F401
+    Completion,
+    DeadlineExceeded,
+    Endpoint,
+    EndpointClosed,
+    Overloaded,
+    ServingError,
+    serve,
+)

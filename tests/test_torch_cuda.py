@@ -758,3 +758,85 @@ def test_olmoe_gradients_with_remat_equal_those_without_on_the_card(cuda_device)
         grads[remat] = dict(zip(names, torch.autograd.grad(total, params)))
     assert all(torch.equal(grads[False][k], grads[True][k]) for k in grads[False])
     kernels.reset_launch_counts()
+
+
+@pytest.mark.cuda
+def test_reduced_olmoe_endpoint_on_the_card_coalesces_and_matches_solo_serving(cuda_device):
+    """Four concurrent requests through ``db.endpoint`` on the card, after
+    ``warmup``: one coalesced batch, no step built or first-called under
+    traffic, the three kernels launched, and each completion equal to the
+    request served alone through ``make_prefill_step``/``make_decode_step``
+    — or, where the two first differ, the solo run's top-2 logits there a
+    near tie within ``chip_smoke.ENDPOINT_TIE_LIMIT`` of the largest logit
+    (its estimate is for 16 layers at full width; two narrow layers round
+    less). A planted compaction that swaps two slots' cache rows must fail
+    that check, as in phase 12: the budgets leave two requests with six and
+    more tokens to decode on the swapped rows."""
+    import asyncio
+    import importlib.util
+    from pathlib import Path
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import make_decode_step, make_prefill_step, service
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    cfg = get_config("olmoe-1b-7b").reduced()
+    model = build_model(cfg, seed=0)
+    db = repro_torch.Database(max_cache_entries=16)
+    db.register_model("olmoe", model, dict(model.named_parameters()))
+    ep = db.endpoint("olmoe", cache_len=32, buckets=[(1, 16), (2, 16), (4, 16)])
+    ep.warmup()
+    warm = db.counters()["serve"]
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=16) for _ in range(4)]
+    budgets = [12, 5, 11, 4]
+
+    async def burst():
+        return await asyncio.gather(*[ep.submit(p, max_new_tokens=n) for p, n in zip(prompts, budgets)])
+
+    kernels.reset_launch_counts()
+    outs = asyncio.run(burst())
+    launched = kernels.launch_counts()
+    c = db.counters()["serve"]
+    assert c["batches"] == 1 and c["batched_requests"] == 4 and c["completed"] == 4
+    assert c["decode"]["rebuckets"] >= 1
+    for phase in ("prefill", "decode"):
+        assert c[phase]["compiles"] == warm[phase]["compiles"]
+    assert c["decode"]["traces"] == warm["decode"]["traces"]
+    assert all(launched[op] > 0 for op in ("blocked_matmul", "gather_join", "segment_sum")), launched
+    prefill, decode = make_prefill_step(model, 32, db=db), make_decode_step(model, db=db)
+    oracles = []
+    for p, n in zip(prompts, budgets):
+        logits, caches = prefill({"tokens": torch.tensor(p, dtype=torch.int32, device=cuda_device)[None]})
+        solo, gaps = [], []
+        for step in range(n):
+            lg = logits[0, -1]
+            top = lg.topk(2).values
+            gaps.append(float((top[0] - top[1]) / lg.abs().max()))
+            solo.append(int(lg.argmax()))
+            if step + 1 < n:
+                logits, caches = decode(torch.tensor([[solo[-1]]], dtype=torch.int32, device=cuda_device),
+                                        caches, 16 + step)
+        oracles.append((solo, gaps))
+    _, bad = cs.hold_to_oracle(outs, oracles, cs.ENDPOINT_TIE_LIMIT)
+    assert not bad, bad
+
+    real_take = service._take_cache_batch
+
+    def swapped(caches, idx, bucket_b):
+        idx = list(idx)
+        if len(idx) > 1:
+            idx[0], idx[1] = idx[1], idx[0]
+        return real_take(caches, idx, bucket_b)
+
+    service._take_cache_batch = swapped
+    try:
+        faulty = asyncio.run(burst())
+    finally:
+        service._take_cache_batch = real_take
+    assert cs.hold_to_oracle(faulty, oracles, cs.ENDPOINT_TIE_LIMIT)[1], "the check passes swapped cache rows"
+    kernels.reset_launch_counts()

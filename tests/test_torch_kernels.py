@@ -119,10 +119,44 @@ def test_gather_rows_matches_jax(e, n, d):
 # ---------------------------------------------------------------------------
 
 
+U32 = 2.0 ** -24  # unit roundoff of f32
+
+
+def _dot_bound(a, b):
+    """The f64 product ``a @ b`` and, per entry, the f32 dot-product bound
+    k·u·Σ|a||b| (k the summed length, u = 2⁻²⁴): any f32 sum of those k
+    products, in any order, lies within it of the exact sum."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return a @ b, a.shape[1] * U32 * (np.abs(a) @ np.abs(b))
+
+
+def _within(got, exact, bound):
+    return bool((np.abs(np.asarray(got, np.float64) - exact) <= bound).all())
+
+
+def _hold(got, want, a, b):
+    """The port's result and the JAX package's, each against the f64
+    product within the f32 dot-product bound, so that neither side's check
+    depends on the order its machine's BLAS sums in; the two then agree
+    within twice the bound. A result with one term dropped (the last of
+    the k) must fail the bound."""
+    exact, bound = _dot_bound(a, b)
+    assert _within(got, exact, bound), np.abs(got - exact).max()
+    assert _within(want, exact, bound), np.abs(want - exact).max()
+    a64, b64 = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    dropped = (exact - a64[:, -1:] @ b64[-1:, :]).astype(np.float32)
+    assert not _within(dropped, exact, bound), "the bound passes a dropped term"
+
+
 @pytest.mark.parametrize(
     "m,k,n", [(5, 3, 1), (67, 33, 65), (130, 40, 7), (1, 129, 1), (64, 64, 64)]
 )
 def test_blocked_matmul_matches_jax(m, k, n):
+    """Forward x·y and both gradients, g·yᵀ and xᵀ·g, each held to the f32
+    dot-product bound of its own summed length (k, n and m). A fixed
+    ``atol`` failed here at (130, 40, 7): dY sums 130 terms to entries near
+    36, where 1e-5 is 2.6 ulp, and both sides lie about 1e-5 from the exact
+    sum, each well inside its bound."""
     rng = np.random.default_rng(m * 7 + k * 3 + n)
     x, y = _f32(rng, m, k), _f32(rng, k, n)
     cot = _f32(rng, m, n)
@@ -138,9 +172,9 @@ def test_blocked_matmul_matches_jax(m, k, n):
     ty = torch.tensor(y, requires_grad=True)
     got = blocked_matmul(tx, ty)
     got.backward(torch.tensor(cot))
-    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=ATOL)
-    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jgx), atol=ATOL)
-    np.testing.assert_allclose(ty.grad.numpy(), np.asarray(jgy), atol=ATOL)
+    _hold(got.detach().numpy(), np.asarray(want), x, y)
+    _hold(tx.grad.numpy(), np.asarray(jgx), cot, y.T)
+    _hold(ty.grad.numpy(), np.asarray(jgy), x.T, cot)
 
 
 def test_wrappers_reject_mixed_devices():

@@ -359,10 +359,13 @@ def test_no_budget_and_a_fitting_budget_are_bit_identical(workload):
         assert not isinstance(h.last, StreamedCompiled)
         assert h.resolutions == h0.resolutions
         assert_close(got, base, atol=0)
-        assert db.counters() == {"spill": {
+        c = db.counters()
+        assert set(c) == {"cache", "spill", "serve"}
+        assert c["spill"] == {
             "spilled_relations": 0, "spilled_bytes": 0,
             "fetched_chunks": 0, "fetched_bytes": 0,
-        }}
+        }
+        assert c["cache"] == {"hits": 0, "misses": 0, "evictions": 0}
 
 
 def test_counters_are_a_snapshot():
