@@ -47,8 +47,9 @@ Phases, in order; any failure stops the run with a non-zero exit:
 8. time each kernel at the shapes of the main paths (the GCN step, the
    logistic regression's step, the NNMF and KGE steps, prefill and decode,
    a wave of each of phase 9's streamed steps, on the wave's own ids, and
-   olmoe's prefill, decode step and train step, and phase 12's burst, on
-   their calls' own ids)
+   olmoe's prefill, decode step and train step, phase 12's burst,
+   zamba2's prefill and decode step and a falcon-mamba train step (the
+   scan's forward and reverse walks apart), on their calls' own ids)
    beside its plain version, one PyTorch library call (where there is one),
    the card's bound and, for the small calls, the host's time per call; and
    time ``segment_sum``'s index (sort and starts) and its two paths across
@@ -95,10 +96,28 @@ Phases, in order; any failure stops the run with a non-zero exit:
    perturbed) behind a tenant map, each tenant held to its own version;
    an EOS stop; time to first token, tokens/s, the decode step at each
    bucket, peak memory and how much of a bucket-8 decode step the card is
-   busy.
+   busy;
+13. (run after phase 11, before phase 8) serve zamba2-7b at its published
+   widths and depth (81 layers: 13 x (5 Mamba-2 + 1 Mamba-2 with the one
+   shared attention+MLP block) + 3 Mamba-2; d_model 3,584, 112 SSM heads of
+   64, state 64, vocab 32,000; f32, random weights from a seed): a request
+   of 2 prompts of 1,024 tokens (the scan at (2, 1,024, 112, 4,096), once
+   per layer) and 8 greedy decode steps; every site on the cuda tier, the
+   logits against the torch tier and decode step 1 against a longer
+   prefill, with a lost SSM state, a lost conv window and a lost shared K
+   cache planted; the times against the decode floor, the peak memory, the
+   launches and how much of a decode step the card is busy;
+14. (run before phase 8) train falcon-mamba-7b at its published widths and
+   4 layers through ssm_scan's forward, recompute and reverse walk: step
+   1's loss and gradients against the torch tier with the scan's time loop
+   (a lost token planted), the gradients under remat "nothing", "dots" and
+   none bit for bit ("dots" recomputes no product), then 5 donated Adam
+   steps under "nothing" and 5 from the same weights under "dots" (equal
+   losses), with the step time, tokens/s, peak memory, launches and the
+   idle share.
 
 Device memory is freed between phases, so the NNMF step's peak and the
-language models' 29 and 27.7 GB of weights never meet. The last line of standard
+language models' 27–29 GB of weights never meet. The last line of standard
 output is ``{"ok": true, "device": {...}}``; the line before it is one JSON
 object with a record per kernel, and the line before that the card's name
 and power limit as nvidia-smi gives them.
@@ -240,6 +259,51 @@ OLMOE_LOSS_LIMIT = 1e-5
 #: limit allows 5 times that. A step that loses one of its 4,096 tokens
 #: (planted) moves every gradient by more than 1/4,096 = 2.4e-4
 OLMOE_GRAD_LIMIT = 2e-4
+# zamba2-7b (src/repro_torch/configs/zamba2_7b.py at its published widths
+# and depth, f32 instead of bf16): phase 13 serves all 81 layers, 13 x (5
+# mamba2 + 1 mamba2_attn) + 3 mamba2, the one shared attention+MLP block at
+# the 13 mamba2_attn layers; one request of 2 prompts of 1,024 tokens (the
+# scan at (2, 1,024, 112 heads, 64 x 64 lanes): 3.76 GB a tensor) and 8
+# greedy decode steps
+ZAMBA2_ARCH, ZAMBA2_BATCH, ZAMBA2_PROMPT, ZAMBA2_DECODE = "zamba2-7b", 2, 1024, 8
+ZAMBA2_PARAMS = 6_751_130_832
+#: the prefill logits of the cuda tier against the torch tier (torch.matmul
+#: and the parallel-prefix scan), as a share of the largest logit: each of
+#: the 253 products of a forward (two per Mamba-2 layer, seven per shared
+#: block) differs between the tiers by about √K·u of its size (K ≤ 14,336:
+#: 7.1e-6), ≈ 1.1e-4 as a random walk, and the scans by a few roundings.
+#: As for falcon-mamba (LM_PREFILL_LIMIT), the limit allows 10 times that
+ZAMBA2_PREFILL_LIMIT = 1e-3
+#: decode step 1 against a prefill over the prompt plus its token, as a
+#: share of the largest logit: both run the cuda tier on the same weights
+#: and blocked_matmul's rows do not depend on m; what rounds otherwise is
+#: the recurrence step against the scan kernel, the SSM readout einsum and
+#: the shared block's attention (one softmax over the cache against the
+#: prompt's), a few f32 roundings each, as for LM_DECODE_LIMIT and
+#: OLMOE_DECODE_LIMIT. Phase 13 plants a lost SSM state, a lost conv window
+#: and a lost shared K cache and shows each exceeds it
+ZAMBA2_DECODE_LIMIT = 1e-4
+# falcon-mamba-7b training (phase 14): its published widths at 4 of its 64
+# layers (the f32 weights, gradients and two Adam moments of all 64 take
+# 116.4 GB; of 4, 15.26 GB), remat, one batch of 4 x 1,024 tokens, 5
+# donated Adam steps under remat "nothing", then 5 from the same weights
+# under "dots"; the scan at (4, 1,024, 8,192, 16): forward, recompute and
+# reverse walk on the kernel
+FALCON_ARCH_LAYERS = 64
+FALCON_TRAIN_LAYERS, FALCON_TRAIN_BATCH, FALCON_TRAIN_SEQ, FALCON_TRAIN_STEPS = 4, 4, 1024, 5
+FALCON_TRAIN_PARAMS = 953_929_728
+#: step 1's loss, cuda tier against the torch tier (the scan's time loop),
+#: relative: a mean over 4,096 tokens of log-sum-exps of logits that agree
+#: to ≈ 1e-5 (4 layers, 17 products in a chain of K ≤ 8,192), as
+#: OLMOE_LOSS_LIMIT
+FALCON_LOSS_LIMIT = 1e-5
+#: step 1's gradients of layer 0's in_proj, x_proj and a_log (the scan's
+#: ∂a, summed over the batch) and of the embedding table, cuda tier
+#: against torch tier, relative in the 2-norm: the same argument and limit
+#: as OLMOE_GRAD_LIMIT (≈ 100 f32 sums of K ≤ 8,192 terms in a chain, each ≈
+#: √K·u ≈ 5.4e-6, as a random walk ≈ 5e-5). A step that loses one of its
+#: 4,096 tokens (planted) moves every gradient by more than 1/4,096
+FALCON_GRAD_LIMIT = 2e-4
 # phase 12, the serving front door on phase 10's model: db.endpoint with
 # (batch, seq) prefill buckets of 1, 2, 4 and 8 prompts of 512 tokens, the
 # default decode buckets (1, 2, 4, 8) and room for 16 new tokens; a burst of
@@ -356,8 +420,8 @@ def matmul_cases(cfg):
     """(m, k, n, what) of every blocked_matmul product phase 2 checks: the
     GCN forwards, the RJP shapes, the logistic regression's two products
     in core and in one wave of phase 9, the NNMF product, falcon-mamba's projections at m = B·S and m = B and
-    its head at m = B, ragged edges, and the crossover between the skinny
-    and the tiled path."""
+    its head at m = B, ragged edges, the crossover between the skinny
+    and the tiled path, and the products of phases 10-14."""
     from repro_torch.examples.nnmf import BLOCK
 
     cases = [
@@ -377,6 +441,8 @@ def matmul_cases(cfg):
             cases.append((m, k, n, "falcon-mamba " + ("head" if sites == 1 else "projection")))
     cases += [(m, k, n, "crossover") for m in CROSSOVER_M for k in CROSSOVER_K for n in CROSSOVER_N]
     cases += [(m, k, n, "olmoe") for op, m, k, n in sorted(olmoe_checked_shapes(olmoe_config()))
+              if op == "blocked_matmul"]
+    cases += [(m, k, n, "zamba2 / falcon-mamba training") for op, m, k, n in sorted(ssm_checked_shapes())
               if op == "blocked_matmul"]
     return cases
 
@@ -639,6 +705,11 @@ def check_kernels(torch, kern, graph, lm_cfg, olmoe_cfg, dev):
         batch_invariance_case(LM_BATCH * LM_PROMPT, k, n,
                               "falcon-mamba " + ("head" if sites == 1 else "projection"))
     batch_invariance_case(NODES, FEAT, HIDDEN, "GCN layer-1 forward")
+    # and zamba2's (the premise of ZAMBA2_DECODE_LIMIT), in_proj's ragged
+    # n = 14,576 among them
+    for _, m, k, n in sorted(zamba2_shapes(zamba2_config(), ZAMBA2_BATCH, ZAMBA2_PROMPT)):
+        if _ == "blocked_matmul" and m > ZAMBA2_BATCH:
+            batch_invariance_case(m, k, n, "zamba2")
     d, c = lm_cfg.d_model, lm_cfg.ssm_expand * lm_cfg.d_model
     determinism_case(LM_BATCH, d, 2 * c, "falcon-mamba decode in_proj")
     determinism_case(1, LOGREG_ROWS, LOGREG_COLS, "logreg dθ")
@@ -707,6 +778,22 @@ def check_kernels(torch, kern, graph, lm_cfg, olmoe_cfg, dev):
         elif op == "segment_sum":
             segsum_case(c, olmoe_ids(a, c), b, "olmoe")
         torch.cuda.empty_cache()
+
+    # zamba2's and falcon-mamba training's gathers and segment sums
+    # (phases 13 and 14, each shape of ssm_checked_shapes; the products
+    # are among matmul_cases): ids into the vocabulary are tokens, ids
+    # with E = N (S) positions
+    def lm_ids(e, n):
+        if n == e:
+            return torch.arange(e, device=dev, dtype=torch.int32)
+        return torch.randint(0, n, (e,), generator=gen, device=dev, dtype=torch.int32)
+
+    for op, a, b, c in sorted(ssm_checked_shapes()):
+        if op == "gather_join":
+            gather_case(b, lm_ids(a, b), c, "zamba2 / falcon-mamba training")
+        elif op == "segment_sum":
+            segsum_case(c, lm_ids(a, c), b, "zamba2 / falcon-mamba training")
+        torch.cuda.empty_cache()
     return errs
 
 
@@ -727,23 +814,48 @@ def scan_limit(torch, a, b, reverse=False):
 def check_ssm_scan(torch, dev):
     """The scan kernel against its plain version (the time loop, which does
     the kernel's arithmetic in the kernel's order) and its autograd backward
-    against the plain version's autograd. Returns the largest |kernel −
-    plain| over the cases."""
+    against the plain version's autograd, at the shapes of falcon-mamba's
+    prefill, zamba2's prefill (the per-head decay broadcast to 64 x 64
+    lanes) and falcon-mamba's training (forward, the VJP's reverse walk and
+    the backward). Returns the largest |kernel − plain| over the cases."""
     from repro_torch.kernels import ssm_scan
     from repro_torch.kernels.ssm_scan.ops import ssm_scan_forward
     from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 
     gen = torch.Generator(device=dev).manual_seed(4)
     lm = (LM_BATCH, LM_PROMPT) + LM_SCAN
+    z = zamba2_config()
+    zamba2 = (ZAMBA2_BATCH, ZAMBA2_PROMPT, z.ssm_expand * z.d_model // z.ssm_head_dim,
+              z.ssm_state * z.ssm_head_dim)
+    train = (FALCON_TRAIN_BATCH, FALCON_TRAIN_SEQ) + LM_SCAN
     worst_err = 0.0
 
-    def inputs(shape, dtype):
-        # decays of the LM's range: exp(−dt·A) with dt ∈ (0, 1), A ∈ [1, 16]
-        dt = torch.rand(shape, generator=gen, device=dev)
-        a_rate = torch.randint(1, 17, shape, generator=gen, device=dev).float()
-        a = torch.exp(-dt * a_rate).to(dtype)
+    def inputs(shape, dtype, per_head=False):
+        # decays of the LM's range: exp(−dt·A) with dt ∈ (0, 1), A ∈ [1, 16];
+        # per head (Mamba-2), one decay per (b, t, head) broadcast to its lanes
+        dshape = shape[:3] + (1,) if per_head else shape
+        dt = torch.rand(dshape, generator=gen, device=dev)
+        a_rate = torch.randint(1, 17, dshape, generator=gen, device=dev).float()
+        a = torch.exp(-dt * a_rate).expand(shape).to(dtype).contiguous()
         b = torch.randn(shape, generator=gen, device=dev).to(dtype)
         return a, b
+
+    def against(got, want, a, b, reverse, bf16):
+        # (largest err/limit, largest |err|), one batch row at a time: the
+        # f64 temporaries of one row of zamba2's scan take 3.76 GB each
+        ratio = err_max = 0.0
+        for i in range(a.shape[0]):
+            r = slice(i, i + 1)
+            limit = scan_limit(torch, a[r], b[r], reverse)
+            if bf16:
+                # the f32 states agree within the limit; each is then
+                # rounded once to bf16 (2⁻⁸ of its size)
+                limit = limit + 2.0 ** -8 * want[r].double().abs()
+            err = (got[r].double() - want[r].double()).abs()
+            ratio = max(ratio, excess(err, limit))
+            err_max = max(err_max, float(err.max()) if err.numel() else 0.0)
+            del limit, err
+        return ratio, err_max
 
     for shape, dtype, reverse, what in (
         (lm, torch.float32, False, "slice prefill shape"),
@@ -753,55 +865,62 @@ def check_ssm_scan(torch, dev):
         ((1, 777) + LM_SCAN, torch.float32, False, "B=1, odd S"),
         ((4, 256, 2048, 16), torch.bfloat16, False, "bf16 in and out, B=4"),
         ((2, 300, 999, 16), torch.bfloat16, True, "bf16, reverse, ragged lanes"),
+        (zamba2, torch.float32, False, "zamba2 prefill shape, the per-head decay broadcast"),
+        (train, torch.float32, True, "falcon-mamba training shape, reverse (the VJP's walk)"),
     ):
-        a, b = inputs(shape, dtype)
+        a, b = inputs(shape, dtype, per_head=shape == zamba2)
         got = ssm_scan_forward(a, b, reverse=reverse)
         want = ssm_scan_ref(a, b, reverse=reverse)
         torch.cuda.synchronize()
-        limit = scan_limit(torch, a, b, reverse)
-        if dtype == torch.bfloat16:
-            # the f32 states agree within the limit; each is then rounded
-            # once to bf16 (2⁻⁸ of its size)
-            limit = limit + 2.0 ** -8 * want.double().abs()
-        err = (got.double() - want.double()).abs()
-        ratio = excess(err, limit)
+        bf16 = dtype == torch.bfloat16
+        ratio, err = against(got, want, a, b, reverse, bf16)
         exact = torch.equal(got, want)
         log(f"  ssm_scan {what}: {tuple(shape)} {str(dtype).split('.')[1]} "
-            f"max_abs_err={float(err.max()):.3e} bit-exact={exact} err/limit={ratio:.3e} "
-            f"(limit 2·(t+1)·u·scan(|a|,|b|) per entry{' + one bf16 rounding' if dtype == torch.bfloat16 else ''})")
+            f"max_abs_err={err:.3e} bit-exact={exact} err/limit={ratio:.3e} "
+            f"(limit 2·(t+1)·u·scan(|a|,|b|) per entry{' + one bf16 rounding' if bf16 else ''})")
         if ratio > 1.0:
             raise AssertionError(f"ssm_scan outside its tolerance ({what})")
-        worst_err = max(worst_err, float(err.max()))
-        if shape == lm and not reverse:
+        worst_err = max(worst_err, err)
+        if (shape == lm and not reverse) or shape == train:
             # the limit must fail a wrong scan: plant two faults at t0
-            t0 = LM_PROMPT // 2
+            t0 = shape[1] // 2
             reset, skip_a, skip_b = a.clone(), a.clone(), b.clone()
             reset[:, t0] = 0                       # the state reset at t0
             skip_a[:, t0], skip_b[:, t0] = 1, 0    # step t0 skipped
             for fault, (fa, fb) in ((f"state reset at t={t0}", (reset, b)),
                                     (f"step t={t0} skipped", (skip_a, skip_b))):
-                bad = ssm_scan_ref(fa, fb)
-                seen = excess((bad.double() - want.double()).abs(), limit)
+                bad = ssm_scan_ref(fa, fb, reverse=reverse)
+                seen = against(bad, want, a, b, reverse, False)[0]
                 log(f"    planted fault ({fault}): err/limit={seen:.3e}, must exceed 1")
                 if seen <= 1.0:
                     raise AssertionError(f"the ssm_scan limit passes a wrong scan ({fault})")
             del reset, skip_a, skip_b, bad
-        del a, b, got, want, limit, err
+        del a, b, got, want
+        torch.cuda.empty_cache()
 
     # the backward: a reverse scan on the kernel against autograd through
-    # the plain time loop. Values of order 1 and 40 steps each rounding
-    # twice: both lie within 80·u ≈ 5e-6 of the exact gradient, relative.
-    shape = (2, 40, 6, 4)
-    a, b = inputs(shape, torch.float32)
-    grads = []
-    for fn in (ssm_scan, ssm_scan_ref):
-        ta, tb = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
-        torch.tanh(fn(ta, tb)).sum().backward()
-        grads.append((ta.grad, tb.grad))
-    for name, got, want in zip(("∂a", "∂b"), *grads):
-        err = float((got - want).abs().max())
-        log(f"  ssm_scan backward {name} {shape}: max_abs_err={err:.3e} (tol 1e-5 abs + 1e-5 rel)")
-        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    # the plain time loop, at a small shape and at falcon-mamba training's.
+    # Each entry of ∂a and ∂b is a reverse recurrence of up to S steps,
+    # each rounding twice, on values of order 1 with |a| ≤ 1: at 40 steps
+    # both lie within 80·u ≈ 5e-6 of the exact gradient; the kernel's walk
+    # rounds as the loop's autograd does (a product, then a sum), so the
+    # 1e-5 tolerance holds at S = 1,024 too, where the rounding walk is
+    # ≈ √(2·1,024)·u ≈ 2.7e-6
+    for shape in ((2, 40, 6, 4), train):
+        a, b = inputs(shape, torch.float32)
+        grads = []
+        for fn in (ssm_scan, ssm_scan_ref):
+            ta, tb = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
+            torch.tanh(fn(ta, tb)).sum().backward()
+            grads.append((ta.grad, tb.grad))
+            del ta, tb
+        for name, got, want in zip(("∂a", "∂b"), *grads):
+            err = float((got - want).abs().max())
+            log(f"  ssm_scan backward {name} {shape}: max_abs_err={err:.3e} bit-exact="
+                f"{torch.equal(got, want)} (tol 1e-5 abs + 1e-5 rel)")
+            torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+        del a, b, grads, got, want
+        torch.cuda.empty_cache()
     return worst_err
 
 
@@ -2531,6 +2650,532 @@ def olmoe_train_phase(torch, repro_torch, kern, cfg, dev, checked):
 
 
 # ---------------------------------------------------------------------------
+# Phases 13 and 14: the SSM family (zamba2-7b serving, falcon-mamba training)
+# ---------------------------------------------------------------------------
+
+
+def zamba2_config():
+    """zamba2-7b at its published widths and depth, in f32, on the scan
+    kernel."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(ZAMBA2_ARCH), ssm_pallas=True, dtype="float32")
+
+
+def falcon_train_config():
+    """falcon-mamba-7b at its published widths, FALCON_TRAIN_LAYERS layers,
+    f32, the scan kernel, remat ("nothing")."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(LM_ARCH), ssm_pallas=True, dtype="float32",
+                               n_layers=FALCON_TRAIN_LAYERS, remat=True, remat_policy="nothing")
+
+
+def zamba2_shapes(cfg, b, s):
+    """Every kernel call (op, shape) of a zamba2 forward over B rows of S
+    tokens (a prefill; a decode step at S = 1): what phase 2 checks and
+    phase 13 must launch at no other shape. blocked_matmul (m, k, n): a
+    Mamba-2 block's in_proj (n = 2·d_inner + 2·N + H = 14,576, not a
+    multiple of 128) and out_proj; the shared block's q/k/v/o and its
+    MLP's three products; the head at m = B (serving keeps the last
+    position). gather_join (E, N, D) and segment_sum (E, D, S): the
+    embedding's join by token and Σ by position."""
+    d, bs = cfg.d_model, b * s
+    c = cfg.ssm_expand * d
+    hd = cfg.hd()
+    mm = {(bs, d, 2 * c + 2 * cfg.ssm_state + c // cfg.ssm_head_dim), (bs, c, d),
+          (bs, d, cfg.n_heads * hd), (bs, d, cfg.n_kv_heads * hd), (bs, cfg.n_heads * hd, d),
+          (bs, d, cfg.d_ff), (bs, cfg.d_ff, d), (b, d, cfg.vocab)}
+    return ({("blocked_matmul",) + m for m in mm}
+            | {("gather_join", bs, cfg.vocab, d), ("segment_sum", bs, d, bs)})
+
+
+def falcon_train_shapes(cfg, b, s):
+    """Every kernel call (op, shape) of a falcon-mamba train step over B
+    rows of S tokens, forward and backward: the four projections and the
+    head at m = B·S; the embedding's join by token and Σ by position, and
+    their transposes in the backward (the cotangent rows by position, the
+    table gradient: a Σ into the vocabulary's rows). rel_linear's backward
+    products are the gradient queries' einsum, no kernel site."""
+    d, bs = cfg.d_model, b * s
+    c, r = cfg.ssm_expand * d, d // 16
+    mm = {(bs, d, 2 * c), (bs, c, r + 2 * cfg.ssm_state), (bs, r, c), (bs, c, d), (bs, d, cfg.vocab)}
+    return ({("blocked_matmul",) + m for m in mm}
+            | {("gather_join", bs, cfg.vocab, d), ("segment_sum", bs, d, bs),
+               ("gather_join", bs, bs, d), ("segment_sum", bs, d, cfg.vocab)})
+
+
+def ssm_checked_shapes():
+    """The kernel calls of phases 13 and 14: zamba2's prefill and decode
+    step, and a falcon-mamba train step."""
+    z, f = zamba2_config(), falcon_train_config()
+    return (zamba2_shapes(z, ZAMBA2_BATCH, ZAMBA2_PROMPT) | zamba2_shapes(z, ZAMBA2_BATCH, 1)
+            | falcon_train_shapes(f, FALCON_TRAIN_BATCH, FALCON_TRAIN_SEQ))
+
+
+class ScanLog:
+    """While active, ssm_scan's kernel calls by kind: a forward walk outside
+    autograd's backward ("forward"), a forward walk inside it (the
+    recompute of a rematerialized superblock, "recompute"), and the VJP's
+    reverse walk ("reverse"). On the card each call is one launch."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.counts = dict.fromkeys(("forward", "recompute", "reverse"), 0)
+
+    def __enter__(self):
+        from repro_torch.kernels.ssm_scan import ops
+
+        real, torch = ops.ssm_scan_forward, self.torch
+
+        def call(a, b, reverse=False):
+            if a.numel():
+                kind = ("reverse" if reverse else
+                        "recompute" if torch._C._current_graph_task_id() != -1 else "forward")
+                self.counts[kind] += 1
+            return real(a, b, reverse)
+
+        self.saved = (ops, real)
+        ops.ssm_scan_forward = call
+        return self
+
+    def __exit__(self, *exc):
+        ops, real = self.saved
+        ops.ssm_scan_forward = real
+
+
+def check_lm_sites(engines, seen, db):
+    """Every rel_linear/rel_embed site the engines lowered under ``db``
+    since ``seen``, on the cuda tier."""
+    sites = new_sites(engines, seen, db.dispatch)
+    for prog, key, op, tier, _ in sites:
+        log(f"    {prog}: {key} -> {tier}")
+    bad = [(p, k, t) for p, k, _, t, _ in sites if t != "cuda"]
+    if not sites or bad:
+        raise AssertionError(f"LM sites not all on the cuda tier: {bad or 'none recorded'}")
+    return sites
+
+
+def zamba2_serve_phase(torch, repro_torch, kern, cfg, dev, checked):
+    """Phase 13: one request of ZAMBA2_BATCH prompts of ZAMBA2_PROMPT
+    tokens, prefill then ZAMBA2_DECODE greedy steps, at the published
+    widths and depth; checked against the torch tier and a longer
+    prefill, with three lost pieces of the cache planted."""
+    import dataclasses
+
+    from repro_torch.core.engine import engine_for
+    from repro_torch.models import build_model
+    from repro_torch.relational.embedding import _embed_prog
+    from repro_torch.relational.linear import _linear_prog
+    from repro_torch.serving import make_decode_step, make_prefill_step
+
+    b, s, steps, layers = ZAMBA2_BATCH, ZAMBA2_PROMPT, ZAMBA2_DECODE, cfg.n_layers
+    c = cfg.ssm_expand * cfg.d_model
+    nh = c // cfg.ssm_head_dim
+    lanes = cfg.ssm_state * cfg.ssm_head_dim
+    log(f"  {cfg.name}: {layers} layers = {layers // len(cfg.pattern)} x {cfg.pattern} + "
+        f"{layers % len(cfg.pattern)} mamba2; d_model {cfg.d_model}, Mamba-2 {nh} heads of "
+        f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, conv {cfg.conv_width}; the shared block: "
+        f"{cfg.n_heads} heads of {cfg.hd()} over {cfg.n_kv_heads} KV heads, d_ff {cfg.d_ff}; vocab "
+        f"{cfg.vocab}; dtype float32 (the published config is bfloat16: the cuda tier's "
+        f"blocked_matmul admits f32 only); ssm_pallas=True (the scan kernel at ({b}, {s}, {nh}, "
+        f"{lanes}): the per-head decay broadcast to N·P lanes); random weights from seed 0")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  model built on {model.device} in {time.perf_counter() - t0:.1f} s: "
+        f"{n_params:,} parameters, {n_params * 4:,} bytes (shared block "
+        f"{sum(p.numel() for p in model.shared_attn.parameters()):,}, used at "
+        f"{layers // len(cfg.pattern)} layers)")
+    if n_params != ZAMBA2_PARAMS:
+        raise AssertionError(f"{n_params} parameters, want {ZAMBA2_PARAMS}")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev, dtype=torch.int32)
+    prefill = make_prefill_step(model, s + steps)
+    decode = make_decode_step(model)
+    db = repro_torch.Database()
+    engines = {"rel_linear": engine_for(_linear_prog()[0].forward),
+               "rel_embed": engine_for(_embed_prog()[0].forward)}
+    seen = {k: {id(low) for low in e.lowerings} for k, e in engines.items()}
+
+    # the main path: one request, prefill then greedy decode
+    torch.cuda.reset_peak_memory_stats()
+    kern.reset_launch_counts()
+    with db.activate():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = prefill({"tokens": tokens})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        per_prefill = kern.launch_counts()
+        prefill_logits, prefill_caches = logits, caches
+        out = [logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)]
+        step_s, per_step, steps_logits = [], [], [logits]
+        for step in range(steps):
+            c0 = kern.launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches = decode(out[-1], caches, s + step)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            per_step.append({op: n - c0[op] for op, n in kern.launch_counts().items()})
+            steps_logits.append(logits)
+            out.append(logits[:, -1].argmax(-1, keepdim=True).to(torch.int32))
+    launches = kern.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    del caches
+    # one more decode step under the profiler (not counted above)
+    with db.activate():
+        busy = device_busy(torch, lambda: decode(out[0], prefill_caches, s))
+    idle = None
+    if busy is None:
+        log("  decode step under torch.profiler: no device time recorded; idle share not measured")
+    else:
+        wall, dev_ms, host, devops = busy
+        idle = 1 - dev_ms / wall
+        log(f"  decode step under torch.profiler: wall {wall:.2f} ms, device busy {dev_ms:.2f} ms "
+            f"(idle share at most {idle:.3f}); most host time: "
+            + "; ".join(f"{k} {ms:.2f} ms x{n}" for k, ms, n in host)
+            + "; most device time: " + "; ".join(f"{k[:60]} {ms:.2f} ms x{n}" for k, ms, n in devops))
+
+    floor_ms = n_params * 4 / HBM_BYTES_PER_S * 1e3
+    decode_ms = statistics.median(step_s[1:]) * 1e3
+    log(f"  prefill (B={b}, S={s}, first request, lowering included): {prefill_s * 1e3:.1f} ms")
+    log(f"  decode steps: {[t * 1e3 for t in step_s]} ms; per token: median of steps 2-{steps} "
+        f"{decode_ms:.2f} ms against its floor {floor_ms:.2f} ms (the weights read once: "
+        f"{n_params * 4} B at 3.35 TB/s); mean of all {steps} {statistics.mean(step_s) * 1e3:.2f} ms")
+    log(f"  peak device memory over the request: {peak} bytes ({peak / 2**30:.2f} GiB; weights "
+        f"{n_params * 4} bytes)")
+    toks = torch.cat(out, 1)
+    log(f"  greedy tokens: {toks.tolist()}")
+    log(f"  launches over the request: {launches}; per prefill: {per_prefill}; per decode step: "
+        f"{per_step[0]}")
+    for i, lg in enumerate(steps_logits):
+        if tuple(lg.shape) != (b, 1, cfg.vocab) or not bool(torch.isfinite(lg).all()):
+            raise AssertionError(f"logits of call {i}: shape {tuple(lg.shape)}, or not finite")
+    if int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab:
+        raise AssertionError("a token outside the vocabulary")
+    if per_prefill["ssm_scan"] != layers or any(st["ssm_scan"] for st in per_step):
+        raise AssertionError(f"ssm_scan launches: {per_prefill['ssm_scan']} per prefill (want "
+                             f"{layers}), {[st['ssm_scan'] for st in per_step]} per decode step (want 0)")
+    for op in GCN_KERNELS:
+        if per_prefill[op] <= 0 or any(st[op] <= 0 for st in per_step):
+            raise AssertionError(f"{op}: its CUDA kernel did not launch in every call")
+
+    # a second request of the same shapes: the warm prefill, and the same bits
+    with db.activate():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again, _ = prefill({"tokens": tokens})
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+    same = torch.equal(again, prefill_logits)
+    log(f"  prefill, second request (warm): {warm_s * 1e3:.1f} ms; logits equal to the first "
+        f"request's: {same}")
+    if not same:
+        raise AssertionError("the second request's logits differ from the first's")
+    del again
+    # a third prefill and one decode step with the kernel calls logged by
+    # signature (the pass phase 8 times), and a prefill under the profiler
+    with LaunchLog(torch) as serve_log, db.activate():
+        _, cc = prefill({"tokens": tokens})
+        decode(out[0], cc, s)
+    del cc
+    with db.activate():
+        busy = device_busy(torch, lambda: prefill({"tokens": tokens}))
+    if busy is not None:
+        wall, dev_ms, _, devops = busy
+        log(f"  prefill under torch.profiler: wall {wall:.1f} ms, device busy {dev_ms:.1f} ms; most "
+            "device time: " + "; ".join(f"{k[:60]} {ms:.2f} ms x{n}" for k, ms, n in devops))
+    sites = check_lm_sites(engines, seen, db)
+    unchecked = set(serve_log.counts) - checked
+    if unchecked:
+        raise AssertionError(f"kernel calls at shapes phase 2 did not check: {sorted(unchecked)}")
+
+    # the same weights on the plain tier: torch.matmul, index_select,
+    # index_add_ and the parallel-prefix scan in plain PyTorch
+    kern.reset_launch_counts()
+    model.cfg = dataclasses.replace(cfg, ssm_pallas=False)
+    try:
+        with repro_torch.Database(dispatch="torch").activate():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t_logits, _ = prefill({"tokens": tokens})
+            torch.cuda.synchronize()
+            t_prefill_s = time.perf_counter() - t0
+    finally:
+        model.cfg = cfg
+    if sum(kern.launch_counts().values()):
+        raise AssertionError("the torch tier launched a CUDA kernel")
+    gap = logit_gap(prefill_logits, t_logits)
+    log(f"  prefill on the torch tier with the plain scan: {t_prefill_s * 1e3:.1f} ms; "
+        f"last-position logits: max|cuda - torch| / max|logit| = {gap:.3e} "
+        f"(limit {ZAMBA2_PREFILL_LIMIT:g}); argmax equal: "
+        f"{torch.equal(t_logits[:, -1].argmax(-1), prefill_logits[:, -1].argmax(-1))}")
+    if not gap <= ZAMBA2_PREFILL_LIMIT:
+        raise AssertionError("the prefill logits of the cuda and torch tiers differ")
+    del t_logits
+
+    # the carried state (Mamba-2 conv windows and states, the shared
+    # block's K/V at each mamba2_attn layer): decode step 1 against a
+    # prefill over the prompt plus the token it was fed
+    with db.activate():
+        p_logits, _ = prefill({"tokens": torch.cat([tokens, out[0]], 1)})
+    gap = logit_gap(steps_logits[1], p_logits)
+    log(f"  decode step 1 against a prefill over {s + 1} tokens: max|Δ| / max|logit| = "
+        f"{gap:.3e} (limit {ZAMBA2_DECODE_LIMIT:g})")
+    if not gap <= ZAMBA2_DECODE_LIMIT:
+        raise AssertionError("decode from the carried state differs from a prefill")
+    # the limit must fail a lost cache: decode step 1 again from the
+    # prefill's caches with one layer's SSM state, or its conv window, or
+    # one mamba2_attn layer's shared K cache zeroed
+    mid = len(prefill_caches[0]["scan"]) // 2
+    attn_key = f"{len(cfg.pattern) - 1}:mamba2_attn"
+    for what, key, path in ((f"repeat {mid}'s 2:mamba2 SSM state", "2:mamba2", ("ssm2", "ssm")),
+                            (f"repeat {mid}'s 2:mamba2 conv window", "2:mamba2", ("ssm2", "conv")),
+                            (f"repeat {mid}'s {attn_key} shared K cache", attn_key, ("shared_kv", "k"))):
+        bad = [{"scan": list(st["scan"]), "tail": st["tail"]} for st in prefill_caches]
+        entry = dict(bad[0]["scan"][mid])
+        part = dict(entry[key])
+        part[path[0]] = {**part[path[0]], path[1]: torch.zeros_like(part[path[0]][path[1]])}
+        entry[key] = part
+        bad[0]["scan"][mid] = entry
+        with db.activate():
+            f_logits, _ = decode(out[0], bad, s)
+        seen_gap = logit_gap(f_logits, p_logits)
+        log(f"    planted fault ({what} lost): max|Δ| / max|logit| = {seen_gap:.3e}, must exceed "
+            f"the decode limit {ZAMBA2_DECODE_LIMIT:g}")
+        if seen_gap <= ZAMBA2_DECODE_LIMIT:
+            raise AssertionError(f"the decode limit passes a lost cache ({what})")
+        del bad, entry, part, f_logits
+    del model, p_logits, prefill_logits, prefill_caches, steps_logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {
+        "launches": launches, "sites": sites, "log": serve_log, "pass": dict(serve_log.counts),
+        "per_prefill": per_prefill, "per_step": per_step[0], "layers": layers,
+        "scan_shape": (b, s, nh, lanes), "prefill_ms": prefill_s * 1e3, "warm_prefill_ms": warm_s * 1e3,
+        "decode_ms": decode_ms, "decode_floor_ms": floor_ms, "peak": peak, "idle": idle,
+    }
+
+
+def falcon_grads(torch, repro_torch, kern, model, batch, dispatch):
+    """(loss, {name: gradient} of every parameter, the kernel launches of
+    the backward alone, ssm_scan's calls by kind, peak bytes) of the train
+    loss (lm_loss, the trainer's; no aux) at the model's weights, on a
+    tier."""
+    from repro_torch.train import lm_loss
+
+    params = dict(model.named_parameters())
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with ScanLog(torch) as scans, repro_torch.Database(dispatch=dispatch).activate():
+        logits, _ = model.train_logits(batch)
+        loss = lm_loss(logits, batch["labels"])
+        del logits
+        torch.cuda.synchronize()
+        c0 = kern.launch_counts()
+        grads = torch.autograd.grad(loss, list(params.values()))
+        torch.cuda.synchronize()
+        backward = {op: n - c0[op] for op, n in kern.launch_counts().items()}
+    peak = torch.cuda.max_memory_allocated()
+    return float(loss.detach()), dict(zip(params, grads)), backward, dict(scans.counts), peak
+
+
+def falcon_train_phase(torch, repro_torch, kern, cfg, dev, checked):
+    """Phase 14: falcon-mamba-7b at its published widths and
+    FALCON_TRAIN_LAYERS layers, FALCON_TRAIN_STEPS donated Adam steps of
+    ``make_train_step`` on one fixed batch under remat "nothing", then
+    again from the same weights under "dots"; step 1's loss and gradients
+    checked against the plain tier, and the gradients of the remat
+    policies against each other bit for bit."""
+    import dataclasses
+
+    from repro_torch.core.engine import engine_for
+    from repro_torch.data import synthetic_lm_batches
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+    from repro_torch.models import build_model
+    from repro_torch.models import ssm as ssm_module
+    from repro_torch.relational.embedding import _embed_prog
+    from repro_torch.relational.linear import _linear_prog
+    from repro_torch.train import init_train_state, make_train_step
+
+    b, s, n = FALCON_TRAIN_BATCH, FALCON_TRAIN_SEQ, FALCON_TRAIN_STEPS
+    c = cfg.ssm_expand * cfg.d_model
+    log(f"  {cfg.name} at its published widths, {cfg.n_layers} of {FALCON_ARCH_LAYERS} layers (the f32 "
+        f"weights, gradients and two Adam moments of all {FALCON_ARCH_LAYERS} take {LM_PARAMS * 16:,} "
+        f"bytes), float32, ssm_pallas=True, remat; batch {b} x {s} tokens (synthetic_lm_batches, "
+        f"seed 0); the scan at ({b}, {s}, {c}, {cfg.ssm_state}); Adam lr 3e-4, grad_clip 1.0, "
+        f"donated (in place)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = build_model(cfg, seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  model: {n_params:,} parameters ({n_params * 4:,} bytes; with gradients and two "
+        f"moments {n_params * 16:,})")
+    if n_params != FALCON_TRAIN_PARAMS:
+        raise AssertionError(f"{n_params} parameters, want {FALCON_TRAIN_PARAMS}")
+    batch = next(synthetic_lm_batches(cfg, b, s, seed=0))
+    layer0 = "stages.0.scan.0.0:mamba1.ssm."
+    names = (layer0 + "in_proj", layer0 + "x_proj", layer0 + "a_log", "embed")
+    engines = {"rel_linear": engine_for(_linear_prog()[0].forward),
+               "rel_embed": engine_for(_embed_prog()[0].forward)}
+    seen = {k: {id(low) for low in e.lowerings} for k, e in engines.items()}
+    db = repro_torch.Database()
+
+    # step 1's loss and gradients at the initial weights under each remat
+    # policy and without remat: bit for bit; "dots" recomputes no product
+    got, backward, scans, peaks = {}, {}, {}, {}
+    for policy in ("nothing", None, "dots"):
+        model.cfg = dataclasses.replace(cfg, remat=policy is not None, remat_policy=policy or "nothing")
+        try:
+            loss, grads, backward[policy], scans[policy], peaks[policy] = falcon_grads(
+                torch, repro_torch, kern, model, batch, db.dispatch)
+        finally:
+            model.cfg = cfg
+        got[policy] = (loss, grads)
+        log(f"  step-1 gradients, remat {policy or 'off'}: loss {loss!r}; launches in the backward "
+            f"{backward[policy]}; ssm_scan walks {scans[policy]}; peak {peaks[policy]} bytes "
+            f"({peaks[policy] / 2**30:.2f} GiB)")
+    c_loss, c_grads = got["nothing"]
+    for policy in (None, "dots"):
+        loss, grads = got[policy]
+        same = loss == c_loss and all(torch.equal(grads[k], c_grads[k]) for k in c_grads)
+        log(f"  step-1 loss and all {len(c_grads)} gradients, remat {policy or 'off'} against "
+            f"remat 'nothing': bit-equal {same}")
+        if not same:
+            raise AssertionError(f"the gradients of remat {policy or 'off'} differ from 'nothing''s")
+    mm = {p: backward[p]["blocked_matmul"] for p in backward}
+    layer_products = 4 * cfg.n_layers
+    log(f"  blocked_matmul launches in the backward: remat 'nothing' {mm['nothing']} (its "
+        f"{layer_products} recomputed projections), off {mm[None]}, 'dots' {mm['dots']} (want "
+        f"{mm[None]}: the recompute launches no product)")
+    if mm["dots"] != mm[None] or mm["nothing"] != mm[None] + layer_products:
+        raise AssertionError(f"blocked_matmul launches in the backward: {mm}")
+    want_scans = {"nothing": (cfg.n_layers,) * 3, None: (cfg.n_layers, 0, cfg.n_layers),
+                  "dots": (cfg.n_layers,) * 3}
+    for policy, walks in want_scans.items():
+        if tuple(scans[policy][k] for k in ("forward", "recompute", "reverse")) != walks:
+            raise AssertionError(f"ssm_scan walks under remat {policy or 'off'}: {scans[policy]}, "
+                                 f"want forward, recompute, reverse {walks}")
+    del got
+
+    # the plain tier: torch.matmul, index_select, index_add_ and the
+    # scan's time loop (kernels/ssm_scan/ref.py) under autograd; and the
+    # same with one of the B·S tokens' labels ignored (the planted fault)
+    kern.reset_launch_counts()
+    ssm_module.ssm_scan = ssm_scan_ref
+    try:
+        t_loss, t_grads, _, _, t_peak = falcon_grads(torch, repro_torch, kern, model, batch, "torch")
+        faulty = dict(batch, labels=batch["labels"].clone())
+        faulty["labels"][-1, -1] = -100
+        _, f_grads, _, _, _ = falcon_grads(torch, repro_torch, kern, model, faulty, "torch")
+    finally:
+        ssm_module.ssm_scan = kern.ssm_scan
+    if sum(kern.launch_counts().values()):
+        raise AssertionError("the torch tier launched a CUDA kernel")
+    loss_gap = abs(c_loss - t_loss) / abs(t_loss)
+    log(f"  step-1 loss: cuda {c_loss!r}, torch (the scan's time loop) {t_loss!r}, relative gap "
+        f"{loss_gap:.3e} (limit {FALCON_LOSS_LIMIT:g}); torch tier peak {t_peak} bytes")
+    if not loss_gap <= FALCON_LOSS_LIMIT:
+        raise AssertionError("the step-1 loss of the cuda and torch tiers differ")
+    for k in names:
+        gap = float((c_grads[k] - t_grads[k]).norm() / t_grads[k].norm())
+        seen_gap = float((c_grads[k] - f_grads[k]).norm() / f_grads[k].norm())
+        log(f"  step-1 gradient of {k}: ‖cuda - torch‖/‖torch‖ = {gap:.3e} (limit "
+            f"{FALCON_GRAD_LIMIT:g}); planted fault (one of {b * s} tokens ignored): {seen_gap:.3e}, "
+            "must exceed the limit")
+        if not gap <= FALCON_GRAD_LIMIT:
+            raise AssertionError(f"the step-1 gradient of {k} differs between the tiers")
+        if seen_gap <= FALCON_GRAD_LIMIT:
+            raise AssertionError(f"the gradient limit passes a lost token ({k})")
+    del c_grads, t_grads, f_grads, faulty
+
+    # the main path: FALCON_TRAIN_STEPS donated steps under "nothing", then
+    # from the same weights (the model built again from seed 0) under "dots"
+    kern.reset_launch_counts()
+    runs = {}
+    for policy in ("nothing", "dots"):
+        if policy == "dots":
+            del model, state, step, params, opt
+            gc.collect()
+            torch.cuda.empty_cache()
+            model = build_model(dataclasses.replace(cfg, remat_policy="dots"), seed=0)
+        state = init_train_state(model)
+        step = make_train_step(model, grad_clip=1.0, donate=True, database=db)
+        params, opt = state.params, state.opt_state
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        losses, secs, per_step = [], [], []
+        with ScanLog(torch) as scan_log:
+            for i in range(n):
+                c0 = kern.launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, opt, metrics = step(params, opt, batch)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                losses.append(float(metrics["loss"]))
+                per_step.append({op: v - c0[op] for op, v in kern.launch_counts().items()})
+        med = statistics.median(secs[1:])
+        runs[policy] = {"losses": losses, "step_ms": med * 1e3, "tokens_per_s": b * s / med,
+                        "peak": torch.cuda.max_memory_allocated(), "per_step": per_step[0],
+                        "scans": {k: v / n for k, v in scan_log.counts.items()}}
+        log(f"  remat '{policy}': step times {[t * 1e3 for t in secs]} ms; median of steps 2-{n} "
+            f"{med * 1e3:.1f} ms, {b * s / med:.1f} tokens/s; losses {losses}; peak "
+            f"{runs[policy]['peak']} bytes ({runs[policy]['peak'] / 2**30:.2f} GiB; parameters, "
+            f"gradients and two moments take {n_params * 16} bytes); launches per step "
+            f"{per_step[0]}; ssm_scan walks per step {runs[policy]['scans']}")
+        if losses[0] != c_loss:
+            raise AssertionError(f"the train step's step-1 loss {losses[0]!r} is not the checked one "
+                                 f"{c_loss!r}")
+        if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+            raise AssertionError("the loss did not fall over the steps on one batch")
+        walks = tuple(runs[policy]["scans"][k] for k in ("forward", "recompute", "reverse"))
+        if walks != (cfg.n_layers,) * 3:
+            raise AssertionError(f"ssm_scan walks per step: {runs[policy]['scans']}")
+    launches = kern.launch_counts()
+    if runs["dots"]["losses"] != runs["nothing"]["losses"]:
+        raise AssertionError("the steps under 'dots' lose otherwise than under 'nothing'")
+    log(f"  launches over the {2 * n} steps: {launches}; the losses under 'dots' equal those under "
+        "'nothing' bit for bit")
+    for op in kern.WRAPPERS:
+        if launches[op] <= 0:
+            raise AssertionError(f"{op}: its CUDA kernel did not launch in training")
+    # one more step with the kernel calls logged by signature (phase 8's
+    # sites) and one under the profiler, not counted above
+    with LaunchLog(torch) as train_log:
+        params, opt, _ = step(params, opt, batch)
+    torch.cuda.synchronize()
+    busy = device_busy(torch, lambda: step(params, opt, batch))
+    idle = None
+    if busy is not None:
+        wall, dev_ms, _, devops = busy
+        idle = 1 - dev_ms / wall
+        log(f"  a train step ('dots') under torch.profiler: wall {wall:.1f} ms, device busy "
+            f"{dev_ms:.1f} ms (idle share at most {idle:.3f}); most device time: "
+            + "; ".join(f"{k[:60]} {ms:.2f} ms x{n}" for k, ms, n in devops))
+    sites = check_lm_sites(engines, seen, db)
+    unchecked = set(train_log.counts) - checked
+    if unchecked:
+        raise AssertionError(f"kernel calls at shapes phase 2 did not check: {sorted(unchecked)}")
+    del model, params, opt, state, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "sites": sites, "log": train_log, "pass": dict(train_log.counts),
+            "runs": runs, "grad_peaks": peaks, "idle": idle, "layers": cfg.n_layers,
+            "scan_shape": (b, s, c, cfg.ssm_state)}
+
+
+# ---------------------------------------------------------------------------
 # Phase 8: timings at the shapes of the main paths
 # ---------------------------------------------------------------------------
 
@@ -2629,13 +3274,14 @@ def time_site(torch, op, info, rows_for, seg_for, gen, dev):
     return k_ms, p_ms, l_ms, (m * k + k * n + m * n) * 4, 2 * m * n * k, extra
 
 
-def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, errs, dev):
+def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, errs, dev):
     """Per kernel and per main path: each site timed alone at its shapes,
     times the launches of that site in one pass of the path (one GCN step;
     one logistic-regression step; one NNMF step; one KGE step at each
     width; one prefill; one decode step; one streamed step of each of
     phase 9's runs, each site once per wave; olmoe's prefill and one decode
-    step, and one olmoe train step), summed."""
+    step, and one olmoe train step; zamba2's prefill and one decode step;
+    one falcon-mamba train step), summed."""
     from repro_torch.kernels.matmul.ops import blocked_matmul_forward
     from repro_torch.kernels.ssm_scan.ops import ssm_scan_forward
     from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
@@ -2733,6 +3379,17 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, errs, 
                 *time_site(torch, key[0], run["log"].info(key), lambda e, n: ids, lambda e, s: ids, gen, dev))
         del ids
 
+    # zamba2-7b (phase 13: the prefill and one decode step) and
+    # falcon-mamba training (phase 14: one train step, its recomputed
+    # forwards and backward included): every kernel signature of the pass
+    # on the ids its first call took, times its calls in the pass
+    for path, run in (("zamba2_serve", ssm["zamba2"]), ("falcon_train", ssm["falcon_train"])):
+        for key, mult in sorted(run["pass"].items()):
+            ids = run["log"].ids.get(key)
+            add(path, key[0], f"{key[0]}{key[1:]}", mult,
+                *time_site(torch, key[0], run["log"].info(key), lambda e, n: ids, lambda e, s: ids, gen, dev))
+        del ids
+
     # phase 9's streamed steps: every site of a wave's lowering once per
     # wave, each on the ids it took in the largest wave (a product takes
     # none)
@@ -2785,6 +3442,23 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, errs, 
     add("lm_prefill", "ssm_scan", f"ssm_scan {shape}", lm["layers"], k_ms, p_ms, None,
         3 * a.numel() * 4, 2 * a.numel())
     del a, b
+    # zamba2's prefill scan, once per layer (the decay of each (b, t, head)
+    # broadcast to its 4,096 lanes); falcon-mamba training's at (4, 1,024,
+    # 8,192, 16): the forward walk twice per layer (the forward and the
+    # recompute), the VJP's reverse walk once per layer
+    for path, run, walks in (("zamba2_serve", ssm["zamba2"], (("forward", 1),)),
+                             ("falcon_train", ssm["falcon_train"], (("forward", 2), ("reverse", 1)))):
+        shape = run["scan_shape"]
+        a = torch.rand(shape, generator=gen, device=dev)
+        b = torch.randn(shape, generator=gen, device=dev)
+        for walk, per_layer in walks:
+            rev = walk == "reverse"
+            k_ms = time_ms(torch, lambda: ssm_scan_forward(a, b, reverse=rev))
+            p_ms = time_ms(torch, lambda: ssm_scan_ref(a, b, reverse=rev), iters=3, warmup=1)
+            add(path, "ssm_scan", f"ssm_scan {walk} {shape}", per_layer * run["layers"], k_ms, p_ms, None,
+                3 * a.numel() * 4, 2 * a.numel())
+        del a, b
+        torch.cuda.empty_cache()
 
     meta = {
         "segment_sum": ("cuda", "src/repro_torch/kernels/csrc/segsum.cu",
@@ -2809,7 +3483,9 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, errs, 
                    "olmoe_serve": olmoe["serve"]["launches"][op],
                    "olmoe_train": olmoe["train"]["launches"][op],
                    "olmoe_endpoint": olmoe["endpoint"]["launches"][op],
-                   "oocore": oocore["launches"].get(op, 0)}
+                   "oocore": oocore["launches"].get(op, 0),
+                   "zamba2_serve": ssm["zamba2"]["launches"][op],
+                   "falcon_train": ssm["falcon_train"]["launches"][op]}
         records.append({
             "name": op,
             "route": route,
@@ -2833,15 +3509,19 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, errs, 
                     f"arxiv GCN steps, {LOGREG_STEPS + 1} logistic-regression steps, "
                     f"{OOC_PRODUCTS_STEPS} products GCN steps), one olmoe-1b-7b request of a prefill "
                     f"and {OLMOE_DECODE} decode steps (phase 10), {OLMOE_TRAIN_STEPS} olmoe train "
-                    f"steps (phase 11) and burst 1 of phase 12 ({ENDPOINT_REQUESTS} concurrent "
-                    "requests through db.endpoint: one bucketed prefill and its decode steps); "
+                    f"steps (phase 11), burst 1 of phase 12 ({ENDPOINT_REQUESTS} concurrent "
+                    "requests through db.endpoint: one bucketed prefill and its decode steps), "
+                    f"one zamba2-7b request of a prefill and {ZAMBA2_DECODE} decode steps "
+                    f"(phase 13) and {FALCON_TRAIN_STEPS} falcon-mamba train steps under remat "
+                    f"'nothing' and {FALCON_TRAIN_STEPS} under 'dots' (phase 14); "
                     "ms, plain_ms, bound_ms, library_ms: each site timed alone, times its "
                     "launches in one pass, summed over one GCN step, one logistic-regression "
                     "step, one NNMF step, one KGE step at each width, one prefill, one "
                     "decode step and one streamed step of each of phase 9's runs (arxiv GCN, "
                     "logistic regression, products GCN), olmoe's prefill and one decode step "
-                    "(olmoe_serve), one olmoe train step (olmoe_train) and phase 12's burst 1 "
-                    "(olmoe_endpoint); 'paths' splits them; host_ms: "
+                    "(olmoe_serve), one olmoe train step (olmoe_train), phase 12's burst 1 "
+                    "(olmoe_endpoint), zamba2's prefill and one decode step (zamba2_serve) and "
+                    "one falcon-mamba train step (falcon_train); 'paths' splits them; host_ms: "
                     f"the host's time per call over {HOST_CALLS} calls without a synchronise, "
                     "summed the same way over the sites where it was taken (null: not taken)"),
             "paths": {path: {k: v for k, v in acc.items() if k not in ("bytes_ms", "ops_ms")}
@@ -3524,6 +4204,19 @@ def main() -> int:
     olmoe["train"] = olmoe_train_phase(torch, repro_torch, kern, olmoe_cfg, dev, checked)
     log(f"  phase 11: {time.perf_counter() - t0:.1f} s")
 
+    # phases 13 and 14 run before phase 8, which times their sites too
+    ssm_checked = ssm_checked_shapes()
+    log(f"phase 13: {ZAMBA2_ARCH} serving at its published widths and depth")
+    t0 = time.perf_counter()
+    ssm = {"zamba2": zamba2_serve_phase(torch, repro_torch, kern, zamba2_config(), dev, ssm_checked)}
+    log(f"  phase 13: {time.perf_counter() - t0:.1f} s")
+
+    log(f"phase 14: {LM_ARCH} training at its published widths, {FALCON_TRAIN_LAYERS} layers")
+    t0 = time.perf_counter()
+    ssm["falcon_train"] = falcon_train_phase(torch, repro_torch, kern, falcon_train_config(), dev,
+                                             ssm_checked)
+    log(f"  phase 14: {time.perf_counter() - t0:.1f} s")
+
     log("phase 8: timings at the shapes of the main paths")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3532,7 +4225,7 @@ def main() -> int:
     log(smi)
     t0 = time.perf_counter()
     records = timing_phase(torch, graph, {"sites": sites, "launches": launches}, logreg, nnmf, kge,
-                           lm, oocore, olmoe, errs, dev)
+                           lm, oocore, olmoe, ssm, errs, dev)
     log(f"  phase 8: {time.perf_counter() - t0:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)

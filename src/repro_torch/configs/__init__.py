@@ -10,7 +10,7 @@ from importlib import import_module
 
 from .base import INPUT_SHAPES, InputShape, ModelConfig  # noqa: F401
 
-ARCH_IDS = ("olmoe-1b-7b", "falcon-mamba-7b")
+ARCH_IDS = ("olmoe-1b-7b", "falcon-mamba-7b", "zamba2-7b")
 
 
 def get_config(name: str) -> ModelConfig:

@@ -13,10 +13,10 @@ Presets:
   --preset reduced  2 layers, d_model 256, vocab 512 (seconds on a CPU)
   --preset full     the published widths and depth, in f32 (on the card
                     only: 27.7 GB of weights for olmoe-1b-7b, 29 GB for
-                    falcon-mamba-7b)
+                    falcon-mamba-7b, 27.0 GB for zamba2-7b)
 
 Run:  PYTHONPATH=src python -m repro_torch.examples.serve_batched --device cpu
-      PYTHONPATH=src python -m repro_torch.examples.serve_batched --arch falcon-mamba-7b
+      PYTHONPATH=src python -m repro_torch.examples.serve_batched --arch zamba2-7b
       [--requests 6] [--prompt-len 32] [--gen 16] [--preset full]
 
 It runs on the CUDA device unless ``--device`` names another.
@@ -33,10 +33,8 @@ import time
 import numpy as np
 
 import repro_torch
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.models import build_model
-
-ARCHS = ("olmoe-1b-7b", "falcon-mamba-7b")
 
 
 def make_cfg(arch: str, preset: str):
@@ -49,7 +47,7 @@ def make_cfg(arch: str, preset: str):
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=ARCHS, default="olmoe-1b-7b")
+    ap.add_argument("--arch", choices=ARCH_IDS, default="olmoe-1b-7b")
     ap.add_argument("--preset", choices=("reduced", "full"), default="reduced")
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--prompt-len", type=int, default=32)

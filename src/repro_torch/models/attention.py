@@ -3,8 +3,10 @@ chunked (online-softmax) attention that never materializes the S×S score
 matrix.
 
 Plain PyTorch, as the reference computes these with ``jnp.einsum`` outside
-any Pallas kernel; the projections around them (``models/blocks.py``) go
-through the relational engine. ``scaled_dot_product_attention`` is not
+any Pallas kernel (the training path's products through
+``common.einsum``, whose outputs remat's "dots" policy keeps); the
+projections around them (``models/blocks.py``) go through the relational
+engine. ``scaled_dot_product_attention`` is not
 used: it has no logit softcap, and its masking is not the reference's
 additive ``NEG_INF`` bias, which the chunked path's recurrence relies on.
 Sliding windows (gemma) and MLA (deepseek-v3) wait for their slices
@@ -18,7 +20,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from .common import softcap
+from .common import einsum, softcap
 
 NEG_INF = -2.0e38
 
@@ -67,11 +69,11 @@ def attention(
     vf = v.float()
 
     if chunk_size is None or sk <= chunk_size:
-        logits = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf)
+        logits = einsum("bqhgd,bkhd->bhgqk", qf, kf)
         logits = softcap(logits, logit_softcap)
         logits = logits + _mask_bias(q_positions, k_positions, causal)
         w = torch.softmax(logits, dim=-1)
-        out = torch.einsum("bhgqk,bkhd->bqhgd", w, vf)
+        out = einsum("bhgqk,bkhd->bqhgd", w, vf)
         return out.reshape(b, sq, hq, hd).to(q.dtype)
 
     # --- chunked online-softmax path -------------------------------------
@@ -87,7 +89,7 @@ def attention(
     for c0 in range(0, sk, chunk_size):
         kb, vb = kf[:, c0:c0 + chunk_size], vf[:, c0:c0 + chunk_size]
         kp = k_positions[c0:c0 + chunk_size]
-        logits = torch.einsum("bqhgd,bkhd->bhgqk", qf, kb)
+        logits = einsum("bqhgd,bkhd->bhgqk", qf, kb)
         logits = softcap(logits, logit_softcap)
         logits = logits + _mask_bias(q_positions, kp, causal)
         m_new = torch.maximum(m, logits.amax(dim=-1))
@@ -97,7 +99,7 @@ def attention(
         p = torch.where(torch.isfinite(logits), p, torch.zeros_like(p))
         corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), torch.zeros_like(m))
         l = l * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", p, vb)
+        acc = acc * corr[..., None] + einsum("bhgqk,bkhd->bhgqd", p, vb)
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]        # (b,hkv,g,sq,hd)
     out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, hd)

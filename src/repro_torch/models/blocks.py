@@ -1,18 +1,22 @@
 """Layer blocks. This slice of the port builds the kinds
 
-  attn    — GQA decoder layer (full attention + gated MLP)
-  moe     — GQA attention + token-choice MoE   (olmoe)
-  mamba1  — the Mamba-1 SSM block              (falcon-mamba)
+  attn         — GQA decoder layer (full attention + gated MLP)
+  moe          — GQA attention + token-choice MoE   (olmoe)
+  mamba1       — the Mamba-1 SSM block              (falcon-mamba)
+  mamba2       — the Mamba-2 SSM block              (zamba2)
+  mamba2_attn  — Mamba-2, then the shared attention+MLP block (zamba2)
 
 and raises ``NotImplementedError`` for the reference's other kinds: local /
-global (gemma's sliding-window pattern), mla / mla_moe (deepseek-v3),
-mamba2 / mamba2_attn (zamba2) and enc / dec (whisper), which wait for
-ROADMAP.md queue 1, item 6.4.
+global (gemma's sliding-window pattern), mla / mla_moe (deepseek-v3) and
+enc / dec (whisper), which wait for ROADMAP.md queue 1, item 6.4.
 
 Every block's apply has signature  (params, x, ctx) -> (x, cache_entry, aux)
 where ctx = {mode: train|prefill|decode, positions, cache (entry or None),
-length, cache_len, cfg} and aux the block's auxiliary loss (the MoE's
-load-balance loss; 0 for the other kinds).
+length, cache_len, cfg, shared} and aux the block's auxiliary loss (the
+MoE's load-balance loss; 0 for the other kinds). ``shared`` is zamba2's one
+shared attention+MLP parameter set (``shared_attn_init``), reused at every
+``mamba2_attn`` layer; each such layer keeps its own K/V cache of it
+(``shared_kv``).
 """
 
 from __future__ import annotations
@@ -27,12 +31,12 @@ from repro_torch.relational import rel_linear
 from .attention import attention, cache_update, decode_attention
 from .common import ParamTree, apply_rope, dense_init, rms_norm
 from .ffn import mlp_apply, mlp_init, moe_apply, moe_init
-from .ssm import mamba1_apply, mamba1_init
+from .ssm import mamba1_apply, mamba1_init, mamba2_apply, mamba2_init
 
 Ctx = Dict[str, Any]
 
 #: the block kinds this slice builds
-KINDS = ("attn", "moe", "mamba1")
+KINDS = ("attn", "moe", "mamba1", "mamba2", "mamba2_attn")
 
 
 def _dt(cfg) -> torch.dtype:
@@ -42,7 +46,7 @@ def _dt(cfg) -> torch.dtype:
 def _not_ported(kind: str) -> NotImplementedError:
     return NotImplementedError(
         f"block kind {kind!r} is not ported yet: the port builds {', '.join(KINDS)} "
-        "(ROADMAP.md, queue 1, item 6.4: local/global, mla, mamba2, enc/dec)"
+        "(ROADMAP.md, queue 1, item 6.4: local/global, mla, enc/dec)"
     )
 
 
@@ -150,7 +154,31 @@ def block_init(gen: torch.Generator, kind: str, cfg) -> ParamTree:
                 cfg.conv_width, dtype=dt,
             ),
         )
+    if kind in ("mamba2", "mamba2_attn"):
+        return ParamTree(
+            ln=torch.zeros((cfg.d_model,), dtype=dt, device=dev),
+            ssm=mamba2_init(
+                gen, cfg.d_model, cfg.ssm_state, cfg.ssm_expand,
+                n_heads=(cfg.ssm_expand * cfg.d_model) // cfg.ssm_head_dim,
+                head_dim=cfg.ssm_head_dim, conv_width=cfg.conv_width, dtype=dt,
+            ),
+        )
     raise _not_ported(kind)
+
+
+def shared_attn_init(gen: torch.Generator, cfg) -> ParamTree:
+    """zamba2's shared attention+MLP block: ONE parameter set reused at
+    every ``mamba2_attn`` layer (the reference's simplification of the
+    published model's two alternating shared blocks with LoRA; ROADMAP.md
+    §3)."""
+    dt = _dt(cfg)
+    dev = gen.device
+    return ParamTree(
+        ln1=torch.zeros((cfg.d_model,), dtype=dt, device=dev),
+        attn=gqa_init(gen, cfg),
+        ln2=torch.zeros((cfg.d_model,), dtype=dt, device=dev),
+        mlp=mlp_init(gen, cfg.d_model, cfg.d_ff, dtype=dt),
+    )
 
 
 def block_apply(p, kind: str, x, ctx: Ctx):
@@ -188,5 +216,28 @@ def block_apply(p, kind: str, x, ctx: Ctx):
         )
         cache["ssm1"] = st
         return x + y, cache, aux
+
+    if kind in ("mamba2", "mamba2_attn"):
+        h = rms_norm(x, p["ln"], cfg.norm_eps)
+        y, st = mamba2_apply(
+            p["ssm"], h,
+            head_dim=cfg.ssm_head_dim, state_dim=cfg.ssm_state,
+            state=ctx["cache"]["ssm2"] if ctx.get("cache") else None,
+            chunk=cfg.ssm_chunk, scan_dtype=getattr(torch, cfg.ssm_scan_dtype),
+            use_pallas=cfg.ssm_pallas,
+        )
+        cache["ssm2"] = st
+        x = x + y
+        if kind == "mamba2_attn":
+            sp = ctx["shared"]
+            sctx = dict(ctx)
+            sctx["cache"] = ctx["cache"]["shared_kv"] if ctx.get("cache") else None
+            h = rms_norm(x, sp["ln1"], cfg.norm_eps)
+            a, kv = gqa_apply(sp["attn"], h, sctx)
+            x = x + a
+            x = x + mlp_apply(sp["mlp"], rms_norm(x, sp["ln2"], cfg.norm_eps))
+            if kv is not None:
+                cache["shared_kv"] = kv
+        return x, cache, aux
 
     raise _not_ported(kind)

@@ -1,5 +1,5 @@
-"""Shared model primitives: norms, activations, RoPE, init, and the
-module that holds a layer's parameters.
+"""Shared model primitives: norms, activations, RoPE, init, the blocks'
+two-operand einsum, and the module that holds a layer's parameters.
 
 The reference's M-RoPE (``apply_mrope``) waits for qwen2-vl (ROADMAP.md).
 Initializers draw from an explicit ``torch.Generator`` on the target
@@ -14,6 +14,8 @@ from typing import Optional, Sequence
 
 import torch
 from torch import nn
+
+from repro_torch.core import remat
 
 
 class ParamTree(nn.Module):
@@ -57,6 +59,38 @@ def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
     if cap is None:
         return x
     return cap * torch.tanh(x / cap)
+
+
+class _Einsum(torch.autograd.Function):
+    """``torch.einsum(eq, x, y)`` whose output is a product remat's "dots"
+    policy keeps (``core/remat.py``), with its VJP written out: each
+    operand's gradient is the einsum of the cotangent with the other
+    operand. The same backward runs under every remat policy, so their
+    gradients agree bit for bit."""
+
+    @staticmethod
+    def forward(ctx, eq, x, y):
+        ctx.eq = eq
+        ctx.save_for_backward(x, y)
+        return remat.product(lambda: torch.einsum(eq, x, y),
+                             ("einsum", eq, tuple(x.shape), tuple(y.shape)))
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        operands, out = ctx.eq.split("->")
+        xs, ys = operands.split(",")
+        gx = torch.einsum(f"{out},{ys}->{xs}", g, y) if ctx.needs_input_grad[1] else None
+        gy = torch.einsum(f"{xs},{out}->{ys}", x, g) if ctx.needs_input_grad[2] else None
+        return None, gx, gy
+
+
+def einsum(eq: str, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """A product of the blocks (attention's scores and values, the MoE's
+    router and experts, the SSM readout): ``torch.einsum`` of two operands
+    in explicit form ``"ab,bc->ac"``, each index of an operand also in the
+    other operand or in the output."""
+    return _Einsum.apply(eq, x, y)
 
 
 # ---------------------------------------------------------------------------

@@ -10,8 +10,8 @@ outputs into assignment rows and a ``segment_sum`` of those into token
 order, on the CUDA kernels on the card. Each kernel's backward is the
 other, so the layer's forward and backward sum in one fixed order: two
 runs give the same bits, as the rest of the ``cuda`` tier does. The router
-product and the expert products are plain ``torch.matmul``/``torch.einsum``,
-as the reference's are plain ``jnp``.
+product and the expert products are plain ``torch.einsum``
+(``common.einsum``), as the reference's are plain ``jnp``.
 
 The reference's ``shard_experts`` hints place the expert buffers on a
 mesh; they mean nothing on one device and raise until the multi-GPU slice
@@ -28,7 +28,7 @@ import torch.nn.functional as F
 from repro_torch.core import kernels, session
 from repro_torch.relational import rel_linear
 
-from .common import ParamTree, dense_init
+from .common import ParamTree, dense_init, einsum
 
 
 def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, dtype=torch.float32) -> ParamTree:
@@ -113,7 +113,7 @@ def _dispatch_group(x, router, *, top_k, capacity, e):
     (B, T·k) in sorted order: the buffer slot, token, gate and keep flag
     of an assignment; aux the Switch-style load-balance loss per group."""
     b, t, d = x.shape
-    logits = x.float() @ router                                # (B, T, E)
+    logits = einsum("btd,de->bte", x.float(), router)          # (B, T, E)
     probs = torch.softmax(logits, dim=-1)
     gate_idx = _top_k(probs, top_k)
     gate_vals = torch.gather(probs, -1, gate_idx)               # (B, T, k)
@@ -192,9 +192,9 @@ def moe_apply(
     xe, meta, aux = _dispatch_group(x, p["router"], top_k=top_k, capacity=capacity, e=e)
     aux = aux.mean()
 
-    g = torch.einsum("becd,edf->becf", xe, p["wi_gate"])
-    u = torch.einsum("becd,edf->becf", xe, p["wi_up"])
-    ye = torch.einsum("becf,efd->becd", F.silu(g) * u, p["wo"])
+    g = einsum("becd,edf->becf", xe, p["wi_gate"])
+    u = einsum("becd,edf->becf", xe, p["wi_up"])
+    ye = einsum("becf,efd->becd", F.silu(g) * u, p["wo"])
     ye = ye.reshape(b, e * capacity, d)
 
     out = _combine_group(ye, meta, t=s, dtype=x.dtype)

@@ -26,10 +26,11 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import session
+from repro_torch.core.remat import ProductStore
 from repro_torch.core.session import resolve_device
 from repro_torch.relational import rel_embed, rel_linear
 
-from .blocks import block_apply, block_init
+from .blocks import block_apply, block_init, shared_attn_init
 from .common import dense_init, embed_init, rms_norm, softcap
 
 
@@ -54,6 +55,13 @@ def stages_of(cfg) -> List[Stage]:
     reps = cfg.n_layers // len(pat)
     tail = pat[: cfg.n_layers % len(pat)]
     return [Stage(pat, reps, tail)]
+
+
+def _all_kinds(stages: List[Stage]) -> set:
+    out = set()
+    for st in stages:
+        out |= set(st.pattern) | set(st.tail)
+    return out
 
 
 def param_tree(flat: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
@@ -86,8 +94,10 @@ class Model(nn.Module):
     ``stages[si]["scan"][r][f"{i}:{kind}"]`` is block ``i`` of repeat ``r``
     of stage ``si`` (the reference's ``params["stages"][si]["scan"]`` with
     its leading repeat axis unstacked); ``stages[si]["tail"][i]`` a
-    remainder layer. Caches have the same layout: a list per stage of
-    ``{"scan": [entry per repeat], "tail": [entry per layer]}``.
+    remainder layer; ``shared_attn`` zamba2's shared attention+MLP block,
+    present when a stage has a ``mamba2_attn`` layer. Caches have the same
+    layout: a list per stage of ``{"scan": [entry per repeat], "tail":
+    [entry per layer]}``.
 
     ``train_logits``, ``prefill`` and ``decode_step`` run on the module's
     own parameters, or on ``params``: a name → tensor dict with
@@ -112,6 +122,9 @@ class Model(nn.Module):
         self.embed = nn.Parameter(embed_init(gen, (cfg.vocab, cfg.d_model), dtype=dt))
         self.ln_f = nn.Parameter(torch.zeros((cfg.d_model,), dtype=dt, device=dev))
         self.out_embed = nn.Parameter(dense_init(gen, (cfg.d_model, cfg.vocab), dtype=dt))
+        self.has_shared = "mamba2_attn" in _all_kinds(self.stage_specs)
+        if self.has_shared:
+            self.shared_attn = shared_attn_init(gen, cfg)
         self.stages = nn.ModuleList(
             nn.ModuleDict({
                 "scan": nn.ModuleList(
@@ -156,18 +169,18 @@ class Model(nn.Module):
 
         With ``cfg.remat`` in train mode, when autograd records, each
         superblock runs under ``torch.utils.checkpoint`` (the reference's
-        ``jax.checkpoint`` with the "nothing" policy): only its input is
-        kept, and the backward runs its forward again, in the session that
-        ran it the first time (autograd may run the backward on a thread of
-        its own, which does not see the caller's ``Database.activate``)."""
+        ``jax.checkpoint``): only its input is kept, and the backward runs
+        its forward again, in the session that ran it the first time
+        (autograd may run the backward on a thread of its own, which does
+        not see the caller's ``Database.activate``). With
+        ``remat_policy="dots"`` (the reference's ``dots_saveable``) the
+        outputs of the superblock's products (each ``rel_linear``, each
+        ``common.einsum``) are kept from the first run and handed back in
+        call order at the recompute (``core/remat.py``), so the recompute
+        launches no product; with "nothing" (any other policy, as in the
+        reference) they are computed again."""
         cfg = self.cfg
         remat = cfg.remat and ctx["mode"] == "train" and torch.is_grad_enabled()
-        if remat and cfg.remat_policy != "nothing":
-            raise NotImplementedError(
-                f"remat_policy={cfg.remat_policy!r}: the port rematerializes with the "
-                "'nothing' policy only; a policy that saves the products' outputs "
-                "waits (ROADMAP.md, queue 1, item 6.3)"
-            )
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         new_caches = []
 
@@ -190,10 +203,19 @@ class Model(nn.Module):
                 x, _, aux = superblock(pattern, sblock, x, None)
                 return x, aux
 
-            return checkpoint(
-                run, x, use_reentrant=False,
-                context_fn=lambda: (contextlib.nullcontext(), db.activate()),
-            )
+            def contexts():
+                if cfg.remat_policy != "dots":
+                    return contextlib.nullcontext(), db.activate()
+                store = ProductStore()
+
+                @contextlib.contextmanager
+                def recompute():
+                    with db.activate(), store.replay():
+                        yield
+
+                return store.record(), recompute()
+
+            return checkpoint(run, x, use_reentrant=False, context_fn=contexts)
 
         for si, st in enumerate(self.stage_specs):
             stage = p["stages"][si]
@@ -225,6 +247,12 @@ class Model(nn.Module):
             return torch.full((b, 1), int(length), dtype=torch.int32, device=self.device)
         return torch.arange(s, dtype=torch.int32, device=self.device)[None].expand(b, s)
 
+    def _share(self, p, ctx) -> None:
+        """zamba2's shared block as ``ctx["shared"]``, for every
+        ``mamba2_attn`` layer."""
+        if self.has_shared:
+            ctx["shared"] = p["shared_attn"]
+
     # -- entry points --------------------------------------------------------
 
     def train_logits(self, batch: Dict[str, Any], params: Optional[Mapping[str, torch.Tensor]] = None):
@@ -236,6 +264,7 @@ class Model(nn.Module):
         b, s = tokens.shape
         x = self._embed(p, tokens)
         ctx = {"cfg": self.cfg, "mode": "train", "positions": self._positions(b, s), "cache": None}
+        self._share(p, ctx)
         x, _, aux = self._run_stages(p, x, ctx, None)
         return self._head(p, x), aux
 
@@ -250,6 +279,7 @@ class Model(nn.Module):
         x = self._embed(p, tokens)
         ctx = {"cfg": self.cfg, "mode": "prefill", "positions": self._positions(b, s),
                "cache": None, "cache_len": cache_len}
+        self._share(p, ctx)
         x, caches, _ = self._run_stages(p, x, ctx, None)
         return self._head(p, x[:, -1:]), caches
 
@@ -260,6 +290,7 @@ class Model(nn.Module):
         x = self._embed(p, token)
         ctx = {"cfg": self.cfg, "mode": "decode",
                "positions": self._positions(token.shape[0], 1, length=length), "length": length}
+        self._share(p, ctx)
         x, caches, _ = self._run_stages(p, x, ctx, caches)
         return self._head(p, x), caches
 

@@ -1,12 +1,13 @@
-"""State-space blocks: Mamba-1 (falcon-mamba). Mamba-2 (zamba2) waits for
-the zamba2 slice (ROADMAP.md).
+"""State-space blocks: Mamba-1 (falcon-mamba) and Mamba-2 (zamba2).
 
 The selective scan is a linear recurrence h_t = a_t ⊙ h_{t-1} + b_t. With
 ``use_pallas`` (``ModelConfig.ssm_pallas``) it runs on the hand-written
-CUDA kernel (``kernels/ssm_scan``): one pass over the (B,S,C,N) tensors.
-Without it, ``selective_scan`` runs the parallel prefix in plain PyTorch,
-as the reference runs ``jax.lax.associative_scan``. Decode keeps (conv
-window, ssm state) as carried state and advances one step in O(1).
+CUDA kernel (``kernels/ssm_scan``): one pass over the (B,S,C,N) tensors;
+Mamba-2's per-head decay is broadcast to the head's N·P lanes first, as
+the reference broadcasts it for its Pallas kernel. Without it,
+``selective_scan`` runs the parallel prefix in plain PyTorch, as the
+reference runs ``jax.lax.associative_scan``. Decode keeps (conv window,
+ssm state) as carried state and advances one step in O(1).
 
 Arch-applicability: the recurrence is *not* a relational join-aggregate, so
 the paper's auto-diff does not cover it — these blocks use PyTorch's
@@ -25,7 +26,7 @@ from torch import nn
 from repro_torch.kernels.ssm_scan import ssm_scan
 from repro_torch.relational import rel_linear
 
-from .common import dense_init
+from .common import dense_init, einsum, rms_norm
 
 
 def _assoc_scan(a, b):
@@ -155,9 +156,96 @@ def mamba1_apply(
         h = h[:, None]
     del da, bx
 
-    y = torch.einsum("bscn,bsn->bsc", h, cmat.to(h.dtype))
+    y = einsum("bscn,bsn->bsc", h, cmat.to(h.dtype))
+    del h
     y = y.float()
     y = y + p["d_skip"][None, None] * xc.float()
     y = y.to(x.dtype) * F.silu(z)
+    out = rel_linear(y, p["out_proj"])
+    return out, {"conv": new_conv, "ssm": new_ssm}
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 / SSD (zamba2, arXiv:2411.15242)
+# ---------------------------------------------------------------------------
+
+
+def mamba2_init(gen: torch.Generator, d_model: int, state: int = 64, expand: int = 2,
+                n_heads: Optional[int] = None, head_dim: int = 64,
+                conv_width: int = 4, dtype=torch.float32) -> nn.ParameterDict:
+    """The block's parameters, made on ``gen``'s device. ``in_proj`` emits
+    [z, x, B, C, dt]."""
+    d_inner = expand * d_model
+    n_heads = n_heads or d_inner // head_dim
+    d_xbc = d_inner + 2 * state
+    dev = gen.device
+    return nn.ParameterDict({
+        "in_proj": dense_init(gen, (d_model, 2 * d_inner + 2 * state + n_heads), dtype=dtype),
+        "conv_w": dense_init(gen, (conv_width, d_xbc), dtype=dtype),
+        "conv_b": torch.zeros((d_xbc,), dtype=dtype, device=dev),
+        "a_log": torch.zeros((n_heads,), dtype=torch.float32, device=dev),
+        "dt_bias": torch.zeros((n_heads,), dtype=torch.float32, device=dev),
+        "d_skip": torch.ones((n_heads,), dtype=torch.float32, device=dev),
+        "norm_scale": torch.zeros((d_inner,), dtype=dtype, device=dev),
+        "out_proj": dense_init(gen, (d_inner, d_model), dtype=dtype),
+    })
+
+
+def mamba2_apply(
+    p,
+    x: torch.Tensor,                     # (B, S, D)
+    *,
+    head_dim: int = 64,
+    state_dim: int = 64,
+    state: Optional[dict] = None,        # decode: {"conv": (B,W-1,d_inner+2N), "ssm": (B,H,N,P)}
+    chunk: int = 0,
+    scan_dtype=torch.float32,
+    use_pallas: bool = False,
+) -> Tuple[torch.Tensor, dict]:
+    b, s, _ = x.shape
+    nh = p["a_log"].shape[0]
+    d_inner = nh * head_dim
+    n = state_dim
+
+    zxbcdt = rel_linear(x, p["in_proj"])
+    z, xbc, dt = torch.split(zxbcdt, [d_inner, d_inner + 2 * n, nh], dim=-1)
+    conv_state = state["conv"] if state is not None else None
+    xbc, new_conv = _causal_conv(xbc, p["conv_w"], p["conv_b"], conv_state)
+    xbc = F.silu(xbc)
+    xin, bmat, cmat = torch.split(xbc, [d_inner, n, n], dim=-1)
+
+    dt = F.softplus(dt.float() + p["dt_bias"])                  # (B,S,H)
+    a = -torch.exp(p["a_log"])                                  # (H,)
+    da = torch.exp(dt * a[None, None])                          # (B,S,H)
+
+    xh = xin.reshape(b, s, nh, head_dim).float()
+    bx = (dt[..., None, None] * bmat.float()[:, :, None, :, None]
+          * xh[..., None, :])                                   # (B,S,H,N,P)
+
+    if state is None:
+        if use_pallas:
+            # the kernel takes a and b of one shape: the head's decay
+            # broadcast to its N·P lanes, materialized (under autograd the
+            # expand's backward sums ∂a over a head's lanes)
+            lanes = (b, s, nh, n * head_dim)
+            da_full = da[..., None].expand(lanes).to(scan_dtype).contiguous()
+            h = ssm_scan(da_full, bx.reshape(lanes).to(scan_dtype)).reshape(bx.shape)
+            del da_full
+        else:
+            h = selective_scan(da[..., None, None].to(scan_dtype), bx.to(scan_dtype), chunk)  # (B,S,H,N,P)
+        # a copy, not a view: the cache must not keep the whole h alive
+        new_ssm = h[:, -1].to(torch.float32, copy=True)
+    else:
+        h = da[:, 0, :, None, None] * state["ssm"] + bx[:, 0]   # (B,H,N,P)
+        new_ssm = h
+        h = h[:, None]
+    del bx  # each (B,S,H,N,P) f32 tensor is 3.76 GB at zamba2's 2 x 1,024-token prefill
+
+    y = einsum("bshnp,bsn->bshp", h, cmat.to(h.dtype))
+    del h
+    y = y.float()
+    y = y + p["d_skip"][None, None, :, None] * xh
+    y = y.reshape(b, s, d_inner).to(x.dtype)
+    y = rms_norm(y * F.silu(z), p["norm_scale"])
     out = rel_linear(y, p["out_proj"])
     return out, {"conv": new_conv, "ssm": new_ssm}

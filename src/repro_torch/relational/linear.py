@@ -29,7 +29,7 @@ import functools
 
 import torch
 
-from repro_torch.core import fra, session
+from repro_torch.core import fra, remat, session
 from repro_torch.core.autodiff import ra_autodiff
 from repro_torch.core.kernels import ADD, MATMUL
 from repro_torch.core.keys import L, R, eq_pred, jproj, project_key
@@ -81,7 +81,9 @@ def _matmul_function(name: str, prog_fn, arity: int):
         env = {"X": DenseRelation(x, arity), "W": DenseRelation(w, arity)}
         ctx.save_for_backward(x, w)
         ctx.db = session.current()
-        return ctx.db.execute(prog.forward, env).data
+        # kept for, or handed back at, the recompute of remat "dots"
+        return remat.product(lambda: ctx.db.execute(prog.forward, env).data,
+                             (name, tuple(x.shape), tuple(w.shape)))
 
     def backward(ctx, g):
         x, w = ctx.saved_tensors

@@ -10,7 +10,9 @@ each at B·S = 2048 — for all 64 layers at once.
 Attention layers carry a K/V cache of ``cache_len`` positions, written at
 ``length`` by each decode step, which then advances ``length`` by one as
 the reference's caller does; SSM layers carry (conv window, state): O(1)
-per step.
+per step. zamba2's ``mamba2_attn`` layers carry both: their Mamba-2 state
+(``ssm2``) and the K/V cache of the shared attention block at that layer
+(``shared_kv``).
 
 ``BucketedPrefill`` is the session-backed bucketing engine underneath the
 serving front door: one prefill step per (batch, seq) bucket, held in a
@@ -42,10 +44,14 @@ from repro_torch.models.model import Model, stages_of
 
 def _attn_cache_entry(cfg, kind: str, batch: int, cache_len: int, device: torch.device):
     dt = getattr(torch, cfg.dtype)
-    if kind in ("attn", "moe"):
+
+    def kv():
         shape = (batch, cache_len, cfg.n_kv_heads, cfg.hd())
-        return {"kv": {"k": torch.zeros(shape, dtype=dt, device=device),
-                       "v": torch.zeros(shape, dtype=dt, device=device)}}
+        return {"k": torch.zeros(shape, dtype=dt, device=device),
+                "v": torch.zeros(shape, dtype=dt, device=device)}
+
+    if kind in ("attn", "moe"):
+        return {"kv": kv()}
     if kind == "mamba1":
         c = cfg.ssm_expand * cfg.d_model
         return {
@@ -56,10 +62,26 @@ def _attn_cache_entry(cfg, kind: str, batch: int, cache_len: int, device: torch.
                 "ssm": torch.zeros((batch, c, cfg.ssm_state), dtype=torch.float32, device=device),
             }
         }
+    if kind in ("mamba2", "mamba2_attn"):
+        c = cfg.ssm_expand * cfg.d_model
+        entry = {
+            "ssm2": {
+                "conv": torch.zeros(
+                    (batch, cfg.conv_width - 1, c + 2 * cfg.ssm_state), dtype=dt, device=device
+                ),
+                "ssm": torch.zeros(
+                    (batch, c // cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_head_dim),
+                    dtype=torch.float32, device=device,
+                ),
+            }
+        }
+        if kind == "mamba2_attn":
+            entry["shared_kv"] = kv()
+        return entry
     raise NotImplementedError(
         f"the cache of block kind {kind!r} is not ported yet: the port builds "
-        "attn, moe and mamba1 (ROADMAP.md, queue 1, item 6.4: local/global, mla, "
-        "mamba2, enc/dec)"
+        "attn, moe, mamba1, mamba2 and mamba2_attn (ROADMAP.md, queue 1, item 6.4: "
+        "local/global, mla, enc/dec)"
     )
 
 

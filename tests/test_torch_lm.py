@@ -294,7 +294,7 @@ def test_unported_block_kinds_raise():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             block_init(gen, kind, cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(dataclasses.replace(get_config("falcon-mamba-7b").reduced(), pattern=("mamba2",)),
+        build_model(dataclasses.replace(get_config("falcon-mamba-7b").reduced(), pattern=("enc",)),
                     device="cpu")
 
 

@@ -680,7 +680,7 @@ def test_session_cache_is_an_lru_with_counters():
 
 
 def _cfg(arch):
-    kw = {"ssm_pallas": True} if arch == "falcon-mamba-7b" else {}
+    kw = {"ssm_pallas": True} if arch in ("falcon-mamba-7b", "zamba2-7b") else {}
     return get_config(arch).reduced(**kw), jax_get_config(arch).reduced(**kw)
 
 
@@ -699,12 +699,16 @@ def _filled(jcfg, batch, cache_len):
 
 
 def _leaves(tree):
-    out = []
-    service.map_cache(lambda t: out.append(t), tree)
-    return out
+    """The tensors of a cache tree, dict keys in sorted order (the order of
+    the reference's trees after ``jax.tree.map``)."""
+    if isinstance(tree, dict):
+        tree = [tree[k] for k in sorted(tree)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree] if isinstance(tree, torch.Tensor) else []
 
 
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "falcon-mamba-7b"])
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "falcon-mamba-7b", "zamba2-7b"])
 def test_cache_batch_surgery_takes_axis_0_of_the_ports_layout(arch):
     """Pad, compaction and the bucket slice move rows of the batch axis
     only, on K/V and on (conv, ssm) caches, as the reference's helpers do
@@ -999,7 +1003,7 @@ def test_encoder_and_vision_serving_wait_for_their_slice():
         ep.warmup()
 
 
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "falcon-mamba-7b"])
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "falcon-mamba-7b", "zamba2-7b"])
 def test_serve_batched_example_on_the_cpu(arch, capsys):
     from repro_torch.examples import serve_batched
 

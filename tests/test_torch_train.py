@@ -1,8 +1,11 @@
 """LM training in the JAX package and in the port: the loss, the synthetic
 pipeline, one ``make_train_step`` step of the reduced olmoe-1b-7b (2
-layers, d_model 256, 4 experts, top-2, vocab 512) from the same weights
-and batch, donation, rematerialization, checkpoints across the two
-packages, and the two training examples (``lm_train``, ``gcn_train``).
+layers, d_model 256, 4 experts, top-2, vocab 512) and of the reduced
+falcon-mamba-7b (2 Mamba-1 layers, d_model 256, vocab 512, the scan kernel's
+path: its VJP's reverse walk) from the same weights and batch, donation,
+rematerialization under the "nothing" and the "dots" policy, checkpoints
+across the two packages, and the two training examples (``lm_train``,
+``gcn_train``).
 
 The JAX side runs under ``repro.Database(dispatch="interpret")``; the
 port's under ``repro_torch.Database(device="cpu")``, where every kernel
@@ -43,6 +46,9 @@ from repro_torch.train import init_train_state, lm_loss, make_train_step
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCH = "olmoe-1b-7b"
+#: the architectures of the one-step parity tests: olmoe, and falcon-mamba
+#: through ssm_scan (``ssm_pallas=True``)
+TRAIN_ARCHS = ("olmoe-1b-7b", "falcon-mamba-7b")
 BATCH, SEQ = 2, 40
 #: the loss and the aux loss, absolute and relative: a mean over 80 tokens
 #: of f32 log-sum-exps of logits that agree to a few roundings (see
@@ -60,12 +66,23 @@ def _np(tree):
     return jax.tree.map(lambda a: np.asarray(a), tree)
 
 
-@pytest.fixture(scope="module")
-def lm():
-    jcfg, cfg = jax_get_config(ARCH).reduced(), get_config(ARCH).reduced()
+def _reduced(arch):
+    kw = {"ssm_pallas": True} if arch == "falcon-mamba-7b" else {}
+    jcfg, cfg = jax_get_config(arch).reduced(**kw), get_config(arch).reduced(**kw)
     jmodel = jax_build_model(jcfg)
     params = _np(jmodel.init(jax.random.PRNGKey(0)))
     return jmodel, params, cfg
+
+
+@pytest.fixture(scope="module")
+def lm():
+    return _reduced(ARCH)
+
+
+@pytest.fixture(scope="module", params=TRAIN_ARCHS)
+def arch_lm(request):
+    """``lm`` of each of TRAIN_ARCHS."""
+    return _reduced(request.param)
 
 
 def _port(cfg, params, **changes):
@@ -145,10 +162,10 @@ def test_synthetic_lm_batches_run_on_cuda_unless_asked(lm, monkeypatch):
 
 
 @pytest.fixture(scope="module")
-def one_step(lm):
+def one_step(arch_lm):
     """(reference params, opt state, metrics) and the port's after one step
     from the same weights and batch."""
-    jmodel, params, cfg = lm
+    jmodel, params, cfg = arch_lm
     jbatch = next(jax_synthetic_lm_batches(jmodel.cfg, BATCH, SEQ, seed=0))
     with repro.Database(dispatch="interpret").activate():
         jp, jo, jm = jax_make_train_step(jmodel, jit=False)(
@@ -180,10 +197,10 @@ def test_train_step_updates_every_tensor_as_jax(one_step, part):
     assert int(o["step"]) == int(jo["step"]) == 1
 
 
-def test_donated_step_is_bit_equal_and_updates_in_place(lm):
+def test_donated_step_is_bit_equal_and_updates_in_place(arch_lm):
     """``donate=True`` writes the step's results into the given tensors:
     the same bits as ``donate=False``, which leaves its inputs alone."""
-    _, params, cfg = lm
+    _, params, cfg = arch_lm
     batch = next(synthetic_lm_batches(cfg, BATCH, SEQ, seed=1, device="cpu"))
     db = repro_torch.Database(device="cpu")
     out = {}
@@ -217,14 +234,14 @@ def _grads(model, batch, params=None):
     return total, params
 
 
-def test_remat_gradients_equal_the_plain_ones_bit_for_bit(lm):
+def test_remat_gradients_equal_the_plain_ones_bit_for_bit(arch_lm):
     """``cfg.remat`` runs each superblock under ``torch.utils.checkpoint``:
     the backward recomputes its forward, with the same bits, so the
     gradients equal those without remat bit for bit. The recomputation
     runs in the session that ran the forward (here the backward runs
     outside ``activate``, where the process default would be a CUDA
     session) and lowers nothing new."""
-    _, params, cfg = lm
+    _, params, cfg = arch_lm
     batch = next(synthetic_lm_batches(cfg, BATCH, SEQ, seed=2, device="cpu"))
     # a table no other test uses (lowerings are cached per table)
     db = repro_torch.Database(device="cpu", dispatch={"blocked_matmul": "ref", "segment_sum": "ref"})
@@ -241,12 +258,47 @@ def test_remat_gradients_equal_the_plain_ones_bit_for_bit(lm):
     assert all(torch.equal(got[False][k], got[True][k]) for k in got[False])
 
 
-def test_remat_policy_dots_raises(lm):
-    _, params, cfg = lm
-    model = _port(cfg, params, remat=True, remat_policy="dots")
-    batch = next(synthetic_lm_batches(cfg, 1, 8, seed=0, device="cpu"))
-    with repro_torch.Database(device="cpu").activate(), pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.train_logits(batch)
+class _ProductCount:
+    """Counts the forward queries of ``rel_linear`` that a session executes
+    (its product: the blocked_matmul site, a kernel launch on the card)."""
+
+    def __init__(self, monkeypatch):
+        forward, real = _linear_prog()[0].forward, repro_torch.Database.execute
+        self.n = 0
+
+        def execute(db, prog, *args, **kw):
+            self.n += prog is forward
+            return real(db, prog, *args, **kw)
+
+        monkeypatch.setattr(repro_torch.Database, "execute", execute)
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_remat_policy_dots_keeps_the_products_and_the_gradients_bit_for_bit(arch, monkeypatch):
+    """``remat_policy="dots"`` (the reference's ``dots_saveable``) keeps the
+    superblocks' product outputs from the forward: its backward runs no
+    ``rel_linear`` forward query again, where "nothing" runs each one a
+    second time, and its gradients equal those of "nothing" and of no remat
+    bit for bit."""
+    _, params, cfg = _reduced(arch)
+    batch = next(synthetic_lm_batches(cfg, BATCH, SEQ, seed=3, device="cpu"))
+    count = _ProductCount(monkeypatch)
+    got, forwards, again = {}, {}, {}
+    for policy in (None, "nothing", "dots"):
+        model = _port(cfg, params, remat=policy is not None, remat_policy=policy or "nothing")
+        count.n = 0
+        with repro_torch.Database(device="cpu").activate():
+            total, leaves = _grads(model, batch)
+            forwards[policy] = count.n
+            grads = torch.autograd.grad(total, list(leaves.values()))
+        again[policy] = count.n - forwards[policy]
+        got[policy] = dict(zip(leaves, grads))
+    # the superblocks' projections run once more under "nothing"; the
+    # head, outside them, never
+    assert forwards == dict.fromkeys(forwards, forwards[None])
+    assert again == {None: 0, "nothing": forwards[None] - 1, "dots": 0}
+    for policy in ("nothing", "dots"):
+        assert all(torch.equal(got[policy][k], got[None][k]) for k in got[None]), policy
 
 
 def test_train_step_on_a_mesh_raises(lm):
