@@ -114,10 +114,35 @@ Phases, in order; any failure stops the run with a non-zero exit:
    none bit for bit ("dots" recomputes no product), then 5 donated Adam
    steps under "nothing" and 5 from the same weights under "dots" (equal
    losses), with the step time, tokens/s, peak memory, launches and the
-   idle share.
+   idle share;
+15. (run before phase 8, as are 16-18) serve gemma2-9b at its published
+   widths and depth (42 layers, 21 x (sliding-window local, global);
+   d_model 3,584, 16 heads of 256 over 8 KV heads, d_ff 14,336, vocab
+   256,000, tied embeddings, embed_scale, softcaps 50/30; f32, random
+   weights from a seed): one prompt of 4,608 tokens, past the 4,096 window
+   and past attn_chunk = 2,048, then 8 greedy decode steps through the
+   right-aligned window caches; every site on the cuda tier, the logits
+   against the torch tier, the last decode step against a prefill over the
+   prompt and every fed token, with the window ignored planted; the times
+   against the decode floor, the tied head's einsum and the window caches'
+   shift per step, the peak memory and the idle share;
+16. train gemma2-9b at its published widths and 4 layers: step 1's loss and
+   gradients (the tied table's two parts and the softcaps' backward among
+   them) against the torch tier with a lost token planted, remat "nothing"
+   against "dots" bit for bit, then 5 donated Adam steps under each;
+17. serve gemma3-4b at its published widths and depth (34 layers, 5 x (5
+   local + 1 global) + 4 local, window 1,024, QK-norm): 2 prompts of 1,536
+   tokens and 8 decode steps, checked as phase 15; then through
+   ``db.endpoint`` (prefill buckets of 1, 2 and 4 prompts of 1,280 tokens,
+   room for 8 new ones): 4 concurrent requests, each held to the request
+   served alone, with a compaction that swaps two slots' cache rows planted;
+18. serve llama3-405b at its published widths and 2 of its 126 layers
+   (d_model 16,384, d_ff 53,248, vocab 128,256; 42.3 GB of f32 weights): 2
+   prompts of 1,024 tokens and 8 decode steps, checked as phase 15, with a
+   lost K cache planted.
 
 Device memory is freed between phases, so the NNMF step's peak and the
-language models' 27–29 GB of weights never meet. The last line of standard
+language models' 15–42 GB of weights never meet. The last line of standard
 output is ``{"ok": true, "device": {...}}``; the line before it is one JSON
 object with a record per kernel, and the line before that the card's name
 and power limit as nvidia-smi gives them.
@@ -125,6 +150,7 @@ and power limit as nvidia-smi gives them.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -319,6 +345,60 @@ ENDPOINT_REQUESTS, ENDPOINT_SWAP_NEW = 8, 8
 #: round otherwise at another batch, by at most about OLMOE_TIER_LIMIT of
 #: the logits each, so a flip needs a gap below twice it
 ENDPOINT_TIE_LIMIT = 2 * OLMOE_TIER_LIMIT
+# the dense-attention families (src/repro_torch/configs/{gemma2_9b,gemma3_4b,
+# llama3_405b}.py at their published widths, f32 instead of bf16). Phase 15
+# serves gemma2-9b at all 42 layers (21 x (local, global)): one prompt of
+# 4,608 tokens, past the 4,096 window (each local cache keeps the last
+# 4,096 keys) and past attn_chunk = 2,048 (the chunked path's 3 blocks, the
+# last padded, the window crossing them), then 8 greedy decode steps
+GEMMA2_ARCH, GEMMA2_BATCH, GEMMA2_PROMPT, GEMMA2_DECODE = "gemma2-9b", 1, 4608, 8
+GEMMA2_PARAMS = 9_241_404_928
+# phase 16 trains gemma2-9b at its published widths and 4 of its 42 layers
+# (2 local + 2 global; the weights, gradients and two Adam moments take
+# 27.36 GB): one batch of 4 x 1,024 tokens, 5 donated Adam steps under remat
+# "nothing" and 5 under "dots"
+GEMMA2_TRAIN_LAYERS, GEMMA2_TRAIN_BATCH, GEMMA2_TRAIN_SEQ, GEMMA2_TRAIN_STEPS = 4, 4, 1024, 5
+GEMMA2_TRAIN_PARAMS = 1_710_259_712
+# phase 17 serves gemma3-4b at all 34 layers (5 x (5 local + 1 global) + 4
+# local, QK-norm): 2 prompts of 1,536 tokens, past the 1,024 window, and 8
+# greedy decode steps; then through db.endpoint with prefill buckets of 1, 2
+# and 4 prompts of 1,280 tokens and room for 8 new tokens (the local caches
+# 1,024 wide, the global ones 1,288), 4 concurrent requests
+GEMMA3_ARCH, GEMMA3_BATCH, GEMMA3_PROMPT, GEMMA3_DECODE = "gemma3-4b", 2, 1536, 8
+GEMMA3_PARAMS = 3_879_925_248
+GEMMA3_ENDPOINT_PROMPT, GEMMA3_ENDPOINT_BUCKETS, GEMMA3_ENDPOINT_NEW = 1280, (1, 2, 4), 8
+GEMMA3_ENDPOINT_BUDGETS = (8, 5, 7, 6)
+# phase 18 serves llama3-405b at its published widths and 2 of its 126
+# layers (d_model 16,384, d_ff 53,248, vocab 128,256; 42.3 GB of f32
+# weights): 2 prompts of 1,024 tokens and 8 greedy decode steps
+LLAMA3_ARCH, LLAMA3_LAYERS, LLAMA3_BATCH, LLAMA3_PROMPT, LLAMA3_DECODE = "llama3-405b", 2, 2, 1024, 8
+LLAMA3_PARAMS = 10_578_116_608
+#: the prefill logits of the cuda tier against the torch tier, as a share of
+#: the largest logit. gemma2's 42 layers run 294 products (K ≤ 14,336: √K·u
+#: = 7.1e-6 of each), ≈ 1.2e-4 as a random walk; the attention and the tied
+#: head are the same einsums on both tiers. As for zamba2
+#: (ZAMBA2_PREFILL_LIMIT), the limit allows 10 times that for the growth of
+#: an error through the layers of random weights; llama3's 2 layers (15
+#: products of K ≤ 53,248, ≈ 5e-5) lie well inside it
+DENSE_TIER_LIMIT = 1e-3
+#: decode against a prefill over the prompt and every fed token, as a share
+#: of the largest logit, at the last decode step: both run the cuda tier on
+#: the same weights and blocked_matmul's rows do not depend on m; what
+#: rounds otherwise is the attention (one softmax over the cache against the
+#: chunked online softmax), a few f32 roundings a layer, as for
+#: OLMOE_DECODE_LIMIT. Each phase plants a fault that changes the keys a
+#: layer sees and shows it exceeds this: the window ignored (gemma), a lost
+#: K cache (llama3)
+DENSE_DECODE_LIMIT = 1e-4
+#: gemma2's step-1 loss, cuda tier against torch tier, relative (4 layers),
+#: as OLMOE_LOSS_LIMIT
+DENSE_LOSS_LIMIT = 1e-5
+#: gemma2's step-1 gradients (layer 0's wq and its MLP's wo, layer 1's wk,
+#: the tied table), cuda tier against torch tier, relative in the 2-norm: the
+#: argument and limit of OLMOE_GRAD_LIMIT (≈ 100 f32 sums of K ≤ 14,336
+#: terms in a chain, each ≈ √K·u ≈ 7e-6). A step that loses one of its 4,096
+#: tokens (planted) moves every gradient by more than 1/4,096
+DENSE_GRAD_LIMIT = 2e-4
 #: the shapes of blocked_matmul's path-crossover cases: the skinny path
 #: takes m ≤ 16
 CROSSOVER_M, CROSSOVER_K, CROSSOVER_N = (1, 2, 15, 16, 17, 33), (1, 3, 511, 512, 513, 8192), (1, 40, 288)
@@ -378,6 +458,7 @@ def segsum_shapes(cfg):
               (PRODUCTS_WAVE_E, PRODUCTS_D, PRODUCTS_NODES, "products wave")]
     cases += [(e, d, s, "olmoe") for op, e, d, s in olmoe_checked_shapes(olmoe_config())
               if op == "segment_sum"]
+    cases += [(e, d, s, "dense") for op, e, d, s in dense_checked_shapes() if op == "segment_sum"]
     return cases
 
 
@@ -396,6 +477,7 @@ def gather_shapes(cfg):
               (PRODUCTS_WAVE_E, PRODUCTS_NODES, PRODUCTS_D, "products wave")]
     cases += [(e, n, d, "olmoe") for op, e, n, d in olmoe_checked_shapes(olmoe_config())
               if op == "gather_join"]
+    cases += [(e, n, d, "dense") for op, e, n, d in dense_checked_shapes() if op == "gather_join"]
     return cases
 
 
@@ -421,7 +503,7 @@ def matmul_cases(cfg):
     GCN forwards, the RJP shapes, the logistic regression's two products
     in core and in one wave of phase 9, the NNMF product, falcon-mamba's projections at m = B·S and m = B and
     its head at m = B, ragged edges, the crossover between the skinny
-    and the tiled path, and the products of phases 10-14."""
+    and the tiled path, and the products of phases 10-18."""
     from repro_torch.examples.nnmf import BLOCK
 
     cases = [
@@ -443,6 +525,8 @@ def matmul_cases(cfg):
     cases += [(m, k, n, "olmoe") for op, m, k, n in sorted(olmoe_checked_shapes(olmoe_config()))
               if op == "blocked_matmul"]
     cases += [(m, k, n, "zamba2 / falcon-mamba training") for op, m, k, n in sorted(ssm_checked_shapes())
+              if op == "blocked_matmul"]
+    cases += [(m, k, n, "gemma2 / gemma3 / llama3") for op, m, k, n in sorted(dense_checked_shapes())
               if op == "blocked_matmul"]
     return cases
 
@@ -710,6 +794,14 @@ def check_kernels(torch, kern, graph, lm_cfg, olmoe_cfg, dev):
     for _, m, k, n in sorted(zamba2_shapes(zamba2_config(), ZAMBA2_BATCH, ZAMBA2_PROMPT)):
         if _ == "blocked_matmul" and m > ZAMBA2_BATCH:
             batch_invariance_case(m, k, n, "zamba2")
+    # and the dense families' prefill products (the premise of
+    # DENSE_DECODE_LIMIT)
+    for cfg, b, s in ((dense_config(GEMMA2_ARCH), GEMMA2_BATCH, GEMMA2_PROMPT),
+                      (dense_config(GEMMA3_ARCH), GEMMA3_BATCH, GEMMA3_PROMPT),
+                      (llama3_config(), LLAMA3_BATCH, LLAMA3_PROMPT)):
+        for _, m, k, n in sorted(dense_shapes(cfg, b, s)):
+            if _ == "blocked_matmul" and m > b:
+                batch_invariance_case(m, k, n, cfg.name)
     d, c = lm_cfg.d_model, lm_cfg.ssm_expand * lm_cfg.d_model
     determinism_case(LM_BATCH, d, 2 * c, "falcon-mamba decode in_proj")
     determinism_case(1, LOGREG_ROWS, LOGREG_COLS, "logreg dθ")
@@ -793,6 +885,19 @@ def check_kernels(torch, kern, graph, lm_cfg, olmoe_cfg, dev):
             gather_case(b, lm_ids(a, b), c, "zamba2 / falcon-mamba training")
         elif op == "segment_sum":
             segsum_case(c, lm_ids(a, c), b, "zamba2 / falcon-mamba training")
+        torch.cuda.empty_cache()
+
+    # the dense families' (phases 15-18): the embedding's join by token at
+    # vocabularies of 256,000, 262,144 and 128,256 rows, its Σ by position,
+    # and gemma2 training's transposes, among them the tied table's
+    # gradient: 4,096 rows summed into 256,000 (the scan path writes every
+    # row)
+    for op, a, b, c in sorted(dense_checked_shapes()):
+        if op == "gather_join":
+            gather_case(b, lm_ids(a, b), c, "gemma2 / gemma3 / llama3")
+        elif op == "segment_sum":
+            segsum_case(c, lm_ids(a, c), b, "gemma2 / gemma3 / llama3",
+                        fault=hottest_edge_dropped if c != a else None)
         torch.cuda.empty_cache()
     return errs
 
@@ -2243,6 +2348,26 @@ def hold_to_oracle(outs, oracles, limit):
     return ties, bad
 
 
+@contextlib.contextmanager
+def swapped_compaction(service):
+    """While active, the endpoint's compaction (``_take_cache_batch``)
+    swaps the cache rows of the first two slots it keeps: the planted
+    fault of phases 12 and 17."""
+    real_take = service._take_cache_batch
+
+    def swapped(caches, idx, bucket_b):
+        idx = list(idx)
+        if len(idx) > 1:
+            idx[0], idx[1] = idx[1], idx[0]
+        return real_take(caches, idx, bucket_b)
+
+    service._take_cache_batch = swapped
+    try:
+        yield
+    finally:
+        service._take_cache_batch = real_take
+
+
 def olmoe_endpoint_phase(torch, repro_torch, kern, cfg, dev, model, checked):
     """Phase 12: phase 10's model registered in a session's model registry
     and served through ``db.endpoint``: warmup, a burst of concurrent
@@ -2377,18 +2502,8 @@ def olmoe_endpoint_phase(torch, repro_torch, kern, cfg, dev, model, checked):
         raise AssertionError(f"burst 1 differs from the solo runs: {bad}")
 
     # planted fault: a compaction that swaps two slots' cache rows
-    real_take = service._take_cache_batch
-
-    def swapped(caches, idx, bucket_b):
-        idx = list(idx)
-        idx[0], idx[1] = idx[1], idx[0]
-        return real_take(caches, idx, bucket_b)
-
-    service._take_cache_batch = swapped
-    try:
+    with swapped_compaction(service):
         faulty = burst(ep, reqs)
-    finally:
-        service._take_cache_batch = real_take
     _, fault_bad = hold_to_oracle(faulty, oracles, ENDPOINT_TIE_LIMIT)
     log(f"    planted fault (a compaction that swaps two slots' cache rows): failures {fault_bad}, "
         "must be some")
@@ -3176,6 +3291,669 @@ def falcon_train_phase(torch, repro_torch, kern, cfg, dev, checked):
 
 
 # ---------------------------------------------------------------------------
+# Phases 15-18: the dense-attention families (gemma2, gemma3, llama3)
+# ---------------------------------------------------------------------------
+
+
+def dense_config(arch, **changes):
+    """``arch`` at its published widths in f32 (the published configs are
+    bf16: the cuda tier's blocked_matmul admits f32 only), with
+    ``changes``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch), dtype="float32", **changes)
+
+
+def gemma2_train_config():
+    """gemma2-9b at its published widths, GEMMA2_TRAIN_LAYERS layers, f32,
+    remat ("nothing")."""
+    return dense_config(GEMMA2_ARCH, n_layers=GEMMA2_TRAIN_LAYERS, remat=True, remat_policy="nothing")
+
+
+def llama3_config():
+    """llama3-405b at its published widths, LLAMA3_LAYERS layers, f32."""
+    return dense_config(LLAMA3_ARCH, n_layers=LLAMA3_LAYERS)
+
+
+def dense_shapes(cfg, b, s, train=False):
+    """Every kernel call (op, shape) of a forward over B rows of S tokens (a
+    prefill; a decode step at S = 1), and with ``train`` of its backward:
+    blocked_matmul (m, k, n) at q, k and v (one shape), o, the MLP's gate
+    and up (one shape) and its down projection, and an untied head (the
+    last position in serving); a tied head is an einsum, no kernel site.
+    gather_join (E, N, D) and segment_sum (E, D, S): the embedding's join
+    by token and Σ by position, and in the backward their transposes (the
+    cotangent rows by position; the table gradient, a Σ into the
+    vocabulary's rows)."""
+    d, bs, hd = cfg.d_model, b * s, cfg.hd()
+    mm = {(bs, d, cfg.n_heads * hd), (bs, d, cfg.n_kv_heads * hd), (bs, cfg.n_heads * hd, d),
+          (bs, d, cfg.d_ff), (bs, cfg.d_ff, d)}
+    if not cfg.tie_embeddings:
+        mm.add((bs if train else b, d, cfg.vocab))
+    out = ({("blocked_matmul",) + m for m in mm}
+           | {("gather_join", bs, cfg.vocab, d), ("segment_sum", bs, d, bs)})
+    if train:
+        out |= {("gather_join", bs, bs, d), ("segment_sum", bs, d, cfg.vocab)}
+    return out
+
+
+def dense_checked_shapes():
+    """The kernel calls of phases 15-18: gemma2's prefill and decode step
+    and a train step at 4 layers, gemma3's prefill and decode step and the
+    endpoint's at each bucket, llama3's prefill and decode step."""
+    g2, g3, l3 = dense_config(GEMMA2_ARCH), dense_config(GEMMA3_ARCH), llama3_config()
+    out = (dense_shapes(g2, GEMMA2_BATCH, GEMMA2_PROMPT) | dense_shapes(g2, GEMMA2_BATCH, 1)
+           | dense_shapes(gemma2_train_config(), GEMMA2_TRAIN_BATCH, GEMMA2_TRAIN_SEQ, True)
+           | dense_shapes(g3, GEMMA3_BATCH, GEMMA3_PROMPT) | dense_shapes(g3, GEMMA3_BATCH, 1)
+           | dense_shapes(l3, LLAMA3_BATCH, LLAMA3_PROMPT) | dense_shapes(l3, LLAMA3_BATCH, 1))
+    for b in GEMMA3_ENDPOINT_BUCKETS:
+        out |= dense_shapes(g3, b, GEMMA3_ENDPOINT_PROMPT) | dense_shapes(g3, b, 1)
+    return out
+
+
+def dense_serve_phase(torch, repro_torch, kern, cfg, dev, checked, b, s, steps, want_params):
+    """Phases 15, 17 and 18: one request of B prompts of S tokens, prefill
+    then STEPS greedy decode steps, through ``make_prefill_step`` and
+    ``make_decode_step``; checked against the torch tier and a prefill over
+    the prompt and every fed token, with a planted fault that changes the
+    keys a layer sees (gemma: the window ignored; llama3: a lost K cache).
+    Returns the record and the model (phase 17 serves it again)."""
+    import dataclasses
+
+    from repro_torch.core.engine import engine_for
+    from repro_torch.models import build_model
+    from repro_torch.models.model import stages_of
+    from repro_torch.relational.embedding import _embed_prog
+    from repro_torch.relational.linear import _linear_prog
+    from repro_torch.serving import make_decode_step, make_prefill_step
+
+    st = stages_of(cfg)[0]
+    kinds = list(st.pattern) * st.repeats + list(st.tail)
+    n_local = kinds.count("local")
+    log(f"  {cfg.name}: {cfg.n_layers} layers = {st.repeats} x {st.pattern} + {st.tail}; d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.hd()} over {cfg.n_kv_heads} KV heads, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}; window {cfg.window}, attn_chunk {cfg.attn_chunk}, softcaps "
+        f"{cfg.logit_softcap}/{cfg.final_softcap}, qk_norm {cfg.qk_norm}, tied {cfg.tie_embeddings}, "
+        f"embed_scale {cfg.embed_scale}; dtype float32 (published: bfloat16); random weights from "
+        f"seed 0; a request of {b} x {s} tokens and {steps} decode steps (cache_len {s + steps})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  model built on {model.device} in {time.perf_counter() - t0:.1f} s: {n_params:,} "
+        f"parameters, {n_params * 4:,} bytes")
+    if n_params != want_params:
+        raise AssertionError(f"{n_params} parameters, want {want_params}")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev, dtype=torch.int32)
+    cache_len = s + steps
+    prefill = make_prefill_step(model, cache_len)
+    decode = make_decode_step(model)
+    db = repro_torch.Database()
+    engines = {"rel_linear": engine_for(_linear_prog()[0].forward),
+               "rel_embed": engine_for(_embed_prog()[0].forward)}
+    seen = {k: {id(low) for low in e.lowerings} for k, e in engines.items()}
+
+    # the main path: one request, prefill then greedy decode
+    torch.cuda.reset_peak_memory_stats()
+    kern.reset_launch_counts()
+    with db.activate():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = prefill({"tokens": tokens})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        per_prefill = kern.launch_counts()
+        prefill_logits, prefill_caches = logits, caches
+        out = [logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)]
+        step_s, per_step, steps_logits = [], [], [logits]
+        for step in range(steps):
+            c0 = kern.launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches = decode(out[-1], caches, s + step)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            per_step.append({op: n - c0[op] for op, n in kern.launch_counts().items()})
+            steps_logits.append(logits)
+            out.append(logits[:, -1].argmax(-1, keepdim=True).to(torch.int32))
+    launches = kern.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    widths = sorted({entry["kv"]["k"].shape[1] for rep in caches[0]["scan"] for entry in rep.values()}
+                    | {entry["kv"]["k"].shape[1] for entry in caches[0]["tail"]})
+    del caches
+    with db.activate():
+        busy = device_busy(torch, lambda: decode(out[0], prefill_caches, s))
+    idle = None
+    if busy is None:
+        log("  decode step under torch.profiler: no device time recorded; idle share not measured")
+    else:
+        wall, dev_ms, host, devops = busy
+        idle = 1 - dev_ms / wall
+        log(f"  decode step under torch.profiler: wall {wall:.2f} ms, device busy {dev_ms:.2f} ms "
+            f"(idle share at most {idle:.3f}); most host time: "
+            + "; ".join(f"{k} {ms:.2f} ms x{n}" for k, ms, n in host)
+            + "; most device time: " + "; ".join(f"{k[:60]} {ms:.2f} ms x{n}" for k, ms, n in devops))
+    floor_ms = n_params * 4 / HBM_BYTES_PER_S * 1e3
+    decode_ms = statistics.median(step_s[1:]) * 1e3
+    log(f"  prefill (B={b}, S={s}, first request, lowering included): {prefill_s * 1e3:.1f} ms")
+    log(f"  decode steps: {[t * 1e3 for t in step_s]} ms; per token: median of steps 2-{steps} "
+        f"{decode_ms:.2f} ms against its floor {floor_ms:.2f} ms (the weights read once: "
+        f"{n_params * 4} B at 3.35 TB/s); mean of all {steps} {statistics.mean(step_s) * 1e3:.2f} ms")
+    log(f"  peak device memory over the request: {peak} bytes ({peak / 2**30:.2f} GiB; weights "
+        f"{n_params * 4} bytes); cache widths {widths} (window {cfg.window})")
+    toks = torch.cat(out, 1)
+    log(f"  greedy tokens: {toks.tolist()}")
+    log(f"  launches over the request: {launches}; per prefill: {per_prefill}; per decode step: "
+        f"{per_step[0]}")
+    for i, lg in enumerate(steps_logits):
+        if tuple(lg.shape) != (b, 1, cfg.vocab) or not bool(torch.isfinite(lg).all()):
+            raise AssertionError(f"logits of call {i}: shape {tuple(lg.shape)}, or not finite")
+    if cfg.final_softcap and float(max(lg.abs().max() for lg in steps_logits)) > cfg.final_softcap:
+        raise AssertionError("logits beyond the final softcap")
+    if int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab:
+        raise AssertionError("a token outside the vocabulary")
+    want_widths = sorted({cache_len} | ({min(cfg.window, cache_len)} if n_local else set()))
+    if widths != want_widths:
+        raise AssertionError(f"cache widths {widths}, want {want_widths}")
+    for op in GCN_KERNELS:
+        if per_prefill[op] <= 0 or any(st_[op] <= 0 for st_ in per_step):
+            raise AssertionError(f"{op}: its CUDA kernel did not launch in every call")
+    if launches["ssm_scan"]:
+        raise AssertionError("ssm_scan launched in an attention model")
+
+    # a second request of the same shapes: the warm prefill, and the same bits
+    with db.activate():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again, _ = prefill({"tokens": tokens})
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+    same = torch.equal(again, prefill_logits)
+    log(f"  prefill, second request (warm): {warm_s * 1e3:.1f} ms; logits equal to the first "
+        f"request's: {same}")
+    if not same:
+        raise AssertionError("the second request's logits differ from the first's")
+    del again
+    # a third prefill and one decode step with the kernel calls logged by
+    # signature (the pass phase 8 times), and a prefill under the profiler
+    with LaunchLog(torch) as serve_log, db.activate():
+        _, cc = prefill({"tokens": tokens})
+        decode(out[0], cc, s)
+    del cc
+    with db.activate():
+        busy = device_busy(torch, lambda: prefill({"tokens": tokens}))
+    if busy is not None:
+        wall, dev_ms, _, devops = busy
+        log(f"  prefill under torch.profiler: wall {wall:.1f} ms, device busy {dev_ms:.1f} ms; most "
+            "device time: " + "; ".join(f"{k[:60]} {ms:.2f} ms x{n}" for k, ms, n in devops))
+    sites = check_lm_sites(engines, seen, db)
+    unchecked = set(serve_log.counts) - checked
+    if unchecked:
+        raise AssertionError(f"kernel calls at shapes phase 2 did not check: {sorted(unchecked)}")
+
+    # the pieces of a decode step outside the kernels: the tied head's
+    # einsum over the vocabulary, and the local caches' shift (two cats of
+    # a window-sized cache per local layer)
+    extra = {}
+    h = torch.randn(b, 1, cfg.d_model, device=dev, generator=gen)
+    if cfg.tie_embeddings:
+        extra["head_einsum_ms"] = time_ms(torch, lambda: torch.einsum("bsd,vd->bsv", h, model.embed))
+    if n_local:
+        ck = prefill_caches[0]["scan"][0]["0:local"]["kv"]["k"]
+        extra["window_cat_ms"] = time_ms(torch, lambda: torch.cat([ck[:, 1:], ck[:, :1]], 1)) * 2 * n_local
+    log(f"  decode step's other pieces (device ms per step): {extra} (window_cat_ms: 2 x {n_local} "
+        "local layers' cat of a window cache)")
+
+    # the same weights on the plain tier: torch.matmul, index_select and
+    # index_add_
+    kern.reset_launch_counts()
+    with repro_torch.Database(dispatch="torch").activate():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t_logits, _ = prefill({"tokens": tokens})
+        torch.cuda.synchronize()
+        t_prefill_s = time.perf_counter() - t0
+    if sum(kern.launch_counts().values()):
+        raise AssertionError("the torch tier launched a CUDA kernel")
+    gap = logit_gap(prefill_logits, t_logits)
+    log(f"  prefill on the torch tier: {t_prefill_s * 1e3:.1f} ms; last-position logits: max|cuda - "
+        f"torch| / max|logit| = {gap:.3e} (limit {DENSE_TIER_LIMIT:g}); argmax equal: "
+        f"{torch.equal(t_logits[:, -1].argmax(-1), prefill_logits[:, -1].argmax(-1))}")
+    if not gap <= DENSE_TIER_LIMIT:
+        raise AssertionError("the prefill logits of the cuda and torch tiers differ")
+    del t_logits
+
+    # the caches carried through every decode step: the last step against a
+    # prefill over the prompt and every fed token
+    fed = torch.cat([tokens] + out[:steps], 1)
+    with db.activate():
+        p_logits, _ = prefill({"tokens": fed})
+    gap = logit_gap(steps_logits[-1], p_logits)
+    log(f"  decode step {steps} against a prefill over {s + steps} tokens: max|Δ| / max|logit| = "
+        f"{gap:.3e} (limit {DENSE_DECODE_LIMIT:g})")
+    if not gap <= DENSE_DECODE_LIMIT:
+        raise AssertionError("decode through the caches differs from a prefill")
+
+    # the limit must fail a fault that changes the keys a layer sees: with a
+    # window, the local layers decoding against untruncated caches of
+    # cache_len slots (the window ignored in prefill and decode); without,
+    # the last layer's K cache lost before the first decode step
+    def decode_chain(caches):
+        with db.activate():
+            for step in range(steps):
+                lg, caches = decode(out[step], caches, s + step)
+        return lg
+
+    if n_local:
+        what = f"the window ignored: {n_local} local layers decode against {cache_len}-slot caches"
+        model.cfg = dataclasses.replace(cfg, window=None)
+        try:
+            with db.activate():
+                _, wide = prefill({"tokens": tokens})
+            f_logits = decode_chain(wide)
+        finally:
+            model.cfg = cfg
+        del wide
+    else:
+        what = "the last layer's K cache lost"
+        bad = [{"scan": list(stc["scan"]), "tail": stc["tail"]} for stc in prefill_caches]
+        key = next(iter(bad[0]["scan"][-1]))
+        entry = dict(bad[0]["scan"][-1])
+        entry[key] = {"kv": {**entry[key]["kv"], "k": torch.zeros_like(entry[key]["kv"]["k"])}}
+        bad[0]["scan"][-1] = entry
+        f_logits = decode_chain(bad)
+        del bad, entry
+    seen_gap = logit_gap(f_logits, p_logits)
+    log(f"    planted fault ({what}): max|Δ| / max|logit| = {seen_gap:.3e}, must exceed the decode "
+        f"limit {DENSE_DECODE_LIMIT:g}")
+    if seen_gap <= DENSE_DECODE_LIMIT:
+        raise AssertionError(f"the decode limit passes a fault ({what})")
+    del p_logits, f_logits, prefill_logits, prefill_caches, steps_logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {
+        "launches": launches, "sites": sites, "log": serve_log, "pass": dict(serve_log.counts),
+        "per_prefill": per_prefill, "per_step": per_step[0], "layers": cfg.n_layers,
+        "prefill_ms": prefill_s * 1e3, "warm_prefill_ms": warm_s * 1e3, "decode_ms": decode_ms,
+        "decode_floor_ms": floor_ms, "peak": peak, "idle": idle, "extra": extra,
+    }, model
+
+
+def endpoint_logits(ep, calls, budgets):
+    """Each request's decode-step logits from the endpoint's recorded decode
+    calls (one (bucket, V) tensor per step), by replaying its slot pool:
+    the requests fill slots 0.. in submission order, a request leaves its
+    slot once it has its budget of tokens (one from the prefill, one per
+    decode step), and when the live requests fit a smaller decode bucket
+    they move to its first slots in order (serving/service.py)."""
+    bucket = ep._decode_bucket(len(budgets))
+    slots = list(range(len(budgets))) + [None] * (bucket - len(budgets))
+    out = [[] for _ in budgets]
+    for j, logits in enumerate(calls):
+        slots = [r if r is not None and 1 + j < budgets[r] else None for r in slots]
+        active = [i for i, r in enumerate(slots) if r is not None]
+        nb = ep._decode_bucket(len(active))
+        if nb < bucket:
+            slots, bucket = [slots[i] for i in active] + [None] * (nb - len(active)), nb
+        for i, r in enumerate(slots):
+            if r is not None:
+                out[r].append(logits[i])
+    return out
+
+
+def dense_endpoint_phase(torch, repro_torch, kern, cfg, dev, model, checked):
+    """Phase 17's second half: the model through ``db.endpoint`` with
+    prefill buckets of 1, 2 and 4 prompts of GEMMA3_ENDPOINT_PROMPT tokens
+    (past the window) and room for GEMMA3_ENDPOINT_NEW new tokens: a burst
+    of concurrent requests, each held to the request served alone, token
+    for token and in every decode step's logits, with a compaction that
+    swaps two slots' cache rows planted. The local layers' window caches
+    and the global layers' full ones are padded, sliced and compacted on
+    their batch axis. The logits carry the check: with tied embeddings and
+    embed_scale, random weights make each greedy token the one fed in,
+    whatever the cache holds."""
+    import asyncio
+
+    import numpy as np
+
+    from repro_torch.serving import make_decode_step, make_prefill_step, service
+    from repro_torch.serving.serve import map_cache
+
+    s, budgets = GEMMA3_ENDPOINT_PROMPT, list(GEMMA3_ENDPOINT_BUDGETS)
+    n, cache_len = len(budgets), s + GEMMA3_ENDPOINT_NEW
+    buckets = [(b, s) for b in GEMMA3_ENDPOINT_BUCKETS]
+    db = repro_torch.Database(max_cache_entries=16)
+    db.register_model("gemma3", model, dict(model.named_parameters()))
+    ep = db.endpoint("gemma3", cache_len=cache_len, buckets=buckets)
+    # the endpoint's decode steps, built by warmup, record their logits
+    calls, real_make = [], service.make_decode_step
+
+    def recording(*args, **kw):
+        step = real_make(*args, **kw)
+
+        def call(tok, caches, length, params=None):
+            logits, caches = step(tok, caches, length, params)
+            calls.append(logits[:, -1].clone())
+            return logits, caches
+
+        return call
+
+    service.make_decode_step = recording
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ep.warmup()
+    finally:
+        service.make_decode_step = real_make
+    warm = db.counters()["serve"]
+    log(f"  endpoint: cache_len {cache_len}, prefill buckets {buckets}, decode buckets "
+        f"{ep.decode_buckets}; warmup {time.perf_counter() - t0:.2f} s: "
+        f"{warm['prefill']['compiles']} prefill and {warm['decode']['compiles']} decode steps built")
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(0, cfg.vocab, size=s) for _ in range(n)]
+    reqs = [(p, {"max_new_tokens": m}) for p, m in zip(prompts, budgets)]
+
+    def burst():
+        calls.clear()
+
+        async def go():
+            return await asyncio.gather(*[ep.submit(p, **kw) for p, kw in reqs])
+        outs = asyncio.run(go())
+        return outs, endpoint_logits(ep, calls, budgets)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with LaunchLog(torch) as burst_log:
+        kern.reset_launch_counts()
+        t0 = time.perf_counter()
+        outs, got = burst()
+        torch.cuda.synchronize()
+        burst_s = time.perf_counter() - t0
+        launches = kern.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    c = db.counters()["serve"]
+    n_tok = sum(len(o.token_ids) for o in outs)
+    log(f"  burst: {n} concurrent requests of {s} tokens, max_new_tokens {budgets}: {burst_s * 1e3:.1f} "
+        f"ms, {n_tok} tokens, {n_tok / burst_s:.1f} tokens/s; peak {peak} bytes ({peak / 2**30:.2f} GiB); "
+        f"launches {launches}; serve counters {json.dumps(c)}")
+    checks = {
+        "one batch": c["batches"] == 1 and c["batched_requests"] == n,
+        "no step built under traffic": (c["prefill"]["compiles"], c["decode"]["compiles"]) == (
+            warm["prefill"]["compiles"], warm["decode"]["compiles"]),
+        "a rebucket": c["decode"]["rebuckets"] >= 1,
+        "the budgets served": [len(o.token_ids) for o in outs] == budgets,
+        "every decode step's logits recorded": [len(g) for g in got] == [m - 1 for m in budgets],
+    }
+    log(f"  burst checks: {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"the gemma3 burst: {[k for k, v in checks.items() if not v]}")
+    for op in GCN_KERNELS:
+        if launches[op] <= 0:
+            raise AssertionError(f"{op}: its CUDA kernel did not launch in the burst")
+    unchecked = set(burst_log.counts) - checked
+    if unchecked:
+        raise AssertionError(f"kernel calls at shapes phase 2 did not check: {sorted(unchecked)}")
+
+    prefill = make_prefill_step(model, cache_len, db=db)
+    decode = make_decode_step(model, db=db)
+    widths = set()
+
+    def solo(prompt, new):
+        """(tokens, top-2 gaps, each decode step's logits) of one request
+        served alone."""
+        logits, caches = prefill({"tokens": torch.as_tensor(prompt[None], device=dev).int()})
+        map_cache(lambda t: widths.add(t.shape[1]), caches)
+        toks, gaps, steps = [], [], []
+        for i in range(new):
+            lg = logits[0, -1]
+            if i:
+                steps.append(lg)
+            top = lg.topk(2).values
+            gaps.append((top[0] - top[1]) / lg.abs().max())
+            toks.append(lg.argmax().reshape(1, 1).to(torch.int32))
+            if i + 1 < new:
+                logits, caches = decode(toks[-1], caches, s + i)
+        return torch.cat(toks).flatten().tolist(), torch.stack(gaps).tolist(), steps
+
+    oracles = [solo(p, m) for p, m in zip(prompts, budgets)]
+
+    def hold(outs, got):
+        """(near ties, token failures, the largest logit gap over the
+        decode steps both runs fed alike)"""
+        ties, bad = hold_to_oracle(outs, [o[:2] for o in oracles], ENDPOINT_TIE_LIMIT)
+        worst = 0.0
+        for out, steps, (want, _, want_steps) in zip(outs, got, oracles):
+            at = first_mismatch(out.token_ids.tolist(), want)
+            for j, (g, w) in enumerate(zip(steps, want_steps)):
+                if at is not None and j + 1 > at:
+                    break
+                worst = max(worst, logit_gap(g, w))
+        return ties, bad, worst
+
+    ties, bad, worst = hold(outs, got)
+    log(f"  the burst against each request served alone: {n - len(ties) - len(bad)} of {n} equal "
+        f"token for token; near ties {ties}; failures {bad} (tie limit {ENDPOINT_TIE_LIMIT:g}); decode "
+        f"logits max|Δ| / max|logit| = {worst:.3e} (limit {DENSE_DECODE_LIMIT:g}); cache widths "
+        f"{sorted(widths)}")
+    if bad or not worst <= DENSE_DECODE_LIMIT:
+        raise AssertionError(f"the gemma3 burst differs from the solo runs: {bad}, {worst:.3e}")
+    if sorted(widths) != sorted({cfg.window, cache_len}):
+        raise AssertionError(f"cache widths {sorted(widths)}")
+    with swapped_compaction(service):
+        faulty = burst()
+    _, fault_bad, fault_worst = hold(*faulty)
+    log(f"    planted fault (a compaction that swaps two slots' cache rows): token failures "
+        f"{fault_bad}; decode logits max|Δ| / max|logit| = {fault_worst:.3e}, must exceed "
+        f"{DENSE_DECODE_LIMIT:g}")
+    if not fault_bad and fault_worst <= DENSE_DECODE_LIMIT:
+        raise AssertionError("the oracle check passes a compaction that swaps cache rows")
+    return {"launches": launches, "log": burst_log, "pass": dict(burst_log.counts),
+            "burst_ms": burst_s * 1e3, "tokens_per_s": n_tok / burst_s, "peak": peak}
+
+
+def dense_grads(torch, repro_torch, kern, model, batch, dispatch, names=None):
+    """(loss, {name: gradient} of ``names`` (default every parameter), the
+    kernel launches of the backward alone, peak bytes) of the train loss
+    (lm_loss, the trainer's) at the model's weights, on a tier."""
+    from repro_torch.train import lm_loss
+
+    params = dict(model.named_parameters())
+    names = list(params) if names is None else list(names)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with repro_torch.Database(dispatch=dispatch).activate():
+        logits, _ = model.train_logits(batch)
+        loss = lm_loss(logits, batch["labels"])
+        del logits
+        torch.cuda.synchronize()
+        c0 = kern.launch_counts()
+        grads = torch.autograd.grad(loss, [params[k] for k in names])
+        torch.cuda.synchronize()
+        backward = {op: n - c0[op] for op, n in kern.launch_counts().items()}
+    peak = torch.cuda.max_memory_allocated()
+    return float(loss.detach()), dict(zip(names, grads)), backward, peak
+
+
+def gemma2_train_phase(torch, repro_torch, kern, cfg, dev, checked):
+    """Phase 16: gemma2-9b at its published widths and GEMMA2_TRAIN_LAYERS
+    layers: step 1's loss and gradients against the torch tier (a lost
+    token planted), the gradients under remat "nothing" and "dots" bit for
+    bit ("dots" recomputes no product), then GEMMA2_TRAIN_STEPS donated Adam
+    steps under each from the same weights (equal losses). This runs the
+    softcaps' backward and the tied table's two-part gradient (the head's
+    einsum dW and the embedding's segment-sum table gradient)."""
+    import dataclasses
+
+    from repro_torch.core.engine import engine_for
+    from repro_torch.data import synthetic_lm_batches
+    from repro_torch.models import build_model
+    from repro_torch.relational.embedding import _embed_prog
+    from repro_torch.relational.linear import _linear_prog
+    from repro_torch.train import init_train_state, make_train_step
+
+    b, s, n = GEMMA2_TRAIN_BATCH, GEMMA2_TRAIN_SEQ, GEMMA2_TRAIN_STEPS
+    log(f"  {cfg.name} at its published widths, {cfg.n_layers} of 42 layers ({cfg.pattern} x "
+        f"{cfg.n_layers // len(cfg.pattern)}), float32, tied embeddings, softcaps "
+        f"{cfg.logit_softcap}/{cfg.final_softcap}, remat; batch {b} x {s} tokens "
+        f"(synthetic_lm_batches, seed 0); Adam lr 3e-4, grad_clip 1.0, donated (in place)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = build_model(cfg, seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  model: {n_params:,} parameters ({n_params * 4:,} bytes; with gradients and two "
+        f"moments {n_params * 16:,})")
+    if n_params != GEMMA2_TRAIN_PARAMS:
+        raise AssertionError(f"{n_params} parameters, want {GEMMA2_TRAIN_PARAMS}")
+    batch = next(synthetic_lm_batches(cfg, b, s, seed=0))
+    names = ("stages.0.scan.0.0:local.attn.wq", "stages.0.scan.0.0:local.mlp.wo",
+             "stages.0.scan.0.1:global.attn.wk", "embed")
+    engines = {"rel_linear": engine_for(_linear_prog()[0].forward),
+               "rel_embed": engine_for(_embed_prog()[0].forward)}
+    seen = {k: {id(low) for low in e.lowerings} for k, e in engines.items()}
+    db = repro_torch.Database()
+
+    # step 1's gradients under "nothing" and "dots": bit for bit
+    got, backward, peaks = {}, {}, {}
+    for policy in ("nothing", "dots"):
+        model.cfg = dataclasses.replace(cfg, remat_policy=policy)
+        try:
+            loss, grads, backward[policy], peaks[policy] = dense_grads(
+                torch, repro_torch, kern, model, batch, db.dispatch)
+        finally:
+            model.cfg = cfg
+        log(f"  step-1 gradients, remat '{policy}': loss {loss!r}; launches in the backward "
+            f"{backward[policy]}; peak {peaks[policy]} bytes ({peaks[policy] / 2**30:.2f} GiB)")
+        if policy == "nothing":
+            c_loss, c_grads = loss, grads
+        else:
+            same = loss == c_loss and all(torch.equal(grads[k], c_grads[k]) for k in c_grads)
+            log(f"  step-1 loss and all {len(c_grads)} gradients, 'dots' against 'nothing': "
+                f"bit-equal {same}")
+            if not same:
+                raise AssertionError("the gradients of remat 'dots' differ from 'nothing''s")
+        del grads
+    mm = {p: backward[p]["blocked_matmul"] for p in backward}
+    layer_products = 7 * cfg.n_layers
+    log(f"  blocked_matmul launches in the backward: 'nothing' {mm['nothing']}, 'dots' {mm['dots']} "
+        f"(want {layer_products} fewer: the recompute launches no product)")
+    if mm["nothing"] != mm["dots"] + layer_products:
+        raise AssertionError(f"blocked_matmul launches in the backward: {mm}")
+    c_grads = {k: c_grads[k] for k in names}
+    gc.collect()
+
+    # the plain tier: torch.matmul, index_select and index_add_ under
+    # autograd; and the same with one of the B·S tokens' labels ignored
+    kern.reset_launch_counts()
+    t_loss, t_grads, _, t_peak = dense_grads(torch, repro_torch, kern, model, batch, "torch", names)
+    faulty = dict(batch, labels=batch["labels"].clone())
+    faulty["labels"][-1, -1] = -100
+    _, f_grads, _, _ = dense_grads(torch, repro_torch, kern, model, faulty, "torch", names)
+    if sum(kern.launch_counts().values()):
+        raise AssertionError("the torch tier launched a CUDA kernel")
+    loss_gap = abs(c_loss - t_loss) / abs(t_loss)
+    log(f"  step-1 loss: cuda {c_loss!r}, torch {t_loss!r}, relative gap {loss_gap:.3e} (limit "
+        f"{DENSE_LOSS_LIMIT:g}); torch tier peak {t_peak} bytes")
+    if not loss_gap <= DENSE_LOSS_LIMIT:
+        raise AssertionError("the step-1 loss of the cuda and torch tiers differ")
+    for k in names:
+        gap = float((c_grads[k] - t_grads[k]).norm() / t_grads[k].norm())
+        seen_gap = float((c_grads[k] - f_grads[k]).norm() / f_grads[k].norm())
+        log(f"  step-1 gradient of {k}: ‖cuda - torch‖/‖torch‖ = {gap:.3e} (limit "
+            f"{DENSE_GRAD_LIMIT:g}); planted fault (one of {b * s} tokens ignored): {seen_gap:.3e}, "
+            "must exceed the limit")
+        if not gap <= DENSE_GRAD_LIMIT:
+            raise AssertionError(f"the step-1 gradient of {k} differs between the tiers")
+        if seen_gap <= DENSE_GRAD_LIMIT:
+            raise AssertionError(f"the gradient limit passes a lost token ({k})")
+    del c_grads, t_grads, f_grads, faulty
+
+    # the tied head's einsums at the train step's shape (forward, and the
+    # backward's dX and dW), device ms
+    h = torch.randn(b, s, cfg.d_model, device=dev)
+    g = torch.randn(b, s, cfg.vocab, device=dev)
+    emb = model.embed.detach()
+    head = {"forward": time_ms(torch, lambda: torch.einsum("bsd,vd->bsv", h, emb), iters=5),
+            "dX": time_ms(torch, lambda: torch.einsum("bsv,vd->bsd", g, emb), iters=5),
+            "dW": time_ms(torch, lambda: torch.einsum("bsd,bsv->vd", h, g), iters=5)}
+    log(f"  the tied head's einsums at ({b}x{s}x{cfg.d_model})·({cfg.vocab}x{cfg.d_model}): {head} ms "
+        f"(bound each {2 * b * s * cfg.d_model * cfg.vocab / F32_FLOPS_PER_S * 1e3:.2f} ms at the f32 "
+        "CUDA-core rate)")
+    del h, g, emb
+
+    # the main path: GEMMA2_TRAIN_STEPS donated steps under "nothing", then
+    # from the same weights (the model built again from seed 0) under "dots"
+    kern.reset_launch_counts()
+    runs = {}
+    for policy in ("nothing", "dots"):
+        if policy == "dots":
+            del model, state, step, params, opt
+            gc.collect()
+            torch.cuda.empty_cache()
+            model = build_model(dataclasses.replace(cfg, remat_policy="dots"), seed=0)
+        state = init_train_state(model)
+        step = make_train_step(model, grad_clip=1.0, donate=True, database=db)
+        params, opt = state.params, state.opt_state
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        losses, secs, per_step = [], [], []
+        for i in range(n):
+            c0 = kern.launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, metrics = step(params, opt, batch)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            losses.append(float(metrics["loss"]))
+            per_step.append({op: v - c0[op] for op, v in kern.launch_counts().items()})
+        med = statistics.median(secs[1:])
+        runs[policy] = {"losses": losses, "step_ms": med * 1e3, "tokens_per_s": b * s / med,
+                        "peak": torch.cuda.max_memory_allocated(), "per_step": per_step[0]}
+        log(f"  remat '{policy}': step times {[t * 1e3 for t in secs]} ms; median of steps 2-{n} "
+            f"{med * 1e3:.1f} ms, {b * s / med:.1f} tokens/s; losses {losses}; peak "
+            f"{runs[policy]['peak']} bytes ({runs[policy]['peak'] / 2**30:.2f} GiB; parameters, "
+            f"gradients and two moments take {n_params * 16} bytes); launches per step {per_step[0]}")
+        if losses[0] != c_loss:
+            raise AssertionError(f"the train step's step-1 loss {losses[0]!r} is not the checked one "
+                                 f"{c_loss!r}")
+        if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+            raise AssertionError("the loss did not fall over the steps on one batch")
+    launches = kern.launch_counts()
+    if runs["dots"]["losses"] != runs["nothing"]["losses"]:
+        raise AssertionError("the steps under 'dots' lose otherwise than under 'nothing'")
+    log(f"  launches over the {2 * n} steps: {launches}; the losses under 'dots' equal those under "
+        "'nothing' bit for bit")
+    for op in GCN_KERNELS:
+        if launches[op] <= 0:
+            raise AssertionError(f"{op}: its CUDA kernel did not launch in training")
+    with LaunchLog(torch) as train_log:
+        params, opt, _ = step(params, opt, batch)
+    torch.cuda.synchronize()
+    busy = device_busy(torch, lambda: step(params, opt, batch))
+    idle = None
+    if busy is not None:
+        wall, dev_ms, _, devops = busy
+        idle = 1 - dev_ms / wall
+        log(f"  a train step ('dots') under torch.profiler: wall {wall:.1f} ms, device busy "
+            f"{dev_ms:.1f} ms (idle share at most {idle:.3f}); most device time: "
+            + "; ".join(f"{k[:60]} {ms:.2f} ms x{n}" for k, ms, n in devops))
+    sites = check_lm_sites(engines, seen, db)
+    unchecked = set(train_log.counts) - checked
+    if unchecked:
+        raise AssertionError(f"kernel calls at shapes phase 2 did not check: {sorted(unchecked)}")
+    del model, params, opt, state, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "sites": sites, "log": train_log, "pass": dict(train_log.counts),
+            "runs": runs, "grad_peaks": peaks, "idle": idle, "head_ms": head}
+
+
+# ---------------------------------------------------------------------------
 # Phase 8: timings at the shapes of the main paths
 # ---------------------------------------------------------------------------
 
@@ -3274,14 +4052,15 @@ def time_site(torch, op, info, rows_for, seg_for, gen, dev):
     return k_ms, p_ms, l_ms, (m * k + k * n + m * n) * 4, 2 * m * n * k, extra
 
 
-def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, errs, dev):
+def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, dense, errs, dev):
     """Per kernel and per main path: each site timed alone at its shapes,
     times the launches of that site in one pass of the path (one GCN step;
     one logistic-regression step; one NNMF step; one KGE step at each
     width; one prefill; one decode step; one streamed step of each of
     phase 9's runs, each site once per wave; olmoe's prefill and one decode
     step, and one olmoe train step; zamba2's prefill and one decode step;
-    one falcon-mamba train step), summed."""
+    one falcon-mamba train step; the dense families' prefill and one decode
+    step, one gemma2 train step and the gemma3 endpoint's burst), summed."""
     from repro_torch.kernels.matmul.ops import blocked_matmul_forward
     from repro_torch.kernels.ssm_scan.ops import ssm_scan_forward
     from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
@@ -3379,11 +4158,14 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, e
                 *time_site(torch, key[0], run["log"].info(key), lambda e, n: ids, lambda e, s: ids, gen, dev))
         del ids
 
-    # zamba2-7b (phase 13: the prefill and one decode step) and
-    # falcon-mamba training (phase 14: one train step, its recomputed
-    # forwards and backward included): every kernel signature of the pass
-    # on the ids its first call took, times its calls in the pass
-    for path, run in (("zamba2_serve", ssm["zamba2"]), ("falcon_train", ssm["falcon_train"])):
+    # zamba2-7b (phase 13: the prefill and one decode step), falcon-mamba
+    # training (phase 14: one train step, its recomputed forwards and
+    # backward included) and the dense families (phases 15-18: gemma2's,
+    # gemma3's and llama3's prefill and one decode step, a gemma2 train step,
+    # the gemma3 endpoint's burst): every kernel signature of the pass on the
+    # ids its first call took, times its calls in the pass
+    for path, run in (("zamba2_serve", ssm["zamba2"]), ("falcon_train", ssm["falcon_train"]),
+                      *dense.items()):
         for key, mult in sorted(run["pass"].items()):
             ids = run["log"].ids.get(key)
             add(path, key[0], f"{key[0]}{key[1:]}", mult,
@@ -3485,7 +4267,8 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, e
                    "olmoe_endpoint": olmoe["endpoint"]["launches"][op],
                    "oocore": oocore["launches"].get(op, 0),
                    "zamba2_serve": ssm["zamba2"]["launches"][op],
-                   "falcon_train": ssm["falcon_train"]["launches"][op]}
+                   "falcon_train": ssm["falcon_train"]["launches"][op],
+                   **{path: run["launches"][op] for path, run in dense.items()}}
         records.append({
             "name": op,
             "route": route,
@@ -3512,16 +4295,25 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, e
                     f"steps (phase 11), burst 1 of phase 12 ({ENDPOINT_REQUESTS} concurrent "
                     "requests through db.endpoint: one bucketed prefill and its decode steps), "
                     f"one zamba2-7b request of a prefill and {ZAMBA2_DECODE} decode steps "
-                    f"(phase 13) and {FALCON_TRAIN_STEPS} falcon-mamba train steps under remat "
-                    f"'nothing' and {FALCON_TRAIN_STEPS} under 'dots' (phase 14); "
+                    f"(phase 13), {FALCON_TRAIN_STEPS} falcon-mamba train steps under remat "
+                    f"'nothing' and {FALCON_TRAIN_STEPS} under 'dots' (phase 14), one gemma2-9b "
+                    f"request of a prefill and {GEMMA2_DECODE} decode steps (phase 15), "
+                    f"{GEMMA2_TRAIN_STEPS} gemma2 train steps under each of 'nothing' and 'dots' "
+                    f"(phase 16), one gemma3-4b request of a prefill and {GEMMA3_DECODE} decode "
+                    f"steps and the endpoint's burst of {len(GEMMA3_ENDPOINT_BUDGETS)} requests "
+                    f"(phase 17), one llama3-405b request of a prefill and {LLAMA3_DECODE} decode "
+                    "steps (phase 18); "
                     "ms, plain_ms, bound_ms, library_ms: each site timed alone, times its "
                     "launches in one pass, summed over one GCN step, one logistic-regression "
                     "step, one NNMF step, one KGE step at each width, one prefill, one "
                     "decode step and one streamed step of each of phase 9's runs (arxiv GCN, "
                     "logistic regression, products GCN), olmoe's prefill and one decode step "
                     "(olmoe_serve), one olmoe train step (olmoe_train), phase 12's burst 1 "
-                    "(olmoe_endpoint), zamba2's prefill and one decode step (zamba2_serve) and "
-                    "one falcon-mamba train step (falcon_train); 'paths' splits them; host_ms: "
+                    "(olmoe_endpoint), zamba2's prefill and one decode step (zamba2_serve), "
+                    "one falcon-mamba train step (falcon_train), gemma2's, gemma3's and llama3's "
+                    "prefill and one decode step (gemma2_serve, gemma3_serve, llama3_serve), one "
+                    "gemma2 train step (gemma2_train) and the gemma3 endpoint's burst "
+                    "(gemma3_endpoint); 'paths' splits them; host_ms: "
                     f"the host's time per call over {HOST_CALLS} calls without a synchronise, "
                     "summed the same way over the sites where it was taken (null: not taken)"),
             "paths": {path: {k: v for k, v in acc.items() if k not in ("bytes_ms", "ops_ms")}
@@ -4217,6 +5009,48 @@ def main() -> int:
                                              ssm_checked)
     log(f"  phase 14: {time.perf_counter() - t0:.1f} s")
 
+    # phases 15-18 run before phase 8, which times their sites too; each
+    # frees its model before the next (gemma2's 36.97 GB and llama3's 42.3
+    # GB do not fit on the card together)
+    dense_checked = dense_checked_shapes()
+    log(f"phase 15: {GEMMA2_ARCH} serving at its published widths and depth")
+    t0 = time.perf_counter()
+    dense = {}
+    dense["gemma2_serve"], model = dense_serve_phase(
+        torch, repro_torch, kern, dense_config(GEMMA2_ARCH), dev, dense_checked,
+        GEMMA2_BATCH, GEMMA2_PROMPT, GEMMA2_DECODE, GEMMA2_PARAMS)
+    del model
+    log(f"  phase 15: {time.perf_counter() - t0:.1f} s")
+
+    log(f"phase 16: {GEMMA2_ARCH} training at its published widths, {GEMMA2_TRAIN_LAYERS} layers")
+    t0 = time.perf_counter()
+    dense["gemma2_train"] = gemma2_train_phase(torch, repro_torch, kern, gemma2_train_config(), dev,
+                                               dense_checked)
+    log(f"  phase 16: {time.perf_counter() - t0:.1f} s")
+
+    log(f"phase 17: {GEMMA3_ARCH} serving at its published widths and depth, then through db.endpoint")
+    t0 = time.perf_counter()
+    gemma3_cfg = dense_config(GEMMA3_ARCH)
+    dense["gemma3_serve"], model = dense_serve_phase(
+        torch, repro_torch, kern, gemma3_cfg, dev, dense_checked,
+        GEMMA3_BATCH, GEMMA3_PROMPT, GEMMA3_DECODE, GEMMA3_PARAMS)
+    dense["gemma3_endpoint"] = dense_endpoint_phase(torch, repro_torch, kern, gemma3_cfg, dev, model,
+                                                    dense_checked)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  phase 17: {time.perf_counter() - t0:.1f} s")
+
+    log(f"phase 18: {LLAMA3_ARCH} serving at its published widths, {LLAMA3_LAYERS} layers")
+    t0 = time.perf_counter()
+    dense["llama3_serve"], model = dense_serve_phase(
+        torch, repro_torch, kern, llama3_config(), dev, dense_checked,
+        LLAMA3_BATCH, LLAMA3_PROMPT, LLAMA3_DECODE, LLAMA3_PARAMS)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  phase 18: {time.perf_counter() - t0:.1f} s")
+
     log("phase 8: timings at the shapes of the main paths")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4225,7 +5059,7 @@ def main() -> int:
     log(smi)
     t0 = time.perf_counter()
     records = timing_phase(torch, graph, {"sites": sites, "launches": launches}, logreg, nnmf, kge,
-                           lm, oocore, olmoe, ssm, errs, dev)
+                           lm, oocore, olmoe, ssm, dense, errs, dev)
     log(f"  phase 8: {time.perf_counter() - t0:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)

@@ -8,7 +8,10 @@ pytree paths: ``params/<path>``, ``opt/mu/<path>``, ``opt/nu/<path>`` and
 each stage's repeated superblocks stacked on a leading axis
 (``params/stages/0/scan/0:moe/attn/wq`` holds every repeat's ``wq``, the
 port's ``stages.0.scan.<r>.0:moe.attn.wq``). Arrays are copied to the host
-before writing."""
+before writing. A bf16 tensor (llama3's Adam moments) is stored as the
+reference's numpy writes its bf16 arrays: 2-byte void entries holding the
+bf16 bits, which numpy alone cannot cast; restoring reads the bits back.
+(The reference's own restore cannot cast them: ROADMAP.md §3.)"""
 
 from __future__ import annotations
 
@@ -33,7 +36,8 @@ def _arrays(named: Mapping[str, torch.Tensor], prefix: str) -> Dict[str, np.ndar
     stacks: Dict[str, Dict[int, np.ndarray]] = {}
     for name, t in named.items():
         key, r = _ref_key(name)
-        arr = t.detach().cpu().numpy()
+        t = t.detach().cpu()
+        arr = t.view(torch.int16).numpy().view("V2") if t.dtype == torch.bfloat16 else t.numpy()
         if r is None:
             out[prefix + key] = arr
         else:
@@ -66,7 +70,11 @@ def _fill(data, template: Mapping[str, torch.Tensor], prefix: str) -> Dict[str, 
         if tuple(arr.shape) != tuple(t.shape):
             raise ValueError(f"{prefix + key}: shape {arr.shape} in the checkpoint, "
                              f"{tuple(t.shape)} in the template")
-        out[name] = torch.tensor(arr, dtype=t.dtype, device=t.device)
+        if arr.dtype.kind == "V":  # bf16 bits
+            out[name] = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16).to(
+                dtype=t.dtype, device=t.device)
+        else:
+            out[name] = torch.tensor(arr, dtype=t.dtype, device=t.device)
     return out
 
 

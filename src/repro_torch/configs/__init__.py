@@ -10,7 +10,8 @@ from importlib import import_module
 
 from .base import INPUT_SHAPES, InputShape, ModelConfig  # noqa: F401
 
-ARCH_IDS = ("olmoe-1b-7b", "falcon-mamba-7b", "zamba2-7b")
+ARCH_IDS = ("olmoe-1b-7b", "falcon-mamba-7b", "zamba2-7b", "gemma2-9b", "gemma3-4b",
+            "llama3-405b", "deepseek-coder-33b")
 
 
 def get_config(name: str) -> ModelConfig:

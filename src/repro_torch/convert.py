@@ -70,38 +70,47 @@ def _unstack(tree, r: int):
     return np.asarray(tree)[r]
 
 
-def _assign(target, tree, path: str) -> None:
+def _assign(target, tree, path: str, done: set) -> None:
     """Copy the arrays of ``tree`` into the parameters of ``target`` (a
-    module addressed by key or index, or a parameter), checking shapes."""
+    module addressed by key or index, or a parameter), checking shapes;
+    the id of each parameter written goes into ``done``."""
     if isinstance(tree, Mapping):
         for k, v in tree.items():
             child = target[k] if hasattr(target, "__getitem__") else getattr(target, k)
-            _assign(child, v, f"{path}.{k}")
+            _assign(child, v, f"{path}.{k}", done)
     elif isinstance(tree, (list, tuple)):
         if len(tree) != len(target):
             raise ValueError(f"{path}: {len(tree)} entries for {len(target)}")
         for i, v in enumerate(tree):
-            _assign(target[i], v, f"{path}[{i}]")
+            _assign(target[i], v, f"{path}[{i}]", done)
     else:
         arr = np.asarray(tree)
         if tuple(arr.shape) != tuple(target.shape):
             raise ValueError(f"{path}: shape {arr.shape} for a parameter of {tuple(target.shape)}")
         target.copy_(torch.as_tensor(np.array(arr)))
+        done.add(id(target))
 
 
 def lm_params(model, jax_params: Mapping[str, Any]):
     """Load the reference's LM parameter pytree (numpy arrays, or anything
     ``np.asarray`` accepts) into ``model`` in place; returns the model.
     ``params["stages"][si]["scan"]``'s leading repeat axis is unstacked into
-    ``model.stages[si]["scan"][r]``."""
+    ``model.stages[si]["scan"][r]``. A parameter of the model that the
+    tree does not fill (one the reference's model lacks, which would keep
+    its random value) raises, by name."""
+    done: set = set()
     with torch.no_grad():
         for name, value in jax_params.items():
             if name != "stages":
-                _assign(getattr(model, name), value, name)
+                _assign(getattr(model, name), value, name, done)
         for si, stage in enumerate(jax_params["stages"]):
             for r, sblock in enumerate(model.stages[si]["scan"]):
-                _assign(sblock, _unstack(stage["scan"], r), f"stages[{si}].scan[{r}]")
-            _assign(model.stages[si]["tail"], stage["tail"], f"stages[{si}].tail")
+                _assign(sblock, _unstack(stage["scan"], r), f"stages[{si}].scan[{r}]", done)
+            _assign(model.stages[si]["tail"], stage["tail"], f"stages[{si}].tail", done)
+    missed = [name for name, p in model.named_parameters() if id(p) not in done]
+    if missed:
+        raise ValueError(f"{len(missed)} parameters of the model have no array in the "
+                         f"reference's tree: {', '.join(missed)}")
     return model
 
 

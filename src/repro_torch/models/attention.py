@@ -1,4 +1,5 @@
-"""Attention: GQA with logit softcap, decode against a KV cache, and a
+"""Attention: GQA with a sliding window and a logit softcap, decode against
+a KV cache (left-aligned, or gemma's right-aligned window cache), and a
 chunked (online-softmax) attention that never materializes the S×S score
 matrix.
 
@@ -9,8 +10,9 @@ projections around them (``models/blocks.py``) go through the relational
 engine. ``scaled_dot_product_attention`` is not
 used: it has no logit softcap, and its masking is not the reference's
 additive ``NEG_INF`` bias, which the chunked path's recurrence relies on.
-Sliding windows (gemma) and MLA (deepseek-v3) wait for their slices
-(ROADMAP.md).
+As in the reference, every KV block is computed, also one the window
+masks whole. MLA (deepseek-v3) and the reference's ``scale`` argument wait
+for their slice (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -32,13 +34,17 @@ def _mask_bias(
     q_pos: torch.Tensor,   # (Sq,) absolute query positions
     k_pos: torch.Tensor,   # (Sk,)
     causal: bool,
+    window: Optional[int] = None,
 ) -> torch.Tensor:
-    """(Sq, Sk) additive mask."""
+    """(Sq, Sk) additive mask: with ``window`` set, a query keeps the keys
+    less than ``window`` positions behind it."""
     dq = q_pos[:, None]
     dk = k_pos[None, :]
     ok = dk > _PAD_POS // 2   # padded slots always masked
     if causal:
         ok = ok & (dk <= dq)
+    if window is not None:
+        ok = ok & (dk > dq - window)
     zero = torch.zeros((), dtype=torch.float32, device=ok.device)
     return torch.where(ok, zero, torch.full_like(zero, NEG_INF))
 
@@ -51,14 +57,17 @@ def attention(
     q_positions: torch.Tensor,
     k_positions: torch.Tensor,
     causal: bool = True,
+    window: Optional[int] = None,
     logit_softcap: Optional[float] = None,
     chunk_size: Optional[int] = None,
 ) -> torch.Tensor:
-    """GQA attention. With ``chunk_size`` set and Sk above it, keys/values
-    are processed in blocks with an online softmax (the flash-attention
-    recurrence) in a Python loop, the reference's ``lax.scan``:
-    O(Sq·chunk) live memory instead of O(Sq·Sk). The last block is padded
-    with KV slots at ``_PAD_POS``, which the mask always drops."""
+    """GQA attention; ``window`` masks the keys ``window`` or more positions
+    behind a query (gemma's local layers). With ``chunk_size`` set and Sk
+    above it, keys/values are processed in blocks with an online softmax
+    (the flash-attention recurrence) in a Python loop, the reference's
+    ``lax.scan``: O(Sq·chunk) live memory instead of O(Sq·Sk). The last
+    block is padded with KV slots at ``_PAD_POS``, which the mask always
+    drops, window or not."""
     b, sq, hq, hd = q.shape
     _, sk, hkv, _ = k.shape
     assert hq % hkv == 0
@@ -71,7 +80,7 @@ def attention(
     if chunk_size is None or sk <= chunk_size:
         logits = einsum("bqhgd,bkhd->bhgqk", qf, kf)
         logits = softcap(logits, logit_softcap)
-        logits = logits + _mask_bias(q_positions, k_positions, causal)
+        logits = logits + _mask_bias(q_positions, k_positions, causal, window)
         w = torch.softmax(logits, dim=-1)
         out = einsum("bhgqk,bkhd->bqhgd", w, vf)
         return out.reshape(b, sq, hq, hd).to(q.dtype)
@@ -91,7 +100,7 @@ def attention(
         kp = k_positions[c0:c0 + chunk_size]
         logits = einsum("bqhgd,bkhd->bhgqk", qf, kb)
         logits = softcap(logits, logit_softcap)
-        logits = logits + _mask_bias(q_positions, kp, causal)
+        logits = logits + _mask_bias(q_positions, kp, causal, window)
         m_new = torch.maximum(m, logits.amax(dim=-1))
         # guard fully-masked rows
         m_safe = torch.where(torch.isfinite(m_new), m_new, torch.zeros_like(m_new))
@@ -127,10 +136,15 @@ def decode_attention(
     cache_v: torch.Tensor,
     length,                 # number of valid positions (int or 0-d tensor)
     *,
+    window: Optional[int] = None,
     logit_softcap: Optional[float] = None,
+    align: str = "left",    # "right": valid entries occupy the last slots
 ) -> torch.Tensor:
-    """Single-token decode against a cache whose first ``length`` slots are
-    valid; the rest are masked. O(S) compute/memory."""
+    """Single-token decode against a cache; invalid and out-of-window
+    positions are masked. O(S) compute/memory. ``align="left"``: the first
+    ``length`` slots are valid (with ``window``, only the last ``window``
+    of them); ``"right"``: the last ``length`` slots, the window-sized
+    cache of a sliding-window layer."""
     b, _, hq, hd = q.shape
     _, s, hkv, _ = cache_k.shape
     groups = hq // hkv
@@ -139,7 +153,12 @@ def decode_attention(
     logits = torch.einsum("bhgd,bkhd->bhgk", qf, cache_k.float())
     logits = softcap(logits, logit_softcap)
     pos = torch.arange(s, device=q.device)
-    ok = pos[None, :] < length
+    if align == "left":
+        ok = pos[None, :] < length
+        if window is not None:
+            ok = ok & (pos[None, :] > length - 1 - window)
+    else:
+        ok = pos[None, :] >= s - length
     logits = torch.where(ok[:, None, None, :], logits, torch.full_like(logits, NEG_INF))
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgk,bkhd->bhgd", w, cache_v.float())

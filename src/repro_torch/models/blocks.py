@@ -1,14 +1,17 @@
 """Layer blocks. This slice of the port builds the kinds
 
   attn         — GQA decoder layer (full attention + gated MLP)
+  local        — the same with a sliding window (gemma), whose cache is
+                 window-sized and right-aligned
+  global       — the same with full attention (gemma's other layers)
   moe          — GQA attention + token-choice MoE   (olmoe)
   mamba1       — the Mamba-1 SSM block              (falcon-mamba)
   mamba2       — the Mamba-2 SSM block              (zamba2)
   mamba2_attn  — Mamba-2, then the shared attention+MLP block (zamba2)
 
-and raises ``NotImplementedError`` for the reference's other kinds: local /
-global (gemma's sliding-window pattern), mla / mla_moe (deepseek-v3) and
-enc / dec (whisper), which wait for ROADMAP.md queue 1, item 6.4.
+and raises ``NotImplementedError`` for the reference's other kinds: mla /
+mla_moe (deepseek-v3) and enc / dec (whisper), which wait for ROADMAP.md
+queue 1, item 6.4, as does qwen2-vl's M-RoPE.
 
 Every block's apply has signature  (params, x, ctx) -> (x, cache_entry, aux)
 where ctx = {mode: train|prefill|decode, positions, cache (entry or None),
@@ -21,7 +24,7 @@ shared attention+MLP parameter set (``shared_attn_init``), reused at every
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -36,7 +39,7 @@ from .ssm import mamba1_apply, mamba1_init, mamba2_apply, mamba2_init
 Ctx = Dict[str, Any]
 
 #: the block kinds this slice builds
-KINDS = ("attn", "moe", "mamba1", "mamba2", "mamba2_attn")
+KINDS = ("attn", "local", "global", "moe", "mamba1", "mamba2", "mamba2_attn")
 
 
 def _dt(cfg) -> torch.dtype:
@@ -46,7 +49,7 @@ def _dt(cfg) -> torch.dtype:
 def _not_ported(kind: str) -> NotImplementedError:
     return NotImplementedError(
         f"block kind {kind!r} is not ported yet: the port builds {', '.join(KINDS)} "
-        "(ROADMAP.md, queue 1, item 6.4: local/global, mla, enc/dec)"
+        "(ROADMAP.md, queue 1, item 6.4: mla, enc/dec)"
     )
 
 
@@ -70,14 +73,18 @@ def gqa_init(gen: torch.Generator, cfg) -> ParamTree:
     return ParamTree(**parts)
 
 
-def gqa_apply(p, x: torch.Tensor, ctx: Ctx):
+def gqa_apply(p, x: torch.Tensor, ctx: Ctx, *, window: Optional[int] = None):
     """The attention sublayer: q/k/v/o through ``rel_linear``, QK-norm and
-    RoPE, then full causal attention (train, prefill; the prefill's cache
-    padded to ``ctx["cache_len"]``) or one step against the cache
-    (decode). Returns (y, new cache entry or None). The reference's
-    sliding window (gemma's ``local`` layers, a right-aligned window
-    cache) and cross-attention (whisper) wait for their slices (ROADMAP.md,
-    queue 1, item 6.4)."""
+    RoPE, then causal attention (train, prefill) or one step against the
+    cache (decode). Returns (y, new cache entry or None).
+
+    A prefill pads its K/V to ``ctx["cache_len"]``. With ``window`` (a
+    ``local`` layer) the cache is window-sized and right-aligned instead:
+    ``min(cache_len, window)`` slots holding the last keys, left-padded. A
+    decode step against a cache no wider than the window shifts it left
+    by one and appends (O(window) per step, as the reference); against a
+    wider one it writes at ``length`` and masks by the window. Whisper's
+    cross-attention waits for its slice (ROADMAP.md, queue 1, item 6.4)."""
     cfg = ctx["cfg"]
     hd = cfg.hd()
     b, s, _ = x.shape
@@ -97,22 +104,34 @@ def gqa_apply(p, x: torch.Tensor, ctx: Ctx):
     new_cache = None
     if mode == "decode":
         ck, cv, length = ctx["cache"]["k"], ctx["cache"]["v"], ctx["length"]
-        ck, cv = cache_update(ck, cv, length, k, v)
-        out = decode_attention(q, ck, cv, length + 1, logit_softcap=cfg.logit_softcap)
+        if window is not None and ck.shape[1] <= window:
+            ck = torch.cat([ck[:, 1:], k.to(ck.dtype)], dim=1)
+            cv = torch.cat([cv[:, 1:], v.to(cv.dtype)], dim=1)
+            out = decode_attention(q, ck, cv, min(length + 1, ck.shape[1]),
+                                   logit_softcap=cfg.logit_softcap, align="right")
+        else:
+            ck, cv = cache_update(ck, cv, length, k, v)
+            out = decode_attention(q, ck, cv, length + 1, window=window,
+                                   logit_softcap=cfg.logit_softcap)
         new_cache = {"k": ck, "v": cv}
     else:
         qpos = torch.arange(s, device=x.device)
         out = attention(
             q, k, v,
-            q_positions=qpos, k_positions=qpos,
+            q_positions=qpos, k_positions=qpos, window=window,
             logit_softcap=cfg.logit_softcap, chunk_size=cfg.attn_chunk,
         )
         if mode == "prefill":
-            pad = ctx["cache_len"] - s
-            new_cache = {
-                "k": F.pad(k, (0, 0, 0, 0, 0, pad)).to(_dt(cfg)),
-                "v": F.pad(v, (0, 0, 0, 0, 0, pad)).to(_dt(cfg)),
-            }
+            cap = ctx["cache_len"]
+            if window is not None:
+                capw = min(cap, window)
+                keep = min(s, capw)
+                pad = (0, 0, 0, 0, capw - keep, 0)
+                kk, vv = k[:, s - keep:], v[:, s - keep:]
+            else:
+                pad = (0, 0, 0, 0, 0, cap - s)
+                kk, vv = k, v
+            new_cache = {"k": F.pad(kk, pad).to(_dt(cfg)), "v": F.pad(vv, pad).to(_dt(cfg))}
     y = rel_linear(out.reshape(b, s, cfg.n_heads * hd), p["wo"])
     return y, new_cache
 
@@ -132,7 +151,7 @@ def block_init(gen: torch.Generator, kind: str, cfg) -> ParamTree:
     """A block's parameters, made on ``gen``'s device."""
     dt = _dt(cfg)
     dev = gen.device
-    if kind in ("attn", "moe"):
+    if kind in ("attn", "local", "global", "moe"):
         parts = {
             "ln1": torch.zeros((cfg.d_model,), dtype=dt, device=dev),
             "attn": gqa_init(gen, cfg),
@@ -186,11 +205,11 @@ def block_apply(p, kind: str, x, ctx: Ctx):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     cache = {}
 
-    if kind in ("attn", "moe"):
+    if kind in ("attn", "local", "global", "moe"):
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
         actx = dict(ctx)
         actx["cache"] = ctx["cache"]["kv"] if ctx.get("cache") else None
-        a, kv = gqa_apply(p["attn"], h, actx)
+        a, kv = gqa_apply(p["attn"], h, actx, window=cfg.window if kind == "local" else None)
         x = x + a
         h = rms_norm(x, p["ln2"], cfg.norm_eps)
         if kind == "moe":

@@ -13,6 +13,13 @@ Parameters are made directly on the target device from an explicit
 ``torch.Generator`` there: a full-width model (29 GB in f32 for
 falcon-mamba-7b) is never built on the host first. ``build_model`` runs on
 "cuda" unless the caller passes ``device="cpu"``.
+
+The port builds the reference's decoder-only families of one stage:
+olmoe, falcon-mamba, zamba2, gemma2/3 (tied embeddings, ``embed_scale``,
+the final softcap) and the llama-architecture configs. deepseek-v3
+(``first_k_dense``, MLA), whisper's encoder and qwen2-vl's M-RoPE and
+vision tokens wait for their slice (``_UNPORTED``; ROADMAP.md, queue 1,
+item 6.4).
 """
 
 from __future__ import annotations
@@ -31,13 +38,12 @@ from repro_torch.core.session import resolve_device
 from repro_torch.relational import rel_embed, rel_linear
 
 from .blocks import block_apply, block_init, shared_attn_init
-from .common import dense_init, embed_init, rms_norm, softcap
+from .common import dense_init, einsum, embed_init, rms_norm, softcap
 
 
 #: config fields of the reference's other families; a config that sets one
 #: needs a module this slice does not port
-_UNPORTED = ("encoder_layers", "vis_seq", "mrope_sections", "first_k_dense", "mla",
-             "tie_embeddings", "embed_scale")
+_UNPORTED = ("encoder_layers", "vis_seq", "mrope_sections", "first_k_dense", "mla")
 
 
 @dataclass(frozen=True)
@@ -121,7 +127,8 @@ class Model(nn.Module):
         self.stage_specs = stages_of(cfg)
         self.embed = nn.Parameter(embed_init(gen, (cfg.vocab, cfg.d_model), dtype=dt))
         self.ln_f = nn.Parameter(torch.zeros((cfg.d_model,), dtype=dt, device=dev))
-        self.out_embed = nn.Parameter(dense_init(gen, (cfg.d_model, cfg.vocab), dtype=dt))
+        if not cfg.tie_embeddings:
+            self.out_embed = nn.Parameter(dense_init(gen, (cfg.d_model, cfg.vocab), dtype=dt))
         self.has_shared = "mamba2_attn" in _all_kinds(self.stage_specs)
         if self.has_shared:
             self.shared_attn = shared_attn_init(gen, cfg)
@@ -154,11 +161,27 @@ class Model(nn.Module):
     # -- embedding / head ---------------------------------------------------
 
     def _embed(self, p, tokens):
-        return rel_embed(p["embed"], tokens.reshape(-1)).reshape(*tokens.shape, self.cfg.d_model)
+        cfg = self.cfg
+        x = rel_embed(p["embed"], tokens.reshape(-1)).reshape(*tokens.shape, cfg.d_model)
+        if cfg.embed_scale:
+            # sqrt(d_model) rounded to the activations' dtype first, as the
+            # reference's jnp.asarray(cfg.d_model**0.5, x.dtype)
+            x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
+        return x
 
     def _head(self, p, x):
-        h = rms_norm(x, p["ln_f"], self.cfg.norm_eps)
-        return softcap(rel_linear(h, p["out_embed"]).float(), self.cfg.final_softcap)
+        """The logits, f32. A tied head (gemma) is the product with the
+        embedding table through ``common.einsum``, as the reference's
+        ``jnp.einsum`` outside every Pallas kernel; autograd adds its dW to
+        the table gradient of ``rel_embed``'s segment sum. An untied head
+        is a ``rel_linear`` with ``out_embed``."""
+        cfg = self.cfg
+        h = rms_norm(x, p["ln_f"], cfg.norm_eps)
+        if cfg.tie_embeddings:
+            logits = einsum("bsd,vd->bsv", h, p["embed"])
+        else:
+            logits = rel_linear(h, p["out_embed"])
+        return softcap(logits.float(), cfg.final_softcap)
 
     # -- backbone -----------------------------------------------------------
 

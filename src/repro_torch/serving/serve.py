@@ -9,10 +9,14 @@ each at B·S = 2048 — for all 64 layers at once.
 
 Attention layers carry a K/V cache of ``cache_len`` positions, written at
 ``length`` by each decode step, which then advances ``length`` by one as
-the reference's caller does; SSM layers carry (conv window, state): O(1)
-per step. zamba2's ``mamba2_attn`` layers carry both: their Mamba-2 state
-(``ssm2``) and the K/V cache of the shared attention block at that layer
-(``shared_kv``).
+the reference's caller does; gemma's sliding-window (``local``) layers a
+right-aligned one of ``min(window, cache_len)`` positions, shifted left by
+each step; SSM layers carry (conv window, state): O(1) per step.
+zamba2's ``mamba2_attn`` layers carry both: their Mamba-2 state (``ssm2``)
+and the K/V cache of the shared attention block at that layer
+(``shared_kv``). MLA's compressed (c_kv, k_rope) cache (deepseek-v3) and
+whisper's decoder caches wait for their slice (ROADMAP.md, queue 1, item
+6.4).
 
 ``BucketedPrefill`` is the session-backed bucketing engine underneath the
 serving front door: one prefill step per (batch, seq) bucket, held in a
@@ -45,13 +49,15 @@ from repro_torch.models.model import Model, stages_of
 def _attn_cache_entry(cfg, kind: str, batch: int, cache_len: int, device: torch.device):
     dt = getattr(torch, cfg.dtype)
 
-    def kv():
-        shape = (batch, cache_len, cfg.n_kv_heads, cfg.hd())
+    def kv(width=cache_len):
+        shape = (batch, width, cfg.n_kv_heads, cfg.hd())
         return {"k": torch.zeros(shape, dtype=dt, device=device),
                 "v": torch.zeros(shape, dtype=dt, device=device)}
 
-    if kind in ("attn", "moe"):
+    if kind in ("attn", "global", "moe"):
         return {"kv": kv()}
+    if kind == "local":
+        return {"kv": kv(min(cfg.window or cache_len, cache_len))}
     if kind == "mamba1":
         c = cfg.ssm_expand * cfg.d_model
         return {
@@ -80,8 +86,8 @@ def _attn_cache_entry(cfg, kind: str, batch: int, cache_len: int, device: torch.
         return entry
     raise NotImplementedError(
         f"the cache of block kind {kind!r} is not ported yet: the port builds "
-        "attn, moe, mamba1, mamba2 and mamba2_attn (ROADMAP.md, queue 1, item 6.4: "
-        "local/global, mla, enc/dec)"
+        "attn, local, global, moe, mamba1, mamba2 and mamba2_attn (ROADMAP.md, queue 1, "
+        "item 6.4: mla, enc/dec)"
     )
 
 

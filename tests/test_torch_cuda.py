@@ -840,3 +840,78 @@ def test_reduced_olmoe_endpoint_on_the_card_coalesces_and_matches_solo_serving(c
         service._take_cache_batch = real_take
     assert cs.hold_to_oracle(faulty, oracles, cs.ENDPOINT_TIE_LIMIT)[1], "the check passes swapped cache rows"
     kernels.reset_launch_counts()
+
+
+@pytest.mark.cuda
+def test_windowed_prefill_and_decode_on_the_card_match_the_cpu_run(cuda_device):
+    """gemma3 reduced (window 16, attn_chunk 16): a 40-token prefill (the
+    window crossing the chunked path's blocks) and three decode steps
+    through the right-aligned window caches, on the card and on the CPU
+    from the same weights: logits and caches within 1e-5 of the logits'
+    and caches' largest entries (products over K ≤ 512 in other f32
+    orders, through 8 layers)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import make_decode_step, make_prefill_step
+    from repro_torch.serving.serve import map_cache
+
+    cfg = get_config("gemma3-4b").reduced(n_layers=8)
+    cpu = build_model(cfg, device="cpu", seed=0)
+    card = build_model(cfg, seed=1)
+    card.load_state_dict(cpu.state_dict())
+    tokens = torch.tensor(np.random.default_rng(0).integers(0, cfg.vocab, size=(2, 40)), dtype=torch.int32)
+
+    def close(got, want):
+        scale = max(1.0, float(want.abs().max()))
+        torch.testing.assert_close(got.cpu(), want, atol=1e-5 * scale, rtol=1e-5)
+
+    runs = {}
+    for name, model, db, dev in (("cpu", cpu, repro_torch.Database(device="cpu"), "cpu"),
+                                 ("cuda", card, repro_torch.Database(), cuda_device)):
+        prefill, decode = make_prefill_step(model, 44, db=db), make_decode_step(model, db=db)
+        logits, caches = prefill({"tokens": tokens.to(dev)})
+        out = [logits]
+        token = torch.tensor([[1], [2]], dtype=torch.int32, device=dev)
+        for step in range(3):
+            logits, caches = decode(token, caches, 40 + step)
+            out.append(logits)
+        leaves = []
+        map_cache(leaves.append, caches)
+        runs[name] = (out, leaves)
+    for got, want in zip(runs["cuda"][0], runs["cpu"][0]):
+        close(got, want)
+    assert {t.shape[1] for t in runs["cuda"][1]} == {16, 44}
+    for got, want in zip(runs["cuda"][1], runs["cpu"][1]):
+        close(got, want)
+    kernels.reset_launch_counts()
+
+
+@pytest.mark.cuda
+def test_tied_head_train_step_embed_gradient_matches_the_torch_tier(cuda_device):
+    """gemma2 reduced: the tied table's gradient (the head's einsum dW plus
+    rel_embed's segment-sum table gradient) on the cuda tier against the
+    torch tier, on the card, within 1e-5 of its largest entry; every
+    kernel launched on the cuda tier and none on the torch tier."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_lm_batches
+    from repro_torch.models import build_model
+    from repro_torch.train.losses import lm_loss
+
+    cfg = get_config("gemma2-9b").reduced()
+    model = build_model(cfg, seed=0)
+    batch = next(synthetic_lm_batches(cfg, 2, 40, seed=3))
+    grads = {}
+    for dispatch in ("cuda", "torch"):
+        kernels.reset_launch_counts()
+        with repro_torch.Database(dispatch=dispatch).activate():
+            logits, _ = model.train_logits(batch)
+            loss = lm_loss(logits, batch["labels"])
+            grads[dispatch], = torch.autograd.grad(loss, [model.embed])
+        launched = kernels.launch_counts()
+        if dispatch == "cuda":
+            assert all(launched[op] > 0 for op in ("blocked_matmul", "gather_join", "segment_sum")), launched
+        else:
+            assert not sum(launched.values()), launched
+    scale = float(grads["torch"].abs().max())
+    torch.testing.assert_close(grads["cuda"], grads["torch"], atol=1e-5 * scale, rtol=1e-5)
+    kernels.reset_launch_counts()

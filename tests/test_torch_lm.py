@@ -290,7 +290,7 @@ def test_entry_points_run_on_cuda_unless_asked(monkeypatch):
 def test_unported_block_kinds_raise():
     cfg = get_config("olmoe-1b-7b").reduced()
     gen = torch.Generator().manual_seed(0)
-    for kind in ("mla", "local"):
+    for kind in ("mla", "enc"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             block_init(gen, kind, cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -299,7 +299,7 @@ def test_unported_block_kinds_raise():
 
 
 @pytest.mark.parametrize("field, value", [
-    ("first_k_dense", 1), ("mla", True), ("tie_embeddings", True), ("embed_scale", True),
+    ("first_k_dense", 1), ("mla", True), ("encoder_layers", 2), ("mrope_sections", (8, 12, 12)),
 ])
 def test_configs_of_unported_families_raise(field, value):
     cfg = dataclasses.replace(get_config("falcon-mamba-7b").reduced(), **{field: value})
