@@ -49,7 +49,8 @@ Phases, in order; any failure stops the run with a non-zero exit:
    a wave of each of phase 9's streamed steps, on the wave's own ids, and
    olmoe's prefill, decode step and train step, phase 12's burst,
    zamba2's prefill and decode step and a falcon-mamba train step (the
-   scan's forward and reverse walks apart), on their calls' own ids)
+   scan's forward and reverse walks apart), and the passes of phases 15-21,
+   on their calls' own ids)
    beside its plain version, one PyTorch library call (where there is one),
    the card's bound and, for the small calls, the host's time per call; and
    time ``segment_sum``'s index (sort and starts) and its two paths across
@@ -139,10 +140,32 @@ Phases, in order; any failure stops the run with a non-zero exit:
 18. serve llama3-405b at its published widths and 2 of its 126 layers
    (d_model 16,384, d_ff 53,248, vocab 128,256; 42.3 GB of f32 weights): 2
    prompts of 1,024 tokens and 8 decode steps, checked as phase 15, with a
-   lost K cache planted.
+   lost K cache planted;
+19. (run before phase 8, as are 20-21) serve deepseek-v3-671b at its
+   published widths and 4 of its 61 layers (3 dense MLA layers, 1 MLA+MoE
+   layer of 256 experts top-8 and a shared one; 60.4 GB of f32 weights): 2
+   prompts of 1,024 tokens and 8 greedy decode steps through the latent
+   (c, r) cache; every site on the cuda tier, the logits against the torch
+   tier on the cuda tier's routing, decode against a longer prefill at 64
+   tokens under capacity factor n_experts / top_k (no drops), with a
+   decode that loses its new c or r rows planted;
+20. serve whisper-small at its published widths and depth (12 encoder and
+   12 decoder layers over 1,500 frames): 4 requests of 64 tokens and 32
+   decode steps against a longer prefill, two requests' encoder rows
+   swapped planted; then through ``db.endpoint`` with ``make_batch`` adding
+   the frames (buckets of 1, 2 and 4), each request held to its solo run in
+   tokens and logits, a cache-row swap planted; then train it on 4 × 448
+   tokens with their frames: step 1's gradients against the torch tier (a
+   lost token planted), remat "nothing" against "dots" bit for bit, 5
+   donated Adam steps under each;
+21. serve qwen2-vl-72b at its published widths and 8 of its 80 layers (M-RoPE,
+   38.1 GB): 2 × (256 patches + 1,024 tokens) and 8 decode steps at length
+   = seq + vis, each held to the torch tier's decode (the reference's
+   positions equal no longer prefill), a lost K row planted; then 2
+   requests through ``db.endpoint`` with ``make_batch`` adding the patches.
 
 Device memory is freed between phases, so the NNMF step's peak and the
-language models' 15–42 GB of weights never meet. The last line of standard
+language models' 1–60 GB of weights never meet. The last line of standard
 output is ``{"ok": true, "device": {...}}``; the line before it is one JSON
 object with a record per kernel, and the line before that the card's name
 and power limit as nvidia-smi gives them.
@@ -399,6 +422,51 @@ DENSE_LOSS_LIMIT = 1e-5
 #: terms in a chain, each ≈ √K·u ≈ 7e-6). A step that loses one of its 4,096
 #: tokens (planted) moves every gradient by more than 1/4,096
 DENSE_GRAD_LIMIT = 2e-4
+# the LM zoo's last three families (src/repro_torch/configs/{deepseek_v3_671b,
+# whisper_small,qwen2_vl_72b}.py at their published widths, f32 instead of
+# bf16). Phase 19 serves deepseek-v3-671b at 4 of its 61 layers, the 3 dense
+# MLA layers and 1 MLA+MoE layer (256 routed experts of 2,048, top-8, 1
+# shared; 60.4 GB of f32 weights, the most one 80 GB card holds with room
+# for the activations): 2 prompts of 1,024 tokens and 8 greedy decode steps
+# through the latent (c, r) cache
+DSV3_ARCH, DSV3_LAYERS, DSV3_BATCH, DSV3_PROMPT, DSV3_DECODE = "deepseek-v3-671b", 4, 2, 1024, 8
+DSV3_PARAMS = 15_111_101_440
+#: deepseek-v3's decode against a longer prefill runs at a 64-token prompt
+#: under capacity_factor = n_experts / top_k (32), where no expert drops a
+#: token (at 1,024 tokens that capacity would take about 15 GB of expert
+#: buffers); the router drops otherwise, and decode (capacity top_k per
+#: step) and prefill drop different assignments
+DSV3_CHECK_PROMPT = 64
+# phase 20 serves whisper-small at its full depth (12 encoder + 12 decoder
+# layers, d_model 768, 12 heads, d_ff 3,072, vocab 51,865 tied; enc_seq
+# 1,500 frames): 4 requests of 1,500 frames and a 64-token prompt, 32 greedy
+# decode steps (the decoder's published limit is 448 positions); then
+# through db.endpoint with make_batch adding the frames (prefill buckets of
+# 1, 2 and 4 prompts of 64 tokens, room for 8 new ones; budgets that compact
+# to 2 live slots); then trains it at full depth on 4 x 448 tokens with
+# their frames: step-1 gradients under remat "nothing" and "dots", then 5
+# donated Adam steps under each
+WHISPER_ARCH, WHISPER_BATCH, WHISPER_PROMPT, WHISPER_DECODE = "whisper-small", 4, 64, 32
+WHISPER_PARAMS = 294_730_752
+WHISPER_ENDPOINT_BUCKETS, WHISPER_ENDPOINT_NEW, WHISPER_ENDPOINT_BUDGETS = (1, 2, 4), 8, (8, 5, 7, 6)
+WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ, WHISPER_TRAIN_STEPS = 4, 448, 5
+# phase 21 serves qwen2-vl-72b at its published widths and 8 of its 80
+# layers (d_model 8,192, 64 heads of 128 over 8 KV heads, d_ff 29,568, vocab
+# 152,064; M-RoPE sections (16, 24, 24); 38.1 GB of f32 weights): 2 x (256
+# patches + 1,024 tokens) and 8 greedy decode steps at length = seq + vis;
+# then through db.endpoint with make_batch adding the patches, 2 requests
+QWEN_ARCH, QWEN_LAYERS, QWEN_BATCH, QWEN_PROMPT, QWEN_DECODE = "qwen2-vl-72b", 8, 2, 1024, 8
+QWEN_PARAMS = 9_512_820_736
+QWEN_ENDPOINT_BUCKETS, QWEN_ENDPOINT_NEW, QWEN_ENDPOINT_BUDGETS = (1, 2), 4, (4, 2)
+#: the limits of phases 19-21 are the dense families': DENSE_TIER_LIMIT for
+#: the prefill logits against the torch tier (deepseek-v3's 4 layers run 33
+#: products of K ≤ 18,432, qwen2-vl's 8 layers 57 of K ≤ 29,568: ≈ 5e-5 and
+#: 8e-5 as random walks), DENSE_DECODE_LIMIT for decode against a longer
+#: prefill (deepseek-v3, whisper) and, for qwen2-vl, whose decode follows
+#: the reference's positions and so equals no longer prefill (ROADMAP.md
+#: §3), for each decode step against the torch tier's, fed the same tokens
+#: from caches that differ by the prefill's gap; DENSE_LOSS_LIMIT and
+#: DENSE_GRAD_LIMIT for whisper's training
 #: the shapes of blocked_matmul's path-crossover cases: the skinny path
 #: takes m ≤ 16
 CROSSOVER_M, CROSSOVER_K, CROSSOVER_N = (1, 2, 15, 16, 17, 33), (1, 3, 511, 512, 513, 8192), (1, 40, 288)
@@ -459,6 +527,7 @@ def segsum_shapes(cfg):
     cases += [(e, d, s, "olmoe") for op, e, d, s in olmoe_checked_shapes(olmoe_config())
               if op == "segment_sum"]
     cases += [(e, d, s, "dense") for op, e, d, s in dense_checked_shapes() if op == "segment_sum"]
+    cases += [(e, d, s, "zoo") for op, e, d, s in zoo_checked_shapes() if op == "segment_sum"]
     return cases
 
 
@@ -478,6 +547,7 @@ def gather_shapes(cfg):
     cases += [(e, n, d, "olmoe") for op, e, n, d in olmoe_checked_shapes(olmoe_config())
               if op == "gather_join"]
     cases += [(e, n, d, "dense") for op, e, n, d in dense_checked_shapes() if op == "gather_join"]
+    cases += [(e, n, d, "zoo") for op, e, n, d in zoo_checked_shapes() if op == "gather_join"]
     return cases
 
 
@@ -503,7 +573,7 @@ def matmul_cases(cfg):
     GCN forwards, the RJP shapes, the logistic regression's two products
     in core and in one wave of phase 9, the NNMF product, falcon-mamba's projections at m = B·S and m = B and
     its head at m = B, ragged edges, the crossover between the skinny
-    and the tiled path, and the products of phases 10-18."""
+    and the tiled path, and the products of phases 10-21."""
     from repro_torch.examples.nnmf import BLOCK
 
     cases = [
@@ -527,6 +597,8 @@ def matmul_cases(cfg):
     cases += [(m, k, n, "zamba2 / falcon-mamba training") for op, m, k, n in sorted(ssm_checked_shapes())
               if op == "blocked_matmul"]
     cases += [(m, k, n, "gemma2 / gemma3 / llama3") for op, m, k, n in sorted(dense_checked_shapes())
+              if op == "blocked_matmul"]
+    cases += [(m, k, n, "deepseek-v3 / whisper / qwen2-vl") for op, m, k, n in sorted(zoo_checked_shapes())
               if op == "blocked_matmul"]
     return cases
 
@@ -802,6 +874,12 @@ def check_kernels(torch, kern, graph, lm_cfg, olmoe_cfg, dev):
         for _, m, k, n in sorted(dense_shapes(cfg, b, s)):
             if _ == "blocked_matmul" and m > b:
                 batch_invariance_case(m, k, n, cfg.name)
+    # and deepseek-v3's and whisper's (decode against a longer prefill):
+    # their prefill products, whisper's encoder's among them
+    for _, m, k, n in sorted(dsv3_shapes(dsv3_config(), DSV3_BATCH, DSV3_PROMPT)
+                             | whisper_shapes(dense_config(WHISPER_ARCH), WHISPER_BATCH, WHISPER_PROMPT)):
+        if _ == "blocked_matmul" and m > WHISPER_BATCH:
+            batch_invariance_case(m, k, n, "deepseek-v3 / whisper")
     d, c = lm_cfg.d_model, lm_cfg.ssm_expand * lm_cfg.d_model
     determinism_case(LM_BATCH, d, 2 * c, "falcon-mamba decode in_proj")
     determinism_case(1, LOGREG_ROWS, LOGREG_COLS, "logreg dθ")
@@ -897,6 +975,25 @@ def check_kernels(torch, kern, graph, lm_cfg, olmoe_cfg, dev):
             gather_case(b, lm_ids(a, b), c, "gemma2 / gemma3 / llama3")
         elif op == "segment_sum":
             segsum_case(c, lm_ids(a, c), b, "gemma2 / gemma3 / llama3",
+                        fault=hottest_edge_dropped if c != a else None)
+        torch.cuda.empty_cache()
+
+    # phases 19-21's: the embedding's join by token (vocabularies of
+    # 129,280, 51,865 and 152,064 rows) and Σ by position, whisper
+    # training's transposes, and deepseek-v3's MoE dispatch, combine and Σ
+    # by token, whose slot and assignment ids hold -1 as olmoe's do
+    moe = set()
+    for b_ in (DSV3_PROMPT, 1):
+        _, slots, assigned = olmoe_sizes(dsv3_config(), DSV3_BATCH, b_)
+        bs = DSV3_BATCH * b_
+        moe |= {("gather_join", slots, bs), ("gather_join", assigned, slots), ("segment_sum", assigned, bs)}
+    for op, a, b, c in sorted(zoo_checked_shapes()):
+        rows = c if op == "segment_sum" else b
+        ids = olmoe_ids if (op, a, rows) in moe else lm_ids
+        if op == "gather_join":
+            gather_case(b, ids(a, b), c, "deepseek-v3 / whisper / qwen2-vl")
+        elif op == "segment_sum":
+            segsum_case(c, ids(a, c), b, "deepseek-v3 / whisper / qwen2-vl",
                         fault=hottest_edge_dropped if c != a else None)
         torch.cuda.empty_cache()
     return errs
@@ -3606,38 +3703,50 @@ def endpoint_logits(ep, calls, budgets):
     return out
 
 
-def dense_endpoint_phase(torch, repro_torch, kern, cfg, dev, model, checked):
-    """Phase 17's second half: the model through ``db.endpoint`` with
-    prefill buckets of 1, 2 and 4 prompts of GEMMA3_ENDPOINT_PROMPT tokens
-    (past the window) and room for GEMMA3_ENDPOINT_NEW new tokens: a burst
+def dense_endpoint_phase(torch, repro_torch, kern, cfg, dev, model, checked, *,
+                         s=GEMMA3_ENDPOINT_PROMPT, new=GEMMA3_ENDPOINT_NEW,
+                         budgets=GEMMA3_ENDPOINT_BUDGETS, bucket_sizes=GEMMA3_ENDPOINT_BUCKETS,
+                         make_batch=None, plant_swap=True):
+    """Phase 17's second half (and phases 20's and 21's): the model through
+    ``db.endpoint`` with prefill buckets of ``bucket_sizes`` prompts of S
+    tokens (gemma3: past the window) and room for NEW new tokens: a burst
     of concurrent requests, each held to the request served alone, token
     for token and in every decode step's logits, with a compaction that
     swaps two slots' cache rows planted. The local layers' window caches
     and the global layers' full ones are padded, sliced and compacted on
     their batch axis. The logits carry the check: with tied embeddings and
     embed_scale, random weights make each greedy token the one fed in,
-    whatever the cache holds."""
+    whatever the cache holds. ``make_batch`` (whisper's frames, qwen2-vl's
+    patches) builds the prefill's batch from the tokens, on the endpoint
+    and in the solo runs, and warmup's from zero tokens; whisper's solo
+    runs decode against their own encoder output, the endpoint against the
+    batch's, padded and compacted with the slots; qwen2-vl's decode starts
+    at seq + vis_seq on both. ``plant_swap=False`` (qwen2-vl's 2 requests,
+    whose compaction keeps one slot) plants no swap."""
     import asyncio
 
     import numpy as np
 
-    from repro_torch.serving import make_decode_step, make_prefill_step, service
+    from repro_torch.serving import make_decode_step, make_encode_step, make_prefill_step, service
     from repro_torch.serving.serve import map_cache
 
-    s, budgets = GEMMA3_ENDPOINT_PROMPT, list(GEMMA3_ENDPOINT_BUDGETS)
-    n, cache_len = len(budgets), s + GEMMA3_ENDPOINT_NEW
-    buckets = [(b, s) for b in GEMMA3_ENDPOINT_BUCKETS]
+    budgets, vis = list(budgets), cfg.vis_seq
+    n, cache_len = len(budgets), s + vis + new
+    buckets = [(b, s) for b in bucket_sizes]
+    name = cfg.name.split("-")[0]
     db = repro_torch.Database(max_cache_entries=16)
-    db.register_model("gemma3", model, dict(model.named_parameters()))
-    ep = db.endpoint("gemma3", cache_len=cache_len, buckets=buckets)
+    db.register_model(name, model, dict(model.named_parameters()))
+    ep = db.endpoint(name, cache_len=cache_len, buckets=buckets, make_batch=make_batch)
+    batch_fn = None if make_batch is None else (
+        lambda b, s_: make_batch(torch.zeros((b, s_), dtype=torch.int32, device=dev)))
     # the endpoint's decode steps, built by warmup, record their logits
     calls, real_make = [], service.make_decode_step
 
     def recording(*args, **kw):
         step = real_make(*args, **kw)
 
-        def call(tok, caches, length, params=None):
-            logits, caches = step(tok, caches, length, params)
+        def call(tok, caches, length, params=None, enc_out=None):
+            logits, caches = step(tok, caches, length, params, enc_out)
             calls.append(logits[:, -1].clone())
             return logits, caches
 
@@ -3647,7 +3756,7 @@ def dense_endpoint_phase(torch, repro_torch, kern, cfg, dev, model, checked):
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        ep.warmup()
+        ep.warmup(batch_fn=batch_fn)
     finally:
         service.make_decode_step = real_make
     warm = db.counters()["serve"]
@@ -3656,6 +3765,9 @@ def dense_endpoint_phase(torch, repro_torch, kern, cfg, dev, model, checked):
         f"{warm['prefill']['compiles']} prefill and {warm['decode']['compiles']} decode steps built")
     rng = np.random.default_rng(13)
     prompts = [rng.integers(0, cfg.vocab, size=s) for _ in range(n)]
+    if make_batch is not None:
+        for i, p in enumerate(prompts):   # distinct first tokens: make_batch's seeds
+            p[0] = 17 * i + 3
     reqs = [(p, {"max_new_tokens": m}) for p, m in zip(prompts, budgets)]
 
     def burst():
@@ -3691,7 +3803,7 @@ def dense_endpoint_phase(torch, repro_torch, kern, cfg, dev, model, checked):
     }
     log(f"  burst checks: {checks}")
     if not all(checks.values()):
-        raise AssertionError(f"the gemma3 burst: {[k for k, v in checks.items() if not v]}")
+        raise AssertionError(f"the {name} burst: {[k for k, v in checks.items() if not v]}")
     for op in GCN_KERNELS:
         if launches[op] <= 0:
             raise AssertionError(f"{op}: its CUDA kernel did not launch in the burst")
@@ -3701,12 +3813,16 @@ def dense_endpoint_phase(torch, repro_torch, kern, cfg, dev, model, checked):
 
     prefill = make_prefill_step(model, cache_len, db=db)
     decode = make_decode_step(model, db=db)
+    encode = make_encode_step(model, db=db)
     widths = set()
 
     def solo(prompt, new):
         """(tokens, top-2 gaps, each decode step's logits) of one request
         served alone."""
-        logits, caches = prefill({"tokens": torch.as_tensor(prompt[None], device=dev).int()})
+        tokens = torch.as_tensor(prompt[None], device=dev).int()
+        batch = {"tokens": tokens} if make_batch is None else make_batch(tokens)
+        logits, caches = prefill(batch)
+        enc = encode(batch["frames"]) if cfg.encoder_layers else None
         map_cache(lambda t: widths.add(t.shape[1]), caches)
         toks, gaps, steps = [], [], []
         for i in range(new):
@@ -3717,7 +3833,7 @@ def dense_endpoint_phase(torch, repro_torch, kern, cfg, dev, model, checked):
             gaps.append((top[0] - top[1]) / lg.abs().max())
             toks.append(lg.argmax().reshape(1, 1).to(torch.int32))
             if i + 1 < new:
-                logits, caches = decode(toks[-1], caches, s + i)
+                logits, caches = decode(toks[-1], caches, s + vis + i, enc_out=enc)
         return torch.cat(toks).flatten().tolist(), torch.stack(gaps).tolist(), steps
 
     oracles = [solo(p, m) for p, m in zip(prompts, budgets)]
@@ -3741,9 +3857,12 @@ def dense_endpoint_phase(torch, repro_torch, kern, cfg, dev, model, checked):
         f"logits max|Δ| / max|logit| = {worst:.3e} (limit {DENSE_DECODE_LIMIT:g}); cache widths "
         f"{sorted(widths)}")
     if bad or not worst <= DENSE_DECODE_LIMIT:
-        raise AssertionError(f"the gemma3 burst differs from the solo runs: {bad}, {worst:.3e}")
-    if sorted(widths) != sorted({cfg.window, cache_len}):
+        raise AssertionError(f"the {name} burst differs from the solo runs: {bad}, {worst:.3e}")
+    if sorted(widths) != sorted({cfg.window or cache_len, cache_len}):
         raise AssertionError(f"cache widths {sorted(widths)}")
+    if not plant_swap:
+        return {"launches": launches, "log": burst_log, "pass": dict(burst_log.counts),
+                "burst_ms": burst_s * 1e3, "tokens_per_s": n_tok / burst_s, "peak": peak}
     with swapped_compaction(service):
         faulty = burst()
     _, fault_bad, fault_worst = hold(*faulty)
@@ -3780,14 +3899,21 @@ def dense_grads(torch, repro_torch, kern, model, batch, dispatch, names=None):
     return float(loss.detach()), dict(zip(names, grads)), backward, peak
 
 
-def gemma2_train_phase(torch, repro_torch, kern, cfg, dev, checked):
-    """Phase 16: gemma2-9b at its published widths and GEMMA2_TRAIN_LAYERS
-    layers: step 1's loss and gradients against the torch tier (a lost
-    token planted), the gradients under remat "nothing" and "dots" bit for
-    bit ("dots" recomputes no product), then GEMMA2_TRAIN_STEPS donated Adam
-    steps under each from the same weights (equal losses). This runs the
-    softcaps' backward and the tied table's two-part gradient (the head's
-    einsum dW and the embedding's segment-sum table gradient)."""
+def gemma2_train_phase(torch, repro_torch, kern, cfg, dev, checked, *, b=GEMMA2_TRAIN_BATCH,
+                       s=GEMMA2_TRAIN_SEQ, n=GEMMA2_TRAIN_STEPS, want_params=GEMMA2_TRAIN_PARAMS,
+                       names=("stages.0.scan.0.0:local.attn.wq", "stages.0.scan.0.0:local.mlp.wo",
+                              "stages.0.scan.0.1:global.attn.wk", "embed"),
+                       remat_products=7):
+    """Phase 16 (and phase 20's training): gemma2-9b at its published
+    widths and GEMMA2_TRAIN_LAYERS layers: step 1's loss and gradients
+    against the torch tier (a lost token planted), the gradients under
+    remat "nothing" and "dots" bit for bit ("dots" recomputes no product:
+    ``remat_products`` fewer launches per rematerialized layer), then N
+    donated Adam steps under each from the same weights (equal losses).
+    This runs the softcaps' backward and the tied table's two-part gradient
+    (the head's einsum dW and the embedding's segment-sum table gradient);
+    whisper's, the encoder's backward (outside remat) through every decoder
+    layer's cross-attention, on batches with their frames."""
     import dataclasses
 
     from repro_torch.core.engine import engine_for
@@ -3797,22 +3923,20 @@ def gemma2_train_phase(torch, repro_torch, kern, cfg, dev, checked):
     from repro_torch.relational.linear import _linear_prog
     from repro_torch.train import init_train_state, make_train_step
 
-    b, s, n = GEMMA2_TRAIN_BATCH, GEMMA2_TRAIN_SEQ, GEMMA2_TRAIN_STEPS
-    log(f"  {cfg.name} at its published widths, {cfg.n_layers} of 42 layers ({cfg.pattern} x "
-        f"{cfg.n_layers // len(cfg.pattern)}), float32, tied embeddings, softcaps "
-        f"{cfg.logit_softcap}/{cfg.final_softcap}, remat; batch {b} x {s} tokens "
-        f"(synthetic_lm_batches, seed 0); Adam lr 3e-4, grad_clip 1.0, donated (in place)")
+    log(f"  {cfg.name} at its published widths, {cfg.n_layers} decoder layers ({cfg.pattern} x "
+        f"{cfg.n_layers // len(cfg.pattern)}; encoder layers {cfg.encoder_layers}), float32, tied "
+        f"embeddings {cfg.tie_embeddings}, softcaps {cfg.logit_softcap}/{cfg.final_softcap}, remat; "
+        f"batch {b} x {s} tokens (synthetic_lm_batches, seed 0; frames {cfg.enc_seq if cfg.encoder_layers else 0}); "
+        "Adam lr 3e-4, grad_clip 1.0, donated (in place)")
     gc.collect()
     torch.cuda.empty_cache()
     model = build_model(cfg, seed=0)
     n_params = sum(p.numel() for p in model.parameters())
     log(f"  model: {n_params:,} parameters ({n_params * 4:,} bytes; with gradients and two "
         f"moments {n_params * 16:,})")
-    if n_params != GEMMA2_TRAIN_PARAMS:
-        raise AssertionError(f"{n_params} parameters, want {GEMMA2_TRAIN_PARAMS}")
+    if n_params != want_params:
+        raise AssertionError(f"{n_params} parameters, want {want_params}")
     batch = next(synthetic_lm_batches(cfg, b, s, seed=0))
-    names = ("stages.0.scan.0.0:local.attn.wq", "stages.0.scan.0.0:local.mlp.wo",
-             "stages.0.scan.0.1:global.attn.wk", "embed")
     engines = {"rel_linear": engine_for(_linear_prog()[0].forward),
                "rel_embed": engine_for(_embed_prog()[0].forward)}
     seen = {k: {id(low) for low in e.lowerings} for k, e in engines.items()}
@@ -3839,7 +3963,7 @@ def gemma2_train_phase(torch, repro_torch, kern, cfg, dev, checked):
                 raise AssertionError("the gradients of remat 'dots' differ from 'nothing''s")
         del grads
     mm = {p: backward[p]["blocked_matmul"] for p in backward}
-    layer_products = 7 * cfg.n_layers
+    layer_products = remat_products * cfg.n_layers
     log(f"  blocked_matmul launches in the backward: 'nothing' {mm['nothing']}, 'dots' {mm['dots']} "
         f"(want {layer_products} fewer: the recompute launches no product)")
     if mm["nothing"] != mm["dots"] + layer_products:
@@ -3951,6 +4075,388 @@ def gemma2_train_phase(torch, repro_torch, kern, cfg, dev, checked):
     torch.cuda.empty_cache()
     return {"launches": launches, "sites": sites, "log": train_log, "pass": dict(train_log.counts),
             "runs": runs, "grad_peaks": peaks, "idle": idle, "head_ms": head}
+
+
+# ---------------------------------------------------------------------------
+# Phases 19-21: the last three families (deepseek-v3, whisper, qwen2-vl)
+# ---------------------------------------------------------------------------
+
+
+def dsv3_config(**changes):
+    """deepseek-v3-671b at its published widths, DSV3_LAYERS layers, f32."""
+    return dense_config(DSV3_ARCH, n_layers=DSV3_LAYERS, **changes)
+
+
+def qwen_config():
+    """qwen2-vl-72b at its published widths, QWEN_LAYERS layers, f32."""
+    return dense_config(QWEN_ARCH, n_layers=QWEN_LAYERS)
+
+
+def whisper_train_config():
+    """whisper-small at its published widths and depth, f32, remat
+    ("nothing")."""
+    return dense_config(WHISPER_ARCH, remat=True, remat_policy="nothing")
+
+
+def dsv3_shapes(cfg, b, s):
+    """Every kernel call (op, shape) of a deepseek-v3 forward over B rows of
+    S tokens (a prefill; a decode step at S = 1): blocked_matmul at MLA's
+    wq_a, wq_b, wkv_a and wo, the dense layers' MLP, the shared expert and
+    the untied head (the last position); MLA's up-projections, the router
+    and the routed experts are einsums. gather_join and segment_sum: the
+    embedding's join by token and Σ by position, the MoE's dispatch (token
+    rows into B·E·C slots), combine (slot rows into B·S·k assignments) and
+    Σ by token."""
+    d, bs = cfg.d_model, b * s
+    dr, shared = cfg.rope_head_dim, cfg.d_expert_ff * cfg.n_shared_experts
+    mm = {(bs, d, cfg.q_lora_rank), (bs, cfg.q_lora_rank, cfg.n_heads * (cfg.nope_head_dim + dr)),
+          (bs, d, cfg.kv_lora_rank + dr), (bs, cfg.n_heads * cfg.v_head_dim, d),
+          (bs, d, cfg.d_ff), (bs, cfg.d_ff, d), (bs, d, shared), (bs, shared, d), (b, d, cfg.vocab)}
+    _, slots, assigned = olmoe_sizes(cfg, b, s)
+    return ({("blocked_matmul",) + m for m in mm}
+            | {("gather_join", bs, cfg.vocab, d), ("segment_sum", bs, d, bs),
+               ("gather_join", slots, bs, d), ("gather_join", assigned, slots, d),
+               ("segment_sum", assigned, d, bs)})
+
+
+def whisper_shapes(cfg, b, s, train=False):
+    """Every kernel call of whisper over B requests of S decoder tokens and
+    enc_seq frames (a decode step at S = 1): blocked_matmul at the encoder's
+    q/k/v/o and MLP over B·enc_seq rows (the cross-attention's k/v too, at
+    every step), and the decoder's q/k/v/o and MLP over B·S; the tied head
+    is an einsum. The embedding's join and Σ, and in training their
+    transposes."""
+    d, bs, be, hd = cfg.d_model, b * s, b * cfg.enc_seq, cfg.hd()
+    mm = {mkn for m in (be, bs) for mkn in (
+        (m, d, cfg.n_heads * hd), (m, d, cfg.n_kv_heads * hd), (m, cfg.n_heads * hd, d),
+        (m, d, cfg.d_ff), (m, cfg.d_ff, d))}
+    out = ({("blocked_matmul",) + m for m in mm}
+           | {("gather_join", bs, cfg.vocab, d), ("segment_sum", bs, d, bs)})
+    if train:
+        out |= {("gather_join", bs, bs, d), ("segment_sum", bs, d, cfg.vocab)}
+    return out
+
+
+def qwen_shapes(cfg, b, s, vis):
+    """Every kernel call of qwen2-vl over B rows of VIS patches and S tokens:
+    the products over B·(S + VIS) rows and the head at the last position;
+    the embedding's join and Σ over the B·S tokens alone."""
+    d, rows, bs, hd = cfg.d_model, b * (s + vis), b * s, cfg.hd()
+    mm = {(rows, d, cfg.n_heads * hd), (rows, d, cfg.n_kv_heads * hd), (rows, cfg.n_heads * hd, d),
+          (rows, d, cfg.d_ff), (rows, cfg.d_ff, d), (b, d, cfg.vocab)}
+    return ({("blocked_matmul",) + m for m in mm}
+            | {("gather_join", bs, cfg.vocab, d), ("segment_sum", bs, d, bs)})
+
+
+def zoo_checked_shapes():
+    """The kernel calls of phases 19-21: deepseek-v3's prefill and decode
+    step; whisper's at its serving batch and at each endpoint bucket, and
+    a train step; qwen2-vl's prefill and decode step, also at each
+    endpoint bucket."""
+    ds, wh, qw = dsv3_config(), dense_config(WHISPER_ARCH), qwen_config()
+    out = dsv3_shapes(ds, DSV3_BATCH, DSV3_PROMPT) | dsv3_shapes(ds, DSV3_BATCH, 1)
+    for b in (WHISPER_BATCH,) + WHISPER_ENDPOINT_BUCKETS:
+        out |= whisper_shapes(wh, b, WHISPER_PROMPT) | whisper_shapes(wh, b, 1)
+    out |= whisper_shapes(wh, WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ, True)
+    for b in (QWEN_BATCH,) + QWEN_ENDPOINT_BUCKETS:
+        out |= qwen_shapes(qw, b, QWEN_PROMPT, qw.vis_seq) | qwen_shapes(qw, b, 1, 0)
+    return out
+
+
+def seeded_rows(torch, dev, tokens, shape):
+    """make_batch's frames or patches: one (shape) block per row of
+    ``tokens``, drawn on the card from a generator seeded by the row's
+    first token, so a request brings the same rows alone and in a batch."""
+    return torch.stack([
+        torch.randn(shape, generator=torch.Generator(device=dev).manual_seed(int(t)), device=dev)
+        for t in tokens[:, 0].tolist()])
+
+
+def zoo_serve_phase(torch, repro_torch, kern, cfg, dev, checked, b, s, steps, want_params):
+    """Phases 19-21's serving: one request of B prompts of S tokens (with
+    whisper's enc_seq frames, or qwen2-vl's vis_seq patches before them),
+    prefill then STEPS greedy decode steps at length = S + vis, through
+    ``make_prefill_step``, ``make_encode_step`` (whisper) and
+    ``make_decode_step``; every site on the cuda tier, the prefill logits
+    against the torch tier (deepseek-v3 on the cuda tier's routing), and:
+    deepseek-v3 decode against a longer prefill at DSV3_CHECK_PROMPT tokens
+    with no drops, a decode that loses its new c or r row planted; whisper
+    the last decode step against a prefill over the prompt and every fed
+    token, two requests' encoder rows swapped planted; qwen2-vl each decode
+    step against the torch tier's, a lost K row planted. Returns the record
+    and the model (the endpoints serve it again)."""
+    from repro_torch.core.engine import engine_for
+    from repro_torch.models import blocks, build_model, ffn
+    from repro_torch.relational.embedding import _embed_prog
+    from repro_torch.relational.linear import _linear_prog
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import stages_of
+    from repro_torch.serving import make_decode_step, make_encode_step, make_prefill_step
+
+    vis = cfg.vis_seq
+    kinds = [k for st in stages_of(cfg) for k in list(st.pattern) * st.repeats + list(st.tail)]
+    n_moe = sum(k.endswith("moe") for k in kinds)
+    log(f"  {cfg.name}: {cfg.n_layers} layers {kinds}; d_model {cfg.d_model}, {cfg.n_heads} heads, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, tied {cfg.tie_embeddings}; MLA {cfg.mla} (q/kv ranks "
+        f"{cfg.q_lora_rank}/{cfg.kv_lora_rank}), experts {cfg.n_experts} top-{cfg.top_k} of "
+        f"{cfg.d_expert_ff} + {cfg.n_shared_experts} shared; encoder layers {cfg.encoder_layers} "
+        f"over {cfg.enc_seq} frames; M-RoPE {cfg.mrope_sections}, {vis} patches; dtype float32 "
+        f"(published: {get_config(cfg.name).dtype}); random weights from seed 0; a request of {b} x "
+        f"{s} tokens and {steps} decode steps (cache_len {s + vis + steps})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  model built on {model.device} in {time.perf_counter() - t0:.1f} s: {n_params:,} "
+        f"parameters, {n_params * 4:,} bytes")
+    if n_params != want_params:
+        raise AssertionError(f"{n_params} parameters, want {want_params}")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev, dtype=torch.int32)
+    batch = {"tokens": tokens}
+    if cfg.encoder_layers:
+        batch["frames"] = torch.randn(b, cfg.enc_seq, cfg.d_model, generator=gen, device=dev)
+    if vis:
+        batch["patches"] = torch.randn(b, vis, cfg.d_model, generator=gen, device=dev)
+    cache_len = s + vis + steps
+    prefill, decode = make_prefill_step(model, cache_len), make_decode_step(model)
+    encode = make_encode_step(model)
+    db = repro_torch.Database()
+    engines = {"rel_linear": engine_for(_linear_prog()[0].forward),
+               "rel_embed": engine_for(_embed_prog()[0].forward)}
+    seen = {k: {id(low) for low in e.lowerings} for k, e in engines.items()}
+
+    def start(batch_):
+        """The prefill's logits and caches, and whisper's encoder output."""
+        logits, caches = prefill(batch_)
+        return logits, caches, (encode(batch_["frames"]) if cfg.encoder_layers else None)
+
+    # the main path: one request, prefill then greedy decode
+    torch.cuda.reset_peak_memory_stats()
+    kern.reset_launch_counts()
+    with db.activate():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches, enc = start(batch)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        per_prefill = kern.launch_counts()
+        prefill_logits, prefill_caches = logits, caches
+        out = [logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)]
+        step_s, per_step, steps_logits = [], [], [logits]
+        for step in range(steps):
+            c0 = kern.launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches = decode(out[-1], caches, s + vis + step, enc_out=enc)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            per_step.append({op: n - c0[op] for op, n in kern.launch_counts().items()})
+            steps_logits.append(logits)
+            out.append(logits[:, -1].argmax(-1, keepdim=True).to(torch.int32))
+    launches = kern.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    del caches
+    with db.activate():
+        busy = device_busy(torch, lambda: decode(out[0], prefill_caches, s + vis, enc_out=enc))
+    idle = None
+    if busy is None:
+        log("  decode step under torch.profiler: no device time recorded; idle share not measured")
+    else:
+        wall, dev_ms, host, devops = busy
+        idle = 1 - dev_ms / wall
+        log(f"  decode step under torch.profiler: wall {wall:.2f} ms, device busy {dev_ms:.2f} ms "
+            f"(idle share at most {idle:.3f}); most host time: "
+            + "; ".join(f"{k} {ms:.2f} ms x{n}" for k, ms, n in host)
+            + "; most device time: " + "; ".join(f"{k[:60]} {ms:.2f} ms x{n}" for k, ms, n in devops))
+    # a decode step reads every weight once, but of an untied input
+    # embedding only B rows
+    read = n_params - (0 if cfg.tie_embeddings else cfg.vocab * cfg.d_model)
+    floor_ms = read * 4 / HBM_BYTES_PER_S * 1e3
+    decode_ms = statistics.median(step_s[1:]) * 1e3
+    log(f"  prefill (B={b}, S={s}, vis {vis}{', the encoder twice: in the prefill and for enc_out' if enc is not None else ''}; "
+        f"first request, lowering included): {prefill_s * 1e3:.1f} ms")
+    log(f"  decode steps: {[t * 1e3 for t in step_s]} ms; per token: median of steps 2-{steps} "
+        f"{decode_ms:.2f} ms against its floor {floor_ms:.2f} ms (the weights a step reads, once: "
+        f"{read * 4} B at 3.35 TB/s); mean of all {steps} {statistics.mean(step_s) * 1e3:.2f} ms")
+    log(f"  peak device memory over the request: {peak} bytes ({peak / 2**30:.2f} GiB; weights "
+        f"{n_params * 4} bytes)")
+    toks = torch.cat(out, 1)
+    log(f"  greedy tokens: {toks.tolist()}")
+    log(f"  launches over the request: {launches}; per prefill: {per_prefill}; per decode step: "
+        f"{per_step[0]}")
+    for i, lg in enumerate(steps_logits):
+        if tuple(lg.shape) != (b, 1, cfg.vocab) or not bool(torch.isfinite(lg).all()):
+            raise AssertionError(f"logits of call {i}: shape {tuple(lg.shape)}, or not finite")
+    if int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab:
+        raise AssertionError("a token outside the vocabulary")
+    for op in GCN_KERNELS:
+        if per_prefill[op] <= 0 or any(st_[op] <= 0 for st_ in per_step):
+            raise AssertionError(f"{op}: its CUDA kernel did not launch in every call")
+    if launches["ssm_scan"]:
+        raise AssertionError("ssm_scan launched in an attention model")
+
+    # a second request of the same shapes: the warm prefill, and the same bits
+    with db.activate():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again, _ = prefill(batch)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+    same = torch.equal(again, prefill_logits)
+    log(f"  prefill, second request (warm): {warm_s * 1e3:.1f} ms; logits equal to the first "
+        f"request's: {same}")
+    if not same:
+        raise AssertionError("the second request's logits differ from the first's")
+    del again
+    # a third prefill and one decode step with the kernel calls logged by
+    # signature (the pass phase 8 times) and deepseek-v3's routing recorded
+    with Routing(torch, ffn) as routing:
+        routing.run()
+        with LaunchLog(torch) as serve_log, db.activate():
+            _, cc, ee = start(batch)
+            decode(out[0], cc, s + vis, enc_out=ee)
+        cuda_calls = routing.calls
+        del cc, ee
+        if n_moe:
+            sites = olmoe_check_sites(torch, engines, seen, db, serve_log)
+        else:
+            sites = check_lm_sites(engines, seen, db)
+        unchecked = set(serve_log.counts) - checked
+        if unchecked:
+            raise AssertionError(f"kernel calls at shapes phase 2 did not check: {sorted(unchecked)}")
+
+        # the same weights on the plain tier (torch.matmul, index_select and
+        # index_add_), deepseek-v3's MoE layer on the cuda run's routing
+        kern.reset_launch_counts()
+        routing.run(cuda_calls[:n_moe] if n_moe else None)
+        with repro_torch.Database(dispatch="torch").activate():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t_logits, t_caches = prefill(batch)
+            torch.cuda.synchronize()
+            t_prefill_s = time.perf_counter() - t0
+            t_steps = []
+            for step in range(steps if vis else 0):
+                lg, t_caches = decode(out[step], t_caches, s + vis + step)
+                t_steps.append(lg)
+        own = routing.own[:n_moe]
+    del t_caches
+    if sum(kern.launch_counts().values()):
+        raise AssertionError("the torch tier launched a CUDA kernel")
+    flips = sum(int(d.sum()) for d in routing_differences(torch, cuda_calls[:n_moe], own))
+    gap = logit_gap(prefill_logits, t_logits)
+    log(f"  prefill on the torch tier: {t_prefill_s * 1e3:.1f} ms; last-position logits: max|cuda - "
+        f"torch| / max|logit| = {gap:.3e} (limit {DENSE_TIER_LIMIT:g}); argmax equal: "
+        f"{torch.equal(t_logits[:, -1].argmax(-1), prefill_logits[:, -1].argmax(-1))}"
+        + (f"; the MoE layers on the cuda tier's routing (its own router chose otherwise for {flips} of "
+           f"{n_moe * b * s} (layer, token)s)" if n_moe else ""))
+    if not gap <= DENSE_TIER_LIMIT:
+        raise AssertionError("the prefill logits of the cuda and torch tiers differ")
+    del t_logits
+
+    if cfg.mla:
+        checks = dsv3_decode_checks(torch, model, blocks, db, tokens, make_prefill_step,
+                                    make_decode_step)
+    elif cfg.encoder_layers:
+        # the caches carried through every decode step: the last step
+        # against a prefill over the prompt and every fed token; the same
+        # chain with two requests' encoder rows swapped must exceed the limit
+        fed = dict(batch, tokens=torch.cat([tokens] + out[:steps], 1))
+        with db.activate():
+            p_logits, _ = prefill(fed)
+            swap = torch.arange(b, device=dev)
+            swap[:2] = swap[:2].flip(0)
+            lg, cc = steps_logits[0], prefill_caches
+            for step in range(steps):
+                lg, cc = decode(out[step], cc, s + step, enc_out=enc[swap])
+        checks = {"decode": logit_gap(steps_logits[-1], p_logits),
+                  "planted: two requests' encoder rows swapped": logit_gap(lg, p_logits)}
+        del cc, p_logits, lg
+    else:
+        # each decode step against the torch tier's, fed the same tokens;
+        # the same chain with one K row lost (layer 0, the prompt's last
+        # position) must exceed the limit
+        checks = {"decode": max(logit_gap(g, w) for g, w in zip(steps_logits[1:], t_steps))}
+        bad = [{"scan": list(stc["scan"]), "tail": stc["tail"]} for stc in prefill_caches]
+        entry = dict(bad[0]["scan"][0])
+        key = next(iter(entry))
+        k = entry[key]["kv"]["k"].clone()
+        k[:, s + vis - 1] = 0
+        entry[key] = {"kv": {**entry[key]["kv"], "k": k}}
+        bad[0]["scan"][0] = entry
+        with db.activate():
+            lg, cc = None, bad
+            worst = 0.0
+            for step in range(steps):
+                lg, cc = decode(out[step], cc, s + vis + step)
+                worst = max(worst, logit_gap(lg, t_steps[step]))
+        checks["planted: layer 0's K row of the prompt's last position lost"] = worst
+        del bad, entry, k, cc, lg, t_steps
+    what = "the torch tier's decode steps" if vis else "a longer prefill"
+    log(f"  decode against {what}, max|Δ| / max|logit| (limit {DENSE_DECODE_LIMIT:g}; a planted "
+        f"fault must exceed it): {checks}")
+    for name_, g in checks.items():
+        planted = name_.startswith("planted")
+        if planted and g <= DENSE_DECODE_LIMIT:
+            raise AssertionError(f"the decode limit passes a fault ({name_})")
+        if not planted and not g <= DENSE_DECODE_LIMIT:
+            raise AssertionError(f"decode differs: {name_} {g:.3e}")
+    del prefill_logits, prefill_caches, steps_logits, enc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {
+        "launches": launches, "sites": sites, "log": serve_log, "pass": dict(serve_log.counts),
+        "per_prefill": per_prefill, "per_step": per_step[0], "layers": cfg.n_layers,
+        "prefill_ms": prefill_s * 1e3, "warm_prefill_ms": warm_s * 1e3, "decode_ms": decode_ms,
+        "decode_floor_ms": floor_ms, "peak": peak, "idle": idle, "checks": checks,
+    }, model
+
+
+def dsv3_decode_checks(torch, model, blocks, db, tokens, make_prefill_step, make_decode_step):
+    """deepseek-v3's decode against a longer prefill: the first
+    DSV3_CHECK_PROMPT tokens of the request's prompts under capacity_factor
+    = n_experts / top_k (no drops), two greedy decode steps through the
+    latent cache, each against a prefill over the prompt and the tokens fed
+    so far; then the first step planted to leave its new c (or r) row out
+    of the cache it passes on, and the second step against the same
+    prefill."""
+    import dataclasses
+
+    cfg, s = model.cfg, DSV3_CHECK_PROMPT
+    real = blocks.mla_apply
+    model.cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+    try:
+        prompt = tokens[:, :s].contiguous()
+        prefill, decode = make_prefill_step(model, s + 2, db=db), make_decode_step(model, db=db)
+        logits, caches = prefill({"tokens": prompt})
+        fed, steps, cc = [logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)], [], caches
+        for i in range(2):
+            lg, cc = decode(fed[-1], cc, s + i)
+            steps.append(lg)
+            fed.append(lg[:, -1].argmax(-1, keepdim=True).to(torch.int32))
+        checks = {}
+        for i in range(2):
+            want, _ = prefill({"tokens": torch.cat([prompt] + fed[:i + 1], 1)})
+            checks[f"decode step {i + 1}"] = logit_gap(steps[i], want)
+        for lost in ("c", "r"):
+            def dropping(p, x, ctx, lost=lost):
+                y, cache = real(p, x, ctx)
+                return y, dict(cache, **{lost: ctx["cache"][lost]})
+
+            blocks.mla_apply = dropping
+            try:
+                _, bad = decode(fed[0], caches, s)
+            finally:
+                blocks.mla_apply = real
+            lg, _ = decode(fed[1], bad, s + 1)
+            checks[f"planted: the first step's new {lost} rows lost"] = logit_gap(lg, want)
+    finally:
+        model.cfg = cfg
+        blocks.mla_apply = real
+    return checks
 
 
 # ---------------------------------------------------------------------------
@@ -4302,7 +4808,13 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, d
                     f"(phase 16), one gemma3-4b request of a prefill and {GEMMA3_DECODE} decode "
                     f"steps and the endpoint's burst of {len(GEMMA3_ENDPOINT_BUDGETS)} requests "
                     f"(phase 17), one llama3-405b request of a prefill and {LLAMA3_DECODE} decode "
-                    "steps (phase 18); "
+                    f"steps (phase 18), one deepseek-v3-671b request of a prefill and {DSV3_DECODE} "
+                    f"decode steps (phase 19), one whisper-small request of a prefill, its encoder "
+                    f"output and {WHISPER_DECODE} decode steps, the endpoint's burst of "
+                    f"{len(WHISPER_ENDPOINT_BUDGETS)} requests and {WHISPER_TRAIN_STEPS} whisper train "
+                    f"steps under each of 'nothing' and 'dots' (phase 20), one qwen2-vl-72b request of "
+                    f"a prefill and {QWEN_DECODE} decode steps and the endpoint's burst of "
+                    f"{len(QWEN_ENDPOINT_BUDGETS)} requests (phase 21); "
                     "ms, plain_ms, bound_ms, library_ms: each site timed alone, times its "
                     "launches in one pass, summed over one GCN step, one logistic-regression "
                     "step, one NNMF step, one KGE step at each width, one prefill, one "
@@ -4312,8 +4824,11 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, d
                     "(olmoe_endpoint), zamba2's prefill and one decode step (zamba2_serve), "
                     "one falcon-mamba train step (falcon_train), gemma2's, gemma3's and llama3's "
                     "prefill and one decode step (gemma2_serve, gemma3_serve, llama3_serve), one "
-                    "gemma2 train step (gemma2_train) and the gemma3 endpoint's burst "
-                    "(gemma3_endpoint); 'paths' splits them; host_ms: "
+                    "gemma2 train step (gemma2_train), the gemma3 endpoint's burst "
+                    "(gemma3_endpoint), deepseek-v3's, whisper's and qwen2-vl's prefill and one "
+                    "decode step (deepseek_v3_serve, whisper_serve with the encoder, qwen2_vl_serve), "
+                    "one whisper train step (whisper_train) and the whisper and qwen2-vl endpoints' "
+                    "bursts (whisper_endpoint, qwen2_vl_endpoint); 'paths' splits them; host_ms: "
                     f"the host's time per call over {HOST_CALLS} calls without a synchronise, "
                     "summed the same way over the sites where it was taken (null: not taken)"),
             "paths": {path: {k: v for k, v in acc.items() if k not in ("bytes_ms", "ops_ms")}
@@ -5050,6 +5565,60 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"  phase 18: {time.perf_counter() - t0:.1f} s")
+
+    # phases 19-21 run before phase 8, which times their sites too; each
+    # frees its model before the next (deepseek-v3's 4 layers take 60.4 GB)
+    zoo_checked = zoo_checked_shapes()
+    log(f"phase 19: {DSV3_ARCH} serving at its published widths, {DSV3_LAYERS} layers")
+    t0 = time.perf_counter()
+    dense["deepseek_v3_serve"], model = zoo_serve_phase(
+        torch, repro_torch, kern, dsv3_config(), dev, zoo_checked,
+        DSV3_BATCH, DSV3_PROMPT, DSV3_DECODE, DSV3_PARAMS)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  phase 19: {time.perf_counter() - t0:.1f} s")
+
+    log(f"phase 20: {WHISPER_ARCH} at its published widths and depth: serving, db.endpoint, training")
+    t0 = time.perf_counter()
+    whisper_cfg = dense_config(WHISPER_ARCH)
+    dense["whisper_serve"], model = zoo_serve_phase(
+        torch, repro_torch, kern, whisper_cfg, dev, zoo_checked,
+        WHISPER_BATCH, WHISPER_PROMPT, WHISPER_DECODE, WHISPER_PARAMS)
+    frames = (whisper_cfg.enc_seq, whisper_cfg.d_model)
+    dense["whisper_endpoint"] = dense_endpoint_phase(
+        torch, repro_torch, kern, whisper_cfg, dev, model, zoo_checked, s=WHISPER_PROMPT,
+        new=WHISPER_ENDPOINT_NEW, budgets=WHISPER_ENDPOINT_BUDGETS,
+        bucket_sizes=WHISPER_ENDPOINT_BUCKETS,
+        make_batch=lambda t: {"tokens": t, "frames": seeded_rows(torch, dev, t, frames)})
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    dense["whisper_train"] = gemma2_train_phase(
+        torch, repro_torch, kern, whisper_train_config(), dev, zoo_checked, b=WHISPER_TRAIN_BATCH,
+        s=WHISPER_TRAIN_SEQ, n=WHISPER_TRAIN_STEPS, want_params=WHISPER_PARAMS,
+        names=("encoder.0.attn.wq", "stages.0.scan.0.0:dec.xattn.wk",
+               "stages.0.scan.11.0:dec.mlp.wo", "embed"),
+        remat_products=11)
+    log(f"  phase 20: {time.perf_counter() - t0:.1f} s")
+
+    log(f"phase 21: {QWEN_ARCH} serving at its published widths, {QWEN_LAYERS} layers, then "
+        "through db.endpoint")
+    t0 = time.perf_counter()
+    qwen_cfg = qwen_config()
+    dense["qwen2_vl_serve"], model = zoo_serve_phase(
+        torch, repro_torch, kern, qwen_cfg, dev, zoo_checked,
+        QWEN_BATCH, QWEN_PROMPT, QWEN_DECODE, QWEN_PARAMS)
+    patches = (qwen_cfg.vis_seq, qwen_cfg.d_model)
+    dense["qwen2_vl_endpoint"] = dense_endpoint_phase(
+        torch, repro_torch, kern, qwen_cfg, dev, model, zoo_checked, s=QWEN_PROMPT,
+        new=QWEN_ENDPOINT_NEW, budgets=QWEN_ENDPOINT_BUDGETS, bucket_sizes=QWEN_ENDPOINT_BUCKETS,
+        make_batch=lambda t: {"tokens": t, "patches": seeded_rows(torch, dev, t, patches)},
+        plant_swap=False)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  phase 21: {time.perf_counter() - t0:.1f} s")
 
     log("phase 8: timings at the shapes of the main paths")
     smi = subprocess.run(

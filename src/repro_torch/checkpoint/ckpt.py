@@ -7,7 +7,9 @@ pytree paths: ``params/<path>``, ``opt/mu/<path>``, ``opt/nu/<path>`` and
 ``opt/step``, where ``<path>`` is a parameter's name with "/" for "." and
 each stage's repeated superblocks stacked on a leading axis
 (``params/stages/0/scan/0:moe/attn/wq`` holds every repeat's ``wq``, the
-port's ``stages.0.scan.<r>.0:moe.attn.wq``). Arrays are copied to the host
+port's ``stages.0.scan.<r>.0:moe.attn.wq``), and whisper's encoder layers
+likewise (``params/encoder/attn/wq``, the port's ``encoder.<r>.attn.wq``).
+Arrays are copied to the host
 before writing. A bf16 tensor (llama3's Adam moments) is stored as the
 reference's numpy writes its bf16 arrays: 2-byte void entries holding the
 bf16 bits, which numpy alone cannot cast; restoring reads the bits back.
@@ -24,10 +26,13 @@ import torch
 
 def _ref_key(name: str) -> Tuple[str, Optional[int]]:
     """A parameter name's key in the reference's pytree, and its repeat
-    (None outside a stage's stacked superblocks)."""
+    (None outside a stage's stacked superblocks and the stacked encoder
+    layers)."""
     parts = name.split(".")
     if len(parts) > 4 and parts[0] == "stages" and parts[2] == "scan":
         return "/".join(parts[:3] + parts[4:]), int(parts[3])
+    if len(parts) > 2 and parts[0] == "encoder":
+        return "/".join(parts[:1] + parts[2:]), int(parts[1])
     return "/".join(parts), None
 
 

@@ -3,8 +3,7 @@
 A copy of the reference's ``repro/configs/base.py`` with the same field
 names, so a configuration crosses between the packages one to one. In this
 package ``ssm_pallas=True`` selects the hand-written CUDA selective-scan
-kernel (``kernels/ssm_scan``); the fields of the families it cannot build
-yet are kept so that every configuration still parses.
+kernel (``kernels/ssm_scan``).
 """
 
 from __future__ import annotations

@@ -95,13 +95,21 @@ def lm_params(model, jax_params: Mapping[str, Any]):
     """Load the reference's LM parameter pytree (numpy arrays, or anything
     ``np.asarray`` accepts) into ``model`` in place; returns the model.
     ``params["stages"][si]["scan"]``'s leading repeat axis is unstacked into
-    ``model.stages[si]["scan"][r]``. A parameter of the model that the
+    ``model.stages[si]["scan"][r]``, and whisper's ``params["encoder"]``
+    (stacked on a leading axis of ``encoder_layers``) into
+    ``model.encoder[r]``. A parameter of the model that the
     tree does not fill (one the reference's model lacks, which would keep
     its random value) raises, by name."""
     done: set = set()
     with torch.no_grad():
         for name, value in jax_params.items():
-            if name != "stages":
+            if name == "encoder":
+                layers = model.encoder
+                if _repeats(value) != len(layers):
+                    raise ValueError(f"encoder: {_repeats(value)} layers for {len(layers)}")
+                for r, layer in enumerate(layers):
+                    _assign(layer, _unstack(value, r), f"encoder[{r}]", done)
+            elif name != "stages":
                 _assign(getattr(model, name), value, name, done)
         for si, stage in enumerate(jax_params["stages"]):
             for r, sblock in enumerate(model.stages[si]["scan"]):

@@ -431,7 +431,7 @@ class Database:
         a Model instance (auto-registered; pass ``params=``). See
         ``repro_torch.serving.service.Endpoint`` for the keyword surface
         (``cache_len``, ``buckets``, ``decode_buckets``, ``tenants``,
-        ``max_queue``, ``max_new_tokens``, ``eos_token``)."""
+        ``max_queue``, ``max_new_tokens``, ``eos_token``, ``make_batch``)."""
         from repro_torch.serving.service import Endpoint
 
         return Endpoint(self, model, **kwargs)

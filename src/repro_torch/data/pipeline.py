@@ -1,6 +1,5 @@
-"""Synthetic data pipeline: deterministic token batches. The reference's
-modality stubs (frame/patch embeddings for audio/vlm backbones) wait for
-their slices.
+"""Synthetic data pipeline: deterministic token batches plus the
+modality-stub inputs (frame/patch embeddings) for audio/vlm backbones.
 
 The reference's numpy draws, in the same order, so one seed gives both
 packages the same tokens and labels; the arrays then go onto an explicit
@@ -17,19 +16,22 @@ from repro_torch.core.session import resolve_device
 
 
 def batch_for(cfg, batch: int, seq: int, rng: np.random.Generator, device=None) -> Dict:
-    """One training batch of tokens and labels for ``cfg``, on ``device``."""
+    """One training batch matching ``cfg``'s modality, on ``device``:
+    tokens and labels, whisper's ``frames`` (B, enc_seq, d_model) and
+    qwen2-vl's ``patches`` (B, vis_seq, d_model), standard normals drawn
+    in f32 and cast to ``cfg.dtype``."""
     dev = resolve_device(device, owner="repro_torch.data.batch_for")
 
     def put(a, dtype):
         return torch.as_tensor(a, device=dev).to(dtype)
 
-    if cfg.encoder_layers or cfg.vis_seq:
-        raise NotImplementedError(
-            "batch_for: audio frames (whisper) and image patches (qwen2-vl) are not "
-            "ported yet (ROADMAP.md, queue 1, item 6.4)"
-        )
     out = {"tokens": put(rng.integers(0, cfg.vocab, size=(batch, seq)), torch.int32)}
     out["labels"] = put(rng.integers(0, cfg.vocab, size=(batch, seq)), torch.int32)
+    dt = getattr(torch, cfg.dtype)
+    if cfg.encoder_layers:
+        out["frames"] = put(rng.normal(size=(batch, cfg.enc_seq, cfg.d_model)).astype(np.float32), dt)
+    if cfg.vis_seq:
+        out["patches"] = put(rng.normal(size=(batch, cfg.vis_seq, cfg.d_model)).astype(np.float32), dt)
     return out
 
 

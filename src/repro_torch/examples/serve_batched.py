@@ -31,9 +31,11 @@ import json
 import time
 
 import numpy as np
+import torch
 
 import repro_torch
 from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.data import batch_for
 from repro_torch.models import build_model
 
 
@@ -64,16 +66,29 @@ def main(argv=None) -> list:
     rng = np.random.default_rng(0)
     seq = args.prompt_len
 
+    # non-token inputs (frames/patches for encoder/vision archs) ride
+    # along via the endpoint's make_batch hook; token-only archs skip it
+    def make_batch(tokens):
+        full = batch_for(cfg, int(tokens.shape[0]), seq, rng, device=model.device)
+        full.pop("labels", None)
+        full["tokens"] = tokens
+        return full
+
+    needs_extra = bool(cfg.encoder_layers or cfg.vis_seq)
+
     db = repro_torch.Database(model.device, max_cache_entries=16)
     db.register_model("lm", model, dict(model.named_parameters()))   # -> lm@v1
     ep = db.endpoint(
         "lm",
-        cache_len=seq + args.gen,
+        cache_len=seq + (cfg.vis_seq or 0) + args.gen,
         buckets=[(1, seq), (2, seq), (args.requests, seq)],
+        make_batch=make_batch if needs_extra else None,
     )
 
     t0 = time.time()
-    ep.warmup()
+    ep.warmup(batch_fn=(lambda b, s: make_batch(torch.zeros((b, s), dtype=torch.int32,
+                                                            device=model.device)))
+              if needs_extra else None)
     print(f"arch={args.arch} ({args.preset})  device={model.device}  warmup "
           f"{time.time() - t0:.1f}s (prefill buckets "
           f"{sorted({(1, seq), (2, seq), (args.requests, seq)})}, decode buckets "

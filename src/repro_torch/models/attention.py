@@ -11,8 +11,9 @@ engine. ``scaled_dot_product_attention`` is not
 used: it has no logit softcap, and its masking is not the reference's
 additive ``NEG_INF`` bias, which the chunked path's recurrence relies on.
 As in the reference, every KV block is computed, also one the window
-masks whole. MLA (deepseek-v3) and the reference's ``scale`` argument wait
-for their slice (ROADMAP.md).
+masks whole. ``scale`` defaults to hd^-1/2; MLA (deepseek-v3, in
+``models/blocks.py``) passes (dn + dr)^-1/2 with its values padded to the
+query's head dim.
 """
 
 from __future__ import annotations
@@ -60,6 +61,7 @@ def attention(
     window: Optional[int] = None,
     logit_softcap: Optional[float] = None,
     chunk_size: Optional[int] = None,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
     """GQA attention; ``window`` masks the keys ``window`` or more positions
     behind a query (gemma's local layers). With ``chunk_size`` set and Sk
@@ -72,7 +74,7 @@ def attention(
     _, sk, hkv, _ = k.shape
     assert hq % hkv == 0
     groups = hq // hkv
-    scale = hd ** -0.5
+    scale = scale if scale is not None else hd ** -0.5
     qf = (q * scale).float().reshape(b, sq, hkv, groups, hd)
     kf = k.float()
     vf = v.float()
@@ -138,6 +140,7 @@ def decode_attention(
     *,
     window: Optional[int] = None,
     logit_softcap: Optional[float] = None,
+    scale: Optional[float] = None,
     align: str = "left",    # "right": valid entries occupy the last slots
 ) -> torch.Tensor:
     """Single-token decode against a cache; invalid and out-of-window
@@ -148,7 +151,7 @@ def decode_attention(
     b, _, hq, hd = q.shape
     _, s, hkv, _ = cache_k.shape
     groups = hq // hkv
-    scale = hd ** -0.5
+    scale = scale if scale is not None else hd ** -0.5
     qf = (q * scale).float().reshape(b, hkv, groups, hd)
     logits = torch.einsum("bhgd,bkhd->bhgk", qf, cache_k.float())
     logits = softcap(logits, logit_softcap)

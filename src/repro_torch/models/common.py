@@ -1,7 +1,6 @@
-"""Shared model primitives: norms, activations, RoPE, init, the blocks'
-two-operand einsum, and the module that holds a layer's parameters.
+"""Shared model primitives: norms, activations, RoPE / M-RoPE, init, the
+blocks' two-operand einsum, and the module that holds a layer's parameters.
 
-The reference's M-RoPE (``apply_mrope``) waits for qwen2-vl (ROADMAP.md).
 Initializers draw from an explicit ``torch.Generator`` on the target
 device, so a full-width model is made on the card and never on the host
 first; the draws differ from ``jax.random``'s, so tests carry the
@@ -10,9 +9,10 @@ reference's weights across (``convert.lm_params``).
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core import remat
@@ -53,6 +53,12 @@ def layer_norm(x, scale, bias, eps: float = 1e-5):
     var = torch.var(x, dim=-1, keepdim=True, correction=0)
     y = (x - mu) * torch.rsqrt(var + eps)
     return (y * scale + bias).to(dt)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default: the tanh approximation (``F.gelu``'s
+    default is the exact erf form)."""
+    return F.gelu(x, approximate="tanh")
 
 
 def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
@@ -111,6 +117,32 @@ def apply_rope(
     hd = x.shape[-1]
     freqs = rope_freqs(hd, theta, device=x.device)                 # (hd/2,)
     ang = positions[..., None].to(torch.float32) * freqs          # (B,S,hd/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(
+    x: torch.Tensor,                # (B, S, H, hd)
+    positions: torch.Tensor,        # (B, 3, S) integer: t/h/w position triplets
+    sections: Tuple[int, int, int],  # frequency pairs per axis
+    theta: float = 1_000_000.0,
+) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE: the rotary spectrum's hd/2 frequency pairs
+    split into three sections, rotated by the temporal, height and width
+    positions [arXiv:2409.12191]. As the reference's ``jnp.repeat(...,
+    total_repeat_length=hd // 2)``, sections summing past hd/2 are cut and
+    ones short of it extended by the last section."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freqs = rope_freqs(hd, theta, device=x.device)                # (hd/2,)
+    sec = torch.repeat_interleave(torch.arange(3, device=x.device),
+                                  torch.tensor(sections, device=x.device))
+    sec = torch.cat([sec, sec[-1:].expand(max(0, half - sec.numel()))])[:half]
+    posf = positions.to(torch.float32)[:, sec, :]                 # (B, hd/2, S)
+    ang = posf.transpose(1, 2) * freqs                            # (B, S, hd/2)
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)

@@ -39,10 +39,12 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, dtype=torch.float32)
     )
 
 
-def mlp_apply(p, x):
+def mlp_apply(p, x, activation=F.silu):
+    """The gated MLP: ``activation(x·wi_gate) * (x·wi_up)``, then ``wo``
+    (whisper passes ``common.gelu``)."""
     g = rel_linear(x, p["wi_gate"])
     u = rel_linear(x, p["wi_up"])
-    return rel_linear(F.silu(g) * u, p["wo"])
+    return rel_linear(activation(g) * u, p["wo"])
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""Model assembly: config → staged decoder, as an ``nn.Module``.
+"""Model assembly: config → staged decoder (+ optional encoder), as an
+``nn.Module``.
 
 Layers are grouped into *stages*; each stage is a repeating superblock
 (cfg.pattern) run ``repeats`` times, then its remainder layers
@@ -14,12 +15,13 @@ Parameters are made directly on the target device from an explicit
 falcon-mamba-7b) is never built on the host first. ``build_model`` runs on
 "cuda" unless the caller passes ``device="cpu"``.
 
-The port builds the reference's decoder-only families of one stage:
-olmoe, falcon-mamba, zamba2, gemma2/3 (tied embeddings, ``embed_scale``,
-the final softcap) and the llama-architecture configs. deepseek-v3
-(``first_k_dense``, MLA), whisper's encoder and qwen2-vl's M-RoPE and
-vision tokens wait for their slice (``_UNPORTED``; ROADMAP.md, queue 1,
-item 6.4).
+The port builds every family of the reference: olmoe, falcon-mamba,
+zamba2, gemma2/3 (tied embeddings, ``embed_scale``, the final softcap), the
+llama-architecture configs, deepseek-v3 (MLA, and a leading dense stage of
+``first_k_dense`` layers before the MoE stage), whisper (an encoder over
+the stubbed frame embeddings, whose output every decoder layer
+cross-attends to) and qwen2-vl (M-RoPE over t/h/w positions, and the
+stubbed patch embeddings as a prefix of the sequence).
 """
 
 from __future__ import annotations
@@ -38,12 +40,7 @@ from repro_torch.core.session import resolve_device
 from repro_torch.relational import rel_embed, rel_linear
 
 from .blocks import block_apply, block_init, shared_attn_init
-from .common import dense_init, einsum, embed_init, rms_norm, softcap
-
-
-#: config fields of the reference's other families; a config that sets one
-#: needs a module this slice does not port
-_UNPORTED = ("encoder_layers", "vis_seq", "mrope_sections", "first_k_dense", "mla")
+from .common import dense_init, einsum, embed_init, layer_norm, rms_norm, softcap
 
 
 @dataclass(frozen=True)
@@ -54,9 +51,14 @@ class Stage:
 
 
 def stages_of(cfg) -> List[Stage]:
-    """One stage: ``cfg.pattern`` repeated, then the remainder layers. The
-    reference's leading dense stage (``first_k_dense``, deepseek-v3) waits
-    for that model's slice."""
+    """One stage: ``cfg.pattern`` repeated, then the remainder layers; with
+    ``first_k_dense`` (deepseek-v3) two: that many dense-FFN layers, then
+    the MoE layers."""
+    if cfg.first_k_dense:
+        return [
+            Stage(("mla" if cfg.mla else "attn",), cfg.first_k_dense),
+            Stage(("mla_moe" if cfg.mla else "moe",), cfg.n_layers - cfg.first_k_dense),
+        ]
     pat = cfg.pattern
     reps = cfg.n_layers // len(pat)
     tail = pat[: cfg.n_layers % len(pat)]
@@ -101,7 +103,10 @@ class Model(nn.Module):
     of stage ``si`` (the reference's ``params["stages"][si]["scan"]`` with
     its leading repeat axis unstacked); ``stages[si]["tail"][i]`` a
     remainder layer; ``shared_attn`` zamba2's shared attention+MLP block,
-    present when a stage has a ``mamba2_attn`` layer. Caches have the same
+    present when a stage has a ``mamba2_attn`` layer; ``encoder[r]``
+    whisper's encoder layer ``r`` (the reference's ``params["encoder"]``,
+    stacked on a leading axis, unstacked), with ``enc_ln_s``/``enc_ln_b``
+    its final LayerNorm. Caches have the same
     layout: a list per stage of ``{"scan": [entry per repeat], "tail":
     [entry per layer]}``.
 
@@ -114,12 +119,6 @@ class Model(nn.Module):
 
     def __init__(self, cfg, device=None, seed: int = 0):
         super().__init__()
-        unported = [f for f in _UNPORTED if getattr(cfg, f)]
-        if unported:
-            raise NotImplementedError(
-                f"{cfg.name}: {', '.join(unported)} not ported yet "
-                "(ROADMAP.md, queue 1, item 6.4: the LM zoo)"
-            )
         dev = resolve_device(device, owner="repro_torch.models.Model")
         gen = torch.Generator(device=dev).manual_seed(seed)
         dt = getattr(torch, cfg.dtype)
@@ -132,6 +131,11 @@ class Model(nn.Module):
         self.has_shared = "mamba2_attn" in _all_kinds(self.stage_specs)
         if self.has_shared:
             self.shared_attn = shared_attn_init(gen, cfg)
+        if cfg.encoder_layers:
+            self.encoder = nn.ModuleList(block_init(gen, "enc", cfg)
+                                         for _ in range(cfg.encoder_layers))
+            self.enc_ln_s = nn.Parameter(torch.ones((cfg.d_model,), dtype=dt, device=dev))
+            self.enc_ln_b = nn.Parameter(torch.zeros((cfg.d_model,), dtype=dt, device=dev))
         self.stages = nn.ModuleList(
             nn.ModuleDict({
                 "scan": nn.ModuleList(
@@ -263,12 +267,44 @@ class Model(nn.Module):
             new_caches.append({"scan": scan_cache, "tail": tail_cache})
         return x, new_caches, aux_total
 
-    def _positions(self, b: int, s: int, length=None):
-        """(B, S) positions 0..S-1, or (B, 1) at ``length`` in decode (the
-        reference's M-RoPE branch waits for qwen2-vl)."""
+    def _encode(self, p, frames):
+        """Whisper's encoder over the stubbed frame embeddings (B, S_enc,
+        D): bidirectional layers without RoPE, then a LayerNorm. Outside
+        remat, as the reference's ``lax.scan`` over the stacked layers."""
+        cfg = self.cfg
+        ctx = {"cfg": cfg, "mode": "train", "positions": None, "cache": None}
+        x = frames
+        for lp in p["encoder"]:
+            x, _, _ = block_apply(lp, "enc", x, ctx)
+        return layer_norm(x, p["enc_ln_s"], p["enc_ln_b"], cfg.norm_eps)
+
+    def encode(self, frames, params: Optional[Mapping[str, torch.Tensor]] = None):
+        """The encoder's output for ``frames`` (B, S_enc, D), which
+        ``decode_step(..., enc_out=)`` takes (whisper)."""
+        return self._encode(self._tree(params), frames)
+
+    def _positions(self, b: int, s: int, length=None, vis: int = 0):
+        """(B, S) positions 0..S-1, or (B, 1) at ``length`` in decode. With
+        M-RoPE (qwen2-vl) (B, 3, S) t/h/w triplets: the ``vis`` patches of
+        the prefix on a √vis-wide grid at t = 0, the text after them at
+        grid, grid + 1, ... on all three axes; a decode step at ``length``
+        on all three. As in the reference, decode's position (``length``,
+        counting the patches) is not the one a longer prefill gives the
+        same token (ROADMAP.md §3)."""
+        dev = self.device
+        if self.cfg.mrope_sections:
+            if length is not None:
+                return torch.full((b, 3, 1), int(length), dtype=torch.int32, device=dev)
+            grid = max(1, round(vis ** 0.5))
+            idx = torch.arange(vis, dtype=torch.int32, device=dev)
+            text = grid + torch.arange(s - vis, dtype=torch.int32, device=dev)
+            pos = torch.stack([torch.cat([torch.zeros_like(idx), text]),
+                               torch.cat([idx // grid, text]),
+                               torch.cat([idx % grid, text])])
+            return pos[None].expand(b, 3, s)
         if length is not None:
-            return torch.full((b, 1), int(length), dtype=torch.int32, device=self.device)
-        return torch.arange(s, dtype=torch.int32, device=self.device)[None].expand(b, s)
+            return torch.full((b, 1), int(length), dtype=torch.int32, device=dev)
+        return torch.arange(s, dtype=torch.int32, device=dev)[None].expand(b, s)
 
     def _share(self, p, ctx) -> None:
         """zamba2's shared block as ``ctx["shared"]``, for every
@@ -276,43 +312,63 @@ class Model(nn.Module):
         if self.has_shared:
             ctx["shared"] = p["shared_attn"]
 
-    # -- entry points --------------------------------------------------------
-
-    def train_logits(self, batch: Dict[str, Any], params: Optional[Mapping[str, torch.Tensor]] = None):
-        """batch: tokens (B,S). Returns (logits (B,S,V) f32, aux), aux the
-        blocks' auxiliary losses summed (the MoE's load-balance loss; 0
-        for the other kinds)."""
-        p = self._tree(params)
+    def _inputs(self, p, batch, mode: str, **ctx):
+        """(x, ctx, vis) of a forward over ``batch``: the token embeddings,
+        after qwen2-vl's ``patches`` (B, Sv, D) where the batch has them
+        (vis = Sv, else 0); the block context, with whisper's encoder
+        output over ``frames``."""
+        cfg = self.cfg
         tokens = batch["tokens"]
         b, s = tokens.shape
         x = self._embed(p, tokens)
-        ctx = {"cfg": self.cfg, "mode": "train", "positions": self._positions(b, s), "cache": None}
+        vis = 0
+        if cfg.vis_seq and "patches" in batch:
+            vis = batch["patches"].shape[1]
+            x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
+            s += vis
+        ctx = dict(ctx, cfg=cfg, mode=mode, positions=self._positions(b, s, vis=vis), cache=None)
+        if cfg.encoder_layers:
+            ctx["enc_out"] = self._encode(p, batch["frames"])
         self._share(p, ctx)
+        return x, ctx, vis
+
+    # -- entry points --------------------------------------------------------
+
+    def train_logits(self, batch: Dict[str, Any], params: Optional[Mapping[str, torch.Tensor]] = None):
+        """batch: tokens (B,S) [+ frames (B,S_enc,D) | patches (B,Sv,D)].
+        Returns (logits (B,S,V) f32 over the text positions, aux), aux the
+        blocks' auxiliary losses summed (the MoE's load-balance loss; 0
+        for the other kinds)."""
+        p = self._tree(params)
+        x, ctx, vis = self._inputs(p, batch, "train")
         x, _, aux = self._run_stages(p, x, ctx, None)
-        return self._head(p, x), aux
+        return self._head(p, x[:, vis:]), aux
 
     def prefill(self, batch: Dict[str, Any], cache_len: int,
                 params: Optional[Mapping[str, torch.Tensor]] = None):
         """Logits of the last position (B,1,V) and the caches after the
-        prompt. ``cache_len`` sizes attention caches (the prompt's K/V
-        padded to it); the SSM state is O(1)."""
+        prompt (and qwen2-vl's patches before it). ``cache_len`` sizes
+        attention caches (the prompt's K/V padded to it); the SSM state is
+        O(1)."""
         p = self._tree(params)
-        tokens = batch["tokens"]
-        b, s = tokens.shape
-        x = self._embed(p, tokens)
-        ctx = {"cfg": self.cfg, "mode": "prefill", "positions": self._positions(b, s),
-               "cache": None, "cache_len": cache_len}
-        self._share(p, ctx)
+        x, ctx, _ = self._inputs(p, batch, "prefill", cache_len=cache_len)
         x, caches, _ = self._run_stages(p, x, ctx, None)
         return self._head(p, x[:, -1:]), caches
 
-    def decode_step(self, token, caches, length, params: Optional[Mapping[str, torch.Tensor]] = None):
+    def decode_step(self, token, caches, length, params: Optional[Mapping[str, torch.Tensor]] = None,
+                    *, enc_out: Optional[torch.Tensor] = None):
         """token: (B, 1) integer; caches from prefill (or the previous
-        step); length: count of valid cache entries (an int)."""
+        step); length: count of valid cache entries (an int); enc_out:
+        whisper's encoder output (``encode``), which every decoder layer
+        cross-attends to."""
+        if self.cfg.encoder_layers and enc_out is None:
+            raise ValueError(f"{self.cfg.name}: decode_step needs enc_out (Model.encode)")
         p = self._tree(params)
         x = self._embed(p, token)
         ctx = {"cfg": self.cfg, "mode": "decode",
                "positions": self._positions(token.shape[0], 1, length=length), "length": length}
+        if self.cfg.encoder_layers:
+            ctx["enc_out"] = enc_out
         self._share(p, ctx)
         x, caches, _ = self._run_stages(p, x, ctx, caches)
         return self._head(p, x), caches

@@ -1,7 +1,13 @@
 """Serving: batched prefill and single-token decode steps (serve.py), the
 bucketed prefill engine, and the async serving front door (service.py)."""
 
-from .serve import BucketedPrefill, init_cache, make_decode_step, make_prefill_step  # noqa: F401
+from .serve import (  # noqa: F401
+    BucketedPrefill,
+    init_cache,
+    make_decode_step,
+    make_encode_step,
+    make_prefill_step,
+)
 from .service import (  # noqa: F401
     Completion,
     DeadlineExceeded,

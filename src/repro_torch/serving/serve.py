@@ -14,9 +14,11 @@ right-aligned one of ``min(window, cache_len)`` positions, shifted left by
 each step; SSM layers carry (conv window, state): O(1) per step.
 zamba2's ``mamba2_attn`` layers carry both: their Mamba-2 state (``ssm2``)
 and the K/V cache of the shared attention block at that layer
-(``shared_kv``). MLA's compressed (c_kv, k_rope) cache (deepseek-v3) and
-whisper's decoder caches wait for their slice (ROADMAP.md, queue 1, item
-6.4).
+(``shared_kv``). MLA layers (deepseek-v3) carry the compressed cache:
+``{"c": (B, T, kv_lora_rank), "r": (B, T, rope_head_dim)}`` per position;
+whisper's decoder layers the K/V cache of their self-attention (the
+cross-attention recomputes its K/V from the encoder output, ``enc_out``,
+at every step and keeps none).
 
 ``BucketedPrefill`` is the session-backed bucketing engine underneath the
 serving front door: one prefill step per (batch, seq) bucket, held in a
@@ -48,13 +50,18 @@ from repro_torch.models.model import Model, stages_of
 
 def _attn_cache_entry(cfg, kind: str, batch: int, cache_len: int, device: torch.device):
     dt = getattr(torch, cfg.dtype)
+    if kind in ("mla", "mla_moe"):
+        return {"kv": {
+            "c": torch.zeros((batch, cache_len, cfg.kv_lora_rank), dtype=dt, device=device),
+            "r": torch.zeros((batch, cache_len, cfg.rope_head_dim), dtype=dt, device=device),
+        }}
 
     def kv(width=cache_len):
         shape = (batch, width, cfg.n_kv_heads, cfg.hd())
         return {"k": torch.zeros(shape, dtype=dt, device=device),
                 "v": torch.zeros(shape, dtype=dt, device=device)}
 
-    if kind in ("attn", "global", "moe"):
+    if kind in ("attn", "global", "moe", "dec"):
         return {"kv": kv()}
     if kind == "local":
         return {"kv": kv(min(cfg.window or cache_len, cache_len))}
@@ -84,11 +91,7 @@ def _attn_cache_entry(cfg, kind: str, batch: int, cache_len: int, device: torch.
         if kind == "mamba2_attn":
             entry["shared_kv"] = kv()
         return entry
-    raise NotImplementedError(
-        f"the cache of block kind {kind!r} is not ported yet: the port builds "
-        "attn, local, global, moe, mamba1, mamba2 and mamba2_attn (ROADMAP.md, queue 1, "
-        "item 6.4: mla, enc/dec)"
-    )
+    raise ValueError(f"unknown block kind {kind}")
 
 
 def init_cache(cfg, batch: int, cache_len: int, device=None):
@@ -136,22 +139,36 @@ def make_prefill_step(model: Model, cache_len: int, *, db=None):
     return prefill_step
 
 
+def make_encode_step(model: Model, *, db=None):
+    """``encode_step(frames, params=None) → enc_out`` without autograd:
+    whisper's encoder output (``Model.encode``), which each decode step
+    takes; ``params`` and ``db`` as in ``make_prefill_step``."""
+
+    def encode_step(frames, params=None):
+        with _session(db), torch.inference_mode():
+            return model.encode(frames, params)
+
+    return encode_step
+
+
 def make_decode_step(model: Model, *, db=None, on_trace: Optional[Callable[[], None]] = None):
-    """``decode_step(token, caches, length, params=None) → (logits (B,1,V),
-    caches)`` without autograd; ``params`` and ``db`` as in
-    ``make_prefill_step``. ``on_trace`` (internal; the serving telemetry
+    """``decode_step(token, caches, length, params=None, enc_out=None) →
+    (logits (B,1,V), caches)`` without autograd; ``params`` and ``db`` as
+    in ``make_prefill_step``; ``enc_out`` whisper's encoder output
+    (``make_encode_step``). ``on_trace`` (internal; the serving telemetry
     hook) is called at the step's first call: where the reference counts
     a jit trace per shape class, an eager step has one first call, and
     the serving front door builds one step per batch bucket."""
     traced = False
 
-    def decode_step(token, caches, length, params=None):
+    def decode_step(token, caches, length, params=None, enc_out=None):
         nonlocal traced
         if on_trace is not None and not traced:
             traced = True
             on_trace()
+        kw = {} if enc_out is None else {"enc_out": enc_out}
         with _session(db), torch.inference_mode():
-            return model.decode_step(token, caches, length, params=params)
+            return model.decode_step(token, caches, length, params=params, **kw)
 
     return decode_step
 
@@ -299,14 +316,26 @@ class BucketedPrefill:
             self._slice_cache_batch(caches, bsz, bucket[0]),
         )
 
-    def warmup(self, params, *, buckets=None) -> None:
-        """Run the given (default: all configured) buckets' steps once,
-        on a zero token batch on the session's device, before traffic
-        arrives."""
+    def warmup(self, params, *, buckets=None, batch_fn=None) -> None:
+        """Run the given (default: all configured) buckets' steps once
+        before traffic arrives. ``batch_fn(batch, seq)`` builds the
+        exemplar batch; the default is a zero token batch on the session's
+        device, which suits token-only models: an encoder-decoder or
+        vision config (reading ``frames`` / ``patches``) must pass
+        ``batch_fn``, or warmup raises ``ValueError`` naming what the
+        model reads."""
         todo = buckets if buckets is not None else (self.buckets or ())
         for b, s in todo:
             step = self._compiled((int(b), int(s)))
-            step({"tokens": torch.zeros((int(b), int(s)), dtype=torch.int32,
-                                        device=self.db.device)}, params)
+            ex = (batch_fn(int(b), int(s)) if batch_fn is not None else
+                  {"tokens": torch.zeros((int(b), int(s)), dtype=torch.int32, device=self.db.device)})
+            try:
+                step(ex, params)
+            except KeyError as e:
+                raise ValueError(
+                    f"warmup's default exemplar batch carries only 'tokens' but the model also "
+                    f"reads {e}; pass batch_fn=lambda b, s: {{...}} building the full input batch "
+                    "(e.g. repro_torch.data.batch_for)"
+                ) from e
         if self.db.device.type == "cuda":
             torch.cuda.synchronize(self.db.device)

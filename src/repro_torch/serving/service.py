@@ -48,21 +48,28 @@ arrive at a bucketed length. Tokens are decoded greedily (argmax). The
 endpoint runs on its session's device: each batch's prompts go there
 once, every step runs under ``db.activate()`` (the scheduler task may run
 in another context than the caller's), and each decode step reads its
-argmax row back, one synchronise a step. The reference's encoder-decoder
-and vision paths (``enc_out``, ``vis_seq``) wait for whisper and qwen2-vl
-(ROADMAP.md, queue 1, item 6.4).
+argmax row back, one synchronise a step.
+
+Encoder-decoder and vision models (whisper, qwen2-vl) read more than
+tokens: ``make_batch`` turns a group's (B, S) tokens into the prefill's
+batch (adding ``frames`` or ``patches``). For whisper, the encoder's
+output over the group's ``frames`` is computed once after the prefill,
+padded to the decode bucket and compacted with the slots, and handed to
+every decode step (``enc_out``); for qwen2-vl, decode starts at ``length =
+seq + vis_seq``, the prompt's tokens and the patches before them, as the
+reference's endpoint counts them.
 """
 
 from __future__ import annotations
 
 import asyncio
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from .serve import BucketedPrefill, make_decode_step, map_cache, pad_rows
+from .serve import BucketedPrefill, make_decode_step, make_encode_step, map_cache, pad_rows
 
 
 class ServingError(RuntimeError):
@@ -140,16 +147,15 @@ def _next_pow2(n: int) -> int:
     return p
 
 
-def _check_servable(model) -> None:
-    """Refuse a model whose serving reads encoder output or a vision
-    prefix: those paths are not ported."""
-    cfg = getattr(model, "cfg", None)
-    if cfg is not None and (getattr(cfg, "encoder_layers", 0) or getattr(cfg, "vis_seq", 0)):
-        raise NotImplementedError(
-            f"{getattr(cfg, 'name', 'this model')}: serving with encoder output "
-            "(enc_out) or a vision prefix (vis_seq) is not ported yet "
-            "(ROADMAP.md, queue 1, item 6.4: whisper and qwen2-vl)"
-        )
+def _decode_inputs(entry, db, batch, seq: int):
+    """(whisper's encoder output over the batch's ``frames`` or None, the
+    decode's first ``length``: ``seq`` plus the config's ``vis_seq``)."""
+    cfg = getattr(entry.model, "cfg", None)
+    enc_out = None
+    if cfg is not None and getattr(cfg, "encoder_layers", 0) and "frames" in batch:
+        enc_out = make_encode_step(entry.model, db=db)(batch["frames"], entry.params)
+    vis = int(getattr(cfg, "vis_seq", 0) or 0) if cfg is not None else 0
+    return enc_out, seq + vis
 
 
 class Endpoint:
@@ -191,6 +197,10 @@ class Endpoint:
         ``counters["serve"]["decode"]["eos_stops"]``) instead of
         decoding to its ``max_new_tokens`` budget. None (default)
         disables early stop.
+    make_batch:
+        optional ``tokens (B, S) → batch dict`` hook for models whose
+        prefill reads more than ``{"tokens": ...}`` (whisper's ``frames``,
+        qwen2-vl's ``patches``).
     """
 
     def __init__(
@@ -208,6 +218,7 @@ class Endpoint:
         max_queue: Optional[int] = 64,
         max_new_tokens: int = 16,
         eos_token: Optional[int] = None,
+        make_batch: Optional[Callable[[torch.Tensor], Dict[str, Any]]] = None,
     ):
         self.db = db
         self.cache_len = int(cache_len)
@@ -229,6 +240,7 @@ class Endpoint:
         self._max_queue = max_queue
         self._max_new_tokens = int(max_new_tokens)
         self._eos_token = None if eos_token is None else int(eos_token)
+        self._make_batch = make_batch
 
         self._default: Optional[Tuple[str, Optional[str]]] = None
         if model is None:
@@ -285,7 +297,6 @@ class Endpoint:
     def _prefill_for(self, entry) -> BucketedPrefill:
         pre = self._prefills.get(entry.key)
         if pre is None or pre.model is not entry.model:
-            _check_servable(entry.model)
             counters = self._serve["prefill"]
 
             def on_compile():
@@ -464,7 +475,8 @@ class Endpoint:
         tokens = torch.as_tensor(
             np.stack([r.tokens for r in reqs]), device=self.db.device
         )
-        logits, caches = pre.prefill(params, {"tokens": tokens})
+        batch = self._make_batch(tokens) if self._make_batch is not None else {"tokens": tokens}
+        logits, caches = pre.prefill(params, batch)
         c["batches"] += 1
         c["prefill"]["steps"] += 1
         if k > 1:
@@ -475,10 +487,12 @@ class Endpoint:
         for r, t in zip(reqs, first[:, 0].tolist()):
             r.generated.append(t)
 
-        length = seq
+        enc_out, length = _decode_inputs(entry, self.db, batch, seq)
         bucket = self._decode_bucket(k)
         tok = pad_rows(first, bucket)
         caches = _pad_cache_batch(caches, k, bucket)
+        if enc_out is not None:
+            enc_out = pad_rows(enc_out, bucket)
         slots: List[Optional[_Request]] = list(reqs) + [None] * (bucket - k)
 
         eos = self._eos_token
@@ -511,6 +525,8 @@ class Endpoint:
                 idx = (active + [active[0]] * (nb - len(active)))[:nb]
                 tok = tok[idx]
                 caches = _take_cache_batch(caches, idx, bucket)
+                if enc_out is not None:
+                    enc_out = enc_out[idx]
                 slots = [slots[i] for i in active] + [None] * (
                     nb - len(active)
                 )
@@ -520,7 +536,7 @@ class Endpoint:
             # coalesce into the next batch while this group decodes
             await asyncio.sleep(0)
             step = self._decode_exec(entry, bucket)
-            logits, caches = step(tok, caches, length, params)
+            logits, caches = step(tok, caches, length, params, enc_out)
             tok = logits.argmax(-1).to(torch.int32)
             row = tok[:, 0].tolist()  # the step's one read back
             for i, r in enumerate(slots):
@@ -551,12 +567,15 @@ class Endpoint:
         model: Optional[str] = None,
         version: Optional[str] = None,
         buckets: Optional[Sequence[Tuple[int, int]]] = None,
+        batch_fn: Optional[Callable[[int, int], Dict[str, Any]]] = None,
     ) -> None:
         """Build and run once the prefill buckets' steps and every decode
         bucket's before traffic arrives, so a warmed endpoint never builds
         a step on the request path —
         ``db.counters()["serve"]`` shows flat prefill/decode compile
-        counts under traffic afterwards."""
+        counts under traffic afterwards. ``batch_fn(batch, seq)`` builds
+        the exemplar batch, as in ``BucketedPrefill.warmup``: a model that
+        reads ``frames`` or ``patches`` needs it."""
         entry = self._resolve(tenant=tenant, model=model, version=version)
         pre = self._prefill_for(entry)
         todo = [
@@ -566,18 +585,22 @@ class Endpoint:
         if not todo:
             return
         params = entry.params
-        pre.warmup(params, buckets=todo)
+        pre.warmup(params, buckets=todo, batch_fn=batch_fn)
         b0, s0 = todo[0]
-        ex = {"tokens": torch.zeros((b0, s0), dtype=torch.int32, device=self.db.device)}
+        ex = (batch_fn(b0, s0) if batch_fn is not None else
+              {"tokens": torch.zeros((b0, s0), dtype=torch.int32, device=self.db.device)})
         _, caches = pre.prefill(params, ex)
+        enc_out, length = _decode_inputs(entry, self.db, ex, s0)
         for db_ in self.decode_buckets or [b0]:
             if db_ >= b0:
                 cb = _pad_cache_batch(caches, b0, db_)
+                eb = None if enc_out is None else pad_rows(enc_out, db_)
             else:
                 cb = _take_cache_batch(caches, list(range(db_)), b0)
+                eb = None if enc_out is None else enc_out[:db_]
             tok = torch.zeros((db_, 1), dtype=torch.int32, device=self.db.device)
             step = self._decode_exec(entry, db_)
-            step(tok, cb, s0, params)
+            step(tok, cb, length, params, eb)
         if self.db.device.type == "cuda":
             torch.cuda.synchronize(self.db.device)
 

@@ -915,3 +915,47 @@ def test_tied_head_train_step_embed_gradient_matches_the_torch_tier(cuda_device)
     scale = float(grads["torch"].abs().max())
     torch.testing.assert_close(grads["cuda"], grads["torch"], atol=1e-5 * scale, rtol=1e-5)
     kernels.reset_launch_counts()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "whisper-small", "qwen2-vl-72b"])
+def test_zoo_prefill_and_decode_on_the_card_match_the_cpu_run(cuda_device, arch):
+    """deepseek-v3 (3 layers: the stage boundary, MLA's latent cache),
+    whisper (the encoder's output fed to every decode step) and qwen2-vl
+    (the patches before the prompt, decode at seq + vis) reduced: a
+    prefill of 20 tokens and three decode steps on the card and on the CPU
+    from the same weights, logits and caches within 1e-5 of their largest
+    entries (products over K ≤ 2,048 in other f32 orders, the MoE's experts
+    chosen alike); every kernel launched on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import batch_for
+    from repro_torch.models import build_model
+    from repro_torch.serving import make_decode_step, make_encode_step, make_prefill_step
+    from repro_torch.serving.serve import map_cache
+
+    cfg = get_config(arch).reduced(**({"n_layers": 3} if arch.startswith("deepseek") else {}))
+    cpu = build_model(cfg, device="cpu", seed=0)
+    card = build_model(cfg, seed=1)
+    card.load_state_dict(cpu.state_dict())
+    batch = batch_for(cfg, 2, 20, np.random.default_rng(0), device="cpu")
+    batch.pop("labels")
+    runs = {}
+    for name, model, db, dev in (("cpu", cpu, repro_torch.Database(device="cpu"), "cpu"),
+                                 ("cuda", card, repro_torch.Database(), cuda_device)):
+        kernels.reset_launch_counts()
+        b = {k: v.to(dev) for k, v in batch.items()}
+        logits, caches = make_prefill_step(model, 20 + cfg.vis_seq + 3, db=db)(b)
+        enc = make_encode_step(model, db=db)(b["frames"]) if cfg.encoder_layers else None
+        out, decode = [logits], make_decode_step(model, db=db)
+        token = torch.tensor([[1], [2]], dtype=torch.int32, device=dev)
+        for step in range(3):
+            logits, caches = decode(token, caches, 20 + cfg.vis_seq + step, enc_out=enc)
+            out.append(logits)
+        leaves = []
+        map_cache(leaves.append, caches)
+        runs[name] = (out, leaves, kernels.launch_counts())
+    assert all(runs["cuda"][2][op] > 0 for op in ("blocked_matmul", "gather_join", "segment_sum"))
+    for got, want in zip(runs["cuda"][0] + runs["cuda"][1], runs["cpu"][0] + runs["cpu"][1]):
+        scale = max(1.0, float(want.abs().max()))
+        torch.testing.assert_close(got.cpu(), want, atol=1e-5 * scale, rtol=1e-5)
+    kernels.reset_launch_counts()

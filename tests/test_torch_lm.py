@@ -287,21 +287,41 @@ def test_entry_points_run_on_cuda_unless_asked(monkeypatch):
         init_cache(cfg, 1, 4)
 
 
-def test_unported_block_kinds_raise():
-    cfg = get_config("olmoe-1b-7b").reduced()
+def test_unknown_block_kinds_raise():
+    """Every kind of the reference builds; another raises ``ValueError``,
+    as the reference's ``block_init`` / ``block_apply`` do."""
     gen = torch.Generator().manual_seed(0)
-    for kind in ("mla", "enc"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            block_init(gen, kind, cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(dataclasses.replace(get_config("falcon-mamba-7b").reduced(), pattern=("enc",)),
+    for kind, arch in (("mla", "deepseek-v3-671b"), ("enc", "whisper-small"), ("dec", "whisper-small")):
+        assert "attn" in block_init(gen, kind, get_config(arch).reduced())
+    with pytest.raises(ValueError, match="unknown block kind"):
+        block_init(gen, "conv", get_config("olmoe-1b-7b").reduced())
+    with pytest.raises(ValueError, match="unknown block kind"):
+        build_model(dataclasses.replace(get_config("falcon-mamba-7b").reduced(), pattern=("conv",)),
                     device="cpu")
 
 
-@pytest.mark.parametrize("field, value", [
-    ("first_k_dense", 1), ("mla", True), ("encoder_layers", 2), ("mrope_sections", (8, 12, 12)),
+@pytest.mark.parametrize("field, arch", [
+    ("first_k_dense", "deepseek-v3-671b"), ("mla", "deepseek-v3-671b"),
+    ("encoder_layers", "whisper-small"), ("mrope_sections", "qwen2-vl-72b"),
 ])
-def test_configs_of_unported_families_raise(field, value):
-    cfg = dataclasses.replace(get_config("falcon-mamba-7b").reduced(), **{field: value})
-    with pytest.raises(NotImplementedError, match=field):
-        build_model(cfg, device="cpu")
+def test_configs_of_the_other_families_build_and_match_the_reference(field, arch):
+    """A config that sets ``field`` (the family that has it, reduced)
+    builds on the CPU and, with the reference's weights, gives the
+    reference's train logits (a batch from ``batch_for``, with its frames or
+    patches)."""
+    from repro.data import batch_for as jax_batch_for
+    from repro_torch.data import batch_for
+
+    cfg, jcfg = get_config(arch).reduced(), jax_get_config(arch).reduced()
+    assert getattr(cfg, field)
+    jmodel = jax_build_model(jcfg)
+    params = jax.tree.map(np.asarray, jmodel.init(jax.random.PRNGKey(0)))
+    model = convert.lm_params(build_model(cfg, device="cpu"), params)
+    jbatch = jax_batch_for(jcfg, 2, 6, np.random.default_rng(0))
+    batch = batch_for(cfg, 2, 6, np.random.default_rng(0), device="cpu")
+    with repro.Database(dispatch="ref").activate():
+        want, _ = jmodel.train_logits(params, jbatch)
+    with repro_torch.Database(device="cpu").activate(), torch.no_grad():
+        got, _ = model.train_logits(batch)
+    want = np.asarray(want)
+    np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL * max(1.0, np.abs(want).max()))

@@ -987,23 +987,42 @@ def test_serving_runs_on_cuda_unless_asked(monkeypatch):
     assert seen == [torch.device("cpu")]
 
 
-def test_encoder_and_vision_serving_wait_for_their_slice():
-    class _Cfg:
-        name, encoder_layers, vis_seq = "whisper-like", 2, 0
+def test_the_endpoint_serves_an_encoder_model():
+    """whisper reduced (2 encoder + 2 decoder layers) through the endpoint:
+    ``make_batch`` adds the frames, warmup takes them from ``batch_fn`` (and
+    without it names what the model reads), and a request's completion is
+    its solo run: prefill, the encoder's output, decode steps against it."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import make_decode_step, make_encode_step, make_prefill_step
 
-    class _Enc(_TinyLM):
-        cfg = _Cfg()
+    cfg = get_config("whisper-small").reduced()
+    model = build_model(cfg, device="cpu", seed=0)
+    frames = torch.randn(1, cfg.enc_seq, cfg.d_model, generator=torch.Generator().manual_seed(1))
+
+    def make_batch(tokens):
+        return {"tokens": tokens, "frames": frames.expand(tokens.shape[0], -1, -1)}
 
     db = repro_torch.Database(device="cpu")
-    db.register_model("enc", _Enc(), torch.tensor(1.0))
-    ep = db.endpoint("enc", cache_len=16, buckets=[(1, 8)])
-    with pytest.raises(NotImplementedError, match="item 6.4"):
-        asyncio.run(ep.submit(_prompts(1)[0]))
-    with pytest.raises(NotImplementedError, match="item 6.4"):
+    db.register_model("enc", model, {k: p.detach() for k, p in model.named_parameters()})
+    ep = db.endpoint("enc", cache_len=12, buckets=[(1, 8)], make_batch=make_batch)
+    with pytest.raises(ValueError, match="frames"):
         ep.warmup()
+    ep.warmup(batch_fn=lambda b, s: make_batch(torch.zeros((b, s), dtype=torch.int32)))
+    prompt = _prompts(1, seed=3)[0]
+    out = asyncio.run(ep.submit(prompt, max_new_tokens=4))
+    logits, caches = make_prefill_step(model, 12, db=db)(make_batch(torch.tensor(prompt)[None]))
+    enc = make_encode_step(model, db=db)(frames)
+    want = [int(logits[0, -1].argmax())]
+    for i in range(3):
+        logits, caches = make_decode_step(model, db=db)(
+            torch.tensor([[want[-1]]], dtype=torch.int32), caches, 8 + i, enc_out=enc)
+        want.append(int(logits[0, -1].argmax()))
+    assert out.token_ids.tolist() == want
 
 
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "falcon-mamba-7b", "zamba2-7b"])
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "falcon-mamba-7b", "zamba2-7b", "deepseek-v3-671b",
+                                  "whisper-small", "qwen2-vl-72b"])
 def test_serve_batched_example_on_the_cpu(arch, capsys):
     from repro_torch.examples import serve_batched
 
