@@ -162,7 +162,21 @@ Phases, in order; any failure stops the run with a non-zero exit:
    38.1 GB): 2 × (256 patches + 1,024 tokens) and 8 decode steps at length
    = seq + vis, each held to the torch tier's decode (the reference's
    positions equal no longer prefill), a lost K row planted; then 2
-   requests through ``db.endpoint`` with ``make_batch`` adding the patches.
+   requests through ``db.endpoint`` with ``make_batch`` adding the patches;
+22. (run after phase 21, before phase 8) certify the kernels statically and
+   hold the certificates to the card: at every kernel call shape phases
+   2-21 check (segment_sum's scan and sorted paths, blocked_matmul's tiled,
+   split and skinny paths, gather_join's 16-byte and element units,
+   ssm_scan's forward and reverse walks) the launch record of the C entry
+   point equals the launches of the kernel's contract model built from its
+   ``plan()``, with a model one column slab short planted; the registry and
+   every lowering the paths' engines recorded certify clean
+   (``certify_registry``, ``certify_kernels``, the sites counted); the GCN
+   step at ogbn-arxiv size on the ``sanitizer`` tier against the cuda tier
+   within phase 3's limits, with a racy and an out-of-bounds model planted
+   (each must raise the static certifier's code); ``db.explain``'s kernel
+   section on the SQL logistic regression; and phase 9's streamed
+   ogbn-products plan's certificate (``waves`` and ``coo`` ok).
 
 Device memory is freed between phases, so the NNMF step's peak and the
 language models' 1–60 GB of weights never meet. The last line of standard
@@ -1148,7 +1162,7 @@ def op_sites(table):
     return out
 
 
-def run_gcn(torch, repro_torch, data, params0, dispatch):
+def run_gcn(torch, repro_torch, data, params0, dispatch, steps=GCN_STEPS):
     from repro_torch.optim import adam_init, adam_update
     from repro_torch.relational import gcn_conv, rel_linear
 
@@ -1171,7 +1185,7 @@ def run_gcn(torch, repro_torch, data, params0, dispatch):
     # would count in the peak, at whatever moment the collector runs
     gc.collect()
     with db.activate():
-        for step in range(GCN_STEPS):
+        for step in range(steps):
             torch.cuda.synchronize()
             if step == 1:  # steady state: lowering and step-1 checks behind
                 torch.cuda.reset_peak_memory_stats()
@@ -1256,6 +1270,53 @@ def gcn_data(torch, np, repro_torch, dev):
     return data, params0, graph
 
 
+def hold_step1(torch, first, t_first, tier):
+    """Step 1 of the GCN on the cuda tier (``first``, as ``run_gcn`` keeps
+    it) against step 1 on the plain ``tier`` (``t_first``): the loss within
+    1e-5 relative, each weight gradient within GRAD_LIMIT rounding walks
+    (relu-mask flips taken out exactly), and a planted dropped node term
+    that the limit must catch."""
+    # same arithmetic, f32 sums in other orders (the kernel's
+    # chunks vs index_add_'s atomics, CUDA-core tiles vs cuBLAS). The loss: within 1e-5
+    # relative. Each weight gradient Xᵀ·G sums K = |V| terms, and both
+    # tiers take that product with torch.einsum; X and G differ between
+    # the tiers by a few roundings per entry, which moves the sum by far
+    # less than one rounding walk of K terms. One difference is not
+    # rounding: where a pre-relu value Z lies within rounding of 0, the
+    # tiers' relu masks differ, and the term of that entry of G is in one
+    # tier's sum and not in the other's. The check takes those terms out
+    # of the difference exactly and holds the rest to the rounding limit
+    dloss = abs(first["loss"] - t_first["loss"]) / abs(t_first["loss"])
+    log(f"  step 1 loss: cuda {first['loss']!r} {tier} {t_first['loss']!r} rel diff {dloss:.3e} (tol 1e-5)")
+    if dloss > 1e-5:
+        raise AssertionError(f"step-1 loss differs between the cuda and {tier} tiers")
+    dev = first["grads"]["w1"].device
+    for k, relu_after in (("w1", True), ("w2", False)):
+        g, t_g = first["grads"][k].double(), t_first["grads"][k].double()
+        x, z, dz = (t.to(dev).double() for t in t_first["layers"][k])
+        _, c_z, c_dz = (t.to(dev).double() for t in first["layers"][k])
+        limit = GRAD_LIMIT * rounding_walk(x.t(), dz)
+        diff = g - t_g
+        flips = 0
+        if relu_after:
+            flip = (z > 0) != (c_z > 0)
+            flips = int(flip.sum())
+            diff = diff - x.t() @ (flip * (c_dz - dz))
+        worst = excess(diff.abs(), limit)
+        log(f"  step 1 grad {k}: max|cuda - {tier}| = {float((g - t_g).abs().max()):.3e}, "
+            f"max|g| = {float(t_g.abs().max()):.3e}, {flips} relu-mask flips; without "
+            f"their terms, err/limit = {worst:.3e} (limit {GRAD_LIMIT}·√K·u·sqrt(X²ᵀG²) "
+            f"per entry, K = {NODES})")
+        if worst > 1.0:
+            raise AssertionError(f"step-1 gradient {k} differs between the cuda and {tier} tiers")
+        # the limit must fail a wrong gradient: drop the term of one node
+        i = int(((x.abs().sum(1)) * (c_dz.abs().sum(1))).argmax())
+        seen = excess((diff - x[i, :, None] * c_dz[i, None, :]).abs(), limit)
+        log(f"    planted fault (node {i}'s term dropped): err/limit={seen:.3e}, must exceed 1")
+        if seen <= 1.0:
+            raise AssertionError(f"the step-1 gradient limit passes a wrong gradient ({k})")
+
+
 def gcn_phase(torch, repro_torch, kern, data, params0):
     # the main path: default dispatch on the card (cuda tier, torch fallback)
     kern.reset_launch_counts()
@@ -1284,45 +1345,7 @@ def gcn_phase(torch, repro_torch, kern, data, params0):
     if sum(kern.launch_counts().values()):
         raise AssertionError("the torch tier launched a CUDA kernel")
     log(f"  torch tier losses: {t_losses}")
-    # step 1: same arithmetic, f32 sums in other orders (the kernel's
-    # chunks vs index_add_'s atomics, CUDA-core tiles vs cuBLAS). The loss: within 1e-5
-    # relative. Each weight gradient Xᵀ·G sums K = |V| terms, and both
-    # tiers take that product with torch.einsum; X and G differ between
-    # the tiers by a few roundings per entry, which moves the sum by far
-    # less than one rounding walk of K terms. One difference is not
-    # rounding: where a pre-relu value Z lies within rounding of 0, the
-    # tiers' relu masks differ, and the term of that entry of G is in one
-    # tier's sum and not in the other's. The check takes those terms out
-    # of the difference exactly and holds the rest to the rounding limit
-    dloss = abs(first["loss"] - t_first["loss"]) / abs(t_first["loss"])
-    log(f"  step 1 loss: cuda {first['loss']!r} torch {t_first['loss']!r} rel diff {dloss:.3e} (tol 1e-5)")
-    if dloss > 1e-5:
-        raise AssertionError("step-1 loss differs between the cuda and torch tiers")
-    dev = first["grads"]["w1"].device
-    for k, relu_after in (("w1", True), ("w2", False)):
-        g, t_g = first["grads"][k].double(), t_first["grads"][k].double()
-        x, z, dz = (t.to(dev).double() for t in t_first["layers"][k])
-        _, c_z, c_dz = (t.to(dev).double() for t in first["layers"][k])
-        limit = GRAD_LIMIT * rounding_walk(x.t(), dz)
-        diff = g - t_g
-        flips = 0
-        if relu_after:
-            flip = (z > 0) != (c_z > 0)
-            flips = int(flip.sum())
-            diff = diff - x.t() @ (flip * (c_dz - dz))
-        worst = excess(diff.abs(), limit)
-        log(f"  step 1 grad {k}: max|cuda - torch| = {float((g - t_g).abs().max()):.3e}, "
-            f"max|g| = {float(t_g.abs().max()):.3e}, {flips} relu-mask flips; without "
-            f"their terms, err/limit = {worst:.3e} (limit {GRAD_LIMIT}·√K·u·sqrt(X²ᵀG²) "
-            f"per entry, K = {NODES})")
-        if worst > 1.0:
-            raise AssertionError(f"step-1 gradient {k} differs between the tiers")
-        # the limit must fail a wrong gradient: drop the term of one node
-        i = int(((x.abs().sum(1)) * (c_dz.abs().sum(1))).argmax())
-        seen = excess((diff - x[i, :, None] * c_dz[i, None, :]).abs(), limit)
-        log(f"    planted fault (node {i}'s term dropped): err/limit={seen:.3e}, must exceed 1")
-        if seen <= 1.0:
-            raise AssertionError(f"the step-1 gradient limit passes a wrong gradient ({k})")
+    hold_step1(torch, first, t_first, "torch")
     # the cuda tier repeats its bits: a second run of the steps from the
     # same parameters ends with the same parameters, or the first value of
     # the step that differs is named
@@ -1393,12 +1416,15 @@ def logreg_phase(torch, repro_torch, kern, dev):
             grads.append(g["theta"].data.clone())
         return losses, grads, secs, kern.launch_counts()
 
-    def check_handle(handle, launches, what):
+    def check_handle(handle, launches, what, before=0):
+        """``before``: the handle's lowerings before its steps (db.explain
+        lowers the forward query once)."""
+        lowered = handle.lower_count - before
         log(f"  {what}: resolutions {handle.resolutions}")
-        log(f"  {what}: lowerings {handle.lower_count}; blocked_matmul launches "
+        log(f"  {what}: lowerings {lowered}; blocked_matmul launches "
             f"{launches['blocked_matmul']}")
-        if handle.lower_count != 1:
-            raise AssertionError(f"{what}: {handle.lower_count} lowerings for one signature")
+        if lowered != 1:
+            raise AssertionError(f"{what}: {lowered} lowerings for one signature")
         mm_tiers = [t for k, t in handle.resolutions.items() if k.startswith("blocked_matmul")]
         if not mm_tiers or set(mm_tiers) != {"cuda"} or launches["blocked_matmul"] <= 0:
             raise AssertionError(f"{what}: blocked_matmul did not run on the cuda tier: "
@@ -1426,6 +1452,7 @@ def logreg_phase(torch, repro_torch, kern, dev):
         log("    " + line)
     if not same_tree or report.errors:
         raise AssertionError("the SQL query differs from the FRA query, or db.check found an error")
+    before = sql.lower_count
     s_losses, s_grads, s_secs, s_launches = run(sql)
     same = s_losses == losses and all(torch.equal(a, b) for a, b in zip(s_grads, grads))
     log(f"  Database.sql: losses {s_losses}; all {LOGREG_STEPS} losses and θ gradients "
@@ -1433,7 +1460,7 @@ def logreg_phase(torch, repro_torch, kern, dev):
         f"{statistics.median(s_secs[1:]) * 1e3:.2f} ms")
     if not same:
         raise AssertionError("the SQL query's steps differ from the FRA query's")
-    check_handle(sql, s_launches, "Database.sql")
+    check_handle(sql, s_launches, "Database.sql", before)
     sites = [(s.key, s.op, s.tier, s.info_dict()) for s in handle.last.lowered.resolutions.sites]
     return {"launches": launches, "sql_launches": s_launches, "sites": sites}
 
@@ -5387,14 +5414,22 @@ def ooc_products(torch, repro_torch, kern, dev):
         raise AssertionError("products: the limits pass a wrong step")
     del bad
     ids = wave_ids(h, lambda: h.step(wrt=OOC_WRT), largest_wave(plan))
-    return launches, streamed_sites(h, ids, plan.num_waves)
+    # the static certificate of the streamed plan (phase 22 reads it): here,
+    # while the plan and its relations are alive
+    from repro_torch.analysis import certify
+
+    t0 = time.perf_counter()
+    cert = certify(h.last, {"Edge": db.get("Edge"), "Node": db.get("Node")})
+    cert = dict(cert.to_dict(), seconds=time.perf_counter() - t0, render=cert.render())
+    return launches, streamed_sites(h, ids, plan.num_waves), cert
 
 
 def oocore_phase(torch, repro_torch, kern, data, dev):
     """Phase 9: the launches of the three streamed runs (the in-core
     comparisons, the planted faults and phase 8's records not counted),
-    and per run its wave sites with their ids (``streamed_sites``)."""
-    launches, paths = {}, {}
+    per run its wave sites with their ids (``streamed_sites``), and the
+    products run's static certificate (``certificates``, for phase 22)."""
+    launches, paths, certificates = {}, {}, {}
     for what, path, run in (
             ("9.1 GCN at ogbn-arxiv size, 4 waves", "oocore_arxiv_step",
              lambda: ooc_arxiv(torch, repro_torch, kern, data, dev)),
@@ -5404,16 +5439,285 @@ def oocore_phase(torch, repro_torch, kern, data, dev):
              lambda: ooc_products(torch, repro_torch, kern, dev))):
         log(f"  {what}")
         t0 = time.perf_counter()
-        run_launches, paths[path] = run()
+        run_launches, paths[path], *cert = run()
+        if cert:
+            certificates[path] = cert[0]
         for op, k in run_launches.items():
             launches[op] = launches.get(op, 0) + k
         gc.collect()
         torch.cuda.empty_cache()
         log(f"  {what.split()[0]}: {time.perf_counter() - t0:.1f} s")
-    return {"launches": launches, "paths": paths}
+    return {"launches": launches, "paths": paths, "certificates": certificates}
 
 
 # ---------------------------------------------------------------------------
+
+
+# ---------------------------------------------------------------------------
+# Phase 22: static kernel certification, held to the card
+# ---------------------------------------------------------------------------
+
+
+def record_sites(lm_cfg):
+    """(op, info) of every kernel call shape phases 2-21 check, each once:
+    segment sums and gathers in f32 (and at the GCN's and the edge cases'
+    widths in bf16 and f16, whose units differ), the products, and the
+    scan at falcon-mamba's prefill, zamba2's prefill and falcon-mamba's
+    training, in both directions."""
+    out = {}
+
+    def add(op, **info):
+        out.setdefault((op, tuple(sorted(info.items(), key=lambda kv: kv[0]))), (op, info))
+
+    for e, d, seg_s, _ in segsum_shapes(lm_cfg):
+        add("segment_sum", nnz=e, dim=d, num_segments=seg_s, dtype="float32")
+    for e, n, d, _ in gather_shapes(lm_cfg):
+        add("gather_join", rows=e, num_rows=n, dim=d, dtype="float32")
+    for d in (FEAT, HIDDEN, 1, 3, 4, 130):
+        for dtype in ("bfloat16", "float16"):
+            add("segment_sum", nnz=EDGES + NODES, dim=d, num_segments=NODES, dtype=dtype)
+            add("gather_join", rows=EDGES + NODES, num_rows=NODES, dim=d, dtype=dtype)
+    for m, k, n, _ in matmul_cases(lm_cfg):
+        add("blocked_matmul", m=m, k=k, n=n, dtype="float32")
+    z = zamba2_config()
+    for b, seq, c, n in ((LM_BATCH, LM_PROMPT) + LM_SCAN,
+                         (ZAMBA2_BATCH, ZAMBA2_PROMPT, z.ssm_expand * z.d_model // z.ssm_head_dim,
+                          z.ssm_state * z.ssm_head_dim),
+                         (FALCON_TRAIN_BATCH, FALCON_TRAIN_SEQ) + LM_SCAN):
+        for reverse in (False, True):
+            add("ssm_scan", batch=b, seq=seq, channels=c, state=n, dtype="float32", reverse=reverse)
+    return list(out.values())
+
+
+def launch_record_checks(torch, kern, lm_cfg, dev):
+    """22.1: call each kernel at every site of ``record_sites`` and hold the
+    C entry point's launch record to the contract model's launches (a call
+    that launches nothing to a model of none); then plant a model one
+    column slab short, which must not match. Returns (sites, launches
+    compared) per op."""
+    import dataclasses
+
+    from repro_torch.analysis.kernelcheck import launch_mismatch
+    from repro_torch.core import kernels as K
+    from repro_torch.kernels.common import last_launches
+    from repro_torch.kernels.gather.ops import gather_rows_forward
+    from repro_torch.kernels.matmul.ops import blocked_matmul_forward
+    from repro_torch.kernels.segsum.ops import segment_sum_forward
+    from repro_torch.kernels.ssm_scan.ops import ssm_scan_forward
+
+    def call(op, info):
+        """Run the kernel at the site on inputs on the card (their values do
+        not change a launch); return (launched, aligned)."""
+        dt = getattr(torch, info["dtype"])
+        before = kern.launch_counts()[op]
+        aligned = True
+        if op == "segment_sum":
+            e, d, seg_s = info["nnz"], info["dim"], info["num_segments"]
+            msg = torch.empty((e, d), dtype=dt, device=dev)
+            seg = torch.arange(e, dtype=torch.int32, device=dev) % max(seg_s, 1)
+            aligned = msg.data_ptr() % 16 == 0
+            segment_sum_forward(msg, seg, seg_s)
+        elif op == "gather_join":
+            e, n, d = info["rows"], info["num_rows"], info["dim"]
+            table = torch.empty((n, d), dtype=dt, device=dev)
+            aligned = table.data_ptr() % 16 == 0
+            gather_rows_forward(table, torch.arange(e, dtype=torch.int32, device=dev) % max(n, 1))
+        elif op == "blocked_matmul":
+            m, k, n = info["m"], info["k"], info["n"]
+            blocked_matmul_forward(torch.empty((m, k), device=dev), torch.empty((k, n), device=dev))
+        else:
+            shape = (info["batch"], info["seq"], info["channels"] * info["state"], 1)
+            a = torch.empty(shape, device=dev)
+            ssm_scan_forward(a, torch.empty_like(a), info["reverse"])
+        return kern.launch_counts()[op] > before, aligned
+
+    per_op, paths, bad = {}, set(), []
+    for op, info in record_sites(lm_cfg):
+        launched, aligned = call(op, info)
+        site = dict(info, dtype=getattr(torch, info["dtype"]))
+        concrete = {} if op in ("blocked_matmul", "ssm_scan") else {"aligned": aligned}
+        record = last_launches() if launched else ()
+        miss = launch_mismatch(op, site, record, **concrete)
+        if miss:
+            bad.append(miss)
+        sites, compared = per_op.get(op, (0, 0))
+        per_op[op] = (sites + 1, compared + len(record))
+        paths.update(kernel.split(".")[0] + ("" if not kernel.startswith(("gather", "segsum_scan", "segsum_chunk"))
+                     else ("/16-byte" if kernel.endswith(".16") else "/element"))
+                     for kernel, _, _ in record)
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    for op, (sites, compared) in per_op.items():
+        log(f"  {op}: {sites} site shapes, {compared} launches held to the contract model")
+    log(f"  kernel paths launched: {sorted(paths)}")
+    for m in bad[:10]:
+        log("    MISMATCH " + m)
+    if bad:
+        raise AssertionError(f"{len(bad)} site(s) launched other than their contract model")
+    want = {"segsum_scan/16-byte", "segsum_scan/element", "segsum_chunk/16-byte", "segsum_chunk/element",
+            "segsum_starts", "segsum_combine", "gather/16-byte", "gather/element",
+            "matmul_tiled", "matmul_skinny", "matmul_reduce", "ssm_scan"}
+    if not want <= paths:
+        raise AssertionError(f"the checked sites miss kernel paths: {sorted(want - paths)}")
+    reverse = [s for op, s in record_sites(lm_cfg) if op == "ssm_scan" and s["reverse"]]
+    if not reverse:
+        raise AssertionError("no reverse walk of ssm_scan among the checked sites")
+    # planted: a model one column slab short of the launch at zamba2's
+    # embedding lookup (1,024 16-byte units a row: 8 slabs)
+    info = {"rows": 2, "num_rows": lm_cfg.vocab, "dim": lm_cfg.d_model, "dtype": torch.float32}
+    call("gather_join", dict(info, dtype="float32"))
+    good = K.kernel_contract("gather_join").grid_model(info)
+    short = dataclasses.replace(good, grid=(good.grid[0], good.grid[1] - 1))
+    planted = launch_mismatch("gather_join", info, last_launches(), model=short)
+    log(f"  planted fault (a model one column slab short): {planted or 'NOT caught'}")
+    if planted is None or launch_mismatch("gather_join", info, last_launches()) is not None:
+        raise AssertionError("the launch-record check passes a model one slab short")
+    return per_op
+
+
+def _seeded_models():
+    """The reference's seeded faults (tests/test_kernelcheck.py): a racy
+    grid and an out-of-bounds index map."""
+    from repro_torch.core.kernels import BlockModel, GridModel
+
+    def racy(info, **concrete):
+        return GridModel(
+            grid=(2, 2),
+            inputs=(BlockModel("msg", (256, 128), (128, 128), lambda i, j: (j, 0)),),
+            output=BlockModel("out", (256, 128), (128, 128), lambda i, j: (i, 0)),
+        )
+
+    def oob(info, **concrete):
+        return GridModel(
+            grid=(2,),
+            inputs=(BlockModel("msg", (256, 128), (128, 128), lambda i: (i + 1, 0)),),
+            output=BlockModel("out", (256, 128), (128, 128), lambda i: (i, 0)),
+        )
+
+    return (("racy grid", racy), ("out-of-bounds index map", oob))
+
+
+def certification_phase(torch, repro_torch, kern, data, params0, lm_cfg, oocore, dev):
+    """Phase 22: the launch records (22.1), the registry and every recorded
+    lowering certified (22.2), the GCN step on the sanitizer tier (22.3),
+    db.explain's kernel section (22.4) and phase 9's products certificate
+    (22.5). Returns the numbers PERF.md keeps."""
+    import dataclasses
+    import re
+
+    from repro_torch.analysis import certify_kernels, certify_registry, kernelcheck
+    from repro_torch.core import engine
+    from repro_torch.core import kernels as K
+    from repro_torch.examples.quickstart import LOGREG_SQL
+    from repro_torch.kernels.segsum import ops as segsum_ops
+
+    out = {}
+    log("  22.1 launch records against the contract models")
+    t0 = time.perf_counter()
+    out["records"] = launch_record_checks(torch, kern, lm_cfg, dev)
+    out["records_s"] = time.perf_counter() - t0
+    log(f"  22.1: {out['records_s']:.1f} s")
+
+    log("  22.2 the registry and every lowering the paths recorded")
+    t0 = time.perf_counter()
+    with repro_torch.Database().activate():
+        reg = certify_registry()
+    log(f"  certify_registry: {reg.render().splitlines()[0]}")
+    lowereds = [low for eng in list(engine._ENGINES.values()) for low in eng.lowerings
+                if low.dispatch.backend == "cuda"]
+    reports = [certify_kernels(low) for low in lowereds]
+    sites = sum(len(low.resolutions.sites) for low in lowereds)
+    tiers = sorted({s.tier for low in lowereds for s in low.resolutions.sites})
+    bad = [r for r in reports if not r.ok]
+    out["sites"], out["lowerings"] = sites, len(lowereds)
+    log(f"  certify_kernels: {len(lowereds)} lowerings on the card, {sites} dispatch sites "
+        f"(tiers {tiers}), {len(bad)} not clean")
+    for r in bad[:3]:
+        log("    " + r.render().replace("\n", "\n    "))
+    if not reg.ok or bad or not sites:
+        raise AssertionError("a dispatch site or the registry does not certify clean")
+    # one certify_kernels of the GCN step's lowerings (its gcn_conv and
+    # rel_matmul programs at ogbn-arxiv size): uncached (the memo of grid
+    # verdicts cleared), then cached on the Lowered
+    step_lows = [low for low in lowereds
+                 if any(("E=" + str(EDGES + NODES)) in s.site or ("m=" + str(NODES)) in s.site
+                        for s in low.resolutions.sites)]
+    kernelcheck._grid_verdict.cache_clear()
+    t1 = time.perf_counter()
+    for low in step_lows:
+        certify_kernels(low, recheck=True)
+    uncached = (time.perf_counter() - t1) * 1e6
+    t1 = time.perf_counter()
+    for low in step_lows:
+        certify_kernels(low)
+    cached = (time.perf_counter() - t1) * 1e6
+    step_sites = sum(len(low.resolutions.sites) for low in step_lows)
+    out["gcn_certify_us"] = (uncached, cached, len(step_lows), step_sites)
+    log(f"  certify_kernels over the GCN step's {len(step_lows)} lowerings ({step_sites} sites): "
+        f"{uncached:.1f} µs uncached, {cached:.1f} µs cached (host)")
+    log(f"  22.2: {time.perf_counter() - t0:.1f} s")
+
+    log("  22.3 the GCN step at ogbn-arxiv size on the sanitizer tier")
+    t0 = time.perf_counter()
+    kern.reset_launch_counts()
+    sdb, s_losses, _, s_first, _, _ = run_gcn(torch, repro_torch, data, params0, "sanitizer", steps=1)
+    if sum(kern.launch_counts().values()):
+        raise AssertionError(f"the sanitizer tier launched a kernel: {kern.launch_counts()}")
+    s_sites = op_sites(sdb.dispatch)
+    if not s_sites or {t for _, _, _, t, _ in s_sites} != {"sanitizer"}:
+        raise AssertionError(f"sites not on the sanitizer tier: {s_sites}")
+    _, c_losses, _, c_first, _, _ = run_gcn(torch, repro_torch, data, params0, None, steps=1)
+    log(f"  {len(s_sites)} sanitizer sites; step-1 loss: cuda {c_losses[0]!r}, sanitizer {s_losses[0]!r}")
+    hold_step1(torch, c_first, s_first, "sanitizer")
+    info = {"nnz": 512, "dim": 128, "num_segments": 128, "dtype": torch.float32}
+    gen = torch.Generator(device=dev).manual_seed(22)
+    msg = torch.randn(512, 128, device=dev, generator=gen)
+    seg = torch.randint(0, 128, (512,), device=dev, generator=gen, dtype=torch.int32)
+    real = segsum_ops.CONTRACT
+    for what, model in _seeded_models():
+        contract = dataclasses.replace(real, grid_model=model)
+        static = [d.code for d in kernelcheck.check_contract_grid("segment_sum", contract, [info])]
+        segsum_ops.CONTRACT = contract
+        try:
+            K._segsum_sanitizer(msg, seg, 128)
+            kind = None
+        except K.SanitizerError as exc:
+            kind = exc.kind
+        finally:
+            segsum_ops.CONTRACT = real
+        log(f"  planted {what}: the sanitizer raises {kind}, the static certifier reports {static}")
+        if kind is None or not static or kind != static[0]:
+            raise AssertionError(f"planted {what}: the sanitizer and the certifier disagree")
+    log(f"  22.3: {time.perf_counter() - t0:.1f} s")
+
+    log("  22.4 db.explain of the SQL logistic regression on the card")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(2)
+    db = repro_torch.Database()
+    db.put("Rx", torch.randn(LOGREG_ROWS, LOGREG_COLS, device=dev, generator=gen), keys=("row", "col"))
+    db.put("Ry", (torch.rand(LOGREG_ROWS, device=dev, generator=gen) > 0.5).float(), keys=("row",))
+    db.put("theta", torch.zeros(LOGREG_COLS, device=dev), keys=("col",))
+    text = db.explain(db.sql(LOGREG_SQL, wrt=("theta",)).query)
+    section = text.partition("kernel certification:")[2]
+    for line in ("kernel certification:" + section).splitlines():
+        log("    " + line)
+    found = re.search(r"(\d+) dispatch site\(s\): ok", section)
+    if not found or int(found.group(1)) == 0:
+        raise AssertionError("db.explain's kernel section is not ok with a nonzero site count")
+    del db
+    log(f"  22.4: {time.perf_counter() - t0:.1f} s")
+
+    log("  22.5 phase 9's streamed ogbn-products plan")
+    cert = oocore["certificates"]["oocore_products_step"]
+    for line in cert["render"].splitlines():
+        log("    " + line)
+    log(f"  certify(): {cert['seconds']:.2f} s; waves {cert['waves']}")
+    if not (cert["waves"]["ok"] and cert["coo"].get("ok", True) and cert["kernels"]["ok"]):
+        raise AssertionError("the streamed products plan does not certify")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -5619,6 +5923,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"  phase 21: {time.perf_counter() - t0:.1f} s")
+
+    # phase 22 runs after every path has run, before phase 8
+    log("phase 22: static kernel certification, held to the card")
+    t0 = time.perf_counter()
+    certification_phase(torch, repro_torch, kern, data, params0, lm_cfg, oocore, dev)
+    log(f"  phase 22: {time.perf_counter() - t0:.1f} s")
 
     log("phase 8: timings at the shapes of the main paths")
     smi = subprocess.run(

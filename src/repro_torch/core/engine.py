@@ -202,6 +202,11 @@ class Lowered:
         #: op[site] → tier decisions recorded during the lowering walk
         #: (a kernels.ResolutionLog: the dict plus per-site SiteRecords).
         self.resolutions = resolutions
+        #: analysis.kernelcheck.certify_kernels caches its CheckReport
+        #: here — the Lowered is already cached per (sig, dispatch,
+        #: rewrite) key, so kernel certification is computed at most once
+        #: per lowering and never on the execution hot path.
+        self._kernel_report = None
         self._compiled: Optional[Compiled] = None
 
     def compile(self) -> Compiled:

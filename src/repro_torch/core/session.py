@@ -572,10 +572,9 @@ class Database:
         check's diagnostics. Relations and their tracked statistics are
         sourced from the catalog exactly as ``forward``/``grad``/``step``
         would source them, so the verdicts shown are the ones a compiled
-        step takes. Purely observational. The reference's last section,
-        the kernel certifier's proof of the resolved dispatch sites, has
-        no counterpart in the port yet: its header is printed with a line
-        that says so."""
+        step takes, and the kernel certifier's proof of the dispatch sites
+        the lowering resolves (``analysis.kernelcheck.certify_kernels``,
+        skipped when the typed check fails). Purely observational."""
         q = _as_query(q)
         names = _base_names([q.root])
         env = {n: self.get(n) for n in names}
@@ -609,7 +608,27 @@ class Database:
         else:
             lines.append("  (none)")
         lines.append("kernel certification:")
-        lines.append("  (not ported yet: the port has no kernel certifier)")
+        if report.errors:
+            lines.append("  (skipped: typed check failed)")
+        else:
+            from ..analysis import kernelcheck as _kernelcheck
+
+            eng = _engine.engine_for(q, fuse_join_agg=self.fuse_join_agg)
+            low = eng.lower(
+                env,
+                dispatch=self.dispatch,
+                stats=stats,
+                rewrite=self.rewrite_rules,
+            )
+            kreport = _kernelcheck.certify_kernels(low)
+            sites = len(getattr(low.resolutions, "sites", ()))
+            lines.append(
+                f"  {sites} dispatch site(s): " + kreport.render().splitlines()[0]
+            )
+            if kreport.diagnostics:
+                lines += [
+                    "  " + ln for ln in kreport.render().splitlines()[1:]
+                ]
         return "\n".join(lines)
 
     # -- staged execution (the engine underneath) --------------------------

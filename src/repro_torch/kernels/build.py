@@ -24,6 +24,8 @@ from typing import Dict, List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("segsum.cu", "gather.cu", "matmul.cu", "ssm_scan.cu")
+#: headers the sources include (hashed with them)
+HEADERS = ("launch_record.h",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = ("-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v") + ARCH_FLAGS
 LIB_NAME = "librepro_torch_kernels.so"
@@ -58,7 +60,7 @@ def _digest(nvcc: str) -> str:
     h = hashlib.sha256()
     h.update(nvcc.encode())
     h.update(" ".join(FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
@@ -119,6 +121,8 @@ def library() -> ctypes.CDLL:
             for fn in (lib.repro_segsum_starts, lib.repro_segsum, lib.repro_gather,
                        lib.repro_matmul_f32, lib.repro_ssm_scan):
                 fn.restype = i32
+            lib.repro_last_launches.argtypes = [ctypes.POINTER(i32), i32]
+            lib.repro_last_launches.restype = i32
             lib.repro_error_string.argtypes = [i32]
             lib.repro_error_string.restype = ctypes.c_char_p
             _LIB = lib

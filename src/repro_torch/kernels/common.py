@@ -1,5 +1,6 @@
 """What every kernel wrapper shares: where a tensor sends a call, the checks
-before a launch, and the launch itself on PyTorch's current stream.
+before a launch, the launch itself on PyTorch's current stream, and the
+launch record of the last call (``last_launches``).
 
 A small call's cost is the host's, so the launch path holds only what a
 launch needs: each C entry point is bound once and kept here (no lock per
@@ -10,7 +11,8 @@ device is switched only when the tensor's is not the current one.
 
 from __future__ import annotations
 
-from typing import Dict
+import ctypes
+from typing import Dict, Tuple
 
 import torch
 
@@ -63,3 +65,35 @@ def launch(name: str, fn_name: str, on: torch.Tensor, *args) -> None:
             code = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if code:
         build.check(code, name)
+
+
+#: the launch record's kernel codes (csrc/launch_record.h, KernelCode)
+KERNEL_NAMES = {
+    1: "segsum_scan", 2: "segsum_starts", 3: "segsum_chunk", 4: "segsum_combine",
+    5: "gather", 6: "matmul_tiled", 7: "matmul_skinny", 8: "matmul_reduce", 9: "ssm_scan",
+}
+#: launches a record holds (kMaxLaunches) and ints per launch (kLaunchInts)
+_MAX_LAUNCHES, _LAUNCH_INTS = 4, 8
+
+Launch = Tuple[str, Tuple[int, int, int], Tuple[int, int, int]]
+
+
+def last_launches() -> Tuple[Launch, ...]:
+    """What the last kernel call launched, from the library's launch
+    record: ``(kernel, gridDim, blockDim)`` per launch in order, ``kernel``
+    being ``"<name>.<variant>"`` (the variant: a lane's unit in bytes for
+    the gather and the segment sum's sum kernels, the tile's columns for
+    the tiled product, the lanes per entry for the ordered reduce, 1 for
+    the scan's reverse walk, else 0) — what a contract's
+    ``core.kernels.model_launches`` gives for the call's site. Reading it
+    costs no synchronisation. Raises when a call launched more kernels
+    than the record holds."""
+    buf = (ctypes.c_int * (_MAX_LAUNCHES * _LAUNCH_INTS))()
+    n = build.library().repro_last_launches(buf, _MAX_LAUNCHES)
+    if n > _MAX_LAUNCHES:
+        raise RuntimeError(f"the last call made {n} launches; the record holds {_MAX_LAUNCHES}")
+    out = []
+    for i in range(n):
+        e = buf[i * _LAUNCH_INTS:(i + 1) * _LAUNCH_INTS]
+        out.append((f"{KERNEL_NAMES[e[0]]}.{e[1]}", tuple(e[2:5]), tuple(e[5:8])))
+    return tuple(out)

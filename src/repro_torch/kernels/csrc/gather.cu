@@ -27,6 +27,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch_record.h"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -74,8 +76,9 @@ int launch_shape(const void* table, const void* rows, void* out, long long num_o
   const long long groups = (num_out + static_cast<long long>(slots) * R - 1) / (slots * R);
   const long long slabs = (width + static_cast<long long>(lanes) * V - 1) / (lanes * V);
   if (groups > 2147483647LL || slabs > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  gather_kernel<U, V, R><<<dim3(static_cast<unsigned>(groups), static_cast<unsigned>(slabs)),
-                           dim3(lanes, slots), 0, stream>>>(
+  const dim3 grid(static_cast<unsigned>(groups), static_cast<unsigned>(slabs)), block(lanes, slots);
+  repro::record_launch(repro::kGather, static_cast<int>(sizeof(U)), grid, block);
+  gather_kernel<U, V, R><<<grid, block, 0, stream>>>(
       static_cast<const U*>(table), static_cast<const int*>(rows), static_cast<U*>(out),
       num_out, num_rows, width);
   return static_cast<int>(cudaGetLastError());
@@ -99,6 +102,7 @@ int launch(const void* table, const void* rows, void* out, long long num_out, in
 // (num_out, dim) contiguous; elements of elem_size bytes (4 or 2).
 extern "C" int repro_gather(const void* table, const void* rows, void* out, long long num_out,
                             int num_rows, int dim, int elem_size, void* stream) {
+  repro::record_begin();
   if (num_out < 0 || num_rows < 0 || dim < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (num_out == 0 || dim == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -55,6 +55,8 @@
 #include <atomic>
 #include <cstdint>
 
+#include "launch_record.h"
+
 namespace {
 
 constexpr int kSegLen = 512;     // K-segment length L: the summation order
@@ -403,6 +405,7 @@ cudaError_t launch_tiled(const float* a, const float* b, float* out, int m, int 
   const cudaError_t err =
       allow_smem(reinterpret_cast<const void*>(&matmul_tiled_kernel<CG, VA, VB>), bytes, done);
   if (err != cudaSuccess) return err;
+  repro::record_launch(repro::kMatmulTiled, Tile<CG>::kN, grid, dim3(kTThreads));
   matmul_tiled_kernel<CG, VA, VB><<<grid, kTThreads, bytes, st>>>(a, b, out, m, n, k, split);
   return cudaGetLastError();
 }
@@ -411,6 +414,7 @@ template <bool VA, bool VB>
 cudaError_t launch_product(bool tiled, const float* a, const float* b, float* out, int m, int n,
                            int k, int split, dim3 grid, cudaStream_t st) {
   if (!tiled) {
+    repro::record_launch(repro::kMatmulSkinny, 0, grid, dim3(kSThreads));
     matmul_skinny_kernel<VA, VB><<<grid, kSThreads, kSSmemBytes, st>>>(a, b, out, m, n, k, !split);
     return cudaGetLastError();
   }
@@ -428,6 +432,7 @@ cudaError_t launch_product(bool tiled, const float* a, const float* b, float* ou
 extern "C" int repro_matmul_f32(const void* a_, const void* b_, void* c_, void* workspace,
                                 long long workspace_bytes, int m, int n, int k,
                                 void* stream) {
+  repro::record_begin();
   if (m < 0 || n < 0 || k < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (m == 0 || n == 0) return 0;
   const float* a = static_cast<const float*>(a_);
@@ -470,6 +475,8 @@ extern "C" int repro_matmul_f32(const void* a_, const void* b_, void* c_, void* 
     const int lanes = nseg > kReduceLongChain ? 32 : 1;
     const long long blocks = (mn * lanes + kReduceThreads - 1) / kReduceThreads;
     const float* part = static_cast<const float*>(workspace);
+    repro::record_launch(repro::kMatmulReduce, lanes, dim3(static_cast<unsigned>(blocks)),
+                         dim3(kReduceThreads));
     if (lanes == 32)
       matmul_ordered_sum_kernel<32><<<static_cast<unsigned>(blocks), kReduceThreads, 0, st>>>(
           part, c, mn, nseg);

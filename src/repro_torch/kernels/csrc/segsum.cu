@@ -51,6 +51,12 @@
 
 #include <type_traits>
 
+#include "launch_record.h"
+
+namespace repro {
+LaunchRecord g_launch_record{};
+}  // namespace repro
+
 namespace {
 
 constexpr int kChunk = 256;   // L: terms per chunk of the summation order
@@ -410,8 +416,11 @@ int launch_v(const void* msg, const int* ids, const long long* perm, const int* 
   const int slabs_needed = (width + 32 * V - 1) / (32 * V);
   if (slabs_needed > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const unsigned slabs = static_cast<unsigned>(slabs_needed);
+  constexpr int kUnitBytes = N * static_cast<int>(sizeof(typename Elem<kType>::Bits));
   if (!perm) {
     const long long blocks = (static_cast<long long>(num_segments) + kWarps - 1) / kWarps;
+    repro::record_launch(repro::kSegsumScan, kUnitBytes, dim3(static_cast<unsigned>(blocks), slabs),
+                         dim3(kThreads));
     segsum_scan_kernel<kType, N, V><<<dim3(static_cast<unsigned>(blocks), slabs), kThreads, 0,
                                       stream>>>(msg, ids, out, num_edges, width, num_segments);
     return static_cast<int>(cudaGetLastError());
@@ -419,6 +428,8 @@ int launch_v(const void* msg, const int* ids, const long long* perm, const int* 
   const long long tiles = (num_edges + kChunk - 1) / kChunk;
   const long long blocks = (num_segments + tiles + kWarps - 1) / kWarps;
   if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  repro::record_launch(repro::kSegsumChunk, kUnitBytes, dim3(static_cast<unsigned>(blocks), slabs),
+                       dim3(kThreads));
   segsum_chunk_kernel<kType, N, V><<<dim3(static_cast<unsigned>(blocks), slabs), kThreads, 0,
                                      stream>>>(msg, perm, ids, starts, ws, out, num_edges, width,
                                                num_segments, tiles);
@@ -426,6 +437,9 @@ int launch_v(const void* msg, const int* ids, const long long* perm, const int* 
   if (code || tiles == 0) return code;
   const int dim = width * N;
   const unsigned dim_slabs = static_cast<unsigned>((dim + 31) / 32 < 65535 ? (dim + 31) / 32 : 65535);
+  repro::record_launch(repro::kSegsumCombine, 0,
+                       dim3(static_cast<unsigned>((tiles + kWarps - 1) / kWarps), dim_slabs),
+                       dim3(kThreads));
   segsum_combine_kernel<kType><<<dim3(static_cast<unsigned>((tiles + kWarps - 1) / kWarps), dim_slabs),
                                  kThreads, 0, stream>>>(ids, starts, ws, out, num_edges, dim,
                                                         num_segments, tiles);
@@ -462,9 +476,11 @@ int launch_t(const void* msg, const int* ids, const long long* perm, const int* 
 // starts (num_segments + 1,) int32.
 extern "C" int repro_segsum_starts(const void* sorted, long long num_edges, int num_segments,
                                    void* starts, void* stream) {
+  repro::record_begin();
   if (num_segments < 0 || num_edges < 0 || num_edges > 2147483647LL)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long blocks = (static_cast<long long>(num_segments) + 1 + 255) / 256;
+  repro::record_launch(repro::kSegsumStarts, 0, dim3(static_cast<unsigned>(blocks)), dim3(256));
   segsum_starts_kernel<<<static_cast<unsigned>(blocks), 256, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(sorted), num_edges, num_segments, static_cast<int*>(starts));
   return static_cast<int>(cudaGetLastError());
@@ -478,6 +494,7 @@ extern "C" int repro_segsum_starts(const void* sorted, long long num_edges, int 
 extern "C" int repro_segsum(const void* msg, const void* ids, const void* perm,
                             const void* starts, void* ws, void* out, long long num_edges,
                             int dim, int num_segments, int dtype, void* stream) {
+  if (!perm) repro::record_begin();  // the sorted path continues its starts call's record
   if (num_edges < 0 || dim < 0 || num_segments < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (dim == 0 || num_segments == 0) return 0;
   if (perm && (!starts || !ws)) return static_cast<int>(cudaErrorInvalidValue);
@@ -496,4 +513,15 @@ extern "C" int repro_segsum(const void* msg, const void* ids, const void* perm,
 
 extern "C" const char* repro_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// Copies the launch record of the last call (launch_record.h) into out, at
+// most cap launches of repro::kLaunchInts ints each; returns how many
+// launches the call made.
+extern "C" int repro_last_launches(int* out, int cap) {
+  const repro::LaunchRecord& r = repro::g_launch_record;
+  const int n = r.count < repro::kMaxLaunches ? r.count : repro::kMaxLaunches;
+  for (int i = 0; i < n && i < cap; ++i)
+    for (int j = 0; j < repro::kLaunchInts; ++j) out[i * repro::kLaunchInts + j] = r.entries[i][j];
+  return r.count;
 }

@@ -27,6 +27,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "launch_record.h"
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -82,6 +84,7 @@ int launch(const void* a, const void* b, void* h, long long batch,
   const long long total = batch * lanes;
   const long long blocks = (total + kThreads - 1) / kThreads;
   if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  repro::record_launch(repro::kSsmScan, reverse, dim3(static_cast<unsigned>(blocks)), dim3(kThreads));
   ssm_scan_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
       static_cast<const T*>(a), static_cast<const T*>(b), static_cast<T*>(h),
       total, seq, lanes, reverse);
@@ -95,6 +98,7 @@ int launch(const void* a, const void* b, void* h, long long batch,
 extern "C" int repro_ssm_scan(const void* a, const void* b, void* h,
                               long long batch, long long seq, long long lanes,
                               int dtype, int reverse, void* stream) {
+  repro::record_begin();
   if (batch <= 0 || seq <= 0 || lanes <= 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch<float>(a, b, h, batch, seq, lanes, reverse, s);

@@ -9,17 +9,19 @@ result returns without a launch. It is a ``torch.autograd.Function`` whose
 backward stays in the same tier: the cotangent of ``table`` is the
 scatter-add of ``g`` by ``rows``, i.e. the segment-sum kernel on the card.
 
-``plan`` mirrors the launch that ``repro_gather`` makes, so that the CPU
-tests can check that its grid covers every (row, column) once.
+``plan`` mirrors the launch that ``repro_gather`` makes, and ``CONTRACT``
+(core/kernels.py's vocabulary) models it for the static certifier
+(analysis/kernelcheck.py), the sanitizer tier and the card's launch record.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from ...core.kernels import BlockModel, GridModel, Interval, KernelContract, VjpPair
 from ..common import launch, on_cpu, require
 from .ref import gather_rows_ref
 
@@ -103,3 +105,84 @@ def gather_rows(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
 
 #: launches of the CUDA kernel since the count was last set to 0.
 gather_rows.launches = 0
+
+
+# -- contract ----------------------------------------------------------------
+
+
+def _row_span(rows: torch.Tensor, n: int, per_block: int, blocks: int):
+    """Per block of ``per_block`` consecutive output rows, the least and
+    the largest valid id it reads (-1, -1 where it reads none)."""
+    ids = rows.detach().to("cpu", torch.int64)
+    pad = blocks * per_block - ids.shape[0]
+    ids = torch.cat([ids, ids.new_full((pad,), -1)]).view(blocks, per_block)
+    valid = (ids >= 0) & (ids < n)
+    lo = torch.where(valid, ids, ids.new_full((), n)).min(1).values
+    hi = torch.where(valid, ids, ids.new_full((), -1)).max(1).values
+    return torch.where(lo == n, lo.new_full((), -1), lo).tolist(), hi.tolist()
+
+
+def _grid_model(info: Dict[str, Any], rows: Optional[torch.Tensor] = None,
+                aligned: bool = True, **concrete: Any) -> Optional[GridModel]:
+    """``repro_gather``'s launch: a block per (row group, column slab) of
+    ``plan``, over the (E, width) output in the plan's units; it reads its
+    group's ids and, for each valid one, that table row's slab. Statically
+    the table rows only lie in ``[0, N)`` (an Interval); the sanitizer
+    passes the concrete ``rows`` to sharpen each block's rows into the span
+    of the valid ids it reads (a block with none reads no table row)."""
+    e, n, d = int(info["rows"]), int(info["num_rows"]), int(info["dim"])
+    if e == 0 or d == 0:
+        return None  # an empty result returns before the launch
+    p = plan(e, d, ELEM_BYTES.get(info["dtype"], 4), aligned)
+    per_block, slab = p.slots * p.rows_per_thread, p.lanes * p.per_lane
+    if rows is not None:
+        lo, hi = _row_span(rows, n, per_block, p.grid[0])
+
+        def table_map(i, j):
+            return None if hi[i] < 0 else (Interval(lo[i], hi[i]), j)
+    else:
+        span = Interval(0, n - 1)
+
+        def table_map(i, j):
+            return None if n == 0 else (span, j)
+
+    return GridModel(
+        grid=p.grid,
+        inputs=(
+            BlockModel("rows", (e,), (per_block,), lambda i, j: (i,)),
+            BlockModel("table", (n, p.width), (1, slab), table_map),
+        ),
+        output=BlockModel("out", (e, p.width), (per_block, slab), lambda i, j: (i, j)),
+        kernel=f"gather.{p.unit}",
+        block=(p.lanes, p.slots, 1),
+    )
+
+
+def _vjp_info(info: Dict[str, Any]) -> Dict[str, Any]:
+    # dtable = Σ_e 1[rows_e == r]·g[e] — the segment-sum dispatch op
+    return {
+        "nnz": info["rows"],
+        "dim": info["dim"],
+        "num_segments": info["num_rows"],
+        "dtype": info["dtype"],
+    }
+
+
+#: the statically checkable contract of this package (proven by
+#: analysis.kernelcheck, cross-checked by the sanitizer tier, held to the
+#: launch record on the card).
+CONTRACT = KernelContract(
+    op="gather_join",
+    dtypes="floating",
+    accum_dtype="none",
+    masking=(
+        "row ids outside [0, N) (COO padding) are never read: the kernel "
+        "writes their output rows as zeros",
+        "the last row group and the last column slab are ragged: a lane "
+        "skips rows e >= E and units c >= width (no padding in memory)",
+        "an empty result (E = 0 or D = 0) returns before the launch",
+    ),
+    vjp="same-tier segment_sum of the cotangent by rows (dispatch op)",
+    vjp_pairs=(VjpPair("segment_sum", _vjp_info),),
+    grid_model=_grid_model,
+)

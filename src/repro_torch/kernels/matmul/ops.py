@@ -19,17 +19,20 @@ a taller one runs 128×128 tiles (128×64 for n ≤ 64) that carry the
 running total, or, when it has too few tiles to fill the card, is split
 over K in the same way.
 So a row's result is the same bits at m = 2 as among 2,050 rows, and a call
-repeats its bits.
+repeats its bits. ``CONTRACT`` (core/kernels.py's vocabulary) models each
+path's launches for the static certifier (analysis/kernelcheck.py), the
+sanitizer tier and the card's launch record.
 """
 
 from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import List, Tuple
+from typing import Any, Dict, List, Tuple
 
 import torch
 
+from ...core.kernels import AccumModel, BlockModel, GridModel, Interval, KernelContract, VjpPair
 from ..common import launch, on_cpu, require
 from .ref import SEG_LEN, matmul_ref
 
@@ -46,6 +49,9 @@ SPLIT_TILES, SPLIT_MAX_BYTES = 264, 256 << 20
 REDUCE_LONG_CHAIN = 64
 #: CUDA's limit on gridDim.x and on gridDim.y and z
 GRID_X_MAX, GRID_Y_MAX = 2**31 - 1, 65535
+#: threads of a tiled block (kTThreads), a skinny block (kSThreads) and a
+#: block of the ordered sum (kReduceThreads)
+TILED_THREADS, SKINNY_THREADS, REDUCE_THREADS = 256, 128, 256
 
 
 def segments(k: int) -> List[Tuple[int, int]]:
@@ -147,3 +153,120 @@ def blocked_matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 #: launches of the CUDA kernel (one per product, whatever grids it takes)
 #: since the count was last set to 0.
 blocked_matmul.launches = 0
+
+
+# -- contract ----------------------------------------------------------------
+
+
+def _reduce_model(m: int, n: int, p: Plan) -> GridModel:
+    """The ordered sum of the partials: ``lanes`` threads per entry of the
+    (m·n,) output, in order over its segments; a block's entries are
+    consecutive, so it reads the partials of an interval of rows."""
+    lanes = 32 if p.n_segments > REDUCE_LONG_CHAIN else 1
+    per = REDUCE_THREADS // lanes
+    nseg = p.n_segments
+
+    def ws_map(b):
+        return (0, Interval(b * per // n, min(((b + 1) * per - 1) // n, m - 1)), 0)
+
+    inputs = () if nseg == 0 else (BlockModel("ws", (nseg, m, n), (nseg, 1, n), ws_map),)
+    return GridModel(
+        grid=(p.reduce_blocks,),
+        inputs=inputs,
+        output=BlockModel("out", (m * n,), (per,), lambda b: (b,)),
+        kernel=f"matmul_reduce.{lanes}", block=(REDUCE_THREADS, 1, 1),
+    )
+
+
+def _grid_model(info: Dict[str, Any], **concrete: Any):
+    """The launches ``repro_matmul_f32`` makes for ``plan``'s path:
+
+    - tiled, not split: a block per (TILE_M rows, tile columns), its loop
+      over K's segments the innermost grid axis (the running total in
+      shared memory, stored once after the last segment);
+    - tiled, split: a block per (tile, segment) writing its segment's
+      partial into the (segments, m, n) workspace, then the ordered sum;
+    - skinny: a block per (segment, SLAB_N columns) over all m ≤
+      SKINNY_ROWS rows, into the workspace and the ordered sum — or, for
+      one segment, into the output directly; for K = 0 only the ordered
+      sum runs, writing zeros."""
+    m, k, n = int(info["m"]), int(info["k"]), int(info["n"])
+    if m == 0 or n == 0:
+        return None  # repro_matmul_f32 returns before any launch
+    p = plan(m, k, n)
+    nseg = p.n_segments
+    if p.path == "tiled":
+        tn = TILE_N // 2 if n <= NARROW_N else TILE_N
+        kind = f"matmul_tiled.{tn}"
+        block = (TILED_THREADS, 1, 1)
+        x = BlockModel("x", (m, k), (TILE_M, SEG_LEN), lambda i, j, s: (i, s))
+        y = BlockModel("y", (k, n), (SEG_LEN, tn), lambda i, j, s: (s, j))
+        if not p.split:
+            return GridModel(
+                grid=p.grid[:2] + (max(nseg, 1),),
+                inputs=() if k == 0 else (x, y),
+                output=BlockModel("out", (m, n), (TILE_M, tn), lambda i, j, s: (i, j)),
+                accumulator=AccumModel(axis=2, init_at=0, store="last"),
+                kernel=kind, block=block, loops=1,
+            )
+        product = GridModel(
+            grid=p.grid,
+            inputs=(x, y),
+            output=BlockModel("ws", (nseg, m, n), (1, TILE_M, tn), lambda i, j, s: (s, i, j)),
+            kernel=kind, block=block,
+        )
+        return (product, _reduce_model(m, n, p))
+    block = (SKINNY_THREADS, 1, 1)
+    x = BlockModel("x", (m, k), (SKINNY_ROWS, SEG_LEN), lambda s, j: (0, s))
+    y = BlockModel("y", (k, n), (SEG_LEN, SLAB_N), lambda s, j: (s, j))
+    if not p.split:
+        return GridModel(
+            grid=p.grid[:2],
+            inputs=(x, y),
+            output=BlockModel("out", (m, n), (SKINNY_ROWS, SLAB_N), lambda s, j: (0, j)),
+            kernel="matmul_skinny.0", block=block,
+        )
+    if nseg == 0:
+        return (_reduce_model(m, n, p),)
+    product = GridModel(
+        grid=p.grid[:2],
+        inputs=(x, y),
+        output=BlockModel("ws", (nseg, m, n), (1, SKINNY_ROWS, SLAB_N), lambda s, j: (s, 0, j)),
+        kernel="matmul_skinny.0", block=block,
+    )
+    return (product, _reduce_model(m, n, p))
+
+
+def _vjp_dx_info(info: Dict[str, Any]) -> Dict[str, Any]:
+    # dX = g @ Yᵀ: (m, n) @ (n, k)
+    return {"m": info["m"], "k": info["n"], "n": info["k"], "dtype": info["dtype"]}
+
+
+def _vjp_dy_info(info: Dict[str, Any]) -> Dict[str, Any]:
+    # dY = Xᵀ @ g: (k, m) @ (m, n)
+    return {"m": info["k"], "k": info["m"], "n": info["n"], "dtype": info["dtype"]}
+
+
+#: the statically checkable contract of this package (proven by
+#: analysis.kernelcheck, cross-checked by the sanitizer tier, held to the
+#: launch record on the card).
+CONTRACT = KernelContract(
+    op="blocked_matmul",
+    dtypes="floating",
+    accum_dtype="float32",
+    masking=(
+        "no operand is padded: the copies into shared memory zero-fill "
+        "the ragged edges of a and b, and a thread stores only rows < m "
+        "and columns < n",
+        "a warp whose rows or columns lie wholly outside c skips the "
+        "arithmetic; the workspace holds ceil(k / SEG_LEN) * m * n f32 "
+        "partials, each written by one block",
+        "m = 0 or n = 0 returns before any launch",
+    ),
+    vjp="two same-tier blocked matmuls: dX = g @ Yᵀ, dY = Xᵀ @ g (Fig. 4)",
+    vjp_pairs=(
+        VjpPair("blocked_matmul", _vjp_dx_info),
+        VjpPair("blocked_matmul", _vjp_dy_info),
+    ),
+    grid_model=_grid_model,
+)

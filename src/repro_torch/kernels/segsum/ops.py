@@ -23,16 +23,22 @@ the grids that ``repro_segsum`` launches:
   second grid over an f32 workspace.
 
 Every output row is written by the kernel, so the output is ``torch.empty``.
+``CONTRACT`` (core/kernels.py's vocabulary) models both paths' launches for
+the static certifier (analysis/kernelcheck.py), the sanitizer tier and the
+card's launch record; ``routing`` checks, on concrete ids, where the sorted
+path's chunk sums go.
 """
 
 from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Any, Dict, List, Tuple
 
+import numpy as np
 import torch
 
+from ...core.kernels import AccumModel, BlockModel, GridModel, KernelContract, VjpPair
 from ..common import launch, on_cpu, require
 from .ref import CHUNK, segment_sum_ref
 
@@ -45,6 +51,8 @@ SCAN_MAX_EDGES = 4096
 WARPS = 8
 #: CUDA's limit on gridDim.y
 GRID_Y_MAX = 65535
+#: threads of every segment-sum block (kThreads; repro_segsum_starts' 256 too)
+THREADS = 32 * WARPS
 
 
 @dataclass(frozen=True)
@@ -150,3 +158,182 @@ def segment_sum(msg: torch.Tensor, seg: torch.Tensor, num_segments: int) -> torc
 #: launches of the CUDA kernel (one per call, whatever grids it takes)
 #: since the count was last set to 0.
 segment_sum.launches = 0
+
+
+# -- contract ----------------------------------------------------------------
+
+ELEM_BYTES = {torch.float32: 4, torch.bfloat16: 2, torch.float16: 2}
+
+
+def _grid_model(info: Dict[str, Any], aligned: bool = True, **concrete: Any):
+    """The launches of ``plan``'s path, in the plan's units (a row of D
+    elements is ``width`` units):
+
+    - scan: one launch; a block per (WARPS output rows, column slab) reads
+      the ids THREADS at a time, the window loop being the innermost grid
+      axis (an f32 accumulator per warp, stored once after the last window);
+    - sorted: the starts (a thread per segment, S + 1 of them); the chunk
+      sums, a warp per chunk slot — slot s < S is segment s's chunk 0, slot
+      S + t the chunk that begins in tile t — over a (S + T, width) array
+      of chunk sums; the in-order combine, a warp per tile, reading them and
+      writing a (T, D) array of combined rows. Which slot goes to an output
+      row and which to the workspace depends on the ids: ``routing``."""
+    e, d, s = int(info["nnz"]), int(info["dim"]), int(info["num_segments"])
+    if d == 0 or s == 0:
+        return None  # repro_segsum returns before any launch
+    eb = ELEM_BYTES.get(info["dtype"], 4)
+    p = plan(e, d, s, eb, aligned)
+    width = d // p.unit
+    slab = 32 * p.per_lane
+    kind = f".{p.unit * eb}"
+    block = (THREADS, 1, 1)
+    if p.path == "scan":
+        windows = -(-e // THREADS)
+        inputs = () if e == 0 else (
+            BlockModel("seg", (e,), (THREADS,), lambda i, j, k: (k,)),
+            BlockModel("msg", (e, width), (THREADS, slab), lambda i, j, k: (k, j)),
+        )
+        return GridModel(
+            grid=p.grid + (max(windows, 1),),
+            inputs=inputs,
+            output=BlockModel("out", (s, width), (WARPS, slab), lambda i, j, k: (i, j)),
+            accumulator=AccumModel(axis=2, init_at=0, store="last"),
+            kernel="segsum_scan" + kind, block=block, loops=1,
+        )
+    t = p.tiles
+    starts = GridModel(
+        grid=(-(-(s + 1) // THREADS),),
+        inputs=(BlockModel("ids", (e,), (e,), lambda i: (0,)),),
+        output=BlockModel("starts", (s + 1,), (THREADS,), lambda i: (i,)),
+        kernel="segsum_starts.0", block=block,
+    )
+    chunks = GridModel(
+        grid=p.grid,
+        inputs=(
+            BlockModel("starts", (s + 1,), (s + 1,), lambda i, j: (0,)),
+            BlockModel("ids", (e,), (e,), lambda i, j: (0,)),
+            BlockModel("perm", (e,), (e,), lambda i, j: (0,)),
+            BlockModel("msg", (e, width), (e, slab), lambda i, j: (0, j)),
+        ),
+        output=BlockModel("chunk_sums", (s + t, width), (WARPS, slab), lambda i, j: (i, j)),
+        kernel="segsum_chunk" + kind, block=block,
+    )
+    cx, cy = p.combine_grid
+    reps = -(-d // (32 * cy))  # the combine's column loop: d += 32·gridDim.y
+    groups = -(-d // 32)
+    combine = GridModel(
+        grid=(cx, cy, reps),
+        inputs=(
+            BlockModel("starts", (s + 1,), (s + 1,), lambda i, j, r: (0,)),
+            BlockModel("chunk_sums", (s + t, width), (s + t, width), lambda i, j, r: (0, 0)),
+        ),
+        output=BlockModel(
+            "combined", (t, d), (WARPS, 32),
+            lambda i, j, r: (i, j + cy * r) if j + cy * r < groups else None,
+        ),
+        kernel="segsum_combine.0", block=block, loops=1,
+    )
+    return (starts, chunks, combine)
+
+
+def routing(seg, num_segments: int) -> Dict[str, np.ndarray]:
+    """Where the sorted path's writes go for these ids, as the kernels
+    decide it from the sorted ids and the starts: for each output row, how
+    many warps write it; for each workspace row, how many warps write it
+    and how many reads of the combine it serves (2·T rows, T = ceil(E /
+    CHUNK))."""
+    ids = np.sort(np.asarray(torch.as_tensor(seg).detach().cpu(), np.int64), kind="stable")
+    e, s = ids.shape[0], int(num_segments)
+    t = -(-e // CHUNK)
+    starts = np.searchsorted(ids, np.arange(s + 1), side="left")
+    st, en = starts[:-1], starts[1:]
+    long_ = en - st > CHUNK
+    out = np.zeros(s, np.int64)
+    ws_written = np.zeros(2 * t, np.int64)
+    ws_read = np.zeros(2 * t, np.int64)
+    out[~long_] += 1                                     # chunk 0 of a short segment
+    np.add.at(ws_written, 2 * (st[long_] // CHUNK) + 1, 1)  # chunk 0 of a long one
+    # the chunk c >= 1 that begins in tile u, as tile_head finds it
+    u = np.arange(t)
+    p = u * CHUNK
+    sp = ids[np.minimum(p, e - 1)] if e else np.zeros(0, np.int64)
+    ok = (sp >= 0) & (sp < s)
+    sp_safe = np.where(ok, sp, 0)
+    hst, hen = starts[sp_safe], starts[np.minimum(sp_safe + 1, s)]
+    c = np.where(ok, (p - hst + CHUNK - 1) // CHUNK, 0)
+    at = hst + c * CHUNK
+    head = ok & (hst != p) & (at < hen) & (at < p + CHUNK)
+    ws_written[2 * u[head]] += 1
+    # the combine: the warp of the tile where chunk 1 begins writes the row
+    first = head & (c == 1)
+    np.add.at(out, sp[first], 1)
+    for seg_s, a, b in zip(sp[first], hst[first], hen[first]):
+        chunks = -(-(b - a) // CHUNK)
+        ats = a + np.arange(chunks) * CHUNK
+        np.add.at(ws_read, 2 * (ats // CHUNK) + (np.arange(chunks) == 0), 1)
+    return {"out": out, "ws_written": ws_written, "ws_read": ws_read}
+
+
+def _routing_check(info: Dict[str, Any], seg=None, **concrete: Any) -> List[Tuple[str, str]]:
+    """On concrete ids of a sorted-path site: every output row written by
+    exactly one warp (``grid-race`` / ``grid-uncovered``), no workspace row
+    written twice (``grid-race``), every workspace row the combine reads
+    written exactly once (``uninit-accumulator``)."""
+    e, d, s = int(info["nnz"]), int(info["dim"]), int(info["num_segments"])
+    if seg is None or d == 0 or s == 0 or e <= SCAN_MAX_EDGES:
+        return []
+    r = routing(seg, s)
+    viols = []
+    if (r["out"] > 1).any():
+        row = int(np.argmax(r["out"] > 1))
+        viols.append(("grid-race", f"sorted path: output row {row} written {int(r['out'][row])}x"))
+    if (r["out"] == 0).any():
+        row = int(np.argmax(r["out"] == 0))
+        viols.append(("grid-uncovered", f"sorted path: output row {row} never written"))
+    if (r["ws_written"] > 1).any():
+        row = int(np.argmax(r["ws_written"] > 1))
+        viols.append(("grid-race", f"sorted path: workspace row {row} written "
+                                   f"{int(r['ws_written'][row])}x"))
+    bad = (r["ws_read"] > 0) & (r["ws_written"] != 1)
+    if bad.any():
+        row = int(np.argmax(bad))
+        viols.append(("uninit-accumulator", f"sorted path: workspace row {row} read by the "
+                                            f"combine but written {int(r['ws_written'][row])}x"))
+    return viols
+
+
+def _vjp_info(info: Dict[str, Any]) -> Dict[str, Any]:
+    # dmsg = g[seg] — the gather dispatch op (zero rows for invalid ids)
+    return {
+        "rows": info["nnz"],
+        "num_rows": info["num_segments"],
+        "dim": info["dim"],
+        "dtype": info["dtype"],
+    }
+
+
+#: the statically checkable contract of this package (proven by
+#: analysis.kernelcheck, cross-checked by the sanitizer tier, held to the
+#: launch record on the card).
+CONTRACT = KernelContract(
+    op="segment_sum",
+    dtypes="floating",
+    accum_dtype="float32",
+    masking=(
+        "segment ids outside [0, num_segments) (COO_PAD_KEY among them) "
+        "match no output row: the scan path skips them, the sorted path "
+        "sorts them outside [starts[0], starts[S])",
+        "the last row block and the last column slab are ragged: a warp "
+        "skips rows s >= S and units c >= width (no padding in memory)",
+        "sorted path: chunk slot s < S goes to output row s when segment s "
+        "has at most CHUNK terms, else to workspace row 2*(starts[s] // "
+        "CHUNK) + 1; slot S + t to workspace row 2t; the combine warp of "
+        "the tile where a long segment's chunk 1 begins writes its output "
+        "row (``routing`` checks this on concrete ids)",
+        "D = 0 or S = 0 returns before any launch",
+    ),
+    vjp="same-tier gather_join of the cotangent at seg (zero rows for invalid ids)",
+    vjp_pairs=(VjpPair("gather_join", _vjp_info),),
+    grid_model=_grid_model,
+    concrete_check=_routing_check,
+)

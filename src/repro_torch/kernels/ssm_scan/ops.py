@@ -13,17 +13,50 @@ run on the same kernel walking time backwards::
 
     ĝ_t = ĥ_t + a_{t+1} ⊙ ĝ_{t+1}      (reverse scan, a_S = 0)
     ∂b_t = ĝ_t,   ∂a_t = ĝ_t ⊙ h_{t-1}   (h_{-1} = 0)
+
+``plan`` mirrors the launch ``repro_ssm_scan`` makes, and ``CONTRACT``
+(core/kernels.py's vocabulary) models it for the static certifier
+(analysis/kernelcheck.py) and the card's launch record.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import Any, Dict, Optional
+
 import torch
 
+from ...core.kernels import AccumModel, BlockModel, GridModel, KernelContract
 from ..common import launch, on_cpu
 from .ref import ssm_scan_ref
 
 #: the element types the kernel reads and writes (its state is f32 always)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: threads per block (kThreads): one lane each
+THREADS = 128
+#: CUDA's limit on gridDim.x
+GRID_X_MAX = 2**31 - 1
+
+
+@dataclass(frozen=True)
+class Plan:
+    """What ``repro_ssm_scan`` launches for (B, S, L) lanes of a scan."""
+
+    lanes: int     #: B·L: one thread walks one lane's S steps
+    blocks: int    #: ceil(B·L / THREADS), the grid
+
+
+def plan(batch: int, seq: int, lanes: int) -> Plan:
+    """The launch for a (batch, seq, lanes) scan (lanes = C·N), as
+    ``repro_ssm_scan`` makes it; a degenerate extent launches nothing
+    (blocks 0)."""
+    if min(batch, seq, lanes) <= 0:
+        return Plan(0, 0)
+    total = batch * lanes
+    blocks = -(-total // THREADS)
+    if blocks > GRID_X_MAX:
+        raise ValueError(f"ssm_scan: {total} lanes need {blocks} blocks, beyond {GRID_X_MAX}")
+    return Plan(total, blocks)
 
 
 def _check(a: torch.Tensor, b: torch.Tensor) -> None:
@@ -85,3 +118,50 @@ def ssm_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 #: launches of the CUDA kernel since the count was last set to 0.
 ssm_scan.launches = 0
+
+
+# -- contract ----------------------------------------------------------------
+
+
+def _grid_model(info: Dict[str, Any], **concrete: Any) -> Optional[GridModel]:
+    """``plan``'s launch: a block of THREADS lanes of the (B·L, S) lane ×
+    time view of a, b and h (lane g = b·L + l; step t at (b·S + t)·L + l),
+    its loop over time the innermost grid axis; the f32 state starts at 0
+    and every step stores its h_t (``store="every"``). ``reverse`` walks t
+    from S − 1 down to 0."""
+    bsz, s = int(info["batch"]), int(info["seq"])
+    lanes = int(info["channels"]) * int(info["state"])
+    p = plan(bsz, s, lanes)
+    if p.blocks == 0:
+        return None  # repro_ssm_scan returns before the launch
+    rev = bool(info.get("reverse", False))
+
+    def step(i, t):
+        return (i, s - 1 - t if rev else t)
+
+    shape, block = (p.lanes, s), (THREADS, 1)
+    return GridModel(
+        grid=(p.blocks, s),
+        inputs=(BlockModel("a", shape, block, step), BlockModel("b", shape, block, step)),
+        output=BlockModel("h", shape, block, step),
+        accumulator=AccumModel(axis=1, init_at=0, store="every"),
+        kernel=f"ssm_scan.{int(rev)}", block=(THREADS, 1, 1), loops=1,
+    )
+
+
+#: the statically checkable contract of this package. ssm_scan is not a
+#: dispatch op — the models layer calls it directly — so the contract has
+#: no registry entries, only the launch model.
+CONTRACT = KernelContract(
+    op="ssm_scan",
+    dtypes="floating",
+    accum_dtype="float32",
+    masking=(
+        "no tile has to divide anything: a thread per lane, and the "
+        "threads of the last block past B·L return at once",
+        "B, S or L = 0 returns before the launch",
+    ),
+    vjp="the same kernel walking time backwards (autograd.Function)",
+    vjp_pairs=(),
+    grid_model=_grid_model,
+)

@@ -959,3 +959,47 @@ def test_zoo_prefill_and_decode_on_the_card_match_the_cpu_run(cuda_device, arch)
         scale = max(1.0, float(want.abs().max()))
         torch.testing.assert_close(got.cpu(), want, atol=1e-5 * scale, rtol=1e-5)
     kernels.reset_launch_counts()
+
+
+@pytest.mark.cuda
+def test_cuda_launch_record_equals_each_contracts_model(cuda_device):
+    """One shape per kernel path: the C entry points' launch record (kernel,
+    gridDim, blockDim of each launch of the last call) equals the launches
+    of the kernel's contract model, built from its ``plan()``; a model one
+    column slab short does not."""
+    import dataclasses
+
+    from repro_torch.analysis.kernelcheck import launch_mismatch
+    from repro_torch.core import kernels as K
+    from repro_torch.kernels.common import last_launches
+    from repro_torch.kernels.gather.ops import gather_rows_forward
+    from repro_torch.kernels.matmul.ops import blocked_matmul_forward
+    from repro_torch.kernels.segsum.ops import segment_sum_forward
+    from repro_torch.kernels.ssm_scan.ops import ssm_scan_forward
+
+    dev, f32 = cuda_device, torch.float32
+    for e, d, s in ((3000, 96, 500), (20_000, 256, 5000), (20_000, 50, 3)):  # scan; sorted
+        msg = torch.randn(e, d, device=dev)
+        seg = torch.arange(e, device=dev, dtype=torch.int32) % s
+        segment_sum_forward(msg, seg, s)
+        info = {"nnz": e, "dim": d, "num_segments": s, "dtype": f32}
+        assert launch_mismatch("segment_sum", info, last_launches()) is None
+    for e, n, d in ((50_000, 3000, 128), (1024, 20_000, 50), (2, 65_024, 4096)):  # 16-byte; element
+        table = torch.randn(n, d, device=dev)
+        gather_rows_forward(table, torch.arange(e, device=dev, dtype=torch.int32) % n)
+        info = {"rows": e, "num_rows": n, "dim": d, "dtype": f32}
+        record = last_launches()
+        assert launch_mismatch("gather_join", info, record) is None
+        good = K.kernel_contract("gather_join").grid_model(info)
+        if good.grid[1] > 1:
+            short = dataclasses.replace(good, grid=(good.grid[0], good.grid[1] - 1))
+            assert launch_mismatch("gather_join", info, record, model=short) is not None
+    for m, k, n in ((300, 4096, 700), (100, 2000, 300), (2, 4096, 14_576), (4, 40_000, 8), (3, 0, 4)):
+        blocked_matmul_forward(torch.randn(m, k, device=dev), torch.randn(k, n, device=dev))
+        info = {"m": m, "k": k, "n": n, "dtype": f32}
+        assert launch_mismatch("blocked_matmul", info, last_launches()) is None
+    for reverse in (False, True):
+        a = torch.rand(2, 64, 24, 16, device=dev)
+        ssm_scan_forward(a, torch.randn_like(a), reverse)
+        info = {"batch": 2, "seq": 64, "channels": 24, "state": 16, "dtype": f32, "reverse": reverse}
+        assert launch_mismatch("ssm_scan", info, last_launches()) is None

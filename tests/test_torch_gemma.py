@@ -71,6 +71,7 @@ from repro_torch.optim import adam_update
 from repro_torch.serving import init_cache, make_decode_step, make_prefill_step
 from repro_torch.serving.serve import map_cache
 from repro_torch.train import init_train_state, lm_loss, make_train_step
+from torch_lm_parity import F64, depth_bound, f64_model, hold_to_oracle, oracle_gap
 
 TOL = 1e-5
 STATE_TOL = 1e-5
@@ -168,6 +169,12 @@ def _flat_ref(tree, sep="."):
         sep.join(str(getattr(k, "key", getattr(k, "idx", "?"))) for k in path): np.asarray(v)
         for path, v in jax.tree_util.tree_flatten_with_path(tree)[0]
     }
+
+
+def _leaves(tree):
+    out = []
+    map_cache(lambda t: out.append(t), tree)
+    return out
 
 
 def _close_tree(got, want):
@@ -528,7 +535,12 @@ def test_adam_step_updates_every_tensor_as_jax(gemma_train, part):
 
 
 def test_llama_architecture_forward_and_decode_match_jax(llama):
-    """A forward over the prompt, and a prefill plus two decode steps."""
+    """A forward over the prompt, and a prefill plus two decode steps. The
+    caches at the end (each layer's K and V, entries up to several units
+    wide, unscaled) are held, both f32 sides, to the f64 run's within
+    ``torch_lm_parity.depth_bound`` over the model's layers and the longest
+    f32 sum (d_ff = 512); a fixed 1e-5 of each entry sat at the edge of f32
+    rounding there (llama3's used 0.57 of it)."""
     jmodel, params, model = llama
     assert hasattr(model, "out_embed") and not model.cfg.tie_embeddings
     tokens = _tokens(model.cfg.vocab, seed=9)
@@ -543,15 +555,27 @@ def test_llama_architecture_forward_and_decode_match_jax(llama):
     with db.activate():
         pl, caches = make_prefill_step(model, cache_len)({"tokens": torch.tensor(tokens)})
     _close_scaled(pl, jl)
-    jdecode, decode = jax_make_decode_step(jmodel), make_decode_step(model)
+    m64 = f64_model(model)
+    with db.activate(), F64():
+        _, caches64 = make_prefill_step(m64, cache_len)({"tokens": torch.tensor(tokens)})
+    jdecode, decode, decode64 = jax_make_decode_step(jmodel), make_decode_step(model), make_decode_step(m64)
     for step in range(2):
         token = np.asarray(jnp.argmax(jl[:, -1], axis=-1), np.int32)[:, None]
         with repro.Database(dispatch=JAX_TIER).activate():
             jl, jc = jdecode(params, jnp.asarray(token), jc, jnp.asarray(SEQ + step, jnp.int32))
         with db.activate():
             pl, caches = decode(torch.tensor(token), caches, SEQ + step)
+            with F64():
+                _, caches64 = decode64(torch.tensor(token), caches64, SEQ + step)
         _close_scaled(pl, jl)
-    _close_tree(caches, jc)
+    got, want = map_cache(lambda t: t, caches), convert.lm_caches(_np(jc), "cpu")
+    for g, w, o in zip(_leaves(got), _leaves(want), _leaves(caches64)):
+        assert g.dtype == w.dtype and g.shape == w.shape == o.shape
+        bound = depth_bound(o, model.cfg.n_layers, model.cfg.d_ff)
+        hold_to_oracle(g, w, o, bound)
+        # planted: the leaf scaled by 1 + 1e-4, as one layer's output off
+        # by that much would leave it, must fail
+        assert oracle_gap(g * (1 + 1e-4), o) > bound, "the bound passes a 1e-4 error"
 
 
 def test_adam_moments_in_opt_state_dtype_match_the_references(llama):

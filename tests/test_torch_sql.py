@@ -31,6 +31,7 @@ from repro_torch.core import kernels as tkernels
 from repro_torch.core.relation import CooRelation as TCoo
 from repro_torch.core.sql import SQLError, compile_sql, sql_autodiff
 from repro_torch.examples import quickstart
+from torch_tiers import map_tiers
 
 ATOL = 1e-5
 ROOT = Path(__file__).resolve().parents[1]
@@ -398,7 +399,10 @@ def test_explain_matches_the_reference_text(case, rewrite):
         tq = CHECK_CASES["join_extent_mismatch"][0](tfra, tkeys, tkernels)
     jtext, ttext = jdb.explain(jq), tdb.explain(tq)
     assert _sections(ttext)[0] == _sections(jtext)[0]
-    assert _sections(ttext)[1] == "\n  (not ported yet: the port has no kernel certifier)"
+    # the kernel section: the reference's, its tier names mapped to the
+    # port's (test_torch_kernelcheck.TIER_NAMES)
+    assert _sections(ttext)[1] == map_tiers(_sections(jtext)[1])
+    assert "dispatch site(s): ok" in ttext or "(skipped: typed check failed)" in ttext
     if case == "Σ pushdown fires":
         # the gate's verdicts show either way; with the stage off the plan
         # stays as it was

@@ -16,7 +16,15 @@ wrapper takes its plain version.
 
 Tolerance: 1e-5 absolute and relative, as in ``tests/test_torch_lm.py``:
 the products sum at most 512 f32 terms in other orders on the two sides,
-and the scan runs the same recurrence in the same order. Gradients are
+and the scan runs the same recurrence in the same order. The logits of the
+whole model (7 layers) and a block's output are held otherwise: both f32
+sides to an f64 oracle (the port under ``torch_lm_parity.F64``) within
+``depth_bound`` — L·(√n + √S)·u·max|logit| for L layers, the longest f32
+sum n = 512 (``out_proj`` over d_inner, the MLP's down projection) and the
+scan's S steps — with a dropped scan step planted, which that bound must
+catch. At 7 layers the two f32 sides lie about 60 u·max|logit| from the
+oracle and from each other, at the edge of a fixed 1e-5, where the CPU
+that runs the test decided whether it passed. Gradients are
 held to 1e-5 of their tensor's largest entry (``_close_grad``): each entry
 sums a term per token (32 here) in another order on each side; so is the
 carried SSM state, a sum over the steps (``_close_state`` says why). The shared
@@ -26,6 +34,7 @@ the same bound (``test_train_logits_gradients_match_jax`` says more).
 """
 
 import asyncio
+import contextlib
 import dataclasses
 
 import jax
@@ -55,8 +64,12 @@ from repro_torch.models.ssm import mamba2_apply, selective_scan
 from repro_torch.serving import init_cache, make_decode_step, make_prefill_step
 from repro_torch.serving.serve import map_cache
 from repro_torch.train import lm_loss
+from torch_lm_parity import F64, depth_bound, f64_model, hold_to_oracle, oracle_gap
 
 TOL = 1e-5
+#: the longest f32 sum of a layer: out_proj over d_inner = 512 terms (the
+#: shared MLP's down projection sums d_ff = 512 too)
+LONGEST_SUM = 512
 ARCH = "zamba2-7b"
 LAYERS = 7
 BATCH, SEQ, DECODE_STEPS = 2, 16, 3
@@ -96,6 +109,26 @@ def _no_launches():
     kernels.reset_launch_counts()
     yield
     assert sum(kernels.launch_counts().values()) == 0, "no CUDA kernel may launch for CPU tensors"
+
+
+@contextlib.contextmanager
+def _dropped_scan_step():
+    """A planted fault: every ``ssm_scan`` drops its last step's input
+    (b at the last step is 0)."""
+    from repro_torch.models import ssm
+
+    scan = ssm.ssm_scan
+
+    def dropped(a, b):
+        b = b.clone()
+        b[:, -1] = 0
+        return scan(a, b)
+
+    ssm.ssm_scan = dropped
+    try:
+        yield
+    finally:
+        ssm.ssm_scan = scan
 
 
 def _close(got, want, atol=TOL):
@@ -155,6 +188,28 @@ def _close_tree(got, want):
             _close_state(g, w.numpy(), key)
 
     walk(got, convert.lm_caches(_np(want), "cpu"))
+
+
+def _hold_tree(got, want, oracle, scan_len):
+    """Port caches and the reference's (as ``_close_tree`` lays them out),
+    each leaf held to the f64 run's leaf within ``depth_bound`` of the
+    whole depth: the layers' K/V and states sit at most LAYERS deep."""
+
+    def walk(g, w, o):
+        if isinstance(w, dict):
+            assert sorted(g) == sorted(w) == sorted(o)
+            for k in w:
+                walk(g[k], w[k], o[k])
+        elif isinstance(w, list):
+            assert len(g) == len(w) == len(o)
+            for gi, wi, oi in zip(g, w, o):
+                walk(gi, wi, oi)
+        else:
+            assert g.dtype == w.dtype and g.shape == w.shape == o.shape
+            if o.abs().max() > 0:
+                hold_to_oracle(g, w, o, depth_bound(o, LAYERS, LONGEST_SUM, scan_len))
+
+    walk(got, convert.lm_caches(_np(want), "cpu"), oracle)
 
 
 def _flat_ref(tree):
@@ -357,8 +412,18 @@ def test_block_apply_matches_jax_in_prefill_then_decode(lm, kind):
         y1, c1, _ = block_apply(p, kind, torch.tensor(x1), ctx)
     assert float(aux) == 0.0
     assert sorted(c) == sorted(jc) == (["shared_kv", "ssm2"] if kind == "mamba2_attn" else ["ssm2"])
-    _close(y, jy)
-    _close(y1, jy1)
+    # the outputs against the block's f64 oracle (one layer; the prefill's
+    # scan runs SEQ steps, the decode step one more)
+    m64 = f64_model(model)
+    with repro_torch.Database(device="cpu").activate(), torch.no_grad(), F64():
+        p64, shared64 = m64.stages[0]["scan"][0][key], m64.shared_attn
+        o, c64, _ = block_apply(p64, kind, torch.tensor(x, dtype=torch.float64),
+                                _ctx(torch, cfg, "prefill", shared64, cache_len=cache_len))
+        ctx64 = _ctx(torch, cfg, "decode", shared64, length=SEQ)
+        ctx64["cache"] = c64
+        o1, _, _ = block_apply(p64, kind, torch.tensor(x1, dtype=torch.float64), ctx64)
+    hold_to_oracle(y, jy, o, depth_bound(o, 1, LONGEST_SUM, SEQ))
+    hold_to_oracle(y1, jy1, o1, depth_bound(o1, 1, LONGEST_SUM, SEQ + 1))
     for got, want in ((c, jc), (c1, jc1)):
         g, w = _flat_cache(got), _flat_ref(want)
         assert {k: tuple(t.shape) for k, t in g.items()} == {k: t.shape for k, t in w.items()}
@@ -377,8 +442,15 @@ def test_train_logits_match_jax(lm, tokens):
         jlogits, _ = jmodel.train_logits(params, {"tokens": jnp.asarray(tokens)})
     with repro_torch.Database(device="cpu").activate(), torch.no_grad():
         logits, aux = model.train_logits({"tokens": torch.tensor(tokens)})
+        with F64():
+            oracle, _ = f64_model(model).train_logits({"tokens": torch.tensor(tokens)})
+        with _dropped_scan_step():
+            dropped, _ = model.train_logits({"tokens": torch.tensor(tokens)})
     assert tuple(logits.shape) == (BATCH, SEQ, 512) and float(aux) == 0.0
-    _close(logits, jlogits)
+    assert oracle.dtype == torch.float64
+    bound = depth_bound(oracle, LAYERS, LONGEST_SUM, SEQ)
+    hold_to_oracle(logits, jlogits, oracle, bound)
+    assert oracle_gap(dropped, oracle) > bound, "the bound passes a dropped scan step"
 
 
 @pytest.fixture(scope="module")
@@ -452,11 +524,19 @@ def test_prefill_and_greedy_decode_match_jax(lm, tokens):
     db = repro_torch.Database(device="cpu")
     with repro.Database(dispatch="interpret").activate():
         jlogits, jcaches = jprefill(params, {"tokens": jnp.asarray(tokens)})
+    m64 = f64_model(model)
+    prefill64, decode64 = make_prefill_step(m64, cache_len), make_decode_step(m64)
     with db.activate():
         logits, caches = prefill({"tokens": torch.tensor(tokens)})
+        with F64():
+            oracle, caches64 = prefill64({"tokens": torch.tensor(tokens)})
+        with _dropped_scan_step():
+            dropped, _ = prefill({"tokens": torch.tensor(tokens)})
     assert tuple(logits.shape) == (BATCH, 1, 512) and not logits.requires_grad
-    _close(logits, jlogits)
-    _close_tree(caches, jcaches)
+    bound = depth_bound(oracle, LAYERS, LONGEST_SUM, SEQ)
+    hold_to_oracle(logits, jlogits, oracle, bound)
+    assert oracle_gap(dropped, oracle) > bound, "the bound passes a dropped scan step"
+    _hold_tree(caches, jcaches, caches64, SEQ)
     assert tuple(caches[0]["scan"][0]["5:mamba2_attn"]["shared_kv"]["k"].shape) == (
         BATCH, cache_len, model.cfg.n_kv_heads, model.cfg.hd())
     for step in range(DECODE_STEPS):
@@ -467,8 +547,10 @@ def test_prefill_and_greedy_decode_match_jax(lm, tokens):
             jlogits, jcaches = jdecode(params, jnp.asarray(token), jcaches, length)
         with db.activate():
             logits, caches = decode(torch.tensor(token), caches, SEQ + step)
-        _close(logits, jlogits)
-        _close_tree(caches, jcaches)
+            with F64():
+                oracle, caches64 = decode64(torch.tensor(token), caches64, SEQ + step)
+        hold_to_oracle(logits, jlogits, oracle, depth_bound(oracle, LAYERS, LONGEST_SUM, SEQ + step + 1))
+        _hold_tree(caches, jcaches, caches64, SEQ + step + 1)
 
 
 def test_init_cache_matches_the_reference_layout():

@@ -15,7 +15,9 @@ their tensor's largest entry (at least 1, ``close_scaled``): each entry is
 an f32 sum whose rounding scales with its terms, not with the sum.
 """
 
+import copy
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -35,6 +37,10 @@ from repro_torch.train import lm_loss
 TOL = 1e-5
 #: the reference's dispatch tier
 JAX_TIER = "ref"
+#: the unit roundoff of f32
+U32 = 2.0 ** -24
+#: depth_bound's λ
+LAMBDA = 5.0
 
 
 def np_tree(tree):
@@ -153,3 +159,63 @@ def batch_pair(jcfg, cfg, b, s, seed=0):
     for k in jb:
         assert np.array_equal(np.asarray(jb[k]), tb[k].numpy()), k
     return jb, tb
+
+
+# ---------------------------------------------------------------------------
+# An f64 oracle, for the parity tests whose logits sit too close to f32
+# rounding for a fixed tolerance between the two f32 sides
+# ---------------------------------------------------------------------------
+
+
+class F64(torch.overrides.TorchFunctionMode):
+    """Inside this mode every float32 the port asks for is float64: a
+    ``dtype=torch.float32`` argument, a ``.to(torch.float32)``, a
+    ``.float()``. With the model's parameters in f64 (``f64_model``), the
+    port then computes the same function in f64 throughout — its f32 scan
+    state and its f32 softmax included — and so gives the f64 oracle of
+    its own f32 run."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = dict(kwargs or {})
+        if func is torch.Tensor.float:
+            return torch.Tensor.double(*args)
+        args = tuple(torch.float64 if a is torch.float32 else a for a in args)
+        if kwargs.get("dtype") is torch.float32:
+            kwargs["dtype"] = torch.float64
+        return func(*args, **kwargs)
+
+
+def f64_model(model):
+    """A copy of the port ``model`` with every parameter in f64 (run it
+    under ``F64()``)."""
+    return copy.deepcopy(model).to(torch.float64)
+
+
+def depth_bound(oracle, layers: int, longest_sum: int, scan_len: int = 0) -> float:
+    """How far an f32 run of a model may lie from its f64 oracle, for
+    logits whose largest entry is max|oracle|.
+
+    An f32 sum of n terms errs by at most λ·√n·u of its terms' size (u =
+    2⁻²⁴), with probability at least 1 − 2n·exp(−λ²/2) (Higham and Mary,
+    "A new approach to probabilistic rounding error analysis", 2019): at
+    λ = LAMBDA = 5 and n = 512, 0.996. A recurrence of S steps errs the
+    same way with n = S. A layer's longest sum and its scan put that much
+    relative error into the residual stream, and the layers' errors add
+    (no credit for their independence): so every value lies within
+    λ·L·(√n + √S)·u·max|value| of the oracle."""
+    scale = float(np.abs(np.asarray(oracle, np.float64)).max())
+    return LAMBDA * layers * (math.sqrt(longest_sum) + math.sqrt(scan_len)) * U32 * scale
+
+
+def oracle_gap(got, oracle) -> float:
+    """max |got − oracle| over every entry, in f64."""
+    got = got.detach() if isinstance(got, torch.Tensor) else got
+    return float(np.abs(np.asarray(got, np.float64) - np.asarray(oracle, np.float64)).max())
+
+
+def hold_to_oracle(port_out, ref_out, oracle, bound: float):
+    """Each f32 side within ``bound`` of the f64 oracle; returns their
+    margins (gap ÷ bound). The two sides then agree within twice it."""
+    margins = (oracle_gap(port_out, oracle) / bound, oracle_gap(ref_out, oracle) / bound)
+    assert max(margins) <= 1.0, f"gap / bound (port, reference) = {margins}, bound {bound:.3e}"
+    return margins
