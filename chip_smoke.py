@@ -176,7 +176,28 @@ Phases, in order; any failure stops the run with a non-zero exit:
    within phase 3's limits, with a racy and an out-of-bounds model planted
    (each must raise the static certifier's code); ``db.explain``'s kernel
    section on the SQL logistic regression; and phase 9's streamed
-   ogbn-products plan's certificate (``waves`` and ``coo`` ok).
+   ogbn-products plan's certificate (``waves`` and ``coo`` ok);
+23. (run after phase 22, before phase 8) the relational engine on a mesh,
+   the GCN step of phase 3 at ogbn-arxiv size through ``Database(mesh=...)``:
+   23.1 on a one-rank NCCL group on the card (``mesh="host"``), its plans
+   those of ``MeshGeometry.single(1)`` and its losses, step-1 gradients and
+   last parameters bit-equal to the mesh-less step's; 23.2 on 4 ranks that
+   share the card over gloo, a 4 × 1 (data × model) mesh: the edge relation
+   nnz-sharded (each rank's keys and weights ⌈E/4⌉ rows), the Σ-scatter a
+   reduce-scatter, step 1 held to the mesh-less step within phase 3's limits
+   plus (p − 1)·u·|X|ᵀ|G| for adding p ranks' partial sums, every rank's
+   results bit-equal to rank 0's, a second run's too, and a missing
+   reduction planted (rank 1's partial left out), which the limits must
+   catch; 23.3 on a 2 × 2 mesh: a (2,048 × 2,048)² product in 256-blocks
+   under a plan budget no block grid fits, co-partitioned on its contraction
+   blocks (blocked_matmul on the model slabs, then a model all-reduce), held
+   to the one-rank product, and a GCN step; 23.4 the 4 × 1 step's
+   certificate, ``certify_kernels`` over its shard-shape lowerings and each
+   shard-shape site's launch record against its contract model, and a node
+   table committed sharded where the plan wants it whole, whose reshard the
+   certificate must report with its bytes and ``ReshardWarning`` once. The
+   backend, each rank's step time and edge bytes and the collectives' calls
+   and bytes per step are printed.
 
 Device memory is freed between phases, so the NNMF step's peak and the
 language models' 1–60 GB of weights never meet. The last line of standard
@@ -515,6 +536,16 @@ LOGREG_WAVE_ROWS = LOGREG_ROWS // OOC_WAVES
 OOC_LOSS_LIMIT = OOC_NORM_LIMIT = 1e-5
 #: edges per chunk of phase 9's f64 computations (4.3 GB temporaries at D = 256)
 OOC_CHUNK = 1 << 21
+# phase 23, the relational engine on a mesh: the GCN step at ogbn-arxiv
+# size on MESH_RANKS ranks that share the card over gloo, and a product of
+# MESH_BLOCKS × MESH_BLOCKS blocks of MESH_B × MESH_B (2,048 × 2,048 @
+# 2,048 × 2,048) on the 2 × 2 mesh under a plan budget no block grid fits,
+# which co-partitions it on its contraction blocks
+MESH_RANKS, MESH_BLOCKS, MESH_B, MESH_TIGHT_BUDGET = 4, 8, 256, 1e6
+#: rows of the ogbn-arxiv edge relation (self loops included) on one rank
+#: of the 4 × 1 mesh: ⌈E/4⌉, the rows padded to a multiple of 4
+MESH_EDGE_ROWS = -(-(EDGES + NODES) // MESH_RANKS)
+
 #: odd ids (padding -1, ids ≥ S) of the edge cases, over S = N = 7
 ODD_IDS = (3, -1, 0, 7, 9, 2, -5, 4, 4)
 #: unit roundoff of bf16 and f16
@@ -1162,22 +1193,26 @@ def op_sites(table):
     return out
 
 
-def run_gcn(torch, repro_torch, data, params0, dispatch, steps=GCN_STEPS):
+def run_gcn(torch, repro_torch, data, params0, dispatch, steps=GCN_STEPS, db=None):
+    """``steps`` Adam steps of the GCN under a new ``Database(dispatch=...)``,
+    or under ``db``: the session, the losses, the step times, step 1's
+    loss, gradients and layers, the peak memory and the last parameters."""
     from repro_torch.optim import adam_init, adam_update
     from repro_torch.relational import gcn_conv, rel_linear
 
     x, keys, w, y = data["x"], data["keys"], data["w"], data["y"]
+    owner = data.get("owner_dim")  # 1: the edges lie sorted by dst (phase 23)
 
     def loss_fn(p):
         """The loss, and per weight the (input, output) of its layer."""
-        h0 = gcn_conv(x, keys, w)                 # join-agg message passing
+        h0 = gcn_conv(x, keys, w, owner)          # join-agg message passing
         z1 = rel_linear(h0, p["w1"])
-        h1 = gcn_conv(torch.relu(z1), keys, w)
+        h1 = gcn_conv(torch.relu(z1), keys, w, owner)
         z2 = rel_linear(h1, p["w2"])
         logp = torch.log_softmax(z2, dim=1)
         return -logp.gather(1, y[:, None]).mean(), {"w1": (h0, z1), "w2": (h1, z2)}
 
-    db = repro_torch.Database(dispatch=dispatch)
+    db = repro_torch.Database(dispatch=dispatch) if db is None else db
     params = dict(params0)
     opt = adam_init(params)
     losses, secs, first, base = [], [], None, 0
@@ -1270,12 +1305,16 @@ def gcn_data(torch, np, repro_torch, dev):
     return data, params0, graph
 
 
-def hold_step1(torch, first, t_first, tier):
+def hold_step1(torch, first, t_first, tier, partials=1, check=True):
     """Step 1 of the GCN on the cuda tier (``first``, as ``run_gcn`` keeps
     it) against step 1 on the plain ``tier`` (``t_first``): the loss within
     1e-5 relative, each weight gradient within GRAD_LIMIT rounding walks
     (relu-mask flips taken out exactly), and a planted dropped node term
-    that the limit must catch."""
+    that the limit must catch. ``partials`` > 1: ``first`` ran on a mesh,
+    whose segment sums add that many ranks' partial sums (module docstring
+    of phase 23, ``mesh_grad_limit``). Returns (the loss's relative
+    difference, the gradients' worst err/limit); ``check=False`` only
+    measures them (a planted fault's run)."""
     # same arithmetic, f32 sums in other orders (the kernel's
     # chunks vs index_add_'s atomics, CUDA-core tiles vs cuBLAS). The loss: within 1e-5
     # relative. Each weight gradient Xᵀ·G sums K = |V| terms, and both
@@ -1288,14 +1327,15 @@ def hold_step1(torch, first, t_first, tier):
     # of the difference exactly and holds the rest to the rounding limit
     dloss = abs(first["loss"] - t_first["loss"]) / abs(t_first["loss"])
     log(f"  step 1 loss: cuda {first['loss']!r} {tier} {t_first['loss']!r} rel diff {dloss:.3e} (tol 1e-5)")
-    if dloss > 1e-5:
+    if dloss > 1e-5 and check:
         raise AssertionError(f"step-1 loss differs between the cuda and {tier} tiers")
     dev = first["grads"]["w1"].device
+    worst_all = 0.0
     for k, relu_after in (("w1", True), ("w2", False)):
         g, t_g = first["grads"][k].double(), t_first["grads"][k].double()
         x, z, dz = (t.to(dev).double() for t in t_first["layers"][k])
         _, c_z, c_dz = (t.to(dev).double() for t in first["layers"][k])
-        limit = GRAD_LIMIT * rounding_walk(x.t(), dz)
+        limit = GRAD_LIMIT * rounding_walk(x.t(), dz) + mesh_grad_limit(x, dz, partials)
         diff = g - t_g
         flips = 0
         if relu_after:
@@ -1307,6 +1347,9 @@ def hold_step1(torch, first, t_first, tier):
             f"max|g| = {float(t_g.abs().max()):.3e}, {flips} relu-mask flips; without "
             f"their terms, err/limit = {worst:.3e} (limit {GRAD_LIMIT}·√K·u·sqrt(X²ᵀG²) "
             f"per entry, K = {NODES})")
+        worst_all = max(worst_all, worst)
+        if not check:
+            continue
         if worst > 1.0:
             raise AssertionError(f"step-1 gradient {k} differs between the cuda and {tier} tiers")
         # the limit must fail a wrong gradient: drop the term of one node
@@ -1315,6 +1358,7 @@ def hold_step1(torch, first, t_first, tier):
         log(f"    planted fault (node {i}'s term dropped): err/limit={seen:.3e}, must exceed 1")
         if seen <= 1.0:
             raise AssertionError(f"the step-1 gradient limit passes a wrong gradient ({k})")
+    return dloss, worst_all
 
 
 def gcn_phase(torch, repro_torch, kern, data, params0):
@@ -4585,7 +4629,7 @@ def time_site(torch, op, info, rows_for, seg_for, gen, dev):
     return k_ms, p_ms, l_ms, (m * k + k * n + m * n) * 4, 2 * m * n * k, extra
 
 
-def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, dense, errs, dev):
+def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, dense, mesh, errs, dev):
     """Per kernel and per main path: each site timed alone at its shapes,
     times the launches of that site in one pass of the path (one GCN step;
     one logistic-regression step; one NNMF step; one KGE step at each
@@ -4593,7 +4637,8 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, d
     phase 9's runs, each site once per wave; olmoe's prefill and one decode
     step, and one olmoe train step; zamba2's prefill and one decode step;
     one falcon-mamba train step; the dense families' prefill and one decode
-    step, one gemma2 train step and the gemma3 endpoint's burst), summed."""
+    step, one gemma2 train step and the gemma3 endpoint's burst; one rank's
+    GCN step on phase 23's 4 × 1 mesh), summed."""
     from repro_torch.kernels.matmul.ops import blocked_matmul_forward
     from repro_torch.kernels.ssm_scan.ops import ssm_scan_forward
     from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
@@ -4633,6 +4678,21 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, d
     for prog, key, op, _, info in gcn["sites"]:
         add("gcn_step", op, f"{prog} {key}", 1,
             *time_site(torch, op, info, lambda e, n: src[:e], lambda e, s: dst[:e], gen, dev))
+
+    # one rank's GCN step on phase 23's 4 × 1 mesh: every shard-shape site
+    # times its calls per step, on the ids of rank 0's rows of the
+    # owner-partitioned edges (sorted by dst, padded with -1 to a multiple
+    # of 4): its quarter in the forward convolutions, all of them in the
+    # Node-gradient query, which replicates them
+    from repro_torch.relational import partitioned_edges
+
+    pe = partitioned_edges(torch.stack([src, dst], 1), torch.zeros(src.shape, device=dev), NODES,
+                           MESH_RANKS)
+    msrc, mdst = pe.keys[:, 0].contiguous(), pe.keys[:, 1].contiguous()
+    for prog, key, op, _, info, mult in mesh["sites"]:
+        add("gcn_mesh", op, f"{prog} {key}", mult,
+            *time_site(torch, op, info, lambda e, n: msrc[:e], lambda e, s: mdst[:e], gen, dev))
+    del pe, msrc, mdst
 
     # the logistic regression's step: its two products, once per step
     for key, op, _, info in logreg["sites"]:
@@ -4800,6 +4860,7 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, d
                    "olmoe_endpoint": olmoe["endpoint"]["launches"][op],
                    "oocore": oocore["launches"].get(op, 0),
                    "zamba2_serve": ssm["zamba2"]["launches"][op],
+                   "gcn_mesh": mesh["launches"].get(op, 0),
                    "falcon_train": ssm["falcon_train"]["launches"][op],
                    **{path: run["launches"][op] for path, run in dense.items()}}
         records.append({
@@ -4841,7 +4902,9 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, d
                     f"{len(WHISPER_ENDPOINT_BUDGETS)} requests and {WHISPER_TRAIN_STEPS} whisper train "
                     f"steps under each of 'nothing' and 'dots' (phase 20), one qwen2-vl-72b request of "
                     f"a prefill and {QWEN_DECODE} decode steps and the endpoint's burst of "
-                    f"{len(QWEN_ENDPOINT_BUDGETS)} requests (phase 21); "
+                    f"{len(QWEN_ENDPOINT_BUDGETS)} requests (phase 21), {GCN_STEPS} GCN steps on "
+                    f"phase 23's {MESH_RANKS} × 1 mesh (gcn_mesh: the {MESH_RANKS} ranks' "
+                    "launches summed); "
                     "ms, plain_ms, bound_ms, library_ms: each site timed alone, times its "
                     "launches in one pass, summed over one GCN step, one logistic-regression "
                     "step, one NNMF step, one KGE step at each width, one prefill, one "
@@ -4855,7 +4918,8 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, d
                     "(gemma3_endpoint), deepseek-v3's, whisper's and qwen2-vl's prefill and one "
                     "decode step (deepseek_v3_serve, whisper_serve with the encoder, qwen2_vl_serve), "
                     "one whisper train step (whisper_train) and the whisper and qwen2-vl endpoints' "
-                    "bursts (whisper_endpoint, qwen2_vl_endpoint); 'paths' splits them; host_ms: "
+                    "bursts (whisper_endpoint, qwen2_vl_endpoint) and one rank's GCN step on the "
+                    "4 × 1 mesh at its shard shapes (gcn_mesh); 'paths' splits them; host_ms: "
                     f"the host's time per call over {HOST_CALLS} calls without a synchronise, "
                     "summed the same way over the sites where it was taken (null: not taken)"),
             "paths": {path: {k: v for k, v in acc.items() if k not in ("bytes_ms", "ops_ms")}
@@ -5489,6 +5553,39 @@ def record_sites(lm_cfg):
     return list(out.values())
 
 
+def record_call(torch, kern, op, info, dev):
+    """Run the kernel at the site ``info`` (its dtype by name) on inputs on
+    the card (their values do not change a launch); return (launched,
+    aligned)."""
+    from repro_torch.kernels.gather.ops import gather_rows_forward
+    from repro_torch.kernels.matmul.ops import blocked_matmul_forward
+    from repro_torch.kernels.segsum.ops import segment_sum_forward
+    from repro_torch.kernels.ssm_scan.ops import ssm_scan_forward
+
+    dt = getattr(torch, info["dtype"])
+    before = kern.launch_counts()[op]
+    aligned = True
+    if op == "segment_sum":
+        e, d, seg_s = info["nnz"], info["dim"], info["num_segments"]
+        msg = torch.empty((e, d), dtype=dt, device=dev)
+        seg = torch.arange(e, dtype=torch.int32, device=dev) % max(seg_s, 1)
+        aligned = msg.data_ptr() % 16 == 0
+        segment_sum_forward(msg, seg, seg_s)
+    elif op == "gather_join":
+        e, n, d = info["rows"], info["num_rows"], info["dim"]
+        table = torch.empty((n, d), dtype=dt, device=dev)
+        aligned = table.data_ptr() % 16 == 0
+        gather_rows_forward(table, torch.arange(e, dtype=torch.int32, device=dev) % max(n, 1))
+    elif op == "blocked_matmul":
+        m, k, n = info["m"], info["k"], info["n"]
+        blocked_matmul_forward(torch.empty((m, k), device=dev), torch.empty((k, n), device=dev))
+    else:
+        shape = (info["batch"], info["seq"], info["channels"] * info["state"], 1)
+        a = torch.empty(shape, device=dev)
+        ssm_scan_forward(a, torch.empty_like(a), info["reverse"])
+    return kern.launch_counts()[op] > before, aligned
+
+
 def launch_record_checks(torch, kern, lm_cfg, dev):
     """22.1: call each kernel at every site of ``record_sites`` and hold the
     C entry point's launch record to the contract model's launches (a call
@@ -5500,36 +5597,9 @@ def launch_record_checks(torch, kern, lm_cfg, dev):
     from repro_torch.analysis.kernelcheck import launch_mismatch
     from repro_torch.core import kernels as K
     from repro_torch.kernels.common import last_launches
-    from repro_torch.kernels.gather.ops import gather_rows_forward
-    from repro_torch.kernels.matmul.ops import blocked_matmul_forward
-    from repro_torch.kernels.segsum.ops import segment_sum_forward
-    from repro_torch.kernels.ssm_scan.ops import ssm_scan_forward
 
     def call(op, info):
-        """Run the kernel at the site on inputs on the card (their values do
-        not change a launch); return (launched, aligned)."""
-        dt = getattr(torch, info["dtype"])
-        before = kern.launch_counts()[op]
-        aligned = True
-        if op == "segment_sum":
-            e, d, seg_s = info["nnz"], info["dim"], info["num_segments"]
-            msg = torch.empty((e, d), dtype=dt, device=dev)
-            seg = torch.arange(e, dtype=torch.int32, device=dev) % max(seg_s, 1)
-            aligned = msg.data_ptr() % 16 == 0
-            segment_sum_forward(msg, seg, seg_s)
-        elif op == "gather_join":
-            e, n, d = info["rows"], info["num_rows"], info["dim"]
-            table = torch.empty((n, d), dtype=dt, device=dev)
-            aligned = table.data_ptr() % 16 == 0
-            gather_rows_forward(table, torch.arange(e, dtype=torch.int32, device=dev) % max(n, 1))
-        elif op == "blocked_matmul":
-            m, k, n = info["m"], info["k"], info["n"]
-            blocked_matmul_forward(torch.empty((m, k), device=dev), torch.empty((k, n), device=dev))
-        else:
-            shape = (info["batch"], info["seq"], info["channels"] * info["state"], 1)
-            a = torch.empty(shape, device=dev)
-            ssm_scan_forward(a, torch.empty_like(a), info["reverse"])
-        return kern.launch_counts()[op] > before, aligned
+        return record_call(torch, kern, op, info, dev)
 
     per_op, paths, bad = {}, set(), []
     for op, info in record_sites(lm_cfg):
@@ -5718,6 +5788,466 @@ def certification_phase(torch, repro_torch, kern, data, params0, lm_cfg, oocore,
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 23: the relational engine on a mesh
+# ---------------------------------------------------------------------------
+
+
+def mesh_grad_limit(x, dz, partials):
+    """What adding ``partials`` ranks' partial sums adds to phase 3's limit
+    on a weight gradient Xᵀ·G (per entry, f64): each entry of a segment
+    sum's output takes up to p − 1 more roundings, of at most u·|X| each,
+    so X moves by (p − 1)·u·|X| more and Xᵀ·G by (p − 1)·u·|X|ᵀ|G|; the
+    reordering within each rank's sum is the kind of difference phase 3's
+    rounding-walk limit already holds the torch tier to."""
+    if partials <= 1:
+        return 0.0
+    return (partials - 1) * U32 * (x.abs().t() @ dz.abs())
+
+
+def drop_one_partial(collectives, kind, index):
+    """Plant a missing reduction: the ``kind`` group's sums leave out the
+    partial of the rank at ``index``. Returns the undo."""
+    real_ar, real_rs = collectives.MeshComm.all_reduce, collectives.MeshComm.reduce_scatter
+
+    def drop(self, t, k):
+        return t.zero_() if k == kind and self.index[kind] == index else t
+
+    def all_reduce(self, t, k):
+        return real_ar(self, drop(self, t.clone(), k), k)
+
+    def reduce_scatter(self, t, dim, k):
+        return real_rs(self, drop(self, t.clone(), k), dim, k)
+
+    collectives.MeshComm.all_reduce, collectives.MeshComm.reduce_scatter = all_reduce, reduce_scatter
+
+    def undo():
+        collectives.MeshComm.all_reduce, collectives.MeshComm.reduce_scatter = real_ar, real_rs
+    return undo
+
+
+def probe_collectives(torch, dist, dev):
+    """The collectives the group's backend takes on this card's tensors,
+    and those it refuses (each tried once, on every rank alike)."""
+    world = dist.get_world_size()
+    t = torch.ones(8 * world, device=dev)
+    gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+    scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+    taken, refused = [], []
+    for name, fn in (("all_reduce", lambda: dist.all_reduce(t.clone())),
+                     ("all_gather", lambda: gather(t.new_empty(t.numel() * world), t)),
+                     ("reduce_scatter", lambda: scatter(t.new_empty(8), t))):
+        try:
+            fn()
+            taken.append(name)
+        except RuntimeError:
+            refused.append(name)
+    return taken, refused
+
+
+def cpu_first(first):
+    """``run_gcn``'s step-1 record with every tensor on the host."""
+    return {"loss": first["loss"], "grads": {k: v.cpu() for k, v in first["grads"].items()},
+            "layers": first["layers"]}
+
+
+def to_dev(first, dev):
+    return {"loss": first["loss"], "grads": {k: v.to(dev) for k, v in first["grads"].items()},
+            "layers": first["layers"]}
+
+
+def rel_nbytes(rel) -> int:
+    """Bytes of a relation's tensors (a COO's keys and values)."""
+    return sum(t.numel() * t.element_size() for t in (
+        (rel.keys, rel.values) if hasattr(rel, "keys") else (rel.data,)))
+
+
+def digest(t) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def mesh_rank(rank, path, device):
+    """One rank of phase 23.2-23.4: the GCN step at ogbn-arxiv size on the
+    4 × 1 mesh (5 Adam steps, again from the same weights, one step with a
+    missing reduction planted), the product and a GCN step on the 2 × 2
+    mesh, and the certificates of the 4 × 1 step. Returns numbers, hashes
+    and host tensors. ``device`` is the rank's device ("cuda:0")."""
+    import warnings
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    import repro_torch
+    from repro_torch import kernels as kern
+    from repro_torch.analysis import certify, certify_kernels
+    from repro_torch.analysis.kernelcheck import launch_mismatch
+    from repro_torch.core.engine import RAEngine, ReshardWarning, env_signature
+    from repro_torch.core.relation import CooRelation, DenseRelation
+    from repro_torch.kernels import build
+    from repro_torch.kernels.common import last_launches
+    from repro_torch.launch import collectives
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.relational import partitioned_edges, rel_matmul_blocked
+    from repro_torch.relational.gcn import _gcn_prog
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dev = torch.device(device)
+    build.library()
+    blob = torch.load(path, map_location=dev)
+    data, params0 = blob["data"], blob["params0"]
+    out = {"rank": rank, "backend": dist.get_backend()}
+    out["taken"], out["refused"] = probe_collectives(torch, dist, dev)
+    if out["refused"]:
+        return out   # the parent reports it: no collective falls back to the host
+    m41 = launch_mesh.make_host_mesh(model=1, device_type=dev.type)
+    m22 = launch_mesh.make_host_mesh(model=2, device_type=dev.type)
+
+    # 23.2: the GCN on the 4 × 1 mesh. Its edges owner-partitioned (sorted
+    # by dst, padded to a multiple of 4) and in the session's catalog, so
+    # the planner prices each convolution's Σ-by-dst scatter from their
+    # statistics as owner-local: the forward convolutions shard the nnz rows
+    n = data["x"].shape[0]
+    pe = partitioned_edges(data["keys"], data["w"], n, MESH_RANKS)
+    mdata = dict(data, keys=pe.keys, w=pe.values, owner_dim=1)
+    db = repro_torch.Database(dev, mesh=m41)
+    db.put("Edge", pe)
+    kern.reset_launch_counts()
+    collectives.reset_collectives()
+    _, losses, secs, first, peak, params = run_gcn(torch, repro_torch, mdata, params0, None, db=db)
+    out["launches"] = kern.launch_counts()
+    out["collectives"] = collectives.last_collectives()
+    out["losses"], out["secs"], out["peak"] = losses, secs, peak
+    out["first"] = cpu_first(first)
+    out["params"] = {k: v.cpu() for k, v in params.items()}
+    compiled = [c for c in db._compiled_refs if c.local is not None]
+    out["plans"] = sorted({(p.kind, p.data_kind, p.needs_psum, p.needs_data_psum)
+                           for c in compiled for p in c.plans.values()})
+    # per executable that joins the edge relation (the backward refers to
+    # it as its forward's operand): its plan and the rank's edge rows
+    out["edge"] = sorted(
+        ("shard" if any(p.data_kind.startswith("data:shard_nnz") for p in c.plans.values())
+         else "whole", c.local.meta_env[nm].nnz, rel_nbytes(c.local.meta_env[nm]))
+        for c in compiled for nm in c.input_specs if isinstance(c.local.meta_env[nm], CooRelation))
+    out["sites"] = [("gcn_mesh", s.key, s.op, s.tier, s.info_dict(),
+                     c.counters["reshard"]["calls"] // GCN_STEPS)
+                    for c in compiled for s in c.local.resolutions.sites]
+    # the same 5 steps again from the same weights, on a new session
+    again_db = repro_torch.Database(dev, mesh=m41)
+    again_db.put("Edge", pe)
+    _, again_losses, _, _, _, again = run_gcn(torch, repro_torch, mdata, params0, None, db=again_db)
+    out["repeats"] = again_losses == losses and all(torch.equal(again[k], params[k]) for k in params)
+    # planted: one step whose data-axis sums leave rank 1's partial out
+    undo = drop_one_partial(collectives, "data", 1)
+    try:
+        bad_db = repro_torch.Database(dev, mesh=m41)
+        bad_db.put("Edge", pe)
+        _, bad_losses, _, bad_first, _, _ = run_gcn(torch, repro_torch, mdata, params0, None, steps=1,
+                                                    db=bad_db)
+    finally:
+        undo()
+    out["planted"] = cpu_first(bad_first)
+
+    # the GCN query of phase 9 through Database.query(...).step(): forward
+    # and gradients in one executable, its edges nnz-sharded for the whole
+    # step (the claim of benchmarks/coo_scale.py), against the mesh-less step
+    q = gcn_loss_query(n)
+    steps = {}
+    for what, session in (("one", repro_torch.Database(dev)), ("mesh", repro_torch.Database(dev, mesh=m41))):
+        session.put("Edge", pe)
+        session.put("Node", data["x"], keys=("node",))
+        h = session.query(q)
+        collectives.reset_collectives()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = h.step(wrt=("Edge", "Node"))
+        torch.cuda.synchronize()
+        steps[what] = (float(loss.data), grads["Node"].data, grads["Edge"].values,
+                       time.perf_counter() - t0, collectives.last_collectives(), h)
+    (l1, dn1, de1, _, _, _), (l2, dn2, de2, qs, qc, h) = steps["one"], steps["mesh"]
+    edge = h.last.local.meta_env["Edge"]
+    out["query"] = {
+        "loss": (l2, l1), "secs": qs, "collectives": qc,
+        "plans": sorted((p.kind, p.data_kind, p.needs_data_psum) for p in h.plans.values()),
+        "placements": h.placements, "edge": (edge.nnz, rel_nbytes(edge)),
+        "dnode": excess((dn2 - dn1).double().abs(), 64 * U32 * math.sqrt(pe.nnz) * dn1.abs().max()),
+        "dedge": excess((de2 - de1).double().abs(), 64 * U32 * de1.abs().max()),
+        "digests": [digest(dn2), digest(de2)],
+    }
+    del steps, h, dn1, dn2, de1, de2
+    torch.cuda.empty_cache()
+
+    # 23.4: certificates of the 4 × 1 step and its launch records at the
+    # shard shapes
+    x, keys, w = data["x"], data["keys"], data["w"]
+    env = {"Edge": CooRelation(pe.keys, pe.values, (n, n), 1), "Node": DenseRelation(x, 1)}
+    conv = [c for c in compiled if c.lowered.sig == env_signature(env)]
+    cert = certify(conv[0], env)
+    out["certificate"] = {"ok": cert.ok, "reshard": cert.reshard, "divisibility": cert.divisibility}
+    reports = [certify_kernels(c) for c in compiled]
+    out["kernels_ok"] = all(r.ok for r in reports)
+    seen, bad, compared = set(), [], 0
+    for _, key, op, _, info, _ in out["sites"]:
+        site = (op, tuple(sorted((k, str(v)) for k, v in info.items())))
+        if site in seen:
+            continue
+        seen.add(site)
+        launched, aligned = record_call(torch, kern, op, dict(info, dtype=str(info["dtype"]).split(".")[-1]), dev)
+        record = last_launches() if launched else ()
+        compared += len(record)
+        miss = launch_mismatch(op, info, record, **({} if op == "blocked_matmul" else {"aligned": aligned}))
+        if miss:
+            bad.append(miss)
+    out["records"] = (len(seen), compared, bad)
+    # planted: the node table committed sharded over the data ranks where
+    # the plan wants it whole (padded to a multiple of 4 rows, one zero row)
+    n4 = -(-n // MESH_RANKS) * MESH_RANKS
+    x4 = torch.cat([x, x.new_zeros(n4 - n, x.shape[1])])
+    env4 = {"Edge": CooRelation(keys, w, (n4, n4)), "Node": DenseRelation(x4, 1)}
+    comp = RAEngine(_gcn_prog()[0].forward).lower(env4, dispatch=db.dispatch).compile(mesh=m41)
+    want = comp(env4).data
+    local = x4.narrow(0, rank * (n4 // MESH_RANKS), n4 // MESH_RANKS)
+    wrong = dict(env4, Node=DenseRelation(
+        DTensor.from_local(local, m41, [Shard(0), Replicate()], run_check=False), 1))
+    bad_cert = certify(comp, wrong)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        got = [comp(wrong).data for _ in range(2)]
+    out["committed"] = {
+        "ok": bad_cert.ok, "node": bad_cert.reshard["relations"]["Node"],
+        "warnings": [c.message.bytes_moved for c in caught if issubclass(c.category, ReshardWarning)],
+        "counters": dict(comp.counters["reshard"]),
+        "equal": all(torch.equal(g, want) for g in got), "node_bytes": x4.numel() * 4,
+    }
+    del got, want, wrong, x4, env4, comp
+    torch.cuda.empty_cache()
+
+    # 23.3: the 2 × 2 mesh — the product co-partitioned on its contraction
+    # blocks (blocked_matmul on the model slabs, then the model all-reduce),
+    # and one GCN step
+    gen = torch.Generator(device=dev).manual_seed(23)
+    shape = (MESH_BLOCKS, MESH_BLOCKS, MESH_B, MESH_B)
+    bx, bw = (torch.randn(shape, device=dev, generator=gen) for _ in range(2))
+
+    def product(session):
+        px, pw = bx.clone().requires_grad_(True), bw.clone().requires_grad_(True)
+        with session.activate():
+            prod = rel_matmul_blocked(px, pw)
+            (prod * prod).sum().backward()
+        return prod.detach(), px.grad, pw.grad
+
+    one = product(repro_torch.Database(dev))
+    tight = repro_torch.Database(dev, mesh=m22, mem_budget=MESH_TIGHT_BUDGET)
+    collectives.reset_collectives()
+    kern.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = product(tight)
+    torch.cuda.synchronize()
+    out["product_s"] = time.perf_counter() - t0
+    out["product_collectives"] = collectives.last_collectives()
+    out["product_launches"] = kern.launch_counts()
+    out["product_plans"] = sorted({(p.kind, p.data_kind, p.needs_psum) for c in tight._compiled_refs
+                                   for p in c.plans.values()})
+    flat = lambda t: t.permute(0, 2, 1, 3).reshape(MESH_BLOCKS * MESH_B, -1)  # noqa: E731
+    xw = rounding_walk(flat(bx), flat(bw))
+    out["product_excess"] = excess((flat(got[0]) - flat(one[0])).double().abs(), MATMUL_LIMIT * xw)
+    # dX = G·Wᵀ, dW = Xᵀ·G with G = 2·out: their own rounding walks plus
+    # what the product's difference moves them by, exactly
+    g1, g2 = 2 * flat(one[0]).double(), 2 * flat(got[0]).double()
+    dg = (g2 - g1).abs()
+    fw, fx = flat(bw).double(), flat(bx).double()
+    lim_dx = MATMUL_LIMIT * rounding_walk(g1, fw.t()) + dg @ fw.abs().t()
+    lim_dw = MATMUL_LIMIT * rounding_walk(fx.t(), g1) + fx.abs().t() @ dg
+    dx_t = lambda t: t.permute(0, 2, 1, 3).reshape(MESH_BLOCKS * MESH_B, -1).double()  # noqa: E731
+    out["dx_excess"] = excess((dx_t(got[1]) - dx_t(one[1])).abs(), lim_dx)
+    out["dw_excess"] = excess((dx_t(got[2]) - dx_t(one[2])).abs(), lim_dw)
+    out["product_digests"] = [digest(t) for t in got]
+    del one, got, bx, bw, g1, g2, dg, fw, fx, lim_dx, lim_dw, xw
+    torch.cuda.empty_cache()
+    collectives.reset_collectives()
+    db22 = repro_torch.Database(dev, mesh=m22)
+    db22.put("Edge", pe)
+    _, l22, s22, f22, _, p22 = run_gcn(torch, repro_torch, mdata, params0, None, steps=2, db=db22)
+    out["gcn22_plans"] = sorted({(p.kind, p.data_kind) for c in db22._compiled_refs for p in c.plans.values()})
+    out["gcn22"] = {"losses": l22, "secs": s22, "first": cpu_first(f22),
+                    "collectives": collectives.last_collectives(),
+                    "digests": [digest(v) for _, v in sorted(p22.items())]}
+    torch.cuda.synchronize()
+    return out
+
+
+def mesh_phase(torch, repro_torch, kern, data, params0, dev, smi):
+    """Phase 23 (module docstring): 23.1 in this process on a one-rank
+    NCCL group, 23.2-23.4 in MESH_RANKS new processes that share the card
+    over gloo (``mesh_rank``). Returns the sites and launches of the 4 × 1
+    GCN step for the per-kernel JSON line."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.core import planner
+    from repro_torch.launch import collectives
+    from repro_torch.launch import mesh as launch_mesh
+
+    log(f"  card: {smi}")
+    t0 = time.perf_counter()
+    # the one-rank mesh-less step of phase 3 (whose cuda tier repeats its bits)
+    _, ref_losses, ref_secs, ref_first, _, ref_params = run_gcn(torch, repro_torch, data, params0, None)
+    ref_ms = statistics.median(ref_secs[1:]) * 1e3
+    log(f"  the mesh-less step (phase 3's): {ref_ms:.2f} ms (median of steps 2-{GCN_STEPS})")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        log("  23.1 Database(mesh='host') on a one-rank NCCL group on cuda:0")
+        launch_mesh.init_ranks("nccl", 0, 1, os.path.join(tmp, "nccl"), device=torch.device("cuda", 0))
+        try:
+            db = repro_torch.Database(dev, mesh="host")
+            kern.reset_launch_counts()
+            collectives.reset_collectives()
+            _, losses, secs, first, _, params = run_gcn(torch, repro_torch, data, params0, None, db=db)
+            backend = dist.get_backend()
+            compiled = list(db._compiled_refs)
+            single = planner.MeshGeometry.single(1)
+            same_plans = bool(compiled) and all(
+                c.geometry == single and c.plans == c.lowered.compile(mem_budget=db.mem_budget).plans
+                for c in compiled)
+            coll = collectives.last_collectives()
+            launches = kern.launch_counts()
+        finally:
+            dist.destroy_process_group()
+        ms = statistics.median(secs[1:]) * 1e3
+        equal = (losses == ref_losses and all(torch.equal(params[k], ref_params[k]) for k in params)
+                 and all(torch.equal(first["grads"][k], ref_first["grads"][k]) for k in params))
+        log(f"  backend {backend}, mesh {db.mesh}: {len(compiled)} executables, plans equal "
+            f"MeshGeometry.single(1)'s: {same_plans}; collectives {coll or 'none'}; launches {launches}")
+        log(f"  23.1 step: {ms:.2f} ms (median of steps 2-{GCN_STEPS}; mesh-less {ref_ms:.2f} ms) on {smi}")
+        log(f"  losses and step-1 gradients and the last parameters bit-equal to the mesh-less step: {equal}")
+        if not same_plans or not equal:
+            raise AssertionError("the one-rank NCCL mesh step is not the mesh-less step")
+        if not all(launches[op] > 0 for op in GCN_KERNELS):
+            raise AssertionError(f"a kernel of the one-rank mesh step never launched: {launches}")
+        log(f"  23.1: {time.perf_counter() - t0:.1f} s")
+
+        t1 = time.perf_counter()
+        path = os.path.join(tmp, "gcn.pt")
+        torch.save({"data": {k: v.cpu() for k, v in data.items()},
+                    "params0": {k: v.cpu() for k, v in params0.items()}}, path)
+        ranks = launch_mesh.start_ranks(mesh_rank, MESH_RANKS, backend="gloo", device="cuda:0",
+                                        args=(path, "cuda:0"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"  {MESH_RANKS} ranks started and run in {time.perf_counter() - t1:.1f} s")
+    r0 = ranks[0]
+    log(f"  the group's backend: {r0['backend']}; on this card's tensors it takes {r0['taken']} "
+        f"and refuses {r0['refused'] or 'none'}")
+    if r0["refused"]:
+        raise AssertionError(f"{r0['backend']} refuses {r0['refused']} on this card's tensors")
+
+    log(f"  23.2 the GCN on the {MESH_RANKS} × 1 mesh, {MESH_RANKS} gloo ranks sharing cuda:0")
+    log(f"  plans: {r0['plans']}")
+    for r in ranks:
+        ms = statistics.median(r["secs"][1:]) * 1e3
+        log(f"  rank {r['rank']}: step {ms:.2f} ms (median of steps 2-{GCN_STEPS}); per executable "
+            f"joining the edges, (plan, edge rows on the rank, their keys and weights in bytes): "
+            f"{r['edge']}; ⌈E/{MESH_RANKS}⌉ = {MESH_EDGE_ROWS} rows; peak {r['peak'][0]} bytes")
+        shards = [e for e in r["edge"] if e[0] == "shard"]
+        if len(shards) < 2 or any(e[1:] != (MESH_EDGE_ROWS, MESH_EDGE_ROWS * 12) for e in shards):
+            raise AssertionError(f"rank {r['rank']}: the forward convolutions do not hold ⌈E/"
+                                 f"{MESH_RANKS}⌉ edge rows")
+    for name, rec in sorted(r0["collectives"].items()):
+        log(f"  collective {name}: {rec['calls'] / GCN_STEPS:g} calls and "
+            f"{rec['bytes'] / GCN_STEPS:.0f} bytes per step per rank")
+    # the Σ-scatter is a reduce-scatter where the grid's rows split over the
+    # data ranks, else an all-reduce (169,343 rows do not split over 4)
+    if not {"reduce_scatter/data", "all_reduce/data"} & set(r0["collectives"]):
+        raise AssertionError("the nnz-sharded plan's data-axis reduction never ran")
+    off = [(key, tier) for _, key, _, tier, _, _ in r0["sites"] if tier != "cuda"]
+    if not r0["sites"] or off:
+        raise AssertionError(f"mesh dispatch sites not on the cuda tier: {off or 'none recorded'}")
+    log(f"  launches per rank over {GCN_STEPS} steps: {r0['launches']}")
+    if not all(r0["launches"][op] > 0 for op in GCN_KERNELS):
+        raise AssertionError(f"a kernel never launched on the mesh path: {r0['launches']}")
+    log(f"  losses: {r0['losses']} (mesh-less: {ref_losses})")
+    for r in ranks[1:]:
+        if r["losses"] != r0["losses"] or not all(torch.equal(r["params"][k], r0["params"][k])
+                                                  for k in r0["params"]):
+            raise AssertionError(f"rank {r['rank']}'s step differs from rank 0's")
+    log("  every rank's losses and last parameters bit-equal to rank 0's: True")
+    log(f"  a second {GCN_STEPS}-step run on the same mesh ends bit-equal: {r0['repeats']}")
+    hold_step1(torch, to_dev(r0["first"], dev), ref_first, f"{MESH_RANKS}x1 mesh", partials=MESH_RANKS)
+    dloss, worst = hold_step1(torch, to_dev(r0["planted"], dev), ref_first, "planted", partials=MESH_RANKS,
+                              check=False)
+    log(f"  planted fault (rank 1's partial left out of the data-axis sums): loss rel diff "
+        f"{dloss:.3e} (limit 1e-5), gradient err/limit {worst:.3e}; must exceed")
+    if dloss <= 1e-5 and worst <= 1.0:
+        raise AssertionError("the mesh step's limits pass a missing reduction")
+
+    q = r0["query"]
+    log(f"  the GCN query through Database(mesh=...).query(...).step(wrt=(Edge, Node)): plans "
+        f"{q['plans']}, placements {q['placements']}; one step {q['secs'] * 1e3:.2f} ms; "
+        f"collectives {q['collectives']}")
+    log(f"  loss {q['loss'][0]!r} against the mesh-less step's {q['loss'][1]!r}; ∂/∂Node err/limit "
+        f"{q['dnode']:.3e}, ∂/∂Edge err/limit {q['dedge']:.3e} (limit 64·u·√E·max|g|, 64·u·max|g|)")
+    for r in ranks:
+        log(f"  rank {r['rank']}: the whole step's edge relation on the rank: {r['query']['edge'][0]} rows, "
+            f"{r['query']['edge'][1]} bytes of keys and weights (⌈E/{MESH_RANKS}⌉ = {MESH_EDGE_ROWS})")
+        if r["query"]["edge"] != (MESH_EDGE_ROWS, MESH_EDGE_ROWS * 12):
+            raise AssertionError(f"rank {r['rank']} holds other than ⌈E/{MESH_RANKS}⌉ edge rows")
+        if r["query"]["digests"] != q["digests"] or r["query"]["loss"] != q["loss"]:
+            raise AssertionError(f"rank {r['rank']}'s query step differs from rank 0's")
+    if abs(q["loss"][0] - q["loss"][1]) > 1e-5 * abs(q["loss"][1]) or max(q["dnode"], q["dedge"]) > 1.0:
+        raise AssertionError("the mesh query step differs from the mesh-less step")
+    if not any(k.startswith("data:shard_nnz") and psum for _, k, psum in q["plans"]):
+        raise AssertionError("the GCN query's edges are not nnz-sharded")
+
+    log("  23.3 the 2 × 2 mesh")
+    log(f"  product ({MESH_BLOCKS * MESH_B} × {MESH_BLOCKS * MESH_B})² in {MESH_B}-blocks under "
+        f"mem_budget {MESH_TIGHT_BUDGET:g}: plans {r0['product_plans']}; forward and backward "
+        f"{r0['product_s'] * 1e3:.2f} ms; collectives {r0['product_collectives']}; launches "
+        f"{r0['product_launches']}")
+    log(f"  product against the one-rank product: err/limit {r0['product_excess']:.3e} (limit "
+        f"{MATMUL_LIMIT} rounding walks); dX {r0['dx_excess']:.3e}, dW {r0['dw_excess']:.3e}")
+    if not any(k == "copartition" and psum for k, _, psum in r0["product_plans"]):
+        raise AssertionError("the tight product did not co-partition")
+    if "all_reduce/model" not in r0["product_collectives"] or r0["product_launches"]["blocked_matmul"] <= 0:
+        raise AssertionError("the co-partitioned product ran no model all-reduce or no kernel")
+    if max(r0["product_excess"], r0["dx_excess"], r0["dw_excess"]) > 1.0:
+        raise AssertionError("the 2 × 2 product differs from the one-rank product")
+    g22 = r0["gcn22"]
+    log(f"  GCN on 2 × 2: plans {r0['gcn22_plans']}; losses {g22['losses']}, step 2 "
+        f"{g22['secs'][1] * 1e3:.2f} ms; collectives {g22['collectives']}")
+    hold_step1(torch, to_dev(g22["first"], dev), ref_first, "2x2 mesh", partials=2)
+    for r in ranks[1:]:
+        if r["product_digests"] != r0["product_digests"] or r["gcn22"]["digests"] != g22["digests"]:
+            raise AssertionError(f"rank {r['rank']}'s 2 × 2 results differ from rank 0's")
+    log("  every rank's 2 × 2 results bit-equal to rank 0's: True")
+
+    log("  23.4 certificates of the 4 × 1 step")
+    cert = r0["certificate"]
+    log(f"  certify(gcn_conv forward): ok {cert['ok']}; reshard {cert['reshard']['proven_zero_unplanned']}; "
+        f"divisibility {cert['divisibility']}")
+    sites, compared, bad = r0["records"]
+    log(f"  certify_kernels over the mesh step's shard-shape lowerings: ok {r0['kernels_ok']}; "
+        f"{sites} shard-shape sites, {compared} launches held to the contract models, "
+        f"{len(bad)} mismatches {bad[:3]}")
+    if not (cert["ok"] and r0["kernels_ok"]) or bad:
+        raise AssertionError("the mesh step does not certify")
+    c = r0["committed"]
+    log(f"  planted (the node table committed sharded on the data axis): certificate ok {c['ok']}, "
+        f"Node {c['node']}; ReshardWarning(s) over 2 calls: {c['warnings']}; counters {c['counters']}; "
+        f"outputs equal the planned layout's: {c['equal']}")
+    if (c["ok"] or c["node"].get("bytes") != c["node_bytes"] or c["warnings"] != [c["node_bytes"]]
+            or c["counters"]["bytes_moved"] != 2 * c["node_bytes"] or not c["equal"]):
+        raise AssertionError("the wrong committed layout is not reported as the plan says")
+    launches = {op: sum(r["launches"][op] for r in ranks) for op in r0["launches"]}
+    return {"sites": r0["sites"], "launches": launches}
 
 
 def main() -> int:
@@ -5930,15 +6460,23 @@ def main() -> int:
     certification_phase(torch, repro_torch, kern, data, params0, lm_cfg, oocore, dev)
     log(f"  phase 22: {time.perf_counter() - t0:.1f} s")
 
-    log("phase 8: timings at the shapes of the main paths")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
+    # phase 23 runs after phase 22, before phase 8, which times its sites too
+    log("phase 23: the relational engine on a mesh")
+    t0 = time.perf_counter()
+    mesh = mesh_phase(torch, repro_torch, kern, data, params0, dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  phase 23: {time.perf_counter() - t0:.1f} s")
+
+    log("phase 8: timings at the shapes of the main paths")
     log(smi)
     t0 = time.perf_counter()
     records = timing_phase(torch, graph, {"sites": sites, "launches": launches}, logreg, nnmf, kge,
-                           lm, oocore, olmoe, ssm, dense, errs, dev)
+                           lm, oocore, olmoe, ssm, dense, mesh, errs, dev)
     log(f"  phase 8: {time.perf_counter() - t0:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)

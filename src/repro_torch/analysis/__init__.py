@@ -5,9 +5,10 @@
 - ``typecheck``: bottom-up schema/shape/dtype inference over an FRA graph;
   ``check_query`` returns a :class:`CheckReport`, and the engine runs it as
   the mandatory validate stage of ``RAEngine.lower``.
-- ``certify``: static certificates over a mesh-less ``Compiled`` /
-  ``StreamedCompiled`` plan — COO owner-partition soundness, wave
-  soundness, partial-RJP grad derivability and the kernel sites.
+- ``certify``: static certificates over a ``Compiled`` /
+  ``StreamedCompiled`` plan — on a mesh the reshard and divisibility
+  proofs, COO owner-partition soundness, wave soundness, partial-RJP grad
+  derivability and the kernel sites.
 - ``kernelcheck``: static certification of the kernel dispatch registry
   against the packages' ``KernelContract``s — launch-model soundness of
   the CUDA launches, VJP tier pairing and dispatch-predicate determinism;

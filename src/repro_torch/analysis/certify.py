@@ -1,23 +1,17 @@
 """Static plan certification: *prove* plan properties from the compile
 records instead of observing them at runtime.
 
-The port certifies mesh-less plans (one device, in core or streamed in
-waves). Its sections ``reshard`` and ``divisibility`` are proven
-trivially, as the reference proves them for a mesh-less plan; the mesh
-half of the certifier (``_certify_reshard``, ``_certify_divisibility``)
-waits for multi-device planning (ROADMAP.md, queue 1 item 4), and a plan
-on a mesh raises ``NotImplementedError``.
-
 ``certify(compiled, env, ...)`` inspects a ``Compiled`` (or
 ``StreamedCompiled``) together with the environment it will run over and
 emits a :class:`Certificate` asserting, section by section:
 
 - ``reshard``: zero-unplanned-reshard execution — every committed input
-  layout either equals the planned spec, or the move was recorded in the
-  plan's rechunk stage (``Compiled.rechunks``, priced at plan time). The
-  proof re-derives the committed-vs-planned comparison that
-  ``Compiled.__call__`` performs dynamically (and warns about), so a CI
-  lane can assert it *before* paying an execution.
+  layout (a ``DTensor``'s placements on the mesh) either equals the planned
+  spec, or the move was recorded in the plan's rechunk stage
+  (``Compiled.rechunks``, priced at plan time). The proof re-derives the
+  committed-vs-planned comparison that ``Compiled.__call__`` performs
+  dynamically (and warns about), so a CI lane can assert it *before*
+  paying an execution; an unplanned move is reported with its bytes.
 - ``divisibility``: every sharded block dim of the effective input
   shardings divides by the mesh axes placed on it, and COO nnz padding
   targets are exactly the next shard multiple. Planner intents the
@@ -50,7 +44,8 @@ import numpy as np
 
 from ..core import fra
 from ..core.keys import solve_left_key
-from ..core.relation import COO_PAD_KEY, CooRelation
+from ..core.planner import _rel_bytes
+from ..core.relation import COO_PAD_KEY, CooRelation, DenseRelation
 from .typecheck import _mirror_join
 
 
@@ -105,6 +100,7 @@ class Certificate:
             lines.append(
                 f"    {name}: {rec['status']} "
                 f"(planned={rec['planned']}, committed={rec['committed']})"
+                + (f", {rec['bytes']} bytes moved per call" if "bytes" in rec else "")
             )
         lines.append(
             "  divisibility: "
@@ -143,6 +139,114 @@ class Certificate:
 def _np(t) -> np.ndarray:
     """A tensor (on any device) or an array as a numpy array."""
     return t.detach().cpu().numpy() if hasattr(t, "detach") else np.asarray(t)
+
+
+def _spec_str(spec) -> Optional[str]:
+    return None if spec is None else str(tuple(spec))
+
+
+def _norm(spec):
+    """Trailing-None-insensitive spec comparison key (mirrors
+    ``engine._norm_spec`` independently)."""
+    if spec is None:
+        return ()
+    t = tuple(spec)
+    while t and t[-1] is None:
+        t = t[:-1]
+    return t
+
+
+def _axes_total(mesh, ax) -> Optional[int]:
+    sizes = dict(zip(tuple(mesh.mesh_dim_names), tuple(mesh.mesh.shape)))
+    axes = ax if isinstance(ax, tuple) else (ax,)
+    total = 1
+    for a in axes:
+        if a not in sizes:
+            return None
+        total *= int(sizes[a])
+    return total
+
+
+def _certify_reshard(compiled, committed: Dict[str, object], env) -> Dict[str, object]:
+    relations: Dict[str, Dict[str, object]] = {}
+    proven = True
+    for name in sorted(compiled.input_specs):
+        planned = compiled.planned_spec(name)
+        have = committed.get(name)
+        rec = {"planned": _spec_str(planned), "committed": _spec_str(have)}
+        if have is None:
+            rec["status"] = "uncommitted"  # whole on every rank: cut for free
+        elif _norm(have) == _norm(planned):
+            rec["status"] = "aligned"
+        elif name in getattr(compiled, "rechunks", {}):
+            rec["status"] = "planned-rechunk"  # costed by the plan's rechunk stage
+        else:
+            rec["status"] = "unplanned"
+            # the bytes Compiled.__call__ moves for it, every call
+            rec["bytes"] = int(_rel_bytes(env[name])) if name in env else None
+            proven = False
+        relations[name] = rec
+    return {"proven_zero_unplanned": proven, "relations": relations}
+
+
+def _certify_divisibility(compiled, env) -> Dict[str, object]:
+    mesh = compiled.mesh
+    out: Dict[str, object] = {"ok": True, "relations": {}, "fallbacks": []}
+    if mesh is None:
+        return out
+    for name, rel in env.items():
+        planned = compiled.planned_spec(name)
+        intent = compiled.input_specs.get(name)
+        items = []
+        if isinstance(rel, CooRelation):
+            total = None
+            if planned is not None and tuple(planned):
+                total = _axes_total(mesh, tuple(planned)[0])
+            if total and total > 1:
+                nnz = int(rel.keys.shape[0])
+                target = compiled.pad_nnz.get(name)
+                padded = target if target is not None else nnz
+                ok = padded % total == 0 and padded >= nnz
+                if target is not None:
+                    # padding must be the *next* shard multiple, no more
+                    ok = ok and target == ((nnz + total - 1) // total) * total
+                items.append(
+                    {"dim": "nnz", "extent": nnz, "padded": padded,
+                     "divisor": total, "ok": ok}
+                )
+                if not ok:
+                    out["ok"] = False
+        elif isinstance(rel, DenseRelation):
+            eff = tuple(planned) if planned is not None else ()
+            for d, ax in enumerate(eff):
+                if ax is None or d >= rel.key_arity:
+                    continue
+                total = _axes_total(mesh, ax)
+                if total is None or total <= 1:
+                    continue
+                extent = int(rel.data.shape[d])
+                ok = extent % total == 0
+                items.append(
+                    {"dim": d, "axis": str(ax), "extent": extent,
+                     "divisor": total, "ok": ok}
+                )
+                if not ok:
+                    out["ok"] = False
+            # intents the sharding stage dropped (replication fallback)
+            for d, ax in enumerate(_norm(intent)):
+                if ax is None or d >= rel.key_arity:
+                    continue
+                if d >= len(eff) or eff[d] != ax:
+                    total = _axes_total(mesh, ax)
+                    if total and total > 1:
+                        out["fallbacks"].append(
+                            f"{name} dim {d}: planner intent {ax!r} dropped "
+                            f"(extent {int(rel.data.shape[d])} not divisible "
+                            f"by {total}); replicated instead"
+                        )
+        if items:
+            out["relations"][name] = items
+    return out
 
 
 def _certify_coo(env) -> Dict[str, object]:
@@ -330,29 +434,18 @@ def certify(
 ) -> Certificate:
     """Certify a compiled plan against the environment it will execute.
 
-    ``compiled`` is a ``Compiled`` or ``StreamedCompiled``;
-    ``query``/``wrt`` additionally attach the grad-derivability section.
-    ``committed`` (the committed layouts of a plan on a mesh) is accepted
-    for the reference's signature; a plan on a mesh raises
-    ``NotImplementedError``: the port has no multi-device planning yet."""
-    from ..core.engine import Compiled, StreamedCompiled
+    ``compiled`` is a ``Compiled`` or ``StreamedCompiled``; ``committed``
+    optionally overrides the committed layouts (default: read off
+    ``env``'s DTensors, exactly as ``compile_auto`` does);
+    ``query``/``wrt`` additionally attach the grad-derivability section."""
+    from ..core.engine import Compiled, StreamedCompiled, _committed_layouts
 
-    if getattr(compiled, "mesh", None) is not None or committed:
-        raise NotImplementedError(
-            "certify: plans on a mesh (reshard and divisibility proofs) wait "
-            "for multi-device planning (ROADMAP.md, queue 1 item 4)"
-        )
     grad = None
     if query is not None:
         grad = certify_grad(query, wrt or getattr(query, "inputs", ()))
     if not isinstance(compiled, (Compiled, StreamedCompiled)):
         raise TypeError(f"cannot certify {type(compiled).__name__}")
     kernels_section = _kernels_section(compiled)
-    meshless = {
-        "proven_zero_unplanned": True,
-        "relations": {},
-        "reason": "mesh-less plan: no device_put stage, nothing can move",
-    }
 
     if isinstance(compiled, StreamedCompiled):
         cert = Certificate(kind="streamed", grad=grad, kernels=kernels_section)
@@ -361,6 +454,15 @@ def certify(
         return cert
 
     cert = Certificate(kind="in-core", grad=grad, kernels=kernels_section)
-    cert.reshard = meshless
+    if compiled.mesh is not None:
+        have = committed if committed is not None else _committed_layouts(env)
+        cert.reshard = _certify_reshard(compiled, have, env)
+        cert.divisibility = _certify_divisibility(compiled, env)
+    else:
+        cert.reshard = {
+            "proven_zero_unplanned": True,
+            "relations": {},
+            "reason": "mesh-less plan: no device_put stage, nothing can move",
+        }
     cert.coo = _certify_coo(env)
     return cert

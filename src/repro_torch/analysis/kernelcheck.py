@@ -391,10 +391,15 @@ def certify_registry(
 
 
 def _lowered_of(compiled: Any):
-    """Accept a Compiled, StreamedCompiled, or Lowered."""
+    """Accept a Compiled, StreamedCompiled, or Lowered. A Compiled on a
+    mesh that has run certifies its lowering at the shard shapes its
+    kernels launch at (``Compiled.local``)."""
     inner = getattr(compiled, "_inner", None)
     if inner is not None:  # StreamedCompiled wraps a per-wave Compiled
         compiled = inner
+    local = getattr(compiled, "local", None)
+    if local is not None:
+        return local
     return getattr(compiled, "lowered", compiled)
 
 

@@ -125,6 +125,7 @@ def check_query(
     schema: Optional[Dict[str, Tuple[str, ...]]] = None,
     wrt: Tuple[str, ...] = (),
     fuse_join_agg: bool = True,
+    geometry=None,
 ) -> CheckReport:
     """Statically check an FRA query (``fra.Query`` or bare ``fra.Node``).
 
@@ -136,7 +137,10 @@ def check_query(
     names gradient inputs for partial-RJP derivability warnings (the
     query's own ``inputs`` are used when it is a ``fra.Query``).
     ``fuse_join_agg`` mirrors the engine flag (a Σ directly over a ⋈ is
-    checked as the fused form)."""
+    checked as the fused form). ``geometry`` (a ``planner.MeshGeometry``)
+    adds the ``non-divisible-shard`` warning: a dense base relation none of
+    whose key extents divides the mesh's model axis is replicated by the
+    planner."""
     root = query.root if isinstance(query, fra.Query) else query
     if isinstance(query, fra.Query) and not wrt:
         wrt = query.inputs
@@ -699,6 +703,30 @@ def check_query(
         return t
 
     visit(root, "")
+
+    # -- sharded-extent divisibility against the mesh geometry --------------
+    if geometry is not None and getattr(geometry, "model_size", 1) > 1 and env:
+        m = int(geometry.model_size)
+        for s in root.topo():
+            if not isinstance(s, (fra.TableScan, fra.Const)):
+                continue
+            name = s.name if isinstance(s, fra.TableScan) else s.ref
+            rel = (env or {}).get(name)
+            if not isinstance(rel, DenseRelation):
+                continue
+            exts = [int(e) for e in rel.extents[: rel.key_arity]]
+            if not exts or not any(e >= m for e in exts):
+                continue
+            if not any(e % m == 0 for e in exts):
+                warn(
+                    "non-divisible-shard",
+                    f"τ({name})" if isinstance(s, fra.TableScan) else f"const({name})",
+                    f"no key extent of {name!r} {tuple(exts)} divides the "
+                    f"mesh model axis ({m} devices); the planner will fall "
+                    "back to replicating it",
+                    "pad the relation to a multiple of the model-axis size "
+                    "to shard it",
+                )
 
     # drop duplicate diagnostics (shared subgraphs), preserving order
     seen = set()

@@ -34,6 +34,24 @@ takes the op's plain version, which only propagates shapes.
 Keys are int32, as in the reference; they are widened to int64 only where
 torch indexing requires it.
 
+On a mesh, ``_execute_graph(..., place=Placement(...))`` runs the same
+walk on one rank's local shards. A ``Placement`` knows the layout of every
+value (``Layout``: which block dims — for a COO relation, the nnz rows, dim
+0 — an axis group of the mesh shards) and the mesh's collective layer. A
+planned Join first moves each operand to the layout its ``JoinPlan`` names
+(an all-gather where a sharded dim must be whole, a local slice where a
+whole one must be sharded); every join, planned or not, then runs on local
+shards by one rule: an axis group shards at most one join-key class, every
+operand holding that class is sliced alike, and the output is sharded where
+the class survives the (Σ-composed) projection, or a partial sum per rank
+where a Σ drops it. A gather against a sharded table looks each key up in
+its own rows only (the other ranks' keys gather zero rows), leaving partial
+sums too. A partial sum never outlives the node that made it: it is reduced
+at once, by an all-reduce over the group — or, for the Σ-scatter of a
+``data:shard_nnz_*`` plan, by a reduce-scatter whose rows stay sharded. The
+kernels run on the local shards, and a step's outputs are made whole on
+every rank.
+
 Dense gradients of *absent* tuples: a relational gradient relation simply
 lacks tuples that received no contribution; a dense tensor cannot express
 absence, so the compiled gradient stores explicit zeros there. Under the
@@ -55,6 +73,11 @@ from .relation import CooRelation, DenseRelation
 
 AnyRel = Union[DenseRelation, CooRelation]
 Env = Dict[str, AnyRel]
+
+#: where a value's tensors lie across the ranks: block dim (0 = the nnz
+#: rows of a COO relation) → the axis group ("data" or "model") sharding
+#: it; dims not named are whole on every rank
+Layout = Dict[int, str]
 
 _BLOCK_LETTERS = string.ascii_uppercase
 
@@ -509,8 +532,14 @@ def _mask_padded_rows(keys: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
 
 
 def _coo_join(
-    join: fra.Join, lrel: AnyRel, rrel: AnyRel, dispatch, resolutions
+    join: fra.Join, lrel: AnyRel, rrel: AnyRel, dispatch, resolutions,
+    offsets: Optional[Tuple[int, ...]] = None,
+    dense_extents: Optional[Tuple[int, ...]] = None,
 ) -> CooRelation:
+    """COO ⋈ dense: gather the dense rows at the COO keys. On a mesh the
+    dense side may be one rank's slab: ``offsets`` are its first key per
+    dim (a key outside the slab gathers a zero row) and ``dense_extents``
+    its whole extents (the output's key domain)."""
     coo_is_left = isinstance(lrel, CooRelation)
     coo = lrel if coo_is_left else rrel
     dense = rrel if coo_is_left else lrel
@@ -528,8 +557,12 @@ def _coo_join(
         raise LoweringError(
             "COO join requires every dense key component matched (gather)"
         )
-    idx = tuple(coo.keys[:, d2c[j]] for j in range(dense.key_arity))
+    idx = tuple(
+        coo.keys[:, d2c[j]] - offsets[j] if offsets and offsets[j] else coo.keys[:, d2c[j]]
+        for j in range(dense.key_arity)
+    )
     gathered = _dispatched_gather(dense, idx, dispatch, resolutions)
+    dext = dense.extents if dense_extents is None else dense_extents
     kfn = _vmapped(join.kernel.fn, 1)
     if coo_is_left:
         vals = kfn(coo.values, gathered)
@@ -546,10 +579,10 @@ def _coo_join(
             continue
         if coo_is_left:
             col = c.idx if isinstance(c, L) else d2c[c.idx]
-            ext = coo.extents[c.idx] if isinstance(c, L) else dense.extents[c.idx]
+            ext = coo.extents[c.idx] if isinstance(c, L) else dext[c.idx]
         else:
             col = c.idx if isinstance(c, R) else d2c[c.idx]
-            ext = coo.extents[c.idx] if isinstance(c, R) else dense.extents[c.idx]
+            ext = coo.extents[c.idx] if isinstance(c, R) else dext[c.idx]
         cols.append(coo.keys[:, col])
         extents.append(ext)
     keys = torch.stack(cols, dim=1) if cols else coo.keys.new_zeros((coo.nnz, 0))
@@ -648,6 +681,167 @@ def _restricted_join(
     )
 
 
+def _select_coo(n: fra.Select, rel: CooRelation) -> CooRelation:
+    if not n.pred.always_true:
+        raise LoweringError("predicated σ over COO not supported")
+    cols = []
+    extents = []
+    for c in n.proj.comps:
+        if isinstance(c, Lit):
+            raise LoweringError("Lit proj over COO")
+        cols.append(rel.keys[:, c.idx])
+        extents.append(rel.extents[c.idx])
+    keys = torch.stack(cols, dim=1)
+    vals = _vmapped(n.kernel.fn, 1)(rel.values)
+    # σ kernels with f(0) != 0 would resurrect padded rows;
+    # re-mask so they stay inert through full-reduce Σs
+    vals = _mask_padded_rows(rel.keys, vals)
+    return CooRelation(keys, vals, tuple(extents))
+
+
+def _select_proj(n: fra.Select) -> Tuple[Dict[int, object], List[int], List[int]]:
+    """(fixed components, surviving components, σ's permutation of the
+    survivors) of a σ over a dense relation."""
+    if n.pred.custom is not None:
+        raise LoweringError("custom σ predicate not compilable")
+    fixed = dict(n.pred.eqs)
+    remaining = [i for i in range(n.child.key_arity) if i not in fixed]
+    proj_idx = []
+    for c in n.proj.comps:
+        if isinstance(c, Lit):
+            raise LoweringError("Lit σ projection over dense")
+        if c.idx in fixed:
+            raise LoweringError("σ projects a predicate-fixed component")
+        proj_idx.append(remaining.index(c.idx))
+    if sorted(proj_idx) != list(range(len(remaining))):
+        raise LoweringError("σ projection must permute surviving comps")
+    return fixed, remaining, proj_idx
+
+
+def _select_dense(n: fra.Select, rel: DenseRelation) -> DenseRelation:
+    fixed, remaining, proj_idx = _select_proj(n)
+    data = rel.data
+    # select fixed components (descending so axes stay valid)
+    for i in sorted(fixed, reverse=True):
+        data = data.select(i, fixed[i])
+    chunk_axes = tuple(range(len(remaining), data.dim()))
+    data = data.permute(tuple(proj_idx) + chunk_axes)
+    data = _vmapped(n.kernel.fn, len(proj_idx))(data)
+    return DenseRelation(data, key_arity=len(proj_idx))
+
+
+def _agg_keep(grp: KeyFn, arity: int) -> List[int]:
+    """The child key components a Σ over a dense relation keeps, in grp
+    order (none for a full reduction)."""
+    if all(isinstance(c, Lit) for c in grp.comps) and grp.arity_out == 0:
+        return []
+    if any(isinstance(c, Lit) for c in grp.comps):
+        raise LoweringError("mixed Lit grp over dense not supported")
+    keep = [c.idx for c in grp.comps]
+    if len(set(keep)) != len(keep):
+        raise LoweringError("duplicate grp components over dense")
+    return keep
+
+
+def _agg_dense(grp: KeyFn, rel: DenseRelation) -> DenseRelation:
+    arity = rel.key_arity
+    keep = _agg_keep(grp, arity)
+    if not keep:
+        data = rel.data.sum(dim=tuple(range(arity))) if arity else rel.data
+        return DenseRelation(data, key_arity=0)
+    drop = tuple(i for i in range(arity) if i not in keep)
+    data = rel.data.sum(dim=drop) if drop else rel.data
+    # axes now ordered by ascending original idx; permute to grp order
+    remaining = [i for i in range(arity) if i not in drop]
+    perm = [remaining.index(i) for i in keep]
+    data = data.permute(tuple(perm) + tuple(range(len(keep), data.dim())))
+    return DenseRelation(data, key_arity=len(keep))
+
+
+def _agg_coo(grp: KeyFn, rel: CooRelation, dispatch, resolutions) -> DenseRelation:
+    """Σ over a COO relation: the segment sum of its values by the kept
+    key columns into the dense grid of their extents."""
+    if any(isinstance(c, Lit) for c in grp.comps):
+        raise LoweringError("Lit grp over COO not supported")
+    keep = [c.idx for c in grp.comps]
+    extents = tuple(rel.extents[i] for i in keep)
+    if rel.nnz == 0:
+        # zero-nnz guard: the Σ of no tuples is the ⊕-unit grid,
+        # emitted without dispatching
+        return DenseRelation(
+            rel.values.new_zeros(extents + rel.chunk_shape),
+            key_arity=len(extents),
+        )
+    if not extents:
+        return DenseRelation(rel.values.sum(dim=0), key_arity=0)
+    flat = torch.zeros((rel.nnz,), dtype=torch.int32, device=rel.keys.device)
+    stride = 1
+    for i in reversed(range(len(keep))):
+        flat = flat + rel.keys[:, keep[i]].to(torch.int32) * stride
+        stride *= extents[i]
+    num = math.prod(extents)
+    chunk = rel.chunk_shape
+    d = math.prod(chunk)
+    info = {
+        "nnz": rel.nnz, "dim": d, "num_segments": num,
+        "dtype": rel.values.dtype,
+    }
+    impl = kernels.resolve_impl("segment_sum", info, dispatch)
+    _note(resolutions, "segment_sum", f"E={rel.nnz},D={d},S={num}", impl, info)
+    msg = rel.values.reshape((rel.nnz, d)).contiguous()
+    summed = _call(impl, "segment_sum", msg, flat, num)          # (num, d)
+    return DenseRelation(
+        summed.reshape(extents + chunk), key_arity=len(extents)
+    )
+
+
+def _dense_join(
+    n: fra.Join, grp: Optional[KeyFn], lrel: DenseRelation, rrel: DenseRelation,
+    dispatch, resolutions,
+) -> DenseRelation:
+    """Dense ⋈ dense (under an optional Σ ``grp``): the einsum path, the
+    aligned path, then the class-grid broadcast."""
+    k = n.kernel
+    if k.elementwise or k.chunk_spec is not None:
+        try:
+            return _einsum_join(
+                n, grp, lrel, rrel, dispatch=dispatch, resolutions=resolutions
+            )
+        except LoweringError:
+            pass
+    al = _aligned_join(n, lrel, rrel)
+    if al is not None:
+        if grp is not None:
+            al = _agg_dense(grp, al)
+        return al
+    bc = _broadcast_join(n, grp, lrel, rrel)
+    if bc is not None:
+        return bc
+    raise LoweringError(f"cannot lower join {n.describe()}")
+
+
+def _add(a: AnyRel, b: AnyRel) -> DenseRelation:
+    if isinstance(a, DenseRelation) and isinstance(b, DenseRelation):
+        return DenseRelation(a.data + b.data, a.key_arity)
+    if isinstance(a, DenseRelation) and isinstance(b, CooRelation):
+        a, b = b, a
+    if isinstance(a, CooRelation) and isinstance(b, DenseRelation):
+        # accumulate into a copy: b may be a catalog tensor
+        idx = tuple(a.keys[:, i].long() for i in range(a.key_arity))
+        out = b.data.clone()
+        out.index_put_(idx, a.values.to(out.dtype), accumulate=True)
+        return DenseRelation(out, b.key_arity)
+    raise LoweringError("COO + COO add not supported")
+
+
+def _gather_at(ref: CooRelation, child: DenseRelation, dispatch, resolutions) -> CooRelation:
+    """A dense relation restricted to a COO key set: its rows gathered at
+    the ref's keys (padding rows gather zeros)."""
+    idx = tuple(ref.keys[:, i] for i in range(ref.key_arity))
+    vals = _dispatched_gather(child, idx, dispatch, resolutions)
+    return CooRelation(ref.keys, vals, ref.extents, ref.owner_dim, ref.shard_offsets)
+
+
 # ---------------------------------------------------------------------------
 # The executor
 # ---------------------------------------------------------------------------
@@ -661,11 +855,13 @@ def _execute_graph(
     fuse_join_agg: bool = True,
     dispatch: kernels.DispatchTable,
     resolutions: Optional[Dict] = None,
+    place: Optional["Placement"] = None,
 ) -> AnyRel:
     """Walk a query graph over chunked relations, lowering each node to
     tensor ops. This is the engine's *lowering primitive*: it runs once on
     ``meta`` tensors when the engine lowers a program, and once per call
-    on real tensors.
+    on real tensors. With ``place`` (a ``Placement``) the walk runs on one
+    rank's shards of a mesh step (``_execute_placed``).
 
     ``fuse_join_agg=False`` materializes every Join's output individually
     instead of fusing Σ∘⋈ into one einsum — needed when a gradient program
@@ -676,6 +872,11 @@ def _execute_graph(
     blocked-matmul / gather hot-spots to a physical tier; ``resolutions``
     (optional dict) collects ``op[site] → tier`` records of every dispatch
     decision made during the walk."""
+    if place is not None:
+        return _execute_placed(
+            root, env, cache, place, fuse_join_agg=fuse_join_agg,
+            dispatch=dispatch, resolutions=resolutions,
+        )
     memo: Dict[int, AnyRel] = {}
 
     def ex(n: fra.Node) -> AnyRel:
@@ -694,78 +895,9 @@ def _execute_graph(
                 raise LoweringError("COO ⋈ COO not supported")
             out = _coo_join(n, lrel, rrel, dispatch, resolutions)
             if grp is not None:
-                out = _agg_coo(grp, out)
+                out = _agg_coo(grp, out, dispatch, resolutions)
             return out
-        # dense ⋈ dense
-        k = n.kernel
-        if k.elementwise or k.chunk_spec is not None:
-            try:
-                return _einsum_join(
-                    n, grp, lrel, rrel, dispatch=dispatch, resolutions=resolutions
-                )
-            except LoweringError:
-                pass
-        al = _aligned_join(n, lrel, rrel)
-        if al is not None:
-            if grp is not None:
-                al = _agg_dense(grp, al)
-            return al
-        bc = _broadcast_join(n, grp, lrel, rrel)
-        if bc is not None:
-            return bc
-        raise LoweringError(f"cannot lower join {n.describe()}")
-
-    def _agg_dense(grp: KeyFn, rel: DenseRelation) -> DenseRelation:
-        arity = rel.key_arity
-        if all(isinstance(c, Lit) for c in grp.comps) and grp.arity_out == 0:
-            data = rel.data.sum(dim=tuple(range(arity))) if arity else rel.data
-            return DenseRelation(data, key_arity=0)
-        if any(isinstance(c, Lit) for c in grp.comps):
-            raise LoweringError("mixed Lit grp over dense not supported")
-        keep = [c.idx for c in grp.comps]
-        if len(set(keep)) != len(keep):
-            raise LoweringError("duplicate grp components over dense")
-        drop = tuple(i for i in range(arity) if i not in keep)
-        data = rel.data.sum(dim=drop) if drop else rel.data
-        # axes now ordered by ascending original idx; permute to grp order
-        remaining = [i for i in range(arity) if i not in drop]
-        perm = [remaining.index(i) for i in keep]
-        data = data.permute(tuple(perm) + tuple(range(len(keep), data.dim())))
-        return DenseRelation(data, key_arity=len(keep))
-
-    def _agg_coo(grp: KeyFn, rel: CooRelation) -> DenseRelation:
-        if any(isinstance(c, Lit) for c in grp.comps):
-            raise LoweringError("Lit grp over COO not supported")
-        keep = [c.idx for c in grp.comps]
-        extents = tuple(rel.extents[i] for i in keep)
-        if rel.nnz == 0:
-            # zero-nnz guard: the Σ of no tuples is the ⊕-unit grid,
-            # emitted without dispatching
-            return DenseRelation(
-                rel.values.new_zeros(extents + rel.chunk_shape),
-                key_arity=len(extents),
-            )
-        if not extents:
-            return DenseRelation(rel.values.sum(dim=0), key_arity=0)
-        flat = torch.zeros((rel.nnz,), dtype=torch.int32, device=rel.keys.device)
-        stride = 1
-        for i in reversed(range(len(keep))):
-            flat = flat + rel.keys[:, keep[i]].to(torch.int32) * stride
-            stride *= extents[i]
-        num = math.prod(extents)
-        chunk = rel.chunk_shape
-        d = math.prod(chunk)
-        info = {
-            "nnz": rel.nnz, "dim": d, "num_segments": num,
-            "dtype": rel.values.dtype,
-        }
-        impl = kernels.resolve_impl("segment_sum", info, dispatch)
-        _note(resolutions, "segment_sum", f"E={rel.nnz},D={d},S={num}", impl, info)
-        msg = rel.values.reshape((rel.nnz, d)).contiguous()
-        summed = _call(impl, "segment_sum", msg, flat, num)          # (num, d)
-        return DenseRelation(
-            summed.reshape(extents + chunk), key_arity=len(extents)
-        )
+        return _dense_join(n, grp, lrel, rrel, dispatch, resolutions)
 
     def _ex(n: fra.Node) -> AnyRel:
         if isinstance(n, fra.TableScan):
@@ -775,42 +907,8 @@ def _execute_graph(
         if isinstance(n, fra.Select):
             rel = ex(n.child)
             if isinstance(rel, CooRelation):
-                if not n.pred.always_true:
-                    raise LoweringError("predicated σ over COO not supported")
-                cols = []
-                extents = []
-                for c in n.proj.comps:
-                    if isinstance(c, Lit):
-                        raise LoweringError("Lit proj over COO")
-                    cols.append(rel.keys[:, c.idx])
-                    extents.append(rel.extents[c.idx])
-                keys = torch.stack(cols, dim=1)
-                vals = _vmapped(n.kernel.fn, 1)(rel.values)
-                # σ kernels with f(0) != 0 would resurrect padded rows;
-                # re-mask so they stay inert through full-reduce Σs
-                vals = _mask_padded_rows(rel.keys, vals)
-                return CooRelation(keys, vals, tuple(extents))
-            if n.pred.custom is not None:
-                raise LoweringError("custom σ predicate not compilable")
-            fixed = dict(n.pred.eqs)
-            data = rel.data
-            # select fixed components (descending so axes stay valid)
-            for i in sorted(fixed, reverse=True):
-                data = data.select(i, fixed[i])
-            remaining = [i for i in range(n.child.key_arity) if i not in fixed]
-            proj_idx = []
-            for c in n.proj.comps:
-                if isinstance(c, Lit):
-                    raise LoweringError("Lit σ projection over dense")
-                if c.idx in fixed:
-                    raise LoweringError("σ projects a predicate-fixed component")
-                proj_idx.append(remaining.index(c.idx))
-            if sorted(proj_idx) != list(range(len(remaining))):
-                raise LoweringError("σ projection must permute surviving comps")
-            chunk_axes = tuple(range(len(remaining), data.dim()))
-            data = data.permute(tuple(proj_idx) + chunk_axes)
-            data = _vmapped(n.kernel.fn, len(proj_idx))(data)
-            return DenseRelation(data, key_arity=len(proj_idx))
+                return _select_coo(n, rel)
+            return _select_dense(n, rel)
         if isinstance(n, fra.Agg):
             if isinstance(n.child, fra.Join) and fuse_join_agg:
                 if not n.kernel.is_add:
@@ -820,7 +918,7 @@ def _execute_graph(
             if not n.kernel.is_add:
                 raise LoweringError("non-additive Σ not supported in compiler")
             if isinstance(rel, CooRelation):
-                return _agg_coo(n.grp, rel)
+                return _agg_coo(n.grp, rel, dispatch, resolutions)
             return _agg_dense(n.grp, rel)
         if isinstance(n, fra.Join):
             return _join(n, None)
@@ -842,24 +940,9 @@ def _execute_graph(
                 # target's key order.
                 return child
             # Dense child: gather at ref keys (padding rows gather zeros).
-            idx = tuple(ref.keys[:, i] for i in range(ref.key_arity))
-            vals = _dispatched_gather(child, idx, dispatch, resolutions)
-            return CooRelation(
-                ref.keys, vals, ref.extents, ref.owner_dim, ref.shard_offsets
-            )
+            return _gather_at(ref, child, dispatch, resolutions)
         if isinstance(n, fra.AddOp):
-            a, b = ex(n.left), ex(n.right)
-            if isinstance(a, DenseRelation) and isinstance(b, DenseRelation):
-                return DenseRelation(a.data + b.data, a.key_arity)
-            if isinstance(a, DenseRelation) and isinstance(b, CooRelation):
-                a, b = b, a
-            if isinstance(a, CooRelation) and isinstance(b, DenseRelation):
-                # accumulate into a copy: b may be a catalog tensor
-                idx = tuple(a.keys[:, i].long() for i in range(a.key_arity))
-                out = b.data.clone()
-                out.index_put_(idx, a.values.to(out.dtype), accumulate=True)
-                return DenseRelation(out, b.key_arity)
-            raise LoweringError("COO + COO add not supported")
+            return _add(ex(n.left), ex(n.right))
         raise TypeError(f"unknown node {n}")
 
     try:
@@ -870,3 +953,304 @@ def _execute_graph(
         # (full-size tensors on the card) until Python's cycle collector
         # runs. Unbinding ex breaks it, so they are freed when the walk ends
         ex = None  # noqa: F841
+
+
+# ---------------------------------------------------------------------------
+# The executor on a mesh: one rank's shards, explicit collectives
+# ---------------------------------------------------------------------------
+
+
+def spec_layout(spec, geometry, arity: int) -> Layout:
+    """The ``Layout`` of a partition spec on a mesh of ``geometry``: key
+    dim (a COO's dim 0, its nnz rows) → "model" or "data"."""
+    out: Layout = {}
+    for d, entry in enumerate(tuple(spec or ())):
+        if entry is None or d >= arity:
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        out[d] = "model" if geometry.model_axis in axes else "data"
+    return out
+
+
+class Placement:
+    """One rank's view of a step on a mesh: the collective layer ``comm``
+    (``launch.collectives.MeshComm``: the axis groups' sizes, this rank's
+    index in each, the collectives), the ``Layout`` of every relation of
+    the environment by name (the walk adds the forward intermediates it
+    caches, ``__fwd_<id>``), and the ``JoinPlan`` per join id."""
+
+    def __init__(self, comm, layouts: Dict[str, Layout], plans: Optional[Dict] = None):
+        self.comm = comm
+        self.layouts: Dict[str, Layout] = {k: dict(v) for k, v in layouts.items()}
+        self.plans = dict(plans or {})
+
+    # -- one dim ------------------------------------------------------------
+
+    def slice(self, rel: AnyRel, dim: int, kind: str) -> AnyRel:
+        """This rank's slab of a whole ``dim`` (0 = the nnz rows of a COO
+        relation) over the ``kind`` group: a view, no communication."""
+        size = self.comm.size[kind]
+        if size == 1:
+            return rel
+        if isinstance(rel, CooRelation):
+            per, rem = divmod(rel.nnz, size)
+            if rem:
+                raise LoweringError(f"{rel.nnz} nnz rows do not split over {size} ranks")
+            at = self.comm.index[kind] * per
+            return CooRelation(
+                rel.keys.narrow(0, at, per), rel.values.narrow(0, at, per),
+                rel.extents, rel.owner_dim, rel.shard_offsets,
+            )
+        per, rem = divmod(int(rel.data.shape[dim]), size)
+        if rem:
+            raise LoweringError(f"extent {rel.data.shape[dim]} does not split over {size} ranks")
+        return DenseRelation(
+            rel.data.narrow(dim, self.comm.index[kind] * per, per), rel.key_arity
+        )
+
+    def gather(self, rel: AnyRel, dim: int, kind: str) -> AnyRel:
+        """The whole ``dim`` from every rank's slab (an all-gather)."""
+        if isinstance(rel, CooRelation):
+            return CooRelation(
+                self.comm.all_gather(rel.keys, 0, kind),
+                self.comm.all_gather(rel.values, 0, kind),
+                rel.extents, rel.owner_dim, rel.shard_offsets,
+            )
+        return DenseRelation(self.comm.all_gather(rel.data, dim, kind), rel.key_arity)
+
+    def offset(self, rel: DenseRelation, dim: int, kind: str) -> int:
+        """The first key of this rank's slab of ``dim``."""
+        return self.comm.index[kind] * int(rel.data.shape[dim])
+
+    # -- layouts ------------------------------------------------------------
+
+    def move(self, rel: AnyRel, lay: Layout, target: Layout) -> Tuple[AnyRel, Layout]:
+        """``rel`` (laid out as ``lay``) laid out as ``target``: sharded
+        dims the target wants whole are gathered, whole dims it wants
+        sharded are sliced."""
+        for d, k in sorted(lay.items()):
+            if target.get(d) != k:
+                rel = self.gather(rel, d, k)
+        now = {d: k for d, k in lay.items() if target.get(d) == k}
+        for d, k in sorted(target.items()):
+            if d not in now:
+                rel = self.slice(rel, d, k)
+                now[d] = k
+        return rel, now
+
+    def whole(self, rel: AnyRel, lay: Layout, dims=None) -> Tuple[AnyRel, Layout]:
+        """``rel`` with ``dims`` (every dim when None) whole on every rank."""
+        keep = {} if dims is None else {d: k for d, k in lay.items() if d not in dims}
+        return self.move(rel, lay, keep)
+
+    def reduce(self, rel: AnyRel, lay: Layout, partial, scatter: bool = False) -> Tuple[AnyRel, Layout]:
+        """Sum the partial sums ``rel`` holds over each group of
+        ``partial``. With ``scatter`` (the Σ-scatter of a nnz-sharded plan)
+        a data-group sum is a reduce-scatter of the grid's rows where they
+        split evenly: each rank keeps its row slab."""
+        lay = dict(lay)
+        for kind in sorted(partial):
+            if self.comm.size[kind] == 1:
+                continue
+            if isinstance(rel, CooRelation):
+                rel = CooRelation(
+                    rel.keys, self.comm.all_reduce(rel.values, kind), rel.extents,
+                    rel.owner_dim, rel.shard_offsets,
+                )
+            elif (
+                scatter and kind == "data" and rel.key_arity > 0 and 0 not in lay
+                and kind not in lay.values()
+                and rel.data.shape[0] % self.comm.size[kind] == 0
+            ):
+                rel = DenseRelation(self.comm.reduce_scatter(rel.data, 0, kind), rel.key_arity)
+                lay[0] = kind
+            else:
+                rel = DenseRelation(self.comm.all_reduce(rel.data, kind), rel.key_arity)
+        return rel, lay
+
+    def plan_layout(self, plan, side: str, rel: AnyRel, lay: Layout, arity: int) -> Layout:
+        """The layout a join's ``plan`` wants one operand (now laid out as
+        ``lay``) in: a dim whose whole extent does not split over its
+        group stays whole."""
+        out: Layout = {}
+        for d, kind in spec_layout(plan.pspec(side, arity), self.comm.geometry, arity).items():
+            ext = rel.nnz if isinstance(rel, CooRelation) else int(rel.data.shape[d])
+            if d in lay:
+                ext *= self.comm.size[lay[d]]
+            if ext % self.comm.size[kind] == 0:
+                out[d] = kind
+        return out
+
+
+def _execute_placed(
+    root: fra.Node,
+    env: Env,
+    cache: Optional[Env],
+    place: Placement,
+    *,
+    fuse_join_agg: bool,
+    dispatch: kernels.DispatchTable,
+    resolutions: Optional[Dict],
+) -> AnyRel:
+    """``_execute_graph`` on one rank's shards (module docstring). The
+    relations of ``env`` are this rank's shards, laid out as
+    ``place.layouts`` says; the result is whole."""
+    memo: Dict[int, Tuple[AnyRel, Layout]] = {}
+
+    def ex(n: fra.Node) -> Tuple[AnyRel, Layout]:
+        if n.id in memo:
+            return memo[n.id]
+        out = _ex(n)
+        memo[n.id] = out
+        if cache is not None:
+            cache[f"__fwd_{n.id}"] = out[0]
+            place.layouts[f"__fwd_{n.id}"] = dict(out[1])
+        return out
+
+    def comp_of(side: str, d: int):
+        return L(d) if side == "left" else R(d)
+
+    def coo_join(n, grp, lrel, ll, rrel, rl, plan):
+        coo_left = isinstance(lrel, CooRelation)
+        coo, cl = (lrel, ll) if coo_left else (rrel, rl)
+        dense, dl = (rrel, rl) if coo_left else (lrel, ll)
+        nnz_kind = cl.get(0)
+        # the gather reads a dense slab in place when the nnz rows are not
+        # split over the same group and a zero row gathers to zero
+        dense, dl = place.move(dense, dl, {
+            d: k for d, k in dl.items() if k != nnz_kind and n.kernel.multiplicative
+        })
+        offsets = tuple(
+            place.offset(dense, j, dl[j]) if j in dl else 0 for j in range(dense.key_arity)
+        )
+        extents = tuple(
+            int(dense.data.shape[j]) * (place.comm.size[dl[j]] if j in dl else 1)
+            for j in range(dense.key_arity)
+        )
+        lrel, rrel = (coo, dense) if coo_left else (dense, coo)
+        out = _coo_join(n, lrel, rrel, dispatch, resolutions, offsets=offsets,
+                        dense_extents=extents)
+        partial = set(dl.values())
+        if grp is None:
+            return place.reduce(out, {0: nnz_kind} if nnz_kind else {}, partial)
+        out = _agg_coo(grp, out, dispatch, resolutions)
+        if nnz_kind:
+            partial.add(nnz_kind)
+        scatter = plan is not None and plan.data_kind.startswith("data:shard_nnz")
+        return place.reduce(out, {}, partial, scatter=scatter)
+
+    def dense_join(n, grp, lrel, ll, rrel, rl):
+        la, ra = n.left.key_arity, n.right.key_arity
+        try:
+            _, llit, rlit = _norm_pairs(n.pred)
+        except LoweringError:
+            llit, rlit = [(i, None) for i in range(la)], [(j, None) for j in range(ra)]
+        # a literal names a whole-domain key: its dim must be whole
+        lrel, ll = place.whole(lrel, ll, {i for i, _ in llit})
+        rrel, rl = place.whole(rrel, rl, {j for j, _ in rlit})
+        uf = join_equiv_classes(n.pred, la, ra)
+        cls: Dict[str, object] = {}     # group → the key class it shards
+        owner: Dict[object, str] = {}   # key class → its group
+        clash = {"left": set(), "right": set()}
+        for side, lay in (("left", ll), ("right", rl)):
+            for d, k in sorted(lay.items()):
+                c = uf.find(comp_of(side, d))
+                if cls.get(k, c) != c or owner.get(c, k) != k:
+                    clash[side].add(d)   # a group shards one class only
+                else:
+                    cls[k], owner[c] = c, k
+        moved = []
+        for side, rel, lay, arity in (("left", lrel, ll, la), ("right", rrel, rl, ra)):
+            target = {d: k for d, k in lay.items() if d not in clash[side]}
+            for d in range(arity):
+                k = owner.get(uf.find(comp_of(side, d)))
+                if k is not None:
+                    target[d] = k       # slice alike where it is whole
+            moved.append(place.move(rel, lay, target))
+        (lrel, _), (rrel, _) = moved
+        comps = list(n.proj.comps)
+        if grp is not None:
+            comps = [None if isinstance(c, Lit) else comps[c.idx] for c in grp.comps]
+        out_lay: Layout = {}
+        partial = set()
+        for k, c in cls.items():
+            at = [o for o, comp in enumerate(comps)
+                  if comp is not None and not isinstance(comp, Lit) and uf.find(comp) == c]
+            for o in at:
+                out_lay[o] = k
+            if not at:
+                partial.add(k)
+        out = _dense_join(n, grp, lrel, rrel, dispatch, resolutions)
+        return place.reduce(out, out_lay, partial)
+
+    def join(n: fra.Join, grp: Optional[KeyFn]) -> Tuple[AnyRel, Layout]:
+        (lrel, ll), (rrel, rl) = ex(n.left), ex(n.right)
+        plan = place.plans.get(n.id)
+        if plan is not None:
+            # the operands in the layouts this join's plan names
+            lrel, ll = place.move(lrel, ll, place.plan_layout(plan, "left", lrel, ll, n.left.key_arity))
+            rrel, rl = place.move(rrel, rl, place.plan_layout(plan, "right", rrel, rl, n.right.key_arity))
+        if isinstance(lrel, CooRelation) or isinstance(rrel, CooRelation):
+            if isinstance(lrel, CooRelation) and isinstance(rrel, CooRelation):
+                raise LoweringError("COO ⋈ COO not supported")
+            return coo_join(n, grp, lrel, ll, rrel, rl, plan)
+        return dense_join(n, grp, lrel, ll, rrel, rl)
+
+    def _ex(n: fra.Node) -> Tuple[AnyRel, Layout]:
+        if isinstance(n, (fra.TableScan, fra.Const)):
+            name = n.name if isinstance(n, fra.TableScan) else n.ref
+            return env[name], dict(place.layouts.get(name, {}))
+        if isinstance(n, fra.Select):
+            rel, lay = ex(n.child)
+            if isinstance(rel, CooRelation):
+                return _select_coo(n, rel), lay
+            fixed, remaining, proj_idx = _select_proj(n)
+            rel, lay = place.whole(rel, lay, set(fixed))
+            return _select_dense(n, rel), {
+                proj_idx.index(remaining.index(d)): k for d, k in lay.items()
+            }
+        if isinstance(n, fra.Agg):
+            if not n.kernel.is_add:
+                raise LoweringError("non-additive Σ not supported in compiler")
+            if isinstance(n.child, fra.Join) and fuse_join_agg:
+                return join(n.child, n.grp)
+            rel, lay = ex(n.child)
+            if isinstance(rel, CooRelation):
+                out = _agg_coo(n.grp, rel, dispatch, resolutions)
+                return place.reduce(out, {}, set(lay.values()))
+            keep = _agg_keep(n.grp, rel.key_arity)
+            out_lay = {keep.index(d): k for d, k in lay.items() if d in keep}
+            partial = {k for d, k in lay.items() if d not in keep}
+            return place.reduce(_agg_dense(n.grp, rel), out_lay, partial)
+        if isinstance(n, fra.Join):
+            return join(n, None)
+        if isinstance(n, fra.Restrict):
+            ref, ref_lay = ex(n.ref)
+            if isinstance(ref, DenseRelation):
+                return ex(n.child)
+            if isinstance(n.child, fra.Join):
+                (lrel, ll), (rrel, rl) = ex(n.child.left), ex(n.child.right)
+                if isinstance(lrel, DenseRelation) and isinstance(rrel, DenseRelation):
+                    lrel, _ = place.whole(lrel, ll)
+                    rrel, _ = place.whole(rrel, rl)
+                    return _restricted_join(
+                        n.child, ref, lrel, rrel, dispatch, resolutions
+                    ), dict(ref_lay)
+            child, lay = ex(n.child)
+            if isinstance(child, CooRelation):
+                return child, lay
+            child, _ = place.whole(child, lay)
+            return _gather_at(ref, child, dispatch, resolutions), dict(ref_lay)
+        if isinstance(n, fra.AddOp):
+            (a, al), (b, bl) = ex(n.left), ex(n.right)
+            if isinstance(a, DenseRelation) and isinstance(b, DenseRelation) and al == bl:
+                return _add(a, b), al
+            (a, _), (b, _) = place.whole(a, al), place.whole(b, bl)
+            return _add(a, b), {}
+        raise TypeError(f"unknown node {n}")
+
+    try:
+        rel, lay = ex(root)
+        return place.whole(rel, lay)[0]
+    finally:
+        ex = None  # noqa: F841  (see _execute_graph)

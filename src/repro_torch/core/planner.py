@@ -8,8 +8,28 @@ histograms; ``agg_shrink`` is the Σ output-size rule. The rewrite stage
 (``core/rewrite.py``) gates its rules on these numbers. ``plan_waves``
 decides whether a step streams through the device in chunk waves under a
 memory budget (out-of-core execution, ``core/engine.StreamedCompiled``).
-Choosing a physical plan per join across devices is the mesh half, which
-belongs to the multi-GPU slice.
+
+The mesh half is the distribution planner: the paper's claim that "the
+database query optimizer will automatically distribute the computation,
+taking into account the sizes of the two matrices" (§1). For every Join it
+picks, by bytes moved per device, between the paper's two physical plans:
+
+  * BROADCAST the small side (the data-parallel plan): the small relation
+    is replicated, the big side stays partitioned on a non-contraction
+    block axis; no output collective.
+  * CO-PARTITION both sides on the join key (the tensor-parallel plan):
+    both relations are sharded on the contraction block axis, and the
+    join-aggregate's Σ ends in an all-reduce of the output.
+
+On a (data × model) mesh (``launch/mesh.make_host_mesh``) it also picks,
+per join, a data-axis placement: a surviving batch dim of one side over
+the (folded) data axes, or a COO side's nnz rows, whose Σ then ends in a
+data-axis reduction. ``plan_query`` emits a ``JoinPlan`` per join and
+``input_pspecs`` the ``P`` spec per base relation; the engine places the
+relations by those specs and runs each join on its local shards, with
+the collectives the plan names (``core/compiler.py``). The planner is
+pure Python over a ``MeshGeometry``: given the same geometry, its plans
+equal the reference's.
 """
 
 from __future__ import annotations
@@ -20,6 +40,18 @@ from typing import Dict, List, Optional, Tuple
 from . import fra
 from .keys import In, L, R, join_equiv_classes
 from .relation import CooRelation, DenseRelation
+
+#: mesh axes treated as data-parallel (batch) axes, in fold order — the
+#: multi-pod production mesh folds ("pod", "data") onto one relation dim.
+DATA_AXIS_NAMES = ("pod", "data")
+
+#: fallback edge-cut estimate for the Σ-over-COO scatter when the edge
+#: relation is owner-partitioned on the Σ's segment key
+#: (relation.owner_partition) but no tracked statistics are available:
+#: each shard then owns a contiguous segment range, so only boundary-
+#: crossing contributions move. With a catalog the planner replaces it by
+#: ``RelationStats.edge_cut``.
+EDGE_CUT_LOCAL = 0.125
 
 #: equi-width buckets per key column in ``RelationStats.hist`` (see
 #: ``relation.measure_stats``) — coarse on purpose: the histograms only
@@ -85,6 +117,17 @@ class RelationStats:
                 else None
             ),
         )
+
+    def edge_cut(self, owner_dim: int, num_shards: int) -> float:
+        """Estimated non-local fraction of an owner-partitioned Σ-scatter
+        over ``num_shards`` data shards: each shard owns a contiguous
+        range of the ``distinct[owner_dim]`` segment keys, so only the
+        ≤ ``num_shards - 1`` boundary-straddling segments move. A skewed
+        (small) owner domain pushes this toward the full scatter."""
+        if num_shards <= 1:
+            return 0.0
+        owners = max(1, int(self.distinct[owner_dim]))
+        return min(1.0, float(num_shards - 1) / float(owners))
 
 
 def _rel_bytes(rel) -> float:
@@ -273,6 +316,613 @@ def _leaf_name(n) -> Optional[str]:
     if isinstance(n, fra.Const):
         return n.ref
     return None
+
+
+# ---------------------------------------------------------------------------
+# The mesh half: physical plans per join on a (data × model) mesh
+# ---------------------------------------------------------------------------
+
+
+class P(tuple):
+    """A partition spec: one entry per array dim — a mesh axis name, a
+    tuple of axis names folded onto the dim, or None (replicated). A tuple,
+    so a spec compares equal to the reference's as a tuple."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return "P" + tuple.__repr__(tuple(self)).replace(",)", ")")
+
+
+def fold_axes(axes: Tuple[str, ...]):
+    """Spec entry for a dim carrying ``axes``: the folded tuple,
+    a single axis name, or None — the one place the fold rule lives."""
+    if not axes:
+        return None
+    return axes if len(axes) > 1 else axes[0]
+
+
+@dataclass(frozen=True)
+class MeshGeometry:
+    """Static description of the mesh the planner plans for: one
+    tensor-parallel (model) axis plus zero or more folded data axes.
+
+    ``from_mesh`` derives it from a ``torch.distributed`` DeviceMesh;
+    ``single`` is the legacy 1-D geometry (model axis only) used when the
+    caller only knows a device count."""
+
+    model_axis: str
+    model_size: int
+    data_axes: Tuple[str, ...] = ()
+    data_size: int = 1
+
+    @classmethod
+    def single(cls, n_devices: int, axis: str = "model") -> "MeshGeometry":
+        return cls(axis, max(1, int(n_devices or 1)))
+
+    @classmethod
+    def from_mesh(cls, mesh, axis: Optional[str] = None) -> "MeshGeometry":
+        """Read the (data × model) geometry off a DeviceMesh (its
+        ``mesh_dim_names`` and sizes): ``axis`` (or
+        ``"model"``) is the tensor-parallel axis — on a 1-axis mesh the
+        sole axis plays that role, reproducing the 1-D plans — and every
+        ``DATA_AXIS_NAMES`` axis present is folded into the batch pair."""
+        names = tuple(mesh.mesh_dim_names or ())
+        sizes = dict(zip(names, tuple(mesh.mesh.shape)))
+        if axis is not None:
+            if axis not in names:
+                raise ValueError(
+                    f"model axis {axis!r} is not on the mesh (axes: {names})"
+                )
+            model = axis
+        elif "model" in names:
+            model = "model"
+        elif len(names) == 1:
+            model = names[0]
+        else:
+            raise ValueError(
+                f"cannot infer the model axis of a multi-axis mesh with no "
+                f"'model' axis (axes: {names}); pass axis= explicitly"
+            )
+        data_axes = tuple(
+            a for a in DATA_AXIS_NAMES if a in names and a != model
+        )
+        data_size = 1
+        for a in data_axes:
+            data_size *= int(sizes[a])
+        return cls(model, int(sizes[model]), data_axes, data_size)
+
+    @property
+    def data_spec(self):
+        """Spec entry for a data-sharded dim: the folded axis
+        tuple, or the single axis name."""
+        return fold_axes(self.data_axes)
+
+
+@dataclass(frozen=True)
+class JoinPlan:
+    """Physical plan for one Join node."""
+
+    kind: str                      # broadcast_left | broadcast_right | copartition
+    node_id: int
+    # estimated bytes moved per device for each candidate (the cost table;
+    # 2-D plans add the data-axis candidates under "data:*" keys)
+    costs: Dict[str, float]
+    # block-axis index carrying the model axis, per side (None = replicated)
+    left_shard_dim: Optional[int]
+    right_shard_dim: Optional[int]
+    # does the plan end in a model-axis all-reduce of the join-agg output?
+    needs_psum: bool
+    # block-axis index carrying the data (batch) axes, per side
+    left_batch_dim: Optional[int] = None
+    right_batch_dim: Optional[int] = None
+    # the mesh axes the dims above refer to
+    model_axis: str = "model"
+    data_axes: Tuple[str, ...] = ()
+    # chosen data-axis placement: none | data:shard_left | data:shard_right
+    #            | data:replicate | data:shard_nnz_left | data:shard_nnz_right
+    data_kind: str = "none"
+    # does the Σ reduce the data-sharded batch key (data-axis all-reduce),
+    # or scatter a data-sharded nnz axis into segments (psum_scatter)?
+    needs_data_psum: bool = False
+    # which side is a CooRelation (nnz-row layout, no shardable key dims)
+    coo_sides: Tuple[bool, bool] = (False, False)
+
+    def nnz_sharded(self, side: str) -> bool:
+        """Did the data axes land on ``side``'s COO nnz row dimension?"""
+        return self.data_kind == f"data:shard_nnz_{side}"
+
+    def pspec(self, side: str, arity: int, axis: Optional[str] = None) -> P:
+        if self.coo_sides[0 if side == "left" else 1]:
+            # COO payloads have one shardable axis: the nnz row dim.
+            if self.nnz_sharded(side) and self.data_axes:
+                return P(fold_axes(self.data_axes))
+            return P()
+        dim = self.left_shard_dim if side == "left" else self.right_shard_dim
+        bdim = (
+            self.left_batch_dim if side == "left" else self.right_batch_dim
+        )
+        spec: list = [None] * arity
+        if dim is not None and dim < arity:
+            spec[dim] = axis or self.model_axis
+        if bdim is not None and bdim < arity and self.data_axes:
+            spec[bdim] = fold_axes(self.data_axes)
+        return P(*spec)
+
+
+def _contraction_dims(join: fra.Join) -> Tuple[Optional[int], Optional[int]]:
+    """Joined-on block-key dims (left, right) — the contraction axes a
+    co-partition plan shards. (The join-agg tree's Σ typically drops this
+    key from the final output; whether it survives the join's own proj is
+    irrelevant to the physical plan.)"""
+    al = join.left.key_arity
+    ar = join.right.key_arity
+    uf = join_equiv_classes(join.pred, al, ar)
+    for i in range(al):
+        root = uf.find(L(i))
+        for j in range(ar):
+            if uf.find(R(j)) == root:
+                return i, j
+    return None, None
+
+
+def _output_dims(join: fra.Join) -> Tuple[Optional[int], Optional[int]]:
+    """First *non-contraction* block dim per side that survives into the
+    output (for the broadcast plans: the kept side stays sharded on a dim
+    requiring no collective — sharding the contraction dim would still
+    force a psum). On a 2-D mesh this is also each side's candidate batch
+    dim for the data axes."""
+    lc, rc = _contraction_dims(join)
+    ldim = rdim = None
+    for c in join.proj.comps:
+        if isinstance(c, L) and ldim is None and c.idx != lc:
+            ldim = c.idx
+        if isinstance(c, R) and rdim is None and c.idx != rc:
+            rdim = c.idx
+    return ldim, rdim
+
+
+#: the per-device plan-feasibility budget of one relation, in bytes: the
+#: reference's value, kept so that plans equal the reference's by default
+DEFAULT_MEM_BUDGET = 8e9
+
+
+def plan_join(
+    join: fra.Join,
+    left_bytes: float,
+    right_bytes: float,
+    out_bytes: float,
+    n_devices: int,
+    mem_budget: float = DEFAULT_MEM_BUDGET,
+    *,
+    geometry: Optional[MeshGeometry] = None,
+    sum_out_bytes: Optional[float] = None,
+    batch_survives: Tuple[bool, bool] = (True, True),
+    coo_sides: Tuple[bool, bool] = (False, False),
+    coo_local: Tuple[bool, bool] = (False, False),
+    committed_dims: Tuple[Optional[Dict], Optional[Dict]] = (None, None),
+    coo_edge_cut: Tuple[Optional[float], Optional[float]] = (None, None),
+    sum_out_stat: bool = False,
+) -> JoinPlan:
+    """Pick the cheapest *feasible* physical plan by bytes moved per
+    device, exactly the way the paper describes the database optimizer
+    (§1): broadcast requires the broadcast relation to be replicated on
+    every node, so it is only feasible within the per-node memory budget;
+    otherwise the relations are co-partitioned on the join key.
+
+    all-gather of X over N devices moves ~X·(N-1)/N per device;
+    a ring all-reduce of the output moves ~2·out·(N-1)/N.
+
+    ``geometry`` extends the decision to a 2-D (data × model) mesh: the
+    data axes are placed first — shard one side's surviving batch dim
+    (replicating the other side over the data axes) or replicate both —
+    and the model axis then avoids the batch dim. ``sum_out_bytes`` is
+    the post-Σ output estimate the all-reduce costs use on the 2-D path;
+    ``batch_survives`` says, per side, whether the batch dim survives the
+    enclosing grouping (a dropped batch key costs a data-axis all-reduce
+    of the Σ output). A 1-axis geometry reproduces the historical 1-D
+    plans bit-for-bit.
+
+    ``coo_sides`` marks CooRelation sides. A COO side has no block axes —
+    its one shardable axis is the physical nnz row dim, which only the
+    data axes may take (``data:shard_nnz_*``): the dense side is
+    replicated over them and the enclosing Σ pays a **psum_scatter** of
+    the segment grid, priced at the edge-cut estimate — ``EDGE_CUT_LOCAL``
+    when ``coo_local`` says the relation is owner-partitioned on the Σ's
+    segment key, the full scatter otherwise. The model axis never takes
+    nnz rows: a COO side is replicated over it, and a co-partition plan
+    key-shards only the dense side (the one model-axis plan that keeps an
+    over-budget dense grid partitioned, matching the 1-D planner).
+
+    ``committed_dims`` folds the device-layout rechunk cost in: per side,
+    the ``{"data": dim, "model": dim}`` placement the input is *known* to
+    be committed to (None = unknown). A candidate that wants a side
+    pre-sharded on a different dim pays that side's all-to-all, instead
+    of ``Compiled.__call__`` paying it silently per step.
+
+    ``coo_edge_cut`` overrides the scatter's edge-cut *fraction* per COO
+    side with a catalog-derived estimate (``RelationStats.edge_cut``);
+    ``None`` falls back to the stats-less heuristic (``EDGE_CUT_LOCAL``
+    when ``coo_local``, the full scatter otherwise). ``sum_out_stat``
+    marks ``sum_out_bytes`` as catalog-backed: the defensive dense-side
+    cap on the segment-grid estimate is then skipped — the statistics
+    already bound the Σ output by the real key domain.
+    """
+    geo = geometry or MeshGeometry.single(n_devices)
+    n_model = max(1, geo.model_size)
+    frac_m = (n_model - 1) / n_model
+    two_d = geo.data_size > 1
+    lc, rc = _contraction_dims(join)
+    lo, ro = _output_dims(join)
+    coo_l, coo_r = coo_sides
+    cdim_l, cdim_r = committed_dims
+
+    def _move(cdims, axis_kind, required, bytes_, frac):
+        """Rechunk fold: a candidate expecting a side pre-sharded on
+        ``required`` while it is committed sharded on a *different* dim
+        pays the all-to-all. Replication candidates charge their
+        all-gather in the base cost already (``required=None`` never
+        adds), and an input committed replicated on this axis shards by a
+        zero-communication local slice (``committed None`` never adds)."""
+        if cdims is None or required is None or frac <= 0.0:
+            return 0.0
+        cur = cdims.get(axis_kind)
+        if cur is None:
+            return 0.0
+        return bytes_ * frac if cur != required else 0.0
+
+    costs: Dict[str, float] = {}
+
+    # --- data axes: shard a batch dim / the COO nnz dim, or replicate ----
+    left_batch = right_batch = None
+    data_kind = "none"
+    needs_data_psum = False
+    if two_d:
+        frac_d = (geo.data_size - 1) / geo.data_size
+        sum_out = out_bytes if sum_out_bytes is None else sum_out_bytes
+
+        def _scatter(dense_bytes: float, local: bool, cut: Optional[float]) -> float:
+            """psum_scatter of the Σ-over-COO segment grid. Without an
+            enclosing Σ the output stays nnz-aligned (no collective). A
+            stats-backed ``sum_out`` is trusted as-is; the heuristic one
+            is bounded by the gathered dense side, which caps the
+            post-Agg guess. ``cut`` is the catalog edge-cut fraction,
+            falling back to the EDGE_CUT_LOCAL constant."""
+            if sum_out_bytes is None:
+                return 0.0
+            if sum_out_stat:
+                est = sum_out
+            else:
+                est = min(sum_out, dense_bytes) if dense_bytes > 0 else sum_out
+            if cut is None:
+                cut = EDGE_CUT_LOCAL if local else 1.0
+            return est * frac_d * cut
+
+        # feasibility mirrors the model axis: a candidate must fit every
+        # relation it replicates within the per-device budget
+        dcosts: Dict[str, float] = {}
+        if left_bytes <= mem_budget and right_bytes <= mem_budget:
+            # no batch parallelism: both inputs replicated over the axes
+            dcosts["data:replicate"] = (left_bytes + right_bytes) * frac_d
+        if coo_l:
+            if right_bytes <= mem_budget:
+                dcosts["data:shard_nnz_left"] = (
+                    right_bytes * frac_d
+                    + _scatter(right_bytes, coo_local[0], coo_edge_cut[0])
+                    + _move(cdim_l, "data", 0, left_bytes, frac_d)
+                )
+        elif lo is not None and right_bytes <= mem_budget:
+            dcosts["data:shard_left"] = (
+                right_bytes * frac_d
+                + (0.0 if batch_survives[0] else 2.0 * sum_out * frac_d)
+                + _move(cdim_l, "data", lo, left_bytes, frac_d)
+            )
+        if coo_r:
+            if left_bytes <= mem_budget:
+                dcosts["data:shard_nnz_right"] = (
+                    left_bytes * frac_d
+                    + _scatter(left_bytes, coo_local[1], coo_edge_cut[1])
+                    + _move(cdim_r, "data", 0, right_bytes, frac_d)
+                )
+        elif ro is not None and left_bytes <= mem_budget:
+            dcosts["data:shard_right"] = (
+                left_bytes * frac_d
+                + (0.0 if batch_survives[1] else 2.0 * sum_out * frac_d)
+                + _move(cdim_r, "data", ro, right_bytes, frac_d)
+            )
+        if not dcosts:
+            # nothing feasible (e.g. both sides over budget): best effort —
+            # keep the partitionable side partitioned (a COO's nnz rows
+            # beat a dense batch dim: that is the only placement that can
+            # ever fit a beyond-memory edge relation), else replicate
+            if coo_l:
+                dcosts["data:shard_nnz_left"] = (
+                    right_bytes * frac_d + _scatter(right_bytes, coo_local[0], coo_edge_cut[0])
+                )
+            elif coo_r:
+                dcosts["data:shard_nnz_right"] = (
+                    left_bytes * frac_d + _scatter(left_bytes, coo_local[1], coo_edge_cut[1])
+                )
+            elif lo is not None:
+                dcosts["data:shard_left"] = right_bytes * frac_d
+            elif ro is not None:
+                dcosts["data:shard_right"] = left_bytes * frac_d
+            else:
+                dcosts["data:replicate"] = (left_bytes + right_bytes) * frac_d
+        data_kind = min(dcosts, key=dcosts.get)
+        costs.update(dcosts)
+        if data_kind == "data:shard_left":
+            left_batch = lo
+            needs_data_psum = not batch_survives[0]
+        elif data_kind == "data:shard_right":
+            right_batch = ro
+            needs_data_psum = not batch_survives[1]
+        elif data_kind.startswith("data:shard_nnz"):
+            # the Σ over the sharded nnz rows always scatters into the
+            # (replicated) segment grid: that IS the planned collective
+            needs_data_psum = sum_out_bytes is not None
+
+    # --- model axis: broadcast vs co-partition, avoiding the batch dims --
+    # The kept side of a broadcast plan stays sharded on a surviving dim;
+    # if the data axes already took that dim, the model axis would sit
+    # idle and the "broadcast" degenerates to replicating *both* sides —
+    # charge it as such (2-D path only; 1-D keeps the historical costs).
+    # A COO side has no key dims at all: it behaves like a dim-less side.
+    lo_m = None if coo_l or (lo is not None and lo == left_batch) else lo
+    ro_m = None if coo_r or (ro is not None and ro == right_batch) else ro
+    mcosts: Dict[str, float] = {}
+    if left_bytes <= mem_budget:
+        c = left_bytes * frac_m
+        if two_d and ro_m is None:
+            c += right_bytes * frac_m
+        c += _move(cdim_r, "model", ro_m, right_bytes, frac_m)
+        mcosts["broadcast_left"] = c
+    if right_bytes <= mem_budget:
+        c = right_bytes * frac_m
+        if two_d and lo_m is None:
+            c += left_bytes * frac_m
+        c += _move(cdim_l, "model", lo_m, left_bytes, frac_m)
+        mcosts["broadcast_right"] = c
+    if lc is not None and rc is not None and not (coo_l and coo_r):
+        # co-partition on the contraction key: inputs land pre-sharded
+        # (no repartition cost for our static plans — parameters/data are
+        # *created* in the planned layout, and committed_dims charges the
+        # all-to-all when the caller knows otherwise), output needs the
+        # psum. The 2-D path prices the psum at the post-Σ output size.
+        # With one COO side only the dense side is key-sharded (nnz rows
+        # carry no key dims; the gather against the sharded grid leaves a
+        # partial sum per rank, reduced by the psum) — still the one model-axis plan that keeps
+        # an over-budget dense side partitioned, as in the 1-D planner.
+        psum_out = sum_out if two_d and sum_out_bytes is not None else out_bytes
+        mcosts["copartition"] = (
+            2.0 * psum_out * frac_m
+            + _move(cdim_l, "model", None if coo_l else lc, left_bytes, frac_m)
+            + _move(cdim_r, "model", None if coo_r else rc, right_bytes, frac_m)
+        )
+    if not mcosts:
+        if coo_l or coo_r:
+            # COO ⋈ COO has no key-shardable side at all; best effort:
+            # replicate both over the model axis
+            kind = "broadcast_left" if coo_l else "broadcast_right"
+            mcosts[kind] = (left_bytes + right_bytes) * frac_m
+        else:
+            raise ValueError(
+                "no feasible plan: both sides exceed the memory budget and "
+                "the join has no contraction key to co-partition on"
+            )
+    kind = min(mcosts, key=mcosts.get)
+    costs.update(mcosts)
+
+    common = dict(
+        left_batch_dim=left_batch,
+        right_batch_dim=right_batch,
+        model_axis=geo.model_axis,
+        data_axes=geo.data_axes,
+        data_kind=data_kind,
+        needs_data_psum=needs_data_psum,
+        coo_sides=coo_sides,
+    )
+    if kind == "copartition":
+        return JoinPlan(
+            kind,
+            join.id,
+            costs,
+            None if coo_l else lc,
+            None if coo_r else rc,
+            needs_psum=True,
+            **common,
+        )
+    if kind == "broadcast_left":
+        return JoinPlan(kind, join.id, costs, None, ro_m, needs_psum=False, **common)
+    return JoinPlan(kind, join.id, costs, lo_m, None, needs_psum=False, **common)
+
+
+def _batch_survival(
+    join: fra.Join, agg: Optional[fra.Agg]
+) -> Tuple[bool, bool]:
+    """Does each side's batch dim survive the enclosing Σ's grouping?
+    Dropped batch keys cost a data-axis all-reduce of the Σ output."""
+    lo, ro = _output_dims(join)
+
+    def survives(comp) -> bool:
+        if comp is None or agg is None:
+            return True
+        try:
+            pos = join.proj.comps.index(comp)
+        except ValueError:
+            return True
+        return any(
+            isinstance(c, In) and c.idx == pos for c in agg.grp.comps
+        )
+
+    return (
+        survives(None if lo is None else L(lo)),
+        survives(None if ro is None else R(ro)),
+    )
+
+
+def _coo_owner_survives(
+    join: fra.Join, agg: Optional[fra.Agg], side: str, owner_dim: Optional[int]
+) -> bool:
+    """Is the COO side's owner-partition column the enclosing Σ's segment
+    key? Then the scatter is local except at shard-boundary segments and
+    the planner prices it at ``EDGE_CUT_LOCAL``."""
+    if agg is None or owner_dim is None:
+        return False
+    comp = L(owner_dim) if side == "left" else R(owner_dim)
+    try:
+        pos = join.proj.comps.index(comp)
+    except ValueError:
+        return False
+    return any(isinstance(c, In) and c.idx == pos for c in agg.grp.comps)
+
+
+def _spec_dims(spec, geo: MeshGeometry) -> Optional[Dict[str, Optional[int]]]:
+    """Parse a committed partition spec into the ``{"data": dim, "model":
+    dim}`` placement the rechunk fold compares against."""
+    if spec is None:
+        return None
+    model = data = None
+    for d, entry in enumerate(tuple(spec)):
+        if entry is None:
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        if geo.model_axis in axes:
+            model = d
+        if any(a in geo.data_axes for a in axes):
+            data = d
+    return {"model": model, "data": data}
+
+
+
+def plan_query(
+    query: fra.Query,
+    env: Dict[str, object],
+    n_devices: int,
+    mem_budget: float = DEFAULT_MEM_BUDGET,
+    *,
+    geometry: Optional[MeshGeometry] = None,
+    committed: Optional[Dict[str, P]] = None,
+    stats: Optional[Dict[str, RelationStats]] = None,
+) -> Dict[int, JoinPlan]:
+    """Walk the query graph, estimate relation sizes bottom-up, and emit a
+    JoinPlan per Join node (keyed by node id). ``geometry`` plans for a
+    2-D (data × model) mesh (see ``MeshGeometry.from_mesh``); omitted, it
+    is the legacy 1-D model-axis-only geometry over ``n_devices``.
+
+    CooRelation leaves are planned for real: the walk tracks which
+    subtrees are COO-keyed, and ``plan_join`` may place a join's COO nnz
+    rows on the data axes (``data:shard_nnz_*``), costing the Σ's
+    psum_scatter at the owner-partition edge-cut estimate.
+
+    ``committed`` maps base-relation names to the partition spec their
+    arrays are already committed to (see ``engine._committed_layouts``);
+    candidates that would force a device-layout rechunk then pay the
+    all-to-all in the cost table instead of hiding it in
+    ``Compiled.__call__``'s placement.
+
+    ``stats`` maps base-relation names to tracked ``RelationStats`` (the
+    catalog snapshot — ``Database.catalog.snapshot()``). When present,
+    per-key distinct counts are propagated through the graph and replace
+    three heuristics: a Σ's output size divides the child by the dropped
+    keys' *measured* domains (not a flat 1/8 per key), the Σ-over-COO
+    scatter's edge cut is priced from the owner column's distinct count
+    (not the ``EDGE_CUT_LOCAL`` constant), and the stats-backed Σ output
+    estimate is trusted without the defensive dense-side cap. Relations
+    missing from ``stats`` fall back to the old heuristics, so a
+    stats-less call plans bit-identically to earlier releases."""
+    geo = geometry or MeshGeometry.single(n_devices)
+    est = estimate_graph(query.root, env, stats)
+    sizes = est.sizes
+    is_coo = est.is_coo
+    agg_of = est.agg_of
+    joins = est.joins
+    stat_aggs = est.stat_aggs
+
+    def owner_dim_of(n) -> Optional[int]:
+        name = _leaf_name(n)
+        rel = env.get(name) if name is not None else None
+        return rel.owner_dim if isinstance(rel, CooRelation) else None
+
+    def edge_cut_of(n, side: str, join: fra.Join, agg) -> Optional[float]:
+        """Catalog edge-cut fraction for a COO side's Σ-scatter, or None
+        to fall back to the EDGE_CUT_LOCAL/full-scatter heuristic."""
+        name = _leaf_name(n)
+        st = stats.get(name) if stats and name is not None else None
+        rel = env.get(name) if name is not None else None
+        if st is None or not isinstance(rel, CooRelation):
+            return None
+        od = rel.owner_dim
+        if od is None or not _coo_owner_survives(join, agg, side, od):
+            return None
+        return st.edge_cut(od, geo.data_size)
+
+    def committed_of(n) -> Optional[Dict[str, Optional[int]]]:
+        if not committed:
+            return None
+        name = _leaf_name(n)
+        if name is None or name not in committed:
+            return None
+        return _spec_dims(committed[name], geo)
+
+    plans: Dict[int, JoinPlan] = {}
+    for node in joins:
+        lb = sizes[node.left.id]
+        rb = sizes[node.right.id]
+        ob = sizes[node.id]
+        agg = agg_of.get(node.id)
+        coo_sides = (is_coo[node.left.id], is_coo[node.right.id])
+        plans[node.id] = plan_join(
+            node,
+            lb,
+            rb,
+            ob,
+            geo.model_size,
+            mem_budget,
+            geometry=geo,
+            sum_out_bytes=sizes[agg.id] if agg is not None else None,
+            batch_survives=_batch_survival(node, agg),
+            coo_sides=coo_sides,
+            coo_local=(
+                _coo_owner_survives(node, agg, "left", owner_dim_of(node.left)),
+                _coo_owner_survives(node, agg, "right", owner_dim_of(node.right)),
+            ),
+            committed_dims=(committed_of(node.left), committed_of(node.right)),
+            coo_edge_cut=(
+                edge_cut_of(node.left, "left", node, agg),
+                edge_cut_of(node.right, "right", node, agg),
+            ),
+            sum_out_stat=agg is not None and agg.id in stat_aggs,
+        )
+    return plans
+
+
+def input_pspecs(
+    query: fra.Query,
+    plans: Dict[int, JoinPlan],
+    axis: Optional[str] = None,
+) -> Dict[str, P]:
+    """Partition specs (``P``) for the query's base relations implied by the plans
+    — 2-D on a (data × model) geometry: the model axis on the shard dim,
+    the (folded) data axes on the batch dim. ``axis`` overrides the model
+    axis name (legacy callers); default is each plan's own.
+
+    When a relation feeds multiple joins with conflicting specs the first
+    (bottom-most) join wins; the engine reshards it where another join's
+    operand wants another layout (``core/compiler.py``)."""
+    specs: Dict[str, P] = {}
+
+    for node in query.root.topo():
+        if not isinstance(node, fra.Join) or node.id not in plans:
+            continue
+        plan = plans[node.id]
+        for side, child in (("left", node.left), ("right", node.right)):
+            name = _leaf_name(child)
+            if name is None or name in specs:
+                continue
+            specs[name] = plan.pspec(side, child.key_arity, axis)
+    return specs
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
 """Database session: the front door from an FRA query to a compiled
-gradient step, on one device.
+gradient step, on one device or a mesh of ranks.
 
 ``Database`` (re-exported as ``repro_torch.Database``) owns the **catalog**
 a relational system keeps — named relations with schemas (key attribute
@@ -24,6 +24,14 @@ with, and the dispatch table.
 A session runs on ``device="cuda"`` unless the caller asks for another
 device; it raises where there is no GPU rather than run on the CPU unasked.
 
+``Database(mesh=...)`` plans and places every step on a (data × model)
+``DeviceMesh`` over the ranks of a ``torch.distributed`` group (a mesh, or
+a ``launch/mesh.resolve_mesh`` spec string such as ``"host:2"``, resolved
+on the session's device type): each rank runs the same step on its shards
+(``engine.Compiled``); ``handle.plans``/``placements`` show the physical
+plans, ``db.counters()["reshard"]`` the layout moves of committed inputs.
+A memory budget on a mesh is not supported yet (ROADMAP.md, queue 1).
+
 ``Database(memory_budget=...)`` bounds the bytes of relations a step may
 hold on the device: a step whose environment exceeds it streams its largest
 streamable base relation through the device in chunk waves (``planner.plan_waves``,
@@ -45,6 +53,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import copy
+import weakref
 from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Iterator, Optional, Sequence, Tuple, Union
@@ -319,14 +328,28 @@ class Database:
         self,
         device=None,
         *,
+        mesh=None,
         dispatch=None,
+        mem_budget: Optional[float] = None,
         memory_budget: Optional[float] = None,
         rewrite=True,
         fuse_join_agg: bool = True,
         max_cache_entries: Optional[int] = None,
     ) -> None:
+        if mesh is not None and memory_budget is not None:
+            raise NotImplementedError(
+                "Database(mesh=..., memory_budget=...): out-of-core chunk "
+                "waves on a mesh are not supported yet (ROADMAP.md, queue "
+                "1: a memory budget on a mesh)"
+            )
         self.device = resolve_device(device)
         self.catalog = Catalog()
+        self._mesh_spec = mesh
+        self._mesh = None if isinstance(mesh, str) else mesh
+        #: the planner's per-device plan-feasibility budget in bytes
+        #: (distinct from ``memory_budget``): a candidate plan that
+        #: replicates a relation larger than this is infeasible.
+        self.mem_budget = planner.DEFAULT_MEM_BUDGET if mem_budget is None else mem_budget
         #: the session's enabled rewrite rules (None = stage off).
         self.rewrite_rules = _rewrite.make_rules(rewrite)
         self.dispatch = kernels.make_table(dispatch, backend=self.device.type)
@@ -346,6 +369,9 @@ class Database:
             "cache": {"hits": 0, "misses": 0, "evictions": 0},
             "serve": _serve_counters(),
         }
+        #: every executable this session compiled (weak — the engine's
+        #: caches keep live ones alive), for the reshard counter aggregate.
+        self._compiled_refs: "weakref.WeakSet" = weakref.WeakSet()
 
     # -- catalog front door ------------------------------------------------
 
@@ -445,6 +471,8 @@ class Database:
             {"cache":   {hits, misses, evictions},          # exec cache
              "spill":   {spilled_relations, spilled_bytes,
                          fetched_chunks, fetched_bytes},    # out-of-core
+             "reshard": {calls, resharded_calls, bytes_moved,
+                         last_call_bytes, planned_bytes},   # mesh layouts
              "serve":   {requests, admitted, completed, failed,
                          shed_queue_full, shed_deadline, batches,
                          batched_requests, queue_peak,
@@ -452,13 +480,21 @@ class Database:
                          decode:  {compiles, traces, steps, rebuckets,
                                    slot_releases, eos_stops}}}
 
-        The reference's ``reshard`` subtree counts the bytes a mesh-compiled
-        step moves between layouts; it comes with multi-device planning
-        (ROADMAP.md, queue 1, item 4)."""
+        ``reshard`` sums, over every executable the session compiled, the
+        committed-input bytes a mesh step moved to its planned layout
+        (``engine.Compiled.counters``)."""
+        reshard = {
+            "calls": 0, "resharded_calls": 0, "bytes_moved": 0,
+            "last_call_bytes": 0, "planned_bytes": 0,
+        }
+        for c in list(self._compiled_refs):
+            for k, v in c.counters["reshard"].items():
+                reshard[k] += v
         return {
             "cache": dict(self._counters["cache"]),
             "spill": dict(self._chunkstore.stats),
             "serve": copy.deepcopy(self._counters["serve"]),
+            "reshard": reshard,
         }
 
     # -- session executable cache (the serving bucket steps) ---------------
@@ -491,6 +527,36 @@ class Database:
     def schema(self, name: str) -> Tuple[str, ...]:
         """The key attribute names of one relation."""
         return self.catalog.entry(name).key_attrs
+
+    # -- the active mesh ---------------------------------------------------
+
+    @property
+    def mesh(self):
+        """The session's mesh (a spec string is resolved at first use, on
+        the session's device type), or None."""
+        if isinstance(self._mesh_spec, str) and self._mesh is None:
+            from repro_torch.launch.mesh import resolve_mesh
+
+            self._mesh = resolve_mesh(self._mesh_spec, device_type=self.device.type)
+        return self._mesh
+
+    def use_mesh(self, mesh) -> "Database":
+        """Re-point the session at another mesh (a spec string, a mesh or
+        None). Compiled plans are cached per mesh, so switching back
+        re-plans nothing."""
+        if mesh is not None and self.memory_budget is not None:
+            raise NotImplementedError(
+                "a memory budget on a mesh is not supported yet (ROADMAP.md, queue 1)"
+            )
+        self._mesh_spec = mesh
+        self._mesh = None if isinstance(mesh, str) else mesh
+        return self
+
+    def _step_mesh(self):
+        """The mesh a step compiles against: the session's own, else the
+        ambient mesh (``engine._use_mesh``)."""
+        mesh = self.mesh
+        return mesh if mesh is not None else _engine._ambient_mesh()
 
     @contextlib.contextmanager
     def activate(self):
@@ -540,10 +606,10 @@ class Database:
         failures as errors (bad join keys, non-permutation σ, non-additive
         Σ, COO ⋈ COO...), hazards as warnings (f32→f64 promotion,
         statically empty selections, stale statistics, partial-RJP
-        gradients for ``wrt`` inputs). Relations, statistics and
-        key-attribute names are sourced from the catalog exactly as a
-        compiled step would source them. There is no mesh on one device,
-        so the reference's sharded-extent warnings do not arise. Purely
+        gradients for ``wrt`` inputs). Relations, statistics,
+        key-attribute names and the mesh geometry (the
+        ``non-divisible-shard`` warning) are sourced from the session
+        exactly as a compiled step would source them. Purely
         observational — nothing is lowered or cached; the same checker
         runs as the engine's mandatory validate stage, which *raises* on
         the error-severity findings reported here."""
@@ -556,6 +622,7 @@ class Database:
             for n in names
             if n in self.catalog
         }
+        mesh = self.mesh
         return check_query(
             q,
             env,
@@ -563,6 +630,7 @@ class Database:
             schema=self.catalog.schema(),
             wrt=tuple(wrt),
             fuse_join_agg=self.fuse_join_agg,
+            geometry=planner.MeshGeometry.from_mesh(mesh) if mesh is not None else None,
         )
 
     def explain(self, q: Union[fra.Query, fra.Node]) -> str:
@@ -641,6 +709,7 @@ class Database:
         *,
         donate: Tuple[str, ...] = (),
         stats: Optional[Dict[str, planner.RelationStats]] = None,
+        mesh=None,
     ):
         eng = _engine.engine_for(program, fuse_join_agg=self.fuse_join_agg)
         if self.memory_budget is not None:
@@ -684,7 +753,15 @@ class Database:
             stats=stats,
             rewrite=self.rewrite_rules,
         )
-        return low.compile()
+        compiled = low.compile_auto(
+            env,
+            mesh=self._step_mesh() if mesh is None else mesh,
+            donate=donate,
+            stats=stats,
+            mem_budget=self.mem_budget,
+        )
+        self._compiled_refs.add(compiled)
+        return compiled
 
     def _place(self, env: Dict[str, AnyRel], streamed: Tuple[str, ...]) -> None:
         """Moves the catalog relations of a budgeted CUDA session's step
@@ -733,16 +810,19 @@ class Database:
         seed: Optional[AnyRel] = None,
         *,
         stats: Optional[Dict[str, planner.RelationStats]] = None,
+        mesh=None,
     ):
         """Staged execution of a program over an *anonymous* environment
         (relations passed directly rather than named in the catalog) — the
         path the relational operator layer steps through. The environment
         must lie on the session's device; when an env relation matches a
         registered catalog table by name, layout class and extents, that
-        relation's tracked statistics feed the rewrite gate."""
+        relation's tracked statistics feed the planner and the rewrite
+        gate. ``mesh`` overrides the session's step mesh (an operator's
+        backward passes the mesh its forward ran on)."""
         if stats is None:
             stats = self._catalog_stats_for(env)
-        compiled = self._compiled_for(program, env, seed, stats=stats)
+        compiled = self._compiled_for(program, env, seed, stats=stats, mesh=mesh)
         return compiled(env, seed)
 
 
@@ -922,6 +1002,45 @@ class QueryHandle:
             _engine.engine_for(p, fuse_join_agg=self.db.fuse_join_agg).lower_count
             for p in progs
         )
+
+    def plan(
+        self,
+        *,
+        geometry: Optional[planner.MeshGeometry] = None,
+        n_devices: Optional[int] = None,
+        use_stats: bool = True,
+    ) -> Dict[int, planner.JoinPlan]:
+        """Planning-only inspection: the physical ``JoinPlan`` per join
+        the optimizer would choose for this query on a mesh of the given
+        geometry, sourced from the catalog (``use_stats=False`` gives the
+        stats-less heuristic baseline)."""
+        names = _base_names([self.query.root])
+        env = self._env(names)
+        if n_devices is None:
+            n_devices = geometry.model_size if geometry is not None else 1
+        return planner.plan_query(
+            self.query,
+            env,
+            n_devices,
+            mem_budget=self.db.mem_budget,
+            geometry=geometry,
+            stats=self.db.catalog.snapshot(names) if use_stats else None,
+        )
+
+    @property
+    def plans(self) -> Dict[int, planner.JoinPlan]:
+        """The physical plans of the most recent compiled executable."""
+        if self.last is None:
+            raise ValueError("no compiled step yet: call forward/grad/step")
+        return self.last.plans
+
+    @property
+    def placements(self):
+        """Per-relation {"data": dim, "model": dim} placements of the
+        most recent compiled executable."""
+        if self.last is None:
+            raise ValueError("no compiled step yet: call forward/grad/step")
+        return self.last.placements
 
     @property
     def resolutions(self) -> Dict[str, str]:

@@ -112,6 +112,13 @@ def main(argv=None) -> None:
     lowered_before = handle.lower_count  # explain lowers the forward query once
     _, theta = train(db, handle, steps, log)
 
+    # The physical plan per join, chosen by the distribution planner from
+    # the catalog statistics (one device here; Database(mesh=...) plans
+    # for a (data × model) mesh of ranks).
+    print("\n=== physical plans (planner.plan_query, catalog statistics) ===")
+    for nid, plan in handle.plans.items():
+        print(f"join #{nid}: {plan.kind}  costs={ {k: f'{v:.0f}' for k, v in plan.costs.items()} }")
+
     # Kernel dispatch: each hot op was resolved against the registry at
     # lowering time — the CUDA kernels on the card, the torch lowering on
     # the CPU.

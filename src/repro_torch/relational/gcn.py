@@ -12,13 +12,23 @@ both run on the CUDA kernels (kernels/gather, kernels/segsum).
 once and lowered once per (graph size, feature dim) signature. The backward
 runs in the session that ran the forward, kept on ``ctx``: autograd runs
 the backward of CUDA tensors on a thread of its own, which does not see the
-caller's ``Database.activate``. Gradients that autograd does not ask for
-(e.g. of fixed edge weights) are skipped.
+caller's ``Database.activate``. Under a session with a mesh
+(``Database(mesh=...)``) the forward and both gradient queries run planned
+and placed on the mesh — each rank on its shards, e.g. the edge relation's
+nnz rows split over the data axes — and ``ctx`` keeps the forward's mesh
+too, so the backward runs on the mesh its forward ran on. Gradients that
+autograd does not ask for (e.g. of fixed edge weights) are skipped.
 
 ``partitioned_edges`` pre-sorts edges by dst (the owner partition): a
 budgeted session (``Database(memory_budget=...)``) then cuts an edge
 relation into waves at owner-run starts, so no Σ-by-dst segment straddles
-two waves.
+two waves; with ``num_shards`` the data-axis size of a mesh, its padded rows
+split evenly over the data ranks, each holding a run of whole dst owners.
+``gcn_conv(..., owner_dim=1)`` tells the planner that its edges lie so:
+the Σ-by-dst scatter is then priced as owner-local (``EDGE_CUT_LOCAL``, or
+from the catalog's statistics of a relation of the same name, "Edge", put
+with ``db.put``), which is what makes a mesh plan shard the edges' nnz
+rows where the node features are the larger relation.
 """
 
 from __future__ import annotations
@@ -68,23 +78,25 @@ def _gcn_prog():
 
 class _GcnConv(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, h, edge_keys, edge_w):
+    def forward(ctx, h, edge_keys, edge_w, owner_dim):
         prog, _ = _gcn_prog()
         n = h.shape[0]
         env = {
-            "Edge": CooRelation(edge_keys, edge_w, (n, n)),
+            "Edge": CooRelation(edge_keys, edge_w, (n, n), owner_dim),
             "Node": DenseRelation(h, 1),
         }
+        ctx.owner_dim = owner_dim
         ctx.save_for_backward(h, edge_keys, edge_w)
         ctx.db = session.current()
-        return ctx.db.execute(prog.forward, env).data
+        ctx.mesh = ctx.db._step_mesh()
+        return ctx.db.execute(prog.forward, env, mesh=ctx.mesh).data
 
     @staticmethod
     def backward(ctx, g):
         h, edge_keys, edge_w = ctx.saved_tensors
         prog, scans = _gcn_prog()
         n = h.shape[0]
-        edge = CooRelation(edge_keys, edge_w, (n, n))
+        edge = CooRelation(edge_keys, edge_w, (n, n), ctx.owner_dim)
         node = DenseRelation(h, 1)
         env = {
             "Edge": edge,
@@ -96,12 +108,16 @@ class _GcnConv(torch.autograd.Function):
         db = ctx.db
         dnode = dedge = None
         if ctx.needs_input_grad[0]:
-            dnode = db.execute(prog.grads["Node"], env).data
+            dnode = db.execute(prog.grads["Node"], env, mesh=ctx.mesh).data
         if ctx.needs_input_grad[2]:
-            dedge = db.execute(prog.grads["Edge"], env).values
-        return dnode, None, dedge
+            dedge = db.execute(prog.grads["Edge"], env, mesh=ctx.mesh).values
+        return dnode, None, dedge, None
 
 
-def gcn_conv(h: torch.Tensor, edge_keys: torch.Tensor, edge_w: torch.Tensor) -> torch.Tensor:
-    """h: (N, D); edge_keys: (E, 2) int32 ⟨src, dst⟩; edge_w: (E,)."""
-    return _GcnConv.apply(h, edge_keys, edge_w)
+def gcn_conv(
+    h: torch.Tensor, edge_keys: torch.Tensor, edge_w: torch.Tensor, owner_dim=None
+) -> torch.Tensor:
+    """h: (N, D); edge_keys: (E, 2) int32 ⟨src, dst⟩; edge_w: (E,).
+    ``owner_dim=1``: the edges are sorted by dst, as ``partitioned_edges``
+    lays them out (module docstring)."""
+    return _GcnConv.apply(h, edge_keys, edge_w, owner_dim)

@@ -19,7 +19,9 @@ and the backward runs ``prog.grads[...]``, both through the ambient
 ``Database`` session (``core.session.current()``), whose device and
 dispatch table they use. The backward runs in the session that ran the
 forward, kept on ``ctx``: autograd runs the backward of CUDA tensors on a
-thread of its own, which does not see the caller's ``Database.activate``.
+thread of its own, which does not see the caller's ``Database.activate``;
+``ctx`` keeps the forward's mesh too, so under ``Database(mesh=...)`` the
+backward's queries are planned and placed on the mesh the forward ran on.
 Programs are built once and lowered once per shape signature.
 """
 
@@ -81,8 +83,9 @@ def _matmul_function(name: str, prog_fn, arity: int):
         env = {"X": DenseRelation(x, arity), "W": DenseRelation(w, arity)}
         ctx.save_for_backward(x, w)
         ctx.db = session.current()
+        ctx.mesh = ctx.db._step_mesh()
         # kept for, or handed back at, the recompute of remat "dots"
-        return remat.product(lambda: ctx.db.execute(prog.forward, env).data,
+        return remat.product(lambda: ctx.db.execute(prog.forward, env, mesh=ctx.mesh).data,
                              (name, tuple(x.shape), tuple(w.shape)))
 
     def backward(ctx, g):
@@ -96,7 +99,7 @@ def _matmul_function(name: str, prog_fn, arity: int):
         db = ctx.db
         out = []
         for n, needed in zip(("X", "W"), ctx.needs_input_grad):
-            out.append(db.execute(prog.grads[n], env).data if needed else None)
+            out.append(db.execute(prog.grads[n], env, mesh=ctx.mesh).data if needed else None)
         return tuple(out)
 
     return type(name, (torch.autograd.Function,),

@@ -95,11 +95,18 @@ def test_certify_rejects_non_compiled():
 
 
 def test_a_plan_on_a_mesh_waits_for_multi_device_planning():
+    # the wait is over: the mesh half is ported (its proofs are held on 4
+    # ranks in tests/test_torch_mesh.py). What is not a compiled plan is
+    # refused, and committed layouts change nothing on a mesh-less plan,
+    # as in the reference
     q, env = _matmul_query(TORCH), _matmul_env(TORCH)
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(TypeError, match="cannot certify"):
         certify(SimpleNamespace(mesh=object()), env)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        certify(_compiled(TORCH, q, env), env, committed={"A": ("x",)})
+    cert = certify(_compiled(TORCH, q, env), env, committed={"A": ("x",)})
+    jq, jenv = _matmul_query(JAX), _matmul_env(JAX)
+    jcert = jcertify(_compiled(JAX, jq, jenv), jenv, committed={"A": ("x",)})
+    assert cert.ok and cert.reshard == jcert.reshard
+    assert cert.divisibility == jcert.divisibility == {}
 
 
 # ---------------------------------------------------------------------------

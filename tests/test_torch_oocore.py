@@ -360,7 +360,8 @@ def test_no_budget_and_a_fitting_budget_are_bit_identical(workload):
         assert h.resolutions == h0.resolutions
         assert_close(got, base, atol=0)
         c = db.counters()
-        assert set(c) == {"cache", "spill", "serve"}
+        assert set(c) == {"cache", "reshard", "spill", "serve"}
+        assert c["reshard"]["bytes_moved"] == 0
         assert c["spill"] == {
             "spilled_relations": 0, "spilled_bytes": 0,
             "fetched_chunks": 0, "fetched_bytes": 0,

@@ -502,8 +502,8 @@ def test_counters_tree_shape_and_snapshot_semantics():
 
     db, _ = _both(run)
     c = db.counters()
-    # the reference's "reshard" subtree comes with multi-device planning
-    assert set(c) == {"cache", "spill", "serve"}
+    assert set(c) == set(repro.Database().counters()) == {"cache", "reshard", "spill", "serve"}
+    assert set(c["reshard"]) == set(repro.Database().counters()["reshard"])
     assert set(c["serve"]) == set(repro.Database().counters()["serve"])
     assert c["serve"]["completed"] == 1
     assert c["cache"]["misses"] >= 1   # serving shares the session cache
