@@ -50,7 +50,8 @@ Phases, in order; any failure stops the run with a non-zero exit:
    olmoe's prefill, decode step and train step, phase 12's burst,
    zamba2's prefill and decode step and a falcon-mamba train step (the
    scan's forward and reverse walks apart), and the passes of phases 15-21,
-   on their calls' own ids)
+   on their calls' own ids, and one rank's passes of phase 24 at their shard
+   shapes)
    beside its plain version, one PyTorch library call (where there is one),
    the card's bound and, for the small calls, the host's time per call; and
    time ``segment_sum``'s index (sort and starts) and its two paths across
@@ -197,7 +198,30 @@ Phases, in order; any failure stops the run with a non-zero exit:
    table committed sharded where the plan wants it whole, whose reshard the
    certificate must report with its bytes and ``ReshardWarning`` once. The
    backend, each rank's step time and edge bytes and the collectives' calls
-   and bytes per step are printed.
+   and bytes per step are printed;
+24. (run after phase 23, before phase 8) olmoe-1b-7b on a mesh
+   (``launch/sharding.py``): 24.1 at 4 layers on a one-rank NCCL group,
+   a prefill of 2 × 512 tokens, 4 greedy decode steps and a train step
+   through ``make_prefill_step``/``make_decode_step``/``make_train_step``
+   on the ("model",) mesh, each bit-equal to the mesh-less step; 24.2 at
+   all 16 layers on 4 gloo ranks sharing the card, a 1 × 4 mesh (the
+   heads, 16 experts a rank and the vocabulary of the embedding and the
+   head on the model axis, each rank's shards cut as its model is drawn
+   from the seed of phase 10's): the same prefill and 4 decode steps fed
+   seeded tokens, on phase 10's model's routing, its logits within a
+   stated f32 limit of the mesh-less run's, every rank's bit-equal, a
+   second run bit-equal, and a model all-reduce left out planted; 24.3 at
+   2 layers on the 2 × 2 mesh (FSDP on "data", tensor and expert
+   parallelism on "model"): 2 Adam steps with grad_clip 1.0 held to the
+   mesh-less steps (losses, global norms, the step-1 gradients and final
+   values of a leaf of each layout), with a replicated leaf counted on
+   each rank in the norm and a reduce-scatter replaced by a local sum
+   planted; 24.4 each rank's collectives per step by op and axis (beside
+   the bytes the specs predict), parameter bytes, peak memory and step
+   times; 24.5 the kernel calls of a pass at the shard shapes (phase 8
+   times them as ``lm_mesh``), each held to phase 2's checked shapes, its
+   launch record to its contract model, the mesh steps' lowerings
+   certified.
 
 Device memory is freed between phases, so the NNMF step's peak and the
 language models' 1–60 GB of weights never meet. The last line of standard
@@ -545,6 +569,45 @@ MESH_RANKS, MESH_BLOCKS, MESH_B, MESH_TIGHT_BUDGET = 4, 8, 256, 1e6
 #: rows of the ogbn-arxiv edge relation (self loops included) on one rank
 #: of the 4 × 1 mesh: ⌈E/4⌉, the rows padded to a multiple of 4
 MESH_EDGE_ROWS = -(-(EDGES + NODES) // MESH_RANKS)
+# phase 24, olmoe-1b-7b on a mesh: 24.1 at 4 layers on a one-rank NCCL
+# group; 24.2 served at all 16 layers on the 1 × 4 (data × model) mesh of
+# LM_MESH_RANKS gloo ranks sharing the card; 24.3 trained at 2 layers on
+# the 2 × 2 mesh. Each prefill takes 2 prompts of 512 tokens, then 4
+# decode steps; a train step 2 rows of 512 tokens (one a data rank). Gloo
+# moves every collective through the host (phase 23's step, two 130 MB
+# all-reduces, took 645.79 ms on an H100 80GB HBM3 at 700 W), and a 2 × 2 train step
+# gathers and reduce-scatters each rank's FSDP shards of the two layers'
+# experts (1.05 GB in, 2.09 GB out a step a rank): the sizes keep phase 24
+# near 150 s, and 24.3 runs without remat, whose recompute would gather
+# the experts a second time
+LM_MESH_RANKS = 4
+LM_MESH_ONE_LAYERS, LM_MESH_TRAIN_LAYERS = 4, 2
+LM_MESH_BATCH, LM_MESH_PROMPT, LM_MESH_DECODE = 2, 512, 4
+LM_MESH_TRAIN_BATCH, LM_MESH_TRAIN_SEQ, LM_MESH_TRAIN_STEPS = 2, 512, 2
+LM_MESH_LR, LM_MESH_CLIP = 3e-4, 1.0
+#: 24.2's planted fault leaves out this layer's attention all-reduce
+LM_MESH_PLANTED_LAYER = 4
+#: logits of the 1 × 4 mesh against the mesh-less model, as a share of the
+#: largest logit, on the same routing: the mesh adds each row-parallel
+#: product's (wo: K = 2,048 in four partials of 512), the experts' combine
+#: and the vocabulary-split lookup's partials over the 4 ranks, a
+#: reordering of f32 sums of the kind phase 10's torch tier makes, whose
+#: 16-layer limit (OLMOE_TIER_LIMIT) this is
+LM_MESH_LOGIT_LIMIT = 3e-5
+#: the global gradient norm of a 2 × 2 step against the mesh-less step's,
+#: relative: the same ≈ 3.5·10⁹ squares summed in another grouping (f32
+#: sums of ≲ 10⁹ terms in PyTorch's cascade err by ≲ 10⁻⁶ of the sum) of
+#: gradients that agree to ≈ 10⁻⁶; a replicated leaf counted on each of
+#: its ranks (planted) adds its squares again
+LM_MESH_NORM_LIMIT = 1e-5
+#: the leaves 24.3 holds: one of each layout (the vocabulary split over
+#: "model" and FSDP'd on "data"; a column- and a row-parallel projection;
+#: the experts on "model", FSDP'd; the router, FSDP'd only; the QK-norm
+#: scale and the layer norms, replicated)
+LM_MESH_LEAVES = ("embed", "out_embed", "ln_f", "stages.0.scan.0.0:moe.ln1",
+                  "stages.0.scan.0.0:moe.attn.wq", "stages.0.scan.0.0:moe.attn.wo",
+                  "stages.0.scan.0.0:moe.attn.q_norm", "stages.0.scan.0.0:moe.moe.router",
+                  "stages.0.scan.0.0:moe.moe.wi_gate", "stages.0.scan.1.0:moe.moe.wo")
 
 #: odd ids (padding -1, ids ≥ S) of the edge cases, over S = N = 7
 ODD_IDS = (3, -1, 0, 7, 9, 2, -5, 4, 4)
@@ -618,7 +681,7 @@ def matmul_cases(cfg):
     GCN forwards, the RJP shapes, the logistic regression's two products
     in core and in one wave of phase 9, the NNMF product, falcon-mamba's projections at m = B·S and m = B and
     its head at m = B, ragged edges, the crossover between the skinny
-    and the tiled path, and the products of phases 10-21."""
+    and the tiled path, and the products of phases 10-21 and 24."""
     from repro_torch.examples.nnmf import BLOCK
 
     cases = [
@@ -644,6 +707,8 @@ def matmul_cases(cfg):
     cases += [(m, k, n, "gemma2 / gemma3 / llama3") for op, m, k, n in sorted(dense_checked_shapes())
               if op == "blocked_matmul"]
     cases += [(m, k, n, "deepseek-v3 / whisper / qwen2-vl") for op, m, k, n in sorted(zoo_checked_shapes())
+              if op == "blocked_matmul"]
+    cases += [(m, k, n, "olmoe on a mesh") for op, m, k, n in sorted(lm_mesh_checked_shapes())
               if op == "blocked_matmul"]
     return cases
 
@@ -1040,6 +1105,17 @@ def check_kernels(torch, kern, graph, lm_cfg, olmoe_cfg, dev):
         elif op == "segment_sum":
             segsum_case(c, ids(a, c), b, "deepseek-v3 / whisper / qwen2-vl",
                         fault=hottest_edge_dropped if c != a else None)
+        torch.cuda.empty_cache()
+
+    # phase 24's at the ranks' shard shapes: the lookups in a vocabulary
+    # shard, the local experts' dispatch, combine and Σ by token, and their
+    # transposes, each with -1 ids mixed in as the mesh's are (olmoe_ids;
+    # positions where E = N)
+    for op, a, b, c in sorted(lm_mesh_checked_shapes()):
+        if op == "gather_join":
+            gather_case(b, olmoe_ids(a, b), c, "olmoe on a mesh")
+        elif op == "segment_sum":
+            segsum_case(c, olmoe_ids(a, c), b, "olmoe on a mesh")
         torch.cuda.empty_cache()
     return errs
 
@@ -2149,7 +2225,7 @@ class Routing:
         self.calls, self.own, self.replay = [], [], replay
         return self
 
-    def __call__(self, x, router, *, top_k, capacity, e):
+    def __call__(self, x, router, *, top_k, capacity, e, **kw):
         torch, got = self.torch, []
         replay = None if self.replay is None else self.replay[len(self.calls)][0]
 
@@ -2159,7 +2235,7 @@ class Routing:
 
         self.ffn._top_k = top_k_fn
         try:
-            xe, meta, aux = self.real(x, router, top_k=top_k, capacity=capacity, e=e)
+            xe, meta, aux = self.real(x, router, top_k=top_k, capacity=capacity, e=e, **kw)
         finally:
             self.ffn._top_k = self.real_top_k
         dest, st, _, keep = meta
@@ -4629,7 +4705,8 @@ def time_site(torch, op, info, rows_for, seg_for, gen, dev):
     return k_ms, p_ms, l_ms, (m * k + k * n + m * n) * 4, 2 * m * n * k, extra
 
 
-def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, dense, mesh, errs, dev):
+def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, dense, mesh, lm_mesh, errs,
+                 dev):
     """Per kernel and per main path: each site timed alone at its shapes,
     times the launches of that site in one pass of the path (one GCN step;
     one logistic-regression step; one NNMF step; one KGE step at each
@@ -4638,7 +4715,9 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, d
     step, and one olmoe train step; zamba2's prefill and one decode step;
     one falcon-mamba train step; the dense families' prefill and one decode
     step, one gemma2 train step and the gemma3 endpoint's burst; one rank's
-    GCN step on phase 23's 4 × 1 mesh), summed."""
+    GCN step on phase 23's 4 × 1 mesh; one rank's olmoe prefill and decode
+    step on phase 24's 1 × 4 mesh and its train step on the 2 × 2 mesh),
+    summed."""
     from repro_torch.kernels.matmul.ops import blocked_matmul_forward
     from repro_torch.kernels.ssm_scan.ops import ssm_scan_forward
     from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
@@ -4765,6 +4844,20 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, d
                 *time_site(torch, key[0], run["log"].info(key), lambda e, n: ids, lambda e, s: ids, gen, dev))
         del ids
 
+    # one rank of phase 24: 24.2's prefill and one decode step on the 1 × 4
+    # mesh and one 24.3 train step on the 2 × 2 mesh, every kernel
+    # signature at its shard shapes on the ids its first call took (the
+    # vocabulary shard's lookups and the other experts' assignments hold
+    # -1), times its calls in the pass
+    for counts, first_ids, _ in (lm_mesh["serve"], lm_mesh["train"]):
+        for key, mult in sorted(counts.items()):
+            ids = first_ids.get(key)
+            ids = None if ids is None else ids.to(dev)
+            add("lm_mesh", key[0], f"{key[0]}{key[1:]}", mult,
+                *time_site(torch, key[0], LaunchLog(torch).info(key), lambda e, n: ids,
+                           lambda e, s: ids, gen, dev))
+        del ids
+
     # phase 9's streamed steps: every site of a wave's lowering once per
     # wave, each on the ids it took in the largest wave (a product takes
     # none)
@@ -4861,6 +4954,7 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, d
                    "oocore": oocore["launches"].get(op, 0),
                    "zamba2_serve": ssm["zamba2"]["launches"][op],
                    "gcn_mesh": mesh["launches"].get(op, 0),
+                   "lm_mesh": lm_mesh["launches"].get(op, 0),
                    "falcon_train": ssm["falcon_train"]["launches"][op],
                    **{path: run["launches"][op] for path, run in dense.items()}}
         records.append({
@@ -4904,7 +4998,9 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, d
                     f"a prefill and {QWEN_DECODE} decode steps and the endpoint's burst of "
                     f"{len(QWEN_ENDPOINT_BUDGETS)} requests (phase 21), {GCN_STEPS} GCN steps on "
                     f"phase 23's {MESH_RANKS} × 1 mesh (gcn_mesh: the {MESH_RANKS} ranks' "
-                    "launches summed); "
+                    f"launches summed), phase 24's olmoe request of a prefill and {LM_MESH_DECODE} "
+                    f"decode steps on the 1 × {LM_MESH_RANKS} mesh and {LM_MESH_TRAIN_STEPS} train "
+                    f"steps on the 2 × 2 mesh (lm_mesh: the {LM_MESH_RANKS} ranks' launches summed); "
                     "ms, plain_ms, bound_ms, library_ms: each site timed alone, times its "
                     "launches in one pass, summed over one GCN step, one logistic-regression "
                     "step, one NNMF step, one KGE step at each width, one prefill, one "
@@ -4918,8 +5014,10 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, d
                     "(gemma3_endpoint), deepseek-v3's, whisper's and qwen2-vl's prefill and one "
                     "decode step (deepseek_v3_serve, whisper_serve with the encoder, qwen2_vl_serve), "
                     "one whisper train step (whisper_train) and the whisper and qwen2-vl endpoints' "
-                    "bursts (whisper_endpoint, qwen2_vl_endpoint) and one rank's GCN step on the "
-                    "4 × 1 mesh at its shard shapes (gcn_mesh); 'paths' splits them; host_ms: "
+                    "bursts (whisper_endpoint, qwen2_vl_endpoint), one rank's GCN step on the "
+                    "4 × 1 mesh at its shard shapes (gcn_mesh) and one rank's olmoe prefill and "
+                    "decode step on the 1 × 4 mesh and train step on the 2 × 2 mesh at their shard "
+                    "shapes (lm_mesh); 'paths' splits them; host_ms: "
                     f"the host's time per call over {HOST_CALLS} calls without a synchronise, "
                     "summed the same way over the sites where it was taken (null: not taken)"),
             "paths": {path: {k: v for k, v in acc.items() if k not in ("bytes_ms", "ops_ms")}
@@ -6250,6 +6348,646 @@ def mesh_phase(torch, repro_torch, kern, data, params0, dev, smi):
     return {"sites": r0["sites"], "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# Phase 24: olmoe-1b-7b on a mesh
+# ---------------------------------------------------------------------------
+
+
+def lm_mesh_config(layers=None, **changes):
+    """olmoe-1b-7b at its published widths, in f32, at ``layers`` layers."""
+    import dataclasses
+
+    cfg = olmoe_config()
+    return dataclasses.replace(cfg, n_layers=layers or cfg.n_layers, **changes)
+
+
+def lm_mesh_shapes(cfg, b, s, m, d, train):
+    """Every kernel call (op, shape) of one rank's forward over a whole
+    batch of B rows of S tokens on a (d × m) data × model mesh, and with
+    ``train`` of its backward: ``olmoe_shapes`` at the rank's shards — its
+    B/d rows, its heads' columns of q/k/v and rows of wo, its V/m rows of
+    the embedding (looked up with -1 for the other ranks' ids) and columns
+    of the head, its E/m experts' slots."""
+    bl = b // d
+    bs, dm, hd = bl * s, cfg.d_model, cfg.hd()
+    cap = max(int(cfg.capacity_factor * s * cfg.top_k / cfg.n_experts), cfg.top_k)
+    slots, assigned, vl = bl * (cfg.n_experts // m) * cap, bs * cfg.top_k, cfg.vocab // m
+    out = {("blocked_matmul", bs, dm, cfg.n_heads * hd // m),
+           ("blocked_matmul", bs, dm, cfg.n_kv_heads * hd // m),
+           ("blocked_matmul", bs, cfg.n_heads * hd // m, dm),
+           ("blocked_matmul", bs if train else bl, dm, vl),
+           ("gather_join", bs, vl, dm), ("segment_sum", bs, dm, bs),
+           ("gather_join", slots, bs, dm), ("gather_join", assigned, slots, dm),
+           ("segment_sum", assigned, dm, bs)}
+    if train:
+        out |= {("gather_join", bs, bs, dm), ("segment_sum", bs, dm, vl),
+                ("gather_join", assigned, bs, dm), ("segment_sum", assigned, dm, slots),
+                ("segment_sum", slots, dm, bs)}
+    return out
+
+
+def lm_mesh_checked_shapes():
+    """The kernel calls of phase 24, which phase 2 checks and phase 24's
+    ranks must launch at no other shape: 24.1's prefill, decode and train
+    step on one rank, 24.2's prefill and decode step on the 1 × 4 mesh,
+    24.3's train step on the 2 × 2 mesh."""
+    cfg, b, s = olmoe_config(), LM_MESH_BATCH, LM_MESH_PROMPT
+    out = set()
+    for m, d in ((1, 1), (LM_MESH_RANKS, 1)):
+        out |= lm_mesh_shapes(cfg, b, s, m, d, False) | lm_mesh_shapes(cfg, b, 1, m, d, False)
+    out |= lm_mesh_shapes(cfg, b, s, 1, 1, True)
+    return out | lm_mesh_shapes(cfg, LM_MESH_TRAIN_BATCH, LM_MESH_TRAIN_SEQ, 2, 2, True)
+
+
+def lm_mesh_predicted(cfg):
+    """The collectives' bytes a rank puts in per step, from the specs (the
+    model all-reduces of the embedding's lookup, each layer's wo and
+    combine; the head's vocabulary all-gather; 24.3's FSDP gathers and
+    their reduce-scatters), {(what, "op/axis"): (calls, bytes)}."""
+    from repro_torch.launch.sharding import param_pspecs
+    from repro_torch.models.model import param_shapes
+
+    dm, f = cfg.d_model, 4
+    out = {}
+    for what, b, s in (("prefill", LM_MESH_BATCH, LM_MESH_PROMPT), ("decode step", LM_MESH_BATCH, 1)):
+        act = b * s * dm * f
+        out[what, "all_reduce/model"] = (1 + 2 * cfg.n_layers, (1 + 2 * cfg.n_layers) * act)
+        out[what, "all_gather/model"] = (1, b * (cfg.vocab // LM_MESH_RANKS) * f)
+    tcfg = lm_mesh_config(LM_MESH_TRAIN_LAYERS)
+    shapes = param_shapes(tcfg)
+    specs = param_pspecs(shapes, {"data": 2, "model": 2})
+    fsdp = [k for k, sp in specs.items() if "data" in sp]
+    local = {k: math.prod(shapes[k]) // (2 if "model" in specs[k] else 1) // 2 for k in fsdp}
+    out["train step", "all_gather/data"] = (len(fsdp), f * sum(local.values()))
+    out["train step", "reduce_scatter/data"] = (len(fsdp), 2 * f * sum(local.values()))
+    return out
+
+
+def lm_mesh_tokens(torch, dev, shape, seed, vocab):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(0, vocab, shape, generator=gen, device=dev, dtype=torch.int32)
+
+
+def lm_mesh_serve(torch, model, db, tokens, fed=None, *, mesh=None, log_=None):
+    """A prefill of ``tokens`` and LM_MESH_DECODE decode steps, fed the
+    columns of ``fed`` (greedy where None): each step's logits (steps + 1,
+    B, V), its host time and its collectives; with ``log_`` (a LaunchLog)
+    the kernel calls of the prefill and the first decode step."""
+    from repro_torch.launch import collectives
+    from repro_torch.serving import make_decode_step, make_prefill_step
+
+    prefill = make_prefill_step(model, LM_MESH_PROMPT + LM_MESH_DECODE, mesh=mesh, db=db)
+    decode = make_decode_step(model, mesh=mesh, db=db)
+    rec = {"secs": [], "collectives": []}
+
+    def timed(fn, *args):
+        collectives.reset_collectives()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn(*args)
+        torch.cuda.synchronize()
+        rec["secs"].append(time.perf_counter() - t0)
+        rec["collectives"].append(collectives.last_collectives())
+        return got
+
+    logits, caches = timed(prefill, {"tokens": tokens})
+    steps = [logits[:, -1]]
+    for i in range(LM_MESH_DECODE):
+        tok = logits.argmax(-1).to(torch.int32) if fed is None else fed[:, i:i + 1]
+        logits, caches = timed(decode, tok, caches, LM_MESH_PROMPT + i)
+        steps.append(logits[:, -1])
+        if i == 0 and log_ is not None:
+            rec["pass"] = dict(log_.counts)
+    rec["logits"] = torch.stack(steps).float()
+    return rec
+
+
+class UpdateLog:
+    """While active, each Adam update of ``train.trainer``: the named
+    leaves' gradients it takes (host copies) and the global norm it clips
+    to (on a mesh, ``Placement.grad_norm``'s; else the norm the update
+    computes, the same expression)."""
+
+    def __init__(self, torch, leaves):
+        self.torch, self.leaves, self.grads, self.norms = torch, leaves, [], []
+
+    def __enter__(self):
+        from repro_torch.train import trainer
+
+        self.trainer, self.real = trainer, trainer.adam_update
+        torch = self.torch
+
+        def update(params, grads, state, **kw):
+            self.grads.append({k: grads[k].detach().cpu() for k in self.leaves})
+            norm_fn = kw.get("grad_norm")
+            if norm_fn is None:
+                self.norms.append(float(torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads.values()))))
+            else:
+                def recorded(g):
+                    n = norm_fn(g)
+                    self.norms.append(float(n))
+                    return n
+                kw["grad_norm"] = recorded
+            return self.real(params, grads, state, **kw)
+
+        trainer.adam_update = update
+        return self
+
+    def __exit__(self, *exc):
+        self.trainer.adam_update = self.real
+
+
+def lm_mesh_train(torch, model, db, batch, *, steps=LM_MESH_TRAIN_STEPS, leaves=LM_MESH_LEAVES, log_=None):
+    """``steps`` donated Adam steps of ``model`` (its own tensors) on
+    ``batch`` under ``db`` (on the session's mesh, if it has one): losses,
+    host times, collectives, the named leaves' gradients and final values
+    (host copies) and the global norms; with ``log_`` the kernel calls of
+    the last step."""
+    from repro_torch.launch import collectives
+    from repro_torch.train import init_train_state, make_train_step
+
+    state = init_train_state(model)
+    step = make_train_step(model, lr=LM_MESH_LR, grad_clip=LM_MESH_CLIP, donate=True, database=db)
+    params, opt = state.params, state.opt_state
+    rec = {"losses": [], "secs": [], "collectives": []}
+    with UpdateLog(torch, leaves) as upd:
+        for i in range(steps):
+            if log_ is not None and i == steps - 1:
+                log_.counts.clear()
+            collectives.reset_collectives()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, metrics = step(params, opt, batch)
+            torch.cuda.synchronize()
+            rec["secs"].append(time.perf_counter() - t0)
+            rec["collectives"].append(collectives.last_collectives())
+            rec["losses"].append(float(metrics["loss"]))
+    if log_ is not None:
+        rec["pass"] = dict(log_.counts)
+    rec["grads"], rec["norms"] = upd.grads, upd.norms
+    rec["params"] = {k: params[k].detach().cpu() for k in leaves}
+    del params, opt, state
+    return rec
+
+
+def drop_one_model_reduce(collectives, index):
+    """Plant a missing reduction: the ``index``-th model-axis all-reduce
+    (counted from the plant) returns each rank's partial. Returns the
+    undo."""
+    real, seen = collectives.MeshComm.all_reduce, [0]
+
+    def all_reduce(self, t, kind):
+        if kind == "model":
+            seen[0] += 1
+            if seen[0] == index + 1:
+                return t.clone()
+        return real(self, t, kind)
+
+    collectives.MeshComm.all_reduce = all_reduce
+
+    def undo():
+        collectives.MeshComm.all_reduce = real
+    return undo
+
+
+def plant_norm_overcount(torch, sharding):
+    """Plant the norm of a step that counts each replicated leaf on every
+    rank that holds it: every rank's Σg² summed over both axes. Returns the
+    undo."""
+    real = sharding.Placement.grad_norm
+
+    def overcount(self, grads):
+        s = sum(torch.sum(g.float() ** 2) for g in grads.values())
+        for kind in ("model", "data"):
+            s = self.comm.all_reduce(s, kind)
+        return torch.sqrt(s)
+
+    sharding.Placement.grad_norm = overcount
+
+    def undo():
+        sharding.Placement.grad_norm = real
+    return undo
+
+
+def plant_local_reduce_scatter(collectives):
+    """Plant a reduce-scatter replaced by a local sum: each rank keeps its
+    own slice, the other ranks' parts left out. Returns the undo."""
+    real = collectives.MeshComm.reduce_scatter
+
+    def local(self, t, dim, kind):
+        n = t.shape[dim] // self.size[kind]
+        return t.narrow(dim, self.index[kind] * n, n).contiguous()
+
+    collectives.MeshComm.reduce_scatter = local
+
+    def undo():
+        collectives.MeshComm.reduce_scatter = real
+    return undo
+
+
+def lm_mesh_rank(rank, path, device):
+    """One rank of 24.2-24.5: olmoe-1b-7b served at 16 layers on the 1 × 4
+    mesh (twice, then with a model all-reduce dropped), trained 2 steps at
+    2 layers on the 2 × 2 mesh (then a step with each planted fault), on
+    the mesh-less runs' routing; the kernel calls of a pass, their launch
+    records against the contract models and the certificates of the
+    lowerings. Returns numbers and host tensors."""
+    import torch
+
+    import repro_torch
+    from repro_torch import kernels as kern
+    from repro_torch.analysis import certify_kernels
+    from repro_torch.analysis.kernelcheck import launch_mismatch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.common import last_launches
+    from repro_torch.launch import collectives, sharding
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.models import build_model, ffn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dev = torch.device(device)
+    build.library()
+    blob = torch.load(path)
+    out = {"rank": rank}
+    m14 = launch_mesh.make_host_mesh(model=LM_MESH_RANKS, device_type=dev.type)
+    m22 = launch_mesh.make_host_mesh(model=2, device_type=dev.type)
+    routing = Routing(torch, ffn)
+    sites = {}
+
+    # 24.2: served on the 1 × 4 mesh, on the mesh-less run's routing
+    cfg = lm_mesh_config()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, seed=0, mesh=m14)
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t0
+    out["serve_param_bytes"] = sum(p.numel() * p.element_size() for p in model.parameters())
+    db = repro_torch.Database(dev, mesh=m14)
+    tokens, fed = blob["tokens"].to(dev), blob["fed"].to(dev)
+    replay = [(c.to(dev), None) for c, _ in blob["serve_routing"]]
+    kern.reset_launch_counts()
+    with routing, LaunchLog(torch) as log_:
+        routing.run(replay)
+        serve = lm_mesh_serve(torch, model, db, tokens, fed, log_=log_)
+        out["serve_launches"] = kern.launch_counts()
+        out["serve_routing_moved"] = int(sum(int(d.sum()) for d in routing_differences(
+            torch, routing.own, replay)))
+        routing.run(replay)
+        again = lm_mesh_serve(torch, model, db, tokens, fed)
+        undo = drop_one_model_reduce(collectives, 2 * LM_MESH_PLANTED_LAYER + 1)
+        try:
+            routing.run(replay)
+            planted = lm_mesh_serve(torch, model, db, tokens, fed)
+        finally:
+            undo()
+    out["serve"] = {k: v for k, v in serve.items() if k not in ("logits", "pass")}
+    out["serve"]["logits"] = serve["logits"].cpu()
+    out["serve_again"] = torch.equal(again["logits"], serve["logits"])
+    out["serve_warm_secs"] = again["secs"]
+    out["serve_planted"] = planted["logits"].cpu()
+    out["serve_peak"] = torch.cuda.max_memory_allocated(dev)
+    out["serve_shapes"] = sorted(log_.counts)
+    sites["serve"] = (serve["pass"], {k: v.cpu() for k, v in log_.ids.items()}, sorted(log_.moe_tiers))
+    twin = model.placement._twin(db)
+    lowerings = list(twin._compiled_refs)
+    del model, serve, again, planted, db
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 24.3: trained on the 2 × 2 mesh, on the mesh-less run's routing (the
+    # rank's rows of it)
+    tcfg = lm_mesh_config(LM_MESH_TRAIN_LAYERS, remat=False)
+    batch = {k: v.to(dev) for k, v in blob["batch"].items()}
+    db22 = repro_torch.Database(dev, mesh=m22)
+
+    def trained(steps, undo_plant=None, log_=None):
+        model = build_model(tcfg, device=dev, seed=0, mesh=m22)
+        di = model.placement.index("data")
+        bl = LM_MESH_TRAIN_BATCH // model.placement.size("data")
+        rows = [(c[di * bl:(di + 1) * bl].to(dev), None) for c, _ in blob["train_routing"]]
+        try:
+            with routing:
+                routing.run(rows)
+                rec = lm_mesh_train(torch, model, db22, batch, steps=steps, log_=log_)
+                rec["routing_moved"] = int(sum(int(d.sum()) for d in routing_differences(
+                    torch, routing.own, rows)))
+        finally:
+            if undo_plant is not None:
+                undo_plant()
+        rec["coords"] = (model.placement.index("data"), model.placement.index("model"))
+        rec["param_bytes"] = sum(p.numel() * p.element_size() for p in model.parameters())
+        rec["lowerings"] = list(model.placement._twin(db22)._compiled_refs)
+        return rec
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    kern.reset_launch_counts()
+    with LaunchLog(torch) as log_:
+        train = trained(LM_MESH_TRAIN_STEPS, log_=log_)
+        out["train_launches"] = kern.launch_counts()
+    out["train_peak"] = torch.cuda.max_memory_allocated(dev)
+    out["train_shapes"] = sorted(log_.counts)
+    sites["train"] = (train["pass"], {k: v.cpu() for k, v in log_.ids.items()}, sorted(log_.moe_tiers))
+    lowerings += train.pop("lowerings")
+    out["train"] = {k: v for k, v in train.items() if k != "pass"}
+    out["planted_norm"] = trained(1, plant_norm_overcount(torch, sharding))["norms"]
+    rs = trained(1, plant_local_reduce_scatter(collectives))
+    out["planted_rs"] = {"grads": rs["grads"][0], "coords": rs["coords"]}
+    del rs, train
+
+    # 24.5: every kernel signature of the two passes launched alone at its
+    # site, its launch record against its contract model; the lowerings of
+    # the mesh steps at shard shapes, certified
+    if rank == 0:
+        bad, compared, seen = [], 0, set()
+        for part in ("serve", "train"):
+            for key in sites[part][0]:
+                if key in seen:
+                    continue
+                seen.add(key)
+                info = dict(LaunchLog(torch).info(key), dtype="float32")
+                launched, aligned = record_call(torch, kern, key[0], info, dev)
+                record = last_launches() if launched else ()
+                compared += len(record)
+                miss = launch_mismatch(key[0], info, record,
+                                       **({} if key[0] == "blocked_matmul" else {"aligned": aligned}))
+                if miss:
+                    bad.append(miss)
+        reports = [certify_kernels(c) for c in lowerings if getattr(c, "lowered", None) is not None]
+        out["records"] = (len(seen), compared, bad)
+        out["certified"] = (len(reports), all(r.ok for r in reports))
+        out["sites"] = sites
+    torch.cuda.synchronize()
+    return out
+
+
+def lm_mesh_whole(torch, parts, name, shape, specs):
+    """The whole tensor of a named leaf of the 2 × 2 mesh from each rank's
+    shard of it: ``parts`` holds ((data index, model index), {name:
+    shard}) per rank."""
+    whole = torch.empty(shape)
+    for (di, mi), shards in parts:
+        index = []
+        for d, e in enumerate(specs[name]):
+            n = shape[d] // 2 if e in ("data", "model") else shape[d]
+            i = {"data": di, "model": mi}.get(e, 0)
+            index.append(slice(i * n, (i + 1) * n))
+        whole[tuple(index)] = shards[name]
+    return whole
+
+
+def rel_err(got, want) -> float:
+    """‖got − want‖ / ‖want‖ in f64."""
+    return float((got.double() - want.double()).norm() / want.double().norm())
+
+
+def lm_mesh_one_rank(torch, repro_torch, kern, dev, smi):
+    """24.1: olmoe at LM_MESH_ONE_LAYERS layers served (a prefill, greedy
+    decode steps) and trained one step, mesh-less and on a one-rank NCCL
+    group's ("model",) mesh: bit for bit."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import collectives
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.models import build_model
+
+    cfg = lm_mesh_config(LM_MESH_ONE_LAYERS)
+    tokens = lm_mesh_tokens(torch, dev, (LM_MESH_BATCH, LM_MESH_PROMPT), 24, cfg.vocab)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    leaves = LM_MESH_LEAVES
+    one = repro_torch.Database(dev)
+    model = build_model(cfg, device=dev, seed=0)
+    ref = lm_mesh_serve(torch, model, one, tokens)
+    ref_train = lm_mesh_train(torch, model, one, batch, steps=1, leaves=leaves)
+    ref_params = dict(model.named_parameters())
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_lm_mesh_")
+    try:
+        launch_mesh.init_ranks("nccl", 0, 1, os.path.join(tmp, "nccl"), device=torch.device("cuda", 0))
+        try:
+            db = repro_torch.Database(dev, mesh="host")
+            kern.reset_launch_counts()
+            collectives.reset_collectives()
+            again = build_model(cfg, device=dev, seed=0)
+            got = lm_mesh_serve(torch, again, db, tokens, mesh=db.mesh)
+            got_train = lm_mesh_train(torch, again, db, batch, steps=1, leaves=leaves)
+            launches, coll = kern.launch_counts(), collectives.last_collectives()
+            backend = dist.get_backend()
+        finally:
+            dist.destroy_process_group()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    equal = {
+        "logits": torch.equal(got["logits"], ref["logits"]),
+        "loss": got_train["losses"] == ref_train["losses"],
+        "norm": got_train["norms"] == ref_train["norms"],
+        "grads": all(torch.equal(got_train["grads"][0][k], ref_train["grads"][0][k]) for k in leaves),
+        "params": all(torch.equal(p, ref_params[n]) for n, p in again.named_parameters()),
+    }
+    log(f"  backend {backend}, mesh {db.mesh}: collectives {coll or 'none'}; launches {launches}")
+    log(f"  prefill {ref['secs'][0] * 1e3:.2f} ms mesh-less, {got['secs'][0] * 1e3:.2f} ms on the "
+        f"mesh; train step {ref_train['secs'][0]:.3f} s and {got_train['secs'][0]:.3f} s on {smi}")
+    log(f"  bit-equal to the mesh-less steps: {equal}")
+    if not all(equal.values()):
+        raise AssertionError(f"the one-rank mesh steps are not the mesh-less steps: {equal}")
+    if not all(launches[op] > 0 for op in GCN_KERNELS):
+        raise AssertionError(f"a kernel of the one-rank mesh steps never launched: {launches}")
+    del model, again, ref_params, ref_train, got_train
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lm_mesh_serve_reference(torch, repro_torch, model, dev):
+    """24.2's mesh-less run, on phase 10's model (olmoe-1b-7b at 16 layers
+    from seed 0, which every rank of 24.2 rebuilds its shards of): the
+    prefill of LM_MESH_BATCH prompts of LM_MESH_PROMPT tokens and
+    LM_MESH_DECODE decode steps fed seeded tokens, with the routing each
+    call chose. Host tensors."""
+    from repro_torch.models import ffn
+
+    cfg = model.cfg
+    tokens = lm_mesh_tokens(torch, dev, (LM_MESH_BATCH, LM_MESH_PROMPT), 24, cfg.vocab)
+    fed = lm_mesh_tokens(torch, dev, (LM_MESH_BATCH, LM_MESH_DECODE), 25, cfg.vocab)
+    db = repro_torch.Database(dev)
+    with Routing(torch, ffn) as routing:
+        routing.run()
+        rec = lm_mesh_serve(torch, model, db, tokens, fed)
+        chosen = [(c.cpu(), None) for c, _ in routing.own]
+        routing.run()
+        warm = lm_mesh_serve(torch, model, db, tokens, fed)
+    return {"tokens": tokens.cpu(), "fed": fed.cpu(), "logits": rec["logits"].cpu(),
+            "secs": warm["secs"], "routing": chosen}
+
+
+def lm_mesh_phase(torch, repro_torch, kern, dev, smi, serve_ref):
+    """Phase 24 (module docstring): 24.1 in this process on a one-rank
+    NCCL group; 24.2-24.5 in LM_MESH_RANKS new processes that share the
+    card over gloo (``lm_mesh_rank``), held to the mesh-less runs made
+    here first (24.2's on phase 10's model, ``serve_ref``). Returns the
+    sites and launches of a pass for phase 8."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.launch.sharding import param_pspecs
+    from repro_torch.models import build_model, ffn
+    from repro_torch.models.model import param_shapes
+
+    log(f"  card: {smi}")
+    t0 = time.perf_counter()
+    log(f"  24.1 olmoe-1b-7b at {LM_MESH_ONE_LAYERS} layers on a one-rank NCCL group on cuda:0: "
+        f"a prefill of {LM_MESH_BATCH} x {LM_MESH_PROMPT} tokens, {LM_MESH_DECODE} greedy decode "
+        "steps, one train step")
+    lm_mesh_one_rank(torch, repro_torch, kern, dev, smi)
+    log(f"  24.1: {time.perf_counter() - t0:.1f} s")
+
+    # 24.3's mesh-less steps, here before the ranks start (the card holds
+    # either, never both)
+    t1 = time.perf_counter()
+    tcfg = lm_mesh_config(LM_MESH_TRAIN_LAYERS, remat=False)
+    tokens = lm_mesh_tokens(torch, dev, (LM_MESH_TRAIN_BATCH, LM_MESH_TRAIN_SEQ), 26, tcfg.vocab)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    model = build_model(tcfg, device=dev, seed=0)
+    with Routing(torch, ffn) as routing:
+        routing.run()
+        ref = lm_mesh_train(torch, model, repro_torch.Database(dev), batch)
+    train_routing = [(c.cpu(), None) for c, _ in routing.own]
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  24.3's mesh-less steps: losses {ref['losses']}, global norms {ref['norms']}, "
+        f"{time.perf_counter() - t1:.1f} s")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_lm_mesh_")
+    try:
+        path = os.path.join(tmp, "lm.pt")
+        torch.save({"tokens": serve_ref["tokens"], "fed": serve_ref["fed"],
+                    "serve_routing": serve_ref["routing"], "train_routing": train_routing,
+                    "batch": {k: v.cpu() for k, v in batch.items()}}, path)
+        t2 = time.perf_counter()
+        ranks = launch_mesh.start_ranks(lm_mesh_rank, LM_MESH_RANKS, backend="gloo", device="cuda:0",
+                                        args=(path, "cuda:0"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"  {LM_MESH_RANKS} ranks started and run in {time.perf_counter() - t2:.1f} s")
+    r0 = ranks[0]
+    cfg = lm_mesh_config()
+    predicted = lm_mesh_predicted(cfg)
+
+    log(f"  24.2 olmoe-1b-7b at {cfg.n_layers} layers on the 1 x {LM_MESH_RANKS} mesh, "
+        f"{LM_MESH_RANKS} gloo ranks sharing cuda:0: a prefill of {LM_MESH_BATCH} x {LM_MESH_PROMPT} "
+        f"tokens and {LM_MESH_DECODE} decode steps fed seeded tokens, on the mesh-less run's routing")
+    want = serve_ref["logits"]
+    scale = float(want.abs().max())
+    err = float((r0["serve"]["logits"] - want).abs().max()) / scale
+    planted = float((r0["serve_planted"] - want).abs().max()) / scale
+    for r in ranks:
+        warm = r["serve_warm_secs"]
+        log(f"  rank {r['rank']}: shards {r['serve_param_bytes']} bytes (built in {r['build_s']:.2f} s), "
+            f"peak {r['serve_peak']} bytes; prefill {r['serve']['secs'][0] * 1e3:.2f} ms (first call), "
+            f"{warm[0] * 1e3:.2f} ms (second run); decode steps 2-{LM_MESH_DECODE} "
+            f"{[round(s * 1e3, 2) for s in r['serve']['secs'][2:]]} ms, second run "
+            f"{[round(s * 1e3, 2) for s in warm[2:]]} ms; routing the rank's router would have "
+            f"chosen otherwise: {r['serve_routing_moved']} assignments")
+        log(f"  rank {r['rank']} collectives (calls, bytes): prefill "
+            f"{ {k: (v['calls'], v['bytes']) for k, v in sorted(r['serve']['collectives'][0].items())} }, "
+            f"decode step {[ {k: (v['calls'], v['bytes']) for k, v in sorted(c.items())} for c in r['serve']['collectives'][2:3]][0]}")
+        if not torch.equal(r["serve"]["logits"], r0["serve"]["logits"]):
+            raise AssertionError(f"rank {r['rank']}'s logits differ from rank 0's")
+    log(f"  every rank's logits bit-equal to rank 0's: True; a second run bit-equal: {r0['serve_again']}")
+    log(f"  mesh-less prefill {serve_ref['secs'][0] * 1e3:.2f} ms, decode steps 2-{LM_MESH_DECODE} "
+        f"{[round(s * 1e3, 2) for s in serve_ref['secs'][2:]]} ms (phase 10's model, one process, "
+        "its second run)")
+    for i, what in ((0, "prefill"), (1, "decode step")):
+        for name, rec in sorted(r0["serve"]["collectives"][i].items()):
+            p = predicted.get((what, name))
+            log(f"  {what} collective {name}: {rec['calls']} calls, {rec['bytes']} bytes per rank "
+                f"(predicted from the specs: {p[0] if p else '-'} calls, {p[1] if p else '-'} bytes)")
+    log(f"  logits against the mesh-less run: max |Δ| / max |logit| = {err:.3e} (limit "
+        f"{LM_MESH_LOGIT_LIMIT}); planted (the model all-reduce of layer {LM_MESH_PLANTED_LAYER}'s "
+        f"attention output left out): {planted:.3e}, {planted / LM_MESH_LOGIT_LIMIT:.1f} x the limit")
+    if err > LM_MESH_LOGIT_LIMIT or not r0["serve_again"]:
+        raise AssertionError("the 1 x 4 mesh's logits differ from the mesh-less run's")
+    if planted <= 100 * LM_MESH_LOGIT_LIMIT:
+        raise AssertionError("the logit limit passes a missing all-reduce")
+    for op in GCN_KERNELS:
+        if r0["serve_launches"][op] <= 0:
+            raise AssertionError(f"{op} never launched on the 1 x 4 mesh")
+
+    log(f"  24.3 olmoe-1b-7b at {LM_MESH_TRAIN_LAYERS} layers on the 2 x 2 mesh: "
+        f"{LM_MESH_TRAIN_STEPS} Adam steps (lr {LM_MESH_LR}, grad_clip {LM_MESH_CLIP}, no remat) on "
+        f"{LM_MESH_TRAIN_BATCH} x {LM_MESH_TRAIN_SEQ} tokens")
+    shapes = param_shapes(tcfg)
+    specs = param_pspecs(shapes, {"data": 2, "model": 2})
+    t = r0["train"]
+    for r in ranks:
+        rt = r["train"]
+        log(f"  rank {r['rank']} at (data, model) {rt['coords']}: shards {rt['param_bytes']} bytes, "
+            f"peak {r['train_peak']} bytes; steps {[round(s, 3) for s in rt['secs']]} s; routing moved "
+            f"{rt['routing_moved']}; step {LM_MESH_TRAIN_STEPS}'s collectives (calls, bytes) "
+            f"{ {k: (v['calls'], v['bytes']) for k, v in sorted(rt['collectives'][-1].items())} }")
+        if rt["losses"] != t["losses"] or rt["norms"] != t["norms"]:
+            raise AssertionError(f"rank {r['rank']}'s losses or norms differ from rank 0's")
+    for name, rec in sorted(t["collectives"][-1].items()):
+        p = predicted.get(("train step", name))
+        log(f"  train step collective {name}: {rec['calls']} calls, {rec['bytes']} bytes per rank "
+            f"(predicted from the specs: {p[0] if p else '-'} calls, {p[1] if p else '-'} bytes)")
+    dloss = max(abs(a - b) / abs(b) for a, b in zip(t["losses"], ref["losses"]))
+    dnorm = max(abs(a - b) / b for a, b in zip(t["norms"], ref["norms"]))
+    log(f"  losses {t['losses']} (mesh-less {ref['losses']}): rel diff {dloss:.3e} (limit "
+        f"{OLMOE_LOSS_LIMIT}); global norms {t['norms']} (mesh-less {ref['norms']}): rel diff "
+        f"{dnorm:.3e} (limit {LM_MESH_NORM_LIMIT})")
+    grad_parts = [(r["train"]["coords"], r["train"]["grads"][0]) for r in ranks]
+    param_parts = [(r["train"]["coords"], r["train"]["params"]) for r in ranks]
+    for name in LM_MESH_LEAVES:
+        gerr = rel_err(lm_mesh_whole(torch, grad_parts, name, shapes[name], specs), ref["grads"][0][name])
+        dp = (lm_mesh_whole(torch, param_parts, name, shapes[name], specs) - ref["params"][name]).abs()
+        far = float((dp > 1e-3 * LM_MESH_LR).double().mean())
+        log(f"  {name} {specs[name]}: step-1 gradient rel err {gerr:.3e} (limit "
+            f"{OLMOE_GRAD_LIMIT}); final values max |Δ| {float(dp.max()):.3e} (limit "
+            f"{2 * LM_MESH_TRAIN_STEPS * LM_MESH_LR:g}), share beyond 1e-3·lr {far:.2e} (limit 1e-3)")
+        if gerr > OLMOE_GRAD_LIMIT or float(dp.max()) > 2 * LM_MESH_TRAIN_STEPS * LM_MESH_LR or far > 1e-3:
+            raise AssertionError(f"24.3's {name} differs from the mesh-less steps")
+    if dloss > OLMOE_LOSS_LIMIT or dnorm > LM_MESH_NORM_LIMIT:
+        raise AssertionError("24.3's losses or norms differ from the mesh-less steps")
+    if ref["norms"][0] <= LM_MESH_CLIP:
+        raise AssertionError("the step-1 norm does not clip: the norm's faults would not show")
+    bad_norm = abs(r0["planted_norm"][0] - ref["norms"][0]) / ref["norms"][0]
+    rs_parts = [(r["planted_rs"]["coords"], r["planted_rs"]["grads"]) for r in ranks]
+    bad_rs = {n: rel_err(lm_mesh_whole(torch, rs_parts, n, shapes[n], specs), ref["grads"][0][n])
+              for n in LM_MESH_LEAVES if "data" in specs[n]}
+    log(f"  planted (a replicated leaf counted once per rank in the norm): norm {r0['planted_norm'][0]} "
+        f"against {ref['norms'][0]}: rel diff {bad_norm:.3e}, {bad_norm / LM_MESH_NORM_LIMIT:.1f} x the limit")
+    log(f"  planted (the FSDP reduce-scatters a local sum): step-1 gradient rel errs of the FSDP'd leaves "
+        f"{ {n: f'{v:.2e}' for n, v in bad_rs.items()} } (limit {OLMOE_GRAD_LIMIT})")
+    if bad_norm <= LM_MESH_NORM_LIMIT or min(bad_rs.values()) <= OLMOE_GRAD_LIMIT:
+        raise AssertionError("24.3's limits pass a planted fault")
+
+    log("  24.5 the kernel sites of a pass at the shard shapes")
+    checked = lm_mesh_checked_shapes()
+    off = sorted({k for r in ranks for k in r["serve_shapes"] + r["train_shapes"]} - checked)
+    if off:
+        raise AssertionError(f"kernel calls at shapes phase 2 did not check: {off[:4]}")
+    tiers = set(r0["sites"]["serve"][2]) | set(r0["sites"]["train"][2])
+    sites_n, compared, bad = r0["records"]
+    n_cert, cert_ok = r0["certified"]
+    log(f"  MoE sites: {sorted(tiers)}; launch records of {sites_n} shard-shape sites, {compared} "
+        f"launches held to the contract models: {len(bad)} mismatches {bad[:3]}; certify_kernels over "
+        f"{n_cert} lowerings of the mesh steps: ok {cert_ok}")
+    if bad or not cert_ok or any(t_ != "cuda" for _, t_ in tiers):
+        raise AssertionError("the mesh steps' kernel sites do not certify")
+    launches = {op: sum(r["serve_launches"][op] + r["train_launches"][op] for r in ranks)
+                for op in GCN_KERNELS}
+    for op in GCN_KERNELS:
+        if r0["train_launches"][op] <= 0:
+            raise AssertionError(f"{op} never launched on the 2 x 2 mesh")
+    return {"serve": r0["sites"]["serve"], "train": r0["sites"]["train"], "launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -6334,6 +7072,9 @@ def main() -> int:
     log(f"phase 12: {OLMOE_ARCH} through the serving front door (db.endpoint)")
     t0 = time.perf_counter()
     model = olmoe["serve"].pop("model")
+    # phase 24's mesh-less serving run, on this model, whose shards phase
+    # 24's ranks rebuild from its seed
+    lm_mesh_ref = lm_mesh_serve_reference(torch, repro_torch, model, dev)
     olmoe["endpoint"] = olmoe_endpoint_phase(torch, repro_torch, kern, olmoe_cfg, dev, model, checked)
     del model
     gc.collect()
@@ -6472,11 +7213,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"  phase 23: {time.perf_counter() - t0:.1f} s")
 
+    # phase 24 runs after phase 23, before phase 8, which times its sites too
+    log("phase 24: olmoe-1b-7b on a mesh")
+    t0 = time.perf_counter()
+    lm_mesh = lm_mesh_phase(torch, repro_torch, kern, dev, smi, lm_mesh_ref)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  phase 24: {time.perf_counter() - t0:.1f} s")
+
     log("phase 8: timings at the shapes of the main paths")
     log(smi)
     t0 = time.perf_counter()
     records = timing_phase(torch, graph, {"sites": sites, "launches": launches}, logreg, nnmf, kge,
-                           lm, oocore, olmoe, ssm, dense, mesh, errs, dev)
+                           lm, oocore, olmoe, ssm, dense, mesh, lm_mesh, errs, dev)
     log(f"  phase 8: {time.perf_counter() - t0:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)

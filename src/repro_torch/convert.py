@@ -91,6 +91,22 @@ def _assign(target, tree, path: str, done: set) -> None:
         done.add(id(target))
 
 
+def reference_leaf(name: str):
+    """Where a port parameter ``name`` (``Model.named_parameters()``'s) sits
+    in the reference's tree: ``(path, repeat, stacked)``. ``path`` is the
+    reference's "/"-joined path, ``repeat`` the index on the leading axis
+    of the reference's leaf that ``lm_params`` unstacks into this one (None
+    where nothing is stacked), and ``stacked`` whether the reference treats
+    that axis as a layer axis (its stage ``scan`` leaves; whisper's stacked
+    ``encoder`` leaves it does not, ``launch/sharding.py``)."""
+    parts = name.split(".")
+    if parts[0] == "stages" and parts[2] == "scan":
+        return "/".join(parts[:3] + parts[4:]), int(parts[3]), True
+    if parts[0] == "encoder":
+        return "/".join(parts[:1] + parts[2:]), int(parts[1]), False
+    return "/".join(parts), None, False
+
+
 def lm_params(model, jax_params: Mapping[str, Any]):
     """Load the reference's LM parameter pytree (numpy arrays, or anything
     ``np.asarray`` accepts) into ``model`` in place; returns the model.

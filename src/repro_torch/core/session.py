@@ -372,6 +372,9 @@ class Database:
         #: every executable this session compiled (weak — the engine's
         #: caches keep live ones alive), for the reshard counter aggregate.
         self._compiled_refs: "weakref.WeakSet" = weakref.WeakSet()
+        #: per catalog relation, the layout the newest mesh-compiled plan
+        #: committed it to (``layout``, ``launch.sharding.catalog_shardings``)
+        self._layouts: Dict[str, Any] = {}
 
     # -- catalog front door ------------------------------------------------
 
@@ -527,6 +530,11 @@ class Database:
     def schema(self, name: str) -> Tuple[str, ...]:
         """The key attribute names of one relation."""
         return self.catalog.entry(name).key_attrs
+
+    def layout(self, name: str):
+        """The partition spec (``P``) the newest plan compiled on a mesh
+        committed the catalog relation to (None before any)."""
+        return self._layouts.get(name)
 
     # -- the active mesh ---------------------------------------------------
 
@@ -761,6 +769,9 @@ class Database:
             mem_budget=self.mem_budget,
         )
         self._compiled_refs.add(compiled)
+        for name, spec in (compiled.in_shardings or {}).items():
+            if name in self.catalog and spec is not None:
+                self._layouts[name] = spec
         return compiled
 
     def _place(self, env: Dict[str, AnyRel], streamed: Tuple[str, ...]) -> None:

@@ -13,6 +13,20 @@ Every call adds its bytes to a private record, read with
 manner of ``kernels.common.last_launches``): per collective, the calls
 and the bytes this rank put in (an all-gather's local shard, an
 all-reduce's or a reduce-scatter's whole input).
+
+The ``MeshComm`` calls are forward-only. The functions at the end of the
+module are the collectives autograd runs through, each backward the
+transposed collective, as a language model on a mesh uses them
+(``launch/sharding.py``): ``reduce_from`` (all-reduce forward, identity
+backward) and ``copy_to`` (identity forward, all-reduce backward), the
+pair around a tensor-parallel layer; ``gather_from`` (all-gather forward,
+the rank's slice backward) and ``scatter_to`` (the rank's slice forward,
+all-gather backward) for activations whose downstream every rank
+computes alike; ``all_gather`` (all-gather forward, reduce-scatter
+backward) and ``reduce_scatter`` (the reverse) for parameters sharded
+over the data ranks, whose gradients each rank holds a part of. Each
+keeps its ``MeshComm`` on the autograd context: autograd runs a CUDA
+backward on a thread of its own. Their calls go into the same record.
 """
 
 from __future__ import annotations
@@ -163,3 +177,117 @@ class ShapeComm:
 
     def reduce_scatter(self, t: torch.Tensor, dim: int, kind: str) -> torch.Tensor:
         return t.narrow(dim, 0, t.shape[dim] // self.size[kind])
+
+
+# ---------------------------------------------------------------------------
+# Collectives autograd runs through
+# ---------------------------------------------------------------------------
+
+
+def _slice(comm: MeshComm, t: torch.Tensor, dim: int, kind: str) -> torch.Tensor:
+    """This rank's slice of ``dim`` in the ``kind`` group."""
+    n = t.shape[dim] // comm.size[kind]
+    return t.narrow(dim, comm.index[kind] * n, n).contiguous()
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, comm, kind):
+        ctx.comm, ctx.kind = comm, kind
+        return comm.all_reduce(t, kind)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, comm, kind):
+        ctx.comm, ctx.kind = comm, kind
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.all_reduce(g.contiguous(), ctx.kind), None, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, comm, dim, kind):
+        ctx.comm, ctx.dim, ctx.kind = comm, dim, kind
+        return comm.all_gather(t, dim, kind)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _slice(ctx.comm, g, ctx.dim, ctx.kind), None, None, None
+
+
+class _ScatterTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, comm, dim, kind):
+        ctx.comm, ctx.dim, ctx.kind = comm, dim, kind
+        return _slice(comm, t, dim, kind)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.all_gather(g, ctx.dim, ctx.kind), None, None, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, comm, dim, kind):
+        ctx.comm, ctx.dim, ctx.kind = comm, dim, kind
+        return comm.all_gather(t, dim, kind)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.reduce_scatter(g, ctx.dim, ctx.kind), None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, comm, dim, kind):
+        ctx.comm, ctx.dim, ctx.kind = comm, dim, kind
+        return comm.reduce_scatter(t, dim, kind)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.all_gather(g, ctx.dim, ctx.kind), None, None, None
+
+
+def reduce_from(t: torch.Tensor, comm: MeshComm, kind: str = "model") -> torch.Tensor:
+    """Σ of the ``kind`` group's partials forward; the gradient passes
+    unchanged (Megatron's g)."""
+    return t if comm.size[kind] == 1 else _ReduceFrom.apply(t, comm, kind)
+
+
+def copy_to(t: torch.Tensor, comm: MeshComm, kind: str = "model") -> torch.Tensor:
+    """``t`` unchanged forward; the group's partial gradients summed
+    backward (Megatron's f)."""
+    return t if comm.size[kind] == 1 else _CopyTo.apply(t, comm, kind)
+
+
+def gather_from(t: torch.Tensor, comm: MeshComm, dim: int, kind: str = "model") -> torch.Tensor:
+    """The group's shards concatenated on ``dim`` forward; the rank's slice
+    of the gradient backward (every rank's gradient of the whole is the
+    same)."""
+    return t if comm.size[kind] == 1 else _GatherFrom.apply(t, comm, dim % t.dim(), kind)
+
+
+def scatter_to(t: torch.Tensor, comm: MeshComm, dim: int, kind: str = "model") -> torch.Tensor:
+    """The rank's slice of ``dim`` forward; the slices' gradients
+    concatenated backward."""
+    return t if comm.size[kind] == 1 else _ScatterTo.apply(t, comm, dim % t.dim(), kind)
+
+
+def all_gather(t: torch.Tensor, comm: MeshComm, dim: int, kind: str = "data") -> torch.Tensor:
+    """The group's shards concatenated on ``dim`` forward; the gradient
+    summed over the group and cut to the rank's slice backward."""
+    return t if comm.size[kind] == 1 else _AllGather.apply(t, comm, dim % t.dim(), kind)
+
+
+def reduce_scatter(t: torch.Tensor, comm: MeshComm, dim: int, kind: str = "data") -> torch.Tensor:
+    """Σ over the group, cut to the rank's slice of ``dim``, forward; the
+    slices' gradients concatenated backward."""
+    return t if comm.size[kind] == 1 else _ReduceScatter.apply(t, comm, dim % t.dim(), kind)

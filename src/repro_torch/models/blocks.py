@@ -96,20 +96,37 @@ def gqa_apply(
     ``causal=False, rope=False`` is whisper's encoder self-attention.
     ``kv_source`` is cross-attention (whisper's decoder): K/V are computed
     from it at every call, in every mode, unrotated and unmasked, and no
-    cache is kept."""
+    cache is kept.
+
+    On a mesh (``ctx["place"]``) the projections are column-parallel over
+    the model ranks where their width divides, ``wo`` row-parallel, its
+    partial sums added over the ranks: where q, k and v split on head
+    boundaries each rank attends over its own heads (and caches its KV
+    heads), else the split projections are gathered whole first and every
+    rank attends over all heads (never over part of a head)."""
     cfg = ctx["cfg"]
     hd = cfg.hd()
     b, s, _ = x.shape
     mode = ctx["mode"]
+    place = ctx.get("place")
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
 
-    q = rel_linear(x, p["wq"]).reshape(b, s, cfg.n_heads, hd)
-    src = kv_source if kv_source is not None else x
-    k = rel_linear(src, p["wk"]).reshape(b, src.shape[1], cfg.n_kv_heads, hd)
-    v = rel_linear(src, p["wv"]).reshape(b, src.shape[1], cfg.n_kv_heads, hd)
+    if place is None:
+        q = rel_linear(x, p["wq"])
+        src = kv_source if kv_source is not None else x
+        k = rel_linear(src, p["wk"])
+        v = rel_linear(src, p["wv"])
+        q_norm, k_norm = (p["q_norm"], p["k_norm"]) if cfg.qk_norm else (None, None)
+    else:
+        src = x
+        q, k, v, hq, hkv, q_norm, k_norm = _tp_projections(p, x, cfg, place)
+    q = q.reshape(b, s, hq, hd)
+    k = k.reshape(b, src.shape[1], hkv, hd)
+    v = v.reshape(b, src.shape[1], hkv, hd)
 
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+        q = rms_norm(q, q_norm, cfg.norm_eps)
+        k = rms_norm(k, k_norm, cfg.norm_eps)
 
     if rope and kv_source is None:
         pos = ctx["positions"]
@@ -158,8 +175,36 @@ def gqa_apply(
                 pad = (0, 0, 0, 0, 0, cap - s)
                 kk, vv = k, v
             new_cache = {"k": F.pad(kk, pad).to(_dt(cfg)), "v": F.pad(vv, pad).to(_dt(cfg))}
-    y = rel_linear(out.reshape(b, s, cfg.n_heads * hd), p["wo"])
-    return y, new_cache
+    out = out.reshape(b, s, hq * hd)
+    if place is None or not place.splits(cfg.n_heads * hd):
+        return rel_linear(out, p["wo"]), new_cache
+    if hq == cfg.n_heads:   # every head here: the rank's rows of wo take its slice
+        out = place.scatter_to(out, -1)
+    return place.reduce(rel_linear(out, p["wo"])), new_cache
+
+
+def _tp_projections(p, x, cfg, place):
+    """q, k, v of the rank (flat, (B, S, width)), the heads they hold and
+    the QK-norm scales to use: each projection whose width the model ranks
+    split is computed on the rank's columns from ``copy_to(x)`` (its
+    partial input gradient summed over the ranks); on head boundaries the
+    rank keeps its heads (and the norm scales, applied to those heads
+    only, sum their gradients over the ranks), else each split projection
+    is gathered whole."""
+    hd = cfg.hd()
+    widths = {"wq": cfg.n_heads * hd, "wk": cfg.n_kv_heads * hd, "wv": cfg.n_kv_heads * hd}
+    split = {n: place.splits(w) for n, w in widths.items()}
+    xs = place.copy_to(x) if any(split.values()) else x
+    q, k, v = (rel_linear(xs if split[n] else x, p[n]) for n in ("wq", "wk", "wv"))
+    q_norm, k_norm = (p["q_norm"], p["k_norm"]) if cfg.qk_norm else (None, None)
+    if place.heads_local(cfg):
+        m = place.size("model")
+        if cfg.qk_norm:
+            q_norm, k_norm = place.copy_to(q_norm), place.copy_to(k_norm)
+        return q, k, v, cfg.n_heads // m, cfg.n_kv_heads // m, q_norm, k_norm
+    q, k, v = (place.gather_from(t, -1) if split[n] else t
+               for n, t in zip(("wq", "wk", "wv"), (q, k, v)))
+    return q, k, v, cfg.n_heads, cfg.n_kv_heads, q_norm, k_norm
 
 
 # ---------------------------------------------------------------------------
@@ -344,9 +389,10 @@ def block_apply(p, kind: str, x, ctx: Ctx):
                 p["moe"], h, top_k=cfg.top_k,
                 capacity_factor=cfg.capacity_factor,
                 shard_experts=cfg.moe_shard_experts,
+                place=ctx.get("place"), d_ff=_ffn_dims(cfg, kind) * cfg.n_shared_experts,
             )
         else:
-            f = mlp_apply(p["mlp"], h)
+            f = mlp_apply(p["mlp"], h, place=ctx.get("place"), d_ff=cfg.d_ff)
         x = x + f
         if kv is not None:
             cache["kv"] = kv

@@ -155,15 +155,29 @@ def apply_mrope(
 # ---------------------------------------------------------------------------
 
 
+class MetaGenerator:
+    """What the initializers read of a generator (its ``device``) for a
+    model built on the ``meta`` device, which has no ``torch.Generator``:
+    shapes only, nothing drawn."""
+
+    device = torch.device("meta")
+
+
 def dense_init(
     gen: torch.Generator, shape: Sequence[int], in_axis: int = 0, dtype=torch.float32
 ) -> torch.Tensor:
-    """Normal with std fan_in^-1/2, drawn in f32 on ``gen``'s device."""
+    """Normal with std fan_in^-1/2, drawn in f32 on ``gen``'s device (on
+    ``meta``, an empty tensor of the shape: no draw)."""
+    if gen.device.type == "meta":
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
     fan_in = shape[in_axis]
     w = torch.randn(tuple(shape), generator=gen, device=gen.device, dtype=torch.float32)
     return w.mul_(fan_in ** -0.5).to(dtype)
 
 
 def embed_init(gen: torch.Generator, shape: Sequence[int], dtype=torch.float32) -> torch.Tensor:
-    """Standard normal, drawn in f32 on ``gen``'s device."""
+    """Standard normal, drawn in f32 on ``gen``'s device (on ``meta``, an
+    empty tensor of the shape)."""
+    if gen.device.type == "meta":
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
     return torch.randn(tuple(shape), generator=gen, device=gen.device, dtype=torch.float32).to(dtype)

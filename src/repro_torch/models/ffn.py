@@ -13,9 +13,16 @@ runs give the same bits, as the rest of the ``cuda`` tier does. The router
 product and the expert products are plain ``torch.einsum``
 (``common.einsum``), as the reference's are plain ``jnp``.
 
-The reference's ``shard_experts`` hints place the expert buffers on a
-mesh; they mean nothing on one device and raise until the multi-GPU slice
-(ROADMAP.md).
+On a mesh (``place``, a ``launch.sharding.Placement``) the MLP is
+column- then row-parallel, and the experts split over the model ranks
+where their count divides: the router is whole on every rank, which so
+routes every token alike bit for bit; a rank's dispatch fills only its
+experts' slots, its combine gathers and sums only their outputs (the
+other experts' assignments are -1 ids, which the kernels skip), and the
+partial sums are added over the ranks. ``shard_experts`` is the
+reference's request to pin the expert buffers' layout (its ``hint``s):
+on a mesh the experts follow the parameter specs either way, and off one
+the flag changes nothing, so both settings give the same values.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import kernels, session
+from repro_torch.launch.sharding import DP, hint
 from repro_torch.relational import rel_linear
 
 from .common import ParamTree, dense_init, einsum
@@ -39,12 +47,18 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, dtype=torch.float32)
     )
 
 
-def mlp_apply(p, x, activation=F.silu):
+def mlp_apply(p, x, activation=F.silu, *, place=None, d_ff=None):
     """The gated MLP: ``activation(x·wi_gate) * (x·wi_up)``, then ``wo``
-    (whisper passes ``common.gelu``)."""
+    (whisper passes ``common.gelu``). On a mesh whose model ranks split
+    the hidden width ``d_ff``: the rank's columns of wi_gate/wi_up and
+    rows of wo, the partial sums added over the ranks."""
+    split = place is not None and place.splits(d_ff)
+    if split:
+        x = place.copy_to(x)
     g = rel_linear(x, p["wi_gate"])
     u = rel_linear(x, p["wi_up"])
-    return rel_linear(activation(g) * u, p["wo"])
+    y = rel_linear(activation(g) * u, p["wo"])
+    return place.reduce(y) if split else y
 
 
 # ---------------------------------------------------------------------------
@@ -101,7 +115,7 @@ def _top_k(probs: torch.Tensor, k: int) -> torch.Tensor:
     return torch.sort(probs, dim=-1, descending=True, stable=True).indices[..., :k]
 
 
-def _dispatch_group(x, router, *, top_k, capacity, e):
+def _dispatch_group(x, router, *, top_k, capacity, e, experts=None, source=None):
     """Routing + dispatch for every token group (a batch row) at once:
     (B, T, D) → expert buffers (B, E, C, D).
 
@@ -113,7 +127,9 @@ def _dispatch_group(x, router, *, top_k, capacity, e):
     scatter keeps the last write; its kept assignment there gets a zero
     row). Returns (xe, meta, aux), meta = (dest, st, sg, keep), each
     (B, T·k) in sorted order: the buffer slot, token, gate and keep flag
-    of an assignment; aux the Switch-style load-balance loss per group."""
+    of an assignment; aux the Switch-style load-balance loss per group.
+    With ``experts = (lo, hi)`` only those experts' slots are filled, from
+    the rows of ``source`` (default ``x``): (B, hi − lo, C, D)."""
     b, t, d = x.shape
     logits = einsum("btd,de->bte", x.float(), router)          # (B, T, E)
     probs = torch.softmax(logits, dim=-1)
@@ -147,24 +163,31 @@ def _dispatch_group(x, router, *, top_k, capacity, e):
     ids = torch.full((b, e * capacity), -1, dtype=torch.int32, device=x.device)
     src = torch.where(keep, group * t + st, torch.full_like(st, -1)).to(torch.int32)
     ids[group.expand_as(dest)[last], dest[last]] = src[last]
-    xe = gather_rows(x.reshape(b * t, d), ids.reshape(-1))
-    return xe.reshape(b, e, capacity, d), (dest, st, sg, keep), aux
+    if experts is not None:
+        ids = ids[:, experts[0] * capacity:experts[1] * capacity]
+    rows_of = x if source is None else source
+    xe = gather_rows(rows_of.reshape(b * t, d), ids.reshape(-1))
+    return xe.reshape(b, -1, capacity, d), (dest, st, sg, keep), aux
 
 
-def _combine_group(ye, meta, *, t, dtype):
+def _combine_group(ye, meta, *, t, dtype, first_slot=0):
     """Expert outputs (B, E·C, D) back to token order (B, T, D): each
     assignment's row of its slot times its gate (0 where dropped), summed
     into its token's row in sorted order, i.e. by ascending expert, the
-    order of the reference's scatter-add."""
+    order of the reference's scatter-add. On a mesh ``ye`` holds the slots
+    from ``first_slot`` on of the rank's experts only; the other experts'
+    assignments gather and add nothing (-1 ids)."""
     dest, st, sg, keep = meta
     b, slots, d = ye.shape
     group = torch.arange(b, device=ye.device)[:, None]
-    rows = torch.where(keep, group * slots + dest, torch.full_like(dest, -1))
+    here = (dest >= first_slot) & (dest < first_slot + slots)
+    rows = torch.where(keep & here, group * slots + dest - first_slot, torch.full_like(dest, -1))
     # the gate factor is f32 (softmax); the contributions stay in the
     # activation dtype, as the reference keeps them
     contrib = gather_rows(ye.reshape(b * slots, d), rows.reshape(-1).to(torch.int32))
     contrib = contrib * (sg * keep).reshape(-1, 1).to(ye.dtype)
-    out = segment_sum(contrib.to(dtype), (group * t + st).reshape(-1).to(torch.int32), b * t)
+    seg = torch.where(here, group * t + st, torch.full_like(st, -1))
+    out = segment_sum(contrib.to(dtype), seg.reshape(-1).to(torch.int32), b * t)
     return out.reshape(b, t, d)
 
 
@@ -175,32 +198,46 @@ def moe_apply(
     top_k: int,
     capacity_factor: float = 1.25,
     shard_experts: bool = False,
+    place=None,
+    d_ff: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Token-choice top-k routing with static per-group capacity
     ``max(int(capacity_factor·S·k/E), k)``.
 
     Groups = batch rows; tokens beyond an expert's capacity within their
     group are dropped (combine weight zero), later tokens first. Returns
-    (out (B,S,D), aux: the load-balance loss, the mean over groups)."""
-    if shard_experts:
-        raise NotImplementedError(
-            "moe_apply(shard_experts=True): expert-buffer placement on a mesh "
-            "waits for multi-GPU planning (ROADMAP.md, queue 1, item 4)"
-        )
+    (out (B,S,D), aux: the load-balance loss, the mean over groups).
+    ``shard_experts`` changes no value (module docstring); on a mesh
+    (``place``) whose model ranks split the E experts, rank r runs
+    experts [r·E/m, (r+1)·E/m) (``d_ff``: the shared experts' hidden
+    width)."""
+    del shard_experts
     b, s, d = x.shape
     e = p["router"].shape[1]
     capacity = max(int(capacity_factor * s * top_k / e), top_k)
 
-    xe, meta, aux = _dispatch_group(x, p["router"], top_k=top_k, capacity=capacity, e=e)
+    split = place is not None and place.splits(e)
+    el = e // place.size("model") if split else e
+    lo = place.index("model") * el if split else 0
+    xe, meta, aux = _dispatch_group(x, p["router"], top_k=top_k, capacity=capacity, e=e,
+                                    experts=(lo, lo + el), source=place.copy_to(x) if split else None)
     aux = aux.mean()
+    if split:
+        dest, st, sg, keep = meta
+        meta = (dest, st, place.copy_to(sg), keep)
+    # the expert buffers hold the rank's rows and experts, as the reference asks
+    whole = (b if place is None else b * place.size("data"), e, capacity, d)
+    xe = hint(xe, DP, "model", None, None, whole=whole)
 
     g = einsum("becd,edf->becf", xe, p["wi_gate"])
     u = einsum("becd,edf->becf", xe, p["wi_up"])
     ye = einsum("becf,efd->becd", F.silu(g) * u, p["wo"])
-    ye = ye.reshape(b, e * capacity, d)
+    ye = hint(ye, DP, "model", None, None, whole=whole).reshape(b, el * capacity, d)
 
-    out = _combine_group(ye, meta, t=s, dtype=x.dtype)
+    out = _combine_group(ye, meta, t=s, dtype=x.dtype, first_slot=lo * capacity)
+    if split:
+        out = place.reduce(out)
 
     if "shared" in p:
-        out = out + mlp_apply(p["shared"], x).to(out.dtype)
+        out = out + mlp_apply(p["shared"], x, place=place, d_ff=d_ff).to(out.dtype)
     return out, aux

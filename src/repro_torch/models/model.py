@@ -6,14 +6,27 @@ Layers are grouped into *stages*; each stage is a repeating superblock
 (n_layers % len(pattern)). The reference stacks each superblock's
 parameters on a leading axis and runs them with ``jax.lax.scan``; here each
 repeat is its own module in a ``ModuleList`` walked in Python, since
-PyTorch runs eagerly and has no compile time to save. The reference's
-sharding hints (``hint(x, DP, ...)``) mean nothing on one device and are
-dropped; the multi-GPU slice brings them back as placements.
+PyTorch runs eagerly and has no compile time to save.
+
+On a mesh (``place=``, a ``launch.sharding.Placement``, or a model built
+with ``mesh=``) the ``attn`` and ``moe`` kinds run on the rank's shards:
+attention and MLP column- then row-parallel, the experts split over the
+model ranks, the embedding and the head split over the vocabulary, the
+FSDP leaves gathered per layer, the batch's rows split over the data
+ranks (the reference's ``hint(x, DP, ...)`` sites, which cut a whole
+batch to the rank's rows there and are no-ops off a mesh); every other
+kind raises ``NotImplementedError`` (ROADMAP.md). The logits each rank
+returns are whole: the head's vocabulary shards, and in serving the
+batch's rows, are gathered.
 
 Parameters are made directly on the target device from an explicit
 ``torch.Generator`` there: a full-width model (29 GB in f32 for
 falcon-mamba-7b) is never built on the host first. ``build_model`` runs on
-"cuda" unless the caller passes ``device="cpu"``.
+"cuda" unless the caller passes ``device="cpu"`` (or ``"meta"``: shapes
+only). Built with ``mesh=``, each layer's leaves are cut to the rank's
+shards as soon as the layer is drawn, in the mesh-less model's draw
+order: a rank never holds more than its shards and one layer whole, and
+its shards are bits of the mesh-less model's.
 
 The port builds every family of the reference: olmoe, falcon-mamba,
 zamba2, gemma2/3 (tied embeddings, ``embed_scale``, the final softcap), the
@@ -37,10 +50,11 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core import session
 from repro_torch.core.remat import ProductStore
 from repro_torch.core.session import resolve_device
+from repro_torch.launch.sharding import DP, Placement, hint
 from repro_torch.relational import rel_embed, rel_linear
 
 from .blocks import block_apply, block_init, shared_attn_init
-from .common import dense_init, einsum, embed_init, layer_norm, rms_norm, softcap
+from .common import MetaGenerator, dense_init, einsum, embed_init, layer_norm, rms_norm, softcap
 
 
 @dataclass(frozen=True)
@@ -117,17 +131,20 @@ class Model(nn.Module):
     registered version's, so that one module serves versions with
     parameters of their own)."""
 
-    def __init__(self, cfg, device=None, seed: int = 0):
+    def __init__(self, cfg, device=None, seed: int = 0, *, mesh=None):
         super().__init__()
         dev = resolve_device(device, owner="repro_torch.models.Model")
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = (MetaGenerator() if dev.type == "meta"
+               else torch.Generator(device=dev).manual_seed(seed))
         dt = getattr(torch, cfg.dtype)
         self.cfg = cfg
         self.stage_specs = stages_of(cfg)
-        self.embed = nn.Parameter(embed_init(gen, (cfg.vocab, cfg.d_model), dtype=dt))
+        self.placement = None if mesh is None else Placement(cfg, mesh)
+        cut = self._cut
+        self.embed = nn.Parameter(cut("embed", embed_init(gen, (cfg.vocab, cfg.d_model), dtype=dt)))
         self.ln_f = nn.Parameter(torch.zeros((cfg.d_model,), dtype=dt, device=dev))
         if not cfg.tie_embeddings:
-            self.out_embed = nn.Parameter(dense_init(gen, (cfg.d_model, cfg.vocab), dtype=dt))
+            self.out_embed = nn.Parameter(cut("out_embed", dense_init(gen, (cfg.d_model, cfg.vocab), dtype=dt)))
         self.has_shared = "mamba2_attn" in _all_kinds(self.stage_specs)
         if self.has_shared:
             self.shared_attn = shared_attn_init(gen, cfg)
@@ -140,52 +157,101 @@ class Model(nn.Module):
             nn.ModuleDict({
                 "scan": nn.ModuleList(
                     nn.ModuleDict({
-                        f"{i}:{kind}": block_init(gen, kind, cfg)
+                        f"{i}:{kind}": self._cut_block(f"stages.{si}.scan.{r}.{i}:{kind}.",
+                                                       block_init(gen, kind, cfg))
                         for i, kind in enumerate(st.pattern)
                     })
-                    for _ in range(st.repeats)
+                    for r in range(st.repeats)
                 ),
-                "tail": nn.ModuleList(block_init(gen, kind, cfg) for kind in st.tail),
+                "tail": nn.ModuleList(self._cut_block(f"stages.{si}.tail.{i}.", block_init(gen, kind, cfg))
+                                      for i, kind in enumerate(st.tail)),
             })
-            for st in self.stage_specs
+            for si, st in enumerate(self.stage_specs)
         )
+
+    def _cut(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """``t``, or on a mesh the rank's shard of parameter ``name``."""
+        return t if self.placement is None else self.placement.cut(name, t)
+
+    def _cut_block(self, prefix: str, block: nn.Module) -> nn.Module:
+        """A block's parameters cut to the rank's shards, on a mesh."""
+        if self.placement is not None:
+            for name, p in block.named_parameters():
+                p.data = self.placement.cut(prefix + name, p.data)
+        return block
 
     @property
     def device(self) -> torch.device:
         return self.embed.device
 
-    def _tree(self, params):
+    def _tree(self, params, place=None):
         """What the entry points walk: the module itself, or ``params``
-        as a tree (``param_tree``)."""
-        return self if params is None else param_tree(params)
+        as a tree (``param_tree``); on a mesh the rank's shards of
+        ``params`` (or of the module's own), as a tree."""
+        if place is None:
+            return self if params is None else param_tree(params)
+        return param_tree(place.shard(dict(self.named_parameters()) if params is None else params))
+
+    def _place(self, place):
+        """The placement an entry point runs on: ``place``, else the one
+        the model was built on (None: one device)."""
+        return place if place is not None else self.placement
+
+    @staticmethod
+    def _on(place):
+        """The context of a step on ``place`` (none off a mesh)."""
+        return contextlib.nullcontext() if place is None else place.active()
 
     def __getitem__(self, name: str):
         return getattr(self, name)
 
     # -- embedding / head ---------------------------------------------------
 
-    def _embed(self, p, tokens):
+    def _embed(self, p, tokens, place=None):
+        """The token embeddings. On a mesh a whole batch is cut to the
+        rank's rows first (the reference's ``hint(x, DP, None, None)`` on
+        the embeddings, taken on the tokens they are looked up from), and
+        a vocabulary split over the model ranks is looked up in the rank's
+        rows (zero rows for the others' ids), then summed over the
+        ranks."""
         cfg = self.cfg
-        x = rel_embed(p["embed"], tokens.reshape(-1)).reshape(*tokens.shape, cfg.d_model)
+        tokens = hint(tokens, DP, None)
+        ids = tokens.reshape(-1)
+        table = p["embed"] if place is None else place.gather_tree(p["embed"], "embed.")
+        if place is not None and place.splits(cfg.vocab):
+            x = place.reduce(rel_embed(table, ids, start=place.index("model") * table.shape[0]))
+        else:
+            x = rel_embed(table, ids)
+        x = x.reshape(*tokens.shape, cfg.d_model)
         if cfg.embed_scale:
             # sqrt(d_model) rounded to the activations' dtype first, as the
             # reference's jnp.asarray(cfg.d_model**0.5, x.dtype)
             x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
         return x
 
-    def _head(self, p, x):
+    def _head(self, p, x, place=None):
         """The logits, f32. A tied head (gemma) is the product with the
         embedding table through ``common.einsum``, as the reference's
         ``jnp.einsum`` outside every Pallas kernel; autograd adds its dW to
         the table gradient of ``rel_embed``'s segment sum. An untied head
-        is a ``rel_linear`` with ``out_embed``."""
+        is a ``rel_linear`` with ``out_embed``; on a mesh that splits the
+        vocabulary, column-parallel, its logits gathered whole."""
         cfg = self.cfg
         h = rms_norm(x, p["ln_f"], cfg.norm_eps)
         if cfg.tie_embeddings:
             logits = einsum("bsd,vd->bsv", h, p["embed"])
+        elif place is not None and place.splits(cfg.vocab):
+            w = place.gather_tree(p["out_embed"], "out_embed.")
+            logits = place.gather_from(rel_linear(place.copy_to(h), w), -1)
         else:
-            logits = rel_linear(h, p["out_embed"])
+            w = p["out_embed"] if place is None else place.gather_tree(p["out_embed"], "out_embed.")
+            logits = rel_linear(h, w)
         return softcap(logits.float(), cfg.final_softcap)
+
+    @staticmethod
+    def _whole_rows(logits, place):
+        """Serving's logits with every data rank's rows (forward only)."""
+        return logits if place is None else place.gather_from(logits, 0, "data")
 
     # -- backbone -----------------------------------------------------------
 
@@ -210,10 +276,18 @@ class Model(nn.Module):
         remat = cfg.remat and ctx["mode"] == "train" and torch.is_grad_enabled()
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         new_caches = []
+        place = ctx.get("place")
 
-        def superblock(pattern, sblock, x, entry):
+        def gathered(node, prefix):
+            """A layer's parameters with its FSDP leaves gathered, on a mesh."""
+            return node if place is None else place.gather_tree(node, prefix)
+
+        def superblock(pattern, sblock, x, entry, prefix=""):
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
             new_entry = {}
+            if place is not None:
+                x = hint(x, DP, None, None, whole=(ctx["batch"],) + tuple(x.shape[1:]))
+                sblock = gathered(sblock, prefix)
             for i, kind in enumerate(pattern):
                 key = f"{i}:{kind}"
                 x, new_entry[key], a = block_apply(
@@ -223,11 +297,11 @@ class Model(nn.Module):
                 aux = aux + a
             return x, new_entry, aux
 
-        def rematted(pattern, sblock, x):
+        def rematted(pattern, sblock, x, prefix):
             db = session.current()
 
             def run(x):
-                x, _, aux = superblock(pattern, sblock, x, None)
+                x, _, aux = superblock(pattern, sblock, x, None, prefix)
                 return x, aux
 
             def contexts():
@@ -248,18 +322,19 @@ class Model(nn.Module):
             stage = p["stages"][si]
             scan_cache = []
             for r, sblock in enumerate(stage["scan"]):
+                prefix = f"stages.{si}.scan.{r}."
                 if remat:
-                    x, a = rematted(st.pattern, sblock, x)
+                    x, a = rematted(st.pattern, sblock, x, prefix)
                     new_entry = {f"{i}:{kind}": {} for i, kind in enumerate(st.pattern)}
                 else:
                     entry = caches[si]["scan"][r] if caches is not None else None
-                    x, new_entry, a = superblock(st.pattern, sblock, x, entry)
+                    x, new_entry, a = superblock(st.pattern, sblock, x, entry, prefix)
                 aux_total = aux_total + a
                 scan_cache.append(new_entry)
             tail_cache = []
             for i, kind in enumerate(st.tail):
                 x, c, a = block_apply(
-                    stage["tail"][i], kind, x,
+                    gathered(stage["tail"][i], f"stages.{si}.tail.{i}."), kind, x,
                     dict(ctx, cache=caches[si]["tail"][i] if caches is not None else None),
                 )
                 aux_total = aux_total + a
@@ -312,15 +387,18 @@ class Model(nn.Module):
         if self.has_shared:
             ctx["shared"] = p["shared_attn"]
 
-    def _inputs(self, p, batch, mode: str, **ctx):
+    def _inputs(self, p, batch, mode: str, place=None, **ctx):
         """(x, ctx, vis) of a forward over ``batch``: the token embeddings,
         after qwen2-vl's ``patches`` (B, Sv, D) where the batch has them
         (vis = Sv, else 0); the block context, with whisper's encoder
-        output over ``frames``."""
+        output over ``frames``; on a mesh the rank's rows, with the
+        placement and the whole batch's size in the context."""
         cfg = self.cfg
         tokens = batch["tokens"]
-        b, s = tokens.shape
-        x = self._embed(p, tokens)
+        if place is not None:
+            ctx = dict(ctx, place=place, batch=tokens.shape[0])
+        x = self._embed(p, tokens, place)
+        b, s = x.shape[:2]
         vis = 0
         if cfg.vis_seq and "patches" in batch:
             vis = batch["patches"].shape[1]
@@ -334,47 +412,68 @@ class Model(nn.Module):
 
     # -- entry points --------------------------------------------------------
 
-    def train_logits(self, batch: Dict[str, Any], params: Optional[Mapping[str, torch.Tensor]] = None):
+    def train_logits(self, batch: Dict[str, Any], params: Optional[Mapping[str, torch.Tensor]] = None,
+                     *, place=None):
         """batch: tokens (B,S) [+ frames (B,S_enc,D) | patches (B,Sv,D)].
         Returns (logits (B,S,V) f32 over the text positions, aux), aux the
         blocks' auxiliary losses summed (the MoE's load-balance loss; 0
-        for the other kinds)."""
-        p = self._tree(params)
-        x, ctx, vis = self._inputs(p, batch, "train")
-        x, _, aux = self._run_stages(p, x, ctx, None)
-        return self._head(p, x[:, vis:]), aux
+        for the other kinds). On a mesh (``place``, or the model's own)
+        the logits are the rank's rows of the batch, over the whole
+        vocabulary, and aux the mean over those rows."""
+        place = self._place(place)
+        with self._on(place):
+            p = self._tree(params, place)
+            x, ctx, vis = self._inputs(p, batch, "train", place)
+            x, _, aux = self._run_stages(p, x, ctx, None)
+            return self._head(p, x[:, vis:], place), aux
 
     def prefill(self, batch: Dict[str, Any], cache_len: int,
-                params: Optional[Mapping[str, torch.Tensor]] = None):
+                params: Optional[Mapping[str, torch.Tensor]] = None, *, place=None):
         """Logits of the last position (B,1,V) and the caches after the
         prompt (and qwen2-vl's patches before it). ``cache_len`` sizes
         attention caches (the prompt's K/V padded to it); the SSM state is
-        O(1)."""
-        p = self._tree(params)
-        x, ctx, _ = self._inputs(p, batch, "prefill", cache_len=cache_len)
-        x, caches, _ = self._run_stages(p, x, ctx, None)
-        return self._head(p, x[:, -1:]), caches
+        O(1). On a mesh the logits are whole and the caches the rank's:
+        its rows of the batch and the KV heads its attention computes
+        (``Placement.kv_heads``)."""
+        place = self._place(place)
+        with self._on(place):
+            p = self._tree(params, place)
+            x, ctx, _ = self._inputs(p, batch, "prefill", place, cache_len=cache_len)
+            x, caches, _ = self._run_stages(p, x, ctx, None)
+            return self._whole_rows(self._head(p, x[:, -1:], place), place), caches
 
     def decode_step(self, token, caches, length, params: Optional[Mapping[str, torch.Tensor]] = None,
-                    *, enc_out: Optional[torch.Tensor] = None):
+                    *, enc_out: Optional[torch.Tensor] = None, place=None):
         """token: (B, 1) integer; caches from prefill (or the previous
         step); length: count of valid cache entries (an int); enc_out:
         whisper's encoder output (``encode``), which every decoder layer
-        cross-attends to."""
+        cross-attends to. On a mesh ``token`` is the whole batch's, the
+        caches the rank's, and the logits whole."""
         if self.cfg.encoder_layers and enc_out is None:
             raise ValueError(f"{self.cfg.name}: decode_step needs enc_out (Model.encode)")
-        p = self._tree(params)
-        x = self._embed(p, token)
-        ctx = {"cfg": self.cfg, "mode": "decode",
-               "positions": self._positions(token.shape[0], 1, length=length), "length": length}
-        if self.cfg.encoder_layers:
-            ctx["enc_out"] = enc_out
-        self._share(p, ctx)
-        x, caches, _ = self._run_stages(p, x, ctx, caches)
-        return self._head(p, x), caches
+        place = self._place(place)
+        with self._on(place):
+            p = self._tree(params, place)
+            x = self._embed(p, token, place)
+            ctx = {"cfg": self.cfg, "mode": "decode",
+                   "positions": self._positions(x.shape[0], 1, length=length), "length": length}
+            if place is not None:
+                ctx.update(place=place, batch=token.shape[0])
+            if self.cfg.encoder_layers:
+                ctx["enc_out"] = enc_out
+            self._share(p, ctx)
+            x, caches, _ = self._run_stages(p, x, ctx, caches)
+            return self._whole_rows(self._head(p, x, place), place), caches
 
 
-def build_model(cfg, device=None, seed: int = 0) -> Model:
+def build_model(cfg, device=None, seed: int = 0, *, mesh=None) -> Model:
     """The model of ``cfg`` with random weights from ``seed``, made on
-    ``device`` ("cuda" unless the caller passes another)."""
-    return Model(cfg, device=device, seed=seed)
+    ``device`` ("cuda" unless the caller passes another); with ``mesh`` (a
+    DeviceMesh) the rank's shards of them (``Model``)."""
+    return Model(cfg, device=device, seed=seed, mesh=mesh)
+
+
+def param_shapes(cfg) -> Dict[str, Tuple[int, ...]]:
+    """name → shape of every parameter of ``cfg``'s model (built on the
+    ``meta`` device: nothing is allocated or drawn)."""
+    return {n: tuple(p.shape) for n, p in Model(cfg, device="meta").named_parameters()}

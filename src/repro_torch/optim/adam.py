@@ -3,7 +3,7 @@ as the reference's ``optim/adam.py``, on a dict of tensors."""
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -31,6 +31,7 @@ def adam_update(
     weight_decay: float = 0.0,
     grad_clip: float = 0.0,
     donate: bool = False,
+    grad_norm: Optional[Callable[[Params], torch.Tensor]] = None,
 ) -> Tuple[Params, Dict[str, object]]:
     """One Adam step; returns the new parameters and state.
 
@@ -40,7 +41,11 @@ def adam_update(
     each parameter's new values are computed as without donation, then
     copied in, so the two give the same bits, and the peak holds one
     parameter's temporaries rather than a second copy of the whole
-    state."""
+    state. ``grad_norm`` computes the global 2-norm that ``grad_clip``
+    clips to (default: over ``grads``, which then hold the whole
+    gradient); on a mesh, where each rank holds shards,
+    ``Placement.grad_norm``. The update itself is elementwise, so on a
+    mesh it runs on the rank's shards."""
     step = state["step"] + 1
     # the bias corrections in f32, as the reference computes them from its
     # int32 step counter (in f64, 1 - 0.999 differs from f32's by 1.3e-5)
@@ -49,7 +54,10 @@ def adam_update(
 
     scale = None
     if grad_clip:
-        gnorm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads.values()))
+        if grad_norm is not None:
+            gnorm = grad_norm(grads)
+        else:
+            gnorm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads.values()))
         scale = torch.clamp(grad_clip / (gnorm + 1e-9), max=1.0)
 
     new_p, new_m, new_v = {}, {}, {}

@@ -20,6 +20,7 @@ does not see the caller's ``Database.activate``.
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import torch
 
@@ -27,7 +28,7 @@ from repro_torch.core import fra, session
 from repro_torch.core.autodiff import ra_autodiff
 from repro_torch.core.kernels import ADD, MUL
 from repro_torch.core.keys import L, eq_pred, jproj, project_key
-from repro_torch.core.relation import CooRelation, DenseRelation
+from repro_torch.core.relation import COO_PAD_KEY, CooRelation, DenseRelation
 
 
 @functools.cache
@@ -80,7 +81,18 @@ class _RelEmbed(torch.autograd.Function):
         return ctx.db.execute(prog.grads["Table"], env).data, None
 
 
-def rel_embed(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+def rel_embed(table: torch.Tensor, ids: torch.Tensor, *, start: Optional[int] = None) -> torch.Tensor:
     """table: (V, D); ids: (B,) integer → (B, D). Differentiable with
-    respect to the table."""
+    respect to the table.
+
+    With ``start`` the table is one shard of a vocabulary split over ranks
+    (a vocabulary-parallel embedding), holding the rows ``[start, start +
+    V)``: an id outside them is ``COO_PAD_KEY`` (-1) in the join, whose
+    ``gather_join`` gives a zero row for it and whose backward's
+    ``segment_sum`` drops it, so each rank's output holds its rows' part
+    of the lookup and the caller sums the ranks' parts."""
+    if start is not None:
+        local = ids.to(torch.int32) - start
+        inside = (local >= 0) & (local < table.shape[0])
+        ids = torch.where(inside, local, torch.full_like(local, COO_PAD_KEY))
     return _RelEmbed.apply(table, ids)

@@ -1,4 +1,5 @@
-"""Serving steps: batched prefill and single-token decode, on one device.
+"""Serving steps: batched prefill and single-token decode, on one device
+or on a mesh.
 
 ``make_prefill_step`` / ``make_decode_step`` wrap ``Model.prefill`` /
 ``Model.decode_step`` in ``torch.inference_mode()``: without it every
@@ -31,15 +32,24 @@ decode-step bucketing and load shedding lives there.
 The port's caches have their batch on axis 0 in every leaf: the
 reference stacks a stage's repeats on axis 0 of each ``scan`` leaf (so its
 batch axis is 1 there), the port keeps one entry per repeat
-(``caches[si]["scan"][r]``). ``map_cache`` walks that layout. The
-reference's mesh placement of the parameters (``mesh=``,
-``_PlacedParamsCache``) has no meaning on one device and waits for
-multi-device planning (ROADMAP.md, queue 1, item 4).
+(``caches[si]["scan"][r]``). ``map_cache`` walks that layout.
+
+On a mesh (``mesh=``, or the ``db``'s), the steps run the ``attn`` and
+``moe`` kinds tensor- and expert-parallel on the rank's shards of the
+parameters (``launch/sharding.py``; other kinds raise
+``NotImplementedError``, ROADMAP.md): every rank is given the whole batch
+and returns the whole logits, and keeps its own caches (its rows of the
+batch, the KV heads its attention computes: ``init_cache(...,
+place=)``). The steps cut the shards through ``_PlacedParamsCache``,
+once per live parameter dict, as the reference's decode step places its
+parameters once per version.
 """
 
 from __future__ import annotations
 
 import contextlib
+import weakref
+from collections import OrderedDict
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -48,7 +58,8 @@ from repro_torch.core.session import resolve_device
 from repro_torch.models.model import Model, stages_of
 
 
-def _attn_cache_entry(cfg, kind: str, batch: int, cache_len: int, device: torch.device):
+def _attn_cache_entry(cfg, kind: str, batch: int, cache_len: int, device: torch.device,
+                      kv_heads: Optional[int] = None):
     dt = getattr(torch, cfg.dtype)
     if kind in ("mla", "mla_moe"):
         return {"kv": {
@@ -57,7 +68,7 @@ def _attn_cache_entry(cfg, kind: str, batch: int, cache_len: int, device: torch.
         }}
 
     def kv(width=cache_len):
-        shape = (batch, width, cfg.n_kv_heads, cfg.hd())
+        shape = (batch, width, cfg.n_kv_heads if kv_heads is None else kv_heads, cfg.hd())
         return {"k": torch.zeros(shape, dtype=dt, device=device),
                 "v": torch.zeros(shape, dtype=dt, device=device)}
 
@@ -94,17 +105,25 @@ def _attn_cache_entry(cfg, kind: str, batch: int, cache_len: int, device: torch.
     raise ValueError(f"unknown block kind {kind}")
 
 
-def init_cache(cfg, batch: int, cache_len: int, device=None):
+def init_cache(cfg, batch: int, cache_len: int, device=None, *, place=None):
     """Zero-initialized caches in ``Model``'s layout, on ``device`` ("cuda"
-    unless the caller passes another). ``cache_len`` sizes attention caches."""
+    unless the caller passes another). ``cache_len`` sizes attention
+    caches. With ``place`` (a ``launch.sharding.Placement``) the rank's
+    cache of a whole batch of ``batch`` rows: its rows, and the KV heads
+    its attention computes."""
     dev = resolve_device(device, owner="repro_torch.serving.init_cache")
+    heads = None
+    if place is not None:
+        batch //= place.size("data") if batch % place.size("data") == 0 else 1
+        heads = place.kv_heads(cfg)
     caches = []
     for st in stages_of(cfg):
         scan = [
-            {f"{i}:{kind}": _attn_cache_entry(cfg, kind, batch, cache_len, dev) for i, kind in enumerate(st.pattern)}
+            {f"{i}:{kind}": _attn_cache_entry(cfg, kind, batch, cache_len, dev, heads)
+             for i, kind in enumerate(st.pattern)}
             for _ in range(st.repeats)
         ]
-        tail = [_attn_cache_entry(cfg, kind, batch, cache_len, dev) for kind in st.tail]
+        tail = [_attn_cache_entry(cfg, kind, batch, cache_len, dev, heads) for kind in st.tail]
         caches.append({"scan": scan, "tail": tail})
     return caches
 
@@ -124,17 +143,114 @@ def _session(db):
     return db.activate() if db is not None else contextlib.nullcontext()
 
 
-def make_prefill_step(model: Model, cache_len: int, *, db=None):
+def _placement(model: Model, mesh, db):
+    """The ``Placement`` of a step on ``mesh`` (else ``db``'s mesh; a
+    ``launch.mesh.resolve_mesh`` spec string is resolved), or None off a
+    mesh: the model's own where it was built on that mesh."""
+    if db is not None and mesh is None:
+        mesh = db.mesh
+    if isinstance(mesh, str):
+        from repro_torch.launch.mesh import resolve_mesh
+
+        mesh = resolve_mesh(mesh, device_type=(db.device if db is not None else model.device).type)
+    if mesh is None:
+        return None
+    own = getattr(model, "placement", None)
+    if own is not None and own.mesh is mesh:
+        return own
+    from repro_torch.launch.sharding import Placement
+
+    return Placement(model.cfg, mesh)
+
+
+class _StrongRef:
+    """Callable strong-reference fallback for anchors that reject
+    weakrefs — the LRU capacity still bounds what it can pin."""
+
+    __slots__ = ("_obj",)
+
+    def __init__(self, obj):
+        self._obj = obj
+
+    def __call__(self):
+        return self._obj
+
+
+class _PlacedParamsCache:
+    """Bounded cache of the rank's shards of parameter dicts.
+
+    Entries are keyed on a **(weakref, id) identity pair**: ``id(params)``
+    indexes the cache, and a weak reference to the dict's first tensor
+    validates the hit (two distinct dicts can recycle the same ``id``
+    across garbage collections — the live-leaf identity check makes that
+    impossible to alias). Entries are evicted three ways: the weakref
+    callback drops an entry the moment its source params die (so a
+    long-running server never pins shards of stale params), LRU order
+    bounds the cache at ``capacity``, and ``clear()`` empties it."""
+
+    def __init__(self, capacity: int = 4):
+        self.capacity = capacity
+        self._entries: "OrderedDict[int, Tuple[Callable, Any]]" = OrderedDict()
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def clear(self) -> None:
+        self._entries.clear()
+
+    @staticmethod
+    def _anchor(params):
+        leaves = list(params.values()) if isinstance(params, dict) else []
+        return leaves[0] if leaves else params
+
+    def place(self, params, shard: Callable):
+        """``shard(params)``, cached per live params object."""
+        key = id(params)
+        anchor = self._anchor(params)
+        hit = self._entries.get(key)
+        if hit is not None and hit[0]() is anchor:
+            self._entries.move_to_end(key)
+            return hit[1]
+        placed = shard(params)
+        entries = self._entries
+
+        def _on_death(ref, _key=key):
+            ent = entries.get(_key)
+            if ent is not None and ent[0] is ref:
+                del entries[_key]
+
+        try:
+            ref: Callable = weakref.ref(anchor, _on_death)
+        except TypeError:
+            ref = _StrongRef(anchor)
+        entries[key] = (ref, placed)
+        entries.move_to_end(key)
+        while len(entries) > self.capacity:
+            entries.popitem(last=False)
+        return placed
+
+
+def make_prefill_step(model: Model, cache_len: int, *, mesh=None, db=None):
     """``prefill_step(batch, params=None) → (logits (B,1,V), caches)``
     without autograd. ``params`` is what ``Model.prefill`` takes (None: the
     module's own tensors). ``db`` (a ``repro_torch.Database``) is the
     session the step runs under — its dispatch table picks the kernels —
     else the ambient one; ``BucketedPrefill`` is the bucketed front end
-    over this."""
+    over this. ``mesh`` (a DeviceMesh or a ``launch/mesh.resolve_mesh``
+    spec string such as ``"host"``; default ``db.mesh``) runs the step on
+    the rank's shards of ``params``, cut once per live params dict
+    (``_PlacedParamsCache``; module docstring)."""
+    place = _placement(model, mesh, db)
+    placed = _PlacedParamsCache()
+    own = dict(model.named_parameters()) if place is not None else None
 
     def prefill_step(batch, params=None):
+        kw = {}
+        if place is not None:
+            params = placed.place(own if params is None else params, place.shard)
+            kw["place"] = place
         with _session(db), torch.inference_mode():
-            return model.prefill(batch, cache_len, params=params)
+            return model.prefill(batch, cache_len, params=params, **kw)
 
     return prefill_step
 
@@ -151,15 +267,21 @@ def make_encode_step(model: Model, *, db=None):
     return encode_step
 
 
-def make_decode_step(model: Model, *, db=None, on_trace: Optional[Callable[[], None]] = None):
+def make_decode_step(model: Model, *, mesh=None, db=None, on_trace: Optional[Callable[[], None]] = None):
     """``decode_step(token, caches, length, params=None, enc_out=None) →
-    (logits (B,1,V), caches)`` without autograd; ``params`` and ``db`` as
-    in ``make_prefill_step``; ``enc_out`` whisper's encoder output
-    (``make_encode_step``). ``on_trace`` (internal; the serving telemetry
-    hook) is called at the step's first call: where the reference counts
-    a jit trace per shape class, an eager step has one first call, and
-    the serving front door builds one step per batch bucket."""
+    (logits (B,1,V), caches)`` without autograd; ``params``, ``mesh`` and
+    ``db`` as in ``make_prefill_step``; ``enc_out`` whisper's encoder
+    output (``make_encode_step``). On a mesh the rank's shards of
+    ``params`` are cut once per live params dict (``_PlacedParamsCache``,
+    the step's ``_placed_cache``), so a token's step re-walks nothing.
+    ``on_trace`` (internal; the serving telemetry hook) is called at the
+    step's first call: where the reference counts a jit trace per shape
+    class, an eager step has one first call, and the serving front door
+    builds one step per batch bucket."""
     traced = False
+    place = _placement(model, mesh, db)
+    placed = _PlacedParamsCache()
+    own = dict(model.named_parameters()) if place is not None else None
 
     def decode_step(token, caches, length, params=None, enc_out=None):
         nonlocal traced
@@ -167,9 +289,14 @@ def make_decode_step(model: Model, *, db=None, on_trace: Optional[Callable[[], N
             traced = True
             on_trace()
         kw = {} if enc_out is None else {"enc_out": enc_out}
+        if place is not None:
+            params = placed.place(own if params is None else params, place.shard)
+            kw["place"] = place
         with _session(db), torch.inference_mode():
             return model.decode_step(token, caches, length, params=params, **kw)
 
+    if place is not None:
+        decode_step._placed_cache = placed  # introspection for tests
     return decode_step
 
 

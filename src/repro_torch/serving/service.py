@@ -201,6 +201,10 @@ class Endpoint:
         optional ``tokens (B, S) → batch dict`` hook for models whose
         prefill reads more than ``{"tokens": ...}`` (whisper's ``frames``,
         qwen2-vl's ``patches``).
+
+    A session with a mesh of one rank serves through the steps on that
+    mesh (``serve.make_prefill_step(mesh=)``); a mesh of more ranks raises
+    ``NotImplementedError`` (ROADMAP.md).
     """
 
     def __init__(
@@ -220,6 +224,12 @@ class Endpoint:
         eos_token: Optional[int] = None,
         make_batch: Optional[Callable[[torch.Tensor], Dict[str, Any]]] = None,
     ):
+        mesh = db.mesh
+        if mesh is not None and mesh.mesh.numel() > 1:
+            raise NotImplementedError(
+                "an endpoint over a mesh of more than one rank (rank 0 admitting the "
+                "requests and broadcasting each step's batch) is not ported yet "
+                "(ROADMAP.md, queue 1); a session whose mesh has one rank serves")
         self.db = db
         self.cache_len = int(cache_len)
         self._buckets = (

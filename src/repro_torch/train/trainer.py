@@ -12,8 +12,15 @@ across steps.
 PyTorch runs eagerly, so the reference's ``jit`` has no analogue (it is
 accepted and ignored), and its donation is an in-place update: with
 ``donate=True`` the step writes the new parameters and Adam moments into
-the tensors it was given. Mesh placement waits for multi-GPU planning
-(ROADMAP.md, queue 1, item 4).
+the tensors it was given.
+
+On a mesh (``mesh=``, or ``database.mesh``) the step runs the ``attn`` and
+``moe`` kinds tensor-, expert- and fully-sharded data-parallel
+(``launch/sharding.py``): each rank takes its shards of the parameters
+and the moments (cut where it is given them whole) and its rows of the
+batch, sums its gradients over the data ranks, clips to the global norm
+of the whole gradient and updates its shards; other kinds raise
+``NotImplementedError`` (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -23,9 +30,10 @@ from typing import Any, Callable, Dict
 
 import torch
 
+from repro_torch.launch.sharding import DP, hint
 from repro_torch.optim import adam_init, adam_update
 
-from .losses import lm_loss
+from .losses import lm_loss, lm_nll
 
 
 @dataclass
@@ -57,14 +65,27 @@ def make_train_step(
     step's outputs, which are the same tensors); the step's results are
     bit-equal to ``donate=False``'s. ``database`` runs every step inside
     ``database.activate()``, so the relational ops in the model dispatch
-    through that session. ``mesh`` raises: multi-GPU placement is not
-    ported (ROADMAP.md, queue 1, item 4)."""
+    through that session.
+
+    ``mesh`` (a DeviceMesh, or a ``launch.mesh.resolve_mesh`` spec string;
+    default ``database.mesh``) places the step (module docstring): it
+    returns the rank's shards of the parameters and moments, and the
+    metrics of the whole batch. The loss is the one-device loss: each rank
+    sums its rows' negative log-likelihoods over the whole batch's label
+    count, and its rows' mean load-balance loss over the data ranks, so
+    that the ranks' gradients sum to the whole batch's."""
     del jit
+    if database is not None and mesh is None:
+        mesh = database.mesh
+    if isinstance(mesh, str):
+        from repro_torch.launch.mesh import resolve_mesh
+
+        dev = database.device if database is not None else model.device
+        mesh = resolve_mesh(mesh, device_type=dev.type)
     if mesh is not None:
-        raise NotImplementedError(
-            "make_train_step(mesh=...): placement on a mesh waits for multi-GPU "
-            "planning (ROADMAP.md, queue 1, item 4)"
-        )
+        step = _mesh_step(model, mesh, lr=lr, aux_weight=aux_weight, grad_clip=grad_clip,
+                          donate=donate)
+        return step if database is None else _sessioned(step, database)
 
     def loss_fn(params, batch):
         logits, aux = model.train_logits(batch, params)
@@ -85,12 +106,53 @@ def make_train_step(
 
     if database is None:
         return train_step
+    return _sessioned(train_step, database)
+
+
+def _sessioned(step, database):
+    """``step`` run inside ``database.activate()``."""
 
     def sessioned_step(params, opt_state, batch):
         with database.activate():
-            return train_step(params, opt_state, batch)
+            return step(params, opt_state, batch)
 
     return sessioned_step
+
+
+def _mesh_step(model, mesh, *, lr, aux_weight, grad_clip, donate):
+    """The train step of ``make_train_step`` on a mesh."""
+    from repro_torch.launch.sharding import Placement
+
+    place = model.placement
+    if place is None or place.mesh is not mesh:
+        place = Placement(model.cfg, mesh)
+    d = place.size("data")
+
+    def train_step(params, opt_state, batch):
+        params = place.shard(params)
+        opt_state = dict(opt_state, mu=place.shard(opt_state["mu"]), nu=place.shard(opt_state["nu"]))
+        leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        logits, aux = model.train_logits(batch, leaves, place=place)
+        with place.active():
+            labels = hint(batch["labels"], DP, None)
+        nll, count = lm_nll(logits, labels)
+        # the count in the loss's dtype, which the division promotes it to
+        loss = nll / torch.clamp(place.all_reduce(count.to(nll.dtype), "data"), min=1)
+        total = loss + aux_weight * aux / d
+        grads = dict(zip(leaves, torch.autograd.grad(total, list(leaves.values()))))
+        del leaves, logits
+        grads = place.sync_grads(grads)
+        params, opt_state = adam_update(
+            params, grads, opt_state, lr=lr, grad_clip=grad_clip, donate=donate,
+            grad_norm=place.grad_norm,
+        )
+        with torch.no_grad():
+            loss = place.all_reduce(loss.detach(), "data")
+            aux = place.all_reduce(aux.detach(), "data") / d
+            metrics = {"loss": loss, "aux": aux, "total": loss + aux_weight * aux}
+        return params, opt_state, metrics
+
+    return train_step
 
 
 def init_train_state(model, dtype=None) -> TrainState:

@@ -1,9 +1,9 @@
 """The port stands alone: no file of ``src/repro_torch/``, nor
 ``chip_smoke.py``, imports ``jax`` or the JAX package ``repro``. Of the
 tests only ``test_torch_cuda.py`` is held to the same rule, because it runs
-on the card's machine, which has no JAX, and ``torch_mesh_workers.py``,
-the rank program of the mesh tests, whose ranks start without JAX; the
-other tests import both."""
+on the card's machine, which has no JAX, and ``torch_mesh_workers.py`` and
+``torch_lm_mesh_workers.py``, the rank programs of the mesh tests, whose
+ranks start without JAX; the other tests import both."""
 
 import ast
 from pathlib import Path
@@ -15,6 +15,7 @@ FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py",
     ROOT / "tests" / "test_torch_cuda.py",
     ROOT / "tests" / "torch_mesh_workers.py",
+    ROOT / "tests" / "torch_lm_mesh_workers.py",
 ]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
@@ -40,7 +41,7 @@ def _imported_roots(tree: ast.AST):
 def test_the_scan_sees_the_port():
     assert len(FILES) > 20 and (ROOT / "chip_smoke.py").exists()
     launch = ROOT / "src" / "repro_torch" / "launch"
-    assert {launch / "mesh.py", launch / "collectives.py"} <= set(FILES)
+    assert {launch / "mesh.py", launch / "collectives.py", launch / "sharding.py"} <= set(FILES)
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

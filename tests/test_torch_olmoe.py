@@ -259,10 +259,29 @@ def test_moe_apply_matches_jax_forward_and_backward(lm, capacity_factor):
         _close_grad(gr, jgp[n])
 
 
-def test_moe_shard_experts_raises(lm):
-    _, p = _moe_params(lm)
+def test_moe_shard_experts_is_value_neutral():
+    """The port's counterpart of tests/test_integration_extra.py's
+    ``test_moe_shard_experts_flag_neutral_on_values``: the flag pins the
+    expert buffers' layout on a mesh, and on one device the logits are
+    bit-identical with it on and off."""
+    cfg = get_config(ARCH).reduced()
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab, (2, 16)), dtype=torch.int32)
+    outs = []
+    for flag in (False, True):
+        model = build_model(dataclasses.replace(cfg, moe_shard_experts=flag), device="cpu", seed=7)
+        with repro_torch.Database(device="cpu").activate():
+            outs.append(model.train_logits({"tokens": tokens})[0].detach())
+    assert torch.equal(outs[0], outs[1])
+
+
+def test_moe_on_a_mesh_outside_the_slice_raises():
+    """deepseek-v3's MLA+MoE layers are not placed on a mesh yet: the
+    placement refuses them, naming the roadmap, before any rank is
+    asked."""
+    from repro_torch.launch.sharding import Placement
+
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ffn.moe_apply(p, torch.zeros(1, 4, lm[2].cfg.d_model), top_k=2, shard_experts=True)
+        Placement(get_config("deepseek-v3-671b").reduced(), {"model": 2})
 
 
 def test_mlp_apply_matches_jax(lm):

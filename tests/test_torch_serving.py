@@ -1030,3 +1030,62 @@ def test_serve_batched_example_on_the_cpu(arch, capsys):
                                "--prompt-len", "8", "--gen", "4"])
     assert [len(o.token_ids) for o in outs] == [4, 3, 2]
     assert "ok." in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# The decode step's placement cache on a mesh (tests/test_serving.py's
+# test_placed_params_cache_hits_evicts_and_bounds)
+# ---------------------------------------------------------------------------
+
+
+def test_placed_params_cache_hits_evicts_and_bounds():
+    import gc
+
+    from repro_torch.serving.serve import _PlacedParamsCache
+
+    cache = _PlacedParamsCache(capacity=2)
+
+    def shard(params):
+        return {k: v.clone() for k, v in params.items()}
+
+    p1 = {"w": torch.ones(4)}
+    placed = cache.place(p1, shard)
+    assert cache.place(p1, shard) is placed        # identity hit
+    assert len(cache) == 1
+
+    # params released by their owner: the weakref death callback evicts
+    del p1
+    gc.collect()
+    assert len(cache) == 0
+
+    # LRU capacity bound with live params
+    keep = [{"w": torch.full((2,), float(i))} for i in range(3)]
+    for p in keep:
+        cache.place(p, shard)
+    assert len(cache) == 2
+
+    # id-recycling guard: a stale entry whose anchor died is not returned
+    # for a new params object that happens to reuse the id
+    p = keep[-1]
+    ref, val = cache._entries[id(p)]
+    cache._entries[id(p)] = ((lambda: object()), val)  # stale anchor
+    fresh = cache.place(p, shard)                      # miss, re-placed
+    assert cache._entries[id(p)][1] is fresh
+    cache.clear()
+    assert len(cache) == 0
+
+
+def test_an_endpoint_over_several_ranks_raises():
+    """An endpoint needs rank 0 to admit requests and broadcast each
+    step's batch over a mesh of several ranks: not ported yet."""
+
+    class Mesh:
+        class mesh:
+            @staticmethod
+            def numel():
+                return 4
+
+    db = repro_torch.Database(device="cpu")
+    db.use_mesh(Mesh())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        service.Endpoint(db, cache_len=8)

@@ -301,10 +301,24 @@ def test_remat_policy_dots_keeps_the_products_and_the_gradients_bit_for_bit(arch
         assert all(torch.equal(got[policy][k], got[None][k]) for k in got[None]), policy
 
 
-def test_train_step_on_a_mesh_raises(lm):
-    _, params, cfg = lm
+def test_train_step_on_a_one_rank_mesh_is_the_step():
+    """``make_train_step(mesh=...)`` (and the serving steps, and an
+    endpoint) on a one-rank ("model",) mesh of a gloo group give the
+    mesh-less step's loss, gradients and parameters bit for bit, for olmoe
+    and llama3 reduced (``tests/torch_lm_mesh_workers.one_rank``; the
+    4-rank meshes are tests/test_torch_lm_mesh.py's)."""
+    import torch_lm_mesh_workers as W
+    from repro_torch.launch.mesh import start_ranks
+
+    (equal,) = start_ranks(W.one_rank, 1, backend="gloo", device="cpu")
+    assert equal and all(equal.values()), equal
+
+
+def test_train_step_on_a_mesh_outside_the_slice_raises():
+    """falcon-mamba's Mamba-1 layers are not placed on a mesh yet."""
+    model = build_model(get_config("falcon-mamba-7b").reduced(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_train_step(_port(cfg, params), mesh="host")
+        make_train_step(model, mesh={"model": 2})
 
 
 # ---------------------------------------------------------------------------
