@@ -221,7 +221,32 @@ Phases, in order; any failure stops the run with a non-zero exit:
    times; 24.5 the kernel calls of a pass at the shard shapes (phase 8
    times them as ``lm_mesh``), each held to phase 2's checked shapes, its
    launch record to its contract model, the mesh steps' lowerings
-   certified.
+   certified;
+25. (run after phase 24, before phase 8) the window, tied-embedding and
+   SSM kinds on a mesh: 25.1 falcon-mamba-7b at 2 layers, zamba2-7b at 6
+   (5 mamba2 + 1 mamba2_attn) and gemma3-4b at 6 (5 local + 1 global) on
+   a one-rank NCCL group, a prefill of 2 × 512 tokens, 4 greedy decode
+   steps and a train step each bit-equal to the mesh-less step; 25.2 on
+   4 gloo ranks sharing the card, a 1 × 4 mesh: gemma3-4b at 6 layers
+   (2 × 1,280 tokens past its 1,024 window, a KV head and 65,536 rows of
+   the tied table a rank), falcon-mamba-7b at 4 (2 × 512; 2,048 channels
+   a rank, ssm_scan at (2, 512, 2,048, 16)) and zamba2-7b at 6 (2 × 512;
+   28 SSM heads a rank, ssm_scan at (2, 512, 28, 4,096)), then 4 decode
+   steps fed seeded tokens: logits within a limit derived from the
+   partials' K of the mesh-less run's, every rank's bit-equal, a second
+   run bit-equal, falcon-mamba's out_proj all-reduce of one layer left
+   out planted; 25.3 falcon-mamba at 2 layers on the 2 × 2 mesh (2 Adam
+   steps on 2 × 512 tokens, FSDP on "data", the scan's forward and
+   reverse walks on channel shards) and zamba2 at 6 layers on the 1 × 4
+   (one step on 2 × 256), held to the mesh-less steps (losses, global
+   norms, step-1 gradients and final values of a leaf of each layout,
+   in_proj and the conv among them), with x_proj's backward sum left out
+   and B and C gathered with a slicing backward planted; 25.4 each rank's
+   collectives per step beside the placement's prediction, shard bytes,
+   peak memory and step times; 25.5 the kernel calls of the passes at
+   the shard shapes (phase 8 times them as ``lm_mesh_ssm``), each held to
+   phase 2's checked shapes, its launch record to its contract model, the
+   mesh steps' lowerings certified.
 
 Device memory is freed between phases, so the NNMF step's peak and the
 language models' 1–60 GB of weights never meet. The last line of standard
@@ -391,18 +416,20 @@ ZAMBA2_PREFILL_LIMIT = 1e-3
 #: OLMOE_DECODE_LIMIT. Phase 13 plants a lost SSM state, a lost conv window
 #: and a lost shared K cache and shows each exceeds it
 ZAMBA2_DECODE_LIMIT = 1e-4
-# falcon-mamba-7b training (phase 14): its published widths at 4 of its 64
+# falcon-mamba-7b training (phase 14): its published widths at 2 of its 64
 # layers (the f32 weights, gradients and two Adam moments of all 64 take
-# 116.4 GB; of 4, 15.26 GB), remat, one batch of 4 x 1,024 tokens, 5
+# 116.4 GB; of 2, 11.89 GB), remat, one batch of 4 x 1,024 tokens, 5
 # donated Adam steps under remat "nothing", then 5 from the same weights
 # under "dots"; the scan at (4, 1,024, 8,192, 16): forward, recompute and
-# reverse walk on the kernel
+# reverse walk on the kernel. Two layers, not four, keep the script in its
+# time: the plain tier's scan loop under autograd takes ≈ 7.5 s a layer a
+# gradient on an H100 80GB HBM3 at 700 W, and the phase takes two
 FALCON_ARCH_LAYERS = 64
-FALCON_TRAIN_LAYERS, FALCON_TRAIN_BATCH, FALCON_TRAIN_SEQ, FALCON_TRAIN_STEPS = 4, 4, 1024, 5
-FALCON_TRAIN_PARAMS = 953_929_728
+FALCON_TRAIN_LAYERS, FALCON_TRAIN_BATCH, FALCON_TRAIN_SEQ, FALCON_TRAIN_STEPS = 2, 4, 1024, 5
+FALCON_TRAIN_PARAMS = 743_305_216
 #: step 1's loss, cuda tier against the torch tier (the scan's time loop),
 #: relative: a mean over 4,096 tokens of log-sum-exps of logits that agree
-#: to ≈ 1e-5 (4 layers, 17 products in a chain of K ≤ 8,192), as
+#: to ≈ 1e-5 (at most 4 layers, 17 products in a chain of K ≤ 8,192), as
 #: OLMOE_LOSS_LIMIT
 FALCON_LOSS_LIMIT = 1e-5
 #: step 1's gradients of layer 0's in_proj, x_proj and a_log (the scan's
@@ -538,6 +565,11 @@ HOT_SORTED, HOT_SCAN = (20_000, 1_000, 256, 5_000), (3_000, 50, 128, 1_000)
 SEGSUM_CROSSOVER_E = (512, 1024, 2048, 4096, 8192, 16384)
 #: calls over which phase 8 takes the host's time per call
 HOST_CALLS = 1000
+#: a call that takes LONG_CALL_MS or more is timed over LONG_CALL_ITERS
+#: launches, not 20: its mean over 50 ms and more of device time is as
+#: steady, and phase 8's plain and library calls at the largest shapes
+#: (10–90 ms each) would take ≈ 27 s more of the script's time
+LONG_CALL_MS, LONG_CALL_ITERS = 10.0, 5
 # phase 9, out of core: the GCN query of tests/test_oocore.py (conv → square
 # → sum → mean, wrt Edge and Node) at ogbn-arxiv size in 4 waves and at
 # ogbn-products size (2,449,029 nodes, 61,859,140 edges; the generator adds
@@ -608,6 +640,50 @@ LM_MESH_LEAVES = ("embed", "out_embed", "ln_f", "stages.0.scan.0.0:moe.ln1",
                   "stages.0.scan.0.0:moe.attn.wq", "stages.0.scan.0.0:moe.attn.wo",
                   "stages.0.scan.0.0:moe.attn.q_norm", "stages.0.scan.0.0:moe.moe.router",
                   "stages.0.scan.0.0:moe.moe.wi_gate", "stages.0.scan.1.0:moe.moe.wo")
+# phase 25, the window, tied-embedding and SSM kinds on a mesh, each at its
+# published widths in f32 (the SSM families on the scan kernel): 25.1 on a
+# one-rank NCCL group (SSM_MESH_ONE: (arch, layers)), a prefill of 2 × 512
+# tokens, 4 greedy decode steps and a train step on 2 × 128 tokens; 25.2
+# served on the 1 × 4 mesh of SSM_MESH_RANKS gloo ranks sharing the card
+# (SSM_MESH_SERVE: (arch, layers, prompt)), gemma3's prompts past its 1,024
+# window, then 4 decode steps fed seeded tokens; 25.3 trained without remat
+# (SSM_MESH_TRAIN: (arch, layers, seq, steps, (data, model))): falcon-mamba
+# on the 2 × 2 mesh (FSDP on "data"; its in_proj, x_proj, out_proj and the
+# two tables gathered and reduce-scattered through gloo, ≈ 1.4 GB a rank a
+# step), zamba2 at 6 layers (5 mamba2 + 1 mamba2_attn) on the 1 × 4
+# (mamba2's B and C gather and its norm's sum on the backward path, the
+# shared block's gradient; no FSDP traffic)
+SSM_MESH_RANKS, SSM_MESH_BATCH = 4, 2
+SSM_MESH_ONE = (("falcon-mamba-7b", 2), ("zamba2-7b", 6), ("gemma3-4b", 6))
+SSM_MESH_ONE_TRAIN_SEQ = 128
+SSM_MESH_SERVE = (("gemma3-4b", 6, 1280), ("falcon-mamba-7b", 4, 512), ("zamba2-7b", 6, 512))
+SSM_MESH_TRAIN = (("falcon-mamba-7b", 2, 512, 2, (2, 2)), ("zamba2-7b", 6, 256, 1, (1, 4)))
+#: 25.2's planted fault leaves out this falcon-mamba layer's out_proj all-reduce
+SSM_MESH_PLANTED_LAYER = 1
+#: the leaves 25.3 holds: one of each layout (the tables on "model" and
+#: FSDP'd; in_proj cut by segment, and FSDP'd at 2 × 2; the conv, x_proj,
+#: dt_proj, a_log, out_proj on the channels; mamba2's norm_scale, applied
+#: in slices, and the layer norms, replicated)
+SSM_MESH_LEAVES = {
+    "falcon-mamba-7b": ("embed", "out_embed", "ln_f", "stages.0.scan.0.0:mamba1.ln",
+                        "stages.0.scan.0.0:mamba1.ssm.in_proj", "stages.0.scan.0.0:mamba1.ssm.conv_w",
+                        "stages.0.scan.0.0:mamba1.ssm.x_proj", "stages.0.scan.0.0:mamba1.ssm.dt_proj",
+                        "stages.0.scan.0.0:mamba1.ssm.a_log", "stages.0.scan.1.0:mamba1.ssm.conv_b",
+                        "stages.0.scan.1.0:mamba1.ssm.out_proj", "stages.0.scan.1.0:mamba1.ssm.d_skip"),
+    "zamba2-7b": ("embed", "out_embed", "stages.0.scan.0.0:mamba2.ln", "stages.0.scan.0.0:mamba2.ssm.in_proj",
+                  "stages.0.scan.0.0:mamba2.ssm.conv_w", "stages.0.scan.0.0:mamba2.ssm.conv_b",
+                  "stages.0.scan.0.0:mamba2.ssm.norm_scale", "stages.0.scan.0.0:mamba2.ssm.a_log",
+                  "stages.0.scan.0.4:mamba2.ssm.dt_bias", "stages.0.scan.0.5:mamba2_attn.ssm.out_proj",
+                  "shared_attn.attn.wq", "shared_attn.mlp.wo"),
+}
+#: 25.3's planted faults, (what, the Placement method, its fake): x_proj's
+#: sum kept forward with its backward sum left out (mamba1); B and C
+#: gathered with a slicing backward (mamba2)
+SSM_MESH_PLANTS = {
+    "falcon-mamba-7b": ("x_proj's backward sum left out", "psum", lambda self, t: self.reduce(t)),
+    "zamba2-7b": ("B and C gathered with a slicing backward", "gather_summed",
+                  lambda self, t, dim: self.gather_from(t, dim)),
+}
 
 #: odd ids (padding -1, ids ≥ S) of the edge cases, over S = N = 7
 ODD_IDS = (3, -1, 0, 7, 9, 2, -5, 4, 4)
@@ -710,6 +786,8 @@ def matmul_cases(cfg):
               if op == "blocked_matmul"]
     cases += [(m, k, n, "olmoe on a mesh") for op, m, k, n in sorted(lm_mesh_checked_shapes())
               if op == "blocked_matmul"]
+    cases += [key[1:] + ("gemma3 / falcon-mamba / zamba2 on a mesh",)
+              for key in sorted(ssm_mesh_checked_shapes()) if key[0] == "blocked_matmul"]
     return cases
 
 
@@ -1117,6 +1195,24 @@ def check_kernels(torch, kern, graph, lm_cfg, olmoe_cfg, dev):
         elif op == "segment_sum":
             segsum_case(c, olmoe_ids(a, c), b, "olmoe on a mesh")
         torch.cuda.empty_cache()
+
+    # phase 25's: the lookups in a vocabulary shard (3/4 of the ids -1, the
+    # other ranks' tokens, as at m = 4), the Σ by position, and 25.3's
+    # transposes
+    def shard_ids(e, n):
+        if n == e:
+            return torch.arange(e, device=dev, dtype=torch.int32)
+        ids = torch.randint(0, n, (e,), generator=gen, device=dev, dtype=torch.int32)
+        ids[torch.randperm(e, generator=gen, device=dev)[:3 * e // 4]] = -1
+        return ids
+
+    for key in sorted(ssm_mesh_checked_shapes()):
+        op, a, b, c = key[:4]
+        if op == "gather_join":
+            gather_case(b, shard_ids(a, b), c, "gemma3 / falcon-mamba / zamba2 on a mesh")
+        elif op == "segment_sum":
+            segsum_case(c, shard_ids(a, c), b, "gemma3 / falcon-mamba / zamba2 on a mesh")
+        torch.cuda.empty_cache()
     return errs
 
 
@@ -1152,6 +1248,11 @@ def check_ssm_scan(torch, dev):
               z.ssm_state * z.ssm_head_dim)
     train = (FALCON_TRAIN_BATCH, FALCON_TRAIN_SEQ) + LM_SCAN
     worst_err = 0.0
+    # phase 25's, at the ranks' channels (falcon-mamba) and heads (zamba2:
+    # the per-head decay broadcast to N·P lanes), forward and reverse
+    mesh_cases = [(key[1:5], torch.float32, key[5], "on a mesh" + (", reverse" if key[5] else ""))
+                  for key in sorted(ssm_mesh_checked_shapes()) if key[0] == "ssm_scan"]
+    per_head = {shape for shape, *_ in mesh_cases if shape[3] != LM_SCAN[1]}
 
     def inputs(shape, dtype, per_head=False):
         # decays of the LM's range: exp(−dt·A) with dt ∈ (0, 1), A ∈ [1, 16];
@@ -1190,8 +1291,9 @@ def check_ssm_scan(torch, dev):
         ((2, 300, 999, 16), torch.bfloat16, True, "bf16, reverse, ragged lanes"),
         (zamba2, torch.float32, False, "zamba2 prefill shape, the per-head decay broadcast"),
         (train, torch.float32, True, "falcon-mamba training shape, reverse (the VJP's walk)"),
+        *mesh_cases,
     ):
-        a, b = inputs(shape, dtype, per_head=shape == zamba2)
+        a, b = inputs(shape, dtype, per_head=shape == zamba2 or shape in per_head)
         got = ssm_scan_forward(a, b, reverse=reverse)
         want = ssm_scan_ref(a, b, reverse=reverse)
         torch.cuda.synchronize()
@@ -4612,12 +4714,19 @@ def dsv3_decode_checks(torch, model, blocks, db, tokens, make_prefill_step, make
 
 
 def time_ms(torch, fn, iters=20, warmup=3) -> float:
-    """Mean device time of one call, by CUDA events around ``iters`` calls."""
-    for _ in range(warmup):
+    """Mean device time of one call, by CUDA events around ``iters`` calls,
+    or at most LONG_CALL_ITERS where the last warm-up call took
+    LONG_CALL_MS or more."""
+    for _ in range(warmup - 1):
         fn()
-    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    if start.elapsed_time(end) >= LONG_CALL_MS:
+        iters = min(iters, LONG_CALL_ITERS)
     start.record()
     for _ in range(iters):
         fn()
@@ -4705,8 +4814,8 @@ def time_site(torch, op, info, rows_for, seg_for, gen, dev):
     return k_ms, p_ms, l_ms, (m * k + k * n + m * n) * 4, 2 * m * n * k, extra
 
 
-def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, dense, mesh, lm_mesh, errs,
-                 dev):
+def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, dense, mesh, lm_mesh, ssm_mesh,
+                 errs, dev):
     """Per kernel and per main path: each site timed alone at its shapes,
     times the launches of that site in one pass of the path (one GCN step;
     one logistic-regression step; one NNMF step; one KGE step at each
@@ -4716,7 +4825,9 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, d
     one falcon-mamba train step; the dense families' prefill and one decode
     step, one gemma2 train step and the gemma3 endpoint's burst; one rank's
     GCN step on phase 23's 4 × 1 mesh; one rank's olmoe prefill and decode
-    step on phase 24's 1 × 4 mesh and its train step on the 2 × 2 mesh),
+    step on phase 24's 1 × 4 mesh and its train step on the 2 × 2 mesh;
+    one rank's gemma3, falcon-mamba and zamba2 prefill and decode step on
+    phase 25's 1 × 4 mesh and its falcon-mamba and zamba2 train steps),
     summed."""
     from repro_torch.kernels.matmul.ops import blocked_matmul_forward
     from repro_torch.kernels.ssm_scan.ops import ssm_scan_forward
@@ -4858,6 +4969,36 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, d
                            lambda e, s: ids, gen, dev))
         del ids
 
+    # one rank of phase 25: each arch's prefill and one decode step on the 1
+    # × 4 mesh and each train step of 25.3, every kernel signature at its
+    # shard shapes on the ids its first call took (the vocabulary shard's
+    # lookups hold -1), times its calls in the passes; the scan on random
+    # decays and inputs of its shape
+    merged, first = {}, {}
+    for counts, first_ids in ssm_mesh["sites"].values():
+        for key, mult in counts.items():
+            merged[key] = merged.get(key, 0) + mult
+            if key in first_ids and key not in first:
+                first[key] = first_ids[key]
+    for key, mult in sorted(merged.items(), key=lambda kv: str(kv[0])):
+        if key[0] == "ssm_scan":
+            shape, rev = key[1:5], key[5]
+            a = torch.rand(shape, generator=gen, device=dev)
+            b = torch.randn(shape, generator=gen, device=dev)
+            k_ms = time_ms(torch, lambda: ssm_scan_forward(a, b, reverse=rev))
+            p_ms = time_ms(torch, lambda: ssm_scan_ref(a, b, reverse=rev), iters=3, warmup=1)
+            add("lm_mesh_ssm", "ssm_scan", f"ssm_scan {'reverse' if rev else 'forward'} {shape}", mult,
+                k_ms, p_ms, None, 3 * a.numel() * 4, 2 * a.numel())
+            del a, b
+            continue
+        ids = first.get(key)
+        ids = None if ids is None else ids.to(dev)
+        add("lm_mesh_ssm", key[0], f"{key[0]}{key[1:]}", mult,
+            *time_site(torch, key[0], LaunchLog(torch).info(key), lambda e, n: ids,
+                       lambda e, s: ids, gen, dev))
+        del ids
+    torch.cuda.empty_cache()
+
     # phase 9's streamed steps: every site of a wave's lowering once per
     # wave, each on the ids it took in the largest wave (a product takes
     # none)
@@ -4955,6 +5096,7 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, d
                    "zamba2_serve": ssm["zamba2"]["launches"][op],
                    "gcn_mesh": mesh["launches"].get(op, 0),
                    "lm_mesh": lm_mesh["launches"].get(op, 0),
+                   "lm_mesh_ssm": ssm_mesh["launches"].get(op, 0),
                    "falcon_train": ssm["falcon_train"]["launches"][op],
                    **{path: run["launches"][op] for path, run in dense.items()}}
         records.append({
@@ -5000,7 +5142,11 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, d
                     f"phase 23's {MESH_RANKS} × 1 mesh (gcn_mesh: the {MESH_RANKS} ranks' "
                     f"launches summed), phase 24's olmoe request of a prefill and {LM_MESH_DECODE} "
                     f"decode steps on the 1 × {LM_MESH_RANKS} mesh and {LM_MESH_TRAIN_STEPS} train "
-                    f"steps on the 2 × 2 mesh (lm_mesh: the {LM_MESH_RANKS} ranks' launches summed); "
+                    f"steps on the 2 × 2 mesh (lm_mesh: the {LM_MESH_RANKS} ranks' launches summed), "
+                    f"phase 25's gemma3, falcon-mamba and zamba2 requests of a prefill and "
+                    f"{LM_MESH_DECODE} decode steps on the 1 × {SSM_MESH_RANKS} mesh and its "
+                    "falcon-mamba (2 × 2) and zamba2 (1 × 4) train steps (lm_mesh_ssm: the "
+                    f"{SSM_MESH_RANKS} ranks' launches summed); "
                     "ms, plain_ms, bound_ms, library_ms: each site timed alone, times its "
                     "launches in one pass, summed over one GCN step, one logistic-regression "
                     "step, one NNMF step, one KGE step at each width, one prefill, one "
@@ -5017,7 +5163,9 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, d
                     "bursts (whisper_endpoint, qwen2_vl_endpoint), one rank's GCN step on the "
                     "4 × 1 mesh at its shard shapes (gcn_mesh) and one rank's olmoe prefill and "
                     "decode step on the 1 × 4 mesh and train step on the 2 × 2 mesh at their shard "
-                    "shapes (lm_mesh); 'paths' splits them; host_ms: "
+                    "shapes (lm_mesh), one rank's gemma3, falcon-mamba and zamba2 prefill and "
+                    "decode step on the 1 × 4 mesh and its falcon-mamba (2 × 2) and zamba2 (1 × 4) "
+                    "train steps at their shard shapes (lm_mesh_ssm); 'paths' splits them; host_ms: "
                     f"the host's time per call over {HOST_CALLS} calls without a synchronise, "
                     "summed the same way over the sites where it was taken (null: not taken)"),
             "paths": {path: {k: v for k, v in acc.items() if k not in ("bytes_ms", "ops_ms")}
@@ -6429,14 +6577,15 @@ def lm_mesh_tokens(torch, dev, shape, seed, vocab):
 
 
 def lm_mesh_serve(torch, model, db, tokens, fed=None, *, mesh=None, log_=None):
-    """A prefill of ``tokens`` and LM_MESH_DECODE decode steps, fed the
+    """A prefill of ``tokens`` (B, S) and LM_MESH_DECODE decode steps, fed the
     columns of ``fed`` (greedy where None): each step's logits (steps + 1,
     B, V), its host time and its collectives; with ``log_`` (a LaunchLog)
     the kernel calls of the prefill and the first decode step."""
     from repro_torch.launch import collectives
     from repro_torch.serving import make_decode_step, make_prefill_step
 
-    prefill = make_prefill_step(model, LM_MESH_PROMPT + LM_MESH_DECODE, mesh=mesh, db=db)
+    prompt = tokens.shape[1]
+    prefill = make_prefill_step(model, prompt + LM_MESH_DECODE, mesh=mesh, db=db)
     decode = make_decode_step(model, mesh=mesh, db=db)
     rec = {"secs": [], "collectives": []}
 
@@ -6454,7 +6603,7 @@ def lm_mesh_serve(torch, model, db, tokens, fed=None, *, mesh=None, log_=None):
     steps = [logits[:, -1]]
     for i in range(LM_MESH_DECODE):
         tok = logits.argmax(-1).to(torch.int32) if fed is None else fed[:, i:i + 1]
-        logits, caches = timed(decode, tok, caches, LM_MESH_PROMPT + i)
+        logits, caches = timed(decode, tok, caches, prompt + i)
         steps.append(logits[:, -1])
         if i == 0 and log_ is not None:
             rec["pass"] = dict(log_.counts)
@@ -6550,23 +6699,27 @@ def drop_one_model_reduce(collectives, index):
     return undo
 
 
+def plant_method(cls, name, fake):
+    """Plant a fault: ``cls.<name>`` replaced by ``fake``. Returns the undo."""
+    real = getattr(cls, name)
+    setattr(cls, name, fake)
+
+    def undo():
+        setattr(cls, name, real)
+    return undo
+
+
 def plant_norm_overcount(torch, sharding):
     """Plant the norm of a step that counts each replicated leaf on every
     rank that holds it: every rank's Σg² summed over both axes. Returns the
     undo."""
-    real = sharding.Placement.grad_norm
-
     def overcount(self, grads):
         s = sum(torch.sum(g.float() ** 2) for g in grads.values())
         for kind in ("model", "data"):
             s = self.comm.all_reduce(s, kind)
         return torch.sqrt(s)
 
-    sharding.Placement.grad_norm = overcount
-
-    def undo():
-        sharding.Placement.grad_norm = real
-    return undo
+    return plant_method(sharding.Placement, "grad_norm", overcount)
 
 
 def plant_local_reduce_scatter(collectives):
@@ -6721,18 +6874,26 @@ def lm_mesh_rank(rank, path, device):
     return out
 
 
-def lm_mesh_whole(torch, parts, name, shape, specs):
-    """The whole tensor of a named leaf of the 2 × 2 mesh from each rank's
-    shard of it: ``parts`` holds ((data index, model index), {name:
-    shard}) per rank."""
+def lm_mesh_whole(torch, parts, name, shape, specs, segments=None):
+    """The whole tensor of a named leaf from each rank's shard of it:
+    ``parts`` holds ((data index, model index), {name: shard}) per rank and
+    ``segments`` the leaves cut by segment ({name: (dim, widths)};
+    ``Placement.segments``)."""
+    from repro_torch.launch.sharding import shard_index
+
+    sizes = {"data": max(c[0] for c, _ in parts) + 1, "model": max(c[1] for c, _ in parts) + 1}
+    seg = (segments or {}).get(name) if sizes["model"] > 1 else None
     whole = torch.empty(shape)
     for (di, mi), shards in parts:
-        index = []
+        view = whole
         for d, e in enumerate(specs[name]):
-            n = shape[d] // 2 if e in ("data", "model") else shape[d]
-            i = {"data": di, "model": mi}.get(e, 0)
-            index.append(slice(i * n, (i + 1) * n))
-        whole[tuple(index)] = shards[name]
+            if e in sizes and shape[d] % sizes[e] == 0 and not (seg and d == seg[0]):
+                n = shape[d] // sizes[e]
+                view = view.narrow(d, {"data": di, "model": mi}[e] * n, n)
+        if seg:
+            view.index_copy_(seg[0], shard_index(seg[1], sizes["model"], mi), shards[name])
+        else:
+            view.copy_(shards[name])
     return whole
 
 
@@ -6988,6 +7149,577 @@ def lm_mesh_phase(torch, repro_torch, kern, dev, smi, serve_ref):
     return {"serve": r0["sites"]["serve"], "train": r0["sites"]["train"], "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# Phase 25: the window, tied-embedding and SSM kinds on a mesh
+# ---------------------------------------------------------------------------
+
+
+def ssm_mesh_config(arch, layers, **changes):
+    """``arch`` at its published widths in f32 at ``layers`` layers, an SSM
+    family on the scan kernel."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    ssm = {"ssm_pallas": True} if cfg.ssm_state else {}
+    return dataclasses.replace(cfg, n_layers=layers, dtype="float32", **ssm, **changes)
+
+
+def ssm_mesh_kinds(cfg):
+    from repro_torch.models.model import stages_of
+
+    return set().union(*(set(st.pattern) | set(st.tail) for st in stages_of(cfg)))
+
+
+def ssm_mesh_shapes(cfg, b, s, m, d, train):
+    """Every kernel call (op, shape) of one rank's forward over a whole
+    batch of B rows of S tokens on a (d × m) data × model mesh, and with
+    ``train`` of its backward: the lookup in the rank's V/m rows of the
+    table and its transposes, an untied head's V/m columns (the last
+    position in serving; a tied head is an einsum, no site), the rank's
+    columns of each column-parallel product and rows of each row-parallel
+    one (a mamba1 layer's in_proj at its 2·C/m segment columns, x_proj at
+    C/m rows, dt_proj at C/m columns; a mamba2 layer's in_proj at its
+    segments' share, out_proj at its heads' rows; attention on the rank's
+    heads, the MLP on d_ff/m), and the scan on the rank's channels (heads),
+    forward where S > 1 and reverse in training: ("ssm_scan", B/d, S, C,
+    N, reverse)."""
+    bl = b // d
+    bs, dm, vl, di = bl * s, cfg.d_model, cfg.vocab // m, cfg.ssm_expand * cfg.d_model
+    out = {("gather_join", bs, vl, dm), ("segment_sum", bs, dm, bs)}
+    if not cfg.tie_embeddings:
+        out.add(("blocked_matmul", bs if train else bl, dm, vl))
+    if train:
+        out |= {("gather_join", bs, bs, dm), ("segment_sum", bs, dm, vl)}
+    kinds = ssm_mesh_kinds(cfg)
+    scan = None
+
+    def mm(*kn):
+        out.update(("blocked_matmul", bs, k, n) for k, n in kn)
+
+    if "mamba1" in kinds:
+        c, r = di // m, max(1, dm // 16)
+        mm((dm, 2 * c), (c, r + 2 * cfg.ssm_state), (r, c), (c, dm))
+        scan = (bl, s, c, cfg.ssm_state)
+    if kinds & {"mamba2", "mamba2_attn"}:
+        h = di // cfg.ssm_head_dim
+        mm((dm, (2 * di + 2 * cfg.ssm_state + h) // m), (di // m, dm))
+        scan = (bl, s, h // m, cfg.ssm_state * cfg.ssm_head_dim)
+    if kinds & {"attn", "local", "global", "mamba2_attn"}:
+        hd = cfg.hd()
+        q, kv, ff = (w // m if w % m == 0 else w for w in (cfg.n_heads * hd, cfg.n_kv_heads * hd, cfg.d_ff))
+        mm((dm, q), (dm, kv), (q, dm), (dm, ff), (ff, dm))
+    if scan is not None and s > 1:
+        out.add(("ssm_scan",) + scan + (False,))
+        if train:
+            out.add(("ssm_scan",) + scan + (True,))
+    return out
+
+
+def ssm_mesh_checked_shapes():
+    """The kernel calls of phase 25's ranks, which phase 2 checks and the
+    ranks must launch at no other shape: 25.2's prefill and decode steps
+    on the 1 × 4 mesh, 25.3's train steps (falcon-mamba on the 2 × 2 mesh,
+    zamba2 on the 1 × 4)."""
+    b, m = SSM_MESH_BATCH, SSM_MESH_RANKS
+    out = set()
+    for arch, layers, prompt in SSM_MESH_SERVE:
+        cfg = ssm_mesh_config(arch, layers)
+        out |= ssm_mesh_shapes(cfg, b, prompt, m, 1, False) | ssm_mesh_shapes(cfg, b, 1, m, 1, False)
+    for arch, layers, seq, _, (d, m_) in SSM_MESH_TRAIN:
+        out |= ssm_mesh_shapes(ssm_mesh_config(arch, layers), b, seq, m_, d, True)
+    return out
+
+
+def ssm_mesh_predicted(cfg, prompt):
+    """The collectives a rank of the 1 × 4 mesh puts in per prefill and
+    decode step, from the placement (a model all-reduce for the lookup, for
+    each row-parallel product (a mamba1 layer's x_proj and out_proj; a
+    mamba2 layer's out_proj and its norm's Σy²; attention's wo and the
+    MLP's down projection) and a model all-gather of a mamba2 layer's B
+    and C slices, of q, k and v where the heads split mid-head, and of the
+    head's logits), {(what, "op/axis"): (calls, bytes)}."""
+    from repro_torch.models.model import stages_of
+
+    m, b, dm, f = SSM_MESH_RANKS, SSM_MESH_BATCH, cfg.d_model, 4
+    layers = [k for st in stages_of(cfg) for k in st.pattern * st.repeats + st.tail]
+    out = {}
+    for what, s in (("prefill", prompt), ("decode step", 1)):
+        act, ar, ag = b * s * dm * f, [b * s * dm * f], [b * (cfg.vocab // m) * f]
+        for kind in layers:
+            if kind == "mamba1":
+                ar += [b * s * (max(1, dm // 16) + 2 * cfg.ssm_state) * f, act]
+            elif kind in ("mamba2", "mamba2_attn"):
+                ar += [b * s * f, act]
+                ag.append(b * s * 2 * (cfg.ssm_state // m) * f)
+            if kind in ("local", "global", "mamba2_attn"):
+                ar += [act, act]
+                hd = cfg.hd()
+                if cfg.n_heads % m or cfg.n_kv_heads % m:
+                    # heads split mid-head: q, k and v gathered whole
+                    ag += [b * s * w // m * f for w in (cfg.n_heads * hd, cfg.n_kv_heads * hd,
+                                                        cfg.n_kv_heads * hd)]
+        out[what, "all_reduce/model"] = (len(ar), sum(ar))
+        out[what, "all_gather/model"] = (len(ag), sum(ag))
+    return out
+
+
+def ssm_mesh_logit_limit(cfg):
+    """25.2's limit on the 1 × 4 logits against the mesh-less run's, as a
+    share of the largest logit, derived as LM_MESH_LOGIT_LIMIT is: each
+    sum the mesh splits into 4 partials (a row-parallel product's K, a
+    mamba2 norm's Σy² over d_inner) is an f32 sum of K terms in another
+    order, off by about √K·u of its size; the model's such sums add as a
+    random walk, √(Σ K)·u, and the limit allows 10 times that for an
+    error's growth through layers of random weights (the argument of
+    DENSE_TIER_LIMIT). A missing all-reduce leaves 3/4 of a sum out."""
+    from repro_torch.models.model import stages_of
+
+    di, ks = cfg.ssm_expand * cfg.d_model, []
+    for st in stages_of(cfg):
+        for kind in st.pattern * st.repeats + st.tail:
+            if kind in ("mamba1", "mamba2", "mamba2_attn"):
+                ks += [di, di]   # x_proj or the norm's Σy², and out_proj
+            if kind in ("local", "global", "mamba2_attn"):
+                ks += [cfg.n_heads * cfg.hd(), cfg.d_ff]
+    return 10 * math.sqrt(sum(ks)) * U32
+
+
+class ScanShapeLog(LaunchLog):
+    """``LaunchLog`` that also logs ssm_scan's calls, by ("ssm_scan", B, S,
+    C, N, reverse)."""
+
+    def __enter__(self):
+        from repro_torch.kernels.ssm_scan import ops
+
+        super().__enter__()
+        real = ops.ssm_scan_forward
+
+        def call(a, b, reverse=False):
+            key = ("ssm_scan",) + tuple(a.shape) + (bool(reverse),)
+            self.counts[key] = self.counts.get(key, 0) + 1
+            return real(a, b, reverse)
+
+        self.saved.append((ops, "ssm_scan_forward", real))
+        ops.ssm_scan_forward = call
+        return self
+
+    def info(self, key):
+        if key[0] == "ssm_scan":
+            b, s, c, n, reverse = key[1:]
+            return {"batch": b, "seq": s, "channels": c, "state": n, "reverse": reverse}
+        return super().info(key)
+
+
+def ssm_mesh_rank(rank, path, device):
+    """One rank of 25.2-25.5: gemma3-4b, falcon-mamba-7b and zamba2-7b
+    served on the 1 × 4 mesh (twice; falcon-mamba a third time with a
+    layer's out_proj all-reduce dropped), falcon-mamba trained on the 2 ×
+    2 mesh and zamba2 on the 1 × 4 (then a step with each planted fault);
+    the kernel calls of a pass, their launch records against the contract
+    models and the certificates of the lowerings. Returns numbers and host
+    tensors."""
+    import torch
+
+    import repro_torch
+    from repro_torch import kernels as kern
+    from repro_torch.analysis import certify_kernels
+    from repro_torch.analysis.kernelcheck import launch_mismatch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.common import last_launches
+    from repro_torch.launch import collectives, sharding
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.models import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dev = torch.device(device)
+    build.library()
+    blob = torch.load(path)
+    meshes = {(1, SSM_MESH_RANKS): launch_mesh.make_host_mesh(model=SSM_MESH_RANKS, device_type=dev.type),
+              (2, 2): launch_mesh.make_host_mesh(model=2, device_type=dev.type)}
+    out = {"rank": rank, "serve": {}, "train": {}}
+    sites, lowerings = {}, []
+
+    # 25.2: each arch served on the 1 × 4 mesh, fed the mesh-less run's tokens
+    m14 = meshes[1, SSM_MESH_RANKS]
+    for arch, layers, prompt in SSM_MESH_SERVE:
+        cfg = ssm_mesh_config(arch, layers)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        model = build_model(cfg, device=dev, seed=0, mesh=m14)
+        torch.cuda.synchronize()
+        rec = {"build_s": time.perf_counter() - t0,
+               "param_bytes": sum(p.numel() * p.element_size() for p in model.parameters())}
+        db = repro_torch.Database(dev, mesh=m14)
+        tokens, fed = blob[arch]["tokens"].to(dev), blob[arch]["fed"].to(dev)
+        kern.reset_launch_counts()
+        with ScanShapeLog(torch) as log_:
+            serve = lm_mesh_serve(torch, model, db, tokens, fed, log_=log_)
+            rec["launches"] = kern.launch_counts()
+            again = lm_mesh_serve(torch, model, db, tokens, fed)
+            if cfg.ssm_state and "mamba1" in ssm_mesh_kinds(cfg):
+                # the model all-reduces of a falcon-mamba pass: the lookup's,
+                # then each layer's x_proj and out_proj
+                undo = drop_one_model_reduce(collectives, 2 + 2 * SSM_MESH_PLANTED_LAYER)
+                try:
+                    rec["planted"] = lm_mesh_serve(torch, model, db, tokens, fed)["logits"].cpu()
+                finally:
+                    undo()
+        rec.update(logits=serve["logits"].cpu(), secs=serve["secs"], collectives=serve["collectives"],
+                   again=torch.equal(again["logits"], serve["logits"]), warm_secs=again["secs"],
+                   peak=torch.cuda.max_memory_allocated(dev), shapes=sorted(log_.counts))
+        layer0 = model.stages[0]["scan"][0] if len(model.stages[0]["scan"]) else model.stages[0]["tail"][0]
+        rec["shard_shapes"] = {n: tuple(p.shape) for n, p in layer0.named_parameters() if n.startswith("0:")}
+        out["serve"][arch] = rec
+        sites["serve", arch] = (serve["pass"], {k: v.cpu() for k, v in log_.ids.items()})
+        lowerings += list(model.placement._twin(db)._compiled_refs)
+        del model, serve, again, db
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # 25.3: falcon-mamba on the 2 × 2 mesh and zamba2 on the 1 × 4, each a
+    # plain run and one with its planted fault
+    for arch, layers, seq, steps, mesh_shape in SSM_MESH_TRAIN:
+        cfg = ssm_mesh_config(arch, layers, remat=False)
+        mesh = meshes[mesh_shape]
+        db = repro_torch.Database(dev, mesh=mesh)
+        batch = {k: v.to(dev) for k, v in blob[arch]["batch"].items()}
+        leaves = SSM_MESH_LEAVES[arch]
+
+        def trained(n, log_=None):
+            model = build_model(cfg, device=dev, seed=0, mesh=mesh)
+            rec = lm_mesh_train(torch, model, db, batch, steps=n, leaves=leaves, log_=log_)
+            rec["grads"] = rec["grads"][:1]   # the parent holds step 1's
+            rec["coords"] = (model.placement.index("data"), model.placement.index("model"))
+            rec["param_bytes"] = sum(p.numel() * p.element_size() for p in model.parameters())
+            rec["segments"] = {k: v for k, v in model.placement.segments.items() if k in leaves}
+            rec["lowerings"] = list(model.placement._twin(db)._compiled_refs)
+            return rec
+
+        torch.cuda.reset_peak_memory_stats(dev)
+        kern.reset_launch_counts()
+        with ScanShapeLog(torch) as log_:
+            rec = trained(steps, log_)
+            rec["launches"] = kern.launch_counts()
+        rec["peak"] = torch.cuda.max_memory_allocated(dev)
+        rec["shapes"] = sorted(log_.counts)
+        sites["train", arch] = (rec.pop("pass"), {k: v.cpu() for k, v in log_.ids.items()})
+        lowerings += rec.pop("lowerings")
+        what, method, fake = SSM_MESH_PLANTS[arch]
+        undo = plant_method(sharding.Placement, method, fake)
+        try:
+            bad = trained(1)
+        finally:
+            undo()
+        rec["planted"] = {"what": what, "grads": bad["grads"][0]}
+        out["train"][arch] = rec
+        del bad, db
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # 25.5: every kernel signature of the passes launched alone at its
+    # site, its launch record against its contract model; the lowerings of
+    # the mesh steps at shard shapes, certified
+    if rank == 0:
+        bad, compared, seen = [], 0, set()
+        for counts, _ in sites.values():
+            for key in counts:
+                if key in seen:
+                    continue
+                seen.add(key)
+                info = dict(ScanShapeLog(torch).info(key), dtype="float32")
+                launched, aligned = record_call(torch, kern, key[0], info, dev)
+                record = last_launches() if launched else ()
+                compared += len(record)
+                site = dict(info, dtype=torch.float32)
+                miss = launch_mismatch(key[0], site, record, **(
+                    {} if key[0] in ("blocked_matmul", "ssm_scan") else {"aligned": aligned}))
+                if miss:
+                    bad.append(miss)
+        reports = [certify_kernels(c) for c in lowerings if getattr(c, "lowered", None) is not None]
+        out["records"] = (len(seen), compared, bad)
+        out["certified"] = (len(reports), all(r.ok for r in reports))
+        out["sites"] = sites
+    torch.cuda.synchronize()
+    return out
+
+
+def ssm_mesh_one_rank(torch, repro_torch, kern, dev, smi):
+    """25.1: each of SSM_MESH_ONE served (a prefill, greedy decode steps)
+    and trained one step, mesh-less and on a one-rank NCCL group's
+    ("model",) mesh: bit for bit. Returns 25.2's mesh-less runs, made on
+    the same models first ({arch: host tensors and times})."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import collectives
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.models import build_model
+
+    refs, runs = {}, []
+    b = SSM_MESH_BATCH
+    one = repro_torch.Database(dev)
+    for arch, layers in SSM_MESH_ONE:
+        cfg = ssm_mesh_config(arch, layers, remat=False)
+        model = build_model(cfg, device=dev, seed=0)
+        for s_arch, s_layers, prompt in SSM_MESH_SERVE:
+            if s_arch != arch:
+                continue
+            # 25.2's mesh-less run, where its depth is 25.1's; else on a
+            # model of its own
+            ref_model = model if s_layers == layers else build_model(
+                ssm_mesh_config(arch, s_layers), device=dev, seed=0)
+            tokens = lm_mesh_tokens(torch, dev, (b, prompt), 30, cfg.vocab)
+            fed = lm_mesh_tokens(torch, dev, (b, LM_MESH_DECODE), 31, cfg.vocab)
+            rec = lm_mesh_serve(torch, ref_model, one, tokens, fed)
+            warm = lm_mesh_serve(torch, ref_model, one, tokens, fed)
+            refs[arch] = {"tokens": tokens.cpu(), "fed": fed.cpu(), "logits": rec["logits"].cpu(),
+                          "secs": warm["secs"]}
+            del ref_model, rec, warm
+        tokens = lm_mesh_tokens(torch, dev, (b, LM_MESH_PROMPT), 24, cfg.vocab)
+        short = lm_mesh_tokens(torch, dev, (b, SSM_MESH_ONE_TRAIN_SEQ), 25, cfg.vocab)
+        batch = {"tokens": short, "labels": torch.roll(short, -1, 1)}
+        leaves = tuple(n for n, _ in model.named_parameters())[:8]
+        ref = lm_mesh_serve(torch, model, one, tokens)
+        ref_train = lm_mesh_train(torch, model, one, batch, steps=1, leaves=leaves)
+        runs.append((arch, cfg, tokens, batch, leaves, ref, ref_train, dict(model.named_parameters())))
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ssm_mesh_")
+    try:
+        launch_mesh.init_ranks("nccl", 0, 1, os.path.join(tmp, "nccl"), device=torch.device("cuda", 0))
+        try:
+            db = repro_torch.Database(dev, mesh="host")
+            backend = dist.get_backend()
+            for arch, cfg, tokens, batch, leaves, ref, ref_train, ref_params in runs:
+                kern.reset_launch_counts()
+                collectives.reset_collectives()
+                again = build_model(cfg, device=dev, seed=0)
+                got = lm_mesh_serve(torch, again, db, tokens, mesh=db.mesh)
+                got_train = lm_mesh_train(torch, again, db, batch, steps=1, leaves=leaves)
+                launches, coll = kern.launch_counts(), collectives.last_collectives()
+                equal = {
+                    "logits": torch.equal(got["logits"], ref["logits"]),
+                    "loss": got_train["losses"] == ref_train["losses"],
+                    "norm": got_train["norms"] == ref_train["norms"],
+                    "grads": all(torch.equal(got_train["grads"][0][k], ref_train["grads"][0][k])
+                                 for k in leaves),
+                    "params": all(torch.equal(p, ref_params[n]) for n, p in again.named_parameters()),
+                }
+                log(f"  {arch} at {cfg.n_layers} layers: prefill {ref['secs'][0] * 1e3:.2f} ms mesh-less, "
+                    f"{got['secs'][0] * 1e3:.2f} ms on the mesh; train step {ref_train['secs'][0]:.3f} s "
+                    f"and {got_train['secs'][0]:.3f} s on {smi}; collectives {coll or 'none'}; launches "
+                    f"{launches}; bit-equal to the mesh-less steps: {equal}")
+                if not all(equal.values()):
+                    raise AssertionError(f"{arch}: the one-rank mesh steps are not the mesh-less steps")
+                want = GCN_KERNELS + (("ssm_scan",) if cfg.ssm_state else ())
+                if not all(launches[op] > 0 for op in want):
+                    raise AssertionError(f"{arch}: a kernel of the one-rank mesh steps never launched")
+                del again, got, got_train
+                gc.collect()
+                torch.cuda.empty_cache()
+            log(f"  backend {backend}, mesh {db.mesh}")
+        finally:
+            dist.destroy_process_group()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return refs
+
+
+def ssm_mesh_phase(torch, repro_torch, kern, dev, smi):
+    """Phase 25 (module docstring): 25.1 in this process on a one-rank NCCL
+    group, with 25.2's mesh-less runs; 25.3's mesh-less steps; 25.2-25.5 in
+    SSM_MESH_RANKS new processes that share the card over gloo
+    (``ssm_mesh_rank``). Returns the sites and launches of a pass for
+    phase 8."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.launch.sharding import param_pspecs
+    from repro_torch.models import build_model
+    from repro_torch.models.model import param_shapes
+
+    b = SSM_MESH_BATCH
+    log(f"  card: {smi}")
+    t0 = time.perf_counter()
+    log(f"  25.1 {', '.join(f'{a} at {n} layers' for a, n in SSM_MESH_ONE)} on a one-rank NCCL group on "
+        f"cuda:0: a prefill of {b} x {LM_MESH_PROMPT} tokens, {LM_MESH_DECODE} greedy decode steps, a "
+        f"train step on {b} x {SSM_MESH_ONE_TRAIN_SEQ} tokens")
+    serve_refs = ssm_mesh_one_rank(torch, repro_torch, kern, dev, smi)
+    log(f"  25.1 and 25.2's mesh-less runs: {time.perf_counter() - t0:.1f} s")
+
+    # 25.3's mesh-less steps, here before the ranks start (the card holds
+    # either, never both)
+    t1 = time.perf_counter()
+    blob, train_refs = {a: {k: v for k, v in r.items() if k in ("tokens", "fed")}
+                        for a, r in serve_refs.items()}, {}
+    for arch, layers, seq, steps, _ in SSM_MESH_TRAIN:
+        cfg = ssm_mesh_config(arch, layers, remat=False)
+        tokens = lm_mesh_tokens(torch, dev, (b, seq), 32, cfg.vocab)
+        batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+        model = build_model(cfg, device=dev, seed=0)
+        train_refs[arch] = lm_mesh_train(torch, model, repro_torch.Database(dev), batch, steps=steps,
+                                         leaves=SSM_MESH_LEAVES[arch])
+        blob.setdefault(arch, {})["batch"] = {k: v.cpu() for k, v in batch.items()}
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"  25.3's mesh-less {arch} steps: losses {train_refs[arch]['losses']}, global norms "
+            f"{train_refs[arch]['norms']}")
+    log(f"  {time.perf_counter() - t1:.1f} s")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ssm_mesh_")
+    try:
+        path = os.path.join(tmp, "ssm.pt")
+        torch.save(blob, path)
+        t2 = time.perf_counter()
+        ranks = launch_mesh.start_ranks(ssm_mesh_rank, SSM_MESH_RANKS, backend="gloo", device="cuda:0",
+                                        args=(path, "cuda:0"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"  {SSM_MESH_RANKS} ranks started and run in {time.perf_counter() - t2:.1f} s")
+    r0 = ranks[0]
+
+    log(f"  25.2 on the 1 x {SSM_MESH_RANKS} mesh, {SSM_MESH_RANKS} gloo ranks sharing cuda:0: a prefill "
+        f"of {b} prompts and {LM_MESH_DECODE} decode steps fed seeded tokens")
+    for arch, layers, prompt in SSM_MESH_SERVE:
+        cfg = ssm_mesh_config(arch, layers)
+        ref, rec = serve_refs[arch], r0["serve"][arch]
+        limit = ssm_mesh_logit_limit(cfg)
+        scale = float(ref["logits"].abs().max())
+        err = float((rec["logits"] - ref["logits"]).abs().max()) / scale
+        log(f"  {arch} at {layers} layers, {b} x {prompt} tokens (kinds {sorted(ssm_mesh_kinds(cfg))}, "
+            f"window {cfg.window}, tied {cfg.tie_embeddings}); rank 0's layer-0 shards "
+            f"{rec['shard_shapes']}")
+        for r in ranks:
+            x = r["serve"][arch]
+            log(f"  rank {r['rank']}: shards {x['param_bytes']} bytes (built in {x['build_s']:.2f} s), peak "
+                f"{x['peak']} bytes; prefill {x['secs'][0] * 1e3:.2f} ms (first call), "
+                f"{x['warm_secs'][0] * 1e3:.2f} ms (second run); decode steps 2-{LM_MESH_DECODE} "
+                f"{[round(s * 1e3, 2) for s in x['warm_secs'][2:]]} ms (second run)")
+            if not torch.equal(x["logits"], rec["logits"]):
+                raise AssertionError(f"{arch}: rank {r['rank']}'s logits differ from rank 0's")
+        predicted = ssm_mesh_predicted(cfg, prompt)
+        for i, what in ((0, "prefill"), (1, "decode step")):
+            for name, c in sorted(rec["collectives"][i].items()):
+                p = predicted.get((what, name))
+                log(f"  {what} collective {name}: {c['calls']} calls, {c['bytes']} bytes per rank "
+                    f"(predicted: {p[0] if p else '-'} calls, {p[1] if p else '-'} bytes)")
+        log(f"  mesh-less prefill {ref['secs'][0] * 1e3:.2f} ms, decode steps 2-{LM_MESH_DECODE} "
+            f"{[round(s * 1e3, 2) for s in ref['secs'][2:]]} ms (one process, its second run)")
+        log(f"  every rank's logits bit-equal to rank 0's: True; a second run bit-equal: {rec['again']}; "
+            f"logits against the mesh-less run: max |Δ| / max |logit| = {err:.3e} (limit {limit:.3e})")
+        if err > limit or not rec["again"]:
+            raise AssertionError(f"{arch}: the 1 x 4 mesh's logits differ from the mesh-less run's")
+        if "planted" in rec:
+            planted = float((rec["planted"] - ref["logits"]).abs().max()) / scale
+            log(f"  planted (layer {SSM_MESH_PLANTED_LAYER}'s out_proj all-reduce left out): {planted:.3e}, "
+                f"{planted / limit:.1f} x the limit")
+            if planted <= 100 * limit:
+                raise AssertionError("the logit limit passes a missing all-reduce")
+        want = GCN_KERNELS + (("ssm_scan",) if cfg.ssm_state else ())
+        for op in want:
+            if rec["launches"][op] <= 0:
+                raise AssertionError(f"{arch}: {op} never launched on the 1 x 4 mesh")
+
+    for arch, layers, seq, steps, (d, m) in SSM_MESH_TRAIN:
+        cfg = ssm_mesh_config(arch, layers, remat=False)
+        ref = train_refs[arch]
+        log(f"  25.3 {arch} at {layers} layers on the {d} x {m} mesh: {steps} Adam step(s) (lr {LM_MESH_LR}, "
+            f"grad_clip {LM_MESH_CLIP}, no remat) on {b} x {seq} tokens")
+        shapes = param_shapes(cfg)
+        specs = param_pspecs(shapes, {"data": d, "model": m})
+        t = r0["train"][arch]
+        for r in ranks:
+            rt = r["train"][arch]
+            log(f"  rank {r['rank']} at (data, model) {rt['coords']}: shards {rt['param_bytes']} bytes, peak "
+                f"{rt['peak']} bytes; steps {[round(s, 3) for s in rt['secs']]} s; the last step's "
+                f"collectives (calls, bytes) "
+                f"{ {k: (v['calls'], v['bytes']) for k, v in sorted(rt['collectives'][-1].items())} }")
+            if rt["losses"] != t["losses"] or rt["norms"] != t["norms"]:
+                raise AssertionError(f"rank {r['rank']}'s losses or norms differ from rank 0's")
+        if d > 1:
+            fsdp = [k for k, sp in specs.items() if "data" in sp]
+            local = sum(math.prod(shapes[k]) // (m if "model" in specs[k] else 1) // d for k in fsdp)
+            log(f"  predicted from the specs: {len(fsdp)} FSDP all-gathers/data of {4 * local} bytes and "
+                f"{len(fsdp)} reduce-scatters/data of {4 * d * local} bytes a step")
+        dloss = max(abs(x - y) / abs(y) for x, y in zip(t["losses"], ref["losses"]))
+        dnorm = max(abs(x - y) / y for x, y in zip(t["norms"], ref["norms"]))
+        log(f"  losses {t['losses']} (mesh-less {ref['losses']}): rel diff {dloss:.3e} (limit "
+            f"{FALCON_LOSS_LIMIT}); global norms {t['norms']} (mesh-less {ref['norms']}): rel diff "
+            f"{dnorm:.3e} (limit {LM_MESH_NORM_LIMIT})")
+        grad_parts = [(r["train"][arch]["coords"], r["train"][arch]["grads"][0]) for r in ranks]
+        param_parts = [(r["train"][arch]["coords"], r["train"][arch]["params"]) for r in ranks]
+        bad_parts = [(r["train"][arch]["coords"], r["train"][arch]["planted"]["grads"]) for r in ranks]
+        segs = t["segments"]
+        planted = {}
+        for name in SSM_MESH_LEAVES[arch]:
+            # assembled on the host, compared on the card (free again)
+            def whole(parts):
+                return lm_mesh_whole(torch, parts, name, shapes[name], specs, segs).to(dev)
+
+            want = ref["grads"][0][name].to(dev)
+            gerr = rel_err(whole(grad_parts), want)
+            dp = (whole(param_parts) - ref["params"][name].to(dev)).abs()
+            # Adam's step is ≈ lr·sign(m) where the moments are clear of the
+            # gradients' rounding; where a step's gradient lies within it (or
+            # the moments cancel), f32 rounding moves the step by up to lr:
+            # the share is taken where every step's gradient is at least
+            # 1e-4 of its leaf's largest (the CPU tests' criterion)
+            clear = torch.stack([g[name].to(dev).abs() >= 1e-4 * g[name].abs().max()
+                                 for g in ref["grads"]]).all(0)
+            far = float((dp[clear] > 1e-3 * LM_MESH_LR).double().mean())
+            beyond = dp > 1e-3 * LM_MESH_LR
+            planted[name] = rel_err(whole(bad_parts), want)
+            log(f"  {name} {specs[name]}{' cut by segment' if name in segs else ''}: step-1 gradient rel err "
+                f"{gerr:.3e} (limit {FALCON_GRAD_LIMIT}); final values max |Δ| {float(dp.max()):.3e} (limit "
+                f"{2 * steps * LM_MESH_LR:g}), beyond 1e-3·lr: {int(beyond.sum())} of {dp.numel()}, "
+                f"{int((beyond & clear).sum())} of the {int(clear.sum())} with clear gradients, a share of "
+                f"{far:.2e} (limit 1e-3)")
+            if gerr > FALCON_GRAD_LIMIT or float(dp.max()) > 2 * steps * LM_MESH_LR or far > 1e-3:
+                raise AssertionError(f"25.3's {name} differs from the mesh-less steps")
+            del want, dp, clear, beyond
+        torch.cuda.empty_cache()
+        if dloss > FALCON_LOSS_LIMIT or dnorm > LM_MESH_NORM_LIMIT:
+            raise AssertionError("25.3's losses or norms differ from the mesh-less steps")
+        log(f"  planted ({t['planted']['what']}): step-1 gradient rel errs "
+            f"{ {n: f'{v:.2e}' for n, v in planted.items()} } (limit {FALCON_GRAD_LIMIT})")
+        if max(planted.values()) <= 10 * FALCON_GRAD_LIMIT:
+            raise AssertionError(f"25.3's limits pass a planted fault ({t['planted']['what']})")
+        for op in GCN_KERNELS + ("ssm_scan",):
+            if t["launches"][op] <= 0:
+                raise AssertionError(f"{op} never launched in {arch}'s mesh train step")
+
+    log("  25.5 the kernel sites of a pass at the shard shapes")
+    checked = ssm_mesh_checked_shapes()
+    seen = {k for r in ranks for part in ("serve", "train") for x in r[part].values() for k in x["shapes"]}
+    off = sorted(seen - checked)
+    if off:
+        raise AssertionError(f"kernel calls at shapes phase 2 did not check: {off[:4]}")
+    sites_n, compared, bad = r0["records"]
+    n_cert, cert_ok = r0["certified"]
+    log(f"  {len(seen)} shard-shape signatures, all among phase 2's checked shapes; launch records of "
+        f"{sites_n} sites, {compared} launches held to the contract models: {len(bad)} mismatches "
+        f"{bad[:3]}; certify_kernels over {n_cert} lowerings of the mesh steps: ok {cert_ok}")
+    if bad or not cert_ok:
+        raise AssertionError("the mesh steps' kernel sites do not certify")
+    launches = {op: sum(x["launches"][op] for r in ranks for part in ("serve", "train")
+                        for x in r[part].values())
+                for op in GCN_KERNELS + ("ssm_scan",)}
+    return {"sites": r0["sites"], "launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -7221,11 +7953,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"  phase 24: {time.perf_counter() - t0:.1f} s")
 
+    # phase 25 runs after phase 24, before phase 8, which times its sites too
+    log("phase 25: the window, tied-embedding and SSM kinds on a mesh")
+    t0 = time.perf_counter()
+    ssm_mesh = ssm_mesh_phase(torch, repro_torch, kern, dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  phase 25: {time.perf_counter() - t0:.1f} s")
+
     log("phase 8: timings at the shapes of the main paths")
     log(smi)
     t0 = time.perf_counter()
     records = timing_phase(torch, graph, {"sites": sites, "launches": launches}, logreg, nnmf, kge,
-                           lm, oocore, olmoe, ssm, dense, mesh, lm_mesh, errs, dev)
+                           lm, oocore, olmoe, ssm, dense, mesh, lm_mesh, ssm_mesh, errs, dev)
     log(f"  phase 8: {time.perf_counter() - t0:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)

@@ -11,7 +11,7 @@ _LAZY = {
     "DP": "sharding", "P": "sharding", "Placement": "sharding", "batch_pspecs": "sharding",
     "cache_pspecs": "sharding", "catalog_shardings": "sharding", "coo_pspecs": "sharding",
     "hint": "sharding", "param_pspec": "sharding", "param_pspecs": "sharding",
-    "shard_params": "sharding", "to_shardings": "sharding",
+    "to_shardings": "sharding",
 }
 
 __all__ = sorted(_LAZY)

@@ -24,12 +24,19 @@ XLA's partitioner places the reference's collectives; the port has none,
 so a ``Placement`` runs its model explicitly: each rank holds its shards
 (``shard``, or a model built on the mesh), computes on them, and calls
 the collectives of ``launch/collectives.py`` where the partitioner would
-put them (``models/``: the attention and MLP column- then row-parallel,
-the experts split over the model ranks, the vocabulary-parallel embedding
-and head, the FSDP gathers; ``train/trainer.py``: the data-parallel
-gradient sums and the global norm). A mesh's specs are given as ``P``
-(``core/planner.py``); ``to_shardings`` turns them into DTensor
-placements.
+put them (``models/``: the attention (full or windowed) and MLP column-
+then row-parallel, the experts split over the model ranks, the SSM
+layers on the rank's channels or heads with the scan local, the
+vocabulary-parallel embedding and head, tied or not, the FSDP gathers;
+``train/trainer.py``: the data-parallel gradient sums and the global
+norm). A mesh's specs are given as ``P`` (``core/planner.py``);
+``to_shardings`` turns them into DTensor placements.
+
+The SSM layers' ``in_proj`` (and ``mamba2``'s conv) concatenate segments
+on the dimension the rules put on "model"; a rank's shard there is its
+slice of each segment (``segment_widths``, ``shard_index``), not the
+spec's contiguous block, which would hand one rank all of x and another
+all of z (ROADMAP.md §3).
 """
 
 from __future__ import annotations
@@ -81,7 +88,7 @@ _MOE_3D = ("wi_gate", "wi_up", "wo")  # (E, ·, ·): experts on "model"
 DP = ("pod", "data")  # batch axes superset; hint() drops absent names
 
 #: the block kinds a ``Placement`` runs on a mesh
-MESH_KINDS = ("attn", "moe")
+MESH_KINDS = ("attn", "moe", "local", "global", "mamba1", "mamba2", "mamba2_attn")
 
 
 def axis_sizes(mesh) -> Dict[str, int]:
@@ -346,14 +353,17 @@ def _cut(t: torch.Tensor, spec, sizes: Mapping[str, int], comm) -> torch.Tensor:
     return t if shard is t else shard.clone(memory_format=torch.contiguous_format)
 
 
-def shard_params(params: Mapping[str, torch.Tensor], specs: Mapping[str, P], mesh) -> Dict[str, torch.Tensor]:
-    """The rank's shard of each whole parameter of ``params`` by ``specs``
-    on ``mesh`` (a DeviceMesh; the rank is the caller's)."""
-    from .collectives import comm_for
-
-    comm = comm_for(mesh, MeshGeometry.from_mesh(mesh))
-    sizes = axis_sizes(mesh)
-    return {k: _cut(v, specs[k], sizes, comm) for k, v in params.items()}
+def shard_index(widths: Sequence[int], m: int, r: int) -> torch.Tensor:
+    """The positions, in a dimension that concatenates segments of
+    ``widths``, of rank ``r``'s shard among ``m`` ranks that each own a
+    slice of every segment: rank r's slice of each segment, in segment
+    order."""
+    out, off = [], 0
+    for w in widths:
+        n = w // m
+        out.append(torch.arange(off + r * n, off + (r + 1) * n))
+        off += w
+    return torch.cat(out)
 
 
 def hint(x: torch.Tensor, *spec, whole: Optional[Sequence[int]] = None) -> torch.Tensor:
@@ -382,18 +392,57 @@ def hint(x: torch.Tensor, *spec, whole: Optional[Sequence[int]] = None) -> torch
     return x
 
 
+def _block_kind(name: str, stages) -> Optional[str]:
+    """The block kind of the layer parameter ``name`` belongs to (None
+    outside the stages): a scan block's name carries it after the ":", a
+    remainder layer's is its stage's ``tail`` entry."""
+    parts = name.split(".")
+    if parts[0] != "stages":
+        return None
+    if parts[2] == "scan":
+        return parts[4].split(":", 1)[1]
+    return stages[int(parts[1])].tail[int(parts[3])]
+
+
+def segment_widths(cfg, name: str, kind: Optional[str]) -> Optional[Tuple[int, ...]]:
+    """The segments that the model-axis dimension of parameter ``name`` (of
+    a ``kind`` block) concatenates, each split over the model ranks on its
+    own (None for a leaf split in one block): a ``mamba1`` layer's
+    ``in_proj`` emits [x | z]; a ``mamba2`` layer's emits [z | x | B | C |
+    dt], and its ``conv_w``/``conv_b`` convolve [x | B | C]. A rank owns
+    its channels (heads) of x, z and dt and its slice of B and C."""
+    leaf = _leaf_name(name)
+    di = cfg.ssm_expand * cfg.d_model
+    if kind == "mamba1" and leaf == "in_proj":
+        return (di, di)
+    if kind in ("mamba2", "mamba2_attn"):
+        n = cfg.ssm_state
+        if leaf == "in_proj":
+            return (di, di, n, n, di // cfg.ssm_head_dim)
+        if leaf in ("conv_w", "conv_b"):
+            return (di, n, n)
+    return None
+
+
 class Placement:
     """A language model of ``cfg`` on ``mesh`` (a DeviceMesh of the default
     process group's ranks: ``("model",)`` or ``("data", "model")``): the
     specs of its parameters, this rank's coordinates, and the collectives
-    its step calls. A block kind other than ``attn`` and ``moe``, an
-    encoder, a vision prefix, tied embeddings or a ``pod`` axis raise
-    ``NotImplementedError`` (ROADMAP.md).
+    its step calls. The kinds of ``MESH_KINDS`` are placed, tied
+    embeddings included; an ``mla``/``mla_moe`` or ``enc``/``dec`` layer,
+    a vision prefix or a ``pod`` axis raise ``NotImplementedError``
+    (ROADMAP.md).
 
     ``shard`` cuts the rank's shards of whole parameters; the model's
     entry points (``Model.prefill(..., place=)``) run on those within
     ``active()``, whose relational products run in a mesh-less twin of the
-    ambient session: on local shards each product is the rank's own."""
+    ambient session: on local shards each product is the rank's own.
+
+    The specs are the reference's. Where a leaf's model-axis dimension
+    concatenates segments (``segment_widths``: the SSM layers' ``in_proj``
+    and ``mamba2``'s conv), the rank's shard is its slice of each segment,
+    not the spec's contiguous block: ``cut``, ``local_shape``, ``whole``
+    and the FSDP ``gather_tree`` all follow that cut (ROADMAP.md §3)."""
 
     def __init__(self, cfg, mesh):
         from repro_torch.models.model import param_shapes, stages_of
@@ -401,8 +450,9 @@ class Placement:
         from .collectives import comm_for
 
         sizes = axis_sizes(mesh)
+        stages = stages_of(cfg)
         kinds = set()
-        for st in stages_of(cfg):
+        for st in stages:
             kinds |= set(st.pattern) | set(st.tail)
         off = sorted(kinds - set(MESH_KINDS))
         what = [f"block kind(s) {off}"] if off else []
@@ -410,14 +460,23 @@ class Placement:
             what.append("an encoder")
         if cfg.vis_seq or cfg.mrope_sections:
             what.append("the vision prefix")
-        if cfg.tie_embeddings:
-            what.append("tied embeddings")
         if "pod" in sizes:
             what.append("a pod axis")
         if what:
             raise NotImplementedError(
                 f"{cfg.name} on a mesh: {', '.join(what)} not placed yet; this slice places "
                 f"the {'/'.join(MESH_KINDS)} kinds (ROADMAP.md, queue 1)")
+        # an SSM layer runs on its channels (heads) and its slice of the
+        # state: they must split over the model ranks
+        di, need = cfg.ssm_expand * cfg.d_model, []
+        if "mamba1" in kinds:
+            need.append((di, "channels"))
+        if kinds & {"mamba2", "mamba2_attn"}:
+            need += [(di // cfg.ssm_head_dim, "SSM heads"), (cfg.ssm_state, "state columns")]
+        bad = [f"{n} {w}" for n, w in need if n % sizes.get("model", 1)]
+        if bad:
+            raise ValueError(f"{cfg.name} on a mesh: {', '.join(bad)} do not split over "
+                             f"{sizes['model']} model ranks")
         self.cfg = cfg
         self.mesh = mesh
         self.sizes = sizes
@@ -426,6 +485,12 @@ class Placement:
         # FSDP needs a "data" axis; a model-only mesh gets the tensor-parallel
         # rules, as the reference's steps ask for them
         self.specs = param_pspecs(self.shapes, sizes, fsdp="data" in sizes)
+        #: name → (dim, segment widths) of the leaves cut by segment
+        self.segments: Dict[str, Tuple[int, Tuple[int, ...]]] = {}
+        for name, spec in self.specs.items():
+            widths = segment_widths(cfg, name, _block_kind(name, stages))
+            if widths is not None and "model" in spec:
+                self.segments[name] = (tuple(spec).index("model"), widths)
         self._twins: Dict[int, Any] = {}
 
     # -- coordinates ---------------------------------------------------------
@@ -466,7 +531,28 @@ class Placement:
         if shape != self.shapes[name]:
             raise ValueError(f"{name}: shape {shape} is neither whole {self.shapes[name]} "
                              f"nor the rank's shard {self.local_shape(name)}")
-        return _cut(t, self.specs[name], self.sizes, self.comm)
+        seg = self.segments.get(name)
+        if seg is None or self.size("model") == 1:
+            return _cut(t, self.specs[name], self.sizes, self.comm)
+        dim, widths = seg
+        idx = shard_index(widths, self.size("model"), self.index("model")).to(t.device)
+        spec = tuple(None if d == dim else e for d, e in enumerate(self.specs[name]))
+        return _cut(t.index_select(dim, idx), spec, self.sizes, self.comm)
+
+    @torch.no_grad()
+    def whole(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """The whole parameter ``name`` from the ranks' shards of it (``t``
+        the caller's; forward-only collectives, every rank calls it)."""
+        m = self.size("model")
+        for d, e in enumerate(self.specs[name]):
+            kind = self.kind_of(e, self.shapes[name][d])
+            if kind is None:
+                continue
+            t = self.comm.all_gather(t.contiguous(), d, kind)
+            if kind == "model" and name in self.segments:
+                order = torch.cat([shard_index(self.segments[name][1], m, r) for r in range(m)])
+                t = t.index_select(d, torch.argsort(order).to(t.device))
+        return t
 
     def shard(self, params: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """``cut`` of every parameter of ``params`` (whole or the rank's)."""
@@ -504,7 +590,11 @@ class Placement:
         """The global 2-norm of the whole gradient from the ranks' shards:
         each leaf's Σg² summed, in order, with the others split over the
         same groups, then each group's sums added over its ranks — a leaf
-        replicated over a group counted once, not once per rank."""
+        replicated over a group counted once, not once per rank. A leaf
+        cut by segment is split all the same (each rank's shard is a
+        disjoint part of it); a replicated leaf that a rank uses in part
+        (``mamba2``'s ``norm_scale``) has its whole gradient on every rank
+        already (``scatter_to``'s backward)."""
         parts = {kinds: 0 for kinds in ((), ("model",), ("data",), ("data", "model"))}
         for k, g in grads.items():
             kinds = self.sharded_kinds(k)
@@ -540,6 +630,23 @@ class Placement:
         from .collectives import scatter_to
 
         return scatter_to(t, self.comm, dim, "model")
+
+    def psum(self, t):
+        """Σ of the model ranks' partials, forward and backward: a sum that
+        every rank uses whole while its own use gives only part of the
+        sum's gradient (``mamba1``'s ``x_proj`` output, ``mamba2``'s gated
+        norm's Σy²). ``reduce`` alone would keep each rank's part of the
+        gradient only."""
+        return self.copy_to(self.reduce(t))
+
+    def gather_summed(self, t, dim: int):
+        """The model ranks' slices of ``t`` concatenated on ``dim``; the
+        gradient of the whole summed over the ranks and cut to the rank's
+        slice backward (each rank's use gives a part of it: ``mamba2``'s B
+        and C, which every head reads)."""
+        from .collectives import all_gather
+
+        return all_gather(t, self.comm, dim, "model")
 
     def all_reduce(self, t, kind: str):
         """A forward-only Σ over a group (metrics, counts)."""

@@ -404,7 +404,7 @@ def block_apply(p, kind: str, x, ctx: Ctx):
             p["ssm"], h,
             state=ctx["cache"]["ssm1"] if ctx.get("cache") else None,
             chunk=cfg.ssm_chunk, scan_dtype=getattr(torch, cfg.ssm_scan_dtype),
-            use_pallas=cfg.ssm_pallas,
+            use_pallas=cfg.ssm_pallas, place=ctx.get("place"),
         )
         cache["ssm1"] = st
         return x + y, cache, aux
@@ -416,7 +416,7 @@ def block_apply(p, kind: str, x, ctx: Ctx):
             head_dim=cfg.ssm_head_dim, state_dim=cfg.ssm_state,
             state=ctx["cache"]["ssm2"] if ctx.get("cache") else None,
             chunk=cfg.ssm_chunk, scan_dtype=getattr(torch, cfg.ssm_scan_dtype),
-            use_pallas=cfg.ssm_pallas,
+            use_pallas=cfg.ssm_pallas, place=ctx.get("place"),
         )
         cache["ssm2"] = st
         x = x + y
@@ -427,7 +427,8 @@ def block_apply(p, kind: str, x, ctx: Ctx):
             h = rms_norm(x, sp["ln1"], cfg.norm_eps)
             a, kv = gqa_apply(sp["attn"], h, sctx)
             x = x + a
-            x = x + mlp_apply(sp["mlp"], rms_norm(x, sp["ln2"], cfg.norm_eps))
+            x = x + mlp_apply(sp["mlp"], rms_norm(x, sp["ln2"], cfg.norm_eps),
+                              place=ctx.get("place"), d_ff=cfg.d_ff)
             if kv is not None:
                 cache["shared_kv"] = kv
         return x, cache, aux

@@ -38,10 +38,18 @@ class ParamTree(nn.Module):
         return name in self._parameters or name in self._modules
 
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6, *,
+             sum_over=None, width: Optional[int] = None) -> torch.Tensor:
+    """RMSNorm over the last dimension. Where ranks split that dimension,
+    ``sum_over`` sums each rank's Σx² over them (forward and backward:
+    every rank's output depends on the total) and ``width`` is the whole
+    dimension's; without it the mean is taken locally."""
     dt = x.dtype
     x = x.float()
-    var = torch.mean(x * x, dim=-1, keepdim=True)
+    if sum_over is None:
+        var = torch.mean(x * x, dim=-1, keepdim=True)
+    else:
+        var = sum_over(torch.sum(x * x, dim=-1, keepdim=True)) / width
     y = x * torch.rsqrt(var + eps)
     return (y * (1.0 + scale.float())).to(dt)
 

@@ -9,15 +9,19 @@ repeat is its own module in a ``ModuleList`` walked in Python, since
 PyTorch runs eagerly and has no compile time to save.
 
 On a mesh (``place=``, a ``launch.sharding.Placement``, or a model built
-with ``mesh=``) the ``attn`` and ``moe`` kinds run on the rank's shards:
-attention and MLP column- then row-parallel, the experts split over the
-model ranks, the embedding and the head split over the vocabulary, the
-FSDP leaves gathered per layer, the batch's rows split over the data
-ranks (the reference's ``hint(x, DP, ...)`` sites, which cut a whole
-batch to the rank's rows there and are no-ops off a mesh); every other
-kind raises ``NotImplementedError`` (ROADMAP.md). The logits each rank
-returns are whole: the head's vocabulary shards, and in serving the
-batch's rows, are gathered.
+with ``mesh=``) the ``attn``, ``local``, ``global``, ``moe``, ``mamba1``,
+``mamba2`` and ``mamba2_attn`` kinds run on the rank's shards: attention
+(full or windowed) and MLP column- then row-parallel, the experts split
+over the model ranks, the SSM layers on the rank's channels or heads
+(``models/ssm.py``), zamba2's shared block placed as the attention
+layers are, the embedding and the head (tied or not) split over the
+vocabulary, the FSDP leaves gathered per layer, the batch's rows split
+over the data ranks (the reference's ``hint(x, DP, ...)`` sites, which
+cut a whole batch to the rank's rows there and are no-ops off a mesh);
+``mla``/``mla_moe``, ``enc``/``dec`` and the vision prefix raise
+``NotImplementedError`` (ROADMAP.md). The logits each rank returns are
+whole: the head's vocabulary shards, and in serving the batch's rows,
+are gathered.
 
 Parameters are made directly on the target device from an explicit
 ``torch.Generator`` there: a full-width model (29 GB in f32 for
@@ -147,7 +151,7 @@ class Model(nn.Module):
             self.out_embed = nn.Parameter(cut("out_embed", dense_init(gen, (cfg.d_model, cfg.vocab), dtype=dt)))
         self.has_shared = "mamba2_attn" in _all_kinds(self.stage_specs)
         if self.has_shared:
-            self.shared_attn = shared_attn_init(gen, cfg)
+            self.shared_attn = self._cut_block("shared_attn.", shared_attn_init(gen, cfg))
         if cfg.encoder_layers:
             self.encoder = nn.ModuleList(block_init(gen, "enc", cfg)
                                          for _ in range(cfg.encoder_layers))
@@ -230,22 +234,28 @@ class Model(nn.Module):
         return x
 
     def _head(self, p, x, place=None):
-        """The logits, f32. A tied head (gemma) is the product with the
-        embedding table through ``common.einsum``, as the reference's
-        ``jnp.einsum`` outside every Pallas kernel; autograd adds its dW to
-        the table gradient of ``rel_embed``'s segment sum. An untied head
-        is a ``rel_linear`` with ``out_embed``; on a mesh that splits the
-        vocabulary, column-parallel, its logits gathered whole."""
+        """The logits, f32, the final softcap applied to the whole. A tied
+        head (gemma) is the product with the embedding table through
+        ``common.einsum``, as the reference's ``jnp.einsum`` outside every
+        Pallas kernel; autograd adds its dW to the table gradient of
+        ``rel_embed``'s segment sum. An untied head is a ``rel_linear``
+        with ``out_embed``. On a mesh that splits the vocabulary either is
+        column-parallel on the rank's rows of the vocabulary, its logits
+        gathered whole; a table split over the data ranks too (FSDP) is
+        gathered here as for the lookup, each gather's reduce-scatter
+        adding its part of the table's gradient."""
         cfg = self.cfg
         h = rms_norm(x, p["ln_f"], cfg.norm_eps)
-        if cfg.tie_embeddings:
-            logits = einsum("bsd,vd->bsv", h, p["embed"])
-        elif place is not None and place.splits(cfg.vocab):
-            w = place.gather_tree(p["out_embed"], "out_embed.")
-            logits = place.gather_from(rel_linear(place.copy_to(h), w), -1)
+        name = "embed" if cfg.tie_embeddings else "out_embed"
+        w = p[name] if place is None else place.gather_tree(p[name], name + ".")
+
+        def product(h):
+            return einsum("bsd,vd->bsv", h, w) if cfg.tie_embeddings else rel_linear(h, w)
+
+        if place is not None and place.splits(cfg.vocab):
+            logits = place.gather_from(product(place.copy_to(h)), -1)
         else:
-            w = p["out_embed"] if place is None else place.gather_tree(p["out_embed"], "out_embed.")
-            logits = rel_linear(h, w)
+            logits = product(h)
         return softcap(logits.float(), cfg.final_softcap)
 
     @staticmethod
@@ -383,9 +393,13 @@ class Model(nn.Module):
 
     def _share(self, p, ctx) -> None:
         """zamba2's shared block as ``ctx["shared"]``, for every
-        ``mamba2_attn`` layer."""
+        ``mamba2_attn`` layer; on a mesh with its FSDP leaves gathered once
+        for the step (the reduce-scatter of their gradient sums every
+        layer's use)."""
         if self.has_shared:
-            ctx["shared"] = p["shared_attn"]
+            place = ctx.get("place")
+            sp = p["shared_attn"]
+            ctx["shared"] = sp if place is None else place.gather_tree(sp, "shared_attn.")
 
     def _inputs(self, p, batch, mode: str, place=None, **ctx):
         """(x, ctx, vis) of a forward over ``batch``: the token embeddings,

@@ -9,6 +9,18 @@ the reference broadcasts it for its Pallas kernel. Without it,
 reference runs ``jax.lax.associative_scan``. Decode keeps (conv window,
 ssm state) as carried state and advances one step in O(1).
 
+On a mesh (``place=``, a ``launch.sharding.Placement``) the model ranks
+split the channels: a ``mamba1`` rank owns channels [r·C/m, (r+1)·C/m)
+of x and z (its ``in_proj`` shard is [x_r | z_r]), their conv, ``dt``
+and state, and scans (B, S, C/m, N); ``x_proj``'s row-parallel output is
+summed over the ranks forward and backward (``Placement.psum``). A
+``mamba2`` rank owns heads [r·H/m, (r+1)·H/m), with their z, x and dt,
+and a slice N/m of B and C (``in_proj`` [z_r | x_r | B_r | C_r | dt_r],
+the conv over [x_r | B_r | C_r]); B and C are gathered whole after the
+conv with a reduce-scattered gradient, the scan runs on (B, S, H/m, N·P),
+and the gated RMSNorm sums Σy² over the ranks. ``out_proj`` is
+row-parallel in both.
+
 Arch-applicability: the recurrence is *not* a relational join-aggregate, so
 the paper's auto-diff does not cover it — these blocks use PyTorch's
 autograd for the scan itself, while their projections (in/x/dt/out) go
@@ -119,8 +131,14 @@ def mamba1_apply(
     chunk: int = 0,                      # sequential chunking of the scan
     scan_dtype=torch.float32,            # state dtype inside the scan
     use_pallas: bool = False,            # the single-pass scan kernel
+    place=None,                          # a launch.sharding.Placement
 ) -> Tuple[torch.Tensor, dict]:
+    """On a mesh whose model ranks split the channels, a rank runs its
+    channels C/m (module docstring); the state it carries is theirs."""
     n = p["a_log"].shape[1]
+    split = place is not None and place.size("model") > 1
+    if split:
+        x = place.copy_to(x)
 
     xz = rel_linear(x, p["in_proj"])
     xin, z = torch.chunk(xz, 2, dim=-1)
@@ -130,6 +148,8 @@ def mamba1_apply(
     xc = F.silu(xc)
 
     dbl = rel_linear(xc, p["x_proj"])
+    if split:
+        dbl = place.psum(dbl)
     dt_rank = p["dt_proj"].shape[0]
     dt, bmat, cmat = torch.split(dbl, [dt_rank, n, n], dim=-1)
     dt = F.softplus(rel_linear(dt, p["dt_proj"]) + p["dt_bias"])
@@ -145,7 +165,9 @@ def mamba1_apply(
         # da/bx are exp/products computed in f32; the scan itself may run
         # in a narrower state dtype.
         if use_pallas:
-            h = ssm_scan(da.to(scan_dtype), bx.to(scan_dtype))
+            # contiguous for the kernel: on a mesh a_log gathered over the
+            # data ranks is a strided view, and da follows its layout
+            h = ssm_scan(da.to(scan_dtype).contiguous(), bx.to(scan_dtype).contiguous())
         else:
             h = selective_scan(da.to(scan_dtype), bx.to(scan_dtype), chunk)   # (B,S,C,N)
         # a copy, not a view: the cache must not keep the whole h alive
@@ -162,6 +184,8 @@ def mamba1_apply(
     y = y + p["d_skip"][None, None] * xc.float()
     y = y.to(x.dtype) * F.silu(z)
     out = rel_linear(y, p["out_proj"])
+    if split:
+        out = place.reduce(out)
     return out, {"conv": new_conv, "ssm": new_ssm}
 
 
@@ -201,11 +225,19 @@ def mamba2_apply(
     chunk: int = 0,
     scan_dtype=torch.float32,
     use_pallas: bool = False,
+    place=None,                          # a launch.sharding.Placement
 ) -> Tuple[torch.Tensor, dict]:
+    """On a mesh whose model ranks split the heads, a rank runs its heads
+    H/m on the whole B and C (module docstring); the state it carries is
+    theirs, and its conv window its x, B and C columns."""
     b, s, _ = x.shape
-    nh = p["a_log"].shape[0]
+    nh = p["a_log"].shape[0]             # the rank's heads on a mesh
     d_inner = nh * head_dim
-    n = state_dim
+    split = place is not None and place.size("model") > 1
+    m = place.size("model") if split else 1
+    n = state_dim // m                   # the rank's columns of B and C
+    if split:
+        x = place.copy_to(x)
 
     zxbcdt = rel_linear(x, p["in_proj"])
     z, xbc, dt = torch.split(zxbcdt, [d_inner, d_inner + 2 * n, nh], dim=-1)
@@ -213,6 +245,13 @@ def mamba2_apply(
     xbc, new_conv = _causal_conv(xbc, p["conv_w"], p["conv_b"], conv_state)
     xbc = F.silu(xbc)
     xin, bmat, cmat = torch.split(xbc, [d_inner, n, n], dim=-1)
+    if split:
+        # every head reads all of B and C: the ranks' columns, gathered
+        # once as [B_r | C_r] per rank
+        bc = place.gather_summed(torch.cat([bmat, cmat], dim=-1), -1)
+        bc = bc.reshape(b, s, m, 2, n)
+        bmat, cmat = (bc[:, :, :, i].reshape(b, s, m * n) for i in (0, 1))
+        n = state_dim
 
     dt = F.softplus(dt.float() + p["dt_bias"])                  # (B,S,H)
     a = -torch.exp(p["a_log"])                                  # (H,)
@@ -246,6 +285,12 @@ def mamba2_apply(
     y = y.float()
     y = y + p["d_skip"][None, None, :, None] * xh
     y = y.reshape(b, s, d_inner).to(x.dtype)
-    y = rms_norm(y * F.silu(z), p["norm_scale"])
-    out = rel_linear(y, p["out_proj"])
+    if not split:
+        y = rms_norm(y * F.silu(z), p["norm_scale"])
+        return rel_linear(y, p["out_proj"]), {"conv": new_conv, "ssm": new_ssm}
+    # the gated norm spans all of d_inner: Σy² summed over the ranks, each
+    # rank applying its columns' slice of the scale
+    y = rms_norm(y * F.silu(z), place.scatter_to(p["norm_scale"], 0), sum_over=place.psum,
+                 width=m * d_inner)
+    out = place.reduce(rel_linear(y, p["out_proj"]))
     return out, {"conv": new_conv, "ssm": new_ssm}

@@ -34,13 +34,14 @@ reference stacks a stage's repeats on axis 0 of each ``scan`` leaf (so its
 batch axis is 1 there), the port keeps one entry per repeat
 (``caches[si]["scan"][r]``). ``map_cache`` walks that layout.
 
-On a mesh (``mesh=``, or the ``db``'s), the steps run the ``attn`` and
-``moe`` kinds tensor- and expert-parallel on the rank's shards of the
-parameters (``launch/sharding.py``; other kinds raise
-``NotImplementedError``, ROADMAP.md): every rank is given the whole batch
-and returns the whole logits, and keeps its own caches (its rows of the
-batch, the KV heads its attention computes: ``init_cache(...,
-place=)``). The steps cut the shards through ``_PlacedParamsCache``,
+On a mesh (``mesh=``, or the ``db``'s), the steps run the ``attn``,
+``local``, ``global``, ``moe``, ``mamba1``, ``mamba2`` and
+``mamba2_attn`` kinds tensor- and expert-parallel on the rank's shards
+of the parameters (``launch/sharding.py``; ``mla``, ``enc``/``dec`` and
+the vision prefix raise ``NotImplementedError``, ROADMAP.md): every rank
+is given the whole batch and returns the whole logits, and keeps its own
+caches (its rows of the batch, the KV heads its attention computes, its
+SSM channels' state: ``init_cache(..., place=)``). The steps cut the shards through ``_PlacedParamsCache``,
 once per live parameter dict, as the reference's decode step places its
 parameters once per version.
 """
@@ -59,7 +60,7 @@ from repro_torch.models.model import Model, stages_of
 
 
 def _attn_cache_entry(cfg, kind: str, batch: int, cache_len: int, device: torch.device,
-                      kv_heads: Optional[int] = None):
+                      kv_heads: Optional[int] = None, ssm_split: int = 1):
     dt = getattr(torch, cfg.dtype)
     if kind in ("mla", "mla_moe"):
         return {"kv": {
@@ -76,8 +77,10 @@ def _attn_cache_entry(cfg, kind: str, batch: int, cache_len: int, device: torch.
         return {"kv": kv()}
     if kind == "local":
         return {"kv": kv(min(cfg.window or cache_len, cache_len))}
+    # an SSM layer on a mesh carries the state of the rank's channels
+    # (heads) and its conv window of its columns
+    c = cfg.ssm_expand * cfg.d_model // ssm_split
     if kind == "mamba1":
-        c = cfg.ssm_expand * cfg.d_model
         return {
             "ssm1": {
                 "conv": torch.zeros(
@@ -87,11 +90,11 @@ def _attn_cache_entry(cfg, kind: str, batch: int, cache_len: int, device: torch.
             }
         }
     if kind in ("mamba2", "mamba2_attn"):
-        c = cfg.ssm_expand * cfg.d_model
         entry = {
             "ssm2": {
                 "conv": torch.zeros(
-                    (batch, cfg.conv_width - 1, c + 2 * cfg.ssm_state), dtype=dt, device=device
+                    (batch, cfg.conv_width - 1, c + 2 * cfg.ssm_state // ssm_split), dtype=dt,
+                    device=device,
                 ),
                 "ssm": torch.zeros(
                     (batch, c // cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_head_dim),
@@ -108,22 +111,24 @@ def _attn_cache_entry(cfg, kind: str, batch: int, cache_len: int, device: torch.
 def init_cache(cfg, batch: int, cache_len: int, device=None, *, place=None):
     """Zero-initialized caches in ``Model``'s layout, on ``device`` ("cuda"
     unless the caller passes another). ``cache_len`` sizes attention
-    caches. With ``place`` (a ``launch.sharding.Placement``) the rank's
-    cache of a whole batch of ``batch`` rows: its rows, and the KV heads
-    its attention computes."""
+    caches (a ``local`` layer's is ``min(window, cache_len)`` wide). With
+    ``place`` (a ``launch.sharding.Placement``) the rank's cache of a
+    whole batch of ``batch`` rows: its rows, the KV heads its attention
+    computes, and an SSM layer's state and conv window of the rank's
+    channels (heads) and columns."""
     dev = resolve_device(device, owner="repro_torch.serving.init_cache")
-    heads = None
+    heads, split = None, 1
     if place is not None:
         batch //= place.size("data") if batch % place.size("data") == 0 else 1
-        heads = place.kv_heads(cfg)
+        heads, split = place.kv_heads(cfg) if cfg.n_heads else None, place.size("model")
     caches = []
     for st in stages_of(cfg):
         scan = [
-            {f"{i}:{kind}": _attn_cache_entry(cfg, kind, batch, cache_len, dev, heads)
+            {f"{i}:{kind}": _attn_cache_entry(cfg, kind, batch, cache_len, dev, heads, split)
              for i, kind in enumerate(st.pattern)}
             for _ in range(st.repeats)
         ]
-        tail = [_attn_cache_entry(cfg, kind, batch, cache_len, dev, heads) for kind in st.tail]
+        tail = [_attn_cache_entry(cfg, kind, batch, cache_len, dev, heads, split) for kind in st.tail]
         caches.append({"scan": scan, "tail": tail})
     return caches
 

@@ -11,58 +11,35 @@ The ranks start once for the module (``launch.mesh.start_ranks``) and run
 ``tests/torch_lm_mesh_workers.run_checks`` on the reference's weights,
 while this process runs the reference's steps; each test reads its part.
 
-The bound. A mesh step sums the same f32 terms as the one-process step
-in another order: each model rank's partial of ``wo``'s contraction, of
-the experts' combine and of the embedding's lookup, then the ranks' sums
-added; the data ranks' gradients added. The logits and each gradient are
-held to TOL = 1e-5 of their tensor's largest entry (at least 1), the bound
-the parity tests hold the port to the reference by (tests/torch_lm_parity.py:
-``close_scaled``); the losses to TOL relative. Reordering a sum of K ≤ 512
-f32 terms moves it by about √K·u ≈ 1.3e-6 of its terms' sizes, and the two
-layers add a few of those. A missing all-reduce leaves three quarters of a
-sum out and fails the bound by orders of magnitude. One Adam step moves a
-parameter by at most lr in either direction, so the new parameters are
-held to 2·lr everywhere, and to 1e-3·lr where the gradient is at least
-1e-4 of its leaf's largest entry (clear of the gradients' rounding, where
-Adam's first step is lr·sign(g) to f32).
+The bound (tests/torch_lm_mesh_parity.py): the logits and each gradient
+within TOL = 1e-5 of their tensor's largest entry, the losses within TOL
+relative; a missing all-reduce fails it by orders of magnitude. One Adam
+step moves a parameter by at most lr in either direction, so the new
+parameters are held to 2·lr everywhere, and to 1e-3·lr where the gradient
+is at least 1e-4 of its leaf's largest entry (clear of the gradients'
+rounding, where Adam's first step is lr·sign(g) to f32).
 """
 
-import concurrent.futures
-
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import repro
+import torch_lm_mesh_parity as P
 import torch_lm_mesh_workers as W
-from repro.configs import get_config as jax_get_config
-from repro.models import build_model as jax_build_model
-from repro.train import lm_loss as jax_lm_loss
-from repro_torch.launch.mesh import start_ranks
 
-TOL = 1e-5
+TOL = P.TOL
 
 
 @pytest.fixture(scope="module")
 def weights():
     """The reference's weights of each arch (numpy), from PRNGKey(0)."""
-    out = {}
-    for arch in W.ARCHS:
-        jm = jax_build_model(jax_get_config(arch).reduced())
-        out[arch] = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(0)))
-    return out
+    return P.weights(W.LM)
 
 
 @pytest.fixture(scope="module")
 def both(weights):
     """(every rank's results of ``run_checks`` on 4 gloo ranks on the CPU,
     the reference's steps), the two computed at once."""
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        started = pool.submit(start_ranks, W.run_checks, 4, backend="gloo", device="cpu",
-                              args=(weights,))
-        reference = _reference(weights)
-        return started.result(), reference
+    return P.start("lm", weights)[:2]
 
 
 @pytest.fixture(scope="module")
@@ -75,46 +52,8 @@ def reference(both):
     return both[1]
 
 
-def _reference(weights):
-    """The reference's one-device prefill and decode, loss and gradients,
-    per arch."""
-    out = {}
-    for arch in W.ARCHS:
-        cfg = jax_get_config(arch).reduced()
-        model = jax_build_model(cfg)
-        params = jax.tree.map(jnp.asarray, weights[arch])
-        tokens, labels, fed = W.batch(cfg)
-        with repro.Database(dispatch="ref").activate():
-            logits, caches = model.prefill(params, {"tokens": jnp.asarray(tokens)}, W.CACHE)
-            steps = [np.asarray(logits)]
-            for i in range(W.DECODE):
-                logits, caches = model.decode_step(params, jnp.asarray(fed[:, i:i + 1]), caches, W.S + i)
-                steps.append(np.asarray(logits))
-
-            def loss_fn(p):
-                lg, aux = model.train_logits(p, {"tokens": jnp.asarray(tokens)})
-                return jax_lm_loss(lg, jnp.asarray(labels)) + 0.01 * aux
-
-            loss, grads = jax.jit(jax.value_and_grad(loss_fn))(params)
-        out[arch] = {"logits": np.stack(steps), "loss": float(loss),
-                     "grads": jax.tree.map(np.asarray, grads)}
-    return out
-
-
-def _close(got, want):
-    want = np.asarray(want, np.float64)
-    return np.abs(np.asarray(got, np.float64) - want).max() <= TOL * max(1.0, np.abs(want).max())
-
-
-def _reference_grad(grads, name):
-    """The reference's gradient of the port parameter ``name``."""
-    from repro_torch.convert import reference_leaf
-
-    path, repeat, _ = reference_leaf(name)
-    node = grads
-    for part in path.split("/"):
-        node = node[int(part)] if isinstance(node, list) else node[part]
-    return node if repeat is None else node[repeat]
+_close = P.close
+_reference_grad = P.reference_grad
 
 
 @pytest.mark.parametrize("arch", W.ARCHS)
@@ -210,8 +149,9 @@ def test_autograd_collectives_and_their_transposes(ranks, name):
 
 
 def test_shard_params_cuts_each_ranks_shard(ranks):
-    """``shard_params(whole, specs, mesh)`` gives each rank the shard a
-    placement cuts, of the shape its specs give."""
+    """``Placement.shard`` of olmoe's whole parameters on the 2 × 2 mesh
+    gives each rank its block of every dimension its spec splits
+    (``shard_by_hand``), of the shape ``local_shape`` gives."""
     assert all(r["shard_params"] for r in ranks)
 
 
@@ -227,8 +167,7 @@ def test_catalog_shardings_are_the_committed_layouts(ranks):
         assert len(placements) == 2
 
 
-@pytest.mark.parametrize("arch", ("falcon-mamba-7b", "gemma2-9b", "whisper-small", "qwen2-vl-72b",
-                                  "deepseek-v3-671b"))
+@pytest.mark.parametrize("arch", W.REFUSED)
 def test_kinds_outside_the_slice_raise_naming_the_roadmap(ranks, arch):
     assert "ROADMAP.md" in ranks[0]["refusals"][arch]
 

@@ -315,8 +315,9 @@ def test_train_step_on_a_one_rank_mesh_is_the_step():
 
 
 def test_train_step_on_a_mesh_outside_the_slice_raises():
-    """falcon-mamba's Mamba-1 layers are not placed on a mesh yet."""
-    model = build_model(get_config("falcon-mamba-7b").reduced(), device="cpu")
+    """whisper's encoder and decoder layers are not placed on a mesh yet
+    (falcon-mamba's Mamba-1 layers are: tests/test_torch_lm_mesh_ssm.py)."""
+    model = build_model(get_config("whisper-small").reduced(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_train_step(model, mesh={"model": 2})
 
