@@ -25,7 +25,10 @@ Phases, in order; any failure stops the run with a non-zero exit:
    through ``Database.query(...).step()``, then the quickstart's SQL through
    ``Database.sql``: the same tree, ``db.check`` clean, ``db.explain``
    printed, and every step's loss and gradient equal to the FRA query's bit
-   for bit;
+   for bit; then the reference API on the same data: ``compiler.run_query``,
+   ``execute``, ``execute_with_cache`` and ``grad_eval``, ``Lowered.eager``
+   and ``Database.execute(donate=("theta",))``, each bit-equal to the
+   step's loss and gradient, and a read of the donated θ raising;
 5. NNMF (paper Fig. 2) at n = d = 32,768 through ``rel_matmul_blocked``, 5
    SGD steps: the product on the CUDA kernel, the loss against the torch
    tier, the gradients against the plain ``relu(W) @ relu(H)`` path with a
@@ -50,8 +53,8 @@ Phases, in order; any failure stops the run with a non-zero exit:
    olmoe's prefill, decode step and train step, phase 12's burst,
    zamba2's prefill and decode step and a falcon-mamba train step (the
    scan's forward and reverse walks apart), and the passes of phases 15-21,
-   on their calls' own ids, and one rank's passes of phase 24 at their shard
-   shapes)
+   on their calls' own ids, and one rank's passes of phases 24-26 at their
+   shard shapes)
    beside its plain version, one PyTorch library call (where there is one),
    the card's bound and, for the small calls, the host's time per call; and
    time ``segment_sum``'s index (sort and starts) and its two paths across
@@ -110,7 +113,7 @@ Phases, in order; any failure stops the run with a non-zero exit:
    cache planted; the times against the decode floor, the peak memory, the
    launches and how much of a decode step the card is busy;
 14. (run before phase 8) train falcon-mamba-7b at its published widths and
-   4 layers through ssm_scan's forward, recompute and reverse walk: step
+   1 layer through ssm_scan's forward, recompute and reverse walk: step
    1's loss and gradients against the torch tier with the scan's time loop
    (a lost token planted), the gradients under remat "nothing", "dots" and
    none bit for bit ("dots" recomputes no product), then 5 donated Adam
@@ -155,7 +158,11 @@ Phases, in order; any failure stops the run with a non-zero exit:
    decode steps against a longer prefill, two requests' encoder rows
    swapped planted; then through ``db.endpoint`` with ``make_batch`` adding
    the frames (buckets of 1, 2 and 4), each request held to its solo run in
-   tokens and logits, a cache-row swap planted; then train it on 4 × 448
+   tokens and logits, a cache-row swap planted, and through a second
+   endpoint with ``gather_window`` after ``warmup(decode=False)``: the
+   prefill buckets built before traffic, requests submitted apart in one
+   batch whose decode steps are built under traffic, each held to its solo
+   run; then train it on 4 × 448
    tokens with their frames: step 1's gradients against the torch tier (a
    lost token planted), remat "nothing" against "dots" bit for bit, 5
    donated Adam steps under each;
@@ -211,12 +218,12 @@ Phases, in order; any failure stops the run with a non-zero exit:
    seeded tokens, on phase 10's model's routing, its logits within a
    stated f32 limit of the mesh-less run's, every rank's bit-equal, a
    second run bit-equal, and a model all-reduce left out planted; 24.3 at
-   2 layers on the 2 × 2 mesh (FSDP on "data", tensor and expert
+   1 layer on the 2 × 2 mesh (FSDP on "data", tensor and expert
    parallelism on "model"): 2 Adam steps with grad_clip 1.0 held to the
    mesh-less steps (losses, global norms, the step-1 gradients and final
    values of a leaf of each layout), with a replicated leaf counted on
-   each rank in the norm and a reduce-scatter replaced by a local sum
-   planted; 24.4 each rank's collectives per step by op and axis (beside
+   each rank in the norm (of step 1's gradients) and a reduce-scatter
+   replaced by a local sum planted; 24.4 each rank's collectives per step by op and axis (beside
    the bytes the specs predict), parameter bytes, peak memory and step
    times; 24.5 the kernel calls of a pass at the shard shapes (phase 8
    times them as ``lm_mesh``), each held to phase 2's checked shapes, its
@@ -235,7 +242,7 @@ Phases, in order; any failure stops the run with a non-zero exit:
    steps fed seeded tokens: logits within a limit derived from the
    partials' K of the mesh-less run's, every rank's bit-equal, a second
    run bit-equal, falcon-mamba's out_proj all-reduce of one layer left
-   out planted; 25.3 falcon-mamba at 2 layers on the 2 × 2 mesh (2 Adam
+   out planted; 25.3 falcon-mamba at 1 layer on the 2 × 2 mesh (2 Adam
    steps on 2 × 512 tokens, FSDP on "data", the scan's forward and
    reverse walks on channel shards) and zamba2 at 6 layers on the 1 × 4
    (one step on 2 × 256), held to the mesh-less steps (losses, global
@@ -246,7 +253,28 @@ Phases, in order; any failure stops the run with a non-zero exit:
    peak memory and step times; 25.5 the kernel calls of the passes at
    the shard shapes (phase 8 times them as ``lm_mesh_ssm``), each held to
    phase 2's checked shapes, its launch record to its contract model, the
-   mesh steps' lowerings certified.
+   mesh steps' lowerings certified;
+26. (run after phase 25, before phase 8) deepseek-v3-671b (MLA) on a mesh:
+   26.1 on a one-rank NCCL group, phase 19's 4 layers on phase 19's own
+   model (the 60.4 GB held once: a one-rank shard is the whole leaf), a
+   prefill of 2 × 512 tokens and 4 decode steps fed seeded tokens, and 2
+   dense MLA layers (12.08 GB of f32 weights) trained 2 Adam steps on 1 ×
+   256 tokens, each bit-equal to the mesh-less steps; 26.2 the 4 layers on 4
+   gloo ranks sharing the card, a 1 × 4 mesh (32 heads, 384 q-latent
+   columns, 64 experts and a quarter of the vocabulary a rank; c_kv, k_rope
+   and the latent cache whole on every rank): the same prefill and decode
+   steps on phase 19's model's routing (the tokens the ranks' routers would
+   have routed otherwise counted), the logits within a limit derived from
+   the partials' K, every rank's bit-equal, a second run whose prefill goes
+   through ``BucketedPrefill(mesh=)`` bit-equal to the first
+   (``make_prefill_step(mesh=)``), and a layer's wo all-reduce left out
+   planted; 26.3 the 2 dense layers trained on the 1 × 4 mesh, held to the
+   mesh-less steps (losses, global norms, step-1 gradients and final values
+   of MLA's leaves of each layout), with the q latent gathered with a
+   slicing backward and c_kv fed without ``copy_to`` planted; 26.4 the
+   kernel calls of the passes at the shard shapes (phase 8 times them as
+   ``lm_mesh_mla``), each held to phase 2's checked shapes, its launch
+   record to its contract model, the mesh steps' lowerings certified.
 
 Device memory is freed between phases, so the NNMF step's peak and the
 language models' 1–60 GB of weights never meet. The last line of standard
@@ -416,17 +444,18 @@ ZAMBA2_PREFILL_LIMIT = 1e-3
 #: OLMOE_DECODE_LIMIT. Phase 13 plants a lost SSM state, a lost conv window
 #: and a lost shared K cache and shows each exceeds it
 ZAMBA2_DECODE_LIMIT = 1e-4
-# falcon-mamba-7b training (phase 14): its published widths at 2 of its 64
+# falcon-mamba-7b training (phase 14): its published widths at 1 of its 64
 # layers (the f32 weights, gradients and two Adam moments of all 64 take
-# 116.4 GB; of 2, 11.89 GB), remat, one batch of 4 x 1,024 tokens, 5
+# 116.4 GB; of 1, 10.2 GB), remat, one batch of 4 x 1,024 tokens, 5
 # donated Adam steps under remat "nothing", then 5 from the same weights
 # under "dots"; the scan at (4, 1,024, 8,192, 16): forward, recompute and
-# reverse walk on the kernel. Two layers, not four, keep the script in its
-# time: the plain tier's scan loop under autograd takes ≈ 7.5 s a layer a
-# gradient on an H100 80GB HBM3 at 700 W, and the phase takes two
+# reverse walk on the kernel. One layer (4 until PR 25, 2 until PR 26)
+# keeps the script in its time: the plain tier's scan loop under autograd
+# takes ≈ 7.5 s a layer a gradient on an H100 80GB HBM3 at 700 W, and the
+# phase takes two
 FALCON_ARCH_LAYERS = 64
-FALCON_TRAIN_LAYERS, FALCON_TRAIN_BATCH, FALCON_TRAIN_SEQ, FALCON_TRAIN_STEPS = 2, 4, 1024, 5
-FALCON_TRAIN_PARAMS = 743_305_216
+FALCON_TRAIN_LAYERS, FALCON_TRAIN_BATCH, FALCON_TRAIN_SEQ, FALCON_TRAIN_STEPS = 1, 4, 1024, 5
+FALCON_TRAIN_PARAMS = 637_992_960
 #: step 1's loss, cuda tier against the torch tier (the scan's time loop),
 #: relative: a mean over 4,096 tokens of log-sum-exps of logits that agree
 #: to ≈ 1e-5 (at most 4 layers, 17 products in a chain of K ≤ 8,192), as
@@ -535,6 +564,9 @@ DSV3_CHECK_PROMPT = 64
 WHISPER_ARCH, WHISPER_BATCH, WHISPER_PROMPT, WHISPER_DECODE = "whisper-small", 4, 64, 32
 WHISPER_PARAMS = 294_730_752
 WHISPER_ENDPOINT_BUCKETS, WHISPER_ENDPOINT_NEW, WHISPER_ENDPOINT_BUDGETS = (1, 2, 4), 8, (8, 5, 7, 6)
+#: phase 20's second endpoint: the seconds it gathers after the first
+#: request arrives, and how far apart its requests are submitted
+ENDPOINT_GATHER_WINDOW_S, ENDPOINT_STAGGER_S = 0.25, 0.005
 WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ, WHISPER_TRAIN_STEPS = 4, 448, 5
 # phase 21 serves qwen2-vl-72b at its published widths and 8 of its 80
 # layers (d_model 8,192, 64 heads of 128 over 8 KV heads, d_ff 29,568, vocab
@@ -572,11 +604,12 @@ HOST_CALLS = 1000
 LONG_CALL_MS, LONG_CALL_ITERS = 10.0, 5
 # phase 9, out of core: the GCN query of tests/test_oocore.py (conv → square
 # → sum → mean, wrt Edge and Node) at ogbn-arxiv size in 4 waves and at
-# ogbn-products size (2,449,029 nodes, 61,859,140 edges; the generator adds
-# one self loop per node) at the paper's hidden width D = 256 (Tables 2-3)
+# ogbn-products size (2,449,029 nodes, 61,859,140 edges; the generator,
+# ``device_graph``, adds one self loop per node) at the paper's hidden
+# width D = 256 (Tables 2-3)
 # in 8: one (E, D) f32 message tensor is 65.9 GB there; the logistic
 # regression of phase 4 through the quickstart's SQL in 8
-PRODUCTS_NODES, PRODUCTS_EDGES, PRODUCTS_D, PRODUCTS_CLASSES = 2_449_029, 61_859_140, 256, 47
+PRODUCTS_NODES, PRODUCTS_EDGES, PRODUCTS_D = 2_449_029, 61_859_140, 256
 OOC_WAVES, OOC_ARXIV_WAVES, OOC_ARXIV_STEPS, OOC_PRODUCTS_STEPS = 8, 4, 2, 3
 OOC_WRT = ("Edge", "Node")
 #: rows of one arxiv and one products wave (the even cut of 1,335,586 rows
@@ -603,17 +636,18 @@ MESH_RANKS, MESH_BLOCKS, MESH_B, MESH_TIGHT_BUDGET = 4, 8, 256, 1e6
 MESH_EDGE_ROWS = -(-(EDGES + NODES) // MESH_RANKS)
 # phase 24, olmoe-1b-7b on a mesh: 24.1 at 4 layers on a one-rank NCCL
 # group; 24.2 served at all 16 layers on the 1 × 4 (data × model) mesh of
-# LM_MESH_RANKS gloo ranks sharing the card; 24.3 trained at 2 layers on
-# the 2 × 2 mesh. Each prefill takes 2 prompts of 512 tokens, then 4
-# decode steps; a train step 2 rows of 512 tokens (one a data rank). Gloo
-# moves every collective through the host (phase 23's step, two 130 MB
-# all-reduces, took 645.79 ms on an H100 80GB HBM3 at 700 W), and a 2 × 2 train step
-# gathers and reduce-scatters each rank's FSDP shards of the two layers'
-# experts (1.05 GB in, 2.09 GB out a step a rank): the sizes keep phase 24
-# near 150 s, and 24.3 runs without remat, whose recompute would gather
-# the experts a second time
+# LM_MESH_RANKS gloo ranks sharing the card; 24.3 trained at 1 layer (2
+# until PR 26) on the 2 × 2 mesh. Each prefill takes 2 prompts of 512
+# tokens, then 4 decode steps; a train step 2 rows of 512 tokens (one a
+# data rank). Gloo moves every collective through the host (phase 23's
+# step, two 130 MB all-reduces, took 645.79 ms on an H100 80GB HBM3 at 700
+# W), and a 2 × 2 train step gathers and reduce-scatters each rank's FSDP
+# shards of the layer's experts (0.52 GB in, 1.05 GB out a step a rank; a
+# step at 2 layers took 4.7–10.0 s): the sizes keep the script in its
+# time, and 24.3 runs without remat, whose recompute would gather the
+# experts a second time
 LM_MESH_RANKS = 4
-LM_MESH_ONE_LAYERS, LM_MESH_TRAIN_LAYERS = 4, 2
+LM_MESH_ONE_LAYERS, LM_MESH_TRAIN_LAYERS = 4, 1
 LM_MESH_BATCH, LM_MESH_PROMPT, LM_MESH_DECODE = 2, 512, 4
 LM_MESH_TRAIN_BATCH, LM_MESH_TRAIN_SEQ, LM_MESH_TRAIN_STEPS = 2, 512, 2
 LM_MESH_LR, LM_MESH_CLIP = 3e-4, 1.0
@@ -639,7 +673,7 @@ LM_MESH_NORM_LIMIT = 1e-5
 LM_MESH_LEAVES = ("embed", "out_embed", "ln_f", "stages.0.scan.0.0:moe.ln1",
                   "stages.0.scan.0.0:moe.attn.wq", "stages.0.scan.0.0:moe.attn.wo",
                   "stages.0.scan.0.0:moe.attn.q_norm", "stages.0.scan.0.0:moe.moe.router",
-                  "stages.0.scan.0.0:moe.moe.wi_gate", "stages.0.scan.1.0:moe.moe.wo")
+                  "stages.0.scan.0.0:moe.moe.wi_gate", "stages.0.scan.0.0:moe.moe.wo")
 # phase 25, the window, tied-embedding and SSM kinds on a mesh, each at its
 # published widths in f32 (the SSM families on the scan kernel): 25.1 on a
 # one-rank NCCL group (SSM_MESH_ONE: (arch, layers)), a prefill of 2 × 512
@@ -648,16 +682,16 @@ LM_MESH_LEAVES = ("embed", "out_embed", "ln_f", "stages.0.scan.0.0:moe.ln1",
 # (SSM_MESH_SERVE: (arch, layers, prompt)), gemma3's prompts past its 1,024
 # window, then 4 decode steps fed seeded tokens; 25.3 trained without remat
 # (SSM_MESH_TRAIN: (arch, layers, seq, steps, (data, model))): falcon-mamba
-# on the 2 × 2 mesh (FSDP on "data"; its in_proj, x_proj, out_proj and the
-# two tables gathered and reduce-scattered through gloo, ≈ 1.4 GB a rank a
-# step), zamba2 at 6 layers (5 mamba2 + 1 mamba2_attn) on the 1 × 4
+# at 1 layer (2 until PR 26) on the 2 × 2 mesh (FSDP on "data"; its
+# in_proj, x_proj, out_proj and the two tables gathered and reduce-scattered
+# through gloo, ≈ 1.4 GB a rank a step at 2 layers), zamba2 at 6 layers (5 mamba2 + 1 mamba2_attn) on the 1 × 4
 # (mamba2's B and C gather and its norm's sum on the backward path, the
 # shared block's gradient; no FSDP traffic)
 SSM_MESH_RANKS, SSM_MESH_BATCH = 4, 2
 SSM_MESH_ONE = (("falcon-mamba-7b", 2), ("zamba2-7b", 6), ("gemma3-4b", 6))
 SSM_MESH_ONE_TRAIN_SEQ = 128
 SSM_MESH_SERVE = (("gemma3-4b", 6, 1280), ("falcon-mamba-7b", 4, 512), ("zamba2-7b", 6, 512))
-SSM_MESH_TRAIN = (("falcon-mamba-7b", 2, 512, 2, (2, 2)), ("zamba2-7b", 6, 256, 1, (1, 4)))
+SSM_MESH_TRAIN = (("falcon-mamba-7b", 1, 512, 2, (2, 2)), ("zamba2-7b", 6, 256, 1, (1, 4)))
 #: 25.2's planted fault leaves out this falcon-mamba layer's out_proj all-reduce
 SSM_MESH_PLANTED_LAYER = 1
 #: the leaves 25.3 holds: one of each layout (the tables on "model" and
@@ -668,8 +702,8 @@ SSM_MESH_LEAVES = {
     "falcon-mamba-7b": ("embed", "out_embed", "ln_f", "stages.0.scan.0.0:mamba1.ln",
                         "stages.0.scan.0.0:mamba1.ssm.in_proj", "stages.0.scan.0.0:mamba1.ssm.conv_w",
                         "stages.0.scan.0.0:mamba1.ssm.x_proj", "stages.0.scan.0.0:mamba1.ssm.dt_proj",
-                        "stages.0.scan.0.0:mamba1.ssm.a_log", "stages.0.scan.1.0:mamba1.ssm.conv_b",
-                        "stages.0.scan.1.0:mamba1.ssm.out_proj", "stages.0.scan.1.0:mamba1.ssm.d_skip"),
+                        "stages.0.scan.0.0:mamba1.ssm.a_log", "stages.0.scan.0.0:mamba1.ssm.conv_b",
+                        "stages.0.scan.0.0:mamba1.ssm.out_proj", "stages.0.scan.0.0:mamba1.ssm.d_skip"),
     "zamba2-7b": ("embed", "out_embed", "stages.0.scan.0.0:mamba2.ln", "stages.0.scan.0.0:mamba2.ssm.in_proj",
                   "stages.0.scan.0.0:mamba2.ssm.conv_w", "stages.0.scan.0.0:mamba2.ssm.conv_b",
                   "stages.0.scan.0.0:mamba2.ssm.norm_scale", "stages.0.scan.0.0:mamba2.ssm.a_log",
@@ -684,6 +718,50 @@ SSM_MESH_PLANTS = {
     "zamba2-7b": ("B and C gathered with a slicing backward", "gather_summed",
                   lambda self, t, dim: self.gather_from(t, dim)),
 }
+# phase 26, deepseek-v3-671b (MLA) on a mesh at its published widths in
+# f32: 26.1 on a one-rank NCCL group, phase 19's DSV3_LAYERS layers served
+# on phase 19's own model (a one-rank shard is the whole leaf, so the 60.4
+# GB are held once) and MLA_MESH_TRAIN_LAYERS dense MLA layers trained;
+# 26.2 the DSV3_LAYERS layers served on the 1 × 4 mesh of MLA_MESH_RANKS
+# gloo ranks sharing the card (32 heads, 384 q-latent columns and 64
+# experts a rank, ≈ 15.17 GB of shards each), a prefill of LM_MESH_BATCH ×
+# LM_MESH_PROMPT tokens and LM_MESH_DECODE decode steps fed seeded tokens,
+# on the mesh-less run's routing; 26.3 the dense layers trained on the 1 × 4
+# mesh, MLA_MESH_TRAIN_STEPS Adam steps on MLA_MESH_TRAIN_BATCH ×
+# MLA_MESH_TRAIN_SEQ tokens without remat: first_k_dense covers every layer,
+# so the MoE stage has 0 layers (one 256-expert layer's f32 weights,
+# gradient and moments take ≈ 184 GB, more than the card)
+MLA_MESH_RANKS = 4
+MLA_MESH_TRAIN_LAYERS, MLA_MESH_TRAIN_BATCH, MLA_MESH_TRAIN_SEQ, MLA_MESH_TRAIN_STEPS = 2, 1, 256, 2
+#: Adam's learning rate in 26.1 and 26.3: an Adam step moves each of the
+#: 3.02e9 parameters by about lr, and at LM_MESH_LR the second step's loss
+#: on the 256 tokens is 0 in f32 (every gold logit ahead by > 17 nats)
+MLA_MESH_LR = 1e-5
+#: 26.2's planted fault leaves out this layer's wo all-reduce
+MLA_MESH_PLANTED_LAYER = 1
+#: the leaves 26.3 holds: MLA's of each layout (the q latent's columns of
+#: wq_a, its norm scale applied in slices; the heads' columns of wq_b,
+#: wk_b, wv_b and rows of wo; wkv_a and kv_norm whole on every rank), the
+#: MLP and the layer norms (the vocabulary-split tables, 0.93 GB a rank,
+#: are phases 24's and 25's)
+MLA_MESH_LEAVES = ("ln_f", "stages.0.scan.0.0:mla.ln1",
+                   "stages.0.scan.0.0:mla.attn.wq_a", "stages.0.scan.0.0:mla.attn.q_norm",
+                   "stages.0.scan.0.0:mla.attn.wq_b", "stages.0.scan.0.0:mla.attn.wkv_a",
+                   "stages.0.scan.0.0:mla.attn.kv_norm", "stages.0.scan.0.0:mla.attn.wk_b",
+                   "stages.0.scan.0.0:mla.attn.wv_b", "stages.0.scan.0.0:mla.attn.wo",
+                   "stages.0.scan.1.0:mla.attn.wq_a", "stages.0.scan.1.0:mla.attn.wkv_a",
+                   "stages.0.scan.1.0:mla.mlp.wo")
+
+
+def mla_mesh_plants(sharding, blocks):
+    """26.3's planted faults, (what, owner, name, fake): the q latent
+    gathered with a slicing backward (each rank's gradient of it its own
+    heads' part); c_kv fed to the rank's heads without ``copy_to`` (its
+    gradient each rank's heads' part)."""
+    return (("the q latent gathered with a slicing backward", sharding.Placement, "gather_summed",
+             lambda self, t, dim: self.gather_from(t, dim)),
+            ("c_kv fed to the heads without copy_to", blocks, "_latent",
+             lambda place, c, r: (c, place.copy_to(r))))
 
 #: odd ids (padding -1, ids ≥ S) of the edge cases, over S = N = 7
 ODD_IDS = (3, -1, 0, 7, 9, 2, -5, 4, 4)
@@ -788,6 +866,8 @@ def matmul_cases(cfg):
               if op == "blocked_matmul"]
     cases += [key[1:] + ("gemma3 / falcon-mamba / zamba2 on a mesh",)
               for key in sorted(ssm_mesh_checked_shapes()) if key[0] == "blocked_matmul"]
+    cases += [(m, k, n, "deepseek-v3 on a mesh") for op, m, k, n in sorted(mla_mesh_checked_shapes())
+              if op == "blocked_matmul"]
     return cases
 
 
@@ -1212,6 +1292,24 @@ def check_kernels(torch, kern, graph, lm_cfg, olmoe_cfg, dev):
             gather_case(b, shard_ids(a, b), c, "gemma3 / falcon-mamba / zamba2 on a mesh")
         elif op == "segment_sum":
             segsum_case(c, shard_ids(a, c), b, "gemma3 / falcon-mamba / zamba2 on a mesh")
+        torch.cuda.empty_cache()
+
+    # phase 26's: the lookups in the whole table (one rank) and in a
+    # vocabulary shard (3/4 of the ids -1), the Σ by position, the local
+    # experts' dispatch, combine and Σ by token (olmoe_ids), 26.3's
+    # transposes (the table shard's gradient by token)
+    vocab = mla_mesh_config().vocab
+
+    def mla_ids(e, n):
+        if n == vocab:
+            return lm_ids(e, n)
+        return shard_ids(e, n) if n == vocab // MLA_MESH_RANKS else olmoe_ids(e, n)
+
+    for op, a, b, c in sorted(mla_mesh_checked_shapes()):
+        if op == "gather_join":
+            gather_case(b, mla_ids(a, b), c, "deepseek-v3 on a mesh")
+        elif op == "segment_sum":
+            segsum_case(c, mla_ids(a, c), b, "deepseek-v3 on a mesh")
         torch.cuda.empty_cache()
     return errs
 
@@ -1684,7 +1782,60 @@ def logreg_phase(torch, repro_torch, kern, dev):
         raise AssertionError("the SQL query's steps differ from the FRA query's")
     check_handle(sql, s_launches, "Database.sql", before)
     sites = [(s.key, s.op, s.tier, s.info_dict()) for s in handle.last.lowered.resolutions.sites]
+    reference_api_checks(torch, repro_torch, kern, db, handle, dev)
     return {"launches": launches, "sql_launches": s_launches, "sites": sites}
+
+
+def reference_api_checks(torch, repro_torch, kern, db, handle, dev):
+    """Phase 4's reference API on the card: at θ = 0, ``compiler.grad_eval``,
+    ``execute_with_cache``, ``execute`` and ``run_query`` (each on the table
+    of the environment's device: the CUDA kernels), the step's own
+    ``Lowered.eager`` and ``Database.execute(donate=("theta",))``, each
+    bit-equal to ``QueryHandle.step()``'s loss (and θ gradient, where it
+    makes one); then a read of the donated θ must raise. The wrappers walk
+    the handle's program as autodiff made it, the step the lowering's,
+    which the rewrite stage may have rewritten: where it did, a wrapper is
+    held to 1e-5 relative instead (§2's step-1 loss limit; the same sums
+    in another order)."""
+    from repro_torch.core import compiler
+    from repro_torch.core.session import CatalogError
+
+    db.put("theta", torch.zeros(LOGREG_COLS, device=dev), keys=("col",))
+    out, grads = handle.step()
+    loss, grad = out.data, grads["theta"].data
+    env = {n: db.get(n) for n in ("Rx", "Ry", "theta")}
+    prog, low = handle._program(None), handle.last.lowered
+    rewritten = low.program is not prog
+    kern.reset_launch_counts()
+    got = {
+        "compiler.grad_eval": compiler.grad_eval(prog, env),
+        "compiler.execute_with_cache": (compiler.execute_with_cache(prog.forward.root, env)[0], None),
+        "compiler.execute": (compiler.execute(prog.forward.root, env), None),
+        "compiler.run_query": (compiler.run_query(prog.forward, env), None),
+    }
+    wrapped = kern.launch_counts()
+    got["Lowered.eager"] = low.eager(env)
+    got["Database.execute(donate=('theta',))"] = db.execute(prog, env, donate=("theta",))
+    try:
+        db.get("theta")
+        raised = False
+    except CatalogError:
+        raised = True
+    bad = []
+    for what, (o, g) in got.items():
+        same = torch.equal(o.data, loss) and (g is None or torch.equal(g["theta"].data, grad))
+        close = (abs(float(o.data) - float(loss)) <= 1e-5 * abs(float(loss))
+                 and (g is None or float((g["theta"].data - grad).norm()) <= 1e-5 * float(grad.norm())))
+        ok = same or (rewritten and what.startswith("compiler.") and close)
+        log(f"  {what}: loss {float(o.data)!r}; bit-equal to the step's: {same}"
+            + ("" if same else f"; within 1e-5 relative: {close}"))
+        if not ok:
+            bad.append(what)
+    log(f"  the step's program rewritten: {rewritten}; the wrappers' launches {wrapped}; a read of the "
+        f"donated θ raises CatalogError: {raised}")
+    if bad or not raised or wrapped["blocked_matmul"] <= 0:
+        raise AssertionError(f"the reference API on the card: {bad or 'the donated θ read, or no launch'}")
+    db.put("theta", torch.zeros(LOGREG_COLS, device=dev), keys=("col",))
 
 
 # ---------------------------------------------------------------------------
@@ -3955,7 +4106,7 @@ def endpoint_logits(ep, calls, budgets):
 def dense_endpoint_phase(torch, repro_torch, kern, cfg, dev, model, checked, *,
                          s=GEMMA3_ENDPOINT_PROMPT, new=GEMMA3_ENDPOINT_NEW,
                          budgets=GEMMA3_ENDPOINT_BUDGETS, bucket_sizes=GEMMA3_ENDPOINT_BUCKETS,
-                         make_batch=None, plant_swap=True):
+                         make_batch=None, plant_swap=True, gather_window=None):
     """Phase 17's second half (and phases 20's and 21's): the model through
     ``db.endpoint`` with prefill buckets of ``bucket_sizes`` prompts of S
     tokens (gemma3: past the window) and room for NEW new tokens: a burst
@@ -3971,7 +4122,11 @@ def dense_endpoint_phase(torch, repro_torch, kern, cfg, dev, model, checked, *,
     runs decode against their own encoder output, the endpoint against the
     batch's, padded and compacted with the slots; qwen2-vl's decode starts
     at seq + vis_seq on both. ``plant_swap=False`` (qwen2-vl's 2 requests,
-    whose compaction keeps one slot) plants no swap."""
+    whose compaction keeps one slot) plants no swap. With ``gather_window``
+    (seconds; phase 20) a second endpoint on a session of its own gathers
+    for that long after the first request arrives and is warmed with
+    ``warmup(decode=False)``: the prefill buckets are built before
+    traffic, the decode steps under it (``gathered_endpoint``)."""
     import asyncio
 
     import numpy as np
@@ -4109,6 +4264,9 @@ def dense_endpoint_phase(torch, repro_torch, kern, cfg, dev, model, checked, *,
         raise AssertionError(f"the {name} burst differs from the solo runs: {bad}, {worst:.3e}")
     if sorted(widths) != sorted({cfg.window or cache_len, cache_len}):
         raise AssertionError(f"cache widths {sorted(widths)}")
+    if gather_window is not None:
+        gathered_endpoint(torch, repro_torch, model, name, prompts, budgets, buckets, cache_len, make_batch,
+                          batch_fn, hold, gather_window)
     if not plant_swap:
         return {"launches": launches, "log": burst_log, "pass": dict(burst_log.counts),
                 "burst_ms": burst_s * 1e3, "tokens_per_s": n_tok / burst_s, "peak": peak}
@@ -4122,6 +4280,72 @@ def dense_endpoint_phase(torch, repro_torch, kern, cfg, dev, model, checked, *,
         raise AssertionError("the oracle check passes a compaction that swaps cache rows")
     return {"launches": launches, "log": burst_log, "pass": dict(burst_log.counts),
             "burst_ms": burst_s * 1e3, "tokens_per_s": n_tok / burst_s, "peak": peak}
+
+
+def gathered_endpoint(torch, repro_torch, model, name, prompts, budgets, buckets, cache_len, make_batch,
+                      batch_fn, hold, window):
+    """Phase 20's endpoint keywords: a second endpoint of the model on a
+    session of its own with ``gather_window=window``, warmed with
+    ``warmup(decode=False)`` (every prefill bucket built, no decode step);
+    the requests submitted ENDPOINT_STAGGER_S apart, well inside the window,
+    must form one batch whose decode steps are built under traffic, and
+    each completion must equal the request served alone (``hold``, the
+    phase's oracle)."""
+    import asyncio
+
+    from repro_torch.serving import service
+
+    db = repro_torch.Database(max_cache_entries=16)
+    db.register_model(name, model, dict(model.named_parameters()))
+    ep = db.endpoint(name, cache_len=cache_len, buckets=buckets, make_batch=make_batch, gather_window=window)
+    t0 = time.perf_counter()
+    ep.warmup(decode=False, batch_fn=batch_fn)
+    warm = db.counters()["serve"]
+    warm = (warm["prefill"]["compiles"], warm["decode"]["compiles"], warm["decode"]["traces"])
+    warm_s = time.perf_counter() - t0
+    calls, real_make = [], service.make_decode_step
+
+    def recording(*args, **kw):
+        step = real_make(*args, **kw)
+
+        def call(tok, caches, length, params=None, enc_out=None):
+            logits, caches = step(tok, caches, length, params, enc_out)
+            calls.append(logits[:, -1].clone())
+            return logits, caches
+
+        return call
+
+    async def one(i, prompt, new):
+        await asyncio.sleep(i * ENDPOINT_STAGGER_S)
+        return await ep.submit(prompt, max_new_tokens=new)
+
+    async def go():
+        return await asyncio.gather(*[one(i, p, m) for i, (p, m) in enumerate(zip(prompts, budgets))])
+
+    service.make_decode_step = recording
+    try:
+        t0 = time.perf_counter()
+        outs = asyncio.run(go())
+        torch.cuda.synchronize()
+        burst_s = time.perf_counter() - t0
+    finally:
+        service.make_decode_step = real_make
+    c = db.counters()["serve"]
+    ties, bad, worst = hold(outs, endpoint_logits(ep, calls, budgets))
+    checks = {
+        "warmup(decode=False) built every prefill bucket and no decode step": warm == (len(buckets), 0, 0),
+        "one batch of the staggered requests": c["batches"] == 1 and c["batched_requests"] == len(budgets),
+        "no prefill built under traffic": c["prefill"]["compiles"] == len(buckets),
+        "decode steps built under traffic": c["decode"]["compiles"] > 0,
+        "the solo runs": not bad and worst <= DENSE_DECODE_LIMIT,
+    }
+    log(f"  Endpoint(gather_window={window}) after warmup(decode=False) ({warm_s:.2f} s; prefill, decode "
+        f"steps built and traced: {warm}): {len(budgets)} requests submitted {ENDPOINT_STAGGER_S * 1e3:g} ms "
+        f"apart served in {burst_s * 1e3:.1f} ms; serve counters {json.dumps(c)}; against the solo runs: "
+        f"near ties {ties}, failures {bad}, decode logits max|Δ| / max|logit| = {worst:.3e} (limit "
+        f"{DENSE_DECODE_LIMIT:g}); checks {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"the gathered endpoint: {[k for k, v in checks.items() if not v]}")
 
 
 def dense_grads(torch, repro_torch, kern, model, batch, dispatch, names=None):
@@ -4815,7 +5039,7 @@ def time_site(torch, op, info, rows_for, seg_for, gen, dev):
 
 
 def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, dense, mesh, lm_mesh, ssm_mesh,
-                 errs, dev):
+                 mla_mesh, errs, dev):
     """Per kernel and per main path: each site timed alone at its shapes,
     times the launches of that site in one pass of the path (one GCN step;
     one logistic-regression step; one NNMF step; one KGE step at each
@@ -4827,8 +5051,9 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, d
     GCN step on phase 23's 4 × 1 mesh; one rank's olmoe prefill and decode
     step on phase 24's 1 × 4 mesh and its train step on the 2 × 2 mesh;
     one rank's gemma3, falcon-mamba and zamba2 prefill and decode step on
-    phase 25's 1 × 4 mesh and its falcon-mamba and zamba2 train steps),
-    summed."""
+    phase 25's 1 × 4 mesh and its falcon-mamba and zamba2 train steps;
+    one rank's deepseek-v3 prefill, decode step and train step on phase
+    26's 1 × 4 mesh), summed."""
     from repro_torch.kernels.matmul.ops import blocked_matmul_forward
     from repro_torch.kernels.ssm_scan.ops import ssm_scan_forward
     from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
@@ -4960,14 +5185,15 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, d
     # signature at its shard shapes on the ids its first call took (the
     # vocabulary shard's lookups and the other experts' assignments hold
     # -1), times its calls in the pass
-    for counts, first_ids, _ in (lm_mesh["serve"], lm_mesh["train"]):
-        for key, mult in sorted(counts.items()):
-            ids = first_ids.get(key)
-            ids = None if ids is None else ids.to(dev)
-            add("lm_mesh", key[0], f"{key[0]}{key[1:]}", mult,
-                *time_site(torch, key[0], LaunchLog(torch).info(key), lambda e, n: ids,
-                           lambda e, s: ids, gen, dev))
-        del ids
+    for path, run in (("lm_mesh", lm_mesh), ("lm_mesh_mla", mla_mesh)):
+        for counts, first_ids, _ in (run["serve"], run["train"]):
+            for key, mult in sorted(counts.items()):
+                ids = first_ids.get(key)
+                ids = None if ids is None else ids.to(dev)
+                add(path, key[0], f"{key[0]}{key[1:]}", mult,
+                    *time_site(torch, key[0], LaunchLog(torch).info(key), lambda e, n: ids,
+                               lambda e, s: ids, gen, dev))
+            del ids
 
     # one rank of phase 25: each arch's prefill and one decode step on the 1
     # × 4 mesh and each train step of 25.3, every kernel signature at its
@@ -5097,6 +5323,7 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, d
                    "gcn_mesh": mesh["launches"].get(op, 0),
                    "lm_mesh": lm_mesh["launches"].get(op, 0),
                    "lm_mesh_ssm": ssm_mesh["launches"].get(op, 0),
+                   "lm_mesh_mla": mla_mesh["launches"].get(op, 0),
                    "falcon_train": ssm["falcon_train"]["launches"][op],
                    **{path: run["launches"][op] for path, run in dense.items()}}
         records.append({
@@ -5146,7 +5373,10 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, d
                     f"phase 25's gemma3, falcon-mamba and zamba2 requests of a prefill and "
                     f"{LM_MESH_DECODE} decode steps on the 1 × {SSM_MESH_RANKS} mesh and its "
                     "falcon-mamba (2 × 2) and zamba2 (1 × 4) train steps (lm_mesh_ssm: the "
-                    f"{SSM_MESH_RANKS} ranks' launches summed); "
+                    f"{SSM_MESH_RANKS} ranks' launches summed), phase 26's deepseek-v3 request of a "
+                    f"prefill and {LM_MESH_DECODE} decode steps on the 1 × {MLA_MESH_RANKS} mesh and "
+                    f"its {MLA_MESH_TRAIN_STEPS} train steps there (lm_mesh_mla: the {MLA_MESH_RANKS} "
+                    "ranks' launches summed); "
                     "ms, plain_ms, bound_ms, library_ms: each site timed alone, times its "
                     "launches in one pass, summed over one GCN step, one logistic-regression "
                     "step, one NNMF step, one KGE step at each width, one prefill, one "
@@ -5165,7 +5395,9 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, d
                     "decode step on the 1 × 4 mesh and train step on the 2 × 2 mesh at their shard "
                     "shapes (lm_mesh), one rank's gemma3, falcon-mamba and zamba2 prefill and "
                     "decode step on the 1 × 4 mesh and its falcon-mamba (2 × 2) and zamba2 (1 × 4) "
-                    "train steps at their shard shapes (lm_mesh_ssm); 'paths' splits them; host_ms: "
+                    "train steps at their shard shapes (lm_mesh_ssm), one rank's deepseek-v3 "
+                    "prefill and decode step and its train step on the 1 × 4 mesh at their shard "
+                    "shapes (lm_mesh_mla); 'paths' splits them; host_ms: "
                     f"the host's time per call over {HOST_CALLS} calls without a synchronise, "
                     "summed the same way over the sites where it was taken (null: not taken)"),
             "paths": {path: {k: v for k, v in acc.items() if k not in ("bytes_ms", "ops_ms")}
@@ -5609,6 +5841,28 @@ def ooc_logreg(torch, repro_torch, kern, dev):
     return launches, sites
 
 
+def device_graph(torch, dev, n_nodes, n_edges, n_feat, seed):
+    """``data.synthetic_graph``'s graph, drawn on the card from a seed (the
+    host's numpy draw of 64 M edges took 22.3 s): random sources,
+    destinations ⌊Lomax(2)·n/8⌋ mod n (numpy's ``pareto(2.0)``:
+    exp(Exp(rate 2)) − 1), a self loop per node, weights
+    1/√(deg(src)·deg(dst)), standard normal features. Returns (keys (E, 2)
+    int32, weights (E,) f32, features (n, n_feat) f32)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    src = torch.randint(0, n_nodes, (n_edges,), generator=gen, device=dev)
+    lomax = torch.empty(n_edges, dtype=torch.float64, device=dev).exponential_(2.0, generator=gen)
+    dst = (lomax.exp_().sub_(1) * (n_nodes / 8)).long() % n_nodes
+    del lomax
+    loops = torch.arange(n_nodes, device=dev)
+    src, dst = torch.cat([src, loops]), torch.cat([dst, loops])
+    deg = torch.bincount(dst, minlength=n_nodes) + torch.bincount(src, minlength=n_nodes)
+    w = 1.0 / torch.sqrt((deg[src] * deg[dst]).double()).float()
+    keys = torch.stack([src, dst], dim=1).to(torch.int32)
+    del src, dst, deg
+    x = torch.randn(n_nodes, n_feat, generator=gen, device=dev)
+    return keys, w, x
+
+
 def ooc_products(torch, repro_torch, kern, dev):
     """9.3: the GCN query at ogbn-products size and D = 256, which no card
     holds in core: Node + Edge/8 budget, against an f64 computation on the
@@ -5617,15 +5871,12 @@ def ooc_products(torch, repro_torch, kern, dev):
 
     from repro_torch.core import engine
     from repro_torch.core.planner import _rel_bytes
-    from repro_torch.data import synthetic_graph
     from repro_torch.relational import partitioned_edges
 
     t0 = time.perf_counter()
-    g = synthetic_graph(PRODUCTS_NODES, PRODUCTS_EDGES, PRODUCTS_D, PRODUCTS_CLASSES, seed=0)
-    x = torch.as_tensor(g["x"]).to(dev)
-    edge = partitioned_edges(torch.as_tensor(g["edge_keys"]).to(dev), torch.as_tensor(g["edge_w"]).to(dev),
-                             PRODUCTS_NODES, 1)
-    del g
+    keys, w, x = device_graph(torch, dev, PRODUCTS_NODES, PRODUCTS_EDGES, PRODUCTS_D, seed=0)
+    edge = partitioned_edges(keys, w, PRODUCTS_NODES, 1)
+    del keys, w
     n = PRODUCTS_NODES
     node_bytes, edge_bytes = x.numel() * 4, int(_rel_bytes(edge))
     budget = node_bytes + edge_bytes / OOC_WAVES
@@ -6576,16 +6827,18 @@ def lm_mesh_tokens(torch, dev, shape, seed, vocab):
     return torch.randint(0, vocab, shape, generator=gen, device=dev, dtype=torch.int32)
 
 
-def lm_mesh_serve(torch, model, db, tokens, fed=None, *, mesh=None, log_=None):
+def lm_mesh_serve(torch, model, db, tokens, fed=None, *, mesh=None, log_=None, prefill=None):
     """A prefill of ``tokens`` (B, S) and LM_MESH_DECODE decode steps, fed the
     columns of ``fed`` (greedy where None): each step's logits (steps + 1,
     B, V), its host time and its collectives; with ``log_`` (a LaunchLog)
-    the kernel calls of the prefill and the first decode step."""
+    the kernel calls of the prefill and the first decode step. ``prefill``
+    (batch → (logits, caches)) replaces ``make_prefill_step``'s step."""
     from repro_torch.launch import collectives
     from repro_torch.serving import make_decode_step, make_prefill_step
 
     prompt = tokens.shape[1]
-    prefill = make_prefill_step(model, prompt + LM_MESH_DECODE, mesh=mesh, db=db)
+    if prefill is None:
+        prefill = make_prefill_step(model, prompt + LM_MESH_DECODE, mesh=mesh, db=db)
     decode = make_decode_step(model, mesh=mesh, db=db)
     rec = {"secs": [], "collectives": []}
 
@@ -6615,10 +6868,13 @@ class UpdateLog:
     """While active, each Adam update of ``train.trainer``: the named
     leaves' gradients it takes (host copies) and the global norm it clips
     to (on a mesh, ``Placement.grad_norm``'s; else the norm the update
-    computes, the same expression)."""
+    computes, the same expression); on a mesh with ``also`` (placement,
+    gradients → number) that of the first update's gradients too
+    (``also_norms``)."""
 
-    def __init__(self, torch, leaves):
+    def __init__(self, torch, leaves, also=None):
         self.torch, self.leaves, self.grads, self.norms = torch, leaves, [], []
+        self.also, self.also_norms = also, []
 
     def __enter__(self):
         from repro_torch.train import trainer
@@ -6635,6 +6891,8 @@ class UpdateLog:
                 def recorded(g):
                     n = norm_fn(g)
                     self.norms.append(float(n))
+                    if self.also is not None and not self.also_norms:
+                        self.also_norms.append(float(self.also(norm_fn.__self__, g)))
                     return n
                 kw["grad_norm"] = recorded
             return self.real(params, grads, state, **kw)
@@ -6646,20 +6904,23 @@ class UpdateLog:
         self.trainer.adam_update = self.real
 
 
-def lm_mesh_train(torch, model, db, batch, *, steps=LM_MESH_TRAIN_STEPS, leaves=LM_MESH_LEAVES, log_=None):
+def lm_mesh_train(torch, model, db, batch, *, steps=LM_MESH_TRAIN_STEPS, leaves=LM_MESH_LEAVES, log_=None,
+                  first_values=False, lr=LM_MESH_LR, also=None):
     """``steps`` donated Adam steps of ``model`` (its own tensors) on
     ``batch`` under ``db`` (on the session's mesh, if it has one): losses,
     host times, collectives, the named leaves' gradients and final values
     (host copies) and the global norms; with ``log_`` the kernel calls of
-    the last step."""
+    the last step; with ``first_values`` the leaves' values after step 1
+    too; ``lr`` Adam's learning rate; ``also`` as ``UpdateLog``'s, its
+    number in ``also_norms``."""
     from repro_torch.launch import collectives
     from repro_torch.train import init_train_state, make_train_step
 
     state = init_train_state(model)
-    step = make_train_step(model, lr=LM_MESH_LR, grad_clip=LM_MESH_CLIP, donate=True, database=db)
+    step = make_train_step(model, lr=lr, grad_clip=LM_MESH_CLIP, donate=True, database=db)
     params, opt = state.params, state.opt_state
     rec = {"losses": [], "secs": [], "collectives": []}
-    with UpdateLog(torch, leaves) as upd:
+    with UpdateLog(torch, leaves, also) as upd:
         for i in range(steps):
             if log_ is not None and i == steps - 1:
                 log_.counts.clear()
@@ -6671,9 +6932,11 @@ def lm_mesh_train(torch, model, db, batch, *, steps=LM_MESH_TRAIN_STEPS, leaves=
             rec["secs"].append(time.perf_counter() - t0)
             rec["collectives"].append(collectives.last_collectives())
             rec["losses"].append(float(metrics["loss"]))
+            if first_values and i == 0:
+                rec["params1"] = {k: params[k].detach().to("cpu", copy=True) for k in leaves}
     if log_ is not None:
         rec["pass"] = dict(log_.counts)
-    rec["grads"], rec["norms"] = upd.grads, upd.norms
+    rec["grads"], rec["norms"], rec["also_norms"] = upd.grads, upd.norms, upd.also_norms
     rec["params"] = {k: params[k].detach().cpu() for k in leaves}
     del params, opt, state
     return rec
@@ -6709,17 +6972,14 @@ def plant_method(cls, name, fake):
     return undo
 
 
-def plant_norm_overcount(torch, sharding):
-    """Plant the norm of a step that counts each replicated leaf on every
-    rank that holds it: every rank's Σg² summed over both axes. Returns the
-    undo."""
-    def overcount(self, grads):
-        s = sum(torch.sum(g.float() ** 2) for g in grads.values())
-        for kind in ("model", "data"):
-            s = self.comm.all_reduce(s, kind)
-        return torch.sqrt(s)
-
-    return plant_method(sharding.Placement, "grad_norm", overcount)
+def norm_overcount(torch, place, grads):
+    """The planted norm of a step that counts each replicated leaf on every
+    rank that holds it: every rank's Σg² summed over both axes (a
+    ``Placement.grad_norm`` with the fault; every rank calls it)."""
+    s = sum(torch.sum(g.float() ** 2) for g in grads.values())
+    for kind in ("model", "data"):
+        s = place.comm.all_reduce(s, kind)
+    return torch.sqrt(s)
 
 
 def plant_local_reduce_scatter(collectives):
@@ -6741,7 +7001,9 @@ def plant_local_reduce_scatter(collectives):
 def lm_mesh_rank(rank, path, device):
     """One rank of 24.2-24.5: olmoe-1b-7b served at 16 layers on the 1 × 4
     mesh (twice, then with a model all-reduce dropped), trained 2 steps at
-    2 layers on the 2 × 2 mesh (then a step with each planted fault), on
+    LM_MESH_TRAIN_LAYERS layers on the 2 × 2 mesh (step 1's norm also with
+    a replicated leaf counted on every rank; then a step with a local
+    reduce-scatter), on
     the mesh-less runs' routing; the kernel calls of a pass, their launch
     records against the contract models and the certificates of the
     lowerings. Returns numbers and host tensors."""
@@ -6753,7 +7015,7 @@ def lm_mesh_rank(rank, path, device):
     from repro_torch.analysis.kernelcheck import launch_mismatch
     from repro_torch.kernels import build
     from repro_torch.kernels.common import last_launches
-    from repro_torch.launch import collectives, sharding
+    from repro_torch.launch import collectives
     from repro_torch.launch import mesh as launch_mesh
     from repro_torch.models import build_model, ffn
 
@@ -6814,7 +7076,7 @@ def lm_mesh_rank(rank, path, device):
     batch = {k: v.to(dev) for k, v in blob["batch"].items()}
     db22 = repro_torch.Database(dev, mesh=m22)
 
-    def trained(steps, undo_plant=None, log_=None):
+    def trained(steps, undo_plant=None, log_=None, also=None):
         model = build_model(tcfg, device=dev, seed=0, mesh=m22)
         di = model.placement.index("data")
         bl = LM_MESH_TRAIN_BATCH // model.placement.size("data")
@@ -6822,7 +7084,7 @@ def lm_mesh_rank(rank, path, device):
         try:
             with routing:
                 routing.run(rows)
-                rec = lm_mesh_train(torch, model, db22, batch, steps=steps, log_=log_)
+                rec = lm_mesh_train(torch, model, db22, batch, steps=steps, log_=log_, also=also)
                 rec["routing_moved"] = int(sum(int(d.sum()) for d in routing_differences(
                     torch, routing.own, rows)))
         finally:
@@ -6836,14 +7098,17 @@ def lm_mesh_rank(rank, path, device):
     torch.cuda.reset_peak_memory_stats(dev)
     kern.reset_launch_counts()
     with LaunchLog(torch) as log_:
-        train = trained(LM_MESH_TRAIN_STEPS, log_=log_)
+        # the planted norm (a replicated leaf counted on every rank) of the
+        # same step-1 gradients
+        train = trained(LM_MESH_TRAIN_STEPS, log_=log_,
+                        also=lambda place, grads: norm_overcount(torch, place, grads))
         out["train_launches"] = kern.launch_counts()
     out["train_peak"] = torch.cuda.max_memory_allocated(dev)
     out["train_shapes"] = sorted(log_.counts)
     sites["train"] = (train["pass"], {k: v.cpu() for k, v in log_.ids.items()}, sorted(log_.moe_tiers))
     lowerings += train.pop("lowerings")
     out["train"] = {k: v for k, v in train.items() if k != "pass"}
-    out["planted_norm"] = trained(1, plant_norm_overcount(torch, sharding))["norms"]
+    out["planted_norm"] = train["also_norms"]
     rs = trained(1, plant_local_reduce_scatter(collectives))
     out["planted_rs"] = {"grads": rs["grads"][0], "coords": rs["coords"]}
     del rs, train
@@ -7720,6 +7985,571 @@ def ssm_mesh_phase(torch, repro_torch, kern, dev, smi):
     return {"sites": r0["sites"], "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# Phase 26: MLA on a mesh (deepseek-v3-671b)
+# ---------------------------------------------------------------------------
+
+
+def mla_mesh_config(layers=None, **changes):
+    """deepseek-v3-671b at its published widths in f32 at ``layers`` layers
+    (default phase 19's DSV3_LAYERS)."""
+    return dense_config(DSV3_ARCH, n_layers=layers or DSV3_LAYERS, **changes)
+
+
+def mla_mesh_train_config():
+    """26.1's and 26.3's model: MLA_MESH_TRAIN_LAYERS dense MLA layers (an
+    MoE stage of 0 layers), no remat."""
+    return mla_mesh_config(MLA_MESH_TRAIN_LAYERS, first_k_dense=MLA_MESH_TRAIN_LAYERS, remat=False)
+
+
+def mla_mesh_layers(cfg):
+    from repro_torch.models.model import stages_of
+
+    return [k for st in stages_of(cfg) for k in list(st.pattern) * st.repeats + list(st.tail)]
+
+
+def mla_mesh_shapes(cfg, b, s, m, d, train):
+    """Every kernel call (op, shape) of one rank's forward over a whole
+    batch of B rows of S tokens on a (d × m) data × model mesh, and with
+    ``train`` of its backward: ``dsv3_shapes`` at the rank's shards — its
+    B/d rows; the lookup in its V/m rows of the table and the head's V/m
+    columns (the last position in serving); wq_a at its Q/m columns of the
+    q latent, wq_b at its H/m heads' columns of the whole latent, wkv_a
+    whole, wo at its heads' rows; the dense MLP's and the shared expert's
+    hidden columns over m; the dispatch into its E/m experts' slots, the
+    combine from them and the Σ by token. m = 1 is the mesh-less call."""
+    bl = b // d
+    bs, dm, vl, h, dr = bl * s, cfg.d_model, cfg.vocab // m, cfg.n_heads // m, cfg.rope_head_dim
+    out = {("gather_join", bs, vl, dm), ("segment_sum", bs, dm, bs),
+           ("blocked_matmul", bs if train else bl, dm, vl),
+           ("blocked_matmul", bs, dm, cfg.q_lora_rank // m),
+           ("blocked_matmul", bs, cfg.q_lora_rank, h * (cfg.nope_head_dim + dr)),
+           ("blocked_matmul", bs, dm, cfg.kv_lora_rank + dr),
+           ("blocked_matmul", bs, h * cfg.v_head_dim, dm)}
+    layers = mla_mesh_layers(cfg)
+    if "mla" in layers:
+        out |= {("blocked_matmul", bs, dm, cfg.d_ff // m), ("blocked_matmul", bs, cfg.d_ff // m, dm)}
+    if "mla_moe" in layers:
+        sh = cfg.d_expert_ff * cfg.n_shared_experts // m
+        cap, _, assigned = olmoe_sizes(cfg, bl, s)
+        slots = bl * (cfg.n_experts // m) * cap
+        out |= {("blocked_matmul", bs, dm, sh), ("blocked_matmul", bs, sh, dm),
+                ("gather_join", slots, bs, dm), ("gather_join", assigned, slots, dm),
+                ("segment_sum", assigned, dm, bs)}
+        if train:
+            out |= {("gather_join", assigned, bs, dm), ("segment_sum", assigned, dm, slots),
+                    ("segment_sum", slots, dm, bs)}
+    if train:
+        out |= {("gather_join", bs, bs, dm), ("segment_sum", bs, dm, vl)}
+    return out
+
+
+def mla_mesh_checked_shapes():
+    """The kernel calls of phase 26, which phase 2 checks and phase 26's
+    ranks must launch at no other shape: the prefill and decode steps of
+    26.1 (one rank) and 26.2 (1 × 4), the train steps of 26.1 and 26.3."""
+    cfg, tcfg = mla_mesh_config(), mla_mesh_train_config()
+    out = set()
+    for m in (1, MLA_MESH_RANKS):
+        out |= (mla_mesh_shapes(cfg, LM_MESH_BATCH, LM_MESH_PROMPT, m, 1, False)
+                | mla_mesh_shapes(cfg, LM_MESH_BATCH, 1, m, 1, False)
+                | mla_mesh_shapes(tcfg, MLA_MESH_TRAIN_BATCH, MLA_MESH_TRAIN_SEQ, m, 1, True))
+    return out
+
+
+def mla_mesh_predicted(cfg):
+    """The collectives a rank of the 1 × 4 mesh puts in per prefill and
+    decode step, from the placement: a model all-reduce for the lookup, and
+    per layer for the q latent's Σx², for wo and for the MLP (dense) or the
+    routed experts' combine and the shared expert (MoE); a model all-gather
+    of each layer's q-latent slice and of the head's logits,
+    {(what, "op/axis"): (calls, bytes)}."""
+    m, b, dm, f = MLA_MESH_RANKS, LM_MESH_BATCH, cfg.d_model, 4
+    out = {}
+    for what, s in (("prefill", LM_MESH_PROMPT), ("decode step", 1)):
+        act = b * s * dm * f
+        ar, ag = [act], [b * (cfg.vocab // m) * f]
+        for kind in mla_mesh_layers(cfg):
+            ar += [b * s * f, act, act] + ([act] if kind == "mla_moe" else [])
+            ag.append(b * s * (cfg.q_lora_rank // m) * f)
+        out[what, "all_reduce/model"] = (len(ar), sum(ar))
+        out[what, "all_gather/model"] = (len(ag), sum(ag))
+    return out
+
+
+def mla_mesh_logit_limit(cfg):
+    """26.2's limit on the 1 × 4 logits against the mesh-less run's, as a
+    share of the largest logit, derived as ``ssm_mesh_logit_limit``: each
+    sum the mesh splits into 4 partials — the q latent's Σx² (K = q_lora),
+    wo's contraction (K = H·dv), the dense MLP's (d_ff) or the shared
+    expert's and the routed experts' combine (top_k terms) — is an f32 sum
+    of K terms in another order, off by about √K·u of its size; the sums
+    add as a random walk, √(Σ K)·u, and the limit allows 10 times that. A
+    missing all-reduce leaves 3/4 of a sum out."""
+    ks = []
+    for kind in mla_mesh_layers(cfg):
+        ks += [cfg.q_lora_rank, cfg.n_heads * cfg.v_head_dim]
+        ks += [cfg.d_ff] if kind == "mla" else [cfg.top_k, cfg.d_expert_ff * cfg.n_shared_experts]
+    return 10 * math.sqrt(sum(ks)) * U32
+
+
+def mla_mesh_serve_reference(torch, repro_torch, kern, model, dev):
+    """26.1's serving half and 26.2's mesh-less run, on phase 19's model
+    (deepseek-v3-671b at DSV3_LAYERS layers from seed 0, whose shards 26.2's
+    ranks rebuild): the prefill of LM_MESH_BATCH prompts of LM_MESH_PROMPT
+    tokens and LM_MESH_DECODE decode steps fed seeded tokens, with the
+    routing each call chose, mesh-less; then the same on a one-rank NCCL
+    group's ("model",) mesh, bit for bit (a one-rank shard is the whole
+    leaf: the step runs on the model's own tensors). Host tensors."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import collectives
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.models import ffn
+
+    cfg = model.cfg
+    tokens = lm_mesh_tokens(torch, dev, (LM_MESH_BATCH, LM_MESH_PROMPT), 40, cfg.vocab)
+    fed = lm_mesh_tokens(torch, dev, (LM_MESH_BATCH, LM_MESH_DECODE), 41, cfg.vocab)
+    db = repro_torch.Database(dev)
+    with Routing(torch, ffn) as routing:
+        routing.run()
+        rec = lm_mesh_serve(torch, model, db, tokens, fed)
+        chosen = [(c.cpu(), None) for c, _ in routing.own]
+        routing.run()
+        warm = lm_mesh_serve(torch, model, db, tokens, fed)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mla_mesh_")
+    try:
+        launch_mesh.init_ranks("nccl", 0, 1, os.path.join(tmp, "nccl"), device=torch.device("cuda", 0))
+        try:
+            one = repro_torch.Database(dev, mesh="host")
+            kern.reset_launch_counts()
+            collectives.reset_collectives()
+            got = lm_mesh_serve(torch, model, one, tokens, fed, mesh=one.mesh)
+            launches, coll = kern.launch_counts(), collectives.last_collectives()
+            backend, mesh = dist.get_backend(), str(one.mesh)
+        finally:
+            dist.destroy_process_group()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    equal = torch.equal(got["logits"], rec["logits"])
+    log(f"  26.1 {cfg.name} at {cfg.n_layers} layers (phase 19's model) on a one-rank {backend} group, mesh "
+        f"{mesh}: a prefill of {LM_MESH_BATCH} x {LM_MESH_PROMPT} tokens and {LM_MESH_DECODE} decode steps "
+        f"fed seeded tokens: prefill {warm['secs'][0] * 1e3:.2f} ms mesh-less (second run), "
+        f"{got['secs'][0] * 1e3:.2f} ms on the mesh; collectives {coll or 'none'}; launches {launches}; "
+        f"logits bit-equal to the mesh-less run: {equal}")
+    if not equal:
+        raise AssertionError("26.1: the one-rank mesh's serving is not the mesh-less serving")
+    if not all(launches[op] > 0 for op in GCN_KERNELS):
+        raise AssertionError(f"26.1: a kernel of the one-rank mesh steps never launched: {launches}")
+    del got, rec
+    return {"tokens": tokens.cpu(), "fed": fed.cpu(), "logits": warm["logits"].cpu(),
+            "secs": warm["secs"], "routing": chosen}
+
+
+def mla_mesh_rank(rank, path, device):
+    """One rank of 26.2-26.4: deepseek-v3-671b at DSV3_LAYERS layers served
+    on the 1 × 4 mesh (through ``make_prefill_step(mesh=)``, then again with
+    the prefill through ``BucketedPrefill(mesh=)`` on a mesh-less session,
+    then with layer MLA_MESH_PLANTED_LAYER's wo all-reduce dropped), on the
+    mesh-less run's routing; its dense MLA layers trained on the 1 × 4 mesh
+    (then a step with each planted fault); the kernel calls of a pass,
+    their launch records against the contract models and the certificates
+    of the lowerings. Returns numbers and host tensors."""
+    import torch
+
+    import repro_torch
+    from repro_torch import kernels as kern
+    from repro_torch.analysis import certify_kernels
+    from repro_torch.analysis.kernelcheck import launch_mismatch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.common import last_launches
+    from repro_torch.launch import collectives, sharding
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.models import blocks, build_model, ffn
+    from repro_torch.serving import BucketedPrefill
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dev = torch.device(device)
+    build.library()
+    blob = torch.load(path)
+    out = {"rank": rank}
+    m14 = launch_mesh.make_host_mesh(model=MLA_MESH_RANKS, device_type=dev.type)
+    routing = Routing(torch, ffn)
+    sites, lowerings = {}, []
+
+    # 26.2: served on the 1 × 4 mesh, on the mesh-less run's routing; the
+    # ranks draw their shards in turn (a rank holds one leaf whole while it
+    # draws: 15 GB of an expert projection, beside the others' shards)
+    cfg = mla_mesh_config()
+    sharding.Placement(cfg, m14)   # the mesh's groups, made by every rank at once
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = built_in_turn(torch, lambda: build_model(cfg, device=dev, seed=0, mesh=m14), rank, MLA_MESH_RANKS)
+    out["build_s"] = time.perf_counter() - t0
+    out["serve_param_bytes"] = sum(p.numel() * p.element_size() for p in model.parameters())
+    layer0 = model.stages[0]["scan"][0]
+    out["shard_shapes"] = {n: tuple(p.shape) for n, p in layer0.named_parameters() if ".attn." in n}
+    db = repro_torch.Database(dev, mesh=m14)
+    tokens, fed = blob["tokens"].to(dev), blob["fed"].to(dev)
+    replay = [(c.to(dev), None) for c, _ in blob["serve_routing"]]
+    # the second run's prefill: a bucket of the request's shape on a
+    # mesh-less session, run on the mesh by the keyword
+    bucketed = BucketedPrefill(model, LM_MESH_PROMPT + LM_MESH_DECODE, db=repro_torch.Database(dev),
+                               mesh=m14, buckets=[(LM_MESH_BATCH, LM_MESH_PROMPT)])
+    kern.reset_launch_counts()
+    with routing, LaunchLog(torch) as log_:
+        routing.run(replay)
+        serve = lm_mesh_serve(torch, model, db, tokens, fed, log_=log_)
+        out["serve_launches"] = kern.launch_counts()
+        out["serve_routing_moved"] = int(sum(int(d.sum()) for d in routing_differences(
+            torch, routing.own, replay)))
+        routing.run(replay)
+        again = lm_mesh_serve(torch, model, db, tokens, fed,
+                              prefill=lambda batch: bucketed.prefill(None, batch))
+        # the model all-reduces of a pass: the lookup's, then each layer's
+        # Σx² of the q latent, wo and the MLP
+        undo = drop_one_model_reduce(collectives, 3 * MLA_MESH_PLANTED_LAYER + 2)
+        try:
+            routing.run(replay)
+            planted = lm_mesh_serve(torch, model, db, tokens, fed)
+        finally:
+            undo()
+    out["serve"] = {k: v for k, v in serve.items() if k not in ("logits", "pass")}
+    out["serve"]["logits"] = serve["logits"].cpu()
+    out["serve_again"] = torch.equal(again["logits"], serve["logits"])
+    out["bucketed_prefill"] = torch.equal(again["logits"][0], serve["logits"][0])
+    out["serve_warm_secs"] = again["secs"]
+    out["serve_planted"] = planted["logits"].cpu()
+    out["serve_peak"] = torch.cuda.max_memory_allocated(dev)
+    out["serve_shapes"] = sorted(log_.counts)
+    sites["serve"] = (serve["pass"], {k: v.cpu() for k, v in log_.ids.items()}, sorted(log_.moe_tiers))
+    lowerings += list(model.placement._twin(db)._compiled_refs)
+    lowerings += list(bucketed.db._compiled_refs)
+    del model, serve, again, planted, db, bucketed
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 26.3: the dense MLA layers trained on the 1 × 4 mesh, then a step
+    # with each planted fault
+    tcfg = mla_mesh_train_config()
+    batch = {k: v.to(dev) for k, v in blob["batch"].items()}
+    db14 = repro_torch.Database(dev, mesh=m14)
+
+    def trained(steps, log_=None):
+        model = build_model(tcfg, device=dev, seed=0, mesh=m14)
+        rec = lm_mesh_train(torch, model, db14, batch, steps=steps, leaves=MLA_MESH_LEAVES, log_=log_,
+                            first_values=True, lr=MLA_MESH_LR)
+        rec["grads"] = rec["grads"][:1]   # the parent holds step 1's
+        rec["coords"] = (model.placement.index("data"), model.placement.index("model"))
+        rec["param_bytes"] = sum(p.numel() * p.element_size() for p in model.parameters())
+        rec["lowerings"] = list(model.placement._twin(db14)._compiled_refs)
+        return rec
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    kern.reset_launch_counts()
+    with LaunchLog(torch) as log_:
+        train = trained(MLA_MESH_TRAIN_STEPS, log_=log_)
+        out["train_launches"] = kern.launch_counts()
+    out["train_peak"] = torch.cuda.max_memory_allocated(dev)
+    out["train_shapes"] = sorted(log_.counts)
+    sites["train"] = (train.pop("pass"), {k: v.cpu() for k, v in log_.ids.items()}, sorted(log_.moe_tiers))
+    lowerings += train.pop("lowerings")
+    out["train"] = train
+    out["planted"] = {}
+    for what, owner, name, fake in mla_mesh_plants(sharding, blocks):
+        undo = plant_method(owner, name, fake)
+        try:
+            bad = trained(1)
+        finally:
+            undo()
+        out["planted"][what] = bad["grads"][0]
+        del bad
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # 26.4: every kernel signature of the two passes launched alone at its
+    # site, its launch record against its contract model; the lowerings of
+    # the mesh steps at shard shapes, certified
+    if rank == 0:
+        bad, compared, seen = [], 0, set()
+        for part in ("serve", "train"):
+            for key in sites[part][0]:
+                if key in seen:
+                    continue
+                seen.add(key)
+                info = dict(LaunchLog(torch).info(key), dtype="float32")
+                launched, aligned = record_call(torch, kern, key[0], info, dev)
+                record = last_launches() if launched else ()
+                compared += len(record)
+                miss = launch_mismatch(key[0], info, record,
+                                       **({} if key[0] == "blocked_matmul" else {"aligned": aligned}))
+                if miss:
+                    bad.append(miss)
+        reports = [certify_kernels(c) for c in lowerings if getattr(c, "lowered", None) is not None]
+        out["records"] = (len(seen), compared, bad)
+        out["certified"] = (len(reports), all(r.ok for r in reports))
+        out["sites"] = sites
+    torch.cuda.synchronize()
+    return out
+
+
+def built_in_turn(torch, build, rank, n):
+    """``build()`` in each of the ``n`` ranks in turn, a barrier between,
+    each rank freeing its cached blocks before the next draws: ranks that
+    share one card never draw at once. The mesh's process groups must exist
+    before (their creation is collective)."""
+    import torch.distributed as dist
+
+    out = None
+    for r in range(n):
+        if r == rank:
+            out = build()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def mla_mesh_one_rank_train(torch, repro_torch, kern, dev, smi, batch):
+    """26.1's training half and 26.3's mesh-less steps: the dense MLA
+    layers trained MLA_MESH_TRAIN_STEPS Adam steps mesh-less, then from the
+    same seed on a one-rank NCCL group's ("model",) mesh, bit for bit (the
+    losses, norms, the leaves' step-1 gradients and every final parameter).
+    Returns the mesh-less run (host tensors)."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import collectives
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.models import build_model
+
+    tcfg = mla_mesh_train_config()
+    model = build_model(tcfg, device=dev, seed=0)
+    ref = lm_mesh_train(torch, model, repro_torch.Database(dev), batch, steps=MLA_MESH_TRAIN_STEPS,
+                        leaves=MLA_MESH_LEAVES, first_values=True, lr=MLA_MESH_LR)
+    ref_params = dict(model.named_parameters())
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mla_mesh_")
+    try:
+        launch_mesh.init_ranks("nccl", 0, 1, os.path.join(tmp, "nccl"), device=torch.device("cuda", 0))
+        try:
+            db = repro_torch.Database(dev, mesh="host")
+            kern.reset_launch_counts()
+            collectives.reset_collectives()
+            again = build_model(tcfg, device=dev, seed=0)
+            got = lm_mesh_train(torch, again, db, batch, steps=MLA_MESH_TRAIN_STEPS, leaves=MLA_MESH_LEAVES,
+                                lr=MLA_MESH_LR)
+            launches, coll = kern.launch_counts(), collectives.last_collectives()
+        finally:
+            dist.destroy_process_group()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    equal = {
+        "losses": got["losses"] == ref["losses"],
+        "norms": got["norms"] == ref["norms"],
+        "grads": all(torch.equal(got["grads"][0][k], ref["grads"][0][k]) for k in MLA_MESH_LEAVES),
+        "params": all(torch.equal(p, ref_params[n]) for n, p in again.named_parameters()),
+    }
+    log(f"  26.1 {tcfg.n_layers} dense MLA layers ({sum(p.numel() for p in model.parameters()):,} "
+        f"parameters) on the one-rank group: {MLA_MESH_TRAIN_STEPS} Adam steps (lr {MLA_MESH_LR}) on "
+        f"{MLA_MESH_TRAIN_BATCH} x {MLA_MESH_TRAIN_SEQ} tokens: losses {ref['losses']}, global norms "
+        f"{ref['norms']}; {[round(x, 3) for x in ref['secs']]} s mesh-less and "
+        f"{[round(x, 3) for x in got['secs']]} s on the mesh on {smi}; collectives {coll or 'none'}; "
+        f"launches {launches}; bit-equal to the mesh-less steps: {equal}")
+    if not all(equal.values()):
+        raise AssertionError(f"26.1: the one-rank mesh's train steps are not the mesh-less steps: {equal}")
+    if not all(launches[op] > 0 for op in GCN_KERNELS):
+        raise AssertionError(f"26.1: a kernel of the one-rank mesh train steps never launched: {launches}")
+    del model, again, ref_params, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ref
+
+
+def mla_mesh_phase(torch, repro_torch, kern, dev, smi, serve_ref):
+    """Phase 26 (module docstring): 26.1's serving half ran on phase 19's
+    model (``mla_mesh_serve_reference``, which made 26.2's mesh-less run,
+    ``serve_ref``); here 26.1's training half on a one-rank NCCL group with
+    26.3's mesh-less steps, then 26.2-26.4 in MLA_MESH_RANKS new processes
+    that share the card over gloo (``mla_mesh_rank``). Returns the sites and
+    launches of a pass for phase 8."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.launch.sharding import param_pspecs
+    from repro_torch.models.model import param_shapes
+
+    log(f"  card: {smi}")
+    t0 = time.perf_counter()
+    tcfg = mla_mesh_train_config()
+    tokens = lm_mesh_tokens(torch, dev, (MLA_MESH_TRAIN_BATCH, MLA_MESH_TRAIN_SEQ), 42, tcfg.vocab)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    ref = mla_mesh_one_rank_train(torch, repro_torch, kern, dev, smi, batch)
+    log(f"  26.1's training and 26.3's mesh-less steps: {time.perf_counter() - t0:.1f} s")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mla_mesh_")
+    # the ranks' allocators grow their segments, so that a rank reuses what a
+    # whole table it cut (3.5 GiB) took for a whole expert projection (14
+    # GiB) instead of holding both: the last rank draws beside the others'
+    # 15.17 GB of shards each
+    alloc_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        path = os.path.join(tmp, "mla.pt")
+        torch.save({"tokens": serve_ref["tokens"], "fed": serve_ref["fed"],
+                    "serve_routing": serve_ref["routing"],
+                    "batch": {k: v.cpu() for k, v in batch.items()}}, path)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        ranks = launch_mesh.start_ranks(mla_mesh_rank, MLA_MESH_RANKS, backend="gloo", device="cuda:0",
+                                        args=(path, "cuda:0"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        if alloc_conf is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
+    log(f"  {MLA_MESH_RANKS} ranks started and run in {time.perf_counter() - t1:.1f} s")
+    r0 = ranks[0]
+    cfg = mla_mesh_config()
+    predicted = mla_mesh_predicted(cfg)
+    limit = mla_mesh_logit_limit(cfg)
+
+    log(f"  26.2 {cfg.name} at {cfg.n_layers} layers {mla_mesh_layers(cfg)} on the 1 x {MLA_MESH_RANKS} mesh, "
+        f"{MLA_MESH_RANKS} gloo ranks sharing cuda:0: a prefill of {LM_MESH_BATCH} x {LM_MESH_PROMPT} tokens "
+        f"and {LM_MESH_DECODE} decode steps fed seeded tokens, on the mesh-less run's routing; rank 0's "
+        f"layer-0 attention shards {r0['shard_shapes']}")
+    want = serve_ref["logits"]
+    scale = float(want.abs().max())
+    err = float((r0["serve"]["logits"] - want).abs().max()) / scale
+    planted = float((r0["serve_planted"] - want).abs().max()) / scale
+    for r in ranks:
+        warm = r["serve_warm_secs"]
+        log(f"  rank {r['rank']}: shards {r['serve_param_bytes']} bytes (built in {r['build_s']:.2f} s), "
+            f"peak {r['serve_peak']} bytes; prefill {r['serve']['secs'][0] * 1e3:.2f} ms (first call), "
+            f"{warm[0] * 1e3:.2f} ms (second run, BucketedPrefill); decode steps 2-{LM_MESH_DECODE} "
+            f"{[round(x * 1e3, 2) for x in r['serve']['secs'][2:]]} ms, second run "
+            f"{[round(x * 1e3, 2) for x in warm[2:]]} ms; tokens its own router would have routed "
+            f"otherwise: {r['serve_routing_moved']} assignments")
+        if not torch.equal(r["serve"]["logits"], r0["serve"]["logits"]):
+            raise AssertionError(f"26.2: rank {r['rank']}'s logits differ from rank 0's")
+        if not (r["serve_again"] and r["bucketed_prefill"]):
+            raise AssertionError(f"26.2: rank {r['rank']}'s second run (BucketedPrefill(mesh=)) differs "
+                                 "from its first (make_prefill_step(mesh=))")
+    log(f"  every rank's logits bit-equal to rank 0's: True; a second run, its prefill through "
+        f"BucketedPrefill(mesh=), bit-equal to the first (make_prefill_step(mesh=)): True")
+    log(f"  mesh-less prefill {serve_ref['secs'][0] * 1e3:.2f} ms, decode steps 2-{LM_MESH_DECODE} "
+        f"{[round(x * 1e3, 2) for x in serve_ref['secs'][2:]]} ms (phase 19's model, one process, its "
+        "second run)")
+    for i, what in ((0, "prefill"), (1, "decode step")):
+        for name, rec in sorted(r0["serve"]["collectives"][i].items()):
+            p = predicted.get((what, name))
+            log(f"  {what} collective {name}: {rec['calls']} calls, {rec['bytes']} bytes per rank "
+                f"(predicted from the placement: {p[0] if p else '-'} calls, {p[1] if p else '-'} bytes)")
+    log(f"  logits against the mesh-less run: max |Δ| / max |logit| = {err:.3e} (limit {limit:.3e}); "
+        f"planted (layer {MLA_MESH_PLANTED_LAYER}'s wo all-reduce left out): {planted:.3e}, "
+        f"{planted / limit:.1f} x the limit")
+    if err > limit:
+        raise AssertionError("26.2: the 1 x 4 mesh's logits differ from the mesh-less run's")
+    if planted <= 100 * limit:
+        raise AssertionError("26.2: the logit limit passes a missing all-reduce")
+    for op in GCN_KERNELS:
+        if r0["serve_launches"][op] <= 0:
+            raise AssertionError(f"26.2: {op} never launched on the 1 x 4 mesh")
+
+    log(f"  26.3 {tcfg.n_layers} dense MLA layers on the 1 x {MLA_MESH_RANKS} mesh: {MLA_MESH_TRAIN_STEPS} "
+        f"Adam steps (lr {MLA_MESH_LR}, grad_clip {LM_MESH_CLIP}, no remat) on {MLA_MESH_TRAIN_BATCH} x "
+        f"{MLA_MESH_TRAIN_SEQ} tokens")
+    shapes = param_shapes(tcfg)
+    specs = param_pspecs(shapes, {"data": 1, "model": MLA_MESH_RANKS})
+    t = r0["train"]
+    for r in ranks:
+        rt = r["train"]
+        log(f"  rank {r['rank']} at (data, model) {rt['coords']}: shards {rt['param_bytes']} bytes, peak "
+            f"{r['train_peak']} bytes; steps {[round(x, 3) for x in rt['secs']]} s; the last step's "
+            f"collectives (calls, bytes) "
+            f"{ {k: (v['calls'], v['bytes']) for k, v in sorted(rt['collectives'][-1].items())} }")
+        if rt["losses"] != t["losses"] or rt["norms"] != t["norms"]:
+            raise AssertionError(f"26.3: rank {r['rank']}'s losses or norms differ from rank 0's")
+    dloss = max(abs(x - y) / abs(y) for x, y in zip(t["losses"], ref["losses"]))
+    dnorm = max(abs(x - y) / y for x, y in zip(t["norms"], ref["norms"]))
+    log(f"  losses {t['losses']} (mesh-less {ref['losses']}): rel diff {dloss:.3e} (limit "
+        f"{OLMOE_LOSS_LIMIT}); global norms {t['norms']} (mesh-less {ref['norms']}): rel diff "
+        f"{dnorm:.3e} (limit {LM_MESH_NORM_LIMIT})")
+    grad_parts = [(r["train"]["coords"], r["train"]["grads"][0]) for r in ranks]
+    param_parts = [(r["train"]["coords"], r["train"]["params"]) for r in ranks]
+    first_parts = [(r["train"]["coords"], r["train"]["params1"]) for r in ranks]
+    planted = {what: {} for what in r0["planted"]}
+    for name in MLA_MESH_LEAVES:
+        def whole(parts):
+            return lm_mesh_whole(torch, parts, name, shapes[name], specs).to(dev)
+
+        want = ref["grads"][0][name].to(dev)
+        gerr = rel_err(whole(grad_parts), want)
+        dp = (whole(param_parts) - ref["params"][name].to(dev)).abs()
+        # Adam's first step is lr·g/(|g| + eps): where the step-1 gradient
+        # is at least 1e-4 of its leaf's largest it moves by far less than
+        # 1e-3·lr for the gradient's rounding, and the share of entries
+        # beyond that is held to 1e-3 (25.3's criterion) after step 1. An
+        # entry whose step-1 gradient lies within rounding of 0 may step the
+        # other way on the mesh, so the step-2 gradients differ by more than
+        # rounding: the final values are held to 2·steps·lr
+        d1 = (whole(first_parts) - ref["params1"][name].to(dev)).abs()
+        clear = want.abs() >= 1e-4 * want.abs().max()
+        far = float((d1[clear] > 1e-3 * MLA_MESH_LR).double().mean())
+        for what in planted:
+            planted[what][name] = rel_err(whole([(r["train"]["coords"], r["planted"][what])
+                                                 for r in ranks]), want)
+        log(f"  {name} {specs[name]}: step-1 gradient rel err {gerr:.3e} (limit {OLMOE_GRAD_LIMIT}); values "
+            f"after step 1 beyond 1e-3·lr: a share {far:.2e} of the {int(clear.sum())} entries with clear "
+            f"gradients (limit 1e-3); final values max |Δ| {float(dp.max()):.3e} (limit "
+            f"{2 * MLA_MESH_TRAIN_STEPS * MLA_MESH_LR:g}), beyond 1e-3·lr "
+            f"{int((dp > 1e-3 * MLA_MESH_LR).sum())} of {dp.numel()}")
+        if gerr > OLMOE_GRAD_LIMIT or float(dp.max()) > 2 * MLA_MESH_TRAIN_STEPS * MLA_MESH_LR or far > 1e-3:
+            raise AssertionError(f"26.3's {name} differs from the mesh-less steps")
+        del want, dp, d1, clear
+    torch.cuda.empty_cache()
+    if dloss > OLMOE_LOSS_LIMIT or dnorm > LM_MESH_NORM_LIMIT:
+        raise AssertionError("26.3's losses or norms differ from the mesh-less steps")
+    for what, errs in planted.items():
+        worst = max(errs, key=errs.get)
+        over = {n: f"{v:.2e}" for n, v in errs.items() if v > OLMOE_GRAD_LIMIT}
+        log(f"  planted ({what}): step-1 gradient rel errs beyond the limit {OLMOE_GRAD_LIMIT}: {over}; "
+            f"the worst, {worst}, at {errs[worst] / OLMOE_GRAD_LIMIT:.1f} x the limit")
+        if errs[worst] <= 10 * OLMOE_GRAD_LIMIT:
+            raise AssertionError(f"26.3's limits pass a planted fault ({what})")
+    for op in GCN_KERNELS:
+        if r0["train_launches"][op] <= 0:
+            raise AssertionError(f"26.3: {op} never launched in the mesh train steps")
+
+    log("  26.4 the kernel sites of a pass at the shard shapes")
+    checked = mla_mesh_checked_shapes()
+    off = sorted({k for r in ranks for k in r["serve_shapes"] + r["train_shapes"]} - checked)
+    if off:
+        raise AssertionError(f"kernel calls at shapes phase 2 did not check: {off[:4]}")
+    tiers = set(r0["sites"]["serve"][2]) | set(r0["sites"]["train"][2])
+    sites_n, compared, bad = r0["records"]
+    n_cert, cert_ok = r0["certified"]
+    log(f"  MoE sites: {sorted(tiers)}; launch records of {sites_n} shard-shape sites, {compared} "
+        f"launches held to the contract models: {len(bad)} mismatches {bad[:3]}; certify_kernels over "
+        f"{n_cert} lowerings of the mesh steps: ok {cert_ok}")
+    if bad or not cert_ok or any(t_ != "cuda" for _, t_ in tiers):
+        raise AssertionError("the mesh steps' kernel sites do not certify")
+    launches = {op: sum(r["serve_launches"][op] + r["train_launches"][op] for r in ranks)
+                for op in GCN_KERNELS}
+    return {"serve": r0["sites"]["serve"], "train": r0["sites"]["train"], "launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -7881,6 +8711,9 @@ def main() -> int:
     dense["deepseek_v3_serve"], model = zoo_serve_phase(
         torch, repro_torch, kern, dsv3_config(), dev, zoo_checked,
         DSV3_BATCH, DSV3_PROMPT, DSV3_DECODE, DSV3_PARAMS)
+    # 26.1's serving half and phase 26's mesh-less run, on this model, whose
+    # shards phase 26's ranks rebuild from its seed
+    mla_mesh_ref = mla_mesh_serve_reference(torch, repro_torch, kern, model, dev)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -7897,7 +8730,8 @@ def main() -> int:
         torch, repro_torch, kern, whisper_cfg, dev, model, zoo_checked, s=WHISPER_PROMPT,
         new=WHISPER_ENDPOINT_NEW, budgets=WHISPER_ENDPOINT_BUDGETS,
         bucket_sizes=WHISPER_ENDPOINT_BUCKETS,
-        make_batch=lambda t: {"tokens": t, "frames": seeded_rows(torch, dev, t, frames)})
+        make_batch=lambda t: {"tokens": t, "frames": seeded_rows(torch, dev, t, frames)},
+        gather_window=ENDPOINT_GATHER_WINDOW_S)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -7961,11 +8795,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"  phase 25: {time.perf_counter() - t0:.1f} s")
 
+    # phase 26 runs after phase 25, before phase 8, which times its sites too
+    log("phase 26: deepseek-v3-671b (MLA) on a mesh")
+    t0 = time.perf_counter()
+    mla_mesh = mla_mesh_phase(torch, repro_torch, kern, dev, smi, mla_mesh_ref)
+    del mla_mesh_ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  phase 26: {time.perf_counter() - t0:.1f} s")
+
     log("phase 8: timings at the shapes of the main paths")
     log(smi)
     t0 = time.perf_counter()
     records = timing_phase(torch, graph, {"sites": sites, "launches": launches}, logreg, nnmf, kge,
-                           lm, oocore, olmoe, ssm, dense, mesh, lm_mesh, ssm_mesh, errs, dev)
+                           lm, oocore, olmoe, ssm, dense, mesh, lm_mesh, ssm_mesh, mla_mesh, errs, dev)
     log(f"  phase 8: {time.perf_counter() - t0:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)

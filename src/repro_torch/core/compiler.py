@@ -955,6 +955,78 @@ def _execute_graph(
         ex = None  # noqa: F841
 
 
+def _table_for(dispatch, env: Env, seed: Optional[AnyRel] = None) -> kernels.DispatchTable:
+    """``dispatch`` as a DispatchTable for the device type of ``env``."""
+    from .engine import env_device
+
+    return kernels.make_table(dispatch, backend=env_device(env, seed).type)
+
+
+def execute(
+    root: fra.Node,
+    env: Env,
+    cache: Optional[Env] = None,
+    *,
+    fuse_join_agg: bool = True,
+    dispatch=None,
+) -> AnyRel:
+    """Eager execution: the engine's eager mode on an anonymous graph. It
+    walks the graph at every call and registers no engine (callers often
+    build throwaway graphs; interning them would only pin memory). Use the
+    ``repro_torch.Database`` session (``db.query(...)`` /
+    ``db.execute(...)``) for the staged path.
+
+    ``dispatch`` accepts anything ``kernels.make_table`` does (a tier
+    name, a {op: tier} dict, a DispatchTable); None keeps the default of
+    the device type the environment lies on (the CUDA kernels on the
+    card, the plain torch lowerings on the CPU)."""
+    table = _table_for(dispatch, env)
+    return _execute_graph(
+        root, env, cache, fuse_join_agg=fuse_join_agg, dispatch=table
+    )
+
+
+def run_query(q: fra.Query, env: Env, *, dispatch=None) -> AnyRel:
+    """Eager execution of a whole Query (see ``execute``)."""
+    return _execute_graph(q.root, env, dispatch=_table_for(dispatch, env))
+
+
+def execute_with_cache(
+    root: fra.Node, env: Env, *, fuse_join_agg: bool = True, dispatch=None
+) -> Tuple[AnyRel, Env]:
+    """Forward pass caching every evaluated node's chunked relation under
+    ``__fwd_<id>``, for the gradient graphs (Algorithm 2 line 6). Joins
+    consumed by a fusing Agg are evaluated inside the fused product and are
+    not cached on their own; pass ``fuse_join_agg=False`` when the
+    gradient program was built without join-agg fusion and needs the join
+    intermediates."""
+    fwd: Env = {}
+    out = _execute_graph(
+        root, env, cache=fwd, fuse_join_agg=fuse_join_agg,
+        dispatch=_table_for(dispatch, env),
+    )
+    return out, fwd
+
+
+def grad_eval(
+    prog,
+    env: Env,
+    seed: Optional[AnyRel] = None,
+    *,
+    fuse_join_agg: bool = True,
+    dispatch=None,
+) -> Tuple[AnyRel, Dict[str, AnyRel]]:
+    """Execute a GradientProgram (autodiff.py) eagerly: the forward with
+    its cache, then each gradient query graph, under one table for all of
+    them. A thin wrapper over the engine's eager mode; the staged
+    equivalent is a ``repro_torch.Database`` handle's ``step()``."""
+    from .engine import engine_for
+
+    return engine_for(prog, fuse_join_agg=fuse_join_agg).eager(
+        env, seed, dispatch=dispatch
+    )
+
+
 # ---------------------------------------------------------------------------
 # The executor on a mesh: one rank's shards, explicit collectives
 # ---------------------------------------------------------------------------

@@ -504,6 +504,13 @@ class Lowered:
         #: Compiled whose committed-layout plan the catalog stands by.
         self._auto: "OrderedDict[Tuple, Compiled]" = OrderedDict()
 
+    def eager(self, env: Env, seed: Optional[AnyRel] = None):
+        """Un-staged execution of this lowering's program under its table
+        (re-walks the graph; debugging only)."""
+        return self.engine._execute(
+            env, seed, dispatch=self.dispatch, program=self.program
+        )
+
     def compile(
         self,
         mesh=None,
@@ -764,8 +771,10 @@ class StreamedCompiled:
     def resolutions(self) -> Dict[str, str]:
         return self._inner.resolutions if self._inner is not None else {}
 
-    #: waves run on one device: a memory budget on a mesh waits
-    mesh = None
+    @property
+    def mesh(self):
+        """The inner ``Compiled``'s mesh (None before the first call)."""
+        return self._inner.mesh if self._inner is not None else None
 
     @property
     def plans(self):

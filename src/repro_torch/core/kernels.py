@@ -343,6 +343,7 @@ class KernelImpl:
     tier: str
     fn: Callable
     backends: Tuple[str, ...] = ()   # () = any device type
+    priority: int = 0                # higher wins within a tier
     predicate: Optional[Callable] = None
 
     def __repr__(self) -> str:
@@ -359,18 +360,22 @@ def register_impl(
     fn: Callable,
     *,
     backends: Tuple[str, ...] = (),
+    priority: int = 0,
     predicate: Optional[Callable] = None,
 ) -> KernelImpl:
     """Register a physical implementation for a logical op under a tier.
 
-    Entries within one (op, tier) bucket are tried in registration order;
-    the first whose backend list admits the table's device type and whose
-    predicate accepts the site's shape/dtype info wins.
+    Entries within one (op, tier) bucket are tried in decreasing
+    ``priority``, in registration order among equals; the first whose
+    backend list admits the table's device type and whose predicate
+    accepts the site's shape/dtype info wins.
     """
     if tier not in DISPATCH_TIERS:
         raise ValueError(f"unknown tier {tier!r}; have {DISPATCH_TIERS}")
-    impl = KernelImpl(op, tier, fn, tuple(backends), predicate)
-    _IMPLS.setdefault((op, tier), []).append(impl)
+    impl = KernelImpl(op, tier, fn, tuple(backends), priority, predicate)
+    bucket = _IMPLS.setdefault((op, tier), [])
+    bucket.append(impl)
+    bucket.sort(key=lambda i: -i.priority)  # stable: equals keep their order
     return impl
 
 

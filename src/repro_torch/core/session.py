@@ -159,7 +159,11 @@ class Catalog:
         name: str,
         relation: AnyRel,
         key_attrs: Optional[Sequence[str]] = None,
+        *,
+        refresh_stats: bool = True,
     ) -> TableEntry:
+        """Register ``relation`` under ``name``. ``refresh_stats=False``
+        keeps the previous entry's statistics (when there is one)."""
         prev = self._tables.get(name)
         if key_attrs is None:
             if prev is not None and len(prev.key_attrs) == relation.key_arity:
@@ -172,7 +176,11 @@ class Catalog:
                 f"relation {name!r}: {len(key_attrs)} key attribute name(s) "
                 f"{key_attrs} for key arity {relation.key_arity}"
             )
-        entry = TableEntry(name, relation, key_attrs, measure_stats(relation))
+        if refresh_stats or prev is None:
+            stats = measure_stats(relation)
+        else:
+            stats = prev.stats
+        entry = TableEntry(name, relation, key_attrs, stats)
         self._tables[name] = entry
         return entry
 
@@ -384,13 +392,17 @@ class Database:
         value,
         *,
         keys: Optional[Sequence[str]] = None,
+        key_arity: Optional[int] = None,
+        refresh_stats: bool = True,
     ) -> "Database":
         """Register (or update) a named relation on the session's device
         and refresh its tracked statistics. ``value`` is a relation, or an
         array (tensor or numpy) made into a ``DenseRelation`` whose key
-        arity is ``len(keys)`` (every dim when ``keys`` is None) — the
-        leading dims are the key grid, the rest the tuple chunk. Returns
-        the session for chaining.
+        arity is ``len(keys)``, else ``key_arity``, else every dim — the
+        leading dims are the key grid, the rest the tuple chunk.
+        ``refresh_stats=False`` keeps the previous statistics (it skips the
+        COO distinct-count pass when only values changed). Returns the
+        session for chaining.
 
         Under a ``memory_budget``, a relation larger than the budget is
         kept on the host (the host tier: a step streams it in waves, and
@@ -399,7 +411,12 @@ class Database:
         spills the new data."""
         if not isinstance(value, (DenseRelation, CooRelation)):
             arr = torch.as_tensor(value)
-            arity = arr.dim() if keys is None else len(tuple(keys))
+            if keys is not None:
+                arity = len(tuple(keys))
+            elif key_arity is not None:
+                arity = key_arity
+            else:
+                arity = arr.dim()
             value = DenseRelation(arr, arity)
         device = self.device
         if (
@@ -408,7 +425,9 @@ class Database:
         ):
             device = torch.device("cpu")
         self._chunkstore.drop(name)
-        self.catalog.put(name, to_device(value, device), keys)
+        self.catalog.put(
+            name, to_device(value, device), keys, refresh_stats=refresh_stats
+        )
         return self
 
     def get(self, name: str) -> AnyRel:
@@ -820,6 +839,7 @@ class Database:
         env: Dict[str, AnyRel],
         seed: Optional[AnyRel] = None,
         *,
+        donate: Tuple[str, ...] = (),
         stats: Optional[Dict[str, planner.RelationStats]] = None,
         mesh=None,
     ):
@@ -830,11 +850,26 @@ class Database:
         registered catalog table by name, layout class and extents, that
         relation's tracked statistics feed the planner and the rewrite
         gate. ``mesh`` overrides the session's step mesh (an operator's
-        backward passes the mesh its forward ran on)."""
+        backward passes the mesh its forward ran on).
+
+        ``donate`` names env relations the caller hands over to the step,
+        as ``QueryHandle.step(donate=)`` does: one that is also the
+        catalog's relation of that name is marked donated, and reading it
+        raises until it is ``put`` again."""
+        donate = tuple(sorted(donate))
+        missing = [n for n in donate if n not in env]
+        if missing:
+            raise KeyError(f"cannot donate {missing}: not in the environment ({sorted(env)})")
         if stats is None:
             stats = self._catalog_stats_for(env)
-        compiled = self._compiled_for(program, env, seed, stats=stats, mesh=mesh)
-        return compiled(env, seed)
+        compiled = self._compiled_for(
+            program, env, seed, donate=donate, stats=stats, mesh=mesh
+        )
+        out = compiled(env, seed)
+        for n in donate:
+            if n in self.catalog and self.catalog.entry(n).relation is env[n]:
+                self.catalog.entry(n).donated = True
+        return out
 
 
 # ---------------------------------------------------------------------------

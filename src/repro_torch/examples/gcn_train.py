@@ -8,13 +8,17 @@ with Adam. The reference's ``examples/gcn_train.py`` step for step: the
 same graph, labels and initial weights from the same numpy seeds.
 
 Supports full-graph training (the mode only RA-GCN could reach in the
-paper) and mini-batch training, mirroring the paper's two rows. The
-reference's ``--mesh`` waits for multi-GPU planning (ROADMAP.md).
+paper) and mini-batch training, mirroring the paper's two rows.
 
 Run:  PYTHONPATH=src python -m repro_torch.examples.gcn_train [--nodes 2048] [--edges 16384]
-      [--epochs 30] [--mode full|minibatch] [--device cpu]
+      [--epochs 30] [--mode full|minibatch] [--device cpu] [--mesh host:2]
 
-It runs on the CUDA device unless ``--device`` names another.
+It runs on the CUDA device unless ``--device`` names another. ``--mesh``
+is the session's mesh spec (``launch/mesh.resolve_mesh``). In a process
+that has no process group yet, ``host[:<n>]`` starts n ranks (1 without
+a number) through ``launch.mesh.start_ranks`` — gloo on the CPU, NCCL on
+the card for one rank, gloo for several ranks sharing the card — and
+each rank trains through ``Database(mesh=...)``; rank 0 prints.
 """
 
 from __future__ import annotations
@@ -44,12 +48,17 @@ def parse_args(argv=None):
     ap.add_argument("--mode", choices=("full", "minibatch"), default="full")
     ap.add_argument("--batch", type=int, default=1024)   # paper: B=1024
     ap.add_argument("--device", default=None, help='default "cuda"')
+    ap.add_argument("--mesh", default=None,
+                    help='session mesh spec, e.g. "host:2" (default: none)')
     return ap.parse_args(argv)
 
 
-def train(args) -> List[Tuple[float, float]]:
-    """Run the epochs of ``args``; returns (loss, accuracy) of every step."""
-    db = repro_torch.Database(device=args.device)
+def train(args, rank: int = 0) -> List[Tuple[float, float]]:
+    """Run the epochs of ``args`` (on this process's rank of
+    ``args.mesh``, if any); returns (loss, accuracy) of every step. Only
+    rank 0 prints."""
+    say = print if rank == 0 else (lambda *a, **k: None)
+    db = repro_torch.Database(device=args.device, mesh=args.mesh)
     dev = db.device
     g = synthetic_graph(args.nodes, args.edges, args.feat, args.labels, seed=0)
     keys = torch.as_tensor(g["edge_keys"], device=dev)
@@ -60,7 +69,7 @@ def train(args) -> List[Tuple[float, float]]:
     # statistics (distinct src/dst counts, nnz, density).
     db.put("Edge", repro_torch.CooRelation(keys, w, (args.nodes, args.nodes)),
            keys=("src", "dst"))
-    print(f"catalog Edge: keys={db.schema('Edge')}  {db.stats('Edge')}")
+    say(f"catalog Edge: keys={db.schema('Edge')}  {db.stats('Edge')}")
     rng = np.random.default_rng(0)
     proj = rng.normal(size=(args.feat, args.labels)).astype(np.float32)
     with db.activate(), torch.no_grad():
@@ -93,8 +102,8 @@ def train(args) -> List[Tuple[float, float]]:
         return params, opt, float(loss.detach()), float(acc)
 
     all_nodes = torch.arange(args.nodes, device=dev)
-    print(f"mode={args.mode}  |V|={args.nodes} |E|={keys.shape[0]} "
-          f"feat={args.feat} hidden={args.hidden}  device={dev}")
+    say(f"mode={args.mode}  |V|={args.nodes} |E|={keys.shape[0]} "
+        f"feat={args.feat} hidden={args.hidden}  device={dev}")
     out = []
     with db.activate():
         for epoch in range(args.epochs):
@@ -110,12 +119,39 @@ def train(args) -> List[Tuple[float, float]]:
                     out.append((loss, acc))
             dt = time.time() - t0
             if epoch % 5 == 0 or epoch == args.epochs - 1:
-                print(f"epoch {epoch:3d}  loss {loss:.4f}  acc {acc:.3f}  {dt*1e3:.0f} ms")
+                say(f"epoch {epoch:3d}  loss {loss:.4f}  acc {acc:.3f}  {dt*1e3:.0f} ms")
     return out
 
 
+def _rank_train(rank: int, args) -> List[Tuple[float, float]]:
+    return train(args, rank)
+
+
+def run(args) -> List[Tuple[float, float]]:
+    """``train(args)``, on ``args.mesh``'s ranks where it names
+    ``host[:<n>]`` and this process has no process group: then n new
+    processes train, and rank 0's steps are returned."""
+    import torch.distributed as dist
+
+    if args.mesh is None or dist.is_initialized():
+        return train(args)
+    name, _, n = str(args.mesh).partition(":")
+    if name != "host":
+        raise ValueError(f"--mesh {args.mesh!r} needs a process group started by the caller; "
+                         "without one only 'host[:<n>]' starts its ranks")
+    from repro_torch.core.session import resolve_device
+    from repro_torch.launch.mesh import start_ranks
+
+    n = int(n) if n else 1
+    dev = resolve_device(args.device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    backend = "nccl" if dev.type == "cuda" and n == 1 else "gloo"
+    return start_ranks(_rank_train, n, backend=backend, device=dev, args=(args,))[0]
+
+
 def main(argv=None) -> None:
-    out = train(parse_args(argv))
+    out = run(parse_args(argv))
     if not out[-1][1] > 0.5:
         raise AssertionError("training failed to learn")
     print("done.")

@@ -24,8 +24,8 @@ XLA's partitioner places the reference's collectives; the port has none,
 so a ``Placement`` runs its model explicitly: each rank holds its shards
 (``shard``, or a model built on the mesh), computes on them, and calls
 the collectives of ``launch/collectives.py`` where the partitioner would
-put them (``models/``: the attention (full or windowed) and MLP column-
-then row-parallel, the experts split over the model ranks, the SSM
+put them (``models/``: the attention (full, windowed or MLA) and MLP
+column- then row-parallel, the experts split over the model ranks, the SSM
 layers on the rank's channels or heads with the scan local, the
 vocabulary-parallel embedding and head, tied or not, the FSDP gathers;
 ``train/trainer.py``: the data-parallel gradient sums and the global
@@ -88,7 +88,8 @@ _MOE_3D = ("wi_gate", "wi_up", "wo")  # (E, ·, ·): experts on "model"
 DP = ("pod", "data")  # batch axes superset; hint() drops absent names
 
 #: the block kinds a ``Placement`` runs on a mesh
-MESH_KINDS = ("attn", "moe", "local", "global", "mamba1", "mamba2", "mamba2_attn")
+MESH_KINDS = ("attn", "moe", "local", "global", "mla", "mla_moe", "mamba1", "mamba2",
+              "mamba2_attn")
 
 
 def axis_sizes(mesh) -> Dict[str, int]:
@@ -429,9 +430,10 @@ class Placement:
     process group's ranks: ``("model",)`` or ``("data", "model")``): the
     specs of its parameters, this rank's coordinates, and the collectives
     its step calls. The kinds of ``MESH_KINDS`` are placed, tied
-    embeddings included; an ``mla``/``mla_moe`` or ``enc``/``dec`` layer,
-    a vision prefix or a ``pod`` axis raise ``NotImplementedError``
-    (ROADMAP.md).
+    embeddings included; an ``enc``/``dec`` layer, a vision prefix or a
+    ``pod`` axis raise ``NotImplementedError`` (ROADMAP.md). An SSM
+    layer's channels, heads and state, and an MLA layer's heads and q
+    latent, must split over the model ranks (else ``ValueError``).
 
     ``shard`` cuts the rank's shards of whole parameters; the model's
     entry points (``Model.prefill(..., place=)``) run on those within
@@ -467,12 +469,15 @@ class Placement:
                 f"{cfg.name} on a mesh: {', '.join(what)} not placed yet; this slice places "
                 f"the {'/'.join(MESH_KINDS)} kinds (ROADMAP.md, queue 1)")
         # an SSM layer runs on its channels (heads) and its slice of the
-        # state: they must split over the model ranks
+        # state, an MLA layer on its heads and its slice of the q latent:
+        # they must split over the model ranks
         di, need = cfg.ssm_expand * cfg.d_model, []
         if "mamba1" in kinds:
             need.append((di, "channels"))
         if kinds & {"mamba2", "mamba2_attn"}:
             need += [(di // cfg.ssm_head_dim, "SSM heads"), (cfg.ssm_state, "state columns")]
+        if kinds & {"mla", "mla_moe"}:
+            need += [(cfg.n_heads, "MLA heads"), (cfg.q_lora_rank, "q latent columns")]
         bad = [f"{n} {w}" for n, w in need if n % sizes.get("model", 1)]
         if bad:
             raise ValueError(f"{cfg.name} on a mesh: {', '.join(bad)} do not split over "

@@ -237,15 +237,34 @@ def mla_apply(p, x, ctx):
     ``wq_a``, ``wq_b``, ``wkv_a`` and ``wo`` go through ``rel_linear``;
     the up-projections ``wk_b``/``wv_b`` are einsums (``common.einsum``),
     as the reference's ``jnp.einsum``. A prefill pads v to the query's
-    head dim dn + dr for the shared attention and slices it back."""
+    head dim dn + dr for the shared attention and slices it back.
+
+    On a mesh whose model ranks split it (``ctx["place"]``), a rank runs
+    its heads: ``wq_a`` makes its slice of the q latent, normalised with
+    the Σx² summed over the ranks and its slice of ``q_norm``, then
+    gathered whole for its columns of ``wq_b`` (``gather_summed``: every
+    rank's use of the whole latent gives part of its gradient); ``wkv_a``
+    and ``kv_norm`` are whole on every rank, and so are c_kv and k_rope
+    and the latent cache, which every head reads (``_latent``); the
+    rank's columns of ``wk_b``/``wv_b`` give its heads' k and v, and its
+    rows of ``wo`` a partial sum added over the ranks."""
     cfg = ctx["cfg"]
     b, s, _ = x.shape
     h, dn, dr, dv, dc = (cfg.n_heads, cfg.nope_head_dim, cfg.rope_head_dim,
                          cfg.v_head_dim, cfg.kv_lora_rank)
     mode = ctx["mode"]
     pos = ctx["positions"]
+    place = ctx.get("place")
+    split = place is not None and place.size("model") > 1
 
-    q = rel_linear(rms_norm(rel_linear(x, p["wq_a"]), p["q_norm"], cfg.norm_eps), p["wq_b"])
+    if split:
+        h //= place.size("model")
+        ql = rel_linear(place.copy_to(x), p["wq_a"])
+        ql = rms_norm(ql, place.scatter_to(p["q_norm"], 0), cfg.norm_eps,
+                      sum_over=place.psum, width=cfg.q_lora_rank)
+        q = rel_linear(place.gather_summed(ql, -1), p["wq_b"])
+    else:
+        q = rel_linear(rms_norm(rel_linear(x, p["wq_a"]), p["q_norm"], cfg.norm_eps), p["wq_b"])
     q = q.reshape(b, s, h, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = apply_rope(q_rope, pos, cfg.rope_theta)
@@ -254,6 +273,8 @@ def mla_apply(p, x, ctx):
     c_kv, k_rope = kv[..., :dc], kv[..., dc:]
     c_kv = rms_norm(c_kv, p["kv_norm"], cfg.norm_eps)
     k_rope = apply_rope(k_rope[:, :, None, :], pos, cfg.rope_theta)   # (B,S,1,dr)
+    if split:
+        c_kv, k_rope = _latent(place, c_kv, k_rope)
 
     wk_b = p["wk_b"].reshape(dc, h, dn)
     wv_b = p["wv_b"].reshape(dc, h, dv)
@@ -292,7 +313,15 @@ def mla_apply(p, x, ctx):
             new_cache = {"c": F.pad(c_kv, pad).to(_dt(cfg)),
                          "r": F.pad(k_rope[:, :, 0, :], pad).to(_dt(cfg))}
     y = rel_linear(out.reshape(b, s, h * dv), p["wo"])
-    return y, new_cache
+    return (place.reduce(y) if split else y), new_cache
+
+
+def _latent(place, c_kv, k_rope):
+    """c_kv and k_rope as a rank's heads read them: whole on every rank,
+    from the replicated ``wkv_a`` and ``kv_norm``, while each rank's heads
+    give only part of their gradient, which ``copy_to`` sums over the
+    model ranks backward."""
+    return place.copy_to(c_kv), place.copy_to(k_rope)
 
 
 # ---------------------------------------------------------------------------

@@ -9,7 +9,9 @@ reference's weights across (``convert.lm_params``).
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import contextlib
+import contextvars
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -21,13 +23,14 @@ from repro_torch.core import remat
 class ParamTree(nn.Module):
     """Parameters addressed like the reference's pytree: ``p["ln1"]`` is a
     parameter, ``p["attn"]["wq"]`` one of a sublayer's, ``"shared" in p``
-    asks for a part. A tensor part becomes a parameter; a module part (a
-    ``ParamTree``, an ``nn.ParameterDict``) a submodule."""
+    asks for a part. A tensor part becomes a parameter (a parameter part
+    is kept as it is); a module part (a ``ParamTree``, an
+    ``nn.ParameterDict``) a submodule."""
 
     def __init__(self, **parts):
         super().__init__()
         for name, part in parts.items():
-            if isinstance(part, torch.Tensor):
+            if isinstance(part, torch.Tensor) and not isinstance(part, nn.Parameter):
                 part = nn.Parameter(part)
             setattr(self, name, part)
 
@@ -171,21 +174,45 @@ class MetaGenerator:
     device = torch.device("meta")
 
 
+#: while set (``keeping``), what the initializers keep of each leaf they
+#: draw: a model drawn on a mesh keeps the rank's shard, so that no leaf is
+#: held whole past its draw
+_KEEP: contextvars.ContextVar[Optional[Callable[[torch.Tensor], torch.Tensor]]] = (
+    contextvars.ContextVar("repro_torch_init_keep", default=None))
+
+
+@contextlib.contextmanager
+def keeping(keep: Callable[[torch.Tensor], torch.Tensor]):
+    """Within the block, ``dense_init`` and ``embed_init`` return
+    ``keep(leaf)`` of each leaf they draw (on ``meta``: they would draw),
+    in draw order."""
+    token = _KEEP.set(keep)
+    try:
+        yield
+    finally:
+        _KEEP.reset(token)
+
+
+def _kept(w: torch.Tensor) -> torch.Tensor:
+    keep = _KEEP.get()
+    return w if keep is None else keep(w)
+
+
 def dense_init(
     gen: torch.Generator, shape: Sequence[int], in_axis: int = 0, dtype=torch.float32
 ) -> torch.Tensor:
     """Normal with std fan_in^-1/2, drawn in f32 on ``gen``'s device (on
     ``meta``, an empty tensor of the shape: no draw)."""
     if gen.device.type == "meta":
-        return torch.empty(tuple(shape), dtype=dtype, device="meta")
+        return _kept(torch.empty(tuple(shape), dtype=dtype, device="meta"))
     fan_in = shape[in_axis]
     w = torch.randn(tuple(shape), generator=gen, device=gen.device, dtype=torch.float32)
-    return w.mul_(fan_in ** -0.5).to(dtype)
+    return _kept(w.mul_(fan_in ** -0.5).to(dtype))
 
 
 def embed_init(gen: torch.Generator, shape: Sequence[int], dtype=torch.float32) -> torch.Tensor:
     """Standard normal, drawn in f32 on ``gen``'s device (on ``meta``, an
     empty tensor of the shape)."""
     if gen.device.type == "meta":
-        return torch.empty(tuple(shape), dtype=dtype, device="meta")
-    return torch.randn(tuple(shape), generator=gen, device=gen.device, dtype=torch.float32).to(dtype)
+        return _kept(torch.empty(tuple(shape), dtype=dtype, device="meta"))
+    return _kept(torch.randn(tuple(shape), generator=gen, device=gen.device, dtype=torch.float32).to(dtype))

@@ -9,17 +9,18 @@ repeat is its own module in a ``ModuleList`` walked in Python, since
 PyTorch runs eagerly and has no compile time to save.
 
 On a mesh (``place=``, a ``launch.sharding.Placement``, or a model built
-with ``mesh=``) the ``attn``, ``local``, ``global``, ``moe``, ``mamba1``,
-``mamba2`` and ``mamba2_attn`` kinds run on the rank's shards: attention
-(full or windowed) and MLP column- then row-parallel, the experts split
+with ``mesh=``) the ``attn``, ``local``, ``global``, ``moe``, ``mla``,
+``mla_moe``, ``mamba1``, ``mamba2`` and ``mamba2_attn`` kinds run on the
+rank's shards: attention (full, windowed or MLA on the rank's heads) and
+MLP column- then row-parallel, the experts split
 over the model ranks, the SSM layers on the rank's channels or heads
 (``models/ssm.py``), zamba2's shared block placed as the attention
 layers are, the embedding and the head (tied or not) split over the
 vocabulary, the FSDP leaves gathered per layer, the batch's rows split
 over the data ranks (the reference's ``hint(x, DP, ...)`` sites, which
 cut a whole batch to the rank's rows there and are no-ops off a mesh);
-``mla``/``mla_moe``, ``enc``/``dec`` and the vision prefix raise
-``NotImplementedError`` (ROADMAP.md). The logits each rank returns are
+``enc``/``dec`` and the vision prefix raise ``NotImplementedError``
+(ROADMAP.md). The logits each rank returns are
 whole: the head's vocabulary shards, and in serving the batch's rows,
 are gathered.
 
@@ -27,10 +28,10 @@ Parameters are made directly on the target device from an explicit
 ``torch.Generator`` there: a full-width model (29 GB in f32 for
 falcon-mamba-7b) is never built on the host first. ``build_model`` runs on
 "cuda" unless the caller passes ``device="cpu"`` (or ``"meta"``: shapes
-only). Built with ``mesh=``, each layer's leaves are cut to the rank's
-shards as soon as the layer is drawn, in the mesh-less model's draw
-order: a rank never holds more than its shards and one layer whole, and
-its shards are bits of the mesh-less model's.
+only). Built with ``mesh=``, each leaf is cut to the rank's shard as soon
+as it is drawn, in the mesh-less model's draw order: a rank never holds
+more than its shards and one leaf whole, and its shards are bits of the
+mesh-less model's.
 
 The port builds every family of the reference: olmoe, falcon-mamba,
 zamba2, gemma2/3 (tied embeddings, ``embed_scale``, the final softcap), the
@@ -58,7 +59,7 @@ from repro_torch.launch.sharding import DP, Placement, hint
 from repro_torch.relational import rel_embed, rel_linear
 
 from .blocks import block_apply, block_init, shared_attn_init
-from .common import MetaGenerator, dense_init, einsum, embed_init, layer_norm, rms_norm, softcap
+from .common import MetaGenerator, dense_init, einsum, embed_init, keeping, layer_norm, rms_norm, softcap
 
 
 @dataclass(frozen=True)
@@ -151,7 +152,7 @@ class Model(nn.Module):
             self.out_embed = nn.Parameter(cut("out_embed", dense_init(gen, (cfg.d_model, cfg.vocab), dtype=dt)))
         self.has_shared = "mamba2_attn" in _all_kinds(self.stage_specs)
         if self.has_shared:
-            self.shared_attn = self._cut_block("shared_attn.", shared_attn_init(gen, cfg))
+            self.shared_attn = self._drawn_block("shared_attn.", gen, lambda g: shared_attn_init(g, cfg))
         if cfg.encoder_layers:
             self.encoder = nn.ModuleList(block_init(gen, "enc", cfg)
                                          for _ in range(cfg.encoder_layers))
@@ -161,13 +162,14 @@ class Model(nn.Module):
             nn.ModuleDict({
                 "scan": nn.ModuleList(
                     nn.ModuleDict({
-                        f"{i}:{kind}": self._cut_block(f"stages.{si}.scan.{r}.{i}:{kind}.",
-                                                       block_init(gen, kind, cfg))
+                        f"{i}:{kind}": self._drawn_block(f"stages.{si}.scan.{r}.{i}:{kind}.", gen,
+                                                         lambda g, kind=kind: block_init(g, kind, cfg))
                         for i, kind in enumerate(st.pattern)
                     })
                     for r in range(st.repeats)
                 ),
-                "tail": nn.ModuleList(self._cut_block(f"stages.{si}.tail.{i}.", block_init(gen, kind, cfg))
+                "tail": nn.ModuleList(self._drawn_block(f"stages.{si}.tail.{i}.", gen,
+                                                        lambda g, kind=kind: block_init(g, kind, cfg))
                                       for i, kind in enumerate(st.tail)),
             })
             for si, st in enumerate(self.stage_specs)
@@ -177,11 +179,31 @@ class Model(nn.Module):
         """``t``, or on a mesh the rank's shard of parameter ``name``."""
         return t if self.placement is None else self.placement.cut(name, t)
 
-    def _cut_block(self, prefix: str, block: nn.Module) -> nn.Module:
-        """A block's parameters cut to the rank's shards, on a mesh."""
-        if self.placement is not None:
-            for name, p in block.named_parameters():
-                p.data = self.placement.cut(prefix + name, p.data)
+    def _drawn_block(self, prefix: str, gen, init) -> nn.Module:
+        """``init(gen)``'s block; on a mesh with each leaf the initializers
+        draw cut to the rank's shard as soon as it is drawn (one MoE leaf of
+        deepseek-v3 takes 15 GB whole), the others after. The names of the
+        drawn leaves, in draw order, come from a draw of the block on
+        ``meta`` whose leaves are kept as the parameters the block holds."""
+        if self.placement is None:
+            return init(gen)
+        marks = []
+
+        def mark(w):
+            marks.append(nn.Parameter(w))
+            return marks[-1]
+
+        with keeping(mark):
+            where = {id(p): n for n, p in init(MetaGenerator()).named_parameters()}
+        drawn = iter([where[id(p)] for p in marks])
+
+        def keep(w):
+            return self.placement.cut(prefix + next(drawn), w)
+
+        with keeping(keep):
+            block = init(gen)
+        for name, p in block.named_parameters():
+            p.data = self.placement.cut(prefix + name, p.data)
         return block
 
     @property
@@ -329,6 +351,12 @@ class Model(nn.Module):
             return checkpoint(run, x, use_reentrant=False, context_fn=contexts)
 
         for si, st in enumerate(self.stage_specs):
+            if not st.repeats and not st.tail:
+                # a stage of no layers (deepseek-v3 with first_k_dense =
+                # n_layers) has no parameters: a params dict's tree has no
+                # entry for it
+                new_caches.append({"scan": [], "tail": []})
+                continue
             stage = p["stages"][si]
             scan_cache = []
             for r, sblock in enumerate(stage["scan"]):

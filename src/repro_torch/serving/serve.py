@@ -35,15 +35,16 @@ batch axis is 1 there), the port keeps one entry per repeat
 (``caches[si]["scan"][r]``). ``map_cache`` walks that layout.
 
 On a mesh (``mesh=``, or the ``db``'s), the steps run the ``attn``,
-``local``, ``global``, ``moe``, ``mamba1``, ``mamba2`` and
-``mamba2_attn`` kinds tensor- and expert-parallel on the rank's shards
-of the parameters (``launch/sharding.py``; ``mla``, ``enc``/``dec`` and
-the vision prefix raise ``NotImplementedError``, ROADMAP.md): every rank
-is given the whole batch and returns the whole logits, and keeps its own
-caches (its rows of the batch, the KV heads its attention computes, its
-SSM channels' state: ``init_cache(..., place=)``). The steps cut the shards through ``_PlacedParamsCache``,
-once per live parameter dict, as the reference's decode step places its
-parameters once per version.
+``local``, ``global``, ``moe``, ``mla``, ``mla_moe``, ``mamba1``,
+``mamba2`` and ``mamba2_attn`` kinds tensor- and expert-parallel on the
+rank's shards of the parameters (``launch/sharding.py``; ``enc``/``dec``
+and the vision prefix raise ``NotImplementedError``, ROADMAP.md): every
+rank is given the whole batch and returns the whole logits, and keeps its
+own caches (its rows of the batch, the KV heads its attention computes,
+its SSM channels' state: ``init_cache(..., place=)``; an MLA layer's
+latent cache is whole, as every head reads it). The steps cut the shards
+through ``_PlacedParamsCache``, once per live parameter dict, as the
+reference's decode step places its parameters once per version.
 """
 
 from __future__ import annotations
@@ -336,7 +337,9 @@ class BucketedPrefill:
     ``db`` shares an existing session (its ``max_cache_entries`` bounds
     the cache); without one, a private session is created on ``device``
     ("cuda" unless the caller passes another) with ``max_entries`` as the
-    bound.
+    bound and ``mesh`` as its mesh. ``mesh`` (a DeviceMesh or a
+    ``launch/mesh.resolve_mesh`` spec string; default the session's) is
+    the mesh each bucket's step runs on (``make_prefill_step(mesh=)``).
 
     This is the bucketing engine *inside* the serving front door — build
     endpoints with ``db.endpoint(...)`` / ``repro_torch.serve(db, ...)``
@@ -353,13 +356,15 @@ class BucketedPrefill:
         buckets: Optional[Sequence[Tuple[int, int]]] = None,
         max_entries: int = 8,
         device=None,
+        mesh=None,
         on_compile: Optional[Callable[[], None]] = None,
     ):
         if db is None:
             from repro_torch.core.session import Database
 
-            db = Database(device, max_cache_entries=max_entries)
+            db, mesh = Database(device, mesh=mesh, max_cache_entries=max_entries), None
         self.db = db
+        self._mesh = mesh
         self.model = model
         self.cache_len = cache_len
         self.buckets: Optional[List[Tuple[int, int]]] = (
@@ -369,6 +374,16 @@ class BucketedPrefill:
         #: session-cache miss) — the endpoint counts these under
         #: ``serve/prefill/compiles``.
         self.on_compile = on_compile
+
+    @property
+    def mesh(self):
+        """The mesh the bucket steps run on: the one passed with a shared
+        ``db`` (a spec string resolved at first use), else the session's."""
+        if isinstance(self._mesh, str):
+            from repro_torch.launch.mesh import resolve_mesh
+
+            self._mesh = resolve_mesh(self._mesh, device_type=self.db.device.type)
+        return self.db.mesh if self._mesh is None else self._mesh
 
     def bucket_for(self, batch: int, seq: int) -> Tuple[int, int]:
         """The smallest configured (batch, seq) bucket that fits the
@@ -399,12 +414,13 @@ class BucketedPrefill:
         return max(fitting) if fitting else 0
 
     def _compiled(self, bucket: Tuple[int, int]):
-        key = ("prefill", id(self.model), self.cache_len, bucket)
+        mesh = self.mesh
+        key = ("prefill", id(self.model), self.cache_len, bucket, None if mesh is None else id(mesh))
 
         def build():
             if self.on_compile is not None:
                 self.on_compile()
-            return make_prefill_step(self.model, self.cache_len, db=self.db)
+            return make_prefill_step(self.model, self.cache_len, mesh=mesh, db=self.db)
 
         return self.db.cached_executable(key, build)
 

@@ -189,6 +189,10 @@ class Endpoint:
         None = unbounded (no queue-full shedding). The scheduler batches
         what is already in flight when it forms a batch: requests queue
         while a batch decodes.
+    gather_window:
+        seconds the scheduler waits after the first queued request for
+        more to coalesce with. 0 (default) batches only what is already
+        in flight — under sustained load that is plenty.
     max_new_tokens:
         per-request default generation budget.
     eos_token:
@@ -220,6 +224,7 @@ class Endpoint:
         decode_buckets: Optional[Sequence[int]] = None,
         tenants: Optional[Dict[str, str]] = None,
         max_queue: Optional[int] = 64,
+        gather_window: float = 0.0,
         max_new_tokens: int = 16,
         eos_token: Optional[int] = None,
         make_batch: Optional[Callable[[torch.Tensor], Dict[str, Any]]] = None,
@@ -248,6 +253,7 @@ class Endpoint:
             self.decode_buckets = None
         self._tenants = dict(tenants or {})
         self._max_queue = max_queue
+        self._gather_window = float(gather_window)
         self._max_new_tokens = int(max_new_tokens)
         self._eos_token = None if eos_token is None else int(eos_token)
         self._make_batch = make_batch
@@ -427,6 +433,10 @@ class Endpoint:
     async def _run(self) -> None:
         while True:
             batch = [await self._queue.get()]
+            if self._gather_window > 0:
+                # let concurrent submitters land in the queue, so that
+                # the batch coalesces them
+                await asyncio.sleep(self._gather_window)
             while True:
                 try:
                     batch.append(self._queue.get_nowait())
@@ -577,11 +587,12 @@ class Endpoint:
         model: Optional[str] = None,
         version: Optional[str] = None,
         buckets: Optional[Sequence[Tuple[int, int]]] = None,
+        decode: bool = True,
         batch_fn: Optional[Callable[[int, int], Dict[str, Any]]] = None,
     ) -> None:
-        """Build and run once the prefill buckets' steps and every decode
-        bucket's before traffic arrives, so a warmed endpoint never builds
-        a step on the request path —
+        """Build and run once the prefill buckets' steps and
+        (``decode=True``) every decode bucket's before traffic arrives, so
+        a warmed endpoint never builds a step on the request path —
         ``db.counters()["serve"]`` shows flat prefill/decode compile
         counts under traffic afterwards. ``batch_fn(batch, seq)`` builds
         the exemplar batch, as in ``BucketedPrefill.warmup``: a model that
@@ -596,6 +607,8 @@ class Endpoint:
             return
         params = entry.params
         pre.warmup(params, buckets=todo, batch_fn=batch_fn)
+        if not decode:
+            return
         b0, s0 = todo[0]
         ex = (batch_fn(b0, s0) if batch_fn is not None else
               {"tokens": torch.zeros((b0, s0), dtype=torch.int32, device=self.db.device)})

@@ -16,12 +16,12 @@ the tensors it was given.
 
 On a mesh (``mesh=``, or ``database.mesh``) the step runs the kinds of
 ``launch.sharding.MESH_KINDS`` (``attn``, ``local``/``global``, ``moe``,
-``mamba1``, ``mamba2``/``mamba2_attn``) tensor-, expert- and
+``mla``/``mla_moe``, ``mamba1``, ``mamba2``/``mamba2_attn``) tensor-, expert- and
 fully-sharded data-parallel (``launch/sharding.py``): each rank takes
 its shards of the parameters and the moments (cut where it is given them
 whole) and its rows of the batch, sums its gradients over the data
 ranks, clips to the global norm of the whole gradient and updates its
-shards; ``mla``, ``enc``/``dec`` and the vision prefix raise
+shards; ``enc``/``dec`` and the vision prefix raise
 ``NotImplementedError`` (ROADMAP.md).
 """
 

@@ -142,7 +142,7 @@ def case_unpaired_vjp(pkg):
         c = _jcontract_with(jK.kernel_contract("segment_sum").grid_model,
                             vjp_pairs=(jK.VjpPair("scatter_add", lambda info: dict(info)),))
         return jkernelcheck.CheckReport(tuple(jkernelcheck.check_impl(impl, c, [JSEG_INFO])))
-    impl = K.KernelImpl("segment_sum", "cuda", lambda *a: None, ("cuda",), K._is_f32_bf16_f16)
+    impl = K.KernelImpl("segment_sum", "cuda", lambda *a: None, ("cuda",), 0, K._is_f32_bf16_f16)
     contract = _contract_with(
         K.kernel_contract("segment_sum").grid_model,
         vjp_pairs=(VjpPair("scatter_add", lambda info: dict(info)),),
@@ -157,7 +157,7 @@ def case_dtype_domain(pkg):
         info = {"nnz": 1024, "dim": 64, "num_segments": 256, "dtype": jnp.dtype("int32")}
         return jkernelcheck.CheckReport(
             tuple(jkernelcheck.check_impl(impl, jK.kernel_contract("segment_sum"), [info])))
-    impl = K.KernelImpl("segment_sum", "cuda", lambda *a: None, (), None)
+    impl = K.KernelImpl("segment_sum", "cuda", lambda *a: None, (), 0, None)
     info = {"nnz": 1024, "dim": 64, "num_segments": 256, "dtype": I32}
     # the reference's segsum contract pairs no backward op; the port's pairs
     # gather_join (its backward is the gather kernel), whose cuda tier also
@@ -185,7 +185,7 @@ def test_golden(name):
 
 
 def test_the_ports_own_contract_reports_the_consequent_vjp_gap():
-    impl = K.KernelImpl("segment_sum", "cuda", lambda *a: None, (), None)
+    impl = K.KernelImpl("segment_sum", "cuda", lambda *a: None, (), 0, None)
     info = {"nnz": 1024, "dim": 64, "num_segments": 256, "dtype": I32}
     report = CheckReport(tuple(kernelcheck.check_impl(impl, K.kernel_contract("segment_sum"), [info])))
     assert report.codes() == ("dtype-domain", "vjp-domain-gap")

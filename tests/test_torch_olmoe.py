@@ -275,13 +275,14 @@ def test_moe_shard_experts_is_value_neutral():
 
 
 def test_moe_on_a_mesh_outside_the_slice_raises():
-    """deepseek-v3's MLA+MoE layers are not placed on a mesh yet: the
-    placement refuses them, naming the roadmap, before any rank is
-    asked."""
+    """deepseek-v3's MLA+MoE layers are placed on a (data × model) mesh
+    since slice 16, but a pod axis is still outside the slice: the
+    placement refuses it, naming the roadmap, before any rank is asked."""
     from repro_torch.launch.sharding import Placement
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Placement(get_config("deepseek-v3-671b").reduced(), {"model": 2})
+    with pytest.raises(NotImplementedError, match="a pod axis") as err:
+        Placement(get_config("deepseek-v3-671b").reduced(), {"pod": 2, "data": 1, "model": 2})
+    assert "ROADMAP.md" in str(err.value) and "block kind" not in str(err.value)
 
 
 def test_mlp_apply_matches_jax(lm):

@@ -193,3 +193,57 @@ def test_hint_is_a_no_op_off_a_mesh():
 
     x = torch.ones(4, 3)
     assert sharding.hint(x, sharding.DP, None) is x
+
+
+def _stand_in_placement(monkeypatch, cfg, sizes, rank=0):
+    """A ``Placement`` of ``cfg`` on a (data × model) mesh of ``sizes``
+    seen from ``rank``, with no process group: a stand-in mesh (its axis
+    names and rank grid) and a comm of its sizes and this rank's indices."""
+    import types
+
+    import torch
+
+    from repro_torch.launch import collectives
+
+    shape = tuple(sizes.values())
+    grid = torch.arange(int(np.prod(shape))).reshape(shape)
+    mesh = types.SimpleNamespace(mesh_dim_names=tuple(sizes), mesh=grid)
+    pos = dict(zip(sizes, (int(i) for i in (grid == rank).nonzero()[0])))
+    comm = types.SimpleNamespace(size=dict(sizes), index=pos, geometry=None)
+    monkeypatch.setattr(collectives, "comm_for", lambda mesh, geometry: comm)
+    return sharding.Placement(cfg, mesh)
+
+
+def test_a_placement_admits_mla_and_splits_its_leaves(monkeypatch):
+    """deepseek-v3 at its published widths (3 ``mla`` layers and one
+    ``mla_moe``) on 1 × 4: every MLA leaf's shard is the reference spec's
+    split — the q latent's columns of ``wq_a``, the heads' columns of
+    ``wq_b``/``wk_b``/``wv_b`` and rows of ``wo``, ``wkv_a`` and the norms
+    whole — and the experts and the shared expert split as olmoe's."""
+    import dataclasses
+
+    cfg = dataclasses.replace(get_config("deepseek-v3-671b"), n_layers=4)
+    place = _stand_in_placement(monkeypatch, cfg, {"data": 1, "model": 4}, rank=2)
+    assert place.index("model") == 2
+    mla, moe = "stages.0.scan.0.0:mla.attn.", "stages.1.scan.0.0:mla_moe.moe."
+    want = {
+        mla + "wq_a": (7168, 384), mla + "q_norm": (1536,), mla + "wq_b": (1536, 6144),
+        mla + "wkv_a": (7168, 576), mla + "kv_norm": (512,), mla + "wk_b": (512, 4096),
+        mla + "wv_b": (512, 4096), mla + "wo": (4096, 7168),
+        moe + "router": (7168, 256), moe + "wi_gate": (64, 7168, 2048), moe + "wo": (64, 2048, 7168),
+        moe + "shared.wi_gate": (7168, 512), moe + "shared.wo": (512, 7168),
+    }
+    assert {k: place.local_shape(k) for k in want} == want
+    for name, shape in place.shapes.items():
+        got = place.local_shape(name)
+        for d, e in enumerate(place.specs[name]):
+            assert got[d] == (shape[d] // 4 if e == "model" else shape[d]), name
+
+
+@pytest.mark.parametrize("change", ({"n_heads": 6}, {"q_lora_rank": 1534}))
+def test_mla_widths_that_do_not_split_raise(monkeypatch, change):
+    import dataclasses
+
+    cfg = dataclasses.replace(get_config("deepseek-v3-671b").reduced(), **change)
+    with pytest.raises(ValueError, match="do not split over 4 model ranks"):
+        _stand_in_placement(monkeypatch, cfg, {"data": 1, "model": 4})

@@ -1,6 +1,6 @@
 """Rank programs of the language-model mesh tests
 (tests/test_torch_lm_mesh.py, tests/test_torch_lm_mesh_ssm.py,
-tests/test_torch_lm_mesh_gemma.py): each runs in a process of a 4-rank
+tests/test_torch_lm_mesh_gemma.py, tests/test_torch_lm_mesh_mla.py): each runs in a process of a 4-rank
 ``gloo`` group on the CPU (``repro_torch.launch.mesh.start_ranks``) and
 imports no JAX. ``run_checks`` takes a suite's name (``SUITES``: its
 archs, batch and checks) and the reference's weights of each of its
@@ -24,11 +24,12 @@ import torch_mesh_workers
 import repro_torch
 from repro_torch import convert
 from repro_torch.configs import get_config
-from repro_torch.launch import collectives
+from repro_torch.launch import collectives, sharding
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.sharding import Placement, catalog_shardings, to_shardings
-from repro_torch.models import build_model
-from repro_torch.serving import init_cache, make_decode_step, make_prefill_step
+from repro_torch.models import blocks, build_model
+from repro_torch.models.model import stages_of
+from repro_torch.serving import BucketedPrefill, init_cache, make_decode_step, make_prefill_step
 from repro_torch.train import init_train_state, make_train_step
 from repro_torch.train import trainer
 
@@ -40,7 +41,10 @@ class Suite:
     then ``decode`` steps; one train step over b × s tokens — and which
     checks its ranks run: ``common`` the module-wide ones of
     test_torch_lm_mesh.py, ``serve22`` serving on the 2 × 2 mesh too,
-    ``ssm`` the SSM layers' planted faults."""
+    ``ssm`` the SSM layers' planted faults, ``mla`` MLA's planted faults,
+    its latent cache and ``BucketedPrefill(mesh=)``. ``min_fsdp_bytes``,
+    where set, is the FSDP threshold of the ranks' specs (so that a
+    reduced model gathers on "data" the leaves the full one does)."""
 
     archs: Tuple[str, ...]
     b: int = 4
@@ -50,6 +54,8 @@ class Suite:
     common: bool = False
     serve22: bool = False
     ssm: bool = False
+    mla: bool = False
+    min_fsdp_bytes: Any = None
 
     @property
     def cache(self) -> int:
@@ -68,6 +74,8 @@ SUITES = {
                           ("zamba2-7b", "n_layers", 6))),
     # prompts of 20 tokens, past the reduced window of 16
     "gemma": Suite(("gemma2-9b", "gemma3-4b"), s=20, serve22=True),
+    # 2 layers: mla, then mla_moe (4 heads, 4 experts and the shared one)
+    "mla": Suite(("deepseek-v3-671b",), mla=True, min_fsdp_bytes=32 << 10),
 }
 LM = SUITES["lm"]
 ARCHS = LM.archs
@@ -92,6 +100,11 @@ def batch(cfg, seed=0, suite=LM):
     return tokens, labels, fed
 
 
+def first_block(cfg) -> str:
+    """The key of layer 0 in its superblock."""
+    return "0:" + stages_of(cfg)[0].pattern[0]
+
+
 def _shapes(node, prefix=""):
     """{leaf path: shape} of a cache entry."""
     if isinstance(node, dict):
@@ -114,7 +127,7 @@ def serve(model, db, mesh=None, suite=LM):
     for i in range(suite.decode):
         logits, caches = decode(torch.as_tensor(fed[:, i:i + 1]), caches, suite.s + i)
         out.append(logits.numpy())
-    layer0 = _shapes(caches[0]["scan"][0]["0:" + model.cfg.pattern[0]])
+    layer0 = _shapes(caches[0]["scan"][0][first_block(model.cfg)])
     placed = getattr(decode, "_placed_cache", None)
     return {"logits": np.stack(out), "k0": layer0.get("kv/k"), "cache0": layer0,
             "placed": None if placed is None else len(placed)}
@@ -162,14 +175,14 @@ def train(model, db, mesh=None, suite=LM):
             "params": {k: v.numpy() for k, v in new.items()}}
 
 
-def planted(method, fake):
-    """Plant a fault: ``Placement.<method>`` replaced by ``fake``. Returns
-    the undo."""
-    real = getattr(Placement, method)
-    setattr(Placement, method, fake)
+def planted(method, fake, owner=Placement):
+    """Plant a fault: ``owner.<method>`` (a ``Placement`` method by
+    default) replaced by ``fake``. Returns the undo."""
+    real = getattr(owner, method)
+    setattr(owner, method, fake)
 
     def undo():
-        setattr(Placement, method, real)
+        setattr(owner, method, real)
     return undo
 
 
@@ -187,6 +200,21 @@ SSM_PLANTS = {
         self.comm.all_reduce(sum(torch.sum(g.float() ** 2) for g in grads.values()), "model"),
         "data"))),
 }
+
+
+#: MLA's planted faults, each in a train step: (the owner, the method,
+#: its fake)
+MLA_PLANTS = {
+    # the q latent gathered with a slicing backward
+    "q_slicing": (Placement, "gather_summed", lambda self, t, dim: self.gather_from(t, dim)),
+    # c_kv fed to the rank's heads without copy_to: its gradient each
+    # rank's part
+    "latent_unsummed": (blocks, "_latent", lambda place, c, r: (c, place.copy_to(r))),
+}
+
+#: the model all-reduce of layer 0's wo in an MLA serve on a split model
+#: axis: after the lookup's and the q latent's Σx²
+MLA_WO_REDUCE = 2
 
 
 def drop_model_all_reduce(index=0):
@@ -210,7 +238,7 @@ def drop_model_all_reduce(index=0):
 
 
 #: the archs whose kinds a placement still refuses
-REFUSED = ("whisper-small", "qwen2-vl-72b", "deepseek-v3-671b")
+REFUSED = ("whisper-small", "qwen2-vl-72b")
 
 
 def refusals(mesh):
@@ -321,7 +349,7 @@ def arch_checks(arch, weights, suite, m14, m22):
         undo()
     place = Placement(cfg, m14)
     rec["cache0"] = _shapes(init_cache(cfg, suite.b, suite.cache, "cpu", place=place)[0]["scan"][0][
-        "0:" + cfg.pattern[0]])
+        first_block(cfg)])
     rec["cache_k"] = rec["cache0"].get("kv/k")
     # the model built on the mesh: its own shards, cut as it is drawn
     own = build_model(cfg, device="cpu", seed=1, mesh=m14)
@@ -337,7 +365,7 @@ def arch_checks(arch, weights, suite, m14, m22):
     if suite.serve22:
         rec["mesh22"] = serve(model, repro_torch.Database(device="cpu", mesh=m22), suite=suite)
         rec["cache22"] = _shapes(init_cache(cfg, suite.b, suite.cache, "cpu", place=Placement(cfg, m22))[
-            0]["scan"][0]["0:" + cfg.pattern[0]])
+            0]["scan"][0][first_block(cfg)])
     if suite.ssm:
         rec["plants"] = {}
         for what, (kind, run, method, fake) in SSM_PLANTS.items():
@@ -351,12 +379,51 @@ def arch_checks(arch, weights, suite, m14, m22):
                 undo()
             rec["plants"][what] = ({"norm": got["norm"], "grads": got["grads"]} if run == "train"
                                    else got["logits"])
+    if suite.mla:
+        rec.update(mla_checks(model, suite, db14, m14, m22))
     return rec
+
+
+def latent_cache(model, db, suite):
+    """Layer 0's latent cache {"c", "r"} after the suite's prefill under
+    ``db`` (on its mesh, if it has one)."""
+    tokens, _, _ = batch(model.cfg, suite=suite)
+    _, caches = make_prefill_step(model, suite.cache, db=db)({"tokens": torch.as_tensor(tokens)})
+    return {k: v.numpy() for k, v in caches[0]["scan"][0][first_block(model.cfg)]["kv"].items()}
+
+
+def mla_checks(model, suite, db14, m14, m22):
+    """MLA's own checks: the prefill through ``BucketedPrefill(mesh=)``
+    (on a mesh-less session: the mesh is the keyword's), the latent cache
+    on the mesh and off it, the wo all-reduce of layer 0 dropped, and the
+    planted faults of ``MLA_PLANTS``."""
+    tokens, _, _ = batch(model.cfg, suite=suite)
+    pre = BucketedPrefill(model, suite.cache, db=repro_torch.Database(device="cpu"), mesh=m14,
+                          buckets=[(suite.b, suite.s)])
+    logits, _ = pre.prefill(None, {"tokens": torch.as_tensor(tokens)})
+    out = {"bucketed": logits.numpy(),
+           "latent": latent_cache(model, db14, suite),
+           "latent_one": latent_cache(model, repro_torch.Database(device="cpu"), suite)}
+    undo = drop_model_all_reduce(MLA_WO_REDUCE)
+    try:
+        out["wo_dropped"] = serve(model, db14, suite=suite)["logits"]
+    finally:
+        undo()
+    out["plants"] = {}
+    for what, (owner, method, fake) in MLA_PLANTS.items():
+        undo = planted(method, fake, owner)
+        try:
+            out["plants"][what] = train(model, repro_torch.Database(device="cpu"), m22, suite=suite)["grads"]
+        finally:
+            undo()
+    return out
 
 
 def run_checks(rank: int, weights, suite: str = "lm"):
     torch.manual_seed(0)
     sw = SUITES[suite]
+    if sw.min_fsdp_bytes is not None:
+        sharding.param_pspec.__kwdefaults__["min_fsdp_bytes"] = sw.min_fsdp_bytes
     m14 = make_host_mesh(model=4, device_type="cpu")
     m22 = make_host_mesh(model=2, device_type="cpu")
     out = {"rank": rank}
@@ -384,7 +451,7 @@ def run_checks(rank: int, weights, suite: str = "lm"):
     out["layouts"] = {k: None if qdb.layout(k) is None else tuple(qdb.layout(k))
                       for k in ("Edge", "Node")}
     try:
-        make_train_step(build_model(config("deepseek-v3-671b"), device="cpu"), mesh=m22)
+        make_train_step(build_model(config("whisper-small"), device="cpu"), mesh=m22)
         out["train_refusal"] = None
     except NotImplementedError as e:
         out["train_refusal"] = str(e)
