@@ -53,7 +53,7 @@ Phases, in order; any failure stops the run with a non-zero exit:
    olmoe's prefill, decode step and train step, phase 12's burst,
    zamba2's prefill and decode step and a falcon-mamba train step (the
    scan's forward and reverse walks apart), and the passes of phases 15-21,
-   on their calls' own ids, and one rank's passes of phases 24-26 at their
+   on their calls' own ids, and one rank's passes of phases 24-27 at their
    shard shapes)
    beside its plain version, one PyTorch library call (where there is one),
    the card's bound and, for the small calls, the host's time per call; and
@@ -274,6 +274,33 @@ Phases, in order; any failure stops the run with a non-zero exit:
    slicing backward and c_kv fed without ``copy_to`` planted; 26.4 the
    kernel calls of the passes at the shard shapes (phase 8 times them as
    ``lm_mesh_mla``), each held to phase 2's checked shapes, its launch
+   record to its contract model, the mesh steps' lowerings certified;
+27. (run after phase 26, before phase 8) whisper (``enc``/``dec``), qwen2-vl
+   (the vision prefix, M-RoPE) and a pod axis on a mesh: 27.1 on a one-rank
+   NCCL group, whisper-small at full depth (12 + 12 layers over 1,500 stub
+   frames) and qwen2-vl-72b at 1 of 80 layers (256 stub patches before the
+   text), a prefill of 2 × 64 tokens, 2 decode steps fed seeded tokens
+   (whisper's on ``make_encode_step``'s output) and one train step, each
+   bit-equal to the mesh-less step; 27.2 the same on 4 gloo ranks sharing
+   the card, a 1 × 4 mesh (whisper's encoder on its leaves' specs: q/k/v on
+   the rank's input rows, wo and the MLP whole; the decoder's self- and
+   cross-attention on 3 of 12 heads a rank, the cross-attention's K/V from
+   the whole encoder output; qwen2-vl on 16 of 64 heads and a quarter of
+   the vocabulary): the logits within a limit derived from the partials'
+   K, every rank's bit-equal, a second run bit-equal, the loss and global
+   norm within 1e-5 and the step-1 gradients within 2e-4, with an encoder
+   layer's q all-reduce left out and the cross-attention fed the encoder's
+   output without ``copy_to`` planted; 27.3 on the same ranks as a 2 × 2 ×
+   1 ("pod", "data", "model") mesh, olmoe-1b-7b at 1 layer trained 2 Adam
+   steps on 4 × 256 tokens (a row a rank, FSDP over "data", the gradients
+   summed over "pod") against the mesh-less steps, with the pod all-reduce
+   left out planted (step 1's gradients before the pod sum); 27.4
+   ``launch/dryrun.py``'s walk on ``meta`` of each measured step at its
+   mesh's axis sizes, whose collectives (calls and bytes by op and group)
+   and parameter bytes must equal rank 0's, with ``launch/roofline.py``'s
+   terms on the published H100 figures beside the measured times; 27.5 the
+   kernel calls of the passes at the shard shapes (phase 8 times them as
+   ``lm_mesh_enc_vl``), each held to phase 2's checked shapes, its launch
    record to its contract model, the mesh steps' lowerings certified.
 
 Device memory is freed between phases, so the NNMF step's peak and the
@@ -752,6 +779,44 @@ MLA_MESH_LEAVES = ("ln_f", "stages.0.scan.0.0:mla.ln1",
                    "stages.0.scan.1.0:mla.attn.wq_a", "stages.0.scan.1.0:mla.attn.wkv_a",
                    "stages.0.scan.1.0:mla.mlp.wo")
 
+# phase 27, whisper (enc/dec), qwen2-vl (the vision prefix) and a pod axis
+# on a mesh, at their published widths in f32 without remat: 27.1 on a
+# one-rank NCCL group and 27.2 on the 1 × 4 mesh of ZOO_MESH_RANKS gloo
+# ranks sharing the card, whisper-small at full depth (12 + 12 layers,
+# 1,500 stub frames) and qwen2-vl-72b at QWEN_MESH_LAYERS of 80 layers
+# (256 stub patches before the text): a prefill of ZOO_MESH_BATCH ×
+# ZOO_MESH_PROMPT tokens, ZOO_MESH_DECODE decode steps fed seeded tokens
+# and one Adam step on ZOO_MESH_BATCH × ZOO_MESH_TRAIN_SEQ; 27.3 on the
+# same ranks as a 2 × 2 × 1 ("pod", "data", "model") mesh, olmoe-1b-7b at
+# POD_MESH_LAYERS layer(s) trained POD_MESH_TRAIN_STEPS Adam steps on
+# POD_MESH_TRAIN_BATCH × POD_MESH_TRAIN_SEQ tokens (a row a rank, FSDP over
+# "data": every rank gathers and reduce-scatters half of each FSDP leaf and
+# sums its shards over "pod" through gloo, ≈ 5 GB a rank a step at one
+# layer, as 24.3 trains one)
+ZOO_MESH_RANKS = 4
+ZOO_MESH_BATCH, ZOO_MESH_PROMPT, ZOO_MESH_DECODE, ZOO_MESH_TRAIN_SEQ = 2, 64, 2, 64
+QWEN_MESH_LAYERS = 1
+#: 27.2's planted fault leaves out this whisper encoder layer's q all-reduce
+#: (the encoder's leaves split q, k and v by their input rows: ROADMAP.md §3)
+ZOO_MESH_PLANTED_LAYER = 1
+POD_MESH_LAYERS, POD_MESH_TRAIN_BATCH, POD_MESH_TRAIN_SEQ, POD_MESH_TRAIN_STEPS = 1, 4, 256, 2
+#: the ranks 27.3's batch is cut over: the ("pod", "data") fold
+POD_MESH_FOLD = 4
+#: the leaves 27.2 holds: whisper's encoder q (input rows on "model"), wo
+#: and MLP (whole), its final norm, the decoder's self- and cross-attention
+#: (heads on "model") and MLP, the tied table (whole: 51,865 rows do not
+#: split over 4); qwen2-vl's attention of each layout and the norms (the
+#: vocabulary-split tables, 1.25 GB a rank, are the CPU tests')
+ZOO_MESH_LEAVES = {
+    "whisper-small": ("embed", "enc_ln_s", "encoder.0.attn.wq", "encoder.0.attn.wo",
+                      "encoder.11.mlp.wi_gate", "stages.0.scan.0.0:dec.attn.wq",
+                      "stages.0.scan.0.0:dec.xattn.wk", "stages.0.scan.11.0:dec.xattn.wo",
+                      "stages.0.scan.11.0:dec.mlp.wo", "ln_f"),
+    "qwen2-vl-72b": ("ln_f", "stages.0.scan.0.0:attn.ln1", "stages.0.scan.0.0:attn.attn.wk",
+                     "stages.0.scan.0.0:attn.attn.wv", "stages.0.scan.0.0:attn.attn.wo",
+                     "stages.0.scan.0.0:attn.ln2"),
+}
+
 
 def mla_mesh_plants(sharding, blocks):
     """26.3's planted faults, (what, owner, name, fake): the q latent
@@ -868,6 +933,8 @@ def matmul_cases(cfg):
               for key in sorted(ssm_mesh_checked_shapes()) if key[0] == "blocked_matmul"]
     cases += [(m, k, n, "deepseek-v3 on a mesh") for op, m, k, n in sorted(mla_mesh_checked_shapes())
               if op == "blocked_matmul"]
+    cases += [(m, k, n, "whisper / qwen2-vl / olmoe on a pod mesh")
+              for op, m, k, n in sorted(zoo_mesh_checked_shapes()) if op == "blocked_matmul"]
     return cases
 
 
@@ -1310,6 +1377,25 @@ def check_kernels(torch, kern, graph, lm_cfg, olmoe_cfg, dev):
             gather_case(b, mla_ids(a, b), c, "deepseek-v3 on a mesh")
         elif op == "segment_sum":
             segsum_case(c, mla_ids(a, c), b, "deepseek-v3 on a mesh")
+        torch.cuda.empty_cache()
+
+    # phase 27's: whisper's lookups in its whole table (51,865 rows split
+    # over no 4 ranks) and qwen2-vl's whole (one rank) and in a vocabulary
+    # shard (3/4 of the ids -1), their Σ by position and transposes; olmoe's
+    # on the pod mesh (a quarter of the rows, every expert: olmoe_ids)
+    vocabs = {zoo_mesh_config(a).vocab for a in (WHISPER_ARCH, QWEN_ARCH)}
+    shard = zoo_mesh_config(QWEN_ARCH).vocab // ZOO_MESH_RANKS
+
+    def zoo_ids(e, n):
+        if n == shard:
+            return shard_ids(e, n)
+        return lm_ids(e, n) if n in vocabs else olmoe_ids(e, n)
+
+    for op, a, b, c in sorted(zoo_mesh_checked_shapes()):
+        if op == "gather_join":
+            gather_case(b, zoo_ids(a, b), c, "whisper / qwen2-vl / olmoe on a pod mesh")
+        elif op == "segment_sum":
+            segsum_case(c, zoo_ids(a, c), b, "whisper / qwen2-vl / olmoe on a pod mesh")
         torch.cuda.empty_cache()
     return errs
 
@@ -5039,7 +5125,7 @@ def time_site(torch, op, info, rows_for, seg_for, gen, dev):
 
 
 def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, dense, mesh, lm_mesh, ssm_mesh,
-                 mla_mesh, errs, dev):
+                 mla_mesh, zoo_mesh, errs, dev):
     """Per kernel and per main path: each site timed alone at its shapes,
     times the launches of that site in one pass of the path (one GCN step;
     one logistic-regression step; one NNMF step; one KGE step at each
@@ -5053,7 +5139,9 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, d
     one rank's gemma3, falcon-mamba and zamba2 prefill and decode step on
     phase 25's 1 × 4 mesh and its falcon-mamba and zamba2 train steps;
     one rank's deepseek-v3 prefill, decode step and train step on phase
-    26's 1 × 4 mesh), summed."""
+    26's 1 × 4 mesh; one rank's whisper and qwen2-vl prefill, decode step
+    and train step on phase 27's 1 × 4 mesh and its olmoe train step on the
+    2 × 2 × 1 pod mesh), summed."""
     from repro_torch.kernels.matmul.ops import blocked_matmul_forward
     from repro_torch.kernels.ssm_scan.ops import ssm_scan_forward
     from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
@@ -5061,6 +5149,17 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, d
     gen = torch.Generator(device=dev).manual_seed(3)
     src, dst = graph["src"], graph["dst"]
     paths = {}
+
+    # a kernel signature (op and shapes) that an earlier path timed is not
+    # timed again: the later path takes the earlier timing (on the earlier
+    # path's ids), times its own launches
+    signatures = {}
+
+    def time_once(op, key, ids):
+        if key not in signatures:
+            signatures[key] = time_site(torch, op, LaunchLog(torch).info(key), lambda e, n: ids,
+                                        lambda e, s: ids, gen, dev)
+        return signatures[key]
 
     def add(path, op, key, mult, k_ms, p_ms, l_ms, nbytes, flops, extra=None):
         extra = extra or {}
@@ -5163,7 +5262,7 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, d
         for key, mult in sorted(run["pass"].items()):
             ids = run["log"].ids.get(key)
             add(path, key[0], f"{key[0]}{key[1:]}", mult,
-                *time_site(torch, key[0], run["log"].info(key), lambda e, n: ids, lambda e, s: ids, gen, dev))
+                *time_once(key[0], key, ids))
         del ids
 
     # zamba2-7b (phase 13: the prefill and one decode step), falcon-mamba
@@ -5177,7 +5276,7 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, d
         for key, mult in sorted(run["pass"].items()):
             ids = run["log"].ids.get(key)
             add(path, key[0], f"{key[0]}{key[1:]}", mult,
-                *time_site(torch, key[0], run["log"].info(key), lambda e, n: ids, lambda e, s: ids, gen, dev))
+                *time_once(key[0], key, ids))
         del ids
 
     # one rank of phase 24: 24.2's prefill and one decode step on the 1 × 4
@@ -5191,9 +5290,21 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, d
                 ids = first_ids.get(key)
                 ids = None if ids is None else ids.to(dev)
                 add(path, key[0], f"{key[0]}{key[1:]}", mult,
-                    *time_site(torch, key[0], LaunchLog(torch).info(key), lambda e, n: ids,
-                               lambda e, s: ids, gen, dev))
+                    *time_once(key[0], key, ids))
             del ids
+
+    # one rank of phase 27: whisper's and qwen2-vl's prefill (whisper's
+    # encoder step too) and first decode step and their train steps on the
+    # 1 × 4 mesh, olmoe's train step on the 2 × 2 × 1 pod mesh, every kernel
+    # signature at its shard shapes on the ids its first call took, times its
+    # calls in the pass
+    for counts, first_ids, _ in zoo_mesh["sites"]:
+        for key, mult in sorted(counts.items()):
+            ids = first_ids.get(key)
+            ids = None if ids is None else ids.to(dev)
+            add("lm_mesh_enc_vl", key[0], f"{key[0]}{key[1:]}", mult,
+                *time_once(key[0], key, ids))
+        del ids
 
     # one rank of phase 25: each arch's prefill and one decode step on the 1
     # × 4 mesh and each train step of 25.3, every kernel signature at its
@@ -5220,8 +5331,7 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, d
         ids = first.get(key)
         ids = None if ids is None else ids.to(dev)
         add("lm_mesh_ssm", key[0], f"{key[0]}{key[1:]}", mult,
-            *time_site(torch, key[0], LaunchLog(torch).info(key), lambda e, n: ids,
-                       lambda e, s: ids, gen, dev))
+            *time_once(key[0], key, ids))
         del ids
     torch.cuda.empty_cache()
 
@@ -5324,6 +5434,7 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, d
                    "lm_mesh": lm_mesh["launches"].get(op, 0),
                    "lm_mesh_ssm": ssm_mesh["launches"].get(op, 0),
                    "lm_mesh_mla": mla_mesh["launches"].get(op, 0),
+                   "lm_mesh_enc_vl": zoo_mesh["launches"].get(op, 0),
                    "falcon_train": ssm["falcon_train"]["launches"][op],
                    **{path: run["launches"][op] for path, run in dense.items()}}
         records.append({
@@ -5376,6 +5487,10 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, d
                     f"{SSM_MESH_RANKS} ranks' launches summed), phase 26's deepseek-v3 request of a "
                     f"prefill and {LM_MESH_DECODE} decode steps on the 1 × {MLA_MESH_RANKS} mesh and "
                     f"its {MLA_MESH_TRAIN_STEPS} train steps there (lm_mesh_mla: the {MLA_MESH_RANKS} "
+                    "ranks' launches summed), phase 27's whisper and qwen2-vl requests of a prefill "
+                    f"and {ZOO_MESH_DECODE} decode steps (twice) and a train step on the 1 × "
+                    f"{ZOO_MESH_RANKS} mesh (whisper's planted runs too) and its {POD_MESH_TRAIN_STEPS} "
+                    f"olmoe train steps on the 2 × 2 × 1 pod mesh (lm_mesh_enc_vl: the {ZOO_MESH_RANKS} "
                     "ranks' launches summed); "
                     "ms, plain_ms, bound_ms, library_ms: each site timed alone, times its "
                     "launches in one pass, summed over one GCN step, one logistic-regression "
@@ -5397,7 +5512,11 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, d
                     "decode step on the 1 × 4 mesh and its falcon-mamba (2 × 2) and zamba2 (1 × 4) "
                     "train steps at their shard shapes (lm_mesh_ssm), one rank's deepseek-v3 "
                     "prefill and decode step and its train step on the 1 × 4 mesh at their shard "
-                    "shapes (lm_mesh_mla); 'paths' splits them; host_ms: "
+                    "shapes (lm_mesh_mla), one rank's whisper and qwen2-vl prefill, encoder step "
+                    "(whisper), decode step and train step on the 1 × 4 mesh and its olmoe train step "
+                    "on the 2 × 2 × 1 pod mesh at their shard shapes (lm_mesh_enc_vl) — a kernel "
+                    "signature of the passes from olmoe_serve on that an earlier path timed takes that "
+                    "timing; 'paths' splits them; host_ms: "
                     f"the host's time per call over {HOST_CALLS} calls without a synchronise, "
                     "summed the same way over the sites where it was taken (null: not taken)"),
             "paths": {path: {k: v for k, v in acc.items() if k not in ("bytes_ms", "ops_ms")}
@@ -8550,6 +8669,703 @@ def mla_mesh_phase(torch, repro_torch, kern, dev, smi, serve_ref):
     return {"serve": r0["sites"]["serve"], "train": r0["sites"]["train"], "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# Phase 27: whisper (enc/dec), qwen2-vl (the vision prefix) and a pod axis on
+# a mesh; the dry run against the measurement
+# ---------------------------------------------------------------------------
+
+
+def zoo_mesh_config(arch):
+    """27.1's and 27.2's models in f32 without remat: whisper-small at its
+    published widths and depth (12 + 12 layers), qwen2-vl-72b at its
+    published widths and QWEN_MESH_LAYERS layers."""
+    layers = {} if arch == WHISPER_ARCH else {"n_layers": QWEN_MESH_LAYERS}
+    return dense_config(arch, remat=False, **layers)
+
+
+def pod_mesh_config():
+    """27.3's model: olmoe-1b-7b at its published widths in f32,
+    POD_MESH_LAYERS layers, no remat."""
+    return lm_mesh_config(POD_MESH_LAYERS, remat=False)
+
+
+def _split(width, m):
+    """A width as a rank of ``m`` model ranks holds it: its share where the
+    ranks split it, else whole (``Placement.splits``)."""
+    return width // m if m > 1 and width % m == 0 else width
+
+
+def zoo_mesh_shapes(cfg, b, s, m, train, vis=0):
+    """Every kernel call (op, shape) of one rank's pass over B rows of S
+    tokens (after VIS patches) on a 1 × m mesh, and with ``train`` of its
+    backward; m = 1 is the mesh-less call. whisper: the encoder over
+    B·enc_seq frames on its leaves' specs (q/k/v on the rank's input rows,
+    wo and the MLP whole: ROADMAP.md §3), the decoder's self- and
+    cross-attention on the rank's heads (the cross-attention's K/V from the
+    whole encoder output, at every step) and MLP on its hidden columns; the
+    vocabulary (51,865) splits over no m > 1 here, so the lookup and the
+    tied head's table are whole. qwen2-vl: the products over B·(S + VIS)
+    rows on the rank's heads and columns, its V/m rows of the table and
+    columns of the head (the last position in serving, the text in
+    training)."""
+    d, hd, bs = cfg.d_model, cfg.hd(), b * s
+    nq, nkv, ff, v = cfg.n_heads * hd, cfg.n_kv_heads * hd, cfg.d_ff, _split(cfg.vocab, m)
+    if cfg.encoder_layers:
+        be = b * cfg.enc_seq
+        mm = {(be, _split(d, m), nq), (be, _split(d, m), nkv), (be, nq, d), (be, d, ff), (be, ff, d),
+              (be, d, _split(nkv, m))}
+        for rows in (bs,):
+            mm |= {(rows, d, _split(nq, m)), (rows, d, _split(nkv, m)), (rows, _split(nq, m), d),
+                   (rows, d, _split(ff, m)), (rows, _split(ff, m), d)}
+    else:
+        rows = b * (s + vis)
+        mm = {(rows, d, _split(nq, m)), (rows, d, _split(nkv, m)), (rows, _split(nq, m), d),
+              (rows, d, _split(ff, m)), (rows, _split(ff, m), d), (bs if train else b, d, v)}
+    out = ({("blocked_matmul",) + k for k in mm}
+           | {("gather_join", bs, v, d), ("segment_sum", bs, d, bs)})
+    if train:
+        out |= {("gather_join", bs, bs, d), ("segment_sum", bs, d, v)}
+    return out
+
+
+def zoo_mesh_checked_shapes():
+    """The kernel calls of phase 27, which phase 2 checks and phase 27's
+    runs must launch at no other shape: whisper's and qwen2-vl's prefill,
+    decode step and train step mesh-less and on one rank (27.1) and on the
+    1 × 4 mesh (27.2), olmoe's train step mesh-less and on the 2 × 2 × 1
+    mesh (27.3: a quarter of the rows a rank, every expert)."""
+    out = set()
+    for arch in (WHISPER_ARCH, QWEN_ARCH):
+        cfg = zoo_mesh_config(arch)
+        vis = cfg.vis_seq or 0
+        for m in (1, ZOO_MESH_RANKS):
+            out |= (zoo_mesh_shapes(cfg, ZOO_MESH_BATCH, ZOO_MESH_PROMPT, m, False, vis)
+                    | zoo_mesh_shapes(cfg, ZOO_MESH_BATCH, 1, m, False)
+                    | zoo_mesh_shapes(cfg, ZOO_MESH_BATCH, ZOO_MESH_TRAIN_SEQ, m, True, vis))
+    cfg = pod_mesh_config()
+    for fold in (1, POD_MESH_FOLD):
+        out |= lm_mesh_shapes(cfg, POD_MESH_TRAIN_BATCH, POD_MESH_TRAIN_SEQ, 1, fold, True)
+    return out
+
+
+def zoo_mesh_logit_limit(cfg):
+    """27.2's limit on the 1 × 4 logits against the mesh-less run's, as a
+    share of the largest logit, derived as ``ssm_mesh_logit_limit``: each
+    sum the mesh splits into 4 partials — whisper's encoder q, k and v over
+    the rank's input rows (K = d_model each), each decoder layer's self- and
+    cross-attention wo (K = H·hd) and MLP (d_ff); qwen2-vl's wo and MLP —
+    is an f32 sum of K terms in another order, off by about √K·u of its
+    size; the sums add as a random walk, √(Σ K)·u, and the limit allows 10
+    times that. A missing all-reduce leaves 3/4 of a sum out."""
+    nq = cfg.n_heads * cfg.hd()
+    ks = [3 * cfg.d_model] * cfg.encoder_layers
+    per_layer = [nq, nq, cfg.d_ff] if cfg.encoder_layers else [nq, cfg.d_ff]
+    return 10 * math.sqrt(sum(ks) + cfg.n_layers * sum(per_layer)) * U32
+
+
+def zoo_mesh_batch(torch, dev, cfg, b, s, seed):
+    """A batch of B rows of S seeded tokens with their labels, and whisper's
+    frames or qwen2-vl's patches, seeded rows on the card."""
+    tokens = lm_mesh_tokens(torch, dev, (b, s), seed, cfg.vocab)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    if cfg.encoder_layers:
+        batch["frames"] = torch.randn((b, cfg.enc_seq, cfg.d_model), generator=gen, device=dev)
+    if cfg.vis_seq:
+        batch["patches"] = torch.randn((b, cfg.vis_seq, cfg.d_model), generator=gen, device=dev)
+    return batch
+
+
+def zoo_mesh_serve(torch, model, db, batch, fed, *, mesh=None, log_=None, decode_steps=None):
+    """A prefill of ``batch`` (tokens and whisper's frames or qwen2-vl's
+    patches), then ``decode_steps`` (default ZOO_MESH_DECODE) decode steps
+    fed the columns of ``fed`` at length = S + vis + i (whisper's on
+    ``make_encode_step``'s encoder output; none, and no encoder step, at 0):
+    each step's logits, its host time and its collectives; with ``log_``
+    the kernel calls of the prefill, the encoder and the first decode
+    step."""
+    from repro_torch.launch import collectives
+    from repro_torch.serving import make_decode_step, make_encode_step, make_prefill_step
+
+    cfg = model.cfg
+    prompt, vis = batch["tokens"].shape[1], cfg.vis_seq or 0
+    inputs = {k: v for k, v in batch.items() if k != "labels"}
+    prefill = make_prefill_step(model, prompt + vis + ZOO_MESH_DECODE, mesh=mesh, db=db)
+    decode = make_decode_step(model, mesh=mesh, db=db)
+    rec = {"secs": [], "collectives": []}
+
+    def timed(fn, *args, **kw):
+        collectives.reset_collectives()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn(*args, **kw)
+        torch.cuda.synchronize()
+        rec["secs"].append(time.perf_counter() - t0)
+        rec["collectives"].append(collectives.last_collectives())
+        return got
+
+    logits, caches = timed(prefill, inputs)
+    steps = [logits[:, -1]]
+    kw = {}
+    n = ZOO_MESH_DECODE if decode_steps is None else decode_steps
+    if cfg.encoder_layers and n:
+        kw["enc_out"] = timed(make_encode_step(model, mesh=mesh, db=db), batch["frames"])
+    for i in range(n):
+        logits, caches = timed(decode, fed[:, i:i + 1], caches, prompt + vis + i, **kw)
+        steps.append(logits[:, -1])
+        if i == 0 and log_ is not None:
+            rec["pass"] = dict(log_.counts)
+    rec["logits"] = torch.stack(steps).float()
+    return rec
+
+
+def zoo_mesh_one_rank(torch, repro_torch, kern, dev, smi):
+    """27.1 and 27.2's mesh-less runs: whisper-small at full depth and
+    qwen2-vl-72b at QWEN_MESH_LAYERS layers served (a prefill and
+    ZOO_MESH_DECODE decode steps fed seeded tokens) and trained one Adam
+    step mesh-less, then from the same seed on a one-rank NCCL group's
+    ("model",) mesh, bit for bit. Returns the mesh-less runs (host
+    tensors) and the batches, per arch."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import collectives
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.models import build_model
+
+    out = {}
+    for arch in (WHISPER_ARCH, QWEN_ARCH):
+        cfg = zoo_mesh_config(arch)
+        leaves = ZOO_MESH_LEAVES[arch]
+        serve_batch = zoo_mesh_batch(torch, dev, cfg, ZOO_MESH_BATCH, ZOO_MESH_PROMPT, 270)
+        fed = lm_mesh_tokens(torch, dev, (ZOO_MESH_BATCH, ZOO_MESH_DECODE), 272, cfg.vocab)
+        train_batch = zoo_mesh_batch(torch, dev, cfg, ZOO_MESH_BATCH, ZOO_MESH_TRAIN_SEQ, 273)
+        one = repro_torch.Database(dev)
+        t0 = time.perf_counter()
+        model = build_model(cfg, device=dev, seed=0)
+        ref = zoo_mesh_serve(torch, model, one, serve_batch, fed)
+        warm = zoo_mesh_serve(torch, model, one, serve_batch, fed)
+        ref_train = lm_mesh_train(torch, model, one, train_batch, steps=1, leaves=leaves, lr=LM_MESH_LR)
+        n_params = sum(p.numel() for p in model.parameters())
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_zoo_mesh_")
+        try:
+            launch_mesh.init_ranks("nccl", 0, 1, os.path.join(tmp, "nccl"), device=torch.device("cuda", 0))
+            try:
+                db = repro_torch.Database(dev, mesh="host")
+                kern.reset_launch_counts()
+                collectives.reset_collectives()
+                again = build_model(cfg, device=dev, seed=0)
+                got = zoo_mesh_serve(torch, again, db, serve_batch, fed, mesh=db.mesh)
+                got_train = lm_mesh_train(torch, again, db, train_batch, steps=1, leaves=leaves, lr=LM_MESH_LR)
+                launches, coll = kern.launch_counts(), collectives.last_collectives()
+                backend = dist.get_backend()
+            finally:
+                dist.destroy_process_group()
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        equal = {
+            "logits": torch.equal(got["logits"], ref["logits"]),
+            "loss": got_train["losses"] == ref_train["losses"],
+            "norm": got_train["norms"] == ref_train["norms"],
+            "grads": all(torch.equal(got_train["grads"][0][k], ref_train["grads"][0][k]) for k in leaves),
+            "params": all(torch.equal(got_train["params"][k], ref_train["params"][k]) for k in leaves),
+        }
+        log(f"  27.1 {arch} ({cfg.n_layers} decoder layers{f', {cfg.encoder_layers} encoder' if cfg.encoder_layers else ''}, "
+            f"{n_params:,} parameters) on a one-rank {backend} group: a prefill of {ZOO_MESH_BATCH} x "
+            f"{ZOO_MESH_PROMPT} tokens{f' after {cfg.vis_seq} patches' if cfg.vis_seq else ''}, "
+            f"{ZOO_MESH_DECODE} decode steps, one train step on {ZOO_MESH_BATCH} x {ZOO_MESH_TRAIN_SEQ}: "
+            f"prefill {warm['secs'][0] * 1e3:.2f} ms mesh-less (second run), {got['secs'][0] * 1e3:.2f} ms "
+            f"on the mesh; train step {ref_train['secs'][0]:.3f} s / {got_train['secs'][0]:.3f} s on {smi}; "
+            f"collectives {coll or 'none'}; launches {launches}; bit-equal to the mesh-less steps: {equal} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        if not all(equal.values()):
+            raise AssertionError(f"27.1: {arch}'s one-rank mesh steps are not the mesh-less steps: {equal}")
+        if not all(launches[op] > 0 for op in GCN_KERNELS):
+            raise AssertionError(f"27.1: a kernel of {arch}'s one-rank mesh steps never launched: {launches}")
+        out[arch] = {"serve": {k: ref[k] for k in ("logits",)} | {"secs": warm["secs"]},
+                     "train": ref_train, "serve_batch": {k: v.cpu() for k, v in serve_batch.items()},
+                     "fed": fed.cpu(), "train_batch": {k: v.cpu() for k, v in train_batch.items()}}
+        out[arch]["serve"]["logits"] = out[arch]["serve"]["logits"].cpu()
+        del again, got, got_train
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def plant_kv_source(blocks):
+    """Plant the cross-attention fed the encoder's output without
+    ``copy_to``: each rank's heads' part of its gradient kept. Returns the
+    undo."""
+    return plant_method(blocks, "_kv_source", lambda place, enc_out: enc_out)
+
+
+def capture_pod_inputs(torch, collectives, names, leaves):
+    """While active (``capture[0]`` true), the input of every all-reduce
+    over "pod" — the gradients after the FSDP reduce-scatter over "data",
+    before the sum over the pods, in the step's leaf order (``names``) —
+    kept for the named ``leaves`` (host copies): a step with the pod
+    all-reduce left out, planted, would update with these. Returns (the
+    captured, the switch, the undo)."""
+    real, got, on, order = collectives.MeshComm.all_reduce, {}, [False], []
+
+    def all_reduce(self, t, kind):
+        if kind == "pod" and on[0]:
+            name = names[len(order)]
+            order.append(name)
+            if name in leaves:
+                got[name] = t.detach().cpu()
+        return real(self, t, kind)
+
+    collectives.MeshComm.all_reduce = all_reduce
+
+    def undo():
+        collectives.MeshComm.all_reduce = real
+    return got, on, undo
+
+
+def zoo_mesh_rank(rank, path, device):
+    """One rank of 27.2, 27.3 and 27.5: whisper-small and qwen2-vl-72b
+    served and trained one step on the 1 × 4 mesh (whisper again with an
+    encoder layer's q all-reduce left out, and trained with the
+    cross-attention fed without ``copy_to``); olmoe-1b-7b trained
+    POD_MESH_TRAIN_STEPS steps on the 2 × 2 × 1 ("pod", "data", "model")
+    mesh on the mesh-less run's routing, step 1's gradients before the pod
+    sum kept; the kernel calls of each pass and (rank 0) their launch
+    records against the contract models and the lowerings' certificates.
+    Returns numbers and host tensors."""
+    import torch
+
+    import repro_torch
+    from repro_torch import kernels as kern
+    from repro_torch.analysis import certify_kernels
+    from repro_torch.analysis.kernelcheck import launch_mismatch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.common import last_launches
+    from repro_torch.launch import collectives, sharding
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.models import blocks, build_model, ffn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dev = torch.device(device)
+    build.library()
+    blob = torch.load(path)
+    out = {"rank": rank}
+    m14 = launch_mesh.make_host_mesh(model=ZOO_MESH_RANKS, device_type=dev.type)
+    m221 = launch_mesh.make_host_mesh(model=1, pod=2, device_type=dev.type)
+    pod_cfg = pod_mesh_config()
+    # every mesh's groups, made by every rank at once (new_group is collective)
+    for arch in (WHISPER_ARCH, QWEN_ARCH):
+        sharding.Placement(zoo_mesh_config(arch), m14)
+    sharding.Placement(pod_cfg, m221)
+    sites, lowerings = {}, []
+
+    # 27.2: whisper and qwen2-vl on the 1 × 4 mesh
+    for arch in (WHISPER_ARCH, QWEN_ARCH):
+        cfg = zoo_mesh_config(arch)
+        ref = blob[arch]
+        rec = out[arch] = {}
+        db = repro_torch.Database(dev, mesh=m14)
+        serve_batch = {k: v.to(dev) for k, v in ref["serve_batch"].items()}
+        train_batch = {k: v.to(dev) for k, v in ref["train_batch"].items()}
+        fed = ref["fed"].to(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        model = built_in_turn(torch, lambda: build_model(cfg, device=dev, seed=0, mesh=m14), rank,
+                              ZOO_MESH_RANKS)
+        rec["build_s"] = time.perf_counter() - t0
+        rec["param_bytes"] = sum(p.numel() * p.element_size() for p in model.parameters())
+        kern.reset_launch_counts()
+        with LaunchLog(torch) as log_:
+            serve = zoo_mesh_serve(torch, model, db, serve_batch, fed, log_=log_)
+            rec["serve_launches"] = kern.launch_counts()
+            again = zoo_mesh_serve(torch, model, db, serve_batch, fed)
+        rec["serve"] = {k: v for k, v in serve.items() if k not in ("logits", "pass")}
+        rec["serve"]["logits"] = serve["logits"].cpu()
+        rec["serve_again"] = torch.equal(again["logits"], serve["logits"])
+        rec["serve_warm_secs"] = again["secs"]
+        rec["serve_shapes"] = sorted(log_.counts)
+        sites[arch, "serve"] = (serve["pass"], {k: v.cpu() for k, v in log_.ids.items()}, sorted(log_.moe_tiers))
+        if cfg.encoder_layers:
+            # the prefill alone: the plant is in the encoder, which it runs
+            undo = drop_one_model_reduce(collectives, 3 * ZOO_MESH_PLANTED_LAYER)
+            try:
+                rec["serve_planted"] = zoo_mesh_serve(torch, model, db, serve_batch, fed,
+                                                      decode_steps=0)["logits"].cpu()
+            finally:
+                undo()
+        lowerings += list(model.placement._twin(db)._compiled_refs)
+        kern.reset_launch_counts()
+        with LaunchLog(torch) as log_:
+            train = lm_mesh_train(torch, model, db, train_batch, steps=1, leaves=ZOO_MESH_LEAVES[arch],
+                                  log_=log_, lr=LM_MESH_LR)
+            rec["train_launches"] = kern.launch_counts()
+        rec["train_shapes"] = sorted(log_.counts)
+        sites[arch, "train"] = (train.pop("pass"), {k: v.cpu() for k, v in log_.ids.items()},
+                                sorted(log_.moe_tiers))
+        rec["train"] = train
+        rec["coords"] = (model.placement.index("data"), model.placement.index("model"))
+        rec["peak"] = torch.cuda.max_memory_allocated(dev)
+        del model, serve, again
+        gc.collect()
+        torch.cuda.empty_cache()
+        if cfg.encoder_layers:
+            model = build_model(cfg, device=dev, seed=0, mesh=m14)
+            undo = plant_kv_source(blocks)
+            try:
+                bad = lm_mesh_train(torch, model, db, train_batch, steps=1, leaves=ZOO_MESH_LEAVES[arch],
+                                    lr=LM_MESH_LR)
+            finally:
+                undo()
+            rec["train_planted"] = bad["grads"][0]
+            del model, bad
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    # 27.3: olmoe on the 2 × 2 × 1 pod mesh, on the mesh-less run's routing
+    # (the rank's rows of it: its index in the ("pod", "data") fold)
+    db = repro_torch.Database(dev, mesh=m221)
+    batch = {k: v.to(dev) for k, v in blob["pod"]["batch"].items()}
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = build_model(pod_cfg, device=dev, seed=0, mesh=m221)
+    place = model.placement
+    bi, bl = place.index("batch"), POD_MESH_TRAIN_BATCH // place.size("batch")
+    rows = [(c[bi * bl:(bi + 1) * bl].to(dev), None) for c, _ in blob["pod"]["routing"]]
+    names = [n for n, _ in model.named_parameters()]
+    got, on, undo = capture_pod_inputs(torch, collectives, names, LM_MESH_LEAVES)
+    routing = Routing(torch, ffn)
+    kern.reset_launch_counts()
+    try:
+        with routing, LaunchLog(torch) as log_:
+            routing.run(rows)
+            on[0] = True
+            # the capture stops at step 1's update (UpdateLog's ``also``)
+            rec = lm_mesh_train(torch, model, db, batch, steps=POD_MESH_TRAIN_STEPS, log_=log_,
+                                also=lambda p, g: on.__setitem__(0, False) or 0.0)
+            rec["routing_moved"] = int(sum(int(d.sum()) for d in routing_differences(torch, routing.own, rows)))
+            out["pod_launches"] = kern.launch_counts()
+    finally:
+        undo()
+    out["pod_planted"] = dict(got)
+    out["pod_shapes"] = sorted(log_.counts)
+    sites["pod", "train"] = (rec.pop("pass"), {k: v.cpu() for k, v in log_.ids.items()}, sorted(log_.moe_tiers))
+    rec["coords"] = {k: place.index(k) for k in ("pod", "data", "model", "batch")}
+    rec["param_bytes"] = sum(p.numel() * p.element_size() for p in model.parameters())
+    rec["peak"] = torch.cuda.max_memory_allocated(dev)
+    lowerings += list(place._twin(db)._compiled_refs)
+    out["pod"] = rec
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 27.5: every kernel signature of the passes launched alone at its site,
+    # its launch record against its contract model; the lowerings certified
+    if rank == 0:
+        bad, compared, seen = [], 0, set()
+        for counts, _, _ in sites.values():
+            for key in counts:
+                if key in seen:
+                    continue
+                seen.add(key)
+                info = dict(LaunchLog(torch).info(key), dtype="float32")
+                launched, aligned = record_call(torch, kern, key[0], info, dev)
+                record = last_launches() if launched else ()
+                compared += len(record)
+                miss = launch_mismatch(key[0], info, record,
+                                       **({} if key[0] == "blocked_matmul" else {"aligned": aligned}))
+                if miss:
+                    bad.append(miss)
+        reports = [certify_kernels(c) for c in lowerings if getattr(c, "lowered", None) is not None]
+        out["records"] = (len(seen), compared, bad)
+        out["certified"] = (len(reports), all(r.ok for r in reports))
+        out["sites"] = sites
+    torch.cuda.synchronize()
+    return out
+
+
+def zoo_mesh_walks():
+    """27.4's half that needs no rank: ``launch/dryrun.py``'s walk on
+    ``meta`` of each step 27.2 and 27.3 measure, at its mesh's axis sizes,
+    configuration and shapes, with ``launch/roofline.py``'s terms: (arch,
+    step kind, sizes, walk, roofline, seconds) each. It runs while the ranks
+    do (a thread of this process, on the host)."""
+    from repro_torch.launch import dryrun
+
+    m14, m221 = {"data": 1, "model": ZOO_MESH_RANKS}, {"pod": 2, "data": 2, "model": 1}
+    steps = []
+    for arch in (WHISPER_ARCH, QWEN_ARCH):
+        cfg = zoo_mesh_config(arch)
+        cache = ZOO_MESH_PROMPT + (cfg.vis_seq or 0) + ZOO_MESH_DECODE
+        steps += [(arch, "prefill", cfg, m14, ZOO_MESH_BATCH, ZOO_MESH_PROMPT),
+                  (arch, "decode", cfg, m14, ZOO_MESH_BATCH, cache),
+                  (arch, "train", cfg, m14, ZOO_MESH_BATCH, ZOO_MESH_TRAIN_SEQ)]
+    steps.append((OLMOE_ARCH, "train", pod_mesh_config(), m221, POD_MESH_TRAIN_BATCH, POD_MESH_TRAIN_SEQ))
+    out = []
+    for arch, kind, cfg, sizes, b, s in steps:
+        t0 = time.perf_counter()
+        walked = dryrun.walk(cfg, sizes, kind, b, s)
+        roof = dryrun.roofline(walked["flops"], walked["bytes_accessed"], walked["collectives"], sizes,
+                               arch=arch, shape="train_4k" if kind == "train" else f"{kind}_32k", cfg=cfg,
+                               input_shape=dryrun.InputShape(kind, s, b, kind))
+        out.append((arch, kind, sizes, walked, roof, time.perf_counter() - t0))
+    return out
+
+
+def zoo_mesh_dryrun(torch, ranks, smi, walks):
+    """27.4: the walks of ``zoo_mesh_walks`` held to rank 0's record: the
+    collectives by op and group (calls and bytes) and the parameter bytes;
+    the roofline terms printed beside the measured times."""
+    r0 = ranks[0]
+    measured = {}
+    for arch in (WHISPER_ARCH, QWEN_ARCH):
+        rec = r0[arch]
+        measured[arch, "prefill"] = (rec["serve"]["collectives"][0], rec["serve_warm_secs"][0], rec["param_bytes"])
+        measured[arch, "decode"] = (rec["serve"]["collectives"][-1], rec["serve_warm_secs"][-1], rec["param_bytes"])
+        measured[arch, "train"] = (rec["train"]["collectives"][-1], rec["train"]["secs"][-1], rec["param_bytes"])
+    pod = r0["pod"]
+    measured[OLMOE_ARCH, "train"] = (pod["collectives"][-1], pod["secs"][-1], pod["param_bytes"])
+    bad = []
+    for arch, kind, sizes, walked, roof, walk_s in walks:
+        coll, secs, param_bytes = measured[arch, kind]
+        same = walked["collectives"] == coll and walked["param_bytes"] == param_bytes
+        log(f"  27.4 {arch} {kind} on {sizes}: walked in {walk_s:.1f} s; collectives "
+            f"{ {k: (v['calls'], v['bytes']) for k, v in sorted(walked['collectives'].items())} } (rank 0 "
+            f"measured { {k: (v['calls'], v['bytes']) for k, v in sorted(coll.items())} }); parameter bytes "
+            f"{walked['param_bytes']} (rank 0's shards {param_bytes}); equal: {same}; roofline on the "
+            f"published H100 figures: compute {roof['compute_s'] * 1e3:.3f} ms (f32 CUDA cores "
+            f"{roof['compute_f32_s'] * 1e3:.3f}), memory {roof['memory_s'] * 1e3:.3f} ms, collective "
+            f"{roof['collective_s'] * 1e3:.3f} ms ({roof['dominant']}); measured {secs * 1e3:.2f} ms on {smi} "
+            f"over gloo")
+        if not same:
+            bad.append((arch, kind))
+    if bad:
+        raise AssertionError(f"27.4: the dry run's collectives or parameter bytes differ from rank 0's: {bad}")
+
+
+def zoo_mesh_phase(torch, repro_torch, kern, dev, smi):
+    """Phase 27 (module docstring): 27.1 here on a one-rank NCCL group, with
+    27.2's mesh-less runs; 27.3's mesh-less steps; 27.2, 27.3 and 27.5 in
+    ZOO_MESH_RANKS new processes that share the card over gloo
+    (``zoo_mesh_rank``); 27.4 here on ``meta``. Returns the sites and
+    launches of a pass for phase 8."""
+    import concurrent.futures
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.launch.sharding import param_pspecs
+    from repro_torch.models import build_model, ffn
+    from repro_torch.models.model import param_shapes
+
+    log(f"  card: {smi}")
+    t0 = time.perf_counter()
+    refs = zoo_mesh_one_rank(torch, repro_torch, kern, dev, smi)
+    log(f"  27.1 and 27.2's mesh-less runs: {time.perf_counter() - t0:.1f} s")
+
+    # 27.3's mesh-less steps, here before the ranks start
+    t1 = time.perf_counter()
+    pcfg = pod_mesh_config()
+    tokens = lm_mesh_tokens(torch, dev, (POD_MESH_TRAIN_BATCH, POD_MESH_TRAIN_SEQ), 275, pcfg.vocab)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    model = build_model(pcfg, device=dev, seed=0)
+    with Routing(torch, ffn) as routing:
+        routing.run()
+        pod_ref = lm_mesh_train(torch, model, repro_torch.Database(dev), batch, steps=POD_MESH_TRAIN_STEPS)
+    pod_routing = [(c.cpu(), None) for c, _ in routing.own]
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  27.3's mesh-less steps: losses {pod_ref['losses']}, global norms {pod_ref['norms']}, "
+        f"{time.perf_counter() - t1:.1f} s")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_zoo_mesh_")
+    alloc_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        path = os.path.join(tmp, "zoo.pt")
+        blob = {arch: {k: refs[arch][k] for k in ("serve_batch", "fed", "train_batch")}
+                for arch in (WHISPER_ARCH, QWEN_ARCH)}
+        blob["pod"] = {"batch": {k: v.cpu() for k, v in batch.items()}, "routing": pod_routing}
+        torch.save(blob, path)
+        t2 = time.perf_counter()
+        # 27.4's walks on meta run here meanwhile
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            walking = pool.submit(zoo_mesh_walks)
+            ranks = launch_mesh.start_ranks(zoo_mesh_rank, ZOO_MESH_RANKS, backend="gloo", device="cuda:0",
+                                            args=(path, "cuda:0"))
+            walks = walking.result()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        if alloc_conf is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
+    log(f"  {ZOO_MESH_RANKS} ranks started and run in {time.perf_counter() - t2:.1f} s")
+    r0 = ranks[0]
+
+    # 27.2
+    for arch in (WHISPER_ARCH, QWEN_ARCH):
+        cfg = zoo_mesh_config(arch)
+        ref, rec = refs[arch], r0[arch]
+        limit = zoo_mesh_logit_limit(cfg)
+        want = ref["serve"]["logits"]
+        scale = float(want.abs().max())
+        err = float((rec["serve"]["logits"] - want).abs().max()) / scale
+        log(f"  27.2 {arch} on the 1 x {ZOO_MESH_RANKS} mesh, {ZOO_MESH_RANKS} gloo ranks sharing cuda:0: a "
+            f"prefill of {ZOO_MESH_BATCH} x {ZOO_MESH_PROMPT} tokens"
+            f"{f' after {cfg.vis_seq} patches' if cfg.vis_seq else f' over {cfg.enc_seq} frames'}, "
+            f"{ZOO_MESH_DECODE} decode steps fed seeded tokens"
+            f"{' on make_encode_step(mesh=)' if cfg.encoder_layers else ''}, one train step")
+        for r in ranks:
+            rr = r[arch]
+            log(f"  rank {r['rank']}: shards {rr['param_bytes']} bytes (built in {rr['build_s']:.2f} s), peak "
+                f"{rr['peak']} bytes; prefill {rr['serve']['secs'][0] * 1e3:.2f} ms (first call), "
+                f"{rr['serve_warm_secs'][0] * 1e3:.2f} ms (second run); decode steps "
+                f"{[round(x * 1e3, 2) for x in rr['serve_warm_secs'][-ZOO_MESH_DECODE:]]} ms; train step "
+                f"{rr['train']['secs'][0]:.3f} s; prefill collectives "
+                f"{ {k: (v['calls'], v['bytes']) for k, v in sorted(rr['serve']['collectives'][0].items())} }")
+            if not torch.equal(rr["serve"]["logits"], rec["serve"]["logits"]):
+                raise AssertionError(f"27.2: rank {r['rank']}'s {arch} logits differ from rank 0's")
+            if rr["train"]["losses"] != rec["train"]["losses"] or rr["train"]["norms"] != rec["train"]["norms"]:
+                raise AssertionError(f"27.2: rank {r['rank']}'s {arch} loss or norm differs from rank 0's")
+        log(f"  every rank's logits, loss and norm bit-equal to rank 0's: True; a second run bit-equal: "
+            f"{rec['serve_again']}; mesh-less prefill {ref['serve']['secs'][0] * 1e3:.2f} ms, decode steps "
+            f"{[round(x * 1e3, 2) for x in ref['serve']['secs'][-ZOO_MESH_DECODE:]]} ms")
+        log(f"  logits against the mesh-less run: max |Δ| / max |logit| = {err:.3e} (limit {limit:.3e})")
+        if err > limit or not rec["serve_again"]:
+            raise AssertionError(f"27.2: {arch}'s 1 x 4 logits differ from the mesh-less run's")
+        if "serve_planted" in rec:
+            planted = float((rec["serve_planted"][0] - want[0]).abs().max()) / scale
+            log(f"  planted (encoder layer {ZOO_MESH_PLANTED_LAYER}'s q all-reduce left out, the prefill's "
+                f"logits): {planted:.3e}, "
+                f"{planted / limit:.1f} x the limit")
+            # the encoder's q partials feed the softmax and two norms, which
+            # damp a missing sum more than the decoder's row-parallel outputs
+            if planted <= 10 * limit:
+                raise AssertionError("27.2: the logit limit passes a missing encoder all-reduce")
+        shapes = param_shapes(cfg)
+        specs = param_pspecs(shapes, {"data": 1, "model": ZOO_MESH_RANKS})
+        t, one = rec["train"], ref["train"]
+        dloss = abs(t["losses"][0] - one["losses"][0]) / abs(one["losses"][0])
+        dnorm = abs(t["norms"][0] - one["norms"][0]) / one["norms"][0]
+        log(f"  train: loss {t['losses'][0]} (mesh-less {one['losses'][0]}): rel diff {dloss:.3e} (limit "
+            f"{OLMOE_LOSS_LIMIT}); global norm {t['norms'][0]} (mesh-less {one['norms'][0]}): rel diff "
+            f"{dnorm:.3e} (limit {LM_MESH_NORM_LIMIT}); step collectives "
+            f"{ {k: (v['calls'], v['bytes']) for k, v in sorted(t['collectives'][0].items())} }")
+        if dloss > OLMOE_LOSS_LIMIT or dnorm > LM_MESH_NORM_LIMIT:
+            raise AssertionError(f"27.2: {arch}'s loss or norm differs from the mesh-less step's")
+        parts = [(r[arch]["coords"], r[arch]["train"]["grads"][0]) for r in ranks]
+        planted = [(r[arch]["coords"], r[arch]["train_planted"]) for r in ranks] if "train_planted" in rec else None
+        worst = {}
+        for name in ZOO_MESH_LEAVES[arch]:
+            gerr = rel_err(lm_mesh_whole(torch, parts, name, shapes[name], specs), one["grads"][0][name])
+            log(f"  {name} {specs[name]}: step-1 gradient rel err {gerr:.3e} (limit {OLMOE_GRAD_LIMIT})")
+            if gerr > OLMOE_GRAD_LIMIT:
+                raise AssertionError(f"27.2: {arch}'s {name} gradient differs from the mesh-less step's")
+            if planted is not None:
+                worst[name] = rel_err(lm_mesh_whole(torch, planted, name, shapes[name], specs),
+                                      one["grads"][0][name])
+        if planted is not None:
+            name = max(worst, key=worst.get)
+            log(f"  planted (the cross-attention fed enc_out without copy_to): step-1 gradient rel errs "
+                f"{ {n: f'{v:.2e}' for n, v in worst.items()} }; the worst, {name}, at "
+                f"{worst[name] / OLMOE_GRAD_LIMIT:.1f} x the limit")
+            if worst[name] <= 10 * OLMOE_GRAD_LIMIT:
+                raise AssertionError("27.2: the gradient limit passes the cross-attention without copy_to")
+        for op in GCN_KERNELS:
+            if rec["serve_launches"][op] + rec["train_launches"][op] <= 0:
+                raise AssertionError(f"27.2: {op} never launched on the 1 x 4 mesh ({arch})")
+
+    # 27.3
+    log(f"  27.3 olmoe-1b-7b at {pcfg.n_layers} layer(s) on the 2 x 2 x 1 (pod, data, model) mesh: "
+        f"{POD_MESH_TRAIN_STEPS} Adam steps (lr {LM_MESH_LR}, no remat) on {POD_MESH_TRAIN_BATCH} x "
+        f"{POD_MESH_TRAIN_SEQ} tokens, a row a rank, FSDP over data, the gradients summed over pod")
+    shapes = param_shapes(pcfg)
+    specs = param_pspecs(shapes, {"pod": 2, "data": 2, "model": 1})
+    t = r0["pod"]
+    for r in ranks:
+        rt = r["pod"]
+        log(f"  rank {r['rank']} at {rt['coords']}: shards {rt['param_bytes']} bytes, peak {rt['peak']} "
+            f"bytes; steps {[round(x, 3) for x in rt['secs']]} s; routing moved {rt['routing_moved']}; "
+            f"the last step's collectives "
+            f"{ {k: (v['calls'], v['bytes']) for k, v in sorted(rt['collectives'][-1].items())} }")
+        if rt["losses"] != t["losses"] or rt["norms"] != t["norms"]:
+            raise AssertionError(f"27.3: rank {r['rank']}'s losses or norms differ from rank 0's")
+    dloss = max(abs(a - b) / abs(b) for a, b in zip(t["losses"], pod_ref["losses"]))
+    dnorm = max(abs(a - b) / b for a, b in zip(t["norms"], pod_ref["norms"]))
+    log(f"  losses {t['losses']} (mesh-less {pod_ref['losses']}): rel diff {dloss:.3e} (limit "
+        f"{OLMOE_LOSS_LIMIT}); global norms {t['norms']} (mesh-less {pod_ref['norms']}): rel diff "
+        f"{dnorm:.3e} (limit {LM_MESH_NORM_LIMIT})")
+    # a pod's ranks hold the shards; both pods hold the same
+    pod0 = [r for r in ranks if r["pod"]["coords"]["pod"] == 0]
+    grad_parts = [((r["pod"]["coords"]["data"], 0), r["pod"]["grads"][0]) for r in pod0]
+    param_parts = [((r["pod"]["coords"]["data"], 0), r["pod"]["params"]) for r in pod0]
+    plant_parts = [((r["pod"]["coords"]["data"], 0), r["pod_planted"]) for r in pod0]
+    dspecs = {k: tuple(e if e == "data" else None for e in sp) for k, sp in specs.items()}
+    planted = {}
+    for name in LM_MESH_LEAVES:
+        whole_g = lm_mesh_whole(torch, grad_parts, name, shapes[name], dspecs)
+        gerr = rel_err(whole_g, pod_ref["grads"][0][name])
+        dp = (lm_mesh_whole(torch, param_parts, name, shapes[name], dspecs) - pod_ref["params"][name]).abs()
+        far = float((dp > 1e-3 * LM_MESH_LR).double().mean())
+        planted[name] = rel_err(lm_mesh_whole(torch, plant_parts, name, shapes[name], dspecs),
+                                pod_ref["grads"][0][name])
+        log(f"  {name} {specs[name]}: step-1 gradient rel err {gerr:.3e} (limit {OLMOE_GRAD_LIMIT}); final "
+            f"values max |Δ| {float(dp.max()):.3e} (limit {2 * POD_MESH_TRAIN_STEPS * LM_MESH_LR:g}), share "
+            f"beyond 1e-3·lr {far:.2e} (limit 1e-3)")
+        if gerr > OLMOE_GRAD_LIMIT or float(dp.max()) > 2 * POD_MESH_TRAIN_STEPS * LM_MESH_LR or far > 1e-3:
+            raise AssertionError(f"27.3's {name} differs from the mesh-less steps")
+    for r in ranks:
+        if r["pod"]["coords"]["pod"] == 1:
+            twin = next(q for q in pod0 if q["pod"]["coords"]["data"] == r["pod"]["coords"]["data"])
+            if not all(torch.equal(r["pod"]["params"][k], twin["pod"]["params"][k]) for k in LM_MESH_LEAVES):
+                raise AssertionError(f"27.3: rank {r['rank']}'s shards differ from its pod-0 twin's")
+    if dloss > OLMOE_LOSS_LIMIT or dnorm > LM_MESH_NORM_LIMIT:
+        raise AssertionError("27.3's losses or norms differ from the mesh-less steps")
+    worst = max(planted, key=planted.get)
+    log(f"  planted (the pod all-reduce left out: step 1's gradients before the pod sum): rel errs "
+        f"{ {n: f'{v:.2e}' for n, v in planted.items()} }; the worst, {worst}, at "
+        f"{planted[worst] / OLMOE_GRAD_LIMIT:.1f} x the limit")
+    if min(planted.values()) <= OLMOE_GRAD_LIMIT:
+        raise AssertionError("27.3's limits pass the pod all-reduce left out")
+    for op in GCN_KERNELS:
+        if r0["pod_launches"][op] <= 0:
+            raise AssertionError(f"27.3: {op} never launched on the pod mesh")
+
+    # 27.4
+    zoo_mesh_dryrun(torch, ranks, smi, walks)
+    log(f"  27.4's walks: {sum(w[-1] for w in walks):.1f} s, while the ranks ran")
+
+    # 27.5
+    log("  27.5 the kernel sites of the passes at the shard shapes")
+    checked = zoo_mesh_checked_shapes()
+    seen = {k for r in ranks for arch in (WHISPER_ARCH, QWEN_ARCH)
+            for k in r[arch]["serve_shapes"] + r[arch]["train_shapes"]}
+    seen |= {k for r in ranks for k in r["pod_shapes"]}
+    off = sorted(seen - checked)
+    if off:
+        raise AssertionError(f"kernel calls at shapes phase 2 did not check: {off[:4]}")
+    tiers = {t_ for site in r0["sites"].values() for t_ in site[2]}
+    sites_n, compared, bad = r0["records"]
+    n_cert, cert_ok = r0["certified"]
+    log(f"  MoE sites: {sorted(tiers)}; launch records of {sites_n} shard-shape sites, {compared} launches "
+        f"held to the contract models: {len(bad)} mismatches {bad[:3]}; certify_kernels over {n_cert} "
+        f"lowerings of the mesh steps: ok {cert_ok}")
+    if bad or not cert_ok or any(t_ != "cuda" for _, t_ in tiers):
+        raise AssertionError("the mesh steps' kernel sites do not certify")
+    launches = {op: sum(r[arch]["serve_launches"][op] + r[arch]["train_launches"][op]
+                        for r in ranks for arch in (WHISPER_ARCH, QWEN_ARCH))
+                + sum(r["pod_launches"][op] for r in ranks) for op in GCN_KERNELS}
+    return {"sites": list(r0["sites"].values()), "launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -8804,11 +9620,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"  phase 26: {time.perf_counter() - t0:.1f} s")
 
+    # phase 27 runs after phase 26, before phase 8, which times its sites too
+    log("phase 27: whisper (enc/dec), qwen2-vl (the vision prefix) and a pod axis on a mesh; the dry run")
+    t0 = time.perf_counter()
+    zoo_mesh = zoo_mesh_phase(torch, repro_torch, kern, dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  phase 27: {time.perf_counter() - t0:.1f} s")
+
     log("phase 8: timings at the shapes of the main paths")
     log(smi)
     t0 = time.perf_counter()
     records = timing_phase(torch, graph, {"sites": sites, "launches": launches}, logreg, nnmf, kge,
-                           lm, oocore, olmoe, ssm, dense, mesh, lm_mesh, ssm_mesh, mla_mesh, errs, dev)
+                           lm, oocore, olmoe, ssm, dense, mesh, lm_mesh, ssm_mesh, mla_mesh, zoo_mesh, errs,
+                           dev)
     log(f"  phase 8: {time.perf_counter() - t0:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)

@@ -6,13 +6,19 @@ group) — on the process group's own backend.
 ``MeshComm(mesh, geometry)`` makes one process group per axis group (all
 ranks make every group, in one order, as ``torch.distributed.new_group``
 requires) and knows this rank's index in each. A tensor stays on its
-device and the group's backend is the one the caller initialised.
+device and the group's backend is the one the caller initialised. The
+groups are "model" and "data" (the geometry's data axes, folded); where
+the mesh has a "pod" axis that the geometry leaves out of its data axes
+(a language model's placement, whose FSDP runs over "data" alone), also
+"pod" and "batch", the ("pod", "data") fold its batch is cut over.
 
 Every call adds its bytes to a private record, read with
 ``last_collectives()`` and zeroed with ``reset_collectives()`` (in the
 manner of ``kernels.common.last_launches``): per collective, the calls
 and the bytes this rank put in (an all-gather's local shard, an
-all-reduce's or a reduce-scatter's whole input).
+all-reduce's or a reduce-scatter's whole input). ``ShapeComm`` keeps a
+record of its own, with the same keys, of what a walk over ``meta``
+tensors would move.
 
 The ``MeshComm`` calls are forward-only. The functions at the end of the
 module are the collectives autograd runs through, each backward the
@@ -32,10 +38,13 @@ backward on a thread of its own. Their calls go into the same record.
 from __future__ import annotations
 
 import itertools
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.core.planner import DATA_AXIS_NAMES
 
 _RECORD: Dict[str, Dict[str, int]] = {}
 
@@ -52,20 +61,34 @@ def reset_collectives() -> None:
 
 def last_collectives() -> Dict[str, Dict[str, int]]:
     """``{"<op>/<group>": {"calls", "bytes"}}`` since the last
-    ``reset_collectives``: ``group`` is "data" or "model"."""
+    ``reset_collectives``: ``group`` is "data", "model", "pod" or
+    "batch"."""
     return {k: dict(v) for k, v in _RECORD.items()}
 
 
-def _note(op: str, kind: str, t: torch.Tensor) -> None:
-    rec = _RECORD.setdefault(f"{op}/{kind}", {"calls": 0, "bytes": 0})
+def _note(op: str, kind: str, t: torch.Tensor, record=None) -> None:
+    rec = (_RECORD if record is None else record).setdefault(f"{op}/{kind}", {"calls": 0, "bytes": 0})
     rec["calls"] += 1
     rec["bytes"] += t.numel() * t.element_size()
 
 
+def axis_groups(names, geometry) -> Dict[str, Tuple[str, ...]]:
+    """The axis groups of a mesh whose axes are ``names`` under
+    ``geometry``, {kind: axes}, in the order every rank makes them (module
+    docstring)."""
+    axes = {"data": tuple(geometry.data_axes), "model": (geometry.model_axis,)}
+    if "pod" in names and "pod" not in geometry.data_axes:
+        axes["pod"] = ("pod",)
+        axes["batch"] = tuple(a for a in DATA_AXIS_NAMES if a in names)
+    return axes
+
+
 class MeshComm:
     """Process groups and this rank's coordinates on a (data × model)
-    mesh: ``size[kind]`` and ``index[kind]`` for ``kind`` in ("data",
-    "model"), and the collectives over each."""
+    mesh, or a (pod × data × model) one: ``size[kind]`` and
+    ``index[kind]`` for each kind of ``axis_groups`` ("data", "model", and
+    on a pod axis the geometry leaves out "pod" and "batch"), and the
+    collectives over each."""
 
     def __init__(self, mesh, geometry):
         self.mesh = mesh
@@ -77,11 +100,11 @@ class MeshComm:
         if len(pos) != 1:
             raise ValueError(f"rank {me} is not on the mesh {mesh}")
         pos = pos[0]
-        axes = {"data": tuple(geometry.data_axes), "model": (geometry.model_axis,)}
+        axes = axis_groups(names, geometry)
         self.size: Dict[str, int] = {}
         self.index: Dict[str, int] = {}
         self.groups: Dict[str, Optional[dist.ProcessGroup]] = {}
-        for kind in ("data", "model"):
+        for kind in axes:
             dims = [names.index(a) for a in axes[kind] if a in names]
             others = [d for d in range(len(names)) if d not in dims]
             size = 1
@@ -159,24 +182,61 @@ def comm_for(mesh, geometry) -> MeshComm:
 
 class ShapeComm:
     """A ``MeshComm``'s sizes and indices with shape-only collectives, for
-    walks over ``meta`` tensors (the engine's lowering at shard shapes):
-    nothing is communicated or recorded."""
+    walks over ``meta`` tensors (the engine's lowering at shard shapes; a
+    language model's step on a mesh given by its axis sizes, as
+    ``launch/dryrun.py`` walks it): nothing is communicated. Each call
+    adds to ``record`` what ``MeshComm`` would record for it (the same
+    keys as ``last_collectives()``), and a group of one rank records
+    nothing, as there. A tensor with values refuses: the collectives of a
+    mesh without ranks cannot sum them."""
 
     def __init__(self, comm):
         self.geometry = comm.geometry
         self.size = dict(comm.size)
         self.index = dict(comm.index)
+        self.record: Dict[str, Dict[str, int]] = {}
+
+    @classmethod
+    def of_sizes(cls, sizes, geometry) -> "ShapeComm":
+        """Rank 0's shape-only collectives on a mesh of axis ``sizes``
+        ({axis: size}) under ``geometry``."""
+        self = cls.__new__(cls)
+        self.geometry = geometry
+        self.size = {kind: math.prod(int(sizes[a]) for a in axes if a in sizes)
+                     for kind, axes in axis_groups(tuple(sizes), geometry).items()}
+        self.index = dict.fromkeys(self.size, 0)
+        self.record = {}
+        return self
+
+    def collectives(self) -> Dict[str, Dict[str, int]]:
+        """``record`` as ``last_collectives()`` gives it."""
+        return {k: dict(v) for k, v in self.record.items()}
+
+    def _walk(self, op: str, kind: str, t: torch.Tensor) -> None:
+        if t.device.type != "meta":
+            raise ValueError(f"{op} over {kind!r} of a mesh given by its axis sizes takes meta tensors only: "
+                             f"it moves nothing, so a {t.device.type} tensor's sum would be wrong (start "
+                             "ranks and pass a DeviceMesh to run a step)")
+        if self.size[kind] > 1:
+            _note(op, kind, t, self.record)
 
     def all_reduce(self, t: torch.Tensor, kind: str) -> torch.Tensor:
-        return t
+        self._walk("all_reduce", kind, t)
+        return t if self.size[kind] == 1 else t.clone()
 
     def all_gather(self, t: torch.Tensor, dim: int, kind: str) -> torch.Tensor:
+        self._walk("all_gather", kind, t)
+        if self.size[kind] == 1:
+            return t
         shape = list(t.shape)
         shape[dim] *= self.size[kind]
         return t.new_empty(shape)
 
     def reduce_scatter(self, t: torch.Tensor, dim: int, kind: str) -> torch.Tensor:
-        return t.narrow(dim, 0, t.shape[dim] // self.size[kind])
+        self._walk("reduce_scatter", kind, t)
+        if self.size[kind] == 1:
+            return t
+        return t.narrow(dim, 0, t.shape[dim] // self.size[kind]).clone()
 
 
 # ---------------------------------------------------------------------------

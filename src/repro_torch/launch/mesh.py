@@ -59,21 +59,26 @@ def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
     return _init_mesh(device_type, shape, axes)
 
 
-def make_host_mesh(model: int = 1, *, device_type: str = "cuda"):
+def make_host_mesh(model: int = 1, *, pod: int = 1, device_type: str = "cuda"):
     """Small (data × model) mesh over the ranks of the process group (a
-    4-rank group gives a 2×2 mesh at ``model=2``). With a single rank this
-    is a 1-axis ``("model",)`` mesh — the planner then reproduces its 1-D
-    plans — instead of a degenerate (1, 1) mesh."""
-    if model < 1:
-        raise ValueError(f"make_host_mesh: model={model} must be >= 1")
+    4-rank group gives a 2×2 mesh at ``model=2``); with ``pod`` > 1 a
+    (pod × data × model) mesh, the pod axis leading as in the multi-pod
+    production mesh (4 ranks give a 2×2×1 mesh at ``pod=2``). With a single
+    rank this is a 1-axis ``("model",)`` mesh — the planner then
+    reproduces its 1-D plans — instead of a degenerate (1, 1) mesh."""
+    for name, size in (("model", model), ("pod", pod)):
+        if size < 1:
+            raise ValueError(f"make_host_mesh: {name}={size} must be >= 1")
     n = _world()
-    if n == 1 and model == 1:
+    if n == 1 and model == 1 and pod == 1:
         return _init_mesh(device_type, (1,), ("model",))
-    if n % model != 0:
+    if n % (model * pod) != 0:
         raise ValueError(
             f"make_host_mesh: {n} visible device(s) not divisible by "
-            f"model={model}"
+            + (f"model={model}" if pod == 1 else f"pod × model = {pod} × {model}")
         )
+    if pod > 1:
+        return _init_mesh(device_type, (pod, n // (model * pod), model), ("pod", "data", "model"))
     return _init_mesh(device_type, (n // model, model), ("data", "model"))
 
 

@@ -24,13 +24,14 @@ XLA's partitioner places the reference's collectives; the port has none,
 so a ``Placement`` runs its model explicitly: each rank holds its shards
 (``shard``, or a model built on the mesh), computes on them, and calls
 the collectives of ``launch/collectives.py`` where the partitioner would
-put them (``models/``: the attention (full, windowed or MLA) and MLP
-column- then row-parallel, the experts split over the model ranks, the SSM
-layers on the rank's channels or heads with the scan local, the
-vocabulary-parallel embedding and head, tied or not, the FSDP gathers;
-``train/trainer.py``: the data-parallel gradient sums and the global
-norm). A mesh's specs are given as ``P`` (``core/planner.py``);
-``to_shardings`` turns them into DTensor placements.
+put them (``models/``: the attention (full, windowed, cross or MLA) and
+MLP column- then row-parallel, the experts split over the model ranks, the
+SSM layers on the rank's channels or heads with the scan local, the
+vocabulary-parallel embedding and head, tied or not, whisper's encoder on
+its leaves' specs, the FSDP gathers; ``train/trainer.py``: the
+data-parallel gradient sums, over "pod" too, and the global norm). A
+mesh's specs are given as ``P`` (``core/planner.py``); ``to_shardings``
+turns them into DTensor placements.
 
 The SSM layers' ``in_proj`` (and ``mamba2``'s conv) concatenate segments
 on the dimension the rules put on "model"; a rank's shard there is its
@@ -87,9 +88,9 @@ _MOE_3D = ("wi_gate", "wi_up", "wo")  # (E, ·, ·): experts on "model"
 
 DP = ("pod", "data")  # batch axes superset; hint() drops absent names
 
-#: the block kinds a ``Placement`` runs on a mesh
+#: the block kinds a ``Placement`` runs on a mesh: all of ``models.blocks.KINDS``
 MESH_KINDS = ("attn", "moe", "local", "global", "mla", "mla_moe", "mamba1", "mamba2",
-              "mamba2_attn")
+              "mamba2_attn", "enc", "dec")
 
 
 def axis_sizes(mesh) -> Dict[str, int]:
@@ -327,16 +328,23 @@ _ACTIVE: contextvars.ContextVar[Optional["Placement"]] = contextvars.ContextVar(
 
 
 def _group(entry, extent: int, sizes: Mapping[str, int], comm) -> Optional[str]:
-    """"model", "data" or None: the group of ``comm`` a spec entry names
-    (axes absent from the mesh dropped; None where the group's size does
-    not divide ``extent``, or where the entry names part of the data
-    axes)."""
+    """The group of ``comm`` a spec entry names: "model"; the batch fold
+    of the data axes present ("data", or "batch" where ``comm`` has a pod
+    group apart); "data" or "pod" alone where ``comm`` has those apart; or
+    None (axes absent from the mesh dropped; None where the group's size
+    does not divide ``extent``, or where the entry names no group of
+    ``comm``)."""
     axes = entry if isinstance(entry, tuple) else (entry,)
     axes = tuple(a for a in axes if a is not None and a in sizes)
     if not axes:
         return None
-    kind = "model" if axes == ("model",) else "data"
-    if kind == "data" and axes != tuple(a for a in DATA_AXIS_NAMES if a in sizes):
+    if axes == ("model",):
+        kind = "model"
+    elif axes == tuple(a for a in DATA_AXIS_NAMES if a in sizes):
+        kind = "batch" if "batch" in comm.size else "data"
+    elif "batch" in comm.size and axes in (("data",), ("pod",)):
+        kind = axes[0]
+    else:
         return None
     return kind if extent % comm.size[kind] == 0 else None
 
@@ -426,14 +434,24 @@ def segment_widths(cfg, name: str, kind: Optional[str]) -> Optional[Tuple[int, .
 
 
 class Placement:
-    """A language model of ``cfg`` on ``mesh`` (a DeviceMesh of the default
-    process group's ranks: ``("model",)`` or ``("data", "model")``): the
-    specs of its parameters, this rank's coordinates, and the collectives
-    its step calls. The kinds of ``MESH_KINDS`` are placed, tied
-    embeddings included; an ``enc``/``dec`` layer, a vision prefix or a
-    ``pod`` axis raise ``NotImplementedError`` (ROADMAP.md). An SSM
-    layer's channels, heads and state, and an MLA layer's heads and q
-    latent, must split over the model ranks (else ``ValueError``).
+    """A language model of ``cfg`` on ``mesh``: the specs of its
+    parameters, this rank's coordinates, and the collectives its step
+    calls. ``mesh`` is a DeviceMesh of the default process group's ranks
+    (``("model",)``, ``("data", "model")`` or ``("pod", "data", "model")``),
+    or a mapping of axis names to sizes, whose collectives are rank 0's
+    shape-only ones (``collectives.ShapeComm``: a walk over ``meta``
+    tensors, as ``launch/dryrun.py`` makes). Every block kind of the zoo is
+    placed (``MESH_KINDS``: whisper's ``enc``/``dec`` layers too) and
+    qwen2-vl's vision prefix. An SSM layer's channels, heads and state,
+    and an MLA layer's heads and q latent, must split over the model ranks
+    (else ``ValueError``, naming them); any other width that does not
+    split stays whole on every model rank (``splits``).
+
+    A "pod" axis carries data parallelism with "data": the batch is cut
+    over the ("pod", "data") fold (the group ``batch`` names), FSDP shards
+    over "data" alone, as the reference's ``param_pspecs`` does, and the
+    gradients are summed over "pod" after the FSDP reduce-scatters over
+    "data" (``sync_grads``).
 
     ``shard`` cuts the rank's shards of whole parameters; the model's
     entry points (``Model.prefill(..., place=)``) run on those within
@@ -449,25 +467,13 @@ class Placement:
     def __init__(self, cfg, mesh):
         from repro_torch.models.model import param_shapes, stages_of
 
-        from .collectives import comm_for
+        from .collectives import ShapeComm, comm_for
 
         sizes = axis_sizes(mesh)
         stages = stages_of(cfg)
         kinds = set()
         for st in stages:
             kinds |= set(st.pattern) | set(st.tail)
-        off = sorted(kinds - set(MESH_KINDS))
-        what = [f"block kind(s) {off}"] if off else []
-        if cfg.encoder_layers:
-            what.append("an encoder")
-        if cfg.vis_seq or cfg.mrope_sections:
-            what.append("the vision prefix")
-        if "pod" in sizes:
-            what.append("a pod axis")
-        if what:
-            raise NotImplementedError(
-                f"{cfg.name} on a mesh: {', '.join(what)} not placed yet; this slice places "
-                f"the {'/'.join(MESH_KINDS)} kinds (ROADMAP.md, queue 1)")
         # an SSM layer runs on its channels (heads) and its slice of the
         # state, an MLA layer on its heads and its slice of the q latent:
         # they must split over the model ranks
@@ -485,7 +491,14 @@ class Placement:
         self.cfg = cfg
         self.mesh = mesh
         self.sizes = sizes
-        self.comm = comm_for(mesh, MeshGeometry.from_mesh(mesh))
+        # FSDP and the data groups: "data" alone, the batch over the
+        # ("pod", "data") fold (module docstring)
+        geometry = MeshGeometry("model", sizes["model"], tuple(a for a in ("data",) if a in sizes),
+                                sizes.get("data", 1))
+        self.comm = (ShapeComm.of_sizes(sizes, geometry) if isinstance(mesh, Mapping)
+                     else comm_for(mesh, geometry))
+        #: the group the batch is cut over
+        self.batch = "batch" if "batch" in self.comm.size else "data"
         self.shapes = param_shapes(cfg)
         # FSDP needs a "data" axis; a model-only mesh gets the tensor-parallel
         # rules, as the reference's steps ask for them
@@ -586,16 +599,21 @@ class Placement:
     def sync_grads(self, grads: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Each rank's gradients summed over the data ranks where the
         parameter is not split over them (an FSDP leaf's gradient was
-        reduce-scattered by its gather's backward)."""
-        return {k: g if "data" in self.sharded_kinds(k) else self.comm.all_reduce(g, "data")
-                for k, g in grads.items()}
+        reduce-scattered by its gather's backward), then, on a pod axis,
+        every leaf's over the pods, which hold the same shards."""
+        out = {k: g if "data" in self.sharded_kinds(k) else self.comm.all_reduce(g, "data")
+               for k, g in grads.items()}
+        if "pod" in self.comm.size:
+            out = {k: self.comm.all_reduce(g, "pod") for k, g in out.items()}
+        return out
 
     @torch.no_grad()
     def grad_norm(self, grads: Mapping[str, torch.Tensor]) -> torch.Tensor:
         """The global 2-norm of the whole gradient from the ranks' shards:
         each leaf's Σg² summed, in order, with the others split over the
         same groups, then each group's sums added over its ranks — a leaf
-        replicated over a group counted once, not once per rank. A leaf
+        replicated over a group counted once, not once per rank (the pods
+        hold the same shards: nothing is added over "pod"). A leaf
         cut by segment is split all the same (each rank's shard is a
         disjoint part of it); a replicated leaf that a rank uses in part
         (``mamba2``'s ``norm_scale``) has its whole gradient on every rank

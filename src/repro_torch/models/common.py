@@ -149,9 +149,11 @@ def apply_mrope(
     hd = x.shape[-1]
     half = hd // 2
     freqs = rope_freqs(hd, theta, device=x.device)                # (hd/2,)
-    sec = torch.repeat_interleave(torch.arange(3, device=x.device),
-                                  torch.tensor(sections, device=x.device))
-    sec = torch.cat([sec, sec[-1:].expand(max(0, half - sec.numel()))])[:half]
+    # the section of each frequency pair, made on the host: a walk on
+    # ``meta`` has no values to repeat by
+    sec = [i for i, n in enumerate(sections) for _ in range(n)]
+    sec = (sec + sec[-1:] * max(0, half - len(sec)))[:half]
+    sec = torch.tensor(sec, device=x.device)
     posf = positions.to(torch.float32)[:, sec, :]                 # (B, hd/2, S)
     ang = posf.transpose(1, 2) * freqs                            # (B, S, hd/2)
     cos = torch.cos(ang)[:, :, None, :]

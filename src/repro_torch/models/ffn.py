@@ -49,16 +49,23 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, dtype=torch.float32)
 
 def mlp_apply(p, x, activation=F.silu, *, place=None, d_ff=None):
     """The gated MLP: ``activation(x·wi_gate) * (x·wi_up)``, then ``wo``
-    (whisper passes ``common.gelu``). On a mesh whose model ranks split
-    the hidden width ``d_ff``: the rank's columns of wi_gate/wi_up and
-    rows of wo, the partial sums added over the ranks."""
-    split = place is not None and place.splits(d_ff)
-    if split:
+    (whisper passes ``common.gelu``). On a mesh each rank holds what the
+    leaves' specs of the hidden width ``d_ff`` give it: where the model
+    ranks split it, the rank's columns of wi_gate/wi_up and rows of wo,
+    the partial sums added over the ranks; where the rank holds ``wo``
+    whole, the rank's hidden columns gathered whole before it; where it
+    holds every leaf whole (whisper's encoder, whose stacked leaves the
+    reference's rules read as experts: ROADMAP.md §3), the whole MLP."""
+    cols = place is not None and p["wi_gate"].shape[-1] != d_ff
+    if cols:
         x = place.copy_to(x)
     g = rel_linear(x, p["wi_gate"])
     u = rel_linear(x, p["wi_up"])
-    y = rel_linear(activation(g) * u, p["wo"])
-    return place.reduce(y) if split else y
+    h = activation(g) * u
+    if cols and p["wo"].shape[0] == d_ff:
+        return rel_linear(place.gather_from(h, -1), p["wo"])
+    y = rel_linear(h, p["wo"])
+    return place.reduce(y) if cols else y
 
 
 # ---------------------------------------------------------------------------
@@ -156,13 +163,16 @@ def _dispatch_group(x, router, *, top_k, capacity, e, experts=None, source=None)
     dest = se * capacity + torch.where(keep, slot, torch.full_like(slot, capacity - 1))
 
     # the slot each buffer row holds: the last assignment written there
-    # (dest is ascending within a group)
+    # (dest is ascending within a group); the others write a spare column,
+    # dropped after, so that every shape is static (a walk on ``meta``)
     last = torch.ones_like(keep)
     last[:, :-1] = dest[:, 1:] != dest[:, :-1]
     group = torch.arange(b, device=x.device)[:, None]
-    ids = torch.full((b, e * capacity), -1, dtype=torch.int32, device=x.device)
+    ids = torch.full((b, e * capacity + 1), -1, dtype=torch.int32, device=x.device)
     src = torch.where(keep, group * t + st, torch.full_like(st, -1)).to(torch.int32)
-    ids[group.expand_as(dest)[last], dest[last]] = src[last]
+    ids.scatter_(1, torch.where(last, dest, torch.full_like(dest, e * capacity)),
+                 torch.where(last, src, torch.full_like(src, -1)))
+    ids = ids[:, :-1]
     if experts is not None:
         ids = ids[:, experts[0] * capacity:experts[1] * capacity]
     rows_of = x if source is None else source
@@ -226,7 +236,7 @@ def moe_apply(
         dest, st, sg, keep = meta
         meta = (dest, st, place.copy_to(sg), keep)
     # the expert buffers hold the rank's rows and experts, as the reference asks
-    whole = (b if place is None else b * place.size("data"), e, capacity, d)
+    whole = (b if place is None else b * place.size(place.batch), e, capacity, d)
     xe = hint(xe, DP, "model", None, None, whole=whole)
 
     g = einsum("becd,edf->becf", xe, p["wi_gate"])

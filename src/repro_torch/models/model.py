@@ -9,20 +9,20 @@ repeat is its own module in a ``ModuleList`` walked in Python, since
 PyTorch runs eagerly and has no compile time to save.
 
 On a mesh (``place=``, a ``launch.sharding.Placement``, or a model built
-with ``mesh=``) the ``attn``, ``local``, ``global``, ``moe``, ``mla``,
-``mla_moe``, ``mamba1``, ``mamba2`` and ``mamba2_attn`` kinds run on the
-rank's shards: attention (full, windowed or MLA on the rank's heads) and
-MLP column- then row-parallel, the experts split
-over the model ranks, the SSM layers on the rank's channels or heads
-(``models/ssm.py``), zamba2's shared block placed as the attention
-layers are, the embedding and the head (tied or not) split over the
-vocabulary, the FSDP leaves gathered per layer, the batch's rows split
-over the data ranks (the reference's ``hint(x, DP, ...)`` sites, which
-cut a whole batch to the rank's rows there and are no-ops off a mesh);
-``enc``/``dec`` and the vision prefix raise ``NotImplementedError``
-(ROADMAP.md). The logits each rank returns are
-whole: the head's vocabulary shards, and in serving the batch's rows,
-are gathered.
+with ``mesh=``) every kind runs on the rank's shards: attention (full,
+windowed, cross or MLA on the rank's heads) and MLP column- then
+row-parallel, the experts split over the model ranks, the SSM layers on
+the rank's channels or heads (``models/ssm.py``), zamba2's shared block
+placed as the attention layers are, whisper's encoder on its leaves'
+specs (each layer's FSDP leaves gathered as a stage's are), the
+embedding and the head (tied or not) split over the vocabulary, the FSDP
+leaves gathered per layer, the batch's rows split over the data ranks —
+the ("pod", "data") fold where the mesh has a pod axis — (the reference's
+``hint(x, DP, ...)`` sites, which cut a whole batch to the rank's rows
+there and are no-ops off a mesh), qwen2-vl's patches and M-RoPE positions
+and whisper's frames and encoder output cut at the rows the tokens are.
+The logits each rank returns are whole: the head's vocabulary shards, and
+in serving the batch's rows, are gathered; so is ``encode``'s output.
 
 Parameters are made directly on the target device from an explicit
 ``torch.Generator`` there: a full-width model (29 GB in f32 for
@@ -154,8 +154,9 @@ class Model(nn.Module):
         if self.has_shared:
             self.shared_attn = self._drawn_block("shared_attn.", gen, lambda g: shared_attn_init(g, cfg))
         if cfg.encoder_layers:
-            self.encoder = nn.ModuleList(block_init(gen, "enc", cfg)
-                                         for _ in range(cfg.encoder_layers))
+            self.encoder = nn.ModuleList(self._drawn_block(f"encoder.{r}.", gen,
+                                                           lambda g: block_init(g, "enc", cfg))
+                                         for r in range(cfg.encoder_layers))
             self.enc_ln_s = nn.Parameter(torch.ones((cfg.d_model,), dtype=dt, device=dev))
             self.enc_ln_b = nn.Parameter(torch.zeros((cfg.d_model,), dtype=dt, device=dev))
         self.stages = nn.ModuleList(
@@ -282,8 +283,9 @@ class Model(nn.Module):
 
     @staticmethod
     def _whole_rows(logits, place):
-        """Serving's logits with every data rank's rows (forward only)."""
-        return logits if place is None else place.gather_from(logits, 0, "data")
+        """Serving's logits (or ``encode``'s output) with every data rank's
+        rows (forward only)."""
+        return logits if place is None else place.gather_from(logits, 0, place.batch)
 
     # -- backbone -----------------------------------------------------------
 
@@ -380,21 +382,32 @@ class Model(nn.Module):
             new_caches.append({"scan": scan_cache, "tail": tail_cache})
         return x, new_caches, aux_total
 
-    def _encode(self, p, frames):
+    def _encode(self, p, frames, place=None):
         """Whisper's encoder over the stubbed frame embeddings (B, S_enc,
         D): bidirectional layers without RoPE, then a LayerNorm. Outside
-        remat, as the reference's ``lax.scan`` over the stacked layers."""
+        remat, as the reference's ``lax.scan`` over the stacked layers. On
+        a mesh over the rank's rows of the whole batch's ``frames``, each
+        layer's FSDP leaves gathered at its use."""
         cfg = self.cfg
         ctx = {"cfg": cfg, "mode": "train", "positions": None, "cache": None}
         x = frames
-        for lp in p["encoder"]:
+        if place is not None:
+            ctx["place"] = place
+            x = _rows(frames)
+        for r, lp in enumerate(p["encoder"]):
+            if place is not None:
+                lp = place.gather_tree(lp, f"encoder.{r}.")
             x, _, _ = block_apply(lp, "enc", x, ctx)
         return layer_norm(x, p["enc_ln_s"], p["enc_ln_b"], cfg.norm_eps)
 
-    def encode(self, frames, params: Optional[Mapping[str, torch.Tensor]] = None):
+    def encode(self, frames, params: Optional[Mapping[str, torch.Tensor]] = None, *, place=None):
         """The encoder's output for ``frames`` (B, S_enc, D), which
-        ``decode_step(..., enc_out=)`` takes (whisper)."""
-        return self._encode(self._tree(params), frames)
+        ``decode_step(..., enc_out=)`` takes (whisper). On a mesh
+        (``place``, or the model's own) the whole batch's, as off one."""
+        place = self._place(place)
+        with self._on(place):
+            p = self._tree(params, place)
+            return self._whole_rows(self._encode(p, frames, place), place)
 
     def _positions(self, b: int, s: int, length=None, vis: int = 0):
         """(B, S) positions 0..S-1, or (B, 1) at ``length`` in decode. With
@@ -403,7 +416,12 @@ class Model(nn.Module):
         grid, grid + 1, ... on all three axes; a decode step at ``length``
         on all three. As in the reference, decode's position (``length``,
         counting the patches) is not the one a longer prefill gives the
-        same token (ROADMAP.md §3)."""
+        same token (ROADMAP.md §3). On a mesh ``b`` is the whole batch's,
+        and the rank's rows are cut from them, as from the tokens."""
+        return _rows(self._batch_positions(b, s, length, vis))
+
+    def _batch_positions(self, b: int, s: int, length=None, vis: int = 0):
+        """``_positions`` of every row of a batch of ``b``."""
         dev = self.device
         if self.cfg.mrope_sections:
             if length is not None:
@@ -433,22 +451,24 @@ class Model(nn.Module):
         """(x, ctx, vis) of a forward over ``batch``: the token embeddings,
         after qwen2-vl's ``patches`` (B, Sv, D) where the batch has them
         (vis = Sv, else 0); the block context, with whisper's encoder
-        output over ``frames``; on a mesh the rank's rows, with the
+        output over ``frames``; on a mesh the rank's rows — of the tokens,
+        the patches, the positions and the frames alike — with the
         placement and the whole batch's size in the context."""
         cfg = self.cfg
         tokens = batch["tokens"]
         if place is not None:
             ctx = dict(ctx, place=place, batch=tokens.shape[0])
         x = self._embed(p, tokens, place)
-        b, s = x.shape[:2]
+        s = x.shape[1]
         vis = 0
         if cfg.vis_seq and "patches" in batch:
             vis = batch["patches"].shape[1]
-            x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
+            x = torch.cat([_rows(batch["patches"]).to(x.dtype), x], dim=1)
             s += vis
-        ctx = dict(ctx, cfg=cfg, mode=mode, positions=self._positions(b, s, vis=vis), cache=None)
+        ctx = dict(ctx, cfg=cfg, mode=mode, positions=self._positions(tokens.shape[0], s, vis=vis),
+                   cache=None)
         if cfg.encoder_layers:
-            ctx["enc_out"] = self._encode(p, batch["frames"])
+            ctx["enc_out"] = self._encode(p, batch["frames"], place)
         self._share(p, ctx)
         return x, ctx, vis
 
@@ -490,7 +510,8 @@ class Model(nn.Module):
         step); length: count of valid cache entries (an int); enc_out:
         whisper's encoder output (``encode``), which every decoder layer
         cross-attends to. On a mesh ``token`` is the whole batch's, the
-        caches the rank's, and the logits whole."""
+        caches the rank's, ``enc_out`` the whole batch's or the rank's rows,
+        and the logits whole."""
         if self.cfg.encoder_layers and enc_out is None:
             raise ValueError(f"{self.cfg.name}: decode_step needs enc_out (Model.encode)")
         place = self._place(place)
@@ -498,20 +519,29 @@ class Model(nn.Module):
             p = self._tree(params, place)
             x = self._embed(p, token, place)
             ctx = {"cfg": self.cfg, "mode": "decode",
-                   "positions": self._positions(x.shape[0], 1, length=length), "length": length}
+                   "positions": self._positions(token.shape[0], 1, length=length), "length": length}
             if place is not None:
                 ctx.update(place=place, batch=token.shape[0])
             if self.cfg.encoder_layers:
-                ctx["enc_out"] = enc_out
+                ctx["enc_out"] = _rows(enc_out, token.shape[0])
             self._share(p, ctx)
             x, caches, _ = self._run_stages(p, x, ctx, caches)
             return self._whole_rows(self._head(p, x, place), place), caches
 
 
+def _rows(t: torch.Tensor, b: Optional[int] = None) -> torch.Tensor:
+    """The rank's rows of a batch's ``t`` (its leading axis) on the active
+    placement, the cut the tokens take: ``t`` whole, or with ``b`` (the
+    whole batch's rows) whole or already the rank's; off a mesh ``t``."""
+    whole = None if b is None else (b,) + tuple(t.shape[1:])
+    return hint(t, DP, *([None] * (t.dim() - 1)), whole=whole)
+
+
 def build_model(cfg, device=None, seed: int = 0, *, mesh=None) -> Model:
     """The model of ``cfg`` with random weights from ``seed``, made on
     ``device`` ("cuda" unless the caller passes another); with ``mesh`` (a
-    DeviceMesh) the rank's shards of them (``Model``)."""
+    DeviceMesh, or a mapping of axis sizes on ``meta``: rank 0's) the
+    rank's shards of them (``Model``)."""
     return Model(cfg, device=device, seed=seed, mesh=mesh)
 
 

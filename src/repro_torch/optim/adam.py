@@ -18,6 +18,26 @@ def adam_init(params: Params, dtype=torch.float32) -> Dict[str, object]:
     }
 
 
+#: the elements of a leaf the update computes at once
+_PIECE = 1 << 24
+
+
+def _update(p, g, mu, nu, *, lr, b1, b2, eps, weight_decay, bc1, bc2, scale):
+    """The new (parameter, first moment, second moment) of a leaf or a
+    piece of one, in f32."""
+    if scale is not None:
+        g = g * scale.to(g.dtype)
+    gf = g.float()
+    m1 = b1 * mu.float() + (1 - b1) * gf
+    v1 = b2 * nu.float() + (1 - b2) * gf * gf
+    mh = m1 / bc1
+    vh = v1 / bc2
+    delta = mh / (torch.sqrt(vh) + eps)
+    if weight_decay:
+        delta = delta + weight_decay * p.float()
+    return p.float() - lr * delta, m1, v1
+
+
 @torch.no_grad()
 def adam_update(
     params: Params,
@@ -41,7 +61,8 @@ def adam_update(
     each parameter's new values are computed as without donation, then
     copied in, so the two give the same bits, and the peak holds one
     parameter's temporaries rather than a second copy of the whole
-    state. ``grad_norm`` computes the global 2-norm that ``grad_clip``
+    state — one piece's, for a leaf of more than ``_PIECE`` elements (the
+    update is elementwise: the pieces' values are the leaf's). ``grad_norm`` computes the global 2-norm that ``grad_clip``
     clips to (default: over ``grads``, which then hold the whole
     gradient); on a mesh, where each rank holds shards,
     ``Placement.grad_norm``. The update itself is elementwise, so on a
@@ -60,23 +81,26 @@ def adam_update(
             gnorm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads.values()))
         scale = torch.clamp(grad_clip / (gnorm + 1e-9), max=1.0)
 
+    kw = dict(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay, bc1=bc1, bc2=bc2, scale=scale)
     new_p, new_m, new_v = {}, {}, {}
     for k, p in params.items():
-        g = grads[k]
-        if scale is not None:
-            g = g * scale.to(g.dtype)
-        gf = g.float()
-        m1 = b1 * state["mu"][k].float() + (1 - b1) * gf
-        v1 = b2 * state["nu"][k].float() + (1 - b2) * gf * gf
-        mh = m1 / bc1
-        vh = v1 / bc2
-        delta = mh / (torch.sqrt(vh) + eps)
-        if weight_decay:
-            delta = delta + weight_decay * p.float()
-        for out, old, new in ((new_p, p, p.float() - lr * delta),
-                              (new_m, state["mu"][k], m1), (new_v, state["nu"][k], v1)):
-            out[k] = old.copy_(new) if donate else new.to(old.dtype)
-        del g, gf, m1, v1, mh, vh, delta
+        g, mu, nu = grads[k], state["mu"][k], state["nu"][k]
+        n = p.numel()
+        if n <= _PIECE or not all(t.is_contiguous() for t in (p, g, mu, nu)):
+            new = _update(p, g, mu, nu, **kw)
+            for out, old, val in zip((new_p, new_m, new_v), (p, mu, nu), new):
+                out[k] = old.copy_(val) if donate else val.to(old.dtype)
+            continue
+        # a large leaf in pieces: the update is elementwise, so each piece's
+        # values are the whole leaf's, and the temporaries are a piece's
+        dst = (p, mu, nu) if donate else tuple(torch.empty_like(t) for t in (p, mu, nu))
+        for i in range(0, n, _PIECE):
+            def cut(t):
+                return t.view(-1)[i:i + _PIECE]
+
+            for d, val in zip(dst, _update(cut(p), cut(g), cut(mu), cut(nu), **kw)):
+                cut(d).copy_(val)
+        new_p[k], new_m[k], new_v[k] = dst
     if donate:
         state["step"] = step
         return params, state

@@ -120,7 +120,9 @@ def init_cache(cfg, batch: int, cache_len: int, device=None, *, place=None):
     dev = resolve_device(device, owner="repro_torch.serving.init_cache")
     heads, split = None, 1
     if place is not None:
-        batch //= place.size("data") if batch % place.size("data") == 0 else 1
+        # the rank's rows: the batch is cut over the whole data fold
+        # (("pod", "data") where the mesh has a pod axis)
+        batch //= place.size(place.batch) if batch % place.size(place.batch) == 0 else 1
         heads, split = place.kv_heads(cfg) if cfg.n_heads else None, place.size("model")
     caches = []
     for st in stages_of(cfg):
@@ -261,14 +263,24 @@ def make_prefill_step(model: Model, cache_len: int, *, mesh=None, db=None):
     return prefill_step
 
 
-def make_encode_step(model: Model, *, db=None):
+def make_encode_step(model: Model, *, mesh=None, db=None):
     """``encode_step(frames, params=None) → enc_out`` without autograd:
     whisper's encoder output (``Model.encode``), which each decode step
-    takes; ``params`` and ``db`` as in ``make_prefill_step``."""
+    takes; ``params``, ``mesh`` and ``db`` as in ``make_prefill_step``. On
+    a mesh the encoder runs on the rank's shards of ``params`` (cut once
+    per live params dict) and rows of ``frames``, and ``enc_out`` is the
+    whole batch's, as a mesh decode step takes it."""
+    place = _placement(model, mesh, db)
+    placed = _PlacedParamsCache()
+    own = dict(model.named_parameters()) if place is not None else None
 
     def encode_step(frames, params=None):
+        kw = {}
+        if place is not None:
+            params = placed.place(own if params is None else params, place.shard)
+            kw["place"] = place
         with _session(db), torch.inference_mode():
-            return model.encode(frames, params)
+            return model.encode(frames, params, **kw)
 
     return encode_step
 

@@ -14,15 +14,15 @@ accepted and ignored), and its donation is an in-place update: with
 ``donate=True`` the step writes the new parameters and Adam moments into
 the tensors it was given.
 
-On a mesh (``mesh=``, or ``database.mesh``) the step runs the kinds of
-``launch.sharding.MESH_KINDS`` (``attn``, ``local``/``global``, ``moe``,
-``mla``/``mla_moe``, ``mamba1``, ``mamba2``/``mamba2_attn``) tensor-, expert- and
-fully-sharded data-parallel (``launch/sharding.py``): each rank takes
-its shards of the parameters and the moments (cut where it is given them
-whole) and its rows of the batch, sums its gradients over the data
-ranks, clips to the global norm of the whole gradient and updates its
-shards; ``enc``/``dec`` and the vision prefix raise
-``NotImplementedError`` (ROADMAP.md).
+On a mesh (``mesh=``, or ``database.mesh``) the step runs every kind
+(``launch.sharding.MESH_KINDS``, and qwen2-vl's vision prefix) tensor-,
+expert- and fully-sharded data-parallel (``launch/sharding.py``): each
+rank takes its shards of the parameters and the moments (cut where it is
+given them whole) and its rows of the batch — cut over the ("pod",
+"data") fold where the mesh has a pod axis — sums its gradients over the
+data ranks (FSDP over "data", then every leaf over "pod"), clips to the
+global norm of the whole gradient and updates its shards. A mesh given
+by its axis sizes walks ``meta`` tensors only (``launch/dryrun.py``).
 """
 
 from __future__ import annotations
@@ -128,7 +128,8 @@ def _mesh_step(model, mesh, *, lr, aux_weight, grad_clip, donate):
     place = model.placement
     if place is None or place.mesh is not mesh:
         place = Placement(model.cfg, mesh)
-    d = place.size("data")
+    rows = place.batch
+    d = place.size(rows)
 
     def train_step(params, opt_state, batch):
         params = place.shard(params)
@@ -139,7 +140,7 @@ def _mesh_step(model, mesh, *, lr, aux_weight, grad_clip, donate):
             labels = hint(batch["labels"], DP, None)
         nll, count = lm_nll(logits, labels)
         # the count in the loss's dtype, which the division promotes it to
-        loss = nll / torch.clamp(place.all_reduce(count.to(nll.dtype), "data"), min=1)
+        loss = nll / torch.clamp(place.all_reduce(count.to(nll.dtype), rows), min=1)
         total = loss + aux_weight * aux / d
         grads = dict(zip(leaves, torch.autograd.grad(total, list(leaves.values()))))
         del leaves, logits
@@ -149,8 +150,8 @@ def _mesh_step(model, mesh, *, lr, aux_weight, grad_clip, donate):
             grad_norm=place.grad_norm,
         )
         with torch.no_grad():
-            loss = place.all_reduce(loss.detach(), "data")
-            aux = place.all_reduce(aux.detach(), "data") / d
+            loss = place.all_reduce(loss.detach(), rows)
+            aux = place.all_reduce(aux.detach(), rows) / d
             metrics = {"loss": loss, "aux": aux, "total": loss + aux_weight * aux}
         return params, opt_state, metrics
 

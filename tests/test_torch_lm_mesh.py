@@ -5,7 +5,7 @@ a 1 × 4 (data × model) mesh, and one Adam step on a 2 × 2 mesh (FSDP on
 "data", tensor and expert parallelism on "model", the global norm), held
 to the one-process port step and to the reference's one-device step; the
 ranks held to each other bit for bit; a planted missing all-reduce; the
-kinds outside the slice refused.
+kinds a placement once refused (whisper's, qwen2-vl's) placed.
 
 The ranks start once for the module (``launch.mesh.start_ranks``) and run
 ``tests/torch_lm_mesh_workers.run_checks`` on the reference's weights,
@@ -169,8 +169,13 @@ def test_catalog_shardings_are_the_committed_layouts(ranks):
 
 @pytest.mark.parametrize("arch", W.REFUSED)
 def test_kinds_outside_the_slice_raise_naming_the_roadmap(ranks, arch):
-    assert "ROADMAP.md" in ranks[0]["refusals"][arch]
+    """The last kinds a placement refused, naming ROADMAP.md (whisper's
+    ``enc``/``dec``, qwen2-vl's vision prefix), are placed: no arch is
+    outside the slice now, and the placement builds on the 1 × 4 mesh
+    (tests/test_torch_lm_mesh_{whisper,qwen2_vl}.py run them)."""
+    assert ranks[0]["refusals"][arch] is None
 
 
 def test_a_train_step_outside_the_slice_raises_naming_the_roadmap(ranks):
-    assert "ROADMAP.md" in ranks[0]["train_refusal"]
+    """whisper's train step on the 2 × 2 mesh, once refused, builds."""
+    assert ranks[0]["train_refusal"] is None

@@ -276,13 +276,17 @@ def test_moe_shard_experts_is_value_neutral():
 
 def test_moe_on_a_mesh_outside_the_slice_raises():
     """deepseek-v3's MLA+MoE layers are placed on a (data × model) mesh
-    since slice 16, but a pod axis is still outside the slice: the
-    placement refuses it, naming the roadmap, before any rank is asked."""
+    since slice 16, and on a pod axis too (given by its sizes,
+    rank 0's shape-only collectives: its batch over the ("pod", "data")
+    fold). What a placement still refuses, before any rank is asked, is a
+    width MLA must split that does not: 4 heads over 3 model ranks."""
     from repro_torch.launch.sharding import Placement
 
-    with pytest.raises(NotImplementedError, match="a pod axis") as err:
-        Placement(get_config("deepseek-v3-671b").reduced(), {"pod": 2, "data": 1, "model": 2})
-    assert "ROADMAP.md" in str(err.value) and "block kind" not in str(err.value)
+    place = Placement(get_config("deepseek-v3-671b").reduced(), {"pod": 2, "data": 1, "model": 2})
+    assert place.batch == "batch" and place.size("batch") == 2 and place.size("model") == 2
+    with pytest.raises(ValueError, match="4 MLA heads") as err:
+        Placement(get_config("deepseek-v3-671b").reduced(), {"pod": 2, "data": 1, "model": 3})
+    assert "do not split over 3 model ranks" in str(err.value)
 
 
 def test_mlp_apply_matches_jax(lm):

@@ -315,11 +315,20 @@ def test_train_step_on_a_one_rank_mesh_is_the_step():
 
 
 def test_train_step_on_a_mesh_outside_the_slice_raises():
-    """whisper's encoder and decoder layers are not placed on a mesh yet
-    (falcon-mamba's Mamba-1 layers are: tests/test_torch_lm_mesh_ssm.py)."""
+    """whisper's encoder and decoder layers are placed on a mesh
+    (tests/test_torch_lm_mesh_whisper.py), so the step builds on a
+    mesh given by its axis sizes; such a mesh has no ranks, and its
+    shape-only collectives refuse tensors with values: the step raises
+    rather than summing nothing (``launch/dryrun.py`` walks it on
+    ``meta``)."""
     model = build_model(get_config("whisper-small").reduced(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_train_step(model, mesh={"model": 2})
+    step = make_train_step(model, mesh={"model": 2})
+    state = init_train_state(model)
+    tokens = torch.zeros((2, 8), dtype=torch.int32)
+    frames = torch.zeros((2, model.cfg.enc_seq, model.cfg.d_model))
+    with pytest.raises(ValueError, match="meta tensors only"):
+        with repro_torch.Database(device="cpu").activate():
+            step(state.params, state.opt_state, {"tokens": tokens, "labels": tokens, "frames": frames})
 
 
 # ---------------------------------------------------------------------------
