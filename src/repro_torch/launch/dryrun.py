@@ -187,11 +187,10 @@ def walk(cfg, sizes: Mapping[str, int], kind: str, batch: int, seq: int, *,
 
 
 def dryrun_one(arch: str, shape_name: str, *, multi_pod: bool = False, verbose: bool = True,
-               overrides: Optional[Dict[str, Any]] = None, reduced: bool = False,
-               sizes: Optional[Mapping[str, int]] = None) -> Dict[str, Any]:
+               overrides: Optional[Dict[str, Any]] = None, reduced: bool = False) -> Dict[str, Any]:
     """One combination's record (module docstring); ``reduced`` walks
     ``get_config(arch).reduced()`` at ``input_shape(..., reduced=True)``
-    on the reduced meshes, ``sizes`` replaces the mesh."""
+    on the reduced meshes."""
     if (arch, shape_name) in SKIPS:
         return {
             "arch": arch, "shape": shape_name, "multi_pod": multi_pod,
@@ -203,7 +202,7 @@ def dryrun_one(arch: str, shape_name: str, *, multi_pod: bool = False, verbose: 
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
     shp = input_shape(shape_name, reduced)
-    sizes = dict(sizes) if sizes is not None else mesh_sizes(multi_pod, reduced)
+    sizes = mesh_sizes(multi_pod, reduced)
     t0 = time.time()
     got = walk(cfg, sizes, shp.kind, shp.global_batch, shp.seq_len)
     roof = roofline(got["flops"], got["bytes_accessed"], got["collectives"], sizes, arch=arch,

@@ -24,7 +24,10 @@ port's ``blocked_matmul`` runs; 495 TFLOP/s of dense TF32 on the tensor
 cores, a third of it for 3xTF32's f32-accurate products (the bound the
 kernel table of PERF.md §6 holds the products to); NVLink 4 at 450 GB/s a
 direction between the 8 cards of a node; one NDR InfiniBand port, 400
-Gb/s = 50 GB/s, for a group that spans nodes.
+Gb/s = 50 GB/s, for a group that spans nodes. The ranks are numbered over
+the mesh's axes ("pod", "data", "model"), the last fastest, and a node
+holds 8 consecutive ranks: a group is within a node where the ranks it
+spans are (``group_span``), whatever its size.
 """
 
 from __future__ import annotations
@@ -46,6 +49,8 @@ IB_BW = 50e9
 #: cards a node joins by NVLink
 NODE_CARDS = 8
 
+#: the mesh's axes, outermost first: a rank's index runs fastest over the last
+AXES = ("pod", "data", "model")
 #: the mesh axes of each collective group of ``launch/collectives.py``
 GROUP_AXES = {"model": ("model",), "data": ("data",), "pod": ("pod",), "batch": ("pod", "data")}
 
@@ -67,10 +72,21 @@ def group_size(kind: str, sizes: Mapping[str, int]) -> int:
     return n
 
 
-def link_rate(ranks: int) -> float:
-    """The rate a group of ``ranks`` cards is charged at: NVLink within a
-    node, an InfiniBand port across nodes."""
-    return NVLINK_BW if ranks <= NODE_CARDS else IB_BW
+def group_span(kind: str, sizes: Mapping[str, int]) -> int:
+    """How many consecutive ranks a ``kind`` group's cards lie within on a
+    mesh of axis ``sizes``: its size times the sizes of the axes inside
+    its own (``AXES``). A "pod" group of 2 on 2 × 16 × 16 spans 512."""
+    inner = AXES[AXES.index(GROUP_AXES[kind][-1]) + 1:]
+    span = group_size(kind, sizes)
+    for a in inner:
+        span *= int(sizes.get(a, 1))
+    return span
+
+
+def link_rate(span: int) -> float:
+    """The rate a group whose cards lie within ``span`` consecutive ranks
+    is charged at: NVLink within a node, an InfiniBand port across nodes."""
+    return NVLINK_BW if span <= NODE_CARDS else IB_BW
 
 
 def collective_terms(record: Mapping[str, Mapping[str, int]], sizes: Mapping[str, int]) -> Dict[str, Any]:
@@ -83,7 +99,7 @@ def collective_terms(record: Mapping[str, Mapping[str, int]], sizes: Mapping[str
         op, kind = key.split("/")
         by_kind[key] = int(rec["bytes"])
         counts[key] = int(rec["calls"])
-        seconds += rec["bytes"] / link_rate(group_size(kind, sizes))
+        seconds += rec["bytes"] / link_rate(group_span(kind, sizes))
     return {"total_bytes": sum(by_kind.values()), "bytes_by_kind": by_kind, "counts": counts,
             "seconds": seconds}
 

@@ -27,8 +27,8 @@ the collectives of ``launch/collectives.py`` where the partitioner would
 put them (``models/``: the attention (full, windowed, cross or MLA) and
 MLP column- then row-parallel, the experts split over the model ranks, the
 SSM layers on the rank's channels or heads with the scan local, the
-vocabulary-parallel embedding and head, tied or not, whisper's encoder on
-its leaves' specs, the FSDP gathers; ``train/trainer.py``: the
+vocabulary-parallel embedding and head, tied or not, whisper's encoder
+whole on every rank, the FSDP gathers; ``train/trainer.py``: the
 data-parallel gradient sums, over "pod" too, and the global norm). A
 mesh's specs are given as ``P`` (``core/planner.py``); ``to_shardings``
 turns them into DTensor placements.
@@ -503,6 +503,12 @@ class Placement:
         # FSDP needs a "data" axis; a model-only mesh gets the tensor-parallel
         # rules, as the reference's steps ask for them
         self.specs = param_pspecs(self.shapes, sizes, fsdp="data" in sizes)
+        # whisper's encoder runs whole on every rank (ROADMAP.md §3): the
+        # reference's specs for its stacked leaves would split q/k/v by
+        # their input rows and leave wo and the MLP whole
+        for name, shape in self.shapes.items():
+            if name.startswith("encoder."):
+                self.specs[name] = P(*([None] * len(shape)))
         #: name → (dim, segment widths) of the leaves cut by segment
         self.segments: Dict[str, Tuple[int, Tuple[int, ...]]] = {}
         for name, spec in self.specs.items():

@@ -105,11 +105,7 @@ def gqa_apply(
     heads), else the split projections are gathered whole first and every
     rank attends over all heads (never over part of a head). A
     cross-attention computes its K/V from the whole ``kv_source`` on the
-    rank's heads. Each rank holds what its leaves' specs give it: where a
-    spec splits q/k/v by their input rows and keeps ``wo`` whole (whisper's
-    encoder, whose stacked leaves the reference's rules read otherwise:
-    ROADMAP.md §3), q, k and v are the ranks' partial products summed, and
-    every rank attends over all heads and applies ``wo`` whole."""
+    rank's heads."""
     cfg = ctx["cfg"]
     hd = cfg.hd()
     b, s, _ = x.shape
@@ -182,8 +178,7 @@ def gqa_apply(
                 kk, vv = k, v
             new_cache = {"k": F.pad(kk, pad).to(_dt(cfg)), "v": F.pad(vv, pad).to(_dt(cfg))}
     out = out.reshape(b, s, hq * hd)
-    if place is None or p["wo"].shape[0] == cfg.n_heads * hd:
-        # wo whole: every rank holds all heads' outputs here
+    if place is None or not place.splits(cfg.n_heads * hd):
         return rel_linear(out, p["wo"]), new_cache
     if hq == cfg.n_heads:   # every head here: the rank's rows of wo take its slice
         out = place.scatter_to(out, -1)
@@ -198,16 +193,10 @@ def _tp_projections(p, x, cfg, place, kv_source=None):
     ``kv_source`` where one is given (cross-attention: ``_kv_source``); on
     head boundaries the rank keeps its heads (and the norm scales, applied
     to those heads only, sum their gradients over the ranks), else each
-    split projection is gathered whole. Where the rank holds its block of
-    a projection's input rows instead (what its spec gives it), that projection
-    is the ranks' partial products of the rank's slice of the input
-    (``scatter_to``) summed (``reduce``), whole on every rank."""
+    split projection is gathered whole."""
     hd = cfg.hd()
     names = ("wq", "wk", "wv")
     widths = {"wq": cfg.n_heads * hd, "wk": cfg.n_kv_heads * hd, "wv": cfg.n_kv_heads * hd}
-    rows = {n: p[n].shape[0] != cfg.d_model for n in names}
-    if any(rows.values()):
-        return _row_projections(p, x, cfg, place, rows, kv_source)
     split = {n: place.splits(w) for n, w in widths.items()}
     xs = place.copy_to(x) if any(split.values()) else x
     src, ss = x, xs
@@ -224,24 +213,6 @@ def _tp_projections(p, x, cfg, place, kv_source=None):
         return q, k, v, cfg.n_heads // m, cfg.n_kv_heads // m, q_norm, k_norm
     q, k, v = (place.gather_from(t, -1) if split[n] else t
                for n, t in zip(names, (q, k, v)))
-    return q, k, v, cfg.n_heads, cfg.n_kv_heads, q_norm, k_norm
-
-
-def _row_projections(p, x, cfg, place, rows, kv_source=None):
-    """``_tp_projections`` where the specs split q/k/v by their input rows
-    (``rows``: name → split): each such product is the rank's slice of its
-    input times its rows, summed over the model ranks; the others run
-    whole. All heads on every rank."""
-    src = x if kv_source is None else kv_source
-    xr = place.scatter_to(x, -1) if rows["wq"] else None
-    sr = (place.scatter_to(src, -1) if kv_source is not None else xr) if rows["wk"] or rows["wv"] else None
-
-    def product(inp, part, w, split):
-        return place.reduce(rel_linear(part, w)) if split else rel_linear(inp, w)
-
-    q = product(x, xr, p["wq"], rows["wq"])
-    k, v = (product(src, sr, p[n], rows[n]) for n in ("wk", "wv"))
-    q_norm, k_norm = (p["q_norm"], p["k_norm"]) if cfg.qk_norm else (None, None)
     return q, k, v, cfg.n_heads, cfg.n_kv_heads, q_norm, k_norm
 
 
@@ -512,7 +483,7 @@ def block_apply(p, kind: str, x, ctx: Ctx):
         a, _ = gqa_apply(p["attn"], h, ctx, causal=False, rope=False)
         x = x + a
         h = layer_norm(x, p["ln2_s"], p["ln2_b"], cfg.norm_eps)
-        return x + mlp_apply(p["mlp"], h, activation=gelu, place=ctx.get("place"), d_ff=cfg.d_ff), cache, aux
+        return x + mlp_apply(p["mlp"], h, activation=gelu), cache, aux
 
     if kind == "dec":
         sctx = dict(ctx)

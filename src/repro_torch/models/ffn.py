@@ -49,23 +49,16 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, dtype=torch.float32)
 
 def mlp_apply(p, x, activation=F.silu, *, place=None, d_ff=None):
     """The gated MLP: ``activation(x·wi_gate) * (x·wi_up)``, then ``wo``
-    (whisper passes ``common.gelu``). On a mesh each rank holds what the
-    leaves' specs of the hidden width ``d_ff`` give it: where the model
-    ranks split it, the rank's columns of wi_gate/wi_up and rows of wo,
-    the partial sums added over the ranks; where the rank holds ``wo``
-    whole, the rank's hidden columns gathered whole before it; where it
-    holds every leaf whole (whisper's encoder, whose stacked leaves the
-    reference's rules read as experts: ROADMAP.md §3), the whole MLP."""
-    cols = place is not None and p["wi_gate"].shape[-1] != d_ff
-    if cols:
+    (whisper passes ``common.gelu``). On a mesh whose model ranks split
+    the hidden width ``d_ff``: the rank's columns of wi_gate/wi_up and
+    rows of wo, the partial sums added over the ranks."""
+    split = place is not None and place.splits(d_ff)
+    if split:
         x = place.copy_to(x)
     g = rel_linear(x, p["wi_gate"])
     u = rel_linear(x, p["wi_up"])
-    h = activation(g) * u
-    if cols and p["wo"].shape[0] == d_ff:
-        return rel_linear(place.gather_from(h, -1), p["wo"])
-    y = rel_linear(h, p["wo"])
-    return place.reduce(y) if cols else y
+    y = rel_linear(activation(g) * u, p["wo"])
+    return place.reduce(y) if split else y
 
 
 # ---------------------------------------------------------------------------

@@ -13,10 +13,9 @@ with ``mesh=``) every kind runs on the rank's shards: attention (full,
 windowed, cross or MLA on the rank's heads) and MLP column- then
 row-parallel, the experts split over the model ranks, the SSM layers on
 the rank's channels or heads (``models/ssm.py``), zamba2's shared block
-placed as the attention layers are, whisper's encoder on its leaves'
-specs (each layer's FSDP leaves gathered as a stage's are), the
-embedding and the head (tied or not) split over the vocabulary, the FSDP
-leaves gathered per layer, the batch's rows split over the data ranks —
+placed as the attention layers are, whisper's encoder whole on every
+rank (its leaves replicated), the embedding and the head (tied or not)
+split over the vocabulary, the FSDP leaves gathered per layer, the batch's rows split over the data ranks —
 the ("pod", "data") fold where the mesh has a pod axis — (the reference's
 ``hint(x, DP, ...)`` sites, which cut a whole batch to the rank's rows
 there and are no-ops off a mesh), qwen2-vl's patches and M-RoPE positions
@@ -386,17 +385,13 @@ class Model(nn.Module):
         """Whisper's encoder over the stubbed frame embeddings (B, S_enc,
         D): bidirectional layers without RoPE, then a LayerNorm. Outside
         remat, as the reference's ``lax.scan`` over the stacked layers. On
-        a mesh over the rank's rows of the whole batch's ``frames``, each
-        layer's FSDP leaves gathered at its use."""
+        a mesh over the rank's rows of the whole batch's ``frames``, with
+        every leaf whole on every rank (the placement replicates them:
+        ROADMAP.md §3), so no collective runs here."""
         cfg = self.cfg
         ctx = {"cfg": cfg, "mode": "train", "positions": None, "cache": None}
-        x = frames
-        if place is not None:
-            ctx["place"] = place
-            x = _rows(frames)
-        for r, lp in enumerate(p["encoder"]):
-            if place is not None:
-                lp = place.gather_tree(lp, f"encoder.{r}.")
+        x = frames if place is None else _rows(frames)
+        for lp in p["encoder"]:
             x, _, _ = block_apply(lp, "enc", x, ctx)
         return layer_norm(x, p["enc_ln_s"], p["enc_ln_b"], cfg.norm_eps)
 

@@ -105,13 +105,24 @@ def test_a_full_size_combination_holds_rank_0s_shards():
     assert roof["model_flops_per_device"] == roofline.model_flops("olmoe-1b-7b", "decode_32k") / 256
 
 
-def test_link_rates_follow_the_group_size():
-    assert roofline.link_rate(8) == roofline.NVLINK_BW and roofline.link_rate(16) == roofline.IB_BW
-    terms = roofline.collective_terms({"all_reduce/model": {"calls": 2, "bytes": 900},
-                                       "all_gather/batch": {"calls": 1, "bytes": 100}},
-                                      {"pod": 2, "data": 16, "model": 4})
-    assert terms["seconds"] == 900 / roofline.NVLINK_BW + 100 / roofline.IB_BW
-    assert terms["total_bytes"] == 1000 and terms["counts"] == {"all_reduce/model": 2, "all_gather/batch": 1}
+@pytest.mark.parametrize("kind, sizes, span, rate", [
+    ("pod", {"pod": 2, "data": 16, "model": 16}, 512, "IB_BW"),
+    ("model", {"pod": 2, "data": 16, "model": 16}, 16, "IB_BW"),
+    ("model", {"pod": 2, "data": 16, "model": 4}, 4, "NVLINK_BW"),
+    ("data", {"data": 2, "model": 4}, 8, "NVLINK_BW"),
+    ("data", {"data": 2, "model": 8}, 16, "IB_BW"),
+    ("batch", {"pod": 2, "data": 2, "model": 1}, 4, "NVLINK_BW"),
+    ("batch", {"pod": 2, "data": 16, "model": 4}, 128, "IB_BW"),
+])
+def test_link_rates_follow_the_ranks_a_group_spans(kind, sizes, span, rate):
+    """A group is charged NVLink only where the consecutive ranks its
+    cards lie within fit one 8-card node: a pod group of 2 on 2 × 16 × 16
+    spans 512 ranks, another node's, and is charged InfiniBand."""
+    assert roofline.group_span(kind, sizes) == span
+    assert roofline.link_rate(roofline.group_span(kind, sizes)) == getattr(roofline, rate)
+    terms = roofline.collective_terms({f"all_reduce/{kind}": {"calls": 2, "bytes": 900}}, sizes)
+    assert terms["seconds"] == 900 / getattr(roofline, rate)
+    assert terms["total_bytes"] == 900 and terms["counts"] == {f"all_reduce/{kind}": 2}
 
 
 @pytest.mark.parametrize("mesh", ("2x2x1", "1x4"))

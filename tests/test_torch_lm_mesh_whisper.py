@@ -8,9 +8,9 @@ one-process port steps and to the reference's one-device steps
 (tests/torch_lm_mesh_parity.py's bound); the ranks to each other bit for
 bit; and the planted faults: the cross-attention fed the encoder's output
 without ``copy_to`` (its gradient then each rank's heads' part) and one
-encoder layer's model all-reduce left out (the encoder's leaves split q,
-k and v by their input rows, by the reference's specs: ROADMAP.md §3). A
-one-rank group runs the steps bit for bit as the mesh-less ones.
+decoder layer's model all-reduce left out (the encoder runs whole on
+every rank, its leaves replicated: ROADMAP.md §3). A one-rank group runs
+the steps bit for bit as the mesh-less ones.
 
 The ranks start once for the module (``launch.mesh.start_ranks``, the
 suite "whisper" of ``tests/torch_lm_mesh_zoo_workers.py``) while this
@@ -93,8 +93,8 @@ def test_ranks_are_bit_equal(ranks, rec, mesh):
 @pytest.mark.parametrize("mesh", MESHES)
 def test_each_rank_holds_its_shards_and_cache(ranks, mesh):
     """``Placement.shard`` gives each rank its block of every leaf (the
-    encoder's by the reference's specs less their layer entry), and a
-    rank's decoder cache holds its rows and its KV heads."""
+    encoder's whole), and a rank's decoder cache holds its rows and its
+    KV heads."""
     cfg = Z.config(ARCH, SUITE)
     m = dict(SUITE.meshes)[mesh][1]
     want = (SUITE.b // (4 // m), SUITE.cache(cfg), cfg.n_kv_heads // m, cfg.hd())
@@ -116,8 +116,18 @@ def test_the_cross_attention_without_copy_to_fails_the_gradient_bound(rec):
     assert bad and all(k.startswith(("encoder.", "enc_ln")) for k in bad)
 
 
-def test_an_encoder_layers_missing_all_reduce_fails_the_bound(rec):
-    assert P.far(rec["plants"]["enc_reduce_dropped"], rec["one"]["serve"]["logits"])
+def test_a_decoder_layers_missing_all_reduce_fails_the_bound(rec):
+    assert P.far(rec["plants"]["dec_reduce_dropped"], rec["one"]["serve"]["logits"])
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_the_encoder_runs_whole_on_every_rank(ranks, mesh):
+    """The encoder's leaves are replicated: each rank holds every one of
+    them whole, and the encoder step (``make_encode_step(mesh=)``) calls
+    no collective but the gather of the batch's rows."""
+    for r in ranks:
+        assert r[ARCH][mesh]["encoder_whole"]
+        assert set(r[ARCH][mesh]["serve"]["collectives"][1]) <= {"all_gather/data"}
 
 
 @pytest.mark.parametrize("part", ("serve", "train"))

@@ -68,16 +68,17 @@ SUITES = {
     # that each of 4 model ranks attends over one
     "whisper": Suite(("whisper-small",), (("1x4", (1, 4)), ("2x2", (1, 2))),
                      changes=(("whisper-small", "n_kv_heads", 4),),
-                     plants=("xattn_uncopied", "enc_reduce_dropped")),
+                     plants=("xattn_uncopied", "dec_reduce_dropped")),
     "qwen2_vl": Suite(("qwen2-vl-72b",), (("2x2", (1, 2)),),
                       plants=("prefix_on_model", "positions_on_sequence")),
     "pod": Suite(("olmoe-1b-7b",), (("2x2x1", (2, 1)),), plants=("pod_dropped",)),
 }
 
 #: the model all-reduces of a whisper pass on the 1 × 4 mesh before layer
-#: L's of the encoder: the lookup's, then 3 a layer (q, k and v, whose
-#: specs split their input rows: ROADMAP.md §3)
-ENC_PLANTED_LAYER = 1
+#: L's of the decoder: the lookup's, then 3 a layer (the self-attention's,
+#: the cross-attention's and the MLP's row-parallel outputs); the encoder,
+#: whole on every rank, has none (ROADMAP.md §3)
+DEC_PLANTED_LAYER = 1
 
 
 def config(arch, suite):
@@ -208,8 +209,8 @@ def plant(what, suite, model, meshes):
     if what == "xattn_uncopied":
         undo = W.planted("_kv_source", lambda place, e: e, blocks)
         run = lambda: train(model, repro_torch.Database(device="cpu"), suite, m)["grads"]  # noqa: E731
-    elif what == "enc_reduce_dropped":
-        undo = drop_all_reduce("model", 1 + 3 * ENC_PLANTED_LAYER)
+    elif what == "dec_reduce_dropped":
+        undo = drop_all_reduce("model", 1 + 3 * DEC_PLANTED_LAYER)
         run = lambda: serve(model, repro_torch.Database(device="cpu", mesh=m), suite)["logits"]  # noqa: E731
     elif what == "prefix_on_model":
         undo = W.planted("_rows", _prefix_on_model, model_mod)
@@ -256,6 +257,8 @@ def arch_checks(arch, weights, suite, meshes):
         rec[name] = {"serve": serve(model, repro_torch.Database(device="cpu", mesh=mesh), suite),
                      "train": train(model, repro_torch.Database(device="cpu"), suite, mesh),
                      "shard": W.shard_checks(place, whole_params),
+                     "encoder_whole": all(place.local_shape(k) == place.shapes[k]
+                                          for k in place.shapes if k.startswith("encoder.")),
                      "cache0": W._shapes(init_cache(cfg, suite.b, suite.cache(cfg), "cpu", place=place)[0][
                          "scan"][0][W.first_block(cfg)]),
                      "coords": {k: place.index(k) for k in place.comm.size}}
