@@ -186,7 +186,7 @@ Phases, in order; any failure stops the run with a non-zero exit:
    (each must raise the static certifier's code); ``db.explain``'s kernel
    section on the SQL logistic regression; and phase 9's streamed
    ogbn-products plan's certificate (``waves`` and ``coo`` ok);
-23. (run after phase 22, before phase 8; phases 23-27 share one set of 4
+23. (run after phase 22, before phase 8; phases 23-28 share one set of 4
    gloo rank processes, ``mesh_phases``: each phase's one-process work, then
    the ranks run each phase's rank work in turn while this process checks
    each phase's records as they come) the relational engine on a mesh,
@@ -306,7 +306,35 @@ Phases, in order; any failure stops the run with a non-zero exit:
    terms on the published H100 figures beside the measured times; 27.5 the
    kernel calls of the passes at the shard shapes (phase 8 times them as
    ``lm_mesh_enc_vl``), each held to phase 2's checked shapes, its launch
-   record to its contract model, the mesh steps' lowerings certified.
+   record to its contract model, the mesh steps' lowerings certified;
+28. (run after phase 27, before phase 8, on the same ranks) a memory budget
+   and an endpoint on a mesh: 28.1 phase 9's arxiv GCN query under phase
+   9's budget in 4 waves, 3 steps (each an SGD step on the node table), on
+   a one-rank NCCL group's mesh, bit-equal to the mesh-less budgeted steps
+   (losses, step-1 gradients, the last node table), every site on the cuda
+   tier; 28.2 the reference's out-of-core gate at full width on the 4 × 1
+   mesh of the gloo ranks: the query under node bytes + edge bytes / 4 (the
+   edges ≥ 4× their headroom) in 4 owner-aligned waves, each a mesh step on
+   the rank's share of the wave (every rank's store holding the whole
+   stream), step 1 held to 23.2's in-core 4-rank step within 23.2's limits
+   plus the rounding of adding the waves' partial sums, every rank
+   bit-equal to rank 0, a second run to the first, with rank 1's merge
+   leaving the last wave out planted; the waves, the bytes fetched a step,
+   each rank's step time and the collectives a step printed; 28.3 the
+   logistic regression on the 2 × 2 mesh under a budget it fits: after
+   ``catalog_shardings`` commits the layouts a step moves 0 bytes and warns
+   nothing, and the design matrix committed to another layout is moved and
+   warned about once; 28.4 olmoe-1b-7b at 4 layers through ``db.endpoint``
+   on the 1 × 4 mesh, rank 0 serving and ranks 1-3 in ``follow()``
+   (warmup, a burst of 4 requests of 64 tokens whose slots free in turn,
+   then 2 requests staggered within ``gather_window``), on the mesh-less
+   endpoint's routing: rank 0's tokens against the mesh-less endpoint's
+   (equal but at a near tie), each step's logits within phase 24's limit,
+   every rank's logits bit-equal and its step counters equal, ``follow()``
+   returning on ``aclose()``; a follower that keeps its cache rows at a
+   compaction (caught by the limit: each logit is a collective's sum, so
+   the ranks stay bit-equal) and a withheld header (the followers raise
+   within their stated wait) planted.
 
 Device memory is freed between phases, so the NNMF step's peak and the
 language models' 1–60 GB of weights never meet. The last line of standard
@@ -828,6 +856,30 @@ ZOO_MESH_LEAVES = {
 }
 
 
+# phase 28, a memory budget and an endpoint on a mesh: 28.1 phase 9's
+# arxiv GCN query under phase 9's budget on a one-rank NCCL group,
+# BUDGET_MESH_STEPS steps (each an SGD step of BUDGET_MESH_LR on the node
+# table); 28.2 the same query on the 4 × 1 mesh of the gloo ranks under
+# node bytes + edge bytes / 4 (the reference's gate: the edges ≥ 4× their
+# headroom), BUDGET_MESH_RUN steps, the first lowering; 28.3 the
+# quickstart's logistic regression (phase 4's size) on the 2 × 2 mesh under
+# a budget it fits; 28.4 olmoe-1b-7b at LM_MESH_LAYERS layers through
+# db.endpoint on the 1 × 4 mesh, rank 0 serving and ranks 1-3 following:
+# warmup, a burst of requests of ENDPOINT_MESH_PROMPT tokens with
+# max_new_tokens ENDPOINT_MESH_BURST (in submission order, so the slots
+# free in turn and each compaction moves rows), then ENDPOINT_MESH_PAIR
+# submitted ENDPOINT_MESH_STAGGER_S apart within ENDPOINT_MESH_WINDOW_S,
+# which form one batch
+BUDGET_MESH_STEPS, BUDGET_MESH_LR, BUDGET_MESH_RUN = 3, 0.5, 2
+ENDPOINT_MESH_PROMPT, ENDPOINT_MESH_BUCKETS = 64, (1, 2, 4)
+ENDPOINT_MESH_BURST, ENDPOINT_MESH_PAIR = (5, 6, 7, 8), (3, 4)
+ENDPOINT_MESH_WINDOW_S, ENDPOINT_MESH_STAGGER_S = 0.5, 0.05
+#: the followers' wait for a header: the served endpoint's, and the
+#: planted withheld header's (which must raise within it, plus
+#: ENDPOINT_MESH_WAIT_SLACK_S)
+ENDPOINT_MESH_FOLLOW_S, ENDPOINT_MESH_WAIT_S, ENDPOINT_MESH_WAIT_SLACK_S = 300.0, 3.0, 5.0
+
+
 def mla_mesh_plants(sharding, blocks):
     """26.3's planted faults, (what, owner, name, fake): the q latent
     gathered with a slicing backward (each rank's gradient of it its own
@@ -945,6 +997,8 @@ def matmul_cases(cfg):
               if op == "blocked_matmul"]
     cases += [(m, k, n, "whisper / qwen2-vl / olmoe on a pod mesh")
               for op, m, k, n in sorted(zoo_mesh_checked_shapes()) if op == "blocked_matmul"]
+    cases += [(m, k, n, "olmoe's endpoint on a mesh")
+              for op, m, k, n in sorted(endpoint_mesh_checked_shapes()) if op == "blocked_matmul"]
     return cases
 
 
@@ -1007,7 +1061,7 @@ def olmoe_checked_shapes(cfg):
     return out
 
 
-def check_kernels(torch, kern, graph, lm_cfg, olmoe_cfg, dev):
+def check_kernels(torch, kern, graph, lm_cfg, olmoe_cfg, dev, wave_rows):
     from repro_torch.kernels.gather.ref import gather_rows_ref
     from repro_torch.kernels.matmul.ops import SEG_LEN
     from repro_torch.kernels.matmul.ref import matmul_ref
@@ -1406,6 +1460,27 @@ def check_kernels(torch, kern, graph, lm_cfg, olmoe_cfg, dev):
             gather_case(b, zoo_ids(a, b), c, "whisper / qwen2-vl / olmoe on a pod mesh")
         elif op == "segment_sum":
             segsum_case(c, zoo_ids(a, c), b, "whisper / qwen2-vl / olmoe on a pod mesh")
+        torch.cuda.empty_cache()
+
+    # phase 28's: a rank's rows of the widest arxiv wave on the one-rank and
+    # the 4 × 1 mesh (``mesh_wave_rows``), by both id columns, padded at the
+    # end as phase 9's wave; olmoe's endpoint buckets, mesh-less and on one
+    # rank of the 1 × 4 mesh (olmoe_ids: its vocabulary shard and its
+    # experts' slots hold -1)
+    for e in wave_rows:
+        src = torch.randint(0, NODES, (e,), generator=gen, device=dev, dtype=torch.int32)
+        dst = torch.sort(torch.randint(0, NODES, (e,), generator=gen, device=dev, dtype=torch.int32)).values
+        src[-pad:], dst[-pad:] = -1, -1
+        for col, ids in (("src", src), ("dst", dst)):
+            gather_case(NODES, ids, FEAT, f"a rank's arxiv wave on a mesh (rows = edge {col}, padded)")
+            segsum_case(NODES, ids, FEAT, f"a rank's arxiv wave on a mesh (seg = edge {col}, padded)",
+                        fault=hottest_edge_dropped)
+        del src, dst, ids
+    for op, a, b, c in sorted(endpoint_mesh_checked_shapes()):
+        if op == "gather_join":
+            gather_case(b, olmoe_ids(a, b), c, "olmoe's endpoint on a mesh")
+        elif op == "segment_sum":
+            segsum_case(c, olmoe_ids(a, c), b, "olmoe's endpoint on a mesh")
         torch.cuda.empty_cache()
     return errs
 
@@ -5139,7 +5214,7 @@ def time_site(torch, op, info, rows_for, seg_for, gen, dev):
 
 
 def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, dense, mesh, lm_mesh, ssm_mesh,
-                 mla_mesh, zoo_mesh, errs, dev):
+                 mla_mesh, zoo_mesh, budget_mesh, errs, dev):
     """Per kernel and per main path: each site timed alone at its shapes,
     times the launches of that site in one pass of the path (one GCN step;
     one logistic-regression step; one NNMF step; one KGE step at each
@@ -5340,6 +5415,19 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, d
                 *time_once("lm_mesh_enc_vl", key[0], key, ids))
         del ids
 
+    # one rank of phase 28: a 28.2 step on the 4 × 1 mesh (every wave's
+    # calls at the rank's rows) and 28.4's traffic through the endpoint on
+    # the 1 × 4 mesh, every kernel signature on the ids its first call
+    # took, times its calls in the pass
+    for path, (counts, first_ids) in (("gcn_waves_mesh", budget_mesh["waves"]),
+                                      ("lm_mesh_endpoint", budget_mesh["endpoint"])):
+        for key, mult in sorted(counts.items()):
+            ids = first_ids.get(key)
+            ids = None if ids is None else ids.to(dev)
+            add(path, key[0], f"{key[0]}{key[1:]}", mult,
+                *time_once(path, key[0], key, ids))
+        del ids
+
     # one rank of phase 25: each arch's prefill and one decode step on the 1
     # × 4 mesh and each train step of 25.3, every kernel signature at its
     # shard shapes on the ids its first call took (the vocabulary shard's
@@ -5478,6 +5566,7 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, d
                    "lm_mesh_ssm": ssm_mesh["launches"].get(op, 0),
                    "lm_mesh_mla": mla_mesh["launches"].get(op, 0),
                    "lm_mesh_enc_vl": zoo_mesh["launches"].get(op, 0),
+                   **{path: got.get(op, 0) for path, got in budget_mesh["launches"].items()},
                    "falcon_train": ssm["falcon_train"]["launches"][op],
                    **{path: run["launches"][op] for path, run in dense.items()}}
         records.append({
@@ -5534,7 +5623,10 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, d
                     f"and {ZOO_MESH_DECODE} decode steps (twice) and a train step on the 1 × "
                     f"{ZOO_MESH_RANKS} mesh (whisper's planted runs too) and its {POD_MESH_TRAIN_STEPS} "
                     f"olmoe train steps on the 2 × 2 × 1 pod mesh (lm_mesh_enc_vl: the {ZOO_MESH_RANKS} "
-                    "ranks' launches summed); "
+                    f"ranks' launches summed), phase 28's arxiv GCN query in chunk waves ({BUDGET_MESH_RUN} "
+                    f"steps on the {MESH_RANKS} × 1 mesh, gcn_waves_mesh: the {MESH_RANKS} ranks' launches "
+                    f"summed) and olmoe's endpoint traffic on the 1 × {LM_MESH_RANKS} mesh, its warmup "
+                    f"included (lm_mesh_endpoint: the {LM_MESH_RANKS} ranks' launches summed); "
                     "ms, plain_ms, bound_ms, library_ms: each site timed alone, times its "
                     "launches in one pass, summed over one GCN step, one logistic-regression "
                     "step, one NNMF step, one KGE step at each width, one prefill, one "
@@ -5557,7 +5649,10 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, d
                     "prefill and decode step and its train step on the 1 × 4 mesh at their shard "
                     "shapes (lm_mesh_mla), one rank's whisper and qwen2-vl prefill, encoder step "
                     "(whisper), decode step and train step on the 1 × 4 mesh and its olmoe train step "
-                    "on the 2 × 2 × 1 pod mesh at their shard shapes (lm_mesh_enc_vl) — a site "
+                    "on the 2 × 2 × 1 pod mesh at their shard shapes (lm_mesh_enc_vl), one rank's "
+                    "streamed arxiv step on the 4 × 1 mesh, every wave, at its shard shapes "
+                    "(gcn_waves_mesh) and rank 0's endpoint traffic on the 1 × 4 mesh (a burst and a "
+                    "pair: lm_mesh_endpoint) — a site "
                     "of the passes from olmoe_serve on that an earlier path timed at the same shapes "
                     "(a gather's and a segment sum's on the same ids) takes that timing and is counted "
                     "in its path's 'borrowed'; 'paths' splits them; host_ms: "
@@ -5712,13 +5807,18 @@ def report(what, res):
     log(f"  {what}: err/limit: {parts}")
 
 
-def plant_dropped_wave(engine, itertools):
-    """A planted fault: StreamedCompiled's merge drops the last wave.
-    Returns the function that takes it out again."""
+def plant_dropped_wave(engine):
+    """A planted fault: StreamedCompiled's merge drops the last wave (every
+    wave still runs, so that on a mesh no rank leaves the group's
+    collectives). Returns the function that takes it out again."""
     merge = engine.StreamedCompiled._merge
 
     def drop_last(self, outs, want):
-        return merge(self, itertools.islice(outs, self.num_waves - 1), want)
+        def first(outs):
+            for w, out in enumerate(outs):
+                if w < self.num_waves - 1:
+                    yield out
+        return merge(self, first(outs), want)
 
     engine.StreamedCompiled._merge = drop_last
     return lambda: setattr(engine.StreamedCompiled, "_merge", merge)
@@ -5802,7 +5902,6 @@ def ooc_arxiv(torch, repro_torch, kern, data, dev):
     """9.1: the GCN query at ogbn-arxiv size, Node + Edge/4 budget,
     against the in-core step; planted faults (a) and (b)."""
     import dataclasses
-    import itertools
 
     from repro_torch.core import engine, planner
     from repro_torch.core.planner import _rel_bytes
@@ -5842,7 +5941,7 @@ def ooc_arxiv(torch, repro_torch, kern, data, dev):
            "dEdge 2·γ_D·Σ|terms| per entry)", res)
     if worst_of(res) > 1.0:
         raise AssertionError("arxiv: the streamed step differs from the in-core step")
-    for name, plant in (("(a) the merge drops the last wave", lambda: plant_dropped_wave(engine, itertools)),
+    for name, plant in (("(a) the merge drops the last wave", lambda: plant_dropped_wave(engine)),
                         ("(b) a cut moved one row into an owner run",
                          lambda: plant_moved_cut(planner, dataclasses))):
         undo = plant()
@@ -6033,8 +6132,6 @@ def ooc_products(torch, repro_torch, kern, dev):
     """9.3: the GCN query at ogbn-products size and D = 256, which no card
     holds in core: Node + Edge/8 budget, against an f64 computation on the
     card; planted fault (a)."""
-    import itertools
-
     from repro_torch.core import engine
     from repro_torch.core.planner import _rel_bytes
     from repro_torch.relational import partitioned_edges
@@ -6131,7 +6228,7 @@ def ooc_products(torch, repro_torch, kern, dev):
     if worst_of(res) > 1.0:
         raise AssertionError("products: the streamed step differs from the f64 computation")
     del out, grads
-    undo = plant_dropped_wave(engine, itertools)
+    undo = plant_dropped_wave(engine)
     try:
         bad = gcn_against(torch, *h.step(wrt=OOC_WRT), None, edge, x, exact)
     finally:
@@ -6533,7 +6630,7 @@ def digest(t) -> str:
     return hashlib.sha256(t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()
 
 
-#: the processes phases 23-27 share: gloo ranks on one card
+#: the processes phases 23-28 share: gloo ranks on one card
 MESH_SET_RANKS = 4
 
 
@@ -6547,7 +6644,7 @@ def host_rss() -> int:
 
 
 def mesh_ranks(rank, jobs, device):
-    """One rank of the set phases 23-27 share: each phase's rank function
+    """One rank of the set phases 23-28 share: each phase's rank function
     in turn (``jobs``: its name and the path of its inputs), its record
     saved beside the inputs as soon as it is made (``mesh_phases`` reads
     and deletes it while the ranks go on), then the card's cache and the
@@ -9469,6 +9566,713 @@ def zoo_mesh_phase(torch, repro_torch, kern, dev, smi):
     return {"sites": list(r0["sites"].values()), "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# Phase 28: a memory budget and an endpoint on a mesh
+# ---------------------------------------------------------------------------
+
+
+def mesh_wave_rows(torch, keys, dev):
+    """Rows of the widest wave a rank computes over: in 28.1 (phase 9's
+    budget, the edges partitioned for one rank) and in 28.2 (node bytes +
+    edge bytes / 4, the edges partitioned for MESH_RANKS; the wave padded to
+    a multiple of MESH_RANKS rows, a share a rank), from the plans
+    ``plan_waves`` makes of the graph's keys."""
+    from repro_torch.core.planner import _rel_bytes, plan_waves
+    from repro_torch.core.relation import DenseRelation
+    from repro_torch.relational import partitioned_edges
+
+    node = DenseRelation(torch.empty((NODES, FEAT), device=dev), 1)
+    zeros = torch.zeros(keys.shape[0], device=dev)
+    out = []
+    for ranks in (1, MESH_RANKS):
+        edge = partitioned_edges(keys, zeros, NODES, ranks)
+        plan = plan_waves(gcn_loss_query(NODES), {"Edge": edge, "Node": node},
+                          _rel_bytes(node) + _rel_bytes(edge) / OOC_ARXIV_WAVES)
+        widest = max(b - a for a, b in zip(plan.boundaries, plan.boundaries[1:]))
+        out.append(-(-widest // ranks))
+    return tuple(out)
+
+
+def endpoint_mesh_buckets():
+    return [(b, ENDPOINT_MESH_PROMPT) for b in ENDPOINT_MESH_BUCKETS]
+
+
+def endpoint_mesh_checked_shapes():
+    """28.4's kernel calls: olmoe's prefill and decode steps at each
+    endpoint bucket, mesh-less (the reference run, in this process) and on
+    one rank of the 1 × 4 mesh (``lm_mesh_shapes``)."""
+    cfg, out = lm_mesh_config(LM_MESH_LAYERS), set()
+    for b in ENDPOINT_MESH_BUCKETS:
+        for m in (1, LM_MESH_RANKS):
+            out |= (lm_mesh_shapes(cfg, b, ENDPOINT_MESH_PROMPT, m, 1, False)
+                    | lm_mesh_shapes(cfg, b, 1, m, 1, False))
+    return out
+
+
+def budget_mesh_checked_shapes(wave_rows):
+    """The kernel calls of phase 28, which phase 2 checks and its paths
+    must launch at no other shape: the arxiv waves' gathers and segment
+    sums at a rank's rows of the widest wave (28.1, 28.2:
+    ``mesh_wave_rows``), and 28.4's (``endpoint_mesh_checked_shapes``)."""
+    out = endpoint_mesh_checked_shapes()
+    for rows in wave_rows:
+        out |= {("gather_join", rows, NODES, FEAT), ("segment_sum", rows, FEAT, NODES)}
+    return out
+
+
+def wave_sum_limit(torch, edge, x, n, waves):
+    """What adding the waves' partial sums adds to 23.2's limit on ∂/∂Node
+    (per entry, f64): an entry is the sum of at most ``waves`` partials,
+    one a wave, whose adding rounds at most (waves − 1) times, each by at
+    most u·Σ|partials| ≤ u·Σ|terms|, the terms w_e·dconv[dst_e] summed by
+    src (dconv = 2·conv/n, made in f64 here)."""
+    d = x.shape[1]
+    dconv = torch.zeros(n, d, dtype=torch.float64, device=x.device)
+    for _, live, src, dst, w in edge_chunks(edge):
+        dconv.index_add_(0, dst[live], w[live, None] * x[src[live]].double())
+    dconv.mul_(2.0 / n)
+    total = torch.zeros_like(dconv)
+    for _, live, src, dst, w in edge_chunks(edge):
+        total.index_add_(0, src[live], (w[live, None] * dconv[dst[live]]).abs_())
+    return total.mul_((waves - 1) * U32)
+
+
+def budget_steps(torch, db, edge, x, steps, log_=None):
+    """``steps`` steps of phase 9's GCN query through ``db`` (∂/∂Edge and
+    ∂/∂Node), each followed by an SGD step of BUDGET_MESH_LR on the node
+    table, put back: the losses, step 1's (loss, ∂/∂Node, ∂/∂Edge), the
+    last node table, each step's host seconds, collectives and bytes
+    fetched from the store, and the handle. ``log_`` (a LaunchLog) records
+    the kernel calls of the last step."""
+    from repro_torch.launch import collectives
+
+    db.put("Edge", edge)
+    h = db.query(gcn_loss_query(x.shape[0]))
+    node, rec = x, {"losses": [], "secs": [], "collectives": [], "fetched": []}
+    for i in range(steps):
+        db.put("Node", node, keys=("node",))
+        collectives.reset_collectives()
+        fetched = db.counters()["spill"]["fetched_bytes"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with log_ if log_ is not None and i == steps - 1 else contextlib.nullcontext():
+            out, grads = h.step(wrt=OOC_WRT)
+            torch.cuda.synchronize()
+        rec["secs"].append(time.perf_counter() - t0)
+        rec["collectives"].append(collectives.last_collectives())
+        rec["fetched"].append(db.counters()["spill"]["fetched_bytes"] - fetched)
+        rec["losses"].append(float(out.data))
+        if i == 0:
+            rec["first"] = (out.data.clone(), grads["Node"].data, grads["Edge"].values)
+        node = node - BUDGET_MESH_LR * grads["Node"].data
+        del out, grads
+    rec["node"], rec["handle"] = node, h
+    return rec
+
+
+def budget_mesh_excess(first, ref, edge, wave_limit, waves):
+    """err/limit of a streamed mesh step's step 1 against the in-core mesh
+    step's (``ref``; both ``budget_steps``' "first"): 23.2's limits — the
+    loss 1e-5 relative, ∂/∂Node 64·u·√E·max|g|, ∂/∂Edge 64·u·max|g| — plus
+    the rounding of adding the waves' partial sums: ``wave_limit``
+    (``wave_sum_limit``) on ∂/∂Node, (waves − 1)·u·|loss| on the loss
+    (whose partials are sums of squares). ∂/∂Edge takes no partial sum:
+    each edge's gradient lies in one wave, whose convolution an
+    owner-aligned cut leaves whole. A gradient of the wrong shape reads
+    inf."""
+    (loss, dnode, dedge), (l0, dn0, de0) = first, ref
+    dev = dn0.device
+    res = {"loss": float((loss.double() - l0.double()).abs()
+                         / ((1e-5 + (waves - 1) * U32) * l0.double().abs()))}
+    if tuple(dnode.shape) != tuple(dn0.shape):
+        res["dNode"] = math.inf
+    else:
+        lim = 64 * U32 * math.sqrt(edge.nnz) * dn0.double().abs().max() + wave_limit
+        res["dNode"] = excess((dnode.to(dev).double() - dn0.double()).abs(), lim)
+    if tuple(dedge.shape) != tuple(de0.shape):
+        res["dEdge"] = math.inf
+    else:
+        res["dEdge"] = excess((dedge.to(dev).double() - de0.double()).abs(),
+                              64 * U32 * de0.double().abs().max())
+    return res
+
+
+def endpoint_mesh_run(torch, db, prompts, *, follower=False, warm=True, pair=True, plant=None,
+                      timeout=ENDPOINT_MESH_FOLLOW_S, mark=None, log_=None):
+    """28.4's endpoint over ``db`` (on its mesh, or none). The one that
+    serves: ``warmup`` (``warm``), the burst of ENDPOINT_MESH_BURST
+    requests, with ``pair`` the two staggered ones, then ``aclose``
+    (``mark()`` is called after the warmup and after each batch; ``log_``,
+    a LaunchLog, records the kernel calls of the batches); a follower:
+    ``follow()``. ``plant(ep)`` plants a fault first. Every prefill's and
+    decode step's last-position logits are recorded in call order. Returns
+    {"calls": [(kind, logits)], "counters", and "completions", "secs" (the
+    burst's, the pair's) and "marks" (the calls made by each ``mark()``),
+    or "followed"}."""
+    import asyncio
+
+    ep = db.endpoint("olmoe", cache_len=ENDPOINT_MESH_PROMPT + max(ENDPOINT_MESH_BURST),
+                     buckets=endpoint_mesh_buckets(), gather_window=ENDPOINT_MESH_WINDOW_S,
+                     follow_timeout=timeout)
+    calls = []
+    prefill_for, decode_exec = ep._prefill_for, ep._decode_exec
+
+    def prefill_of(entry):
+        pre = prefill_for(entry)
+        if not getattr(pre, "_recorded", False):
+            real = pre.prefill
+
+            def prefill(params, batch):
+                logits, caches = real(params, batch)
+                calls.append(("prefill", logits[:, -1].clone()))
+                return logits, caches
+
+            pre.prefill, pre._recorded = prefill, True
+        return pre
+
+    def decode_of(entry, bucket):
+        step = decode_exec(entry, bucket)
+
+        def decode(*args):
+            logits, caches = step(*args)
+            calls.append(("decode", logits[:, -1].clone()))
+            return logits, caches
+
+        return decode
+
+    ep._prefill_for, ep._decode_exec = prefill_of, decode_of
+    if plant is not None:
+        plant(ep)
+    rec = {"calls": calls, "marks": []}
+
+    def marked():
+        rec["marks"].append(len(calls))
+        if mark is not None:
+            mark()
+
+    if follower:
+        rec["followed"] = ep.follow()
+    else:
+        async def go():
+            secs = []
+            if warm:
+                ep.warmup()
+            marked()
+
+            async def late(p, n, delay):
+                await asyncio.sleep(delay)
+                return await ep.submit(p, max_new_tokens=n)
+
+            parts = [list(zip(prompts, ENDPOINT_MESH_BURST))]
+            if pair:
+                parts.append(list(zip(prompts[len(ENDPOINT_MESH_BURST):], ENDPOINT_MESH_PAIR)))
+            done = []
+            with log_ if log_ is not None else contextlib.nullcontext():
+                for i, part in enumerate(parts):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    done += await asyncio.gather(*[late(p, n, j * ENDPOINT_MESH_STAGGER_S * i)
+                                                   for j, (p, n) in enumerate(part)])
+                    torch.cuda.synchronize()
+                    secs.append(time.perf_counter() - t0)
+                    marked()
+            await ep.aclose()
+            return [o.token_ids.tolist() for o in done], secs
+
+        rec["completions"], rec["secs"] = asyncio.run(go())
+    c = db.counters()["serve"]
+    rec["counters"] = {"prefill": dict(c["prefill"]), "batches": c["batches"],
+                       "decode": {k: c["decode"][k] for k in ("compiles", "traces", "steps", "rebuckets")}}
+    return rec
+
+
+def endpoint_mesh_requests(calls, marks):
+    """Each request's logits (its prefill row, then its decode steps' rows)
+    of an endpoint run's ``calls`` (``endpoint_mesh_run``), by replaying
+    the slot pool of each batch (``endpoint_logits``); ``marks`` are the
+    call counts after warmup and after each batch."""
+    import types
+
+    ep = types.SimpleNamespace(_decode_bucket=lambda k: min(b for b in ENDPOINT_MESH_BUCKETS if b >= k))
+    out = []
+    for (lo, hi), budgets in zip(zip(marks, marks[1:]), (ENDPOINT_MESH_BURST, ENDPOINT_MESH_PAIR)):
+        part = calls[lo:hi]
+        if not part or part[0][0] != "prefill" or any(k != "decode" for k, _ in part[1:]):
+            raise AssertionError(f"an endpoint batch's calls are not one prefill and its decode steps: "
+                                 f"{[k for k, _ in part]}")
+        steps = endpoint_logits(ep, [lg for _, lg in part[1:]], list(budgets))
+        out += [[part[0][1][i]] + steps[i] for i in range(len(budgets))]
+    return out
+
+
+def endpoint_mesh_hold(got, want, tokens):
+    """Each request of an endpoint run (``got``: ``endpoint_mesh_requests``
+    of the mesh run; ``tokens`` its completions) against the mesh-less
+    run's (``want``): its tokens equal, or first different where the
+    mesh-less top-2 gap is a near tie (within 2 × LM_MESH_LOGIT_LIMIT of
+    its largest logit); each step's logits up to there within
+    LM_MESH_LOGIT_LIMIT of the largest. Returns (near ties, failures, the
+    largest logit gap)."""
+    ties, bad, worst = [], [], 0.0
+    for i, (g, w, toks) in enumerate(zip(got, want, tokens)):
+        expect = [int(lg.argmax()) for lg in w]
+        at = first_mismatch(toks, expect)
+        if len(toks) != len(expect):
+            bad.append((i, "length", len(toks), len(expect)))
+        elif at is not None:
+            top = w[at].double().topk(2).values
+            gap = float((top[0] - top[1]) / w[at].double().abs().max())
+            (ties if gap <= 2 * LM_MESH_LOGIT_LIMIT else bad).append((i, at, gap))
+        for j, (a, b) in enumerate(zip(g, w)):
+            if at is not None and j > at:
+                break
+            worst = max(worst, logit_gap(a, b))
+    return ties, bad, worst
+
+
+def budget_mesh_rank(rank, path, device):
+    """One rank of 28.2-28.4: the arxiv GCN query on the 4 × 1 mesh in core,
+    then in chunk waves (twice, then with rank 1's merge leaving the last
+    wave out); the logistic regression's budgeted but fitting session on
+    the 2 × 2 mesh, its layouts committed, then a table committed to
+    another layout; olmoe's endpoint on the 1 × 4 mesh, rank 0 serving and
+    the others following (then with rank 3 keeping its cache rows at a
+    compaction, then with every header withheld). Returns numbers, digests
+    and host tensors."""
+    import warnings
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    import repro_torch
+    from repro_torch import kernels as kern
+    from repro_torch.core import engine
+    from repro_torch.core.engine import ReshardWarning, StreamedCompiled
+    from repro_torch.examples.quickstart import LOGREG_SQL
+    from repro_torch.kernels import build
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.launch.sharding import catalog_shardings, to_shardings
+    from repro_torch.models import build_model, ffn
+    from repro_torch.relational import partitioned_edges
+    from repro_torch.serving.service import FollowTimeout
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dev = torch.device(device)
+    build.library()
+    blob = torch.load(path, map_location=dev)
+    data = blob["data"]
+    out = {"rank": rank}
+    m41 = launch_mesh.make_host_mesh(model=1, device_type=dev.type)
+    m22 = launch_mesh.make_host_mesh(model=2, device_type=dev.type)
+    m14 = launch_mesh.make_host_mesh(model=LM_MESH_RANKS, device_type=dev.type)
+
+    # 28.2: the arxiv query on the 4 × 1 mesh, in core (23.2's step), then
+    # under node bytes + edge bytes / 4
+    x = data["x"]
+    pe = partitioned_edges(data["keys"], data["w"], NODES, MESH_RANKS)
+    budget = x.numel() * x.element_size() + rel_nbytes(pe) / OOC_ARXIV_WAVES
+    ref = budget_steps(torch, repro_torch.Database(dev, mesh=m41), pe, x, 1)["first"]
+    db = repro_torch.Database(dev, mesh=m41, memory_budget=budget)
+    log_ = LaunchLog(torch)
+    torch.cuda.reset_peak_memory_stats(dev)
+    kern.reset_launch_counts()
+    run = budget_steps(torch, db, pe, x, BUDGET_MESH_RUN, log_=log_)
+    launches = kern.launch_counts()
+    h = run["handle"]
+    last = h.last
+    waves = last.num_waves if isinstance(last, StreamedCompiled) else 0
+    out["waves"] = {
+        "budget": budget, "waves": waves, "plan": str(getattr(last, "plan", None)),
+        "mesh": None if last.mesh is None else tuple(last.mesh.mesh.shape),
+        "resolutions": sorted(set(h.resolutions.values())),
+        "plans": sorted((p.kind, p.data_kind) for p in last.plans.values()),
+        "edge_rows": int(last._inner.local.meta_env["Edge"].nnz) if waves else None,
+        "pad_nnz": dict(last._inner.pad_nnz) if waves else None,
+        "losses": run["losses"], "secs": run["secs"], "fetched": run["fetched"],
+        "collectives": run["collectives"][-1], "reshard": dict(last.counters["reshard"]),
+        "spill": db.counters()["spill"], "peak": torch.cuda.max_memory_allocated(dev),
+        "digests": [digest(t) for t in run["first"]] + [digest(run["node"])],
+        "launches": launches, "pass": (dict(log_.counts), {k: v.cpu() for k, v in log_.ids.items()}),
+    }
+    wave_limit = wave_sum_limit(torch, pe, x, NODES, waves) if rank in (0, 1) and waves else None
+    if wave_limit is not None:
+        out["waves"]["excess"] = budget_mesh_excess(run["first"], ref, pe, wave_limit, waves)
+    db.release()
+    del run, h, last, db
+    again = budget_steps(torch, repro_torch.Database(dev, mesh=m41, memory_budget=budget), pe, x, 1)
+    out["waves"]["again"] = [digest(t) for t in again["first"]]
+    again["handle"].db.release()
+    del again
+    # planted: rank 1's merge leaves the last wave out (every wave still runs)
+    undo = plant_dropped_wave(engine) if rank == 1 else (lambda: None)
+    try:
+        bad = budget_steps(torch, repro_torch.Database(dev, mesh=m41, memory_budget=budget), pe, x, 1)
+    finally:
+        undo()
+    if wave_limit is not None:
+        out["waves"]["planted"] = budget_mesh_excess(bad["first"], ref, pe, wave_limit, waves)
+    bad["handle"].db.release()
+    del bad, ref, wave_limit, pe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 28.3: the logistic regression on the 2 × 2 mesh, under a budget it fits
+    gen = torch.Generator(device=dev).manual_seed(28)
+    X = torch.randn(LOGREG_ROWS, LOGREG_COLS, generator=gen, device=dev)
+    y = (torch.rand(LOGREG_ROWS, generator=gen, device=dev) > 0.5) * 0.98 + 0.01
+    theta = torch.randn(LOGREG_COLS, generator=gen, device=dev) * 0.1
+    fits = 2.0 * (X.numel() + y.numel() + theta.numel()) * 4
+    db = repro_torch.Database(dev, memory_budget=fits)
+    db.use_mesh(m22)
+    db.put("Rx", X, keys=("row", "col"))
+    db.put("Ry", y, keys=("row",))
+    db.put("theta", theta, keys=("col",))
+    sql = db.sql(LOGREG_SQL, wrt=("theta",))
+    loss1 = sql.step()[0].data.clone()
+    placed = catalog_shardings(db)
+    for name, sh in placed.items():
+        db.put(name, distribute_tensor(db.get(name).data, sh.mesh, sh.placements, src_data_rank=None),
+               keys=db.schema(name))
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        loss2 = sql.step()[0].data.clone()
+    comp = sql.last
+    fit = {"streamed": isinstance(comp, StreamedCompiled),
+           "layouts": {k: tuple(v.spec) for k, v in placed.items()},
+           "committed": sorted({type(db.get(n).data).__name__ for n in placed}),
+           "warnings": [w.message.bytes_moved for w in seen if issubclass(w.category, ReshardWarning)],
+           "reshard": db.counters()["reshard"], "equal": torch.equal(loss1, loss2)}
+    # planted: Rx committed with the model axis's placement of its columns
+    # flipped (cut where the plan keeps them whole, or whole where it cuts)
+    planned = comp.planned_spec("Rx")
+    wrong = list(to_shardings(planned, m22).placements)
+    model_dim = list(m22.mesh_dim_names).index("model")
+    wrong[model_dim] = Replicate() if isinstance(wrong[model_dim], Shard) else Shard(1)
+    env = {n: db.get(n) for n in ("Rx", "Ry", "theta")}
+    env["Rx"] = repro_torch.DenseRelation(distribute_tensor(X, m22, wrong, src_data_rank=None), 2)
+    before = comp.counters["reshard"]["bytes_moved"]
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        got = [comp(env)[0].data.clone() for _ in range(2)]
+    fit["planted"] = {
+        "planned": tuple(planned), "wrong": [str(p) for p in wrong],
+        "warnings": [w.message.bytes_moved for w in seen if issubclass(w.category, ReshardWarning)],
+        "moved": comp.counters["reshard"]["bytes_moved"] - before, "rx_bytes": X.numel() * 4,
+        "equal": all(torch.equal(g, loss1) for g in got),
+    }
+    out["fit"] = fit
+    del X, y, theta, db, sql, comp, env, got, placed
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 28.4: olmoe's endpoint on the 1 × 4 mesh, on the mesh-less run's
+    # routing; rank 0 serves, the others follow
+    cfg = lm_mesh_config(LM_MESH_LAYERS)
+    model = build_model(cfg, device=dev, seed=0, mesh=m14)
+    db = repro_torch.Database(dev, mesh=m14)
+    db.register_model("olmoe", model, dict(model.named_parameters()))
+    prompts = [p.cpu().numpy() for p in blob["prompts"]]
+    replay = [(c, None) for c in blob["routing"]]
+    follower = rank != 0
+    routing = Routing(torch, ffn)
+    with routing:
+        routing.run(replay)
+        kern.reset_launch_counts()
+        log_ = LaunchLog(torch)
+        served = endpoint_mesh_run(torch, db, prompts, follower=follower, log_=log_)
+        launches = kern.launch_counts()
+    rec = {"counters": served["counters"], "launches": launches, "marks": served["marks"],
+           "digests": [digest(lg) for _, lg in served["calls"]]}
+    if follower:
+        rec["followed"] = served["followed"]
+    else:
+        rec["completions"], rec["secs"] = served["completions"], served["secs"]
+        rec["calls"] = [(k, lg.cpu()) for k, lg in served["calls"]]
+        rec["pass"] = (dict(log_.counts), {k: v.cpu() for k, v in log_.ids.items()})
+    del served
+    # planted: rank 3 keeps its cache rows at the burst's first compaction
+    # that moves rows (the burst alone, its builds made)
+    lo, hi = blob["burst_calls"]
+    with routing:
+        routing.run(replay[lo:hi])
+        bad = endpoint_mesh_run(torch, db, prompts, follower=follower, warm=False, pair=False,
+                                plant=skip_a_compaction if rank == 3 else None)
+    rec["planted_digests"] = [digest(lg) for _, lg in bad["calls"]]
+    if not follower:
+        rec["planted"] = [(k, lg.cpu()) for k, lg in bad["calls"]]
+    del bad
+    # planted: every header withheld from followers that wait
+    # ENDPOINT_MESH_WAIT_S
+    ep = db.endpoint("olmoe", cache_len=ENDPOINT_MESH_PROMPT + 1, buckets=endpoint_mesh_buckets(),
+                     follow_timeout=ENDPOINT_MESH_WAIT_S)
+    rec["withheld"] = None
+    if follower:
+        t0 = time.perf_counter()
+        try:
+            ep.follow()
+            rec["withheld"] = ("returned", time.perf_counter() - t0)
+        except FollowTimeout as e:
+            rec["withheld"] = (str(e), time.perf_counter() - t0)
+    dist.barrier()
+    out["endpoint"] = rec
+    del model, db, ep
+    torch.cuda.synchronize()
+    return out
+
+
+def skip_a_compaction(ep):
+    """The planted follower fault of 28.4: at the first compaction that
+    moves rows, the follower drops to the smaller bucket but keeps its
+    cache rows where they were."""
+    real, state = ep._receive, {"skipped": False}
+
+    def receive():
+        header, batch = real()
+        if (header["op"] == "compact" and not state["skipped"]
+                and header["idx"] != list(range(header["bucket"]))):
+            state["skipped"] = True
+            header = dict(header, idx=list(range(header["bucket"])))
+        return header, batch
+
+    ep._receive = receive
+
+
+def budget_mesh_one_rank(torch, repro_torch, kern, data, dev, smi, checked):
+    """28.1: phase 9's arxiv query under phase 9's budget, mesh-less and on
+    a one-rank NCCL group's ("model",) mesh, BUDGET_MESH_STEPS steps each:
+    bit for bit, every site on the cuda tier, each of its kernels launched."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.relational import partitioned_edges
+
+    edge = partitioned_edges(data["keys"], data["w"], NODES, 1)
+    x = data["x"]
+    budget = x.numel() * x.element_size() + rel_nbytes(edge) / OOC_ARXIV_WAVES
+    log(f"  28.1 the arxiv GCN query under phase 9's budget ({budget:.0f} B: Node + Edge/"
+        f"{OOC_ARXIV_WAVES}), {BUDGET_MESH_STEPS} steps with an SGD step of {BUDGET_MESH_LR} on Node, "
+        "mesh-less and on a one-rank NCCL group on cuda:0")
+    one_log, mesh_log = LaunchLog(torch), LaunchLog(torch)
+    with one_log:
+        ref = budget_steps(torch, repro_torch.Database(dev, memory_budget=budget), edge, x,
+                           BUDGET_MESH_STEPS)
+    ref["handle"].db.release()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_budget_mesh_")
+    try:
+        launch_mesh.init_ranks("nccl", 0, 1, os.path.join(tmp, "nccl"), device=torch.device("cuda", 0))
+        try:
+            db = repro_torch.Database(dev, mesh="host", memory_budget=budget)
+            kern.reset_launch_counts()
+            with mesh_log:
+                got = budget_steps(torch, db, edge, x, BUDGET_MESH_STEPS)
+            launches = kern.launch_counts()
+            h = got["handle"]
+            plan = check_streamed(h, "Edge", OOC_ARXIV_WAVES, "28.1")
+            mesh_shape = None if h.last.mesh is None else tuple(h.last.mesh.mesh.shape)
+            backend = dist.get_backend()
+            spill = db.counters()["spill"]
+            db.release()
+        finally:
+            dist.destroy_process_group()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    equal = {"losses": got["losses"] == ref["losses"],
+             "step-1 loss and gradients": all(torch.equal(a.to(dev), b.to(dev))
+                                              for a, b in zip(got["first"], ref["first"])),
+             "the last node table": torch.equal(got["node"], ref["node"])}
+    ms, ref_ms = statistics.median(got["secs"][1:]) * 1e3, statistics.median(ref["secs"][1:]) * 1e3
+    log(f"  backend {backend}, the waves' mesh {mesh_shape}, {plan.num_waves} waves; spill {spill}; "
+        f"launches {launches}")
+    log(f"  28.1 step: {ms:.2f} ms on the mesh, {ref_ms:.2f} ms mesh-less (median of steps 2-"
+        f"{BUDGET_MESH_STEPS}; step 1 {got['secs'][0] * 1e3:.1f} / {ref['secs'][0] * 1e3:.1f} ms) on {smi}")
+    log(f"  losses {got['losses']}; bit-equal to the mesh-less budgeted steps: {equal}")
+    if not all(equal.values()) or mesh_shape != (1,):
+        raise AssertionError(f"the one-rank budgeted mesh step is not the mesh-less one: {equal}, {mesh_shape}")
+    if any(launches[op] <= 0 for op in ("segment_sum", "gather_join")):
+        raise AssertionError(f"a kernel of the one-rank budgeted step never launched: {launches}")
+    unchecked = (set(one_log.counts) | set(mesh_log.counts)) - checked
+    if unchecked:
+        raise AssertionError(f"28.1's kernel calls at shapes phase 2 did not check: {sorted(unchecked)}")
+
+
+def endpoint_mesh_reference(torch, repro_torch, dev):
+    """28.4's mesh-less run: olmoe-1b-7b at LM_MESH_LAYERS layers from seed
+    0 (whose shards the ranks draw), the same endpoint and traffic, with
+    the routing of every MoE call. Host tensors, and the model's kernel
+    calls."""
+    from repro_torch.models import build_model, ffn
+
+    cfg = lm_mesh_config(LM_MESH_LAYERS)
+    model = build_model(cfg, device=dev, seed=0)
+    prompts = lm_mesh_tokens(torch, dev, (len(ENDPOINT_MESH_BURST) + len(ENDPOINT_MESH_PAIR),
+                                          ENDPOINT_MESH_PROMPT), 28, cfg.vocab).cpu()
+    db = repro_torch.Database(dev)
+    db.register_model("olmoe", model, dict(model.named_parameters()))
+    routed = []
+    log_ = LaunchLog(torch)
+    with Routing(torch, ffn) as routing:
+        routing.run()
+        with log_:
+            run = endpoint_mesh_run(torch, db, [p.numpy() for p in prompts],
+                                    mark=lambda: routed.append(len(routing.own)))
+        chosen = [c.cpu() for c, _ in routing.own]
+    del model, db
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"prompts": prompts, "routing": chosen, "burst_calls": (routed[0], routed[1]),
+            "calls": [(k, lg.cpu()) for k, lg in run["calls"]], "marks": run["marks"],
+            "completions": run["completions"], "secs": run["secs"], "counters": run["counters"],
+            "shapes": set(log_.counts)}
+
+
+def budget_mesh_phase(torch, repro_torch, kern, data, dev, smi, wave_rows):
+    """Phase 28 (module docstring), a generator for ``mesh_phases``: 28.1
+    and 28.4's mesh-less run in this process, then 28.2-28.4 on the
+    MESH_SET_RANKS gloo processes that share the card
+    (``budget_mesh_rank``). Returns the kernel calls of a 28.2 step and of
+    28.4's traffic on one rank, and the launches, for phase 8."""
+    log(f"  card: {smi}")
+    t0 = time.perf_counter()
+    checked = budget_mesh_checked_shapes(wave_rows)
+    budget_mesh_one_rank(torch, repro_torch, kern, data, dev, smi, checked)
+    log(f"  28.1: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ref = endpoint_mesh_reference(torch, repro_torch, dev)
+    log(f"  28.4's mesh-less run (olmoe-1b-7b at {LM_MESH_LAYERS} layers, this process): burst "
+        f"{ref['secs'][0] * 1e3:.1f} ms, pair {ref['secs'][1] * 1e3:.1f} ms; counters {ref['counters']}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if ref["shapes"] - checked:
+        raise AssertionError(f"28.4's kernel calls at shapes phase 2 did not check: "
+                             f"{sorted(ref['shapes'] - checked)}")
+    inputs = {"data": {k: v.cpu() for k, v in data.items()}, "prompts": ref["prompts"],
+              "routing": ref["routing"], "burst_calls": ref["burst_calls"]}
+    ranks, _ = yield "budget_mesh_rank", inputs, None
+    r0 = ranks[0]
+
+    log(f"  28.2 the arxiv GCN query in chunk waves on the {MESH_RANKS} × 1 mesh, {MESH_RANKS} gloo "
+        "ranks sharing cuda:0")
+    w0 = r0["waves"]
+    log(f"  budget {w0['budget']:.0f} B (node bytes + edge bytes / {OOC_ARXIV_WAVES}): {w0['plan']}")
+    log(f"  the waves' mesh {w0['mesh']}, plans {w0['plans']}, resolutions {w0['resolutions']}; a rank's "
+        f"rows of a wave {w0['edge_rows']} (the padded widest wave's share: {wave_rows[1]}); pad_nnz "
+        f"{w0['pad_nnz']}; reshard {w0['reshard']}")
+    for r in ranks:
+        w = r["waves"]
+        log(f"  rank {r['rank']}: step {w['secs'][-1] * 1e3:.2f} ms (step 1 {w['secs'][0] * 1e3:.1f} ms, "
+            f"lowering included); {w['fetched'][-1]} bytes fetched a step; peak {w['peak']} bytes; "
+            f"launches {w['launches']}")
+    for name, rec in sorted(w0["collectives"].items()):
+        log(f"  collective {name}: {rec['calls']} calls and {rec['bytes']} bytes a step per rank")
+    if w0["waves"] < OOC_ARXIV_WAVES or w0["mesh"] != (MESH_RANKS, 1) or w0["resolutions"] != ["cuda"]:
+        raise AssertionError(f"28.2 did not stream in {OOC_ARXIV_WAVES} waves on the cuda tier on the "
+                             f"{MESH_RANKS} × 1 mesh: {w0['waves']}, {w0['mesh']}, {w0['resolutions']}")
+    if w0["edge_rows"] != wave_rows[1] or w0["pad_nnz"] != {}:
+        raise AssertionError(f"28.2's waves are not cut in equal shares of the padded widest wave: "
+                             f"{w0['edge_rows']} rows, pad_nnz {w0['pad_nnz']}")
+    if not {"reduce_scatter/data", "all_reduce/data"} & set(w0["collectives"]):
+        raise AssertionError("28.2's data-axis reduction never ran")
+    if w0["reshard"]["calls"] != w0["waves"] * BUDGET_MESH_RUN or w0["reshard"]["bytes_moved"]:
+        raise AssertionError(f"28.2's reshard counters: {w0['reshard']}")
+    report(f"28.2 step 1 against 23.2's in-core 4-rank step (23.2's limits plus the waves' partial sums, "
+           f"(waves − 1)·u·Σ|terms|)", w0["excess"])
+    if max(w0["excess"].values()) > 1.0:
+        raise AssertionError("28.2's streamed mesh step differs from the in-core mesh step")
+    report("planted fault (rank 1's merge leaves the last wave out)", ranks[1]["waves"]["planted"])
+    if max(ranks[1]["waves"]["planted"].values()) <= 1.0:
+        raise AssertionError("28.2's limits pass a merge that leaves a wave out")
+    if max(w0["planted"].values()) > 1.0:
+        raise AssertionError("rank 0's step, with no fault planted, fails 28.2's limits")
+    for r in ranks[1:]:
+        if r["waves"]["digests"] != w0["digests"] or r["waves"]["losses"] != w0["losses"]:
+            raise AssertionError(f"rank {r['rank']}'s streamed step differs from rank 0's")
+    if w0["again"] != w0["digests"][:3]:
+        raise AssertionError("a second streamed run on the mesh differs from the first")
+    log(f"  every rank bit-equal to rank 0; a second run bit-equal to the first: True; losses {w0['losses']}")
+    unchecked = {k for r in ranks for k in r["waves"]["pass"][0]} - checked
+    if unchecked:
+        raise AssertionError(f"28.2's kernel calls at shapes phase 2 did not check: {sorted(unchecked)}")
+    for r in ranks:
+        if any(r["waves"]["launches"][op] <= 0 for op in ("segment_sum", "gather_join")):
+            raise AssertionError(f"rank {r['rank']}: a kernel of 28.2's streamed step never launched: "
+                                 f"{r['waves']['launches']}")
+    launches = {"gcn_waves_mesh": {op: sum(r["waves"]["launches"][op] for r in ranks)
+                                   for op in w0["launches"]}}
+
+    log("  28.3 the logistic regression on the 2 × 2 mesh under a budget it fits")
+    f0 = r0["fit"]
+    log(f"  committed layouts {f0['layouts']} ({f0['committed']}); the next step: ReshardWarnings "
+        f"{f0['warnings']}, reshard {f0['reshard']}, its loss bit-equal to the first: {f0['equal']}")
+    if f0["streamed"] or f0["warnings"] or f0["reshard"]["bytes_moved"] or not f0["equal"]:
+        raise AssertionError("28.3: the committed layouts moved bytes or changed the step")
+    p0 = f0["planted"]
+    log(f"  planted (Rx committed as {p0['wrong']} where the plan wants {p0['planned']}): ReshardWarning(s) "
+        f"over 2 calls {p0['warnings']}, bytes moved {p0['moved']} ({p0['rx_bytes']} a call); losses "
+        f"equal the planned layout's: {p0['equal']}")
+    if p0["warnings"] != [p0["rx_bytes"]] or p0["moved"] != 2 * p0["rx_bytes"] or not p0["equal"]:
+        raise AssertionError("28.3: the wrong committed layout is not reported once")
+
+    log(f"  28.4 olmoe-1b-7b at {LM_MESH_LAYERS} layers through db.endpoint on the 1 × {LM_MESH_RANKS} "
+        "mesh: rank 0 serves, ranks 1-3 follow")
+    e0 = r0["endpoint"]
+    log(f"  rank 0: burst {e0['secs'][0] * 1e3:.1f} ms, pair {e0['secs'][1] * 1e3:.1f} ms (mesh-less "
+        f"{ref['secs'][0] * 1e3:.1f}, {ref['secs'][1] * 1e3:.1f}); counters {e0['counters']}; launches "
+        f"{e0['launches']}")
+    for r in ranks[1:]:
+        e = r["endpoint"]
+        log(f"  rank {r['rank']}: followed {e['followed']}; counters {e['counters']}; launches "
+            f"{e['launches']}; withheld header: {e['withheld'][0][:80]!r} after {e['withheld'][1]:.2f} s")
+        if e["counters"] != e0["counters"] or e["digests"] != e0["digests"]:
+            raise AssertionError(f"rank {r['rank']}'s endpoint steps differ from rank 0's")
+        if e["followed"]["failed"] or e["followed"]["decode"] != e0["counters"]["decode"]["steps"]:
+            raise AssertionError(f"rank {r['rank']}'s follow() did not run rank 0's steps: {e['followed']}")
+        if not (ENDPOINT_MESH_WAIT_S <= e["withheld"][1] < ENDPOINT_MESH_WAIT_S + ENDPOINT_MESH_WAIT_SLACK_S
+                and "waited" in e["withheld"][0]):
+            raise AssertionError(f"rank {r['rank']} did not raise within its wait for a withheld header")
+    if e0["counters"] != ref["counters"]:
+        raise AssertionError(f"the mesh endpoint's counters {e0['counters']} differ from the mesh-less "
+                             f"endpoint's {ref['counters']}")
+    checks = {"one batch each": e0["counters"]["batches"] == 2,
+              "rebuckets": e0["counters"]["decode"]["rebuckets"] >= 2}
+    if not all(checks.values()):
+        raise AssertionError(f"28.4's traffic: {checks}")
+    want = endpoint_mesh_requests(ref["calls"], ref["marks"])
+    got = endpoint_mesh_requests(e0["calls"], e0["marks"])
+    ties, bad, worst = endpoint_mesh_hold(got, want, e0["completions"])
+    log(f"  rank 0's tokens against the mesh-less endpoint's: near ties {ties}, failures {bad}; each step's "
+        f"logits max|Δ| / max|logit| = {worst:.3e} (limit {LM_MESH_LOGIT_LIMIT:g}); every rank's logits "
+        "bit-equal to rank 0's")
+    if bad or worst > LM_MESH_LOGIT_LIMIT:
+        raise AssertionError(f"28.4: the mesh endpoint differs from the mesh-less one: {bad}, {worst:.3e}")
+    burst = ref["marks"][:2]
+    want_burst = endpoint_mesh_requests(ref["calls"][:burst[1]], burst)
+    planted = endpoint_mesh_requests(e0["planted"], [0, len(e0["planted"])])
+    _, _, fault = endpoint_mesh_hold(planted, want_burst, [[int(lg.argmax()) for lg in r] for r in planted])
+    same = all(r["endpoint"]["planted_digests"] == e0["planted_digests"] for r in ranks[1:])
+    log(f"  planted (rank 3 keeps its cache rows at a compaction): logits max|Δ| / max|logit| = "
+        f"{fault:.3e}, must exceed {LM_MESH_LOGIT_LIMIT:g}; the ranks still bit-equal: {same} (each "
+        "logit is a collective's sum, so the fault reaches every rank alike)")
+    if fault <= LM_MESH_LOGIT_LIMIT:
+        raise AssertionError("28.4's limit passes a follower that skips a compaction")
+    unchecked = {k for k in e0["pass"][0]} - checked
+    if unchecked:
+        raise AssertionError(f"28.4's kernel calls at shapes phase 2 did not check: {sorted(unchecked)}")
+    for r in ranks:
+        if any(r["endpoint"]["launches"][op] <= 0 for op in GCN_KERNELS):
+            raise AssertionError(f"rank {r['rank']}: a kernel of 28.4's endpoint steps never launched: "
+                                 f"{r['endpoint']['launches']}")
+    launches["lm_mesh_endpoint"] = {op: sum(r["endpoint"]["launches"][op] for r in ranks)
+                                    for op in e0["launches"]}
+    for path, got_launches in launches.items():
+        log(f"  launches on {path} (the {len(ranks)} ranks' summed): {got_launches}")
+    return {"waves": w0["pass"], "endpoint": e0["pass"], "launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -9501,13 +10305,14 @@ def main() -> int:
             log("  " + line.strip())
 
     data, params0, graph = gcn_data(torch, np, repro_torch, dev)
+    wave_rows = mesh_wave_rows(torch, data["keys"], dev)
     lm_cfg = dataclasses.replace(get_config(LM_ARCH), ssm_pallas=True, dtype="float32")
     olmoe_cfg = olmoe_config()
     checked = olmoe_checked_shapes(olmoe_cfg)
 
     log("phase 2: each kernel against its plain version on the card")
     t0 = time.perf_counter()
-    errs = check_kernels(torch, kern, graph, lm_cfg, olmoe_cfg, dev)
+    errs = check_kernels(torch, kern, graph, lm_cfg, olmoe_cfg, dev, wave_rows)
     errs["ssm_scan"] = check_ssm_scan(torch, dev)
     log(f"  phase 2: {time.perf_counter() - t0:.1f} s")
 
@@ -9687,11 +10492,11 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
-    # phases 23-27 run after phase 22, before phase 8, which times their
+    # phases 23-28 run after phase 22, before phase 8, which times their
     # sites too: each phase's work in this process, then one set of ranks
     # for all of them, then each phase's checks (``mesh_phases``)
     t0 = time.perf_counter()
-    mesh, lm_mesh, ssm_mesh, mla_mesh, zoo_mesh = mesh_phases(torch, [
+    mesh, lm_mesh, ssm_mesh, mla_mesh, zoo_mesh, budget_mesh = mesh_phases(torch, [
         ("phase 23: the relational engine on a mesh",
          mesh_phase(torch, repro_torch, kern, data, params0, dev, smi)),
         ("phase 24: olmoe-1b-7b on a mesh", lm_mesh_phase(torch, repro_torch, kern, dev, smi)),
@@ -9701,18 +10506,20 @@ def main() -> int:
          mla_mesh_phase(torch, repro_torch, kern, dev, smi, mla_mesh_ref)),
         ("phase 27: whisper (enc/dec), qwen2-vl (the vision prefix) and a pod axis on a mesh; the dry run",
          zoo_mesh_phase(torch, repro_torch, kern, dev, smi)),
+        ("phase 28: a memory budget and an endpoint on a mesh",
+         budget_mesh_phase(torch, repro_torch, kern, data, dev, smi, wave_rows)),
     ])
     del mla_mesh_ref
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"  phases 23-27: {time.perf_counter() - t0:.1f} s")
+    log(f"  phases 23-28: {time.perf_counter() - t0:.1f} s")
 
     log("phase 8: timings at the shapes of the main paths")
     log(smi)
     t0 = time.perf_counter()
     records = timing_phase(torch, graph, {"sites": sites, "launches": launches}, logreg, nnmf, kge,
-                           lm, oocore, olmoe, ssm, dense, mesh, lm_mesh, ssm_mesh, mla_mesh, zoo_mesh, errs,
-                           dev)
+                           lm, oocore, olmoe, ssm, dense, mesh, lm_mesh, ssm_mesh, mla_mesh, zoo_mesh,
+                           budget_mesh, errs, dev)
     log(f"  phase 8: {time.perf_counter() - t0:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)

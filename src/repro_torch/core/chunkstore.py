@@ -171,6 +171,20 @@ class ChunkStore:
         """The raw host chunk (no transfer, no counter)."""
         return self._chunks[name][w]
 
+    def clear(self) -> None:
+        """Drop every relation's chunks; on a CUDA store also hand the
+        pinned blocks they were staged in back to the system (PyTorch's
+        pinned allocator caches a freed block for reuse, so ranks that
+        share a host would otherwise keep each other's memory)."""
+        for name in list(self._chunks):
+            self.drop(name)
+        if self.device.type == "cuda":
+            # the pinned allocator's emptyCache binding (absent from some
+            # builds: the blocks then stay cached for this process)
+            empty = getattr(torch._C, "_host_emptyCache", None)
+            if empty is not None:
+                empty()
+
     def drop(self, name: str) -> None:
         chunks = self._chunks.pop(name, None)
         self._manifests.pop(name, None)

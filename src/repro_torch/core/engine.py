@@ -746,11 +746,23 @@ class StreamedCompiled:
     wholly on the session's device; COO waves are padded to the largest
     chunk, so they share one signature and one lowering.
 
-    Exposes what the session reads off a ``Compiled`` (``resolutions``,
-    ``lowered``, ``plans``, ``placements``, ``counters``) by delegating to the per-wave inner
-    ``Compiled`` (identical across waves of equal signature)."""
+    On a mesh each wave runs as a mesh ``Compiled`` (``compile_wave``
+    compiles it on the step's mesh): every rank fetches the whole wave from
+    its own store, and the step cuts the rank's rows, as it cuts any whole
+    relation. ``row_multiple`` is then the number of ranks: a COO wave is
+    padded to the largest chunk rounded up to it, so the mesh step pads
+    nothing more and the pad rows are dropped once, by the merge. A mesh
+    step's outputs are whole and equal on every rank, so every rank merges
+    the same leaves.
 
-    def __init__(self, plan, store, compile_wave, lower_full):
+    Exposes what the session reads off a ``Compiled`` (``mesh``,
+    ``resolutions``, ``lowered``, ``plans``, ``placements``,
+    ``planned_spec``) by delegating to the per-wave inner ``Compiled``
+    (identical across waves of equal signature, so its ``counters`` add
+    each wave's reshards). ``planned_spec`` is None for a streamed
+    relation: it lies on the host, and no layout is committed for it."""
+
+    def __init__(self, plan, store, compile_wave, lower_full, *, row_multiple: int = 1):
         self.plan = plan
         self.store = store
         #: wave env → Compiled (the session's normal staged path; the
@@ -759,6 +771,8 @@ class StreamedCompiled:
         #: full env → Lowered (shapes only — never executed): its
         #: out_shape is the merge oracle for ADD-vs-CONCAT leaves.
         self._lower_full = lower_full
+        #: a COO wave's rows are padded to a multiple of this (the ranks)
+        self.row_multiple = max(1, int(row_multiple))
         self._inner: Optional[Compiled] = None
 
     # -- Compiled surface ---------------------------------------------------
@@ -815,15 +829,17 @@ class StreamedCompiled:
 
         bnd = self.plan.boundaries
         max_rows = max(bnd[w + 1] - bnd[w] for w in range(self.plan.num_waves))
+        max_rows = -(-max_rows // self.row_multiple) * self.row_multiple
         fetched = self._fetch_wave(0)
         for w in range(self.plan.num_waves):
             wave = dict(resident)
             for name, f in fetched.items():
                 rel = f.wait()
                 if isinstance(rel, CooRelation):
-                    # pad every COO wave to the largest chunk so all waves
-                    # share one env signature (one lowering); pad rows
-                    # carry COO_PAD_KEY and are sliced off on merge
+                    # pad every COO wave to the largest chunk (rounded up
+                    # to the ranks) so all waves share one env signature
+                    # (one lowering); pad rows carry COO_PAD_KEY and are
+                    # sliced off on merge
                     rel = pad_coo_nnz(rel, max_rows)
                 wave[name] = rel
             # the next wave's copy runs while this wave computes

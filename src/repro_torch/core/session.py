@@ -30,7 +30,6 @@ a ``launch/mesh.resolve_mesh`` spec string such as ``"host:2"``, resolved
 on the session's device type): each rank runs the same step on its shards
 (``engine.Compiled``); ``handle.plans``/``placements`` show the physical
 plans, ``db.counters()["reshard"]`` the layout moves of committed inputs.
-A memory budget on a mesh is not supported yet (ROADMAP.md, queue 1).
 
 ``Database(memory_budget=...)`` bounds the bytes of relations a step may
 hold on the device: a step whose environment exceeds it streams its largest
@@ -38,7 +37,12 @@ streamable base relation through the device in chunk waves (``planner.plan_waves
 ``engine.StreamedCompiled``), from the session's host-resident
 ``ChunkStore``. A relation larger than the budget is kept on the host by
 ``put``, and one that a step streams moves there (``Database._place``).
-``db.counters()["spill"]`` reads the store's counters.
+``db.counters()["spill"]`` reads the store's counters. On a mesh every
+rank's session keeps a store of its own that holds the whole stream (the
+budget is the session's, not divided by the ranks); each wave is compiled
+on the step's mesh, and the mesh step cuts the rank's rows of the wave as
+it cuts any whole relation. ``db.release()`` drops the store's chunks and
+hands their pinned host blocks back.
 
 The catalog also holds the **model registry** the serving front door
 resolves requests through (``db.register_model``, ``db.model``,
@@ -344,12 +348,6 @@ class Database:
         fuse_join_agg: bool = True,
         max_cache_entries: Optional[int] = None,
     ) -> None:
-        if mesh is not None and memory_budget is not None:
-            raise NotImplementedError(
-                "Database(mesh=..., memory_budget=...): out-of-core chunk "
-                "waves on a mesh are not supported yet (ROADMAP.md, queue "
-                "1: a memory budget on a mesh)"
-            )
         self.device = resolve_device(device)
         self.catalog = Catalog()
         self._mesh_spec = mesh
@@ -447,6 +445,14 @@ class Database:
     def drop(self, name: str) -> None:
         self._chunkstore.drop(name)
         self.catalog.drop(name)
+
+    def release(self) -> None:
+        """Drop every spilled chunk of the session's ChunkStore and hand
+        the pinned host blocks they were staged in back to the system
+        (``ChunkStore.clear``); a later streamed step spills again. Ranks
+        that share one host each keep a store, so a set of ranks that
+        outlives its budgeted steps calls this once they are done."""
+        self._chunkstore.clear()
 
     # -- model registry + the serving front door ---------------------------
 
@@ -571,10 +577,6 @@ class Database:
         """Re-point the session at another mesh (a spec string, a mesh or
         None). Compiled plans are cached per mesh, so switching back
         re-plans nothing."""
-        if mesh is not None and self.memory_budget is not None:
-            raise NotImplementedError(
-                "a memory budget on a mesh is not supported yet (ROADMAP.md, queue 1)"
-            )
         self._mesh_spec = mesh
         self._mesh = None if isinstance(mesh, str) else mesh
         return self
@@ -739,6 +741,7 @@ class Database:
         mesh=None,
     ):
         eng = _engine.engine_for(program, fuse_join_agg=self.fuse_join_agg)
+        step_mesh = self._step_mesh() if mesh is None else mesh
         if self.memory_budget is not None:
             wave_plan = planner.plan_waves(eng.forward_query, env, self.memory_budget)
             self._place(env, () if wave_plan is None else wave_plan.streamed_names)
@@ -750,13 +753,23 @@ class Database:
                     )
 
                 def compile_wave(wave_env, wave_seed):
-                    return eng.lower(
+                    # every wave on the step's mesh, as the reference
+                    # compiles it (the planner sees the wave's shapes)
+                    wstats = self._catalog_stats_for(wave_env)
+                    wave = eng.lower(
                         wave_env,
                         wave_seed,
                         dispatch=self.dispatch,
-                        stats=self._catalog_stats_for(wave_env),
+                        stats=wstats,
                         rewrite=self.rewrite_rules,
-                    ).compile()
+                    ).compile_auto(
+                        wave_env,
+                        mesh=step_mesh,
+                        stats=wstats,
+                        mem_budget=self.mem_budget,
+                    )
+                    self._record_layouts(wave, skip=wave_plan.streamed_names)
+                    return wave
 
                 def lower_full(full_env, full_seed):
                     # the streamed relations lie on the host beside the
@@ -770,8 +783,12 @@ class Database:
                         rewrite=self.rewrite_rules,
                     )
 
+                # a COO wave's rows split evenly over every rank of the
+                # mesh, so that the mesh step pads nothing more
+                ranks = 1 if step_mesh is None else int(step_mesh.mesh.numel())
                 return _engine.StreamedCompiled(
-                    wave_plan, self._chunkstore, compile_wave, lower_full
+                    wave_plan, self._chunkstore, compile_wave, lower_full,
+                    row_multiple=ranks,
                 )
         low = eng.lower(
             env,
@@ -782,16 +799,22 @@ class Database:
         )
         compiled = low.compile_auto(
             env,
-            mesh=self._step_mesh() if mesh is None else mesh,
+            mesh=step_mesh,
             donate=donate,
             stats=stats,
             mem_budget=self.mem_budget,
         )
+        self._record_layouts(compiled)
+        return compiled
+
+    def _record_layouts(self, compiled, skip: Tuple[str, ...] = ()) -> None:
+        """Keep ``compiled`` for the reshard counters and record the
+        layouts its plan commits the catalog relations to (a streamed
+        relation, ``skip``, has none: it lies on the host)."""
         self._compiled_refs.add(compiled)
         for name, spec in (compiled.in_shardings or {}).items():
-            if name in self.catalog and spec is not None:
+            if name in self.catalog and name not in skip and spec is not None:
                 self._layouts[name] = spec
-        return compiled
 
     def _place(self, env: Dict[str, AnyRel], streamed: Tuple[str, ...]) -> None:
         """Moves the catalog relations of a budgeted CUDA session's step

@@ -20,6 +20,11 @@ all-reduce's or a reduce-scatter's whole input). ``ShapeComm`` keeps a
 record of its own, with the same keys, of what a walk over ``meta``
 tensors would move.
 
+``broadcast_object`` and ``broadcast`` send rank 0's Python object or
+tensor to every rank of the mesh (its whole group), as a serving endpoint
+over several ranks sends each step's header; their calls are recorded
+under op "broadcast", group "mesh".
+
 The ``MeshComm`` calls are forward-only. The functions at the end of the
 module are the collectives autograd runs through, each backward the
 transposed collective, as a language model on a mesh uses them
@@ -39,6 +44,7 @@ from __future__ import annotations
 
 import itertools
 import math
+import pickle
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -101,6 +107,14 @@ class MeshComm:
             raise ValueError(f"rank {me} is not on the mesh {mesh}")
         pos = pos[0]
         axes = axis_groups(names, geometry)
+        #: the global rank at each mesh position, in mesh order, and this
+        #: rank's index among them
+        self.ranks: Tuple[int, ...] = tuple(int(r) for r in ranks.flatten())
+        self.position = self.ranks.index(me)
+        #: the group of every rank of the mesh (None: the default group,
+        #: which the mesh spans whole)
+        self.whole = (None if len(self.ranks) == dist.get_world_size()
+                      else dist.new_group(sorted(self.ranks)))
         self.size: Dict[str, int] = {}
         self.index: Dict[str, int] = {}
         self.groups: Dict[str, Optional[dist.ProcessGroup]] = {}
@@ -163,6 +177,29 @@ class MeshComm:
         out = src.new_empty((src.shape[0] // self.size[kind],) + tuple(src.shape[1:]))
         _REDUCE_SCATTER(out, src, group=self.groups[kind])
         return out.movedim(0, dim)
+
+
+def broadcast_object(obj, comm: MeshComm, src: int = 0, *, group=None):
+    """Mesh rank ``src``'s ``obj`` (picklable) on every rank of the mesh:
+    ``obj`` is read on ``src`` only, and each rank returns the object sent.
+    ``group`` is a group of the same ranks to send it over (a serving
+    endpoint's, whose timeout bounds a rank's wait), else the mesh's
+    whole group. Not differentiable."""
+    box = [obj if comm.position == src else None]
+    dist.broadcast_object_list(box, src=comm.ranks[src], group=comm.whole if group is None else group)
+    rec = _RECORD.setdefault("broadcast/mesh", {"calls": 0, "bytes": 0})
+    rec["calls"] += 1
+    rec["bytes"] += len(pickle.dumps(box[0]))
+    return box[0]
+
+
+def broadcast(t: torch.Tensor, comm: MeshComm, src: int = 0) -> torch.Tensor:
+    """Mesh rank ``src``'s ``t`` on every rank of the mesh: the other
+    ranks pass a contiguous tensor of its shape and dtype, which is filled
+    in place and returned. Not differentiable."""
+    _note("broadcast", "mesh", t)
+    dist.broadcast(t, src=comm.ranks[src], group=comm.whole)
+    return t
 
 
 _COMMS: Dict[Tuple[int, object], MeshComm] = {}

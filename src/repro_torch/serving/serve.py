@@ -34,17 +34,19 @@ reference stacks a stage's repeats on axis 0 of each ``scan`` leaf (so its
 batch axis is 1 there), the port keeps one entry per repeat
 (``caches[si]["scan"][r]``). ``map_cache`` walks that layout.
 
-On a mesh (``mesh=``, or the ``db``'s), the steps run the ``attn``,
-``local``, ``global``, ``moe``, ``mla``, ``mla_moe``, ``mamba1``,
-``mamba2`` and ``mamba2_attn`` kinds tensor- and expert-parallel on the
-rank's shards of the parameters (``launch/sharding.py``; ``enc``/``dec``
-and the vision prefix raise ``NotImplementedError``, ROADMAP.md): every
+On a mesh (``mesh=``, or the ``db``'s), the steps run every block kind
+tensor- and expert-parallel on the rank's shards of the parameters
+(``launch/sharding.py``), whisper's encoder whole on every rank and
+qwen2-vl's vision prefix with its rows: every
 rank is given the whole batch and returns the whole logits, and keeps its
 own caches (its rows of the batch, the KV heads its attention computes,
 its SSM channels' state: ``init_cache(..., place=)``; an MLA layer's
 latent cache is whole, as every head reads it). The steps cut the shards
 through ``_PlacedParamsCache``, once per live parameter dict, as the
-reference's decode step places its parameters once per version.
+reference's decode step places its parameters once per version. An
+endpoint serves on several ranks through ``Endpoint.follow()``
+(serving/service.py): rank 0 admits the requests and broadcasts each
+step's header, and the other ranks run the same steps.
 """
 
 from __future__ import annotations

@@ -58,11 +58,37 @@ padded to the decode bucket and compacted with the slots, and handed to
 every decode step (``enc_out``); for qwen2-vl, decode starts at ``length =
 seq + vis_seq``, the prompt's tokens and the patches before them, as the
 reference's endpoint counts them.
+
+On a mesh of several ranks (the session's ``db.mesh``) every rank builds
+the same endpoint, each on its own session, and the steps run tensor- and
+expert-parallel on each rank's shards. Rank 0 alone is the front door: it
+admits the requests and makes every decision (batches, buckets, deadlines,
+tenants and hot-swaps, EOS, compaction). Before each model step it
+broadcasts a small header (the op — prefill, decode, compact or end —, the
+entry key, the bucket; a prefill's batch, a compaction's rows, a decode
+step's fed tokens), and the other ranks run ``Endpoint.follow()``: each
+waits for the next header, runs the same step on its own session and
+caches, and returns on the "end" that ``aclose()`` sends. Rank 0's tokens
+are fed on every rank, so the ranks cannot fall out of step where an argmax
+is a tie. A follower waits ``follow_timeout`` seconds at most for a header,
+then raises ``FollowTimeout``; while rank 0's scheduler waits for requests
+it sends an "idle" header every ``follow_timeout / 2`` seconds, so the wait
+detects a leader that stopped, not a quiet one (before rank 0's first
+request, and between its event loops, no scheduler runs: the wait bounds
+those too). One method, ``_step``, runs each header's model step on every
+rank; rank 0 announces the header and calls it, a follower receives the
+header and calls it. PyTorch runs a process per rank where the
+reference's JAX runs one process for every device; ``follow()`` is the one
+addition that makes. A follower resolves each header's model by its
+``(name, version)`` in its own registry, so every rank registers the
+versions the endpoint serves.
 """
 
 from __future__ import annotations
 
 import asyncio
+import traceback
+import warnings
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -90,6 +116,11 @@ class EndpointClosed(ServingError):
     """The endpoint was closed; in-queue requests fail with this."""
 
 
+class FollowTimeout(ServingError):
+    """A follower (``Endpoint.follow``) waited its ``follow_timeout`` for
+    rank 0's next header and none came."""
+
+
 @dataclass
 class Completion:
     """One served request's result."""
@@ -115,6 +146,19 @@ class _Request:
     t_submit: float
     future: "asyncio.Future"
     generated: List[int] = field(default_factory=list)
+
+
+@dataclass
+class _Group:
+    """A decode group's model state on one rank: the entry it runs, its
+    decode bucket, the position it decodes next, and its caches and (enc/dec)
+    encoder output, both ``bucket`` rows."""
+
+    entry: Any
+    bucket: int
+    length: int
+    caches: Any
+    enc_out: Optional[torch.Tensor]
 
 
 # -- cache-tree batch-dim surgery (decode slot pool) ------------------------
@@ -205,10 +249,18 @@ class Endpoint:
         optional ``tokens (B, S) → batch dict`` hook for models whose
         prefill reads more than ``{"tokens": ...}`` (whisper's ``frames``,
         qwen2-vl's ``patches``).
+    follow_timeout:
+        on a mesh of several ranks, the seconds a follower waits for rank
+        0's next header before it raises ``FollowTimeout`` (module
+        docstring); rank 0's scheduler sends an "idle" header every half
+        of it while no request comes.
 
-    A session with a mesh of one rank serves through the steps on that
-    mesh (``serve.make_prefill_step(mesh=)``); a mesh of more ranks raises
-    ``NotImplementedError`` (ROADMAP.md).
+    A session with a mesh serves through the steps on that mesh
+    (``serve.make_prefill_step(mesh=)``). On a mesh of several ranks every
+    rank builds the endpoint at the same point of its program (that makes
+    its header group); rank 0 serves and the others call ``follow()``.
+    The mesh's data axes must be of size 1: the decode slot pool moves
+    whole-batch cache rows, and a rank holds all of them only there.
     """
 
     def __init__(
@@ -228,14 +280,17 @@ class Endpoint:
         max_new_tokens: int = 16,
         eos_token: Optional[int] = None,
         make_batch: Optional[Callable[[torch.Tensor], Dict[str, Any]]] = None,
+        follow_timeout: float = 600.0,
     ):
+        self.db = db
+        #: on a mesh of several ranks: the mesh's collectives, the group
+        #: the headers go over and this rank's index (0 serves)
+        self._comm = self._headers = None
+        self._position = 0
+        self.follow_timeout = float(follow_timeout)
         mesh = db.mesh
         if mesh is not None and mesh.mesh.numel() > 1:
-            raise NotImplementedError(
-                "an endpoint over a mesh of more than one rank (rank 0 admitting the "
-                "requests and broadcasting each step's batch) is not ported yet "
-                "(ROADMAP.md, queue 1); a session whose mesh has one rank serves")
-        self.db = db
+            self._join(mesh)
         self.cache_len = int(cache_len)
         self._buckets = (
             sorted({(int(b), int(s)) for b, s in buckets}) if buckets else None
@@ -286,6 +341,180 @@ class Endpoint:
         self._task: Optional[asyncio.Task] = None
         self._queue: Optional[asyncio.Queue] = None
         self._closed = False
+
+    # -- several ranks: rank 0 leads, the others follow ---------------------
+
+    def _join(self, mesh) -> None:
+        """Make this endpoint's header group over the mesh's ranks (every
+        rank makes it, at once: ``new_group`` is collective)."""
+        import datetime
+
+        import torch.distributed as dist
+
+        from repro_torch.core.planner import MeshGeometry
+        from repro_torch.launch.collectives import comm_for
+        from repro_torch.launch.mesh import data_parallel_size
+
+        if data_parallel_size(mesh) > 1:
+            raise NotImplementedError(
+                "an endpoint over several ranks needs a mesh whose data axes are of size "
+                "1 (e.g. make_host_mesh(model=n)): its decode slot pool moves whole-batch "
+                "cache rows, which a rank holds whole only there (ROADMAP.md)")
+        self._comm = comm_for(mesh, MeshGeometry.from_mesh(mesh))
+        self._position = self._comm.position
+        self._headers = dist.new_group(
+            sorted(self._comm.ranks), backend="gloo",
+            timeout=datetime.timedelta(seconds=self.follow_timeout))
+
+    @property
+    def leads(self) -> bool:
+        """True on the rank that serves (rank 0 of the mesh, or the one
+        process off a mesh); False on a follower."""
+        return self._position == 0
+
+    def _announce(self, header: Dict[str, Any], batch: Optional[Dict[str, Any]] = None) -> None:
+        """Rank 0: send the next step's ``header`` (and ``batch``, its
+        tensors broadcast over the mesh) to the followers; a no-op off a
+        mesh of several ranks."""
+        if self._headers is None:
+            return
+        from repro_torch.launch import collectives
+
+        tensors = {}
+        if batch is not None:
+            tensors = {k: v for k, v in batch.items() if isinstance(v, torch.Tensor)}
+            header = dict(header,
+                          tensors=[(k, tuple(v.shape), str(v.dtype).split(".")[-1]) for k, v in tensors.items()],
+                          extras={k: v for k, v in batch.items() if k not in tensors})
+        collectives.broadcast_object(header, self._comm, group=self._headers)
+        for v in tensors.values():
+            collectives.broadcast(v.contiguous(), self._comm)
+
+    def _receive(self) -> Tuple[Dict[str, Any], Optional[Dict[str, Any]]]:
+        """A follower: rank 0's next header and its batch (None without)."""
+        from repro_torch.launch import collectives
+
+        try:
+            header = collectives.broadcast_object(None, self._comm, group=self._headers)
+        except RuntimeError as e:
+            raise FollowTimeout(
+                f"rank {self._position} of the endpoint's mesh waited {self.follow_timeout:g} s "
+                f"for rank 0's next step header and none came ({e})") from e
+        if "tensors" not in header:
+            return header, None
+        batch = {}
+        for k, shape, dtype in header["tensors"]:
+            t = torch.empty(shape, dtype=getattr(torch, dtype), device=self.db.device)
+            batch[k] = collectives.broadcast(t, self._comm)
+        batch.update(header["extras"])
+        return header, batch
+
+    def _leave(self) -> None:
+        """Destroy this endpoint's header group (on every rank that ends)."""
+        import torch.distributed as dist
+
+        if self._headers is not None:
+            dist.destroy_process_group(self._headers)
+            self._headers = None
+
+    def follow(self) -> Dict[str, int]:
+        """Run, on a rank other than 0, the steps rank 0 announces: each
+        header's step (``_step``: a prefill, compaction or decode step,
+        warmup's builds) on this rank's session and caches, feeding rank
+        0's tokens. Returns on the "end" header that rank 0's ``aclose()``
+        sends, with the count of each op run (and of "idle" headers, and of
+        steps that raised, as rank 0's scheduler serves on past a failed
+        group); raises ``FollowTimeout`` when no header comes within
+        ``follow_timeout`` seconds."""
+        if self._comm is None or self.leads:
+            raise ValueError("follow() runs on a rank other than 0 of an endpoint over several ranks; "
+                             "rank 0 serves (submit, warmup, aclose)")
+        if self._headers is None:
+            raise EndpointClosed("the endpoint is closed: its followers have left")
+        done: Dict[str, int] = {"prefill": 0, "compact": 0, "decode": 0, "warm_prefill": 0,
+                                "warm_decode": 0, "idle": 0, "failed": 0}
+        group: Optional[_Group] = None
+        try:
+            while True:
+                header, batch = self._receive()
+                op = header["op"]
+                if op == "end":
+                    return done
+                if op != "idle":
+                    try:
+                        _, group = self._step(header, batch, group)
+                    except ServingError:
+                        raise
+                    except Exception:
+                        # rank 0's same step raised too: it fails the
+                        # group's requests and serves on, so this rank
+                        # follows on
+                        done["failed"] += 1
+                        warnings.warn(f"rank {self._position}: a {op!r} step raised; following on:\n"
+                                      f"{traceback.format_exc()}", RuntimeWarning, stacklevel=2)
+                        continue
+                done[op] += 1
+        finally:
+            self._leave()
+
+    def _lead(self, header: Dict[str, Any], batch: Optional[Dict[str, Any]] = None,
+              group: Optional[_Group] = None) -> Tuple[Optional[torch.Tensor], Optional[_Group]]:
+        """Rank 0: announce ``header`` (and ``batch``) to the followers, then
+        run its step here."""
+        self._announce(header, batch)
+        return self._step(header, batch, group)
+
+    def _step(self, header: Dict[str, Any], batch: Optional[Dict[str, Any]],
+              group: Optional[_Group]) -> Tuple[Optional[torch.Tensor], Optional[_Group]]:
+        """Run the model step ``header`` names on this rank's session and
+        caches, as every rank runs it: "prefill" (``batch``; a new group of
+        ``header["bucket"]`` rows), "compact" (the group's rows
+        ``header["idx"]`` into the smaller bucket), "decode" (one step fed
+        ``header["tok"]``), "warm_prefill" and "warm_decode" (warmup's
+        builds). Returns the step's logits (None where it has none) and the
+        group."""
+        c = self._serve
+        op = header["op"]
+        if op == "prefill":
+            entry = self.db.model(*header["entry"])
+            logits, caches = self._prefill_for(entry).prefill(entry.params, batch)
+            c["batches"] += 1
+            c["prefill"]["steps"] += 1
+            enc_out, length = _decode_inputs(entry, self.db, batch, header["seq"])
+            k, bucket = int(batch["tokens"].shape[0]), int(header["bucket"])
+            return logits, _Group(entry, bucket, length, _pad_cache_batch(caches, k, bucket),
+                                  None if enc_out is None else pad_rows(enc_out, bucket))
+        if op == "compact":
+            idx = header["idx"]
+            group.caches = _take_cache_batch(group.caches, idx, group.bucket)
+            if group.enc_out is not None:
+                group.enc_out = group.enc_out[idx]
+            group.bucket = int(header["bucket"])
+            c["decode"]["rebuckets"] += 1
+            return None, group
+        if op == "decode":
+            if (tuple(header["entry"]), header["bucket"], header["length"]) != (
+                    group.entry.key, group.bucket, group.length):
+                raise ServingError(f"rank {self._position} is out of step with rank 0: header "
+                                   f"{header['entry']}, bucket {header['bucket']}, length "
+                                   f"{header['length']}; this rank's group {group.entry.key}, "
+                                   f"{group.bucket}, {group.length}")
+            tok = torch.tensor(header["tok"], dtype=torch.int32, device=self.db.device)[:, None]
+            step = self._decode_exec(group.entry, group.bucket)
+            logits, group.caches = step(tok, group.caches, group.length, group.entry.params,
+                                        group.enc_out)
+            group.length += 1
+            c["decode"]["steps"] += 1
+            return logits, group
+        if op not in ("warm_prefill", "warm_decode"):
+            raise ServingError(f"unknown step header op {op!r}")
+        entry = self.db.model(*header["entry"])
+        pre = self._prefill_for(entry)
+        if op == "warm_prefill":
+            pre.warmup(entry.params, buckets=[tuple(header["bucket"])], batch_fn=lambda b, s: batch)
+        else:
+            self._warm_decode(entry, pre, batch, header["seq"])
+        return None, group
 
     # -- model resolution (through the catalog) ----------------------------
 
@@ -368,6 +597,9 @@ class Endpoint:
         ``Overloaded``."""
         if self._closed:
             raise EndpointClosed("endpoint is closed")
+        if not self.leads:
+            raise ValueError("rank 0 admits the requests of an endpoint over several ranks; "
+                             "this rank runs follow()")
         c = self._serve
         c["requests"] += 1
         arr = np.asarray(tokens.cpu() if isinstance(tokens, torch.Tensor) else tokens)
@@ -430,9 +662,22 @@ class Endpoint:
                 self._run(), name="repro-torch-endpoint-scheduler"
             )
 
+    async def _next_request(self) -> _Request:
+        """The queue's next request. On a mesh of several ranks rank 0
+        sends the followers an "idle" header every ``follow_timeout / 2``
+        seconds that it waits, so that their wait detects a stopped leader,
+        not a quiet one."""
+        if self._headers is None:
+            return await self._queue.get()
+        while True:
+            try:
+                return await asyncio.wait_for(self._queue.get(), self.follow_timeout / 2)
+            except asyncio.TimeoutError:
+                self._announce({"op": "idle"})
+
     async def _run(self) -> None:
         while True:
-            batch = [await self._queue.get()]
+            batch = [await self._next_request()]
             if self._gather_window > 0:
                 # let concurrent submitters land in the queue, so that
                 # the batch coalesces them
@@ -476,43 +721,37 @@ class Endpoint:
                 continue
             for chunk in chunks:
                 try:
-                    await self._serve_group(entry, pre, chunk, seq)
+                    await self._serve_group(entry, chunk, seq)
                 except Exception as e:  # keep serving the other groups
                     for r in chunk:
                         if not r.future.done():
                             c["failed"] += 1
                             r.future.set_exception(e)
 
-    async def _serve_group(
-        self, entry, pre: BucketedPrefill, reqs: List[_Request], seq: int
-    ) -> None:
+    async def _serve_group(self, entry, reqs: List[_Request], seq: int) -> None:
         """Prefill one coalesced batch, then decode it as a slot pool:
         bucket-shaped caches, per-request completion the step a request
-        finishes, compaction to a smaller bucket when slots free up."""
+        finishes, compaction to a smaller bucket when slots free up. Each
+        model step goes through ``_lead`` (announced to the followers on a
+        mesh of several ranks); this keeps the admission, the tokens and
+        the slots."""
         c = self._serve
-        params = entry.params
         k = len(reqs)
         tokens = torch.as_tensor(
             np.stack([r.tokens for r in reqs]), device=self.db.device
         )
         batch = self._make_batch(tokens) if self._make_batch is not None else {"tokens": tokens}
-        logits, caches = pre.prefill(params, batch)
-        c["batches"] += 1
-        c["prefill"]["steps"] += 1
+        bucket = self._decode_bucket(k)
+        logits, group = self._lead({"op": "prefill", "entry": entry.key, "seq": seq, "bucket": bucket},
+                                   batch)
         if k > 1:
             c["batched_requests"] += k
         # the repo's models emit last-position-only prefill logits
         # (B, 1, V); [:, -1:] also tolerates per-token stand-ins
-        first = logits[:, -1:].argmax(-1).to(torch.int32)
-        for r, t in zip(reqs, first[:, 0].tolist()):
+        fed = logits[:, -1].argmax(-1).tolist()  # the tokens each step is fed
+        for r, t in zip(reqs, fed):
             r.generated.append(t)
-
-        enc_out, length = _decode_inputs(entry, self.db, batch, seq)
-        bucket = self._decode_bucket(k)
-        tok = pad_rows(first, bucket)
-        caches = _pad_cache_batch(caches, k, bucket)
-        if enc_out is not None:
-            enc_out = pad_rows(enc_out, bucket)
+        fed += [0] * (bucket - k)
         slots: List[Optional[_Request]] = list(reqs) + [None] * (bucket - k)
 
         eos = self._eos_token
@@ -539,31 +778,24 @@ class Endpoint:
             if not active:
                 return
             nb = self._decode_bucket(len(active))
-            if nb < bucket:
+            if nb < group.bucket:
                 # compact live slots to the front and drop to the
                 # smaller bucket's step (built once, reused)
                 idx = (active + [active[0]] * (nb - len(active)))[:nb]
-                tok = tok[idx]
-                caches = _take_cache_batch(caches, idx, bucket)
-                if enc_out is not None:
-                    enc_out = enc_out[idx]
+                self._lead({"op": "compact", "idx": idx, "bucket": nb}, group=group)
+                fed = [fed[i] for i in idx]
                 slots = [slots[i] for i in active] + [None] * (
                     nb - len(active)
                 )
-                bucket = nb
-                c["decode"]["rebuckets"] += 1
             # yield: concurrent submits land in the admission queue and
             # coalesce into the next batch while this group decodes
             await asyncio.sleep(0)
-            step = self._decode_exec(entry, bucket)
-            logits, caches = step(tok, caches, length, params, enc_out)
-            tok = logits.argmax(-1).to(torch.int32)
-            row = tok[:, 0].tolist()  # the step's one read back
+            logits, group = self._lead({"op": "decode", "entry": entry.key, "bucket": group.bucket,
+                                        "length": group.length, "tok": fed}, group=group)
+            fed = logits[:, 0].argmax(-1).tolist()  # the step's one read back
             for i, r in enumerate(slots):
                 if r is not None:
-                    r.generated.append(row[i])
-            length += 1
-            c["decode"]["steps"] += 1
+                    r.generated.append(fed[i])
 
     def _complete(self, req: _Request) -> None:
         if req.future.done():
@@ -597,21 +829,31 @@ class Endpoint:
         counts under traffic afterwards. ``batch_fn(batch, seq)`` builds
         the exemplar batch, as in ``BucketedPrefill.warmup``: a model that
         reads ``frames`` or ``patches`` needs it."""
+        if not self.leads:
+            raise ValueError("rank 0 warms an endpoint over several ranks up and broadcasts its "
+                             "builds; this rank runs follow()")
         entry = self._resolve(tenant=tenant, model=model, version=version)
-        pre = self._prefill_for(entry)
         todo = [
             (int(b), int(s))
-            for b, s in (buckets if buckets is not None else (pre.buckets or ()))
+            for b, s in (buckets if buckets is not None else (self._prefill_for(entry).buckets or ()))
         ]
         if not todo:
             return
+
+        def exemplar(b: int, s: int) -> Dict[str, Any]:
+            return (batch_fn(b, s) if batch_fn is not None else
+                    {"tokens": torch.zeros((b, s), dtype=torch.int32, device=self.db.device)})
+
+        for bucket in todo:
+            self._lead({"op": "warm_prefill", "entry": entry.key, "bucket": bucket}, exemplar(*bucket))
+        if decode:
+            self._lead({"op": "warm_decode", "entry": entry.key, "seq": todo[0][1]}, exemplar(*todo[0]))
+
+    def _warm_decode(self, entry, pre: BucketedPrefill, ex: Dict[str, Any], s0: int) -> None:
+        """Build and run every decode bucket's step once, from a prefill
+        of the exemplar batch ``ex``."""
         params = entry.params
-        pre.warmup(params, buckets=todo, batch_fn=batch_fn)
-        if not decode:
-            return
-        b0, s0 = todo[0]
-        ex = (batch_fn(b0, s0) if batch_fn is not None else
-              {"tokens": torch.zeros((b0, s0), dtype=torch.int32, device=self.db.device)})
+        b0 = int(ex["tokens"].shape[0])
         _, caches = pre.prefill(params, ex)
         enc_out, length = _decode_inputs(entry, self.db, ex, s0)
         for db_ in self.decode_buckets or [b0]:
@@ -629,7 +871,10 @@ class Endpoint:
 
     async def aclose(self) -> None:
         """Stop the scheduler and fail queued requests with
-        ``EndpointClosed``; further submits are rejected."""
+        ``EndpointClosed``; further submits are rejected. On a mesh of
+        several ranks, rank 0 sends the followers the "end" header, on
+        which ``follow()`` returns."""
+        end = self.leads and self._headers is not None and not self._closed
         self._closed = True
         if self._task is not None:
             self._task.cancel()
@@ -638,6 +883,9 @@ class Endpoint:
             except asyncio.CancelledError:
                 pass
             self._task = None
+        if end:
+            self._announce({"op": "end"})
+            self._leave()
         while self._queue is not None and not self._queue.empty():
             r = self._queue.get_nowait()
             if not r.future.done():

@@ -203,14 +203,6 @@ def test_committed_layouts_reshard_counters_and_certificates(ranks):
     assert c["kernels_ok"] and c["kernel_sites"] > 0
 
 
-def test_memory_budget_on_a_mesh_raises():
-    with pytest.raises(NotImplementedError, match="memory budget on a mesh"):
-        repro_torch.Database(device="cpu", mesh="host:2", memory_budget=1 << 20)
-    db = repro_torch.Database(device="cpu", memory_budget=1 << 20)
-    with pytest.raises(NotImplementedError, match="memory budget on a mesh"):
-        db.use_mesh("host")
-
-
 def test_the_ambient_mesh_and_the_session_mesh():
     from repro_torch.core import engine
 

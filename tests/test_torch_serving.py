@@ -1073,19 +1073,3 @@ def test_placed_params_cache_hits_evicts_and_bounds():
     assert cache._entries[id(p)][1] is fresh
     cache.clear()
     assert len(cache) == 0
-
-
-def test_an_endpoint_over_several_ranks_raises():
-    """An endpoint needs rank 0 to admit requests and broadcast each
-    step's batch over a mesh of several ranks: not ported yet."""
-
-    class Mesh:
-        class mesh:
-            @staticmethod
-            def numel():
-                return 4
-
-    db = repro_torch.Database(device="cpu")
-    db.use_mesh(Mesh())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        service.Endpoint(db, cache_len=8)

@@ -6,8 +6,12 @@ the typed-checker cases that need no mesh, and ``explain``'s text. Inputs
 come from numpy with a seed; JAX arrays are pinned to float32 and int32
 (other test modules flip JAX's x64 switch at import)."""
 
+import json
+import os
 import re
 import runpy
+import subprocess
+import sys
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -114,18 +118,88 @@ def test_compile_sql_builds_the_reference_tree(name):
     assert tq.root.key_arity == jq.root.key_arity
 
 
-@pytest.mark.parametrize("name", sorted(ERRORS))
-def test_sql_errors_match_the_reference(name):
+_LISTING = re.compile(r"\(registered: (\[.*?\])\)")
+
+
+def _listing(text: str):
+    """The kernel names an "unknown kernel" text lists (None without)."""
+    m = _LISTING.search(text)
+    return None if m is None else re.findall(r"'([^']*)'", m.group(1))
+
+
+def _errors(name):
+    """Each package's error on ERRORS[name], the reference's first: its
+    severity, code, node path, message, hint and text, and whether it is a
+    ValueError."""
     script, schema, inputs = ERRORS[name]
-    with pytest.raises(JSQLError) as jerr:
-        jcompile_sql(script, schema, inputs)
-    with pytest.raises(SQLError) as terr:
-        compile_sql(script, schema, inputs)
-    jd, td = jerr.value.diagnostic, terr.value.diagnostic
-    assert (td.severity, td.code, td.node_path) == (jd.severity, jd.code, jd.node_path)
-    assert (td.message, td.hint) == (jd.message, jd.hint)
-    assert str(terr.value) == str(jerr.value)
-    assert isinstance(terr.value, ValueError)
+    out = []
+    for compile_, err in ((jcompile_sql, JSQLError), (compile_sql, SQLError)):
+        with pytest.raises(err) as e:
+            compile_(script, schema, inputs)
+        d = e.value.diagnostic
+        out.append([str(d.severity), str(d.code), str(d.node_path), d.message, d.hint, str(e.value),
+                    isinstance(e.value, ValueError)])
+    return out
+
+
+def _errors_after_the_same_queries():
+    """Every ERRORS case's ``_errors``, after both packages built and
+    stepped the same SQL queries (the logistic regression's step and the
+    matrix product's gradient), which register the same derived kernels
+    (``vjp1[...]``, ``partiall[...]``) in each package's registry."""
+    test_db_sql_logreg_step_matches_the_reference()
+    test_db_sql_matmul_forward_and_grad_match_the_reference()
+    return {name: _errors(name) for name in ERRORS}
+
+
+@pytest.fixture(scope="module")
+def fresh_errors():
+    """``_errors_after_the_same_queries()`` from a fresh process, where no
+    other test module has built a query."""
+    code = "import json, test_torch_sql as t; print(json.dumps(t._errors_after_the_same_queries()))"
+    path = os.pathsep.join([str(ROOT / "src"), str(ROOT / "tests")])
+    got = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, check=True,
+                         env={**os.environ, "PYTHONPATH": path})
+    return json.loads(got.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("name", sorted(ERRORS))
+def test_sql_errors_match_the_reference(name, fresh_errors):
+    """The same error, word for word, in a fresh process where both
+    packages built the same queries first. In this process too, but for
+    the "(registered: [...])" listing of an unknown kernel: it lists the
+    process's kernel registry, which also holds the kernels that the
+    queries built so far derived, and those differ between the packages
+    with the test modules that ran before in the process; there each
+    listing must be its own package's registry."""
+    jerr, terr = fresh_errors[name]
+    assert terr == jerr
+    listed = _listing(terr[3])
+    if listed is not None:
+        assert {"vjp1[logistic]", "partiall[xent]"} <= set(listed)
+    (*jfields, jtext, jvalue), (*tfields, ttext, tvalue) = _errors(name)
+    cut = lambda text: _LISTING.sub("(registered: [...])", text)  # noqa: E731
+    assert tfields[:3] == jfields[:3]
+    assert (cut(tfields[3]), tfields[4]) == (cut(jfields[3]), jfields[4])
+    assert cut(ttext) == cut(jtext)
+    assert tvalue and jvalue
+    tl, jl = _listing(tfields[3]), _listing(jfields[3])
+    assert (tl is None) == (jl is None)
+    if tl is not None:
+        assert tl == sorted(set(tkernels._BIN) | set(tkernels._UNARY))
+        assert jl == sorted(set(jkernels._BIN) | set(jkernels._UNARY))
+
+
+def test_sql_errors_match_the_reference_after_the_mesh_tests_queries_ran(fresh_errors):
+    """tests/test_torch_mesh.py's query built and stepped first in this
+    process (as when both files run in one worker), which registers derived
+    kernels in the port's registry only; the error texts still match."""
+    import torch_mesh_workers
+
+    torch_mesh_workers.query_step(repro_torch.Database(device="cpu"), torch_mesh_workers.problem()[0])
+    assert set(tkernels._UNARY) | set(tkernels._BIN) != set(jkernels._UNARY) | set(jkernels._BIN)
+    for name in ("unknown kernel", "unknown kernel (single table)"):
+        test_sql_errors_match_the_reference(name, fresh_errors)
 
 
 def test_sql_error_is_exported():
