@@ -879,6 +879,55 @@ ENDPOINT_MESH_WINDOW_S, ENDPOINT_MESH_STAGGER_S = 0.5, 0.05
 #: ENDPOINT_MESH_WAIT_SLACK_S)
 ENDPOINT_MESH_FOLLOW_S, ENDPOINT_MESH_WAIT_S, ENDPOINT_MESH_WAIT_SLACK_S = 300.0, 3.0, 5.0
 
+# phase 29, the LM zoo at its published dtype (bf16), every product on the
+# tensor-core blocked_matmul: 29.1 the 16-bit kernel (bf16 and f16) against
+# its plain version at the LM sites' shapes (M = CODER_PROMPT for a prefill,
+# 16, 2 and 1 for decode; each family's K and N) and at the edges, and its
+# backward's two products; 29.3 one model per block kind at its published
+# widths and dtype, ZOO16_LAYERS layers each (zamba2's pattern cut to one
+# mamba2 and one mamba2_attn, deepseek-v3's first_k_dense to 1, whisper's
+# encoder to ZOO16_LAYERS), a prefill of ZOO16_BATCH × ZOO16_PROMPT tokens
+# and ZOO16_DECODE decode steps fed seeded tokens on the cuda and the torch
+# tiers, each held to the f32 yardstick (the same bf16 weights run in f32);
+# 29.2 deepseek-coder-33b at its published widths, depth (62 layers) and
+# dtype, 66.69 GB of bf16 weights, a prefill of CODER_BATCH × CODER_PROMPT
+# tokens and CODER_DECODE greedy decode steps on the cuda tier, the torch
+# tier fed the same tokens; 29.4 olmoe-1b-7b at ZOO16_TRAIN_LAYERS layers
+# trained ZOO16_TRAIN_STEPS Adam steps in bf16 (moments in opt_state_dtype)
+CODER_ARCH = "deepseek-coder-33b"
+CODER_PARAMS = 33_342_991_360
+CODER_BATCH, CODER_PROMPT, CODER_DECODE = 1, 512, 16
+ZOO16_LAYERS = 2
+ZOO16_BATCH, ZOO16_PROMPT, ZOO16_DECODE = 1, 256, 4
+ZOO16_TRAIN_LAYERS, ZOO16_TRAIN_BATCH, ZOO16_TRAIN_SEQ, ZOO16_TRAIN_STEPS = 4, 2, 512, 2
+#: the cuda tier's error against the f32 yardstick may exceed the torch
+#: tier's by this factor: both round the same f32 sums to bf16 at the same
+#: places, and differ only where their f32 sums differ in the last bits
+#: (then by one bf16 ulp of that product's entry)
+ZOO16_FACTOR = 2.0
+#: a relative error below one bf16 rounding (2⁻⁹) is taken as that: a loss
+#: or a norm can lie that close to its yardstick by chance
+ZOO16_FLOOR = 2.0 ** -9
+#: 29.2: max|cuda − torch| / max|logit| ≤ CODER_MARGIN · (e_cuda + e_torch)
+#: · √(62 / ZOO16_LAYERS), e the errors 29.3 measured on deepseek-coder's
+#: ZOO16_LAYERS layers against the f32 yardstick: each tier's error grows
+#: like a random walk over the layers, and the two tiers' errors add at most
+CODER_MARGIN = 2.0
+#: the dense tensor-core rate of an H100 SXM in bf16 and f16 (dense, 700 W)
+BF16_FLOPS_PER_S = 989e12
+#: 29.1's rows: a prefill's (CODER_PROMPT), the skinny path's widest, and
+#: decode's (the row-bits check takes M = 2); and the edges (m, k, n): M = 1, K = 1, K not a multiple of 16,
+#: ragged N, the skinny/tiled crossover, K = 0
+MATMUL16_M = (CODER_PROMPT, 16, 1)
+MATMUL16_EDGES = ((1, 1, 1), (1, 7, 5), (33, 1, 9), (17, 20, 13), (130, 1000, 77), (2, 515, 200),
+                  (300, 4100, 130), (16, 4096, 4099), (17, 4096, 4099), (5, 0, 3), (129, 33, 257))
+#: the row-bits check: a row of the product at M = 2 and among M = 2,050,
+#: at (K, N) of MATMUL16_ROW_SHAPES; the backward's products at the (M, K, N)
+#: of MATMUL16_GRAD_SHAPES
+MATMUL16_ROWS = (2, 2050)
+MATMUL16_ROW_SHAPES = ((4096, 4096), (7168, 1024), (1000, 77))
+MATMUL16_GRAD_SHAPES = ((CODER_PROMPT, 7168, 1024), (2, 4096, 4096), (130, 1000, 77))
+
 
 def mla_mesh_plants(sharding, blocks):
     """26.3's planted faults, (what, owner, name, fake): the q latent
@@ -5156,7 +5205,7 @@ def host_ms(torch, fn, calls=HOST_CALLS, device_ms=None) -> float:
     return host
 
 
-def time_site(torch, op, info, rows_for, seg_for, gen, dev):
+def time_site(torch, op, info, rows_for, seg_for, gen, dev, dtype=None):
     """(kernel ms, plain ms, library ms or None, bytes, FLOPs, extra) of
     one dispatch site at its shapes; ``rows_for(e, n)`` and ``seg_for(e,
     s)`` give the path's own gather ids and segment ids. ``extra`` holds
@@ -5165,7 +5214,9 @@ def time_site(torch, op, info, rows_for, seg_for, gen, dev):
     (torch.sort and the starts kernel) and of the sort alone. Where the
     ids hold padding (-1: the MoE's empty slots and dropped assignments),
     the library call (which refuses it) takes the valid ids alone, and the
-    bound counts the valid rows' reads."""
+    bound counts the valid rows' reads. ``dtype`` (default f32) is the
+    values' type: the library call takes it too (cuBLAS's bf16 product for
+    a 16-bit blocked_matmul), and the bytes count its size."""
     from repro_torch.kernels.gather.ops import gather_rows_forward
     from repro_torch.kernels.gather.ref import gather_rows_ref
     from repro_torch.kernels.matmul.ops import SKINNY_ROWS, blocked_matmul_forward
@@ -5173,9 +5224,11 @@ def time_site(torch, op, info, rows_for, seg_for, gen, dev):
     from repro_torch.kernels.segsum.ops import SCAN_MAX_EDGES, csr, segment_sum_forward
     from repro_torch.kernels.segsum.ref import segment_sum_ref
 
+    dt = dtype or torch.float32
+    size = torch.empty((), dtype=dt).element_size()
     if op == "gather_join":
         e, n, d = info["rows"], info["num_rows"], info["dim"]
-        table = torch.randn(n, d, device=dev, generator=gen)
+        table = torch.randn(n, d, device=dev, generator=gen).to(dt)
         rows = rows_for(e, n)
         valid = rows[(rows >= 0) & (rows < n)]
         k_ms = time_ms(torch, lambda: gather_rows_forward(table, rows))
@@ -5184,14 +5237,14 @@ def time_site(torch, op, info, rows_for, seg_for, gen, dev):
         extra = {"host_ms": host_ms(torch, lambda: gather_rows_forward(table, rows), device_ms=k_ms)}
         # the table rows these ids touch, read once; ids; the output
         seen = int(torch.unique(valid).numel())
-        return k_ms, p_ms, l_ms, seen * d * 4 + e * 4 + e * d * 4, 0, extra
+        return k_ms, p_ms, l_ms, seen * d * size + e * 4 + e * d * size, 0, extra
     if op == "segment_sum":
         e, d, s = info["nnz"], info["dim"], info["num_segments"]
-        msg = torch.randn(e, d, device=dev, generator=gen)
+        msg = torch.randn(e, d, device=dev, generator=gen).to(dt)
         seg = seg_for(e, s)
         ok = (seg >= 0) & (seg < s)
         lib_seg, lib_msg = seg[ok], msg[ok]
-        out = torch.zeros(s, d, device=dev)
+        out = torch.zeros(s, d, device=dev, dtype=dt)
         k_ms = time_ms(torch, lambda: segment_sum_forward(msg, seg, s))
         p_ms = time_ms(torch, lambda: segment_sum_ref(msg, seg, s))
         l_ms = time_ms(torch, lambda: out.zero_().index_add_(0, lib_seg, lib_msg))
@@ -5201,20 +5254,20 @@ def time_site(torch, op, info, rows_for, seg_for, gen, dev):
             extra["sort_ms"] = time_ms(torch, lambda: torch.sort(seg, stable=True))
         # the valid rows, read once; ids; the output
         v = int(ok.sum())
-        return k_ms, p_ms, l_ms, v * d * 4 + e * 4 + s * d * 4, v * d, extra
+        return k_ms, p_ms, l_ms, v * d * size + e * 4 + s * d * size, v * d, extra
     m, k, n = info["m"], info["k"], info["n"]
-    x = torch.randn(m, k, device=dev, generator=gen)
-    y = torch.randn(k, n, device=dev, generator=gen)
+    x = torch.randn(m, k, device=dev, generator=gen).to(dt)
+    y = torch.randn(k, n, device=dev, generator=gen).to(dt)
     k_ms = time_ms(torch, lambda: blocked_matmul_forward(x, y))
     p_ms = time_ms(torch, lambda: matmul_ref(x, y))
     l_ms = time_ms(torch, lambda: torch.matmul(x, y))
     extra = ({"host_ms": host_ms(torch, lambda: blocked_matmul_forward(x, y), device_ms=k_ms)}
              if m <= SKINNY_ROWS else {})
-    return k_ms, p_ms, l_ms, (m * k + k * n + m * n) * 4, 2 * m * n * k, extra
+    return k_ms, p_ms, l_ms, (m * k + k * n + m * n) * size, 2 * m * n * k, extra
 
 
 def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, dense, mesh, lm_mesh, ssm_mesh,
-                 mla_mesh, zoo_mesh, budget_mesh, errs, dev):
+                 mla_mesh, zoo_mesh, budget_mesh, zoo16, errs, dev):
     """Per kernel and per main path: each site timed alone at its shapes,
     times the launches of that site in one pass of the path (one GCN step;
     one logistic-regression step; one NNMF step; one KGE step at each
@@ -5230,7 +5283,8 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, d
     one rank's deepseek-v3 prefill, decode step and train step on phase
     26's 1 × 4 mesh; one rank's whisper and qwen2-vl prefill, decode step
     and train step on phase 27's 1 × 4 mesh and its olmoe train step on the
-    2 × 2 × 1 pod mesh), summed."""
+    2 × 2 × 1 pod mesh; phase 29's bf16 requests and train step, whose
+    products are the 16-bit kernel's record), summed."""
     from repro_torch.kernels.matmul.ops import blocked_matmul_forward
     from repro_torch.kernels.ssm_scan.ops import ssm_scan_forward
     from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
@@ -5259,7 +5313,9 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, d
 
     def add(path, op, key, mult, k_ms, p_ms, l_ms, nbytes, flops, extra=None):
         extra = extra or {}
-        if op == "blocked_matmul":
+        if op == "blocked_matmul_16":
+            (b_ms, by), old = bound(nbytes, flops, BF16_FLOPS_PER_S), " at the dense bf16/f16 rate"
+        elif op == "blocked_matmul":
             b_ms, by = bound(nbytes, flops, MATMUL_FLOPS_PER_S)
             old = f"; at the f32 CUDA-core rate {fmt_ms(bound(nbytes, flops)[0])}"
         else:
@@ -5462,6 +5518,26 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, d
 
     lap("the mesh paths' sites")
 
+    # phase 29's bf16 paths: one request of each of 29.3's models (zoo_bf16),
+    # deepseek-coder-33b's request (coder_bf16), one olmoe train step
+    # (olmoe_bf16_train); every kernel signature at bf16 on the ids its
+    # first call took, times its calls in the pass. Their products are the
+    # 16-bit kernel's (blocked_matmul_16), the bound at the dense bf16 rate
+    timed16 = {}
+    for path, run in zoo16["paths"].items():
+        for key, mult in sorted(run["pass"].items(), key=lambda kv: str(kv[0])):
+            if key not in timed16:
+                ids = run["ids"].get(key)
+                timed16[key] = time_site(torch, key[0], LaunchLog(torch).info(key), lambda e, n: ids,
+                                         lambda e, s: ids, gen, dev, dtype=torch.bfloat16)
+                del ids
+            op = "blocked_matmul_16" if key[0] == "blocked_matmul" else key[0]
+            add(path, op, f"{key[0]}{key[1:]} bf16", mult, *timed16[key])
+    del timed16
+    torch.cuda.empty_cache()
+
+    lap("phase 29's bf16 sites")
+
     # phase 9's streamed steps: every site of a wave's lowering once per
     # wave, each on the ids it took in the largest wave (a product takes
     # none)
@@ -5538,22 +5614,29 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, d
 
     meta = {
         "segment_sum": ("cuda", "src/repro_torch/kernels/csrc/segsum.cu",
-                        "src/repro/kernels/segsum/segsum.py:30"),
+                        "src/repro/kernels/segsum/segsum.py:30", ("repro_segsum_starts", "repro_segsum")),
         "gather_join": ("cuda", "src/repro_torch/kernels/csrc/gather.cu",
-                        "src/repro/kernels/gather/gather.py:25"),
+                        "src/repro/kernels/gather/gather.py:25", ("repro_gather",)),
         "blocked_matmul": ("cuda", "src/repro_torch/kernels/csrc/matmul.cu",
-                           "src/repro/kernels/matmul/matmul.py:21"),
+                           "src/repro/kernels/matmul/matmul.py:21", ("repro_matmul_f32",)),
+        # mma.sync on the tensor cores: phase 29's bf16 paths launch it
+        "blocked_matmul_16": ("cuda", "src/repro_torch/kernels/csrc/matmul.cu",
+                              "src/repro/kernels/matmul/matmul.py:21",
+                              ("repro_matmul_bf16", "repro_matmul_f16")),
         "ssm_scan": ("cuda", "src/repro_torch/kernels/csrc/ssm_scan.cu",
-                     "src/repro/kernels/ssm_scan/ssm_scan.py:28"),
+                     "src/repro/kernels/ssm_scan/ssm_scan.py:28", ("repro_ssm_scan",)),
     }
     records = []
-    for op, (route, source, replaces) in meta.items():
+    for op, (route, source, replaces, entry_points) in meta.items():
         per_path = paths[op]
         tot = {f: sum(v[f] for v in per_path.values())
                for f in ("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms")}
         lib = [v["library_ms"] for v in per_path.values()]
         host = [v["host_ms"] for v in per_path.values() if "host_ms" in v]
-        by_path = {"gcn": gcn["launches"][op], "logreg": logreg["launches"][op],
+        zoo16_launches = {path: run["launches"]["blocked_matmul" if op == "blocked_matmul_16" else op]
+                          for path, run in zoo16["paths"].items() if op != "blocked_matmul"}
+        by_path = zoo16_launches if op == "blocked_matmul_16" else zoo16_launches | {
+                   "gcn": gcn["launches"][op], "logreg": logreg["launches"][op],
                    "sql_logreg": logreg["sql_launches"][op], "nnmf": nnmf["launches"][op],
                    "kge": kge["launches"][op], "falcon_mamba": lm["launches"][op],
                    "olmoe_serve": olmoe["serve"]["launches"][op],
@@ -5574,6 +5657,7 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, d
             "route": route,
             "source": source,
             "replaces": replaces,
+            "entry_points": list(entry_points),
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": errs[op],
@@ -5626,7 +5710,12 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, d
                     f"ranks' launches summed), phase 28's arxiv GCN query in chunk waves ({BUDGET_MESH_RUN} "
                     f"steps on the {MESH_RANKS} × 1 mesh, gcn_waves_mesh: the {MESH_RANKS} ranks' launches "
                     f"summed) and olmoe's endpoint traffic on the 1 × {LM_MESH_RANKS} mesh, its warmup "
-                    f"included (lm_mesh_endpoint: the {LM_MESH_RANKS} ranks' launches summed); "
+                    f"included (lm_mesh_endpoint: the {LM_MESH_RANKS} ranks' launches summed), and "
+                    f"phase 29's bf16 runs: one request of each of its {len(zoo16_models())} "
+                    f"{ZOO16_LAYERS}-layer models on the cuda tier (zoo_bf16), deepseek-coder-33b's "
+                    f"request of a prefill and {CODER_DECODE} decode steps (coder_bf16) and "
+                    f"{ZOO16_TRAIN_STEPS} olmoe train steps (olmoe_bf16_train), whose products are "
+                    "blocked_matmul_16's launches; "
                     "ms, plain_ms, bound_ms, library_ms: each site timed alone, times its "
                     "launches in one pass, summed over one GCN step, one logistic-regression "
                     "step, one NNMF step, one KGE step at each width, one prefill, one "
@@ -5652,7 +5741,10 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, d
                     "on the 2 × 2 × 1 pod mesh at their shard shapes (lm_mesh_enc_vl), one rank's "
                     "streamed arxiv step on the 4 × 1 mesh, every wave, at its shard shapes "
                     "(gcn_waves_mesh) and rank 0's endpoint traffic on the 1 × 4 mesh (a burst and a "
-                    "pair: lm_mesh_endpoint) — a site "
+                    "pair: lm_mesh_endpoint), and phase 29's passes at bf16: each 29.3 model's "
+                    "request, deepseek-coder-33b's request and one olmoe train step (zoo_bf16, "
+                    "coder_bf16, olmoe_bf16_train; their products timed against torch.matmul in "
+                    "bf16, bounded at 989 TFLOP/s) — a site "
                     "of the passes from olmoe_serve on that an earlier path timed at the same shapes "
                     "(a gather's and a segment sum's on the same ids) takes that timing and is counted "
                     "in its path's 'borrowed'; 'paths' splits them; host_ms: "
@@ -6285,7 +6377,8 @@ def oocore_phase(torch, repro_torch, kern, data, dev):
 def record_sites(lm_cfg):
     """(op, info) of every kernel call shape phases 2-21 check, each once:
     segment sums and gathers in f32 (and at the GCN's and the edge cases'
-    widths in bf16 and f16, whose units differ), the products, and the
+    widths in bf16 and f16, whose units differ), the products (and phase
+    29's in bf16 and f16, the tensor-core kernels), and the
     scan at falcon-mamba's prefill, zamba2's prefill and falcon-mamba's
     training, in both directions."""
     out = {}
@@ -6303,6 +6396,11 @@ def record_sites(lm_cfg):
             add("gather_join", rows=EDGES + NODES, num_rows=NODES, dim=d, dtype=dtype)
     for m, k, n, _ in matmul_cases(lm_cfg):
         add("blocked_matmul", m=m, k=k, n=n, dtype="float32")
+    # phase 29's 16-bit products: 29.1's weight shapes at its rows, and the edges
+    for dtype in ("bfloat16", "float16"):
+        for m, k, n in ([(m, k, n) for (k, n) in sorted(matmul16_sites()) for m in MATMUL16_M]
+                        + list(MATMUL16_EDGES)):
+            add("blocked_matmul", m=m, k=k, n=n, dtype=dtype)
     z = zamba2_config()
     for b, seq, c, n in ((LM_BATCH, LM_PROMPT) + LM_SCAN,
                          (ZAMBA2_BATCH, ZAMBA2_PROMPT, z.ssm_expand * z.d_model // z.ssm_head_dim,
@@ -6338,7 +6436,8 @@ def record_call(torch, kern, op, info, dev):
         gather_rows_forward(table, torch.arange(e, dtype=torch.int32, device=dev) % max(n, 1))
     elif op == "blocked_matmul":
         m, k, n = info["m"], info["k"], info["n"]
-        blocked_matmul_forward(torch.empty((m, k), device=dev), torch.empty((k, n), device=dev))
+        blocked_matmul_forward(torch.empty((m, k), dtype=dt, device=dev),
+                               torch.empty((k, n), dtype=dt, device=dev))
     else:
         shape = (info["batch"], info["seq"], info["channels"] * info["state"], 1)
         a = torch.empty(shape, device=dev)
@@ -6387,7 +6486,8 @@ def launch_record_checks(torch, kern, lm_cfg, dev):
         raise AssertionError(f"{len(bad)} site(s) launched other than their contract model")
     want = {"segsum_scan/16-byte", "segsum_scan/element", "segsum_chunk/16-byte", "segsum_chunk/element",
             "segsum_starts", "segsum_combine", "gather/16-byte", "gather/element",
-            "matmul_tiled", "matmul_skinny", "matmul_reduce", "ssm_scan"}
+            "matmul_tiled", "matmul_skinny", "matmul_reduce", "ssm_scan",
+            "matmul_tiled_mma", "matmul_skinny_mma", "matmul_reduce16"}
     if not want <= paths:
         raise AssertionError(f"the checked sites miss kernel paths: {sorted(want - paths)}")
     reverse = [s for op, s in record_sites(lm_cfg) if op == "ssm_scan" and s["reverse"]]
@@ -10273,6 +10373,590 @@ def budget_mesh_phase(torch, repro_torch, kern, data, dev, smi, wave_rows):
     return {"waves": w0["pass"], "endpoint": e0["pass"], "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# Phase 29: the LM zoo at its published dtype (bf16)
+# ---------------------------------------------------------------------------
+
+
+def ulp16(torch, v, dtype):
+    """One ulp of the 16-bit ``dtype`` at |v| (an f32 tensor): 2^(e − p),
+    e = ⌊log₂|v|⌋ and p the type's fraction bits (7 in bf16, 10 in f16),
+    and the subnormals' spacing below the smallest normal."""
+    bits, tiny = (7, 2.0 ** -133) if dtype == torch.bfloat16 else (10, 2.0 ** -24)
+    e = torch.floor(torch.log2(v.abs().float().clamp_min(tiny)))
+    return torch.exp2(e - bits).clamp_min(tiny)
+
+
+def matmul16_excess(torch, x, y, got, want):
+    """The largest |got − want| over its limit, the limit of a 16-bit
+    product (MATMUL16: one ulp of the output type at the larger of |got| and
+    |want| — both are f32 sums rounded once, and the two roundings can fall
+    either side of a binade's edge — plus 2·K·u₃₂·Σ|x||y|, the most two f32
+    sums of the same K exact products can differ by); and the largest
+    |got − want|."""
+    k = x.shape[1]
+    err = (got.float() - want.float()).abs()
+    mag = torch.maximum(got.float().abs(), want.float().abs())
+    walk = (x.float().abs() @ y.float().abs()) if k else torch.zeros_like(err)
+    limit = ulp16(torch, mag, got.dtype) + 2 * k * U32 * walk
+    return excess(err, limit), float(err.max()) if err.numel() else 0.0
+
+
+def bf16_sites(torch, engines, table):
+    """(program, key, op, tier, info) of every bf16 dispatch site the
+    engines lowered under ``table``: phase 29's (the earlier phases' LMs
+    are f32, and a lowering is cached per signature, dtype included)."""
+    return [site for site in new_sites(engines, {k: set() for k in engines}, table)
+            if site[4].get("dtype") == torch.bfloat16]
+
+
+def zoo16_config(arch, **changes):
+    """``arch`` at its published widths and dtype (bf16), with ``changes``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if cfg.dtype != "bfloat16":
+        raise AssertionError(f"{arch}: published dtype {cfg.dtype}, not bfloat16")
+    return dataclasses.replace(cfg, **changes)
+
+
+def zoo16_models():
+    """(label, config) of 29.3: one model per block kind at ZOO16_LAYERS
+    layers."""
+    n = ZOO16_LAYERS
+    return [
+        ("local/global + the tied head", zoo16_config(GEMMA2_ARCH, n_layers=n)),
+        ("moe", zoo16_config(OLMOE_ARCH, n_layers=n)),
+        ("mamba1", zoo16_config(LM_ARCH, n_layers=n, ssm_pallas=True)),
+        ("mamba2/mamba2_attn", zoo16_config(ZAMBA2_ARCH, n_layers=n, pattern=("mamba2", "mamba2_attn"),
+                                            ssm_pallas=True)),
+        ("mla/mla_moe", zoo16_config(DSV3_ARCH, n_layers=n, first_k_dense=1)),
+        ("enc/dec", zoo16_config(WHISPER_ARCH, n_layers=n, encoder_layers=n)),
+        ("the vision prefix, M-RoPE", zoo16_config(QWEN_ARCH, n_layers=n)),
+        ("attn (29.2's block)", zoo16_config(CODER_ARCH, n_layers=n)),
+    ]
+
+
+def matmul16_sites():
+    """(k, n) → the families whose rel_linear weights have that shape, over
+    29.3's models (every 2-D parameter but the tables and the convolutions;
+    a shape that is no product site is still a valid check), and 29.2's."""
+    from repro_torch.models.model import param_shapes
+
+    out = {}
+    for _, cfg in zoo16_models():
+        for name, shape in param_shapes(cfg).items():
+            if len(shape) == 2 and name.split(".")[-1] not in ("embed", "conv_w", "router"):
+                out.setdefault(shape, set()).add(cfg.name)
+    return out
+
+
+def check_matmul16(torch, kern, dev):
+    """29.1: the 16-bit blocked_matmul (bf16 and f16) against its plain
+    version (ref.matmul_ref: the f32 product of the widened operands,
+    rounded once) at every site shape of the zoo at M = MATMUL16_M, at the
+    edges, and its backward's two products; a row's bits at M = 2 against
+    the same row among M = 2,050; a planted fault (the last 16 terms of K
+    dropped) above the limit. Returns a function giving the largest |c −
+    ref| and excess so far, and one that checks the bf16 products of a set
+    of LaunchLog signatures it has not checked yet."""
+    from repro_torch.kernels.matmul.ops import blocked_matmul, blocked_matmul_forward
+    from repro_torch.kernels.matmul.ref import matmul_ref
+
+    gen = torch.Generator(device=dev).manual_seed(29)
+    worst, worst_err, checked = 0.0, 0.0, 0
+    sites = matmul16_sites()
+    shapes = set()
+    log(f"  29.1: {len(sites)} (K, N) weight shapes of the zoo at M = {MATMUL16_M}, "
+        f"{len(MATMUL16_EDGES)} edge shapes, bf16 and f16; limit |c - ref| <= ulp(max(|c|, |ref|)) "
+        f"+ 2 K u32 sum|x||y|")
+
+    def draw(m, k, n, dt):
+        x = torch.randn(m, k, generator=gen, device=dev).to(dt)
+        y = torch.randn(k, n, generator=gen, device=dev).to(dt)
+        return x, y
+
+    def case(m, k, n, dt):
+        nonlocal worst, worst_err, checked
+        x, y = draw(m, k, n, dt)
+        got = blocked_matmul_forward(x, y)
+        if got.dtype != dt or tuple(got.shape) != (m, n):
+            raise AssertionError(f"({m}x{k})@({k}x{n}) {dt}: got {got.dtype} {tuple(got.shape)}")
+        ex, err = matmul16_excess(torch, x, y, got, matmul_ref(x, y))
+        worst, worst_err, checked = max(worst, ex), max(worst_err, err), checked + 1
+        if ex > 1:
+            raise AssertionError(f"({m}x{k})@({k}x{n}) {dt}: |c - ref| at {ex:.3f} of the limit")
+        shapes.add((m, k, n, dt))
+
+    for dt in (torch.bfloat16, torch.float16):
+        for m, k, n in [(m, k, n) for (k, n) in sorted(sites) for m in MATMUL16_M] + list(MATMUL16_EDGES):
+            case(m, k, n, dt)
+        # unaligned bases: operands that start 2 bytes into their storage
+        for m, k, n in ((64, 64, 64), (3, 512, 136), (200, 1040, 72)):
+            xs = torch.randn(m * k + 1, generator=gen, device=dev).to(dt)
+            ys = torch.randn(k * n + 1, generator=gen, device=dev).to(dt)
+            x, y = xs[1:].view(m, k), ys[1:].view(k, n)
+            ex, err = matmul16_excess(torch, x, y, blocked_matmul_forward(x, y), matmul_ref(x, y))
+            worst, worst_err, checked = max(worst, ex), max(worst_err, err), checked + 1
+            if ex > 1:
+                raise AssertionError(f"unaligned ({m}x{k})@({k}x{n}) {dt}: at {ex:.3f} of the limit")
+        # a row's bits whatever M is
+        for k, n in MATMUL16_ROW_SHAPES:
+            small, big = MATMUL16_ROWS
+            x, y = draw(big, k, n, dt)
+            a, b = blocked_matmul_forward(x[:small].contiguous(), y), blocked_matmul_forward(x, y)
+            if not torch.equal(a, b[:small]):
+                raise AssertionError(f"{dt} ({k}x{n}): rows at M = {small} differ from the same rows "
+                                     f"among M = {big}")
+        # the backward's two products: dx = g @ yᵀ, dy = xᵀ @ g, in x's and y's dtype
+        for m, k, n in MATMUL16_GRAD_SHAPES:
+            x, y = draw(m, k, n, dt)
+            g = torch.randn(m, n, generator=gen, device=dev).to(dt)
+            xr, yr = x.clone().requires_grad_(True), y.clone().requires_grad_(True)
+            blocked_matmul(xr, yr).backward(g)
+            for name, grad, a, b in (("dx", xr.grad, g, y.t().contiguous()),
+                                     ("dy", yr.grad, x.t().contiguous(), g)):
+                if grad.dtype != dt:
+                    raise AssertionError(f"{name} of a {dt} product is {grad.dtype}")
+                ex, err = matmul16_excess(torch, a, b, grad, matmul_ref(a, b))
+                worst, worst_err, checked = max(worst, ex), max(worst_err, err), checked + 1
+                if ex > 1:
+                    raise AssertionError(f"{name} ({m}x{k})@({k}x{n}) {dt}: at {ex:.3f} of the limit")
+        # planted: the last k16 step of K dropped
+        x, y = draw(CODER_PROMPT, *MATMUL16_ROW_SHAPES[0], dt)
+        planted = blocked_matmul_forward(x[:, :-16].contiguous(), y[:-16].contiguous())
+        caught, _ = matmul16_excess(torch, x, y, planted, matmul_ref(x, y))
+        log(f"  29.1 {dt}: planted fault (the last 16 of K = {x.shape[1]} terms dropped) at {caught:.3g} "
+            "of the limit (must exceed 1)")
+        if not caught > 1:
+            raise AssertionError("the 16-bit limit passes a product that drops 16 terms")
+    torch.cuda.synchronize()
+    log(f"  29.1: {checked} products within the limit (largest excess {worst:.3f}, largest "
+        f"|c - ref| {worst_err:.4g}); rows bit-equal at M = {MATMUL16_ROWS[0]} and "
+        f"{MATMUL16_ROWS[1]}")
+
+    def more(keys):
+        """Check the bf16 calls of ``keys`` (LaunchLog signatures) that the
+        shapes above miss; returns how many."""
+        todo = sorted({key[1:] for key in keys if key[0] == "blocked_matmul"}
+                      - {(m, k, n) for m, k, n, dt in shapes if dt == torch.bfloat16})
+        for m, k, n in todo:
+            case(m, k, n, torch.bfloat16)
+        return len(todo)
+
+    return lambda: (worst_err, worst), more
+
+
+def zoo16_batch(torch, cfg, dev, b, s, seed):
+    """A prompt of B × S seeded tokens, with whisper's frames or qwen2-vl's
+    patches (f32: the model casts them), and CODER_DECODE fed tokens."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev, dtype=torch.int32)}
+    if cfg.encoder_layers:
+        batch["frames"] = torch.randn(b, cfg.enc_seq, cfg.d_model, generator=gen, device=dev)
+    if cfg.vis_seq:
+        batch["patches"] = torch.randn(b, cfg.vis_seq, cfg.d_model, generator=gen, device=dev)
+    fed = [torch.randint(0, cfg.vocab, (b, 1), generator=gen, device=dev, dtype=torch.int32)
+           for _ in range(max(ZOO16_DECODE, CODER_DECODE))]
+    return batch, fed
+
+
+def zoo16_serve(torch, repro_torch, model, batch, fed, steps, dispatch):
+    """A prefill and ``steps`` decode steps fed ``fed`` under a session of
+    ``dispatch`` (None: the card's default table, the main path's): the
+    logits of each (f32, last position) and the seconds each took."""
+    from repro_torch.serving import make_decode_step, make_encode_step, make_prefill_step
+
+    cfg = model.cfg
+    s = batch["tokens"].shape[1] + (cfg.vis_seq if "patches" in batch else 0)
+    prefill, decode = make_prefill_step(model, s + steps), make_decode_step(model)
+    logits, secs = [], []
+    with repro_torch.Database(dispatch=dispatch).activate():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, caches = prefill(batch)
+        enc = make_encode_step(model)(batch["frames"]) if cfg.encoder_layers else None
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        logits.append(lg[:, -1].float())
+        for i in range(steps):
+            t0 = time.perf_counter()
+            lg, caches = decode(fed[i], caches, s + i, enc_out=enc)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            logits.append(lg[:, -1].float())
+    return logits, secs
+
+
+def to_f32(torch, model):
+    """``model`` in f32 in place: each parameter and floating buffer
+    widened (its bf16 storage freed as it goes), the config's dtype f32."""
+    import dataclasses
+
+    with torch.no_grad():
+        for p in model.parameters():
+            p.data = p.data.float()
+        for buf in model.buffers():
+            if buf.is_floating_point():
+                buf.data = buf.data.float()
+    model.cfg = dataclasses.replace(model.cfg, dtype="float32")
+    return model
+
+
+def yardstick_err(torch, runs, ref) -> float:
+    """The largest max|logits − yardstick| / max|yardstick| over the steps."""
+    return max(logit_gap(a, b) for a, b in zip(runs, ref))
+
+
+def dropping_last_segment(real):
+    """The planted fault of 29.3: a product that leaves out its last
+    K-segment (the last 512 terms; a quarter of K where K is at most 1,024),
+    as a split product that loses one partial would."""
+    def product(x, y):
+        k = x.shape[1]
+        keep = k - (512 if k > 1024 else max(1, k // 4))
+        return real(x[:, :keep].contiguous(), y[:keep].contiguous())
+    return product
+
+
+def zoo16_kinds_phase(torch, repro_torch, kern, dev):
+    """29.3: each of ``zoo16_models`` built in bf16 (seed 0), a prefill and
+    ZOO16_DECODE fed decode steps on the cuda tier (every rel_linear and
+    rel_embed site and the MoE sites on cuda, the calls logged for phase
+    8), on the torch tier and, the same weights widened, in f32 (the
+    yardstick; the MoE layers on the cuda run's routing in both): the cuda
+    tier's error may exceed the torch tier's by ZOO16_FACTOR. deepseek-coder
+    runs a planted fault (every product's last K-segment dropped), which
+    must exceed it: gemma2's softcapped logits are saturated at random
+    weights (tanh at ±30), where a fault barely moves them."""
+    from repro_torch.core.engine import engine_for
+    from repro_torch.kernels.matmul import ops as matmul_ops
+    from repro_torch.models import build_model, ffn
+    from repro_torch.models.model import stages_of
+    from repro_torch.relational.embedding import _embed_prog
+    from repro_torch.relational.linear import _linear_prog
+
+    b, s, steps = ZOO16_BATCH, ZOO16_PROMPT, ZOO16_DECODE
+    engines = {"rel_linear": engine_for(_linear_prog()[0].forward),
+               "rel_embed": engine_for(_embed_prog()[0].forward)}
+    out = {"errs": {}, "launches": {op: 0 for op in kern.launch_counts()}, "pass": {}, "ids": {}}
+    for i, (label, cfg) in enumerate(zoo16_models()):
+        kinds = [k for st in stages_of(cfg) for k in list(st.pattern) * st.repeats + list(st.tail)]
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        model = build_model(cfg, seed=0)
+        n_params = sum(p.numel() for p in model.parameters())
+        dtypes = sorted({str(p.dtype).replace("torch.", "") for p in model.parameters()})
+        batch, fed = zoo16_batch(torch, cfg, dev, b, s, seed=i)
+        with Routing(torch, ffn) as routing:
+            routing.run()
+            kern.reset_launch_counts()
+            with LaunchLog(torch) as calls:
+                c_logits, c_secs = zoo16_serve(torch, repro_torch, model, batch, fed, steps, None)
+            launched = kern.launch_counts()
+            cuda_calls = routing.calls
+            sites = bf16_sites(torch, engines, repro_torch.Database().dispatch)
+            bad = [(p, k, t) for p, k, _, t, _ in sites if t != "cuda"]
+            bad += [(op, t) for op, t in calls.moe_tiers if t != "cuda"]
+            if not sites or bad or (any("moe" in k for k in kinds) and not calls.moe_tiers):
+                raise AssertionError(f"{cfg.name}: sites not all on the cuda tier: {bad or 'none recorded'}")
+            if launched["blocked_matmul"] <= 0:
+                raise AssertionError(f"{cfg.name}: the 16-bit blocked_matmul did not launch")
+            for op, n in launched.items():
+                out["launches"][op] += n
+            for key, n in calls.counts.items():
+                # one pass: the request (a prefill and its decode steps)
+                out["pass"][key] = out["pass"].get(key, 0) + n
+                if key in calls.ids:
+                    out["ids"].setdefault(key, calls.ids[key])
+            moe = len(cuda_calls)
+            kern.reset_launch_counts()
+            routing.run(cuda_calls if moe else None)
+            t_logits, _ = zoo16_serve(torch, repro_torch, model, batch, fed, steps, "torch")
+            # the scan is no dispatch op: with ssm_pallas both tiers run its kernel
+            if any(kern.launch_counts()[op] for op in GCN_KERNELS):
+                raise AssertionError(f"the torch tier launched a CUDA kernel: {kern.launch_counts()}")
+            planted = None
+            if cfg.name == CODER_ARCH:
+                real = matmul_ops.blocked_matmul_forward
+                matmul_ops.blocked_matmul_forward = dropping_last_segment(real)
+                try:
+                    routing.run(cuda_calls if moe else None)
+                    planted, _ = zoo16_serve(torch, repro_torch, model, batch, fed, 0, None)
+                finally:
+                    matmul_ops.blocked_matmul_forward = real
+            to_f32(torch, model)
+            routing.run(cuda_calls if moe else None)
+            y_logits, _ = zoo16_serve(torch, repro_torch, model, batch, fed, steps, "torch")
+        e_c, e_t = yardstick_err(torch, c_logits, y_logits), yardstick_err(torch, t_logits, y_logits)
+        limit = ZOO16_FACTOR * max(e_t, ZOO16_FLOOR)
+        out["errs"][cfg.name] = (e_c, e_t)
+        log(f"  29.3 {cfg.name} ({label}): {kinds}, {n_params:,} parameters ({dtypes}); prefill "
+            f"{c_secs[0] * 1e3:.1f} ms, decode {statistics.median(c_secs[1:]) * 1e3:.2f} ms a step; "
+            f"the bf16 sites so far ({len(sites)}) on cuda; launches {launched}; against the f32 yardstick: cuda "
+            f"{e_c:.4e}, torch {e_t:.4e}, cuda/torch {e_c / max(e_t, 1e-30):.3f} (limit: cuda <= "
+            f"{ZOO16_FACTOR:g} x max(torch, 2^-9) = {limit:.4e}); built and run in "
+            f"{time.perf_counter() - t0:.1f} s")
+        if not e_c <= limit:
+            raise AssertionError(f"{cfg.name}: the cuda tier's bf16 error {e_c:.4e} exceeds {limit:.4e}")
+        if planted is not None:
+            e_p = logit_gap(planted[0], y_logits[0])
+            log(f"  29.3 planted fault (every product's last K-segment dropped, the prefill): "
+                f"{e_p:.4e} against the yardstick, {e_p / limit:.3g} of the limit (must exceed 1)")
+            if not e_p > limit:
+                raise AssertionError("29.3's limit passes products that drop a K-segment")
+        del model, batch, fed, c_logits, t_logits, y_logits, planted, cuda_calls
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def coder_phase(torch, repro_torch, kern, dev, errs):
+    """29.2: deepseek-coder-33b at its published widths, depth and dtype;
+    a prefill of CODER_BATCH × CODER_PROMPT tokens and CODER_DECODE greedy
+    decode steps on the cuda tier (every site on cuda), the torch tier on
+    the same weights fed the same tokens, held to CODER_MARGIN · (e_cuda +
+    e_torch) · √(layers / ZOO16_LAYERS) of 29.3's deepseek-coder errors; a
+    planted fault (the last 512-term segment of every MLP down projection
+    dropped) above it."""
+    from repro_torch.core.engine import engine_for
+    from repro_torch.kernels.matmul import ops as matmul_ops
+    from repro_torch.relational.embedding import _embed_prog
+    from repro_torch.relational.linear import _linear_prog
+    from repro_torch.models import build_model
+
+    cfg = zoo16_config(CODER_ARCH)
+    b, s, steps = CODER_BATCH, CODER_PROMPT, CODER_DECODE
+    kv_token = cfg.n_layers * 2 * cfg.n_kv_heads * cfg.hd() * 2
+    log(f"  29.2 {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads of "
+        f"{cfg.hd()} over {cfg.n_kv_heads} KV heads, d_ff {cfg.d_ff}, vocab {cfg.vocab}; bf16: "
+        f"{CODER_PARAMS * 2:,} bytes of weights, a KV cache of {kv_token:,} bytes a token "
+        f"({kv_token * (s + steps) * b:,} at {b} x {s + steps}); random weights from seed 0")
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    log(f"  29.2 device memory before the build: {free:,} of {total:,} bytes free")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  29.2 built in {time.perf_counter() - t0:.1f} s: {n_params:,} parameters, "
+        f"{sum(p.numel() * p.element_size() for p in model.parameters()):,} bytes")
+    if n_params != CODER_PARAMS:
+        raise AssertionError(f"{n_params} parameters, want {CODER_PARAMS}")
+    batch, fed = zoo16_batch(torch, cfg, dev, b, s, seed=33)
+    engines = {"rel_linear": engine_for(_linear_prog()[0].forward),
+               "rel_embed": engine_for(_embed_prog()[0].forward)}
+    from repro_torch.serving import make_decode_step, make_prefill_step
+
+    prefill, decode = make_prefill_step(model, s + steps), make_decode_step(model)
+    kern.reset_launch_counts()
+    c_logits, secs, tokens = [], [], []
+    with LaunchLog(torch) as calls, repro_torch.Database().activate():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, caches = prefill(batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        c_logits.append(lg[:, -1].float())
+        for i in range(steps):
+            tokens.append(lg[:, -1].argmax(-1, keepdim=True).to(torch.int32))
+            t0 = time.perf_counter()
+            lg, caches = decode(tokens[-1], caches, s + i)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            c_logits.append(lg[:, -1].float())
+    launched = kern.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    del caches
+    sites = bf16_sites(torch, engines, repro_torch.Database().dispatch)
+    if not sites or any(t != "cuda" for _, _, _, t, _ in sites):
+        raise AssertionError(f"29.2: bf16 sites not all on cuda: {[(k, t) for _, k, _, t, _ in sites]}")
+    prefill_ms, decode_ms = secs[0] * 1e3, statistics.median(secs[1:]) * 1e3
+    floor_ms = CODER_PARAMS * 2 / HBM_BYTES_PER_S * 1e3
+    log(f"  29.2 cuda tier: prefill {prefill_ms:.1f} ms ({b * s / secs[0]:.1f} tokens/s), decode "
+        f"{decode_ms:.2f} ms a token (median of {steps}; the weights' read alone {floor_ms:.2f} ms); "
+        f"peak device memory {peak:,} bytes ({peak / 2**30:.2f} GiB); the bf16 sites so far "
+        f"({len(sites)}) on cuda; "
+        f"launches {launched}")
+    for op in GCN_KERNELS:
+        if launched[op] <= 0:
+            raise AssertionError(f"29.2: {op} did not launch")
+
+    kern.reset_launch_counts()
+    t_logits = []
+    with repro_torch.Database(dispatch="torch").activate():
+        lg, caches = prefill(batch)
+        t_logits.append(lg[:, -1].float())
+        for i in range(steps):
+            lg, caches = decode(tokens[i], caches, s + i)
+            t_logits.append(lg[:, -1].float())
+    del caches
+    if sum(kern.launch_counts().values()):
+        raise AssertionError("the torch tier launched a CUDA kernel")
+    e_c, e_t = errs[CODER_ARCH]
+    limit = CODER_MARGIN * (e_c + e_t) * math.sqrt(cfg.n_layers / ZOO16_LAYERS)
+    gaps = [logit_gap(a, c) for a, c in zip(c_logits, t_logits)]
+    # a greedy token must agree where the torch tier's top two logits lie
+    # further apart than the two tiers may differ
+    agree, near, same = 0, 0, 0
+    for a, c in zip(c_logits, t_logits):
+        top = c.topk(2, dim=-1).values
+        margin = float((top[:, 0] - top[:, 1]).min())
+        same += int(torch.equal(a.argmax(-1), c.argmax(-1)))
+        if margin > 2 * limit * float(c.abs().max()):
+            if not torch.equal(a.argmax(-1), c.argmax(-1)):
+                raise AssertionError("29.2: a greedy token differs between the tiers past the limit")
+            agree += 1
+        else:
+            near += 1
+    log(f"  29.2 against the torch tier: max|cuda - torch| / max|logit| per step {[f'{g:.3e}' for g in gaps]}"
+        f" (limit {CODER_MARGIN:g} x ({e_c:.3e} + {e_t:.3e}) x sqrt({cfg.n_layers}/{ZOO16_LAYERS}) = "
+        f"{limit:.3e}); greedy tokens equal at {same} of {len(gaps)} steps ({agree} of them past a "
+        f"near tie, {near} steps whose top two logits lie within twice the limit)")
+    if not max(gaps) <= limit:
+        raise AssertionError(f"29.2: the tiers' logits differ by {max(gaps):.3e}, past {limit:.3e}")
+    # planted: every MLP down projection (K = d_ff) misses its last segment
+    real = matmul_ops.blocked_matmul_forward
+
+    def short(x, y):
+        if x.shape[1] == cfg.d_ff:
+            return real(x[:, :-512].contiguous(), y[:-512].contiguous())
+        return real(x, y)
+
+    matmul_ops.blocked_matmul_forward = short
+    try:
+        with repro_torch.Database().activate():
+            lg, _ = prefill(batch)
+    finally:
+        matmul_ops.blocked_matmul_forward = real
+    planted = logit_gap(lg[:, -1].float(), t_logits[0])
+    log(f"  29.2 planted fault (the last 512 of {cfg.d_ff} terms of every down projection dropped): "
+        f"{planted:.3e}, {planted / limit:.3g} of the limit (must exceed 1)")
+    if not planted > limit:
+        raise AssertionError("29.2's limit passes a product that drops a segment")
+    del model, prefill, decode, lg
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launched, "pass": dict(calls.counts), "ids": dict(calls.ids)}
+
+
+def zoo16_train_phase(torch, repro_torch, kern, dev):
+    """29.4: olmoe-1b-7b at its published widths and dtype,
+    ZOO16_TRAIN_LAYERS layers, ZOO16_TRAIN_STEPS donated Adam steps on one
+    batch on the cuda tier, the products of the forward and of remat's
+    recompute on the kernel; step 1's loss and gradient norm on the cuda
+    and the torch tiers against the f32 yardstick (the cuda run's routing
+    throughout), the cuda tier's error at most ZOO16_FACTOR × the torch
+    tier's (floor 2⁻⁹)."""
+    import copy
+
+    from repro_torch.data import synthetic_lm_batches
+    from repro_torch.models import build_model, ffn
+    from repro_torch.train import init_train_state, lm_loss, make_train_step
+
+    cfg = zoo16_config(OLMOE_ARCH, n_layers=ZOO16_TRAIN_LAYERS)
+    b, s, n = ZOO16_TRAIN_BATCH, ZOO16_TRAIN_SEQ, ZOO16_TRAIN_STEPS
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = build_model(cfg, seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    batch = next(synthetic_lm_batches(cfg, b, s, seed=0))
+
+    def step1(m, dispatch, routing, replay):
+        params = dict(m.named_parameters())
+        routing.run(replay)
+        with repro_torch.Database(dispatch=dispatch).activate():
+            logits, aux = m.train_logits(batch)
+            loss = lm_loss(logits, batch["labels"])
+            grads = torch.autograd.grad(loss + 0.01 * aux, list(params.values()), allow_unused=True)
+        norm = math.sqrt(sum(float(g.float().pow(2).sum()) for g in grads if g is not None))
+        return float(loss.detach()), norm, routing.calls
+
+    with Routing(torch, ffn) as routing:
+        c_loss, c_norm, calls = step1(model, None, routing, None)
+        t_loss, t_norm, _ = step1(model, "torch", routing, calls)
+        y_loss, y_norm, _ = step1(to_f32(torch, copy.deepcopy(model)), "torch", routing, calls)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rel = {k: (abs(c - y) / abs(y), abs(t - y) / abs(y))
+           for k, (c, t, y) in {"loss": (c_loss, t_loss, y_loss), "norm": (c_norm, t_norm, y_norm)}.items()}
+    for k, (e_c, e_t) in rel.items():
+        limit = ZOO16_FACTOR * max(e_t, ZOO16_FLOOR)
+        log(f"  29.4 step-1 {k}: cuda {(c_loss, c_norm)[k == 'norm']!r}, torch {(t_loss, t_norm)[k == 'norm']!r}, "
+            f"f32 {(y_loss, y_norm)[k == 'norm']!r}; against the yardstick cuda {e_c:.3e}, torch {e_t:.3e} "
+            f"(limit {limit:.3e})")
+        if not e_c <= limit:
+            raise AssertionError(f"29.4: the step-1 {k} of the cuda tier is past its limit")
+
+    state = init_train_state(model)
+    db = repro_torch.Database()
+    step = make_train_step(model, grad_clip=1.0, donate=True, database=db)
+    params, opt = state.params, state.opt_state
+    kern.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = [], []
+    with LaunchLog(torch) as train_log:
+        for i in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, metrics = step(params, opt, batch)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            losses.append(float(metrics["loss"]))
+    launched = kern.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    dtypes = sorted({str(v.dtype).replace("torch.", "") for v in params.values()})
+    mdtypes = sorted({str(v.dtype).replace("torch.", "") for v in opt["mu"].values()})
+    log(f"  29.4 {cfg.name} at {cfg.n_layers} layers, {n_params:,} parameters ({dtypes}), moments "
+        f"{mdtypes} (opt_state_dtype {cfg.opt_state_dtype}), remat {cfg.remat} ({cfg.remat_policy}); "
+        f"{n} steps on {b} x {s} tokens: losses {losses}, step ms {[t * 1e3 for t in secs]}; peak "
+        f"{peak:,} bytes; launches {launched}; MoE sites {sorted(train_log.moe_tiers)}")
+    if losses[0] != c_loss:
+        raise AssertionError(f"29.4: the train step's loss {losses[0]!r} is not step 1's {c_loss!r}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError("29.4: the bf16 loss did not fall")
+    if launched["blocked_matmul"] <= 0 or any(t != "cuda" for _, t in train_log.moe_tiers):
+        raise AssertionError("29.4: the products did not run on the kernel")
+    del model, params, opt, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launched, "pass": {k: v / n for k, v in train_log.counts.items()},
+            "ids": dict(train_log.ids)}
+
+
+def zoo16_phase(torch, repro_torch, kern, dev):
+    """Phase 29: 29.1, then 29.3 (its errors set 29.2's limit), 29.2 and
+    29.4, then 29.1 at the other call shapes those paths took. Returns phase
+    8's paths (launches, calls per pass, first ids) and 29.1's largest
+    error."""
+    t0 = time.perf_counter()
+    worst, more = check_matmul16(torch, kern, dev)
+    log(f"  29.1: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    kinds = zoo16_kinds_phase(torch, repro_torch, kern, dev)
+    log(f"  29.3: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    coder = coder_phase(torch, repro_torch, kern, dev, kinds["errs"])
+    log(f"  29.2: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    train = zoo16_train_phase(torch, repro_torch, kern, dev)
+    log(f"  29.4: {time.perf_counter() - t0:.1f} s")
+    paths = {"zoo_bf16": kinds, "coder_bf16": coder, "olmoe_bf16_train": train}
+    # 29.1 again at the call shapes of 29.2-29.4 it has not checked (their
+    # rows M: the prefills', whisper's encoder's, the train step's)
+    t0 = time.perf_counter()
+    extra = more(key for run in paths.values() for key in run["pass"])
+    err, ex = worst()
+    log(f"  29.1 at the paths' other call shapes: {extra} more products, {time.perf_counter() - t0:.1f} s; "
+        f"largest |c - ref| {err:.4g}, largest excess {ex:.3f}")
+    return {"paths": paths, "max_abs_err": err}
+
+
 def main() -> int:
     import torch
 
@@ -10514,12 +11198,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"  phases 23-28: {time.perf_counter() - t0:.1f} s")
 
+    # phase 29 runs after the mesh phases, before phase 8, which times its
+    # sites too: deepseek-coder-33b's 66.69 GB of bf16 weights need the card
+    # to themselves
+    log("phase 29: the LM zoo at its published dtype (bf16) on the tensor-core blocked_matmul")
+    t0 = time.perf_counter()
+    zoo16 = zoo16_phase(torch, repro_torch, kern, dev)
+    errs["blocked_matmul_16"] = zoo16["max_abs_err"]
+    log(f"  phase 29: {time.perf_counter() - t0:.1f} s")
+
     log("phase 8: timings at the shapes of the main paths")
     log(smi)
     t0 = time.perf_counter()
     records = timing_phase(torch, graph, {"sites": sites, "launches": launches}, logreg, nnmf, kge,
                            lm, oocore, olmoe, ssm, dense, mesh, lm_mesh, ssm_mesh, mla_mesh, zoo_mesh,
-                           budget_mesh, errs, dev)
+                           budget_mesh, zoo16, errs, dev)
     log(f"  phase 8: {time.perf_counter() - t0:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)

@@ -23,9 +23,21 @@ import torch
 from .core.relation import CooRelation, DenseRelation
 
 
+def _host(a) -> torch.Tensor:
+    """A CPU tensor holding a copy of the array ``a``. A bf16 array (numpy
+    knows the type only through ``ml_dtypes``, whose arrays torch cannot
+    read) crosses by its bits, as ``checkpoint/ckpt.py`` reads them: viewed
+    as int16, then as ``torch.bfloat16``."""
+    arr = np.array(a)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.as_tensor(arr)
+
+
 def tensor(a, device, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """A copy of the array ``a`` as a tensor on ``device``."""
-    return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+    """A copy of the array ``a`` as a tensor on ``device`` (bf16 arrays
+    bit for bit)."""
+    return _host(a).to(device=device, dtype=dtype)
 
 
 def params(arrays: Mapping[str, object], device) -> Dict[str, torch.Tensor]:
@@ -87,7 +99,7 @@ def _assign(target, tree, path: str, done: set) -> None:
         arr = np.asarray(tree)
         if tuple(arr.shape) != tuple(target.shape):
             raise ValueError(f"{path}: shape {arr.shape} for a parameter of {tuple(target.shape)}")
-        target.copy_(torch.as_tensor(np.array(arr)))
+        target.copy_(_host(arr))
         done.add(id(target))
 
 

@@ -1044,6 +1044,20 @@ def spec_layout(spec, geometry, arity: int) -> Layout:
     return out
 
 
+def spec_folds(spec, geometry, arity: int) -> set:
+    """The key dims a partition spec cuts over the model axis and the data
+    axes at once (a ``DTensor`` placed ``[Shard(0), Shard(0)]`` on a
+    ("data", "model") mesh): ``spec_layout`` names them "model", and the
+    rank holds a slab of the ("data", "model") fold, data outermost."""
+    out = set()
+    for d, entry in enumerate(tuple(spec or ())):
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        if (entry is not None and d < arity and geometry.model_axis in axes
+                and any(a in geometry.data_axes for a in axes)):
+            out.add(d)
+    return out
+
+
 class Placement:
     """One rank's view of a step on a mesh: the collective layer ``comm``
     (``launch.collectives.MeshComm``: the axis groups' sizes, this rank's
@@ -1109,6 +1123,14 @@ class Placement:
                 rel = self.slice(rel, d, k)
                 now[d] = k
         return rel, now
+
+    def unfold(self, rel: AnyRel, lay: Layout, dims) -> Tuple[AnyRel, Layout]:
+        """``rel`` with ``dims`` (cut over the ("data", "model") fold,
+        ``spec_folds``) whole on every rank: the model group's slabs are
+        gathered first (they are consecutive), then the data group's."""
+        for d in sorted(dims):
+            rel = self.gather(self.gather(rel, d, "model"), d, "data")
+        return rel, {d: k for d, k in lay.items() if d not in dims}
 
     def whole(self, rel: AnyRel, lay: Layout, dims=None) -> Tuple[AnyRel, Layout]:
         """``rel`` with ``dims`` (every dim when None) whole on every rank."""

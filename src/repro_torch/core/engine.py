@@ -362,7 +362,7 @@ class Compiled:
         """This rank's shard of ``rel`` at the planned spec (a COO padded
         to ``pad_nnz`` first), its layout, and the bytes of a committed
         layout moved to get there."""
-        from .compiler import spec_layout
+        from .compiler import spec_folds, spec_layout
 
         arity = 1 if isinstance(rel, CooRelation) else rel.key_arity
         target = spec_layout(self.in_shardings.get(name), self.geometry, arity)
@@ -379,10 +379,12 @@ class Compiled:
                              rel.owner_dim, rel.shard_offsets)
         )
         lay = spec_layout(have, self.geometry, arity)
-        if lay == target and pad is None:
+        folds = spec_folds(have, self.geometry, arity)
+        if lay == target and pad is None and not folds:
             return local, lay, 0
         # a relation committed whole on every rank is cut for free
         nbytes = int(planner._rel_bytes(rel)) if lay else 0
+        local, lay = place.unfold(local, lay, folds)
         whole, _ = place.whole(local, lay)
         if pad is not None:
             whole = pad_coo_nnz(whole, pad)

@@ -965,15 +965,10 @@ def _dtype_name(dtype) -> str:
     return str(dtype).replace("torch.", "")
 
 
-def _is_f32(info: Dict) -> bool:
-    # blocked_matmul reads and writes f32 and sums in f32; any other dtype
-    # (f64, bf16, ...) falls through to the next tier and is recorded so
-    return info["dtype"] == torch.float32
-
-
 def _is_f32_bf16_f16(info: Dict) -> bool:
-    # the segment-sum and gather kernels take f32, bf16 and f16 (the sum in
-    # f32, rounded once); f64 falls through to the next tier
+    # the segment-sum, gather and matmul kernels take f32, bf16 and f16 (the
+    # sum in f32, rounded once); f64 falls through to the next tier and is
+    # recorded so
     return info["dtype"] in (torch.float32, torch.bfloat16, torch.float16)
 
 
@@ -1094,9 +1089,9 @@ register_impl("segment_sum", "ref", _segsum_ref)
 register_impl("segment_sum", "torch", _segsum_ref)
 
 register_impl(
-    "blocked_matmul", "cuda", _matmul_cuda, backends=("cuda",), predicate=_is_f32
+    "blocked_matmul", "cuda", _matmul_cuda, backends=("cuda",), predicate=_is_f32_bf16_f16
 )
-register_impl("blocked_matmul", "sanitizer", _matmul_sanitizer, predicate=_is_f32)
+register_impl("blocked_matmul", "sanitizer", _matmul_sanitizer, predicate=_is_f32_bf16_f16)
 register_impl("blocked_matmul", "ref", _matmul_ref)
 register_impl("blocked_matmul", "torch", _matmul_torch)
 

@@ -27,6 +27,9 @@ enum KernelCode : int {
   kMatmulSkinny = 7,
   kMatmulReduce = 8,
   kSsmScan = 9,
+  kMatmulTiledMma = 10,
+  kMatmulSkinnyMma = 11,
+  kMatmulReduce16 = 12,
 };
 
 constexpr int kMaxLaunches = 4;

@@ -1,5 +1,6 @@
 // f32-accurate matrix product on Hopper: c = a @ b, a (M, K), b (K, N), all
-// f32, row-major and contiguous.
+// f32, row-major and contiguous. The 16-bit products (bf16 and f16 on the
+// tensor cores, the same plan and summation order) follow it below.
 //
 // Replaces the TPU kernel src/repro/kernels/matmul/matmul.py::_matmul_kernel
 // (128^3 MXU tiles, a VMEM f32 accumulator carried along a sequential K grid
@@ -50,6 +51,8 @@
 // Tensor cores at f32 accuracy (a three-way split, or wgmma with b restaged
 // K-major) and a persistent schedule come later.
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <atomic>
@@ -97,7 +100,7 @@ constexpr int kSSmemBytes = kSStages * kSStageFloats * 4;
 constexpr int kReduceThreads = 256;
 constexpr int kReduceLongChain = 64;  // more segments than this: 32 lanes per entry
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(bytes)
                : "memory");
@@ -355,9 +358,17 @@ matmul_skinny_kernel(const float* __restrict__ a, const float* __restrict__ b,
 // order, taking them by shuffle. G = 1 for a few segments; G = 32 for long
 // chains (d-theta has 2,048), where one lane's loads in flight would leave
 // the chain waiting on memory.
-template <int G>
+__device__ __forceinline__ float to_out(float x, float*) { return x; }
+__device__ __forceinline__ __nv_bfloat16 to_out(float x, __nv_bfloat16*) {
+  return __float2bfloat16_rn(x);
+}
+__device__ __forceinline__ __half to_out(float x, __half*) { return __float2half_rn(x); }
+
+// OutT: float (the f32 product) or a 16-bit type, each entry rounded once
+// from the f32 total at the store.
+template <int G, typename OutT>
 __global__ void __launch_bounds__(kReduceThreads)
-matmul_ordered_sum_kernel(const float* __restrict__ part, float* __restrict__ c,
+matmul_ordered_sum_kernel(const float* __restrict__ part, OutT* __restrict__ c,
                           long long mn, int nseg) {
   constexpr int P = 4;
   const long long t = static_cast<long long>(blockIdx.x) * kReduceThreads + threadIdx.x;
@@ -382,7 +393,7 @@ matmul_ordered_sum_kernel(const float* __restrict__ part, float* __restrict__ c,
         if (base + r * G + q < nseg) tot = __fadd_rn(tot, x[q]);
     }
   }
-  if (j == 0) c[i] = tot;
+  if (j == 0) c[i] = to_out(tot, c);
 }
 
 // Raise a kernel's dynamic shared-memory cap once per device.
@@ -422,6 +433,54 @@ cudaError_t launch_product(bool tiled, const float* a, const float* b, float* ou
                        : launch_tiled<2, VA, VB>(a, b, out, m, n, k, split, grid, st);
 }
 
+// What one call launches, for every dtype (matmul/ops.py::plan mirrors it):
+// the path, the product's grid, whether it is split over its K-segments.
+struct Plan {
+  bool tiled, split;
+  int nseg;
+  long long mn;
+  dim3 grid;
+};
+
+// The plan of an (m, k) @ (k, n) product, m and n > 0; false where a grid
+// would pass CUDA's limits.
+bool make_plan(int m, int n, int k, Plan& p) {
+  p.nseg = (k + kSegLen - 1) / kSegLen;
+  p.mn = static_cast<long long>(m) * n;
+  p.tiled = m > kSkinnyRows;
+  if (p.tiled) {
+    const long long gx = (static_cast<long long>(m) + kTM - 1) / kTM;
+    const int tile_n = n <= kNarrowN ? Tile<1>::kN : Tile<2>::kN;
+    const long long gy = (static_cast<long long>(n) + tile_n - 1) / tile_n;
+    if (gy > 65535LL) return false;
+    p.split = p.nseg > 1 && gx * gy < kSplitTiles && p.nseg <= 65535 &&
+              p.nseg * p.mn * 4 <= kSplitMaxBytes;
+    p.grid = dim3(static_cast<unsigned>(gx), static_cast<unsigned>(gy), p.split ? p.nseg : 1);
+  } else {
+    const long long slabs = (static_cast<long long>(n) + kSN - 1) / kSN;
+    if (slabs > 65535LL) return false;
+    p.split = p.nseg != 1;  // one segment writes c directly; none, the sum writes zeros
+    p.grid = dim3(p.nseg, static_cast<unsigned>(slabs));
+  }
+  return true;
+}
+
+// The ordered sum of a split product's partials into c, recorded as `code`.
+template <typename OutT>
+cudaError_t launch_reduce(const float* part, OutT* c, long long mn, int nseg, int code,
+                          cudaStream_t st) {
+  const int lanes = nseg > kReduceLongChain ? 32 : 1;
+  const long long blocks = (mn * lanes + kReduceThreads - 1) / kReduceThreads;
+  repro::record_launch(code, lanes, dim3(static_cast<unsigned>(blocks)), dim3(kReduceThreads));
+  if (lanes == 32)
+    matmul_ordered_sum_kernel<32, OutT><<<static_cast<unsigned>(blocks), kReduceThreads, 0, st>>>(
+        part, c, mn, nseg);
+  else
+    matmul_ordered_sum_kernel<1, OutT><<<static_cast<unsigned>(blocks), kReduceThreads, 0, st>>>(
+        part, c, mn, nseg);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // a: (m, k), b: (k, n), c: (m, n); f32, row-major, contiguous. workspace:
@@ -441,49 +500,429 @@ extern "C" int repro_matmul_f32(const void* a_, const void* b_, void* c_, void* 
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool va = k % 4 == 0 && reinterpret_cast<std::uintptr_t>(a) % 16 == 0;
   const bool vb = n % 4 == 0 && reinterpret_cast<std::uintptr_t>(b) % 16 == 0;
-  const int nseg = (k + kSegLen - 1) / kSegLen;
-  const long long mn = static_cast<long long>(m) * n;
-  const bool tiled = m > kSkinnyRows;
-  bool split;
-  dim3 grid;
-  if (tiled) {
-    const long long gx = (static_cast<long long>(m) + kTM - 1) / kTM;
-    const int tile_n = n <= kNarrowN ? Tile<1>::kN : Tile<2>::kN;
-    const long long gy = (static_cast<long long>(n) + tile_n - 1) / tile_n;
-    if (gy > 65535LL) return static_cast<int>(cudaErrorInvalidValue);
-    split = nseg > 1 && gx * gy < kSplitTiles && nseg <= 65535 &&
-            nseg * mn * 4 <= kSplitMaxBytes;
-    grid = dim3(static_cast<unsigned>(gx), static_cast<unsigned>(gy), split ? nseg : 1);
-  } else {
-    const long long slabs = (static_cast<long long>(n) + kSN - 1) / kSN;
-    if (slabs > 65535LL) return static_cast<int>(cudaErrorInvalidValue);
-    split = nseg != 1;  // one segment writes c directly; none, the sum writes zeros
-    grid = dim3(nseg, static_cast<unsigned>(slabs));
-  }
-  if (split && nseg > 0 && (workspace == nullptr || workspace_bytes < nseg * mn * 4))
+  Plan p;
+  if (!make_plan(m, n, k, p)) return static_cast<int>(cudaErrorInvalidValue);
+  if (p.split && p.nseg > 0 && (workspace == nullptr || workspace_bytes < p.nseg * p.mn * 4))
     return static_cast<int>(cudaErrorInvalidValue);
-  float* out = split ? static_cast<float*>(workspace) : c;
+  float* out = p.split ? static_cast<float*>(workspace) : c;
+  const bool tiled = p.tiled, split = p.split;
+  const dim3 grid = p.grid;
   cudaError_t err = cudaSuccess;
-  if (tiled || nseg > 0) {
+  if (tiled || p.nseg > 0) {
     err = va ? (vb ? launch_product<true, true>(tiled, a, b, out, m, n, k, split, grid, st)
                    : launch_product<true, false>(tiled, a, b, out, m, n, k, split, grid, st))
              : (vb ? launch_product<false, true>(tiled, a, b, out, m, n, k, split, grid, st)
                    : launch_product<false, false>(tiled, a, b, out, m, n, k, split, grid, st));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  if (split) {
-    const int lanes = nseg > kReduceLongChain ? 32 : 1;
-    const long long blocks = (mn * lanes + kReduceThreads - 1) / kReduceThreads;
-    const float* part = static_cast<const float*>(workspace);
-    repro::record_launch(repro::kMatmulReduce, lanes, dim3(static_cast<unsigned>(blocks)),
-                         dim3(kReduceThreads));
-    if (lanes == 32)
-      matmul_ordered_sum_kernel<32><<<static_cast<unsigned>(blocks), kReduceThreads, 0, st>>>(
-          part, c, mn, nseg);
-    else
-      matmul_ordered_sum_kernel<1><<<static_cast<unsigned>(blocks), kReduceThreads, 0, st>>>(
-          part, c, mn, nseg);
-    err = cudaGetLastError();
-  }
+  if (split)
+    err = launch_reduce(static_cast<const float*>(workspace), c, p.mn, p.nseg, repro::kMatmulReduce,
+                        st);
   return static_cast<int>(err);
+}
+
+// ---------------------------------------------------------------------------
+// 16-bit products on the tensor cores: c = a @ b, a (M, K), b (K, N), c
+// (M, N), all bf16 or all f16, row-major and contiguous.
+//
+// This is the TPU kernel's own case: _matmul_kernel reads bf16 tiles, sums
+// in f32 on the MXU and rounds once to out_dtype = x.dtype. Here each
+// product term goes through mma.sync.aligned.m16n8k16.row.col.f32.{bf16,
+// f16}: a 16 x 16 tile of a and a 16 x 8 tile of b, taken from shared memory
+// by ldmatrix (b transposed on the way, since it is stored k-major), are
+// multiplied and added into an f32 accumulator. A product of two 16-bit
+// values is exact in f32, so the 3xTF32 trouble above does not arise.
+//
+// Summation order, the f32 kernel's: K is cut into kSegLen = 512 segments;
+// inside a segment the k16 steps run in ascending order into an f32 sum
+// that starts at 0 (the order inside one mma is the tensor core's own);
+// segment sums are added in ascending order into an f32 total, in
+// registers, or through the f32 workspace and the ordered sum when the
+// product is split; each entry is rounded once to the output type at the
+// store. An mma's entry (i, j) depends on row i of a, column j of b and
+// its accumulator alone, and both paths run the same k16 steps (none past
+// K), so a row of the product is bit-identical whatever M is.
+//
+// Two paths, chosen as the f32 kernel chooses (the same grids):
+// - tiled (M > kSkinnyRows): a block of 8 warps (4 x 2) owns a 128 x 128
+//   tile of c, each warp 32 x 64 (two m16 tiles by eight n8 tiles); for
+//   n <= 64 a 128 x 64 tile, each warp 32 x 32. A 4-stage cp.async ring of
+//   128 x 32 tiles of a and 32 x 128 (32 x 64) tiles of b feeds them, rows
+//   padded by 8 values so that ldmatrix's 8 rows fall in distinct banks.
+// - skinny (M <= kSkinnyRows: decode, the head at decode): split-K, one
+//   block of 4 warps per (K-segment, 64-column slab), one m16 row tile whose
+//   rows past M are zero-filled, each warp 16 columns (two n8 tiles).
+// Copies: 16 bytes (8 values) where a row's length and the base allow it,
+// the ragged edge zero-filled by cp.async; otherwise 4-byte units loaded
+// by the threads (two values, or one and one at a 2-byte aligned address)
+// and stored to shared memory, zero outside the matrix.
+// What bounds it: operations for the large products (2*M*N*K FLOPs; 989
+// TFLOP/s dense bf16/f16 on an H100 SXM), bytes for the skinny ones. This
+// is the simple kernel: wgmma, TMA and a persistent schedule come later.
+
+namespace {
+
+constexpr int kHTM = 128, kHThreads = 256, kHStages = 4, kHBK = 32;
+constexpr int kHLDA = kHBK + 8;  // a tile's padded row (80 bytes)
+static_assert(kSegLen % kHBK == 0, "a stage never straddles two segments");
+
+template <int NT>  // n8 tiles per warp: 8 (128 columns a block) or 4 (64)
+struct HTile {
+  static constexpr int kN = 16 * NT;       // the block's columns (2 warps across)
+  static constexpr int kLDB = kN + 8;      // a b tile's padded row
+  static constexpr int kStageElems = kHTM * kHLDA + kHBK * kLDB;
+  static constexpr int kSmemBytes = kHStages * kStageElems * 2;
+};
+
+constexpr int kHSN = 64, kHSThreads = 128;  // skinny: 4 warps x 16 columns
+constexpr int kHSLDA = kHBK + 8, kHSLDB = kHSN + 8;
+constexpr int kHSStageElems = kSkinnyRows * kHSLDA + kHBK * kHSLDB;
+constexpr int kHSSmemBytes = kHStages * kHSStageElems * 2;
+
+template <typename T>
+struct MmaOp;
+
+template <>
+struct MmaOp<__nv_bfloat16> {
+  static __device__ __forceinline__ void run(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                             unsigned b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+        "{%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+};
+
+template <>
+struct MmaOp<__half> {
+  static __device__ __forceinline__ void run(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                             unsigned b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+        "{%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+};
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// a's 16 x 16 fragment: lane l names row l % 16, columns (l / 16) * 8 on
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// b's fragments of two n8 tiles from a k-major tile: lane l names k row
+// (l % 8) + ((l / 8) % 2) * 8, columns (l / 16) * 8 on; r[0], r[1] are the
+// first tile's (k 0-7, 8-15), r[2], r[3] the second's
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// Copy rows [r0, r0 + R) x columns [c0, c0 + C) of a row-major 16-bit matrix
+// (`rows` x `cols` valid, leading dimension `ld`) into a shared tile of
+// leading dimension `lds`, zero outside. VEC: 16-byte cp.async (cols % 8 ==
+// 0 and a 16-byte aligned base); else 4-byte units by the threads.
+template <bool VEC, int R, int C, int THREADS>
+__device__ __forceinline__ void load_tile16(unsigned short* dst, int lds,
+                                            const unsigned short* __restrict__ src, long long ld,
+                                            int r0, int c0, int rows, int cols, int tid) {
+  constexpr int W = VEC ? 8 : 2;
+  constexpr int PER_ROW = C / W;
+  constexpr int UNITS = R * PER_ROW;
+#pragma unroll
+  for (int it = 0; it < (UNITS + THREADS - 1) / THREADS; ++it) {
+    const int i = tid + it * THREADS;
+    if (UNITS % THREADS != 0 && i >= UNITS) break;
+    const int r = i / PER_ROW, cc = (i % PER_ROW) * W;
+    const int gr = r0 + r, gc = c0 + cc;
+    const bool in = gr < rows && gc < cols;
+    const unsigned short* p = in ? src + static_cast<long long>(gr) * ld + gc : src;
+    if (VEC) {
+      cp_async16(dst + r * lds + cc, p, in ? 2 * min(8, cols - gc) : 0);
+    } else {
+      unsigned v = 0;
+      if (in) {
+        if (gc + 1 < cols && (reinterpret_cast<std::uintptr_t>(p) & 3) == 0) {
+          v = __ldg(reinterpret_cast<const unsigned*>(p));
+        } else {
+          v = __ldg(p);
+          if (gc + 1 < cols) v |= static_cast<unsigned>(__ldg(p + 1)) << 16;
+        }
+      }
+      *reinterpret_cast<unsigned*>(dst + r * lds + cc) = v;
+    }
+  }
+}
+
+// grid (row tiles, column tiles, z). split = 0: z = 1, each block walks all
+// of K, keeps the running totals and writes c (16-bit). split = 1: block z
+// sums segment z alone and writes it as f32 partial z of `ws`.
+template <typename T, int NT, bool VA, bool VB>
+__global__ void __launch_bounds__(kHThreads, 1)
+matmul_tiled_mma_kernel(const T* __restrict__ a_, const T* __restrict__ b_, T* __restrict__ c,
+                        float* __restrict__ ws, int m, int n, int k, int split) {
+  using Tl = HTile<NT>;
+  extern __shared__ __align__(16) unsigned short hsmem[];
+  const unsigned short* a = reinterpret_cast<const unsigned short*>(a_);
+  const unsigned short* b = reinterpret_cast<const unsigned short*>(b_);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int row0 = blockIdx.x * kHTM, col0 = blockIdx.y * Tl::kN;
+  const int wm = (warp >> 1) * 32, wn = (warp & 1) * (8 * NT);
+  const bool busy = live(m - row0 - wm) && live(n - col0 - wn);  // warp-uniform
+  constexpr int kStagesPerSeg = kSegLen / kHBK;
+  const int nkt = (k + kHBK - 1) / kHBK;
+  const int kt0 = split ? blockIdx.z * kStagesPerSeg : 0;
+  const int kt1 = split ? min(kt0 + kStagesPerSeg, nkt) : nkt;
+  const int nk = kt1 - kt0;
+
+  float seg[2][NT][4], tot[2][NT][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) seg[i][j][e] = tot[i][j][e] = 0.f;
+
+  auto load = [&](int it) {
+    unsigned short* st = hsmem + (it % kHStages) * Tl::kStageElems;
+    const int k0 = (kt0 + it) * kHBK;
+    load_tile16<VA, kHTM, kHBK, kHThreads>(st, kHLDA, a, k, row0, k0, m, k, tid);
+    load_tile16<VB, kHBK, Tl::kN, kHThreads>(st + kHTM * kHLDA, Tl::kLDB, b, n, k0, col0, k, n,
+                                             tid);
+  };
+#pragma unroll
+  for (int s = 0; s < kHStages - 1; ++s) {
+    if (s < nk) load(s);
+    cp_async_commit();
+  }
+  for (int it = 0; it < nk; ++it) {
+    cp_async_wait<kHStages - 2>();
+    __syncthreads();
+    if (it + kHStages - 1 < nk) load(it + kHStages - 1);
+    cp_async_commit();
+    const unsigned short* st = hsmem + (it % kHStages) * Tl::kStageElems;
+    const unsigned short* as = st + (wm + (lane & 15)) * kHLDA + (lane >> 4) * 8;
+    const unsigned short* bs =
+        st + kHTM * kHLDA + ((lane & 7) + ((lane >> 3) & 1) * 8) * Tl::kLDB + wn + (lane >> 4) * 8;
+    const int k0 = (kt0 + it) * kHBK;
+    if (busy) {
+#pragma unroll
+      for (int kk = 0; kk < kHBK; kk += 16) {
+        if (k0 + kk >= k) break;  // no k16 step past K: the skinny path runs none either
+        unsigned af[2][4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) ldmatrix_x4(af[i], as + i * 16 * kHLDA + kk);
+#pragma unroll
+        for (int jj = 0; jj < NT / 2; ++jj) {
+          unsigned bf[4];
+          ldmatrix_x4_trans(bf, bs + kk * Tl::kLDB + jj * 16);
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            MmaOp<T>::run(seg[i][2 * jj], af[i], bf[0], bf[1]);
+            MmaOp<T>::run(seg[i][2 * jj + 1], af[i], bf[2], bf[3]);
+          }
+        }
+      }
+    }
+    if (!split && ((kt0 + it + 1) % kStagesPerSeg == 0 || it + 1 == nk)) {  // a segment ends
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            tot[i][j][e] = __fadd_rn(tot[i][j][e], seg[i][j][e]);
+            seg[i][j][e] = 0.f;
+          }
+    }
+  }
+  cp_async_wait<0>();
+
+  if (!busy) return;
+  const int g = lane >> 2, t4 = lane & 3;
+  float* part = split ? ws + static_cast<long long>(blockIdx.z) * m * n : nullptr;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = row0 + wm + i * 16 + g + (e >> 1) * 8;
+        const int cc = col0 + wn + j * 8 + 2 * t4 + (e & 1);
+        if (r < m && cc < n) {
+          const long long at = static_cast<long long>(r) * n + cc;
+          if (split)
+            part[at] = seg[i][j][e];
+          else
+            c[at] = to_out(tot[i][j][e], c);
+        }
+      }
+}
+
+// grid (segments, 64-column slabs): one m16 row tile (rows past m zero),
+// warp w sums columns 16w..16w+15 of the slab over the block's segment.
+// direct (one segment): c = 0 + seg, rounded; else f32 partial s of `ws`.
+template <typename T, bool VA, bool VB>
+__global__ void __launch_bounds__(kHSThreads)
+matmul_skinny_mma_kernel(const T* __restrict__ a_, const T* __restrict__ b_, T* __restrict__ c,
+                         float* __restrict__ ws, int m, int n, int k, int direct) {
+  extern __shared__ __align__(16) unsigned short hsmem[];
+  const unsigned short* a = reinterpret_cast<const unsigned short*>(a_);
+  const unsigned short* b = reinterpret_cast<const unsigned short*>(b_);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int s = blockIdx.x;
+  const int col0 = blockIdx.y * kHSN, wn = warp * 16;
+  const bool busy = live(n - col0 - wn);  // warp-uniform
+  const int kbeg = s * kSegLen;
+  const int nk = (min(k - kbeg, kSegLen) + kHBK - 1) / kHBK;
+
+  float seg[2][4];
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) seg[j][e] = 0.f;
+
+  auto load = [&](int kt) {
+    unsigned short* st = hsmem + (kt % kHStages) * kHSStageElems;
+    const int k0 = kbeg + kt * kHBK;
+    load_tile16<VA, kSkinnyRows, kHBK, kHSThreads>(st, kHSLDA, a, k, 0, k0, m, k, tid);
+    load_tile16<VB, kHBK, kHSN, kHSThreads>(st + kSkinnyRows * kHSLDA, kHSLDB, b, n, k0, col0, k,
+                                            n, tid);
+  };
+#pragma unroll
+  for (int i = 0; i < kHStages - 1; ++i) {
+    if (i < nk) load(i);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<kHStages - 2>();
+    __syncthreads();
+    if (kt + kHStages - 1 < nk) load(kt + kHStages - 1);
+    cp_async_commit();
+    const unsigned short* st = hsmem + (kt % kHStages) * kHSStageElems;
+    const unsigned short* as = st + (lane & 15) * kHSLDA + (lane >> 4) * 8;
+    const unsigned short* bs = st + kSkinnyRows * kHSLDA +
+                               ((lane & 7) + ((lane >> 3) & 1) * 8) * kHSLDB + wn + (lane >> 4) * 8;
+    const int k0 = kbeg + kt * kHBK;
+    if (busy) {
+#pragma unroll
+      for (int kk = 0; kk < kHBK; kk += 16) {
+        if (k0 + kk >= k) break;
+        unsigned af[4], bf[4];
+        ldmatrix_x4(af, as + kk);
+        ldmatrix_x4_trans(bf, bs + kk * kHSLDB);
+        MmaOp<T>::run(seg[0], af, bf[0], bf[1]);
+        MmaOp<T>::run(seg[1], af, bf[2], bf[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  if (!busy) return;
+  const int g = lane >> 2, t4 = lane & 3;
+  float* part = direct ? nullptr : ws + static_cast<long long>(s) * m * n;
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = g + (e >> 1) * 8;
+      const int cc = col0 + wn + j * 8 + 2 * t4 + (e & 1);
+      if (r < m && cc < n) {
+        const long long at = static_cast<long long>(r) * n + cc;
+        if (direct)
+          c[at] = to_out(__fadd_rn(0.f, seg[j][e]), c);
+        else
+          part[at] = seg[j][e];
+      }
+    }
+}
+
+template <typename T, int NT, bool VA, bool VB>
+cudaError_t launch_tiled_mma(const T* a, const T* b, T* c, float* ws, int m, int n, int k,
+                             int split, dim3 grid, cudaStream_t st) {
+  constexpr int bytes = HTile<NT>::kSmemBytes;
+  static std::atomic<unsigned> done{0};
+  const cudaError_t err = allow_smem(
+      reinterpret_cast<const void*>(&matmul_tiled_mma_kernel<T, NT, VA, VB>), bytes, done);
+  if (err != cudaSuccess) return err;
+  repro::record_launch(repro::kMatmulTiledMma, HTile<NT>::kN, grid, dim3(kHThreads));
+  matmul_tiled_mma_kernel<T, NT, VA, VB><<<grid, kHThreads, bytes, st>>>(a, b, c, ws, m, n, k,
+                                                                         split);
+  return cudaGetLastError();
+}
+
+template <typename T, bool VA, bool VB>
+cudaError_t launch_product_mma(bool tiled, const T* a, const T* b, T* c, float* ws, int m, int n,
+                               int k, int split, dim3 grid, cudaStream_t st) {
+  if (!tiled) {
+    repro::record_launch(repro::kMatmulSkinnyMma, 0, grid, dim3(kHSThreads));
+    matmul_skinny_mma_kernel<T, VA, VB><<<grid, kHSThreads, kHSSmemBytes, st>>>(a, b, c, ws, m, n,
+                                                                                k, !split);
+    return cudaGetLastError();
+  }
+  return n <= kNarrowN ? launch_tiled_mma<T, 4, VA, VB>(a, b, c, ws, m, n, k, split, grid, st)
+                       : launch_tiled_mma<T, 8, VA, VB>(a, b, c, ws, m, n, k, split, grid, st);
+}
+
+// The 16-bit entry points' body: the f32 entry point's plan (the same paths,
+// grids, split rule and workspace of f32 partials), the mma kernels.
+static_assert(kHTM == kTM && HTile<4>::kN == Tile<1>::kN && HTile<8>::kN == Tile<2>::kN &&
+                  kHSN == kSN,
+              "the 16-bit kernels take the f32 kernel's plan");
+template <typename T>
+int matmul16(const void* a_, const void* b_, void* c_, void* workspace, long long workspace_bytes,
+             int m, int n, int k, void* stream) {
+  repro::record_begin();
+  if (m < 0 || n < 0 || k < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (m == 0 || n == 0) return 0;
+  const T* a = static_cast<const T*>(a_);
+  const T* b = static_cast<const T*>(b_);
+  T* c = static_cast<T*>(c_);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool va = k % 8 == 0 && reinterpret_cast<std::uintptr_t>(a) % 16 == 0;
+  const bool vb = n % 8 == 0 && reinterpret_cast<std::uintptr_t>(b) % 16 == 0;
+  Plan p;
+  if (!make_plan(m, n, k, p)) return static_cast<int>(cudaErrorInvalidValue);
+  if (p.split && p.nseg > 0 && (workspace == nullptr || workspace_bytes < p.nseg * p.mn * 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  float* ws = static_cast<float*>(workspace);
+  const bool tiled = p.tiled, split = p.split;
+  const dim3 grid = p.grid;
+  cudaError_t err = cudaSuccess;
+  if (tiled || p.nseg > 0) {
+    err = va ? (vb ? launch_product_mma<T, true, true>(tiled, a, b, c, ws, m, n, k, split, grid, st)
+                   : launch_product_mma<T, true, false>(tiled, a, b, c, ws, m, n, k, split, grid,
+                                                        st))
+             : (vb ? launch_product_mma<T, false, true>(tiled, a, b, c, ws, m, n, k, split, grid,
+                                                        st)
+                   : launch_product_mma<T, false, false>(tiled, a, b, c, ws, m, n, k, split, grid,
+                                                         st));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (split) err = launch_reduce(ws, c, p.mn, p.nseg, repro::kMatmulReduce16, st);
+  return static_cast<int>(err);
+}
+
+}  // namespace
+
+// a: (m, k), b: (k, n), c: (m, n); bf16 (f16), row-major, contiguous. The
+// workspace: as repro_matmul_f32's, ceil(k / 512) * m * n f32 partials when
+// the product is split, else unused. Returns the first CUDA error of its
+// launches.
+extern "C" int repro_matmul_bf16(const void* a, const void* b, void* c, void* workspace,
+                                 long long workspace_bytes, int m, int n, int k, void* stream) {
+  return matmul16<__nv_bfloat16>(a, b, c, workspace, workspace_bytes, m, n, k, stream);
+}
+
+extern "C" int repro_matmul_f16(const void* a, const void* b, void* c, void* workspace,
+                                long long workspace_bytes, int m, int n, int k, void* stream) {
+  return matmul16<__half>(a, b, c, workspace, workspace_bytes, m, n, k, stream);
 }

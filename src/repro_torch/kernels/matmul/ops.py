@@ -1,6 +1,9 @@
 """Blocked matmul: the ``cuda`` tier of the engine's ``blocked_matmul``
-dispatch op (core/kernels.py), over the hand-written kernel in
-``csrc/matmul.cu``.
+dispatch op (core/kernels.py), over the hand-written kernels in
+``csrc/matmul.cu``: ``repro_matmul_f32`` (f32 fused multiply-adds on the
+CUDA cores) and ``repro_matmul_bf16`` / ``repro_matmul_f16`` (``mma.sync``
+on the tensor cores, an f32 sum rounded once to the operands' type, as the
+TPU kernel's ``out_dtype = x.dtype``).
 
 ``blocked_matmul(x, y)`` launches the kernel for CUDA tensors and takes the
 plain version (ref.py) for CPU tensors; ragged shapes are masked inside the
@@ -9,9 +12,10 @@ backward stays in the same tier, as the paper's Fig. 4 RJP kernels:
 ``dX = g @ Yᵀ`` and ``dY = Xᵀ @ g`` are two more launches.
 
 The kernel sums each entry in one order that depends on K alone: K is cut
-into segments of ``SEG_LEN`` terms, each summed from 0 by one f32 fused
-multiply-add per term in ascending K, and the segment sums are added in
-ascending order (ref.matmul_in_kernel_order writes it out). Two paths keep
+into segments of ``SEG_LEN`` terms, each summed from 0 in ascending K (f32:
+one fused multiply-add per term, ref.matmul_in_kernel_order writes it out;
+16-bit: one m16n8k16 ``mma`` per 16 terms), and the segment sums are added
+in ascending order in f32. Both dtypes take the same plan. Two paths keep
 that order (``plan``): a product of at most ``SKINNY_ROWS`` rows (decode,
 the head, the logistic regression's dθ) is split over K, one block per
 (segment, 64-column slab), into partials that a second grid adds in order;
@@ -49,9 +53,20 @@ SPLIT_TILES, SPLIT_MAX_BYTES = 264, 256 << 20
 REDUCE_LONG_CHAIN = 64
 #: CUDA's limit on gridDim.x and on gridDim.y and z
 GRID_X_MAX, GRID_Y_MAX = 2**31 - 1, 65535
-#: threads of a tiled block (kTThreads), a skinny block (kSThreads) and a
-#: block of the ordered sum (kReduceThreads)
+#: threads of a tiled block (kTThreads, kHThreads), a skinny block
+#: (kSThreads, kHSThreads) and a block of the ordered sum (kReduceThreads)
 TILED_THREADS, SKINNY_THREADS, REDUCE_THREADS = 256, 128, 256
+#: the C entry point for each operand dtype
+ENTRY = {
+    torch.float32: "repro_matmul_f32",
+    torch.bfloat16: "repro_matmul_bf16",
+    torch.float16: "repro_matmul_f16",
+}
+#: the launch record's kernel names, f32 and 16-bit (csrc/launch_record.h)
+_KINDS = {
+    False: ("matmul_tiled", "matmul_skinny", "matmul_reduce"),
+    True: ("matmul_tiled_mma", "matmul_skinny_mma", "matmul_reduce16"),
+}
 
 
 def segments(k: int) -> List[Tuple[int, int]]:
@@ -69,13 +84,14 @@ class Plan:
     split: bool                  #: one block per segment, partials summed in order
     grid: Tuple[int, int, int]   #: the product kernel's grid; (0, 1, 1) if none runs
     reduce_blocks: int           #: blocks of the ordered sum of partials; 0 if none
-    workspace: int               #: f32 partials the wrapper allocates
+    workspace: int               #: f32 partials the wrapper allocates (every dtype)
 
 
 @functools.lru_cache(maxsize=1024)
 def plan(m: int, k: int, n: int) -> Plan:
     """The launch for an (m, k) @ (k, n) product, as ``repro_matmul_f32``
-    makes it; raises for a shape the kernel cannot take."""
+    and the 16-bit entry points make it (the same grids); raises for a
+    shape the kernel cannot take."""
     if min(m, k, n) < 0 or max(m, k, n) >= 2**31:
         raise ValueError(f"blocked_matmul: extents {(m, n, k)} outside the kernel's int32 range")
     n_seg = -(-k // SEG_LEN)
@@ -102,7 +118,7 @@ def _launch(x: torch.Tensor, y: torch.Tensor, out: torch.Tensor, p: Plan) -> Non
     n = y.shape[1]
     ws = torch.empty(p.workspace, dtype=torch.float32, device=x.device) if p.workspace else None
     launch(
-        "blocked_matmul", "repro_matmul_f32", x,
+        "blocked_matmul", ENTRY[x.dtype], x,
         x.data_ptr(), y.data_ptr(), out.data_ptr(), None if ws is None else ws.data_ptr(),
         p.workspace * 4, m, n, k,
     )
@@ -113,8 +129,11 @@ def blocked_matmul_forward(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """The forward alone (no autograd record)."""
     if on_cpu(x, y):
         return matmul_ref(x, y)
-    require("blocked_matmul", x, torch.float32, 2, "x")
-    require("blocked_matmul", y, torch.float32, 2, "y")
+    require("blocked_matmul", x, tuple(ENTRY), 2, "x")
+    require("blocked_matmul", y, tuple(ENTRY), 2, "y")
+    if x.dtype != y.dtype:
+        raise TypeError(f"blocked_matmul: x is {x.dtype} and y {y.dtype}; the kernel takes "
+                        "one dtype")
     m, k = x.shape
     if y.shape[0] != k:
         raise ValueError(f"blocked_matmul: shapes {tuple(x.shape)} @ {tuple(y.shape)} do not chain")
@@ -137,15 +156,17 @@ class _BlockedMatmul(torch.autograd.Function):
         x, y = ctx.saved_tensors
         g = g.contiguous()
         dx = dy = None
+        # the reference's dtypes: dx.astype(x.dtype), dy.astype(y.dtype)
         if ctx.needs_input_grad[0]:
-            dx = blocked_matmul_forward(g, y.t().contiguous())
+            dx = blocked_matmul_forward(g, y.t().contiguous()).to(x.dtype)
         if ctx.needs_input_grad[1]:
-            dy = blocked_matmul_forward(x.t().contiguous(), g)
+            dy = blocked_matmul_forward(x.t().contiguous(), g).to(y.dtype)
         return dx, dy
 
 
 def blocked_matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """``x @ y`` for ``x`` (M, K) and ``y`` (K, N) f32, f32-accurate.
+    """``x @ y`` for ``x`` (M, K) and ``y`` (K, N) of one dtype (f32,
+    bf16 or f16 on the card), summed in f32 and returned in that dtype.
     Differentiable with respect to both operands."""
     return _BlockedMatmul.apply(x, y)
 
@@ -158,7 +179,7 @@ blocked_matmul.launches = 0
 # -- contract ----------------------------------------------------------------
 
 
-def _reduce_model(m: int, n: int, p: Plan) -> GridModel:
+def _reduce_model(m: int, n: int, p: Plan, name: str = "matmul_reduce") -> GridModel:
     """The ordered sum of the partials: ``lanes`` threads per entry of the
     (m·n,) output, in order over its segments; a block's entries are
     consecutive, so it reads the partials of an interval of rows."""
@@ -174,12 +195,14 @@ def _reduce_model(m: int, n: int, p: Plan) -> GridModel:
         grid=(p.reduce_blocks,),
         inputs=inputs,
         output=BlockModel("out", (m * n,), (per,), lambda b: (b,)),
-        kernel=f"matmul_reduce.{lanes}", block=(REDUCE_THREADS, 1, 1),
+        kernel=f"{name}.{lanes}", block=(REDUCE_THREADS, 1, 1),
     )
 
 
 def _grid_model(info: Dict[str, Any], **concrete: Any):
-    """The launches ``repro_matmul_f32`` makes for ``plan``'s path:
+    """The launches ``repro_matmul_f32`` makes for ``plan``'s path, and
+    ``repro_matmul_bf16``/``_f16`` for a 16-bit dtype (the same grids and
+    workspace, the ``mma`` kernels' names, the ordered sum's 16-bit store):
 
     - tiled, not split: a block per (TILE_M rows, tile columns), its loop
       over K's segments the innermost grid axis (the running total in
@@ -192,12 +215,13 @@ def _grid_model(info: Dict[str, Any], **concrete: Any):
       sum runs, writing zeros."""
     m, k, n = int(info["m"]), int(info["k"]), int(info["n"])
     if m == 0 or n == 0:
-        return None  # repro_matmul_f32 returns before any launch
+        return None  # the entry point returns before any launch
     p = plan(m, k, n)
     nseg = p.n_segments
+    tiled, skinny, reduce = _KINDS[info.get("dtype") in (torch.bfloat16, torch.float16)]
     if p.path == "tiled":
         tn = TILE_N // 2 if n <= NARROW_N else TILE_N
-        kind = f"matmul_tiled.{tn}"
+        kind = f"{tiled}.{tn}"
         block = (TILED_THREADS, 1, 1)
         x = BlockModel("x", (m, k), (TILE_M, SEG_LEN), lambda i, j, s: (i, s))
         y = BlockModel("y", (k, n), (SEG_LEN, tn), lambda i, j, s: (s, j))
@@ -215,7 +239,7 @@ def _grid_model(info: Dict[str, Any], **concrete: Any):
             output=BlockModel("ws", (nseg, m, n), (1, TILE_M, tn), lambda i, j, s: (s, i, j)),
             kernel=kind, block=block,
         )
-        return (product, _reduce_model(m, n, p))
+        return (product, _reduce_model(m, n, p, reduce))
     block = (SKINNY_THREADS, 1, 1)
     x = BlockModel("x", (m, k), (SKINNY_ROWS, SEG_LEN), lambda s, j: (0, s))
     y = BlockModel("y", (k, n), (SEG_LEN, SLAB_N), lambda s, j: (s, j))
@@ -224,17 +248,17 @@ def _grid_model(info: Dict[str, Any], **concrete: Any):
             grid=p.grid[:2],
             inputs=(x, y),
             output=BlockModel("out", (m, n), (SKINNY_ROWS, SLAB_N), lambda s, j: (0, j)),
-            kernel="matmul_skinny.0", block=block,
+            kernel=f"{skinny}.0", block=block,
         )
     if nseg == 0:
-        return (_reduce_model(m, n, p),)
+        return (_reduce_model(m, n, p, reduce),)
     product = GridModel(
         grid=p.grid[:2],
         inputs=(x, y),
         output=BlockModel("ws", (nseg, m, n), (1, SKINNY_ROWS, SLAB_N), lambda s, j: (s, 0, j)),
-        kernel="matmul_skinny.0", block=block,
+        kernel=f"{skinny}.0", block=block,
     )
-    return (product, _reduce_model(m, n, p))
+    return (product, _reduce_model(m, n, p, reduce))
 
 
 def _vjp_dx_info(info: Dict[str, Any]) -> Dict[str, Any]:

@@ -10,7 +10,18 @@ SEG_LEN = 512
 
 def matmul_ref(x: torch.Tensor, y: torch.Tensor, out_dtype=None) -> torch.Tensor:
     """``x @ y`` computed in f32, returned in ``out_dtype`` (default:
-    ``x``'s dtype)."""
+    ``x``'s dtype).
+
+    At 16 bits (bf16, f16) this is the plain version of the tensor-core
+    kernel: the operands widened to f32, one f32 product, each entry
+    rounded once to the output type. It shares with the kernel the f32
+    accumulation of exact products (a product of two 16-bit values is
+    exact in f32) and the one rounding at the end; it does not share the
+    order of the sum: the kernel adds 16 terms inside each ``mma`` in the
+    tensor core's own order, the k16 steps of a 512-term segment in
+    ascending order, then the segments, where ``torch.matmul`` sums as its
+    CPU or cuBLAS kernel does. So the two agree within one ulp of the output
+    type plus the f32 reorder bound, not bit for bit."""
     out_dtype = out_dtype or x.dtype
     return torch.matmul(x.to(torch.float32), y.to(torch.float32)).to(out_dtype)
 

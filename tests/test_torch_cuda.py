@@ -1003,3 +1003,120 @@ def test_cuda_launch_record_equals_each_contracts_model(cuda_device):
         ssm_scan_forward(a, torch.randn_like(a), reverse)
         info = {"batch": 2, "seq": 64, "channels": 24, "state": 16, "dtype": f32, "reverse": reverse}
         assert launch_mismatch("ssm_scan", info, last_launches()) is None
+
+
+# ---------------------------------------------------------------------------
+# The 16-bit products (repro_matmul_bf16 / repro_matmul_f16: mma.sync)
+# ---------------------------------------------------------------------------
+
+
+def _ulp16(v, dtype):
+    """One ulp of the 16-bit ``dtype`` at |v| (bf16: 7 fraction bits; f16: 10)."""
+    bits, tiny = (7, 2.0 ** -133) if dtype == torch.bfloat16 else (10, 2.0 ** -24)
+    e = torch.floor(torch.log2(v.abs().double().clamp_min(tiny)))
+    return torch.exp2(e - bits).clamp_min(tiny)
+
+
+def _hold16(got, x, y):
+    """|c − ref| ≤ one ulp of c's type at the larger of |c| and |ref| plus
+    2·K·u₃₂·Σ|x||y|: two f32 sums of the same exact products, each rounded
+    once (ref: ``matmul_ref``, the plain version)."""
+    want = matmul_ref(x, y)
+    assert got.dtype == want.dtype == x.dtype
+    err = (got.double() - want.double()).abs()
+    mag = torch.maximum(got.double().abs(), want.double().abs())
+    walk = x.double().abs() @ y.double().abs()
+    limit = _ulp16(mag, got.dtype) + 2 * x.shape[1] * 2.0 ** -24 * walk
+    assert bool((err <= limit).all()), float((err / limit).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("m,k,n", [(1, 1, 1), (1, 7, 5), (2, 4096, 4096), (16, 4096, 4099),
+                                   (17, 4096, 4099), (33, 1, 9), (130, 1000, 77), (512, 7168, 1024),
+                                   (129, 33, 257), (5, 0, 3), (300, 4100, 130)])
+def test_cuda_16_bit_matmul_within_one_ulp_of_its_plain_version(cuda_device, dtype, m, k, n):
+    from repro_torch.kernels.matmul.ops import blocked_matmul_forward
+
+    rng = np.random.default_rng(m + 3 * k + 7 * n)
+    x = torch.tensor(_f32(rng, m, k), device=cuda_device).to(dtype)
+    y = torch.tensor(_f32(rng, k, n), device=cuda_device).to(dtype)
+    kernels.reset_launch_counts()
+    got = blocked_matmul_forward(x, y)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["blocked_matmul"] == 1
+    _hold16(got, x, y)
+    kernels.reset_launch_counts()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+def test_cuda_16_bit_matmul_at_unaligned_bases(cuda_device, dtype):
+    """Operands 2 bytes into their storage take the 4-byte copies."""
+    from repro_torch.kernels.matmul.ops import blocked_matmul_forward
+
+    for m, k, n in ((64, 64, 64), (3, 512, 136), (200, 1040, 72)):
+        xs = torch.randn(m * k + 1, device=cuda_device).to(dtype)
+        ys = torch.randn(k * n + 1, device=cuda_device).to(dtype)
+        x, y = xs[1:].view(m, k), ys[1:].view(k, n)
+        _hold16(blocked_matmul_forward(x, y), x, y)
+    kernels.reset_launch_counts()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("k,n", [(4096, 4096), (7168, 1024), (1000, 77)])
+def test_cuda_16_bit_rows_do_not_depend_on_the_batch(cuda_device, dtype, k, n):
+    """A row of the product is the same bits at M = 2 (split-K, one m16
+    tile) as among M = 2,050 (128-row tiles)."""
+    from repro_torch.kernels.matmul.ops import blocked_matmul_forward
+
+    x = torch.randn(2050, k, device=cuda_device).to(dtype)
+    y = torch.randn(k, n, device=cuda_device).to(dtype)
+    big = blocked_matmul_forward(x, y)
+    for rows in (slice(0, 2), slice(0, 16), slice(2047, 2050)):
+        assert torch.equal(big[rows], blocked_matmul_forward(x[rows].contiguous(), y)), rows
+    kernels.reset_launch_counts()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+def test_cuda_16_bit_backward_on_the_kernel(cuda_device, dtype):
+    x = torch.randn(130, 1000, device=cuda_device).to(dtype).requires_grad_(True)
+    y = torch.randn(1000, 77, device=cuda_device).to(dtype).requires_grad_(True)
+    g = torch.randn(130, 77, device=cuda_device).to(dtype)
+    kernels.reset_launch_counts()
+    blocked_matmul(x, y).backward(g)
+    assert kernels.launch_counts()["blocked_matmul"] == 3
+    assert x.grad.dtype == y.grad.dtype == dtype
+    _hold16(x.grad, g, y.detach().t().contiguous())
+    _hold16(y.grad, x.detach().t().contiguous(), g)
+    kernels.reset_launch_counts()
+
+
+@pytest.mark.cuda
+def test_cuda_matmul_refuses_mixed_dtypes(cuda_device):
+    x = torch.zeros(4, 4, dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(TypeError, match="one dtype"):
+        blocked_matmul(x, x.float())
+    with pytest.raises(TypeError, match="one dtype"):
+        blocked_matmul(x, x.half())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+def test_cuda_16_bit_launch_records_equal_the_contract_models(cuda_device, dtype):
+    from repro_torch.analysis.kernelcheck import launch_mismatch
+    from repro_torch.kernels.common import last_launches
+    from repro_torch.kernels.matmul.ops import blocked_matmul_forward
+
+    kinds = set()
+    for m, k, n in ((300, 4096, 700), (100, 2000, 300), (2, 4096, 14_576), (4, 40_000, 8), (3, 0, 4),
+                    (4096, 4096, 4096), (1, 1, 1)):
+        blocked_matmul_forward(torch.randn(m, k, device=cuda_device).to(dtype),
+                               torch.randn(k, n, device=cuda_device).to(dtype))
+        record = last_launches()
+        kinds.update(name.split(".")[0] for name, _, _ in record)
+        assert launch_mismatch("blocked_matmul", {"m": m, "k": k, "n": n, "dtype": dtype}, record) is None
+    assert kinds == {"matmul_tiled_mma", "matmul_skinny_mma", "matmul_reduce16"}
+    kernels.reset_launch_counts()
