@@ -925,7 +925,16 @@ MATMUL16_EDGES = ((1, 1, 1), (1, 7, 5), (33, 1, 9), (17, 20, 13), (130, 1000, 77
 #: at (K, N) of MATMUL16_ROW_SHAPES; the backward's products at the (M, K, N)
 #: of MATMUL16_GRAD_SHAPES
 MATMUL16_ROWS = (2, 2050)
-MATMUL16_ROW_SHAPES = ((4096, 4096), (7168, 1024), (1000, 77))
+#: the last one the 16-bit plan splits over its segments at M = 2,050 (17
+#: tiles), on the wgmma kernel; (1000, 77) takes the mma.sync one (N = 77)
+MATMUL16_ROW_SHAPES = ((4096, 4096), (7168, 1024), (1000, 77), (7168, 128))
+#: phase 8's 16-bit sites timed in CUDA graphs (device time alone) beside
+#: cuBLAS: deepseek-coder-33b's projections at its 512-token prefill
+MATMUL16_NAMED = {"q/o": (CODER_PROMPT, 7168, 7168), "k/v": (CODER_PROMPT, 7168, 1024),
+                  "gate/up": (CODER_PROMPT, 7168, 19200), "down": (CODER_PROMPT, 19200, 7168)}
+#: phase 8's check of the 16-bit split rule: both schedules of (M x 7,168) @
+#: (7,168 x n), M = CODER_PROMPT, at these n (4 to 48 tiles)
+MATMUL16_SPLIT_N = (128, 256, 512, 768, 1024, 1280, 1536)
 MATMUL16_GRAD_SHAPES = ((CODER_PROMPT, 7168, 1024), (2, 4096, 4096), (130, 1000, 77))
 
 
@@ -5179,6 +5188,79 @@ def time_ms(torch, fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(torch, fn, reps=20, replays=5) -> float:
+    """Device time of one call alone: ``reps`` calls captured in a CUDA
+    graph, replayed ``replays`` times between CUDA events (no host work
+    between the launches, which ``time_ms`` reads where the host is the
+    slower)."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (reps * replays)
+    del graph
+    return ms
+
+
+def matmul16_sites_and_split(torch, dev, gen):
+    """Phase 8's look at the 16-bit tiled kernel: each of MATMUL16_NAMED in
+    CUDA graphs beside cuBLAS's bf16 product, with its bound, achieved rate
+    and host time a call; and the split rule, both schedules of (M x 7,168)
+    @ (7,168 x n) at M = CODER_PROMPT and n of MATMUL16_SPLIT_N, with the
+    plan's choice (``blocked_matmul_split`` sets the schedule; the two give
+    the same bits, which is checked)."""
+    from repro_torch.kernels.common import last_launches
+    from repro_torch.kernels.matmul.ops import blocked_matmul_forward, blocked_matmul_split, plan16
+
+    out = {"sites": {}, "split_rule": []}
+    for what, (m, k, n) in MATMUL16_NAMED.items():
+        x = torch.randn(m, k, device=dev, generator=gen).to(torch.bfloat16)
+        y = torch.randn(k, n, device=dev, generator=gen).to(torch.bfloat16)
+        k_ms = graph_ms(torch, lambda: blocked_matmul_forward(x, y))
+        kind = last_launches()[0][0]
+        l_ms = graph_ms(torch, lambda: torch.matmul(x, y))
+        b_ms, by = bound((m * k + k * n + m * n) * 2, 2 * m * n * k, BF16_FLOPS_PER_S)
+        h_ms = host_ms(torch, lambda: blocked_matmul_forward(x, y), device_ms=k_ms)
+        out["sites"][what] = {"shape": (m, k, n), "kernel": kind, "ms": k_ms, "library_ms": l_ms,
+                              "bound_ms": b_ms, "host_ms": h_ms}
+        log(f"  16-bit {what} ({m}x{k})@({k}x{n}) on {kind}: kernel {k_ms:.4f} ms "
+            f"({2 * m * n * k / k_ms / 1e9:.1f} TFLOP/s), cuBLAS {l_ms:.4f} ms ({k_ms / l_ms:.3f}x), bound "
+            f"{b_ms:.4f} ms ({by}), host {h_ms * 1e3:.1f} us a call (device time in CUDA graphs)")
+        del x, y
+    m, k = CODER_PROMPT, 7168
+    x = torch.randn(m, k, device=dev, generator=gen).to(torch.bfloat16)
+    for n in MATMUL16_SPLIT_N:
+        y = torch.randn(k, n, device=dev, generator=gen).to(torch.bfloat16)
+        if not torch.equal(blocked_matmul_split(x, y, True), blocked_matmul_split(x, y, False)):
+            raise AssertionError(f"({m}x{k})@({k}x{n}): the split and unsplit schedules differ in bits")
+        s_ms = graph_ms(torch, lambda: blocked_matmul_split(x, y, True))
+        u_ms = graph_ms(torch, lambda: blocked_matmul_split(x, y, False))
+        p = plan16(m, k, n)
+        tiles = p.grid[0] * p.grid[1]
+        out["split_rule"].append({"n": n, "tiles": tiles, "split_ms": s_ms, "unsplit_ms": u_ms,
+                                  "planned": "split" if p.split else "unsplit"})
+        log(f"  16-bit split rule ({m}x{k})@({k}x{n}), {tiles} tiles: split {s_ms:.4f} ms, unsplit "
+            f"{u_ms:.4f} ms (split / unsplit {s_ms / u_ms:.3f}); the plan takes "
+            f"{'split' if p.split else 'unsplit'}")
+    return out
+
+
 def bound(nbytes: float, flops: float, rate: float = F32_FLOPS_PER_S):
     """(least ms, what bounds it): the larger of bytes over the memory rate
     and operations over ``rate`` (FLOP/s)."""
@@ -5262,7 +5344,7 @@ def time_site(torch, op, info, rows_for, seg_for, gen, dev, dtype=None):
     p_ms = time_ms(torch, lambda: matmul_ref(x, y))
     l_ms = time_ms(torch, lambda: torch.matmul(x, y))
     extra = ({"host_ms": host_ms(torch, lambda: blocked_matmul_forward(x, y), device_ms=k_ms)}
-             if m <= SKINNY_ROWS else {})
+             if m <= SKINNY_ROWS or dt != torch.float32 else {})
     return k_ms, p_ms, l_ms, (m * k + k * n + m * n) * size, 2 * m * n * k, extra
 
 
@@ -5538,6 +5620,10 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, d
 
     lap("phase 29's bf16 sites")
 
+    named16 = matmul16_sites_and_split(torch, dev, gen)
+    torch.cuda.empty_cache()
+    lap("the 16-bit named sites and split rule")
+
     # phase 9's streamed steps: every site of a wave's lowering once per
     # wave, each on the ids it took in the largest wave (a product takes
     # none)
@@ -5619,7 +5705,9 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, d
                         "src/repro/kernels/gather/gather.py:25", ("repro_gather",)),
         "blocked_matmul": ("cuda", "src/repro_torch/kernels/csrc/matmul.cu",
                            "src/repro/kernels/matmul/matmul.py:21", ("repro_matmul_f32",)),
-        # mma.sync on the tensor cores: phase 29's bf16 paths launch it
+        # the tensor cores (wgmma from a TMA ring; mma.sync for the skinny
+        # products and the operands TMA cannot describe): phase 29's bf16
+        # paths launch it
         "blocked_matmul_16": ("cuda", "src/repro_torch/kernels/csrc/matmul.cu",
                               "src/repro/kernels/matmul/matmul.py:21",
                               ("repro_matmul_bf16", "repro_matmul_f16")),
@@ -5757,6 +5845,9 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, d
                       for path, acc in per_path.items()},
         })
 
+    for rec in records:
+        if rec["name"] == "blocked_matmul_16":
+            rec.update(named16)
     # the RJP products the compiler leaves to torch.einsum (the GCN's, and
     # olmoe's training backward: dX = g·Wᵀ and dW = Xᵀ·g of q/k/v/o and of
     # the head): the kernel's time at their shapes beside torch.matmul's,
@@ -6487,7 +6578,7 @@ def launch_record_checks(torch, kern, lm_cfg, dev):
     want = {"segsum_scan/16-byte", "segsum_scan/element", "segsum_chunk/16-byte", "segsum_chunk/element",
             "segsum_starts", "segsum_combine", "gather/16-byte", "gather/element",
             "matmul_tiled", "matmul_skinny", "matmul_reduce", "ssm_scan",
-            "matmul_tiled_mma", "matmul_skinny_mma", "matmul_reduce16"}
+            "matmul_tiled_mma", "matmul_skinny_mma", "matmul_reduce16", "matmul_tiled_wgmma"}
     if not want <= paths:
         raise AssertionError(f"the checked sites miss kernel paths: {sorted(want - paths)}")
     reverse = [s for op, s in record_sites(lm_cfg) if op == "ssm_scan" and s["reverse"]]
@@ -8394,19 +8485,20 @@ def ssm_mesh_phase(torch, repro_torch, kern, dev, smi):
         segs = t["segments"]
         planted = {}
         for name in SSM_MESH_LEAVES[arch]:
-            # assembled on the host, compared on the card (free again)
+            # assembled and compared on the host: the ranks are on the card
+            # with the next phase meanwhile, and may hold nearly all of it
             def whole(parts):
-                return lm_mesh_whole(torch, parts, name, shapes[name], specs, segs).to(dev)
+                return lm_mesh_whole(torch, parts, name, shapes[name], specs, segs)
 
-            want = ref["grads"][0][name].to(dev)
+            want = ref["grads"][0][name].cpu()
             gerr = rel_err(whole(grad_parts), want)
-            dp = (whole(param_parts) - ref["params"][name].to(dev)).abs()
+            dp = (whole(param_parts) - ref["params"][name].cpu()).abs()
             # Adam's step is ≈ lr·sign(m) where the moments are clear of the
             # gradients' rounding; where a step's gradient lies within it (or
             # the moments cancel), f32 rounding moves the step by up to lr:
             # the share is taken where every step's gradient is at least
             # 1e-4 of its leaf's largest (the CPU tests' criterion)
-            clear = torch.stack([g[name].to(dev).abs() >= 1e-4 * g[name].abs().max()
+            clear = torch.stack([g[name].cpu().abs() >= 1e-4 * g[name].abs().max().cpu()
                                  for g in ref["grads"]]).all(0)
             far = float((dp[clear] > 1e-3 * LM_MESH_LR).double().mean())
             beyond = dp > 1e-3 * LM_MESH_LR
@@ -8930,12 +9022,14 @@ def mla_mesh_phase(torch, repro_torch, kern, dev, smi, serve_ref):
     first_parts = [(r["train"]["coords"], r["train"]["params1"]) for r in ranks]
     planted = {what: {} for what in r0["planted"]}
     for name in MLA_MESH_LEAVES:
+        # assembled and compared on the host: the ranks are on the card with
+        # the next phase meanwhile, and may hold nearly all of it
         def whole(parts):
-            return lm_mesh_whole(torch, parts, name, shapes[name], specs).to(dev)
+            return lm_mesh_whole(torch, parts, name, shapes[name], specs)
 
-        want = ref["grads"][0][name].to(dev)
+        want = ref["grads"][0][name].cpu()
         gerr = rel_err(whole(grad_parts), want)
-        dp = (whole(param_parts) - ref["params"][name].to(dev)).abs()
+        dp = (whole(param_parts) - ref["params"][name].cpu()).abs()
         # Adam's first step is lr·g/(|g| + eps): where the step-1 gradient
         # is at least 1e-4 of its leaf's largest it moves by far less than
         # 1e-3·lr for the gradient's rounding, and the share of entries
@@ -8943,7 +9037,7 @@ def mla_mesh_phase(torch, repro_torch, kern, dev, smi, serve_ref):
         # entry whose step-1 gradient lies within rounding of 0 may step the
         # other way on the mesh, so the step-2 gradients differ by more than
         # rounding: the final values are held to 2·steps·lr
-        d1 = (whole(first_parts) - ref["params1"][name].to(dev)).abs()
+        d1 = (whole(first_parts) - ref["params1"][name].cpu()).abs()
         clear = want.abs() >= 1e-4 * want.abs().max()
         far = float((d1[clear] > 1e-3 * MLA_MESH_LR).double().mean())
         for what in planted:
@@ -10457,11 +10551,14 @@ def check_matmul16(torch, kern, dev):
     """29.1: the 16-bit blocked_matmul (bf16 and f16) against its plain
     version (ref.matmul_ref: the f32 product of the widened operands,
     rounded once) at every site shape of the zoo at M = MATMUL16_M, at the
-    edges, and its backward's two products; a row's bits at M = 2 against
-    the same row among M = 2,050; a planted fault (the last 16 terms of K
-    dropped) above the limit. Returns a function giving the largest |c −
-    ref| and excess so far, and one that checks the bf16 products of a set
-    of LaunchLog signatures it has not checked yet."""
+    edges, and its backward's two products, each call's launch record held
+    to its contract model; a row's bits at M = 2 against the same row among
+    M = 2,050; a planted fault (the last 16 terms of K dropped) above the
+    limit. Returns a function giving the largest |c − ref| and excess so
+    far, and one that checks the bf16 products of a set of LaunchLog
+    signatures it has not checked yet (and logs the kernels they ran on)."""
+    from repro_torch.analysis.kernelcheck import launch_mismatch
+    from repro_torch.kernels.common import last_launches
     from repro_torch.kernels.matmul.ops import blocked_matmul, blocked_matmul_forward
     from repro_torch.kernels.matmul.ref import matmul_ref
 
@@ -10469,6 +10566,7 @@ def check_matmul16(torch, kern, dev):
     worst, worst_err, checked = 0.0, 0.0, 0
     sites = matmul16_sites()
     shapes = set()
+    kinds = {}  # the kernels a bf16 call's launch record shows → its shapes
     log(f"  29.1: {len(sites)} (K, N) weight shapes of the zoo at M = {MATMUL16_M}, "
         f"{len(MATMUL16_EDGES)} edge shapes, bf16 and f16; limit |c - ref| <= ulp(max(|c|, |ref|)) "
         f"+ 2 K u32 sum|x||y|")
@@ -10482,6 +10580,12 @@ def check_matmul16(torch, kern, dev):
         nonlocal worst, worst_err, checked
         x, y = draw(m, k, n, dt)
         got = blocked_matmul_forward(x, y)
+        record = last_launches()
+        miss = launch_mismatch("blocked_matmul", {"m": m, "k": k, "n": n, "dtype": dt}, record)
+        if miss:
+            raise AssertionError(miss)
+        if dt == torch.bfloat16:
+            kinds.setdefault(" + ".join(name for name, _, _ in record), []).append((m, k, n))
         if got.dtype != dt or tuple(got.shape) != (m, n):
             raise AssertionError(f"({m}x{k})@({k}x{n}) {dt}: got {got.dtype} {tuple(got.shape)}")
         ex, err = matmul16_excess(torch, x, y, got, matmul_ref(x, y))
@@ -10536,14 +10640,23 @@ def check_matmul16(torch, kern, dev):
     log(f"  29.1: {checked} products within the limit (largest excess {worst:.3f}, largest "
         f"|c - ref| {worst_err:.4g}); rows bit-equal at M = {MATMUL16_ROWS[0]} and "
         f"{MATMUL16_ROWS[1]}")
+    def log_kinds(what):
+        for kind, at in sorted(kinds.items()):
+            log(f"  29.1 launch record {kind}{what}: {len(at)} bf16 shapes {at}")
+
+    log_kinds("")
+    if not any(kind.startswith("matmul_tiled_wgmma.") for kind in kinds):
+        raise AssertionError("no 16-bit product of 29.1 ran on the wgmma kernel")
 
     def more(keys):
         """Check the bf16 calls of ``keys`` (LaunchLog signatures) that the
         shapes above miss; returns how many."""
         todo = sorted({key[1:] for key in keys if key[0] == "blocked_matmul"}
                       - {(m, k, n) for m, k, n, dt in shapes if dt == torch.bfloat16})
+        kinds.clear()
         for m, k, n in todo:
             case(m, k, n, torch.bfloat16)
+        log_kinds(" (the paths' other call shapes)")
         return len(todo)
 
     return lambda: (worst_err, worst), more

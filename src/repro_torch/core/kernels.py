@@ -1064,7 +1064,8 @@ def _matmul_sanitizer(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         "m": x.shape[0], "k": x.shape[1], "n": y.shape[1],
         "dtype": torch.result_type(x, y),
     }
-    _sanitize_site("blocked_matmul", info)
+    # the bases decide which 16-bit tiled kernel runs
+    _sanitize_site("blocked_matmul", info, aligned=_aligned(x, y))
     return matmul_ref(x, y)
 
 

@@ -119,9 +119,10 @@ def library() -> ctypes.CDLL:
             matmuls = (lib.repro_matmul_f32, lib.repro_matmul_bf16, lib.repro_matmul_f16)
             for fn in matmuls:
                 fn.argtypes = [vp, vp, vp, vp, ll, i32, i32, i32, vp]
+            lib.repro_matmul_bf16_split.argtypes = [vp, vp, vp, vp, ll, i32, i32, i32, i32, vp]
             lib.repro_ssm_scan.argtypes = [vp, vp, vp, ll, ll, ll, i32, i32, vp]
             for fn in (lib.repro_segsum_starts, lib.repro_segsum, lib.repro_gather,
-                       *matmuls, lib.repro_ssm_scan):
+                       *matmuls, lib.repro_matmul_bf16_split, lib.repro_ssm_scan):
                 fn.restype = i32
             lib.repro_last_launches.argtypes = [ctypes.POINTER(i32), i32]
             lib.repro_last_launches.restype = i32

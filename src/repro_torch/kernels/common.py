@@ -72,6 +72,7 @@ KERNEL_NAMES = {
     1: "segsum_scan", 2: "segsum_starts", 3: "segsum_chunk", 4: "segsum_combine",
     5: "gather", 6: "matmul_tiled", 7: "matmul_skinny", 8: "matmul_reduce", 9: "ssm_scan",
     10: "matmul_tiled_mma", 11: "matmul_skinny_mma", 12: "matmul_reduce16",
+    13: "matmul_tiled_wgmma",
 }
 #: launches a record holds (kMaxLaunches) and ints per launch (kLaunchInts)
 _MAX_LAUNCHES, _LAUNCH_INTS = 4, 8

@@ -30,6 +30,7 @@ enum KernelCode : int {
   kMatmulTiledMma = 10,
   kMatmulSkinnyMma = 11,
   kMatmulReduce16 = 12,
+  kMatmulTiledWgmma = 13,
 };
 
 constexpr int kMaxLaunches = 4;

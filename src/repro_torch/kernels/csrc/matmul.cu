@@ -51,12 +51,14 @@
 // Tensor cores at f32 accuracy (a three-way split, or wgmma with b restaged
 // K-major) and a persistent schedule come later.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <atomic>
 #include <cstdint>
+#include <type_traits>
 
 #include "launch_record.h"
 
@@ -442,9 +444,10 @@ struct Plan {
   dim3 grid;
 };
 
-// The plan of an (m, k) @ (k, n) product, m and n > 0; false where a grid
-// would pass CUDA's limits.
-bool make_plan(int m, int n, int k, Plan& p) {
+// The plan of an (m, k) @ (k, n) product, m and n > 0, whose tiled path
+// splits over K-segments below `split_tiles` tiles; false where a grid would
+// pass CUDA's limits.
+bool make_plan(int m, int n, int k, int split_tiles, Plan& p) {
   p.nseg = (k + kSegLen - 1) / kSegLen;
   p.mn = static_cast<long long>(m) * n;
   p.tiled = m > kSkinnyRows;
@@ -453,7 +456,7 @@ bool make_plan(int m, int n, int k, Plan& p) {
     const int tile_n = n <= kNarrowN ? Tile<1>::kN : Tile<2>::kN;
     const long long gy = (static_cast<long long>(n) + tile_n - 1) / tile_n;
     if (gy > 65535LL) return false;
-    p.split = p.nseg > 1 && gx * gy < kSplitTiles && p.nseg <= 65535 &&
+    p.split = p.nseg > 1 && gx * gy < split_tiles && p.nseg <= 65535 &&
               p.nseg * p.mn * 4 <= kSplitMaxBytes;
     p.grid = dim3(static_cast<unsigned>(gx), static_cast<unsigned>(gy), p.split ? p.nseg : 1);
   } else {
@@ -501,7 +504,7 @@ extern "C" int repro_matmul_f32(const void* a_, const void* b_, void* c_, void* 
   const bool va = k % 4 == 0 && reinterpret_cast<std::uintptr_t>(a) % 16 == 0;
   const bool vb = n % 4 == 0 && reinterpret_cast<std::uintptr_t>(b) % 16 == 0;
   Plan p;
-  if (!make_plan(m, n, k, p)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!make_plan(m, n, k, kSplitTiles, p)) return static_cast<int>(cudaErrorInvalidValue);
   if (p.split && p.nseg > 0 && (workspace == nullptr || workspace_bytes < p.nseg * p.mn * 4))
     return static_cast<int>(cudaErrorInvalidValue);
   float* out = p.split ? static_cast<float*>(workspace) : c;
@@ -526,39 +529,84 @@ extern "C" int repro_matmul_f32(const void* a_, const void* b_, void* c_, void* 
 // (M, N), all bf16 or all f16, row-major and contiguous.
 //
 // This is the TPU kernel's own case: _matmul_kernel reads bf16 tiles, sums
-// in f32 on the MXU and rounds once to out_dtype = x.dtype. Here each
-// product term goes through mma.sync.aligned.m16n8k16.row.col.f32.{bf16,
-// f16}: a 16 x 16 tile of a and a 16 x 8 tile of b, taken from shared memory
-// by ldmatrix (b transposed on the way, since it is stored k-major), are
-// multiplied and added into an f32 accumulator. A product of two 16-bit
-// values is exact in f32, so the 3xTF32 trouble above does not arise.
+// in f32 on the MXU and rounds once to out_dtype = x.dtype. A product of two
+// 16-bit values is exact in f32, so the 3xTF32 trouble above does not arise.
 //
-// Summation order, the f32 kernel's: K is cut into kSegLen = 512 segments;
-// inside a segment the k16 steps run in ascending order into an f32 sum
-// that starts at 0 (the order inside one mma is the tensor core's own);
-// segment sums are added in ascending order into an f32 total, in
-// registers, or through the f32 workspace and the ordered sum when the
+// Summation order, the f32 kernel's in k16 steps: K is cut into kSegLen =
+// 512 segments; inside a segment the k16 steps run in ascending order into
+// an f32 sum that starts at 0 (the order inside one step is the tensor
+// core's own); segment sums are added in ascending order into an f32 total,
+// in registers, or through the f32 workspace and the ordered sum when the
 // product is split; each entry is rounded once to the output type at the
-// store. An mma's entry (i, j) depends on row i of a, column j of b and
-// its accumulator alone, and both paths run the same k16 steps (none past
-// K), so a row of the product is bit-identical whatever M is.
+// store. A step's entry (i, j) depends on row i of a, column j of b and its
+// accumulator alone; every kernel runs the same k16 steps (none starting at
+// or past K; a step's terms past K are zeros), a segment's first from 0 (a
+// zeroed accumulator in the mma.sync kernels, scale-d = 0 in the wgmma
+// one); and a wgmma k16 step rounds as an mma.sync m16n8k16 step does
+// (chip_smoke.py 29.1 holds rows computed by both to the same bits). So a
+// row of the product is bit-identical whatever M is.
 //
-// Two paths, chosen as the f32 kernel chooses (the same grids):
-// - tiled (M > kSkinnyRows): a block of 8 warps (4 x 2) owns a 128 x 128
-//   tile of c, each warp 32 x 64 (two m16 tiles by eight n8 tiles); for
-//   n <= 64 a 128 x 64 tile, each warp 32 x 32. A 4-stage cp.async ring of
-//   128 x 32 tiles of a and 32 x 128 (32 x 64) tiles of b feeds them, rows
-//   padded by 8 values so that ldmatrix's 8 rows fall in distinct banks.
+// Three kernels, chosen by M and by what TMA can describe:
+// - tiled, wgmma (M > kSkinnyRows; K and N multiples of 8 and both bases
+//   16-byte aligned, as at every product of the LM zoo): one block of three
+//   warpgroups per 128 x 128 tile of c (128 x 64 for n <= 64). A producer
+//   warpgroup gives its registers up (setmaxnreg) and one of its threads
+//   keeps a kWStages-deep ring full with TMA loads: a stage is a 128 x 64
+//   tile of a (K-major) and a 64 x 128 tile of b as two 64-column boxes (b
+//   is stored (K, N), which wgmma reads as its N-major B operand, so it is
+//   not restaged), both in the 128-byte swizzle, each stage guarded by a
+//   full and an empty mbarrier; TMA's zero fill masks the ragged edges. Two
+//   consumer warpgroups each own 64 rows and issue wgmma.mma_async m64n128k16
+//   (m64n64k16) from shared memory, a stage's group left in flight while the
+//   next one's is issued; at a segment's end a consumer waits for its
+//   groups, adds the segment sum into its running total (64 + 64 f32
+//   registers a thread), and opens the next segment with scale-d = 0, so
+//   that only wgmma writes the segment's registers (an instruction that
+//   touched them while a group is in flight would make ptxas wait for it).
+//   A warpgroup whose rows lie wholly outside c idles. The tensor maps are
+//   encoded on the host for each call (cuTensorMapEncodeTiled, reached
+//   through cudaGetDriverEntryPoint) and passed as __grid_constant__
+//   parameters. What holds it below cuBLAS: a block reaches ~0.6-0.7 of an
+//   SM's tensor-core rate, and 128 x 128 tiles quantize into waves (224
+//   tiles on 132 SMs take two); the fold's registers (the running total
+//   beside the segment's sum) rule out a wider tile. Pairing row tiles in
+//   2-block clusters that multicast b (a quarter less L2 traffic) was no
+//   faster on the card, so the blocks stay single.
+// - tiled, mma.sync (M > kSkinnyRows, operands TMA cannot describe: a row
+//   length not a multiple of 8 values or a base not 16-byte aligned, which
+//   no zoo site has): a block of 8 warps (4 x 2) owns the same tile, each
+//   warp 32 x 64 (two m16 tiles by eight n8 tiles; 32 x 32 for n <= 64),
+//   fed by a 4-stage cp.async ring of 128 x 32 tiles of a and 32 x 128 (32
+//   x 64) tiles of b, rows padded by 8 values so that ldmatrix's 8 rows fall
+//   in distinct banks. It is kept rather than a wgmma kernel fed by the
+//   threads' own copies because the two instructions round alike (above).
 // - skinny (M <= kSkinnyRows: decode, the head at decode): split-K, one
 //   block of 4 warps per (K-segment, 64-column slab), one m16 row tile whose
-//   rows past M are zero-filled, each warp 16 columns (two n8 tiles).
-// Copies: 16 bytes (8 values) where a row's length and the base allow it,
-// the ragged edge zero-filled by cp.async; otherwise 4-byte units loaded
-// by the threads (two values, or one and one at a 2-byte aligned address)
-// and stored to shared memory, zero outside the matrix.
+//   rows past M are zero-filled, each warp 16 columns (two n8 tiles) of
+//   mma.sync. It is bound by the bytes of b, which it reads once.
+// Copies in the mma.sync kernels: 16 bytes (8 values) where a row's length
+// and the base allow it, the ragged edge zero-filled by cp.async; otherwise
+// 4-byte units loaded by the threads (two values, or one and one at a
+// 2-byte aligned address) and stored to shared memory, zero outside.
+//
+// The plan is the f32 entry point's paths and tiles with a split rule of its
+// own (kSplitTiles16). Splitting a tiled product of T tiles over its S = K /
+// 512 segments spreads it over T * S blocks, but writes and reads back S * m
+// * n f32 partials: 8 * S * m * n bytes. At the tensor cores' R = 989
+// TFLOP/s over 132 SMs and the memory's B = 3.35 TB/s, T <= 132 tiles of TM
+// x TN take one wave unsplit, t = S t_seg with t_seg = 2 TM TN 512 * 132 /
+// (e R) a pipelined segment at a share e of the rate; split, T S blocks of
+// beta t_seg each over 132 SMs (a block that sums one segment alone also
+// fills and drains its ring and stores 64 KB of f32) plus the partials' 8 S
+// T TM TN / B = 0.0175 e T t. So a split pays while T (beta / 132 + 0.0175
+// e) < 1. At beta = 1, e = 1 (the arithmetic alone) that is below 40 tiles;
+// at the card's beta ~ 3.5 and e ~ 0.7, below 26. chip_smoke.py phase 8
+// times both schedules at (512 x 7168) @ (7168 x n) as the tiles grow: the
+// split pays at 24 tiles and loses at 32, so kSplitTiles16 = 28. The f32
+// rule (264 tiles) was set for the CUDA cores, whose arithmetic is 15 times
+// slower against the same partials.
 // What bounds it: operations for the large products (2*M*N*K FLOPs; 989
-// TFLOP/s dense bf16/f16 on an H100 SXM), bytes for the skinny ones. This
-// is the simple kernel: wgmma, TMA and a persistent schedule come later.
+// TFLOP/s dense bf16/f16 on an H100 SXM), bytes for the skinny ones.
 
 namespace {
 
@@ -845,6 +893,264 @@ matmul_skinny_mma_kernel(const T* __restrict__ a_, const T* __restrict__ b_, T* 
     }
 }
 
+// ---- the tiled wgmma kernel ----------------------------------------------
+
+constexpr int kWTM = 128;        // a block's rows: two consumer warpgroups of 64
+constexpr int kWBK = 64;         // terms a stage: one 128-byte swizzled row of a
+constexpr int kWStages = 6;      // the ring's depth
+constexpr int kWThreads = 384;   // the producer warpgroup, then two consumers
+constexpr int kWBox = 64;        // a TMA box's columns (128 bytes, the swizzle's span)
+constexpr int kWProducerRegs = 40, kWConsumerRegs = 232;  // setmaxnreg: 128 * 40 + 256 * 232 <= 64 K
+static_assert(kSegLen % kWBK == 0, "a stage never straddles two segments");
+
+template <int BN>  // the block's columns: 128, or 64 for n <= 64
+struct WTile {
+  static constexpr int kABytes = kWTM * kWBK * 2;   // 16 KB
+  static constexpr int kBBytes = kWBK * BN * 2;     // BN / 64 boxes of 8 KB
+  static constexpr int kStageBytes = kABytes + kBBytes;
+  // the ring, its 2 * kWStages mbarriers, and slack to align the ring to
+  // the swizzle's 1,024-byte period
+  static constexpr int kSmemBytes = kWStages * kStageBytes + 16 * kWStages + 1024;
+};
+
+#define REPRO_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define REPRO_D16(i) REPRO_D4(i), REPRO_D4(i + 4), REPRO_D4(i + 8), REPRO_D4(i + 12)
+#define REPRO_R32                                                                                 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "  \
+  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+#define REPRO_R64                                                                                 \
+  REPRO_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+            "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+// d (64 x BN, f32) = a (64 x 16, K-major) * b (16 x BN, N-major) + (acc ?
+// d : 0): scale-a and scale-b 1, a not transposed, b transposed
+#define REPRO_WGMMA(SHAPE, TY, REGS, DA, DB, ACC)                                   \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, " ACC ", 0;\nwgmma.mma_async.sync.aligned." SHAPE \
+  ".f32." TY "." TY " {" REGS "}, " DA ", " DB ", p, 1, 1, 0, 1;\n}\n"
+
+template <typename T, int BN>
+struct Wgmma;
+
+template <>
+struct Wgmma<__nv_bfloat16, 128> {
+  static __device__ __forceinline__ void run(float (&d)[64], unsigned long long da,
+                                             unsigned long long db, int acc) {
+    asm volatile(REPRO_WGMMA("m64n128k16", "bf16", REPRO_R64, "%64", "%65", "%66")
+                 : REPRO_D16(0), REPRO_D16(16), REPRO_D16(32), REPRO_D16(48)
+                 : "l"(da), "l"(db), "r"(acc));
+  }
+};
+
+template <>
+struct Wgmma<__half, 128> {
+  static __device__ __forceinline__ void run(float (&d)[64], unsigned long long da,
+                                             unsigned long long db, int acc) {
+    asm volatile(REPRO_WGMMA("m64n128k16", "f16", REPRO_R64, "%64", "%65", "%66")
+                 : REPRO_D16(0), REPRO_D16(16), REPRO_D16(32), REPRO_D16(48)
+                 : "l"(da), "l"(db), "r"(acc));
+  }
+};
+
+template <>
+struct Wgmma<__nv_bfloat16, 64> {
+  static __device__ __forceinline__ void run(float (&d)[32], unsigned long long da,
+                                             unsigned long long db, int acc) {
+    asm volatile(REPRO_WGMMA("m64n64k16", "bf16", REPRO_R32, "%32", "%33", "%34")
+                 : REPRO_D16(0), REPRO_D16(16)
+                 : "l"(da), "l"(db), "r"(acc));
+  }
+};
+
+template <>
+struct Wgmma<__half, 64> {
+  static __device__ __forceinline__ void run(float (&d)[32], unsigned long long da,
+                                             unsigned long long db, int acc) {
+    asm volatile(REPRO_WGMMA("m64n64k16", "f16", REPRO_R32, "%32", "%33", "%34")
+                 : REPRO_D16(0), REPRO_D16(16)
+                 : "l"(da), "l"(db), "r"(acc));
+  }
+};
+
+#undef REPRO_WGMMA
+#undef REPRO_R64
+#undef REPRO_R32
+#undef REPRO_D16
+#undef REPRO_D4
+
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// one box of a 2-D tensor map, at (column c0, row c1), into shared memory
+// at dst; its bytes complete a transaction on the mbarrier bar
+__device__ __forceinline__ void tma_load(unsigned dst, const CUtensorMap* map, int c0, int c1,
+                                         unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<unsigned long long>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// A shared-memory matrix descriptor in the 128-byte swizzle: the start
+// address, the leading and stride byte offsets (16-byte units), layout 1.
+// a (K-major): rows of 128 bytes, 8-row groups 1,024 bytes apart (SBO); a
+// k16 step is 32 bytes further along the row. b (N-major): k-rows of 128
+// bytes (64 columns), 8-row groups 1,024 bytes apart (SBO), the next 64
+// columns a box (8 KB) further (LBO); a k16 step is 16 rows further.
+__device__ __forceinline__ unsigned long long smem_desc(unsigned addr, unsigned lbo, unsigned sbo) {
+  return static_cast<unsigned long long>((addr & 0x3FFFF) >> 4) |
+         static_cast<unsigned long long>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<unsigned long long>((sbo >> 4) & 0x3FFF) << 32 | 1ull << 62;
+}
+
+// Keep the compiler from moving reads or writes of the accumulators across
+// the wgmma fences and waits (their asm does not name them).
+template <int N>
+__device__ __forceinline__ void pin(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// grid (row tiles, column tiles, z). split = 0: z = 1, each block walks all
+// of K and writes c (16-bit) from its running totals. split = 1: block z
+// sums segment z alone and writes it as f32 partial z of ws.
+template <typename T, int BN>
+__global__ void __launch_bounds__(kWThreads, 1)
+matmul_tiled_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
+                          const __grid_constant__ CUtensorMap tb, T* __restrict__ c,
+                          float* __restrict__ ws, int m, int n, int k, int split) {
+  using Tl = WTile<BN>;
+  constexpr int kRegs = BN / 2;  // accumulator registers a thread (m64nBN: 64 x BN / 128)
+  extern __shared__ unsigned char wsmem[];
+  const unsigned ring = (smem_addr(wsmem) + 1023u) & ~1023u;
+  const unsigned full0 = ring + kWStages * Tl::kStageBytes, empty0 = full0 + 8 * kWStages;
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  const int row0 = blockIdx.x * kWTM, col0 = blockIdx.y * BN;
+  constexpr int kStagesPerSeg = kSegLen / kWBK;
+  const int nkt = (k + kWBK - 1) / kWBK;
+  const int kt0 = split ? blockIdx.z * kStagesPerSeg : 0;
+  const int kt1 = split ? min(kt0 + kStagesPerSeg, nkt) : nkt;
+  const int nk = kt1 - kt0;
+  const int consumers = m - row0 > 64 ? 2 : 1;  // the second's 64 rows may lie below c
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, consumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // the producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kWProducerRegs));
+    if (t == 0) {
+      for (int it = 0; it < nk; ++it) {
+        const int s = it % kWStages;
+        mbar_wait(empty0 + 8 * s, ((it / kWStages) & 1) ^ 1);  // a fresh ring passes at once
+        mbar_expect_tx(full0 + 8 * s, Tl::kStageBytes);
+        const unsigned st = ring + s * Tl::kStageBytes;
+        const int k0 = (kt0 + it) * kWBK;
+        tma_load(st, &ta, k0, row0, full0 + 8 * s);
+#pragma unroll
+        for (int j = 0; j < BN / kWBox; ++j)
+          tma_load(st + Tl::kABytes + j * kWBK * kWBox * 2, &tb, col0 + j * kWBox, k0, full0 + 8 * s);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kWConsumerRegs));
+  const int cw = wg - 1;  // rows [row0 + 64 cw, + 64)
+  if (cw >= consumers) return;
+  // seg is written by the wgmma steps alone (a segment's first step does
+  // not read it: the sum starts at 0), so no other instruction touches it
+  // while a group is in flight
+  float seg[kRegs], tot[kRegs];
+#pragma unroll
+  for (int i = 0; i < kRegs; ++i) seg[i] = tot[i] = 0.f;
+  int pending = -1;  // the stage whose wgmma group may still read shared memory
+  for (int it = 0; it < nk; ++it) {
+    const int s = it % kWStages;
+    mbar_wait(full0 + 8 * s, (it / kWStages) & 1);
+    const unsigned st = ring + s * Tl::kStageBytes;
+    const unsigned long long da = smem_desc(st + cw * 64 * 128, 16, 1024);
+    const unsigned long long db = smem_desc(st + Tl::kABytes, kWBK * kWBox * 2, 1024);
+    const int k0 = (kt0 + it) * kWBK;
+    const int acc = (kt0 + it) % kStagesPerSeg != 0;  // 0: the stage opens a segment
+    pin(seg);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    // da + 2: 32 bytes further along a's rows; db + 128: 16 rows of b on
+    if (k - k0 >= kWBK) {
+#pragma unroll
+      for (int j = 0; j < kWBK / 16; ++j) Wgmma<T, BN>::run(seg, da + 2 * j, db + 128 * j, acc | j);
+    } else {  // K's last stage: no k16 step starts at or past K
+#pragma unroll
+      for (int j = 0; j < kWBK / 16; ++j)
+        if (16 * j < k - k0) Wgmma<T, BN>::run(seg, da + 2 * j, db + 128 * j, acc | j);
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    if ((kt0 + it + 1) % kStagesPerSeg == 0 || it + 1 == nk) {  // a segment ends
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      pin(seg);
+      if (t == 0) {
+        if (pending >= 0) mbar_arrive(empty0 + 8 * pending);
+        mbar_arrive(empty0 + 8 * s);
+      }
+      pending = -1;
+      if (!split) {
+#pragma unroll
+        for (int i = 0; i < kRegs; ++i) tot[i] = __fadd_rn(tot[i], seg[i]);
+      }
+    } else {
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+      pin(seg);
+      if (t == 0 && pending >= 0) mbar_arrive(empty0 + 8 * pending);
+      pending = s;
+    }
+  }
+
+  // entry 4q + e of a thread: row 16 w + g + 8 (e >> 1), column 8 q + 2 t4 +
+  // (e & 1) of its warpgroup's 64 x BN (the mma m16n8 layout, per warp)
+  const int w = t / 32, g = (t % 32) / 4, t4 = t % 4;
+  float* part = split ? ws + static_cast<long long>(blockIdx.z) * m * n : nullptr;
+#pragma unroll
+  for (int i = 0; i < kRegs; ++i) {
+    const int r = row0 + cw * 64 + w * 16 + g + ((i >> 1) & 1) * 8;
+    const int cc = col0 + (i >> 2) * 8 + 2 * t4 + (i & 1);
+    if (r < m && cc < n) {
+      const long long at = static_cast<long long>(r) * n + cc;
+      if (split)
+        part[at] = seg[i];
+      else
+        c[at] = to_out(tot[i], c);
+    }
+  }
+}
+
+// ---- launches and the 16-bit entry points --------------------------------
+
 template <typename T, int NT, bool VA, bool VB>
 cudaError_t launch_tiled_mma(const T* a, const T* b, T* c, float* ws, int m, int n, int k,
                              int split, dim3 grid, cudaStream_t st) {
@@ -872,14 +1178,84 @@ cudaError_t launch_product_mma(bool tiled, const T* a, const T* b, T* c, float* 
                        : launch_tiled_mma<T, 8, VA, VB>(a, b, c, ws, m, n, k, split, grid, st);
 }
 
-// The 16-bit entry points' body: the f32 entry point's plan (the same paths,
-// grids, split rule and workspace of f32 partials), the mma kernels.
-static_assert(kHTM == kTM && HTile<4>::kN == Tile<1>::kN && HTile<8>::kN == Tile<2>::kN &&
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled of the CUDA driver API, looked up once (null
+// where the installed CUDA library lacks it: the call then fails).
+EncodeTiled tensor_map_encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+template <typename T>
+constexpr CUtensorMapDataType kTmaType = std::is_same<T, __half>::value
+                                             ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                             : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+
+// A row-major (rows, cols) 16-bit matrix as boxes of box_rows x kWBox in the
+// 128-byte swizzle, zero outside; false if cuTensorMapEncodeTiled refuses it.
+template <typename T>
+bool encode_map(CUtensorMap* map, const T* base, int rows, int cols, int box_rows) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * sizeof(T)};
+  const cuuint32_t box[2] = {kWBox, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(map, kTmaType<T>, 2, const_cast<T*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename T, int BN>
+cudaError_t launch_tiled_wgmma(const T* a, const T* b, T* c, float* ws, int m, int n, int k,
+                               int split, dim3 grid, cudaStream_t st) {
+  constexpr int bytes = WTile<BN>::kSmemBytes;
+  static std::atomic<unsigned> done{0};
+  const cudaError_t err = allow_smem(
+      reinterpret_cast<const void*>(&matmul_tiled_wgmma_kernel<T, BN>), bytes, done);
+  if (err != cudaSuccess) return err;
+  CUtensorMap ta{}, tb{};  // K = 0 loads nothing
+  if (k > 0 && !(encode_map(&ta, a, m, k, kWTM) && encode_map(&tb, b, k, n, kWBK)))
+    return cudaErrorInvalidValue;
+  repro::record_launch(repro::kMatmulTiledWgmma, BN, grid, dim3(kWThreads));
+  matmul_tiled_wgmma_kernel<T, BN><<<grid, kWThreads, bytes, st>>>(ta, tb, c, ws, m, n, k, split);
+  return cudaGetLastError();
+}
+
+constexpr int kSplitTiles16 = 28;  // the 16-bit plan's split rule (the note above)
+// the plan's tiles (kTM rows; Tile<1>::kN, Tile<2>::kN columns) are every
+// 16-bit kernel's, and the skinny slab is kSN
+static_assert(kHTM == kTM && kWTM == kTM && HTile<4>::kN == Tile<1>::kN &&
+                  HTile<8>::kN == Tile<2>::kN && Tile<1>::kN == 64 && Tile<2>::kN == 128 &&
                   kHSN == kSN,
-              "the 16-bit kernels take the f32 kernel's plan");
+              "the 16-bit kernels take the plan's tiles");
+
+// The 16-bit entry points' body: the 16-bit plan (the f32 entry point's
+// paths, grids and workspace of f32 partials; kSplitTiles16), the wgmma
+// kernel where TMA describes the operands, else the mma.sync kernels.
+// force_split: -1 follows the plan; 0 or 1 sets a tiled product's split
+// (the split rule's check on the card), where the plan could take either.
 template <typename T>
 int matmul16(const void* a_, const void* b_, void* c_, void* workspace, long long workspace_bytes,
-             int m, int n, int k, void* stream) {
+             int m, int n, int k, int force_split, void* stream) {
   repro::record_begin();
   if (m < 0 || n < 0 || k < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (m == 0 || n == 0) return 0;
@@ -890,14 +1266,25 @@ int matmul16(const void* a_, const void* b_, void* c_, void* workspace, long lon
   const bool va = k % 8 == 0 && reinterpret_cast<std::uintptr_t>(a) % 16 == 0;
   const bool vb = n % 8 == 0 && reinterpret_cast<std::uintptr_t>(b) % 16 == 0;
   Plan p;
-  if (!make_plan(m, n, k, p)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!make_plan(m, n, k, kSplitTiles16, p)) return static_cast<int>(cudaErrorInvalidValue);
+  if (force_split >= 0) {
+    Plan both;
+    if (!p.tiled || !make_plan(m, n, k, 1 << 30, both) || !both.split)
+      return static_cast<int>(cudaErrorInvalidValue);
+    p.split = force_split != 0;
+    p.grid.z = p.split ? p.nseg : 1;
+  }
   if (p.split && p.nseg > 0 && (workspace == nullptr || workspace_bytes < p.nseg * p.mn * 4))
     return static_cast<int>(cudaErrorInvalidValue);
   float* ws = static_cast<float*>(workspace);
   const bool tiled = p.tiled, split = p.split;
   const dim3 grid = p.grid;
   cudaError_t err = cudaSuccess;
-  if (tiled || p.nseg > 0) {
+  if (tiled && (k == 0 || (va && vb))) {
+    err = n <= kNarrowN ? launch_tiled_wgmma<T, 64>(a, b, c, ws, m, n, k, split, grid, st)
+                        : launch_tiled_wgmma<T, 128>(a, b, c, ws, m, n, k, split, grid, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  } else if (tiled || p.nseg > 0) {
     err = va ? (vb ? launch_product_mma<T, true, true>(tiled, a, b, c, ws, m, n, k, split, grid, st)
                    : launch_product_mma<T, true, false>(tiled, a, b, c, ws, m, n, k, split, grid,
                                                         st))
@@ -914,15 +1301,27 @@ int matmul16(const void* a_, const void* b_, void* c_, void* workspace, long lon
 }  // namespace
 
 // a: (m, k), b: (k, n), c: (m, n); bf16 (f16), row-major, contiguous. The
-// workspace: as repro_matmul_f32's, ceil(k / 512) * m * n f32 partials when
-// the product is split, else unused. Returns the first CUDA error of its
-// launches.
+// workspace: ceil(k / 512) * m * n f32 partials when the 16-bit plan splits
+// the product (m <= 16 and k > 512; or fewer than kSplitTiles16 tiles, k >
+// 512 and partials within kSplitMaxBytes), else unused. Returns the first
+// CUDA error of its launches.
 extern "C" int repro_matmul_bf16(const void* a, const void* b, void* c, void* workspace,
                                  long long workspace_bytes, int m, int n, int k, void* stream) {
-  return matmul16<__nv_bfloat16>(a, b, c, workspace, workspace_bytes, m, n, k, stream);
+  return matmul16<__nv_bfloat16>(a, b, c, workspace, workspace_bytes, m, n, k, -1, stream);
 }
 
 extern "C" int repro_matmul_f16(const void* a, const void* b, void* c, void* workspace,
                                 long long workspace_bytes, int m, int n, int k, void* stream) {
-  return matmul16<__half>(a, b, c, workspace, workspace_bytes, m, n, k, stream);
+  return matmul16<__half>(a, b, c, workspace, workspace_bytes, m, n, k, -1, stream);
+}
+
+// repro_matmul_bf16 with a tiled product's split set (split 0 or 1) rather
+// than planned, for a shape whose plan could take either (m > 16, more than
+// one segment, partials within kSplitMaxBytes): what checks the split rule
+// on the card. The workspace must hold the split's partials.
+extern "C" int repro_matmul_bf16_split(const void* a, const void* b, void* c, void* workspace,
+                                       long long workspace_bytes, int m, int n, int k, int split,
+                                       void* stream) {
+  return matmul16<__nv_bfloat16>(a, b, c, workspace, workspace_bytes, m, n, k, split != 0,
+                                 stream);
 }

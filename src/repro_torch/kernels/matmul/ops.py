@@ -1,9 +1,11 @@
 """Blocked matmul: the ``cuda`` tier of the engine's ``blocked_matmul``
 dispatch op (core/kernels.py), over the hand-written kernels in
 ``csrc/matmul.cu``: ``repro_matmul_f32`` (f32 fused multiply-adds on the
-CUDA cores) and ``repro_matmul_bf16`` / ``repro_matmul_f16`` (``mma.sync``
-on the tensor cores, an f32 sum rounded once to the operands' type, as the
-TPU kernel's ``out_dtype = x.dtype``).
+CUDA cores) and ``repro_matmul_bf16`` / ``repro_matmul_f16`` (the tensor
+cores: ``wgmma`` fed by a TMA ring for the tiled products whose operands TMA
+describes, ``mma.sync`` for the others and the skinny ones; an f32 sum
+rounded once to the operands' type, as the TPU kernel's ``out_dtype =
+x.dtype``).
 
 ``blocked_matmul(x, y)`` launches the kernel for CUDA tensors and takes the
 plain version (ref.py) for CPU tensors; ragged shapes are masked inside the
@@ -14,14 +16,16 @@ backward stays in the same tier, as the paper's Fig. 4 RJP kernels:
 The kernel sums each entry in one order that depends on K alone: K is cut
 into segments of ``SEG_LEN`` terms, each summed from 0 in ascending K (f32:
 one fused multiply-add per term, ref.matmul_in_kernel_order writes it out;
-16-bit: one m16n8k16 ``mma`` per 16 terms), and the segment sums are added
-in ascending order in f32. Both dtypes take the same plan. Two paths keep
-that order (``plan``): a product of at most ``SKINNY_ROWS`` rows (decode,
-the head, the logistic regression's dθ) is split over K, one block per
-(segment, 64-column slab), into partials that a second grid adds in order;
-a taller one runs 128×128 tiles (128×64 for n ≤ 64) that carry the
-running total, or, when it has too few tiles to fill the card, is split
-over K in the same way.
+16-bit: one k16 tensor-core step per 16 terms, ``wgmma`` or ``mma``, which
+round alike), and the segment sums are added in ascending order in f32. Two
+paths keep that order (``plan`` for f32, ``plan16`` for 16 bits, which
+differ in the split rule alone): a product of at most ``SKINNY_ROWS`` rows
+(decode, the head, the logistic regression's dθ) is split over K, one block
+per (segment, 64-column slab), into partials that a second grid adds in
+order; a taller one runs 128×128 tiles (128×64 for n ≤ 64) that carry the
+running total, or, when it has too few tiles to fill the card
+(``SPLIT_TILES``; at 16 bits ``SPLIT_TILES_16``), is split over K in the
+same way.
 So a row's result is the same bits at m = 2 as among 2,050 rows, and a call
 repeats its bits. ``CONTRACT`` (core/kernels.py's vocabulary) models each
 path's launches for the static certifier (analysis/kernelcheck.py), the
@@ -30,6 +34,7 @@ sanitizer tier and the card's launch record.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from dataclasses import dataclass
 from typing import Any, Dict, List, Tuple
@@ -49,6 +54,10 @@ TILE_M, TILE_N, NARROW_N, SLAB_N = 128, 128, 64, 64
 #: split over its segments too, while the partials fit SPLIT_MAX_BYTES
 #: (kSplitTiles, kSplitMaxBytes)
 SPLIT_TILES, SPLIT_MAX_BYTES = 264, 256 << 20
+#: the 16-bit plan's split rule (kSplitTiles16): against the tensor cores'
+#: rate, the partials' 8·S·m·n bytes and a split block's own fill and drain
+#: pay below about 28 tiles (csrc/matmul.cu)
+SPLIT_TILES_16 = 28
 #: more segments than this are summed by 32 lanes per entry (kReduceLongChain)
 REDUCE_LONG_CHAIN = 64
 #: CUDA's limit on gridDim.x and on gridDim.y and z
@@ -56,17 +65,24 @@ GRID_X_MAX, GRID_Y_MAX = 2**31 - 1, 65535
 #: threads of a tiled block (kTThreads, kHThreads), a skinny block
 #: (kSThreads, kHSThreads) and a block of the ordered sum (kReduceThreads)
 TILED_THREADS, SKINNY_THREADS, REDUCE_THREADS = 256, 128, 256
+#: threads of a block of the wgmma kernel (kWThreads): a producer warpgroup
+#: and two consumers
+WGMMA_THREADS = 384
+#: the 16-bit dtypes (the tensor-core kernels and their plan)
+DTYPES_16 = (torch.bfloat16, torch.float16)
 #: the C entry point for each operand dtype
 ENTRY = {
     torch.float32: "repro_matmul_f32",
     torch.bfloat16: "repro_matmul_bf16",
     torch.float16: "repro_matmul_f16",
 }
-#: the launch record's kernel names, f32 and 16-bit (csrc/launch_record.h)
+#: the launch record's kernel names, f32 and 16-bit (csrc/launch_record.h);
+#: a 16-bit tiled product whose operands TMA describes runs ``WGMMA_KIND``
 _KINDS = {
     False: ("matmul_tiled", "matmul_skinny", "matmul_reduce"),
     True: ("matmul_tiled_mma", "matmul_skinny_mma", "matmul_reduce16"),
 }
+WGMMA_KIND = "matmul_tiled_wgmma"
 
 
 def segments(k: int) -> List[Tuple[int, int]]:
@@ -89,15 +105,41 @@ class Plan:
 
 @functools.lru_cache(maxsize=1024)
 def plan(m: int, k: int, n: int) -> Plan:
-    """The launch for an (m, k) @ (k, n) product, as ``repro_matmul_f32``
-    and the 16-bit entry points make it (the same grids); raises for a
-    shape the kernel cannot take."""
+    """The launch for an (m, k) @ (k, n) f32 product, as
+    ``repro_matmul_f32`` makes it; raises for a shape the kernel cannot
+    take."""
+    return _plan(m, k, n, SPLIT_TILES)
+
+
+@functools.lru_cache(maxsize=1024)
+def plan16(m: int, k: int, n: int) -> Plan:
+    """The launch for an (m, k) @ (k, n) bf16 or f16 product, as
+    ``repro_matmul_bf16``/``_f16`` make it: ``plan``'s paths, tiles and
+    workspace, and a tiled product split over its segments below
+    ``SPLIT_TILES_16`` tiles."""
+    return _plan(m, k, n, SPLIT_TILES_16)
+
+
+def plan_for(m: int, k: int, n: int, dtype: torch.dtype) -> Plan:
+    """``plan16`` for a 16-bit dtype, else ``plan``."""
+    return plan16(m, k, n) if dtype in DTYPES_16 else plan(m, k, n)
+
+
+def tma_describes(k: int, n: int, aligned: bool = True) -> bool:
+    """Whether a 16-bit tiled product's operands are ones TMA can load (K
+    and N multiples of 8 values, both bases 16-byte aligned, or K = 0 and
+    nothing to load): the wgmma kernel's operands; the others take the
+    ``mma.sync`` kernel."""
+    return k == 0 or (k % 8 == 0 and n % 8 == 0 and aligned)
+
+
+def _plan(m: int, k: int, n: int, split_tiles: int) -> Plan:
     if min(m, k, n) < 0 or max(m, k, n) >= 2**31:
         raise ValueError(f"blocked_matmul: extents {(m, n, k)} outside the kernel's int32 range")
     n_seg = -(-k // SEG_LEN)
     if m > SKINNY_ROWS:
         gx, gy = -(-m // TILE_M), -(-n // (TILE_N // 2 if n <= NARROW_N else TILE_N))
-        split = (n_seg > 1 and gx * gy < SPLIT_TILES and n_seg <= GRID_Y_MAX
+        split = (n_seg > 1 and gx * gy < split_tiles and n_seg <= GRID_Y_MAX
                  and n_seg * m * n * 4 <= SPLIT_MAX_BYTES)
         path, grid = "tiled", (gx, gy, n_seg if split else 1)
     else:
@@ -113,14 +155,15 @@ def plan(m: int, k: int, n: int) -> Plan:
     return Plan(path, n_seg, split, grid, reduce_blocks, workspace)
 
 
-def _launch(x: torch.Tensor, y: torch.Tensor, out: torch.Tensor, p: Plan) -> None:
+def _launch(x: torch.Tensor, y: torch.Tensor, out: torch.Tensor, p: Plan, entry: str,
+            *extra: int) -> None:
     m, k = x.shape
     n = y.shape[1]
     ws = torch.empty(p.workspace, dtype=torch.float32, device=x.device) if p.workspace else None
     launch(
-        "blocked_matmul", ENTRY[x.dtype], x,
+        "blocked_matmul", entry, x,
         x.data_ptr(), y.data_ptr(), out.data_ptr(), None if ws is None else ws.data_ptr(),
-        p.workspace * 4, m, n, k,
+        p.workspace * 4, m, n, k, *extra,
     )
     blocked_matmul.launches += 1
 
@@ -138,10 +181,33 @@ def blocked_matmul_forward(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     if y.shape[0] != k:
         raise ValueError(f"blocked_matmul: shapes {tuple(x.shape)} @ {tuple(y.shape)} do not chain")
     n = y.shape[1]
-    p = plan(m, k, n)
+    p = plan_for(m, k, n, x.dtype)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m and n:
-        _launch(x, y, out, p)
+        _launch(x, y, out, p, ENTRY[x.dtype])
+    return out
+
+
+def blocked_matmul_split(x: torch.Tensor, y: torch.Tensor, split: bool) -> torch.Tensor:
+    """The bf16 product of a tiled shape whose plan could take either
+    schedule (m > SKINNY_ROWS, more than one segment, partials within
+    SPLIT_MAX_BYTES), split over its segments or not as ``split`` says
+    rather than as ``plan16`` says: what checks the 16-bit split rule on the
+    card (``repro_matmul_bf16_split``). CUDA tensors only."""
+    require("blocked_matmul", x, torch.bfloat16, 2, "x")
+    require("blocked_matmul", y, torch.bfloat16, 2, "y")
+    m, k = x.shape
+    n = y.shape[1]
+    if y.shape[0] != k or not x.is_cuda:
+        raise ValueError(f"blocked_matmul_split: {tuple(x.shape)} @ {tuple(y.shape)} on {x.device}")
+    planned = plan16(m, k, n)
+    either = _plan(m, k, n, GRID_X_MAX)
+    if planned.path != "tiled" or not either.split:
+        raise ValueError(f"blocked_matmul_split: ({m}x{k})@({k}x{n}) cannot take both schedules")
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    _launch(x, y, out, either if split else dataclasses.replace(
+        either, split=False, grid=either.grid[:2] + (1,), reduce_blocks=0, workspace=0),
+        "repro_matmul_bf16_split", int(split))
     return out
 
 
@@ -201,12 +267,15 @@ def _reduce_model(m: int, n: int, p: Plan, name: str = "matmul_reduce") -> GridM
 
 def _grid_model(info: Dict[str, Any], **concrete: Any):
     """The launches ``repro_matmul_f32`` makes for ``plan``'s path, and
-    ``repro_matmul_bf16``/``_f16`` for a 16-bit dtype (the same grids and
-    workspace, the ``mma`` kernels' names, the ordered sum's 16-bit store):
+    ``repro_matmul_bf16``/``_f16`` for ``plan16``'s (the same grids and
+    workspace, the tensor-core kernels' names, the ordered sum's 16-bit
+    store; a tiled product whose operands TMA describes on the wgmma
+    kernel's 384 threads, ``concrete["aligned"]`` saying whether both bases
+    are 16-byte aligned, as they are unless stated):
 
     - tiled, not split: a block per (TILE_M rows, tile columns), its loop
       over K's segments the innermost grid axis (the running total in
-      shared memory, stored once after the last segment);
+      shared memory or registers, stored once after the last segment);
     - tiled, split: a block per (tile, segment) writing its segment's
       partial into the (segments, m, n) workspace, then the ordered sum;
     - skinny: a block per (segment, SLAB_N columns) over all m ≤
@@ -216,13 +285,16 @@ def _grid_model(info: Dict[str, Any], **concrete: Any):
     m, k, n = int(info["m"]), int(info["k"]), int(info["n"])
     if m == 0 or n == 0:
         return None  # the entry point returns before any launch
-    p = plan(m, k, n)
+    wide = info.get("dtype") in DTYPES_16
+    p = plan_for(m, k, n, info.get("dtype"))
     nseg = p.n_segments
-    tiled, skinny, reduce = _KINDS[info.get("dtype") in (torch.bfloat16, torch.float16)]
+    tiled, skinny, reduce = _KINDS[wide]
     if p.path == "tiled":
         tn = TILE_N // 2 if n <= NARROW_N else TILE_N
-        kind = f"{tiled}.{tn}"
         block = (TILED_THREADS, 1, 1)
+        if wide and tma_describes(k, n, concrete.get("aligned", True)):
+            tiled, block = WGMMA_KIND, (WGMMA_THREADS, 1, 1)
+        kind = f"{tiled}.{tn}"
         x = BlockModel("x", (m, k), (TILE_M, SEG_LEN), lambda i, j, s: (i, s))
         y = BlockModel("y", (k, n), (SEG_LEN, tn), lambda i, j, s: (s, j))
         if not p.split:
@@ -279,12 +351,12 @@ CONTRACT = KernelContract(
     dtypes="floating",
     accum_dtype="float32",
     masking=(
-        "no operand is padded: the copies into shared memory zero-fill "
-        "the ragged edges of a and b, and a thread stores only rows < m "
-        "and columns < n",
-        "a warp whose rows or columns lie wholly outside c skips the "
-        "arithmetic; the workspace holds ceil(k / SEG_LEN) * m * n f32 "
-        "partials, each written by one block",
+        "no operand is padded: the copies into shared memory (cp.async, "
+        "or TMA's zero fill in the wgmma kernel) zero-fill the ragged "
+        "edges of a and b, and a thread stores only rows < m and columns < n",
+        "a warp (in the wgmma kernel a consumer warpgroup) whose rows or "
+        "columns lie wholly outside c skips the arithmetic; the workspace "
+        "holds ceil(k / SEG_LEN) * m * n f32 partials, each written by one block",
         "m = 0 or n = 0 returns before any launch",
     ),
     vjp="two same-tier blocked matmuls: dX = g @ Yᵀ, dY = Xᵀ @ g (Fig. 4)",

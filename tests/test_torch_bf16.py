@@ -240,19 +240,27 @@ def test_f64_products_fall_through_the_cuda_tier():
                                    (1, 1, 1), (130, 1000, 77), (17, 20, 13), (5, 0, 3), (40, 0, 9)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
 def test_the_contract_models_the_16_bit_launches(m, k, n, dtype):
-    """The 16-bit entry points launch the f32 plan's grids under the mma
-    kernels' names; the models are race- and bounds-clean."""
-    p = matmul_ops.plan(m, k, n)
+    """The 16-bit entry points launch the 16-bit plan's grids (``plan16``):
+    a tiled product on the wgmma kernel where TMA describes its operands,
+    else on the mma.sync one, a skinny one on the mma.sync split-K kernel,
+    a split one's partials summed by the 16-bit ordered sum; the models are
+    race- and bounds-clean."""
+    p = matmul_ops.plan16(m, k, n)
     contract = K.kernel_contract("blocked_matmul")
     model = contract.grid_model({"m": m, "k": k, "n": n, "dtype": dtype})
     got = K.model_launches(model)
-    f32 = K.model_launches(contract.grid_model({"m": m, "k": k, "n": n, "dtype": torch.float32}))
-    renamed = {"matmul_tiled": "matmul_tiled_mma", "matmul_skinny": "matmul_skinny_mma",
-               "matmul_reduce": "matmul_reduce16"}
-    assert got == tuple((renamed[name.split(".")[0]] + "." + name.split(".")[1], grid, block)
-                        for name, grid, block in f32)
+    want = []
     if p.path == "tiled":
-        assert got[0][0] == f"matmul_tiled_mma.{64 if n <= 64 else 128}"
+        wgmma = matmul_ops.tma_describes(k, n)
+        want.append((f"matmul_tiled_{'wgmma' if wgmma else 'mma'}.{64 if n <= 64 else 128}", p.grid,
+                     (matmul_ops.WGMMA_THREADS if wgmma else matmul_ops.TILED_THREADS, 1, 1)))
+    elif k:
+        want.append(("matmul_skinny_mma.0", p.grid, (matmul_ops.SKINNY_THREADS, 1, 1)))
+    if p.split:
+        lanes = 32 if p.n_segments > matmul_ops.REDUCE_LONG_CHAIN else 1
+        want.append((f"matmul_reduce16.{lanes}", (p.reduce_blocks, 1, 1),
+                     (matmul_ops.REDUCE_THREADS, 1, 1)))
+    assert got == tuple(want)
     assert [g[0].split(".")[0] for g in got].count("matmul_reduce16") == int(p.split)
     assert K.simulate_grid(model) == []
 

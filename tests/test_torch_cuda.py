@@ -1006,7 +1006,8 @@ def test_cuda_launch_record_equals_each_contracts_model(cuda_device):
 
 
 # ---------------------------------------------------------------------------
-# The 16-bit products (repro_matmul_bf16 / repro_matmul_f16: mma.sync)
+# The 16-bit products (repro_matmul_bf16 / repro_matmul_f16: wgmma from a TMA
+# ring for the tiled products TMA describes, mma.sync for the others)
 # ---------------------------------------------------------------------------
 
 
@@ -1118,5 +1119,32 @@ def test_cuda_16_bit_launch_records_equal_the_contract_models(cuda_device, dtype
         record = last_launches()
         kinds.update(name.split(".")[0] for name, _, _ in record)
         assert launch_mismatch("blocked_matmul", {"m": m, "k": k, "n": n, "dtype": dtype}, record) is None
-    assert kinds == {"matmul_tiled_mma", "matmul_skinny_mma", "matmul_reduce16"}
+    assert kinds == {"matmul_tiled_wgmma", "matmul_tiled_mma", "matmul_skinny_mma", "matmul_reduce16"}
+    kernels.reset_launch_counts()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("k,n,split", [(7168, 128, True), (4096, 4096, False)])
+def test_cuda_16_bit_rows_bit_equal_at_2_17_and_2050(cuda_device, dtype, k, n, split):
+    """Rows 0-1 of the product are the same bits at M = 2 (the mma.sync
+    split-K kernel), M = 17 and M = 2,050 (the wgmma kernel), at a shape the
+    16-bit plan splits over its segments at M = 2,050 and one it does not:
+    a wgmma k16 step rounds as an mma.sync one, and every path keeps the one
+    summation order."""
+    from repro_torch.kernels.common import last_launches
+    from repro_torch.kernels.matmul.ops import blocked_matmul_forward, plan16
+
+    assert plan16(2050, k, n).split == split
+    gen = torch.Generator(device=cuda_device).manual_seed(k + n)
+    x = torch.randn(2050, k, generator=gen, device=cuda_device).to(dtype)
+    y = torch.randn(k, n, generator=gen, device=cuda_device).to(dtype)
+    big = blocked_matmul_forward(x, y)
+    record = last_launches()
+    assert record[0][0].startswith("matmul_tiled_wgmma.") and (len(record) == 2) == split
+    for rows in (2, 17):
+        small = blocked_matmul_forward(x[:rows].contiguous(), y)
+        kind = last_launches()[0][0].split(".")[0]
+        assert kind == ("matmul_skinny_mma" if rows == 2 else "matmul_tiled_wgmma")
+        assert torch.equal(small, big[:rows]), rows
     kernels.reset_launch_counts()
