@@ -921,10 +921,11 @@ BF16_FLOPS_PER_S = 989e12
 MATMUL16_M = (CODER_PROMPT, 16, 1)
 MATMUL16_EDGES = ((1, 1, 1), (1, 7, 5), (33, 1, 9), (17, 20, 13), (130, 1000, 77), (2, 515, 200),
                   (300, 4100, 130), (16, 4096, 4099), (17, 4096, 4099), (5, 0, 3), (129, 33, 257))
-#: the row-bits check: a row of the product at M = 2 and among M = 2,050,
-#: at (K, N) of MATMUL16_ROW_SHAPES; the backward's products at the (M, K, N)
-#: of MATMUL16_GRAD_SHAPES
-MATMUL16_ROWS = (2, 2050)
+#: the row-bits check: rows of the product at M = 2 (the skinny cluster
+#: kernel where TMA describes the operands) and M = 17 against the same rows
+#: among M = 2,050, at (K, N) of MATMUL16_ROW_SHAPES; the backward's products
+#: at the (M, K, N) of MATMUL16_GRAD_SHAPES
+MATMUL16_ROWS = (2, 17, 2050)
 #: the last one the 16-bit plan splits over its segments at M = 2,050 (17
 #: tiles), on the wgmma kernel; (1000, 77) takes the mma.sync one (N = 77)
 MATMUL16_ROW_SHAPES = ((4096, 4096), (7168, 1024), (1000, 77), (7168, 128))
@@ -936,6 +937,17 @@ MATMUL16_NAMED = {"q/o": (CODER_PROMPT, 7168, 7168), "k/v": (CODER_PROMPT, 7168,
 #: (7,168 x n), M = CODER_PROMPT, at these n (4 to 48 tiles)
 MATMUL16_SPLIT_N = (128, 256, 512, 768, 1024, 1280, 1536)
 MATMUL16_GRAD_SHAPES = ((CODER_PROMPT, 7168, 1024), (2, 4096, 4096), (130, 1000, 77))
+#: phase 8's skinny 16-bit sites, timed in CUDA graphs beside cuBLAS and the
+#: split-K mma.sync path (the same product with a 2 bytes into its storage,
+#: which TMA cannot describe): deepseek-coder-33b's decode products at m = 1,
+#: q/o at m = 16, and olmoe-1b-7b's narrower decode products at m = 1
+MATMUL16_DECODE = {"q/o": (1, 7168, 7168), "k/v": (1, 7168, 1024), "gate/up": (1, 7168, 19200),
+                   "down": (1, 19200, 7168), "head": (1, 7168, 32256), "q/o m=16": (16, 7168, 7168),
+                   "olmoe q/k/v/o": (1, 2048, 2048), "olmoe head": (1, 2048, 50304)}
+#: phase 8's check of the skinny rule: these decode sites through
+#: ``blocked_matmul_skinny`` at every (cluster, slab) of the sweep
+MATMUL16_SKINNY_SWEEP = ("q/o", "k/v", "down")
+MATMUL16_SWEEP_CLUSTERS, MATMUL16_SWEEP_SLABS = (1, 2, 3, 4, 8), (64, 128)
 
 
 def mla_mesh_plants(sharding, blocks):
@@ -5219,12 +5231,13 @@ def graph_ms(torch, fn, reps=20, replays=5) -> float:
 
 
 def matmul16_sites_and_split(torch, dev, gen):
-    """Phase 8's look at the 16-bit tiled kernel: each of MATMUL16_NAMED in
+    """Phase 8's look at the 16-bit kernels: each of MATMUL16_NAMED in
     CUDA graphs beside cuBLAS's bf16 product, with its bound, achieved rate
     and host time a call; and the split rule, both schedules of (M x 7,168)
     @ (7,168 x n) at M = CODER_PROMPT and n of MATMUL16_SPLIT_N, with the
     plan's choice (``blocked_matmul_split`` sets the schedule; the two give
-    the same bits, which is checked)."""
+    the same bits, which is checked); then the skinny sites
+    (``matmul16_skinny_sites``)."""
     from repro_torch.kernels.common import last_launches
     from repro_torch.kernels.matmul.ops import blocked_matmul_forward, blocked_matmul_split, plan16
 
@@ -5258,6 +5271,152 @@ def matmul16_sites_and_split(torch, dev, gen):
         log(f"  16-bit split rule ({m}x{k})@({k}x{n}), {tiles} tiles: split {s_ms:.4f} ms, unsplit "
             f"{u_ms:.4f} ms (split / unsplit {s_ms / u_ms:.3f}); the plan takes "
             f"{'split' if p.split else 'unsplit'}")
+    del x, y
+    out.update(matmul16_skinny_sites(torch, dev, gen))
+    out["cuda_kernels"] = sorted(set(out["cuda_kernels"])
+                                 | {site["kernel"].split(".")[0] for site in out["sites"].values()})
+    return out
+
+
+def coder_decode_products(torch, coder, timed, dev, gen):
+    """29.2's skinny products (m <= 16: every decode step's, and the
+    prefill's head at the last position) over one pass of deepseek-coder-33b's
+    request (``coder``: coder_phase's record; ``timed``: phase 8's
+    ``time_site`` of each signature), and the same shapes on the split-K
+    mma.sync path (a 2 bytes into its storage) by the same timing. The
+    CUDA launches and workspaces of the decode steps are those its run
+    counted (``DecodeProducts``), held to the contract's model of each call;
+    the split-K path's, one call of each shape on the card (its launch
+    record and the wrapper's workspace count) times the decode's calls."""
+    from repro_torch.core import kernels as K
+    from repro_torch.kernels.common import last_launches
+    from repro_torch.kernels.matmul import ops as matmul_ops
+
+    contract = K.kernel_contract("blocked_matmul")
+    fn = matmul_ops.blocked_matmul
+    decode = coder["decode"]
+    tot = {"products": 0, "ms": 0.0, "mma_split_k_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    split_k = {"launches": 0, "workspaces": 0}
+    modelled = {"launches": 0, "workspaces": 0}
+    for key, mult in sorted(coder["pass"].items(), key=lambda kv: str(kv[0])):
+        if key[0] != "blocked_matmul" or key[1] > 16:
+            continue
+        m, k, n = key[1:]
+        k_ms, _, l_ms, nbytes, flops, _ = timed[key]
+        store = torch.empty(m * k + 1, device=dev, dtype=torch.bfloat16)
+        xo = store[1:].view(m, k)
+        xo.normal_(generator=gen)
+        y = torch.randn(k, n, device=dev, generator=gen).to(torch.bfloat16)
+        o_ms = time_ms(torch, lambda: matmul_ops.blocked_matmul_forward(xo, y))
+        before = fn.workspaces
+        matmul_ops.blocked_matmul_forward(xo, y)
+        o_launches, o_workspaces = len(last_launches()), fn.workspaces - before
+        tot["products"] += mult
+        tot["ms"] += mult * k_ms
+        tot["mma_split_k_ms"] += mult * o_ms
+        tot["library_ms"] += mult * l_ms
+        tot["bound_ms"] += mult * bound(nbytes, flops, BF16_FLOPS_PER_S)[0]
+        calls = decode["calls"].get((m, k, n), 0)
+        split_k["launches"] += calls * o_launches
+        split_k["workspaces"] += calls * o_workspaces
+        modelled["launches"] += calls * len(K.model_launches(
+            contract.grid_model({"m": m, "k": k, "n": n, "dtype": torch.bfloat16})))
+        modelled["workspaces"] += calls * bool(matmul_ops.plan16(m, k, n).workspace)
+        del store, xo, y
+    steps = sum(decode["calls"].values())
+    if set(decode["calls"]) - {key[1:] for key in coder["pass"] if key[0] == "blocked_matmul"}:
+        raise AssertionError("29.2's decode made calls its pass did not log")
+    if any(m > 16 for m, _, _ in decode["calls"]):
+        raise AssertionError(f"29.2's decode made a product of more than 16 rows: {sorted(decode['calls'])}")
+    if (decode["launches"], decode["workspaces"]) != (modelled["launches"], modelled["workspaces"]):
+        raise AssertionError(f"29.2's decode launched {decode['launches']} kernels and allocated "
+                             f"{decode['workspaces']} workspaces; the contract's model of its calls "
+                             f"gives {modelled['launches']} and {modelled['workspaces']}")
+    per = {"products": steps / CODER_DECODE, "launches": decode["launches"] / CODER_DECODE,
+           "workspaces": decode["workspaces"] / CODER_DECODE,
+           "mma_split_k_launches": split_k["launches"] / CODER_DECODE,
+           "mma_split_k_workspaces": split_k["workspaces"] / CODER_DECODE}
+    log(f"  29.2's skinny products over a pass ({CODER_DECODE} decode steps and the prefill's head): "
+        f"{tot['products']} calls, kernel {tot['ms']:.2f} ms, split-K mma.sync path "
+        f"{tot['mma_split_k_ms']:.2f} ms, cuBLAS {tot['library_ms']:.2f} ms, bound {tot['bound_ms']:.2f} ms")
+    log(f"  29.2's {CODER_DECODE} decode steps, counted in their run: {steps} products, "
+        f"{decode['launches']} CUDA launches (the launch record), {decode['workspaces']} workspaces "
+        f"(the wrapper's count), as the contract's model of each call gives; a decode token "
+        f"{per['products']:.1f} products, {per['launches']:.1f} launches, {per['workspaces']:.1f} "
+        f"workspaces; on the split-K path (one call of each shape on the card, times the decode's "
+        f"calls) {split_k['launches']} launches and {split_k['workspaces']} workspaces, a token "
+        f"{per['mma_split_k_launches']:.1f} and {per['mma_split_k_workspaces']:.1f}")
+    return dict(tot, decode_products=steps, decode_launches=decode["launches"],
+                decode_workspaces=decode["workspaces"],
+                decode_mma_split_k_launches=split_k["launches"],
+                decode_mma_split_k_workspaces=split_k["workspaces"], per_decode_token=per)
+
+
+def matmul16_skinny_sites(torch, dev, gen):
+    """Phase 8's look at the skinny cluster kernel: each of MATMUL16_DECODE
+    in CUDA graphs beside cuBLAS's bf16 product and the split-K mma.sync
+    path on the same values (a copied 2 bytes into its storage, which TMA
+    cannot describe), with its bound, the host's time a call, the plan's
+    (cluster, slab) and ``cudaOccupancyMaxActiveClusters`` for it; then the
+    skinny rule's check: MATMUL16_SKINNY_SWEEP at every (cluster, slab) of
+    MATMUL16_SWEEP_CLUSTERS × MATMUL16_SWEEP_SLABS through
+    ``blocked_matmul_skinny``, each the same bits as the planned call."""
+    from repro_torch.kernels.common import last_launches
+    from repro_torch.kernels.matmul.ops import (blocked_matmul_forward, blocked_matmul_skinny, plan16,
+                                                skinny_occupancy, skinny_plan)
+
+    out = {"decode_sites": {}, "skinny_rule": [], "cuda_kernels": set()}
+    for what, (m, k, n) in MATMUL16_DECODE.items():
+        x = torch.randn(m, k, device=dev, generator=gen).to(torch.bfloat16)
+        y = torch.randn(k, n, device=dev, generator=gen).to(torch.bfloat16)
+        store = torch.empty(m * k + 1, device=dev, dtype=torch.bfloat16)
+        xo = store[1:].view(m, k)
+        xo.copy_(x)
+        want = blocked_matmul_forward(x, y)
+        record = last_launches()
+        if len(record) != 1 or not record[0][0].startswith("matmul_skinny_tma."):
+            raise AssertionError(f"16-bit {what}: launched {record}, not the skinny cluster kernel alone")
+        if not torch.equal(blocked_matmul_forward(xo, y), want):
+            raise AssertionError(f"16-bit {what}: the split-K mma.sync path's bits differ")
+        old = last_launches()
+        p = plan16(m, k, n)
+        occ = skinny_occupancy(m, k, n)
+        k_ms = graph_ms(torch, lambda: blocked_matmul_forward(x, y))
+        o_ms = graph_ms(torch, lambda: blocked_matmul_forward(xo, y))
+        l_ms = graph_ms(torch, lambda: torch.matmul(x, y))
+        b_ms, by = bound((m * k + k * n + m * n) * 2, 2 * m * n * k, BF16_FLOPS_PER_S)
+        h_ms = host_ms(torch, lambda: blocked_matmul_forward(x, y), device_ms=k_ms)
+        ho_ms = host_ms(torch, lambda: blocked_matmul_forward(xo, y), device_ms=o_ms)
+        out["cuda_kernels"].update(name.split(".")[0] for name, *_ in record + old)
+        out["decode_sites"][what] = {
+            "shape": (m, k, n), "kernel": record[0][0], "launch": record[0], "cluster": p.cluster,
+            "slab": p.slab, "smem": p.smem,
+            "active_clusters": occ["active_clusters"], "ms": k_ms, "mma_split_k_ms": o_ms,
+            "mma_split_k_launches": [name for name, *_ in old], "library_ms": l_ms, "bound_ms": b_ms,
+            "host_ms": h_ms, "mma_split_k_host_ms": ho_ms}
+        log(f"  16-bit skinny {what} ({m}x{k})@({k}x{n}) on {record[0][0]}, cluster {p.cluster}, slab "
+            f"{p.slab}, {p.smem:,} B a block (grid {p.grid[:2]}; "
+            f"cudaOccupancyMaxActiveClusters {occ['active_clusters']}): kernel {k_ms:.4f} ms, split-K "
+            f"mma.sync path {o_ms:.4f} ms ({' + '.join(name for name, *_ in old)}), cuBLAS {l_ms:.4f} ms "
+            f"({k_ms / l_ms:.3f}x), bound {b_ms:.4f} ms ({by}; {b_ms / k_ms:.1%} of it); host "
+            f"{h_ms * 1e3:.1f} us a call ({ho_ms * 1e3:.1f} on the split-K path)")
+        if what in MATMUL16_SKINNY_SWEEP:
+            for slab in MATMUL16_SWEEP_SLABS:
+                for cluster in MATMUL16_SWEEP_CLUSTERS:
+                    if skinny_plan(m, k, n, cluster, slab) is None:
+                        continue
+                    if not torch.equal(blocked_matmul_skinny(x, y, cluster, slab), want):
+                        raise AssertionError(f"16-bit {what}: cluster {cluster}, slab {slab} differs in bits")
+                    ms = graph_ms(torch, lambda: blocked_matmul_skinny(x, y, cluster, slab))
+                    active = skinny_occupancy(m, k, n, cluster, slab)["active_clusters"]
+                    planned = (cluster, slab) == (p.cluster, p.slab)
+                    out["skinny_rule"].append({"site": what, "cluster": cluster, "slab": slab, "ms": ms,
+                                               "active_clusters": active, "planned": planned})
+                    log(f"  16-bit skinny rule {what}: cluster {cluster}, slab {slab}: {ms:.4f} ms "
+                        f"({ms / k_ms:.3f} of the plan's; {active} clusters active)"
+                        f"{' <- the plan' if planned else ''}; the same bits")
+        del x, y, xo, store
+    out["cuda_kernels"] = sorted(out["cuda_kernels"])
     return out
 
 
@@ -5615,6 +5774,7 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, d
                 del ids
             op = "blocked_matmul_16" if key[0] == "blocked_matmul" else key[0]
             add(path, op, f"{key[0]}{key[1:]} bf16", mult, *timed16[key])
+    coder_decode = coder_decode_products(torch, zoo16["paths"]["coder_bf16"], timed16, dev, gen)
     del timed16
     torch.cuda.empty_cache()
 
@@ -5847,7 +6007,7 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, d
 
     for rec in records:
         if rec["name"] == "blocked_matmul_16":
-            rec.update(named16)
+            rec.update(named16, coder_decode=coder_decode)
     # the RJP products the compiler leaves to torch.einsum (the GCN's, and
     # olmoe's training backward: dX = g·Wᵀ and dW = Xᵀ·g of q/k/v/o and of
     # the head): the kernel's time at their shapes beside torch.matmul's,
@@ -6564,7 +6724,7 @@ def launch_record_checks(torch, kern, lm_cfg, dev):
         per_op[op] = (sites + 1, compared + len(record))
         paths.update(kernel.split(".")[0] + ("" if not kernel.startswith(("gather", "segsum_scan", "segsum_chunk"))
                      else ("/16-byte" if kernel.endswith(".16") else "/element"))
-                     for kernel, _, _ in record)
+                     for kernel, *_ in record)
     torch.cuda.synchronize()
     gc.collect()
     torch.cuda.empty_cache()
@@ -6578,7 +6738,8 @@ def launch_record_checks(torch, kern, lm_cfg, dev):
     want = {"segsum_scan/16-byte", "segsum_scan/element", "segsum_chunk/16-byte", "segsum_chunk/element",
             "segsum_starts", "segsum_combine", "gather/16-byte", "gather/element",
             "matmul_tiled", "matmul_skinny", "matmul_reduce", "ssm_scan",
-            "matmul_tiled_mma", "matmul_skinny_mma", "matmul_reduce16", "matmul_tiled_wgmma"}
+            "matmul_tiled_mma", "matmul_skinny_mma", "matmul_reduce16", "matmul_tiled_wgmma",
+            "matmul_skinny_tma"}
     if not want <= paths:
         raise AssertionError(f"the checked sites miss kernel paths: {sorted(want - paths)}")
     reverse = [s for op, s in record_sites(lm_cfg) if op == "ssm_scan" and s["reverse"]]
@@ -10552,7 +10713,8 @@ def check_matmul16(torch, kern, dev):
     version (ref.matmul_ref: the f32 product of the widened operands,
     rounded once) at every site shape of the zoo at M = MATMUL16_M, at the
     edges, and its backward's two products, each call's launch record held
-    to its contract model; a row's bits at M = 2 against the same row among
+    to its contract model (every zoo site at M = 16 and M = 1 on the skinny
+    cluster kernel); rows' bits at M = 2 and 17 against the same rows among
     M = 2,050; a planted fault (the last 16 terms of K dropped) above the
     limit. Returns a function giving the largest |c − ref| and excess so
     far, and one that checks the bf16 products of a set of LaunchLog
@@ -10576,7 +10738,7 @@ def check_matmul16(torch, kern, dev):
         y = torch.randn(k, n, generator=gen, device=dev).to(dt)
         return x, y
 
-    def case(m, k, n, dt):
+    def case(m, k, n, dt, cluster=False):
         nonlocal worst, worst_err, checked
         x, y = draw(m, k, n, dt)
         got = blocked_matmul_forward(x, y)
@@ -10584,8 +10746,11 @@ def check_matmul16(torch, kern, dev):
         miss = launch_mismatch("blocked_matmul", {"m": m, "k": k, "n": n, "dtype": dt}, record)
         if miss:
             raise AssertionError(miss)
+        if cluster and (len(record) != 1 or not record[0][0].startswith("matmul_skinny_tma.")):
+            raise AssertionError(f"({m}x{k})@({k}x{n}) {dt}: a zoo site at M = {m} launched {record}, "
+                                 "not the skinny cluster kernel alone")
         if dt == torch.bfloat16:
-            kinds.setdefault(" + ".join(name for name, _, _ in record), []).append((m, k, n))
+            kinds.setdefault(" + ".join(name for name, *_ in record), []).append((m, k, n))
         if got.dtype != dt or tuple(got.shape) != (m, n):
             raise AssertionError(f"({m}x{k})@({k}x{n}) {dt}: got {got.dtype} {tuple(got.shape)}")
         ex, err = matmul16_excess(torch, x, y, got, matmul_ref(x, y))
@@ -10595,7 +10760,9 @@ def check_matmul16(torch, kern, dev):
         shapes.add((m, k, n, dt))
 
     for dt in (torch.bfloat16, torch.float16):
-        for m, k, n in [(m, k, n) for (k, n) in sorted(sites) for m in MATMUL16_M] + list(MATMUL16_EDGES):
+        for m, k, n in [(m, k, n) for (k, n) in sorted(sites) for m in MATMUL16_M]:
+            case(m, k, n, dt, cluster=m <= 16)
+        for m, k, n in MATMUL16_EDGES:
             case(m, k, n, dt)
         # unaligned bases: operands that start 2 bytes into their storage
         for m, k, n in ((64, 64, 64), (3, 512, 136), (200, 1040, 72)):
@@ -10608,12 +10775,14 @@ def check_matmul16(torch, kern, dev):
                 raise AssertionError(f"unaligned ({m}x{k})@({k}x{n}) {dt}: at {ex:.3f} of the limit")
         # a row's bits whatever M is
         for k, n in MATMUL16_ROW_SHAPES:
-            small, big = MATMUL16_ROWS
+            big = MATMUL16_ROWS[-1]
             x, y = draw(big, k, n, dt)
-            a, b = blocked_matmul_forward(x[:small].contiguous(), y), blocked_matmul_forward(x, y)
-            if not torch.equal(a, b[:small]):
-                raise AssertionError(f"{dt} ({k}x{n}): rows at M = {small} differ from the same rows "
-                                     f"among M = {big}")
+            b = blocked_matmul_forward(x, y)
+            for small in MATMUL16_ROWS[:-1]:
+                a = blocked_matmul_forward(x[:small].contiguous(), y)
+                if not torch.equal(a, b[:small]):
+                    raise AssertionError(f"{dt} ({k}x{n}): rows at M = {small} differ from the same rows "
+                                         f"among M = {big}")
         # the backward's two products: dx = g @ yᵀ, dy = xᵀ @ g, in x's and y's dtype
         for m, k, n in MATMUL16_GRAD_SHAPES:
             x, y = draw(m, k, n, dt)
@@ -10638,15 +10807,17 @@ def check_matmul16(torch, kern, dev):
             raise AssertionError("the 16-bit limit passes a product that drops 16 terms")
     torch.cuda.synchronize()
     log(f"  29.1: {checked} products within the limit (largest excess {worst:.3f}, largest "
-        f"|c - ref| {worst_err:.4g}); rows bit-equal at M = {MATMUL16_ROWS[0]} and "
-        f"{MATMUL16_ROWS[1]}")
+        f"|c - ref| {worst_err:.4g}); rows bit-equal at M = "
+        f"{', '.join(str(m) for m in MATMUL16_ROWS)}; every zoo site at M <= 16 on the skinny cluster "
+        "kernel alone")
     def log_kinds(what):
         for kind, at in sorted(kinds.items()):
             log(f"  29.1 launch record {kind}{what}: {len(at)} bf16 shapes {at}")
 
     log_kinds("")
-    if not any(kind.startswith("matmul_tiled_wgmma.") for kind in kinds):
-        raise AssertionError("no 16-bit product of 29.1 ran on the wgmma kernel")
+    for kernel in ("matmul_tiled_wgmma", "matmul_skinny_tma"):
+        if not any(kind.startswith(kernel + ".") for kind in kinds):
+            raise AssertionError(f"no 16-bit product of 29.1 ran on {kernel}")
 
     def more(keys):
         """Check the bf16 calls of ``keys`` (LaunchLog signatures) that the
@@ -10827,6 +10998,41 @@ def zoo16_kinds_phase(torch, repro_torch, kern, dev):
     return out
 
 
+class DecodeProducts:
+    """While active, each ``blocked_matmul_forward`` call by signature
+    (m, k, n), the CUDA launches the library's launch record shows for it
+    (``last_launches``) and the workspaces the wrapper allocated for it
+    (``blocked_matmul.workspaces``): what 29.2's decode steps launch."""
+
+    def __init__(self, matmul_ops):
+        self.ops, self.calls = matmul_ops, {}
+        self.launches = self.workspaces = 0
+
+    def __enter__(self):
+        from repro_torch.kernels.common import last_launches
+
+        real, fn = self.ops.blocked_matmul_forward, self.ops.blocked_matmul
+
+        def call(x, y):
+            before = fn.workspaces
+            out = real(x, y)
+            key = (x.shape[0], x.shape[1], y.shape[1])
+            self.calls[key] = self.calls.get(key, 0) + 1
+            self.launches += len(last_launches()) if out.numel() else 0
+            self.workspaces += fn.workspaces - before
+            return out
+
+        self.real = real
+        self.ops.blocked_matmul_forward = call
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.blocked_matmul_forward = self.real
+
+    def summary(self):
+        return {"calls": dict(self.calls), "launches": self.launches, "workspaces": self.workspaces}
+
+
 def coder_phase(torch, repro_torch, kern, dev, errs):
     """29.2: deepseek-coder-33b at its published widths, depth and dtype;
     a prefill of CODER_BATCH × CODER_PROMPT tokens and CODER_DECODE greedy
@@ -10876,13 +11082,18 @@ def coder_phase(torch, repro_torch, kern, dev, errs):
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
         c_logits.append(lg[:, -1].float())
-        for i in range(steps):
-            tokens.append(lg[:, -1].argmax(-1, keepdim=True).to(torch.int32))
-            t0 = time.perf_counter()
-            lg, caches = decode(tokens[-1], caches, s + i)
-            torch.cuda.synchronize()
-            secs.append(time.perf_counter() - t0)
-            c_logits.append(lg[:, -1].float())
+        matmul_ops.blocked_matmul.workspaces = 0
+        with DecodeProducts(matmul_ops) as decoded:
+            for i in range(steps):
+                tokens.append(lg[:, -1].argmax(-1, keepdim=True).to(torch.int32))
+                t0 = time.perf_counter()
+                lg, caches = decode(tokens[-1], caches, s + i)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                c_logits.append(lg[:, -1].float())
+        if decoded.workspaces != matmul_ops.blocked_matmul.workspaces:
+            raise AssertionError(f"29.2: the decode's calls allocated {decoded.workspaces} workspaces, the "
+                                 f"wrapper counted {matmul_ops.blocked_matmul.workspaces}")
     launched = kern.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     del caches
@@ -10955,7 +11166,8 @@ def coder_phase(torch, repro_torch, kern, dev, errs):
     del model, prefill, decode, lg
     gc.collect()
     torch.cuda.empty_cache()
-    return {"launches": launched, "pass": dict(calls.counts), "ids": dict(calls.ids)}
+    return {"launches": launched, "pass": dict(calls.counts), "ids": dict(calls.ids),
+            "decode": decoded.summary()}
 
 
 def zoo16_train_phase(torch, repro_torch, kern, dev):

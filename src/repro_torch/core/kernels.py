@@ -561,9 +561,13 @@ class AccumModel:
 class GridModel:
     """The geometry of one kernel launch: grid extents, input/output block
     models, the optional accumulator, and what the launch record shows of
-    it — the kernel's name (``kernel``), its ``blockDim`` (``block``) and
-    the number of trailing grid axes that are loops inside a block
-    (``loops``; the rest are its ``gridDim``)."""
+    it — the kernel's name (``kernel``), its ``blockDim`` (``block``), the
+    number of trailing grid axes that are loops inside a block (``loops``;
+    the rest are its ``gridDim``) and its thread-block cluster's dimensions
+    (``cluster``; (1, 1, 1) for a launch without clusters). The blocks of a
+    cluster may read each other's shared memory, which no block model
+    shows: each still stores its own output tiles, so the race and
+    coverage checks hold as for any grid."""
 
     grid: Tuple[int, ...]
     inputs: Tuple[BlockModel, ...]
@@ -572,11 +576,14 @@ class GridModel:
     kernel: str = ""
     block: Tuple[int, int, int] = (1, 1, 1)
     loops: int = 0
+    cluster: Tuple[int, int, int] = (1, 1, 1)
 
-    def launch(self) -> Tuple[str, Tuple[int, int, int], Tuple[int, int, int]]:
-        """``(kernel, gridDim, blockDim)`` as the launch record shows them."""
+    def launch(self) -> Tuple:
+        """``(kernel, gridDim, blockDim)`` as the launch record shows them,
+        and the cluster's dimensions after them for a cluster launch."""
         dims = tuple(self.grid[: len(self.grid) - self.loops])
-        return self.kernel, tuple(dims + (1,) * (3 - len(dims))), tuple(self.block)
+        out = (self.kernel, tuple(dims + (1,) * (3 - len(dims))), tuple(self.block))
+        return out if tuple(self.cluster) == (1, 1, 1) else out + (tuple(self.cluster),)
 
 
 #: what a contract's grid model gives for a site: one launch, an ordered
@@ -667,8 +674,10 @@ def kernel_contract(op: str) -> KernelContract:
 #: race only).
 GRID_ENUM_CAP: int = 32768
 
-#: CUDA's limits on gridDim (x; y and z) and on the threads of a block.
+#: CUDA's limits on gridDim (x; y and z), on the threads of a block and on
+#: the blocks of a portable cluster.
 CUDA_GRID_X_MAX, CUDA_GRID_YZ_MAX, CUDA_BLOCK_THREADS_MAX = 2**31 - 1, 65535, 1024
+CUDA_CLUSTER_MAX = 8
 
 
 class SanitizerError(RuntimeError):
@@ -720,8 +729,9 @@ def _coord_range(v: Coord) -> Tuple[int, int]:
 def _launch_limits(model: GridModel) -> List[Tuple[str, str]]:
     """A CUDA launch's own limits (no counterpart on the TPU, whose grid
     is a loop): gridDim.x < 2³¹, gridDim.y and .z ≤ 65,535, ≤ 1,024
-    threads a block."""
-    _, dims, block = model.launch()
+    threads a block; a cluster of at most CUDA_CLUSTER_MAX blocks (the
+    portable size) whose dimensions divide the grid's."""
+    _, dims, block = model.launch()[:3]
     threads = block[0] * block[1] * block[2]
     if (dims[0] > CUDA_GRID_X_MAX or max(dims[1:]) > CUDA_GRID_YZ_MAX
             or len(model.grid) - model.loops > 3 or threads > CUDA_BLOCK_THREADS_MAX):
@@ -730,6 +740,14 @@ def _launch_limits(model: GridModel) -> List[Tuple[str, str]]:
             f"{model.kernel}: gridDim {dims} x blockDim {block} is beyond "
             f"CUDA's ({CUDA_GRID_X_MAX}, {CUDA_GRID_YZ_MAX}, "
             f"{CUDA_GRID_YZ_MAX}) blocks of {CUDA_BLOCK_THREADS_MAX} threads",
+        )]
+    cluster = tuple(model.cluster)
+    if (min(cluster) < 1 or cluster[0] * cluster[1] * cluster[2] > CUDA_CLUSTER_MAX
+            or any(d % c for d, c in zip(dims, cluster))):
+        return [(
+            "launch-limit",
+            f"{model.kernel}: cluster {cluster} of gridDim {dims} is not a portable "
+            f"cluster (at most {CUDA_CLUSTER_MAX} blocks, dividing the grid)",
         )]
     return []
 

@@ -120,9 +120,12 @@ def library() -> ctypes.CDLL:
             for fn in matmuls:
                 fn.argtypes = [vp, vp, vp, vp, ll, i32, i32, i32, vp]
             lib.repro_matmul_bf16_split.argtypes = [vp, vp, vp, vp, ll, i32, i32, i32, i32, vp]
+            lib.repro_matmul_bf16_skinny.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32, vp]
+            lib.repro_matmul16_skinny_plan.argtypes = [i32, i32, i32, i32, i32, ctypes.POINTER(ll)]
             lib.repro_ssm_scan.argtypes = [vp, vp, vp, ll, ll, ll, i32, i32, vp]
             for fn in (lib.repro_segsum_starts, lib.repro_segsum, lib.repro_gather,
-                       *matmuls, lib.repro_matmul_bf16_split, lib.repro_ssm_scan):
+                       *matmuls, lib.repro_matmul_bf16_split, lib.repro_matmul_bf16_skinny,
+                       lib.repro_matmul16_skinny_plan, lib.repro_ssm_scan):
                 fn.restype = i32
             lib.repro_last_launches.argtypes = [ctypes.POINTER(i32), i32]
             lib.repro_last_launches.restype = i32

@@ -72,21 +72,25 @@ KERNEL_NAMES = {
     1: "segsum_scan", 2: "segsum_starts", 3: "segsum_chunk", 4: "segsum_combine",
     5: "gather", 6: "matmul_tiled", 7: "matmul_skinny", 8: "matmul_reduce", 9: "ssm_scan",
     10: "matmul_tiled_mma", 11: "matmul_skinny_mma", 12: "matmul_reduce16",
-    13: "matmul_tiled_wgmma",
+    13: "matmul_tiled_wgmma", 14: "matmul_skinny_tma",
 }
 #: launches a record holds (kMaxLaunches) and ints per launch (kLaunchInts)
-_MAX_LAUNCHES, _LAUNCH_INTS = 4, 8
+_MAX_LAUNCHES, _LAUNCH_INTS = 4, 11
 
-Launch = Tuple[str, Tuple[int, int, int], Tuple[int, int, int]]
+#: (kernel, gridDim, blockDim), and the cluster's dimensions after them for
+#: a cluster launch
+Launch = Tuple
 
 
 def last_launches() -> Tuple[Launch, ...]:
     """What the last kernel call launched, from the library's launch
-    record: ``(kernel, gridDim, blockDim)`` per launch in order, ``kernel``
+    record: ``(kernel, gridDim, blockDim)`` per launch in order, followed by
+    the cluster's dimensions for a cluster launch, ``kernel``
     being ``"<name>.<variant>"`` (the variant: a lane's unit in bytes for
-    the gather and the segment sum's sum kernels, the tile's columns for
-    the tiled product, the lanes per entry for the ordered reduce, 1 for
-    the scan's reverse walk, else 0) — what a contract's
+    the gather and the segment sum's sum kernels, the tile's or slab's
+    columns for the tiled and the skinny cluster product, the lanes per
+    entry for the ordered reduce, 1 for the scan's reverse walk, else 0) —
+    what a contract's
     ``core.kernels.model_launches`` gives for the call's site. Reading it
     costs no synchronisation. Raises when a call launched more kernels
     than the record holds."""
@@ -97,5 +101,6 @@ def last_launches() -> Tuple[Launch, ...]:
     out = []
     for i in range(n):
         e = buf[i * _LAUNCH_INTS:(i + 1) * _LAUNCH_INTS]
-        out.append((f"{KERNEL_NAMES[e[0]]}.{e[1]}", tuple(e[2:5]), tuple(e[5:8])))
+        launch = (f"{KERNEL_NAMES[e[0]]}.{e[1]}", tuple(e[2:5]), tuple(e[5:8]))
+        out.append(launch if tuple(e[8:11]) == (1, 1, 1) else launch + (tuple(e[8:11]),))
     return tuple(out)

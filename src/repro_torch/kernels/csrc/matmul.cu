@@ -56,6 +56,7 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <atomic>
 #include <cstdint>
 #include <type_traits>
@@ -546,7 +547,7 @@ extern "C" int repro_matmul_f32(const void* a_, const void* b_, void* c_, void* 
 // (chip_smoke.py 29.1 holds rows computed by both to the same bits). So a
 // row of the product is bit-identical whatever M is.
 //
-// Three kernels, chosen by M and by what TMA can describe:
+// Four kernels, chosen by M and by what TMA can describe:
 // - tiled, wgmma (M > kSkinnyRows; K and N multiples of 8 and both bases
 //   16-byte aligned, as at every product of the LM zoo): one block of three
 //   warpgroups per 128 x 128 tile of c (128 x 64 for n <= 64). A producer
@@ -580,10 +581,45 @@ extern "C" int repro_matmul_f32(const void* a_, const void* b_, void* c_, void* 
 //   x 64) tiles of b, rows padded by 8 values so that ldmatrix's 8 rows fall
 //   in distinct banks. It is kept rather than a wgmma kernel fed by the
 //   threads' own copies because the two instructions round alike (above).
-// - skinny (M <= kSkinnyRows: decode, the head at decode): split-K, one
-//   block of 4 warps per (K-segment, 64-column slab), one m16 row tile whose
-//   rows past M are zero-filled, each warp 16 columns (two n8 tiles) of
-//   mma.sync. It is bound by the bytes of b, which it reads once.
+// - skinny, clusters (M <= kSkinnyRows: decode, the head at decode; K and
+//   N multiples of 8 on 16-byte aligned bases, as at every zoo site): one
+//   launch and no workspace. The grid is (C, slabs), one thread-block
+//   cluster of C blocks along K per column slab of SN = 64 or 128 columns
+//   (C <= 8, the portable size, and <= the S = ceil(K / 512) segments; set
+//   at launch with cudaLaunchAttributeClusterDimension). Block r owns the
+//   segments [r S / C, (r + 1) S / C) (runs differ by one at most) and
+//   streams them through a ring of kKStages TMA stages of 64 terms: a's m16
+//   box (2 KB; TMA zero-fills rows past M and reads no bytes for them), SN / 64
+//   64-column boxes of b, in the 128-byte swizzle, each stage guarded by a
+//   CTA-scoped full and empty mbarrier (the cluster stays out of the ring:
+//   cluster-scope arrives per stage were several times slower on the card),
+//   one producer thread issuing the loads; TMA's zero fill masks ragged K
+//   and N. Four consumer warps each own SN / 4 columns and run mma.sync
+//   m16n8k16 on fragments that ldmatrix (.trans for b) reads with the
+//   swizzle's XOR in the address, so that the eight rows of a 128-byte box
+//   fall in distinct banks; a stage's fragments are all loaded before its
+//   k16 steps run. mma.sync rather than wgmma: a wgmma step is 64 rows, 48
+//   or more of them zero here, and the kernel is bound by b's bytes, not by
+//   the tensor cores; the two round alike (above), and a wgmma consumer
+//   (A from registers, rows past M zero) was 1-4 % slower at the decode
+//   sites on the card and 38 % slower streaming alone. A
+//   segment's sum starts from 0 and runs over its k16 steps in ascending
+//   order in registers; at its end rows < M are stored apart in the block's
+//   shared memory (run x M x SN f32). After one cluster barrier
+//   (barrier.cluster arrive.release / wait.acquire) each rank folds its
+//   share of the slab's 8-column groups over all S segments, ascending from
+//   0, with __fadd_rn, reading each sum from the owning block's shared
+//   memory (mapa + ld.shared::cluster, kKFoldAhead loads ahead of the adds),
+//   rounds each entry once and stores c; a second cluster barrier keeps
+//   every block's shared memory alive until the cluster's last read. That
+//   is the ordered sum's arithmetic term for term, so the bits are the
+//   split path's. Its plan is below the tiled kernels' note.
+// - skinny, mma.sync (M <= kSkinnyRows, operands TMA cannot describe, or a
+//   K so deep that no cluster's runs of sums fit shared memory): split-K,
+//   one block of 4 warps per (K-segment, 64-column slab), one m16 row tile
+//   whose rows past M are zero-filled, each warp 16 columns (two n8 tiles)
+//   of mma.sync, its partials summed in order by a second grid. Both skinny
+//   kernels are bound by the bytes of b, which they read once.
 // Copies in the mma.sync kernels: 16 bytes (8 values) where a row's length
 // and the base allow it, the ragged edge zero-filled by cp.async; otherwise
 // 4-byte units loaded by the threads (two values, or one and one at a
@@ -607,6 +643,31 @@ extern "C" int repro_matmul_f32(const void* a_, const void* b_, void* c_, void* 
 // slower against the same partials.
 // What bounds it: operations for the large products (2*M*N*K FLOPs; 989
 // TFLOP/s dense bf16/f16 on an H100 SXM), bytes for the skinny ones.
+//
+// The skinny cluster kernel's plan (make_skinny_plan; ops.py::skinny_plan
+// mirrors it). A skinny product reads b once, K x N x 2 bytes at the
+// memory's 3.35 TB/s, so what matters is how the card's SMs share the
+// stream. Three things were measured on the card (H100 SXM at 700 W, every
+// (cluster, slab, stages) of deepseek-coder-33b's decode sites, CUDA
+// graphs): (1) a block's rate is capped near 38 GB/s at SN = 128 and 42
+// GB/s at 64 by its consumers (about twice that with the k16 steps taken
+// out), so the stream needs blocks on nearly every SM; (2) a block has a
+// fixed cost of about 5 us (the launch's share, the first load's latency,
+// the fold and its two cluster barriers), so more blocks than SMs, in
+// waves of short runs, lose (q/o at C = 7, SN = 64, 784 blocks: 0.060 ms
+// against 0.040 at C = 2, SN = 128, 112 blocks); (3) a deeper ring is
+// slower, not faster (gate/up at C = 1, SN = 128: 0.096 ms at 3 stages,
+// 0.101 at 4, 0.126 at 6), so kKStages = 3 (48 KB of b in flight at SN =
+// 128). So the rule aims at one block an SM: the wide slab (longer rows
+// for the memory) unless even 8-block clusters of wide slabs stay short
+// of 132 blocks, which takes the narrow one (k/v, N = 1,024: 16 slabs of
+// 64, C = 8, 128 blocks); then C = the cluster that brings slabs x C
+// nearest to 132 (q/o and down, 56 wide slabs: C = 2, 112 blocks; gate/up
+// and the head, 150 and 252: C = 1), raised until a block's run of sums
+// fits its shared memory (at most 8 and the segments; past that the
+// mma.sync split-K path takes the product). At every decode site the rule
+// picked the sweep's fastest (cluster, slab) or one within 3 % of it;
+// chip_smoke.py phase 8 repeats the sweep.
 
 namespace {
 
@@ -1149,6 +1210,215 @@ matmul_tiled_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
   }
 }
 
+// ---- the skinny cluster kernel --------------------------------------------
+
+constexpr int kKBK = 64;                   // terms a stage: one 128-byte swizzled row of a
+constexpr int kKWarps = 4;                 // consumer warps; a producer warp beside them
+constexpr int kKThreads = 32 * (kKWarps + 1);
+constexpr int kKMaxCluster = 8;            // the portable cluster size
+constexpr int kKSlabWide = 128, kKSlabNarrow = 64;
+constexpr int kKStages = 3;                // the ring's depth (the plan's note)
+constexpr int kKABytes = kSkinnyRows * kKBK * 2;  // a's m16 box: 2 KB
+constexpr int kKFoldAhead = 8;             // the fold's loads in flight ahead of its adds
+// the card the plan is set for: an H100's SMs and the shared memory a block
+// may take
+constexpr int kSMs = 132;
+constexpr int kBlockSmemMax = 232448;
+static_assert(kSegLen % kKBK == 0, "a stage never straddles two segments");
+static_assert(kKBK == kWBox, "a's box is one swizzle span of terms");
+
+__host__ __device__ constexpr int skinny_stage_bytes(int slab) { return kKABytes + kKBK * slab * 2; }
+
+// A block's dynamic shared memory: the ring, its 2 * kKStages mbarriers,
+// the sums of its longest run of segments (ceil(nseg / cluster) x m x slab
+// f32), and slack to align the ring to the swizzle's 1,024-byte period.
+long long skinny_smem(int m, int nseg, int cluster, int slab) {
+  const long long run = (nseg + cluster - 1) / cluster;
+  return static_cast<long long>(kKStages) * (skinny_stage_bytes(slab) + 16) + run * m * slab * 4 +
+         1024;
+}
+
+__device__ __forceinline__ void ldmatrix_x4_at(unsigned (&r)[4], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans_at(unsigned (&r)[4], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// Every thread of every block of the cluster: what each wrote to shared
+// memory before is seen by the others' reads after.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// f32 at the shared-memory address `addr` of block `rank` of the cluster
+__device__ __forceinline__ float ld_cluster(unsigned addr, int rank) {
+  unsigned remote;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(addr), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(remote));
+  return v;
+}
+
+// the byte offset of 16-byte chunk `chunk` of row `row` of a 128-byte
+// swizzled box: the chunk index XOR the row's index mod 8
+__device__ __forceinline__ unsigned swz(int row, int chunk) {
+  return static_cast<unsigned>(row * 128 + ((chunk ^ (row & 7)) << 4));
+}
+
+// grid (C, slabs), cluster (C, 1, 1): block r = blockIdx.x of the cluster
+// for slab blockIdx.y sums its run of segments, then folds its share of
+// the slab's columns over all of them (the note above).
+template <typename T, int SN>
+__global__ void __launch_bounds__(kKThreads, 1)
+matmul_skinny_tma_kernel(const __grid_constant__ CUtensorMap ta,
+                         const __grid_constant__ CUtensorMap tb, T* __restrict__ c, int m, int n,
+                         int k) {
+  constexpr int S = kKStages;
+  constexpr int kStage = skinny_stage_bytes(SN);
+  constexpr int kWCols = SN / kKWarps;  // a consumer warp's columns: 32 or 16
+  constexpr int NT = kWCols / 8;        // its n8 tiles
+  extern __shared__ unsigned char ksmem[];
+  const unsigned ring = (smem_addr(ksmem) + 1023u) & ~1023u;
+  const unsigned full0 = ring + S * kStage, empty0 = full0 + 8 * S;
+  const unsigned sums = empty0 + 8 * S;  // f32 [local segment][row < m][SN]
+  const int C = static_cast<int>(gridDim.x), r = static_cast<int>(blockIdx.x);
+  const int nseg = (k + kSegLen - 1) / kSegLen;
+  const int s0 = r * nseg / C;
+  const int kbeg = s0 * kSegLen, kend = min((r + 1) * nseg / C * kSegLen, k);
+  const int nk = (kend - kbeg + kKBK - 1) / kKBK;
+  const int col0 = static_cast<int>(blockIdx.y) * SN;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 32 * kKWarps && nk > 0) {  // the descriptors' fetch ahead of the first loads
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<unsigned long long>(&ta)) : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<unsigned long long>(&tb)) : "memory");
+  }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, kKWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kKWarps) {  // the producer
+    if (lane == 0) {
+      for (int it = 0; it < nk; ++it) {
+        const int s = it % S;
+        mbar_wait(empty0 + 8 * s, ((it / S) & 1) ^ 1);  // a fresh ring passes at once
+        mbar_expect_tx(full0 + 8 * s, kStage);
+        const unsigned st = ring + s * kStage;
+        const int k0 = kbeg + it * kKBK;
+        tma_load(st, &ta, k0, 0, full0 + 8 * s);
+#pragma unroll
+        for (int j = 0; j < SN / kWBox; ++j)
+          tma_load(st + kKABytes + j * kKBK * kWBox * 2, &tb, col0 + j * kWBox, k0, full0 + 8 * s);
+      }
+    }
+    __syncwarp();
+  } else {
+    const int wc = warp * kWCols;  // the warp's first column of the slab
+    const bool busy = col0 + wc < n;  // warp-uniform
+    const int arow = lane & 15;                               // a: row of ldmatrix's lane
+    const int brow = (lane & 7) + ((lane >> 3) & 1) * 8;     // b: k row of .trans's lane
+    float acc[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+    for (int it = 0; it < nk; ++it) {
+      const int s = it % S;
+      mbar_wait(full0 + 8 * s, (it / S) & 1);
+      const unsigned st = ring + s * kStage;
+      const int k0 = kbeg + it * kKBK;
+      if (busy) {
+        // the stage's fragments first, all loads in flight at once, then
+        // its k16 steps in ascending order (a step waits for its own loads
+        // alone); no k16 step at or past K
+        const int steps = min(kKBK / 16, (k - k0 + 15) / 16);
+        unsigned af[kKBK / 16][4], bf[kKBK / 16][NT / 2][4];
+#pragma unroll
+        for (int j = 0; j < kKBK / 16; ++j) {
+          if (j < steps) {
+            ldmatrix_x4_at(af[j], st + swz(arow, 2 * j + (lane >> 4)));
+#pragma unroll
+            for (int p = 0; p < NT / 2; ++p) {
+              const int col = wc + 16 * p;
+              const unsigned box = st + kKABytes + (col / kWBox) * (kKBK * kWBox * 2);
+              ldmatrix_x4_trans_at(bf[j][p],
+                                   box + swz(16 * j + brow, (col % kWBox) / 8 + (lane >> 4)));
+            }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kKBK / 16; ++j) {
+          if (j < steps) {
+#pragma unroll
+            for (int p = 0; p < NT / 2; ++p) {
+              MmaOp<T>::run(acc[2 * p], af[j], bf[j][p][0], bf[j][p][1]);
+              MmaOp<T>::run(acc[2 * p + 1], af[j], bf[j][p][2], bf[j][p][3]);
+            }
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * s);
+      if ((k0 + kKBK) % kSegLen == 0 || it + 1 == nk) {  // a segment ends
+        const int ls = k0 / kSegLen - s0;
+        const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = g + (e >> 1) * 8;
+            if (busy && row < m) {
+              const unsigned at = sums + ((ls * m + row) * SN + wc + 8 * j + 2 * t4 + (e & 1)) * 4;
+              asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(at), "f"(acc[j][e]) : "memory");
+            }
+            acc[j][e] = 0.f;
+          }
+      }
+    }
+  }
+
+  cluster_sync();  // every run's segment sums are in its block's shared memory
+  // rank r folds the slab's 8-column groups [r G / C, (r + 1) G / C)
+  constexpr int G = SN / 8;
+  const int cbeg = 8 * (r * G / C), width = 8 * ((r + 1) * G / C) - cbeg;
+  for (int e = threadIdx.x; e < m * width; e += kKThreads) {
+    const int row = e / width, col = cbeg + e % width;
+    if (col0 + col >= n) continue;
+    float tot = 0.f;
+    int o = 0;  // the rank whose run holds segment s
+    for (int sb = 0; sb < nseg; sb += kKFoldAhead) {
+      float v[kKFoldAhead];
+#pragma unroll
+      for (int q = 0; q < kKFoldAhead; ++q) {
+        const int s = sb + q;
+        v[q] = 0.f;
+        if (s < nseg) {
+          while ((o + 1) * nseg / C <= s) ++o;
+          const int ls = s - o * nseg / C;
+          v[q] = ld_cluster(sums + ((ls * m + row) * SN + col) * 4, o);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kKFoldAhead; ++q)
+        if (sb + q < nseg) tot = __fadd_rn(tot, v[q]);
+    }
+    c[static_cast<long long>(row) * n + col0 + col] = to_out(tot, c);
+  }
+  cluster_sync();  // no block leaves while another may read its sums
+}
+
 // ---- launches and the 16-bit entry points --------------------------------
 
 template <typename T, int NT, bool VA, bool VB>
@@ -1248,11 +1518,109 @@ static_assert(kHTM == kTM && kWTM == kTM && HTile<4>::kN == Tile<1>::kN &&
                   kHSN == kSN,
               "the 16-bit kernels take the plan's tiles");
 
+// The skinny cluster kernel's plan (ops.py::skinny_plan mirrors it).
+struct SkinnyPlan {
+  int cluster, slab, slabs;
+  long long smem;
+};
+
+// The (slab, cluster) the rule of the note above takes for an (m, k) @ (k,
+// n) product, m <= kSkinnyRows, or the forced ones (0: planned); false when
+// it fits neither a block's shared memory nor CUDA's grid.
+bool make_skinny_plan(int m, int n, int k, int force_cluster, int force_slab, SkinnyPlan& sp) {
+  const int nseg = (k + kSegLen - 1) / kSegLen;
+  const int cmax = std::max(1, std::min(kKMaxCluster, nseg));
+  const long long wide = (static_cast<long long>(n) + kKSlabWide - 1) / kKSlabWide;
+  // the wide slab, unless even the largest cluster leaves its slabs short
+  // of one block an SM
+  const int slab = force_slab != 0 ? force_slab
+                                   : (wide * kKMaxCluster >= kSMs ? kKSlabWide : kKSlabNarrow);
+  const long long slabs = (static_cast<long long>(n) + slab - 1) / slab;
+  if (slabs > 65535LL) return false;
+  // the cluster that brings slabs x C nearest to one block an SM, raised
+  // until a block's sums fit
+  int c = force_cluster != 0
+              ? force_cluster
+              : static_cast<int>(std::max(1LL, std::min<long long>(cmax, (2 * kSMs + slabs) / (2 * slabs))));
+  for (; c <= cmax; ++c) {
+    const long long smem = skinny_smem(m, nseg, c, slab);
+    if (smem <= kBlockSmemMax) {
+      sp = SkinnyPlan{c, slab, static_cast<int>(slabs), smem};
+      return true;
+    }
+    if (force_cluster != 0) break;
+  }
+  return false;
+}
+
+// Raise a kernel's dynamic shared-memory cap to a block's most and ask for
+// the largest shared-memory carveout, once per device.
+cudaError_t allow_smem_max(const void* fn, std::atomic<unsigned>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned bit = dev < 32 ? (1u << dev) : 0u;
+  if (bit && (done.load() & bit)) return cudaSuccess;
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kBlockSmemMax);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess && bit) done.fetch_or(bit);
+  return err;
+}
+
+// The cluster launch of a skinny plan on stream st (attr: its one attribute).
+void skinny_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr, const SkinnyPlan& sp,
+                   cudaStream_t st) {
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3(sp.cluster, sp.slabs);
+  cfg.blockDim = dim3(kKThreads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(sp.smem);
+  cfg.stream = st;
+  attr = cudaLaunchAttribute{};
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = sp.cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+}
+
+template <typename T, int SN>
+cudaError_t launch_skinny_tma(const T* a, const T* b, T* c, int m, int n, int k,
+                              const SkinnyPlan& sp, cudaStream_t st) {
+  const void* fn = reinterpret_cast<const void*>(&matmul_skinny_tma_kernel<T, SN>);
+  static std::atomic<unsigned> done{0};
+  cudaError_t err = allow_smem_max(fn, done);
+  if (err != cudaSuccess) return err;
+  CUtensorMap ta{}, tb{};  // K = 0 loads nothing
+  if (k > 0 && !(encode_map(&ta, a, m, k, kSkinnyRows) && encode_map(&tb, b, k, n, kKBK)))
+    return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  skinny_config(cfg, attr, sp, st);
+  repro::record_launch(repro::kMatmulSkinnyTma, SN, cfg.gridDim, cfg.blockDim, dim3(sp.cluster));
+  void* args[] = {&ta, &tb, &c, &m, &n, &k};
+  err = cudaLaunchKernelExC(&cfg, fn, args);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// The skinny cluster kernel's launch of a plan, on the plan's slab.
+template <typename T>
+cudaError_t launch_skinny(const T* a, const T* b, T* c, int m, int n, int k, const SkinnyPlan& sp,
+                          cudaStream_t st) {
+  return sp.slab == kKSlabWide ? launch_skinny_tma<T, kKSlabWide>(a, b, c, m, n, k, sp, st)
+                               : launch_skinny_tma<T, kKSlabNarrow>(a, b, c, m, n, k, sp, st);
+}
+
 // The 16-bit entry points' body: the 16-bit plan (the f32 entry point's
-// paths, grids and workspace of f32 partials; kSplitTiles16), the wgmma
-// kernel where TMA describes the operands, else the mma.sync kernels.
-// force_split: -1 follows the plan; 0 or 1 sets a tiled product's split
-// (the split rule's check on the card), where the plan could take either.
+// paths, grids and workspace of f32 partials; kSplitTiles16), the skinny
+// cluster kernel where TMA describes a skinny product's operands (or K = 0)
+// and its plan fits, the wgmma kernel where TMA describes a tiled one's,
+// else the mma.sync kernels. force_split: -1 follows the plan; 0 or 1 sets
+// a tiled product's split (the split rule's check on the card), where the
+// plan could take either.
 template <typename T>
 int matmul16(const void* a_, const void* b_, void* c_, void* workspace, long long workspace_bytes,
              int m, int n, int k, int force_split, void* stream) {
@@ -1265,6 +1633,11 @@ int matmul16(const void* a_, const void* b_, void* c_, void* workspace, long lon
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool va = k % 8 == 0 && reinterpret_cast<std::uintptr_t>(a) % 16 == 0;
   const bool vb = n % 8 == 0 && reinterpret_cast<std::uintptr_t>(b) % 16 == 0;
+  SkinnyPlan sp;
+  if (m <= kSkinnyRows && (k == 0 || (va && vb)) && make_skinny_plan(m, n, k, 0, 0, sp)) {
+    if (force_split >= 0) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(launch_skinny(a, b, c, m, n, k, sp, st));
+  }
   Plan p;
   if (!make_plan(m, n, k, kSplitTiles16, p)) return static_cast<int>(cudaErrorInvalidValue);
   if (force_split >= 0) {
@@ -1302,7 +1675,8 @@ int matmul16(const void* a_, const void* b_, void* c_, void* workspace, long lon
 
 // a: (m, k), b: (k, n), c: (m, n); bf16 (f16), row-major, contiguous. The
 // workspace: ceil(k / 512) * m * n f32 partials when the 16-bit plan splits
-// the product (m <= 16 and k > 512; or fewer than kSplitTiles16 tiles, k >
+// the product (m <= 16 and k > 512 on operands TMA cannot describe, or a K
+// too deep for the cluster kernel; or fewer than kSplitTiles16 tiles, k >
 // 512 and partials within kSplitMaxBytes), else unused. Returns the first
 // CUDA error of its launches.
 extern "C" int repro_matmul_bf16(const void* a, const void* b, void* c, void* workspace,
@@ -1322,6 +1696,51 @@ extern "C" int repro_matmul_f16(const void* a, const void* b, void* c, void* wor
 extern "C" int repro_matmul_bf16_split(const void* a, const void* b, void* c, void* workspace,
                                        long long workspace_bytes, int m, int n, int k, int split,
                                        void* stream) {
-  return matmul16<__nv_bfloat16>(a, b, c, workspace, workspace_bytes, m, n, k, split != 0,
-                                 stream);
+  return matmul16<__nv_bfloat16>(a, b, c, workspace, workspace_bytes, m, n, k, split != 0, stream);
+}
+
+// repro_matmul_bf16 on the skinny cluster kernel with its cluster (1 to 8,
+// at most the segments) and slab (64 or 128 columns) set rather than
+// planned, for a product that kernel takes (m <= 16, operands TMA
+// describes): what checks the skinny rule on the card. No workspace.
+extern "C" int repro_matmul_bf16_skinny(const void* a, const void* b, void* c, int m, int n, int k,
+                                        int cluster, int slab, void* stream) {
+  repro::record_begin();
+  SkinnyPlan sp;
+  if (m < 1 || m > kSkinnyRows || n < 1 || k < 0 || k % 8 != 0 || n % 8 != 0 ||
+      reinterpret_cast<std::uintptr_t>(a) % 16 != 0 || reinterpret_cast<std::uintptr_t>(b) % 16 != 0 ||
+      cluster < 1 || (slab != kKSlabWide && slab != kKSlabNarrow) ||
+      !make_skinny_plan(m, n, k, cluster, slab, sp))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_skinny(static_cast<const __nv_bfloat16*>(a),
+                                        static_cast<const __nv_bfloat16*>(b),
+                                        static_cast<__nv_bfloat16*>(c), m, n, k, sp,
+                                        static_cast<cudaStream_t>(stream)));
+}
+
+// The skinny plan of an (m, k) @ (k, n) 16-bit product on aligned bases,
+// with its cluster and slab forced where not 0: out[0..4] = cluster, slab,
+// slabs, shared-memory bytes a block, and cudaOccupancyMaxActiveClusters
+// for that launch on the current device. Returns a CUDA error, or
+// cudaErrorInvalidValue where the cluster kernel does not take the product.
+extern "C" int repro_matmul16_skinny_plan(int m, int n, int k, int cluster, int slab,
+                                          long long* out) {
+  SkinnyPlan sp;
+  if (m < 1 || m > kSkinnyRows || n < 1 || k < 0 || (k % 8) != 0 || (n % 8) != 0 ||
+      !make_skinny_plan(m, n, k, cluster, slab, sp))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const void* fn = sp.slab == kKSlabWide
+                       ? reinterpret_cast<const void*>(&matmul_skinny_tma_kernel<__nv_bfloat16, kKSlabWide>)
+                       : reinterpret_cast<const void*>(&matmul_skinny_tma_kernel<__nv_bfloat16, kKSlabNarrow>);
+  static std::atomic<unsigned> done_wide{0}, done_narrow{0};
+  cudaError_t err = allow_smem_max(fn, sp.slab == kKSlabWide ? done_wide : done_narrow);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  skinny_config(cfg, attr, sp, nullptr);
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, fn, &cfg);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = sp.cluster, out[1] = sp.slab, out[2] = sp.slabs, out[3] = sp.smem, out[4] = clusters;
+  return 0;
 }

@@ -3,9 +3,9 @@ dispatch op (core/kernels.py), over the hand-written kernels in
 ``csrc/matmul.cu``: ``repro_matmul_f32`` (f32 fused multiply-adds on the
 CUDA cores) and ``repro_matmul_bf16`` / ``repro_matmul_f16`` (the tensor
 cores: ``wgmma`` fed by a TMA ring for the tiled products whose operands TMA
-describes, ``mma.sync`` for the others and the skinny ones; an f32 sum
-rounded once to the operands' type, as the TPU kernel's ``out_dtype =
-x.dtype``).
+describes, a thread-block cluster per column slab for the skinny ones,
+``mma.sync`` for the rest; an f32 sum rounded once to the operands' type,
+as the TPU kernel's ``out_dtype = x.dtype``).
 
 ``blocked_matmul(x, y)`` launches the kernel for CUDA tensors and takes the
 plain version (ref.py) for CPU tensors; ragged shapes are masked inside the
@@ -19,10 +19,13 @@ one fused multiply-add per term, ref.matmul_in_kernel_order writes it out;
 16-bit: one k16 tensor-core step per 16 terms, ``wgmma`` or ``mma``, which
 round alike), and the segment sums are added in ascending order in f32. Two
 paths keep that order (``plan`` for f32, ``plan16`` for 16 bits, which
-differ in the split rule alone): a product of at most ``SKINNY_ROWS`` rows
-(decode, the head, the logistic regression's dθ) is split over K, one block
-per (segment, 64-column slab), into partials that a second grid adds in
-order; a taller one runs 128×128 tiles (128×64 for n ≤ 64) that carry the
+differ in the split rule and the skinny cluster kernel): a product of at
+most ``SKINNY_ROWS`` rows (decode, the head, the logistic regression's dθ)
+is split over K, one block per (segment, 64-column slab), into partials
+that a second grid adds in order — at 16 bits on operands TMA describes,
+one launch instead, the cluster's blocks splitting K and folding their
+segment sums in order through each other's shared memory
+(``skinny_plan``); a taller one runs 128×128 tiles (128×64 for n ≤ 64) that carry the
 running total, or, when it has too few tiles to fill the card
 (``SPLIT_TILES``; at 16 bits ``SPLIT_TILES_16``), is split over K in the
 same way.
@@ -34,6 +37,7 @@ sanitizer tier and the card's launch record.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 from dataclasses import dataclass
@@ -42,6 +46,7 @@ from typing import Any, Dict, List, Tuple
 import torch
 
 from ...core.kernels import AccumModel, BlockModel, GridModel, Interval, KernelContract, VjpPair
+from .. import build
 from ..common import launch, on_cpu, require
 from .ref import SEG_LEN, matmul_ref
 
@@ -68,6 +73,17 @@ TILED_THREADS, SKINNY_THREADS, REDUCE_THREADS = 256, 128, 256
 #: threads of a block of the wgmma kernel (kWThreads): a producer warpgroup
 #: and two consumers
 WGMMA_THREADS = 384
+#: the skinny cluster kernel (csrc/matmul.cu): threads of a block (kKThreads:
+#: four consumer warps and a producer warp), the most blocks a cluster
+#: (kKMaxCluster), its slab widths (kKSlabWide, kKSlabNarrow), its ring's
+#: depth (kKStages) of 64-term stages (kKBK) that carry a's 2 KB m16 box
+#: (kKABytes) beside b's
+CLUSTER_THREADS, MAX_CLUSTER = 160, 8
+SLAB_WIDE, SLAB_NARROW, STAGES = 128, 64, 3
+STAGE_K, A_BOX_BYTES = 64, 2048
+#: the card the skinny rule is set for (kSMs, kBlockSmemMax): an H100's SMs
+#: and the shared memory a block may take
+SMS, BLOCK_SMEM_MAX = 132, 232448
 #: the 16-bit dtypes (the tensor-core kernels and their plan)
 DTYPES_16 = (torch.bfloat16, torch.float16)
 #: the C entry point for each operand dtype
@@ -83,6 +99,8 @@ _KINDS = {
     True: ("matmul_tiled_mma", "matmul_skinny_mma", "matmul_reduce16"),
 }
 WGMMA_KIND = "matmul_tiled_wgmma"
+#: a 16-bit skinny product whose operands TMA describes runs this
+CLUSTER_KIND = "matmul_skinny_tma"
 
 
 def segments(k: int) -> List[Tuple[int, int]]:
@@ -101,6 +119,9 @@ class Plan:
     grid: Tuple[int, int, int]   #: the product kernel's grid; (0, 1, 1) if none runs
     reduce_blocks: int           #: blocks of the ordered sum of partials; 0 if none
     workspace: int               #: f32 partials the wrapper allocates (every dtype)
+    cluster: int = 0             #: blocks a cluster on the skinny cluster kernel; 0 if another
+    slab: int = SLAB_N           #: the skinny path's column slab
+    smem: int = 0                #: the skinny cluster kernel's shared memory a block
 
 
 @functools.lru_cache(maxsize=1024)
@@ -112,17 +133,64 @@ def plan(m: int, k: int, n: int) -> Plan:
 
 
 @functools.lru_cache(maxsize=1024)
-def plan16(m: int, k: int, n: int) -> Plan:
+def plan16(m: int, k: int, n: int, aligned: bool = True) -> Plan:
     """The launch for an (m, k) @ (k, n) bf16 or f16 product, as
-    ``repro_matmul_bf16``/``_f16`` make it: ``plan``'s paths, tiles and
-    workspace, and a tiled product split over its segments below
-    ``SPLIT_TILES_16`` tiles."""
+    ``repro_matmul_bf16``/``_f16`` make it: a skinny product whose operands
+    TMA describes (``aligned``: both bases 16-byte aligned) on the cluster
+    kernel (``skinny_plan``: one launch, no workspace); otherwise ``plan``'s
+    paths, tiles and workspace, a tiled product split over its segments
+    below ``SPLIT_TILES_16`` tiles."""
+    if 0 < m <= SKINNY_ROWS and tma_describes(k, n, aligned):
+        sp = skinny_plan(m, k, n)
+        if sp is not None:
+            return sp
     return _plan(m, k, n, SPLIT_TILES_16)
 
 
-def plan_for(m: int, k: int, n: int, dtype: torch.dtype) -> Plan:
-    """``plan16`` for a 16-bit dtype, else ``plan``."""
-    return plan16(m, k, n) if dtype in DTYPES_16 else plan(m, k, n)
+def plan_for(m: int, k: int, n: int, dtype: torch.dtype, aligned: bool = True) -> Plan:
+    """``plan16`` for a 16-bit dtype (one cached plan a shape and
+    alignment), else ``plan``."""
+    if dtype not in DTYPES_16:
+        return plan(m, k, n)
+    return plan16(m, k, n) if aligned else plan16(m, k, n, False)
+
+
+def run_of(segment_count: int, cluster: int, rank: int) -> Tuple[int, int]:
+    """The segments ``[start, stop)`` that block ``rank`` of a cluster sums
+    (``r·S/C`` to ``(r+1)·S/C``): the ranks tile ``segments(k)`` in order,
+    their runs differing by one segment at most."""
+    return rank * segment_count // cluster, (rank + 1) * segment_count // cluster
+
+
+def cluster_smem(m: int, segment_count: int, cluster: int, slab: int) -> int:
+    """A cluster block's shared memory (``skinny_smem``): its ring of
+    STAGES stages with two mbarriers each, the f32 sums of its longest run
+    (m rows of the slab), and 1 KB to align the ring to the swizzle's
+    period."""
+    run = -(-segment_count // cluster)
+    return STAGES * (A_BOX_BYTES + STAGE_K * slab * 2 + 16) + run * m * slab * 4 + 1024
+
+
+def skinny_plan(m: int, k: int, n: int, cluster: int = 0, slab: int = 0):
+    """The skinny cluster kernel's launch for an (m, k) @ (k, n) 16-bit
+    product, m ≤ SKINNY_ROWS (``make_skinny_plan``), with its cluster and
+    slab forced where not 0; None when it fits neither a block's
+    shared memory nor CUDA's grid. The rule (csrc/matmul.cu's note): the
+    wide slab unless 8-block clusters of wide slabs stay short of one block
+    an SM; the cluster that brings slabs × C nearest to SMS, raised until a
+    block's sums fit, at most MAX_CLUSTER and the segments."""
+    n_seg = -(-k // SEG_LEN)
+    cmax = max(1, min(MAX_CLUSTER, n_seg))
+    width = slab or (SLAB_WIDE if -(-n // SLAB_WIDE) * MAX_CLUSTER >= SMS else SLAB_NARROW)
+    slabs = -(-n // width)
+    if slabs > GRID_Y_MAX or cluster > cmax:
+        return None
+    first = cluster or max(1, min(cmax, (2 * SMS + slabs) // (2 * slabs)))
+    for c in range(first, (cluster or cmax) + 1):
+        smem = cluster_smem(m, n_seg, c, width)
+        if smem <= BLOCK_SMEM_MAX:
+            return Plan("skinny", n_seg, False, (c, slabs, 1), 0, 0, c, width, smem)
+    return None
 
 
 def tma_describes(k: int, n: int, aligned: bool = True) -> bool:
@@ -159,7 +227,10 @@ def _launch(x: torch.Tensor, y: torch.Tensor, out: torch.Tensor, p: Plan, entry:
             *extra: int) -> None:
     m, k = x.shape
     n = y.shape[1]
-    ws = torch.empty(p.workspace, dtype=torch.float32, device=x.device) if p.workspace else None
+    ws = None
+    if p.workspace:
+        ws = torch.empty(p.workspace, dtype=torch.float32, device=x.device)
+        blocked_matmul.workspaces += 1
     launch(
         "blocked_matmul", entry, x,
         x.data_ptr(), y.data_ptr(), out.data_ptr(), None if ws is None else ws.data_ptr(),
@@ -181,7 +252,7 @@ def blocked_matmul_forward(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     if y.shape[0] != k:
         raise ValueError(f"blocked_matmul: shapes {tuple(x.shape)} @ {tuple(y.shape)} do not chain")
     n = y.shape[1]
-    p = plan_for(m, k, n, x.dtype)
+    p = plan_for(m, k, n, x.dtype, x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m and n:
         _launch(x, y, out, p, ENTRY[x.dtype])
@@ -209,6 +280,40 @@ def blocked_matmul_split(x: torch.Tensor, y: torch.Tensor, split: bool) -> torch
         either, split=False, grid=either.grid[:2] + (1,), reduce_blocks=0, workspace=0),
         "repro_matmul_bf16_split", int(split))
     return out
+
+
+def blocked_matmul_skinny(x: torch.Tensor, y: torch.Tensor, cluster: int, slab: int) -> torch.Tensor:
+    """The bf16 product of a skinny shape the cluster kernel takes (m ≤
+    SKINNY_ROWS, operands TMA describes) with its cluster and slab set
+    rather than planned: what checks the skinny rule on the card
+    (``repro_matmul_bf16_skinny``; every choice sums in the one order, so
+    each gives the same bits). CUDA tensors only."""
+    require("blocked_matmul", x, torch.bfloat16, 2, "x")
+    require("blocked_matmul", y, torch.bfloat16, 2, "y")
+    m, k = x.shape
+    n = y.shape[1]
+    p = skinny_plan(m, k, n, cluster, slab) if 0 < m <= SKINNY_ROWS else None
+    if (y.shape[0] != k or not x.is_cuda or p is None or not n
+            or not tma_describes(k, n, x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0)):
+        raise ValueError(f"blocked_matmul_skinny: ({m}x{k})@({k}x{n}) on {x.device} cannot take "
+                         f"cluster {cluster}, slab {slab}")
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    launch("blocked_matmul", "repro_matmul_bf16_skinny", x, x.data_ptr(), y.data_ptr(),
+           out.data_ptr(), m, n, k, cluster, slab)
+    blocked_matmul.launches += 1
+    return out
+
+
+def skinny_occupancy(m: int, k: int, n: int, cluster: int = 0, slab: int = 0) -> Dict[str, int]:
+    """The C plan of a skinny 16-bit product on aligned bases (its cluster
+    and slab forced where not 0) and ``cudaOccupancyMaxActiveClusters`` for
+    that launch on the current device: ``cluster``, ``slab``, ``slabs``,
+    ``smem`` (bytes a block) and ``active_clusters``. Card only."""
+    out = (ctypes.c_longlong * 5)()
+    code = build.library().repro_matmul16_skinny_plan(m, n, k, cluster, slab, out)
+    if code:
+        build.check(code, "blocked_matmul")
+    return dict(zip(("cluster", "slab", "slabs", "smem", "active_clusters"), out))
 
 
 class _BlockedMatmul(torch.autograd.Function):
@@ -240,6 +345,9 @@ def blocked_matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 #: launches of the CUDA kernel (one per product, whatever grids it takes)
 #: since the count was last set to 0.
 blocked_matmul.launches = 0
+#: workspaces of f32 partials the wrapper allocated (one per split product)
+#: since the count was last set to 0.
+blocked_matmul.workspaces = 0
 
 
 # -- contract ----------------------------------------------------------------
@@ -265,6 +373,38 @@ def _reduce_model(m: int, n: int, p: Plan, name: str = "matmul_reduce") -> GridM
     )
 
 
+def _cluster_model(m: int, k: int, n: int, p: Plan) -> GridModel:
+    """The skinny cluster kernel's one launch: grid (C, slabs), cluster (C,
+    1, 1). Block r of slab j reads a's rows and b's slab over its run of
+    segments (``run_of``; an Interval of SEG_LEN blocks) and, after the
+    fold over the cluster's shared memory, stores its share of the slab's
+    8-column groups (``r·G/C`` to ``(r+1)·G/C``, G = slab / 8): the model's
+    third axis walks those groups inside the block, each group's tile
+    stored by the one rank that owns it (None elsewhere: the guard), a
+    group past n by none. K = 0 reads nothing and stores zeros."""
+    c, width = p.cluster, p.slab
+    groups = width // 8
+    tiles = -(-n // 8)
+
+    def run(r):
+        lo, hi = run_of(p.n_segments, c, r)
+        return Interval(lo, hi - 1)
+
+    def out_map(r, j, g):
+        mine = r * groups // c <= g < (r + 1) * groups // c
+        return (0, j * groups + g) if mine and j * groups + g < tiles else None
+
+    x = BlockModel("x", (m, k), (SKINNY_ROWS, SEG_LEN), lambda r, j, g: (0, run(r)))
+    y = BlockModel("y", (k, n), (SEG_LEN, width), lambda r, j, g: (run(r), j))
+    return GridModel(
+        grid=p.grid[:2] + (groups,),
+        inputs=() if k == 0 else (x, y),
+        output=BlockModel("out", (m, n), (SKINNY_ROWS, 8), out_map),
+        kernel=f"{CLUSTER_KIND}.{width}", block=(CLUSTER_THREADS, 1, 1), loops=1,
+        cluster=(c, 1, 1),
+    )
+
+
 def _grid_model(info: Dict[str, Any], **concrete: Any):
     """The launches ``repro_matmul_f32`` makes for ``plan``'s path, and
     ``repro_matmul_bf16``/``_f16`` for ``plan16``'s (the same grids and
@@ -278,7 +418,9 @@ def _grid_model(info: Dict[str, Any], **concrete: Any):
       shared memory or registers, stored once after the last segment);
     - tiled, split: a block per (tile, segment) writing its segment's
       partial into the (segments, m, n) workspace, then the ordered sum;
-    - skinny: a block per (segment, SLAB_N columns) over all m ≤
+    - skinny at 16 bits on operands TMA describes: one cluster launch
+      (``_cluster_model``), no workspace;
+    - skinny otherwise: a block per (segment, SLAB_N columns) over all m ≤
       SKINNY_ROWS rows, into the workspace and the ordered sum — or, for
       one segment, into the output directly; for K = 0 only the ordered
       sum runs, writing zeros."""
@@ -286,13 +428,16 @@ def _grid_model(info: Dict[str, Any], **concrete: Any):
     if m == 0 or n == 0:
         return None  # the entry point returns before any launch
     wide = info.get("dtype") in DTYPES_16
-    p = plan_for(m, k, n, info.get("dtype"))
+    aligned = concrete.get("aligned", True)
+    p = plan_for(m, k, n, info.get("dtype"), aligned)
     nseg = p.n_segments
     tiled, skinny, reduce = _KINDS[wide]
+    if p.cluster:
+        return _cluster_model(m, k, n, p)
     if p.path == "tiled":
         tn = TILE_N // 2 if n <= NARROW_N else TILE_N
         block = (TILED_THREADS, 1, 1)
-        if wide and tma_describes(k, n, concrete.get("aligned", True)):
+        if wide and tma_describes(k, n, aligned):
             tiled, block = WGMMA_KIND, (WGMMA_THREADS, 1, 1)
         kind = f"{tiled}.{tn}"
         x = BlockModel("x", (m, k), (TILE_M, SEG_LEN), lambda i, j, s: (i, s))

@@ -237,14 +237,17 @@ def test_f64_products_fall_through_the_cuda_tier():
 
 
 @pytest.mark.parametrize("m,k,n", [(4096, 4096, 4096), (512, 7168, 19200), (2, 7168, 32256),
-                                   (1, 1, 1), (130, 1000, 77), (17, 20, 13), (5, 0, 3), (40, 0, 9)])
+                                   (1, 1, 1), (130, 1000, 77), (17, 20, 13), (5, 0, 3), (40, 0, 9),
+                                   (1, 7168, 7168), (16, 19200, 7168), (2, 515, 200)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
 def test_the_contract_models_the_16_bit_launches(m, k, n, dtype):
     """The 16-bit entry points launch the 16-bit plan's grids (``plan16``):
     a tiled product on the wgmma kernel where TMA describes its operands,
-    else on the mma.sync one, a skinny one on the mma.sync split-K kernel,
-    a split one's partials summed by the 16-bit ordered sum; the models are
-    race- and bounds-clean."""
+    else on the mma.sync one; a skinny one on the cluster kernel where TMA
+    describes its operands (one launch of grid (C, slabs) in clusters of C,
+    no ordered sum), else on the mma.sync split-K kernel; a split one's
+    partials summed by the 16-bit ordered sum; the models are race- and
+    bounds-clean."""
     p = matmul_ops.plan16(m, k, n)
     contract = K.kernel_contract("blocked_matmul")
     model = contract.grid_model({"m": m, "k": k, "n": n, "dtype": dtype})
@@ -254,6 +257,10 @@ def test_the_contract_models_the_16_bit_launches(m, k, n, dtype):
         wgmma = matmul_ops.tma_describes(k, n)
         want.append((f"matmul_tiled_{'wgmma' if wgmma else 'mma'}.{64 if n <= 64 else 128}", p.grid,
                      (matmul_ops.WGMMA_THREADS if wgmma else matmul_ops.TILED_THREADS, 1, 1)))
+    elif p.cluster:
+        assert matmul_ops.tma_describes(k, n) and not p.split
+        launch = (f"matmul_skinny_tma.{p.slab}", p.grid, (matmul_ops.CLUSTER_THREADS, 1, 1))
+        want.append(launch + (((p.cluster, 1, 1),) if p.cluster > 1 else ()))
     elif k:
         want.append(("matmul_skinny_mma.0", p.grid, (matmul_ops.SKINNY_THREADS, 1, 1)))
     if p.split:

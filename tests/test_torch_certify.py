@@ -12,8 +12,9 @@ int32) to both packages, the reference as its own tests run it, the port on
 
 The reference's two mesh tests (``test_certify.py:142``, ``:194``:
 zero-unplanned-reshard on an 8-device mesh, and a session step on a mesh)
-wait for multi-device planning (ROADMAP.md, queue 1 item 4): the port has
-no mesh yet, and ``certify`` of a plan on one raises.
+are held on 4 ranks in tests/test_torch_mesh.py, where the port's plans on
+a mesh are certified. Here, what is not a compiled plan is refused, and
+committed layouts change nothing on a mesh-less plan, as in the reference.
 """
 
 import dataclasses
@@ -94,7 +95,7 @@ def test_certify_rejects_non_compiled():
         certify(object(), {})
 
 
-def test_a_plan_on_a_mesh_waits_for_multi_device_planning():
+def test_committed_layouts_change_nothing_on_a_mesh_less_plan():
     # the wait is over: the mesh half is ported (its proofs are held on 4
     # ranks in tests/test_torch_mesh.py). What is not a compiled plan is
     # refused, and committed layouts change nothing on a mesh-less plan,

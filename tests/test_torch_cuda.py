@@ -1113,13 +1113,16 @@ def test_cuda_16_bit_launch_records_equal_the_contract_models(cuda_device, dtype
 
     kinds = set()
     for m, k, n in ((300, 4096, 700), (100, 2000, 300), (2, 4096, 14_576), (4, 40_000, 8), (3, 0, 4),
-                    (4096, 4096, 4096), (1, 1, 1)):
+                    (4096, 4096, 4096), (1, 1, 1), (2, 515, 200), (1, 7168, 7168)):
         blocked_matmul_forward(torch.randn(m, k, device=cuda_device).to(dtype),
                                torch.randn(k, n, device=cuda_device).to(dtype))
         record = last_launches()
-        kinds.update(name.split(".")[0] for name, _, _ in record)
+        kinds.update(name.split(".")[0] for name, *_ in record)
         assert launch_mismatch("blocked_matmul", {"m": m, "k": k, "n": n, "dtype": dtype}, record) is None
-    assert kinds == {"matmul_tiled_wgmma", "matmul_tiled_mma", "matmul_skinny_mma", "matmul_reduce16"}
+    # a decode product on the cluster kernel: one launch, no ordered sum
+    assert len(record) == 1 and record[0][0].startswith("matmul_skinny_tma.")
+    assert kinds == {"matmul_tiled_wgmma", "matmul_tiled_mma", "matmul_skinny_mma", "matmul_reduce16",
+                     "matmul_skinny_tma"}
     kernels.reset_launch_counts()
 
 
@@ -1127,11 +1130,11 @@ def test_cuda_16_bit_launch_records_equal_the_contract_models(cuda_device, dtype
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
 @pytest.mark.parametrize("k,n,split", [(7168, 128, True), (4096, 4096, False)])
 def test_cuda_16_bit_rows_bit_equal_at_2_17_and_2050(cuda_device, dtype, k, n, split):
-    """Rows 0-1 of the product are the same bits at M = 2 (the mma.sync
-    split-K kernel), M = 17 and M = 2,050 (the wgmma kernel), at a shape the
+    """Rows 0-1 of the product are the same bits at M = 2 (the skinny
+    cluster kernel), M = 17 and M = 2,050 (the wgmma kernel), at a shape the
     16-bit plan splits over its segments at M = 2,050 and one it does not:
-    a wgmma k16 step rounds as an mma.sync one, and every path keeps the one
-    summation order."""
+    a wgmma k16 step rounds as an mma.sync one, the cluster's fold adds the
+    segment sums in order, and every path keeps the one summation order."""
     from repro_torch.kernels.common import last_launches
     from repro_torch.kernels.matmul.ops import blocked_matmul_forward, plan16
 
@@ -1145,6 +1148,6 @@ def test_cuda_16_bit_rows_bit_equal_at_2_17_and_2050(cuda_device, dtype, k, n, s
     for rows in (2, 17):
         small = blocked_matmul_forward(x[:rows].contiguous(), y)
         kind = last_launches()[0][0].split(".")[0]
-        assert kind == ("matmul_skinny_mma" if rows == 2 else "matmul_tiled_wgmma")
+        assert kind == ("matmul_skinny_tma" if rows == 2 else "matmul_tiled_wgmma")
         assert torch.equal(small, big[:rows]), rows
     kernels.reset_launch_counts()
