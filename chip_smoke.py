@@ -334,7 +334,15 @@ Phases, in order; any failure stops the run with a non-zero exit:
    returning on ``aclose()``; a follower that keeps its cache rows at a
    compaction (caught by the limit: each logit is a collective's sum, so
    the ranks stay bit-equal) and a withheld header (the followers raise
-   within their stated wait) planted.
+   within their stated wait) planted; 28.5 the same model, endpoint and
+   traffic on the 2 × 2 (data × model) mesh, where a rank holds b/2 cache
+   rows of decode bucket b where 2 divides b, else all b, and the slot
+   pool's moves gather the rows over the data fold (the compaction 4 → 2
+   keeps old rows 2 and 3, data rank 1's; 2 → 1 makes the rows whole), on
+   the mesh-less run's routing (each rank's rows of it): 28.4's checks, a
+   compaction that exchanges nothing across the fold planted (caught by
+   the limit), each move's rows, bytes and ms on every rank and the decode
+   ms a step at each bucket on 2 × 2, 1 × 4 and mesh-less printed.
 
 Device memory is freed between phases, so the NNMF step's peak and the
 language models' 1–60 GB of weights never meet. The last line of standard
@@ -869,7 +877,10 @@ ZOO_MESH_LEAVES = {
 # max_new_tokens ENDPOINT_MESH_BURST (in submission order, so the slots
 # free in turn and each compaction moves rows), then ENDPOINT_MESH_PAIR
 # submitted ENDPOINT_MESH_STAGGER_S apart within ENDPOINT_MESH_WINDOW_S,
-# which form one batch
+# which form one batch; 28.5 the same model, endpoint and traffic on the 2 ×
+# 2 (data × model) mesh, whose data fold holds b/2 cache rows of decode
+# bucket b where 2 divides b (ENDPOINT_MESH_BUCKETS 4 and 2), else all b
+# (bucket 1)
 BUDGET_MESH_STEPS, BUDGET_MESH_LR, BUDGET_MESH_RUN = 3, 0.5, 2
 ENDPOINT_MESH_PROMPT, ENDPOINT_MESH_BUCKETS = 64, (1, 2, 4)
 ENDPOINT_MESH_BURST, ENDPOINT_MESH_PAIR = (5, 6, 7, 8), (3, 4)
@@ -3093,11 +3104,11 @@ def swapped_compaction(service):
     fault of phases 12 and 17."""
     real_take = service._take_cache_batch
 
-    def swapped(caches, idx, bucket_b):
+    def swapped(caches, idx, bucket_b, place=None):
         idx = list(idx)
         if len(idx) > 1:
             idx[0], idx[1] = idx[1], idx[0]
-        return real_take(caches, idx, bucket_b)
+        return real_take(caches, idx, bucket_b, place)
 
     service._take_cache_batch = swapped
     try:
@@ -5713,11 +5724,12 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, d
         del ids
 
     # one rank of phase 28: a 28.2 step on the 4 × 1 mesh (every wave's
-    # calls at the rank's rows) and 28.4's traffic through the endpoint on
-    # the 1 × 4 mesh, every kernel signature on the ids its first call
-    # took, times its calls in the pass
+    # calls at the rank's rows), 28.4's traffic through the endpoint on the
+    # 1 × 4 mesh and 28.5's on the 2 × 2 mesh, every kernel signature on the
+    # ids its first call took, times its calls in the pass
     for path, (counts, first_ids) in (("gcn_waves_mesh", budget_mesh["waves"]),
-                                      ("lm_mesh_endpoint", budget_mesh["endpoint"])):
+                                      ("lm_mesh_endpoint", budget_mesh["endpoint"]),
+                                      ("lm_data_mesh_endpoint", budget_mesh["data_endpoint"])):
         for key, mult in sorted(counts.items()):
             ids = first_ids.get(key)
             ids = None if ids is None else ids.to(dev)
@@ -5958,7 +5970,9 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, d
                     f"ranks' launches summed), phase 28's arxiv GCN query in chunk waves ({BUDGET_MESH_RUN} "
                     f"steps on the {MESH_RANKS} × 1 mesh, gcn_waves_mesh: the {MESH_RANKS} ranks' launches "
                     f"summed) and olmoe's endpoint traffic on the 1 × {LM_MESH_RANKS} mesh, its warmup "
-                    f"included (lm_mesh_endpoint: the {LM_MESH_RANKS} ranks' launches summed), and "
+                    f"included (lm_mesh_endpoint: the {LM_MESH_RANKS} ranks' launches summed), and on "
+                    f"the 2 × 2 mesh (lm_data_mesh_endpoint: the {LM_MESH_RANKS} ranks' launches "
+                    "summed), and "
                     f"phase 29's bf16 runs: one request of each of its {len(zoo16_models())} "
                     f"{ZOO16_LAYERS}-layer models on the cuda tier (zoo_bf16), deepseek-coder-33b's "
                     f"request of a prefill and {CODER_DECODE} decode steps (coder_bf16) and "
@@ -5988,8 +6002,9 @@ def timing_phase(torch, graph, gcn, logreg, nnmf, kge, lm, oocore, olmoe, ssm, d
                     "(whisper), decode step and train step on the 1 × 4 mesh and its olmoe train step "
                     "on the 2 × 2 × 1 pod mesh at their shard shapes (lm_mesh_enc_vl), one rank's "
                     "streamed arxiv step on the 4 × 1 mesh, every wave, at its shard shapes "
-                    "(gcn_waves_mesh) and rank 0's endpoint traffic on the 1 × 4 mesh (a burst and a "
-                    "pair: lm_mesh_endpoint), and phase 29's passes at bf16: each 29.3 model's "
+                    "(gcn_waves_mesh), rank 0's endpoint traffic on the 1 × 4 mesh (a burst and a "
+                    "pair: lm_mesh_endpoint) and on the 2 × 2 mesh (lm_data_mesh_endpoint), and "
+                    "phase 29's passes at bf16: each 29.3 model's "
                     "request, deepseek-coder-33b's request and one olmoe train step (zoo_bf16, "
                     "coder_bf16, olmoe_bf16_train; their products timed against torch.matmul in "
                     "bf16, bounded at 989 TFLOP/s) — a site "
@@ -7502,10 +7517,10 @@ def lm_mesh_shapes(cfg, b, s, m, d, train):
     """Every kernel call (op, shape) of one rank's forward over a whole
     batch of B rows of S tokens on a (d × m) data × model mesh, and with
     ``train`` of its backward: ``olmoe_shapes`` at the rank's shards — its
-    B/d rows, its heads' columns of q/k/v and rows of wo, its V/m rows of
-    the embedding (looked up with -1 for the other ranks' ids) and columns
-    of the head, its E/m experts' slots."""
-    bl = b // d
+    B/d rows (all B where d does not divide B), its heads' columns of q/k/v
+    and rows of wo, its V/m rows of the embedding (looked up with -1 for the
+    other ranks' ids) and columns of the head, its E/m experts' slots."""
+    bl = b // d if b % d == 0 else b
     bs, dm, hd = bl * s, cfg.d_model, cfg.hd()
     cap = max(int(cfg.capacity_factor * s * cfg.top_k / cfg.n_experts), cfg.top_k)
     slots, assigned, vl = bl * (cfg.n_experts // m) * cap, bs * cfg.top_k, cfg.vocab // m
@@ -9953,14 +9968,15 @@ def endpoint_mesh_buckets():
 
 
 def endpoint_mesh_checked_shapes():
-    """28.4's kernel calls: olmoe's prefill and decode steps at each
-    endpoint bucket, mesh-less (the reference run, in this process) and on
-    one rank of the 1 × 4 mesh (``lm_mesh_shapes``)."""
+    """28.4's and 28.5's kernel calls: olmoe's prefill and decode steps at
+    each endpoint bucket, mesh-less (the reference run, in this process),
+    on one rank of the 1 × 4 mesh and on one rank of the 2 × 2 mesh
+    (``lm_mesh_shapes``: b/2 rows a rank where 2 divides b, else b)."""
     cfg, out = lm_mesh_config(LM_MESH_LAYERS), set()
     for b in ENDPOINT_MESH_BUCKETS:
-        for m in (1, LM_MESH_RANKS):
-            out |= (lm_mesh_shapes(cfg, b, ENDPOINT_MESH_PROMPT, m, 1, False)
-                    | lm_mesh_shapes(cfg, b, 1, m, 1, False))
+        for m, d in ((1, 1), (LM_MESH_RANKS, 1), (2, 2)):
+            out |= (lm_mesh_shapes(cfg, b, ENDPOINT_MESH_PROMPT, m, d, False)
+                    | lm_mesh_shapes(cfg, b, 1, m, d, False))
     return out
 
 
@@ -10063,8 +10079,12 @@ def endpoint_mesh_run(torch, db, prompts, *, follower=False, warm=True, pair=Tru
     decode step's last-position logits are recorded in call order. Returns
     {"calls": [(kind, logits)], "counters", and "completions", "secs" (the
     burst's, the pair's) and "marks" (the calls made by each ``mark()``),
-    or "followed"}."""
+    or "followed"; "decode_s": (bucket, seconds, calls before it, bytes this
+    rank put into each collective) of each decode step, the card
+    synchronised around it}."""
     import asyncio
+
+    from repro_torch.launch import collectives
 
     ep = db.endpoint("olmoe", cache_len=ENDPOINT_MESH_PROMPT + max(ENDPOINT_MESH_BURST),
                      buckets=endpoint_mesh_buckets(), gather_window=ENDPOINT_MESH_WINDOW_S,
@@ -10089,7 +10109,15 @@ def endpoint_mesh_run(torch, db, prompts, *, follower=False, warm=True, pair=Tru
         step = decode_exec(entry, bucket)
 
         def decode(*args):
+            before = collectives.last_collectives()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
             logits, caches = step(*args)
+            torch.cuda.synchronize()
+            moved = {k: v["bytes"] - before.get(k, {}).get("bytes", 0)
+                     for k, v in collectives.last_collectives().items()}
+            rec["decode_s"].append((bucket, time.perf_counter() - t0, len(calls),
+                                    {k: v for k, v in moved.items() if v}))
             calls.append(("decode", logits[:, -1].clone()))
             return logits, caches
 
@@ -10098,7 +10126,7 @@ def endpoint_mesh_run(torch, db, prompts, *, follower=False, warm=True, pair=Tru
     ep._prefill_for, ep._decode_exec = prefill_of, decode_of
     if plant is not None:
         plant(ep)
-    rec = {"calls": calls, "marks": []}
+    rec = {"calls": calls, "marks": [], "decode_s": []}
 
     def marked():
         rec["marks"].append(len(calls))
@@ -10139,6 +10167,90 @@ def endpoint_mesh_run(torch, db, prompts, *, follower=False, warm=True, pair=Tru
     rec["counters"] = {"prefill": dict(c["prefill"]), "batches": c["batches"],
                        "decode": {k: c["decode"][k] for k in ("compiles", "traces", "steps", "rebuckets")}}
     return rec
+
+
+def decode_ms_by_bucket(run):
+    """{bucket: the median ms of a decode step there} over an endpoint
+    run's traffic (``endpoint_mesh_run``; warmup's steps left out). A step
+    makes one token for each slot of its bucket."""
+    by = {}
+    for bucket, secs, at, _ in run["decode_s"]:
+        if at >= run["marks"][0]:
+            by.setdefault(bucket, []).append(secs * 1e3)
+    return {b: statistics.median(v) for b, v in sorted(by.items())}
+
+
+@contextlib.contextmanager
+def logged_moves(torch):
+    """While active, each move of the serving code's cache rows
+    (``serving.serve.move_cache_rows``) on this rank, timed with the card
+    synchronised around it: its rows, the rows and bytes this rank
+    received over the batch fold (its gather: every other rank's share of
+    each leaf), the rows of the new batch it keeps that another rank held
+    and their bytes (what a move of only those rows would receive), and
+    the ms."""
+    import importlib
+
+    from repro_torch.launch import collectives
+    from repro_torch.serving import service
+
+    serve = importlib.import_module("repro_torch.serving.serve")
+    real, moves = serve.move_cache_rows, []
+
+    def move(caches, rows, old_b, new_b, place=None):
+        rows = [int(r) for r in rows]
+        key = None if place is None else f"all_gather/{place.batch}"
+        sent = collectives.last_collectives().get(key, {}).get("bytes", 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(caches, rows, old_b, new_b, place)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        sent = collectives.last_collectives().get(key, {}).get("bytes", 0) - sent
+        fold = 1 if place is None else place.size(place.batch)
+        held, keep = serve.batch_rows(old_b, place), serve.batch_rows(new_b, place)
+        at = 0 if place is None else place.index(place.batch)
+        mine = rows if keep == new_b else rows[at * keep:(at + 1) * keep]
+        row_bytes = []
+        serve.map_cache(lambda t: row_bytes.append(t.numel() * t.element_size() // t.shape[0]) if t.dim()
+                        else None, caches)
+        changed = sum(1 for r in mine if r != serve.PAD and held != old_b and r // held != at)
+        moves.append({"old_b": old_b, "new_b": new_b, "rows": rows,
+                      "received_rows": (fold - 1) * held if sent else 0, "received_bytes": (fold - 1) * sent,
+                      "changed_rows": changed, "changed_bytes": changed * sum(row_bytes), "ms": ms})
+        return out
+
+    serve.move_cache_rows = service.move_cache_rows = move
+    try:
+        yield moves
+    finally:
+        serve.move_cache_rows = service.move_cache_rows = real
+
+
+@contextlib.contextmanager
+def no_exchange_compaction():
+    """While active, each rank's compaction keeps its own rows and
+    exchanges nothing across the batch fold: where it would gather the old
+    rows, every rank's share holds its own (28.5's planted fault)."""
+    import importlib
+
+    from repro_torch.serving import service
+
+    serve = importlib.import_module("repro_torch.serving.serve")
+    real_take, real_gather = service._take_cache_batch, serve._gather_rows
+
+    def take(caches, idx, bucket_b, place=None):
+        serve._gather_rows = lambda t, place: t.repeat(place.size(place.batch), *([1] * (t.dim() - 1)))
+        try:
+            return real_take(caches, idx, bucket_b, place)
+        finally:
+            serve._gather_rows = real_gather
+
+    service._take_cache_batch = take
+    try:
+        yield
+    finally:
+        service._take_cache_batch = real_take
 
 
 def endpoint_mesh_requests(calls, marks):
@@ -10186,14 +10298,15 @@ def endpoint_mesh_hold(got, want, tokens):
 
 
 def budget_mesh_rank(rank, path, device):
-    """One rank of 28.2-28.4: the arxiv GCN query on the 4 × 1 mesh in core,
+    """One rank of 28.2-28.5: the arxiv GCN query on the 4 × 1 mesh in core,
     then in chunk waves (twice, then with rank 1's merge leaving the last
     wave out); the logistic regression's budgeted but fitting session on
     the 2 × 2 mesh, its layouts committed, then a table committed to
     another layout; olmoe's endpoint on the 1 × 4 mesh, rank 0 serving and
     the others following (then with rank 3 keeping its cache rows at a
-    compaction, then with every header withheld). Returns numbers, digests
-    and host tensors."""
+    compaction, then with every header withheld); the same endpoint on the
+    2 × 2 mesh (28.5; then with no compaction exchanging rows across the
+    data fold). Returns numbers, digests and host tensors."""
     import warnings
 
     import torch
@@ -10339,7 +10452,7 @@ def budget_mesh_rank(rank, path, device):
         served = endpoint_mesh_run(torch, db, prompts, follower=follower, log_=log_)
         launches = kern.launch_counts()
     rec = {"counters": served["counters"], "launches": launches, "marks": served["marks"],
-           "digests": [digest(lg) for _, lg in served["calls"]]}
+           "digests": [digest(lg) for _, lg in served["calls"]], "decode_s": served["decode_s"]}
     if follower:
         rec["followed"] = served["followed"]
     else:
@@ -10373,7 +10486,50 @@ def budget_mesh_rank(rank, path, device):
     dist.barrier()
     out["endpoint"] = rec
     del model, db, ep
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 28.5: the same endpoint and traffic on the 2 × 2 mesh, on the
+    # mesh-less run's routing (the rank's rows of each call where the data
+    # fold divides its batch, else the call's every row)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, seed=0, mesh=m22)
+    db = repro_torch.Database(dev, mesh=m22)
+    db.register_model("olmoe", model, dict(model.named_parameters()))
+    place = model.placement
+    fold, at = place.size(place.batch), place.index(place.batch)
+    replay = [(c if c.shape[0] % fold else c[at * (c.shape[0] // fold):(at + 1) * (c.shape[0] // fold)], None)
+              for c in blob["routing"]]
+    with routing:
+        routing.run(replay)
+        kern.reset_launch_counts()
+        log_ = LaunchLog(torch)
+        with logged_moves(torch) as moves:
+            served = endpoint_mesh_run(torch, db, prompts, follower=follower, log_=log_)
+        launches = kern.launch_counts()
+    rec = {"counters": served["counters"], "launches": launches, "marks": served["marks"],
+           "digests": [digest(lg) for _, lg in served["calls"]], "moves": moves,
+           "decode_s": served["decode_s"], "data_index": at}
+    if follower:
+        rec["followed"] = served["followed"]
+    else:
+        rec["completions"], rec["secs"] = served["completions"], served["secs"]
+        rec["calls"] = [(k, lg.cpu()) for k, lg in served["calls"]]
+        rec["pass"] = (dict(log_.counts), {k: v.cpu() for k, v in log_.ids.items()})
+    del served
+    # planted: every rank's compaction keeps its own rows, exchanging
+    # nothing over the data fold (the burst alone, its builds made)
+    with routing, no_exchange_compaction():
+        routing.run(replay[lo:hi])
+        bad = endpoint_mesh_run(torch, db, prompts, follower=follower, warm=False, pair=False)
+    rec["planted_digests"] = [digest(lg) for _, lg in bad["calls"]]
+    if not follower:
+        rec["planted"] = [(k, lg.cpu()) for k, lg in bad["calls"]]
+    del bad, model, db
     torch.cuda.synchronize()
+    dist.barrier()
+    rec["secs_28_5"] = time.perf_counter() - t0
+    out["data_endpoint"] = rec
     return out
 
 
@@ -10457,7 +10613,7 @@ def budget_mesh_one_rank(torch, repro_torch, kern, data, dev, smi, checked):
 
 
 def endpoint_mesh_reference(torch, repro_torch, dev):
-    """28.4's mesh-less run: olmoe-1b-7b at LM_MESH_LAYERS layers from seed
+    """28.4's and 28.5's mesh-less run: olmoe-1b-7b at LM_MESH_LAYERS layers from seed
     0 (whose shards the ranks draw), the same endpoint and traffic, with
     the routing of every MoE call. Host tensors, and the model's kernel
     calls."""
@@ -10483,15 +10639,15 @@ def endpoint_mesh_reference(torch, repro_torch, dev):
     return {"prompts": prompts, "routing": chosen, "burst_calls": (routed[0], routed[1]),
             "calls": [(k, lg.cpu()) for k, lg in run["calls"]], "marks": run["marks"],
             "completions": run["completions"], "secs": run["secs"], "counters": run["counters"],
-            "shapes": set(log_.counts)}
+            "shapes": set(log_.counts), "decode_s": run["decode_s"]}
 
 
 def budget_mesh_phase(torch, repro_torch, kern, data, dev, smi, wave_rows):
     """Phase 28 (module docstring), a generator for ``mesh_phases``: 28.1
-    and 28.4's mesh-less run in this process, then 28.2-28.4 on the
-    MESH_SET_RANKS gloo processes that share the card
+    and 28.4's mesh-less run (28.5's too) in this process, then 28.2-28.5
+    on the MESH_SET_RANKS gloo processes that share the card
     (``budget_mesh_rank``). Returns the kernel calls of a 28.2 step and of
-    28.4's traffic on one rank, and the launches, for phase 8."""
+    28.4's and 28.5's traffic on one rank, and the launches, for phase 8."""
     log(f"  card: {smi}")
     t0 = time.perf_counter()
     checked = budget_mesh_checked_shapes(wave_rows)
@@ -10623,9 +10779,83 @@ def budget_mesh_phase(torch, repro_torch, kern, data, dev, smi, wave_rows):
                                  f"{r['endpoint']['launches']}")
     launches["lm_mesh_endpoint"] = {op: sum(r["endpoint"]["launches"][op] for r in ranks)
                                     for op in e0["launches"]}
+    launches["lm_data_mesh_endpoint"] = data_mesh_endpoint_checks(ranks, ref, e0, checked, smi)
     for path, got_launches in launches.items():
         log(f"  launches on {path} (the {len(ranks)} ranks' summed): {got_launches}")
-    return {"waves": w0["pass"], "endpoint": e0["pass"], "launches": launches}
+    return {"waves": w0["pass"], "endpoint": e0["pass"], "data_endpoint": r0["data_endpoint"]["pass"],
+            "launches": launches}
+
+
+def data_mesh_endpoint_checks(ranks, ref, e14, checked, smi):
+    """28.5's checks and report, on the ranks' records (``budget_mesh_rank``)
+    against the mesh-less run (``ref``) and 28.4's 1 × 4 run (``e14``, rank
+    0's): as 28.4's, plus the moves of cache rows across the data fold.
+    Returns the 4 ranks' launches summed."""
+    e0 = ranks[0]["data_endpoint"]
+    log(f"  28.5 olmoe-1b-7b at {LM_MESH_LAYERS} layers through db.endpoint on the 2 × 2 (data × model) "
+        "mesh: rank 0 serves, ranks 1-3 follow; a rank holds b/2 cache rows of decode bucket b where 2 "
+        f"divides b, else all b; card: {smi}")
+    log(f"  rank 0: burst {e0['secs'][0] * 1e3:.1f} ms, pair {e0['secs'][1] * 1e3:.1f} ms (1 × 4: "
+        f"{e14['secs'][0] * 1e3:.1f}, {e14['secs'][1] * 1e3:.1f}; mesh-less {ref['secs'][0] * 1e3:.1f}, "
+        f"{ref['secs'][1] * 1e3:.1f}); counters {e0['counters']}; launches {e0['launches']}")
+    per = {"2 × 2": decode_ms_by_bucket(e0), "1 × 4": decode_ms_by_bucket(e14),
+           "mesh-less": decode_ms_by_bucket(ref)}
+    for b in ENDPOINT_MESH_BUCKETS:
+        log(f"  decode step at bucket {b} (a token for each of its {b} slot(s)), median ms: "
+            + ", ".join(f"{name} {got[b]:.2f}" if b in got else f"{name} not run" for name, got in per.items()))
+        for name, run in (("2 × 2", e0), ("1 × 4", e14)):
+            moved = next((m for bucket, _, at, m in run["decode_s"] if bucket == b and at >= run["marks"][0]), {})
+            log(f"    {name}: a decode step's collectives on rank 0 (bytes put in): {moved}")
+    for r in ranks:
+        e = r["data_endpoint"]
+        for m in e["moves"]:
+            if m["rows"] == list(range(m["old_b"])) and m["new_b"] == m["old_b"]:
+                continue
+            log(f"  rank {r['rank']} (data {e['data_index']}): move {m['old_b']} → {m['new_b']} rows "
+                f"{m['rows']}: received {m['received_rows']} rows a leaf, {m['received_bytes']} bytes, in "
+                f"{m['ms']:.2f} ms; of them needed (rows another rank held) {m['changed_rows']} rows, "
+                f"{m['changed_bytes']} bytes")
+    log(f"  28.5 on the ranks: {e0['secs_28_5']:.1f} s (rank 0's; the model's build included)")
+    for r in ranks[1:]:
+        e = r["data_endpoint"]
+        if e["counters"] != e0["counters"] or e["digests"] != e0["digests"]:
+            raise AssertionError(f"rank {r['rank']}'s 2 × 2 endpoint steps differ from rank 0's")
+        if e["followed"]["failed"] or e["followed"]["decode"] != e0["counters"]["decode"]["steps"]:
+            raise AssertionError(f"rank {r['rank']}'s follow() on 2 × 2 did not run rank 0's steps: "
+                                 f"{e['followed']}")
+    if e0["counters"] != ref["counters"]:
+        raise AssertionError(f"the 2 × 2 endpoint's counters {e0['counters']} differ from the mesh-less "
+                             f"endpoint's {ref['counters']}")
+    # the burst's compactions: 4 → 2 keeps old rows 2 and 3 (data rank 1's),
+    # 2 → 1 makes the rows whole; each gathers bucket 4's or 2's rows
+    gathered = {(m["old_b"], m["new_b"]) for m in e0["moves"] if m["received_rows"]}
+    if not {(4, 2), (2, 1)} <= gathered or not any(m["rows"] == [2, 3] for m in e0["moves"]):
+        raise AssertionError(f"28.5's compactions did not move rows across the data fold: {e0['moves']}")
+    want = endpoint_mesh_requests(ref["calls"], ref["marks"])
+    got = endpoint_mesh_requests(e0["calls"], e0["marks"])
+    ties, bad, worst = endpoint_mesh_hold(got, want, e0["completions"])
+    log(f"  rank 0's tokens against the mesh-less endpoint's: near ties {ties}, failures {bad}; each step's "
+        f"logits max|Δ| / max|logit| = {worst:.3e} (limit {LM_MESH_LOGIT_LIMIT:g}); every rank's logits "
+        "bit-equal to rank 0's")
+    if bad or worst > LM_MESH_LOGIT_LIMIT:
+        raise AssertionError(f"28.5: the 2 × 2 endpoint differs from the mesh-less one: {bad}, {worst:.3e}")
+    burst = ref["marks"][:2]
+    want_burst = endpoint_mesh_requests(ref["calls"][:burst[1]], burst)
+    planted = endpoint_mesh_requests(e0["planted"], [0, len(e0["planted"])])
+    _, _, fault = endpoint_mesh_hold(planted, want_burst, [[int(lg.argmax()) for lg in r] for r in planted])
+    same = all(r["data_endpoint"]["planted_digests"] == e0["planted_digests"] for r in ranks[1:])
+    log(f"  planted (no compaction exchanges rows across the data fold): logits max|Δ| / max|logit| = "
+        f"{fault:.3e}, must exceed {LM_MESH_LOGIT_LIMIT:g}; the ranks still bit-equal: {same}")
+    if fault <= LM_MESH_LOGIT_LIMIT:
+        raise AssertionError("28.5's limit passes a compaction that exchanges nothing across the data fold")
+    unchecked = set(e0["pass"][0]) - checked
+    if unchecked:
+        raise AssertionError(f"28.5's kernel calls at shapes phase 2 did not check: {sorted(unchecked)}")
+    for r in ranks:
+        if any(r["data_endpoint"]["launches"][op] <= 0 for op in GCN_KERNELS):
+            raise AssertionError(f"rank {r['rank']}: a kernel of 28.5's endpoint steps never launched: "
+                                 f"{r['data_endpoint']['launches']}")
+    return {op: sum(r["data_endpoint"]["launches"][op] for r in ranks) for op in e0["launches"]}
 
 
 # ---------------------------------------------------------------------------

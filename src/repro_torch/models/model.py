@@ -281,10 +281,14 @@ class Model(nn.Module):
         return softcap(logits.float(), cfg.final_softcap)
 
     @staticmethod
-    def _whole_rows(logits, place):
-        """Serving's logits (or ``encode``'s output) with every data rank's
-        rows (forward only)."""
-        return logits if place is None else place.gather_from(logits, 0, place.batch)
+    def _whole_rows(logits, place, b: int):
+        """Serving's logits (or ``encode``'s output) of a batch of ``b``
+        rows with every data rank's rows (forward only): gathered where the
+        rank holds its share of them, as it holds where the batch fold
+        divides ``b``; else every rank ran the ``b`` rows whole."""
+        if place is None or logits.shape[0] == b:
+            return logits
+        return place.gather_from(logits, 0, place.batch)
 
     # -- backbone -----------------------------------------------------------
 
@@ -402,7 +406,7 @@ class Model(nn.Module):
         place = self._place(place)
         with self._on(place):
             p = self._tree(params, place)
-            return self._whole_rows(self._encode(p, frames, place), place)
+            return self._whole_rows(self._encode(p, frames, place), place, frames.shape[0])
 
     def _positions(self, b: int, s: int, length=None, vis: int = 0):
         """(B, S) positions 0..S-1, or (B, 1) at ``length`` in decode. With
@@ -497,7 +501,8 @@ class Model(nn.Module):
             p = self._tree(params, place)
             x, ctx, _ = self._inputs(p, batch, "prefill", place, cache_len=cache_len)
             x, caches, _ = self._run_stages(p, x, ctx, None)
-            return self._whole_rows(self._head(p, x[:, -1:], place), place), caches
+            return self._whole_rows(self._head(p, x[:, -1:], place), place,
+                                    batch["tokens"].shape[0]), caches
 
     def decode_step(self, token, caches, length, params: Optional[Mapping[str, torch.Tensor]] = None,
                     *, enc_out: Optional[torch.Tensor] = None, place=None):
@@ -521,7 +526,7 @@ class Model(nn.Module):
                 ctx["enc_out"] = _rows(enc_out, token.shape[0])
             self._share(p, ctx)
             x, caches, _ = self._run_stages(p, x, ctx, caches)
-            return self._whole_rows(self._head(p, x, place), place), caches
+            return self._whole_rows(self._head(p, x, place), place, token.shape[0]), caches
 
 
 def _rows(t: torch.Tensor, b: Optional[int] = None) -> torch.Tensor:

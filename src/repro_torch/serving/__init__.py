@@ -7,6 +7,7 @@ from .serve import (  # noqa: F401
     make_decode_step,
     make_encode_step,
     make_prefill_step,
+    move_cache_rows,
 )
 from .service import (  # noqa: F401
     Completion,

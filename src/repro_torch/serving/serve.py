@@ -47,6 +47,15 @@ reference's decode step places its parameters once per version. An
 endpoint serves on several ranks through ``Endpoint.follow()``
 (serving/service.py): rank 0 admits the requests and broadcasts each
 step's header, and the other ranks run the same steps.
+
+A rank of a mesh whose batch fold (``Placement.batch``: "data", or
+("pod", "data") on a pod axis) has D > 1 ranks holds b/D cache rows of a
+b-row batch where D divides b, else all b (``batch_rows``; the rule of
+``init_cache(place=)`` and of ``launch/sharding.hint``).
+``move_cache_rows`` is the one way the serving code moves cache rows (the
+bucket slice, the pad to a decode bucket, the slot pool's compaction): on
+such a fold it gathers the old rows whole over the fold where they are
+cut, takes and pads them, and keeps the rank's rows of the new batch.
 """
 
 from __future__ import annotations
@@ -124,7 +133,7 @@ def init_cache(cfg, batch: int, cache_len: int, device=None, *, place=None):
     if place is not None:
         # the rank's rows: the batch is cut over the whole data fold
         # (("pod", "data") where the mesh has a pod axis)
-        batch //= place.size(place.batch) if batch % place.size(place.batch) == 0 else 1
+        batch = batch_rows(batch, place)
         heads, split = place.kv_heads(cfg) if cfg.n_heads else None, place.size("model")
     caches = []
     for st in stages_of(cfg):
@@ -327,6 +336,68 @@ def pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
     return torch.cat([x, x.new_zeros((rows - x.shape[0], *x.shape[1:]))])
 
 
+#: the mark, in ``move_cache_rows``'s ``rows``, of a zero pad row
+PAD = -1
+
+
+def batch_rows(b: int, place=None) -> int:
+    """The rows of a ``b``-row batch a rank holds: b/D on a batch fold of D
+    ranks that divides b, else all b (off a mesh, b)."""
+    d = 1 if place is None else place.size(place.batch)
+    return b // d if b % d == 0 else b
+
+
+def _gather_rows(t: torch.Tensor, place) -> torch.Tensor:
+    """The batch fold's rows of ``t`` (each rank's share of a batch),
+    concatenated in fold order: the whole batch's rows on every rank."""
+    from repro_torch.launch.collectives import all_gather
+
+    return all_gather(t, place.comm, 0, place.batch)
+
+
+def _take(t: torch.Tensor, rows: List[int]) -> torch.Tensor:
+    """Rows ``rows`` of ``t``, then a zero row for each ``PAD`` after them."""
+    live = [r for r in rows if r != PAD]
+    return pad_rows(t if live == list(range(t.shape[0])) else t[live], len(rows))
+
+
+def move_cache_rows(caches, rows: Sequence[int], old_b: int, new_b: int, place=None):
+    """The cache tree of a batch of ``new_b`` rows made from that of a
+    batch of ``old_b``: new row i is old row ``rows[i]``, or zeros where
+    ``rows[i]`` is ``PAD`` (the pad rows come last). The batch axis is 0 in
+    every leaf; a leaf with no axis passes through. Off a mesh, or on a
+    batch fold of one rank, each leaf is ``t[rows]``, then ``pad_rows``.
+
+    With ``place`` (a ``launch.sharding.Placement``) whose batch fold has D
+    > 1 ranks, each leaf holds the rank's ``batch_rows(old_b)`` rows and
+    keeps its ``batch_rows(new_b)``: where the old rows are cut, they are
+    gathered whole over the fold (a collective: every rank of the mesh
+    calls the move at the same point of its program), then the rank takes
+    its share of the new rows. A leaf that holds another count of rows
+    raises."""
+    rows = [int(r) for r in rows]
+    live = [r for r in rows if r != PAD]
+    if len(rows) != new_b or any(not 0 <= r < old_b for r in live) or rows[:len(live)] != live:
+        raise ValueError(f"move_cache_rows: {new_b} new rows from a batch of {old_b} need "
+                         f"{new_b} rows in [0, {old_b}), then PAD; got {rows}")
+    if new_b == old_b and rows == list(range(old_b)):
+        return caches
+    held, keep = batch_rows(old_b, place), batch_rows(new_b, place)
+    if keep != new_b:
+        at = place.index(place.batch) * keep
+        rows = rows[at:at + keep]
+
+    def move(t: torch.Tensor) -> torch.Tensor:
+        if not t.dim():
+            return t
+        if t.shape[0] != held:
+            raise ValueError(f"move_cache_rows: a cache leaf of shape {tuple(t.shape)} does not hold "
+                             f"the {held} rows of a {old_b}-row batch this rank holds")
+        return _take(t if held == old_b else _gather_rows(t, place), rows)
+
+    return map_cache(move, caches)
+
+
 # ---------------------------------------------------------------------------
 # BucketedPrefill: the session-backed bucketed prefill engine
 # ---------------------------------------------------------------------------
@@ -379,6 +450,7 @@ class BucketedPrefill:
             db, mesh = Database(device, mesh=mesh, max_cache_entries=max_entries), None
         self.db = db
         self._mesh = mesh
+        self._place = None
         self.model = model
         self.cache_len = cache_len
         self.buckets: Optional[List[Tuple[int, int]]] = (
@@ -398,6 +470,17 @@ class BucketedPrefill:
 
             self._mesh = resolve_mesh(self._mesh, device_type=self.db.device.type)
         return self.db.mesh if self._mesh is None else self._mesh
+
+    @property
+    def place(self):
+        """The ``Placement`` the bucket steps run on (None off a mesh),
+        whose batch fold holds the caches' rows (``move_cache_rows``)."""
+        mesh = self.mesh
+        if mesh is None:
+            return None
+        if self._place is None or self._place.mesh is not mesh:
+            self._place = _placement(self.model, mesh, self.db)
+        return self._place
 
     def bucket_for(self, batch: int, seq: int) -> Tuple[int, int]:
         """The smallest configured (batch, seq) bucket that fits the
@@ -451,16 +534,11 @@ class BucketedPrefill:
         }
 
     @staticmethod
-    def _slice_cache_batch(caches, bsz: int, bucket_b: int):
+    def _slice_cache_batch(caches, bsz: int, bucket_b: int, place=None):
         """Cut the bucket-padding rows back out of the cache tree so
-        decode continues at the *request* batch. The batch axis is 0 in
-        every leaf of the port's cache layout (module docstring); leaves
-        without the bucket batch there (e.g. scalars) pass through."""
-        if bsz == bucket_b:
-            return caches
-        return map_cache(
-            lambda t: t[:bsz] if t.dim() and t.shape[0] == bucket_b else t, caches
-        )
+        decode continues at the *request* batch (``move_cache_rows``: on a
+        batch fold of several ranks the rank's rows of ``bsz``)."""
+        return move_cache_rows(caches, range(bsz), bucket_b, bsz, place)
 
     def prefill(self, params, batch: Dict[str, Any]):
         """Bucketed prefill: pads the request's batch dim to its bucket,
@@ -475,7 +553,7 @@ class BucketedPrefill:
         logits, caches = step(self._pad_batch(batch, bsz, bucket), params)
         return (
             logits[:bsz],
-            self._slice_cache_batch(caches, bsz, bucket[0]),
+            self._slice_cache_batch(caches, bsz, bucket[0], self.place),
         )
 
     def warmup(self, params, *, buckets=None, batch_fn=None) -> None:

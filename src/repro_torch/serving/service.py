@@ -59,14 +59,16 @@ every decode step (``enc_out``); for qwen2-vl, decode starts at ``length =
 seq + vis_seq``, the prompt's tokens and the patches before them, as the
 reference's endpoint counts them.
 
-On a mesh of several ranks (the session's ``db.mesh``) every rank builds
-the same endpoint, each on its own session, and the steps run tensor- and
-expert-parallel on each rank's shards. Rank 0 alone is the front door: it
-admits the requests and makes every decision (batches, buckets, deadlines,
-tenants and hot-swaps, EOS, compaction). Before each model step it
-broadcasts a small header (the op — prefill, decode, compact or end —, the
-entry key, the bucket; a prefill's batch, a compaction's rows, a decode
-step's fed tokens), and the other ranks run ``Endpoint.follow()``: each
+On a mesh of several ranks (the session's ``db.mesh``: ("data", "model")
+or ("pod", "data", "model"), any axis sizes) every rank builds the same
+endpoint, each on its own session, and the steps run tensor- and
+expert-parallel on each rank's shards, and data-parallel over the batch
+fold, each rank on its rows of the batch. Rank 0 alone is the front
+door: it admits the requests and makes every decision (batches, buckets,
+deadlines, tenants and hot-swaps, EOS, compaction). Before each model
+step it broadcasts a small header (the op — prefill, decode, compact or
+end —, the entry key, the bucket; a prefill's batch, a compaction's rows,
+a decode step's fed tokens), and the other ranks run ``Endpoint.follow()``: each
 waits for the next header, runs the same step on its own session and
 caches, and returns on the "end" that ``aclose()`` sends. Rank 0's tokens
 are fed on every rank, so the ranks cannot fall out of step where an argmax
@@ -77,11 +79,15 @@ detects a leader that stopped, not a quiet one (before rank 0's first
 request, and between its event loops, no scheduler runs: the wait bounds
 those too). One method, ``_step``, runs each header's model step on every
 rank; rank 0 announces the header and calls it, a follower receives the
-header and calls it. PyTorch runs a process per rank where the
-reference's JAX runs one process for every device; ``follow()`` is the one
-addition that makes. A follower resolves each header's model by its
-``(name, version)`` in its own registry, so every rank registers the
-versions the endpoint serves.
+header and calls it. Every move of cache rows (a prefill's bucket slice
+and its pad to the decode bucket, a compaction) runs inside ``_step``
+through ``serve.move_cache_rows``, whose gather over the batch fold every
+rank thus calls in one order: a rank holds b/D rows of a b-row bucket
+where the fold's D ranks divide b, else all b. PyTorch runs a process
+per rank where the reference's JAX runs one process for every device;
+``follow()`` is the one addition that makes. A follower resolves each
+header's model by its ``(name, version)`` in its own registry, so every
+rank registers the versions the endpoint serves.
 """
 
 from __future__ import annotations
@@ -95,7 +101,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .serve import BucketedPrefill, make_decode_step, make_encode_step, map_cache, pad_rows
+from .serve import (PAD, BucketedPrefill, make_decode_step, make_encode_step, map_cache,  # noqa: F401
+                    move_cache_rows, pad_rows)
 
 
 class ServingError(RuntimeError):
@@ -151,37 +158,35 @@ class _Request:
 @dataclass
 class _Group:
     """A decode group's model state on one rank: the entry it runs, its
-    decode bucket, the position it decodes next, and its caches and (enc/dec)
-    encoder output, both ``bucket`` rows."""
+    decode bucket, the position it decodes next, its caches (the rank's
+    rows of ``bucket``) and (enc/dec) encoder output (``bucket`` rows), and
+    the placement its caches' rows follow (None off a mesh)."""
 
     entry: Any
     bucket: int
     length: int
     caches: Any
     enc_out: Optional[torch.Tensor]
+    place: Any
 
 
 # -- cache-tree batch-dim surgery (decode slot pool) ------------------------
 #
 # The batch axis is 0 in every leaf of the port's cache layout (serve.py's
-# module docstring); leaves without the expected extent there pass through.
+# module docstring); both moves go through serve.move_cache_rows, which on
+# a batch fold of several ranks moves the rows across the fold.
 
 
-def _pad_cache_batch(caches, bsz: int, bucket_b: int):
+def _pad_cache_batch(caches, bsz: int, bucket_b: int, place=None):
     """Zero-pad the cache tree's batch axis from ``bsz`` to the decode
     bucket ``bucket_b`` (the padded rows are dead slots)."""
-    if bsz == bucket_b:
-        return caches
-    return map_cache(
-        lambda t: pad_rows(t, bucket_b) if t.dim() and t.shape[0] == bsz else t, caches
-    )
+    return move_cache_rows(caches, list(range(bsz)) + [PAD] * (bucket_b - bsz), bsz, bucket_b, place)
 
 
-def _take_cache_batch(caches, idx: Sequence[int], bucket_b: int):
+def _take_cache_batch(caches, idx: Sequence[int], bucket_b: int, place=None):
     """Gather cache rows ``idx`` out of a ``bucket_b``-batch cache tree —
     the slot-compaction move when a decode group re-buckets down."""
-    idx = list(idx)
-    return map_cache(lambda t: t[idx] if t.dim() and t.shape[0] == bucket_b else t, caches)
+    return move_cache_rows(caches, idx, bucket_b, len(idx), place)
 
 
 def _next_pow2(n: int) -> int:
@@ -259,8 +264,10 @@ class Endpoint:
     (``serve.make_prefill_step(mesh=)``). On a mesh of several ranks every
     rank builds the endpoint at the same point of its program (that makes
     its header group); rank 0 serves and the others call ``follow()``.
-    The mesh's data axes must be of size 1: the decode slot pool moves
-    whole-batch cache rows, and a rank holds all of them only there.
+    Where the mesh's batch fold has several ranks, each holds its rows of
+    a decode bucket's caches (all of them where the fold does not divide
+    the bucket), and the slot pool's moves gather them over the fold
+    (``serve.move_cache_rows``).
     """
 
     def __init__(
@@ -353,13 +360,7 @@ class Endpoint:
 
         from repro_torch.core.planner import MeshGeometry
         from repro_torch.launch.collectives import comm_for
-        from repro_torch.launch.mesh import data_parallel_size
 
-        if data_parallel_size(mesh) > 1:
-            raise NotImplementedError(
-                "an endpoint over several ranks needs a mesh whose data axes are of size "
-                "1 (e.g. make_host_mesh(model=n)): its decode slot pool moves whole-batch "
-                "cache rows, which a rank holds whole only there (ROADMAP.md)")
         self._comm = comm_for(mesh, MeshGeometry.from_mesh(mesh))
         self._position = self._comm.position
         self._headers = dist.new_group(
@@ -477,16 +478,17 @@ class Endpoint:
         op = header["op"]
         if op == "prefill":
             entry = self.db.model(*header["entry"])
-            logits, caches = self._prefill_for(entry).prefill(entry.params, batch)
+            pre = self._prefill_for(entry)
+            logits, caches = pre.prefill(entry.params, batch)
             c["batches"] += 1
             c["prefill"]["steps"] += 1
             enc_out, length = _decode_inputs(entry, self.db, batch, header["seq"])
             k, bucket = int(batch["tokens"].shape[0]), int(header["bucket"])
-            return logits, _Group(entry, bucket, length, _pad_cache_batch(caches, k, bucket),
-                                  None if enc_out is None else pad_rows(enc_out, bucket))
+            return logits, _Group(entry, bucket, length, _pad_cache_batch(caches, k, bucket, pre.place),
+                                  None if enc_out is None else pad_rows(enc_out, bucket), pre.place)
         if op == "compact":
             idx = header["idx"]
-            group.caches = _take_cache_batch(group.caches, idx, group.bucket)
+            group.caches = _take_cache_batch(group.caches, idx, group.bucket, group.place)
             if group.enc_out is not None:
                 group.enc_out = group.enc_out[idx]
             group.bucket = int(header["bucket"])
@@ -858,10 +860,10 @@ class Endpoint:
         enc_out, length = _decode_inputs(entry, self.db, ex, s0)
         for db_ in self.decode_buckets or [b0]:
             if db_ >= b0:
-                cb = _pad_cache_batch(caches, b0, db_)
+                cb = _pad_cache_batch(caches, b0, db_, pre.place)
                 eb = None if enc_out is None else pad_rows(enc_out, db_)
             else:
-                cb = _take_cache_batch(caches, list(range(db_)), b0)
+                cb = _take_cache_batch(caches, list(range(db_)), b0, pre.place)
                 eb = None if enc_out is None else enc_out[:db_]
             tok = torch.zeros((db_, 1), dtype=torch.int32, device=self.db.device)
             step = self._decode_exec(entry, db_)

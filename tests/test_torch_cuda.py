@@ -827,11 +827,11 @@ def test_reduced_olmoe_endpoint_on_the_card_coalesces_and_matches_solo_serving(c
 
     real_take = service._take_cache_batch
 
-    def swapped(caches, idx, bucket_b):
+    def swapped(caches, idx, bucket_b, place=None):
         idx = list(idx)
         if len(idx) > 1:
             idx[0], idx[1] = idx[1], idx[0]
-        return real_take(caches, idx, bucket_b)
+        return real_take(caches, idx, bucket_b, place)
 
     service._take_cache_batch = swapped
     try:

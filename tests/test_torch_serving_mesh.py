@@ -180,5 +180,8 @@ def test_rank_0_is_the_front_door(runs):
     assert set(ranks[0]["refused"]) == {"follow", "data_axes"}
     for r in ranks[1:]:
         assert set(r["refused"]) == {"submit", "warmup", "data_axes"}
-        assert "rank 0" in r["refused"]["submit"]
-    assert "data axes" in ranks[0]["refused"]["data_axes"]
+        assert "rank 0" in r["refused"]["submit"] and "rank 0" in r["refused"]["data_axes"]
+    # an endpoint on a mesh with 2 data ranks builds; its follow() refuses
+    # on rank 0 as the 1 × 4 one's does
+    assert "rank 0 serves" in ranks[0]["refused"]["data_axes"]
+    assert all(r["data_ranks"] == 2 for r in ranks)

@@ -241,10 +241,17 @@ def run_checks(rank: int, weights, eos):
                 call()
             except ValueError as e:
                 refused[what] = str(e)
-    # a mesh with data ranks: the slot pool needs the whole batch's rows
+    # an endpoint on a mesh with data ranks (2 × 2) builds, and its front
+    # door refuses as the 1 × 4 one's: follow() on rank 0, submit elsewhere
+    ep = db.use_mesh(make_host_mesh(model=2, device_type="cpu")).endpoint("lm", cache_len=CACHE_LEN)
     try:
-        db.use_mesh(make_host_mesh(model=2, device_type="cpu")).endpoint("lm", cache_len=CACHE_LEN)
-    except NotImplementedError as e:
+        if rank == 0:
+            ep.follow()
+        else:
+            asyncio.run(ep.submit(np.zeros(SEQ, np.int32)))
+    except ValueError as e:
         refused["data_axes"] = str(e)
+    out["data_ranks"] = ep._comm.size["data"]
+    ep._leave()
     out["refused"] = refused
     return out
