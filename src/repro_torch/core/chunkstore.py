@@ -27,6 +27,10 @@ Counters (the session's spill counters, exposed as
     spilled_bytes     — host bytes across all stored chunks
     fetched_chunks    — chunk fetches issued (host→device transfers)
     fetched_bytes     — bytes moved host→device by those fetches
+    merged_bytes      — bytes a streamed step copied back to the host
+                        (``engine.StreamedCompiled._merge``: the live rows,
+                        pad rows dropped, of each wave's leaf of a streamed
+                        relation's gradient)
 """
 
 from __future__ import annotations
@@ -110,6 +114,7 @@ class ChunkStore:
             "spilled_bytes": 0,
             "fetched_chunks": 0,
             "fetched_bytes": 0,
+            "merged_bytes": 0,
         }
 
     def __contains__(self, name: str) -> bool:
@@ -166,6 +171,10 @@ class ChunkStore:
             event = torch.cuda.Event()
             event.record(self._copy_stream)
         return Fetched(_with_tensors(chunk, moved), event)
+
+    def merged(self, part: torch.Tensor) -> None:
+        """Count the bytes of one wave leaf copied back to the host."""
+        self.stats["merged_bytes"] += part.numel() * part.element_size()
 
     def host_chunk(self, name: str, w: int) -> AnyRel:
         """The raw host chunk (no transfer, no counter)."""

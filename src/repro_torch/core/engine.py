@@ -57,6 +57,7 @@ import torch
 
 from . import fra, kernels, planner
 from . import rewrite as _rewrite
+from . import spans
 from .autodiff import GradientProgram
 from .planner import P
 from .relation import CooRelation, DenseRelation, pad_coo_nnz, relation_device
@@ -67,7 +68,6 @@ Program = Union[fra.Query, fra.Node, GradientProgram]
 
 #: per-Lowered bound on retained Compiled executables (LRU)
 _MAX_COMPILED = 64
-
 
 class ShardFallbackWarning(UserWarning):
     """A planned sharding could not be emitted and the relation fell back
@@ -418,7 +418,8 @@ class Compiled:
             )
         low = self.lowered
         if self.mesh is None:
-            return low.engine._execute(env, seed, dispatch=low.dispatch, program=low.program)
+            with spans.span(spans.WALK):
+                return low.engine._execute(env, seed, dispatch=low.dispatch, program=low.program)
         from .compiler import Placement
 
         comm = self._comm()
@@ -445,8 +446,9 @@ class Compiled:
                     warnings.warn(ReshardWarning(name, nbytes), stacklevel=2)
         if self.local is None:
             self.local = self._local_lowering(local_env, place.layouts, seed, comm)
-        out = low.engine._execute(local_env, seed, dispatch=low.dispatch,
-                                  program=low.program, place=place)
+        with spans.span(spans.WALK):
+            out = low.engine._execute(local_env, seed, dispatch=low.dispatch,
+                                      program=low.program, place=place)
         return self._unpad(out) if self.pad_nnz else out
 
 
@@ -846,13 +848,18 @@ class StreamedCompiled:
                 wave[name] = rel
             # the next wave's copy runs while this wave computes
             fetched = self._fetch_wave(w + 1) if w + 1 < self.plan.num_waves else {}
-            compiled = self._compile_wave(wave, seed)
+            with spans.span(spans.PLAN):
+                compiled = self._compile_wave(wave, seed)
             self._inner = compiled
             yield compiled(wave, seed)
 
     def _merge(self, wave_outs, want_shape):
         """Fold the waves' outputs (an iterable, consumed in wave order)
-        into the in-core result whose shapes ``want_shape`` gives."""
+        into the in-core result whose shapes ``want_shape`` gives. Each
+        wave's fold and the final concatenation are ``repro.wave.merge``
+        spans; advancing ``wave_outs`` runs the next wave, outside them.
+        Every wave leaf copied to the host counts in the store's
+        ``merged_bytes``."""
         from .chunkstore import OutOfCoreError
 
         want_leaves, want_def = _flatten(want_shape)
@@ -860,48 +867,51 @@ class StreamedCompiled:
         sums: list = [None] * len(want_leaves)
         rows: list = [None] * len(want_leaves)  # (axis, host parts, shapes)
         for w, out in enumerate(wave_outs):
-            leaves, _ = _flatten(out)
-            if len(leaves) != len(want_leaves):
-                raise OutOfCoreError(
-                    "wave output structure does not match the in-core lowering"
-                )
-            for i, (want, g) in enumerate(zip(want_leaves, leaves)):
-                wshape = tuple(want.shape)
-                if tuple(g.shape) == wshape and rows[i] is None:
-                    sums[i] = g if sums[i] is None else sums[i] + g
-                    continue
-                seen = {tuple(g.shape)} | (set(rows[i][2]) if rows[i] else set())
-                if sums[i] is not None:
-                    seen.add(wshape)
-                diff_axes = {
-                    ax
-                    for s in seen
-                    if len(s) == len(wshape)
-                    for ax in range(len(s))
-                    if s[ax] != wshape[ax]
-                }
-                if (
-                    sums[i] is not None
-                    or len(diff_axes) != 1
-                    or any(len(s) != len(wshape) for s in seen)
-                ):
+            with spans.span(spans.MERGE):
+                leaves, _ = _flatten(out)
+                if len(leaves) != len(want_leaves):
                     raise OutOfCoreError(
-                        f"cannot merge wave output leaf of shapes {seen} "
-                        f"into expected {wshape}: not an additive partial and "
-                        "not single-axis wave rows"
+                        "wave output structure does not match the in-core lowering"
                     )
-                ax = diff_axes.pop()
-                if rows[i] is None:
-                    rows[i] = (ax, [], [])
-                # drop the wave's COO pad rows; host-side assembly
-                live = g.narrow(ax, 0, bnd[w + 1] - bnd[w])
-                rows[i][1].append(live.cpu())
-                rows[i][2].append(tuple(g.shape))
-            del out, leaves
-        merged = [
-            sums[i] if rows[i] is None else torch.cat(rows[i][1], dim=rows[i][0])
-            for i in range(len(want_leaves))
-        ]
+                for i, (want, g) in enumerate(zip(want_leaves, leaves)):
+                    wshape = tuple(want.shape)
+                    if tuple(g.shape) == wshape and rows[i] is None:
+                        sums[i] = g if sums[i] is None else sums[i] + g
+                        continue
+                    seen = {tuple(g.shape)} | (set(rows[i][2]) if rows[i] else set())
+                    if sums[i] is not None:
+                        seen.add(wshape)
+                    diff_axes = {
+                        ax
+                        for s in seen
+                        if len(s) == len(wshape)
+                        for ax in range(len(s))
+                        if s[ax] != wshape[ax]
+                    }
+                    if (
+                        sums[i] is not None
+                        or len(diff_axes) != 1
+                        or any(len(s) != len(wshape) for s in seen)
+                    ):
+                        raise OutOfCoreError(
+                            f"cannot merge wave output leaf of shapes {seen} "
+                            f"into expected {wshape}: not an additive partial and "
+                            "not single-axis wave rows"
+                        )
+                    ax = diff_axes.pop()
+                    if rows[i] is None:
+                        rows[i] = (ax, [], [])
+                    # drop the wave's COO pad rows; host-side assembly
+                    live = g.narrow(ax, 0, bnd[w + 1] - bnd[w]).cpu()
+                    self.store.merged(live)
+                    rows[i][1].append(live)
+                    rows[i][2].append(tuple(g.shape))
+                del out, leaves
+        with spans.span(spans.MERGE):
+            merged = [
+                sums[i] if rows[i] is None else torch.cat(rows[i][1], dim=rows[i][0])
+                for i in range(len(want_leaves))
+            ]
         return _unflatten(want_def, merged)
 
     def __call__(self, env: Env, seed: Optional[AnyRel] = None):
@@ -925,7 +935,8 @@ class StreamedCompiled:
                 ChunkManifest(axis=axis_of[name], boundaries=plan.boundaries),
             )
         resident = {k: v for k, v in env.items() if k not in streamed}
-        want_shape = self._lower_full(env, seed).out_shape
+        with spans.span(spans.PLAN):
+            want_shape = self._lower_full(env, seed).out_shape
         return self._merge(self._waves(resident, seed), want_shape)
 
 

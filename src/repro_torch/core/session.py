@@ -68,6 +68,7 @@ from . import chunkstore as _chunkstore
 from . import engine as _engine
 from . import fra, kernels, planner
 from . import rewrite as _rewrite
+from . import spans as _spans
 from . import sql as _sql
 from .autodiff import GradientProgram, ra_autodiff
 from .relation import (
@@ -498,7 +499,8 @@ class Database:
 
             {"cache":   {hits, misses, evictions},          # exec cache
              "spill":   {spilled_relations, spilled_bytes,
-                         fetched_chunks, fetched_bytes},    # out-of-core
+                         fetched_chunks, fetched_bytes,
+                         merged_bytes},                     # out-of-core
              "reshard": {calls, resharded_calls, bytes_moved,
                          last_call_bytes, planned_bytes},   # mesh layouts
              "serve":   {requests, admitted, completed, failed,
@@ -510,7 +512,9 @@ class Database:
 
         ``reshard`` sums, over every executable the session compiled, the
         committed-input bytes a mesh step moved to its planned layout
-        (``engine.Compiled.counters``)."""
+        (``engine.Compiled.counters``). ``spill``'s ``merged_bytes`` counts
+        the bytes a streamed step copied back to the host
+        (``chunkstore.ChunkStore``)."""
         reshard = {
             "calls": 0, "resharded_calls": 0, "bytes_moved": 0,
             "last_call_bytes": 0, "planned_bytes": 0,
@@ -883,11 +887,12 @@ class Database:
         missing = [n for n in donate if n not in env]
         if missing:
             raise KeyError(f"cannot donate {missing}: not in the environment ({sorted(env)})")
-        if stats is None:
-            stats = self._catalog_stats_for(env)
-        compiled = self._compiled_for(
-            program, env, seed, donate=donate, stats=stats, mesh=mesh
-        )
+        with _spans.span(_spans.PLAN):
+            if stats is None:
+                stats = self._catalog_stats_for(env)
+            compiled = self._compiled_for(
+                program, env, seed, donate=donate, stats=stats, mesh=mesh
+            )
         out = compiled(env, seed)
         for n in donate:
             if n in self.catalog and self.catalog.entry(n).relation is env[n]:
@@ -964,11 +969,12 @@ class QueryHandle:
 
     def forward(self):
         """Execute the (forward) query; returns its output relation."""
-        names = _base_names([self.query.root])
-        env = self._env(names)
-        compiled = self.db._compiled_for(
-            self.query, env, stats=self.db.catalog.snapshot(names)
-        )
+        with _spans.span(_spans.PLAN):
+            names = _base_names([self.query.root])
+            env = self._env(names)
+            compiled = self.db._compiled_for(
+                self.query, env, stats=self.db.catalog.snapshot(names)
+            )
         self.last = compiled
         return compiled(env)
 
@@ -1014,23 +1020,24 @@ class QueryHandle:
         seed,
         donate: Tuple[str, ...],
     ):
-        prog = self._program(wrt)
-        names = _base_names(
-            [prog.forward.root, *prog.grads.values()]
-        )
-        env = self._env(names)
-        bad = set(donate) - set(env)
-        if bad:
-            raise ValueError(
-                f"cannot donate {sorted(bad)}: not relations of this query "
-                f"(env: {sorted(env)})"
+        with _spans.span(_spans.PLAN):
+            prog = self._program(wrt)
+            names = _base_names(
+                [prog.forward.root, *prog.grads.values()]
             )
-        seed_rel = self._seed_rel(seed)
-        compiled = self.db._compiled_for(
-            prog, env, seed_rel,
-            donate=tuple(sorted(donate)),
-            stats=self.db.catalog.snapshot(names),
-        )
+            env = self._env(names)
+            bad = set(donate) - set(env)
+            if bad:
+                raise ValueError(
+                    f"cannot donate {sorted(bad)}: not relations of this query "
+                    f"(env: {sorted(env)})"
+                )
+            seed_rel = self._seed_rel(seed)
+            compiled = self.db._compiled_for(
+                prog, env, seed_rel,
+                donate=tuple(sorted(donate)),
+                stats=self.db.catalog.snapshot(names),
+            )
         self.last = compiled
         out, grads = compiled(env, seed_rel)
         for n in donate:
